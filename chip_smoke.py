@@ -2,24 +2,34 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path — KV-cached decode serving of the
-transformer LM at the repo's full decode-serving width (vocab 8192,
-d_model 512, 8 layers, 8 heads, max_len 512, 16 slots, prompt buckets
-8/16/32) — through the entry points a user calls, on random weights made
-from ``--seed``. Phases, in order; any failure raises and the script
-exits non-zero:
+Drives the port's two main paths through the entry points a user calls,
+on random weights and data made from ``--seed``:
+
+* KV-cached decode serving of the transformer LM at the repo's full
+  decode-serving width (vocab 8192, d_model 512, 8 layers, 8 heads,
+  max_len 512, 16 slots, prompt buckets 8/16/32);
+* training of the stacked-LSTM text classifier at the repo's full width
+  (dict 30000, emb 512, hid 512, 3 layers, 2 classes, Adam lr 1e-3) on a
+  batch of 64 ragged sequences of 16..80 ids.
+
+Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn
    TF32 off for float32 matmuls and convolutions;
-2. build every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc;
+2. build every CUDA kernel from ``paddle_tpu_torch/csrc``, one nvcc per
+   source, all started together;
 3. hold each kernel against its plain PyTorch version on the card;
-4. the slice: create the weights with the port's Executor, warm a
+4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
    port's one-shot logits;
-5. time each kernel, its plain version and one PyTorch library call at
-   the main path's shapes with CUDA events, and profile the decode step;
-6. print the kernel table as one JSON line, then the result line.
+5. stacked-LSTM training: startup, 2 warmup steps, 10 counted steps
+   (falling finite loss, exact LSTM launch counts), a profile of one
+   step, and the card against the CPU at a reduced size from the same
+   weights (losses of 3 steps, first-step gradients);
+6. time each kernel, its plain version and one PyTorch library call at
+   the main paths' shapes with CUDA events, and profile the decode step;
+7. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -44,12 +54,33 @@ VOCAB, D_MODEL, N_LAYERS, N_HEADS = 8192, 512, 8, 8
 MAX_LEN, SLOTS, BUCKETS = 512, 16, (8, 16, 32)
 N_REQUESTS, LONG_NEW, SHORT_NEW = 24, 128, 8
 
+# full width: the repo's stacked-LSTM configuration (bench.py:163-167)
+# at the reference's published batch of 64
+DICT, EMB, HID, STACKED, CLASSES, LR = 30000, 512, 512, 3, 2, 1e-3
+LSTM_B, LSTM_T, MIN_LEN = 64, 80, 16
+WARMUP_STEPS, TRAIN_STEPS = 2, 10
+# the card against the CPU: a reduced size the CPU's plain step loop runs
+XCHECK = dict(dict_dim=1000, emb_dim=128, hid_dim=128, stacked_num=3)
+XCHECK_B, XCHECK_T, XCHECK_STEPS = 16, 20, 3
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
+# the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
+# the recurrence's sums); its gradients (dxg, dh0, dc0, dpeep, and dW
+# through the GEMM outside the kernel) within rtol 1e-4 and an atol of
+# 1e-5 times the output's largest magnitude, because the backward
+# carries every step's reordering error into sums whose terms reach
+# tens to hundreds at the path's shape
+LSTM_ATOL, LSTM_RTOL = 1e-5, 1e-4
 
-SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "lstm_fwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
+           "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
-            "flash_decode": "paddle_tpu/kernels/flash_attention.py:374"}
+            "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
+            "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
+            "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198"}
 
 
 def phase(name):
@@ -63,13 +94,13 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def assert_close(what, got, want):
+def assert_close(what, got, want, atol=ATOL, rtol=RTOL):
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError("%s: kernel disagrees with its plain version "
                              "(max abs err %.3g)" % (what, err.max()))
-    return float(err.max())
+    return float(err.max()) if err.numel() else 0.0
 
 
 def time_ms(fn, reps=25, flush=None):
@@ -97,6 +128,220 @@ def time_ms(fn, reps=25, flush=None):
     return float(np.median(times))
 
 
+def device_profile(step, n_steps, step_ms, label):
+    """Profile ``n_steps`` calls of ``step`` with torch.profiler and print
+    the card's busy share of ``step_ms`` (host wall time per step, taken
+    without the profiler) and the top-10 device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    # device-side events (kernels, copies): their intervals are device time
+    by_kernel = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            us, n = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    if not by_kernel:
+        print("%s: host %.3f ms/step; device busy not measured (the "
+              "profiler recorded no device events)" % (label, step_ms))
+        return
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1000.0 / n_steps
+    ops = sum(n for _, n in by_kernel.values()) / n_steps
+    print("%s: host %.3f ms/step; device busy %.3f ms/step (%.1f%%, idle "
+          "%.1f%%); %.1f device ops/step"
+          % (label, step_ms, busy_ms, 100.0 * busy_ms / step_ms,
+             100.0 - 100.0 * busy_ms / step_ms, ops))
+    for name, (us, n) in sorted(by_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print("  device %-70s %9.1f us/step %6.1f calls/step" % (
+            name[:70], us / n_steps, n / n_steps))
+
+
+def lstm_inputs(B, T, H, peep, g, dev, ragged=True):
+    """Seeded LSTM inputs on the card; ragged masks hold a row of length
+    0 and a row of length T."""
+    xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
+    w = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+    h0 = torch.randn(B, H, generator=g) * 0.1
+    c0 = torch.randn(B, H, generator=g) * 0.1
+    if ragged:
+        lens = torch.randint(0, T + 1, (B,), generator=g)
+        lens[0], lens[-1] = 0, T
+    else:
+        lens = torch.full((B,), T)
+    mask = (torch.arange(T)[None] < lens[:, None]).float()
+    p = torch.randn(3, H, generator=g) * 0.1 if peep else torch.zeros(3, H)
+    dhs = torch.randn(B, T, H, generator=g)
+    dcs = torch.randn(B, T, H, generator=g)
+    return [t.to(dev) for t in (xg, w, h0, c0, mask, p, dhs, dcs)]
+
+
+def check_lstm(lc, g, dev):
+    """B3 and B4 against their plain versions: hs, cs; dxg, dW (through
+    the GEMM outside the kernel), dh0, dc0, dpeep. Returns the max abs
+    errors {kernel: err} and dW's."""
+    err = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
+    dw_err = 0.0
+    for B, T, H in ((8, 5, 32), (LSTM_B, LSTM_T, HID), (37, 17, 128)):
+        for peep in (True, False):
+            xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, peep,
+                                                           g, dev)
+            what = "lstm %s peep=%s" % ((B, T, H), peep)
+            leaves = [t.clone().requires_grad_() for t in (xg, w, h0, c0, p)]
+            hs, cs = lc.lstm_sequence(leaves[0], leaves[1], leaves[2],
+                                      leaves[3], mask, leaves[4])
+            got = torch.autograd.grad((hs, cs), leaves, (dhs, dcs))
+            rhs, rcs, rst = lc.lstm_forward_reference(xg, w, h0, c0, mask, p)
+            dxg, dh0, dc0, dp = lc.lstm_backward_reference(
+                rst, rcs, w, p, c0, mask, dhs, dcs)
+            h_prev = torch.cat([h0[:, None], rhs[:, :-1]], dim=1)
+            dw = torch.einsum("bth,btg->hg", h_prev, dxg)
+            for name, a, b in (("hs", hs, rhs), ("cs", cs, rcs)):
+                err["lstm_fwd"] = max(err["lstm_fwd"], assert_close(
+                    "%s %s" % (what, name), a.detach(), b,
+                    LSTM_ATOL, LSTM_RTOL))
+            for name, a, b in (("dxg", got[0], dxg), ("dW", got[1], dw),
+                               ("dh0", got[2], dh0), ("dc0", got[3], dc0),
+                               ("dpeep", got[4], dp)):
+                atol = LSTM_ATOL * max(1.0, float(b.abs().max()))
+                e = assert_close("%s %s" % (what, name), a, b, atol,
+                                 LSTM_RTOL)
+                if name == "dW":
+                    dw_err = max(dw_err, e)
+                else:
+                    err["lstm_bwd"] = max(err["lstm_bwd"], e)
+    torch.cuda.synchronize()
+    return err, dw_err
+
+
+def stacked_lstm_batch(rng, B, T, min_len, dict_dim):
+    """Ragged ids uniform in [1, dict_dim), lengths uniform in
+    [min_len, T] with one row of length T; labels 0/1."""
+    lens = rng.randint(min_len, T + 1, B)
+    lens[rng.randint(B)] = T
+    words = [rng.randint(1, dict_dim, (int(n), 1)).astype(np.int64)
+             for n in lens]
+    label = rng.randint(0, CLASSES, (B, 1)).astype(np.int64)
+    return lens, words, label
+
+
+def train_phase(fluid, seed, dev):
+    """The stacked-LSTM training path at full width, then the card
+    against the CPU at a reduced size. Returns the B3/B4 launch counts
+    of the counted steps."""
+    from paddle_tpu_torch import interop, unique_name
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
+
+    with unique_name.guard():
+        prog, startup, _, (loss, acc) = build_stacked_lstm_train(
+            dict_dim=DICT, class_dim=CLASSES, emb_dim=EMB, hid_dim=HID,
+            stacked_num=STACKED, lr=LR)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if prog.global_block().var(n).is_parameter)
+    rng = np.random.RandomState(seed)
+    lens, words, label = stacked_lstm_batch(rng, LSTM_B, LSTM_T, MIN_LEN,
+                                            DICT)
+    tokens = int(lens.sum())
+    print("parameters: %d (%.1f MB fp32); batch %d sequences, lengths "
+          "%d..%d, %d real tokens of %d padded" % (
+              n_params, n_params * 4 / 1e6, LSTM_B, lens.min(), lens.max(),
+              tokens, LSTM_B * LSTM_T))
+    # the first step feeds the ragged list; the packed batch then stays
+    # on the card
+    packed = np.zeros((LSTM_B, LSTM_T, 1), np.int64)
+    for i, w in enumerate(words):
+        packed[i, :len(w)] = w
+    on_card = {"words": fluid.PackedSeq(
+        torch.from_numpy(packed).to(dev),
+        torch.from_numpy(lens.astype(np.int32)).to(dev)),
+        "label": torch.from_numpy(label).to(dev)}
+    for i in range(WARMUP_STEPS):
+        exe.run(prog, feed={"words": words, "label": label} if i == 0
+                else on_card, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    lc.reset_launches()
+    losses, accs = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        l_, a_ = exe.run(prog, feed=on_card, fetch_list=[loss, acc],
+                         scope=scope)
+        losses.append(float(l_))
+        accs.append(float(a_))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lc.launches)
+    want = {"lstm_fwd": 2 * STACKED * TRAIN_STEPS,
+            "lstm_bwd": STACKED * TRAIN_STEPS}
+    print("launches on the main path:", json.dumps(launches),
+          "expected", json.dumps(want),
+          "(per step: %d lstm ops forward, %d lstm_grad ops, each "
+          "recomputing its forward)" % (STACKED, STACKED))
+    if launches != want:
+        raise AssertionError("LSTM launch counts %s != %s"
+                             % (launches, want))
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    print("accuracy:", " ".join("%.4f" % v for v in accs))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    step_ms = wall * 1000.0 / TRAIN_STEPS
+    print("train: %d steps in %.3f s = %.3f ms/step, %.2f sequences/s, "
+          "%.1f tokens/s (real tokens)" % (
+              TRAIN_STEPS, wall, step_ms, LSTM_B / (step_ms / 1e3),
+              tokens / (step_ms / 1e3)))
+    device_profile(lambda: exe.run(prog, feed=on_card, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "train step")
+
+    # the card against the CPU from the same weights, at a reduced size
+    with unique_name.guard():
+        xprog, xstart, _, (xloss, _) = build_stacked_lstm_train(
+            class_dim=CLASSES, lr=LR, **XCHECK)
+    xstart.random_seed = seed
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(xstart, scope=cpu_scope)
+    interop.load_reference_state(
+        {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
+        fluid.CUDAPlace(0), [xprog, xstart])
+    xlens, xwords, xlabel = stacked_lstm_batch(rng, XCHECK_B, XCHECK_T, 1,
+                                               XCHECK["dict_dim"])
+    xfeed = {"words": xwords, "label": xlabel}
+    grads = sorted(p.name + "@GRAD"
+                   for p in xprog.global_block().all_parameters())
+    worst = 0.0
+    for step in range(XCHECK_STEPS):
+        extra = grads if step == 0 else []
+        c = cpu.run(xprog, feed=xfeed, fetch_list=[xloss] + extra,
+                    scope=cpu_scope)
+        k = exe.run(xprog, feed=xfeed, fetch_list=[xloss] + extra,
+                    scope=card_scope)
+        print("cross-check step %d: loss cpu %.7f card %.7f" % (
+            step, float(c[0]), float(k[0])))
+        np.testing.assert_allclose(k[0], c[0], rtol=1e-4)
+        for name, cg, kg in zip(extra, c[1:], k[1:]):
+            atol = 1e-4 * float(np.abs(cg).max())
+            np.testing.assert_allclose(kg, cg, rtol=0, atol=atol,
+                                       err_msg=name)
+            worst = max(worst, float(np.abs(kg - cg).max())
+                        / max(float(np.abs(cg).max()), 1e-30))
+    print("card == cpu at %s, B %d, T <= %d: losses of %d steps within "
+          "rtol 1e-4; %d first-step gradients within 1e-4 x max|g| "
+          "(worst %.3g x max|g|)" % (
+              XCHECK, XCHECK_B, XCHECK_T, XCHECK_STEPS, len(grads), worst))
+    torch.cuda.synchronize()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -111,6 +356,7 @@ def main():
     from paddle_tpu_torch import layers, unique_name
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import lstm_cell as lc
     from paddle_tpu_torch.models.transformer import (
         build_transformer_decode, transformer_lm)
     from paddle_tpu_torch.serving import DecodeEngine, DecodeLoop
@@ -127,14 +373,14 @@ def main():
     # ---- 2. build ----
     phase("build")
     t0 = time.perf_counter()
-    for name in _build.SOURCES:
-        _build.load(name)
+    _build.load_all()
     print("built %s in %.2f s (nvcc %s)" % (
         sorted(_build.SOURCES), time.perf_counter() - t0,
         " ".join(_build.NVCC_FLAGS)))
 
     # ---- 3. kernels against their plain versions ----
-    phase("kernels vs plain versions (atol %g, rtol %g)" % (ATOL, RTOL))
+    phase("kernels vs plain versions (atol %g, rtol %g; LSTM atol %g, "
+          "rtol %g)" % (ATOL, RTOL, LSTM_ATOL, LSTM_RTOL))
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     max_err = {"flash_attention": 0.0, "flash_decode": 0.0}
 
@@ -172,7 +418,10 @@ def main():
     if float(fa.flash_decode(q, kc, vc, lens)[0].abs().max()) != 0.0:
         raise AssertionError("flash_decode: an empty cache row is not 0")
     torch.cuda.synchronize()
-    print("max abs err:", json.dumps(max_err))
+    lstm_err, dw_err = check_lstm(lc, g, dev)
+    max_err.update(lstm_err)
+    print("max abs err:", json.dumps(max_err), "(LSTM dW through the "
+          "outside GEMM: %.3g)" % dw_err)
 
     # ---- 4. the slice at full width ----
     phase("decode serving at full width (seed %d)" % args.seed)
@@ -277,7 +526,11 @@ def main():
     print("greedy == one-shot argmax on %d tokens of 3 requests" % checked)
     torch.cuda.synchronize()
 
-    # ---- 5. times ----
+    # ---- 5. the training slice at full width ----
+    phase("stacked-LSTM training at full width (seed %d)" % args.seed)
+    launches.update(train_phase(fluid, args.seed, dev))
+
+    # ---- 6. times ----
     phase("times (CUDA events, median of 25 runs after warmup)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
 
@@ -315,16 +568,57 @@ def main():
                 q, k, v, is_causal=causal)),
             bytes=4 * (4 * N_HEADS * s * 64 + N_HEADS * s),
             flops=4 * N_HEADS * pairs * 64))
+    # B3 and B4 at the training path's shape, every step valid
+    B, T, H = LSTM_B, LSTM_T, HID
+    xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, True, g, dev,
+                                                   ragged=False)
+    _, cs, stash = lc.lstm_forward(xg, w, h0, c0, mask, p)
+    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    x_in = torch.randn(B, T, H, generator=g).to(dev)
+    gout = torch.randn(B, T, H, generator=g).to(dev)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            cudnn(x_in)
+
+    def cudnn_fwd_bwd():
+        out, _ = cudnn(x_in)
+        out.backward(gout)
+
+    rows.append(dict(
+        name="lstm_fwd", shape="[64,80,512] peep, all steps valid",
+        ms=time_ms(lambda: lc.lstm_forward(xg, w, h0, c0, mask, p)),
+        plain_ms=time_ms(lambda: lc.lstm_forward_reference(
+            xg, w, h0, c0, mask, p)),
+        library_ms=time_ms(cudnn_fwd),
+        library="torch.nn.LSTM (cuDNN) forward, input size 512, no "
+                "peepholes: also does the input GEMM",
+        bytes=4 * (2 * B * T * 4 * H + H * 4 * H + 3 * H + 2 * B * H
+                   + B * T + 2 * B * T * H),
+        flops=2 * B * T * H * 4 * H))
+    rows.append(dict(
+        name="lstm_bwd", shape="[64,80,512] peep, all steps valid",
+        ms=time_ms(lambda: lc.lstm_backward(stash, cs, w, p, c0, mask, dhs,
+                                            dcs)),
+        plain_ms=time_ms(lambda: lc.lstm_backward_reference(
+            stash, cs, w, p, c0, mask, dhs, dcs)),
+        library_ms=time_ms(cudnn_fwd_bwd),
+        library="torch.nn.LSTM (cuDNN) forward plus backward, input size "
+                "512, no peepholes: also does the input GEMMs and dW",
+        bytes=4 * (2 * B * T * 4 * H + 3 * B * T * H + H * 4 * H + 2 * 3 * H
+                   + 3 * B * H + B * T),
+        flops=2 * B * T * 4 * H * H))
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / FP32_FLOPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         print("time %s %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
-              "bound_ms %.6f (%s; %d bytes, %d flops)" % (
+              "bound_ms %.6f (%s; %d bytes, %d flops)%s" % (
                   r["name"], r["shape"], r["ms"], r["plain_ms"],
                   r["library_ms"], r["bound_ms"], r["bound_by"],
-                  r["bytes"], r["flops"]))
+                  r["bytes"], r["flops"],
+                  "; library: " + r["library"] if "library" in r else ""))
 
     # the decode step end to end: host wall time vs device busy time
     cache = engine.new_cache()
@@ -339,50 +633,27 @@ def main():
         engine.decode_step(last, cache)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1000.0 / n_steps
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            engine.decode_step(last, cache)
-        torch.cuda.synchronize()
-    # device-side events (kernels, copies): their intervals are device time
-    by_kernel = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            us, n = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_ms = sum(us for us, _ in by_kernel.values()) / 1000.0 / n_steps
-    ops = sum(n for _, n in by_kernel.values()) / n_steps
-    if by_kernel:
-        print("decode step at pos 160: host %.3f ms/step; device busy "
-              "%.3f ms/step (%.1f%%, idle %.1f%%); %.1f device ops/step"
-              % (step_ms, busy_ms, 100.0 * busy_ms / step_ms,
-                 100.0 - 100.0 * busy_ms / step_ms, ops))
-        for name, (us, n) in sorted(by_kernel.items(),
-                                    key=lambda kv: -kv[1][0])[:10]:
-            print("  device %-70s %9.1f us/step %6.1f calls/step" % (
-                name[:70], us / n_steps, n / n_steps))
-    else:
-        print("decode step at pos 160: host %.3f ms/step; device busy "
-              "not measured (the profiler recorded no device events)"
-              % step_ms)
+    device_profile(lambda: engine.decode_step(last, cache), n_steps,
+                   step_ms, "decode step at pos 160")
     torch.cuda.synchronize()
 
-    # ---- 6. result ----
+    # ---- 7. result ----
     by_name = {}
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
                 ("flash_decode", "[16,8,512,64] cache_len=160"),
-                ("flash_attention", "[1,8,32,64] causal=True")):
+                ("flash_attention", "[1,8,32,64] causal=True")) \
+                or r["name"] in ("lstm_fwd", "lstm_bwd"):
             by_name[r["name"]] = r
-    table = [{"name": n, "route": "cuda", "source": SOURCE,
+    table = [{"name": n, "route": "cuda", "source": SOURCES[n],
               "replaces": REPLACES[n], "launches": launches[n],
               "max_abs_err": max_err[n], "ms": by_name[n]["ms"],
               "plain_ms": by_name[n]["plain_ms"],
               "bound_ms": by_name[n]["bound_ms"],
               "bound_by": by_name[n]["bound_by"],
               "library_ms": by_name[n]["library_ms"]}
-             for n in ("flash_attention", "flash_decode")]
+             for n in ("flash_attention", "flash_decode", "lstm_fwd",
+                       "lstm_bwd")]
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

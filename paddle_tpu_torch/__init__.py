@@ -25,11 +25,13 @@ from paddle_tpu_torch.core.ir import (  # noqa: F401
     switch_main_program, switch_startup_program, program_guard,
 )
 from paddle_tpu_torch.core.executor import Executor  # noqa: F401
+from paddle_tpu_torch.core.lower import PackedSeq  # noqa: F401
 from paddle_tpu_torch.core.scope import (  # noqa: F401
     Scope, global_scope, scope_guard)
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: F401
 from paddle_tpu_torch import layers  # noqa: F401
 from paddle_tpu_torch import initializer  # noqa: F401
+from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401
 

@@ -10,14 +10,22 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
   executor's device. A program that writes one (the startup program's
   initializers) stores the new tensor back into the scope.
 * feed/fetch need no feed/fetch ops: feeds enter the environment before
-  the block runs, fetches are read from it afterwards.
+  the block runs, fetches are read from it afterwards. A ``lod_level >
+  0`` var takes a ragged list (one array per sequence), packed here into
+  a ``PackedSeq``, or a ``PackedSeq``; a fetched sequence comes back as
+  a ``PackedSeq`` of numpy arrays.
+* An op that updates a persistable in place (``adam``'s ParamOut and
+  moments, names equal to its inputs') is written back to the scope
+  with the other persistables the block wrote.
 """
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core import ir
-from paddle_tpu_torch.core.lower import TraceContext, run_block, step_key
+from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.lower import (PackedSeq, TraceContext, run_block,
+                                         step_key)
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
@@ -57,7 +65,8 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [v.name if isinstance(v, ir.Variable) else str(v)
                        for v in (fetch_list or [])]
-        feed = {n: self._to_device(v) for n, v in (feed or {}).items()}
+        feed = {n: self._to_device(program, n, v)
+                for n, v in (feed or {}).items()}
 
         reads, written = external_reads_and_writes(program)
         env = {}
@@ -94,10 +103,47 @@ class Executor:
                            % missing)
         fetches = [env[n] for n in fetch_names]
         if return_numpy:
-            return [f.cpu().numpy() for f in fetches]
+            return [_to_numpy(f) for f in fetches]
         return fetches
 
-    def _to_device(self, v):
+    def _to_device(self, program, name, v):
+        if isinstance(v, PackedSeq):
+            return PackedSeq(self._to_device(program, name, v.data),
+                             torch.as_tensor(v.lengths).to(self.device,
+                                                           torch.int32))
         if isinstance(v, torch.Tensor):
             return v.to(self.device)
+        if isinstance(v, (list, tuple)):
+            var = _find_var(program, name)
+            if var is not None and var.lod_level > 0:
+                return self._to_device(program, name,
+                                       _pack_ragged(v, var.dtype))
         return torch.as_tensor(np.asarray(v), device=self.device)
+
+
+def _find_var(program, name):
+    for b in program.blocks:
+        if b.has_var_local(name):
+            return b.vars[name]
+    return None
+
+
+def _to_numpy(v):
+    if isinstance(v, PackedSeq):
+        return PackedSeq(v.data.cpu().numpy(), v.lengths.cpu().numpy())
+    return v.cpu().numpy()
+
+
+def _pack_ragged(seqs, dtype):
+    """list of per-example sequences (list/array [len_i, ...]) ->
+    PackedSeq of numpy arrays, zero-padded to the longest."""
+    np_dtype = np.dtype(dtype)
+    arrs = [np.asarray(s, dtype=np_dtype) for s in seqs]
+    lengths = np.asarray([a.shape[0] for a in arrs], dtype=np.int32)
+    max_len = max(1, int(lengths.max()) if len(arrs) else 1)
+    tail = arrs[0].shape[1:] if arrs else ()
+    out = np.zeros((len(arrs), max_len) + tail, dtype=np_dtype)
+    for i, a in enumerate(arrs):
+        out[i, : a.shape[0]] = a
+    return PackedSeq(torch.as_tensor(out, dtype=torch_dtype(np_dtype.name)),
+                     torch.as_tensor(lengths))

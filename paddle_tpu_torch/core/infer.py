@@ -21,7 +21,8 @@ import logging
 import torch
 
 from paddle_tpu_torch.core import registry
-from paddle_tpu_torch.core.lower import TraceContext
+from paddle_tpu_torch.core.ir import VarType
+from paddle_tpu_torch.core.lower import PackedSeq, TraceContext
 
 log = logging.getLogger(__name__)
 
@@ -71,12 +72,12 @@ def dtype_name(dtype):
 def abstract_value(var):
     if var.shape is None:
         raise ValueError("variable %r has no shape for inference" % var.name)
-    if var.lod_level > 0:
-        raise NotImplementedError(
-            "variable %r is a packed sequence (lod_level > 0): sequence "
-            "variables arrive with a later slice" % var.name)
-    return torch.empty(_sub(var.shape), dtype=torch_dtype(var.dtype),
-                       device=_META)
+    shape = _sub(var.shape)
+    data = torch.empty(shape, dtype=torch_dtype(var.dtype), device=_META)
+    if var.type == VarType.PACKED_SEQ or var.lod_level > 0:
+        return PackedSeq(data, torch.empty((shape[0],), dtype=torch.int32,
+                                           device=_META))
+    return data
 
 
 def infer_op_shapes(block, op):
@@ -103,9 +104,15 @@ def infer_op_shapes(block, op):
         if slot not in out:
             continue
         for n, val in zip(names, out[slot]):
-            if not n or not isinstance(val, torch.Tensor):
+            if not n:
                 continue
             var = block.var(n)
+            if isinstance(val, PackedSeq):
+                var.type = VarType.PACKED_SEQ
+                var.lod_level = max(var.lod_level, 1)
+                val = val.data
+            elif not isinstance(val, torch.Tensor):
+                continue
             var.shape = _unsub(val.shape)
             name = dtype_name(val.dtype)
             var.dtype = _CANONICAL.get(name, name)

@@ -12,13 +12,51 @@ stream is that key mixed with its uid (and a salt), seeding a
 ``torch.Generator`` on the program's device. The two packages draw
 different numbers from the same seed; tests that compare them carry
 weights across with ``paddle_tpu_torch.interop``.
+
+A grad op that ``append_backward`` emitted (``<type>_grad``) runs the
+forward op's ``grad_lower`` or, by default, ``registry.generic_grad``.
 """
 
 import torch
 
 from paddle_tpu_torch.core import registry
 
-__all__ = ["TraceContext", "run_block", "run_op", "step_key"]
+__all__ = ["TraceContext", "run_block", "run_op", "step_key", "PackedSeq"]
+
+
+class PackedSeq:
+    """The LoD tensor: a padded dense buffer + per-sequence lengths.
+
+    The reference represents variable-length batches as LoDTensor
+    (offset vectors alongside the buffer, `framework/lod_tensor.h:58`).
+    As in the JAX package, the same capability is carried as ``data``
+    padded to [batch, max_len, ...] with an int32 ``lengths`` [batch];
+    sequence ops consume the pair and mask internally. Gradients flow
+    through ``data`` only."""
+
+    __slots__ = ("data", "lengths")
+
+    def __init__(self, data, lengths):
+        self.data = data
+        self.lengths = lengths
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def mask(self, dtype=torch.float32):
+        """[batch, max_len] validity mask."""
+        t = torch.arange(self.data.shape[1], dtype=torch.int32,
+                         device=self.data.device)
+        return (t[None, :] < self.lengths[:, None]).to(dtype)
+
+    def __repr__(self):
+        return "PackedSeq(data=%s, lengths=%s)" % (
+            tuple(self.data.shape), tuple(self.lengths.shape))
 
 _MASK64 = (1 << 64) - 1
 
@@ -94,11 +132,73 @@ def run_block(ctx, block, env):
 
 
 def run_op(ctx, block, op, env):
+    if op.type.endswith("_grad") and not registry.has(op.type):
+        _run_generic_grad_op(ctx, block, op, env)
+        return
     spec = registry.get(op.type)
     ins = {slot: [_lookup(env, block, n) for n in names]
            for slot, names in op.inputs.items()}
     result = spec.lower(ctx.for_op(op), ins, op.attrs, op)
     _bind_outputs(env, op, result)
+
+
+def _run_generic_grad_op(ctx, block, op, env):
+    """Execute a grad op emitted by append_backward.
+
+    Grad op layout (see backward.py): inputs = forward inputs under their
+    original slots + ``GRAD@<slot>`` cotangent slots; outputs =
+    ``GRAD@<slot>`` per differentiable forward input slot. A missing /
+    empty-name cotangent means "no gradient flows to this output" (zeros).
+    """
+    spec = registry.get(op.type[: -len("_grad")])
+    fwd_ins, out_grads = {}, {}
+    for slot, names in op.inputs.items():
+        vals = [_lookup(env, block, n) if n else None for n in names]
+        if slot.startswith("GRAD@"):
+            out_grads[slot[len("GRAD@"):]] = vals
+        else:
+            fwd_ins[slot] = vals
+    fwd_op = _FwdOpView(op)
+    if spec.grad_lower is not None:
+        gins = spec.grad_lower(ctx.for_op(fwd_op), fwd_ins, out_grads,
+                               fwd_op.attrs, fwd_op)
+    else:
+        gins = registry.generic_grad(ctx, spec, fwd_op, fwd_ins, out_grads)
+    for slot, names in op.outputs.items():
+        assert slot.startswith("GRAD@"), slot
+        base = slot[len("GRAD@"):]
+        gs = gins.get(base, [])
+        for i, n in enumerate(names):
+            if not n:
+                continue
+            g = gs[i] if i < len(gs) else None
+            if g is None:
+                # a gradient the forward says is zero: zeros shaped like
+                # the forward input
+                g = _zeros_like(fwd_ins[base][i])
+            env[n] = g
+
+
+def _zeros_like(v):
+    if isinstance(v, PackedSeq):
+        return PackedSeq(torch.zeros_like(v.data), v.lengths)
+    return torch.zeros_like(v)
+
+
+class _FwdOpView:
+    """Presents a grad op as its forward op (same attrs, forward uid for
+    the same random draws)."""
+
+    __slots__ = ("type", "attrs", "uid", "inputs", "outputs", "block")
+
+    def __init__(self, grad_op):
+        self.type = grad_op.type[: -len("_grad")]
+        self.attrs = grad_op.attrs
+        self.uid = grad_op.attrs.get("fwd_op_uid", grad_op.uid)
+        self.inputs = {k: v for k, v in grad_op.inputs.items()
+                       if not k.startswith("GRAD@")}
+        self.outputs = {}
+        self.block = grad_op.block
 
 
 def _lookup(env, block, name):

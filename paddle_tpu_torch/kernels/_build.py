@@ -8,8 +8,9 @@ headers are compiled, so a build takes seconds. Libraries land in
 edited source is rebuilt and an unchanged one is loaded as it is.
 
 Nothing is built when a module is imported: the first CUDA tensor that
-reaches a kernel wrapper calls :func:`load`. A missing ``nvcc`` or a
-failed build raises; there is no fallback.
+reaches a kernel wrapper calls :func:`load`; :func:`load_all` starts one
+``nvcc`` per source, all at once, and waits for them together. A missing
+``nvcc`` or a failed build raises; there is no fallback.
 """
 
 import ctypes
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "load", "load_all"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -35,6 +36,10 @@ SOURCES = {
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+    },
+    "lstm_cell": {
+        "lstm_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "lstm_bwd": ([_P] * 13 + [_I] * 3 + [_P], _I),
     },
 }
 
@@ -62,21 +67,30 @@ def _target(name):
         name, h.hexdigest()[:16]))
 
 
-def _build(name):
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+def _start(name):
+    """Start compiling ``csrc/<name>.cu`` unless its library is already
+    built. Returns ``(process, tmp, out)``, or None when built."""
     src, out = _target(name)
     if os.path.exists(out):
-        return
+        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish(name, started):
+    if started is None:
+        return
+    proc, tmp, out = started
+    log = proc.communicate()[0]
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise RuntimeError("nvcc failed for csrc/%s.cu (exit %d):\n%s"
-                           % (name, proc.returncode, proc.stdout))
+                           % (name, proc.returncode, log))
     os.replace(tmp, out)   # atomic: a reader never sees half a library
 
 
@@ -99,6 +113,24 @@ def load(name):
         return lib
     with _lock:
         if name not in _libs:
-            _build(name)
+            _finish(name, _start(name))
             _open(name)
         return _libs[name]
+
+
+def load_all():
+    """Build every source in :data:`SOURCES` with one ``nvcc`` each, all
+    started together, then load them. Returns {name: library}."""
+    with _lock:
+        names = [n for n in SOURCES if n not in _libs]
+        started = {n: _start(n) for n in names}
+        errors = []
+        for n in names:
+            try:
+                _finish(n, started[n])
+                _open(n)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return dict(_libs)

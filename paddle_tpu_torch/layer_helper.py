@@ -97,6 +97,13 @@ class LayerHelper:
             name=name or unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype or "float32")
 
+    def set_variable_initializer(self, var, initializer):
+        sb = self.startup_program.global_block()
+        if not sb.has_var_local(var.name):
+            sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                          persistable=True)
+            initializer(sb.vars[var.name], sb)
+
     # ---- op appending with shape inference ----
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
@@ -120,6 +127,14 @@ class LayerHelper:
         bias_attr = self.bias_attr
         if bias_attr is False:
             return input_var
+        if getattr(input_var, "lod_level", 0) > 0 and input_var.shape \
+                and len(input_var.shape) > 2 and dim_start == 1:
+            # PackedSeq [batch, time, ...]: dim_start == 1 is the LoD
+            # meaning "past the token dim", which spans two padded dims;
+            # >= 2 addresses the padded buffer literally
+            dim_start += 1
+            if dim_end is not None:
+                dim_end += 1
         size = list(input_var.shape[dim_start:dim_end])
         b = self.create_parameter(bias_attr, shape=size,
                                   dtype=input_var.dtype, is_bias=True)

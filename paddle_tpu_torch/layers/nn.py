@@ -2,17 +2,21 @@
 
 Capability parity: `python/paddle/fluid/layers/nn.py`. Each function
 appends ops to the current program block; shapes propagate by meta-tensor
-inference so downstream layers can size parameters. This slice carries
-the layers the transformer LM and its KV-cached serving forwards use;
-the JAX package's other layers arrive with later slices.
+inference so downstream layers can size parameters. These are the
+layers of the transformer LM and its KV-cached serving forwards, and of
+the stacked-LSTM classifier and the MNIST MLP with their training
+losses and metric; the JAX package's other layers arrive with later
+slices.
 """
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.initializer import Constant
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "elementwise_add", "reshape",
-    "transpose", "unsqueeze", "flash_attention", "multi_head_attention",
+    "fc", "embedding", "dynamic_lstm", "sequence_pool", "cross_entropy",
+    "layer_norm", "elementwise_add", "mean", "softmax", "tanh", "topk",
+    "accuracy", "reshape", "transpose", "unsqueeze", "flash_attention",
+    "multi_head_attention",
 ]
 
 
@@ -27,24 +31,28 @@ def _single_op(type_name, x, attrs=None, dtype=None, name=None):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None):
-    """Fully-connected (reference nn.py fc): y = act(x @ w + b)."""
+    """Fully-connected (reference nn.py fc): y = act(sum_i(x_i @ w_i) + b)."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     dtype = helper.input_dtype()
     inputs = helper.input()
-    if len(inputs) != 1:
-        raise NotImplementedError(
-            "fc over %d inputs emits a sum op, which arrives with a later "
-            "slice" % len(inputs))
-    x, pa = inputs[0], helper.multiple_param_attr(1)[0]
-    in_dim = 1
-    for d in x.shape[num_flatten_dims:]:
-        in_dim *= int(d) if d != -1 else 1
-    w = helper.create_parameter(pa, [in_dim, size], dtype)
-    pre_bias = helper.create_variable_for_type_inference(dtype)
-    helper.append_op("mul", {"X": [x], "Y": [w]}, {"Out": [pre_bias]},
-                     {"x_num_col_dims": num_flatten_dims,
-                      "y_num_col_dims": 1})
+    param_attrs = helper.multiple_param_attr(len(inputs))
+    mul_results = []
+    for x, pa in zip(inputs, param_attrs):
+        in_dim = 1
+        for d in x.shape[num_flatten_dims:]:
+            in_dim *= int(d) if d != -1 else 1
+        w = helper.create_parameter(pa, [in_dim, size], dtype)
+        out = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("mul", {"X": [x], "Y": [w]}, {"Out": [out]},
+                         {"x_num_col_dims": num_flatten_dims,
+                          "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("sum", {"X": mul_results}, {"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -58,6 +66,55 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      {"Out": [out]},
                      {"padding_idx": -1 if padding_idx is None else padding_idx,
                       "is_sparse": is_sparse})
+    return out
+
+
+# ---- recurrent and sequence ----
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """input: PackedSeq [B, T, 4H] (pre-projected); size = 4H."""
+    helper = LayerHelper("dynamic_lstm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    h = size // 4
+    w = helper.create_parameter(helper.param_attr, [h, 4 * h], dtype)
+    bias_size = [1, 7 * h if use_peepholes else 4 * h]
+    b = helper.create_parameter(helper.bias_attr, bias_size, dtype,
+                                is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op(
+        "lstm", inputs, {"Hidden": [hidden], "Cell": [cell]},
+        {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+         "gate_activation": gate_activation, "cell_activation": cell_activation,
+         "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int32")
+    helper.append_op("sequence_pool", {"X": [input]},
+                     {"Out": [out], "MaxIndex": [idx]},
+                     {"pooltype": pool_type.upper()})
+    return out
+
+
+# ---- losses / scoring ----
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", {"X": [input], "Label": [label]},
+                     {"Y": [out]}, {"soft_label": soft_label})
     return out
 
 
@@ -96,6 +153,42 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     helper.append_op("elementwise_add", {"X": [x], "Y": [y]}, {"Out": [out]},
                      {"axis": axis})
     return helper.append_activation(out)
+
+
+def mean(x, name=None):
+    return _single_op("mean", x, name=name)
+
+
+def softmax(input, use_cudnn=True, name=None, axis=-1):
+    return _single_op("softmax", input, {"axis": axis}, name=name)
+
+
+def tanh(x, name=None):
+    return _single_op("tanh", x, name=name)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op("top_k", {"X": [input]},
+                     {"Out": [values], "Indices": [indices]}, {"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Classification accuracy (reference layers/metric.py accuracy)."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op("accuracy",
+                     {"Out": [topk_out], "Indices": [topk_indices],
+                      "Label": [label]},
+                     {"Accuracy": [acc_out], "Correct": [correct],
+                      "Total": [total]})
+    return acc_out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

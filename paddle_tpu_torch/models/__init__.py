@@ -1,1 +1,2 @@
-"""Model builders (the transformer LM in this slice)."""
+"""Model builders: the transformer LM, the stacked-LSTM classifier and
+the MNIST MLP."""

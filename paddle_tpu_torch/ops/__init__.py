@@ -5,4 +5,8 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     nn_ops,
     tensor_ops,
     attention_ops,
+    metric_ops,
+    sequence_ops,
+    rnn_ops,
+    optimizer_ops,
 )

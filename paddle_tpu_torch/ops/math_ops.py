@@ -1,15 +1,18 @@
-"""Elementwise, activation and linear-algebra op lowerings.
+"""Elementwise, activation, reduction and linear-algebra op lowerings.
 
 Capability parity: reference `paddle/fluid/operators/` elementwise group
-(`elementwise_op_function.h` broadcasting), `activation_op.*`, `mul_op`
-and `lookup_table_op`, as the JAX package's ``ops/math_ops.py`` lowers
-them. A plain product stays ``torch.matmul``, as the JAX package left
-it to XLA. The module's other ops arrive with later slices.
+(`elementwise_op_function.h` broadcasting), `activation_op.*`, `mean_op`,
+`sum_op`, `mul_op` and `lookup_table_op`, as the JAX package's
+``ops/math_ops.py`` lowers them, with its gradient flags. A plain
+product stays ``torch.matmul``, as the JAX package left it to XLA. The
+module's other ops arrive with later slices.
 """
 
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core import registry
+from paddle_tpu_torch.core.lower import PackedSeq
 from paddle_tpu_torch.core.registry import op
 
 
@@ -37,16 +40,46 @@ def _bcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@op("elementwise_add")
+@op("elementwise_add", seq_map=True)
 def _elementwise_add(ctx, ins, attrs, o):
     x, y = _x(ins), _x(ins, "Y")
     return x + _bcast_y(x, y, attrs.get("axis", -1))
 
 
-@op("gelu")
+@op("gelu", seq_map=True)
 def _gelu(ctx, ins, attrs, o):
     # exact erf form (reference gelu_op defaults to non-approximate)
     return F.gelu(_x(ins), approximate="none")
+
+
+@op("tanh", seq_map=True)
+def _tanh(ctx, ins, attrs, o):
+    return torch.tanh(_x(ins))
+
+
+# ---- reductions ----
+
+@op("mean")
+def _mean(ctx, ins, attrs, o):
+    """Reference mean_op. Over a PackedSeq the reference's LoD buffer
+    holds only real tokens, so the packed mean masks padding out."""
+    x = _x(ins)
+    if isinstance(x, PackedSeq):
+        mask = x.mask(x.data.dtype)
+        mask = mask.reshape(tuple(mask.shape) + (1,) * (x.data.dim() - 2))
+        num = torch.sum(x.data * mask)
+        denom = torch.sum(mask) * _prod(x.data.shape[2:])
+        return num / denom
+    return torch.mean(x)
+
+
+@op("sum", seq_map=True)
+def _sum(ctx, ins, attrs, o):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
 
 
 # ---- linear algebra ----
@@ -61,25 +94,59 @@ def _prod(t):
 @op("mul")
 def _mul(ctx, ins, attrs, o):
     """Reference mul_op: flatten X to 2D at x_num_col_dims, Y at
-    y_num_col_dims, then gemm (`operators/mul_op.cc`)."""
+    y_num_col_dims, then gemm (`operators/mul_op.cc`). A PackedSeq X
+    counts its LoD row dim ([batch, time] here) as ONE reference dim,
+    so the split point shifts by one and the result keeps the lengths
+    (fc applied per token to a variable-length batch)."""
     x, y = _x(ins), _x(ins, "Y")
     xd = attrs.get("x_num_col_dims", 1)
     yd = attrs.get("y_num_col_dims", 1)
+    lengths = None
+    if isinstance(x, PackedSeq):
+        lengths, x = x.lengths, x.data
+        # x_num_col_dims == 1 is the LoD meaning "rows = tokens", which
+        # span padded dims (0, 1); values >= 2 address the padded buffer
+        if xd == 1:
+            xd = 2
+    if isinstance(y, PackedSeq):
+        y = y.data
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(_prod(xs[:xd]), _prod(xs[xd:]))
     y2 = y.reshape(_prod(ys[:yd]), _prod(ys[yd:]))
-    return torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:])
+    out = torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:])
+    return PackedSeq(out, lengths) if lengths is not None else out
 
 
-@op("lookup_table")
+@op("lookup_table", nondiff_inputs=("Ids",))
 def _lookup_table(ctx, ins, attrs, o):
     w, ids = _x(ins, "W"), _x(ins, "Ids")
-    ids = ids.to(torch.int64)
-    # the reference's [.., 1] id convention: a trailing id dim of 1 goes
-    if ids.dim() > 1 and ids.shape[-1] == 1:
-        ids = ids.squeeze(-1)
-    out = F.embedding(ids, w)
-    pad = attrs.get("padding_idx", -1)
-    if pad is not None and pad >= 0:
-        out = torch.where((ids == pad)[..., None], 0.0, out)
-    return out
+
+    def lookup(ids):
+        ids = ids.to(torch.int64)
+        # the reference's [.., 1] id convention: a trailing id dim of 1 goes
+        if ids.dim() > 1 and ids.shape[-1] == 1:
+            ids = ids.squeeze(-1)
+        out = F.embedding(ids, w)
+        pad = attrs.get("padding_idx", -1)
+        if pad is not None and pad >= 0:
+            out = torch.where((ids == pad)[..., None], 0.0, out)
+        return out
+
+    if isinstance(ids, PackedSeq):  # sequence ids -> sequence of embeddings
+        return PackedSeq(lookup(ids.data), ids.lengths)
+    return lookup(ids)
+
+
+def _lookup_table_grad(ctx, ins, out_grads, attrs, o):
+    """The dense gradient of the table (``is_sparse`` False) is the
+    generic one: a [V, D] scatter-add, as in the JAX package. The
+    row-sparse gradient of ``is_sparse`` arrives with a later slice."""
+    if attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table(is_sparse=True): row-sparse gradients arrive "
+            "with a later slice")
+    spec = registry.REGISTRY["lookup_table"]
+    return registry.generic_grad(ctx, spec, o, ins, out_grads)
+
+
+registry.REGISTRY["lookup_table"].grad_lower = _lookup_table_grad

@@ -1,0 +1,53 @@
+"""Sequence op lowerings over PackedSeq (the LoD tensor).
+
+Capability parity: reference `operators/sequence_pool_op` and
+`math/sequence_pooling.*`, which operate on LoDTensors, as the JAX
+package's ``ops/sequence_ops.py`` lowers them: variable-length batches
+are PackedSeq (padded dense [B, T, ...] + lengths [B]) and masking
+replaces offset arithmetic. The module's other ops arrive with later
+slices.
+"""
+
+import torch
+
+from paddle_tpu_torch.core.lower import PackedSeq
+from paddle_tpu_torch.core.registry import op
+
+
+def _seq(ins, slot="X"):
+    v = ins[slot][0]
+    if not isinstance(v, PackedSeq):
+        raise TypeError("op expects a PackedSeq input for slot %s, got %s"
+                        % (slot, type(v)))
+    return v
+
+
+@op("sequence_pool")
+def _sequence_pool(ctx, ins, attrs, o):
+    s = _seq(ins)
+    ptype = attrs.get("pooltype", "AVERAGE").upper()
+    x = s.data
+    m = s.mask(x.dtype)
+    m = m.reshape(tuple(m.shape) + (1,) * (x.dim() - 2))
+    lens = torch.clamp_min(s.lengths, 1).to(x.dtype)
+    lens = lens.reshape((-1,) + (1,) * (x.dim() - 2))
+    if ptype == "SUM":
+        out = torch.sum(x * m, dim=1)
+    elif ptype == "AVERAGE":
+        out = torch.sum(x * m, dim=1) / lens
+    elif ptype == "SQRT":
+        out = torch.sum(x * m, dim=1) / torch.sqrt(lens)
+    elif ptype == "MAX":
+        # amax splits a tie's gradient evenly, as JAX's max does
+        neg = torch.finfo(x.dtype).min
+        out = torch.amax(torch.where(m > 0, x, neg), dim=1)
+    elif ptype == "LAST":
+        idx = torch.clamp_min(s.lengths - 1, 0).to(torch.int64)
+        out = torch.take_along_dim(
+            x, idx.reshape((-1, 1) + (1,) * (x.dim() - 2)), dim=1
+        ).squeeze(1)
+    elif ptype == "FIRST":
+        out = x[:, 0]
+    else:
+        raise ValueError("unknown pooltype %r" % ptype)
+    return {"Out": out, "MaxIndex": None}

@@ -1,14 +1,16 @@
 """Tensor-manipulation op lowerings.
 
-Capability parity: reference reshape/transpose/unsqueeze/fill_constant/
-uniform_random (`paddle/fluid/operators/`, §2.3 "Tensor manipulation"),
-as the JAX package's ``ops/tensor_ops.py`` lowers them. The module's
-other ops arrive with later slices.
+Capability parity: reference reshape/transpose/unsqueeze/concat/top_k/
+assign/fill_constant/uniform_random (`paddle/fluid/operators/`, §2.3
+"Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
+lowers them, with its gradient flags. The module's other ops arrive
+with later slices.
 """
 
 import torch
 
 from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.lower import PackedSeq
 from paddle_tpu_torch.core.registry import op
 
 
@@ -40,7 +42,54 @@ def _transpose(ctx, ins, attrs, o):
     return {"Out": _x(ins).permute(*attrs["axis"]), "XShape": None}
 
 
-@op("fill_constant")
+def concat_time_padded(datas, lengths_list):
+    """LoD batch-concat: pad each ``[batch, time, ...]`` buffer to the
+    common max time dim, then concatenate along batch. Returns
+    ``(data, lengths)``."""
+    maxt = max(d.shape[1] for d in datas)
+    datas = [torch.nn.functional.pad(
+        d, [0, 0] * (d.dim() - 2) + [0, maxt - d.shape[1]])
+        if d.shape[1] < maxt else d for d in datas]
+    return torch.cat(datas, dim=0), torch.cat(lengths_list)
+
+
+@op("concat")
+def _concat(ctx, ins, attrs, o):
+    """Reference concat_op. For PackedSeq inputs the LoD row dim
+    ([batch, time] here) counts as ONE reference dim, so a feature-axis
+    concat (axis>=1) shifts by one and keeps the lengths."""
+    xs = ins["X"]
+    axis = attrs.get("axis", 0)
+    if any(isinstance(v, PackedSeq) for v in xs):
+        lengths = next(v.lengths for v in xs if isinstance(v, PackedSeq))
+        datas = [v.data if isinstance(v, PackedSeq) else v for v in xs]
+        if axis == 0:
+            out, lengths = concat_time_padded(
+                datas,
+                [v.lengths if isinstance(v, PackedSeq)
+                 else torch.full((v.shape[0],), v.shape[1],
+                                 dtype=torch.int32, device=v.device)
+                 for v in xs])
+            return PackedSeq(out, lengths)
+        # axis >= 1 shifts past the two-dim token axis; -1 is the last
+        # feature axis of the padded buffer
+        return PackedSeq(torch.cat(datas, dim=axis + 1 if axis >= 1
+                                   else axis), lengths)
+    return torch.cat(xs, dim=axis)
+
+
+@op("top_k")
+def _top_k(ctx, ins, attrs, o):
+    v, i = torch.topk(_x(ins), attrs.get("k", 1), dim=-1)
+    return {"Out": v, "Indices": i}
+
+
+@op("assign")
+def _assign(ctx, ins, attrs, o):
+    return _x(ins)
+
+
+@op("fill_constant", no_grad=True)
 def _fill_constant(ctx, ins, attrs, o):
     dtype = torch_dtype(attrs.get("dtype", "float32"))
     shape = tuple(int(s) for s in attrs.get("shape", []))
@@ -48,7 +97,7 @@ def _fill_constant(ctx, ins, attrs, o):
                       device=ctx.device)
 
 
-@op("uniform_random")
+@op("uniform_random", no_grad=True)
 def _uniform_random(ctx, ins, attrs, o):
     shape = tuple(int(s) for s in attrs["shape"])
     dtype = torch_dtype(attrs.get("dtype", "float32"))
@@ -57,7 +106,7 @@ def _uniform_random(ctx, ins, attrs, o):
                         generator=ctx.rng(salt=attrs.get("seed", 0)))
 
 
-@op("position_ids")
+@op("position_ids", no_grad=True)
 def _position_ids(ctx, ins, attrs, o):
     x = _x(ins)
     b, s = x.shape[0], x.shape[1]

@@ -39,6 +39,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import sys\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.models.stacked_lstm\n"
+        "import paddle_tpu_torch.models.lenet\n"
+        "import paddle_tpu_torch.kernels.lstm_cell\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.interop\n"
         "import paddle_tpu_torch.kernels._build\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -90,5 +93,7 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         pytest.skip("nvcc is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("flash_attention")
-    assert "flash_attention" not in _build._libs
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_all()
+    assert not _build._libs
 

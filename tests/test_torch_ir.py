@@ -1,7 +1,8 @@
 """The port's program IR serializes exactly as the JAX package's: every
 golden program round-trips byte-identically through the port's
-``from_json``, and the transformer builds give the same JSON in both
-packages."""
+``from_json``; the transformer builds, the stacked-LSTM training program
+(append_backward + Adam) and the MNIST MLP training program give the
+same JSON in both packages."""
 
 import json
 import os
@@ -12,10 +13,14 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu import layers as jlayers
 from paddle_tpu import unique_name as jnames
+from paddle_tpu.models import lenet as jlenet
+from paddle_tpu.models import stacked_lstm as jstacked
 from paddle_tpu.models import transformer as jtransformer
 from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.core.ir import Program
+from paddle_tpu_torch.models import lenet as tlenet
+from paddle_tpu_torch.models import stacked_lstm as tstacked
 from paddle_tpu_torch.models import transformer as ttransformer
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -80,3 +85,55 @@ def test_inferred_dtypes_follow_jax_x64_off():
     assert out.dtype == "int32" and out.shape == (-1, -1)
     logits = b0.ops[-1].output("Out")[0]
     assert b0.var(logits).shape == (-1, -1, SIZE["vocab_size"])
+
+
+# the golden's size (tools/goldens.py) and the full width of bench.py
+LSTM_SIZES = {"golden": dict(dict_dim=100, emb_dim=16, hid_dim=16,
+                             stacked_num=3),
+              "full": dict(dict_dim=30000, emb_dim=512, hid_dim=512,
+                           stacked_num=3)}
+
+
+@pytest.mark.parametrize("which", ["main", "startup"])
+@pytest.mark.parametrize("size", sorted(LSTM_SIZES))
+def test_stacked_lstm_train_json_identical_to_jax(size, which):
+    with jnames.guard():
+        j = jstacked.build_stacked_lstm_train(**LSTM_SIZES[size])
+    with tnames.guard():
+        t = tstacked.build_stacked_lstm_train(**LSTM_SIZES[size])
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+
+
+@pytest.mark.parametrize("name,build", [
+    ("stacked_lstm", lambda: tstacked.build_stacked_lstm_train(
+        **LSTM_SIZES["golden"])),
+    ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp"))])
+def test_training_program_equals_golden(name, build):
+    with tnames.guard():
+        prog = build()[0]
+    with open(os.path.join(GOLDEN_DIR, name + ".program.json")) as f:
+        assert _dump(prog) == f.read()
+
+
+@pytest.mark.parametrize("which", ["main", "startup"])
+def test_mnist_mlp_train_json_identical_to_jax(which):
+    with jnames.guard():
+        j = jlenet.build_mnist_train(model="mlp")
+    with tnames.guard():
+        t = tlenet.build_mnist_train(model="mlp")
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+
+
+def test_stacked_lstm_program_has_the_goldens_ops():
+    with tnames.guard():
+        prog = tstacked.build_stacked_lstm_train(**LSTM_SIZES["golden"])[0]
+    types = [op.type for op in prog.global_block().ops]
+    fwd = {"lookup_table", "mul", "elementwise_add", "lstm", "concat",
+           "sequence_pool", "softmax", "cross_entropy", "mean"}
+    assert set(types) == fwd | {t + "_grad" for t in fwd} | {
+        "top_k", "accuracy", "fill_constant", "sum", "adam"}
+    assert types.count("lstm") == types.count("lstm_grad") == 3
+    words = prog.global_block().var("words")
+    assert words.lod_level == 1 and words.type == "packed_seq"

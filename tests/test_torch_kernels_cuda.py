@@ -1,6 +1,7 @@
 """The CUDA kernels on the card, held against their plain PyTorch
 versions (tolerance 1e-5 absolute and relative: the same fp32 math in
-another summation order).
+another summation order; the LSTM's backward 1e-5 absolute and 1e-4
+relative, its recurrence reorders sums over up to 80 steps).
 
 Marked ``cuda``: each test skips inside itself where torch finds no
 card. This file imports torch and the port only (the machine with the
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import lstm_cell
 
 
 @pytest.fixture
@@ -70,3 +72,66 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         tfa.flash_decode(x[:, :, :1].contiguous(), x, x,
                          torch.tensor([3], device=cuda))
+
+
+def _lstm_inputs(B, T, H, peep, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
+    w = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+    h0 = torch.randn(B, H, generator=g) * 0.1
+    c0 = torch.randn(B, H, generator=g) * 0.1
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    lens[0], lens[-1] = 0, T           # an empty row and a full one
+    mask = (torch.arange(T)[None] < lens[:, None]).float()
+    p = torch.randn(3, H, generator=g) * 0.1 if peep else torch.zeros(3, H)
+    dhs = torch.randn(B, T, H, generator=g)
+    dcs = torch.randn(B, T, H, generator=g)
+    return [t.to(device) for t in (xg, w, h0, c0, mask, p, dhs, dcs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peep", [True, False])
+@pytest.mark.parametrize("shape", [(8, 5, 32), (64, 80, 512), (37, 17, 128),
+                                   (70, 6, 40)])
+def test_cuda_lstm_matches_plain(cuda, shape, peep):
+    xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(*shape, peep, 2, cuda)
+    n = dict(lstm_cell.launches)
+    hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+    rhs, rcs, rst = lstm_cell.lstm_forward_reference(xg, w, h0, c0, mask, p)
+    torch.cuda.synchronize()
+    for got, want in ((hs, rhs), (cs, rcs), (stash, rst)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got = lstm_cell.lstm_backward(rst, rcs, w, p, c0, mask, dhs, dcs)
+    want = lstm_cell.lstm_backward_reference(rst, rcs, w, p, c0, mask, dhs,
+                                             dcs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert lstm_cell.launches == {"lstm_fwd": n["lstm_fwd"] + 1,
+                                  "lstm_bwd": n["lstm_bwd"] + 1}
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_autograd_goes_through_both_kernels(cuda):
+    xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(16, 9, 64, True, 3, cuda)
+    leaves = [t.clone().requires_grad_() for t in (xg, w, h0, c0, p)]
+    lstm_cell.reset_launches()
+    hs, cs = lstm_cell.lstm_sequence(leaves[0], leaves[1], leaves[2],
+                                     leaves[3], mask, leaves[4])
+    got = torch.autograd.grad((hs, cs), leaves, (dhs, dcs))
+    assert lstm_cell.launches == {"lstm_fwd": 1, "lstm_bwd": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs, rcs = lstm_cell.lstm_sequence(cpu[0], cpu[1], cpu[2], cpu[3],
+                                       mask.cpu(), cpu[4])
+    want = torch.autograd.grad((rhs, rcs), cpu, (dhs.cpu(), dcs.cpu()))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_raises_on_what_the_kernels_do_not_take(cuda):
+    xg, w, h0, c0, mask, p, _, _ = _lstm_inputs(4, 3, 8, True, 4, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_cell.lstm_forward(xg.double(), w, h0, c0, mask, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_cell.lstm_forward(xg, w.t().contiguous().t(), h0, c0, mask, p)
