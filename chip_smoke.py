@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths through the entry points a user calls,
-on random weights and data made from ``--seed``:
+Drives the port's three main paths through the entry points a user
+calls, on random weights and data made from ``--seed``:
 
 * KV-cached decode serving of the transformer LM at the repo's full
   decode-serving width (vocab 8192, d_model 512, 8 layers, 8 heads,
   max_len 512, 16 slots, prompt buckets 8/16/32);
 * training of the stacked-LSTM text classifier at the repo's full width
   (dict 30000, emb 512, hid 512, 3 layers, 2 classes, Adam lr 1e-3) on a
-  batch of 64 ragged sequences of 16..80 ids.
+  batch of 64 ragged sequences of 16..80 ids;
+* training of the attention seq2seq (NMT) model at the repo's full width
+  (vocab 30000 source and target, emb 512, hid 512, Adam lr 1e-3) on a
+  batch of 64 ragged source and target sequences of 8..30 ids.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -27,9 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (falling finite loss, exact LSTM launch counts), a profile of one
    step, and the card against the CPU at a reduced size from the same
    weights (losses of 3 steps, first-step gradients);
-6. time each kernel, its plain version and one PyTorch library call at
+6. seq2seq training, the same way (exact GRU launch counts);
+7. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events, and profile the decode step;
-7. print the kernel table as one JSON line, then the result line.
+8. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -63,6 +67,14 @@ WARMUP_STEPS, TRAIN_STEPS = 2, 10
 XCHECK = dict(dict_dim=1000, emb_dim=128, hid_dim=128, stacked_num=3)
 XCHECK_B, XCHECK_T, XCHECK_STEPS = 16, 20, 3
 
+# full width: the repo's seq2seq configuration (bench.py:186-218, after
+# benchmark/fluid/machine_translation.py) at its batch of 64
+S2S = dict(src_vocab=30000, tgt_vocab=30000, emb_dim=512, hidden_dim=512)
+S2S_B, S2S_T, S2S_MIN = 64, 30, 8
+S2S_XCHECK = dict(src_vocab=1000, tgt_vocab=1000, emb_dim=128,
+                  hidden_dim=128)
+S2S_XCHECK_B, S2S_XCHECK_T = 16, 12
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -70,17 +82,22 @@ ATOL = RTOL = 1e-5
 # through the GEMM outside the kernel) within rtol 1e-4 and an atol of
 # 1e-5 times the output's largest magnitude, because the backward
 # carries every step's reordering error into sums whose terms reach
-# tens to hundreds at the path's shape
+# tens to hundreds at the path's shape. The GRU's kernels are held to
+# the same tolerances for the same reasons.
 LSTM_ATOL, LSTM_RTOL = 1e-5, 1e-4
 
 SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
            "lstm_fwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
-           "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu"}
+           "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
+           "gru_fwd": "paddle_tpu_torch/csrc/gru_cell.cu",
+           "gru_bwd": "paddle_tpu_torch/csrc/gru_cell.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
             "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
-            "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198"}
+            "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198",
+            "gru_fwd": "paddle_tpu/kernels/gru_cell.py:67",
+            "gru_bwd": "paddle_tpu/kernels/gru_cell.py:143"}
 
 
 def phase(name):
@@ -218,6 +235,59 @@ def check_lstm(lc, g, dev):
     return err, dw_err
 
 
+def gru_inputs(B, T, H, g, dev, ragged=True):
+    """Seeded GRU inputs on the card; ragged masks hold a row of length
+    0 and a row of length T."""
+    xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
+    w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
+    h0 = torch.randn(B, H, generator=g) * 0.1
+    if ragged:
+        lens = torch.randint(0, T + 1, (B,), generator=g)
+        lens[0], lens[-1] = 0, T
+    else:
+        lens = torch.full((B,), T)
+    mask = (torch.arange(T)[None] < lens[:, None]).float()
+    dhs = torch.randn(B, T, H, generator=g)
+    return [t.to(dev) for t in (xg, w, h0, mask, dhs)]
+
+
+def check_gru(gc, g, dev):
+    """B5 and B6 against their plain versions: hs and the stash; dxg, dW
+    (through the GEMMs outside the kernel) and dh0. Returns the max abs
+    errors {kernel: err} and dW's."""
+    err = {"gru_fwd": 0.0, "gru_bwd": 0.0}
+    dw_err = 0.0
+    for B, T, H in ((8, 5, 32), (S2S_B, S2S_T, S2S["hidden_dim"]),
+                    (37, 17, 128)):
+        xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev)
+        what = "gru %s" % ((B, T, H),)
+        leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
+        hs = gc.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
+        got = torch.autograd.grad(hs, leaves, dhs)
+        _, stash = gc.gru_forward(xg, w, h0, mask)
+        rhs, rst = gc.gru_forward_reference(xg, w, h0, mask)
+        dxg, dh0 = gc.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
+        h_prev = torch.cat([h0[:, None], rhs[:, :-1]], dim=1)
+        dw = torch.cat([
+            torch.einsum("bth,btg->hg", h_prev, dxg[..., :2 * H]),
+            torch.einsum("bth,btg->hg", rst[..., H:2 * H] * h_prev,
+                         dxg[..., 2 * H:])], dim=1)
+        for name, a, b in (("hs", hs, rhs), ("stash", stash, rst)):
+            err["gru_fwd"] = max(err["gru_fwd"], assert_close(
+                "%s %s" % (what, name), a.detach(), b, LSTM_ATOL,
+                LSTM_RTOL))
+        for name, a, b in (("dxg", got[0], dxg), ("dW", got[1], dw),
+                           ("dh0", got[2], dh0)):
+            atol = LSTM_ATOL * max(1.0, float(b.abs().max()))
+            e = assert_close("%s %s" % (what, name), a, b, atol, LSTM_RTOL)
+            if name == "dW":
+                dw_err = max(dw_err, e)
+            else:
+                err["gru_bwd"] = max(err["gru_bwd"], e)
+    torch.cuda.synchronize()
+    return err, dw_err
+
+
 def stacked_lstm_batch(rng, B, T, min_len, dict_dim):
     """Ragged ids uniform in [1, dict_dim), lengths uniform in
     [min_len, T] with one row of length T; labels 0/1."""
@@ -233,7 +303,7 @@ def train_phase(fluid, seed, dev):
     """The stacked-LSTM training path at full width, then the card
     against the CPU at a reduced size. Returns the B3/B4 launch counts
     of the counted steps."""
-    from paddle_tpu_torch import interop, unique_name
+    from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.kernels import lstm_cell as lc
     from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
 
@@ -303,9 +373,28 @@ def train_phase(fluid, seed, dev):
                    1, step_ms, "train step")
 
     # the card against the CPU from the same weights, at a reduced size
-    with unique_name.guard():
-        xprog, xstart, _, (xloss, _) = build_stacked_lstm_train(
+    xlens, xwords, xlabel = stacked_lstm_batch(rng, XCHECK_B, XCHECK_T, 1,
+                                               XCHECK["dict_dim"])
+
+    def build():
+        prog, startup, feeds, (xloss, _) = build_stacked_lstm_train(
             class_dim=CLASSES, lr=LR, **XCHECK)
+        return prog, startup, feeds, (xloss,)
+
+    cross_check(fluid, exe, build, seed, {"words": xwords, "label": xlabel},
+                XCHECK_STEPS, "%s, B %d, T <= %d" % (XCHECK, XCHECK_B,
+                                                     XCHECK_T))
+    return launches
+
+
+def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4):
+    """The card against the CPU from the same weights: the losses of
+    ``steps`` Adam steps within rtol 1e-4, every first-step parameter
+    gradient within ``gtol`` x its largest magnitude."""
+    from paddle_tpu_torch import interop, unique_name
+
+    with unique_name.guard():
+        xprog, xstart, _, (xloss,) = build()
     xstart.random_seed = seed
     cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
     cpu = fluid.Executor(fluid.CPUPlace())
@@ -313,32 +402,125 @@ def train_phase(fluid, seed, dev):
     interop.load_reference_state(
         {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
         fluid.CUDAPlace(0), [xprog, xstart])
-    xlens, xwords, xlabel = stacked_lstm_batch(rng, XCHECK_B, XCHECK_T, 1,
-                                               XCHECK["dict_dim"])
-    xfeed = {"words": xwords, "label": xlabel}
     grads = sorted(p.name + "@GRAD"
                    for p in xprog.global_block().all_parameters())
     worst = 0.0
-    for step in range(XCHECK_STEPS):
+    for step in range(steps):
         extra = grads if step == 0 else []
-        c = cpu.run(xprog, feed=xfeed, fetch_list=[xloss] + extra,
+        c = cpu.run(xprog, feed=batch, fetch_list=[xloss] + extra,
                     scope=cpu_scope)
-        k = exe.run(xprog, feed=xfeed, fetch_list=[xloss] + extra,
+        k = exe.run(xprog, feed=batch, fetch_list=[xloss] + extra,
                     scope=card_scope)
         print("cross-check step %d: loss cpu %.7f card %.7f" % (
             step, float(c[0]), float(k[0])))
         np.testing.assert_allclose(k[0], c[0], rtol=1e-4)
         for name, cg, kg in zip(extra, c[1:], k[1:]):
-            atol = 1e-4 * float(np.abs(cg).max())
+            atol = gtol * float(np.abs(cg).max())
             np.testing.assert_allclose(kg, cg, rtol=0, atol=atol,
                                        err_msg=name)
             worst = max(worst, float(np.abs(kg - cg).max())
                         / max(float(np.abs(cg).max()), 1e-30))
-    print("card == cpu at %s, B %d, T <= %d: losses of %d steps within "
-          "rtol 1e-4; %d first-step gradients within 1e-4 x max|g| "
-          "(worst %.3g x max|g|)" % (
-              XCHECK, XCHECK_B, XCHECK_T, XCHECK_STEPS, len(grads), worst))
+    print("card == cpu at %s: losses of %d steps within rtol 1e-4; %d "
+          "first-step gradients within %g x max|g| (worst %.3g x "
+          "max|g|)" % (label, steps, len(grads), gtol, worst))
     torch.cuda.synchronize()
+
+
+def seq2seq_batch(rng, B, T, min_len, vocab):
+    """Ragged source and target ids uniform in [2, vocab), lengths
+    uniform in [min_len, T] with one row of length T each; tgt_next is
+    tgt shifted by one (tests/test_book.py)."""
+    feed = {}
+    for name in ("src_ids", "tgt_ids"):
+        lens = rng.randint(min_len, T + 1, B)
+        lens[rng.randint(B)] = T
+        feed[name] = [rng.randint(2, vocab, (int(n), 1)).astype(np.int64)
+                      for n in lens]
+    feed["tgt_next_ids"] = [np.roll(t, -1, axis=0) for t in feed["tgt_ids"]]
+    return feed
+
+
+def seq2seq_phase(fluid, seed, dev):
+    """The seq2seq training path at full width, then the card against
+    the CPU at a reduced size. Returns the B5/B6 launch counts of the
+    counted steps."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq
+
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build_seq2seq(lr=LR, **S2S)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if prog.global_block().var(n).is_parameter)
+    rng = np.random.RandomState(seed)
+    feed = seq2seq_batch(rng, S2S_B, S2S_T, S2S_MIN, S2S["tgt_vocab"])
+    src_tok = sum(len(s) for s in feed["src_ids"])
+    tgt_tok = sum(len(s) for s in feed["tgt_ids"])
+    print("parameters: %d (%.1f MB fp32); batch %d pairs, %d source and "
+          "%d target tokens (padded %d x %d each)" % (
+              n_params, n_params * 4 / 1e6, S2S_B, src_tok, tgt_tok, S2S_B,
+              S2S_T))
+    # the first step feeds the ragged lists; the packed batch then stays
+    # on the card
+    on_card = {}
+    for name, seqs in feed.items():
+        packed = np.zeros((S2S_B, S2S_T, 1), np.int64)
+        for i, s_ in enumerate(seqs):
+            packed[i, :len(s_)] = s_
+        lens = np.asarray([len(s_) for s_ in seqs], np.int32)
+        on_card[name] = fluid.PackedSeq(torch.from_numpy(packed).to(dev),
+                                        torch.from_numpy(lens).to(dev))
+    for i in range(WARMUP_STEPS):
+        exe.run(prog, feed=feed if i == 0 else on_card, fetch_list=[loss],
+                scope=scope)
+    torch.cuda.synchronize()
+    gc.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gc.launches)
+    # per step: the two encoder GRUs forward, and each gru_grad op
+    # recomputes its forward through the generic grad, then runs B6
+    want = {"gru_fwd": 4 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS}
+    print("launches on the main path:", json.dumps(launches),
+          "expected", json.dumps(want),
+          "(per step: 2 gru ops forward, 2 gru_grad ops, each recomputing "
+          "its forward)")
+    if launches != want:
+        raise AssertionError("GRU launch counts %s != %s"
+                             % (launches, want))
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    step_ms = wall * 1000.0 / TRAIN_STEPS
+    print("train: %d steps in %.3f s = %.3f ms/step, %.2f pairs/s, %.1f "
+          "target tokens/s" % (TRAIN_STEPS, wall, step_ms,
+                               S2S_B / (step_ms / 1e3),
+                               tgt_tok / (step_ms / 1e3)))
+    device_profile(lambda: exe.run(prog, feed=on_card, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "seq2seq train step")
+
+    xbatch = seq2seq_batch(rng, S2S_XCHECK_B, S2S_XCHECK_T, 1,
+                           S2S_XCHECK["tgt_vocab"])
+    # gradients within 1e-3 x max|g|: at initialisation the attention's
+    # scores are nearly equal, so att_dec_w's gradient (~4e-8 at most,
+    # for a loss of ~43) is a sum of terms that nearly cancel, and the
+    # CPU's and the card's fp32 summation orders differ there by ~1.1e-4
+    # of its largest value
+    cross_check(fluid, exe, lambda: build_seq2seq(lr=LR, **S2S_XCHECK),
+                seed, xbatch, XCHECK_STEPS,
+                "%s, B %d, T <= %d" % (S2S_XCHECK, S2S_XCHECK_B,
+                                       S2S_XCHECK_T), gtol=1e-3)
     return launches
 
 
@@ -356,6 +538,7 @@ def main():
     from paddle_tpu_torch import layers, unique_name
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import gru_cell as gc
     from paddle_tpu_torch.kernels import lstm_cell as lc
     from paddle_tpu_torch.models.transformer import (
         build_transformer_decode, transformer_lm)
@@ -379,8 +562,8 @@ def main():
         " ".join(_build.NVCC_FLAGS)))
 
     # ---- 3. kernels against their plain versions ----
-    phase("kernels vs plain versions (atol %g, rtol %g; LSTM atol %g, "
-          "rtol %g)" % (ATOL, RTOL, LSTM_ATOL, LSTM_RTOL))
+    phase("kernels vs plain versions (atol %g, rtol %g; LSTM and GRU "
+          "atol %g, rtol %g)" % (ATOL, RTOL, LSTM_ATOL, LSTM_RTOL))
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     max_err = {"flash_attention": 0.0, "flash_decode": 0.0}
 
@@ -420,8 +603,10 @@ def main():
     torch.cuda.synchronize()
     lstm_err, dw_err = check_lstm(lc, g, dev)
     max_err.update(lstm_err)
-    print("max abs err:", json.dumps(max_err), "(LSTM dW through the "
-          "outside GEMM: %.3g)" % dw_err)
+    gru_err, gru_dw_err = check_gru(gc, g, dev)
+    max_err.update(gru_err)
+    print("max abs err:", json.dumps(max_err), "(dW through the outside "
+          "GEMMs: LSTM %.3g, GRU %.3g)" % (dw_err, gru_dw_err))
 
     # ---- 4. the slice at full width ----
     phase("decode serving at full width (seed %d)" % args.seed)
@@ -530,7 +715,11 @@ def main():
     phase("stacked-LSTM training at full width (seed %d)" % args.seed)
     launches.update(train_phase(fluid, args.seed, dev))
 
-    # ---- 6. times ----
+    # ---- 6. the seq2seq training slice at full width ----
+    phase("seq2seq training at full width (seed %d)" % args.seed)
+    launches.update(seq2seq_phase(fluid, args.seed, dev))
+
+    # ---- 7. times ----
     phase("times (CUDA events, median of 25 runs after warmup)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
 
@@ -608,6 +797,44 @@ def main():
         bytes=4 * (2 * B * T * 4 * H + 3 * B * T * H + H * 4 * H + 2 * 3 * H
                    + 3 * B * H + B * T),
         flops=2 * B * T * 4 * H * H))
+    # B5 and B6 at the seq2seq path's shape, every step valid
+    B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
+    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged=False)
+    hs, stash = gc.gru_forward(xg, w, h0, mask)
+    cudnn_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    x_gru = torch.randn(B, T, H, generator=g).to(dev)
+    g_gru = torch.randn(B, T, H, generator=g).to(dev)
+
+    def cudnn_gru_fwd():
+        with torch.no_grad():
+            cudnn_gru(x_gru)
+
+    def cudnn_gru_fwd_bwd():
+        out, _ = cudnn_gru(x_gru)
+        out.backward(g_gru)
+
+    rows.append(dict(
+        name="gru_fwd", shape="[64,30,512], all steps valid",
+        ms=time_ms(lambda: gc.gru_forward(xg, w, h0, mask)),
+        plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
+        library_ms=time_ms(cudnn_gru_fwd),
+        library="torch.nn.GRU (cuDNN) forward, input size 512: applies r "
+                "after the product (r * (h W_hn)) where Paddle takes "
+                "(r * h) W_c, and also does the input GEMM",
+        bytes=4 * (2 * B * T * 3 * H + H * 3 * H + B * H + B * T
+                   + B * T * H),
+        flops=2 * B * T * H * 3 * H))
+    rows.append(dict(
+        name="gru_bwd", shape="[64,30,512], all steps valid",
+        ms=time_ms(lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs)),
+        plain_ms=time_ms(lambda: gc.gru_backward_reference(
+            stash, hs, w, h0, mask, dhs)),
+        library_ms=time_ms(cudnn_gru_fwd_bwd),
+        library="torch.nn.GRU (cuDNN) forward plus backward, input size "
+                "512: r after the product, and also the input GEMMs and dW",
+        bytes=4 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H
+                   + 2 * B * H + B * T),
+        flops=2 * B * T * 3 * H * H))
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / FP32_FLOPS_PER_S * 1e3
@@ -637,13 +864,14 @@ def main():
                    step_ms, "decode step at pos 160")
     torch.cuda.synchronize()
 
-    # ---- 7. result ----
+    # ---- 8. result ----
     by_name = {}
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
                 ("flash_decode", "[16,8,512,64] cache_len=160"),
                 ("flash_attention", "[1,8,32,64] causal=True")) \
-                or r["name"] in ("lstm_fwd", "lstm_bwd"):
+                or r["name"] in ("lstm_fwd", "lstm_bwd", "gru_fwd",
+                                 "gru_bwd"):
             by_name[r["name"]] = r
     table = [{"name": n, "route": "cuda", "source": SOURCES[n],
               "replaces": REPLACES[n], "launches": launches[n],
@@ -653,7 +881,7 @@ def main():
               "bound_by": by_name[n]["bound_by"],
               "library_ms": by_name[n]["library_ms"]}
              for n in ("flash_attention", "flash_decode", "lstm_fwd",
-                       "lstm_bwd")]
+                       "lstm_bwd", "gru_fwd", "gru_bwd")]
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

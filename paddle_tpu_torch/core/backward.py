@@ -18,7 +18,11 @@ Grad op encoding (consumed by ``lower._run_generic_grad_op``):
 After an op's grad consumes the cotangent of an output name, the
 accumulator for that name is reset, so an in-place output (a name that
 is also an input) accumulates its pre-update gradient separately.
-Control-flow sub-blocks arrive with a later slice.
+
+Control-flow ops (``scan_block``) are functional, as in the JAX
+package: their ``X``/``Init``/``Params`` are ordinary differentiable
+inputs and their sub-block is not walked here; ``scan_block_grad``
+differentiates the whole loop through the generic grad.
 """
 
 from paddle_tpu_torch.core import ir, registry

@@ -34,7 +34,8 @@ __all__ = ["Executor", "external_reads_and_writes"]
 
 def external_reads_and_writes(program):
     """Names read before written in block 0, and names written by
-    block-0 ops. (Sub-blocks arrive with control flow, a later slice.)"""
+    block-0 ops. A sub-block reads only what its control-flow op lists
+    as inputs in block 0, so block 0 holds every outside read."""
     written = set()
     reads = []
     seen_reads = set()

@@ -15,6 +15,11 @@ weights across with ``paddle_tpu_torch.interop``.
 
 A grad op that ``append_backward`` emitted (``<type>_grad``) runs the
 forward op's ``grad_lower`` or, by default, ``registry.generic_grad``.
+
+A control-flow op (``scan_block``) runs its sub-block with the same
+``run_block``, over a fresh environment that holds only the op's
+``Params``/``X``/``Init`` bindings; an error inside it is annotated with
+the inner op and block, then with the control-flow op and its block.
 """
 
 import torch

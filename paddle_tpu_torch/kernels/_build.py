@@ -41,6 +41,10 @@ SOURCES = {
         "lstm_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
         "lstm_bwd": ([_P] * 13 + [_I] * 3 + [_P], _I),
     },
+    "gru_cell": {
+        "gru_fwd": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "gru_bwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

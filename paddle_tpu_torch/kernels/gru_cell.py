@@ -1,0 +1,224 @@
+"""Whole-sequence GRU: the forward (B5) and backward (B6) kernels.
+
+The kernels are hand-written CUDA for Hopper (``csrc/gru_cell.cu``) and
+replace the JAX package's two Pallas kernels in
+``paddle_tpu/kernels/gru_cell.py``: the forward launch replaces
+``_fwd_kernel`` and the backward launch replaces ``_bwd_kernel``.
+
+Layout is the JAX package's public one (the reference gru_op's),
+batch-major: ``xg`` [B, T, 3H] pre-projected gate inputs (bias added),
+columns ``[u | r | c~]``; ``w`` [H, 3H] = ``[w_ur | w_c]``; ``h0``
+[B, H]; ``mask`` [B, T] (1.0 for a valid step; a finished row carries h
+unchanged and gets no gate gradient). Per step::
+
+    u, r = sigmoid(xg[:, :2H] + h_prev @ w_ur)
+    c    = tanh(xg[:, 2H:] + (r * h_prev) @ w_c)
+    h    = u * h_prev + (1 - u) * c
+
+:func:`gru_sequence` is differentiable through a
+``torch.autograd.Function`` and dispatches on the device of its inputs:
+
+* a CUDA tensor launches the forward kernel, which also writes the
+  stash of ``u, r, c`` the backward kernel reads; the backward launches
+  the backward kernel, and dW = ``h_prev^T da_ur || (r h_prev)^T da_c``
+  is two GEMMs outside it, as in the JAX package. float32 only;
+  anything else raises, and a refused launch raises;
+* a CPU tensor runs the plain versions beside the kernels: the step
+  loop :func:`gru_forward_reference` and :func:`gru_backward_reference`,
+  which writes the backward kernel's arithmetic out step by step (it is
+  not autograd of the forward);
+* a meta tensor returns outputs of the right shape.
+
+``launches`` counts kernel launches per kernel; plain-version calls do
+not count.
+"""
+
+import torch
+
+from paddle_tpu_torch.kernels.lstm_cell import (_check, _check_float,
+                                                _raise_on, _stream)
+
+__all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
+           "gru_forward", "gru_backward", "launches", "reset_launches"]
+
+#: kernel name -> launches since the last reset_launches()
+launches = {"gru_fwd": 0, "gru_bwd": 0}
+
+# the kernels' batch tile: unit-major scratch rows are padded to it
+_BT = 64
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def gru_forward_reference(xg, w, h0, mask):
+    """Plain version of the forward kernel: the step loop. Returns
+    ``(hs, stash)``: [B, T, H] and ``u, r, c`` [B, T, 3H]."""
+    b, t_len, g3 = xg.shape
+    h = g3 // 3
+    w_ur, w_c = w[:, :2 * h], w[:, 2 * h:]
+    h_prev = h0
+    hs, stash = [], []
+    for t in range(t_len):
+        g = xg[:, t]
+        a_ur = g[:, :2 * h] + h_prev @ w_ur
+        u, r = torch.sigmoid(a_ur[:, :h]), torch.sigmoid(a_ur[:, h:])
+        c = torch.tanh(g[:, 2 * h:] + (r * h_prev) @ w_c)
+        h_t = u * h_prev + (1 - u) * c
+        m = mask[:, t, None].to(xg.dtype)
+        h_t = m * h_t + (1 - m) * h_prev
+        hs.append(h_t)
+        stash.append(torch.cat([u, r, c], dim=-1))
+        h_prev = h_t
+    if not t_len:
+        return xg.new_zeros((b, 0, h)), xg.new_zeros((b, 0, g3))
+    return torch.stack(hs, 1), torch.stack(stash, 1)
+
+
+def gru_backward_reference(stash, hs, w, h0, mask, dhs):
+    """Plain version of the backward kernel, step by step from t = T-1
+    down: the gate gradients from the stash, h_{t-1} and the dh carry,
+    then dh_{t-1} = (dh u + drh r) m + (1 - m) dh + da_ur w_ur^T, with
+    drh = da_c w_c^T. Returns ``(dxg [B, T, 3H], dh0 [B, H])``."""
+    b, t_len, g3 = stash.shape
+    h = g3 // 3
+    w_ur, w_c = w[:, :2 * h], w[:, 2 * h:]
+    dh_c = stash.new_zeros((b, h))
+    dxg = stash.new_zeros((b, t_len, g3))
+    for t in range(t_len - 1, -1, -1):
+        st = stash[:, t]
+        u, r, c = st[:, :h], st[:, h:2 * h], st[:, 2 * h:]
+        h_prev = hs[:, t - 1] if t else h0
+        m = mask[:, t, None].to(stash.dtype)
+        dh = dhs[:, t] + dh_c
+        da_c = m * dh * (1 - u) * (1 - c * c)
+        drh = da_c @ w_c.t()
+        da_u = m * dh * (h_prev - c) * u * (1 - u)
+        da_r = m * drh * h_prev * r * (1 - r)
+        da_ur = torch.cat([da_u, da_r], dim=-1)
+        dxg[:, t] = torch.cat([da_ur, da_c], dim=-1)
+        dh_c = (dh * u + drh * r) * m + (1 - m) * dh + da_ur @ w_ur.t()
+    return dxg, dh_c
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _fwd_cuda(xg, w, h0, mask):
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g3 = xg.shape
+    h = g3 // 3
+    dev = xg.device
+    for name, t, shape in (("xg", xg, (b, t_len, g3)), ("w", w, (h, g3)),
+                           ("h0", h0, (b, h)), ("mask", mask, (b, t_len))):
+        _check_float(name, t, shape, dev)
+    lib = _build.load("gru_cell")
+    hs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
+    stash = torch.empty_like(xg)
+    # h_{t-1} and r * h_{t-1}, unit-major, batch rounded up to the
+    # kernel's 64-row tiles; the padding rows stay zero
+    bp = -(-b // _BT) * _BT
+    scratch = torch.zeros((2, h, bp), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gru_fwd(xg.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                         mask.data_ptr(), hs.data_ptr(), stash.data_ptr(),
+                         scratch.data_ptr(), b, t_len, h, _stream(dev))
+    _raise_on(rc, "gru_fwd")
+    launches["gru_fwd"] += 1
+    return hs, stash
+
+
+def _bwd_cuda(stash, hs, w, h0, mask, dhs):
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g3 = stash.shape
+    h = g3 // 3
+    dev = stash.device
+    for name, t, shape in (("stash", stash, (b, t_len, g3)),
+                           ("hs", hs, (b, t_len, h)), ("w", w, (h, g3)),
+                           ("h0", h0, (b, h)), ("mask", mask, (b, t_len)),
+                           ("dhs", dhs, (b, t_len, h))):
+        _check_float(name, t, shape, dev)
+    lib = _build.load("gru_cell")
+    dxg = torch.empty_like(stash)
+    # zero-filled: a sequence of no steps leaves it untouched
+    dh0 = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    bp = -(-b // _BT) * _BT
+    # da_c, da_u, da_r unit-major [3, H, Bp] (padding rows stay zero),
+    # then dh and the masked part of dh_{t-1}, [2, B, H]
+    scratch = torch.zeros((3 * h * bp + 2 * b * h,), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gru_bwd(stash.data_ptr(), hs.data_ptr(), w.data_ptr(),
+                         h0.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
+                         dxg.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
+                         b, t_len, h, _stream(dev))
+    _raise_on(rc, "gru_bwd")
+    launches["gru_bwd"] += 1
+    return dxg, dh0
+
+
+def gru_forward(xg, w, h0, mask):
+    """One forward: the kernel on a CUDA tensor, the step loop on a CPU
+    one. Returns ``(hs, stash)``."""
+    dev = xg.device
+    if dev.type == "cuda":
+        return _fwd_cuda(xg, w, h0, mask)
+    if dev.type == "cpu":
+        return gru_forward_reference(xg, w, h0, mask)
+    raise ValueError("gru_sequence: no kernel for device %s" % dev)
+
+
+def gru_backward(stash, hs, w, h0, mask, dhs):
+    """One backward: the kernel on a CUDA tensor, the plain version on a
+    CPU one. Returns ``(dxg, dh0)``."""
+    if stash.device.type == "cuda":
+        return _bwd_cuda(stash, hs, w, h0, mask, dhs)
+    return gru_backward_reference(stash, hs, w, h0, mask, dhs)
+
+
+class _GRUSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xg, w, h0, mask):
+        hs, stash = gru_forward(xg, w, h0, mask)
+        ctx.save_for_backward(stash, hs, w, h0, mask)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        stash, hs, w, h0, mask = ctx.saved_tensors
+        h = w.shape[0]
+        dxg, dh0 = gru_backward(stash, hs, w, h0, mask, dhs.contiguous())
+        # dW = h_prev^T da_ur || (r h_prev)^T da_c: two GEMMs outside the
+        # kernel
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        dw_ur = torch.einsum("bth,btg->hg", h_prev, dxg[..., :2 * h])
+        dw_c = torch.einsum("bth,btg->hg", stash[..., h:2 * h] * h_prev,
+                            dxg[..., 2 * h:])
+        return dxg, torch.cat([dw_ur, dw_c], dim=1), dh0, None
+
+
+def gru_sequence(xg, w, h0, mask):
+    """Fused GRU over a full sequence, batch-major.
+
+    xg [B, T, 3H] pre-projected gate inputs (bias added); w [H, 3H];
+    h0 [B, H]; mask [B, T]. Returns ``hs`` [B, T, H]. Differentiable in
+    xg, w and h0."""
+    _check(xg.dim() == 3 and xg.shape[-1] % 3 == 0,
+           "xg must be [B, T, 3H], got %s", tuple(xg.shape))
+    b, t_len, g3 = xg.shape
+    h = g3 // 3
+    _check(tuple(w.shape) == (h, g3), "w must be %s, got %s", (h, g3),
+           tuple(w.shape))
+    if xg.device.type == "meta":
+        return torch.empty((b, t_len, h), dtype=xg.dtype, device=xg.device)
+    return _GRUSequence.apply(xg.contiguous(), w.contiguous(),
+                              h0.contiguous(), mask.contiguous())

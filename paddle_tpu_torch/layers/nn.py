@@ -3,20 +3,23 @@
 Capability parity: `python/paddle/fluid/layers/nn.py`. Each function
 appends ops to the current program block; shapes propagate by meta-tensor
 inference so downstream layers can size parameters. These are the
-layers of the transformer LM and its KV-cached serving forwards, and of
+layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
-losses and metric; the JAX package's other layers arrive with later
-slices.
+losses and metric, and of the attention seq2seq model's training graph;
+the JAX package's other layers arrive with later slices.
 """
 
+from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.initializer import Constant
 
 __all__ = [
-    "fc", "embedding", "dynamic_lstm", "sequence_pool", "cross_entropy",
-    "layer_norm", "elementwise_add", "mean", "softmax", "tanh", "topk",
-    "accuracy", "reshape", "transpose", "unsqueeze", "flash_attention",
-    "multi_head_attention",
+    "fc", "embedding", "dynamic_lstm", "dynamic_gru", "gru_unit",
+    "sequence_pool", "sequence_first_step", "sequence_pad",
+    "sequence_mask", "cross_entropy", "layer_norm", "elementwise_add",
+    "elementwise_sub", "elementwise_mul", "mean", "scale", "softmax",
+    "tanh", "topk", "accuracy", "reduce_sum", "reshape", "transpose",
+    "squeeze", "unsqueeze", "flash_attention", "multi_head_attention",
 ]
 
 
@@ -98,6 +101,52 @@ def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
     return hidden, cell
 
 
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, name=None):
+    """input: PackedSeq [B, T, 3H] (pre-projected); size = H."""
+    helper = LayerHelper("dynamic_gru", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = "float32"
+    w = helper.create_parameter(helper.param_attr, [size, 3 * size], dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, 3 * size], dtype,
+                                is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op("gru", inputs, {"Hidden": [hidden]},
+                     {"is_reverse": is_reverse,
+                      "activation": candidate_activation,
+                      "gate_activation": gate_activation})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """One GRU step: input [B, 3H] preactivations, hidden [B, H]; size =
+    3H. Returns ``(hidden, reset_hidden_prev, gate)``."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dtype = input.dtype
+    h = size // 3
+    w = helper.create_parameter(helper.param_attr, [h, 3 * h], dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, 3 * h], dtype,
+                                is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    gate = helper.create_variable_for_type_inference(dtype)
+    reset = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if b is not None:
+        inputs["Bias"] = [b]
+    helper.append_op("gru_unit", inputs,
+                     {"Hidden": [out], "Gate": [gate],
+                      "ResetHiddenPrev": [reset]},
+                     {"activation": activation,
+                      "gate_activation": gate_activation})
+    return out, reset, gate
+
+
 def sequence_pool(input, pool_type):
     helper = LayerHelper("sequence_pool")
     out = helper.create_variable_for_type_inference(input.dtype)
@@ -105,6 +154,38 @@ def sequence_pool(input, pool_type):
     helper.append_op("sequence_pool", {"X": [input]},
                      {"Out": [out], "MaxIndex": [idx]},
                      {"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input, "first")
+
+
+def sequence_pad(x, pad_value=None, maxlen=None, name=None):
+    """PackedSeq -> ``(dense [B, T, ...], lengths [B])``. ``pad_value``
+    must be a Python scalar."""
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int64")
+    attrs = {}
+    if isinstance(pad_value, ir.Variable):
+        raise TypeError(
+            "sequence_pad: pad_value must be a Python scalar (a PackedSeq "
+            "is padded when it is built; a run-time Variable pad cannot "
+            "be honoured)")
+    if pad_value is not None:
+        attrs["pad_value"] = float(pad_value)
+    helper.append_op("sequence_pad", {"X": [x]},
+                     {"Out": [out], "Length": [length]}, attrs)
+    return out, length
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("sequence_mask", {"X": [x]}, {"Y": [out]},
+                     {"maxlen": maxlen if maxlen is not None else -1,
+                      "out_dtype": dtype})
     return out
 
 
@@ -155,8 +236,34 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return helper.append_activation(out)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_sub", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("elementwise_sub", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"axis": axis})
+    return helper.append_activation(out)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_mul", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("elementwise_mul", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"axis": axis})
+    return helper.append_activation(out)
+
+
 def mean(x, name=None):
     return _single_op("mean", x, name=name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("scale", {"X": [x]}, {"Out": [out]},
+                     {"scale": scale, "bias": bias,
+                      "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
 
 
 def softmax(input, use_cudnn=True, name=None, axis=-1):
@@ -191,6 +298,18 @@ def accuracy(input, label, k=1, correct=None, total=None):
     return acc_out
 
 
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"reduce_all": True, "keep_dim": keep_dim}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op("reduce_sum", {"X": [input]}, {"Out": [out]}, attrs)
+    return out
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape", act=act, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -204,6 +323,10 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("transpose", {"X": [x]}, {"Out": [out]}, {"axis": list(perm)})
     return out
+
+
+def squeeze(input, axes, name=None):
+    return _single_op("squeeze", input, {"axes": axes}, name=name)
 
 
 def unsqueeze(input, axes, name=None):

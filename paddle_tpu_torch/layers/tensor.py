@@ -1,13 +1,23 @@
 """Tensor layers.
 
 Capability parity: `python/paddle/fluid/layers/tensor.py`. This slice
-carries ``concat`` and ``position_ids``; the rest of the module's
-layers arrive with later slices.
+carries ``cast``, ``concat``, ``ones_like`` and ``position_ids``; the
+rest of the module's layers arrive with later slices.
 """
+
+import numpy as np
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["concat", "position_ids"]
+__all__ = ["cast", "concat", "ones_like", "position_ids"]
+
+
+def cast(x, dtype):
+    dtype = np.dtype(dtype).name
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("cast", {"X": [x]}, {"Out": [out]}, {"out_dtype": dtype})
+    return out
 
 
 def concat(input, axis=0, name=None):
@@ -22,4 +32,13 @@ def position_ids(x, name=None):
     helper = LayerHelper("position_ids", name=name)
     out = helper.create_variable_for_type_inference("int32")
     helper.append_op("position_ids", {"X": [x]}, {"Out": [out]})
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("scale", {"X": [x]}, {"Out": [out]},
+                     {"scale": 0.0, "bias": 1.0})
     return out

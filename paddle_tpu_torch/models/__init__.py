@@ -1,2 +1,2 @@
-"""Model builders: the transformer LM, the stacked-LSTM classifier and
-the MNIST MLP."""
+"""Model builders: the transformer LM, the stacked-LSTM classifier, the
+MNIST MLP and the attention seq2seq (NMT) training graph."""

@@ -9,4 +9,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     sequence_ops,
     rnn_ops,
     optimizer_ops,
+    control_flow_ops,
 )

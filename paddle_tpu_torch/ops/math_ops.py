@@ -1,8 +1,9 @@
 """Elementwise, activation, reduction and linear-algebra op lowerings.
 
 Capability parity: reference `paddle/fluid/operators/` elementwise group
-(`elementwise_op_function.h` broadcasting), `activation_op.*`, `mean_op`,
-`sum_op`, `mul_op` and `lookup_table_op`, as the JAX package's
+(`elementwise_op_function.h` broadcasting), `activation_op.*`,
+`scale_op`, `reduce_sum_op`, `mean_op`, `sum_op`, `mul_op` and
+`lookup_table_op`, as the JAX package's
 ``ops/math_ops.py`` lowers them, with its gradient flags. A plain
 product stays ``torch.matmul``, as the JAX package left it to XLA. The
 module's other ops arrive with later slices.
@@ -40,10 +41,17 @@ def _bcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@op("elementwise_add", seq_map=True)
-def _elementwise_add(ctx, ins, attrs, o):
-    x, y = _x(ins), _x(ins, "Y")
-    return x + _bcast_y(x, y, attrs.get("axis", -1))
+def _elementwise(name, fn):
+    @op("elementwise_" + name, seq_map=True)
+    def _ew(ctx, ins, attrs, o):
+        x, y = _x(ins), _x(ins, "Y")
+        return fn(x, _bcast_y(x, y, attrs.get("axis", -1)))
+    return _ew
+
+
+_elementwise("add", torch.add)
+_elementwise("sub", torch.sub)
+_elementwise("mul", torch.mul)
 
 
 @op("gelu", seq_map=True)
@@ -57,7 +65,27 @@ def _tanh(ctx, ins, attrs, o):
     return torch.tanh(_x(ins))
 
 
+@op("scale")
+def _scale(ctx, ins, attrs, o):
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return _x(ins) * s + b
+    return (_x(ins) + b) * s
+
+
 # ---- reductions ----
+
+@op("reduce_sum")
+def _reduce_sum(ctx, ins, attrs, o):
+    x = _x(ins)
+    keep = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False):
+        return torch.sum(x, dim=tuple(range(x.dim())), keepdim=keep)
+    dim = attrs.get("dim", [0])
+    dim = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+    return torch.sum(x, dim=dim, keepdim=keep)
+
 
 @op("mean")
 def _mean(ctx, ins, attrs, o):

@@ -1,7 +1,8 @@
 """Sequence op lowerings over PackedSeq (the LoD tensor).
 
-Capability parity: reference `operators/sequence_pool_op` and
-`math/sequence_pooling.*`, which operate on LoDTensors, as the JAX
+Capability parity: reference `operators/sequence_pool_op`,
+`sequence_pad_op`, `sequence_mask_op` and `math/sequence_pooling.*`,
+which operate on LoDTensors, as the JAX
 package's ``ops/sequence_ops.py`` lowers them: variable-length batches
 are PackedSeq (padded dense [B, T, ...] + lengths [B]) and masking
 replaces offset arithmetic. The module's other ops arrive with later
@@ -10,6 +11,7 @@ slices.
 
 import torch
 
+from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.lower import PackedSeq
 from paddle_tpu_torch.core.registry import op
 
@@ -51,3 +53,35 @@ def _sequence_pool(ctx, ins, attrs, o):
     else:
         raise ValueError("unknown pooltype %r" % ptype)
     return {"Out": out, "MaxIndex": None}
+
+
+@op("sequence_pad")
+def _sequence_pad(ctx, ins, attrs, o):
+    """PackedSeq -> dense padded tensor + length vector (reference
+    sequence_pad_op). ``pad_value`` overwrites the buffer's padded
+    positions (the PackedSeq buffer zero-fills them)."""
+    s = _seq(ins)
+    data = s.data
+    pad_value = attrs.get("pad_value", None)
+    if pad_value is not None and pad_value != 0.0:
+        m = s.mask(torch.bool)
+        m = m.reshape(tuple(m.shape) + (1,) * (data.dim() - 2))
+        data = torch.where(m, data, torch.tensor(pad_value, dtype=data.dtype,
+                                                 device=data.device))
+    return {"Out": data, "Length": s.lengths.to(torch.int64)}
+
+
+@op("sequence_mask", no_grad=True)
+def _sequence_mask(ctx, ins, attrs, o):
+    """[B, maxlen] validity mask from a PackedSeq's lengths (maxlen = its
+    padded length unless given) or from a lengths tensor (maxlen given)."""
+    x = ins["X"][0]
+    lens = (x.lengths if isinstance(x, PackedSeq) else x).to(torch.int32)
+    maxlen = attrs.get("maxlen", -1)
+    if maxlen < 0:
+        if not isinstance(x, PackedSeq):
+            raise ValueError("sequence_mask of a lengths tensor needs maxlen")
+        maxlen = x.data.shape[1]
+    t = torch.arange(maxlen, dtype=torch.int32, device=lens.device)
+    return {"Y": (t[None, :] < lens.reshape(-1, 1)).to(
+        torch_dtype(attrs.get("out_dtype", "int64")))}

@@ -1,7 +1,7 @@
 """Tensor-manipulation op lowerings.
 
-Capability parity: reference reshape/transpose/unsqueeze/concat/top_k/
-assign/fill_constant/uniform_random (`paddle/fluid/operators/`, §2.3
+Capability parity: reference cast/reshape/transpose/squeeze/unsqueeze/
+concat/top_k/assign/fill_constant/uniform_random (`paddle/fluid/operators/`, §2.3
 "Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
 lowers them, with its gradient flags. The module's other ops arrive
 with later slices.
@@ -18,6 +18,11 @@ def _x(ins, slot="X"):
     return ins[slot][0]
 
 
+@op("cast", seq_map=True)
+def _cast(ctx, ins, attrs, o):
+    return _x(ins).to(torch_dtype(attrs["out_dtype"]))
+
+
 @op("reshape")
 def _reshape(ctx, ins, attrs, o):
     x = _x(ins)
@@ -27,6 +32,16 @@ def _reshape(ctx, ins, attrs, o):
         if s == 0:
             shape[i] = x.shape[i]
     return {"Out": x.reshape(shape), "XShape": None}
+
+
+@op("squeeze")
+def _squeeze(ctx, ins, attrs, o):
+    x = _x(ins)
+    axes = attrs.get("axes", [])
+    if not axes:
+        return x.squeeze()
+    # only axes of size 1 go, as jnp.squeeze over the JAX package's filter
+    return x.squeeze(tuple(a for a in axes if x.shape[a] == 1))
 
 
 @op("unsqueeze")

@@ -42,6 +42,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.models.stacked_lstm\n"
         "import paddle_tpu_torch.models.lenet\n"
         "import paddle_tpu_torch.kernels.lstm_cell\n"
+        "import paddle_tpu_torch.kernels.gru_cell\n"
+        "import paddle_tpu_torch.models.seq2seq\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.interop\n"
         "import paddle_tpu_torch.kernels._build\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"

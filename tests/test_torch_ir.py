@@ -1,8 +1,9 @@
 """The port's program IR serializes exactly as the JAX package's: every
 golden program round-trips byte-identically through the port's
-``from_json``; the transformer builds, the stacked-LSTM training program
-(append_backward + Adam) and the MNIST MLP training program give the
-same JSON in both packages."""
+``from_json``; the transformer builds, the stacked-LSTM and seq2seq
+training programs (append_backward + Adam; seq2seq's StaticRNN
+sub-block and scan_block_grad) and the MNIST MLP training program give
+the same JSON in both packages."""
 
 import json
 import os
@@ -14,12 +15,15 @@ import paddle_tpu_torch as tfluid
 from paddle_tpu import layers as jlayers
 from paddle_tpu import unique_name as jnames
 from paddle_tpu.models import lenet as jlenet
+from paddle_tpu.models import seq2seq as jseq2seq
 from paddle_tpu.models import stacked_lstm as jstacked
 from paddle_tpu.models import transformer as jtransformer
 from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch import unique_name as tnames
+from paddle_tpu_torch.core.infer import infer_op_shapes
 from paddle_tpu_torch.core.ir import Program
 from paddle_tpu_torch.models import lenet as tlenet
+from paddle_tpu_torch.models import seq2seq as tseq2seq
 from paddle_tpu_torch.models import stacked_lstm as tstacked
 from paddle_tpu_torch.models import transformer as ttransformer
 
@@ -105,9 +109,48 @@ def test_stacked_lstm_train_json_identical_to_jax(size, which):
     assert _dump(t[i]) == _dump(j[i])
 
 
+# the golden's size (tools/goldens.py) and the full width of bench.py
+SEQ2SEQ_SIZES = {"golden": dict(src_vocab=50, tgt_vocab=50, emb_dim=16,
+                                hidden_dim=16),
+                 "full": dict(src_vocab=30000, tgt_vocab=30000, emb_dim=512,
+                              hidden_dim=512)}
+
+
+@pytest.mark.parametrize("which", ["main", "startup"])
+@pytest.mark.parametrize("size", sorted(SEQ2SEQ_SIZES))
+def test_seq2seq_train_json_identical_to_jax(size, which):
+    with jnames.guard():
+        j = jseq2seq.build_seq2seq(**SEQ2SEQ_SIZES[size])
+    with tnames.guard():
+        t = tseq2seq.build_seq2seq(**SEQ2SEQ_SIZES[size])
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+
+
+def test_scan_block_shapes_infer_on_meta_tensors():
+    """StaticRNN declares scan_block's outputs; running the op on meta
+    tensors (one step of the sub-block) gives the same shapes and the
+    packed type of the scanned input."""
+    with tnames.guard():
+        prog = tseq2seq.build_seq2seq(**SEQ2SEQ_SIZES["golden"])[0]
+    b0 = prog.global_block()
+    op = [o for o in b0.ops if o.type == "scan_block"][0]
+    names = op.output("Out") + op.output("StepState")
+    declared = [(b0.var(n).shape, b0.var(n).dtype, b0.var(n).lod_level)
+                for n in names]
+    for n in names:
+        b0.var(n).shape = None
+    infer_op_shapes(b0, op)
+    assert [(b0.var(n).shape, b0.var(n).dtype, b0.var(n).lod_level)
+            for n in names] == declared
+    assert [b0.var(n).type for n in op.output("Out")] == ["packed_seq"] * 2
+
+
 @pytest.mark.parametrize("name,build", [
     ("stacked_lstm", lambda: tstacked.build_stacked_lstm_train(
         **LSTM_SIZES["golden"])),
+    ("seq2seq_train", lambda: tseq2seq.build_seq2seq(
+        **SEQ2SEQ_SIZES["golden"])),
     ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp"))])
 def test_training_program_equals_golden(name, build):
     with tnames.guard():
@@ -137,3 +180,19 @@ def test_stacked_lstm_program_has_the_goldens_ops():
     assert types.count("lstm") == types.count("lstm_grad") == 3
     words = prog.global_block().var("words")
     assert words.lod_level == 1 and words.type == "packed_seq"
+
+
+def test_seq2seq_program_has_the_goldens_ops():
+    with tnames.guard():
+        prog = tseq2seq.build_seq2seq(**SEQ2SEQ_SIZES["golden"])[0]
+    types = [op.type for op in prog.global_block().ops]
+    assert types.count("gru") == types.count("gru_grad") == 2
+    assert types.count("scan_block") == types.count("scan_block_grad") == 1
+    assert types.count("adam") == 19
+    sub = prog.block(1)
+    assert sub.parent_idx == 0
+    assert [op.type for op in sub.ops] == [
+        "mul", "unsqueeze", "elementwise_add", "tanh", "mul", "squeeze",
+        "scale", "elementwise_sub", "scale", "elementwise_add", "softmax",
+        "unsqueeze", "elementwise_mul", "reduce_sum", "concat", "mul",
+        "elementwise_add", "gru_unit"]

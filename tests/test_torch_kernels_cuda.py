@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, held against their plain PyTorch
 versions (tolerance 1e-5 absolute and relative: the same fp32 math in
-another summation order; the LSTM's backward 1e-5 absolute and 1e-4
-relative, its recurrence reorders sums over up to 80 steps).
+another summation order; the LSTM's and the GRU's backward 1e-5
+absolute and 1e-4 relative, their recurrences reorder sums over up to
+80 steps).
 
 Marked ``cuda``: each test skips inside itself where torch finds no
 card. This file imports torch and the port only (the machine with the
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
-from paddle_tpu_torch.kernels import lstm_cell
+from paddle_tpu_torch.kernels import gru_cell, lstm_cell
 
 
 @pytest.fixture
@@ -135,3 +136,65 @@ def test_cuda_lstm_raises_on_what_the_kernels_do_not_take(cuda):
         lstm_cell.lstm_forward(xg.double(), w, h0, c0, mask, p)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_cell.lstm_forward(xg, w.t().contiguous().t(), h0, c0, mask, p)
+
+
+def _gru_inputs(B, T, H, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
+    w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
+    h0 = torch.randn(B, H, generator=g) * 0.1
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    lens[0], lens[-1] = 0, T           # an empty row and a full one
+    mask = (torch.arange(T)[None] < lens[:, None]).float()
+    dhs = torch.randn(B, T, H, generator=g)
+    return [t.to(device) for t in (xg, w, h0, mask, dhs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 5, 32), (64, 30, 512), (37, 17, 128),
+                                   (70, 6, 40)])
+def test_cuda_gru_matches_plain(cuda, shape):
+    xg, w, h0, mask, dhs = _gru_inputs(*shape, 2, cuda)
+    n = dict(gru_cell.launches)
+    hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+    rhs, rst = gru_cell.gru_forward_reference(xg, w, h0, mask)
+    torch.cuda.synchronize()
+    for got, want in ((hs, rhs), (stash, rst)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got = gru_cell.gru_backward(rst, rhs, w, h0, mask, dhs)
+    want = gru_cell.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert gru_cell.launches == {"gru_fwd": n["gru_fwd"] + 1,
+                                 "gru_bwd": n["gru_bwd"] + 1}
+
+
+@pytest.mark.cuda
+def test_cuda_gru_autograd_goes_through_both_kernels(cuda):
+    xg, w, h0, mask, dhs = _gru_inputs(16, 9, 64, 3, cuda)
+    leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
+    gru_cell.reset_launches()
+    hs = gru_cell.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
+    got = torch.autograd.grad(hs, leaves, dhs)
+    assert gru_cell.launches == {"gru_fwd": 1, "gru_bwd": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs = gru_cell.gru_sequence(cpu[0], cpu[1], cpu[2], mask.cpu())
+    want = torch.autograd.grad(rhs, cpu, dhs.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_raises_on_what_the_kernels_do_not_take(cuda):
+    xg, w, h0, mask, _ = _gru_inputs(4, 3, 8, 4, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        gru_cell.gru_forward(xg.double(), w, h0, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_cell.gru_forward(xg, w.t().contiguous().t(), h0, mask)
+    # past one resident block of 4 units per SM the cooperative grid
+    # cannot launch: the wrapper raises, never runs the plain version
+    big = 4 * torch.cuda.get_device_properties(cuda).multi_processor_count + 4
+    xg, w, h0, mask, _ = _gru_inputs(2, 2, big, 5, cuda)
+    with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
+        gru_cell.gru_forward(xg, w, h0, mask)

@@ -224,6 +224,69 @@ def test_adam_dense_update():
            {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, grad=False)
 
 
+# ---- the seq2seq slice's ops ----
+
+@pytest.mark.parametrize("type,x,y,axis", [
+    ("elementwise_sub", (4, 4), (4, 4), -1),
+    ("elementwise_mul", (4, 5, 6), (4, 5, 1), -1),
+    ("elementwise_mul", (4, 5, 6), (5,), 1),
+    ("elementwise_sub", (4, 5, 3), (4, 1, 3), 0),
+], ids=["same", "trailing_1", "axis_1", "axis_0_bcast"])
+def test_elementwise_sub_mul_axis(type, x, y, axis):
+    _check(type, {"X": [_f(*x)], "Y": [_f(*y)]}, {"axis": axis})
+
+
+@pytest.mark.parametrize("attrs", [
+    {"scale": 0.0, "bias": 1.0},
+    {"scale": 1e9, "bias": 0.0, "bias_after_scale": True},
+    {"scale": -2.5, "bias": 0.5, "bias_after_scale": False}],
+    ids=["ones_like", "after", "before"])
+def test_scale(attrs):
+    _check("scale", {"X": [_f(3, 4)]}, attrs)
+
+
+@pytest.mark.parametrize("attrs", [
+    {"dim": [1], "keep_dim": False, "reduce_all": False},
+    {"dim": [0, 2], "keep_dim": True, "reduce_all": False},
+    {"reduce_all": True, "keep_dim": False}],
+    ids=["dim1", "dims_keep", "all"])
+def test_reduce_sum(attrs):
+    _check("reduce_sum", {"X": [_f(3, 4, 5)]}, attrs)
+
+
+@pytest.mark.parametrize("axes", [[2], [], [0, 2]])
+def test_squeeze(axes):
+    """Only axes of size 1 go; no axes squeezes every size-1 dim."""
+    _check("squeeze", {"X": [_f(3, 1, 1)]}, {"axes": axes})
+
+
+def test_cast():
+    ids = RNG.randint(0, 3, (4, 4, 1)).astype(np.int64)
+    _check("cast", {"X": [Seq(ids)]}, {"out_dtype": "float32"}, grad=False)
+    _check("cast", {"X": [_f(3, 2)]}, {"out_dtype": "float32"})
+
+
+@pytest.mark.parametrize("attrs", [{}, {"pad_value": -1e9}])
+def test_sequence_pad(attrs):
+    _check("sequence_pad", {"X": [Seq(_f(4, 4, 3))]}, attrs)
+
+
+@pytest.mark.parametrize("maxlen", [-1, 6])
+def test_sequence_mask(maxlen):
+    _check("sequence_mask", {"X": [Seq(_f(4, 4, 2))]},
+           {"maxlen": maxlen, "out_dtype": "int64"}, grad=False)
+
+
+@pytest.mark.parametrize("act", ["tanh", 2, "relu", 0])
+def test_gru_unit(act):
+    """``activation`` as a name or the reference's integer code."""
+    h = 5
+    _check("gru_unit", {"Input": [_f(4, 3 * h)], "HiddenPrev": [_f(4, h)],
+                        "Weight": [_f(h, 3 * h) * 0.5],
+                        "Bias": [_f(1, 3 * h)]},
+           {"activation": act, "gate_activation": "sigmoid"})
+
+
 @pytest.mark.parametrize("flag", ["no_grad", "nondiff_inputs"])
 def test_gradient_flags_match_jax(flag):
     """append_backward reads these flags: both packages must agree on
