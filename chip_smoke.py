@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's three main paths through the entry points a user
+Drives the port's four main paths through the entry points a user
 calls, on random weights and data made from ``--seed``:
 
 * KV-cached decode serving of the transformer LM at the repo's full
@@ -13,7 +13,17 @@ calls, on random weights and data made from ``--seed``:
   batch of 64 ragged sequences of 16..80 ids;
 * training of the attention seq2seq (NMT) model at the repo's full width
   (vocab 30000 source and target, emb 512, hid 512, Adam lr 1e-3) on a
-  batch of 64 ragged source and target sequences of 8..30 ids.
+  batch of 64 ragged source and target sequences of 8..30 ids;
+* training of ResNet-50 at full width (3x224x224 images, 1000 classes,
+  depth 50, batch 64, float32, Momentum lr 0.1 mu 0.9), twice from the
+  same weights: config A "nhwc+reductions" (``layout="NHWC"`` and
+  ``passes.enable(prog, layout="NHWC", pallas_reductions=True)``, whose
+  53 batch_norm_grad ops launch the batch-norm backward kernel) and
+  config B "nchw+fused1x1" (NCHW, no passes,
+  ``FLAGS_fused_conv1x1_bwd`` on, whose 1x1 stride-1 convolutions
+  launch the fused dx+dw kernel in their backward). The two kernels
+  cannot fire in one program: the first takes NHWC only, the second
+  NCHW only.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -31,9 +41,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, and the card against the CPU at a reduced size from the same
    weights (losses of 3 steps, first-step gradients);
 6. seq2seq training, the same way (exact GRU launch counts);
-7. time each kernel, its plain version and one PyTorch library call at
+7. ResNet-50 training: A against B on the card from the same weights
+   (first-step loss and every gradient, each held to its own norm),
+   then each config's startup, 2 warmup and 10 counted steps at lr 0.1
+   (exact launch counts derived from the program; a finite loss that
+   comes under the first counted one, if need be after further steps:
+   lr 0.1 with momentum overshoots on one repeated batch, in the JAX
+   package as here, tests/test_torch_convnet.py), 5 steps from the same
+   weights at lr 0.01 whose loss falls at every step, a profile of one
+   step, and the card against the CPU, and A against B again, at the
+   ``resnet_cifar`` size (32x32, 10 classes, batch 8);
+8. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events, and profile the decode step;
-8. print the kernel table as one JSON line, then the result line.
+9. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -75,6 +95,45 @@ S2S_XCHECK = dict(src_vocab=1000, tgt_vocab=1000, emb_dim=128,
                   hidden_dim=128)
 S2S_XCHECK_B, S2S_XCHECK_T = 16, 12
 
+# full width: ResNet-50 as the reference benchmarks it (batch 64)
+RESNET = dict(image_shape=(3, 224, 224), class_dim=1000, depth=50, lr=0.1)
+RESNET_B = 64
+RESNET_XCHECK = dict(image_shape=(3, 32, 32), class_dim=10, depth=50, lr=0.1)
+RESNET_XCHECK_B = 8
+# further steps at lr 0.1 allowed for the loss to come under the first
+# counted one (H100 runs took 12 to 31: cuDNN's backward is not
+# run-to-run deterministic and the overshoot amplifies it)
+RESNET_SETTLE_STEPS = 120
+# the counted steps run at the reference's lr 0.1, where the loss on one
+# repeated batch overshoots before it falls (the JAX package's does the
+# same from the same weights: tests/test_torch_convnet.py); at this lr it
+# falls at every one of RESNET_LOW_LR_STEPS steps
+RESNET_LOW_LR, RESNET_LOW_LR_STEPS = 0.01, 5
+# At its initial weights a batch-normalised ReLU net turns a rounding
+# difference in its input into relu gates that flip, most of all where a
+# batch norm sees few values (at 32x32 and batch 8 stage 4 normalises 8 a
+# channel): a 1e-6 change of the input moves single gradients by 0.2-0.4
+# of their largest value, at depth 18 as at depth 50
+# (tests/test_torch_convnet.py measures it). So where two runs'
+# GRADIENTS are compared, the scale of the last batch norm of every
+# residual branch is multiplied by this in both runs: the blocks then
+# start close to the identity, as a zero-initialised residual does. The
+# training runs use the weights as the startup program made them.
+RESNET_DAMP = 0.03
+# Two runs' gradients are held three ways: each within GTOL x its own
+# largest magnitude, each within PL2TOL of its own L2 norm (so a
+# parameter inside a damped branch, whose gradient is small beside the
+# others', counts as much as any), and all together within L2TOL in
+# relative L2 norm. The card against the CPU, and A against B on the
+# card, at 32x32 and batch 8 (ten times what an H100 run measured):
+RESNET_GTOL, RESNET_PL2TOL, RESNET_L2TOL = 5e-3, 2e-3, 4e-4
+# A against B at full width: the two configs run different library
+# convolutions (channels-last and not) over 802816 positions, and single
+# gates flip: single entries differed by up to 0.054 of the largest and
+# the worst gradient by 5.3e-3 of its norm in an H100 run, so the
+# per-parameter norm carries the check (a gradient 5% wrong fails it)
+RESNET_AB_GTOL, RESNET_AB_PL2TOL, RESNET_AB_L2TOL = 1e-1, 2e-2, 2e-3
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -85,19 +144,43 @@ ATOL = RTOL = 1e-5
 # tens to hundreds at the path's shape. The GRU's kernels are held to
 # the same tolerances for the same reasons.
 LSTM_ATOL, LSTM_RTOL = 1e-5, 1e-4
+# The batch-norm backward: its sums run over up to 802816 rows in another
+# order than torch's, and sum(dy x) - mean sum(dy) cancels, so dscale and
+# dbias are held to rtol 1e-4 plus 1e-5 of their largest magnitude; dx to
+# rtol 1e-4 plus 1e-5 of its largest magnitude in float32 and to one
+# bfloat16 rounding (rtol 1e-2 plus 4e-3 of the largest) in bfloat16.
+# The fused 1x1 backward: dw sums up to 200704 products: rtol 1e-4 plus
+# 2e-5 of the largest magnitude in float32, one bfloat16 rounding in
+# bfloat16. Both are also held against float64 plain versions.
+BN_RTOL, BN_AMAX = 1e-4, 1e-5
+C1_RTOL, C1_AMAX = 1e-4, 2e-5
+BF16_RTOL, BF16_AMAX = 1e-2, 4e-3
+# (N, H, W, C): the ResNet-50 stem at batch 64, a stage-4 shape, a row
+# count (315) that no power of two divides, channels that fill no float4
+BN_SHAPES = ((64, 112, 112, 64), (64, 7, 7, 2048), (5, 7, 9, 24),
+             (3, 5, 7, 6))
+# (B, Ci, H, W, Co): the path's largest and smallest maps, a shape the
+# JAX package's kernel refuses for its size in fast memory (Ci 256 -> Co
+# 64 at 56x56), and one where no dimension fills a tile
+C1_SHAPES = ((64, 64, 56, 56, 256), (64, 2048, 7, 7, 512),
+             (64, 256, 56, 56, 64), (3, 24, 5, 7, 40))
 
 SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
            "lstm_fwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
            "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
            "gru_fwd": "paddle_tpu_torch/csrc/gru_cell.cu",
-           "gru_bwd": "paddle_tpu_torch/csrc/gru_cell.cu"}
+           "gru_bwd": "paddle_tpu_torch/csrc/gru_cell.cu",
+           "bn_grad": "paddle_tpu_torch/csrc/bn_grad.cu",
+           "conv1x1_bwd": "paddle_tpu_torch/csrc/conv1x1_bwd.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
             "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
             "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198",
             "gru_fwd": "paddle_tpu/kernels/gru_cell.py:67",
-            "gru_bwd": "paddle_tpu/kernels/gru_cell.py:143"}
+            "gru_bwd": "paddle_tpu/kernels/gru_cell.py:143",
+            "bn_grad": "paddle_tpu/kernels/bn_grad.py:72",
+            "conv1x1_bwd": "paddle_tpu/kernels/conv1x1_bwd.py:85"}
 
 
 def phase(name):
@@ -387,10 +470,47 @@ def train_phase(fluid, seed, dev):
     return launches
 
 
-def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4):
+def grad_diff(names, got, want):
+    """How far the gradients ``got`` lie from ``want``: the worst single
+    entry as a share of its gradient's largest magnitude, the worst
+    gradient in relative L2 norm, and all together in relative L2 norm."""
+    d = dict(worst=0.0, worst_name="", pl2=0.0, pl2_name="")
+    num = den = 0.0
+    for name, g, w in zip(names, got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        e = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        n2, d2 = float(((g - w) ** 2).sum()), float((w ** 2).sum())
+        if e > d["worst"]:
+            d["worst"], d["worst_name"] = e, name
+        if (n2 / max(d2, 1e-300)) ** 0.5 > d["pl2"]:
+            d["pl2"], d["pl2_name"] = (n2 / max(d2, 1e-300)) ** 0.5, name
+        num += n2
+        den += d2
+    d["l2"] = (num / max(den, 1e-300)) ** 0.5
+    return d
+
+
+def check_grad_diff(what, d, gtol, l2tol, pl2tol=None):
+    print("%s: worst entry %.3g x max|g| (%s), worst gradient %.3g of its "
+          "L2 norm (%s), all together %.3g in relative L2 norm" % (
+              what, d["worst"], d["worst_name"], d["pl2"], d["pl2_name"],
+              d["l2"]))
+    if d["worst"] > gtol or d["l2"] > l2tol or \
+            (pl2tol is not None and d["pl2"] > pl2tol):
+        raise AssertionError("%s: gradients differ by more than %g x "
+                             "max|g|, %s of one gradient's L2 norm or %g "
+                             "of all together" % (what, gtol, pl2tol, l2tol))
+
+
+def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
+                ltol=1e-4, l2tol=1e-3, pl2tol=None, edit=None):
     """The card against the CPU from the same weights: the losses of
-    ``steps`` Adam steps within rtol 1e-4, every first-step parameter
-    gradient within ``gtol`` x its largest magnitude."""
+    ``steps`` optimizer steps within rtol ``ltol``, every first-step
+    parameter gradient within ``gtol`` x its largest magnitude (and
+    within ``pl2tol`` of its L2 norm, where given) and all of them
+    together within ``l2tol`` in relative L2 norm. ``edit(prog, scope)``
+    changes the CPU's weights before they are carried to the card.
+    Returns the card's first-step loss and gradients, by name."""
     from paddle_tpu_torch import interop, unique_name
 
     with unique_name.guard():
@@ -399,12 +519,14 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4):
     cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
     cpu = fluid.Executor(fluid.CPUPlace())
     cpu.run(xstart, scope=cpu_scope)
+    if edit is not None:
+        edit(xprog, cpu_scope)
     interop.load_reference_state(
         {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
         fluid.CUDAPlace(0), [xprog, xstart])
     grads = sorted(p.name + "@GRAD"
                    for p in xprog.global_block().all_parameters())
-    worst = 0.0
+    first = None
     for step in range(steps):
         extra = grads if step == 0 else []
         c = cpu.run(xprog, feed=batch, fetch_list=[xloss] + extra,
@@ -413,17 +535,17 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4):
                     scope=card_scope)
         print("cross-check step %d: loss cpu %.7f card %.7f" % (
             step, float(c[0]), float(k[0])))
-        np.testing.assert_allclose(k[0], c[0], rtol=1e-4)
-        for name, cg, kg in zip(extra, c[1:], k[1:]):
-            atol = gtol * float(np.abs(cg).max())
-            np.testing.assert_allclose(kg, cg, rtol=0, atol=atol,
-                                       err_msg=name)
-            worst = max(worst, float(np.abs(kg - cg).max())
-                        / max(float(np.abs(cg).max()), 1e-30))
-    print("card == cpu at %s: losses of %d steps within rtol 1e-4; %d "
-          "first-step gradients within %g x max|g| (worst %.3g x "
-          "max|g|)" % (label, steps, len(grads), gtol, worst))
+        np.testing.assert_allclose(k[0], c[0], rtol=ltol)
+        if step == 0:
+            first = dict(zip(["loss"] + grads, k))
+            check_grad_diff("card vs cpu at %s, %d first-step gradients"
+                            % (label, len(grads)),
+                            grad_diff(grads, k[1:], c[1:]), gtol, l2tol,
+                            pl2tol)
+    print("card == cpu at %s: losses of %d steps within rtol %g" % (
+        label, steps, ltol))
     torch.cuda.synchronize()
+    return first
 
 
 def seq2seq_batch(rng, B, T, min_len, vocab):
@@ -524,6 +646,400 @@ def seq2seq_phase(fluid, seed, dev):
     return launches
 
 
+def rel_close(what, got, want, rtol, amax):
+    """|got - want| <= amax * max|want| + rtol * |want|; returns the max
+    abs err."""
+    got, want = got.to(torch.float64), want.to(torch.float64)
+    err = (got - want).abs()
+    tol = amax * float(want.abs().max()) + rtol * want.abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError("%s: disagrees (max abs err %.3g, max|want| "
+                             "%.3g)" % (what, err.max(), want.abs().max()))
+    return float(err.max())
+
+
+def check_bn_grad(kbn, g, dev):
+    """B7 against its plain version on the card, and both against the
+    plain version in float64. Returns the float32 max abs err of dx
+    against the plain version."""
+    worst = 0.0
+    for shape in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype) \
+                .to(dev)
+            dy = torch.randn(*shape, generator=g).to(dtype).to(dev)
+            scale = (torch.rand(shape[-1], generator=g) + 0.5).to(dev)
+            got = kbn.bn_grad(x, dy, scale, 1e-5)
+            plain = kbn.bn_grad_reference(x, dy, scale, 1e-5)
+            truth = kbn.bn_grad_reference(x.double(), dy.double(),
+                                          scale.double(), 1e-5)
+            f32 = dtype == torch.float32
+            what = "bn_grad %s %s" % (shape, dtype)
+            errs = {}
+            for ref_name, ref in (("plain", plain), ("float64", truth)):
+                errs[ref_name] = [
+                    rel_close("%s dx vs %s" % (what, ref_name), got[0],
+                              ref[0], BN_RTOL if f32 else BF16_RTOL,
+                              BN_AMAX if f32 else BF16_AMAX),
+                    rel_close("%s dscale vs %s" % (what, ref_name), got[1],
+                              ref[1], BN_RTOL, BN_AMAX),
+                    rel_close("%s dbias vs %s" % (what, ref_name), got[2],
+                              ref[2], BN_RTOL, BN_AMAX)]
+            perr = [float((a.double() - b).abs().max())
+                    for a, b in zip(plain, truth)]
+            print("%s: max abs err (dx, dscale, dbias) kernel-plain "
+                  "%.3g %.3g %.3g; kernel-float64 %.3g %.3g %.3g; "
+                  "plain-float64 %.3g %.3g %.3g (max|dscale| %.3g)" % (
+                      what, *errs["plain"], *errs["float64"], *perr,
+                      float(truth[1].abs().max())))
+            if f32:
+                worst = max(worst, errs["plain"][0])
+            again = kbn.bn_grad(x, dy, scale, 1e-5)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(what + ": two runs differ")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_conv1x1(k1, g, dev):
+    """B8 against its plain version on the card, and both against
+    float64. Returns the float32 max abs err of dx and dw against the
+    plain version."""
+    worst = 0.0
+    for b, ci, h, w, co in C1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, ci, h, w, generator=g).to(dtype).to(dev)
+            wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
+                .to(dtype).to(dev)
+            dy = torch.randn(b, co, h, w, generator=g).to(dtype).to(dev)
+            got = k1.conv1x1_bwd(x, wt, dy)
+            plain = k1.conv1x1_bwd_reference(x, wt, dy)
+            truth = k1.conv1x1_bwd_reference(x.double(), wt.double(),
+                                             dy.double())
+            f32 = dtype == torch.float32
+            rtol, amax = (C1_RTOL, C1_AMAX) if f32 else (BF16_RTOL,
+                                                         BF16_AMAX)
+            what = "conv1x1_bwd %s %s" % ((b, ci, h, w, co), dtype)
+            errs = {}
+            for ref_name, ref in (("plain", plain), ("float64", truth)):
+                errs[ref_name] = [
+                    rel_close("%s %s vs %s" % (what, n, ref_name), a, r,
+                              rtol, amax)
+                    for n, a, r in (("dx", got[0], ref[0]),
+                                    ("dw", got[1], ref[1]))]
+            perr = [float((a.double() - r).abs().max())
+                    for a, r in zip(plain, truth)]
+            print("%s: max abs err (dx, dw) kernel-plain %.3g %.3g; "
+                  "kernel-float64 %.3g %.3g; plain-float64 %.3g %.3g "
+                  "(max|dw| %.3g)" % (what, *errs["plain"],
+                                      *errs["float64"], *perr,
+                                      float(truth[1].abs().max())))
+            if f32:
+                worst = max(worst, *errs["plain"])
+            again = k1.conv1x1_bwd(x, wt, dy)
+            if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                raise AssertionError(what + ": two runs differ")
+    torch.cuda.synchronize()
+    return worst
+
+
+def resnet_build(config, sizes):
+    """ResNet-50 in config "A" (nhwc+reductions) or "B" (nchw; the
+    caller turns FLAGS_fused_conv1x1_bwd on)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.resnet import build_resnet50_train
+
+    prog, startup, feeds, (loss, acc) = build_resnet50_train(
+        layout="NHWC" if config == "A" else "NCHW", **sizes)
+    if config == "A":
+        fluid.passes.enable(prog, layout="NHWC", pallas_reductions=True)
+    return prog, startup, feeds, (loss, acc)
+
+
+def resnet_damp(prog, scope):
+    """Multiply the scale of the last batch norm of every residual
+    branch by RESNET_DAMP (see there)."""
+    ops = prog.global_block().ops
+    branch = {op.input("Y")[0] for op in ops if op.type == "elementwise_add"}
+    n = 0
+    for op in ops:
+        if op.type == "batch_norm" and op.output("Y")[0] in branch:
+            name = op.input("Scale")[0]
+            scope.set_var(name, scope.find_var(name) * RESNET_DAMP)
+            n += 1
+    return n
+
+
+def resnet_expected_launches(prog):
+    """Launches a step, worked out from the program as built: one B7 for
+    every batch_norm op (the reduction pass tags each one's grad in an
+    NHWC program), one B8 for every conv2d that is 1x1, stride 1,
+    unpadded, undilated and ungrouped. In ResNet-50 those are the 16
+    conv3 of the bottlenecks, 13 conv1 (all but the stride-2 ones that
+    open stages 2-4) and the one stride-1 shortcut of stage 1."""
+    block = prog.global_block()
+    n_bn = sum(op.type == "batch_norm" for op in block.ops)
+    fused = []
+    for op in block.ops:
+        if op.type != "conv2d":
+            continue
+        wshape = block.var(op.input("Filter")[0]).shape
+        a = op.attrs
+        if tuple(wshape[2:]) == (1, 1) and list(a["strides"]) == [1, 1] \
+                and not any(a["paddings"]) \
+                and list(a["dilations"]) == [1, 1] \
+                and (a.get("groups", 1) or 1) == 1:
+            fused.append((block.var(op.input("Input")[0]).shape, wshape))
+    return n_bn, fused
+
+
+def resnet_phase(fluid, seed, dev):
+    """ResNet-50 at full width in configs A and B, A against B, and the
+    card against the CPU at the resnet_cifar size. Returns the B7/B8
+    launch counts of the counted steps and the path's kernel shapes."""
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.kernels import bn_grad as kbn
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    def set_fused(on):
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": on})
+
+    progs = {}
+    for config in ("A", "B"):
+        with unique_name.guard():
+            progs[config] = resnet_build(config, RESNET)
+    n_bn, fused = resnet_expected_launches(progs["B"][0])
+    print("per step, from the program: %d batch_norm ops -> %d B7 launches "
+          "in config A; %d of %d conv2d ops are 1x1 stride-1 -> %d B8 "
+          "launches in config B" % (
+              n_bn, n_bn, len(fused),
+              sum(op.type == "conv2d"
+                  for op in progs["B"][0].global_block().ops), len(fused)))
+    if (n_bn, len(fused)) != (53, 30):
+        raise AssertionError("ResNet-50 should hold 53 batch norms and 30 "
+                             "fusable convolutions, got %d and %d"
+                             % (n_bn, len(fused)))
+
+    # one set of weights for everything below
+    startup = progs["B"][1]
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope0)
+    block = progs["B"][0].global_block()
+    n_params = sum(t.numel() for n, t in scope0.vars.items()
+                   if block.var(n).is_parameter)
+    print("parameters: %d (%.1f MB fp32); batch %d images %s" % (
+        n_params, n_params * 4 / 1e6, RESNET_B, RESNET["image_shape"]))
+
+    def clone(scope):
+        out = fluid.Scope()
+        for n, t in scope.vars.items():
+            out.set_var(n, t.clone())
+        return out
+
+    rng = np.random.RandomState(seed)
+    images = rng.randn(RESNET_B, *RESNET["image_shape"]).astype(np.float32)
+    labels = rng.randint(0, RESNET["class_dim"],
+                         (RESNET_B, 1)).astype(np.int64)
+    feeds = {
+        "A": {"data": torch.from_numpy(np.ascontiguousarray(
+            images.transpose(0, 2, 3, 1))).to(dev),
+            "label": torch.from_numpy(labels).to(dev)},
+        "B": {"data": torch.from_numpy(images).to(dev),
+              "label": torch.from_numpy(labels).to(dev)}}
+
+    # ---- A against B: same weights, same batch, first step ----
+    grads = sorted(p.name + "@GRAD" for p in block.all_parameters())
+    first = {}
+    for config in ("A", "B"):
+        prog, _, _, (loss, _) = progs[config]
+        scope = clone(scope0)
+        resnet_damp(prog, scope)
+        set_fused(config == "B")
+        try:
+            first[config] = exe.run(prog, feed=feeds[config],
+                                    fetch_list=[loss.name] + grads,
+                                    scope=scope)
+        finally:
+            set_fused(False)
+        del scope
+    la, lb = float(first["A"][0]), float(first["B"][0])
+    print("A vs B on the card, same weights (residual branches damped x%g) "
+          "and batch: first-step loss A %.7f B %.7f" % (RESNET_DAMP, la, lb))
+    np.testing.assert_allclose(la, lb, rtol=1e-4)
+    check_grad_diff("A vs B at full width, %d gradients" % len(grads),
+                    grad_diff(grads, first["A"][1:], first["B"][1:]),
+                    RESNET_AB_GTOL, RESNET_AB_L2TOL, RESNET_AB_PL2TOL)
+    del first
+    torch.cuda.empty_cache()
+
+    # ---- train each config ----
+    launches = {}
+    for config, name in (("A", "nhwc+reductions"), ("B", "nchw+fused1x1")):
+        prog, _, _, (loss, acc) = progs[config]
+        scope = clone(scope0)
+        feed = feeds[config]
+        set_fused(config == "B")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(WARMUP_STEPS):
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            kbn.reset_launches()
+            k1.reset_launches()
+            losses, accs = [], []
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                l_, a_ = exe.run(prog, feed=feed, fetch_list=[loss, acc],
+                                 scope=scope)
+                losses.append(float(l_))
+                accs.append(float(a_))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"bn_grad": kbn.launches["bn_grad"],
+                   "conv1x1_bwd": k1.launches["conv1x1_bwd"]}
+            want = {"bn_grad": n_bn * TRAIN_STEPS if config == "A" else 0,
+                    "conv1x1_bwd": len(fused) * TRAIN_STEPS
+                    if config == "B" else 0}
+            print("config %s (%s): launches on the main path: %s expected "
+                  "%s" % (config, name, json.dumps(got), json.dumps(want)))
+            if got != want:
+                raise AssertionError("ResNet-50 config %s launch counts %s "
+                                     "!= %s" % (config, got, want))
+            launches["bn_grad" if config == "A" else "conv1x1_bwd"] = \
+                got["bn_grad" if config == "A" else "conv1x1_bwd"]
+            print("losses:", " ".join("%.6f" % v for v in losses))
+            print("accuracy:", " ".join("%.4f" % v for v in accs))
+            # Momentum at lr 0.1 from the initial weights overshoots on
+            # the one repeated batch before it settles: the loss must be
+            # finite throughout and fall below the first counted loss
+            # within RESNET_SETTLE_STEPS further steps
+            more = []
+            while len(more) < RESNET_SETTLE_STEPS and \
+                    not min(losses[1:] + more) < losses[0]:
+                more.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                          scope=scope)[0]))
+            if more:
+                print("further steps until the loss is under the first "
+                      "counted one:", " ".join("%.6f" % v for v in more))
+            if not np.isfinite(losses + more).all() or \
+                    not min(losses[1:] + more) < losses[0]:
+                raise AssertionError("training loss not finite and "
+                                     "falling: %s" % (losses + more))
+            # the same weights at the lower lr: the loss falls at
+            # every step
+            low = clone(scope0)
+            lr_name = next(op.input("LearningRate")[0]
+                           for op in prog.global_block().ops
+                           if op.type == "momentum")
+            low.set_var(lr_name, torch.full_like(low.find_var(lr_name),
+                                                 RESNET_LOW_LR))
+            low_losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                        scope=low)[0])
+                          for _ in range(RESNET_LOW_LR_STEPS + 1)]
+            del low
+            print("losses at lr %g:" % RESNET_LOW_LR,
+                  " ".join("%.6f" % v for v in low_losses))
+            if not np.isfinite(low_losses).all() or \
+                    not (np.diff(low_losses) < 0).all():
+                raise AssertionError("training loss at lr %g does not fall "
+                                     "at every step: %s"
+                                     % (RESNET_LOW_LR, low_losses))
+            step_ms = wall * 1000.0 / TRAIN_STEPS
+            print("config %s train: %d steps in %.3f s = %.3f ms/step, "
+                  "%.2f images/s; peak device memory %.2f GB" % (
+                      config, TRAIN_STEPS, wall, step_ms,
+                      RESNET_B / (step_ms / 1e3),
+                      torch.cuda.max_memory_allocated() / 1e9))
+            device_profile(lambda: exe.run(prog, feed=feed,
+                                           fetch_list=[loss], scope=scope),
+                           1, step_ms, "resnet50 config %s step" % config)
+            if config == "B":
+                # the same program with the flag off: the library's two
+                # backward convolutions where B8 ran, for comparison of
+                # the device time inside one step
+                set_fused(False)
+                before = k1.launches["conv1x1_bwd"]
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+                torch.cuda.synchronize()
+                device_profile(
+                    lambda: exe.run(prog, feed=feed, fetch_list=[loss],
+                                    scope=scope),
+                    1, (time.perf_counter() - t0) * 1000.0 / 3,
+                    "resnet50 config B step with the flag off (library "
+                    "backward, no B8)")
+                if k1.launches["conv1x1_bwd"] != before:
+                    raise AssertionError("B8 launched with the flag off")
+        finally:
+            set_fused(False)
+        del scope
+        torch.cuda.empty_cache()
+
+    # ---- the card against the CPU at the resnet_cifar size ----
+    xrng = np.random.RandomState(seed + 1)
+    ximages = xrng.randn(RESNET_XCHECK_B,
+                         *RESNET_XCHECK["image_shape"]).astype(np.float32)
+    xlabels = xrng.randint(0, RESNET_XCHECK["class_dim"],
+                           (RESNET_XCHECK_B, 1)).astype(np.int64)
+    on_card = {}
+    for config in ("A", "B"):
+        x = ximages if config == "B" else np.ascontiguousarray(
+            ximages.transpose(0, 2, 3, 1))
+
+        def build():
+            prog, startup, fds, (loss, _) = resnet_build(config,
+                                                         RESNET_XCHECK)
+            return prog, startup, fds, (loss,)
+
+        set_fused(config == "B")
+        kbn.reset_launches()
+        k1.reset_launches()
+        try:
+            on_card[config] = cross_check(
+                fluid, exe, build, seed, {"data": x, "label": xlabels},
+                XCHECK_STEPS, "config %s, %s, batch %d, residual branches "
+                "damped x%g" % (config, RESNET_XCHECK, RESNET_XCHECK_B,
+                                RESNET_DAMP),
+                gtol=RESNET_GTOL, ltol=1e-3, l2tol=RESNET_L2TOL,
+                pl2tol=RESNET_PL2TOL, edit=resnet_damp)
+        finally:
+            set_fused(False)
+        print("cross-check launches on the card:",
+              json.dumps({**kbn.launches, **k1.launches}))
+        want = (n_bn * XCHECK_STEPS, 0) if config == "A" \
+            else (0, len(fused) * XCHECK_STEPS)
+        if (kbn.launches["bn_grad"], k1.launches["conv1x1_bwd"]) != want:
+            raise AssertionError("cross-check launch counts")
+    # the two configs' startups draw the same weights, so the card's two
+    # runs are also A against B at this size, B7 in one and B8 in the
+    # other
+    names = sorted(n for n in on_card["A"] if n != "loss")
+    np.testing.assert_allclose(on_card["A"]["loss"], on_card["B"]["loss"],
+                               rtol=1e-5)
+    check_grad_diff("A vs B on the card at %s" % RESNET_XCHECK,
+                    grad_diff(names, [on_card["A"][n] for n in names],
+                              [on_card["B"][n] for n in names]),
+                    RESNET_GTOL, RESNET_L2TOL, RESNET_PL2TOL)
+
+    bn_shapes = {}
+    for op in progs["A"][0].global_block().ops:
+        if op.type == "batch_norm":
+            c, h, w = progs["B"][0].global_block().var(
+                op.input("X")[0]).shape[1:]
+            key = (RESNET_B, h, w, c)
+            bn_shapes[key] = bn_shapes.get(key, 0) + 1
+    c1_shapes = {}
+    for xshape, wshape in fused:
+        key = (RESNET_B, xshape[1], xshape[2], xshape[3], wshape[0])
+        c1_shapes[key] = c1_shapes.get(key, 0) + 1
+    return launches, bn_shapes, c1_shapes
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -537,6 +1053,8 @@ def main():
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import layers, unique_name
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import bn_grad as kbn
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import gru_cell as gc
     from paddle_tpu_torch.kernels import lstm_cell as lc
@@ -563,7 +1081,10 @@ def main():
 
     # ---- 3. kernels against their plain versions ----
     phase("kernels vs plain versions (atol %g, rtol %g; LSTM and GRU "
-          "atol %g, rtol %g)" % (ATOL, RTOL, LSTM_ATOL, LSTM_RTOL))
+          "atol %g, rtol %g; bn_grad rtol %g + %g max|ref|; conv1x1_bwd "
+          "rtol %g + %g max|ref|; bfloat16 rtol %g + %g max|ref|)" % (
+              ATOL, RTOL, LSTM_ATOL, LSTM_RTOL, BN_RTOL, BN_AMAX, C1_RTOL,
+              C1_AMAX, BF16_RTOL, BF16_AMAX))
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     max_err = {"flash_attention": 0.0, "flash_decode": 0.0}
 
@@ -605,6 +1126,8 @@ def main():
     max_err.update(lstm_err)
     gru_err, gru_dw_err = check_gru(gc, g, dev)
     max_err.update(gru_err)
+    max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
+    max_err["conv1x1_bwd"] = check_conv1x1(k1, g, dev)
     print("max abs err:", json.dumps(max_err), "(dW through the outside "
           "GEMMs: LSTM %.3g, GRU %.3g)" % (dw_err, gru_dw_err))
 
@@ -719,8 +1242,16 @@ def main():
     phase("seq2seq training at full width (seed %d)" % args.seed)
     launches.update(seq2seq_phase(fluid, args.seed, dev))
 
-    # ---- 7. times ----
-    phase("times (CUDA events, median of 25 runs after warmup)")
+    # ---- 7. the convnet training slice at full width ----
+    phase("ResNet-50 training at full width, configs A and B (seed %d)"
+          % args.seed)
+    resnet_launches, bn_shapes, c1_shapes = resnet_phase(fluid, args.seed,
+                                                         dev)
+    launches.update(resnet_launches)
+
+    # ---- 8. times ----
+    phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
+          "bn_grad and conv1x1_bwd)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
 
     def flush():
@@ -835,17 +1366,90 @@ def main():
         bytes=4 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H
                    + 2 * B * H + B * T),
         flops=2 * B * T * 3 * H * H))
+    # B7 at every distinct shape of the ResNet-50 path (kernel only), and
+    # with its plain version and the library at the largest (the stem)
+    # and the smallest; the activations exceed the L2, so no flush
+    def bn_case(shape, full):
+        n, h, w, c = shape
+        x = torch.randn(*shape, generator=g).to(dev)
+        dy = torch.randn(*shape, generator=g).to(dev)
+        sc = (torch.rand(c, generator=g) + 0.5).to(dev)
+        row = dict(name="bn_grad", shape="%s x%d a step" % (
+            list(shape), bn_shapes[shape]),
+            ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
+            plain_ms=float("nan"), library_ms=float("nan"),
+            bytes=4 * (5 * x.numel() + 3 * c), flops=12 * x.numel(),
+            per_step=bn_shapes[shape])
+        if full:
+            xr = x.permute(0, 3, 1, 2).requires_grad_()
+            dyr = dy.permute(0, 3, 1, 2)
+
+            def library():
+                y = F.batch_norm(xr, None, None, sc, None, True, 0.1, 1e-5)
+                torch.autograd.grad(y, xr, dyr)
+
+            row["plain_ms"] = time_ms(
+                lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5), reps=10)
+            row["library_ms"] = time_ms(library, reps=10)
+            row["library"] = ("torch.nn.functional.batch_norm forward "
+                              "plus torch.autograd.grad to x, channels "
+                              "last: also runs the forward, gives no "
+                              "dscale or dbias")
+        return row
+
+    by_size = sorted(bn_shapes, key=lambda s_: s_[0] * s_[1] * s_[2] * s_[3])
+    bn_rows = [bn_case(s_, s_ in (by_size[0], (64, 112, 112, 64)))
+               for s_ in sorted(bn_shapes, key=lambda s_: (-s_[1], s_[3]))]
+    rows.extend(bn_rows)
+
+    def c1_case(shape, full):
+        b, ci, h, w, co = shape
+        x = torch.randn(b, ci, h, w, generator=g).to(dev)
+        wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).to(dev)
+        dy = torch.randn(b, co, h, w, generator=g).to(dev)
+        row = dict(name="conv1x1_bwd", shape="%s x%d a step" % (
+            list(shape), c1_shapes[shape]),
+            ms=time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), reps=10),
+            plain_ms=float("nan"), library_ms=float("nan"),
+            bytes=4 * (2 * x.numel() + dy.numel() + 2 * wt.numel()),
+            flops=4 * b * h * w * ci * co, per_step=c1_shapes[shape])
+        if full:
+            def library():
+                torch.nn.grad.conv2d_input(x.shape, wt, dy)
+                torch.nn.grad.conv2d_weight(x, wt.shape, dy)
+
+            row["plain_ms"] = time_ms(
+                lambda: k1.conv1x1_bwd_reference(x, wt, dy), reps=10)
+            row["library_ms"] = time_ms(library, reps=10)
+            row["library"] = ("torch.nn.grad.conv2d_input plus "
+                              "conv2d_weight (cuDNN, TF32 off): two calls")
+        return row
+
+    c1_full = ((64, 64, 56, 56, 256), (64, 512, 7, 7, 2048),
+               (64, 64, 56, 56, 64))
+    c1_rows = [c1_case(s_, s_ in c1_full)
+               for s_ in sorted(c1_shapes, key=lambda s_: (-s_[2], s_[1],
+                                                           s_[4]))]
+    rows.extend(c1_rows)
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / FP32_FLOPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        # nan: not timed at this shape
         print("time %s %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
               "bound_ms %.6f (%s; %d bytes, %d flops)%s" % (
                   r["name"], r["shape"], r["ms"], r["plain_ms"],
                   r["library_ms"], r["bound_ms"], r["bound_by"],
                   r["bytes"], r["flops"],
                   "; library: " + r["library"] if "library" in r else ""))
+
+    for name, krows in (("bn_grad", bn_rows), ("conv1x1_bwd", c1_rows)):
+        print("%s over one ResNet-50 step: %d launches, kernel %.3f ms, "
+              "bound %.3f ms" % (
+                  name, sum(r["per_step"] for r in krows),
+                  sum(r["per_step"] * r["ms"] for r in krows),
+                  sum(r["per_step"] * r["bound_ms"] for r in krows)))
 
     # the decode step end to end: host wall time vs device busy time
     cache = engine.new_cache()
@@ -864,14 +1468,17 @@ def main():
                    step_ms, "decode step at pos 160")
     torch.cuda.synchronize()
 
-    # ---- 8. result ----
+    # ---- 9. result ----
     by_name = {}
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
                 ("flash_decode", "[16,8,512,64] cache_len=160"),
                 ("flash_attention", "[1,8,32,64] causal=True")) \
                 or r["name"] in ("lstm_fwd", "lstm_bwd", "gru_fwd",
-                                 "gru_bwd"):
+                                 "gru_bwd") \
+                or r["shape"].startswith(("[64, 112, 112, 64]",
+                                          "[64, 64, 56, 56, 256]")):
+            # bn_grad at the stem, conv1x1_bwd at the first conv3
             by_name[r["name"]] = r
     table = [{"name": n, "route": "cuda", "source": SOURCES[n],
               "replaces": REPLACES[n], "launches": launches[n],
@@ -881,7 +1488,8 @@ def main():
               "bound_by": by_name[n]["bound_by"],
               "library_ms": by_name[n]["library_ms"]}
              for n in ("flash_attention", "flash_decode", "lstm_fwd",
-                       "lstm_bwd", "gru_fwd", "gru_bwd")]
+                       "lstm_bwd", "gru_fwd", "gru_bwd", "bn_grad",
+                       "conv1x1_bwd")]
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,10 @@ from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: F401
 from paddle_tpu_torch import layers  # noqa: F401
 from paddle_tpu_torch import initializer  # noqa: F401
 from paddle_tpu_torch import optimizer  # noqa: F401
+from paddle_tpu_torch import flags  # noqa: F401
+from paddle_tpu_torch import nets  # noqa: F401
+from paddle_tpu_torch import passes  # noqa: F401
+from paddle_tpu_torch.flags import set_flags, get_flags  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401
 

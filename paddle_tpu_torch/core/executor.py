@@ -17,11 +17,22 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
 * An op that updates a persistable in place (``adam``'s ParamOut and
   moments, names equal to its inputs') is written back to the scope
   with the other persistables the block wrote.
+* A program with a pass config (``passes.enable``) runs as its
+  transformed clone. The JAX executor applies the pipeline when it
+  compiles a variant; there is no compile step here, so the executor
+  keeps one clone per (program identity and version, config key) and
+  rewrites nothing on later steps. The fetch names only protect
+  variables from removal by a rewrite, so the pipeline runs again only
+  for a fetch the clone does not protect yet, and the new clone (which
+  protects the old names too) takes the old one's place. The passes
+  rename no persistable, so what the clone writes lands in the scope
+  under the user's names.
 """
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch import passes as passes_lib
 from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.lower import (PackedSeq, TraceContext, run_block,
@@ -30,6 +41,10 @@ from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
 __all__ = ["Executor", "external_reads_and_writes"]
+
+# plans an executor keeps; the oldest goes first (a dropped plan is made
+# again when its program next runs)
+MAX_PLANS = 16
 
 
 def external_reads_and_writes(program):
@@ -58,6 +73,31 @@ class Executor:
     def __init__(self, place=None):
         self.device = default_place(place)
         self._step = 0
+        # (program fingerprint, pass config key) -> (user program,
+        # program to run, its outside reads, its writes, the names the
+        # clone protects); holding the user program keeps its id() from
+        # being reused
+        self._plans = {}
+
+    def _plan(self, program, fetch_names):
+        cfg = passes_lib.plan_for(program)
+        key = (program.fingerprint, cfg.key if cfg else None)
+        plan = self._plans.get(key)
+        if plan is None or (cfg is not None
+                            and not plan[4].issuperset(fetch_names)):
+            run, protected = program, frozenset()
+            if cfg is not None:
+                # the fetches are protected from removal by a rewrite
+                protected = frozenset(fetch_names).union(
+                    plan[4] if plan else ())
+                run, _ = passes_lib.apply(program, protected=protected)
+            plan = (program, run) + external_reads_and_writes(run) \
+                + (protected,)
+            self._plans.pop(key, None)
+            self._plans[key] = plan
+            while len(self._plans) > MAX_PLANS:
+                del self._plans[next(iter(self._plans))]
+        return plan[1:4]
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -66,10 +106,9 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [v.name if isinstance(v, ir.Variable) else str(v)
                        for v in (fetch_list or [])]
+        program, reads, written = self._plan(program, fetch_names)
         feed = {n: self._to_device(program, n, v)
                 for n, v in (feed or {}).items()}
-
-        reads, written = external_reads_and_writes(program)
         env = {}
         for n in reads:
             if n in feed:

@@ -1,20 +1,20 @@
 """Initializers: emit init ops into the startup program.
 
 Capability parity: `python/paddle/fluid/initializer.py` (Constant :103,
-Uniform :145, Xavier :246). Init ops are ordinary random/fill ops that
-the executor runs once with the startup program; ``uniform_random``
-draws from a ``torch.Generator`` seeded per op (``TraceContext.rng``).
-The Gaussian initializers (Normal, TruncatedNormal, Xavier and MSRA
-with ``uniform=False``) and NumpyArrayInitializer arrive with a later
-slice.
+Uniform :145, Normal :196, Xavier :246). Init ops are ordinary
+random/fill ops that the executor runs once with the startup program;
+``uniform_random`` and ``gaussian_random`` draw from a
+``torch.Generator`` seeded per op (``TraceContext.rng``).
+TruncatedNormal, MSRA, Bilinear and NumpyArrayInitializer arrive with a
+later slice.
 """
 
 import math
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Xavier", "ConstantInitializer",
-           "UniformInitializer", "XavierInitializer"]
+__all__ = ["Constant", "Uniform", "Normal", "Xavier", "ConstantInitializer",
+           "UniformInitializer", "NormalInitializer", "XavierInitializer"]
 
 
 class Initializer:
@@ -55,12 +55,20 @@ class Uniform(Initializer):
              "min": self.low, "max": self.high, "seed": self.seed})
 
 
+class Normal(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.mean, self.std, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            "gaussian_random", {}, {"Out": [var.name]},
+            {"shape": list(var.shape), "dtype": var.dtype,
+             "mean": self.mean, "std": self.std, "seed": self.seed})
+
+
 class Xavier(Initializer):
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "Xavier(uniform=False) emits gaussian_random, which arrives "
-                "with a later slice")
+        self.uniform = uniform
         self.fan_in, self.fan_out = fan_in, fan_out
         self.seed = seed
 
@@ -68,11 +76,15 @@ class Xavier(Initializer):
         fi, fo = self._fan(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        return Uniform(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            return Uniform(-limit, limit, self.seed)(var, block)
+        std = math.sqrt(2.0 / (fi + fo))
+        return Normal(0.0, std, self.seed)(var, block)
 
 
 # reference-compatible aliases
 ConstantInitializer = Constant
 UniformInitializer = Uniform
+NormalInitializer = Normal
 XavierInitializer = Xavier

@@ -4,7 +4,11 @@ The two packages build the same programs with the same parameter names,
 but draw different random numbers from the same seed. To compare them
 on the same weights, read the JAX package's scope into numpy arrays
 (``{n: np.asarray(jax_scope.find_var(n))}``) and load them here with
-:func:`load_reference_state`.
+:func:`load_reference_state`. Every persistable variable goes across
+under its own name: parameters (convolution filters stay OIHW under
+either layout), batch-norm running means and variances, optimizer
+accumulators (Adam moments and beta powers, Momentum velocities) and
+the learning-rate variable.
 """
 
 import numpy as np

@@ -45,6 +45,12 @@ SOURCES = {
         "gru_fwd": ([_P] * 7 + [_I] * 3 + [_P], _I),
         "gru_bwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
     },
+    "bn_grad": {
+        "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),
+    },
+    "conv1x1_bwd": {
+        "conv1x1_bwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -97,6 +97,13 @@ class LayerHelper:
             name=name or unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype or "float32")
 
+    def create_global_variable(self, persistable=False, **kwargs):
+        return self.main_program.global_block().create_var(
+            name=kwargs.get("name") or unique_name.generate(
+                ".".join([self.name, "tmp"])),
+            shape=kwargs.get("shape"), dtype=kwargs.get("dtype", "float32"),
+            persistable=persistable)
+
     def set_variable_initializer(self, var, initializer):
         sb = self.startup_program.global_block()
         if not sb.has_var_local(var.name):

@@ -5,16 +5,18 @@ appends ops to the current program block; shapes propagate by meta-tensor
 inference so downstream layers can size parameters. These are the
 layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
-losses and metric, and of the attention seq2seq model's training graph;
+losses and metric, of the attention seq2seq model's training graph, and
+of the convnets (conv2d, pool2d, batch_norm, relu: LeNet and ResNet);
 the JAX package's other layers arrive with later slices.
 """
 
 from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.layer_helper import LayerHelper
-from paddle_tpu_torch.initializer import Constant
+from paddle_tpu_torch.initializer import Constant, Normal
 
 __all__ = [
-    "fc", "embedding", "dynamic_lstm", "dynamic_gru", "gru_unit",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "relu",
+    "dynamic_lstm", "dynamic_gru", "gru_unit",
     "sequence_pool", "sequence_first_step", "sequence_pad",
     "sequence_mask", "cross_entropy", "layer_norm", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "mean", "scale", "softmax",
@@ -70,6 +72,88 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      {"padding_idx": -1 if padding_idx is None else padding_idx,
                       "is_sparse": is_sparse})
     return out
+
+
+# ---- convolutional ----
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v)] * n
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = int(input.shape[1])
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size, filter_size]
+    filter_shape = [num_filters, num_channels // groups] + list(fsize)
+    std = (2.0 / (fsize[0] * fsize[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype,
+                                default_initializer=Normal(0.0, std))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d", {"Input": [input], "Filter": [w]}, {"Output": [pre_bias]},
+        {"strides": _pair(stride), "paddings": _pair(padding),
+         "dilations": _pair(dilation), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", {"X": [input]}, {"Out": [out]},
+        {"pooling_type": pool_type, "ksize": _pair(pool_size),
+         "strides": _pair(pool_stride), "paddings": _pair(pool_padding),
+         "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+         "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False):
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    caxis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    c = int(input.shape[caxis])
+    scale = helper.create_parameter(helper.param_attr, [c], dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], dtype, is_bias=True)
+    mean = helper.create_global_variable(
+        persistable=True, shape=[c], dtype=dtype,
+        name=moving_mean_name or helper.name + ".mean")
+    helper.set_variable_initializer(mean, Constant(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_global_variable(
+        persistable=True, shape=[c], dtype=dtype,
+        name=moving_variance_name or helper.name + ".variance")
+    helper.set_variable_initializer(variance, Constant(1.0))
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        {"X": [input], "Scale": [scale], "Bias": [bias],
+         "Mean": [mean], "Variance": [variance]},
+        {"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+         "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout})
+    return helper.append_activation(out)
 
 
 # ---- recurrent and sequence ----
@@ -268,6 +352,10 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 
 def softmax(input, use_cudnn=True, name=None, axis=-1):
     return _single_op("softmax", input, {"axis": axis}, name=name)
+
+
+def relu(x, name=None):
+    return _single_op("relu", x, name=name)
 
 
 def tanh(x, name=None):

@@ -1,2 +1,3 @@
 """Model builders: the transformer LM, the stacked-LSTM classifier, the
-MNIST MLP and the attention seq2seq (NMT) training graph."""
+MNIST MLP and LeNet convnet, the attention seq2seq (NMT) training graph
+and the ResNets."""

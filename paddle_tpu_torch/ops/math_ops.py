@@ -60,6 +60,11 @@ def _gelu(ctx, ins, attrs, o):
     return F.gelu(_x(ins), approximate="none")
 
 
+@op("relu", seq_map=True)
+def _relu(ctx, ins, attrs, o):
+    return torch.relu(_x(ins))
+
+
 @op("tanh", seq_map=True)
 def _tanh(ctx, ins, attrs, o):
     return torch.tanh(_x(ins))

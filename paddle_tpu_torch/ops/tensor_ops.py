@@ -1,7 +1,8 @@
 """Tensor-manipulation op lowerings.
 
 Capability parity: reference cast/reshape/transpose/squeeze/unsqueeze/
-concat/top_k/assign/fill_constant/uniform_random (`paddle/fluid/operators/`, §2.3
+concat/top_k/assign/fill_constant/uniform_random/gaussian_random
+(`paddle/fluid/operators/`, §2.3
 "Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
 lowers them, with its gradient flags. The module's other ops arrive
 with later slices.
@@ -119,6 +120,15 @@ def _uniform_random(ctx, ins, attrs, o):
     out = torch.empty(shape, dtype=dtype, device=ctx.device)
     return out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                         generator=ctx.rng(salt=attrs.get("seed", 0)))
+
+
+@op("gaussian_random", no_grad=True)
+def _gaussian_random(ctx, ins, attrs, o):
+    shape = tuple(int(s) for s in attrs["shape"])
+    dtype = torch_dtype(attrs.get("dtype", "float32"))
+    out = torch.empty(shape, dtype=dtype, device=ctx.device)
+    return out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                       generator=ctx.rng(salt=attrs.get("seed", 0)))
 
 
 @op("position_ids", no_grad=True)

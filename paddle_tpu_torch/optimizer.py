@@ -1,7 +1,7 @@
 """Optimizers: build update ops from params_grads.
 
 Capability parity: `python/paddle/fluid/optimizer.py` (Optimizer base
-:34, Adam :361). ``minimize`` = append_backward + clip + regularization
+:34, SGD :117, Momentum :126, Adam :361). ``minimize`` = append_backward + clip + regularization
 + one update op per parameter. The learning-rate variable and the
 accumulators are created exactly as the JAX package creates them (same
 names, shapes, initializers), so a training program and its startup
@@ -17,7 +17,8 @@ from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.regularizer import append_regularization_ops
 
-__all__ = ["Adam", "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "Optimizer"]
 
 
 class Optimizer:
@@ -100,6 +101,35 @@ class Optimizer:
         raise NotImplementedError
 
 
+class SGD(Optimizer):
+    def _append_optimize_op(self, block, param, grad):
+        return block.append_op(
+            "sgd",
+            {"Param": [param.name], "Grad": [grad.name],
+             "LearningRate": [self._lr(param).name]},
+            {"ParamOut": [param.name]})
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, program, params):
+        for p in params:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param, grad):
+        v = self._get_accumulator("velocity", param)
+        return block.append_op(
+            "momentum",
+            {"Param": [param.name], "Grad": [grad.name],
+             "Velocity": [v.name], "LearningRate": [self._lr(param).name]},
+            {"ParamOut": [param.name], "VelocityOut": [v.name]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -133,5 +163,7 @@ class Adam(Optimizer):
              "epsilon": self._epsilon})
 
 
-# reference-compatible alias
+# reference-compatible aliases
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
 AdamOptimizer = Adam

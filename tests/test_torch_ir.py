@@ -2,8 +2,9 @@
 golden program round-trips byte-identically through the port's
 ``from_json``; the transformer builds, the stacked-LSTM and seq2seq
 training programs (append_backward + Adam; seq2seq's StaticRNN
-sub-block and scan_block_grad) and the MNIST MLP training program give
-the same JSON in both packages."""
+sub-block and scan_block_grad), the MNIST MLP and LeNet training
+programs and the ResNet-50 training program (Momentum) give the same
+JSON in both packages."""
 
 import json
 import os
@@ -23,6 +24,7 @@ from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.core.infer import infer_op_shapes
 from paddle_tpu_torch.core.ir import Program
 from paddle_tpu_torch.models import lenet as tlenet
+from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.models import seq2seq as tseq2seq
 from paddle_tpu_torch.models import stacked_lstm as tstacked
 from paddle_tpu_torch.models import transformer as ttransformer
@@ -151,7 +153,10 @@ def test_scan_block_shapes_infer_on_meta_tensors():
         **LSTM_SIZES["golden"])),
     ("seq2seq_train", lambda: tseq2seq.build_seq2seq(
         **SEQ2SEQ_SIZES["golden"])),
-    ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp"))])
+    ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp")),
+    ("mnist_cnn", lambda: tlenet.build_mnist_train(model="cnn")),
+    ("resnet_cifar", lambda: tresnet.build_resnet50_train(
+        image_shape=(3, 32, 32), class_dim=10))])
 def test_training_program_equals_golden(name, build):
     with tnames.guard():
         prog = build()[0]

@@ -2,7 +2,9 @@
 versions (tolerance 1e-5 absolute and relative: the same fp32 math in
 another summation order; the LSTM's and the GRU's backward 1e-5
 absolute and 1e-4 relative, their recurrences reorder sums over up to
-80 steps).
+80 steps). The batch-norm backward and the fused 1x1-conv backward are
+also held against float64 plain versions, with the tolerances stated at
+their tests.
 
 Marked ``cuda``: each test skips inside itself where torch finds no
 card. This file imports torch and the port only (the machine with the
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import bn_grad as kbn
+from paddle_tpu_torch.kernels import conv1x1_bwd as k1
 from paddle_tpu_torch.kernels import gru_cell, lstm_cell
 
 
@@ -198,3 +202,124 @@ def test_cuda_gru_raises_on_what_the_kernels_do_not_take(cuda):
     xg, w, h0, mask, _ = _gru_inputs(2, 2, big, 5, cuda)
     with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
         gru_cell.gru_forward(xg, w, h0, mask)
+
+
+def _close(got, want, rtol, atol_of_max):
+    """|got - want| <= atol_of_max * max|want| + rtol * |want|."""
+    want = want.to(torch.float64)
+    atol = atol_of_max * float(want.abs().max())
+    torch.testing.assert_close(got.to(torch.float64), want, rtol=rtol,
+                               atol=atol)
+
+
+# The stem of ResNet-50 at batch 64, its stage 4, a row count that no
+# power of two divides, and a channel count that fills no float4.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 112, 112, 64), (64, 7, 7, 2048),
+                                   (5, 7, 9, 24), (3, 5, 7, 6)])
+def test_cuda_bn_grad_matches_plain(cuda, shape, dtype):
+    """Kernel vs the plain version on the card, and both vs the plain
+    version in float64. The sums run over up to 802816 rows in another
+    order than torch's, and sum(dy x) - mean sum(dy) cancels, so dscale
+    and dbias are held to rtol 1e-4 plus 1e-5 of their largest
+    magnitude; dx to rtol 1e-4 plus 1e-5 of its largest magnitude in
+    float32, and to one bfloat16 rounding (rtol 1e-2) in bfloat16."""
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype).to(cuda)
+    dy = torch.randn(*shape, generator=g).to(dtype).to(cuda)
+    scale = (torch.rand(shape[-1], generator=g) + 0.5).to(cuda)
+    n0 = kbn.launches["bn_grad"]
+    got = kbn.bn_grad(x, dy, scale, 1e-5)
+    assert kbn.launches["bn_grad"] == n0 + 1
+    plain = kbn.bn_grad_reference(x, dy, scale, 1e-5)
+    truth = kbn.bn_grad_reference(x.double(), dy.double(), scale.double(),
+                                  1e-5)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    dx_rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    for ref in (plain, truth):
+        _close(got[0], ref[0], dx_rtol, 1e-5 if dtype == torch.float32
+               else 4e-3)
+        _close(got[1], ref[1], 1e-4, 1e-5)
+        _close(got[2], ref[2], 1e-4, 1e-5)
+    # no float atomics: a second run gives the same bits
+    again = kbn.bn_grad(x, dy, scale, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_grad_tile_is_checked_and_ignored(cuda):
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 3, 5, 8, generator=g).to(cuda)
+    dy = torch.randn(2, 3, 5, 8, generator=g).to(cuda)
+    scale = torch.ones(8, device=cuda)
+    want = kbn.bn_grad(x, dy, scale, 1e-5)
+    got = kbn.bn_grad(x, dy, scale, 1e-5, tile=6)
+    with pytest.warns(RuntimeWarning, match="tile override"):
+        bad = kbn.bn_grad(x, dy, scale, 1e-5, tile=7)
+    torch.cuda.synchronize()
+    for a, b, c in zip(want, got, bad):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kbn.bn_grad(x.double(), dy.double(), scale, 1e-5)
+    with pytest.raises(ValueError, match="dy must match"):
+        kbn.bn_grad(x, dy[:1], scale, 1e-5)
+
+
+# (B, Ci, H, W, Co): the path's largest and smallest maps, a shape the
+# JAX package's kernel refuses for its size (Ci 256 -> Co 64 at 56x56),
+# and one where no dimension fills a tile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 64, 56, 56, 256),
+                                   (64, 2048, 7, 7, 512),
+                                   (64, 256, 56, 56, 64),
+                                   (3, 24, 5, 7, 40)])
+def test_cuda_conv1x1_bwd_matches_plain(cuda, shape, dtype):
+    """Kernel vs the plain einsums on the card and vs float64. dw sums
+    up to 200704 products in another order than the library's: rtol
+    1e-4 plus 2e-5 of the output's largest magnitude in float32; one
+    bfloat16 rounding (rtol 1e-2, 4e-3 of the largest) in bfloat16."""
+    b, ci, h, w, co = shape
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(b, ci, h, w, generator=g).to(dtype).to(cuda)
+    wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).to(dtype) \
+        .to(cuda)
+    dy = torch.randn(b, co, h, w, generator=g).to(dtype).to(cuda)
+    n0 = k1.launches["conv1x1_bwd"]
+    dx, dw = k1.conv1x1_bwd(x, wt, dy)
+    assert k1.launches["conv1x1_bwd"] == n0 + 1
+    plain = k1.conv1x1_bwd_reference(x, wt, dy)
+    truth = k1.conv1x1_bwd_reference(x.double(), wt.double(), dy.double())
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dw.dtype == dtype
+    assert dx.shape == x.shape and dw.shape == wt.shape
+    rtol, amax = (1e-4, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    for ref in (plain, truth):
+        _close(dx, ref[0], rtol, amax)
+        _close(dw, ref[1], rtol, amax)
+    dx2, dw2 = k1.conv1x1_bwd(x, wt, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_autograd_goes_through_the_kernel(cuda):
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4, 32, 9, 9, generator=g).to(cuda).requires_grad_()
+    w = torch.randn(48, 32, 1, 1, generator=g).to(cuda).requires_grad_()
+    dy = torch.randn(4, 48, 9, 9, generator=g).to(cuda)
+    k1.reset_launches()
+    got = torch.autograd.grad(k1.conv1x1(x, w), (x, w), dy)
+    assert k1.launches == {"conv1x1_bwd": 1}
+    want = torch.autograd.grad(torch.nn.functional.conv2d(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k1.conv1x1_bwd(x.double(), w.double(), dy.double())
+    with pytest.raises(ValueError, match="dy must be"):
+        k1.conv1x1_bwd(x.detach(), w.detach(), dy[:, :3])
