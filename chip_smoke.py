@@ -30,8 +30,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA, print the card's name and power limit, turn
    TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc``, one nvcc per
-   source, all started together;
-3. hold each kernel against its plain PyTorch version on the card;
+   source, all started together, and read from the built libraries that
+   the flash-attention forward and the fused 1x1 backward run on the
+   tensor cores (HMMA) fed by cp.async copies (LDGSTS), with no spills;
+3. hold each kernel against its plain PyTorch version on the card (the
+   fused 1x1 backward at every distinct shape of the ResNet-50 path, as
+   derived from the program, also against float64, and its float32 dw
+   error against float64 by the length of its dw chunks);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -52,7 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, and the card against the CPU, and A against B again, at the
    ``resnet_cifar`` size (32x32, 10 classes, batch 8);
 8. time each kernel, its plain version and one PyTorch library call at
-   the main paths' shapes with CUDA events, and profile the decode step;
+   the main paths' shapes with CUDA events (the flash-attention forward
+   at six shapes, the fused 1x1 backward at every distinct shape of the
+   ResNet-50 path), and profile the decode step;
 9. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -60,6 +67,9 @@ It imports nothing of JAX and nothing of the JAX package.
 
 import argparse
 import json
+import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,9 +79,11 @@ import torch
 import torch.nn.functional as F
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
-# and float32 FLOP/s outside the tensor cores (the kernels' FMA path)
+# and float32 FLOP/s outside the tensor cores (the FMA kernels' path)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# dense TF32 tensor-core FLOP/s (the same data sheet)
+TF32_FLOPS_PER_S = 495e12
 
 # full width: the repo's decode-serving configuration
 VOCAB, D_MODEL, N_LAYERS, N_HEADS = 8192, 512, 8, 8
@@ -159,11 +171,13 @@ BF16_RTOL, BF16_AMAX = 1e-2, 4e-3
 # count (315) that no power of two divides, channels that fill no float4
 BN_SHAPES = ((64, 112, 112, 64), (64, 7, 7, 2048), (5, 7, 9, 24),
              (3, 5, 7, 6))
-# (B, Ci, H, W, Co): the path's largest and smallest maps, a shape the
-# JAX package's kernel refuses for its size in fast memory (Ci 256 -> Co
-# 64 at 56x56), and one where no dimension fills a tile
-C1_SHAPES = ((64, 64, 56, 56, 256), (64, 2048, 7, 7, 512),
-             (64, 256, 56, 56, 64), (3, 24, 5, 7, 40))
+# (B, Ci, H, W, Co): B8 is checked at every distinct shape of the
+# ResNet-50 path (derived from the program: c1_path_shapes) and at these,
+# where no dimension fills a tile
+C1_EXTRA_SHAPES = ((3, 24, 5, 7, 40),)
+# dw chunk lengths (positions) of the precision sweep at 64 -> 256 @ 56x56
+C1_SWEEP_SHAPE = (64, 64, 56, 56, 256)
+C1_SWEEP_CHUNKS = (64, 256, 1024, 4096)
 
 SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -192,6 +206,56 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# B1 and B8 run on the tensor cores fed by cp.async copies: (library,
+# kernel function). The bfloat16 B8 whose rows start on 2-byte
+# boundaries stages through registers (cp.async copies 4 bytes or more).
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
+                       ("conv1x1_bwd", "conv1x1_bwd_kernel"))
+SYNC_STAGED = "13__nv_bfloat16Li1E"
+
+
+def sass_check(build):
+    """For every instantiation of the tensor-core kernels: registers,
+    stack and local memory from the built library, and its SASS's HMMA
+    (tensor-core) and LDGSTS (cp.async) instructions and local-memory
+    loads and stores (spills). Fails where a kernel has no HMMA, no
+    LDGSTS (but SYNC_STAGED), or spills."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, kernel in TENSOR_CORE_KERNELS:
+        path = build._target(lib)[1]
+        res = subprocess.run([tool, "--dump-resource-usage", path],
+                             check=True, capture_output=True, text=True,
+                             timeout=120).stdout
+        usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
+                                r"SHARED:\d+ LOCAL:\d+)", res))
+        sass = subprocess.run([tool, "--dump-sass", path], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = [0, 0, 0]
+            elif fn is not None:
+                counts[fn][0] += "HMMA" in line
+                counts[fn][1] += "LDGSTS" in line
+                counts[fn][2] += bool(re.search(r"\b(LDL|STL)\b", line))
+        mine = sorted(f for f in counts if kernel in f)
+        if not mine:
+            raise AssertionError("%s: no %s in its SASS" % (path, kernel))
+        for f in mine:
+            hmma, ldgsts, local = counts[f]
+            use = usage.get(f, "REG:? STACK:? SHARED:? LOCAL:?")
+            print("sass %s: %s; HMMA %d, LDGSTS %d, local loads/stores %d"
+                  % (f, use, hmma, ldgsts, local))
+            if hmma == 0 or (ldgsts == 0 and SYNC_STAGED not in f) \
+                    or local or "STACK:0 " not in use \
+                    or not use.endswith("LOCAL:0"):
+                raise AssertionError("%s: not a spill-free tensor-core "
+                                     "kernel fed by cp.async" % f)
 
 
 def assert_close(what, got, want, atol=ATOL, rtol=RTOL):
@@ -228,10 +292,11 @@ def time_ms(fn, reps=25, flush=None):
     return float(np.median(times))
 
 
-def device_profile(step, n_steps, step_ms, label):
+def device_profile(step, n_steps, step_ms, label, share_of=None):
     """Profile ``n_steps`` calls of ``step`` with torch.profiler and print
     the card's busy share of ``step_ms`` (host wall time per step, taken
-    without the profiler) and the top-10 device kernels."""
+    without the profiler), the top-10 device kernels and, for
+    ``share_of``, the device time of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -259,6 +324,13 @@ def device_profile(step, n_steps, step_ms, label):
                                 key=lambda kv: -kv[1][0])[:10]:
         print("  device %-70s %9.1f us/step %6.1f calls/step" % (
             name[:70], us / n_steps, n / n_steps))
+    if share_of is not None:
+        us = sum(u for k, (u, _) in by_kernel.items() if share_of in k)
+        n = sum(c for k, (_, c) in by_kernel.items() if share_of in k)
+        print("%s: %s %.3f ms/step in %.1f launches/step, %.1f%% of the "
+              "device's busy time" % (label, share_of, us / 1000.0 / n_steps,
+                                      n / n_steps,
+                                      100.0 * us / 1000.0 / n_steps / busy_ms))
 
 
 def lstm_inputs(B, T, H, peep, g, dev, ragged=True):
@@ -701,12 +773,22 @@ def check_bn_grad(kbn, g, dev):
     return worst
 
 
-def check_conv1x1(k1, g, dev):
+def c1_path_shapes(fused):
+    """{(B, Ci, H, W, Co): launches a step} of the 1x1 convolutions that
+    resnet_expected_launches found in a config-B program."""
+    shapes = {}
+    for xshape, wshape in fused:
+        key = (RESNET_B, xshape[1], xshape[2], xshape[3], wshape[0])
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def check_conv1x1(k1, g, dev, shapes):
     """B8 against its plain version on the card, and both against
-    float64. Returns the float32 max abs err of dx and dw against the
-    plain version."""
+    float64, at each (B, Ci, H, W, Co) of ``shapes``. Returns the float32
+    max abs err of dx and dw against the plain version."""
     worst = 0.0
-    for b, ci, h, w, co in C1_SHAPES:
+    for b, ci, h, w, co in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(b, ci, h, w, generator=g).to(dtype).to(dev)
             wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
@@ -741,6 +823,56 @@ def check_conv1x1(k1, g, dev):
                 raise AssertionError(what + ": two runs differ")
     torch.cuda.synchronize()
     return worst
+
+
+def c1_chunk_sweep(k1, build, g, dev):
+    """dw's error against float64 at C1_SWEEP_SHAPE in float32 when its
+    depth is cut into chunks of each length of C1_SWEEP_CHUNKS (the
+    plan's other numbers as plan() works them out for that chunk): the
+    longer a block's chain of tensor-core products, the more a truncating
+    accumulation shows. Each must hold the path's tolerance."""
+    b, ci, h, w, co = C1_SWEEP_SHAPE
+    hw, j = h * w, b * h * w
+    x = torch.randn(b, ci, h, w, generator=g).to(dev)
+    wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).to(dev)
+    dy = torch.randn(b, co, h, w, generator=g).to(dev)
+    truth = k1.conv1x1_bwd_reference(x.double(), wt.double(), dy.double())[1]
+    top = float(truth.abs().max())
+    pl = k1.plan(b, ci, co, hw)
+    tiles = -(-co // pl.co_tile) * -(-ci // pl.ci_tile)
+    lib = build.load("conv1x1_bwd")
+    errs = []
+    for chunk in C1_SWEEP_CHUNKS:
+        splits = -(-j // chunk)
+        group = math.isqrt(splits - 1) + 1
+        partial = torch.empty((splits, co, ci), dtype=torch.float32,
+                              device=dev)
+        tickets = torch.zeros((tiles * (-(-splits // group) + 1),),
+                              dtype=torch.int32, device=dev)
+        dx, dw = torch.empty_like(x), torch.empty_like(wt)
+        rc = lib.conv1x1_bwd(x.data_ptr(), wt.data_ptr(), dy.data_ptr(),
+                             dx.data_ptr(), dw.data_ptr(),
+                             partial.data_ptr(), tickets.data_ptr(), b, ci,
+                             co, hw, splits, chunk, group, pl.order, 0,
+                             pl.ci_tile, pl.co_tile, int(pl.vec),
+                             torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("conv1x1_bwd chunk %d: cudaError %d"
+                               % (chunk, rc))
+        err = (dw.double() - truth).abs()
+        tol = C1_AMAX * top + C1_RTOL * truth.abs()
+        e = float(err.max())
+        errs.append((chunk, e, bool((err <= tol).all())
+                     and bool(torch.isfinite(dw).all())))
+    print("conv1x1_bwd %s float32 dw vs float64 by chunk length (max|dw| "
+          "%.4g): %s" % (C1_SWEEP_SHAPE, top, "; ".join(
+              "chunk %d: %.4g (%.3g of max)%s" % (c, e, e / top,
+                                                  "" if ok else " OUTSIDE")
+              for c, e, ok in errs)))
+    if not all(ok for _, _, ok in errs):
+        raise AssertionError("conv1x1_bwd: dw outside rtol %g + %g max at "
+                             "some chunk length" % (C1_RTOL, C1_AMAX))
+    torch.cuda.synchronize()
 
 
 def resnet_build(config, sizes):
@@ -954,7 +1086,9 @@ def resnet_phase(fluid, seed, dev):
                       torch.cuda.max_memory_allocated() / 1e9))
             device_profile(lambda: exe.run(prog, feed=feed,
                                            fetch_list=[loss], scope=scope),
-                           1, step_ms, "resnet50 config %s step" % config)
+                           1, step_ms, "resnet50 config %s step" % config,
+                           share_of=None if config == "A"
+                           else "conv1x1_bwd_kernel")
             if config == "B":
                 # the same program with the flag off: the library's two
                 # backward convolutions where B8 ran, for comparison of
@@ -1033,11 +1167,7 @@ def resnet_phase(fluid, seed, dev):
                 op.input("X")[0]).shape[1:]
             key = (RESNET_B, h, w, c)
             bn_shapes[key] = bn_shapes.get(key, 0) + 1
-    c1_shapes = {}
-    for xshape, wshape in fused:
-        key = (RESNET_B, xshape[1], xshape[2], xshape[3], wshape[0])
-        c1_shapes[key] = c1_shapes.get(key, 0) + 1
-    return launches, bn_shapes, c1_shapes
+    return launches, bn_shapes, c1_path_shapes(fused)
 
 
 def main():
@@ -1078,6 +1208,7 @@ def main():
     print("built %s in %.2f s (nvcc %s)" % (
         sorted(_build.SOURCES), time.perf_counter() - t0,
         " ".join(_build.NVCC_FLAGS)))
+    sass_check(_build)
 
     # ---- 3. kernels against their plain versions ----
     phase("kernels vs plain versions (atol %g, rtol %g; LSTM and GRU "
@@ -1127,7 +1258,13 @@ def main():
     gru_err, gru_dw_err = check_gru(gc, g, dev)
     max_err.update(gru_err)
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
-    max_err["conv1x1_bwd"] = check_conv1x1(k1, g, dev)
+    # B8 at every distinct shape the config-B program gives it
+    with unique_name.guard():
+        c1_path = c1_path_shapes(resnet_expected_launches(
+            resnet_build("B", RESNET)[0])[1])
+    max_err["conv1x1_bwd"] = check_conv1x1(
+        k1, g, dev, sorted(c1_path) + list(C1_EXTRA_SHAPES))
+    c1_chunk_sweep(k1, _build, g, dev)
     print("max abs err:", json.dumps(max_err), "(dW through the outside "
           "GEMMs: LSTM %.3g, GRU %.3g)" % (dw_err, gru_dw_err))
 
@@ -1275,19 +1412,26 @@ def main():
                 q1, kc, vc, attn_mask=mask), flush=flush),
             bytes=4 * (2 * bh * dh + 2 * bh * L * dh + SLOTS),
             flops=4 * bh * L * dh))
-    for s, causal in ((32, True), (160, True)):
-        q, k, v = (randn(1, N_HEADS, s, 64) for _ in range(3))
+    # B1 at the prefill buckets, the one-shot forward of the 160-token
+    # check, the transformer training shape (bench.py's [16,8,512,64]) and
+    # the same with the widest head the kernel takes
+    for b, s, causal, d in ((1, 8, True, 64), (1, 16, True, 64),
+                            (1, 32, True, 64), (1, 160, True, 64),
+                            (16, 512, True, 64), (16, 512, True, 128)):
+        q, k, v = (randn(b, N_HEADS, s, d) for _ in range(3))
         pairs = s * (s + 1) // 2 if causal else s * s
         rows.append(dict(
             name="flash_attention",
-            shape="[1,8,%d,64] causal=%s" % (s, causal),
+            shape="[%d,8,%d,%d] causal=%s" % (b, s, d, causal),
             ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
             plain_ms=time_ms(lambda: fa.flash_attention_reference(
-                q, k, v, causal)),
+                q, k, v, causal), reps=5 if b > 1 else 25),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)),
-            bytes=4 * (4 * N_HEADS * s * 64 + N_HEADS * s),
-            flops=4 * N_HEADS * pairs * 64))
+            library="torch.nn.functional.scaled_dot_product_attention, "
+                    "float32, causal, TF32 off",
+            bytes=4 * (4 * b * N_HEADS * s * d + b * N_HEADS * s),
+            flops=4 * b * N_HEADS * pairs * d, tf32x3=True))
     # B3 and B4 at the training path's shape, every step valid
     B, T, H = LSTM_B, LSTM_T, HID
     xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, True, g, dev,
@@ -1402,54 +1546,63 @@ def main():
                for s_ in sorted(bn_shapes, key=lambda s_: (-s_[1], s_[3]))]
     rows.extend(bn_rows)
 
-    def c1_case(shape, full):
+    # B8 at every distinct shape of the ResNet-50 path, beside its plain
+    # version (the two einsums, cuBLAS) and the one PyTorch call that
+    # computes the same function (cuDNN's convolution backward)
+    def c1_case(shape):
         b, ci, h, w, co = shape
         x = torch.randn(b, ci, h, w, generator=g).to(dev)
         wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).to(dev)
         dy = torch.randn(b, co, h, w, generator=g).to(dev)
-        row = dict(name="conv1x1_bwd", shape="%s x%d a step" % (
-            list(shape), c1_shapes[shape]),
+        return dict(
+            name="conv1x1_bwd", shape="%s x%d a step" % (
+                list(shape), c1_shapes[shape]),
             ms=time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), reps=10),
-            plain_ms=float("nan"), library_ms=float("nan"),
+            plain_ms=time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
+                             reps=10),
+            library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+                dy, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                [True, True, False]), reps=10),
+            library="torch.ops.aten.convolution_backward (cuDNN, TF32 "
+                    "off): dx and dw in one call",
             bytes=4 * (2 * x.numel() + dy.numel() + 2 * wt.numel()),
-            flops=4 * b * h * w * ci * co, per_step=c1_shapes[shape])
-        if full:
-            def library():
-                torch.nn.grad.conv2d_input(x.shape, wt, dy)
-                torch.nn.grad.conv2d_weight(x, wt.shape, dy)
+            flops=4 * b * h * w * ci * co, per_step=c1_shapes[shape],
+            tf32x3=True)
 
-            row["plain_ms"] = time_ms(
-                lambda: k1.conv1x1_bwd_reference(x, wt, dy), reps=10)
-            row["library_ms"] = time_ms(library, reps=10)
-            row["library"] = ("torch.nn.grad.conv2d_input plus "
-                              "conv2d_weight (cuDNN, TF32 off): two calls")
-        return row
-
-    c1_full = ((64, 64, 56, 56, 256), (64, 512, 7, 7, 2048),
-               (64, 64, 56, 56, 64))
-    c1_rows = [c1_case(s_, s_ in c1_full)
+    c1_rows = [c1_case(s_)
                for s_ in sorted(c1_shapes, key=lambda s_: (-s_[2], s_[1],
                                                            s_[4]))]
     rows.extend(c1_rows)
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / FP32_FLOPS_PER_S * 1e3
+        # the float32 FMA rate; the 3xTF32 kernels' floor is three TF32
+        # tensor-core operations for each float32 one
+        t_fma = r["flops"] / FP32_FLOPS_PER_S * 1e3
+        t_ops = 3 * r["flops"] / TF32_FLOPS_PER_S * 1e3 \
+            if r.get("tf32x3") else t_fma
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         # nan: not timed at this shape
         print("time %s %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
-              "bound_ms %.6f (%s; %d bytes, %d flops)%s" % (
+              "bound_ms %.6f (%s; %d bytes, %d flops%s)%s" % (
                   r["name"], r["shape"], r["ms"], r["plain_ms"],
                   r["library_ms"], r["bound_ms"], r["bound_by"],
                   r["bytes"], r["flops"],
+                  "; 3xTF32 tensor-core bound %.6f, float32 FMA bound %.6f"
+                  % (max(t_bytes, t_ops), max(t_bytes, t_fma))
+                  if r.get("tf32x3") else "",
                   "; library: " + r["library"] if "library" in r else ""))
 
     for name, krows in (("bn_grad", bn_rows), ("conv1x1_bwd", c1_rows)):
         print("%s over one ResNet-50 step: %d launches, kernel %.3f ms, "
-              "bound %.3f ms" % (
+              "bound %.3f ms%s" % (
                   name, sum(r["per_step"] for r in krows),
                   sum(r["per_step"] * r["ms"] for r in krows),
-                  sum(r["per_step"] * r["bound_ms"] for r in krows)))
+                  sum(r["per_step"] * r["bound_ms"] for r in krows),
+                  "; library %.3f ms, plain version %.3f ms" % (
+                      sum(r["per_step"] * r["library_ms"] for r in krows),
+                      sum(r["per_step"] * r["plain_ms"] for r in krows))
+                  if name == "conv1x1_bwd" else ""))
 
     # the decode step end to end: host wall time vs device busy time
     cache = engine.new_cache()

@@ -23,17 +23,26 @@
 //   softmax attention that writes O and the per-row log-sum-exp.
 //   Bound on the H100: at the serving path's shapes ([1, 8, <=160, 64])
 //   the whole call moves well under a megabyte and does a few MFLOP, so
-//   it is bound by launch latency and by the serial chain of each row's
-//   online softmax, not by bytes or FLOPs.
-//   Design: one block of 4 warps per (batch*head, 16-query tile). The Q
-//   tile stays in shared memory; 32-key K and V tiles are streamed
-//   through shared memory up to the causal diagonal (tiles wholly above
-//   it are never loaded). Each lane scores one key of the tile against
-//   each of its warp's 4 query rows (K is padded by one float per row so
-//   the 32 lanes hit 32 banks); the row max and sum are warp
-//   reductions; each lane owns head_dim/32 output columns and folds the
-//   tile's P*V into them. fp32 FMAs, no tensor cores yet. The ragged
-//   edge is masked in the kernel, so seq need not divide the tile.
+//   it is bound by launch latency and by the serial chain of each query
+//   tile's online softmax, not by bytes or FLOPs. At the training shape
+//   [16, 8, 512, 64] the operations bound it.
+//   Design (FlashAttention-2 warp tiles): one block of 4 warps per
+//   (batch*head, 16-query tile), the diagonal-most tiles issued first.
+//   All 4 warps own the tile's 16 rows and split its 16-key tiles up to
+//   the causal diagonal between them (warp w takes tiles w, w + 4, ...;
+//   tiles wholly above the diagonal are never loaded), so the critical
+//   path is a quarter of the longest row's keys. Each warp streams its
+//   K and V tiles through its own 2-stage ring of cp.async copies (16
+//   bytes where rows start on 16-byte boundaries, 4 otherwise) and forms
+//   S = Q K^T and O += P V on the tensor cores with mma.sync.m16n8k8 in
+//   3xTF32 (each float32 operand split into big = a cut to TF32 and
+//   small = a - big; small*big + big*small + big*big in float32 keeps the
+//   float32 tolerances), S and P in registers: the key order inside each
+//   8-key group of S is permuted so that the S fragment is already the
+//   A fragment of P V. Row max and sum are shuffles across the four
+//   lanes that share a row. The warps' (m, l, acc) merge once through
+//   shared memory in warp order. The ragged edge is masked in the
+//   kernel, so seq need not divide the tile.
 //
 // flash_decode
 //   Replaces paddle_tpu/kernels/flash_attention.py `_decode_kernel` (the
@@ -54,8 +63,13 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr unsigned kFull = 0xffffffffu;
 // -0.7 * FLT_MAX rounded to float32, the TPU kernels' DEFAULT_MASK_VALUE
@@ -77,10 +91,77 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ---- forward ---------------------------------------------------------
 
-constexpr int kFwdWarps = 4;
-constexpr int kFwdRowsPerWarp = 4;
-constexpr int kFwdBlockQ = kFwdWarps * kFwdRowsPerWarp;  // 16 query rows
-constexpr int kFwdBlockK = 32;                           // one key per lane
+constexpr int kFwdWarps = 4;     // warps a block; they split the key tiles
+constexpr int kFwdBlockQ = 16;   // query rows a block: one m16 tile
+constexpr int kFwdBlockK = 16;   // keys a tile: two n8 tiles
+constexpr int kFwdStages = 2;    // each warp's K/V ring
+constexpr int kPvGroup = 4;      // output n8 tiles a P V sweep (registers)
+
+// G tiles c[i0 .. i0 + G) sharing one A fragment, in three sweeps so
+// that no product waits on the one before it: each tile adds small*big,
+// big*small, big*big in that order
+template <int G, int N>
+__device__ __forceinline__ void mma3(float (&c)[N][4], int i0,
+                                     const unsigned (&ab)[4],
+                                     const unsigned (&as)[4],
+                                     const unsigned (&bb)[G][2],
+                                     const unsigned (&bs)[G][2]) {
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma(c[i0 + i], as, bb[i]);
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma(c[i0 + i], ab, bs[i]);
+#pragma unroll
+  for (int i = 0; i < G; ++i) mma(c[i0 + i], ab, bb[i]);
+}
+
+template <int DMAX>
+struct FwdSmem {
+  static constexpr int LDQ = DMAX + 4;   // Q and K rows: banks 4g + t
+  static constexpr int LDV = DMAX + 8;   // V rows: banks 8t + g
+  static constexpr int K_ELEMS = kFwdBlockK * LDQ;
+  static constexpr int STAGE = K_ELEMS + kFwdBlockK * LDV;
+  static constexpr int Q_ELEMS = kFwdBlockQ * LDQ;
+  static constexpr int RING = kFwdWarps * kFwdStages * STAGE;
+  // after the loop the ring holds the warps' (acc, m, l) for the merge
+  static constexpr int MERGE = kFwdWarps * kFwdBlockQ * (DMAX + 2);
+  static constexpr int ELEMS = Q_ELEMS + (RING > MERGE ? RING : MERGE);
+  static constexpr int BYTES = ELEMS * 4;
+};
+
+// Stage rows [r0, r0 + rows) of a [n, D] matrix into s[rows][ld], the
+// columns D..DMAX-1 and the rows past n zero-filled; `lanes` threads
+// starting at `lane` share the work.
+template <int DMAX>
+__device__ __forceinline__ void stage_rows(float* s, int ld,
+                                           const float* src, int r0,
+                                           int rows, int n, int D, bool vec,
+                                           int lane, int lanes) {
+  if (vec) {
+    for (int i = lane; i < rows * (DMAX / 4); i += lanes) {
+      const int r = i / (DMAX / 4), d = (i % (DMAX / 4)) * 4;
+      const bool ok = r0 + r < n && d < D;
+      cp16(&s[r * ld + d], ok ? src + (size_t)(r0 + r) * D + d : src, ok);
+    }
+  } else {
+    for (int i = lane; i < rows * DMAX; i += lanes) {
+      const int r = i / DMAX, d = i % DMAX;
+      const bool ok = r0 + r < n && d < D;
+      cp4(&s[r * ld + d], ok ? src + (size_t)(r0 + r) * D + d : src, ok);
+    }
+  }
+}
+
+// A warp stages key tile kt of K and V into its ring slot s.
+template <int DMAX>
+__device__ __forceinline__ void load_kv(float* s, const float* kb,
+                                        const float* vb, int kt, int Sk,
+                                        int D, bool vec, int lane) {
+  using SM = FwdSmem<DMAX>;
+  const int k0 = kt * kFwdBlockK;
+  stage_rows<DMAX>(s, SM::LDQ, kb, k0, kFwdBlockK, Sk, D, vec, lane, 32);
+  stage_rows<DMAX>(s + SM::K_ELEMS, SM::LDV, vb, k0, kFwdBlockK, Sk, D, vec,
+                   lane, 32);
+}
 
 template <int DMAX>
 __global__ void __launch_bounds__(kFwdWarps * 32)
@@ -89,99 +170,202 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const int* __restrict__ q_seg,
                  const int* __restrict__ k_seg,
                  float* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk, int D, float scale, int causal) {
-  constexpr int VEC = DMAX / 32;
-  __shared__ float qs[kFwdBlockQ][DMAX];
-  __shared__ float ks[kFwdBlockK][DMAX + 1];
-  __shared__ float vs[kFwdBlockK][DMAX];
+                 int H, int Sq, int Sk, int D, float scale, int causal,
+                 int vec) {
+  using SM = FwdSmem<DMAX>;
+  constexpr int ND = DMAX / 8;   // n8 tiles of the output row
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ring = smem + SM::Q_ELEMS;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
-  const int q0 = blockIdx.y * kFwdBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  // the diagonal-most query tiles, which walk the most keys, go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBlockQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const bool have_seg = q_seg != nullptr;
 
   const float* qb = q + (size_t)bh * Sq * D;
   const float* kb = k + (size_t)bh * Sk * D;
   const float* vb = v + (size_t)bh * Sk * D;
 
+  stage_rows<DMAX>(qs, SM::LDQ, qb, q0, kFwdBlockQ, Sq, D, vec, tid,
+                   kFwdWarps * 32);
+  cp_commit();
+
+  // this thread's rows g and g + 8 of the tile
+  int qi[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + g + 8 * h;
+    qseg[h] = (have_seg && qi[h] < Sq) ? q_seg[(size_t)b * Sq + qi[h]] : 0;
+  }
+
+  // key tiles wholly above the causal diagonal are never loaded; warp w
+  // takes tiles w, w + kFwdWarps, ...
+  const int k_end = causal ? min(Sk, q0 + kFwdBlockQ) : Sk;
+  const int n_kt = (k_end + kFwdBlockK - 1) / kFwdBlockK;
+  float* my_ring = ring + warp * kFwdStages * SM::STAGE;
+  if (warp < n_kt) load_kv<DMAX>(my_ring, kb, vb, warp, Sk, D, vec, lane);
+  cp_commit();
+  cp_wait<1>();      // this thread's part of Q has landed ...
+  __syncthreads();   // ... and everyone's
+
+  float m[2] = {-INFINITY, -INFINITY};   // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};               // this thread's share of the sums
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // key of S column c inside an n8 tile: c = 2 t' + e holds key t' + 4 e,
+  // so that the S fragment is already the A fragment of P.V (columns t
+  // and t + 4), with no shuffles
+  const int perm_g = (g >> 1) + 4 * (g & 1);
+  int it = 0;
+  for (int kt = warp; kt < n_kt; kt += kFwdWarps, ++it) {
+    if (kt + kFwdWarps < n_kt) {
+      load_kv<DMAX>(my_ring + ((it + 1) % kFwdStages) * SM::STAGE, kb, vb,
+                    kt + kFwdWarps, Sk, D, vec, lane);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncwarp();   // the tile, staged by the warp's 32 lanes
+    const float* ks = my_ring + (it % kFwdStages) * SM::STAGE;
+    const float* vs = ks + SM::K_ELEMS;
+    const int k0 = kt * kFwdBlockK;
+
+    // S = Q K^T: 16 rows x 16 keys, depth DMAX
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 8) {
+      unsigned ab[4], as[4];
+      split(qs[g * SM::LDQ + kk + t], ab[0], as[0]);
+      split(qs[(g + 8) * SM::LDQ + kk + t], ab[1], as[1]);
+      split(qs[g * SM::LDQ + kk + t + 4], ab[2], as[2]);
+      split(qs[(g + 8) * SM::LDQ + kk + t + 4], ab[3], as[3]);
+      unsigned bb[2][2], bs[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float* krow = ks + (nt * 8 + perm_g) * SM::LDQ + kk;
+        split(krow[t], bb[nt][0], bs[nt][0]);
+        split(krow[t + 4], bb[nt][1], bs[nt][1]);
+      }
+      mma3<2>(s, 0, ab, as, bb, bs);
+    }
+    // scale and mask; s[nt][2 h + e] is row g + 8 h, key k0 + nt 8 + t + 4 e
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + nt * 8 + t + 4 * e;
+        const bool j_in = j < Sk;
+        const int kseg = (have_seg && j_in) ? k_seg[(size_t)b * Sk + j] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = s[nt][2 * h + e] * scale;
+          if (causal && qi[h] < j) x = kMask;
+          if (have_seg && qseg[h] != kseg) x = kMask;
+          if (!j_in) x = -INFINITY;   // past the ragged edge: no key
+          s[nt][2 * h + e] = x;
+          tmax[h] = fmaxf(tmax[h], x);
+        }
+      }
+    // online softmax; key k0 < Sk, so each row's max is finite
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 1));
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 2));
+      const float m_new = fmaxf(m[h], tmax[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - m[e >> 1]);
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+    // O += P V: depth 16 keys (two k8 steps), ND n8 tiles of columns
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      unsigned ab[4], as[4];
+      split(s[nt][0], ab[0], as[0]);   // row g,     key t
+      split(s[nt][2], ab[1], as[1]);   // row g + 8, key t
+      split(s[nt][1], ab[2], as[2]);   // row g,     key t + 4
+      split(s[nt][3], ab[3], as[3]);   // row g + 8, key t + 4
+      const float* v0 = vs + (nt * 8 + t) * SM::LDV + g;
+#pragma unroll
+      for (int i0 = 0; i0 < ND; i0 += kPvGroup) {   // kPvGroup tiles a sweep
+        unsigned bb[kPvGroup][2], bs[kPvGroup][2];
+#pragma unroll
+        for (int i = 0; i < kPvGroup; ++i) {
+          split(v0[(i0 + i) * 8], bb[i][0], bs[i][0]);
+          split(v0[4 * SM::LDV + (i0 + i) * 8], bb[i][1], bs[i][1]);
+        }
+        mma3<kPvGroup>(acc, i0, ab, as, bb, bs);
+      }
+    }
+    __syncwarp();   // this stage is consumed before it is refilled
+  }
+  cp_wait<0>();
+
+  // merge the warps' (m, l, acc) in warp order through shared memory
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+  __syncthreads();   // every warp is done with the ring (and with Q)
+  float* macc = ring;                                    // [w][16][DMAX]
+  float* mm = ring + kFwdWarps * kFwdBlockQ * DMAX;      // [w][16]
+  float* ml = mm + kFwdWarps * kFwdBlockQ;               // [w][16]
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      macc[(warp * kFwdBlockQ + g + 8 * (e >> 1)) * DMAX + i * 8 + 2 * t +
+           (e & 1)] = acc[i][e];
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mm[warp * kFwdBlockQ + g + 8 * h] = m[h];
+      ml[warp * kFwdBlockQ + g + 8 * h] = l[h];
+    }
+  }
+  __syncthreads();
   for (int idx = tid; idx < kFwdBlockQ * DMAX; idx += kFwdWarps * 32) {
     const int r = idx / DMAX, d = idx % DMAX;
-    qs[r][d] = (q0 + r < Sq && d < D) ? qb[(size_t)(q0 + r) * D + d] : 0.f;
-  }
-
-  float m[kFwdRowsPerWarp], l[kFwdRowsPerWarp];
-  float acc[kFwdRowsPerWarp][VEC];
-  int qseg_r[kFwdRowsPerWarp];
+    if (q0 + r >= Sq || d >= D) continue;
+    float m_all = -INFINITY;
 #pragma unroll
-  for (int rr = 0; rr < kFwdRowsPerWarp; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
+    for (int w = 0; w < kFwdWarps; ++w)
+      m_all = fmaxf(m_all, mm[w * kFwdBlockQ + r]);
+    float l_all = 0.f, out = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[rr][i] = 0.f;
-    const int qi = q0 + warp * kFwdRowsPerWarp + rr;
-    qseg_r[rr] = (have_seg && qi < Sq) ? q_seg[(size_t)b * Sq + qi] : 0;
-  }
-
-  // tiles wholly above the causal diagonal are never loaded
-  const int k_end = causal ? min(Sk, q0 + kFwdBlockQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kFwdBlockK) {
-    __syncthreads();  // the previous tile is consumed (and Q is stored)
-    for (int idx = tid; idx < kFwdBlockK * DMAX; idx += kFwdWarps * 32) {
-      const int r = idx / DMAX, d = idx % DMAX;
-      const bool in = (k0 + r < Sk) && d < D;
-      ks[r][d] = in ? kb[(size_t)(k0 + r) * D + d] : 0.f;
-      vs[r][d] = in ? vb[(size_t)(k0 + r) * D + d] : 0.f;
+    for (int w = 0; w < kFwdWarps; ++w) {
+      const float mw = mm[w * kFwdBlockQ + r];
+      // a warp that saw no key has m = -inf and adds nothing
+      const float c = mw == -INFINITY ? 0.f : expf(mw - m_all);
+      l_all += ml[w * kFwdBlockQ + r] * c;
+      out += macc[(w * kFwdBlockQ + r) * DMAX + d] * c;
     }
-    __syncthreads();
-
-    const int j = k0 + lane;
-    const bool j_in = j < Sk;
-    const int kseg_j = (have_seg && j_in) ? k_seg[(size_t)b * Sk + j] : 0;
-
-#pragma unroll
-    for (int rr = 0; rr < kFwdRowsPerWarp; ++rr) {
-      const int r = warp * kFwdRowsPerWarp + rr;
-      const int qi = q0 + r;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DMAX; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
-      s *= scale;
-      if (causal && qi < j) s = kMask;
-      if (have_seg && qseg_r[rr] != kseg_j) s = kMask;
-      if (!j_in) s = -INFINITY;  // past the ragged edge: no key at all
-      // lane 0's key is always inside the sequence, so m_new is finite
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = expf(s - m_new);
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = alpha * l[rr] + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[rr][i] *= alpha;
-#pragma unroll 4
-      for (int jj = 0; jj < kFwdBlockK; ++jj) {
-        const float pj = __shfl_sync(kFull, p, jj);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          acc[rr][i] = fmaf(pj, vs[jj][lane + 32 * i], acc[rr][i]);
-      }
-      m[rr] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kFwdRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kFwdRowsPerWarp + rr;
-    if (qi >= Sq) continue;
-    const float l_safe = l[rr] == 0.f ? 1.f : l[rr];
-    float* orow = o + ((size_t)bh * Sq + qi) * D;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) orow[d] = acc[rr][i] / l_safe;
-    }
-    if (lane == 0) lse[(size_t)bh * Sq + qi] = m[rr] + logf(l_safe);
+    const float l_safe = l_all == 0.f ? 1.f : l_all;
+    o[((size_t)bh * Sq + q0 + r) * D + d] = out / l_safe;
+    if (d == 0) lse[(size_t)bh * Sq + q0 + r] = m_all + logf(l_safe);
   }
 }
 
@@ -291,6 +475,26 @@ flash_decode_kernel(const float* __restrict__ q,
   }
 }
 
+template <int DMAX>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v,
+                       const int* q_seg, const int* k_seg, float* o,
+                       float* lse, int B, int H, int Sq, int Sk, int D,
+                       float scale, int causal, int vec,
+                       cudaStream_t stream) {
+  constexpr int kBytes = FwdSmem<DMAX>::BYTES;
+  static_assert(kBytes <= 227 * 1024, "ring exceeds shared memory");
+  // an attribute of the kernel on the current device: set at every
+  // launch, so that a launch on another card has it too
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (Sq + kFwdBlockQ - 1) / kFwdBlockQ);
+  flash_fwd_kernel<DMAX><<<grid, kFwdWarps * 32, kBytes, stream>>>(
+      q, k, v, q_seg, k_seg, o, lse, H, Sq, Sk, D, scale, causal, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -306,18 +510,19 @@ cudaError_t flash_attention_fwd(const float* q, const float* k,
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if (D < 1 || D > 128 || (q_seg == nullptr) != (k_seg == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid(B * H, (Sq + kFwdBlockQ - 1) / kFwdBlockQ);
-  const dim3 block(kFwdWarps * 32);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  const int vec = D % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   if (D <= 32)
-    flash_fwd_kernel<32><<<grid, block, 0, stream>>>(
-        q, k, v, q_seg, k_seg, o, lse, H, Sq, Sk, D, scale, causal);
-  else if (D <= 64)
-    flash_fwd_kernel<64><<<grid, block, 0, stream>>>(
-        q, k, v, q_seg, k_seg, o, lse, H, Sq, Sk, D, scale, causal);
-  else
-    flash_fwd_kernel<128><<<grid, block, 0, stream>>>(
-        q, k, v, q_seg, k_seg, o, lse, H, Sq, Sk, D, scale, causal);
-  return cudaGetLastError();
+    return launch_fwd<32>(q, k, v, q_seg, k_seg, o, lse, B, H, Sq, Sk, D,
+                          scale, causal, vec, stream);
+  if (D <= 64)
+    return launch_fwd<64>(q, k, v, q_seg, k_seg, o, lse, B, H, Sq, Sk, D,
+                          scale, causal, vec, stream);
+  return launch_fwd<128>(q, k, v, q_seg, k_seg, o, lse, B, H, Sq, Sk, D,
+                         scale, causal, vec, stream);
 }
 
 // q [B,H,D], caches [B,H,S,D], cache_len [B] int32, out [B,H,D].

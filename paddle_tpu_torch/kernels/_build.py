@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
 headers are compiled, so a build takes seconds. Libraries land in
 ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 
 Nothing is built when a module is imported: the first CUDA tensor that
 reaches a kernel wrapper calls :func:`load`; :func:`load_all` starts one
@@ -49,7 +50,7 @@ SOURCES = {
         "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),
     },
     "conv1x1_bwd": {
-        "conv1x1_bwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "conv1x1_bwd": ([_P] * 7 + [_I] * 12 + [_P], _I),
     },
 }
 
@@ -70,8 +71,11 @@ def _nvcc():
 def _target(name):
     src = os.path.join(CSRC, name + ".cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # the source and the headers it may include (csrc/*.cuh)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (
         name, h.hexdigest()[:16]))

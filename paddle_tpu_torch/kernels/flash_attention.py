@@ -14,7 +14,8 @@ Each wrapper dispatches on the device of the tensors it is given:
   checking device, dtype, shape and contiguity (it raises on anything
   the kernel does not take, and when the launch is refused);
 * a CPU tensor runs the plain PyTorch version beside it, which follows
-  the kernel's blocking (online softmax over key tiles, tiles past the
+  the kernel's blocking (online softmax over key tiles, the forward's
+  key tiles split between its warps and merged in order, tiles past the
   causal diagonal or past ``cache_len`` skipped, the ``l == 0`` guard),
   so the CPU tests exercise that logic;
 * a meta tensor returns outputs of the right shape (construction-time
@@ -30,14 +31,20 @@ import torch
 
 __all__ = ["flash_attention", "flash_decode", "flash_attention_reference",
            "flash_decode_reference", "launches", "reset_launches",
-           "DEFAULT_MASK_VALUE", "BLOCK_Q", "BLOCK_K"]
+           "DEFAULT_MASK_VALUE", "BLOCK_Q", "BLOCK_K", "KEY_SPLIT"]
 
 #: the TPU kernels' mask value for masked (not excluded) scores
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: the CUDA kernels' tiles, which the plain versions follow
+#: the CUDA kernels' tiles, which the plain versions follow: the forward
+#: takes BLOCK_Q query rows a block and BLOCK_K keys a tile, and its
+#: KEY_SPLIT warps take the key tiles in turn (warp w: tiles w, w +
+#: KEY_SPLIT, ...) and merge in warp order; the decode kernel's plain
+#: version walks DECODE_BLOCK_K keys a tile
 BLOCK_Q = 16
-BLOCK_K = 32
+BLOCK_K = 16
+KEY_SPLIT = 4
+DECODE_BLOCK_K = 32
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"flash_attention": 0, "flash_decode": 0}
@@ -54,49 +61,69 @@ def reset_launches():
 
 def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
                               segment_ids=None, block_q=BLOCK_Q,
-                              block_k=BLOCK_K):
+                              block_k=BLOCK_K, key_split=KEY_SPLIT):
     """Plain version of the forward kernel. Returns ``(out, lse)``:
-    ``out`` [b, h, sq, d] and the per-row log-sum-exp [b, h, sq]."""
+    ``out`` [b, h, sq, d] and the per-row log-sum-exp [b, h, sq].
+
+    It follows the kernel's blocking: for each tile of ``block_q`` query
+    rows, ``key_split`` online softmaxes each walk every ``key_split``-th
+    tile of ``block_k`` keys (tiles wholly above the causal diagonal are
+    skipped), and their (m, l, acc) merge in order."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     q, k, v = q.float(), k.float(), v.float()
-    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    inf = float("inf")
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     for q0 in range(0, sq, block_q):
         qt = q[:, :, q0:q0 + block_q]
         nq = qt.shape[2]
-        qi = torch.arange(q0, q0 + nq, device=q.device)[:, None]
-        m = torch.full((b, h, nq, 1), -float("inf"), device=q.device)
-        l = torch.zeros((b, h, nq, 1), device=q.device)
-        acc = torch.zeros((b, h, nq, d), device=q.device)
-        # tiles wholly above the causal diagonal are skipped
+        qi = torch.arange(q0, q0 + nq, device=dev)[:, None]
         k_end = min(sk, q0 + block_q) if causal else sk
-        for k0 in range(0, k_end, block_k):
-            kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
-            nk = kt.shape[2]
-            s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
-            ki = torch.arange(k0, k0 + nk, device=q.device)[None, :]
-            if causal:
-                s = torch.where(qi >= ki, s, DEFAULT_MASK_VALUE)
-            if segment_ids is not None:
-                ok = (segment_ids[0][:, None, q0:q0 + nq, None]
-                      == segment_ids[1][:, None, None, k0:k0 + nk])
-                s = torch.where(ok, s, DEFAULT_MASK_VALUE)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
-            l = alpha * l + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vt)
-            m = m_new
-        l_safe = torch.where(l == 0.0, 1.0, l)
-        out[:, :, q0:q0 + nq] = acc / l_safe
-        lse[:, :, q0:q0 + nq] = (m + torch.log(l_safe))[..., 0]
+        n_kt = -(-k_end // block_k)
+        parts = []
+        for w in range(key_split):
+            m = torch.full((b, h, nq, 1), -inf, device=dev)
+            l = torch.zeros((b, h, nq, 1), device=dev)
+            acc = torch.zeros((b, h, nq, d), device=dev)
+            for k0 in range(w * block_k, n_kt * block_k, key_split * block_k):
+                kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+                nk = kt.shape[2]
+                s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+                ki = torch.arange(k0, k0 + nk, device=dev)[None, :]
+                if causal:
+                    s = torch.where(qi >= ki, s, DEFAULT_MASK_VALUE)
+                if segment_ids is not None:
+                    ok = (segment_ids[0][:, None, q0:q0 + nq, None]
+                          == segment_ids[1][:, None, None, k0:k0 + nk])
+                    s = torch.where(ok, s, DEFAULT_MASK_VALUE)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+                m = m_new
+            parts.append((m, l, acc))
+        m_all = parts[0][0]
+        for m, _, _ in parts[1:]:
+            m_all = torch.maximum(m_all, m)
+        l_all = torch.zeros_like(m_all)
+        o = torch.zeros((b, h, nq, d), device=dev)
+        for m, l, acc in parts:
+            # a warp that saw no key has m = -inf and adds nothing
+            c = torch.where(m == -inf, 0.0, torch.exp(m - m_all))
+            l_all = l_all + l * c
+            o = o + acc * c
+        l_safe = torch.where(l_all == 0.0, 1.0, l_all)
+        out[:, :, q0:q0 + nq] = o / l_safe
+        lse[:, :, q0:q0 + nq] = (m_all + torch.log(l_safe))[..., 0]
     return out, lse
 
 
 def flash_decode_reference(q, k_cache, v_cache, cache_len, sm_scale=None,
-                           block_k=BLOCK_K):
+                           block_k=DECODE_BLOCK_K):
     """Plain version of the decode kernel. ``q`` [b, h, 1, d] or
     [b, h, d]; returns the same rank."""
     squeeze = q.dim() == 3

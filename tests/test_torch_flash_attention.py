@@ -52,7 +52,7 @@ def _jax_fwd(q, k, v, causal, segs):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("seg", [False, True])
 @pytest.mark.parametrize("shape", [(2, 2, 16, 8), (1, 3, 13, 16),
-                                   (2, 2, 40, 8)])
+                                   (2, 2, 40, 8), (1, 2, 90, 16)])
 def test_forward_plain_matches_jax(shape, seg, causal):
     rng = np.random.RandomState(sum(shape) + 2 * seg + causal)
     q, k, v = (_rand(rng, *shape) for _ in range(3))
@@ -177,3 +177,60 @@ def test_wrappers_reject_bad_shapes():
         tfa.flash_attention(x, x[:, :, :, :4], x)
     with pytest.raises(ValueError):
         tfa.flash_decode(x, x, x, torch.tensor([3], dtype=torch.int32))
+
+
+def test_forward_key_split_merges_like_one_walk():
+    """The kernel's warps each walk every KEY_SPLIT-th key tile and merge;
+    the plain version does the same, and agrees with one walk over all
+    the tiles (key_split=1) to float32 rounding, causal or not, with rows
+    whose tiles some warps never see."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 150, 16)) for _ in range(3))
+    seg = torch.from_numpy(_segments(rng, 1, 150))
+    for causal in (False, True):
+        for segs in (None, (seg, seg)):
+            got = tfa.flash_attention_reference(q, k, v, causal, None, segs)
+            one = tfa.flash_attention_reference(q, k, v, causal, None, segs,
+                                                key_split=1)
+            for a, b in zip(got, one):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                           atol=1e-6)
+
+
+def _tf32(x):
+    """float32 cut to TF32's 10 mantissa bits through the int32 view: the
+    kernel's split of a big part, and what the tensor core does with the
+    rest of a float32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b from the kernel's operand split, big = tf32(v) and small =
+    v - big (cut to TF32 by the tensor core): small*big + big*small +
+    big*big, summed by an IEEE float32 matmul. This models the split of
+    S = Q K^T and O = P V, not the tensor core's accumulation, which
+    truncates: S's chain is at most 3 x 128 / 8 products deep (D = 128),
+    O's 6 products for each key tile of a warp's quarter of them, and
+    chip_smoke.py holds the kernel to its plain version on the card."""
+    ab, bb = _tf32(a), _tf32(b)
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+def test_3xtf32_attention_within_1e5_one_tf32_pass_is_not():
+    """The served LM's one-shot forward, [1, 8, 160, 64] causal: both
+    products in 3xTF32 stay within the kernel's 1e-5 of float64; one TF32
+    pass does not."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 8, 160, 64)) for _ in range(3))
+    causal = torch.ones(160, 160, dtype=torch.bool).tril()
+
+    def attention(mm, q, k, v):
+        s = mm(q, k.transpose(-1, -2).contiguous()) * 64 ** -0.5
+        s = torch.where(causal, s, tfa.DEFAULT_MASK_VALUE)
+        return mm(torch.softmax(s, -1), v)
+
+    truth = attention(torch.matmul, q.double(), k.double(), v.double())
+    err3 = (attention(_mm_3xtf32, q, k, v).double() - truth).abs().max()
+    err1 = (attention(lambda a, b: _tf32(a) @ _tf32(b), q, k, v).double()
+            - truth).abs().max()
+    assert err3 < 1e-5 < err1

@@ -50,6 +50,54 @@ def test_cuda_forward_matches_plain(cuda, shape, causal):
         torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
 
 
+# The tensor-core forward: query lengths below, at and across the 16-row
+# tile (8, 13, 160), every head_dim instantiation, with segments, and a
+# row whose keys are all masked (its segment meets no key's).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq", [8, 13, 160])
+def test_cuda_forward_tiles_heads_and_masked_rows(cuda, sq, d):
+    g = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn(2, 3, sq, d, generator=g).to(cuda)
+               for _ in range(3))
+    qseg = torch.sort(torch.randint(0, 3, (2, sq), generator=g),
+                      dim=1)[0].int()
+    kseg = qseg.clone()
+    qseg[:, -1] = 7                        # meets no key: fully masked
+    segs = (qseg.to(cuda), kseg.to(cuda))
+    for causal in (False, True):
+        for sg in (None, segs):
+            ko, kl = tfa.flash_attention(q, k, v, causal=causal,
+                                         segment_ids=sg, return_lse=True)
+            ro, rl = tfa.flash_attention_reference(q, k, v, causal, None, sg)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(ko, ro, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
+    # without the causal mask the masked row averages V over every key
+    ko = tfa.flash_attention(q, k, v, causal=False, segment_ids=segs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ko[:, :, -1], v.mean(2), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_unaligned_rows_take_the_4_byte_copies(cuda):
+    """head_dim 13 (rows on 4-byte boundaries) and a view that starts 4
+    bytes into its storage."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(1, 2, 37, 13, generator=g).to(cuda)
+               for _ in range(3))
+    ko, kl = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ro, rl = tfa.flash_attention_reference(q, k, v, True)
+    flat = torch.randn(1 + 2 * 37 * 16, generator=g).to(cuda)
+    qo = flat[1:].view(1, 2, 37, 16)
+    ko2 = tfa.flash_attention(qo, qo, qo, causal=True)
+    ro2, _ = tfa.flash_attention_reference(qo, qo, qo, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ko, ro, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ko2, ro2, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_cuda_decode_matches_plain(cuda):
     g = torch.Generator().manual_seed(1)
@@ -271,13 +319,18 @@ def test_cuda_bn_grad_tile_is_checked_and_ignored(cuda):
 
 # (B, Ci, H, W, Co): the path's largest and smallest maps, a shape the
 # JAX package's kernel refuses for its size (Ci 256 -> Co 64 at 56x56),
-# and one where no dimension fills a tile.
+# one where no dimension fills a tile (HW = 35: 4-byte copies, two dw
+# chunks), stage 4's other 1x1 (HW = 49), 64 -> 64 (one dw tile, many
+# chunks) and a stage-2 shape (128 x 128 tiles in both roles).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(64, 64, 56, 56, 256),
                                    (64, 2048, 7, 7, 512),
                                    (64, 256, 56, 56, 64),
-                                   (3, 24, 5, 7, 40)])
+                                   (3, 24, 5, 7, 40),
+                                   (64, 512, 7, 7, 2048),
+                                   (8, 64, 56, 56, 64),
+                                   (64, 128, 28, 28, 512)])
 def test_cuda_conv1x1_bwd_matches_plain(cuda, shape, dtype):
     """Kernel vs the plain einsums on the card and vs float64. dw sums
     up to 200704 products in another order than the library's: rtol
@@ -323,3 +376,32 @@ def test_cuda_conv1x1_autograd_goes_through_the_kernel(cuda):
         k1.conv1x1_bwd(x.double(), w.double(), dy.double())
     with pytest.raises(ValueError, match="dy must be"):
         k1.conv1x1_bwd(x.detach(), w.detach(), dy[:, :3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_conv1x1_bwd_unaligned_views_take_the_4_byte_copies(cuda,
+                                                                 dtype):
+    """x, w and dy that start one element into their storage: HW = 64
+    would allow 16-byte copies, the addresses do not, and the plan says
+    so."""
+    b, ci, h, w, co = 4, 64, 8, 8, 128
+    g = torch.Generator().manual_seed(9)
+
+    def offset(shape, scale=1.0):
+        n = 1
+        for s in shape:
+            n *= s
+        flat = (torch.randn(n + 1, generator=g) * scale).to(dtype).to(cuda)
+        return flat[1:].view(*shape)
+
+    x, dy = offset((b, ci, h, w)), offset((b, co, h, w))
+    wt = offset((co, ci, 1, 1), ci ** -0.5)
+    assert x.data_ptr() % 16 != 0
+    assert not k1.plan(b, ci, co, h * w, x.element_size(), False).vec
+    dx, dw = k1.conv1x1_bwd(x, wt, dy)
+    truth = k1.conv1x1_bwd_reference(x.double(), wt.double(), dy.double())
+    torch.cuda.synchronize()
+    rtol, amax = (1e-4, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
+    _close(dx, truth[0], rtol, amax)
+    _close(dw, truth[1], rtol, amax)
