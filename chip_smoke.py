@@ -31,12 +31,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc``, one nvcc per
    source, all started together, and read from the built libraries that
-   the flash-attention forward and the fused 1x1 backward run on the
-   tensor cores (HMMA) fed by cp.async copies (LDGSTS), with no spills;
+   the flash-attention forward, the fused 1x1 backward and the LSTM
+   forward and backward run on the tensor cores (HMMA) fed by
+   asynchronous copies (LDGSTS, or the TMA's), with no spills;
 3. hold each kernel against its plain PyTorch version on the card (the
    fused 1x1 backward at every distinct shape of the ResNet-50 path, as
    derived from the program, also against float64, and its float32 dw
-   error against float64 by the length of its dw chunks);
+   error against float64 by the length of its dw chunks; the LSTM
+   kernels also against float64 at T = 20, 40 and 80, beside their
+   float32 plain versions, and run twice to the same bits);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -59,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the flash-attention forward
    at six shapes, the fused 1x1 backward at every distinct shape of the
-   ResNet-50 path), and profile the decode step;
+   ResNet-50 path, the LSTM kernels at T = 8 and 80 for their cost a
+   step, with their launch plan), and profile the decode step;
 9. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -94,6 +98,8 @@ N_REQUESTS, LONG_NEW, SHORT_NEW = 24, 128, 8
 # at the reference's published batch of 64
 DICT, EMB, HID, STACKED, CLASSES, LR = 30000, 512, 512, 3, 2, 1e-3
 LSTM_B, LSTM_T, MIN_LEN = 64, 80, 16
+# the short sequence B3 and B4 are also timed at, for their cost a step
+LSTM_SHORT_T = 8
 WARMUP_STEPS, TRAIN_STEPS = 2, 10
 # the card against the CPU: a reduced size the CPU's plain step loop runs
 XCHECK = dict(dict_dim=1000, emb_dim=128, hid_dim=128, stacked_num=3)
@@ -156,6 +162,8 @@ ATOL = RTOL = 1e-5
 # tens to hundreds at the path's shape. The GRU's kernels are held to
 # the same tolerances for the same reasons.
 LSTM_ATOL, LSTM_RTOL = 1e-5, 1e-4
+# sequence lengths at which B3 and B4 are held against float64
+LSTM_WITNESS_T = (20, 40, 80)
 # The batch-norm backward: its sums run over up to 802816 rows in another
 # order than torch's, and sum(dy x) - mean sum(dy) cancels, so dscale and
 # dbias are held to rtol 1e-4 plus 1e-5 of their largest magnitude; dx to
@@ -208,20 +216,25 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-# B1 and B8 run on the tensor cores fed by cp.async copies: (library,
-# kernel function). The bfloat16 B8 whose rows start on 2-byte
-# boundaries stages through registers (cp.async copies 4 bytes or more).
+# B1, B3, B4 and B8 run on the tensor cores fed by asynchronous copies:
+# (library, kernel function). cp.async shows as LDGSTS in the SASS; the
+# TMA's copies (UTMALDG, UBLKCP) count as well. The bfloat16 B8 whose rows
+# start on 2-byte boundaries stages through registers (cp.async copies 4
+# bytes or more).
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
-                       ("conv1x1_bwd", "conv1x1_bwd_kernel"))
+                       ("conv1x1_bwd", "conv1x1_bwd_kernel"),
+                       ("lstm_cell", "lstm_fwd_kernel"),
+                       ("lstm_cell", "lstm_bwd_kernel"))
 SYNC_STAGED = "13__nv_bfloat16Li1E"
+ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
 
 
 def sass_check(build):
     """For every instantiation of the tensor-core kernels: registers,
     stack and local memory from the built library, and its SASS's HMMA
-    (tensor-core) and LDGSTS (cp.async) instructions and local-memory
-    loads and stores (spills). Fails where a kernel has no HMMA, no
-    LDGSTS (but SYNC_STAGED), or spills."""
+    (tensor-core) instructions, asynchronous copies (ASYNC_COPIES) and
+    local-memory loads and stores (spills). Fails where a kernel has no
+    HMMA, no asynchronous copy (but SYNC_STAGED), or spills."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, kernel in TENSOR_CORE_KERNELS:
         path = build._target(lib)[1]
@@ -241,21 +254,21 @@ def sass_check(build):
                 counts[fn] = [0, 0, 0]
             elif fn is not None:
                 counts[fn][0] += "HMMA" in line
-                counts[fn][1] += "LDGSTS" in line
+                counts[fn][1] += any(op in line for op in ASYNC_COPIES)
                 counts[fn][2] += bool(re.search(r"\b(LDL|STL)\b", line))
         mine = sorted(f for f in counts if kernel in f)
         if not mine:
             raise AssertionError("%s: no %s in its SASS" % (path, kernel))
         for f in mine:
-            hmma, ldgsts, local = counts[f]
+            hmma, copies, local = counts[f]
             use = usage.get(f, "REG:? STACK:? SHARED:? LOCAL:?")
-            print("sass %s: %s; HMMA %d, LDGSTS %d, local loads/stores %d"
-                  % (f, use, hmma, ldgsts, local))
-            if hmma == 0 or (ldgsts == 0 and SYNC_STAGED not in f) \
+            print("sass %s: %s; HMMA %d, asynchronous copies %d, local "
+                  "loads/stores %d" % (f, use, hmma, copies, local))
+            if hmma == 0 or (copies == 0 and SYNC_STAGED not in f) \
                     or local or "STACK:0 " not in use \
                     or not use.endswith("LOCAL:0"):
                 raise AssertionError("%s: not a spill-free tensor-core "
-                                     "kernel fed by cp.async" % f)
+                                     "kernel fed by asynchronous copies" % f)
 
 
 def assert_close(what, got, want, atol=ATOL, rtol=RTOL):
@@ -388,6 +401,61 @@ def check_lstm(lc, g, dev):
                     err["lstm_bwd"] = max(err["lstm_bwd"], e)
     torch.cuda.synchronize()
     return err, dw_err
+
+
+def lstm_witness(lc, g, dev):
+    """B3 and B4 at the path's width against float64, beside the float32
+    plain versions, at T = LSTM_WITNESS_T: hs, cs of the forward, dxg,
+    dh0 of the backward (each on its own forward's stash), as the largest
+    error against float64 (hs, cs) or the largest error over the largest
+    magnitude (dxg, dh0), so that growth with T shows. Hard only at the
+    kernels' tolerances. Then two runs of each kernel at the path's
+    shape must agree to the bit."""
+    for T in LSTM_WITNESS_T:
+        xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(LSTM_B, T, HID, True,
+                                                       g, dev)
+        f64 = [t.double() for t in (xg, w, h0, c0, mask, p, dhs, dcs)]
+        ths, tcs, tst = lc.lstm_forward_reference(*f64[:6])
+        tgot = lc.lstm_backward_reference(tst, tcs, f64[1], f64[5], f64[3],
+                                          f64[4], f64[6], f64[7])
+        line = []
+        for label, fwd, bwd in (
+                ("kernel", lc.lstm_forward, lc.lstm_backward),
+                ("plain", lc.lstm_forward_reference,
+                 lc.lstm_backward_reference)):
+            hs, cs, st = fwd(xg, w, h0, c0, mask, p)
+            dxg, dh0, _, _ = bwd(st, cs, w, p, c0, mask, dhs, dcs)
+            errs = [float((hs.double() - ths).abs().max()),
+                    float((cs.double() - tcs).abs().max())]
+            for got, want in ((dxg, tgot[0]), (dh0, tgot[1])):
+                errs.append(float((got.double() - want).abs().max()
+                                  / want.abs().max()))
+            line.append("%s hs %.3g cs %.3g dxg %.3g dh0 %.3g" % (
+                (label,) + tuple(errs)))
+            if label == "kernel":
+                for name, a, b in (("hs", hs, ths), ("cs", cs, tcs)):
+                    assert_close("lstm float64 T=%d %s" % (T, name),
+                                 a.double(), b, LSTM_ATOL, LSTM_RTOL)
+                for name, a, b in (("dxg", dxg, tgot[0]),
+                                   ("dh0", dh0, tgot[1])):
+                    assert_close("lstm float64 T=%d %s" % (T, name),
+                                 a.double(), b,
+                                 LSTM_ATOL * max(1.0, float(b.abs().max())),
+                                 LSTM_RTOL)
+        print("lstm against float64 at [%d,%d,%d]: %s" % (
+            LSTM_B, T, HID, "; ".join(line)))
+    xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(LSTM_B, LSTM_T, HID, True,
+                                                   g, dev)
+    runs = []
+    for _ in range(2):
+        hs, cs, st = lc.lstm_forward(xg, w, h0, c0, mask, p)
+        runs.append((hs, cs, st) + lc.lstm_backward(st, cs, w, p, c0, mask,
+                                                    dhs, dcs))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("lstm: two runs of the kernels differ")
+    print("lstm: two runs of B3 and B4 at [%d,%d,%d] agree to the bit"
+          % (LSTM_B, LSTM_T, HID))
 
 
 def gru_inputs(B, T, H, g, dev, ragged=True):
@@ -1255,6 +1323,7 @@ def main():
     torch.cuda.synchronize()
     lstm_err, dw_err = check_lstm(lc, g, dev)
     max_err.update(lstm_err)
+    lstm_witness(lc, g, dev)
     gru_err, gru_dw_err = check_gru(gc, g, dev)
     max_err.update(gru_err)
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
@@ -1432,11 +1501,29 @@ def main():
                     "float32, causal, TF32 off",
             bytes=4 * (4 * b * N_HEADS * s * d + b * N_HEADS * s),
             flops=4 * b * N_HEADS * pairs * d, tf32x3=True))
-    # B3 and B4 at the training path's shape, every step valid
+    # B3 and B4 at the training path's shape, every step valid, and at
+    # T = 8: (t80 - t8) / 72 is a step's cost without the launch and the
+    # blocks' set-up
     B, T, H = LSTM_B, LSTM_T, HID
-    xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, True, g, dev,
-                                                   ragged=False)
-    _, cs, stash = lc.lstm_forward(xg, w, h0, c0, mask, p)
+    lstm_t = {}
+    for T_ in (LSTM_SHORT_T, T):
+        xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T_, H, True, g,
+                                                       dev, ragged=False)
+        _, cs, stash = lc.lstm_forward(xg, w, h0, c0, mask, p)
+        lstm_t["lstm_fwd", T_] = time_ms(
+            lambda: lc.lstm_forward(xg, w, h0, c0, mask, p))
+        lstm_t["lstm_bwd", T_] = time_ms(
+            lambda: lc.lstm_backward(stash, cs, w, p, c0, mask, dhs, dcs))
+    for name in ("lstm_fwd", "lstm_bwd"):
+        pl = lc.launch_plan(name, B, H, dev)
+        print("%s at [%d,%d,%d]: %.6f ms, at T=%d %.6f ms: %.3f us a step; "
+              "cluster size %d, %d blocks, %d row groups of 32 in flight; "
+              "exchange through L2 %d bytes a step" % (
+                  name, B, T, H, lstm_t[name, T], LSTM_SHORT_T,
+                  lstm_t[name, LSTM_SHORT_T],
+                  (lstm_t[name, T] - lstm_t[name, LSTM_SHORT_T]) * 1e3
+                  / (T - LSTM_SHORT_T), pl["cluster"], pl["blocks"],
+                  pl["rows_in_flight"], pl["exchange_bytes"]))
     cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
     x_in = torch.randn(B, T, H, generator=g).to(dev)
     gout = torch.randn(B, T, H, generator=g).to(dev)
@@ -1451,7 +1538,7 @@ def main():
 
     rows.append(dict(
         name="lstm_fwd", shape="[64,80,512] peep, all steps valid",
-        ms=time_ms(lambda: lc.lstm_forward(xg, w, h0, c0, mask, p)),
+        ms=lstm_t["lstm_fwd", T],
         plain_ms=time_ms(lambda: lc.lstm_forward_reference(
             xg, w, h0, c0, mask, p)),
         library_ms=time_ms(cudnn_fwd),
@@ -1459,11 +1546,10 @@ def main():
                 "peepholes: also does the input GEMM",
         bytes=4 * (2 * B * T * 4 * H + H * 4 * H + 3 * H + 2 * B * H
                    + B * T + 2 * B * T * H),
-        flops=2 * B * T * H * 4 * H))
+        flops=2 * B * T * H * 4 * H, tf32x3=True))
     rows.append(dict(
         name="lstm_bwd", shape="[64,80,512] peep, all steps valid",
-        ms=time_ms(lambda: lc.lstm_backward(stash, cs, w, p, c0, mask, dhs,
-                                            dcs)),
+        ms=lstm_t["lstm_bwd", T],
         plain_ms=time_ms(lambda: lc.lstm_backward_reference(
             stash, cs, w, p, c0, mask, dhs, dcs)),
         library_ms=time_ms(cudnn_fwd_bwd),
@@ -1471,7 +1557,7 @@ def main():
                 "512, no peepholes: also does the input GEMMs and dW",
         bytes=4 * (2 * B * T * 4 * H + 3 * B * T * H + H * 4 * H + 2 * 3 * H
                    + 3 * B * H + B * T),
-        flops=2 * B * T * 4 * H * H))
+        flops=2 * B * T * 4 * H * H, tf32x3=True))
     # B5 and B6 at the seq2seq path's shape, every step valid
     B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
     xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged=False)

@@ -17,518 +17,973 @@
 // Everything is float32 and contiguous; the cell state is float32.
 //
 // ---------------------------------------------------------------------
-// lstm_fwd  (B3)
-//   Replaces paddle_tpu/kernels/lstm_cell.py `_fwd_kernel` (the
-//   pallas_call in `_fwd_pallas`): g_t = xg_t + h_{t-1} W, the gates, the
-//   peepholes, the mask carry; writes hs, cs [B, T, H] and the stash
-//   [B, T, 4H] of gate activations (i, c~, f, o) that lstm_bwd reads.
-//   Bound on the H100 at the training path's shape (B=64, T=80, H=512):
-//   2*64*80*512*2048 = 10.7 GFLOP of recurrence, ~160 us at 67 TFLOP/s
-//   (fp32 FMA, TF32 off); it moves ~109 MB (xg 41.9 read, stash 41.9,
-//   hs 10.5, cs 10.5 written), ~33 us at 3.35 TB/s. Bound by operations,
-//   and in practice by the serial chain of T dependent steps.
-//   Design (persistent RNN): the TPU kernel keeps all of W (4 MB at
-//   H=512) in VMEM over a sequential grid over T. One SM holds 227 KB,
-//   so here one cooperative grid of ceil(H/4) blocks, all resident, walks
-//   T itself: block j owns hidden units [4j, 4j+4) and keeps their 16
-//   gate columns of W (H x 16 floats, 32 KB at H=512) in shared memory
-//   for the whole sequence. Each step it copies h_{t-1} (unit-major
-//   [H, B rounded up to 64] in a double-buffered global buffer that
-//   stays in L2, 16-byte loads, 8 in flight per thread) into shared
-//   memory in tiles of 64 batch rows and forms its [64, 16] gate
-//   preactivations: each thread a 4 x 4 register tile over a quarter of
-//   the K = H sum (fp32 FMA, two 16-byte shared loads per 16 FMAs), the
-//   quarters added through shared memory. Then each thread updates c
-//   and h of one (row, unit), writes its slices of hs, cs, the stash and
-//   h_t, and the blocks meet at a grid barrier
-//   (cooperative_groups::this_grid().sync()): T + 1 barriers per call.
+// lstm_fwd (B3) replaces paddle_tpu/kernels/lstm_cell.py `_fwd_kernel`
+// (the pallas_call in `_fwd_pallas`): g_t = xg_t + h_{t-1} W, the gates,
+// the peepholes, the mask carry; it writes hs, cs [B, T, H] and the stash
+// [B, T, 4H] of gate activations (i, c~, f, o) that lstm_bwd reads.
+// lstm_bwd (B4) replaces `_bwd_kernel` (the pallas_call in
+// `_bwd_pallas`): it walks t downwards from the stash, cs and c0 to dxg
+// [B, T, 4H], dh0, dc0 [B, H] and dpeep [3, H]; dW is one GEMM outside
+// the kernel, as in the JAX package.
 //
-// lstm_bwd  (B4)
-//   Replaces paddle_tpu/kernels/lstm_cell.py `_bwd_kernel` (the
-//   pallas_call in `_bwd_pallas`): walks t downwards from the stash, cs
-//   and c0 to dxg [B, T, 4H], dh0, dc0 [B, H] and dpeep [3, H]. dW is
-//   one GEMM outside the kernel, as in the JAX package.
-//   Bound at the path's shape: the same 10.7 GFLOP (the dh recurrence
-//   dgates_t W^T), ~160 us; it moves ~120 MB, ~36 us. Bound by
-//   operations.
-//   Design: two phases per step, two grid barriers. Phase A: block j
-//   owns units [4j, 4j+4) of every row; each thread forms the gate
-//   gradients of one (row, unit) from the stash, c_t, c_{t-1} and its dh
-//   and dc carries, writes them to dxg, and accumulates dpeep in
-//   registers (summed over the block's rows at the end: no atomics).
-//   Phase B: dh_{t-1} = dgates_t W^T + (1 - m) dh, tiled in 2-D: block j
-//   owns 16 units x 16 rows, keeps those units' rows of W transposed in
-//   shared memory for the whole sequence (4H x 16 floats, 128 KB at
-//   H=512), streams its 16 rows of dgates_t through shared memory in
-//   512-column tiles, and forms the tile with 4 x 4 register tiles over
-//   16 K-slices. A block reads 16 rows of dgates per step instead of all
-//   B: a quarter of the L2 traffic of owning all rows of 4 units (16 vs
-//   64 MB per step at the path's shape), for a second barrier.
+// What bounds them. At the training path's shape (B 64, T 80, H 512)
+// each does 2*64*80*512*2048 = 10.7 GFLOP of recurrence: 65 us as
+// 3xTF32 on the tensor cores (3 x 10.7 GFLOP at 495 TFLOP/s), against
+// ~33-36 us for their ~110-120 MB. In practice they are bound by the
+// chain of T dependent steps: each step needs the whole of the previous
+// step's h (B3) or gate gradients (B4) from every block of the grid, so
+// a step costs the latency of one exchange through L2 plus one product
+// and one cell update, whatever the card's rates.
 //
-// Reads of data that other blocks wrote in this launch (h_{t-1}, the
-// gate gradients) go through L2 (__ldcg), never a stale L1 line.
-// Both entry points check that the grid can be resident at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and return
-// cudaErrorCooperativeLaunchTooLarge otherwise.
+// The design, in both kernels:
+// * Persistent grid. The TPU kernel keeps all of W (4 MB at H 512) in
+//   VMEM over a sequential grid over T. One SM holds 227 KB, so one grid
+//   of blocks, all resident at once (a cooperative launch), walks T
+//   itself; each block keeps its slice of W in shared memory for the
+//   whole sequence, split once into the 3xTF32 big and small parts and
+//   laid out in mma fragment order (16-byte loads, no bank conflicts).
+// * Small row groups. A block runs the cells of 32 batch rows x 8 units
+//   (one thread each), so it needs the exchange tile of 32 rows only:
+//   64 KB a step at H 512 in B3, a 128 KB half in B4, where PR 5's
+//   kernels read 128 KB (B3: 64 rows) and 128 KB (B4) per block.
+// * Tensor cores. The recurrent product runs as mma.sync.m16n8k8 TF32 in
+//   3xTF32 (tf32x3.cuh). The tensor core's accumulation truncates, so
+//   every 32-deep stage goes into fresh accumulators (big*big apart from
+//   the two small cross products), whose sum is then added by an FADD
+//   (PR 5's finding for the fused 1x1 backward); the plain versions
+//   follow the same stages and order.
+// * The exchange in fragment order. A producer writes h_t (B3) or
+//   dgates_t (B4) straight into the A-fragment order of the product
+//   (frag_idx), so each lane of a consuming warp fetches its own
+//   fragments of a k8 step as one 16-byte cp.async (LDGSTS, L2 only),
+//   into its own slots of shared memory: no other lane reads them, so
+//   no barrier guards the copies. K comes in chunks of 128; warp w takes
+//   chunks w / 4, w / 4 + 2, ... and the 32-deep slice w % 4 of each,
+//   for both m16 tiles of the row group, through a ring of two chunk
+//   slots a warp: the copies of the next chunk fly while the warp
+//   multiplies this one.
+// * A one-phase step barrier. Instead of cooperative_groups' grid sync,
+//   a block that has written its part of an exchange tile publishes it
+//   with a release (fence, then an atomic add on a counter in device
+//   memory), and each consuming warp waits with acquire loads until the
+//   counter of what it is about to copy has reached its target. The
+//   counters only grow (targets are multiples of the step), so nothing
+//   is reset. Exchange tiles alternate between two buffers by the
+//   parity of the step. B3 counts per (row group, chunk of 128 units):
+//   a warp starts copying a chunk as soon as its 16 producers have
+//   published it, while later chunks are still being written.
+// * Carries in registers: B3's c and h, B4's dh and dc of each owned
+//   (row, unit) stay in registers for the first two row groups a block
+//   runs (in device memory past them: B > 128 at H 512).
+//
+// lstm_bwd's one barrier a step. Its blocks own the same (row, unit)
+// pairs in both phases. Phase A: each thread forms the gate gradients of
+// its pair from the stash, c_t, c_{t-1} and its dh and dc carries, and
+// writes dxg and the exchange tile of dgates_t. Phase B: dh_{t-1} of its
+// pairs = dgates_t[rows, 4H] W[units, 4H]^T + (1 - m) dh. A thread-block
+// cluster of two shares 16 units: block `hf` of the pair forms the
+// product over half hf of K = 4H for all 16, so that it holds W^T for
+// 16 units x 2H in shared memory (128 KB split) and reads half the row
+// group's dgates_t; it keeps the sums of its own 8 units and stores the
+// other 8 in its partner's shared memory (distributed shared memory),
+// then arrives on the partner's mbarrier. dh_{t-1} = (half 0's sum +
+// half 1's sum) + (1 - m) dh, in that order in both blocks. dpeep's
+// per-block sums go to `dpart` [row groups in flight, 3, H]; the wrapper
+// adds them.
+//
+// No float atomics anywhere: every sum has a fixed order, so two runs
+// give the same bits. A wait that does not end within 10 s traps. Both
+// entry points return cudaErrorCooperativeLaunchTooLarge when not even
+// one row group's blocks can be resident at once.
 // ---------------------------------------------------------------------
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kU = 4;            // hidden units owned by one block
-constexpr int kG = 4 * kU;       // their gate columns
-constexpr int kBT = 64;          // batch rows per tile
-constexpr int kThreads = 256;    // = kBT * kU = (kBT / 4) * kG
-constexpr int kUB = 16;          // bwd phase B: units per tile
-constexpr int kRB = 16;          // bwd phase B: rows per tile
-constexpr int kKC = 512;         // bwd phase B: gate columns per staged tile
-constexpr int kKB = kThreads / ((kRB / 4) * (kUB / 4));  // its K-slices
-constexpr int kLoads = 8;        // 16-byte loads in flight per thread
-constexpr int kKF = kThreads / ((kBT / 4) * (kG / 4));  // fwd K-slices
+using tf32x3::cp16;
+using tf32x3::cp_commit;
+using tf32x3::cp_wait;
+using tf32x3::mma;
+using tf32x3::smem_u32;
+using tf32x3::split;
 
-static_assert(kThreads == kBT * kU, "one thread per (row, unit)");
-static_assert(kThreads == (kBT / 4) * kG, "one thread per 4 rows x 1 col");
-static_assert(kRB == 16 && kKC * kRB % (4 * kThreads) == 0 &&
-                  kThreads / 32 * 2 * (kKC * kRB / 4 / kThreads) == kKC / 4,
-              "bwd staging: a warp covers 16 rows x 2 float4 per load");
-static_assert(kRB * kUB <= kThreads, "one thread per output of a tile");
+constexpr int kWarps = 8;                // warps of a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 32;                // batch rows of a row group
+constexpr int kUnits = 8;                // units whose cells a block runs
+constexpr int kKC = 128;                 // K of an exchange chunk
+constexpr int kSliceSteps = 4;           // k8 steps of a warp's 32-deep
+                                         // slice of a chunk: one stage
+constexpr int kRegTiles = 2;             // row groups whose carries stay
+                                         // in registers
+constexpr int kFwdNT = 4;                // fwd: n8 tiles (gates) of W
+constexpr int kBwdNT = 2;                // bwd: n8 tiles (units of a pair)
+// one chunk slot of a warp: kSliceSteps k8 steps of both m16 tiles, a
+// float4 a lane each
+constexpr int kSlot = 2 * kSliceSteps * 32;
+// floats between two warps' partial sums, which take the warp's slots
+constexpr int kPart = 2 * kSlot * 4;
+// a row of a warp's partial sums of NT n8 tiles: 8 floats of padding
+// put the rows that a warp of cells reads on distinct banks
+template <int NT>
+__host__ __device__ constexpr int part_ld() {
+  return 8 * NT + 8;
+}
+
+static_assert(kThreads == kRows * kUnits, "one thread per (row, unit)");
+static_assert(kWarps == 2 * (kKC / 32), "warp = chunk parity x slice");
+static_assert(kPart >= 32 * part_ld<kFwdNT>(), "partials fit the slots");
+
+// ---- waits that cannot hang, release/acquire counters ----
+
+// A wait that has not ended within kHangNs is a fault of the protocol
+// (or a grid that is not resident): the kernel traps, and the launch
+// fails, instead of hanging the card.
+constexpr unsigned long long kHangNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void check_hang(unsigned long long& t0) {
+  if (!t0)
+    t0 = now_ns();
+  else if (now_ns() - t0 > kHangNs)
+    __trap();
+}
+// the block's writes before the caller's last barrier are published:
+// counter += 1 with release semantics
+__device__ __forceinline__ void publish(unsigned* counter) {
+  __threadfence();
+  atomicAdd(counter, 1u);
+}
+// wait (acquire) until *counter >= target
+__device__ __forceinline__ void wait_count(const unsigned* counter,
+                                           unsigned target) {
+  unsigned v;
+  unsigned long long t0 = 0;
+  for (;;) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(counter)
+                 : "memory");
+    if (v >= target) return;
+    check_hang(t0);
+  }
+}
+
+// ---- the pair of lstm_bwd: cluster rank, barrier, mbarrier, stores ----
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+// arrive, with release at cluster scope, on the mbarrier at b's offset
+// in the cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* b,
+                                                   unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(b)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          r)
+      : "memory");
+}
+// wait, with acquire at cluster scope, for the phase of parity `parity`
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* b,
+                                                  unsigned parity) {
+  const unsigned a = smem_u32(b);
+  unsigned ok = 0;
+  unsigned long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (ok) return;
+    check_hang(t0);
+  }
+}
+// store v at p's offset in the cluster's block `rank`
+__device__ __forceinline__ void st_remote(float* p, unsigned rank, float v) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(v)
+               : "memory");
+}
 
 __device__ __forceinline__ float sigm(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// wait until at most n of this thread's cp.async groups are pending
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  if (n <= 0)
+    cp_wait<0>();
+  else
+    cp_wait<1>();
 }
 
-// acc[i][j] = sum over k = k0, k0 + dk, ... < K of a[k*lda + i] * b[k*ldb + j]
-// (a 4x4 register tile of a product whose operands are stored k-major
-// in shared memory; a and b 16-byte aligned)
-__device__ __forceinline__ void mma4x4(float (&acc)[4][4], const float* a,
-                                       int lda, const float* b, int ldb,
-                                       int k0, int K, int dk) {
+// ---- the exchange tile and the product ----
+
+// Where (row r of a row group, k) lies in the row group's exchange tile
+// of nks k8 steps: in A-fragment order (PTX ISA, m16n8k8 .tf32: g =
+// lane / 4, t = lane % 4; A rows g, g + 8 and columns t, t + 4), so that
+// lane l of the warp that multiplies m16 tile r / 16 at k8 step k / 8
+// finds its four fragment values in one 16-byte word.
+__device__ __forceinline__ size_t frag_idx(int r, int k, int nks) {
+  const int row = r % 16, kk = k % 8;
+  const int lane = (row % 8) * 4 + kk % 4, e = row / 8 + 2 * (kk / 4);
+  return ((size_t)(r / 16) * nks + k / 8) * 128 + lane * 4 + e;
+}
+
+// W's fragments for NT n8 tiles over nks k8 steps, split: per k8 step
+// and lane (g, t), NT / 2 float4 of big parts then NT / 2 of small
+// parts, each (b0, b1) of n8 tile 2i then of tile 2i + 1, where b0 =
+// wval(8 ks + t, 8 nt + g) and b1 = wval(8 ks + t + 4, 8 nt + g).
+template <int NT, typename F>
+__device__ __forceinline__ void stage_w(float4* wf, int nks, F wval) {
+  for (int idx = threadIdx.x; idx < nks * (NT / 2) * 32; idx += blockDim.x) {
+    const int l = idx % 32, i = idx / 32 % (NT / 2), ks = idx / 32 / (NT / 2);
+    const int k = 8 * ks + l % 4, n = 16 * i + l / 4;
+    const float v[4] = {wval(k, n), wval(k + 4, n), wval(k, n + 8),
+                        wval(k + 4, n + 8)};
+    unsigned big[4], small[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = k0; k < K; k += dk) {
-    const float4 av = *reinterpret_cast<const float4*>(a + (size_t)k * lda);
-    const float4 bv = *reinterpret_cast<const float4*>(b + (size_t)k * ldb);
-    const float ai[4] = {av.x, av.y, av.z, av.w};
-    const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
+    for (int e = 0; e < 4; ++e) split(v[e], big[e], small[e]);
+    wf[(ks * NT + i) * 32 + l] =
+        make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                    __uint_as_float(big[2]), __uint_as_float(big[3]));
+    wf[(ks * NT + NT / 2 + i) * 32 + l] =
+        make_float4(__uint_as_float(small[0]), __uint_as_float(small[1]),
+                    __uint_as_float(small[2]), __uint_as_float(small[3]));
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
-                const float* __restrict__ peep,
-                const float* __restrict__ h0, const float* __restrict__ c0,
-                const float* __restrict__ mask, float* __restrict__ hs,
-                float* __restrict__ cs, float* __restrict__ stash,
-                float* __restrict__ hbuf, int B, int T, int H) {
+// k8 steps of slice kw of chunk c, of a K of `K` rows (0 past the end)
+__device__ __forceinline__ int slice_steps(int c, int kw, int K) {
+  const int left = K - (c * kKC + kw * 32);
+  return left <= 0 ? 0 : min(kSliceSteps, (left + 7) / 8);
+}
+
+// One stage: `steps` k8 steps of both m16 tiles (fragments in a slot:
+// af[(m * kSliceSteps + j) * 32 + lane]) against NT n8 tiles of W
+// (fragments from wk). big*big and the two small cross products go into
+// fresh accumulators (no chain is longer than 8 products), whose sum is
+// then added to acc: the stage sum.
+template <int NT>
+__device__ __forceinline__ void stage_mma(const float4* af, const float4* wk,
+                                          int steps, int lane,
+                                          float (&acc)[2][NT][4]) {
+  float bbp[2][NT][4] = {}, crs[2][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kSliceSteps; ++j) {
+    if (j < steps) {
+      unsigned ab[2][4], as[2][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float4 v = af[(m * kSliceSteps + j) * 32 + lane];
+        split(v.x, ab[m][0], as[m][0]);
+        split(v.y, ab[m][1], as[m][1]);
+        split(v.z, ab[m][2], as[m][2]);
+        split(v.w, ab[m][3], as[m][3]);
+      }
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) {
+        const float4 vb = wk[(j * NT + i) * 32 + lane];
+        const float4 vs = wk[(j * NT + NT / 2 + i) * 32 + lane];
+        bb[2 * i][0] = __float_as_uint(vb.x);
+        bb[2 * i][1] = __float_as_uint(vb.y);
+        bb[2 * i + 1][0] = __float_as_uint(vb.z);
+        bb[2 * i + 1][1] = __float_as_uint(vb.w);
+        bs[2 * i][0] = __float_as_uint(vs.x);
+        bs[2 * i][1] = __float_as_uint(vs.y);
+        bs[2 * i + 1][0] = __float_as_uint(vs.z);
+        bs[2 * i + 1][1] = __float_as_uint(vs.w);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(crs[m][nt], as[m], bb[nt]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(crs[m][nt], ab[m], bs[nt]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(bbp[m][nt], ab[m], bb[nt]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] += bbp[m][nt][e] + crs[m][nt][e];
+}
+
+// One warp's share of a row group's product: chunks grp, grp + 2, ... of
+// the nch chunks of K (`K` rows), slice kw of each, both m16 tiles.
+// `src` is the exchange tile (frag_idx order, nks k8 steps a m16 tile),
+// `ready(c)` waits until chunk c is published, `slots` is the warp's
+// ring of two chunk slots. The copies of a chunk fly while the warp
+// multiplies the one before. Each lane copies and reads only its own
+// fragments.
+template <int NT, typename Ready>
+__device__ __forceinline__ void warp_product(const float* src, int nks,
+                                             int K, int nch, int grp, int kw,
+                                             const float4* wf, float4* slots,
+                                             int lane, Ready ready,
+                                             float (&acc)[2][NT][4]) {
+  auto issue = [&](int c, float4* slot) {
+    ready(c);
+    const int steps = slice_steps(c, kw, K);
+    const int ks0 = c * (kKC / 8) + kw * kSliceSteps;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      for (int j = 0; j < steps; ++j)
+        cp16(slot + (m * kSliceSteps + j) * 32 + lane,
+             src + ((size_t)m * nks + ks0 + j) * 128 + lane * 4, true);
+    cp_commit();
+  };
+  if (grp < nch) issue(grp, slots);
+  if (grp + 2 < nch) issue(grp + 2, slots + kSlot);
+  for (int c = grp, i = 0; c < nch; c += 2, ++i) {
+    cp_wait_upto(c + 2 < nch ? 1 : 0);
+    float4* slot = slots + (i & 1) * kSlot;
+    const int steps = slice_steps(c, kw, K);
+    if (steps)
+      stage_mma<NT>(slot,
+                    wf + (size_t)(c * (kKC / 8) + kw * kSliceSteps) * NT * 32,
+                    steps, lane, acc);
+    if (c + 4 < nch) issue(c + 4, slot);
+  }
+}
+
+// The warp's [32 x 8 NT] sums into its partial buffer pw (rows of
+// part_ld<NT>() floats).
+template <int NT>
+__device__ __forceinline__ void store_partial(float* pw, int lane,
+                                              const float (&acc)[2][NT][4]) {
+  const int g = lane / 4, t4 = lane % 4;
+  constexpr int ld = part_ld<NT>();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = pw + (16 * m + g) * ld + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[m][nt][0], acc[m][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * ld) =
+          make_float2(acc[m][nt][2], acc[m][nt][3]);
+    }
+}
+
+// (row, column) of the row group's product: the eight warps' sums added
+// in warp order; `stride` floats between two warps' buffers
+__device__ __forceinline__ float sum_partials(const float* part, int stride,
+                                              int idx) {
+  float v = part[idx];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v += part[(size_t)w * stride + idx];
+  return v;
+}
+
+// =====================================================================
+// lstm_fwd (B3)
+// =====================================================================
+
+struct FwdArgs {
+  const float* xg;
+  const float* w;
+  const float* peep;
+  const float* h0;
+  const float* c0;
+  const float* mask;
+  float* hs;
+  float* cs;
+  float* stash;
+  float* hx;         // [2][RG][2][nks][32][4], zero-filled
+  unsigned* flags;   // [RG][nch], zero-filled
+  int B, T, H, nch, RG, RGB, UGp;
+};
+
+// the cell's inputs of (row b, unit) at step t (zeros off the edge)
+struct CellIn {
+  float x[4], m;
+};
+__device__ __forceinline__ CellIn load_cell(const FwdArgs& a, int t, int b,
+                                            int unit) {
+  CellIn v = {};
+  if (b < a.B && unit < a.H) {
+    const size_t bt = (size_t)b * a.T + t;
+    const float* x = a.xg + bt * 4 * a.H;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v.x[q] = x[(size_t)q * a.H + unit];
+    v.m = a.mask[bt];
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem;                          // [H][kG]
-  float* hsT = ws + (size_t)H * kG;          // [H][kBT]
-  float* red = hsT + (size_t)H * kBT;        // [kKF][kBT][kG] partials
-  cg::grid_group grid = cg::this_grid();
-
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * kU;
+  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
+  const int nks = (H + 7) / 8;
   const size_t G4 = 4 * (size_t)H;
+  const size_t tile = (size_t)2 * nks * 128;   // floats of a row group
+  float4* wf = smem4;                           // W fragments
+  // per warp: its two chunk slots, which then take its [32 x 32]
+  // partial sums
+  float4* slots = wf + (size_t)nks * kFwdNT * 32;
+  float* part = reinterpret_cast<float*>(slots);
 
-  for (int idx = tid; idx < H * kG; idx += kThreads) {
-    const int k = idx / kG, c = idx % kG;
-    const int u = u0 + c % kU;
-    ws[idx] = u < H ? w[(size_t)k * G4 + (size_t)(c / kU) * H + u] : 0.f;
-  }
-  // hbuf is [2][H][Bp], Bp = B rounded up to whole tiles; the rows past
-  // B stay zero
-  const int Bp = (B + kBT - 1) / kBT * kBT;
-  for (int idx = tid; idx < B * kU; idx += kThreads) {
-    const int b = idx / kU, u = u0 + idx % kU;
-    if (u < H) hbuf[(size_t)u * Bp + b] = h0[(size_t)b * H + u];
-  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ug = blockIdx.x % a.UGp, rgb = blockIdx.x / a.UGp;
+  const int u0 = ug * kUnits;
+  const int my_chunk = u0 < H ? u0 / kKC : -1;
 
-  // cell phase: one thread per (row of the tile, unit)
-  const int cb = tid / kU, cu = tid % kU;
-  const int unit = u0 + cu;
+  // W's 32 columns of this block: column n is gate n / 8 of unit u0 +
+  // n % 8, so n8 tile q is gate q
+  stage_w<kFwdNT>(wf, nks, [&](int k, int n) {
+    const int u = u0 + n % kUnits;
+    return (k < H && u < H)
+               ? a.w[(size_t)k * G4 + (size_t)(n / kUnits) * H + u]
+               : 0.f;
+  });
+  const int r = tid / kUnits, uu = tid % kUnits;   // the cell: row, unit
+  const int unit = u0 + uu;
   const bool unit_ok = unit < H;
-  const float p0 = unit_ok ? peep[unit] : 0.f;
-  const float p1 = unit_ok ? peep[H + unit] : 0.f;
-  const float p2 = unit_ok ? peep[2 * H + unit] : 0.f;
-  // product phase: one thread per (4 rows x 4 gate columns, K-slice);
-  // a warp shares its slice, so its 16-byte loads hit distinct banks
-  const int kq = tid % (kThreads / kKF), fks = tid / (kThreads / kKF);
-  const int rq = kq / (kG / 4), cq = kq % (kG / 4);
+  // h0 of this block's units in the row groups it runs, published
+  for (int rg = rgb; rg < a.RG; rg += a.RGB) {
+    const int b = rg * kRows + r;
+    if (unit_ok && b < B)
+      a.hx[rg * tile + frag_idx(r, unit, nks)] = a.h0[(size_t)b * H + unit];
+  }
+  __syncthreads();
+  if (tid == 0 && my_chunk >= 0)
+    for (int rg = rgb; rg < a.RG; rg += a.RGB)
+      publish(&a.flags[rg * nch + my_chunk]);
 
-  grid.sync();  // hbuf[0] holds h0 of every unit
+  const float p0 = unit_ok ? a.peep[unit] : 0.f;
+  const float p1 = unit_ok ? a.peep[H + unit] : 0.f;
+  const float p2 = unit_ok ? a.peep[2 * H + unit] : 0.f;
+  float creg[kRegTiles] = {}, hreg[kRegTiles] = {};
+  const int grp = warp / 4, kw = warp % 4;   // chunk parity, slice
+  CellIn cur = load_cell(a, 0, rgb * kRows + r, unit);
 
   for (int t = 0; t < T; ++t) {
-    const float* hcur = hbuf + (size_t)(t & 1) * H * Bp;
-    float* hnxt = hbuf + (size_t)((t + 1) & 1) * H * Bp;
-    for (int b0 = 0; b0 < B; b0 += kBT) {
-      const int nb = min(kBT, B - b0);
-      // this thread's cell inputs, loaded ahead of the product
-      const int b = b0 + cb;
-      const bool live = cb < nb && unit_ok;
+    int rl = 0;
+    for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl) {
+      const int b = rg * kRows + r;
+      const bool live = unit_ok && b < B;
       const size_t bt = (size_t)(live ? b : 0) * T + t;
-      float x4[4] = {0.f, 0.f, 0.f, 0.f};
-      float c_prev = 0.f, h_prev = 0.f, m = 0.f;
-      if (live) {
-        const float* x = xg + bt * G4;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) x4[q] = x[(size_t)q * H + unit];
-        c_prev = t ? cs[(bt - 1) * H + unit] : c0[(size_t)b * H + unit];
-        h_prev = t ? hs[(bt - 1) * H + unit] : h0[(size_t)b * H + unit];
-        m = mask[bt];
-      }
-      // h_{t-1} of the tile's rows, every unit: rows of kBT floats
+      const CellIn in = cur;
       {
-        constexpr int kRow4 = kBT / 4;
-        const int n4 = H * kRow4;
-        const float4* src = reinterpret_cast<const float4*>(hcur + b0);
-        float4* dst = reinterpret_cast<float4*>(hsT);
-        for (int base = 0; base < n4; base += kThreads * kLoads) {
-          float4 v[kLoads];
+        // the next round's cell inputs, loaded while this round runs
+        int rg2 = rg + a.RGB, t2 = t;
+        if (rg2 >= a.RG) rg2 = rgb, ++t2;
+        if (t2 < T) cur = load_cell(a, t2, rg2 * kRows + r, unit);
+      }
+      float c_prev = 0.f, h_prev = 0.f;
+      if (live) {
+        if (t == 0) {
+          c_prev = a.c0[(size_t)b * H + unit];
+          h_prev = a.h0[(size_t)b * H + unit];
+        } else if (rl < kRegTiles) {
 #pragma unroll
-          for (int j = 0; j < kLoads; ++j) {
-            const int q = base + j * kThreads + tid;
-            if (q < n4)
-              v[j] = __ldcg(src + (size_t)(q / kRow4) * (Bp / 4) + q % kRow4);
-          }
-#pragma unroll
-          for (int j = 0; j < kLoads; ++j) {
-            const int q = base + j * kThreads + tid;
-            if (q < n4) dst[q] = v[j];
-          }
+          for (int i = 0; i < kRegTiles; ++i)
+            if (rl == i) c_prev = creg[i], h_prev = hreg[i];
+        } else {
+          c_prev = a.cs[(bt - 1) * H + unit];
+          h_prev = a.hs[(bt - 1) * H + unit];
         }
       }
+
+      // h_{t-1} W for the row group: a chunk of h_{t-1} is ready when
+      // the blocks of its 128 units have published it this step
+      float acc[2][kFwdNT][4] = {};
+      warp_product<kFwdNT>(
+          a.hx + ((size_t)(t & 1) * a.RG + rg) * tile, nks, H, nch, grp, kw,
+          wf, slots + warp * 2 * kSlot, lane,
+          [&](int c) {
+            const int units = min(kKC, H - c * kKC);
+            wait_count(&a.flags[rg * nch + c],
+                       (unsigned)((units + kUnits - 1) / kUnits * (t + 1)));
+          },
+          acc);
+      store_partial<kFwdNT>(part + warp * kPart, lane, acc);
       __syncthreads();
 
-      {
-        float acc[4][4];
-        mma4x4(acc, hsT + 4 * rq, kBT, ws + 4 * cq, kG, fks, H, kKF);
-        float* r = red + ((size_t)fks * kBT + 4 * rq) * kG + 4 * cq;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<float4*>(r + i * kG) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-      __syncthreads();
-
+      float h_t = 0.f, c_t = 0.f, act[4] = {0.f, 0.f, 0.f, 0.f};
       if (live) {
         float gsum[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float a = x4[q];
-#pragma unroll
-          for (int f = 0; f < kKF; ++f)
-            a += red[((size_t)f * kBT + cb) * kG + q * kU + cu];
-          gsum[q] = a;
-        }
-        float gi = gsum[0];
-        const float gcand = gsum[1];
-        float gf = gsum[2];
-        float go = gsum[3];
-        gi += c_prev * p0;
-        gf += c_prev * p1;
-        const float i_t = sigm(gi), f_t = sigm(gf), g_t = tanhf(gcand);
-        float c_t = f_t * c_prev + i_t * g_t;
-        go += c_t * p2;
-        const float o_t = sigm(go);
-        float h_t = o_t * tanhf(c_t);
+        for (int q = 0; q < 4; ++q)
+          gsum[q] = in.x[q] + sum_partials(part, kPart,
+                                           r * part_ld<kFwdNT>() + 8 * q + uu);
+        const float m = in.m;
+        const float gi = gsum[0] + c_prev * p0;
+        const float gf = gsum[2] + c_prev * p1;
+        act[0] = sigm(gi);
+        act[1] = tanhf(gsum[1]);
+        act[2] = sigm(gf);
+        c_t = act[2] * c_prev + act[0] * act[1];
+        act[3] = sigm(gsum[3] + c_t * p2);
+        h_t = act[3] * tanhf(c_t);
         h_t = m * h_t + (1.f - m) * h_prev;
         c_t = m * c_t + (1.f - m) * c_prev;
-        hs[bt * H + unit] = h_t;
-        cs[bt * H + unit] = c_t;
-        float* st = stash + bt * G4;
-        st[unit] = i_t;
-        st[H + unit] = g_t;
-        st[2 * H + unit] = f_t;
-        st[3 * H + unit] = o_t;
-        hnxt[(size_t)unit * Bp + b] = h_t;
+        if (t + 1 < T)
+          a.hx[((size_t)((t + 1) & 1) * a.RG + rg) * tile +
+               frag_idx(r, unit, nks)] = h_t;
       }
-      __syncthreads();  // the tile's shared memory is consumed
+      __syncthreads();   // partials read, h_t in the exchange
+      if (tid == 0 && my_chunk >= 0 && t + 1 < T)
+        publish(&a.flags[rg * nch + my_chunk]);
+      // the outputs after the release, which waits for no more than the
+      // exchange
+      if (live) {
+        a.hs[bt * H + unit] = h_t;
+        a.cs[bt * H + unit] = c_t;
+        float* st = a.stash + bt * G4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) st[(size_t)q * H + unit] = act[q];
+#pragma unroll
+        for (int i = 0; i < kRegTiles; ++i)
+          if (rl == i) creg[i] = c_t, hreg[i] = h_t;
+      }
     }
-    grid.sync();  // h_t of every unit is in hnxt
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_kernel(const float* __restrict__ stash, const float* __restrict__ cs,
-                const float* __restrict__ w, const float* __restrict__ peep,
-                const float* __restrict__ c0, const float* __restrict__ mask,
-                const float* __restrict__ dhs, const float* __restrict__ dcs,
-                float* __restrict__ dxg, float* __restrict__ dh0,
-                float* __restrict__ dc0, float* __restrict__ dpeep,
-                float* __restrict__ scratch, int B, int T, int H) {
+// =====================================================================
+// lstm_bwd (B4)
+// =====================================================================
+
+struct BwdArgs {
+  const float* stash;
+  const float* cs;
+  const float* w;
+  const float* peep;
+  const float* c0;
+  const float* mask;
+  const float* dhs;
+  const float* dcs;
+  float* dxg;
+  float* dh0;
+  float* dc0;
+  float* dpart;        // [RGB][3][H]
+  float* carry;        // [2][B][H]: dh, dc carries past kRegTiles
+  float* dgx;          // [2][RG][2 halves][2][nks][32][4], zero-filled
+  unsigned* counters;  // [RG], zero-filled
+  int B, T, H, nch, RG, RGB, UGp;
+};
+
+// phase A's inputs of the pair (row b, unit) at step t (zeros off the
+// edge)
+struct AIn {
+  float m, i, g, f, o, c, cp, dh, dc;
+};
+__device__ __forceinline__ AIn load_a(const BwdArgs& a, int t, int b,
+                                      int unit) {
+  AIn v = {};
+  if (b < a.B && unit < a.H) {
+    const int H = a.H;
+    const size_t bt = (size_t)b * a.T + t;
+    const float* st = a.stash + bt * 4 * H;
+    v.m = a.mask[bt];
+    v.i = st[unit];
+    v.g = st[H + unit];
+    v.f = st[2 * H + unit];
+    v.o = st[3 * H + unit];
+    v.c = a.cs[bt * H + unit];
+    v.cp = t ? a.cs[(bt - 1) * H + unit] : a.c0[(size_t)b * H + unit];
+    v.dh = a.dhs[bt * H + unit];
+    v.dc = a.dcs[bt * H + unit];
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int G4 = 4 * H;
-  float* wt = smem;                          // [4H][kUB]: W[unit][col]
-  float* dgT = wt + (size_t)G4 * kUB;        // [kKC][kRB]: a column tile
-  float* red = dgT + kKC * kRB;              // [kKB][kRB][kUB] partials
-  // scratch [3][B][H]: dh carry (dh_t from step t+1's phase B), (1-m) dh
-  // of step t, dc carry
-  float* dhb = scratch;
-  float* dhm = scratch + (size_t)B * H;
-  float* dcb = scratch + 2 * (size_t)B * H;
-  cg::grid_group grid = cg::this_grid();
+  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
+  const int G4 = 4 * H, H2 = 2 * H;
+  const int nks = (H2 + 7) / 8;
+  const size_t half = (size_t)2 * nks * 128;   // floats of a half tile
+  float4* wf = smem4;                           // W^T fragments
+  float4* slots = wf + (size_t)nks * kBwdNT * 32;   // and the partials
+  float* part = reinterpret_cast<float*>(slots);
+  float* xpart = reinterpret_cast<float*>(slots + kWarps * 2 * kSlot);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(xpart + 2 * kThreads);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the pair (a cluster of two) shares 16 units: block `hf` runs the
+  // cells of units [16 p + 8 hf, + 8) and forms the product over half hf
+  // of K = 4H (gate columns [2H hf, 2H hf + 2H)) for all 16
+  const int hf = (int)cluster_rank();
+  const int pair = blockIdx.x % a.UGp / 2, rgb = blockIdx.x / a.UGp;
+  const int u0 = 16 * pair + kUnits * hf;
+  // where dgates_t of (row r, gate column col) goes in buffer `par`
+  auto xidx = [&](int par, int rg, int col, int r) {
+    const int hh = col / H2;
+    return (((size_t)par * a.RG + rg) * 2 + hh) * half +
+           frag_idx(r, col - hh * H2, nks);
+  };
 
-  // phase A: block j owns units [4j, 4j + 4), every row; one thread per
-  // (row of a 64-row tile, unit)
-  const int cb = tid / kU, cu = tid % kU;
-  const int unit = blockIdx.x * kU + cu;
+  // W[16 p .. 16 p + 16, 2H hf .. 2H hf + 2H]^T: n8 tile nt holds units
+  // 16 p + 8 nt ..
+  stage_w<kBwdNT>(wf, nks, [&](int k, int n) {
+    const int u = 16 * pair + n;
+    return (u < H && k < H2) ? a.w[(size_t)u * G4 + (size_t)hf * H2 + k]
+                             : 0.f;
+  });
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();   // the partner's mbarrier exists before any arrival
+
+  const int r = tid / kUnits, uu = tid % kUnits;   // the pair: row, unit
+  const int unit = u0 + uu;
   const bool unit_ok = unit < H;
-  const float p0 = unit_ok ? peep[unit] : 0.f;
-  const float p1 = unit_ok ? peep[H + unit] : 0.f;
-  const float p2 = unit_ok ? peep[2 * H + unit] : 0.f;
+  const float p0 = unit_ok ? a.peep[unit] : 0.f;
+  const float p1 = unit_ok ? a.peep[H + unit] : 0.f;
+  const float p2 = unit_ok ? a.peep[2 * H + unit] : 0.f;
   float dp0 = 0.f, dp1 = 0.f, dp2 = 0.f;
+  float dhreg[kRegTiles] = {}, dcreg[kRegTiles] = {};
+  const int grp = warp / 4, kw = warp % 4;   // chunk parity, slice
+  float* dhc = a.carry;
+  float* dcc = a.carry + (size_t)B * H;
 
-  // phase B: block j owns a (kRB rows, kUB units) tile of dh_{t-1}:
-  // unit group j % NU, row group j / NU (blocks past NU * NR idle)
-  const int NU = (H + kUB - 1) / kUB;
-  const int NR = max(1, (int)gridDim.x / NU);
-  const int ug = blockIdx.x % NU, rg = blockIdx.x / NU;
-  const bool b_active = rg < NR;
-  // one thread per (4 rows x 4 units, K-slice); a warp's two K-slices
-  // are adjacent columns, 16 floats apart: distinct banks
-  const int bq = tid % 16, bks = tid / 16;
-  const int brq = bq / 4, buq = bq % 4;
-
-  for (int idx = tid; idx < G4 * kUB; idx += kThreads) {
-    const int col = idx / kUB, u = ug * kUB + idx % kUB;
-    wt[idx] = (b_active && u < H) ? w[(size_t)u * G4 + col] : 0.f;
-  }
-  if (unit_ok) {
-    for (int b = cb; b < B; b += kBT) {
-      dhb[(size_t)b * H + unit] = 0.f;
-      dcb[(size_t)b * H + unit] = 0.f;
-    }
-  }
-
-  for (int t = T - 1; t >= 0; --t) {
-    // ---- phase A: gate gradients of the block's units ----
-    if (unit_ok) {
-      for (int b = cb; b < B; b += kBT) {
-        const size_t bt = (size_t)b * T + t;
-        const size_t bu = (size_t)b * H + unit;
-        const float m = mask[bt];
-        const float* st = stash + bt * G4;
-        const float i_t = st[unit], g_t = st[H + unit];
-        const float f_t = st[2 * H + unit], o_t = st[3 * H + unit];
-        const float c_t = cs[bt * H + unit];
-        const float c_prev = t ? cs[(bt - 1) * H + unit] : c0[bu];
-        // dhb of this (row, unit) was zeroed by this thread or written by
-        // phase B of step t + 1, before the barrier that ended it
-        const float dh = dhs[bt * H + unit] + __ldcg(dhb + bu);
-        const float dc_in = dcs[bt * H + unit] + dcb[bu];
-        const float tanh_c = tanhf(c_t);
-        float dgo = dh * tanh_c * o_t * (1.f - o_t);
-        const float dct = dh * o_t * (1.f - tanh_c * tanh_c) + dc_in +
-                          dgo * p2;
-        float dgi = dct * g_t * i_t * (1.f - i_t);
-        float dgc = dct * i_t * (1.f - g_t * g_t);
-        float dgf = dct * c_prev * f_t * (1.f - f_t);
-        const float dc_prev = dct * f_t + dgi * p0 + dgf * p1;
+  AIn cur = load_a(a, T - 1, rgb * kRows + r, unit);
+  int n = 0;   // rounds
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s;
+    int rl = 0;
+    for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl, ++n) {
+      // ---- phase A: the gate gradients of this thread's pair ----
+      const int b = rg * kRows + r;
+      const bool live = unit_ok && b < B;
+      const size_t bt = (size_t)(live ? b : 0) * T + t;
+      const size_t bu = (size_t)(live ? b : 0) * H + unit;
+      const AIn in = cur;
+      {
+        // the next round's inputs, loaded while this round runs
+        int rg2 = rg + a.RGB, s2 = s;
+        if (rg2 >= a.RG) rg2 = rgb, ++s2;
+        if (s2 < T) cur = load_a(a, T - 1 - s2, rg2 * kRows + r, unit);
+      }
+      float m = 0.f, dh = 0.f, dg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (live) {
+        m = in.m;
+        float dh_c = 0.f, dc_c = 0.f;
+        if (s) {
+          if (rl < kRegTiles) {
+#pragma unroll
+            for (int i = 0; i < kRegTiles; ++i)
+              if (rl == i) dh_c = dhreg[i], dc_c = dcreg[i];
+          } else {
+            dh_c = dhc[bu];
+            dc_c = dcc[bu];
+          }
+        }
+        dh = in.dh + dh_c;
+        const float dc_in = in.dc + dc_c;
+        const float tanh_c = tanhf(in.c);
+        float dgo = dh * tanh_c * in.o * (1.f - in.o);
+        const float dct =
+            dh * in.o * (1.f - tanh_c * tanh_c) + dc_in + dgo * p2;
+        float dgi = dct * in.g * in.i * (1.f - in.i);
+        float dgc = dct * in.i * (1.f - in.g * in.g);
+        float dgf = dct * in.cp * in.f * (1.f - in.f);
+        const float dc_prev = dct * in.f + dgi * p0 + dgf * p1;
         dgi *= m;
         dgc *= m;
         dgf *= m;
         dgo *= m;
-        dcb[bu] = m * dc_prev + (1.f - m) * dc_in;
-        dhm[bu] = (1.f - m) * dh;  // phase B adds dgates W^T
-        float* out = dxg + bt * G4;
-        out[unit] = dgi;
-        out[H + unit] = dgc;
-        out[2 * H + unit] = dgf;
-        out[3 * H + unit] = dgo;
-        dp0 += dgi * c_prev;
-        dp1 += dgf * c_prev;
-        dp2 += dgo * c_t;
+        const float dc_new = m * dc_prev + (1.f - m) * dc_in;
+        if (rl < kRegTiles) {
+#pragma unroll
+          for (int i = 0; i < kRegTiles; ++i)
+            if (rl == i) dcreg[i] = dc_new;
+        } else {
+          dcc[bu] = dc_new;
+        }
+        if (t == 0) a.dc0[bu] = dc_new;
+        dg[0] = dgi;
+        dg[1] = dgc;
+        dg[2] = dgf;
+        dg[3] = dgo;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a.dgx[xidx(s & 1, rg, q * H + unit, r)] = dg[q];
+        dp0 += dgi * in.cp;
+        dp1 += dgf * in.cp;
+        dp2 += dgo * in.c;
       }
-    }
-    grid.sync();  // every unit's gate gradients of step t are in dxg
+      __syncthreads();   // this block's columns of dgates_t are written
+      if (tid == 0) publish(&a.counters[rg]);
+      if (live) {
+        // dxg after the release, which waits for no more than the
+        // exchange
+        float* out = a.dxg + bt * G4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[(size_t)q * H + unit] = dg[q];
+      }
 
-    // ---- phase B: dh_{t-1}[rows, units] = dgates_t W[units, :]^T
-    //      + (1 - m) dh, for this block's tile ----
-    if (b_active) {
-      for (int b0 = rg * kRB; b0 < B; b0 += NR * kRB) {
-        const int nr = min(kRB, B - b0);
-        float acc[4][4];
+      // ---- phase B: this half of K for the pair's 16 units, once every
+      //      block of the row group has published ----
+      float acc[2][kBwdNT][4] = {};
+      warp_product<kBwdNT>(
+          a.dgx + ((((size_t)(s & 1) * a.RG + rg) * 2 + hf) * half), nks,
+          H2, nch, grp, kw, wf, slots + warp * 2 * kSlot, lane,
+          [&](int c) {
+            if (c < 2)
+              wait_count(&a.counters[rg], (unsigned)(a.UGp * (s + 1)));
+          },
+          acc);
+      store_partial<kBwdNT>(part + warp * kPart, lane, acc);
+      __syncthreads();
+      // this half's sums for row r: of this block's unit, kept, and of
+      // the partner's, stored in its shared memory
+      const float mine = sum_partials(
+          part, kPart, r * part_ld<kBwdNT>() + kUnits * hf + uu);
+      const float other = sum_partials(
+          part, kPart, r * part_ld<kBwdNT>() + kUnits * (1 - hf) + uu);
+      st_remote(xpart + (n & 1) * kThreads + tid, 1 - hf, other);
+      __syncthreads();
+      if (tid == 0) mbar_arrive_remote(xbar, 1 - hf);
+      mbar_wait_cluster(xbar, n & 1);
+      if (live) {
+        const float got = xpart[(n & 1) * kThreads + tid];
+        // half 0's sum first, then half 1's
+        const float dh_new =
+            (hf == 0 ? mine + got : got + mine) + (1.f - m) * dh;
+        if (rl < kRegTiles) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        for (int col0 = 0; col0 < G4; col0 += kKC) {
-          const int nc = min(kKC, G4 - col0);
-          __syncthreads();  // the previous column tile is consumed
-          // a warp loads 2 float4 of each of the kRB rows and stores
-          // them transposed; the upper half-warp rotates the component
-          // order so the two halves hit distinct banks
-          float4 v[kKC * kRB / 4 / kThreads];
-#pragma unroll
-          for (int it = 0; it < kKC * kRB / 4 / kThreads; ++it) {
-            const int col = 4 * (2 * (it * (kThreads / 32) + warp) +
-                                 lane / kRB);
-            const int r = lane % kRB;
-            v[it] = (r < nr && col < nc)
-                        ? __ldcg(reinterpret_cast<const float4*>(
-                              dxg + ((size_t)(b0 + r) * T + t) * G4 + col0 +
-                              col))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-#pragma unroll
-          for (int it = 0; it < kKC * kRB / 4 / kThreads; ++it) {
-            const int col = 4 * (2 * (it * (kThreads / 32) + warp) +
-                                 lane / kRB);
-            const int r = lane % kRB;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int q = (j + lane / kRB) & 3;
-              dgT[(col + q) * kRB + r] = comp(v[it], q);
-            }
-          }
-          __syncthreads();
-          float part[4][4];
-          mma4x4(part, dgT + 4 * brq, kRB, wt + (size_t)col0 * kUB + 4 * buq,
-                 kUB, bks, nc, kKB);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+          for (int i = 0; i < kRegTiles; ++i)
+            if (rl == i) dhreg[i] = dh_new;
+        } else {
+          dhc[bu] = dh_new;
         }
-        float* r = red + ((size_t)bks * kRB + 4 * brq) * kUB + 4 * buq;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          *reinterpret_cast<float4*>(r + i * kUB) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        __syncthreads();
-        {
-          const int rr = tid / kUB, uu = tid % kUB;
-          const int u = ug * kUB + uu;
-          if (rr < nr && u < H) {
-            float sum = 0.f;
-#pragma unroll
-            for (int q = 0; q < kKB; ++q)
-              sum += red[((size_t)q * kRB + rr) * kUB + uu];
-            const size_t bu = (size_t)(b0 + rr) * H + u;
-            dhb[bu] = sum + __ldcg(dhm + bu);
-          }
-        }
+        if (t == 0) a.dh0[bu] = dh_new;
       }
+      // the next round's phase A ends in a __syncthreads before any warp
+      // writes `part` again
     }
-    grid.sync();  // dh_{t-1} of every (row, unit) is in dhb
   }
 
-  if (unit_ok) {
-    for (int b = cb; b < B; b += kBT) {
-      dh0[(size_t)b * H + unit] = __ldcg(dhb + (size_t)b * H + unit);
-      dc0[(size_t)b * H + unit] = dcb[(size_t)b * H + unit];
-    }
-  }
-  // dpeep: sum the per-(row, unit) partials over the block's rows
-  const float part[3] = {dp0, dp1, dp2};
+  // dpeep: this block's rows, summed in row order, for each unit
+  const float dp[3] = {dp0, dp1, dp2};
+#pragma unroll
   for (int q = 0; q < 3; ++q) {
     __syncthreads();
-    red[tid] = part[q];
+    part[tid] = dp[q];
     __syncthreads();
-    if (tid < kU && blockIdx.x * kU + tid < H) {
+    if (tid < kUnits && u0 + tid < H) {
       float sum = 0.f;
-      for (int r = 0; r < kThreads / kU; ++r) sum += red[r * kU + tid];
-      dpeep[(size_t)q * H + blockIdx.x * kU + tid] = sum;
+      for (int rr = 0; rr < kRows; ++rr) sum += part[rr * kUnits + tid];
+      a.dpart[((size_t)rgb * 3 + q) * H + u0 + tid] = sum;
     }
   }
+  cluster_sync();   // no block leaves while its partner may address it
 }
 
 size_t fwd_smem(int H) {
-  return ((size_t)H * kG + (size_t)H * kBT + (size_t)kKF * kBT * kG) *
-         sizeof(float);
+  const size_t nks = (H + 7) / 8;
+  return nks * kFwdNT * 512 + (size_t)kWarps * 2 * kSlot * 16;
 }
 
 size_t bwd_smem(int H) {
-  return (4 * (size_t)H * kUB + (size_t)kKC * kRB +
-          (size_t)kKB * kRB * kUB) * sizeof(float);
+  const size_t nks = (2 * H + 7) / 8;
+  return nks * kBwdNT * 512 + (size_t)kWarps * 2 * kSlot * 16 +
+         2 * kThreads * 4 + sizeof(uint64_t);
 }
 
-// Set the kernel's shared memory and check that `blocks` of it can be
-// resident at once, as a cooperative launch needs.
-cudaError_t prepare(const void* kernel, int blocks, size_t smem) {
+// The launch plan: out[0] cluster size, out[1] blocks, out[2] row groups
+// in flight at once, out[3] row groups a block runs a step. A row group
+// takes ceil(H/8) blocks (B3) or two blocks, a cluster, for each 16
+// units (B4); as many row groups as can be resident run at once.
+cudaError_t plan(int kind, int B, int H, int* out, size_t* smem_out) {
+  const void* kernel = kind == 0 ? (const void*)lstm_fwd_kernel
+                                 : (const void*)lstm_bwd_kernel;
+  const size_t smem = kind == 0 ? fwd_smem(H) : bwd_smem(H);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, coop = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
                                   dev)) != cudaSuccess)
     return e;
   if (!coop) return cudaErrorNotSupported;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+  const int RG = (B + kRows - 1) / kRows;
+  const int cs = kind == 0 ? 1 : 2;
+  const int per = kind == 0 ? (H + kUnits - 1) / kUnits : 2 * ((H + 15) / 16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(per);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
+      cudaSuccess)
     return e;
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
+  const int rows = min(RG, clusters * cs / per);
+  if (!rows) return cudaErrorCooperativeLaunchTooLarge;
+  out[0] = cs;
+  out[1] = per * rows;
+  out[2] = rows;
+  out[3] = (RG + rows - 1) / rows;
+  *smem_out = smem;
   return cudaSuccess;
+}
+
+// A cooperative launch (every block resident at once, or the launch is
+// refused) in clusters of cs blocks.
+template <typename Args>
+cudaError_t launch(void (*kernel)(Args), const Args& args, int cs,
+                   int blocks, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The launch plan of lstm_fwd (kind 0) or lstm_bwd (kind 1) at (B, H) on
+// the current device: out[0] cluster size, out[1] blocks, out[2] row
+// groups of 32 rows in flight, out[3] row groups a block runs a step.
+cudaError_t lstm_plan(int kind, int B, int H, int* out) {
+  size_t smem;
+  return plan(kind, B, H, out, &smem);
+}
+
 // xg [B,T,4H], w [H,4H], peep [3,H], h0/c0 [B,H], mask [B,T]; outputs
-// hs/cs [B,T,H] and stash [B,T,4H]; hbuf is [2,H,Bp] scratch, Bp = B
-// rounded up to a multiple of 64, zero-filled.
+// hs/cs [B,T,H] and stash [B,T,4H]; hx [2,RG,2,nks,32,4] and flags
+// [RG,nch] are zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8),
+// nch = ceil(H/128)).
 cudaError_t lstm_fwd(const float* xg, const float* w, const float* peep,
                      const float* h0, const float* c0, const float* mask,
-                     float* hs, float* cs, float* stash, float* hbuf, int B,
-                     int T, int H, cudaStream_t stream) {
+                     float* hs, float* cs, float* stash, float* hx,
+                     unsigned* flags, int B, int T, int H,
+                     cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const int blocks = (H + kU - 1) / kU;
-  const size_t smem = fwd_smem(H);
-  cudaError_t e = prepare((const void*)lstm_fwd_kernel, blocks, smem);
+  int p[4];
+  size_t smem;
+  cudaError_t e = plan(0, B, H, p, &smem);
   if (e != cudaSuccess) return e;
-  void* args[] = {&xg, &w, &peep, &h0, &c0, &mask, &hs,
-                  &cs, &stash, &hbuf, &B, &T, &H};
-  e = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel, blocks,
-                                  kThreads, args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  FwdArgs a;
+  a.xg = xg;
+  a.w = w;
+  a.peep = peep;
+  a.h0 = h0;
+  a.c0 = c0;
+  a.mask = mask;
+  a.hs = hs;
+  a.cs = cs;
+  a.stash = stash;
+  a.hx = hx;
+  a.flags = flags;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.nch = (H + kKC - 1) / kKC;
+  a.RG = (B + kRows - 1) / kRows;
+  a.RGB = p[2];
+  a.UGp = p[1] / p[2];
+  return launch(lstm_fwd_kernel, a, p[0], p[1], smem, stream);
 }
 
 // stash [B,T,4H], cs [B,T,H], w [H,4H], peep [3,H], c0 [B,H], mask
-// [B,T], dhs/dcs [B,T,H]; outputs dxg [B,T,4H], dh0/dc0 [B,H], dpeep
-// [3,H]; scratch is [3,B,H].
+// [B,T], dhs/dcs [B,T,H]; outputs dxg [B,T,4H], dh0/dc0 [B,H] and dpart
+// [RG,3,H] (zero-filled; dpeep = its sum over the first axis); carry
+// [2,B,H] is scratch; dgx [2,RG,2,2,nks,32,4] and counters [RG] are
+// zero-filled scratch (RG = ceil(B/32), nks = ceil(2H/8)).
 cudaError_t lstm_bwd(const float* stash, const float* cs, const float* w,
                      const float* peep, const float* c0, const float* mask,
                      const float* dhs, const float* dcs, float* dxg,
-                     float* dh0, float* dc0, float* dpeep, float* scratch,
-                     int B, int T, int H, cudaStream_t stream) {
+                     float* dh0, float* dc0, float* dpart, float* carry,
+                     float* dgx, unsigned* counters, int B, int T, int H,
+                     cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const int blocks = (H + kU - 1) / kU;
-  const size_t smem = bwd_smem(H);
-  cudaError_t e = prepare((const void*)lstm_bwd_kernel, blocks, smem);
+  int p[4];
+  size_t smem;
+  cudaError_t e = plan(1, B, H, p, &smem);
   if (e != cudaSuccess) return e;
-  void* args[] = {&stash, &cs, &w, &peep, &c0, &mask, &dhs, &dcs,
-                  &dxg, &dh0, &dc0, &dpeep, &scratch, &B, &T, &H};
-  e = cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel, blocks,
-                                  kThreads, args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  BwdArgs a;
+  a.stash = stash;
+  a.cs = cs;
+  a.w = w;
+  a.peep = peep;
+  a.c0 = c0;
+  a.mask = mask;
+  a.dhs = dhs;
+  a.dcs = dcs;
+  a.dxg = dxg;
+  a.dh0 = dh0;
+  a.dc0 = dc0;
+  a.dpart = dpart;
+  a.carry = carry;
+  a.dgx = dgx;
+  a.counters = counters;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.nch = (2 * H + kKC - 1) / kKC;
+  a.RG = (B + kRows - 1) / kRows;
+  a.RGB = p[2];
+  a.UGp = p[1] / p[2];
+  return launch(lstm_bwd_kernel, a, p[0], p[1], smem, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Helpers shared by the 3xTF32 tensor-core kernels of this directory
-// (flash_attention.cu's forward, conv1x1_bwd.cu): cp.async copies into
-// shared memory, the 3xTF32 operand split and the m16n8k8 TF32 product.
+// (flash_attention.cu's forward, conv1x1_bwd.cu, lstm_cell.cu): cp.async
+// copies into shared memory, the 3xTF32 operand split and the m16n8k8
+// TF32 product.
 // Sources include it by its relative name; kernels/_build.py hashes it
 // with every source, so an edit here rebuilds them all.
 

@@ -39,8 +39,9 @@ SOURCES = {
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     },
     "lstm_cell": {
-        "lstm_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
-        "lstm_bwd": ([_P] * 13 + [_I] * 3 + [_P], _I),
+        "lstm_fwd": ([_P] * 11 + [_I] * 3 + [_P], _I),
+        "lstm_bwd": ([_P] * 15 + [_I] * 3 + [_P], _I),
+        "lstm_plan": ([_I] * 3 + [_P], _I),
     },
     "gru_cell": {
         "gru_fwd": ([_P] * 7 + [_I] * 3 + [_P], _I),

@@ -22,18 +22,24 @@ gradient); ``peep`` [3, H] peephole weights (w_ic, w_fc, w_oc) or None.
 * a CPU tensor runs the plain versions beside the kernels: the step
   loop :func:`lstm_forward_reference` and :func:`lstm_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
-  not autograd of the forward);
+  not autograd of the forward). Both sum the recurrent product in the
+  kernels' blocking: K in chunks of CHUNK, each STAGE_K slice of a chunk
+  a stage summed apart, the slices' sums added in the kernels' warp
+  order (:func:`_product`), and the backward's two halves of K = 4H
+  apart (:func:`_bwd_product`);
 * a meta tensor returns outputs of the right shape.
 
 ``launches`` counts kernel launches per kernel; plain-version calls do
-not count.
+not count. :func:`launch_plan` reads the kernels' launch plan on the
+card (cluster size, blocks, row groups in flight, exchange bytes).
 """
 
 import torch
 
 __all__ = ["lstm_sequence", "lstm_sequence_reference",
            "lstm_forward_reference", "lstm_backward_reference",
-           "launches", "reset_launches"]
+           "fwd_plan", "bwd_plan", "launch_plan", "launches",
+           "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"lstm_fwd": 0, "lstm_bwd": 0}
@@ -45,19 +51,95 @@ def reset_launches():
 
 
 # ---------------------------------------------------------------------------
+# the kernels' blocking (csrc/lstm_cell.cu), shared with the plain versions
+# ---------------------------------------------------------------------------
+
+#: depth of one stage: the kernels add each stage's tensor-core products
+#: into a fresh accumulator, then into their running sum in float32
+STAGE_K = 32
+#: batch rows of a row group (the kernels' blocks run the cells of 32
+#: rows x 8 units), and the K rows of one exchange chunk (four STAGE_K
+#: slices, one a warp)
+ROWS, CHUNK = 32, 128
+
+
+def fwd_plan(b, h):
+    """``(chunks, row_groups)`` of the forward: h_{t-1} of a row group of
+    ROWS rows is exchanged in ``chunks`` chunks of CHUNK units."""
+    return -(-h // CHUNK), -(-b // ROWS)
+
+
+def bwd_plan(b, h):
+    """``(chunks, row_groups)`` of the backward: each half of dgates_t's
+    4h columns (a block of a pair takes one) in ``chunks`` chunks of
+    CHUNK columns."""
+    return -(-2 * h // CHUNK), -(-b // ROWS)
+
+
+def _stages(w):
+    """A [K, N] right-hand side cut along K as the kernels cut it:
+    [chunks, CHUNK // STAGE_K, STAGE_K, N], zero-padded."""
+    k, n = w.shape
+    nc = -(-k // CHUNK)
+    wp = w.new_zeros((nc * CHUNK, n))
+    wp[:k] = w
+    return wp.reshape(nc, CHUNK // STAGE_K, STAGE_K, n)
+
+
+def _product(x, wst):
+    """x [B, K] @ W in the kernels' order: warp (p, s) takes the chunks
+    of parity p and the STAGE_K slice s of each, and adds its slices'
+    products (each a stage summed apart) in chunk order; the eight warps'
+    sums are added in order (p, then s)."""
+    nc, ns = wst.shape[:2]
+    b, k = x.shape
+    xp = x.new_zeros((b, nc * CHUNK))
+    xp[:, :k] = x
+    part = torch.einsum("bcsk,cskn->scbn", xp.reshape(b, nc, ns, STAGE_K),
+                        wst)
+    tot = None
+    for p in range(2):
+        for s in range(ns):
+            acc = part.new_zeros(part.shape[2:])
+            for c in range(p, nc, 2):
+                acc = acc + part[s, c]
+            tot = acc if tot is None else tot + acc
+    return tot
+
+
+def _bwd_stages(w):
+    """W^T [4H, H] cut as the backward kernel cuts it: its two halves of
+    K = 4H (one a block of a pair), each as _stages cuts it."""
+    h = w.shape[0]
+    wt = w.t()
+    return _stages(wt[:2 * h]), _stages(wt[2 * h:])
+
+
+def _bwd_product(dgates, wst):
+    """dgates W^T in the backward kernel's order: each half's product as
+    _product forms it, half 0's sum first."""
+    h2 = dgates.shape[1] // 2
+    return (_product(dgates[:, :h2], wst[0])
+            + _product(dgates[:, h2:], wst[1]))
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 def lstm_forward_reference(xg, w, h0, c0, mask, peep):
-    """Plain version of the forward kernel: the step loop. ``peep`` is
-    [3, H] (zeros for none). Returns ``(hs, cs, stash)``: [B, T, H],
-    [B, T, H] and the gate activations [B, T, 4H] in gate order."""
+    """Plain version of the forward kernel: the step loop, with the
+    recurrent product summed in the kernel's blocking (_product).
+    ``peep`` is [3, H] (zeros for none). Returns ``(hs, cs, stash)``:
+    [B, T, H], [B, T, H] and the gate activations [B, T, 4H] in gate
+    order."""
     b, t_len, g4 = xg.shape
     h = g4 // 4
     h_prev, c_prev = h0, c0
+    wst = _stages(w)
     hs, cs, stash = [], [], []
     for t in range(t_len):
-        g = xg[:, t] + h_prev @ w
+        g = xg[:, t] + _product(h_prev, wst)
         gi, gc, gf, go = g[:, :h], g[:, h:2 * h], g[:, 2 * h:3 * h], g[:, 3 * h:]
         gi = gi + c_prev * peep[0]
         gf = gf + c_prev * peep[1]
@@ -89,10 +171,12 @@ def lstm_sequence_reference(xg, w, h0, c0, mask, peep=None):
 def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs):
     """Plain version of the backward kernel, step by step from t = T-1
     down: the gate gradients from the stash, c_t, c_{t-1} and the dh/dc
-    carries, then dh_{t-1} = dgates_t W^T + (1 - m) dh. Returns
+    carries, then dh_{t-1} = dgates_t W^T + (1 - m) dh, the product
+    summed in the kernel's blocking (_bwd_product). Returns
     ``(dxg [B, T, 4H], dh0 [B, H], dc0 [B, H], dpeep [3, H])``."""
     b, t_len, g4 = stash.shape
     h = g4 // 4
+    wst = _bwd_stages(w)
     dh_c = stash.new_zeros((b, h))
     dc_c = stash.new_zeros((b, h))
     dp = stash.new_zeros((3, h))
@@ -116,7 +200,7 @@ def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs):
         dgi, dgc, dgf, dgo = m * dgi, m * dgc, m * dgf, m * dgo
         dgates = torch.cat([dgi, dgc, dgf, dgo], dim=-1)
         dxg[:, t] = dgates
-        dh_c = dgates @ w.t() + (1 - m) * dh
+        dh_c = _bwd_product(dgates, wst) + (1 - m) * dh
         dc_c = m * dc_prev + (1 - m) * dc_in
         dp[0] += (dgi * c_prev).sum(0)
         dp[1] += (dgf * c_prev).sum(0)
@@ -152,6 +236,37 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def launch_plan(kind, b, h, device=None):
+    """The card's launch plan of ``"lstm_fwd"`` or ``"lstm_bwd"`` at
+    (b, h), from the kernels' own rule (``lstm_plan`` in the source):
+    the cluster size, the blocks, the row groups in flight (1 for the
+    forward), the exchange rounds a step, and the bytes a step that L2
+    sends to shared memory for the exchange (each chunk once a cluster)
+    beside what it would send to each block alone."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.load("lstm_cell")
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        rc = lib.lstm_plan(0 if kind == "lstm_fwd" else 1, b, h,
+                           ctypes.addressof(out))
+    _raise_on(rc, "lstm_plan")
+    cluster, blocks, rows, rounds = list(out)
+    per = blocks // rows                  # blocks of a row group
+    if kind == "lstm_fwd":
+        # every block of a row group reads its whole h_{t-1}
+        _, rg = fwd_plan(b, h)
+        tile = ROWS * h * 4
+    else:
+        # each block of a pair reads one half of its row group's dgates_t
+        _, rg = bwd_plan(b, h)
+        tile = ROWS * 2 * h * 4
+    return dict(cluster=cluster, blocks=blocks, rows_in_flight=rows,
+                rounds=rounds, exchange_bytes=rg * per * tile)
+
+
 def _fwd_cuda(xg, w, h0, c0, mask, peep):
     from paddle_tpu_torch.kernels import _build
 
@@ -167,15 +282,19 @@ def _fwd_cuda(xg, w, h0, c0, mask, peep):
     hs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
     cs = torch.empty_like(hs)
     stash = torch.empty_like(xg)
-    # h_t, unit-major, batch rounded up to the kernel's 64-row tiles;
-    # the padding rows stay zero
-    bp = -(-b // 64) * 64
-    hbuf = torch.zeros((2, h, bp), dtype=torch.float32, device=dev)
+    # the exchange of h_t, two buffers of chunk-major tiles, and the
+    # counters the blocks publish them with; zero-filled: padding rows
+    # and units stay zero
+    nc, rg = fwd_plan(b, h)
+    hx = torch.zeros((2, rg, 2, -(-h // 8), 32, 4), dtype=torch.float32,
+                     device=dev)
+    flags = torch.zeros((rg, nc), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.lstm_fwd(xg.data_ptr(), w.data_ptr(), peep.data_ptr(),
                           h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
                           hs.data_ptr(), cs.data_ptr(), stash.data_ptr(),
-                          hbuf.data_ptr(), b, t_len, h, _stream(dev))
+                          hx.data_ptr(), flags.data_ptr(), b, t_len, h,
+                          _stream(dev))
     _raise_on(rc, "lstm_fwd")
     launches["lstm_fwd"] += 1
     return hs, cs, stash
@@ -199,17 +318,24 @@ def _bwd_cuda(stash, cs, w, peep, c0, mask, dhs, dcs):
     # zero-filled: a sequence of no steps leaves them untouched
     dh0 = torch.zeros((b, h), dtype=torch.float32, device=dev)
     dc0 = torch.zeros_like(dh0)
-    dpeep = torch.zeros((3, h), dtype=torch.float32, device=dev)
-    scratch = torch.empty((3, b, h), dtype=torch.float32, device=dev)
+    nc, rg = bwd_plan(b, h)
+    # dpeep's sums a row group in flight (at most all of them), added
+    # below in a fixed order
+    dpart = torch.zeros((rg, 3, h), dtype=torch.float32, device=dev)
+    carry = torch.empty((2, b, h), dtype=torch.float32, device=dev)
+    dgx = torch.zeros((2, rg, 2, 2, -(-2 * h // 8), 32, 4),
+                      dtype=torch.float32, device=dev)
+    counters = torch.zeros((rg,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.lstm_bwd(stash.data_ptr(), cs.data_ptr(), w.data_ptr(),
                           peep.data_ptr(), c0.data_ptr(), mask.data_ptr(),
                           dhs.data_ptr(), dcs.data_ptr(), dxg.data_ptr(),
-                          dh0.data_ptr(), dc0.data_ptr(), dpeep.data_ptr(),
-                          scratch.data_ptr(), b, t_len, h, _stream(dev))
+                          dh0.data_ptr(), dc0.data_ptr(), dpart.data_ptr(),
+                          carry.data_ptr(), dgx.data_ptr(),
+                          counters.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, "lstm_bwd")
     launches["lstm_bwd"] += 1
-    return dxg, dh0, dc0, dpeep
+    return dxg, dh0, dc0, dpart.sum(0)
 
 
 def lstm_forward(xg, w, h0, c0, mask, peep):

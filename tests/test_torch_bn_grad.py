@@ -7,6 +7,7 @@ Tolerance: rtol 1e-4 (atol 1e-4 for the channel sums, 1e-5 for dx), the
 reassociation bound tests/test_passes.py pins: the four sums are taken
 in another order (by tile, by torch's tree, by numpy's pairwise sum)."""
 
+import os
 import warnings
 
 import jax.numpy as jnp
@@ -16,6 +17,13 @@ import torch
 
 from paddle_tpu.kernels import bn_grad as jbn
 from paddle_tpu_torch.kernels import bn_grad as tbn
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 EPS = 1e-5
 

@@ -8,6 +8,7 @@ flag on.
 Tolerances as tests/test_conv1x1_bwd.py pins them: float32 1e-5 (dw
 1e-4 absolute), bfloat16 2e-2 (dw 2e-1 absolute)."""
 
+import os
 import types
 
 import jax.numpy as jnp
@@ -23,6 +24,13 @@ from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lower import TraceContext as TCtx
 from paddle_tpu_torch.kernels import conv1x1_bwd as tk
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 
 @pytest.fixture

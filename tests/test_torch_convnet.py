@@ -35,6 +35,7 @@ both fall at every step). At depth 50 the first step at lr 0.1 sends
 the loss to the cross entropy's clip in both packages."""
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +58,13 @@ from paddle_tpu_torch.kernels import bn_grad as tbn
 from paddle_tpu_torch.kernels import conv1x1_bwd as tk1
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 CPU = tfluid.CPUPlace()
 CIFAR = dict(image_shape=(3, 32, 32), class_dim=10)

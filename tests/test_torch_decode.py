@@ -6,8 +6,11 @@ Tolerances: logits within 1e-4 and caches within 1e-5 (fp32 math in
 another summation order, through 2 layers and a 53-way head); greedy
 tokens identical."""
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
@@ -25,6 +28,13 @@ from paddle_tpu_torch.models.transformer import (
 from paddle_tpu_torch.serving import (BatchTooLarge, Closed, DecodeEngine,
                                       DecodeLoop, Overloaded, SlotAllocator)
 from paddle_tpu_torch.serving.decode import active_loops
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 VOCAB, D_MODEL, N_LAYERS, N_HEADS, MAX_LEN = 53, 32, 2, 4, 32
 SIZE = dict(d_model=D_MODEL, num_layers=N_LAYERS, num_heads=N_HEADS,

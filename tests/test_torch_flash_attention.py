@@ -12,6 +12,8 @@ The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 """
 
+import os
+
 import importlib
 
 import numpy as np
@@ -21,6 +23,13 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 # the module (paddle_tpu.kernels re-exports a function of the same name)
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")

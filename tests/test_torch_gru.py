@@ -13,6 +13,7 @@ position 0 of every row shorter than the batch's longest; the port
 gathers instead. Ragged reverse cases compare everywhere else, and
 ``test_reverse_short_rows_keep_position_0`` shows the difference."""
 
+import os
 import types
 
 import jax
@@ -32,6 +33,13 @@ from paddle_tpu_torch.kernels import gru_cell as tcell
 
 import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
 import paddle_tpu_torch.ops  # noqa: F401
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 
 def _setup(T=6, B=8, H=32, seed=0):

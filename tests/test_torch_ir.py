@@ -10,6 +10,7 @@ import json
 import os
 
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
@@ -28,6 +29,13 @@ from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.models import seq2seq as tseq2seq
 from paddle_tpu_torch.models import stacked_lstm as tstacked
 from paddle_tpu_torch.models import transformer as ttransformer
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "goldens")

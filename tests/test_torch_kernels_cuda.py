@@ -13,6 +13,8 @@ card has no jax), so run it there without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import os
+
 import pytest
 import torch
 
@@ -20,6 +22,13 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import bn_grad as kbn
 from paddle_tpu_torch.kernels import conv1x1_bwd as k1
 from paddle_tpu_torch.kernels import gru_cell, lstm_cell
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 
 @pytest.fixture
@@ -145,7 +154,7 @@ def _lstm_inputs(B, T, H, peep, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("peep", [True, False])
 @pytest.mark.parametrize("shape", [(8, 5, 32), (64, 80, 512), (37, 17, 128),
-                                   (70, 6, 40)])
+                                   (70, 6, 40), (1, 7, 512), (128, 9, 512)])
 def test_cuda_lstm_matches_plain(cuda, shape, peep):
     xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(*shape, peep, 2, cuda)
     n = dict(lstm_cell.launches)
@@ -162,6 +171,37 @@ def test_cuda_lstm_matches_plain(cuda, shape, peep):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert lstm_cell.launches == {"lstm_fwd": n["lstm_fwd"] + 1,
                                   "lstm_bwd": n["lstm_bwd"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 80, 512), (200, 4, 64)])
+def test_cuda_lstm_two_runs_agree_to_the_bit(cuda, shape):
+    """No float atomics: every sum of both kernels has a fixed order."""
+    xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(*shape, True, 5, cuda)
+    runs = []
+    for _ in range(2):
+        hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+        runs.append((hs, cs, stash) + lstm_cell.lstm_backward(
+            stash, cs, w, p, c0, mask, dhs, dcs))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_launch_plan(cuda):
+    """At the path's shape both kernels run both row groups at once on
+    128 resident blocks; B4's blocks pair up in clusters of two."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    fwd = lstm_cell.launch_plan("lstm_fwd", 64, 512, cuda)
+    bwd = lstm_cell.launch_plan("lstm_bwd", 64, 512, cuda)
+    assert (fwd["cluster"], fwd["blocks"], fwd["rounds"]) == (1, 128, 1)
+    assert (bwd["cluster"], bwd["blocks"], bwd["rounds"]) == (2, 128, 1)
+    assert fwd["blocks"] <= sms and bwd["blocks"] <= sms
+    # each block reads its row group's h_{t-1} (32 x 512) and each block
+    # of a pair half its row group's dgates_t (32 x 1024)
+    assert fwd["exchange_bytes"] == 128 * 32 * 512 * 4
+    assert bwd["exchange_bytes"] == 128 * 32 * 1024 * 4
 
 
 @pytest.mark.cuda

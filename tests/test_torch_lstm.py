@@ -13,6 +13,7 @@ position 0 of every row shorter than the batch's longest; the port
 gathers instead. Ragged reverse cases compare everywhere else, and
 ``test_reverse_short_rows_keep_position_0`` shows the difference."""
 
+import os
 import types
 
 import jax
@@ -32,6 +33,13 @@ from paddle_tpu_torch.kernels import lstm_cell as tcell
 
 import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
 import paddle_tpu_torch.ops  # noqa: F401
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 
 def _setup(T=6, B=8, H=32, seed=0, peep=True):
@@ -242,3 +250,128 @@ def test_reverse_short_rows_keep_position_0():
     ok = np.ones((2, 5), bool)
     ok[1, 0] = False
     np.testing.assert_allclose(jhs[ok], want[ok], rtol=1e-5, atol=1e-6)
+
+
+# ---- the kernels' blocking and their arithmetic on the tensor cores ----
+
+@pytest.mark.parametrize("k,n", [(8, 32), (36, 144), (128, 512), (300, 40),
+                                 (528, 64)])
+def test_blocked_products_are_the_plain_products(k, n):
+    """The plain versions' products, summed in the kernels' order (chunks
+    of CHUNK, STAGE_K slices, warps by chunk parity), are the plain
+    products: in float64 they agree to rounding."""
+    rng = np.random.RandomState(k)
+    x = torch.from_numpy(rng.randn(5, k))
+    w = torch.from_numpy(rng.randn(k, n))
+    torch.testing.assert_close(tcell._product(x, tcell._stages(w)), x @ w,
+                               rtol=1e-12, atol=1e-12)
+    h = n // 4
+    wt = torch.from_numpy(rng.randn(h, 4 * h))
+    dg = torch.from_numpy(rng.randn(5, 4 * h))
+    torch.testing.assert_close(
+        tcell._bwd_product(dg, tcell._bwd_stages(wt)), dg @ wt.t(),
+        rtol=1e-12, atol=1e-12)
+
+
+def test_plans_cut_the_path_shape_into_chunks_and_row_groups():
+    # [64, 80, 512]: h_{t-1} in 4 chunks of 128 units, dgates_t in two
+    # halves of 8 chunks; two row groups of 32 rows
+    assert tcell.fwd_plan(64, 512) == (4, 2)
+    assert tcell.bwd_plan(64, 512) == (8, 2)
+    assert tcell.fwd_plan(1, 40) == (1, 1)
+    assert tcell.bwd_plan(70, 40) == (1, 3)
+
+
+def _tf32(x):
+    """float32 cut to TF32's 10 mantissa bits (csrc/tf32x3.cuh's split)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _rz32(v):
+    """float64 to float32 rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, (f.view(torch.int32) - 1).view(torch.float32),
+                       f)
+
+
+def _tensor_core_product(x, w, stages=True):
+    """x [B, K] @ w [K, N] with a model of the kernels' 3xTF32 product on
+    the tensor cores: each operand split into big = tf32(v) and small =
+    tf32(v - big); each m16n8k8 product (8 deep) added to its accumulator
+    with rounding toward zero, as the card's accumulation drifts. With
+    ``stages``, as the kernels form it: big*big and the two small cross
+    products of each 32-deep stage in fresh accumulators, the stage's sum
+    added to the warp's in float32, the warps' sums added in order (the
+    order of tcell._product). Without, one chain over all of K."""
+    b, k = x.shape
+    nc = -(-k // tcell.CHUNK)
+    xp = torch.zeros(b, nc * tcell.CHUNK)
+    xp[:, :k] = x
+    wp = torch.zeros(nc * tcell.CHUNK, w.shape[1])
+    wp[:k] = w
+    xb, wb = _tf32(xp), _tf32(wp)
+    xs, ws = _tf32(xp - xb), _tf32(wp - wb)
+    xb, xs, wb, ws = (t.double() for t in (xb, xs, wb, ws))
+    zero = torch.zeros(b, w.shape[1])
+    tot, chain = None, zero
+    for p in range(2):
+        for s in range(tcell.CHUNK // tcell.STAGE_K):
+            acc = zero
+            for c in range(p, nc, 2):
+                k0 = c * tcell.CHUNK + s * tcell.STAGE_K
+                big, cross = zero, zero
+                for j in range(k0, k0 + tcell.STAGE_K, 8):
+                    sl = slice(j, j + 8)
+                    if stages:
+                        cross = _rz32(cross.double() + xs[:, sl] @ wb[sl])
+                        cross = _rz32(cross.double() + xb[:, sl] @ ws[sl])
+                        big = _rz32(big.double() + xb[:, sl] @ wb[sl])
+                    else:
+                        for u, v in ((xs, wb), (xb, ws), (xb, wb)):
+                            chain = _rz32(chain.double() + u[:, sl] @ v[sl])
+                acc = acc + (big + cross)
+            tot = acc if tot is None else tot + acc
+    return tot if stages else chain
+
+
+def _lstm_hs(xg, w, h0, c0, product):
+    h, c, hs = h0, c0, []
+    for t in range(xg.shape[1]):
+        i, gc, f, o = (xg[:, t] + product(h, w)).chunk(4, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gc)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+def test_tensor_core_lstm_stays_within_the_lstm_tolerance():
+    """Why the kernels sum each 32-deep stage apart: an LSTM over 20 steps
+    at K = H = 512, its recurrent product modelled as the card forms it
+    (3xTF32, the tensor core's accumulation rounding toward zero), keeps
+    hs as close to float64 as float32 products do, inside the kernels'
+    tolerance (atol 1e-5, rtol 1e-4); one chain over all of K drifts
+    several times further, and one TF32 product per term leaves the
+    tolerance."""
+    rng = np.random.RandomState(0)
+    B, T, H = 8, 20, 512
+    xg = torch.from_numpy(rng.randn(B, T, 4 * H).astype(np.float32) * 0.5)
+    w = torch.from_numpy(rng.randn(H, 4 * H).astype(np.float32) * H ** -0.5)
+    h0 = torch.from_numpy(rng.randn(B, H).astype(np.float32) * 0.1)
+    c0 = torch.from_numpy(rng.randn(B, H).astype(np.float32) * 0.1)
+    truth = _lstm_hs(xg.double(), w.double(), h0.double(), c0.double(),
+                     lambda a, b: a @ b)
+
+    def err(hs):
+        e = (hs.double() - truth).abs()
+        return float(e.max()), bool((e <= 1e-5 + 1e-4 * truth.abs()).all())
+
+    fp32, _ = err(_lstm_hs(xg, w, h0, c0, lambda a, b: a @ b))
+    staged, staged_ok = err(_lstm_hs(xg, w, h0, c0, _tensor_core_product))
+    chain, _ = err(_lstm_hs(xg, w, h0, c0, lambda a, b: _tensor_core_product(
+        a, b, stages=False)))
+    _, one_ok = err(_lstm_hs(xg, w, h0, c0,
+                             lambda a, b: _tf32(a) @ _tf32(b)))
+    assert staged_ok and staged < 4 * fp32
+    assert chain > 4 * staged
+    assert not one_ok

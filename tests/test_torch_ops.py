@@ -3,6 +3,8 @@ same op, on identical numpy inputs (tolerance 1e-5 for float results:
 fp32 math in another summation order; integer and shape results exact).
 The three ``fused_attention`` modes also compare the updated caches."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,13 @@ from paddle_tpu.core import registry as jreg
 from paddle_tpu.core.lower import TraceContext as JCtx
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lower import TraceContext as TCtx
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 TOL = 1e-5
 

@@ -15,10 +15,12 @@ residual branches, for the same reason)."""
 
 import collections
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
@@ -35,6 +37,13 @@ from paddle_tpu_torch.core import executor as texecutor
 from paddle_tpu_torch.kernels import bn_grad as tbn
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 CPU = tfluid.CPUPlace()
 CIFAR = dict(image_shape=(3, 32, 32), class_dim=10)

@@ -14,8 +14,11 @@ shorter source row the JAX package's reverse GRU leaves position 0 at 0
 decoder's initial state. Ragged sources are held against a numpy step
 reference instead."""
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
@@ -27,6 +30,13 @@ from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.kernels import gru_cell
 from paddle_tpu_torch.models import seq2seq as tseq
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 CPU = tfluid.CPUPlace()
 # tools/goldens.py's size

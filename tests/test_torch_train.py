@@ -8,8 +8,11 @@ Tolerances: losses of 3 Adam steps within rtol 1e-5 and the first
 step's parameter gradients within rtol 1e-4, atol 1e-6 (fp32 math in
 another summation order; XLA fuses and reorders the JAX side)."""
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
@@ -21,6 +24,13 @@ from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.kernels import lstm_cell
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import stacked_lstm as tlstm
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 CPU = tfluid.CPUPlace()
 SMALL = dict(dict_dim=100, emb_dim=16, hid_dim=16)

@@ -8,6 +8,8 @@ Tolerance 1e-5 (abs and rel) for forward floats, 1e-4 rel with 1e-6 abs
 for gradients (fp32 math in another summation order); integer results
 exact by value (JAX records int64 as int32 with x64 off)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,13 @@ from paddle_tpu.core.lower import TraceContext as JCtx
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lower import PackedSeq as TSeq
 from paddle_tpu_torch.core.lower import TraceContext as TCtx
+
+# Under pytest-xdist each worker takes its share of the cores for
+# torch's intra-op threads: six workers at torch's default thread count
+# oversubscribe the cores, and a test of seconds then takes minutes.
+_WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+if _WORKERS:
+    torch.set_num_threads(max(1, os.cpu_count() // int(_WORKERS)))
 
 LENS = np.array([4, 1, 0, 3], np.int32)   # B=4, T=4
 
