@@ -31,15 +31,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc``, one nvcc per
    source, all started together, and read from the built libraries that
-   the flash-attention forward, the fused 1x1 backward and the LSTM
-   forward and backward run on the tensor cores (HMMA) fed by
-   asynchronous copies (LDGSTS, or the TMA's), with no spills;
+   the flash-attention forward, the fused 1x1 backward, the LSTM forward
+   and backward and the GRU forward run on the tensor cores (HMMA) fed
+   by asynchronous copies (LDGSTS, or the TMA's), and that the decode
+   kernel moves 16-byte words, all with no spills;
 3. hold each kernel against its plain PyTorch version on the card (the
-   fused 1x1 backward at every distinct shape of the ResNet-50 path, as
-   derived from the program, also against float64, and its float32 dw
-   error against float64 by the length of its dw chunks; the LSTM
-   kernels also against float64 at T = 20, 40 and 80, beside their
-   float32 plain versions, and run twice to the same bits);
+   decode kernel at head_dim 32, 64 and 128 and lengths around its
+   chunks' and tiles' edges, on a cache on 4-byte boundaries, with NaN
+   past the lengths, and twice to the same bits; the fused 1x1 backward
+   at every distinct shape of the ResNet-50 path, as derived from the
+   program, also against float64, and its float32 dw error against
+   float64 by the length of its dw chunks; the LSTM kernels also against
+   float64 at T = 20, 40 and 80 and the GRU forward at T = 10, 20 and
+   30, beside their float32 plain versions, and run twice to the same
+   bits);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -60,10 +65,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, and the card against the CPU, and A against B again, at the
    ``resnet_cifar`` size (32x32, 10 classes, batch 8);
 8. time each kernel, its plain version and one PyTorch library call at
-   the main paths' shapes with CUDA events (the flash-attention forward
-   at six shapes, the fused 1x1 backward at every distinct shape of the
-   ResNet-50 path, the LSTM kernels at T = 8 and 80 for their cost a
-   step, with their launch plan), and profile the decode step;
+   the main paths' shapes with CUDA events (the decode kernel at lengths
+   512 and 160, the L2 flushed by a write and by a read, beside SDPA
+   over the valid prefix and the masked call over the whole cache; the
+   flash-attention forward at six shapes, the fused 1x1 backward at
+   every distinct shape of the ResNet-50 path, the LSTM kernels at T = 8
+   and 80 and the GRU forward at T = 3 and 30 for their cost a step,
+   with their launch plans), and profile the decode step;
 9. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -112,6 +120,10 @@ S2S_B, S2S_T, S2S_MIN = 64, 30, 8
 S2S_XCHECK = dict(src_vocab=1000, tgt_vocab=1000, emb_dim=128,
                   hidden_dim=128)
 S2S_XCHECK_B, S2S_XCHECK_T = 16, 12
+# sequence lengths at which B5 is held against float64, and the short
+# one it is also timed at, for its cost a step
+GRU_WITNESS_T = (10, 20, 30)
+GRU_SHORT_T = 3
 
 # full width: ResNet-50 as the reference benchmarks it (batch 64)
 RESNET = dict(image_shape=(3, 224, 224), class_dim=1000, depth=50, lr=0.1)
@@ -216,17 +228,23 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-# B1, B3, B4 and B8 run on the tensor cores fed by asynchronous copies:
-# (library, kernel function). cp.async shows as LDGSTS in the SASS; the
-# TMA's copies (UTMALDG, UBLKCP) count as well. The bfloat16 B8 whose rows
-# start on 2-byte boundaries stages through registers (cp.async copies 4
-# bytes or more).
+# B1, B3, B4, B5 and B8 run on the tensor cores fed by asynchronous
+# copies: (library, kernel function). cp.async shows as LDGSTS in the
+# SASS; the TMA's copies (UTMALDG, UBLKCP) count as well. The bfloat16 B8
+# whose rows start on 2-byte boundaries stages through registers
+# (cp.async copies 4 bytes or more).
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
                        ("conv1x1_bwd", "conv1x1_bwd_kernel"),
                        ("lstm_cell", "lstm_fwd_kernel"),
-                       ("lstm_cell", "lstm_bwd_kernel"))
+                       ("lstm_cell", "lstm_bwd_kernel"),
+                       ("gru_cell", "gru_fwd_kernel"))
+# B2 is bound by bytes and has no product for the tensor cores: its SASS
+# must move 16-byte words (LDGSTS of 16 bytes, or LDG.E.128)
+WIDE_LOAD_KERNELS = (("flash_attention", "flash_decode_kernel"),)
 SYNC_STAGED = "13__nv_bfloat16Li1E"
 ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
+# an LDGSTS or LDG with the .128 (16-byte) modifier
+WIDE_LOAD = re.compile(r"\b(LDGSTS|LDG)(\.[A-Z0-9_]+)*\.128\b")
 
 
 def sass_check(build):
@@ -234,9 +252,11 @@ def sass_check(build):
     stack and local memory from the built library, and its SASS's HMMA
     (tensor-core) instructions, asynchronous copies (ASYNC_COPIES) and
     local-memory loads and stores (spills). Fails where a kernel has no
-    HMMA, no asynchronous copy (but SYNC_STAGED), or spills."""
+    HMMA, no asynchronous copy (but SYNC_STAGED), or spills. The kernels
+    of WIDE_LOAD_KERNELS must have 16-byte loads instead of HMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, kernel in TENSOR_CORE_KERNELS:
+    for lib, kernel in TENSOR_CORE_KERNELS + WIDE_LOAD_KERNELS:
+        wide = (lib, kernel) in WIDE_LOAD_KERNELS
         path = build._target(lib)[1]
         res = subprocess.run([tool, "--dump-resource-usage", path],
                              check=True, capture_output=True, text=True,
@@ -251,22 +271,29 @@ def sass_check(build):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = [0, 0, 0]
+                counts[fn] = [0, 0, 0, 0]
             elif fn is not None:
                 counts[fn][0] += "HMMA" in line
                 counts[fn][1] += any(op in line for op in ASYNC_COPIES)
                 counts[fn][2] += bool(re.search(r"\b(LDL|STL)\b", line))
+                counts[fn][3] += bool(WIDE_LOAD.search(line))
         mine = sorted(f for f in counts if kernel in f)
         if not mine:
             raise AssertionError("%s: no %s in its SASS" % (path, kernel))
         for f in mine:
-            hmma, copies, local = counts[f]
+            hmma, copies, local, wide16 = counts[f]
             use = usage.get(f, "REG:? STACK:? SHARED:? LOCAL:?")
-            print("sass %s: %s; HMMA %d, asynchronous copies %d, local "
-                  "loads/stores %d" % (f, use, hmma, copies, local))
-            if hmma == 0 or (copies == 0 and SYNC_STAGED not in f) \
-                    or local or "STACK:0 " not in use \
-                    or not use.endswith("LOCAL:0"):
+            print("sass %s: %s; HMMA %d, asynchronous copies %d, 16-byte "
+                  "loads %d, local loads/stores %d" % (
+                      f, use, hmma, copies, wide16, local))
+            spills = local or "STACK:0 " not in use \
+                or not use.endswith("LOCAL:0")
+            if wide:
+                if wide16 == 0 or spills:
+                    raise AssertionError("%s: no 16-byte loads, or spills"
+                                         % f)
+            elif hmma == 0 or (copies == 0 and SYNC_STAGED not in f) \
+                    or spills:
                 raise AssertionError("%s: not a spill-free tensor-core "
                                      "kernel fed by asynchronous copies" % f)
 
@@ -474,6 +501,55 @@ def gru_inputs(B, T, H, g, dev, ragged=True):
     return [t.to(dev) for t in (xg, w, h0, mask, dhs)]
 
 
+def check_decode(fa, g, dev):
+    """B2 against its plain version at the decode path's [16, 8, 512, d]
+    for d = 32, 64, 128: lengths 0, 1, around the first non-empty chunks
+    (n - 1, n, n + 1 for the plan's n blocks a row), around one tile a
+    warp in every chunk (n 32 +- 1), 160, 300, 511, 512 and past the
+    cache (clamped); once more on a cache that starts 4 bytes into its
+    storage (the 4-byte copies), once with NaN in every position past
+    each row's length (never read: the output must not change), and
+    twice to the same bits; an empty row is 0. Returns the max abs err."""
+    b, h, s = SLOTS, N_HEADS, MAX_LEN
+    worst = 0.0
+    for d in (32, 64, 128):
+        pl = fa.decode_plan(b, h, s, d, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        n = pl["blocks_per_row"]
+        lens = torch.tensor([0, 1, n - 1, n, n + 1, 32 * n - 1, 32 * n,
+                             32 * n + 1, 159, 160, 161, 300, 511, 512, 600,
+                             2], dtype=torch.int32).to(dev)
+        q = torch.randn(b, h, 1, d, generator=g).to(dev)
+        kc, vc = (torch.randn(b, h, s, d, generator=g).to(dev)
+                  for _ in range(2))
+        what = "flash_decode %s lens %s" % ((b, h, s, d), lens.tolist())
+        out = fa.flash_decode(q, kc, vc, lens)
+        worst = max(worst, assert_close(
+            what, out, fa.flash_decode_reference(q, kc, vc, lens)))
+        if not torch.equal(out, fa.flash_decode(q, kc, vc, lens)):
+            raise AssertionError(what + ": two runs differ")
+        if float(out[0].abs().max()) != 0.0:
+            raise AssertionError("flash_decode: an empty cache row is not 0")
+        flat = torch.randn(1 + b * h * s * d, generator=g).to(dev)
+        kv = flat[1:].view(b, h, s, d)
+        worst = max(worst, assert_close(
+            what + " 4-byte aligned cache", fa.flash_decode(q, kv, kv, lens),
+            fa.flash_decode_reference(q, kv, kv, lens)))
+        for i, n_ in enumerate(lens.tolist()):
+            kc[i, :, n_:] = float("nan")
+            vc[i, :, n_:] = float("nan")
+        if not torch.equal(fa.flash_decode(q, kc, vc, lens), out):
+            raise AssertionError(what + ": NaN past the lengths changed "
+                                 "the output")
+        print("flash_decode d=%d: %s; %d blocks a row in clusters, %d "
+              "threads, %d stages a warp, %d shared bytes a block; max abs "
+              "err %.3g; two runs bit-identical; NaN past the lengths never "
+              "read" % (d, lens.tolist(), n, pl["threads"], pl["stages"],
+                        pl["smem_bytes"], worst))
+    torch.cuda.synchronize()
+    return worst
+
+
 def check_gru(gc, g, dev):
     """B5 and B6 against their plain versions: hs and the stash; dxg, dW
     (through the GEMMs outside the kernel) and dh0. Returns the max abs
@@ -509,6 +585,60 @@ def check_gru(gc, g, dev):
                 err["gru_bwd"] = max(err["gru_bwd"], e)
     torch.cuda.synchronize()
     return err, dw_err
+
+
+def gru_witness(gc, g, dev):
+    """B5 at the path's width against float64, beside its float32 plain
+    version, at T = GRU_WITNESS_T: the largest error of hs and of the
+    stash against the float64 plain version, hard at B5's tolerances,
+    and the kernel's error may not grow more than twofold from the
+    shortest T to the longest. Then two runs of B5, and of B6 on B5's
+    stash, at the path's shape must agree to the bit, and B6 must hold
+    its tolerances on B5's stash."""
+    errs = {}
+    for T in GRU_WITNESS_T:
+        xg, w, h0, mask, _ = gru_inputs(S2S_B, T, S2S["hidden_dim"], g, dev)
+        ths, tst = gc.gru_forward_reference(
+            *(t.double() for t in (xg, w, h0, mask)))
+        line = []
+        for label, fwd in (("kernel", gc.gru_forward),
+                           ("plain", gc.gru_forward_reference)):
+            hs, st = fwd(xg, w, h0, mask)
+            e = [float((hs.double() - ths).abs().max()),
+                 float((st.double() - tst).abs().max())]
+            line.append("%s hs %.3g stash %.3g" % (label, e[0], e[1]))
+            if label == "kernel":
+                errs[T] = max(e)
+                assert_close("gru float64 T=%d hs" % T, hs.double(), ths,
+                             LSTM_ATOL, LSTM_RTOL)
+                assert_close("gru float64 T=%d stash" % T, st.double(), tst,
+                             LSTM_ATOL, LSTM_RTOL)
+        print("gru against float64 at [%d,%d,%d]: %s" % (
+            S2S_B, T, S2S["hidden_dim"], "; ".join(line)))
+    t0, t1 = GRU_WITNESS_T[0], GRU_WITNESS_T[-1]
+    print("gru: the kernel's error against float64 from T=%d to T=%d: "
+          "%.3g -> %.3g (x%.2f)" % (t0, t1, errs[t0], errs[t1],
+                                    errs[t1] / errs[t0]))
+    if errs[t1] > 2 * errs[t0]:
+        raise AssertionError("gru: B5's error against float64 grows more "
+                             "than twofold from T=%d to T=%d" % (t0, t1))
+    xg, w, h0, mask, dhs = gru_inputs(S2S_B, S2S_T, S2S["hidden_dim"], g,
+                                      dev)
+    runs = []
+    for _ in range(2):
+        hs, st = gc.gru_forward(xg, w, h0, mask)
+        runs.append((hs, st) + gc.gru_backward(st, hs, w, h0, mask, dhs))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("gru: two runs of the kernels differ")
+    hs, st, dxg, dh0 = runs[0]
+    want = gc.gru_backward_reference(st, hs, w, h0, mask, dhs)
+    for name, a, b in (("dxg", dxg, want[0]), ("dh0", dh0, want[1])):
+        assert_close("gru B6 on B5's stash %s" % name, a, b,
+                     LSTM_ATOL * max(1.0, float(b.abs().max())), LSTM_RTOL)
+    print("gru: two runs of B5 and B6 at [%d,%d,%d] agree to the bit; B6 "
+          "on B5's stash holds its tolerances" % (S2S_B, S2S_T,
+                                                 S2S["hidden_dim"]))
 
 
 def stacked_lstm_batch(rng, B, T, min_len, dict_dim):
@@ -1310,22 +1440,13 @@ def main():
                 max_err["flash_attention"] = max(
                     max_err["flash_attention"], e)
     torch.cuda.synchronize()
-    b, h, s, d = SLOTS, N_HEADS, MAX_LEN, D_MODEL // N_HEADS
-    q, kc, vc = randn(b, h, 1, d), randn(b, h, s, d), randn(b, h, s, d)
-    lens = torch.tensor([0, 1, 127, 128, 129, 300, 512] * 3,
-                        dtype=torch.int32)[:b].to(dev)
-    max_err["flash_decode"] = assert_close(
-        "flash_decode %s lens %s" % ((b, h, s, d), lens.tolist()),
-        fa.flash_decode(q, kc, vc, lens),
-        fa.flash_decode_reference(q, kc, vc, lens))
-    if float(fa.flash_decode(q, kc, vc, lens)[0].abs().max()) != 0.0:
-        raise AssertionError("flash_decode: an empty cache row is not 0")
-    torch.cuda.synchronize()
+    max_err["flash_decode"] = check_decode(fa, g, dev)
     lstm_err, dw_err = check_lstm(lc, g, dev)
     max_err.update(lstm_err)
     lstm_witness(lc, g, dev)
     gru_err, gru_dw_err = check_gru(gc, g, dev)
     max_err.update(gru_err)
+    gru_witness(gc, g, dev)
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
     # B8 at every distinct shape the config-B program gives it
     with unique_name.guard():
@@ -1459,26 +1580,52 @@ def main():
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
           "bn_grad and conv1x1_bwd)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flush_sum = torch.empty((), device=dev)
 
     def flush():
         flush_buf.zero_()
+
+    def clean_flush():
+        # the L2 flushed by a read: clean lines, which the kernel's reads
+        # need not write back first (as most of the decode step's are)
+        torch.sum(flush_buf, dim=0, out=flush_sum)
 
     rows = []
     kv_shape = (SLOTS, N_HEADS, MAX_LEN, D_MODEL // N_HEADS)
     kc, vc = randn(*kv_shape), randn(*kv_shape)
     q1 = randn(SLOTS, N_HEADS, 1, kv_shape[3])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("flash_decode launch plan at %s: %s" % (
+        list(kv_shape), json.dumps(fa.decode_plan(*kv_shape, sms))))
     for L in (MAX_LEN, 160):
         lens = torch.full((SLOTS,), L, dtype=torch.int32, device=dev)
         mask = (torch.arange(MAX_LEN, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
+        kp, vp = kc[:, :, :L], vc[:, :, :L]
         bh, dh = SLOTS * N_HEADS, kv_shape[3]
+        print("time flash_decode [16,8,512,64] cache_len=%d with the L2 "
+              "flushed by a read: kernel_ms %.6f library_ms %.6f (SDPA "
+              "over the valid prefix)" % (
+                  L, time_ms(lambda: fa.flash_decode(q1, kc, vc, lens),
+                             flush=clean_flush),
+                  time_ms(lambda: F.scaled_dot_product_attention(q1, kp, vp),
+                          flush=clean_flush)))
         rows.append(dict(
             name="flash_decode", shape="[16,8,512,64] cache_len=%d" % L,
             ms=time_ms(lambda: fa.flash_decode(q1, kc, vc, lens), flush=flush),
             plain_ms=time_ms(lambda: fa.flash_decode_reference(
                 q1, kc, vc, lens), flush=flush),
+            # every row's length is L here: SDPA over the valid prefix,
+            # unmasked, computes the same function
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q1, kc, vc, attn_mask=mask), flush=flush),
+                q1, kp, vp), flush=flush),
+            library="torch.nn.functional.scaled_dot_product_attention "
+                    "over the valid prefix kc[:, :, :%d], no mask; the "
+                    "masked call over all %d positions (attn_mask of the "
+                    "lengths, any lengths) %.6f ms" % (
+                        L, MAX_LEN, time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q1, kc, vc, attn_mask=mask), flush=flush)),
             bytes=4 * (2 * bh * dh + 2 * bh * L * dh + SLOTS),
             flops=4 * bh * L * dh))
     # B1 at the prefill buckets, the one-shot forward of the 160-token
@@ -1558,9 +1705,27 @@ def main():
         bytes=4 * (2 * B * T * 4 * H + 3 * B * T * H + H * 4 * H + 2 * 3 * H
                    + 3 * B * H + B * T),
         flops=2 * B * T * 4 * H * H, tf32x3=True))
-    # B5 and B6 at the seq2seq path's shape, every step valid
+    # B5 and B6 at the seq2seq path's shape, every step valid; B5 also at
+    # T = GRU_SHORT_T: (t30 - t3) / 27 is a step's cost without the
+    # launch and the blocks' set-up
     B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
-    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged=False)
+    gru_t = {}
+    for T_ in (GRU_SHORT_T, T):
+        xg, w, h0, mask, dhs = gru_inputs(B, T_, H, g, dev, ragged=False)
+        gru_t[T_] = time_ms(lambda: gc.gru_forward(xg, w, h0, mask))
+    pl, card_pl = gc.launch_plan(B, H, sms), gc.card_plan(B, H, dev)
+    if card_pl != {k: pl[k] for k in card_pl}:
+        raise AssertionError("gru launch_plan %s != the kernel's %s"
+                             % (pl, card_pl))
+    print("gru_fwd at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
+          "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); %d blocks of 32 "
+          "rows x %d units, %d row groups in flight, %d shared bytes a "
+          "block; exchange through L2 %d bytes a step" % (
+              B, T, H, gru_t[T], gru_t[T] * 1e3 / T, GRU_SHORT_T,
+              gru_t[GRU_SHORT_T],
+              (gru_t[T] - gru_t[GRU_SHORT_T]) * 1e3 / (T - GRU_SHORT_T), T,
+              GRU_SHORT_T, T - GRU_SHORT_T, pl["blocks"], gc.UNITS,
+              pl["rows_in_flight"], pl["smem_bytes"], pl["exchange_bytes"]))
     hs, stash = gc.gru_forward(xg, w, h0, mask)
     cudnn_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
     x_gru = torch.randn(B, T, H, generator=g).to(dev)
@@ -1576,7 +1741,7 @@ def main():
 
     rows.append(dict(
         name="gru_fwd", shape="[64,30,512], all steps valid",
-        ms=time_ms(lambda: gc.gru_forward(xg, w, h0, mask)),
+        ms=gru_t[T],
         plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
         library_ms=time_ms(cudnn_gru_fwd),
         library="torch.nn.GRU (cuDNN) forward, input size 512: applies r "
@@ -1584,7 +1749,7 @@ def main():
                 "(r * h) W_c, and also does the input GEMM",
         bytes=4 * (2 * B * T * 3 * H + H * 3 * H + B * H + B * T
                    + B * T * H),
-        flops=2 * B * T * H * 3 * H))
+        flops=2 * B * T * H * 3 * H, tf32x3=True))
     rows.append(dict(
         name="gru_bwd", shape="[64,30,512], all steps valid",
         ms=time_ms(lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs)),

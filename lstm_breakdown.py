@@ -1,92 +1,172 @@
-"""Where a step of the LSTM kernels (B3, B4) goes, on one NVIDIA GPU.
+"""Where a step of the LSTM kernels (B3, B4) or of the GRU forward (B5),
+or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
 
-    python3 lstm_breakdown.py
+    python3 lstm_breakdown.py            # B3 and B4 at [64, T, 512]
+    python3 lstm_breakdown.py --gru      # B5 at [64, T, 512]
+    python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
 
-Builds variants of ``paddle_tpu_torch/csrc/lstm_cell.cu`` with one part
-of the step switched off, and times each at [64, T, 512], every step
-valid, at T = 8 and T = 80: (t80 - t8) / 72 is the cost of one step.
-A variant's results are wrong by design; only its time is read. The
-variants:
+Builds variants of a kernel's source under ``paddle_tpu_torch/csrc/``
+(and of the headers it shares) with one part changed or switched off,
+all ``nvcc`` started together, and times each call as the median of
+CUDA events bracketing it behind a spin kernel, as ``chip_smoke.py``
+does. A variant's results are wrong by design where it switches a part
+off; only its time is read.
 
-* ``nowait``: the wait for the other blocks' exchange is skipped;
-* ``nomma``: the tensor-core product is skipped;
-* ``nocell``: B3's cell update is skipped (with ``nowait`` and
+The recurrent kernels (``lstm_cell.cu``, ``gru_cell.cu`` and their
+``rnn_step.cuh``) are timed at [64, T, 512], every step valid, at a
+short and a long T (LSTM 8 and 80, GRU 3 and 30): the difference over
+the difference of T is the cost of one step. Their variants:
+
+* ``nowait``: every wait for the other blocks' exchange is skipped (for
+  B5 also ``nowait_h``, only the wait for h_{t-1} before the u, r
+  product, and ``nowait_rh``, only the wait for r h_{t-1} before the
+  candidate's);
+* ``nomma``: the tensor-core products are skipped;
+* ``nocell``: the cell updates are skipped (with ``nowait`` and
   ``nomma``);
 * ``nofence``: the release fence before a block's counter is skipped.
 
 The difference of a variant's step from the kernels' own is what that
-part costs on the step's chain. Needs a card and ``nvcc``; builds into
-``build/lstm_breakdown/``.
+part costs on the step's chain.
+
+The decode kernel (``flash_attention.cu``) is timed at the serving
+path's [16, 8, 512, 64] with every row's length 0, 160 and 512, three
+ways: the 50 MB L2 flushed by writing a 256 MB buffer before each call
+(it then holds dirty lines that the kernel's reads must first write
+back: how ``chip_smoke.py``'s kernel table times B2), flushed by reading
+it (clean lines), and warm (the cache already in L2). Its variants:
+
+* ``stages4``: 4 ring stages a warp instead of 2;
+* ``n1``, ``n4``: 1 (no split) or 4 blocks a row instead of the plan's;
+* ``noload``: no key is copied (the walk reads what shared memory
+  holds);
+* ``nomerge``: no cluster barrier and no merge: each warp writes its
+  own partial to the output;
+* ``empty``: every block returns at once (launch and scheduling only).
+
+Also the events alone (no kernel between them) and
+``F.scaled_dot_product_attention`` over the valid prefix. Needs a card
+and ``nvcc``; builds into ``build/lstm_breakdown/``.
 """
 
+import argparse
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from paddle_tpu_torch.kernels import _build  # noqa: E402
+from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.kernels import gru_cell as gc  # noqa: E402
 from paddle_tpu_torch.kernels import lstm_cell as lc  # noqa: E402
 
 FENCE = "  __threadfence();\n  atomicAdd(counter, 1u);"
+GRU_WAIT = "rs::wait_count(&%s[rg * nch + c], producers(c) * (t + 1));"
+ARRIVE = ('  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: '
+          '"memory");\n')
+WAIT = '  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");\n'
 EDITS = {
     "nowait": [("if (v >= target) return;", "return;")],
+    "nowait_h": [(GRU_WAIT % "hflag", "(void)c;")],
+    "nowait_rh": [(GRU_WAIT % "rflag", "(void)c;")],
     "nomma": [("    if (steps)\n      stage_mma<NT>(slot,",
                "    if (0)\n      stage_mma<NT>(slot,")],
     "nocell": [("      if (live) {\n        float gsum[4];",
                 "      if (0) {\n        float gsum[4];")],
+    "nocell_gru": [("      if (live) {\n        const int row = r * rs::",
+                    "      if (0) {\n        const int row = r * rs::"),
+                   ("      if (live) {\n        c = tanhf(",
+                    "      if (0) {\n        c = tanhf(")],
     "nofence": [(FENCE, "  atomicAdd(counter, 1u);")],
+    "stages4": [("constexpr int kDecStages = 2;",
+                 "constexpr int kDecStages = 4;")],
+    "n1": [("int n = 1;\n  while (n < kDecMaxCluster",
+            "int n = 1;\n  while (false && n < kDecMaxCluster")],
+    "n4": [("2LL * B * H * n < 3LL * sms", "1LL * B * H * n < 3LL * sms")],
+    "noload": [("    if (it + kDecStages - 1 < my_tiles) "
+                "load(it + kDecStages - 1);\n", ""),
+               ("    if (i < my_tiles) load(i);\n", "")],
+    "nomerge": [(ARRIVE, ""), (WAIT, ""),
+                ("  float* slot = cluster.map_shared_rank(\n"
+                 "      slots + (rank * kDecWarps + warp) * SM::SLOT, 0);",
+                 "  if (g == 0) out[(size_t)bh * D + 4 * t] = acc[0][0] + l;"
+                 "\n  return;\n  float* slot = slots;")],
+    "empty": [(ARRIVE, "  if (S >= 0) return;\n" + ARRIVE)],
 }
-VARIANTS = {"kernels": [], "nowait": ["nowait"], "nomma": ["nomma"],
-            "nowait+nomma": ["nowait", "nomma"],
-            "nowait+nomma+nocell": ["nowait", "nomma", "nocell"],
-            "nofence": ["nofence"]}
-B, H, T_SHORT, T_LONG = 64, 512, 8, 80
+LSTM_VARIANTS = {"kernels": [], "nowait": ["nowait"], "nomma": ["nomma"],
+                 "nowait+nomma": ["nowait", "nomma"],
+                 "nowait+nomma+nocell": ["nowait", "nomma", "nocell"],
+                 "nofence": ["nofence"]}
+GRU_VARIANTS = {"kernels": [], "nowait": ["nowait"],
+                "nowait_h": ["nowait_h"], "nowait_rh": ["nowait_rh"],
+                "nomma": ["nomma"], "nowait+nomma": ["nowait", "nomma"],
+                "nowait+nomma+nocell": ["nowait", "nomma", "nocell_gru"],
+                "nofence": ["nofence"]}
+DECODE_VARIANTS = {"kernel": [], **{name: [name] for name in (
+    "stages4", "n1", "n4", "noload", "nomerge", "empty")}}
+B, H = 64, 512
+DECODE_SHAPE = (16, 8, 512, 64)
 
 
-def build(out_dir):
-    src = open(os.path.join(_build.CSRC, "lstm_cell.cu")).read()
+def build(out_dir, lib, variants):
+    """One library of csrc/<lib>.cu a variant, each built in its own
+    directory beside its edited copies of the shared headers; all nvcc
+    started together."""
+    names = [lib + ".cu"] + sorted(f for f in os.listdir(_build.CSRC)
+                                   if f.endswith(".cuh"))
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
+    for i, (name, edits) in enumerate(variants.items()):
+        vdir = os.path.join(out_dir, lib, str(i))
+        shutil.rmtree(vdir, ignore_errors=True)
+        os.makedirs(vdir)
+        texts = {f: open(os.path.join(_build.CSRC, f)).read() for f in names}
         for e in edits:
             for old, new in EDITS[e]:
-                if old not in text:
-                    raise SystemExit("lstm_breakdown: %r not in the source"
+                hit = [f for f in names if old in texts[f]]
+                if not hit:
+                    raise SystemExit("lstm_breakdown: %r not in the sources"
                                      % old)
-                text = text.replace(old, new)
-        cu = os.path.join(out_dir, "%d.cu" % len(procs))
-        with open(cu, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, "%d.so" % len(procs))
+                for f in hit:
+                    texts[f] = texts[f].replace(old, new)
+        for f, text in texts.items():
+            with open(os.path.join(vdir, f), "w") as fh:
+                fh.write(text)
+        so = os.path.join(vdir, lib + ".so")
         procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o",
-             lib, cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(vdir, lib + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            lib)
+            so)
     libs = {}
-    for name, (proc, lib) in procs.items():
+    for name, (proc, so) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit("lstm_breakdown: %s did not build:\n%s"
                              % (name, log))
-        so = ctypes.CDLL(lib)
-        for fn, (argtypes, restype) in _build.SOURCES["lstm_cell"].items():
-            getattr(so, fn).argtypes = argtypes
-            getattr(so, fn).restype = restype
-        libs[name] = so
+        dll = ctypes.CDLL(so)
+        for fn, (argtypes, restype) in _build.SOURCES[lib].items():
+            getattr(dll, fn).argtypes = argtypes
+            getattr(dll, fn).restype = restype
+        libs[name] = dll
     return libs
 
 
-def time_ms(fn, reps=15):
+def time_ms(fn, reps=15, flush=None):
+    """The median of ``reps`` calls of ``fn``, each behind a spin kernel
+    (and after ``flush``, when one is given), in ms."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -98,16 +178,11 @@ def time_ms(fn, reps=15):
     return sorted(times)[len(times) // 2]
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("lstm_breakdown: no CUDA device")
-    dev = torch.device("cuda", 0)
-    out_dir = os.path.join(REPO, "build", "lstm_breakdown")
-    os.makedirs(out_dir, exist_ok=True)
-    libs = build(out_dir)
-    g = torch.Generator().manual_seed(0)
+def lstm(out_dir, dev, g):
+    t_short, t_long = 8, 80
+    libs = build(out_dir, "lstm_cell", LSTM_VARIANTS)
     inputs = {}
-    for T in (T_SHORT, T_LONG):
+    for T in (t_short, t_long):
         xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
         w = torch.randn(H, 4 * H, generator=g) * H ** -0.5
         h0, c0 = (torch.randn(B, H, generator=g) * 0.1 for _ in range(2))
@@ -126,9 +201,77 @@ def main():
                 lambda: lc.lstm_backward(st, cs, w, p, c0, mask, dhs, dcs))
         print("%-20s " % name + " | ".join(
             "%s %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
-                k, ms[k, T_LONG], T_LONG, ms[k, T_SHORT], T_SHORT,
-                (ms[k, T_LONG] - ms[k, T_SHORT]) * 1e3 / (T_LONG - T_SHORT))
+                k, ms[k, t_long], t_long, ms[k, t_short], t_short,
+                (ms[k, t_long] - ms[k, t_short]) * 1e3 / (t_long - t_short))
             for k in ("fwd", "bwd")), flush=True)
+
+
+def gru(out_dir, dev, g):
+    t_short, t_long = 3, 30
+    libs = build(out_dir, "gru_cell", GRU_VARIANTS)
+    inputs = {}
+    for T in (t_short, t_long):
+        xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
+        w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
+        h0 = torch.randn(B, H, generator=g) * 0.1
+        inputs[T] = [t.to(dev) for t in (xg, w, h0, torch.ones(B, T))]
+    for name, lib in libs.items():
+        _build._libs["gru_cell"] = lib
+        ms = {T: time_ms(lambda: gc.gru_forward(*args))
+              for T, args in inputs.items()}
+        print("%-20s fwd %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
+            name, ms[t_long], t_long, ms[t_short], t_short,
+            (ms[t_long] - ms[t_short]) * 1e3 / (t_long - t_short)),
+            flush=True)
+
+
+def decode(out_dir, dev, g):
+    libs = build(out_dir, "flash_attention", DECODE_VARIANTS)
+    b, h, s, d = DECODE_SHAPE
+    q = torch.randn(b, h, 1, d, generator=g).to(dev)
+    kc, vc = (torch.randn(b, h, s, d, generator=g).to(dev) for _ in range(2))
+    buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    total = torch.empty((), device=dev)
+    flushes = {"dirty": buf.zero_,
+               "clean": lambda: torch.sum(buf, dim=0, out=total),
+               "warm": None}
+
+    def us(fn):
+        return "  ".join("%s %.2f us" % (k, 1e3 * time_ms(fn, 25, f))
+                         for k, f in flushes.items())
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("plan at %s on %d SMs: %s" % (list(DECODE_SHAPE), sms,
+                                         fa.decode_plan(*DECODE_SHAPE, sms)))
+    print("events alone: %s" % us(lambda: None))
+    for L in (0, 160, 512):
+        lens = torch.full((b,), L, dtype=torch.int32, device=dev)
+        for name, lib in libs.items():
+            _build._libs["flash_attention"] = lib
+            print("L=%3d %-8s %s" % (L, name, us(
+                lambda: fa.flash_decode(q, kc, vc, lens))), flush=True)
+        if L:
+            kp, vp = kc[:, :, :L], vc[:, :, :L]
+            print("L=%3d sdpa     %s  (over the valid prefix, no mask)" % (
+                L, us(lambda: F.scaled_dot_product_attention(q, kp, vp))),
+                flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--gru", action="store_true",
+                      help="break down B5 (gru_fwd) instead of B3 and B4")
+    mode.add_argument("--decode", action="store_true",
+                      help="break down B2 (flash_decode) instead")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("lstm_breakdown: no CUDA device")
+    dev = torch.device("cuda", 0)
+    out_dir = os.path.join(REPO, "build", "lstm_breakdown")
+    os.makedirs(out_dir, exist_ok=True)
+    g = torch.Generator().manual_seed(0)
+    (decode if args.decode else gru if args.gru else lstm)(out_dir, dev, g)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

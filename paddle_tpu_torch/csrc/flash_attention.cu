@@ -50,22 +50,37 @@
 //   a KV cache, masked to the first cache_len[b] positions.
 //   Bound on the H100: memory. It reads each valid K and V row once;
 //   at [16, 8, 512, 64] that is 33.6 MB, about 10 us at 3.35 TB/s.
-//   Design: one block of 8 warps per (batch, head). Warps take the
-//   valid keys in interleaved groups of 4 (positions past cache_len are
-//   never read); lanes hold head_dim/32 elements of q, K and V, so each
-//   warp's loads are coalesced 128-byte rows; a butterfly of warp
-//   shuffles reduces each dot product, four keys at a time for
-//   instruction-level parallelism. Each warp keeps its own (m, l, acc);
-//   the warps merge through shared memory and each row writes its
-//   output once. 128 blocks do not fill 132 SMs for long at long cache
-//   lengths: a split-K variant with a combine pass is the later fix.
+//   Design (split-K over a thread-block cluster, one launch): each
+//   (batch, head) row takes a cluster of n blocks (decode_plan: n = 2 at
+//   the serving path's 128 rows on 132 SMs). Each block reads L =
+//   clamp(cache_len[b], 0, S) itself and walks its own chunk [rank L / n,
+//   (rank + 1) L / n) of the valid prefix, so the chunks follow L and no
+//   block of a row whose L >= n is idle; positions >= L are never read.
+//   Its 4 warps take the chunk's tiles of 8 keys in turn (warp w: tiles
+//   w, w + 4, ...), each through its own 2-stage ring of cp.async copies
+//   (16 bytes a copy where rows start on 16-byte boundaries, 4
+//   otherwise): 64 KB in flight an SM at the path's shape. Four lanes
+//   own a key of a tile and a quarter of head_dim each: a score is 2
+//   shuffles, a tile's max one 3-step butterfly, and each lane keeps its
+//   key slot's share of the sum and of O (an XOR swizzle of the rows'
+//   16-byte words keeps the reads conflict-free). Each warp stores its
+//   (m, l, acc) into rank 0's shared memory (distributed shared memory);
+//   after one cluster barrier rank 0 merges each block's warps in warp
+//   order, the blocks in rank order, and writes the row once. No
+//   workspace, no counter, no atomics: two runs give the same bits.
+//   What bounds it on the card is measured in PERF.md
+//   (lstm_breakdown.py --decode).
 // ---------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,20 +89,6 @@ using namespace tf32x3;
 constexpr unsigned kFull = 0xffffffffu;
 // -0.7 * FLT_MAX rounded to float32, the TPU kernels' DEFAULT_MASK_VALUE
 constexpr float kMask = -0x1.666664p+127f;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
 
 // ---- forward ---------------------------------------------------------
 
@@ -369,10 +370,61 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- decode ----------------------------------------------------------
+// ---- decode ----
 
-constexpr int kDecWarps = 8;
-constexpr int kDecUnroll = 4;  // keys in flight per warp
+constexpr int kDecWarps = 4;      // warps a block; they take tiles in turn
+constexpr int kDecTile = 8;       // keys a warp's tile: 4 lanes a key
+constexpr int kDecMaxCluster = 8; // the portable cluster size
+// a warp's ring: the next tile flies while the warp reads this one; 4
+// stages take the same time on the H100 as 2 (lstm_breakdown.py
+// --decode, PERF.md), and 2 keep a block at 34 KB at head_dim 64
+constexpr int kDecStages = 2;
+
+template <int DMAX>
+struct DecSmem {
+  static constexpr int TILE = kDecTile * DMAX;    // floats of K (or V)
+  static constexpr int STAGE = 2 * TILE;          // K, then V
+  static constexpr int RING = kDecWarps * kDecStages * STAGE;
+  // a warp's partial (acc[DMAX], m, l) in rank 0's slots
+  static constexpr int SLOT = DMAX + 4;
+  // floats of a block of a cluster of n: rank 0 takes every warp's slot
+  static constexpr int elems(int n) { return n * kDecWarps * SLOT + RING; }
+};
+
+// float index of 16-byte word j of key row r of a tile: the words of odd
+// rows are swizzled by 4, so that the 8 lanes of a quarter warp (keys
+// 2i, 2i + 1, quarters 0..3) read 8 distinct bank groups
+__device__ __forceinline__ int dec_word(int r, int j) {
+  return 4 * (j ^ ((r & 1) << 2));
+}
+
+// A warp stages keys [k0, k0 + kDecTile) of a [S, D] cache row into a
+// tile s[kDecTile][DMAX]; keys >= k_end and columns >= D are zero-filled
+// and never read.
+template <int DMAX>
+__device__ __forceinline__ void stage_keys(float* s, const float* src,
+                                           int k0, int k_end, int D,
+                                           bool vec, int lane) {
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < kDecTile * DMAX / 4 / 32; ++it) {
+      const int i = lane + 32 * it;
+      const int r = i / (DMAX / 4), j = i % (DMAX / 4);
+      const bool ok = k0 + r < k_end && 4 * j < D;
+      cp16(&s[r * DMAX + dec_word(r, j)],
+           ok ? src + (size_t)(k0 + r) * D + 4 * j : src, ok);
+    }
+  } else {
+#pragma unroll 8
+    for (int it = 0; it < kDecTile * DMAX / 32; ++it) {
+      const int i = lane + 32 * it;
+      const int r = i / DMAX, d = i % DMAX;
+      const bool ok = k0 + r < k_end && d < D;
+      cp4(&s[r * DMAX + dec_word(r, d / 4) + d % 4],
+          ok ? src + (size_t)(k0 + r) * D + d : src, ok);
+    }
+  }
+}
 
 template <int DMAX>
 __global__ void __launch_bounds__(kDecWarps * 32)
@@ -381,98 +433,215 @@ flash_decode_kernel(const float* __restrict__ q,
                     const float* __restrict__ v_cache,
                     const int* __restrict__ cache_len,
                     float* __restrict__ out, int H, int S, int D,
-                    float scale) {
-  constexpr int VEC = DMAX / 32;
-  __shared__ float sm_m[kDecWarps];
-  __shared__ float sm_l[kDecWarps];
-  __shared__ float sm_acc[kDecWarps][DMAX];
+                    float scale, int vec) {
+  using SM = DecSmem<DMAX>;
+  constexpr int NW = DMAX / 16;   // 16-byte words of a row a lane owns
+  extern __shared__ __align__(16) float smem[];
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  float* slots = smem;                            // [n][warp][SLOT]
+  float* ring = smem + n * kDecWarps * SM::SLOT;
+  // this block has started; rank 0's slots are written only after every
+  // block of the cluster has (the wait below)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int bh = blockIdx.x / n;
   const int b = bh / H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // the lane's key, its quarter
+  // this block's chunk of the valid prefix [0, L)
   const int L = max(0, min(cache_len[b], S));
+  const int c0 = rank * L / n, c1 = (rank + 1) * L / n;
+  const int n_tiles = (c1 - c0 + kDecTile - 1) / kDecTile;
+  const int my_tiles =
+      warp < n_tiles ? (n_tiles - warp + kDecWarps - 1) / kDecWarps : 0;
 
   const float* kb = k_cache + (size_t)bh * S * D;
   const float* vb = v_cache + (size_t)bh * S * D;
-
-  float qr[VEC];
+  float* my_ring = ring + warp * kDecStages * SM::STAGE;
+  // the warp's i-th tile: tile warp + i kDecWarps of the chunk
+  auto load = [&](int i) {
+    float* st = my_ring + (i % kDecStages) * SM::STAGE;
+    const int k0 = c0 + (warp + i * kDecWarps) * kDecTile;
+    stage_keys<DMAX>(st, kb, k0, c1, D, vec, lane);
+    stage_keys<DMAX>(st + SM::TILE, vb, k0, c1, D, vec, lane);
+  };
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < D ? q[(size_t)bh * D + d] : 0.f;
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < my_tiles) load(i);
+    cp_commit();
   }
 
-  float m = -INFINITY, l = 0.f, acc[VEC];
+  // the lane's words of q: columns 4 (t + 4 i) .. + 3
+  float qr[NW][4];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * (t + 4 * i) + e;
+      qr[i][e] = d < D ? q[(size_t)bh * D + d] : 0.f;
+    }
 
-  for (int j0 = warp * kDecUnroll; j0 < L; j0 += kDecWarps * kDecUnroll) {
-    float s[kDecUnroll];
-    float vv[kDecUnroll][VEC];
+  // the warp's running max (the same in every lane), the lane's key
+  // slot's share of the sum and of O over its columns
+  float m = -INFINITY, l = 0.f, acc[NW][4];
 #pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      const int j = j0 + u;
-      float part = 0.f;
+  for (int i = 0; i < NW; ++i)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const int d = lane + 32 * i;
-        const bool in = j < L && d < D;
-        part = fmaf(qr[i], in ? kb[(size_t)j * D + d] : 0.f, part);
-        vv[u][i] = in ? vb[(size_t)j * D + d] : 0.f;
-      }
-      s[u] = part;
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int it = 0; it < my_tiles; ++it) {
+    if (it + kDecStages - 1 < my_tiles) load(it + kDecStages - 1);
+    cp_commit();
+    cp_wait<kDecStages - 1>();
+    __syncwarp();   // the tile, staged by the warp's 32 lanes
+    const float* ks = my_ring + (it % kDecStages) * SM::STAGE;
+    const float* vs = ks + SM::TILE;
+    const int key = c0 + (warp + it * kDecWarps) * kDecTile + g;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const float4 kv = *reinterpret_cast<const float4*>(
+          &ks[g * DMAX + dec_word(g, t + 4 * i)]);
+      s = fmaf(qr[i][0], kv.x, s);
+      s = fmaf(qr[i][1], kv.y, s);
+      s = fmaf(qr[i][2], kv.z, s);
+      s = fmaf(qr[i][3], kv.w, s);
     }
-#pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) s[u] = warp_sum(s[u]);
-    // key j0 < L always, so m_new is finite
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      s[u] *= scale;
-      if (j0 + u < L) m_new = fmaxf(m_new, s[u]);
-    }
+    s += __shfl_xor_sync(kFull, s, 1);
+    s += __shfl_xor_sync(kFull, s, 2);
+    s = key < c1 ? s * scale : -INFINITY;
+    float tmax = s;
+    tmax = fmaxf(tmax, __shfl_xor_sync(kFull, tmax, 4));
+    tmax = fmaxf(tmax, __shfl_xor_sync(kFull, tmax, 8));
+    tmax = fmaxf(tmax, __shfl_xor_sync(kFull, tmax, 16));
+    // the tile's first key is < c1, so m_new is finite
+    const float m_new = fmaxf(m, tmax);
     const float alpha = expf(m - m_new);
-    l *= alpha;
+    const float p = expf(s - m_new);   // 0 past the chunk
+    l = fmaf(l, alpha, p);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kDecUnroll; ++u) {
-      if (j0 + u < L) {
-        const float p = expf(s[u] - m_new);
-        l += p;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, vv[u][i], acc[i]);
-      }
+    for (int i = 0; i < NW; ++i) {
+      const float4 vv = *reinterpret_cast<const float4*>(
+          &vs[g * DMAX + dec_word(g, t + 4 * i)]);
+      acc[i][0] = fmaf(p, vv.x, acc[i][0] * alpha);
+      acc[i][1] = fmaf(p, vv.y, acc[i][1] * alpha);
+      acc[i][2] = fmaf(p, vv.z, acc[i][2] * alpha);
+      acc[i][3] = fmaf(p, vv.w, acc[i][3] * alpha);
     }
     m = m_new;
+    __syncwarp();   // this stage is consumed before it is refilled
+  }
+  cp_wait<0>();
+
+  // the warp's sums over its 8 key slots
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    l += __shfl_xor_sync(kFull, l, off);
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][e] += __shfl_xor_sync(kFull, acc[i][e], off);
   }
 
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
+  // each warp's (acc, m, l) into its slot in rank 0, then one cluster
+  // barrier (release, acquire) before rank 0 reads them
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* slot = cluster.map_shared_rank(
+      slots + (rank * kDecWarps + warp) * SM::SLOT, 0);
+  if (g == 0) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) sm_acc[warp][lane + 32 * i] = acc[i];
-  __syncthreads();
-
-  for (int d = threadIdx.x; d < D; d += kDecWarps * 32) {
-    float m_all = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) m_all = fmaxf(m_all, sm_m[w]);
-    float l_all = 0.f, o = 0.f;
-    if (m_all != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) {
-        if (sm_l[w] > 0.f) {  // a warp that saw no key has m = -inf
-          const float c = expf(sm_m[w] - m_all);
-          l_all = fmaf(sm_l[w], c, l_all);
-          o = fmaf(sm_acc[w][d], c, o);
-        }
-      }
+    for (int i = 0; i < NW; ++i)
+      *reinterpret_cast<float4*>(&slot[4 * (t + 4 * i)]) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    if (t == 0) {
+      slot[DMAX] = m;
+      slot[DMAX + 1] = l;
     }
-    out[(size_t)bh * D + d] = l_all == 0.f ? 0.f : o / l_all;
   }
+  cluster.sync();
+  if (rank != 0) return;
+
+  // rank 0: each block's warps merge in warp order, the blocks in rank
+  // order; a warp or block that saw no key has m = -inf and adds nothing
+  const int d = threadIdx.x;
+  if (d >= D) return;
+  auto block_max = [&](int j) {
+    float mb = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      mb = fmaxf(mb, slots[(j * kDecWarps + w) * SM::SLOT + DMAX]);
+    return mb;
+  };
+  float m_all = -INFINITY;
+  for (int j = 0; j < n; ++j) m_all = fmaxf(m_all, block_max(j));
+  float l_all = 0.f, o = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float m_b = block_max(j);
+    float l_b = 0.f, a_b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float* sw = slots + (j * kDecWarps + w) * SM::SLOT;
+      const float c = sw[DMAX] == -INFINITY ? 0.f : expf(sw[DMAX] - m_b);
+      l_b = fmaf(sw[DMAX + 1], c, l_b);
+      a_b = fmaf(sw[d], c, a_b);
+    }
+    const float c = m_b == -INFINITY ? 0.f : expf(m_b - m_all);
+    l_all = fmaf(l_b, c, l_all);
+    o = fmaf(a_b, c, o);
+  }
+  out[(size_t)bh * D + d] = l_all == 0.f ? 0.f : o / l_all;
+}
+
+// B2's launch plan: out[0] blocks a (batch, head) row, the cluster size
+// n; out[1] threads a block; out[2] ring stages a warp; out[3] shared
+// bytes a block; out[4] keys a warp's tile. n doubles from 1 while the
+// grid holds fewer than 1.5 blocks an SM, a chunk of a full row keeps at
+// least two tiles a warp and n stays within the portable cluster size.
+// kernels.flash_attention.decode_plan mirrors it.
+void dec_plan(int B, int H, int S, int D, int sms, int* out) {
+  int n = 1;
+  while (n < kDecMaxCluster && 2 * n * kDecWarps * kDecTile <= S &&
+         2LL * B * H * n < 3LL * sms)
+    n *= 2;
+  out[0] = n;
+  out[1] = kDecWarps * 32;
+  out[2] = kDecStages;
+  out[3] = 4 * (D <= 32   ? DecSmem<32>::elems(n)
+                : D <= 64 ? DecSmem<64>::elems(n)
+                          : DecSmem<128>::elems(n));
+  out[4] = kDecTile;
+}
+
+template <int DMAX>
+cudaError_t launch_decode(const float* q, const float* k, const float* v,
+                          const int* cache_len, float* out, int B, int H,
+                          int S, int D, float scale, int vec, const int* p,
+                          cudaStream_t stream) {
+  const int n = p[0], bytes = p[3];
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * B * H);
+  cfg.blockDim = dim3(kDecWarps * 32);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = n;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, flash_decode_kernel<DMAX>, q, k, v, cache_len,
+                         out, H, S, D, scale, vec);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 template <int DMAX>
@@ -525,6 +694,15 @@ cudaError_t flash_attention_fwd(const float* q, const float* k,
                          scale, causal, vec, stream);
 }
 
+// B2's launch plan at (B, H, S, D) on a card of `sms` SMs: out[0]
+// blocks a row (the cluster size), out[1] threads a block, out[2] ring
+// stages a warp, out[3] shared bytes a block, out[4] keys a warp's tile.
+cudaError_t decode_plan(int B, int H, int S, int D, int sms, int* out) {
+  if (D < 1 || D > 128 || sms < 1) return cudaErrorInvalidValue;
+  dec_plan(B, H, S, D, sms, out);
+  return cudaSuccess;
+}
+
 // q [B,H,D], caches [B,H,S,D], cache_len [B] int32, out [B,H,D].
 cudaError_t flash_decode(const float* q, const float* k_cache,
                          const float* v_cache, const int* cache_len,
@@ -532,18 +710,25 @@ cudaError_t flash_decode(const float* q, const float* k_cache,
                          float scale, cudaStream_t stream) {
   if (B * H == 0) return cudaSuccess;
   if (D < 1 || D > 128) return cudaErrorInvalidValue;
-  const dim3 grid(B * H);
-  const dim3 block(kDecWarps * 32);
+  int dev = 0, sms = 0, p[5];
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  dec_plan(B, H, S, D, sms, p);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  const int vec = D % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(k_cache) |
+                    reinterpret_cast<uintptr_t>(v_cache)) & 15) == 0;
   if (D <= 32)
-    flash_decode_kernel<32><<<grid, block, 0, stream>>>(
-        q, k_cache, v_cache, cache_len, out, H, S, D, scale);
-  else if (D <= 64)
-    flash_decode_kernel<64><<<grid, block, 0, stream>>>(
-        q, k_cache, v_cache, cache_len, out, H, S, D, scale);
-  else
-    flash_decode_kernel<128><<<grid, block, 0, stream>>>(
-        q, k_cache, v_cache, cache_len, out, H, S, D, scale);
-  return cudaGetLastError();
+    return launch_decode<32>(q, k_cache, v_cache, cache_len, out, B, H, S,
+                             D, scale, vec, p, stream);
+  if (D <= 64)
+    return launch_decode<64>(q, k_cache, v_cache, cache_len, out, B, H, S,
+                             D, scale, vec, p, stream);
+  return launch_decode<128>(q, k_cache, v_cache, cache_len, out, B, H, S, D,
+                            scale, vec, p, stream);
 }
 
 }  // extern "C"

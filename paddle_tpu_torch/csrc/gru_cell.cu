@@ -26,29 +26,36 @@
 //   and writes hs [B, T, H] and the stash [B, T, 3H] of u, r, c that
 //   gru_bwd reads.
 //   Bound on the H100 at the seq2seq training path's shape (B=64, T=30,
-//   H=512): 2*64*30*512*1536 = 3.02 GFLOP of recurrence, ~45 us at 67
-//   TFLOP/s (fp32 FMA, TF32 off); it moves ~31 MB (xg 11.8 read, stash
-//   11.8 and hs 3.9 written, W 3.1), ~9 us at 3.35 TB/s. Bound by
-//   operations, and in practice by the serial chain of T steps, each of
-//   two dependent products.
-//   Design (persistent RNN, as csrc/lstm_cell.cu): the TPU kernel keeps
-//   all of W in VMEM over a sequential grid over T. Here one cooperative
-//   grid of ceil(H/4) blocks, all resident, walks T itself: block j owns
-//   hidden units [4j, 4j+4) and keeps their 12 columns of W (H x 12
-//   floats, 24 KB at H=512) in shared memory for the whole sequence.
-//   The candidate product needs r of every unit of a row, so each step
-//   has two phases and two grid barriers (cooperative_groups
-//   this_grid().sync()):
-//   A. copy h_{t-1} (unit-major [H, B rounded up to 64] in a global
-//      buffer that stays in L2) into shared memory in tiles of 64 batch
-//      rows, form the [64, 8] preactivations of the block's u and r
-//      columns (4 x 4 register tiles over 8 slices of K = H, fp32 FMA,
-//      the slices added through shared memory), then u and r of each
-//      (row, unit); publish r h_{t-1} unit-major through L2.
-//   B. copy r h_{t-1} of every unit the same way, form the [64, 4]
-//      candidate preactivations (16 K-slices), then c and h_t; write
-//      hs, the stash, and h_t unit-major for the next step's phase A.
-//   2T + 1 barriers per call.
+//   H=512): 2*64*30*512*1536 = 3.02 GFLOP of recurrence, 18.3 us as
+//   3xTF32 on the tensor cores (3 x 3.02 GFLOP at 495 TFLOP/s); it moves
+//   ~31 MB (xg 11.8 read, stash 11.8 and hs 3.9 written, W 3.1), ~9 us at
+//   3.35 TB/s. In practice bound by the chain of T steps, each of two
+//   dependent products: c needs r of every unit of its row.
+//   Design: lstm_cell.cu's B3 (rnn_step.cuh), with two rounds a step.
+//   Blocks run the cells of 32 rows x 8 units; a row group of 32 rows
+//   takes ceil(H/8) blocks (128 at the path's shape: 2 row groups x 64),
+//   all resident (a cooperative launch), as many row groups at once as
+//   fit. Each block keeps its units' 16 columns of w_ur and 8 of w_c in
+//   shared memory for the whole sequence, split once into 3xTF32 big
+//   and small fragments (96 KB at H=512). A step of a row group:
+//   1. h_{t-1} of the row group, from the exchange tile in A-fragment
+//      order, times w_ur: [32, H] x [H, 16] as 3xTF32 mma.sync.m16n8k8,
+//      each 32-deep stage in fresh accumulators added by FADD; u and r of
+//      each owned (row, unit);
+//   2. r h_{t-1} into the second exchange tile, then a release;
+//   3. r h_{t-1} of every unit of the row group times w_c: [32, H] x
+//      [H, 8]; c and h_t;
+//   4. h_t into the first exchange tile, a release, and only then hs and
+//      the stash.
+//   Each consuming lane fetches its own fragments with 16-byte cp.async;
+//   a warp waits (acquire) on the counter of each 128-unit chunk it is
+//   about to copy, so it starts while later chunks are still written. Two
+//   exchange tiles suffice, one each, with no double buffering: a block
+//   writes either tile only after it has read all of the other one,
+//   which its producers published after they had read the tile being
+//   written. h_{t-1} of the owned (row, unit)s stays in registers for
+//   the first two row groups a block runs. No float atomics: two runs
+//   give the same bits; a wait that lasts 10 s traps.
 //
 // gru_bwd  (B6)
 //   Replaces paddle_tpu/kernels/gru_cell.py `_bwd_kernel` (the
@@ -77,16 +84,20 @@
 //      scratch.
 //   After the last step, one more product forms dh0. 2T barriers.
 //
-// Reads of data that other blocks wrote in this launch go through L2
-// (__ldcg), never a stale L1 line. Both entry points check that the
-// grid can be resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// and return cudaErrorCooperativeLaunchTooLarge otherwise: H <= 528 on
-// an H100 (132 SMs, one block of ~170 KB of shared memory each).
+// gru_bwd's reads of data that other blocks wrote in this launch go
+// through L2 (__ldcg), never a stale L1 line. It checks that its grid
+// can be resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and returns cudaErrorCooperativeLaunchTooLarge otherwise: H <= 528 on
+// an H100 (132 SMs, one block of ~170 KB of shared memory each). gru_fwd
+// takes H <= 864 (its W slice in shared memory) and ceil(H/8) <= the
+// SMs; past either it returns cudaErrorCooperativeLaunchTooLarge.
 // ---------------------------------------------------------------------
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "rnn_step.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -99,10 +110,6 @@ constexpr int kLoads = 8;        // 16-byte loads in flight per thread
 constexpr int kRed = 4096;       // floats of the K-slice partials
 
 static_assert(kThreads == kBT * kU, "one thread per (row, unit)");
-
-__device__ __forceinline__ float sigm(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 // acc[i][j] = sum over k = k0, k0 + dk, ... < K of a[k*lda + i] * b[k*ldb + j]
 // (a 4x4 register tile of a product whose operands are stored k-major
@@ -193,109 +200,218 @@ struct TileProduct {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w,
-               const float* __restrict__ h0, const float* __restrict__ mask,
-               float* __restrict__ hs, float* __restrict__ stash,
-               float* __restrict__ scratch, int B, int T, int H) {
+// =====================================================================
+// gru_fwd (B5)
+// =====================================================================
+
+namespace rs = rnn_step;
+
+constexpr int kUrNT = 2;   // round 1: the n8 tiles of u and r of 8 units
+constexpr int kCNT = 1;    // round 2: the candidate's n8 tile
+// the most shared memory a block may ask for on an H100 (227 KB)
+constexpr size_t kMaxSmem = 232448;
+
+struct FwdArgs {
+  const float* xg;
+  const float* w;
+  const float* h0;
+  const float* mask;
+  float* hs;
+  float* stash;
+  float* hx;         // [RG][2][nks][32][4]: h_{t-1}, zero-filled
+  float* rx;         // [RG][2][nks][32][4]: r h_{t-1}, zero-filled
+  unsigned* flags;   // [2][RG][nch]: h's counters, then r h's; zeroed
+  int B, T, H, nch, RG, RGB, UGp;
+};
+
+// the cell's inputs of (row b, unit) at step t (zeros off the edge)
+struct CellIn {
+  float xu, xr, xc, m;
+};
+__device__ __forceinline__ CellIn load_cell(const FwdArgs& a, int t, int b,
+                                            int unit) {
+  CellIn v = {};
+  if (b < a.B && unit < a.H) {
+    const size_t bt = (size_t)b * a.T + t;
+    const float* x = a.xg + bt * 3 * a.H;
+    v.xu = x[unit];
+    v.xr = x[a.H + unit];
+    v.xc = x[2 * (size_t)a.H + unit];
+    v.m = a.mask[bt];
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(rs::kThreads, 1)
+gru_fwd_kernel(FwdArgs a) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* wur = smem;                         // [H][8]: u cols, then r cols
-  float* wc = wur + (size_t)H * 8;           // [H][4]
-  float* tile = wc + (size_t)H * 4;          // [H][kBT]
-  float* red = tile + (size_t)H * kBT;       // [kRed]
-  cg::grid_group grid = cg::this_grid();
-
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * kU;
+  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
+  const int nks = (H + 7) / 8;
   const size_t G3 = 3 * (size_t)H;
-  const int Bp = (B + kBT - 1) / kBT * kBT;
-  // scratch [2][H][Bp]: h_{t-1}, then r h_{t-1}, unit-major; rows past B
-  // stay zero
-  float* hbuf = scratch;
-  float* rhbuf = scratch + (size_t)H * Bp;
+  const size_t tile = (size_t)2 * nks * 128;   // floats of a row group
+  float4* wur = smem4;                          // w_ur fragments
+  float4* wc = wur + (size_t)nks * kUrNT * 32;  // w_c fragments
+  // per warp: its two chunk slots, which then take its partial sums
+  float4* slots = wc + (size_t)nks * kCNT * 32;
+  float* part = reinterpret_cast<float*>(slots);
+  unsigned* hflag = a.flags;
+  unsigned* rflag = a.flags + (size_t)a.RG * nch;
 
-  for (int idx = tid; idx < H * 8; idx += kThreads) {
-    const int k = idx / 8, c = idx % 8;
-    const int u = u0 + c % kU;
-    wur[idx] = u < H ? w[(size_t)k * G3 + (size_t)(c / kU) * H + u] : 0.f;
-  }
-  for (int idx = tid; idx < H * 4; idx += kThreads) {
-    const int k = idx / 4, u = u0 + idx % 4;
-    wc[idx] = u < H ? w[(size_t)k * G3 + 2 * (size_t)H + u] : 0.f;
-  }
-  for (int idx = tid; idx < B * kU; idx += kThreads) {
-    const int b = idx / kU, u = u0 + idx % kU;
-    if (u < H) hbuf[(size_t)u * Bp + b] = h0[(size_t)b * H + u];
-  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ug = blockIdx.x % a.UGp, rgb = blockIdx.x / a.UGp;
+  const int u0 = ug * rs::kUnits;
+  const int my_chunk = u0 / rs::kKC;
 
-  // cell work: one thread per (row of the tile, unit)
-  const int cb = tid / kU, cu = tid % kU;
-  const int unit = u0 + cu;
+  // column n of w_ur is gate n / 8 (u, then r) of unit u0 + n % 8, so
+  // n8 tile 0 is u and tile 1 is r; column n of w_c is unit u0 + n
+  rs::stage_w<kUrNT>(wur, nks, [&](int k, int n) {
+    const int u = u0 + n % rs::kUnits;
+    return (k < H && u < H)
+               ? a.w[(size_t)k * G3 + (size_t)(n / rs::kUnits) * H + u]
+               : 0.f;
+  });
+  rs::stage_w<kCNT>(wc, nks, [&](int k, int n) {
+    const int u = u0 + n;
+    return (k < H && u < H) ? a.w[(size_t)k * G3 + 2 * (size_t)H + u] : 0.f;
+  });
+  const int r = tid / rs::kUnits, uu = tid % rs::kUnits;   // the cell
+  const int unit = u0 + uu;
   const bool unit_ok = unit < H;
+  // h0 of this block's units in the row groups it runs, published
+  for (int rg = rgb; rg < a.RG; rg += a.RGB) {
+    const int b = rg * rs::kRows + r;
+    if (unit_ok && b < B)
+      a.hx[rg * tile + rs::frag_idx(r, unit, nks)] = a.h0[(size_t)b * H + unit];
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int rg = rgb; rg < a.RG; rg += a.RGB)
+      rs::publish(&hflag[rg * nch + my_chunk]);
 
-  grid.sync();  // hbuf holds h0 of every unit
+  // the blocks that publish chunk c: one for each 8 of its units
+  auto producers = [&](int c) {
+    return (unsigned)((min(rs::kKC, H - c * rs::kKC) + rs::kUnits - 1) /
+                      rs::kUnits);
+  };
+  float hreg[rs::kRegTiles] = {};
+  const int grp = warp / 4, kw = warp % 4;   // chunk parity, slice
+  CellIn cur = load_cell(a, 0, rgb * rs::kRows + r, unit);
 
   for (int t = 0; t < T; ++t) {
-    // ---- phase A: u, r of the block's units; publish r h_{t-1} ----
-    for (int b0 = 0; b0 < B; b0 += kBT) {
-      const int b = b0 + cb;
-      const bool live = b < B && unit_ok;
+    int rl = 0;
+    for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl) {
+      const int b = rg * rs::kRows + r;
+      const bool live = unit_ok && b < B;
       const size_t bt = (size_t)(live ? b : 0) * T + t;
-      float xu = 0.f, xr = 0.f, h_prev = 0.f;
-      if (live) {
-        xu = xg[bt * G3 + unit];
-        xr = xg[bt * G3 + H + unit];
-        h_prev = t ? hs[(bt - 1) * H + unit] : h0[(size_t)b * H + unit];
+      const CellIn in = cur;
+      {
+        // the next round's cell inputs, loaded while this round runs
+        int rg2 = rg + a.RGB, t2 = t;
+        if (rg2 >= a.RG) rg2 = rgb, ++t2;
+        if (t2 < T) cur = load_cell(a, t2, rg2 * rs::kRows + r, unit);
       }
-      stage(tile, hbuf, b0, H, Bp);
-      __syncthreads();
-      TileProduct<8> p;
-      p.add(tile, wur, H);
-      p.store(red);
-      __syncthreads();
+      float h_prev = 0.f;
       if (live) {
-        const float u = sigm(xu + TileProduct<8>::sum(red, cb, cu));
-        const float r = sigm(xr + TileProduct<8>::sum(red, cb, kU + cu));
-        stash[bt * G3 + unit] = u;
-        stash[bt * G3 + H + unit] = r;
-        rhbuf[(size_t)unit * Bp + b] = r * h_prev;
+        if (t == 0) {
+          h_prev = a.h0[(size_t)b * H + unit];
+        } else if (rl < rs::kRegTiles) {
+#pragma unroll
+          for (int i = 0; i < rs::kRegTiles; ++i)
+            if (rl == i) h_prev = hreg[i];
+        } else {
+          h_prev = a.hs[(bt - 1) * H + unit];
+        }
       }
-      __syncthreads();  // the tile's shared memory is consumed
-    }
-    grid.sync();  // r h_{t-1} of every unit is in rhbuf
+      float* hx = a.hx + rg * tile;
+      float* rx = a.rx + rg * tile;
+      float4* my_slots = slots + warp * 2 * rs::kSlot;
 
-    // ---- phase B: c and h_t of the block's units ----
-    for (int b0 = 0; b0 < B; b0 += kBT) {
-      const int b = b0 + cb;
-      const bool live = b < B && unit_ok;
-      const size_t bt = (size_t)(live ? b : 0) * T + t;
-      float xc = 0.f, h_prev = 0.f, u = 0.f, m = 0.f;
+      // ---- round 1: u, r from h_{t-1} w_ur; a chunk of h_{t-1} is
+      //      ready when the blocks of its 128 units have published it ----
+      float acc1[2][kUrNT][4] = {};
+      rs::warp_product<kUrNT>(
+          hx, nks, H, nch, grp, kw, wur, my_slots,
+          lane,
+          [&](int c) {
+            rs::wait_count(&hflag[rg * nch + c], producers(c) * (t + 1));
+          },
+          acc1);
+      rs::store_partial<kUrNT>(part + warp * rs::kPart, lane, acc1);
+      __syncthreads();
+      float u = 0.f, rr = 0.f;
       if (live) {
-        xc = xg[bt * G3 + 2 * (size_t)H + unit];
-        h_prev = t ? hs[(bt - 1) * H + unit] : h0[(size_t)b * H + unit];
-        u = stash[bt * G3 + unit];  // this thread's own write in phase A
-        m = mask[bt];
+        const int row = r * rs::part_ld<kUrNT>();
+        u = rs::sigm(in.xu + rs::sum_partials(part, rs::kPart, row + uu));
+        rr = rs::sigm(in.xr + rs::sum_partials(part, rs::kPart,
+                                               row + rs::kUnits + uu));
+        rx[rs::frag_idx(r, unit, nks)] = rr * h_prev;
       }
-      stage(tile, rhbuf, b0, H, Bp);
+      __syncthreads();   // partials read, r h_{t-1} in the exchange
+      if (tid == 0) rs::publish(&rflag[rg * nch + my_chunk]);
+
+      // ---- round 2: c from (r h_{t-1}) w_c, then h_t ----
+      float acc2[2][kCNT][4] = {};
+      rs::warp_product<kCNT>(
+          rx, nks, H, nch, grp, kw, wc, my_slots,
+          lane,
+          [&](int c) {
+            rs::wait_count(&rflag[rg * nch + c], producers(c) * (t + 1));
+          },
+          acc2);
+      rs::store_partial<kCNT>(part + warp * rs::kPart, lane, acc2);
       __syncthreads();
-      TileProduct<4> p;
-      p.add(tile, wc, H);
-      p.store(red);
-      __syncthreads();
+      float c = 0.f, h_t = 0.f;
       if (live) {
-        const float c = tanhf(xc + TileProduct<4>::sum(red, cb, cu));
-        float h_t = u * h_prev + (1.f - u) * c;
-        h_t = m * h_t + (1.f - m) * h_prev;
-        hs[bt * H + unit] = h_t;
-        stash[bt * G3 + 2 * (size_t)H + unit] = c;
-        hbuf[(size_t)unit * Bp + b] = h_t;
+        c = tanhf(in.xc + rs::sum_partials(part, rs::kPart,
+                                           r * rs::part_ld<kCNT>() + uu));
+        h_t = u * h_prev + (1.f - u) * c;
+        h_t = in.m * h_t + (1.f - in.m) * h_prev;
+        if (t + 1 < T) hx[rs::frag_idx(r, unit, nks)] = h_t;
       }
-      __syncthreads();
+      __syncthreads();   // partials read, h_t in the exchange
+      if (tid == 0 && t + 1 < T) rs::publish(&hflag[rg * nch + my_chunk]);
+      // the outputs after the release, which waits for no more than the
+      // exchange
+      if (live) {
+        a.hs[bt * H + unit] = h_t;
+        float* st = a.stash + bt * G3;
+        st[unit] = u;
+        st[H + unit] = rr;
+        st[2 * (size_t)H + unit] = c;
+#pragma unroll
+        for (int i = 0; i < rs::kRegTiles; ++i)
+          if (rl == i) hreg[i] = h_t;
+      }
     }
-    grid.sync();  // h_t of every unit is in hbuf
   }
 }
+
+size_t fwd_smem(int H) {
+  const size_t nks = (H + 7) / 8;
+  return nks * (kUrNT + kCNT) * 512 +
+         (size_t)rs::kWarps * 2 * rs::kSlot * 16;
+}
+
+// B5's launch plan on a card of `sms` SMs, one block an SM: out[0]
+// blocks, out[1] row groups in flight at once, out[2] row groups a block
+// runs a step, out[3] shared bytes a block. A row group takes ceil(H/8)
+// blocks; as many row groups run at once as the SMs hold.
+cudaError_t fwd_plan(int B, int H, int sms, int* out) {
+  const size_t smem = fwd_smem(H);
+  const int per = (H + rs::kUnits - 1) / rs::kUnits;
+  const int RG = (B + rs::kRows - 1) / rs::kRows;
+  if (smem > kMaxSmem || per > sms) return cudaErrorCooperativeLaunchTooLarge;
+  const int rows = min(RG, sms / per);
+  out[0] = per * rows;
+  out[1] = rows;
+  out[2] = (RG + rows - 1) / rows;
+  out[3] = (int)smem;
+  return cudaSuccess;
+}
+
+// =====================================================================
+// gru_bwd (B6)
+// =====================================================================
 
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_kernel(const float* __restrict__ stash, const float* __restrict__ hs,
@@ -450,23 +566,61 @@ cudaError_t prepare(const void* kernel, int blocks, size_t smem) {
 
 extern "C" {
 
+// B5's launch plan at (B, H) on a card of `sms` SMs: out[0] blocks,
+// out[1] row groups of 32 rows in flight, out[2] row groups a block runs
+// a step, out[3] shared bytes a block (kernels.gru_cell.launch_plan
+// mirrors it).
+cudaError_t gru_plan(int B, int H, int sms, int* out) {
+  return fwd_plan(B, H, sms, out);
+}
+
 // xg [B,T,3H], w [H,3H], h0 [B,H], mask [B,T]; outputs hs [B,T,H] and
-// stash [B,T,3H]; scratch is [2,H,Bp], Bp = B rounded up to a multiple
-// of 64, zero-filled.
+// stash [B,T,3H]; hx and rx [RG,2,nks,32,4] and flags [2,RG,nch] are
+// zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8), nch =
+// ceil(H/128)).
 cudaError_t gru_fwd(const float* xg, const float* w, const float* h0,
-                    const float* mask, float* hs, float* stash,
-                    float* scratch, int B, int T, int H,
+                    const float* mask, float* hs, float* stash, float* hx,
+                    float* rx, unsigned* flags, int B, int T, int H,
                     cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const int blocks = (H + kU - 1) / kU;
-  const size_t smem = smem_bytes(H);
-  cudaError_t e = prepare((const void*)gru_fwd_kernel, blocks, smem);
-  if (e != cudaSuccess) return e;
-  void* args[] = {&xg, &w, &h0, &mask, &hs, &stash, &scratch, &B, &T, &H};
-  e = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel, blocks,
-                                  kThreads, args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  int dev = 0, sms = 0, coop = 0, per_sm = 0, p[4];
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                  dev)) != cudaSuccess)
+    return e;
+  if (!coop) return cudaErrorNotSupported;
+  if ((e = fwd_plan(B, H, sms, p)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(gru_fwd_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                p[3])) != cudaSuccess)
+    return e;
+  // the plan counts one block an SM: that one must fit
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gru_fwd_kernel, rs::kThreads, p[3])) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  FwdArgs a;
+  a.xg = xg;
+  a.w = w;
+  a.h0 = h0;
+  a.mask = mask;
+  a.hs = hs;
+  a.stash = stash;
+  a.hx = hx;
+  a.rx = rx;
+  a.flags = flags;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.nch = (H + rs::kKC - 1) / rs::kKC;
+  a.RG = (B + rs::kRows - 1) / rs::kRows;
+  a.RGB = p[1];
+  a.UGp = p[0] / p[1];
+  return rs::launch(gru_fwd_kernel, a, 1, p[0], p[3], stream);
 }
 
 // stash [B,T,3H], hs [B,T,H], w [H,3H], h0 [B,H], mask [B,T], dhs

@@ -1,0 +1,317 @@
+// The pieces of a persistent recurrent kernel that the LSTM kernels
+// (lstm_cell.cu, B3 and B4) and the GRU forward (gru_cell.cu, B5) share:
+// the blocking (32 batch rows x 8 units a block, 8 warps), the exchange
+// tile in mma A-fragment order, W split once into 3xTF32 fragments in
+// shared memory, one warp's share of a row group's product fed by
+// cp.async through a ring of two chunk slots, the warps' partial sums,
+// the release/acquire step counters with a wait that traps instead of
+// hanging, and the cooperative launch in clusters.
+// Sources include it by its relative name; kernels/_build.py hashes it
+// with every source, so an edit here rebuilds them all.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
+
+namespace rnn_step {
+
+using tf32x3::cp16;
+using tf32x3::cp_commit;
+using tf32x3::cp_wait;
+using tf32x3::mma;
+using tf32x3::split;
+
+constexpr int kWarps = 8;                // warps of a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 32;                // batch rows of a row group
+constexpr int kUnits = 8;                // units whose cells a block runs
+constexpr int kKC = 128;                 // K of an exchange chunk
+constexpr int kSliceSteps = 4;           // k8 steps of a warp's 32-deep
+                                         // slice of a chunk: one stage
+constexpr int kRegTiles = 2;             // row groups whose carries stay
+                                         // in registers
+// one chunk slot of a warp: kSliceSteps k8 steps of both m16 tiles, a
+// float4 a lane each
+constexpr int kSlot = 2 * kSliceSteps * 32;
+// floats between two warps' partial sums, which take the warp's slots
+constexpr int kPart = 2 * kSlot * 4;
+// a row of a warp's partial sums of NT n8 tiles: the padding puts the
+// rows that a warp of cells reads on distinct banks
+template <int NT>
+__host__ __device__ constexpr int part_ld() {
+  return NT == 1 ? 24 : 8 * NT + 8;
+}
+
+static_assert(kThreads == kRows * kUnits, "one thread per (row, unit)");
+static_assert(kWarps == 2 * (kKC / 32), "warp = chunk parity x slice");
+static_assert(kPart >= 32 * part_ld<4>(), "partials fit the slots");
+
+// ---- waits that cannot hang, release/acquire counters ----
+
+// A wait that has not ended within kHangNs is a fault of the protocol
+// (or a grid that is not resident): the kernel traps, and the launch
+// fails, instead of hanging the card.
+constexpr unsigned long long kHangNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void check_hang(unsigned long long& t0) {
+  if (!t0)
+    t0 = now_ns();
+  else if (now_ns() - t0 > kHangNs)
+    __trap();
+}
+// the block's writes before the caller's last barrier are published:
+// counter += 1 with release semantics
+__device__ __forceinline__ void publish(unsigned* counter) {
+  __threadfence();
+  atomicAdd(counter, 1u);
+}
+// wait (acquire) until *counter >= target
+__device__ __forceinline__ void wait_count(const unsigned* counter,
+                                           unsigned target) {
+  unsigned v;
+  unsigned long long t0 = 0;
+  for (;;) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(counter)
+                 : "memory");
+    if (v >= target) return;
+    check_hang(t0);
+  }
+}
+
+__device__ __forceinline__ float sigm(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// wait until at most n of this thread's cp.async groups are pending
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  if (n <= 0)
+    cp_wait<0>();
+  else
+    cp_wait<1>();
+}
+
+// ---- the exchange tile and the product ----
+
+// Where (row r of a row group, k) lies in the row group's exchange tile
+// of nks k8 steps: in A-fragment order (PTX ISA, m16n8k8 .tf32: g =
+// lane / 4, t = lane % 4; A rows g, g + 8 and columns t, t + 4), so that
+// lane l of the warp that multiplies m16 tile r / 16 at k8 step k / 8
+// finds its four fragment values in one 16-byte word.
+__device__ __forceinline__ size_t frag_idx(int r, int k, int nks) {
+  const int row = r % 16, kk = k % 8;
+  const int lane = (row % 8) * 4 + kk % 4, e = row / 8 + 2 * (kk / 4);
+  return ((size_t)(r / 16) * nks + k / 8) * 128 + lane * 4 + e;
+}
+
+// W's fragments for NT n8 tiles over nks k8 steps, split: per k8 step
+// and lane (g, t), b0 = wval(8 ks + t, 8 nt + g) and b1 = wval(8 ks + t +
+// 4, 8 nt + g) of each n8 tile nt. For NT >= 2, NT / 2 float4 of big
+// parts then NT / 2 of small parts, each (b0, b1) of n8 tile 2i then of
+// tile 2i + 1; for NT = 1, one float4 (big b0, big b1, small b0, small
+// b1). Either way NT float4 a k8 step and lane.
+template <int NT, typename F>
+__device__ __forceinline__ void stage_w(float4* wf, int nks, F wval) {
+  if constexpr (NT == 1) {
+    for (int idx = threadIdx.x; idx < nks * 32; idx += blockDim.x) {
+      const int l = idx % 32, ks = idx / 32;
+      const int k = 8 * ks + l % 4, n = l / 4;
+      unsigned big[2], small[2];
+      split(wval(k, n), big[0], small[0]);
+      split(wval(k + 4, n), big[1], small[1]);
+      wf[ks * 32 + l] =
+          make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                      __uint_as_float(small[0]), __uint_as_float(small[1]));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < nks * (NT / 2) * 32;
+         idx += blockDim.x) {
+      const int l = idx % 32, i = idx / 32 % (NT / 2),
+                ks = idx / 32 / (NT / 2);
+      const int k = 8 * ks + l % 4, n = 16 * i + l / 4;
+      const float v[4] = {wval(k, n), wval(k + 4, n), wval(k, n + 8),
+                          wval(k + 4, n + 8)};
+      unsigned big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(v[e], big[e], small[e]);
+      wf[(ks * NT + i) * 32 + l] =
+          make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                      __uint_as_float(big[2]), __uint_as_float(big[3]));
+      wf[(ks * NT + NT / 2 + i) * 32 + l] =
+          make_float4(__uint_as_float(small[0]), __uint_as_float(small[1]),
+                      __uint_as_float(small[2]), __uint_as_float(small[3]));
+    }
+  }
+}
+
+// k8 steps of slice kw of chunk c, of a K of `K` rows (0 past the end)
+__device__ __forceinline__ int slice_steps(int c, int kw, int K) {
+  const int left = K - (c * kKC + kw * 32);
+  return left <= 0 ? 0 : min(kSliceSteps, (left + 7) / 8);
+}
+
+// One stage: `steps` k8 steps of both m16 tiles (fragments in a slot:
+// af[(m * kSliceSteps + j) * 32 + lane]) against NT n8 tiles of W
+// (fragments from wk). big*big and the two small cross products go into
+// fresh accumulators (no chain is longer than 8 products), whose sum is
+// then added to acc: the stage sum.
+template <int NT>
+__device__ __forceinline__ void stage_mma(const float4* af, const float4* wk,
+                                          int steps, int lane,
+                                          float (&acc)[2][NT][4]) {
+  float bbp[2][NT][4] = {}, crs[2][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kSliceSteps; ++j) {
+    if (j < steps) {
+      unsigned ab[2][4], as[2][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float4 v = af[(m * kSliceSteps + j) * 32 + lane];
+        split(v.x, ab[m][0], as[m][0]);
+        split(v.y, ab[m][1], as[m][1]);
+        split(v.z, ab[m][2], as[m][2]);
+        split(v.w, ab[m][3], as[m][3]);
+      }
+      if constexpr (NT == 1) {
+        const float4 v = wk[j * 32 + lane];
+        bb[0][0] = __float_as_uint(v.x);
+        bb[0][1] = __float_as_uint(v.y);
+        bs[0][0] = __float_as_uint(v.z);
+        bs[0][1] = __float_as_uint(v.w);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) {
+          const float4 vb = wk[(j * NT + i) * 32 + lane];
+          const float4 vs = wk[(j * NT + NT / 2 + i) * 32 + lane];
+          bb[2 * i][0] = __float_as_uint(vb.x);
+          bb[2 * i][1] = __float_as_uint(vb.y);
+          bb[2 * i + 1][0] = __float_as_uint(vb.z);
+          bb[2 * i + 1][1] = __float_as_uint(vb.w);
+          bs[2 * i][0] = __float_as_uint(vs.x);
+          bs[2 * i][1] = __float_as_uint(vs.y);
+          bs[2 * i + 1][0] = __float_as_uint(vs.z);
+          bs[2 * i + 1][1] = __float_as_uint(vs.w);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(crs[m][nt], as[m], bb[nt]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(crs[m][nt], ab[m], bs[nt]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma(bbp[m][nt], ab[m], bb[nt]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] += bbp[m][nt][e] + crs[m][nt][e];
+}
+
+// One warp's share of a row group's product: chunks grp, grp + 2, ... of
+// the nch chunks of K (`K` rows), slice kw of each, both m16 tiles.
+// `src` is the exchange tile (frag_idx order, nks k8 steps a m16 tile),
+// `ready(c)` waits until chunk c is published, `slots` is the warp's
+// ring of two chunk slots. The copies of a chunk fly while the warp
+// multiplies the one before. Each lane copies and reads only its own
+// fragments.
+template <int NT, typename Ready>
+__device__ __forceinline__ void warp_product(const float* src, int nks,
+                                             int K, int nch, int grp, int kw,
+                                             const float4* wf, float4* slots,
+                                             int lane, Ready ready,
+                                             float (&acc)[2][NT][4]) {
+  auto issue = [&](int c, float4* slot) {
+    ready(c);
+    const int steps = slice_steps(c, kw, K);
+    const int ks0 = c * (kKC / 8) + kw * kSliceSteps;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      for (int j = 0; j < steps; ++j)
+        cp16(slot + (m * kSliceSteps + j) * 32 + lane,
+             src + ((size_t)m * nks + ks0 + j) * 128 + lane * 4, true);
+    cp_commit();
+  };
+  if (grp < nch) issue(grp, slots);
+  if (grp + 2 < nch) issue(grp + 2, slots + kSlot);
+  for (int c = grp, i = 0; c < nch; c += 2, ++i) {
+    cp_wait_upto(c + 2 < nch ? 1 : 0);
+    float4* slot = slots + (i & 1) * kSlot;
+    const int steps = slice_steps(c, kw, K);
+    if (steps)
+      stage_mma<NT>(slot,
+                    wf + (size_t)(c * (kKC / 8) + kw * kSliceSteps) * NT * 32,
+                    steps, lane, acc);
+    if (c + 4 < nch) issue(c + 4, slot);
+  }
+}
+
+// The warp's [32 x 8 NT] sums into its partial buffer pw (rows of
+// part_ld<NT>() floats).
+template <int NT>
+__device__ __forceinline__ void store_partial(float* pw, int lane,
+                                              const float (&acc)[2][NT][4]) {
+  const int g = lane / 4, t4 = lane % 4;
+  constexpr int ld = part_ld<NT>();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = pw + (16 * m + g) * ld + 8 * nt + 2 * t4;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[m][nt][0], acc[m][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * ld) =
+          make_float2(acc[m][nt][2], acc[m][nt][3]);
+    }
+}
+
+// (row, column) of the row group's product: the eight warps' sums added
+// in warp order; `stride` floats between two warps' buffers
+__device__ __forceinline__ float sum_partials(const float* part, int stride,
+                                              int idx) {
+  float v = part[idx];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v += part[(size_t)w * stride + idx];
+  return v;
+}
+
+// A cooperative launch (every block resident at once, or the launch is
+// refused) in clusters of cs blocks.
+template <typename Args>
+cudaError_t launch(void (*kernel)(Args), const Args& args, int cs,
+                   int blocks, size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace rnn_step

@@ -37,6 +37,7 @@ SOURCES = {
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+        "decode_plan": ([_I] * 5 + [_P], _I),
     },
     "lstm_cell": {
         "lstm_fwd": ([_P] * 11 + [_I] * 3 + [_P], _I),
@@ -44,7 +45,8 @@ SOURCES = {
         "lstm_plan": ([_I] * 3 + [_P], _I),
     },
     "gru_cell": {
-        "gru_fwd": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "gru_fwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "gru_plan": ([_I] * 3 + [_P], _I),
         "gru_bwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
     },
     "bn_grad": {

@@ -36,6 +36,7 @@ import warnings
 
 import torch
 
+from paddle_tpu_torch.kernels import H100_SMS
 from paddle_tpu_torch.kernels.lstm_cell import _check, _raise_on, _stream
 
 __all__ = ["bn_grad", "bn_grad_reference", "supported", "valid_tile",
@@ -46,7 +47,7 @@ launches = {"bn_grad": 0}
 
 # blocks the row-walking kernels aim to keep on the card: 8 for each of
 # the H100's 132 SMs
-_TARGET_BLOCKS = 8 * 132
+_TARGET_BLOCKS = 8 * H100_SMS
 _THREADS = 256
 
 

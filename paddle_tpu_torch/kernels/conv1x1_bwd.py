@@ -43,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.kernels import H100_SMS
 from paddle_tpu_torch.kernels.lstm_cell import _check, _raise_on, _stream
 
 __all__ = ["conv1x1", "conv1x1_bwd", "conv1x1_bwd_reference", "supported",
@@ -62,7 +63,7 @@ _DW_DEPTH = 1024
 # the partial sums stay under 1/_PARTIAL_SHARE of x's and dy's elements
 _PARTIAL_SHARE = 2
 # blocks the launch aims for at least: two for each of the H100's SMs
-_MIN_BLOCKS = 2 * 132
+_MIN_BLOCKS = 2 * H100_SMS
 # x and dy up to this many bytes stay in the H100's 50 MB L2 through
 # the launch, whatever the blocks' order
 _L2_RESIDENT = 40 * 2 ** 20

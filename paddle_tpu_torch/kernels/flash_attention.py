@@ -16,8 +16,10 @@ Each wrapper dispatches on the device of the tensors it is given:
 * a CPU tensor runs the plain PyTorch version beside it, which follows
   the kernel's blocking (online softmax over key tiles, the forward's
   key tiles split between its warps and merged in order, tiles past the
-  causal diagonal or past ``cache_len`` skipped, the ``l == 0`` guard),
-  so the CPU tests exercise that logic;
+  causal diagonal skipped; the decode kernel's split of each row's valid
+  prefix into :func:`decode_plan`'s chunks, each walked by its warps in
+  key tiles and merged, the chunks merged in rank order; the ``l == 0``
+  guard), so the CPU tests exercise that logic;
 * a meta tensor returns outputs of the right shape (construction-time
   shape inference).
 
@@ -29,9 +31,12 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.kernels import H100_SMS
+
 __all__ = ["flash_attention", "flash_decode", "flash_attention_reference",
-           "flash_decode_reference", "launches", "reset_launches",
-           "DEFAULT_MASK_VALUE", "BLOCK_Q", "BLOCK_K", "KEY_SPLIT"]
+           "flash_decode_reference", "decode_plan", "decode_chunks",
+           "launches", "reset_launches", "DEFAULT_MASK_VALUE", "BLOCK_Q",
+           "BLOCK_K", "KEY_SPLIT", "DECODE_BLOCK_K", "DECODE_WARPS"]
 
 #: the TPU kernels' mask value for masked (not excluded) scores
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -39,12 +44,58 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: the CUDA kernels' tiles, which the plain versions follow: the forward
 #: takes BLOCK_Q query rows a block and BLOCK_K keys a tile, and its
 #: KEY_SPLIT warps take the key tiles in turn (warp w: tiles w, w +
-#: KEY_SPLIT, ...) and merge in warp order; the decode kernel's plain
-#: version walks DECODE_BLOCK_K keys a tile
+#: KEY_SPLIT, ...) and merge in warp order. The decode kernel splits each
+#: row's valid prefix into the chunks of decode_plan, one a block of a
+#: cluster; each block's DECODE_WARPS warps take its chunk's tiles of
+#: DECODE_BLOCK_K keys in turn, merge in warp order, and the chunks merge
+#: in rank order
 BLOCK_Q = 16
 BLOCK_K = 16
 KEY_SPLIT = 4
-DECODE_BLOCK_K = 32
+DECODE_BLOCK_K = 8
+DECODE_WARPS = 4
+#: the decode kernel's ring stages a warp
+DECODE_STAGES = 2
+#: the decode plan's rule: a row's cluster doubles while the grid holds
+#: fewer than DECODE_FILL blocks an SM and a chunk of a full row keeps
+#: DECODE_MIN_TILES tiles a warp, up to the portable cluster size
+DECODE_FILL = 1.5
+DECODE_MIN_TILES = 2
+DECODE_MAX_CLUSTER = 8
+
+
+def decode_plan(b, h, s, d, sms=H100_SMS):
+    """The decode kernel's launch plan, a copy of ``dec_plan`` in
+    ``csrc/flash_attention.cu`` that the CPU tests can call (the card
+    test ``test_cuda_decode_plan_matches_the_kernels`` holds the two to
+    the same numbers): ``blocks_per_row`` n, the cluster of blocks that
+    splits each (batch, head) row, by the DECODE_FILL / DECODE_MIN_TILES
+    / DECODE_MAX_CLUSTER rule; also the threads of a block, a warp's
+    ring stages, a block's shared bytes and the keys of a warp's tile
+    (the kernel takes ``d`` of 1..128)."""
+    n = 1
+    while (n < DECODE_MAX_CLUSTER
+           and DECODE_MIN_TILES * n * DECODE_WARPS * DECODE_BLOCK_K <= s
+           and b * h * n < DECODE_FILL * sms):
+        n *= 2
+    dmax = 32 if d <= 32 else 64 if d <= 64 else 128
+    slot = dmax + 4                      # a warp's (m, l, acc) to merge
+    stage = 2 * DECODE_BLOCK_K * dmax    # a tile of K, then one of V
+    smem = 4 * (n * DECODE_WARPS * slot
+                + DECODE_WARPS * DECODE_STAGES * stage)
+    return dict(blocks_per_row=n, blocks=n * b * h,
+                threads=32 * DECODE_WARPS, stages=DECODE_STAGES,
+                smem_bytes=smem, tile_keys=DECODE_BLOCK_K)
+
+
+def decode_chunks(lengths, n):
+    """The chunk [start, end) of each row's valid prefix [0, length) that
+    rank r of its cluster of n blocks walks, as the kernel cuts it: two
+    int64 tensors [n, rows] for ``lengths`` [rows]."""
+    r = torch.arange(n, device=lengths.device)[:, None]
+    lengths = lengths.to(torch.int64)[None, :]
+    return r * lengths // n, (r + 1) * lengths // n
+
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"flash_attention": 0, "flash_decode": 0}
@@ -122,36 +173,89 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
     return out, lse
 
 
+def _merge(parts):
+    """(m, l, acc) of online softmaxes merged in order; one that saw no
+    key has m = -inf and adds nothing."""
+    m_all = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros_like(m_all)
+    acc_all = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        c = torch.where(m == -float("inf"), 0.0, torch.exp(m - m_all))
+        l_all = l_all + l * c
+        acc_all = acc_all + acc * c[..., None]
+    return m_all, l_all, acc_all
+
+
 def flash_decode_reference(q, k_cache, v_cache, cache_len, sm_scale=None,
                            block_k=DECODE_BLOCK_K):
     """Plain version of the decode kernel. ``q`` [b, h, 1, d] or
-    [b, h, d]; returns the same rank."""
+    [b, h, d]; returns the same rank.
+
+    It follows the kernel's blocking: each row's valid prefix is cut
+    into decode_plan's chunks (decode_chunks; on the tensor's own card,
+    or an H100), each chunk's tiles of ``block_k`` keys are walked in
+    turn by DECODE_WARPS online softmaxes, merged in warp order, and the
+    chunks merged in rank order. Positions past a row's length are never
+    used."""
+    b, h, s, d = k_cache.shape
+    dev = q.device
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    n = decode_plan(b, h, s, d, sms)["blocks_per_row"]
+    return _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, n,
+                        DECODE_WARPS, block_k)
+
+
+def _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, blocks, warps,
+                 block_k):
+    """Decode attention walked as ``blocks`` chunks of each row's valid
+    prefix, each by ``warps`` online softmaxes over tiles of ``block_k``
+    keys taken in turn; ``blocks = warps = 1`` is one walk."""
     squeeze = q.dim() == 3
-    q3 = (q if squeeze else q[:, :, 0, :]).float()
     b, h, s, d = k_cache.shape
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    lens = cache_len.to(torch.int64).clamp(0, s)
-    m = torch.full((b, h), -float("inf"), device=q.device)
-    l = torch.zeros((b, h), device=q.device)
-    acc = torch.zeros((b, h, d), device=q.device)
-    # tiles past every row's valid prefix are never read
-    for k0 in range(0, int(lens.max()) if b else 0, block_k):
-        kt = k_cache[:, :, k0:k0 + block_k].float()
-        vt = v_cache[:, :, k0:k0 + block_k].float()
-        sc = torch.einsum("bhd,bhkd->bhk", q3, kt) * scale
-        ki = torch.arange(k0, k0 + kt.shape[2], device=q.device)
-        sc = torch.where(ki[None, None, :] < lens[:, None, None], sc,
-                         -float("inf"))
-        m_new = torch.maximum(m, sc.amax(-1))
-        # a row with no valid key yet keeps alpha = p = 0
-        m_safe = torch.where(m_new == -float("inf"), 0.0, m_new)
-        alpha = torch.exp(m - m_safe)
-        p = torch.exp(sc - m_safe[..., None])
-        l = alpha * l + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhk,bhkd->bhd", p, vt)
-        m = m_new
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    out = acc / l_safe[..., None]
+    dev = q.device
+    q2 = (q if squeeze else q[:, :, 0, :]).float().reshape(b * h, d)
+    k2 = k_cache.reshape(b * h, s, d)
+    v2 = v_cache.reshape(b * h, s, d)
+    lens = cache_len.to(torch.int64).clamp(0, s).repeat_interleave(h)
+    inf = float("inf")
+    starts, ends = decode_chunks(lens, blocks)
+    chunks = []
+    for c0, c1 in zip(starts, ends):
+        n_tiles = int(-(-(c1 - c0).max() // block_k)) if b * h else 0
+        parts = []
+        for w in range(warps):
+            m = torch.full((b * h,), -inf, device=dev)
+            l = torch.zeros((b * h,), device=dev)
+            acc = torch.zeros((b * h, d), device=dev)
+            for tile in range(w, n_tiles, warps):
+                pos = c0[:, None] + tile * block_k + torch.arange(
+                    block_k, device=dev)[None, :]
+                ok = pos < c1[:, None]
+                # a masked position reads nothing: its row is zeroed
+                idx = torch.where(ok, pos, 0)[..., None].expand(-1, -1, d)
+                kt = torch.where(ok[..., None], torch.gather(k2, 1, idx), 0.0)
+                vt = torch.where(ok[..., None], torch.gather(v2, 1, idx), 0.0)
+                sc = torch.einsum("nd,nkd->nk", q2, kt.float()) * scale
+                sc = torch.where(ok, sc, -inf)
+                m_new = torch.maximum(m, sc.amax(-1))
+                # a row with no valid key yet keeps alpha = p = 0
+                m_safe = torch.where(m_new == -inf, 0.0, m_new)
+                alpha = torch.exp(m - m_safe)
+                p = torch.exp(sc - m_safe[:, None])
+                l = alpha * l + p.sum(-1)
+                acc = acc * alpha[:, None] + torch.einsum(
+                    "nk,nkd->nd", p, vt.float())
+                m = m_new
+            parts.append((m, l, acc))
+        chunks.append(_merge(parts))
+    _, l, acc = _merge(chunks)
+    out = torch.where(l[:, None] == 0.0, 0.0,
+                      acc / torch.where(l == 0.0, 1.0, l)[:, None])
+    out = out.reshape(b, h, d)
     return out if squeeze else out[:, :, None, :]
 
 

@@ -24,29 +24,48 @@ unchanged and gets no gate gradient). Per step::
   is two GEMMs outside it, as in the JAX package. float32 only;
   anything else raises, and a refused launch raises;
 * a CPU tensor runs the plain versions beside the kernels: the step
-  loop :func:`gru_forward_reference` and :func:`gru_backward_reference`,
+  loop :func:`gru_forward_reference`, whose two products are summed in
+  the forward kernel's blocking (the LSTM kernels', ``lstm_cell._product``:
+  K in chunks of 128, each 32-deep slice a stage summed apart, the
+  slices' sums added in warp order), and :func:`gru_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
   not autograd of the forward);
 * a meta tensor returns outputs of the right shape.
 
 ``launches`` counts kernel launches per kernel; plain-version calls do
-not count.
+not count. :func:`launch_plan` is the forward kernel's launch plan (row
+groups of 32 rows, blocks of 8 units, residency), a pure function of the
+shape and the card's SM count; :func:`card_plan` reads the kernel's own.
 """
 
 import torch
 
-from paddle_tpu_torch.kernels.lstm_cell import (_check, _check_float,
-                                                _raise_on, _stream)
+from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS
+from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, ROWS, _check,
+                                                _check_float, _product,
+                                                _raise_on, _stages, _stream)
 
 __all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
-           "gru_forward", "gru_backward", "launches", "reset_launches"]
+           "gru_forward", "gru_backward", "launch_plan", "card_plan",
+           "launches", "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"gru_fwd": 0, "gru_bwd": 0}
 
-# the kernels' batch tile: unit-major scratch rows are padded to it
+# the backward kernel's batch tile: unit-major scratch rows are padded to
+# it
 _BT = 64
-
+#: the forward kernel's blocking (``rnn_step.cuh`` and ``gru_cell.cu``),
+#: which launch_plan restates: a block runs the cells of ROWS rows x
+#: UNITS units with WARPS warps (a row group of ROWS rows takes
+#: ceil(H / UNITS) blocks), holds UR_TILES n8 tiles of W's u and r
+#: columns and C_TILES of its candidate's, FRAG_BYTES a tile and a k8
+#: step (a float4 of big and small fragments for each of 32 lanes), and
+#: gives each warp two exchange slots of SLOT float4s
+UNITS, WARPS = 8, 8
+UR_TILES, C_TILES = 2, 1
+FRAG_BYTES = 32 * 16
+SLOT = 2 * 4 * 32
 
 def reset_launches():
     for k in launches:
@@ -58,18 +77,19 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 def gru_forward_reference(xg, w, h0, mask):
-    """Plain version of the forward kernel: the step loop. Returns
+    """Plain version of the forward kernel: the step loop, with both
+    products summed in the kernel's blocking (``_product``). Returns
     ``(hs, stash)``: [B, T, H] and ``u, r, c`` [B, T, 3H]."""
     b, t_len, g3 = xg.shape
     h = g3 // 3
-    w_ur, w_c = w[:, :2 * h], w[:, 2 * h:]
+    wur, wc = _stages(w[:, :2 * h]), _stages(w[:, 2 * h:])
     h_prev = h0
     hs, stash = [], []
     for t in range(t_len):
         g = xg[:, t]
-        a_ur = g[:, :2 * h] + h_prev @ w_ur
+        a_ur = g[:, :2 * h] + _product(h_prev, wur)
         u, r = torch.sigmoid(a_ur[:, :h]), torch.sigmoid(a_ur[:, h:])
-        c = torch.tanh(g[:, 2 * h:] + (r * h_prev) @ w_c)
+        c = torch.tanh(g[:, 2 * h:] + _product(r * h_prev, wc))
         h_t = u * h_prev + (1 - u) * c
         m = mask[:, t, None].to(xg.dtype)
         h_t = m * h_t + (1 - m) * h_prev
@@ -111,6 +131,58 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def launch_plan(b, h, sms=H100_SMS):
+    """The forward kernel's launch plan at (b, h) on a card of ``sms``
+    SMs, a copy of ``gru_plan`` in ``csrc/gru_cell.cu`` that the CPU
+    tests can call (the card test
+    ``test_cuda_gru_launch_plan_matches_the_kernels`` holds the two to
+    the same numbers). One block an SM: a row group of ROWS rows takes
+    ceil(h / UNITS) blocks, each holding its units' columns of W in
+    shared memory; as many row groups run at once as the SMs hold, the
+    rest in turn. Returns the blocks, the row groups in flight, the row
+    groups a block runs a step (``rounds``), the shared bytes a block and
+    the exchange bytes a step (each block reads its row group's h_{t-1}
+    and r h_{t-1} from L2). Raises ValueError where the blocks cannot be
+    resident: W's slice past H100_MAX_SMEM, or a row group wider than
+    the SMs."""
+    nks = -(-h // 8)                     # k8 steps of the products
+    smem = (nks * (UR_TILES + C_TILES) * FRAG_BYTES
+            + WARPS * 2 * SLOT * 16)
+    per = -(-h // UNITS)
+    rg = -(-b // ROWS)
+    if smem > H100_MAX_SMEM or per > sms:
+        raise ValueError(
+            "gru_fwd: H %d needs %d blocks of %d shared bytes a row group, "
+            "past %d resident (one an SM, at most %d bytes)"
+            % (h, per, smem, sms, H100_MAX_SMEM))
+    rows = min(rg, sms // per)
+    # two tiles a block a step, ROWS rows x the k8 steps' 8 units each
+    tile = ROWS * 8 * nks * 4
+    return dict(blocks=per * rows, rows_in_flight=rows,
+                rounds=-(-rg // rows), smem_bytes=smem,
+                exchange_bytes=rg * per * 2 * tile)
+
+
+def card_plan(b, h, device=None):
+    """The kernel's own plan (``gru_plan``) on the card: the keys of
+    :func:`launch_plan` but the exchange bytes. Raises where the kernel
+    would refuse the launch."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.load("gru_cell")
+    dev = torch.device(device) if device is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = (ctypes.c_int * 4)()
+    rc = lib.gru_plan(b, h, sms, ctypes.addressof(out))
+    _raise_on(rc, "gru_plan")
+    blocks, rows, rounds, smem = list(out)
+    return dict(blocks=blocks, rows_in_flight=rows, rounds=rounds,
+                smem_bytes=smem)
+
+
 def _fwd_cuda(xg, w, h0, mask):
     from paddle_tpu_torch.kernels import _build
 
@@ -123,14 +195,20 @@ def _fwd_cuda(xg, w, h0, mask):
     lib = _build.load("gru_cell")
     hs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
     stash = torch.empty_like(xg)
-    # h_{t-1} and r * h_{t-1}, unit-major, batch rounded up to the
-    # kernel's 64-row tiles; the padding rows stay zero
-    bp = -(-b // _BT) * _BT
-    scratch = torch.zeros((2, h, bp), dtype=torch.float32, device=dev)
+    # the exchanges of h_{t-1} and r h_{t-1}, one tile a row group in
+    # A-fragment order each, then the counters the blocks publish them
+    # with, [2, RG, chunks]: one zero-filled buffer (padding rows and
+    # units stay zero)
+    rg, nks, nch = -(-b // ROWS), -(-h // 8), -(-h // CHUNK)
+    tile = rg * 2 * nks * 128
+    buf = torch.zeros((2 * tile + 2 * rg * nch,), dtype=torch.float32,
+                      device=dev)
+    flags = buf[2 * tile:].view(torch.int32)
     with torch.cuda.device(dev):
         rc = lib.gru_fwd(xg.data_ptr(), w.data_ptr(), h0.data_ptr(),
                          mask.data_ptr(), hs.data_ptr(), stash.data_ptr(),
-                         scratch.data_ptr(), b, t_len, h, _stream(dev))
+                         buf.data_ptr(), buf[tile:].data_ptr(),
+                         flags.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, "gru_fwd")
     launches["gru_fwd"] += 1
     return hs, stash

@@ -115,10 +115,16 @@ def test_forward_fully_masked_rows_average_v_like_jax():
     np.testing.assert_allclose(tl.numpy(), jl, rtol=TOL)
 
 
-@pytest.mark.parametrize("lens", [[1, 32, 17], [0, 5, 32], [8, 9, 16]])
+# A cache of 128 positions: decode_plan cuts each row's valid prefix into
+# 4 chunks there, so lengths from 0 to past the cache cross chunk edges
+# (L / 4 apart) and the edges of the warps' 8-key tiles inside them.
+@pytest.mark.parametrize("lens", [[1, 32, 17], [0, 5, 32], [8, 9, 16],
+                                  [3, 4, 5], [31, 33, 64], [65, 127, 128],
+                                  [100, 2, 129]])
 def test_decode_plain_matches_jax_kernel(lens):
     rng = np.random.RandomState(len(lens) + lens[0])
-    b, h, s, d = 3, 2, 32, 8
+    b, h, s, d = 3, 2, 128, 8
+    assert tfa.decode_plan(b, h, s, d)["blocks_per_row"] == 4
     q = _rand(rng, b, h, 1, d)
     kc, vc = _rand(rng, b, h, s, d), _rand(rng, b, h, s, d)
     ln = np.asarray(lens, np.int32)
@@ -137,6 +143,77 @@ def test_decode_plain_matches_jax_kernel(lens):
                 jnp.asarray(vc[i:i + 1]), jnp.asarray(ln[i:i + 1])))
             np.testing.assert_allclose(tout.numpy()[i:i + 1, :, 0], ref,
                                        rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 128, 8), (2, 1, 512, 16),
+                                   (16, 8, 64, 8)])
+def test_decode_chunked_walk_equals_one_walk(shape):
+    """The kernel's blocking (decode_plan's chunks, each walked by 4
+    warps in 8-key tiles, merged in warp and then rank order) against one
+    online softmax over the whole valid prefix (one block, one warp), to
+    float32 rounding, at lengths that cross every kind of edge."""
+    b, h, s, d = shape
+    rng = np.random.RandomState(s + b)
+    q = torch.from_numpy(_rand(rng, b, h, 1, d))
+    kc, vc = (torch.from_numpy(_rand(rng, b, h, s, d)) for _ in range(2))
+    n = tfa.decode_plan(b, h, s, d)["blocks_per_row"]
+    assert n > 1
+    picks = [0, 1, n - 1, n, n + 1, s // 2 - 1, s // 2 + 1, s - 1, s, s + 9]
+    lens = torch.tensor([picks[i % len(picks)] for i in range(b)] if b > 3
+                        else picks[s % 7:s % 7 + b], dtype=torch.int32)
+    got = tfa.flash_decode_reference(q, kc, vc, lens)
+    one = tfa._decode_walk(q, kc, vc, lens, None, blocks=1, warps=1,
+                           block_k=tfa.DECODE_BLOCK_K)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert got.shape == (b, h, 1, d)
+
+
+def test_decode_plan_chunks_cover_the_valid_prefix():
+    """For every length 0..S the chunks of a row are contiguous, in rank
+    order, cover [0, L) with no gap or overlap, and none is empty while
+    L >= n; at the serving path's shape ([16, 8, 512, 64] on an H100's
+    132 SMs) the plan is 2 blocks a row, 256 in all, of 4 warps with 2
+    ring stages of 8-key tiles (34944 bytes of shared memory)."""
+    plan = tfa.decode_plan(16, 8, 512, 64, sms=132)
+    assert plan == dict(blocks_per_row=2, blocks=256, threads=128,
+                        stages=2, smem_bytes=34944, tile_keys=8)
+    assert tfa.decode_plan(16, 8, 512, 128)["smem_bytes"] <= 227 * 1024
+    for b, h, s, sms in ((16, 8, 512, 132), (1, 8, 512, 132),
+                         (1, 1, 256, 132), (64, 8, 512, 132),
+                         (2, 2, 100, 4)):
+        n = tfa.decode_plan(b, h, s, 64, sms)["blocks_per_row"]
+        assert n in (1, 2, 4, 8)
+        lengths = torch.arange(s + 1)
+        c0, c1 = tfa.decode_chunks(lengths, n)
+        assert c0.shape == (n, s + 1)
+        assert (c0[0] == 0).all() and torch.equal(c1[-1], lengths)
+        assert torch.equal(c1[:-1], c0[1:])          # no gap, no overlap
+        assert (c1[:, lengths >= n] > c0[:, lengths >= n]).all()
+    # a single slot spreads over the portable cluster of 8; a grid that
+    # fills the card alone is not split
+    assert tfa.decode_plan(1, 8, 512, 64)["blocks_per_row"] == 8
+    assert tfa.decode_plan(64, 8, 512, 64)["blocks_per_row"] == 1
+    # a cache too short for two tiles a warp in a chunk is not split
+    assert tfa.decode_plan(16, 8, 32, 64)["blocks_per_row"] == 1
+
+
+def test_decode_reads_no_position_past_the_length():
+    """Positions past cache_len hold NaN: the plain version never uses
+    them (the kernel never reads them: chip_smoke.py)."""
+    rng = np.random.RandomState(5)
+    b, h, s, d = 4, 2, 128, 8
+    q = torch.from_numpy(_rand(rng, b, h, 1, d))
+    kc, vc = (torch.from_numpy(_rand(rng, b, h, s, d)) for _ in range(2))
+    lens = torch.tensor([0, 1, 37, 128], dtype=torch.int32)
+    want = tfa.flash_decode_reference(q, kc, vc, lens)
+    for i, n in enumerate(lens.tolist()):
+        kc[i, :, n:] = float("nan")
+        vc[i, :, n:] = float("nan")
+    got = tfa.flash_decode(q, kc, vc, lens)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert not got[0].any()
 
 
 def test_decode_rank3_query_and_last_position_equals_causal():

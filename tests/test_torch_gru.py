@@ -114,6 +114,50 @@ def test_backward_plain_is_the_kernels_arithmetic_not_autograd():
     assert not dxg[mask == 0].any()
 
 
+def test_forward_plain_sums_like_the_kernel_and_like_one_matmul():
+    """gru_forward_reference sums both products in the forward kernel's
+    blocking (chunks of 128, 32-deep stages, warp order); at H = 200 (a
+    partial chunk and a partial stage) it agrees with the step loop of
+    plain matmuls to float32 rounding."""
+    xg, w, h0, mask = (_t(a) for a in _setup(T=6, B=5, H=200, seed=3))
+    w = w * 0.3
+    hs, stash = tcell.gru_forward_reference(xg, w, h0, mask)
+    h = 200
+    h_prev, want = h0, []
+    for t in range(6):
+        a = xg[:, t, :2 * h] + h_prev @ w[:, :2 * h]
+        u, r = torch.sigmoid(a[:, :h]), torch.sigmoid(a[:, h:])
+        c = torch.tanh(xg[:, t, 2 * h:] + (r * h_prev) @ w[:, 2 * h:])
+        m = mask[:, t, None]
+        h_prev = m * (u * h_prev + (1 - u) * c) + (1 - m) * h_prev
+        want.append(h_prev)
+    _close(hs, torch.stack(want, 1), 1e-5, atol=1e-6, what="hs")
+    assert stash.shape == (5, 6, 600)
+
+
+def test_launch_plan_cuts_the_path_shape_into_row_groups():
+    """B5 at the seq2seq path's [64, T, 512] on an H100 (132 SMs): 2 row
+    groups of 32 rows x 64 blocks of 8 units = 128 blocks, both row
+    groups at once, 160 KB of shared memory a block; each block reads
+    its row group's h_{t-1} and r h_{t-1} a step. Past residency (W's
+    slice beyond 227 KB, or a row group wider than the SMs) it raises."""
+    plan = tcell.launch_plan(64, 512, sms=132)
+    assert plan == dict(blocks=128, rows_in_flight=2, rounds=1,
+                        smem_bytes=163840,
+                        exchange_bytes=2 * 64 * 2 * 32 * 512 * 4)
+    assert plan["smem_bytes"] <= tcell.H100_MAX_SMEM
+    # more rows than fit at once: row groups take turns
+    big = tcell.launch_plan(200, 512, sms=132)
+    assert (big["blocks"], big["rows_in_flight"], big["rounds"]) == \
+        (128, 2, 4)
+    assert tcell.launch_plan(3, 20, sms=132)["blocks"] == 3
+    assert tcell.launch_plan(64, 864, sms=132)["blocks"] == 108
+    with pytest.raises(ValueError, match="resident"):
+        tcell.launch_plan(64, 872, sms=132)     # W's slice past 227 KB
+    with pytest.raises(ValueError, match="resident"):
+        tcell.launch_plan(64, 512, sms=63)      # 64 blocks a row group
+
+
 def test_meta_tensors_get_shapes_only():
     m = torch.device("meta")
     hs = tcell.gru_sequence(torch.empty(3, 7, 12, device=m),

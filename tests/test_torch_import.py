@@ -23,7 +23,8 @@ PORT = os.path.join(REPO, "paddle_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "lstm_breakdown.py")]
     for root, _, files in os.walk(PORT):
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
     return sorted(out)

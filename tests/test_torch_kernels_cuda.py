@@ -123,6 +123,75 @@ def test_cuda_decode_matches_plain(cuda):
     assert not out[0].any()
 
 
+# B2 splits each row's valid prefix over a cluster: every head_dim
+# instantiation, lengths at and around the chunk edges (L / 2 at the
+# plan's 2 blocks a row) and the edges of the warps' 8-key tiles, past
+# the cache (clamped), an empty row, and a cache that starts 4 bytes
+# into its storage (the 4-byte copies).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 40, 13])
+def test_cuda_decode_splits_rows_over_a_cluster(cuda, d):
+    g = torch.Generator().manual_seed(d)
+    b, h, s = 16, 8, 512
+    q = torch.randn(b, h, 1, d, generator=g).to(cuda)
+    kc, vc = (torch.randn(b, h, s, d, generator=g).to(cuda)
+              for _ in range(2))
+    lens = torch.tensor([0, 1, 2, 3, 4, 5, 159, 160, 161, 300, 303, 511,
+                         512, 600, 127, 129], dtype=torch.int32).to(cuda)
+    n0 = tfa.launches["flash_decode"]
+    out = tfa.flash_decode(q, kc, vc, lens)
+    again = tfa.flash_decode(q, kc, vc, lens)
+    assert tfa.launches["flash_decode"] == n0 + 2
+    ref = tfa.flash_decode_reference(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+    assert not out[0].any()
+    flat = torch.randn(1 + b * h * s * d, generator=g).to(cuda)
+    kv = flat[1:].view(b, h, s, d)
+    out = tfa.flash_decode(q, kv, kv, lens)
+    ref = tfa.flash_decode_reference(q, kv, kv, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_never_reads_past_the_length(cuda):
+    g = torch.Generator().manual_seed(3)
+    b, h, s, d = 4, 8, 512, 64
+    q = torch.randn(b, h, 1, d, generator=g).to(cuda)
+    kc, vc = (torch.randn(b, h, s, d, generator=g).to(cuda)
+              for _ in range(2))
+    lens = torch.tensor([0, 1, 160, 511], dtype=torch.int32)
+    want = tfa.flash_decode(q, kc, vc, lens.to(cuda))
+    for i, n in enumerate(lens.tolist()):
+        kc[i, :, n:] = float("nan")
+        vc[i, :, n:] = float("nan")
+    got = tfa.flash_decode(q, kc, vc, lens.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 512, 64), (1, 8, 512, 64),
+                                   (3, 2, 100, 13), (64, 8, 512, 128),
+                                   (2, 1, 32, 32)])
+def test_cuda_decode_plan_matches_the_kernels(cuda, shape):
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = (ctypes.c_int * 5)()
+    rc = _build.load("flash_attention").decode_plan(*shape, sms,
+                                                    ctypes.addressof(out))
+    assert rc == 0
+    plan = tfa.decode_plan(*shape, sms)
+    assert list(out) == [plan["blocks_per_row"], plan["threads"],
+                         plan["stages"], plan["smem_bytes"],
+                         plan["tile_keys"]]
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 2, 8, 8, device=cuda)
@@ -263,6 +332,29 @@ def test_cuda_gru_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 30, 512), (200, 4, 64)])
+def test_cuda_gru_two_runs_agree_to_the_bit(cuda, shape):
+    """No float atomics in B5: every sum has a fixed order."""
+    xg, w, h0, mask, _ = _gru_inputs(*shape, 5, cuda)
+    runs = [gru_cell.gru_forward(xg, w, h0, mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 512), (200, 512), (3, 20),
+                                   (64, 864)])
+def test_cuda_gru_launch_plan_matches_the_kernels(cuda, shape):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gru_cell.launch_plan(*shape, sms=sms)
+    card = gru_cell.card_plan(*shape, cuda)
+    assert card == {k: plan[k] for k in card}
+    if shape == (64, 512):
+        assert (plan["blocks"], plan["rows_in_flight"]) == (128, 2)
+
+
+@pytest.mark.cuda
 def test_cuda_gru_autograd_goes_through_both_kernels(cuda):
     xg, w, h0, mask, dhs = _gru_inputs(16, 9, 64, 3, cuda)
     leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
@@ -284,10 +376,16 @@ def test_cuda_gru_raises_on_what_the_kernels_do_not_take(cuda):
         gru_cell.gru_forward(xg.double(), w, h0, mask)
     with pytest.raises(ValueError, match="contiguous"):
         gru_cell.gru_forward(xg, w.t().contiguous().t(), h0, mask)
-    # past one resident block of 4 units per SM the cooperative grid
+    # past one resident block of 8 units an SM (a row group wider than
+    # the SMs; W's slice past 227 KB from H = 872) the cooperative grid
     # cannot launch: the wrapper raises, never runs the plain version
-    big = 4 * torch.cuda.get_device_properties(cuda).multi_processor_count + 4
+    big = 8 * torch.cuda.get_device_properties(cuda).multi_processor_count + 8
     xg, w, h0, mask, _ = _gru_inputs(2, 2, big, 5, cuda)
+    with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
+        gru_cell.gru_forward(xg, w, h0, mask)
+    with pytest.raises(ValueError, match="resident"):
+        gru_cell.launch_plan(2, big)
+    xg, w, h0, mask, _ = _gru_inputs(2, 2, 872, 5, cuda)
     with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
         gru_cell.gru_forward(xg, w, h0, mask)
 
