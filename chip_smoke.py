@@ -31,8 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    TF32 off for float32 matmuls and convolutions;
 2. build every CUDA kernel from ``paddle_tpu_torch/csrc``, one nvcc per
    source, all started together, and read from the built libraries that
-   the flash-attention forward, the fused 1x1 backward, the LSTM forward
-   and backward and the GRU forward run on the tensor cores (HMMA) fed
+   the flash-attention forward, the fused 1x1 backward and the LSTM and
+   GRU forwards and backwards run on the tensor cores (HMMA) fed
    by asynchronous copies (LDGSTS, or the TMA's), and that the decode
    kernel moves 16-byte words, all with no spills;
 3. hold each kernel against its plain PyTorch version on the card (the
@@ -42,9 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    at every distinct shape of the ResNet-50 path, as derived from the
    program, also against float64, and its float32 dw error against
    float64 by the length of its dw chunks; the LSTM kernels also against
-   float64 at T = 20, 40 and 80 and the GRU forward at T = 10, 20 and
+   float64 at T = 20, 40 and 80 and the GRU kernels at T = 10, 20 and
    30, beside their float32 plain versions, and run twice to the same
-   bits);
+   bits; the GRU kernels also at the widest H the backward's launch
+   plan admits on the card);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -70,7 +71,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    over the valid prefix and the masked call over the whole cache; the
    flash-attention forward at six shapes, the fused 1x1 backward at
    every distinct shape of the ResNet-50 path, the LSTM kernels at T = 8
-   and 80 and the GRU forward at T = 3 and 30 for their cost a step,
+   and 80 and the GRU kernels at T = 3 and 30 for their cost a step,
    with their launch plans), and profile the decode step;
 9. print the kernel table as one JSON line, then the result line.
 
@@ -120,8 +121,8 @@ S2S_B, S2S_T, S2S_MIN = 64, 30, 8
 S2S_XCHECK = dict(src_vocab=1000, tgt_vocab=1000, emb_dim=128,
                   hidden_dim=128)
 S2S_XCHECK_B, S2S_XCHECK_T = 16, 12
-# sequence lengths at which B5 is held against float64, and the short
-# one it is also timed at, for its cost a step
+# sequence lengths at which B5 and B6 are held against float64, and the
+# short one they are also timed at, for their cost a step
 GRU_WITNESS_T = (10, 20, 30)
 GRU_SHORT_T = 3
 
@@ -228,7 +229,7 @@ def card_line():
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-# B1, B3, B4, B5 and B8 run on the tensor cores fed by asynchronous
+# B1, B3, B4, B5, B6 and B8 run on the tensor cores fed by asynchronous
 # copies: (library, kernel function). cp.async shows as LDGSTS in the
 # SASS; the TMA's copies (UTMALDG, UBLKCP) count as well. The bfloat16 B8
 # whose rows start on 2-byte boundaries stages through registers
@@ -237,7 +238,8 @@ TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
                        ("conv1x1_bwd", "conv1x1_bwd_kernel"),
                        ("lstm_cell", "lstm_fwd_kernel"),
                        ("lstm_cell", "lstm_bwd_kernel"),
-                       ("gru_cell", "gru_fwd_kernel"))
+                       ("gru_cell", "gru_fwd_kernel"),
+                       ("gru_cell", "gru_bwd_kernel"))
 # B2 is bound by bytes and has no product for the tensor cores: its SASS
 # must move 16-byte words (LDGSTS of 16 bytes, or LDG.E.128)
 WIDE_LOAD_KERNELS = (("flash_attention", "flash_decode_kernel"),)
@@ -550,14 +552,40 @@ def check_decode(fa, g, dev):
     return worst
 
 
+def gru_widest(gc, dev):
+    """The widest H, a multiple of 8, whose rows of S2S_B B6's launch
+    plan admits on this card: its copy ``launch_plan`` at the card's SM
+    count, which the kernel's own ``gru_plan`` (it checks residency)
+    must admit, and refuse at H + 8. Returns H and the card's plan."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    h = 8
+    while True:
+        try:
+            gc.launch_plan("gru_bwd", S2S_B, h + 8, sms)
+        except ValueError:
+            break
+        h += 8
+    plan = gc.card_plan("gru_bwd", S2S_B, h, dev)
+    try:
+        gc.card_plan("gru_bwd", S2S_B, h + 8, dev)
+    except RuntimeError:
+        return h, plan
+    raise AssertionError("gru_bwd: the card admits H %d, launch_plan does "
+                         "not" % (h + 8))
+
+
 def check_gru(gc, g, dev):
     """B5 and B6 against their plain versions: hs and the stash; dxg, dW
-    (through the GEMMs outside the kernel) and dh0. Returns the max abs
+    (through the GEMMs outside the kernel) and dh0, at three shapes and
+    at the widest H that B6 takes on this card. Returns the max abs
     errors {kernel: err} and dW's."""
     err = {"gru_fwd": 0.0, "gru_bwd": 0.0}
     dw_err = 0.0
+    h_max, plan = gru_widest(gc, dev)
+    print("gru_bwd: the widest H its launch plan admits at B=%d on this "
+          "card: %d (%s)" % (S2S_B, h_max, json.dumps(plan)))
     for B, T, H in ((8, 5, 32), (S2S_B, S2S_T, S2S["hidden_dim"]),
-                    (37, 17, 128)):
+                    (37, 17, 128), (S2S_B, S2S_T, h_max)):
         xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev)
         what = "gru %s" % ((B, T, H),)
         leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
@@ -588,40 +616,60 @@ def check_gru(gc, g, dev):
 
 
 def gru_witness(gc, g, dev):
-    """B5 at the path's width against float64, beside its float32 plain
-    version, at T = GRU_WITNESS_T: the largest error of hs and of the
-    stash against the float64 plain version, hard at B5's tolerances,
-    and the kernel's error may not grow more than twofold from the
-    shortest T to the longest. Then two runs of B5, and of B6 on B5's
-    stash, at the path's shape must agree to the bit, and B6 must hold
-    its tolerances on B5's stash."""
-    errs = {}
+    """B5 and B6 at the path's width against float64, beside their
+    float32 plain versions, at T = GRU_WITNESS_T: the largest error of hs
+    and of the stash against the float64 plain version, and of dxg and
+    dh0 over their largest magnitude, B6 (and its float32 plain version)
+    taking the float64 stash rounded to float32. Hard at the kernels'
+    tolerances, and each kernel's error may not grow more than twofold
+    from the shortest T to the longest. Then two runs of B5, and of B6 on
+    B5's stash, at the path's shape must agree to the bit, and B6 must
+    hold its tolerances on B5's stash."""
+    errs = {"gru_fwd": {}, "gru_bwd": {}}
     for T in GRU_WITNESS_T:
-        xg, w, h0, mask, _ = gru_inputs(S2S_B, T, S2S["hidden_dim"], g, dev)
-        ths, tst = gc.gru_forward_reference(
-            *(t.double() for t in (xg, w, h0, mask)))
+        xg, w, h0, mask, dhs = gru_inputs(S2S_B, T, S2S["hidden_dim"], g,
+                                          dev)
+        f64 = [t.double() for t in (xg, w, h0, mask, dhs)]
+        ths, tst = gc.gru_forward_reference(*f64[:4])
+        tdxg, tdh0 = gc.gru_backward_reference(tst, ths, *f64[1:])
         line = []
-        for label, fwd in (("kernel", gc.gru_forward),
-                           ("plain", gc.gru_forward_reference)):
+        for label, fwd, bwd in (
+                ("kernel", gc.gru_forward, gc.gru_backward),
+                ("plain", gc.gru_forward_reference,
+                 gc.gru_backward_reference)):
             hs, st = fwd(xg, w, h0, mask)
+            dxg, dh0 = bwd(tst.float(), ths.float(), w, h0, mask, dhs)
             e = [float((hs.double() - ths).abs().max()),
                  float((st.double() - tst).abs().max())]
-            line.append("%s hs %.3g stash %.3g" % (label, e[0], e[1]))
+            be = [float((got.double() - want).abs().max()
+                        / want.abs().max())
+                  for got, want in ((dxg, tdxg), (dh0, tdh0))]
+            line.append("%s hs %.3g stash %.3g dxg %.3g dh0 %.3g" % (
+                (label,) + tuple(e + be)))
             if label == "kernel":
-                errs[T] = max(e)
+                errs["gru_fwd"][T] = max(e)
+                errs["gru_bwd"][T] = max(be)
                 assert_close("gru float64 T=%d hs" % T, hs.double(), ths,
                              LSTM_ATOL, LSTM_RTOL)
                 assert_close("gru float64 T=%d stash" % T, st.double(), tst,
                              LSTM_ATOL, LSTM_RTOL)
-        print("gru against float64 at [%d,%d,%d]: %s" % (
-            S2S_B, T, S2S["hidden_dim"], "; ".join(line)))
+                for name, a_, b_ in (("dxg", dxg, tdxg), ("dh0", dh0, tdh0)):
+                    assert_close("gru float64 T=%d %s" % (T, name),
+                                 a_.double(), b_,
+                                 LSTM_ATOL * max(1.0, float(b_.abs().max())),
+                                 LSTM_RTOL)
+        print("gru against float64 at [%d,%d,%d] (dxg, dh0: over their "
+              "largest magnitude): %s" % (S2S_B, T, S2S["hidden_dim"],
+                                          "; ".join(line)))
     t0, t1 = GRU_WITNESS_T[0], GRU_WITNESS_T[-1]
-    print("gru: the kernel's error against float64 from T=%d to T=%d: "
-          "%.3g -> %.3g (x%.2f)" % (t0, t1, errs[t0], errs[t1],
-                                    errs[t1] / errs[t0]))
-    if errs[t1] > 2 * errs[t0]:
-        raise AssertionError("gru: B5's error against float64 grows more "
-                             "than twofold from T=%d to T=%d" % (t0, t1))
+    for name, e in errs.items():
+        print("%s: the kernel's error against float64 from T=%d to T=%d: "
+              "%.3g -> %.3g (x%.2f)" % (name, t0, t1, e[t0], e[t1],
+                                        e[t1] / e[t0]))
+        if e[t1] > 2 * e[t0]:
+            raise AssertionError("%s: the error against float64 grows more "
+                                 "than twofold from T=%d to T=%d"
+                                 % (name, t0, t1))
     xg, w, h0, mask, dhs = gru_inputs(S2S_B, S2S_T, S2S["hidden_dim"], g,
                                       dev)
     runs = []
@@ -1705,28 +1753,31 @@ def main():
         bytes=4 * (2 * B * T * 4 * H + 3 * B * T * H + H * 4 * H + 2 * 3 * H
                    + 3 * B * H + B * T),
         flops=2 * B * T * 4 * H * H, tf32x3=True))
-    # B5 and B6 at the seq2seq path's shape, every step valid; B5 also at
+    # B5 and B6 at the seq2seq path's shape, every step valid, and at
     # T = GRU_SHORT_T: (t30 - t3) / 27 is a step's cost without the
     # launch and the blocks' set-up
     B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
     gru_t = {}
     for T_ in (GRU_SHORT_T, T):
         xg, w, h0, mask, dhs = gru_inputs(B, T_, H, g, dev, ragged=False)
-        gru_t[T_] = time_ms(lambda: gc.gru_forward(xg, w, h0, mask))
-    pl, card_pl = gc.launch_plan(B, H, sms), gc.card_plan(B, H, dev)
-    if card_pl != {k: pl[k] for k in card_pl}:
-        raise AssertionError("gru launch_plan %s != the kernel's %s"
-                             % (pl, card_pl))
-    print("gru_fwd at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
-          "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); %d blocks of 32 "
-          "rows x %d units, %d row groups in flight, %d shared bytes a "
-          "block; exchange through L2 %d bytes a step" % (
-              B, T, H, gru_t[T], gru_t[T] * 1e3 / T, GRU_SHORT_T,
-              gru_t[GRU_SHORT_T],
-              (gru_t[T] - gru_t[GRU_SHORT_T]) * 1e3 / (T - GRU_SHORT_T), T,
-              GRU_SHORT_T, T - GRU_SHORT_T, pl["blocks"], gc.UNITS,
-              pl["rows_in_flight"], pl["smem_bytes"], pl["exchange_bytes"]))
-    hs, stash = gc.gru_forward(xg, w, h0, mask)
+        hs, stash = gc.gru_forward(xg, w, h0, mask)
+        gru_t["gru_fwd", T_] = time_ms(lambda: gc.gru_forward(xg, w, h0, mask))
+        gru_t["gru_bwd", T_] = time_ms(
+            lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs))
+    for name in ("gru_fwd", "gru_bwd"):
+        pl, card_pl = (gc.launch_plan(name, B, H, sms),
+                       gc.card_plan(name, B, H, dev))
+        if card_pl != {k: pl[k] for k in card_pl}:
+            raise AssertionError("%s launch_plan %s != the kernel's %s"
+                                 % (name, pl, card_pl))
+        print("%s at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
+              "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); launch plan "
+              "%s (the card's gru_plan agrees)" % (
+                  name, B, T, H, gru_t[name, T], gru_t[name, T] * 1e3 / T,
+                  GRU_SHORT_T, gru_t[name, GRU_SHORT_T],
+                  (gru_t[name, T] - gru_t[name, GRU_SHORT_T]) * 1e3
+                  / (T - GRU_SHORT_T), T, GRU_SHORT_T, T - GRU_SHORT_T,
+                  json.dumps(pl)))
     cudnn_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
     x_gru = torch.randn(B, T, H, generator=g).to(dev)
     g_gru = torch.randn(B, T, H, generator=g).to(dev)
@@ -1739,9 +1790,19 @@ def main():
         out, _ = cudnn_gru(x_gru)
         out.backward(g_gru)
 
+    # the backward alone: the parameters frozen, one forward kept, and
+    # the gradient to the input only
+    frozen_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    frozen_gru.requires_grad_(False)
+    x_leaf = x_gru.clone().requires_grad_()
+    out_kept, _ = frozen_gru(x_leaf)
+
+    def cudnn_gru_bwd_data():
+        torch.autograd.grad(out_kept, x_leaf, g_gru, retain_graph=True)
+
     rows.append(dict(
         name="gru_fwd", shape="[64,30,512], all steps valid",
-        ms=gru_t[T],
+        ms=gru_t["gru_fwd", T],
         plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
         library_ms=time_ms(cudnn_gru_fwd),
         library="torch.nn.GRU (cuDNN) forward, input size 512: applies r "
@@ -1752,15 +1813,18 @@ def main():
         flops=2 * B * T * H * 3 * H, tf32x3=True))
     rows.append(dict(
         name="gru_bwd", shape="[64,30,512], all steps valid",
-        ms=time_ms(lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs)),
+        ms=gru_t["gru_bwd", T],
         plain_ms=time_ms(lambda: gc.gru_backward_reference(
             stash, hs, w, h0, mask, dhs)),
-        library_ms=time_ms(cudnn_gru_fwd_bwd),
-        library="torch.nn.GRU (cuDNN) forward plus backward, input size "
-                "512: r after the product, and also the input GEMMs and dW",
+        library_ms=time_ms(cudnn_gru_bwd_data),
+        library="cuDNN GRU backward-data, r after the product, includes dx "
+                "of the input GEMM (torch.nn.GRU, input size 512, its "
+                "parameters frozen, one forward kept, torch.autograd.grad "
+                "to the input); cuDNN GRU forward plus backward, with the "
+                "input GEMMs and dW, %.6f ms" % time_ms(cudnn_gru_fwd_bwd),
         bytes=4 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H
                    + 2 * B * H + B * T),
-        flops=2 * B * T * 3 * H * H))
+        flops=2 * B * T * 3 * H * H, tf32x3=True))
     # B7 at every distinct shape of the ResNet-50 path (kernel only), and
     # with its plain version and the library at the largest (the stem)
     # and the smallest; the activations exceed the L2, so no flush

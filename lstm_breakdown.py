@@ -1,8 +1,9 @@
-"""Where a step of the LSTM kernels (B3, B4) or of the GRU forward (B5),
-or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
+"""Where a step of the LSTM kernels (B3, B4) or of the GRU kernels (B5,
+B6), or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
 
     python3 lstm_breakdown.py            # B3 and B4 at [64, T, 512]
     python3 lstm_breakdown.py --gru      # B5 at [64, T, 512]
+    python3 lstm_breakdown.py --gru-bwd  # B6 at [64, T, 512]
     python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
 
 Builds variants of a kernel's source under ``paddle_tpu_torch/csrc/``
@@ -24,7 +25,12 @@ the difference of T is the cost of one step. Their variants:
 * ``nomma``: the tensor-core products are skipped;
 * ``nocell``: the cell updates are skipped (with ``nowait`` and
   ``nomma``);
-* ``nofence``: the release fence before a block's counter is skipped.
+* ``nofence``: the release fence before a block's counter is skipped;
+* ``nopartner`` (B6): no sums cross to the partner block of a cluster:
+  no store to its shared memory, no mbarrier arrival or wait.
+
+B6 is timed on a stash that the kernels' own forward wrote; the
+variants change the backward's library only.
 
 The difference of a variant's step from the kernels' own is what that
 part costs on the step's chain.
@@ -72,6 +78,12 @@ GRU_WAIT = "rs::wait_count(&%s[rg * nch + c], producers(c) * (t + 1));"
 ARRIVE = ('  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: '
           '"memory");\n')
 WAIT = '  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");\n'
+PARTNER = ("    rs::st_remote(xpart + (n & 1) * rs::kThreads + tid, 1 - hf, "
+           "other);\n"
+           "    __syncthreads();   // partials read, the partner's sums "
+           "stored\n"
+           "    if (tid == 0) rs::mbar_arrive_remote(xbar, 1 - hf);\n"
+           "    rs::mbar_wait_cluster(xbar, n & 1);\n")
 EDITS = {
     "nowait": [("if (v >= target) return;", "return;")],
     "nowait_h": [(GRU_WAIT % "hflag", "(void)c;")],
@@ -85,6 +97,7 @@ EDITS = {
                    ("      if (live) {\n        c = tanhf(",
                     "      if (0) {\n        c = tanhf(")],
     "nofence": [(FENCE, "  atomicAdd(counter, 1u);")],
+    "nopartner": [(PARTNER, "    __syncthreads();   // partials read\n")],
     "stages4": [("constexpr int kDecStages = 2;",
                  "constexpr int kDecStages = 4;")],
     "n1": [("int n = 1;\n  while (n < kDecMaxCluster",
@@ -109,6 +122,10 @@ GRU_VARIANTS = {"kernels": [], "nowait": ["nowait"],
                 "nomma": ["nomma"], "nowait+nomma": ["nowait", "nomma"],
                 "nowait+nomma+nocell": ["nowait", "nomma", "nocell_gru"],
                 "nofence": ["nofence"]}
+GRU_BWD_VARIANTS = {"kernel": [], "nomma": ["nomma"], "nowait": ["nowait"],
+                    "nofence": ["nofence"], "nopartner": ["nopartner"],
+                    "nowait+nomma+nopartner": ["nowait", "nomma",
+                                               "nopartner"]}
 DECODE_VARIANTS = {"kernel": [], **{name: [name] for name in (
     "stages4", "n1", "n4", "noload", "nomerge", "empty")}}
 B, H = 64, 512
@@ -225,6 +242,29 @@ def gru(out_dir, dev, g):
             flush=True)
 
 
+def gru_bwd(out_dir, dev, g):
+    t_short, t_long = 3, 30
+    inputs = {}
+    for T in (t_short, t_long):
+        xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
+        w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
+        h0 = torch.randn(B, H, generator=g) * 0.1
+        dhs = torch.randn(B, T, H, generator=g)
+        xg, w, h0, mask, dhs = (t.to(dev) for t in (xg, w, h0,
+                                                     torch.ones(B, T), dhs))
+        hs, stash = gc.gru_forward(xg, w, h0, mask)
+        inputs[T] = (stash, hs, w, h0, mask, dhs)
+    libs = build(out_dir, "gru_cell", GRU_BWD_VARIANTS)
+    for name, lib in libs.items():
+        _build._libs["gru_cell"] = lib
+        ms = {T: time_ms(lambda: gc.gru_backward(*args))
+              for T, args in inputs.items()}
+        print("%-24s bwd %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
+            name, ms[t_long], t_long, ms[t_short], t_short,
+            (ms[t_long] - ms[t_short]) * 1e3 / (t_long - t_short)),
+            flush=True)
+
+
 def decode(out_dir, dev, g):
     libs = build(out_dir, "flash_attention", DECODE_VARIANTS)
     b, h, s, d = DECODE_SHAPE
@@ -262,6 +302,8 @@ def main():
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--gru", action="store_true",
                       help="break down B5 (gru_fwd) instead of B3 and B4")
+    mode.add_argument("--gru-bwd", action="store_true",
+                      help="break down B6 (gru_bwd) instead")
     mode.add_argument("--decode", action="store_true",
                       help="break down B2 (flash_decode) instead")
     args = ap.parse_args()
@@ -271,7 +313,9 @@ def main():
     out_dir = os.path.join(REPO, "build", "lstm_breakdown")
     os.makedirs(out_dir, exist_ok=True)
     g = torch.Generator().manual_seed(0)
-    (decode if args.decode else gru if args.gru else lstm)(out_dir, dev, g)
+    run = (decode if args.decode else gru if args.gru
+           else gru_bwd if args.gru_bwd else lstm)
+    run(out_dir, dev, g)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

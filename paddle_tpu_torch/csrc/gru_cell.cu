@@ -62,143 +62,69 @@
 //   pallas_call in `_bwd_pallas`): walks t downwards from the stash,
 //   hs, h0, mask and dhs to dxg [B, T, 3H] = [da_u | da_r | da_c] (zero
 //   on masked steps) and dh0 [B, H]:
-//     dh     = dhs_t + dh carry
+//     dh     = dhs_t + (dhm_{t+1} + da_ur_{t+1} w_ur^T)
 //     da_c   = m dh (1 - u)(1 - c^2)
 //     drh    = da_c w_c^T
 //     da_u   = m dh (h_{t-1} - c) u (1 - u)
 //     da_r   = m drh h_{t-1} r (1 - r)
-//     dh_{t-1} = (dh u + drh r) m + (1 - m) dh + [da_u | da_r] w_ur^T
-//   dW is two GEMMs outside the kernel, as in the JAX package.
-//   Bound at the path's shape: the same 3.02 GFLOP (the two products
-//   per step), ~45 us; it moves ~35 MB, ~10 us. Bound by operations.
-//   Design: block j owns units [4j, 4j+4) and keeps their ROWS of W
-//   (3H x 4 floats, 24 KB at H=512), transposed k-major, in shared
-//   memory. drh needs all of a row's da_c, and dh_{t-1} all of its
-//   da_ur, so each step has two phases and two barriers:
-//   A. (with the dh_{t-1} product of the step above, whose result this
-//      same thread owns) form dh, da_c of each (row, unit) of the
-//      block; write da_c to dxg and unit-major to a scratch in L2.
-//   B. copy da_c of every unit into shared memory in 64-row tiles, form
-//      drh [64, 4] of the block's units, then da_u, da_r and the masked
-//      part of dh_{t-1}; write da_u, da_r to dxg and unit-major to
-//      scratch.
-//   After the last step, one more product forms dh0. 2T barriers.
+//     dhm_t  = (dh u + drh r) m + (1 - m) dh
+//   and dh0 = dhm_0 + da_ur_0 w_ur^T. dW is two GEMMs outside the
+//   kernel, as in the JAX package.
+//   Bound at the path's shape: the same 3.02 GFLOP as gru_fwd (the two
+//   products a step), 18.3 us as 3xTF32; it moves ~35 MB, ~10 us. In
+//   practice bound by the chain of T steps, each of two dependent
+//   products: the carry needs da_ur of every unit of its row, drh da_c
+//   of every unit.
+//   Design: gru_fwd's rounds in reverse, with lstm_bwd's cluster pair
+//   for the product of K = 2H. A cluster of two blocks shares 16 units
+//   of a 32-row group; each block runs the cells of its own 8 (a row
+//   group takes 2 ceil(H/16) blocks: 128 at the path's shape, 2 row
+//   groups x 32 pairs x 2). Each block keeps, split once into 3xTF32
+//   fragments in shared memory, w_ur^T over its half of K for the
+//   pair's 16 units (block `hf` takes w_u^T or w_r^T: 64 KB at H=512)
+//   and w_c^T over K = H for its own 8 units (32 KB). A step of a row
+//   group:
+//   A. the carry: da_ur(t+1) of the row group, half hf, times the
+//      half's w^T: [32, H] x [H, 16] as 3xTF32 mma.sync.m16n8k8, each
+//      32-deep stage in fresh accumulators added by FADD; the block
+//      keeps its own 8 units' sums and stores the partner's 8 in the
+//      partner's shared memory, then arrives on its mbarrier; the carry
+//      is half 0's sum + half 1's, in that order in both blocks (none
+//      at t = T-1). Then dh and da_c of each owned (row, unit); da_c
+//      into the da_c exchange tile, a release, and then dxg's da_c;
+//   B. drh: da_c(t) of every unit of the row group times w_c^T:
+//      [32, H] x [H, 8]; da_u, da_r and dhm_t; da_u and da_r into the
+//      da_ur exchange tile, a release, and only then dxg's.
+//   After step 0 one more round A on da_ur(0) forms dh0.
+//   Each consuming lane fetches its own fragments with 16-byte
+//   cp.async; a warp waits (acquire) on the counter of each 128-unit
+//   chunk it is about to copy. The counters, per (row group, chunk) of
+//   each tile, only grow. Each tile is single-buffered. A block writes
+//   da_c only after its round A has waited for every chunk of da_ur,
+//   whose producers published it after their round B had read all of
+//   da_c; and it writes da_ur only after its round B has waited for
+//   every chunk of da_c, whose producers published it after their own
+//   round A had read da_ur and had taken their partner's sums, which
+//   the partner sent after its own round A. (A block past H, the second
+//   of the last pair when 16 does not divide H, runs no cell and no
+//   round B and publishes nothing: its partner's release covers it.)
+//   dhm of the owned (row, unit)s stays in registers for the first two
+//   row groups a block runs, in `carry` past them. No float atomics:
+//   two runs give the same bits; a wait that lasts 10 s traps.
 //
-// gru_bwd's reads of data that other blocks wrote in this launch go
-// through L2 (__ldcg), never a stale L1 line. It checks that its grid
-// can be resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// and returns cudaErrorCooperativeLaunchTooLarge otherwise: H <= 528 on
-// an H100 (132 SMs, one block of ~170 KB of shared memory each). gru_fwd
-// takes H <= 864 (its W slice in shared memory) and ceil(H/8) <= the
-// SMs; past either it returns cudaErrorCooperativeLaunchTooLarge.
+// Both entry points check that their grid can be resident at once and
+// return cudaErrorCooperativeLaunchTooLarge otherwise (gru_plan): on an
+// H100, gru_fwd takes H <= 864 (its W slice in shared memory) and
+// ceil(H/8) <= the SMs, gru_bwd H <= 856 and 2 ceil(H/16) <= the SMs.
 // ---------------------------------------------------------------------
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "rnn_step.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
-
-constexpr int kU = 4;            // hidden units owned by one block
-constexpr int kBT = 64;          // batch rows per tile
-constexpr int kThreads = 256;    // = kBT * kU: one per (row, unit)
-constexpr int kLoads = 8;        // 16-byte loads in flight per thread
-constexpr int kRed = 4096;       // floats of the K-slice partials
-
-static_assert(kThreads == kBT * kU, "one thread per (row, unit)");
-
-// acc[i][j] = sum over k = k0, k0 + dk, ... < K of a[k*lda + i] * b[k*ldb + j]
-// (a 4x4 register tile of a product whose operands are stored k-major
-// in shared memory; a and b 16-byte aligned)
-__device__ __forceinline__ void mma4x4(float (&acc)[4][4], const float* a,
-                                       int lda, const float* b, int ldb,
-                                       int k0, int K, int dk) {
-#pragma unroll 4
-  for (int k = k0; k < K; k += dk) {
-    const float4 av = *reinterpret_cast<const float4*>(a + (size_t)k * lda);
-    const float4 bv = *reinterpret_cast<const float4*>(b + (size_t)k * ldb);
-    const float ai[4] = {av.x, av.y, av.z, av.w};
-    const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-  }
-}
-
-// Copy rows [b0, b0 + 64) of a unit-major global buffer src [K][Bp]
-// (written by other blocks in this launch: read through L2) into
-// dst [K][64] in shared memory. Bp is a multiple of 64.
-__device__ __forceinline__ void stage(float* dst, const float* src, int b0,
-                                      int K, int Bp) {
-  constexpr int kRow4 = kBT / 4;
-  const int n4 = K * kRow4;
-  const float4* s = reinterpret_cast<const float4*>(src + b0);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int base = 0; base < n4; base += kThreads * kLoads) {
-    float4 v[kLoads];
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int q = base + j * kThreads + threadIdx.x;
-      if (q < n4) v[j] = __ldcg(s + (size_t)(q / kRow4) * (Bp / 4) + q % kRow4);
-    }
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int q = base + j * kThreads + threadIdx.x;
-      if (q < n4) d[q] = v[j];
-    }
-  }
-}
-
-// The [64, NC] product of a staged tile a [K][64] and b [K][NC] (both
-// k-major in shared memory), accumulated into acc: 4x4 register tiles
-// over kK = 256 / (16 * NC / 4) K-slices. Call finish<NC>() after the
-// last accumulation to sum the slices.
-template <int NC>
-struct TileProduct {
-  static constexpr int kTiles = (kBT / 4) * (NC / 4);
-  static constexpr int kK = kThreads / kTiles;
-  static_assert(kK * kBT * NC == kRed, "partials fill the reduction buffer");
-  int rq, cq, ks;
-  float acc[4][4];
-
-  __device__ __forceinline__ TileProduct() {
-    const int q = threadIdx.x % kTiles;
-    ks = threadIdx.x / kTiles;
-    rq = q / (NC / 4);
-    cq = q % (NC / 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ __forceinline__ void add(const float* a, const float* b, int K) {
-    mma4x4(acc, a + 4 * rq, kBT, b + 4 * cq, NC, ks, K, kK);
-  }
-
-  // write the partials to red [kK][64][NC]; after a __syncthreads,
-  // sum(red, row, col) is the product's element
-  __device__ __forceinline__ void store(float* red) const {
-    float* r = red + ((size_t)ks * kBT + 4 * rq) * NC + 4 * cq;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(r + i * NC) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-
-  static __device__ __forceinline__ float sum(const float* red, int row,
-                                              int col) {
-    float s = 0.f;
-#pragma unroll
-    for (int f = 0; f < kK; ++f) s += red[((size_t)f * kBT + row) * NC + col];
-    return s;
-  }
-};
 
 // =====================================================================
 // gru_fwd (B5)
@@ -413,165 +339,301 @@ cudaError_t fwd_plan(int B, int H, int sms, int* out) {
 // gru_bwd (B6)
 // =====================================================================
 
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_kernel(const float* __restrict__ stash, const float* __restrict__ hs,
-               const float* __restrict__ w, const float* __restrict__ h0,
-               const float* __restrict__ mask, const float* __restrict__ dhs,
-               float* __restrict__ dxg, float* __restrict__ dh0,
-               float* __restrict__ scratch, int B, int T, int H) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* wuT = smem;                         // [H][4]: W[unit][k], u part
-  float* wrT = wuT + (size_t)H * 4;          // [H][4]: r part
-  float* wcT = wrT + (size_t)H * 4;          // [H][4]: c part
-  float* tile = wcT + (size_t)H * 4;         // [H][kBT]
-  float* red = tile + (size_t)H * kBT;       // [kRed]
-  cg::grid_group grid = cg::this_grid();
+constexpr int kPairNT = 2;   // round A: the n8 tiles of a pair's 16 units
 
-  const int tid = threadIdx.x;
-  const int u0 = blockIdx.x * kU;
-  const size_t G3 = 3 * (size_t)H;
-  const int Bp = (B + kBT - 1) / kBT * kBT;
-  // scratch: da_c, da_u, da_r unit-major [3][H][Bp] (rows past B stay
-  // zero), then dh and the masked part of dh_{t-1}, [2][B][H]
-  float* dacT = scratch;
-  float* dauT = dacT + (size_t)H * Bp;
-  float* darT = dauT + (size_t)H * Bp;
-  float* dhb = darT + (size_t)H * Bp;
-  float* dhm = dhb + (size_t)B * H;
+struct BwdArgs {
+  const float* stash;
+  const float* hs;
+  const float* w;
+  const float* h0;
+  const float* mask;
+  const float* dhs;
+  float* dxg;
+  float* dh0;
+  float* carry;      // [B][H]: dhm past rs::kRegTiles
+  float* urx;        // [RG][2 halves][2][nks][32][4]: da_u | da_r, zero-filled
+  float* cx;         // [RG][2][nks][32][4]: da_c, zero-filled
+  unsigned* flags;   // [2][RG][nch]: da_c's counters, then da_ur's; zeroed
+  int B, T, H, nch, RG, RGB, UGp;
+};
 
-  for (int idx = tid; idx < H * 4; idx += kThreads) {
-    const int k = idx / 4, u = u0 + idx % 4;
-    const bool ok = u < H;
-    const float* row = w + (size_t)u * G3;
-    wuT[idx] = ok ? row[k] : 0.f;
-    wrT[idx] = ok ? row[H + k] : 0.f;
-    wcT[idx] = ok ? row[2 * (size_t)H + k] : 0.f;
+// the cell's inputs of (row b, unit) at step t (zeros off the edge)
+struct BwdIn {
+  float u, r, c, hp, m, dhs;
+};
+__device__ __forceinline__ BwdIn load_bwd(const BwdArgs& a, int t, int b,
+                                          int unit) {
+  BwdIn v = {};
+  if (b < a.B && unit < a.H) {
+    const int H = a.H;
+    const size_t bt = (size_t)b * a.T + t;
+    const float* st = a.stash + bt * 3 * H;
+    v.u = st[unit];
+    v.r = st[H + unit];
+    v.c = st[2 * (size_t)H + unit];
+    v.hp = t ? a.hs[(bt - 1) * H + unit] : a.h0[(size_t)b * H + unit];
+    v.m = a.mask[bt];
+    v.dhs = a.dhs[bt * H + unit];
   }
+  return v;
+}
 
-  const int cb = tid / kU, cu = tid % kU;
-  const int unit = u0 + cu;
+__global__ void __launch_bounds__(rs::kThreads, 1)
+gru_bwd_kernel(BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
+  const int nks = (H + 7) / 8;
+  const size_t G3 = 3 * (size_t)H;
+  const size_t tile = (size_t)2 * nks * 128;   // floats of a K = H tile
+  float4* wur = smem4;                          // w_ur^T fragments, half hf
+  float4* wc = wur + (size_t)nks * kPairNT * 32;   // w_c^T fragments
+  // per warp: its two chunk slots, which then take its partial sums
+  float4* slots = wc + (size_t)nks * kCNT * 32;
+  float* part = reinterpret_cast<float*>(slots);
+  // the partner's sums for this block's cells, two rounds' buffers
+  float* xpart = reinterpret_cast<float*>(slots + rs::kWarps * 2 * rs::kSlot);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(xpart + 2 * rs::kThreads);
+  unsigned* cflag = a.flags;
+  unsigned* urflag = a.flags + (size_t)a.RG * nch;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the pair (a cluster of two) shares units [16 p, 16 p + 16): block
+  // `hf` runs the cells of [16 p + 8 hf, + 8) and forms round A over
+  // half hf of K = 2H (da_u, or da_r) for all 16
+  const int hf = (int)rs::cluster_rank();
+  const int pair = blockIdx.x % a.UGp / 2, rgb = blockIdx.x / a.UGp;
+  const int p16 = 2 * rs::kUnits * pair;
+  const int u0 = p16 + rs::kUnits * hf;
+  const bool has_units = u0 < H;
+  const int my_chunk = u0 / rs::kKC;
+
+  // w_ur^T over half hf: column n is unit p16 + n, row k is gate column
+  // hf H + k; w_c^T: column n is unit u0 + n, row k gate column 2H + k
+  rs::stage_w<kPairNT>(wur, nks, [&](int k, int n) {
+    const int u = p16 + n;
+    return (k < H && u < H) ? a.w[(size_t)u * G3 + (size_t)hf * H + k] : 0.f;
+  });
+  rs::stage_w<kCNT>(wc, nks, [&](int k, int n) {
+    const int u = u0 + n;
+    return (k < H && u < H) ? a.w[(size_t)u * G3 + 2 * (size_t)H + k] : 0.f;
+  });
+  if (tid == 0) rs::mbar_init(xbar, 1);
+  __syncthreads();
+  rs::cluster_sync();   // the partner's mbarrier exists before any arrival
+
+  const int r = tid / rs::kUnits, uu = tid % rs::kUnits;   // the cell
+  const int unit = u0 + uu;
   const bool unit_ok = unit < H;
+  // the blocks that publish chunk c: one for each 8 of its units
+  auto producers = [&](int c) {
+    return (unsigned)((min(rs::kKC, H - c * rs::kKC) + rs::kUnits - 1) /
+                      rs::kUnits);
+  };
+  const int grp = warp / 4, kw = warp % 4;   // chunk parity, slice
+  float4* my_slots = slots + warp * 2 * rs::kSlot;
+  unsigned n = 0;   // rounds A with a product: the mbarrier's phases
 
-  // dh_{t} of (b, unit) from step t + 1's da_ur: the carry product, then
-  // the masked part phase B of step t + 1 left in dhm. The caller stages
-  // da_u and da_r of rows [b0, b0 + 64); every thread takes part.
-  auto carry = [&](int b0, bool live, int b) -> float {
-    TileProduct<4> p;
-    stage(tile, dauT, b0, H, Bp);
+  // Round A's product for row group rg once da_ur is published `target`
+  // times: the carry of this thread's (row, unit), half 0's sum first.
+  // Every thread of the block takes part.
+  auto carry_of = [&](int rg, unsigned target) -> float {
+    float acc[2][kPairNT][4] = {};
+    rs::warp_product<kPairNT>(
+        a.urx + ((size_t)rg * 2 + hf) * tile, nks, H, nch, grp, kw, wur,
+        my_slots, lane,
+        [&](int c) {
+          rs::wait_count(&urflag[rg * nch + c], producers(c) * target);
+        },
+        acc);
+    rs::store_partial<kPairNT>(part + warp * rs::kPart, lane, acc);
     __syncthreads();
-    p.add(tile, wuT, H);
-    __syncthreads();
-    stage(tile, darT, b0, H, Bp);
-    __syncthreads();
-    p.add(tile, wrT, H);
-    p.store(red);
-    __syncthreads();
-    const float d = live ? dhm[(size_t)b * H + unit] +
-                               TileProduct<4>::sum(red, cb, cu)
-                         : 0.f;
-    __syncthreads();  // red and the tile are consumed
-    return d;
+    const int row = r * rs::part_ld<kPairNT>();
+    const float mine = rs::sum_partials(part, rs::kPart,
+                                        row + rs::kUnits * hf + uu);
+    const float other = rs::sum_partials(part, rs::kPart,
+                                         row + rs::kUnits * (1 - hf) + uu);
+    rs::st_remote(xpart + (n & 1) * rs::kThreads + tid, 1 - hf, other);
+    __syncthreads();   // partials read, the partner's sums stored
+    if (tid == 0) rs::mbar_arrive_remote(xbar, 1 - hf);
+    rs::mbar_wait_cluster(xbar, n & 1);
+    const float got = xpart[(n & 1) * rs::kThreads + tid];
+    ++n;
+    return hf == 0 ? mine + got : got + mine;
   };
 
-  for (int t = T - 1; t >= 0; --t) {
-    // ---- phase A: dh_{t} (the carry from step t + 1), da_c ----
-    for (int b0 = 0; b0 < B; b0 += kBT) {
-      const int b = b0 + cb;
-      const bool live = b < B && unit_ok;
-      const float dh_c = t < T - 1 ? carry(b0, live, b) : 0.f;
+  float dhmreg[rs::kRegTiles] = {};
+  BwdIn cur = load_bwd(a, T - 1, rgb * rs::kRows + r, unit);
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s;
+    int rl = 0;
+    for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl) {
+      const int b = rg * rs::kRows + r;
+      const bool live = unit_ok && b < B;
+      const size_t bt = (size_t)(live ? b : 0) * T + t;
+      const size_t bu = (size_t)(live ? b : 0) * H + unit;
+      const BwdIn in = cur;
+      {
+        // the next round's cell inputs, loaded while this round runs
+        int rg2 = rg + a.RGB, s2 = s;
+        if (rg2 >= a.RG) rg2 = rgb, ++s2;
+        if (s2 < T) cur = load_bwd(a, T - 1 - s2, rg2 * rs::kRows + r, unit);
+      }
+      float* cx = a.cx + rg * tile;
+      float* urx = a.urx + rg * 2 * tile;
+
+      // ---- round A: dh from the carry of step t + 1, then da_c ----
+      const float car = s ? carry_of(rg, (unsigned)s) : 0.f;
+      float dh = 0.f, da_c = 0.f;
       if (live) {
-        const size_t bt = (size_t)b * T + t;
-        const float u = stash[bt * G3 + unit];
-        const float c = stash[bt * G3 + 2 * (size_t)H + unit];
-        const float m = mask[bt];
-        const float dh = dhs[bt * H + unit] + dh_c;
-        const float da_c = m * dh * (1.f - u) * (1.f - c * c);
-        dxg[bt * G3 + 2 * (size_t)H + unit] = da_c;
-        dacT[(size_t)unit * Bp + b] = da_c;
-        dhb[(size_t)b * H + unit] = dh;
+        float dhm = 0.f;
+        if (s) {
+          if (rl < rs::kRegTiles) {
+#pragma unroll
+            for (int i = 0; i < rs::kRegTiles; ++i)
+              if (rl == i) dhm = dhmreg[i];
+          } else {
+            dhm = a.carry[bu];
+          }
+        }
+        dh = in.dhs + (dhm + car);
+        da_c = in.m * dh * (1.f - in.u) * (1.f - in.c * in.c);
+        cx[rs::frag_idx(r, unit, nks)] = da_c;
+      }
+      __syncthreads();   // da_c in the exchange
+      if (tid == 0 && has_units) rs::publish(&cflag[rg * nch + my_chunk]);
+      if (live) a.dxg[bt * G3 + 2 * (size_t)H + unit] = da_c;
+
+      // ---- round B: drh from da_c of every unit, then da_u, da_r ----
+      if (has_units) {
+        float acc[2][kCNT][4] = {};
+        rs::warp_product<kCNT>(
+            cx, nks, H, nch, grp, kw, wc, my_slots, lane,
+            [&](int c) {
+              rs::wait_count(&cflag[rg * nch + c], producers(c) * (s + 1));
+            },
+            acc);
+        rs::store_partial<kCNT>(part + warp * rs::kPart, lane, acc);
+        __syncthreads();
+        float da_u = 0.f, da_r = 0.f;
+        if (live) {
+          const float drh = rs::sum_partials(
+              part, rs::kPart, r * rs::part_ld<kCNT>() + uu);
+          da_u = in.m * dh * (in.hp - in.c) * in.u * (1.f - in.u);
+          da_r = in.m * drh * in.hp * in.r * (1.f - in.r);
+          const float dhm = (dh * in.u + drh * in.r) * in.m + (1.f - in.m) * dh;
+          if (rl < rs::kRegTiles) {
+#pragma unroll
+            for (int i = 0; i < rs::kRegTiles; ++i)
+              if (rl == i) dhmreg[i] = dhm;
+          } else {
+            a.carry[bu] = dhm;
+          }
+          urx[rs::frag_idx(r, unit, nks)] = da_u;
+          urx[tile + rs::frag_idx(r, unit, nks)] = da_r;
+        }
+        __syncthreads();   // partials read, da_ur in the exchange
+        if (tid == 0) rs::publish(&urflag[rg * nch + my_chunk]);
+        // the outputs after the release, which waits for no more than
+        // the exchange
+        if (live) {
+          a.dxg[bt * G3 + unit] = da_u;
+          a.dxg[bt * G3 + H + unit] = da_r;
+        }
       }
     }
-    grid.sync();  // da_c of every unit of step t is in dacT
+  }
 
-    // ---- phase B: drh, da_u, da_r, the masked part of dh_{t-1} ----
-    for (int b0 = 0; b0 < B; b0 += kBT) {
-      const int b = b0 + cb;
-      const bool live = b < B && unit_ok;
-      stage(tile, dacT, b0, H, Bp);
-      __syncthreads();
-      TileProduct<4> p;
-      p.add(tile, wcT, H);
-      p.store(red);
-      __syncthreads();
-      if (live) {
-        const size_t bt = (size_t)b * T + t;
-        const float drh = TileProduct<4>::sum(red, cb, cu);
-        const float u = stash[bt * G3 + unit];
-        const float r = stash[bt * G3 + H + unit];
-        const float c = stash[bt * G3 + 2 * (size_t)H + unit];
-        const float h_prev =
-            t ? hs[(bt - 1) * H + unit] : h0[(size_t)b * H + unit];
-        const float m = mask[bt];
-        const float dh = dhb[(size_t)b * H + unit];
-        const float da_u = m * dh * (h_prev - c) * u * (1.f - u);
-        const float da_r = m * drh * h_prev * r * (1.f - r);
-        dxg[bt * G3 + unit] = da_u;
-        dxg[bt * G3 + H + unit] = da_r;
-        dauT[(size_t)unit * Bp + b] = da_u;
-        darT[(size_t)unit * Bp + b] = da_r;
-        dhm[(size_t)b * H + unit] = (dh * u + drh * r) * m + (1.f - m) * dh;
+  // dh0: one more round A, on da_ur(0)
+  int rl = 0;
+  for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl) {
+    const float car = carry_of(rg, (unsigned)T);
+    const int b = rg * rs::kRows + r;
+    if (unit_ok && b < B) {
+      const size_t bu = (size_t)b * H + unit;
+      float dhm = 0.f;
+      if (rl < rs::kRegTiles) {
+#pragma unroll
+        for (int i = 0; i < rs::kRegTiles; ++i)
+          if (rl == i) dhm = dhmreg[i];
+      } else {
+        dhm = a.carry[bu];
       }
-      __syncthreads();  // the tile's shared memory is consumed
+      a.dh0[bu] = dhm + car;
     }
-    grid.sync();  // da_u, da_r of every unit of step t are in scratch
   }
-
-  // dh0: the carry out of step 0
-  for (int b0 = 0; b0 < B; b0 += kBT) {
-    const int b = b0 + cb;
-    const bool live = b < B && unit_ok;
-    const float d = carry(b0, live, b);
-    if (live) dh0[(size_t)b * H + unit] = d;
-  }
+  rs::cluster_sync();   // no block leaves while its partner may address it
 }
 
-size_t smem_bytes(int H) {
-  return ((size_t)H * 12 + (size_t)H * kBT + kRed) * sizeof(float);
+size_t bwd_smem(int H) {
+  const size_t nks = (H + 7) / 8;
+  return nks * (kPairNT + kCNT) * 512 +
+         (size_t)rs::kWarps * 2 * rs::kSlot * 16 + 2 * rs::kThreads * 4 +
+         sizeof(uint64_t);
 }
 
-// Set the kernel's shared memory and check that `blocks` of it can be
-// resident at once, as a cooperative launch needs.
-cudaError_t prepare(const void* kernel, int blocks, size_t smem) {
+// B6's launch plan on a card of `sms` SMs, one block an SM: out[0]
+// blocks, out[1] row groups in flight at once, out[2] row groups a block
+// runs a step, out[3] shared bytes a block. A row group takes two
+// blocks, a cluster, for each 16 units; as many row groups run at once
+// as the SMs and the card's resident clusters hold.
+cudaError_t bwd_plan(int B, int H, int sms, int* out) {
+  const size_t smem = bwd_smem(H);
+  const int per = 2 * ((H + 2 * rs::kUnits - 1) / (2 * rs::kUnits));
+  const int RG = (B + rs::kRows - 1) / rs::kRows;
+  if (smem > kMaxSmem || per > sms) return cudaErrorCooperativeLaunchTooLarge;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(per);
+  cfg.blockDim = dim3(rs::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_kernel,
+                                          &cfg)) != cudaSuccess)
+    return e;
+  const int rows = min(RG, min(sms, 2 * clusters) / per);
+  if (!rows) return cudaErrorCooperativeLaunchTooLarge;
+  out[0] = per * rows;
+  out[1] = rows;
+  out[2] = (RG + rows - 1) / rows;
+  out[3] = (int)smem;
+  return cudaSuccess;
+}
+
+// the card's SM count, or an error where it takes no cooperative launch
+cudaError_t card_sms(int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
   if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
                                   dev)) != cudaSuccess)
     return e;
-  if (!coop) return cudaErrorNotSupported;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return e;
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
-  return cudaSuccess;
+  return coop ? cudaSuccess : cudaErrorNotSupported;
 }
 
 }  // namespace
 
 extern "C" {
 
-// B5's launch plan at (B, H) on a card of `sms` SMs: out[0] blocks,
-// out[1] row groups of 32 rows in flight, out[2] row groups a block runs
-// a step, out[3] shared bytes a block (kernels.gru_cell.launch_plan
-// mirrors it).
-cudaError_t gru_plan(int B, int H, int sms, int* out) {
-  return fwd_plan(B, H, sms, out);
+// The launch plan of gru_fwd (kind 0) or gru_bwd (kind 1) at (B, H) on
+// a card of `sms` SMs: out[0] cluster size, out[1] blocks, out[2] row
+// groups of 32 rows in flight, out[3] row groups a block runs a step,
+// out[4] shared bytes a block (kernels.gru_cell.launch_plan mirrors it).
+cudaError_t gru_plan(int kind, int B, int H, int sms, int* out) {
+  out[0] = kind == 0 ? 1 : 2;
+  return kind == 0 ? fwd_plan(B, H, sms, out + 1)
+                   : bwd_plan(B, H, sms, out + 1);
 }
 
 // xg [B,T,3H], w [H,3H], h0 [B,H], mask [B,T]; outputs hs [B,T,H] and
@@ -583,16 +645,9 @@ cudaError_t gru_fwd(const float* xg, const float* w, const float* h0,
                     float* rx, unsigned* flags, int B, int T, int H,
                     cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0, p[4];
+  int sms = 0, per_sm = 0, p[4];
   cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                  dev)) != cudaSuccess)
-    return e;
-  if (!coop) return cudaErrorNotSupported;
+  if ((e = card_sms(&sms)) != cudaSuccess) return e;
   if ((e = fwd_plan(B, H, sms, p)) != cudaSuccess) return e;
   if ((e = cudaFuncSetAttribute(gru_fwd_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -624,23 +679,41 @@ cudaError_t gru_fwd(const float* xg, const float* w, const float* h0,
 }
 
 // stash [B,T,3H], hs [B,T,H], w [H,3H], h0 [B,H], mask [B,T], dhs
-// [B,T,H]; outputs dxg [B,T,3H] and dh0 [B,H]; scratch is 3*H*Bp + 2*B*H
-// floats, zero-filled.
+// [B,T,H]; outputs dxg [B,T,3H] and dh0 [B,H]; carry [B,H] is scratch;
+// urx [RG,2,2,nks,32,4], cx [RG,2,nks,32,4] and flags [2,RG,nch] are
+// zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8), nch =
+// ceil(H/128)).
 cudaError_t gru_bwd(const float* stash, const float* hs, const float* w,
                     const float* h0, const float* mask, const float* dhs,
-                    float* dxg, float* dh0, float* scratch, int B, int T,
-                    int H, cudaStream_t stream) {
+                    float* dxg, float* dh0, float* carry, float* urx,
+                    float* cx, unsigned* flags, int B, int T, int H,
+                    cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
-  const int blocks = (H + kU - 1) / kU;
-  const size_t smem = smem_bytes(H);
-  cudaError_t e = prepare((const void*)gru_bwd_kernel, blocks, smem);
-  if (e != cudaSuccess) return e;
-  void* args[] = {&stash, &hs, &w, &h0, &mask, &dhs,
-                  &dxg, &dh0, &scratch, &B, &T, &H};
-  e = cudaLaunchCooperativeKernel((const void*)gru_bwd_kernel, blocks,
-                                  kThreads, args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  int sms = 0, p[4];
+  cudaError_t e;
+  if ((e = card_sms(&sms)) != cudaSuccess) return e;
+  if ((e = bwd_plan(B, H, sms, p)) != cudaSuccess) return e;
+  BwdArgs a;
+  a.stash = stash;
+  a.hs = hs;
+  a.w = w;
+  a.h0 = h0;
+  a.mask = mask;
+  a.dhs = dhs;
+  a.dxg = dxg;
+  a.dh0 = dh0;
+  a.carry = carry;
+  a.urx = urx;
+  a.cx = cx;
+  a.flags = flags;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.nch = (H + rs::kKC - 1) / rs::kKC;
+  a.RG = (B + rs::kRows - 1) / rs::kRows;
+  a.RGB = p[1];
+  a.UGp = p[0] / p[1];
+  return rs::launch(gru_bwd_kernel, a, 2, p[0], p[3], stream);
 }
 
 }  // extern "C"

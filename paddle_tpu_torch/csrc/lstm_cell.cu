@@ -96,8 +96,9 @@
 // entry points return cudaErrorCooperativeLaunchTooLarge when not even
 // one row group's blocks can be resident at once.
 //
-// The blocking, the exchange, the product, the counters and the launch
-// are shared with gru_cell.cu's forward (B5) through rnn_step.cuh.
+// The blocking, the exchange, the product, the counters, the pair's
+// exchange and the launch are shared with gru_cell.cu's kernels (B5, B6)
+// through rnn_step.cuh.
 // ---------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -110,71 +111,9 @@
 namespace {
 
 using namespace rnn_step;
-using tf32x3::smem_u32;
 
 constexpr int kFwdNT = 4;                // fwd: n8 tiles (gates) of W
 constexpr int kBwdNT = 2;                // bwd: n8 tiles (units of a pair)
-
-// ---- the pair of lstm_bwd: cluster rank, barrier, mbarrier, stores ----
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::
-          : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-// arrive, with release at cluster scope, on the mbarrier at b's offset
-// in the cluster's block `rank`
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* b,
-                                                   unsigned rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(smem_u32(b)), "r"(rank));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          r)
-      : "memory");
-}
-// wait, with acquire at cluster scope, for the phase of parity `parity`
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* b,
-                                                  unsigned parity) {
-  const unsigned a = smem_u32(b);
-  unsigned ok = 0;
-  unsigned long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (ok) return;
-    check_hang(t0);
-  }
-}
-// store v at p's offset in the cluster's block `rank`
-__device__ __forceinline__ void st_remote(float* p, unsigned rank, float v) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(v)
-               : "memory");
-}
 
 // =====================================================================
 // lstm_fwd (B3)
@@ -423,10 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
     return (u < H && k < H2) ? a.w[(size_t)u * G4 + (size_t)hf * H2 + k]
                              : 0.f;
   });
-  if (tid == 0) {
-    mbar_init(xbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) mbar_init(xbar, 1);
   __syncthreads();
   cluster_sync();   // the partner's mbarrier exists before any arrival
 

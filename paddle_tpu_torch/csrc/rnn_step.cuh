@@ -1,11 +1,13 @@
 // The pieces of a persistent recurrent kernel that the LSTM kernels
-// (lstm_cell.cu, B3 and B4) and the GRU forward (gru_cell.cu, B5) share:
-// the blocking (32 batch rows x 8 units a block, 8 warps), the exchange
-// tile in mma A-fragment order, W split once into 3xTF32 fragments in
-// shared memory, one warp's share of a row group's product fed by
-// cp.async through a ring of two chunk slots, the warps' partial sums,
-// the release/acquire step counters with a wait that traps instead of
-// hanging, and the cooperative launch in clusters.
+// (lstm_cell.cu, B3 and B4) and the GRU kernels (gru_cell.cu, B5 and
+// B6) share: the blocking (32 batch rows x 8 units a block, 8 warps),
+// the exchange tile in mma A-fragment order, W split once into 3xTF32
+// fragments in shared memory, one warp's share of a row group's product
+// fed by cp.async through a ring of two chunk slots, the warps' partial
+// sums, the release/acquire step counters with a wait that traps instead
+// of hanging, the pair of blocks of a cluster of two (B4, B6: the
+// partner's sums stored in its shared memory, an mbarrier arrival) and
+// the cooperative launch in clusters.
 // Sources include it by its relative name; kernels/_build.py hashes it
 // with every source, so an edit here rebuilds them all.
 
@@ -22,6 +24,7 @@ using tf32x3::cp16;
 using tf32x3::cp_commit;
 using tf32x3::cp_wait;
 using tf32x3::mma;
+using tf32x3::smem_u32;
 using tf32x3::split;
 
 constexpr int kWarps = 8;                // warps of a block
@@ -86,6 +89,70 @@ __device__ __forceinline__ void wait_count(const unsigned* counter,
     if (v >= target) return;
     check_hang(t0);
   }
+}
+
+// ---- a cluster of two blocks: rank, barrier, mbarrier, remote stores ----
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+// one arrival completes a phase; a fence makes the barrier visible to
+// the cluster (the caller's cluster_sync follows, before any arrival)
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive, with release at cluster scope, on the mbarrier at b's offset
+// in the cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* b,
+                                                   unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(b)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          r)
+      : "memory");
+}
+// wait, with acquire at cluster scope, for the phase of parity `parity`
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* b,
+                                                  unsigned parity) {
+  const unsigned a = smem_u32(b);
+  unsigned ok = 0;
+  unsigned long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (ok) return;
+    check_hang(t0);
+  }
+}
+// store v at p's offset in the cluster's block `rank`
+__device__ __forceinline__ void st_remote(float* p, unsigned rank, float v) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(r), "f"(v)
+               : "memory");
 }
 
 __device__ __forceinline__ float sigm(float x) {

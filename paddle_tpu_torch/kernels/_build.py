@@ -46,8 +46,8 @@ SOURCES = {
     },
     "gru_cell": {
         "gru_fwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
-        "gru_plan": ([_I] * 3 + [_P], _I),
-        "gru_bwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "gru_plan": ([_I] * 4 + [_P], _I),
+        "gru_bwd": ([_P] * 12 + [_I] * 3 + [_P], _I),
     },
     "bn_grad": {
         "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),

@@ -24,26 +24,29 @@ unchanged and gets no gate gradient). Per step::
   is two GEMMs outside it, as in the JAX package. float32 only;
   anything else raises, and a refused launch raises;
 * a CPU tensor runs the plain versions beside the kernels: the step
-  loop :func:`gru_forward_reference`, whose two products are summed in
-  the forward kernel's blocking (the LSTM kernels', ``lstm_cell._product``:
-  K in chunks of 128, each 32-deep slice a stage summed apart, the
-  slices' sums added in warp order), and :func:`gru_backward_reference`,
+  loop :func:`gru_forward_reference` and :func:`gru_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
-  not autograd of the forward);
+  not autograd of the forward). Every product of both is summed in the
+  kernels' blocking (the LSTM kernels', ``lstm_cell._product``: K in
+  chunks of 128, each 32-deep slice a stage summed apart, the slices'
+  sums added in warp order); the backward's carry da_ur w_ur^T as the
+  two halves of a cluster pair form it, half 0 (da_u w_u^T) first
+  (``lstm_cell._bwd_product``);
 * a meta tensor returns outputs of the right shape.
 
 ``launches`` counts kernel launches per kernel; plain-version calls do
-not count. :func:`launch_plan` is the forward kernel's launch plan (row
-groups of 32 rows, blocks of 8 units, residency), a pure function of the
-shape and the card's SM count; :func:`card_plan` reads the kernel's own.
+not count. :func:`launch_plan` is a kernel's launch plan (cluster size,
+row groups of 32 rows, blocks, residency), a pure function of the shape
+and the card's SM count; :func:`card_plan` reads the kernel's own.
 """
 
 import torch
 
 from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS
-from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, ROWS, _check,
-                                                _check_float, _product,
-                                                _raise_on, _stages, _stream)
+from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, ROWS, _bwd_product,
+                                                _check, _check_float,
+                                                _product, _raise_on, _stages,
+                                                _stream)
 
 __all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
            "gru_forward", "gru_backward", "launch_plan", "card_plan",
@@ -52,20 +55,24 @@ __all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
 #: kernel name -> launches since the last reset_launches()
 launches = {"gru_fwd": 0, "gru_bwd": 0}
 
-# the backward kernel's batch tile: unit-major scratch rows are padded to
-# it
-_BT = 64
-#: the forward kernel's blocking (``rnn_step.cuh`` and ``gru_cell.cu``),
-#: which launch_plan restates: a block runs the cells of ROWS rows x
-#: UNITS units with WARPS warps (a row group of ROWS rows takes
-#: ceil(H / UNITS) blocks), holds UR_TILES n8 tiles of W's u and r
-#: columns and C_TILES of its candidate's, FRAG_BYTES a tile and a k8
-#: step (a float4 of big and small fragments for each of 32 lanes), and
-#: gives each warp two exchange slots of SLOT float4s
+#: the kernels' blocking (``rnn_step.cuh`` and ``gru_cell.cu``), which
+#: launch_plan restates: a block runs the cells of ROWS rows x UNITS
+#: units with WARPS warps and gives each warp two exchange slots of SLOT
+#: float4s; its W fragments take FRAG_BYTES an n8 tile and a k8 step (a
+#: float4 of big and small fragments for each of 32 lanes). The forward
+#: holds UR_TILES n8 tiles of W's u and r columns and C_TILES of its
+#: candidate's (a row group takes ceil(H / UNITS) blocks). The backward
+#: runs in clusters of PAIR blocks that share PAIR x UNITS units: each
+#: holds UR_TILES n8 tiles of w_ur^T (the pair's units over its half of
+#: K) and C_TILES of w_c^T (its own units), and PARTNER_BYTES for the
+#: partner's sums of two rounds (a float a thread each) and an mbarrier
 UNITS, WARPS = 8, 8
 UR_TILES, C_TILES = 2, 1
 FRAG_BYTES = 32 * 16
 SLOT = 2 * 4 * 32
+PAIR = 2
+PARTNER_BYTES = 2 * 32 * WARPS * 4 + 8
+
 
 def reset_launches():
     for k in launches:
@@ -104,11 +111,15 @@ def gru_forward_reference(xg, w, h0, mask):
 def gru_backward_reference(stash, hs, w, h0, mask, dhs):
     """Plain version of the backward kernel, step by step from t = T-1
     down: the gate gradients from the stash, h_{t-1} and the dh carry,
-    then dh_{t-1} = (dh u + drh r) m + (1 - m) dh + da_ur w_ur^T, with
-    drh = da_c w_c^T. Returns ``(dxg [B, T, 3H], dh0 [B, H])``."""
+    with drh = da_c w_c^T, then the carry dh_{t-1} = ((dh u + drh r) m +
+    (1 - m) dh) + da_ur w_ur^T; both products summed in the kernel's
+    blocking, the second as two halves, da_u w_u^T first. Returns
+    ``(dxg [B, T, 3H], dh0 [B, H])``."""
     b, t_len, g3 = stash.shape
     h = g3 // 3
-    w_ur, w_c = w[:, :2 * h], w[:, 2 * h:]
+    wt = w.t()
+    wc = _stages(wt[2 * h:])
+    wur = (_stages(wt[:h]), _stages(wt[h:2 * h]))
     dh_c = stash.new_zeros((b, h))
     dxg = stash.new_zeros((b, t_len, g3))
     for t in range(t_len - 1, -1, -1):
@@ -118,12 +129,13 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs):
         m = mask[:, t, None].to(stash.dtype)
         dh = dhs[:, t] + dh_c
         da_c = m * dh * (1 - u) * (1 - c * c)
-        drh = da_c @ w_c.t()
+        drh = _product(da_c, wc)
         da_u = m * dh * (h_prev - c) * u * (1 - u)
         da_r = m * drh * h_prev * r * (1 - r)
         da_ur = torch.cat([da_u, da_r], dim=-1)
         dxg[:, t] = torch.cat([da_ur, da_c], dim=-1)
-        dh_c = (dh * u + drh * r) * m + (1 - m) * dh + da_ur @ w_ur.t()
+        dh_c = ((dh * u + drh * r) * m + (1 - m) * dh
+                + _bwd_product(da_ur, wur))
     return dxg, dh_c
 
 
@@ -131,39 +143,50 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def launch_plan(b, h, sms=H100_SMS):
-    """The forward kernel's launch plan at (b, h) on a card of ``sms``
-    SMs, a copy of ``gru_plan`` in ``csrc/gru_cell.cu`` that the CPU
-    tests can call (the card test
+def launch_plan(kind, b, h, sms=H100_SMS):
+    """The launch plan of ``"gru_fwd"`` or ``"gru_bwd"`` at (b, h) on a
+    card of ``sms`` SMs, a copy of ``gru_plan`` in ``csrc/gru_cell.cu``
+    that the CPU tests can call (the card test
     ``test_cuda_gru_launch_plan_matches_the_kernels`` holds the two to
     the same numbers). One block an SM: a row group of ROWS rows takes
-    ceil(h / UNITS) blocks, each holding its units' columns of W in
-    shared memory; as many row groups run at once as the SMs hold, the
-    rest in turn. Returns the blocks, the row groups in flight, the row
-    groups a block runs a step (``rounds``), the shared bytes a block and
-    the exchange bytes a step (each block reads its row group's h_{t-1}
-    and r h_{t-1} from L2). Raises ValueError where the blocks cannot be
-    resident: W's slice past H100_MAX_SMEM, or a row group wider than
-    the SMs."""
+    ceil(h / UNITS) blocks (the forward) or PAIR blocks, a cluster, for
+    each PAIR x UNITS units (the backward), each holding its slices of W
+    in shared memory; as many row groups run at once as the SMs hold,
+    the rest in turn. Returns the cluster size, the blocks, the row
+    groups in flight, the row groups a block runs a step (``rounds``),
+    the shared bytes a block and the exchange bytes a step that L2 sends
+    to shared memory: each forward block reads its row group's h_{t-1}
+    and r h_{t-1}; each backward block its half of da_ur and, where it
+    has units, all of da_c. Raises ValueError where the blocks cannot be
+    resident: shared memory past H100_MAX_SMEM, or a row group wider
+    than the SMs."""
     nks = -(-h // 8)                     # k8 steps of the products
-    smem = (nks * (UR_TILES + C_TILES) * FRAG_BYTES
-            + WARPS * 2 * SLOT * 16)
-    per = -(-h // UNITS)
     rg = -(-b // ROWS)
+    cells = -(-h // UNITS)               # blocks that run cells
+    slots = WARPS * 2 * SLOT * 16
+    if kind == "gru_fwd":
+        cluster = 1
+        smem = nks * (UR_TILES + C_TILES) * FRAG_BYTES + slots
+        per = cells
+    else:
+        cluster = PAIR
+        smem = nks * (UR_TILES + C_TILES) * FRAG_BYTES + slots + PARTNER_BYTES
+        per = PAIR * -(-h // (PAIR * UNITS))
     if smem > H100_MAX_SMEM or per > sms:
         raise ValueError(
-            "gru_fwd: H %d needs %d blocks of %d shared bytes a row group, "
+            "%s: H %d needs %d blocks of %d shared bytes a row group, "
             "past %d resident (one an SM, at most %d bytes)"
-            % (h, per, smem, sms, H100_MAX_SMEM))
+            % (kind, h, per, smem, sms, H100_MAX_SMEM))
     rows = min(rg, sms // per)
-    # two tiles a block a step, ROWS rows x the k8 steps' 8 units each
+    # a tile of ROWS rows x the k8 steps' 8 units
     tile = ROWS * 8 * nks * 4
-    return dict(blocks=per * rows, rows_in_flight=rows,
+    reads = 2 * per if kind == "gru_fwd" else per + cells
+    return dict(cluster=cluster, blocks=per * rows, rows_in_flight=rows,
                 rounds=-(-rg // rows), smem_bytes=smem,
-                exchange_bytes=rg * per * 2 * tile)
+                exchange_bytes=rg * reads * tile)
 
 
-def card_plan(b, h, device=None):
+def card_plan(kind, b, h, device=None):
     """The kernel's own plan (``gru_plan``) on the card: the keys of
     :func:`launch_plan` but the exchange bytes. Raises where the kernel
     would refuse the launch."""
@@ -175,12 +198,14 @@ def card_plan(b, h, device=None):
     dev = torch.device(device) if device is not None else torch.device(
         "cuda", torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = (ctypes.c_int * 4)()
-    rc = lib.gru_plan(b, h, sms, ctypes.addressof(out))
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        rc = lib.gru_plan(0 if kind == "gru_fwd" else 1, b, h, sms,
+                          ctypes.addressof(out))
     _raise_on(rc, "gru_plan")
-    blocks, rows, rounds, smem = list(out)
-    return dict(blocks=blocks, rows_in_flight=rows, rounds=rounds,
-                smem_bytes=smem)
+    cluster, blocks, rows, rounds, smem = list(out)
+    return dict(cluster=cluster, blocks=blocks, rows_in_flight=rows,
+                rounds=rounds, smem_bytes=smem)
 
 
 def _fwd_cuda(xg, w, h0, mask):
@@ -229,16 +254,23 @@ def _bwd_cuda(stash, hs, w, h0, mask, dhs):
     dxg = torch.empty_like(stash)
     # zero-filled: a sequence of no steps leaves it untouched
     dh0 = torch.zeros((b, h), dtype=torch.float32, device=dev)
-    bp = -(-b // _BT) * _BT
-    # da_c, da_u, da_r unit-major [3, H, Bp] (padding rows stay zero),
-    # then dh and the masked part of dh_{t-1}, [2, B, H]
-    scratch = torch.zeros((3 * h * bp + 2 * b * h,), dtype=torch.float32,
-                          device=dev)
+    # dhm past the row groups whose carries stay in registers
+    carry = torch.empty((b, h), dtype=torch.float32, device=dev)
+    # the exchanges of da_ur (two halves, da_u and da_r) and da_c, one
+    # tile a row group in A-fragment order each, then the counters the
+    # blocks publish them with, [2, RG, chunks]: one zero-filled buffer
+    # (padding rows and units stay zero)
+    rg, nks, nch = -(-b // ROWS), -(-h // 8), -(-h // CHUNK)
+    tile = rg * 2 * nks * 128
+    buf = torch.zeros((3 * tile + 2 * rg * nch,), dtype=torch.float32,
+                      device=dev)
+    flags = buf[3 * tile:].view(torch.int32)
     with torch.cuda.device(dev):
         rc = lib.gru_bwd(stash.data_ptr(), hs.data_ptr(), w.data_ptr(),
                          h0.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
-                         dxg.data_ptr(), dh0.data_ptr(), scratch.data_ptr(),
-                         b, t_len, h, _stream(dev))
+                         dxg.data_ptr(), dh0.data_ptr(), carry.data_ptr(),
+                         buf.data_ptr(), buf[2 * tile:].data_ptr(),
+                         flags.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, "gru_bwd")
     launches["gru_bwd"] += 1
     return dxg, dh0

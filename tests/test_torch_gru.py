@@ -76,10 +76,15 @@ def test_forward_plain_matches_jax_kernel(shape):
     assert torch.equal(rhs, ths)
 
 
-@pytest.mark.parametrize("shape", [(6, 8, 32), (5, 3, 8)])
+@pytest.mark.parametrize("shape", [(6, 8, 32), (5, 3, 8), (4, 3, 200)])
 def test_backward_plain_matches_jax_vjp(shape):
+    """H = 200: a partial chunk of 128, a partial stage and an odd pair
+    (the second block of the last pair has no unit); _setup's masks are
+    ragged."""
     T, B, H = shape
     xg, w, h0, mask = _setup(T=T, B=B, H=H)
+    if H > 32:
+        w = w * 0.3
     dhs = np.random.RandomState(5).randn(B, T, H).astype(np.float32)
 
     def jf(xg, w, h0):
@@ -135,27 +140,73 @@ def test_forward_plain_sums_like_the_kernel_and_like_one_matmul():
     assert stash.shape == (5, 6, 600)
 
 
+def test_backward_plain_sums_like_the_kernel_and_like_one_matmul():
+    """gru_backward_reference sums drh and the carry in the backward
+    kernel's blocking (chunks of 128, 32-deep stages, warp order; the
+    carry as two halves of K = 2H, da_u w_u^T first); at H = 200 (a
+    partial chunk, a partial stage, an odd pair) it agrees with the step
+    loop of plain matmuls to float32 rounding."""
+    xg, w, h0, mask = (_t(a) for a in _setup(T=6, B=5, H=200, seed=3))
+    w = w * 0.3
+    h = 200
+    hs, stash = tcell.gru_forward_reference(xg, w, h0, mask)
+    dhs = torch.randn(hs.shape, generator=torch.Generator().manual_seed(1))
+    dxg, dh0 = tcell.gru_backward_reference(stash, hs, w, h0, mask, dhs)
+    dh_c, want = torch.zeros(5, h), torch.zeros(5, 6, 3 * h)
+    for t in range(5, -1, -1):
+        u, r, c = stash[:, t, :h], stash[:, t, h:2 * h], stash[:, t, 2 * h:]
+        h_prev = hs[:, t - 1] if t else h0
+        m = mask[:, t, None]
+        dh = dhs[:, t] + dh_c
+        da_c = m * dh * (1 - u) * (1 - c * c)
+        drh = da_c @ w[:, 2 * h:].t()
+        da_ur = torch.cat([m * dh * (h_prev - c) * u * (1 - u),
+                           m * drh * h_prev * r * (1 - r)], dim=-1)
+        want[:, t] = torch.cat([da_ur, da_c], dim=-1)
+        dh_c = ((dh * u + drh * r) * m + (1 - m) * dh
+                + da_ur @ w[:, :2 * h].t())
+    _close(dxg, want, 1e-5, atol=1e-6, what="dxg")
+    _close(dh0, dh_c, 1e-5, atol=1e-6, what="dh0")
+    assert not dxg[mask == 0].any()
+
+
 def test_launch_plan_cuts_the_path_shape_into_row_groups():
     """B5 at the seq2seq path's [64, T, 512] on an H100 (132 SMs): 2 row
     groups of 32 rows x 64 blocks of 8 units = 128 blocks, both row
     groups at once, 160 KB of shared memory a block; each block reads
-    its row group's h_{t-1} and r h_{t-1} a step. Past residency (W's
-    slice beyond 227 KB, or a row group wider than the SMs) it raises."""
-    plan = tcell.launch_plan(64, 512, sms=132)
-    assert plan == dict(blocks=128, rows_in_flight=2, rounds=1,
+    its row group's h_{t-1} and r h_{t-1} a step. B6 at the same shape:
+    2 row groups x 32 pairs of blocks in clusters of two = 128 blocks,
+    both at once; each block reads its half of da_ur and all of da_c, as
+    many bytes as B5 reads. Past residency (shared memory beyond 227 KB,
+    or a row group wider than the SMs) each raises."""
+    plan = tcell.launch_plan("gru_fwd", 64, 512, sms=132)
+    assert plan == dict(cluster=1, blocks=128, rows_in_flight=2, rounds=1,
                         smem_bytes=163840,
                         exchange_bytes=2 * 64 * 2 * 32 * 512 * 4)
     assert plan["smem_bytes"] <= tcell.H100_MAX_SMEM
+    bwd = tcell.launch_plan("gru_bwd", 64, 512, sms=132)
+    assert bwd == dict(cluster=2, blocks=128, rows_in_flight=2, rounds=1,
+                       smem_bytes=163840 + 2 * 256 * 4 + 8,
+                       exchange_bytes=plan["exchange_bytes"])
+    assert bwd["exchange_bytes"] == 16777216
     # more rows than fit at once: row groups take turns
-    big = tcell.launch_plan(200, 512, sms=132)
-    assert (big["blocks"], big["rows_in_flight"], big["rounds"]) == \
-        (128, 2, 4)
-    assert tcell.launch_plan(3, 20, sms=132)["blocks"] == 3
-    assert tcell.launch_plan(64, 864, sms=132)["blocks"] == 108
+    for kind in ("gru_fwd", "gru_bwd"):
+        big = tcell.launch_plan(kind, 200, 512, sms=132)
+        assert (big["blocks"], big["rows_in_flight"], big["rounds"]) == \
+            (128, 2, 4)
+    assert tcell.launch_plan("gru_fwd", 3, 20, sms=132)["blocks"] == 3
+    # an odd pair: the second block of the last one has no unit
+    assert tcell.launch_plan("gru_bwd", 3, 20, sms=132)["blocks"] == 4
+    assert tcell.launch_plan("gru_fwd", 64, 864, sms=132)["blocks"] == 108
+    assert tcell.launch_plan("gru_bwd", 64, 856, sms=132)["blocks"] == 108
     with pytest.raises(ValueError, match="resident"):
-        tcell.launch_plan(64, 872, sms=132)     # W's slice past 227 KB
+        tcell.launch_plan("gru_fwd", 64, 872, sms=132)   # W past 227 KB
     with pytest.raises(ValueError, match="resident"):
-        tcell.launch_plan(64, 512, sms=63)      # 64 blocks a row group
+        tcell.launch_plan("gru_bwd", 64, 864, sms=132)   # past 227 KB
+    with pytest.raises(ValueError, match="resident"):
+        tcell.launch_plan("gru_fwd", 64, 512, sms=63)    # 64 blocks a group
+    with pytest.raises(ValueError, match="resident"):
+        tcell.launch_plan("gru_bwd", 64, 512, sms=63)
 
 
 def test_meta_tensors_get_shapes_only():

@@ -313,8 +313,11 @@ def _gru_inputs(B, T, H, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 5, 32), (64, 30, 512), (37, 17, 128),
-                                   (70, 6, 40)])
+                                   (70, 6, 40), (33, 11, 200)])
 def test_cuda_gru_matches_plain(cuda, shape):
+    """H 40 and 200 are no multiple of 16: the second block of B6's last
+    pair has no unit; the masks are ragged, with an empty and a full
+    row."""
     xg, w, h0, mask, dhs = _gru_inputs(*shape, 2, cuda)
     n = dict(gru_cell.launches)
     hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
@@ -334,21 +337,33 @@ def test_cuda_gru_matches_plain(cuda, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 30, 512), (200, 4, 64)])
 def test_cuda_gru_two_runs_agree_to_the_bit(cuda, shape):
-    """No float atomics in B5: every sum has a fixed order."""
-    xg, w, h0, mask, _ = _gru_inputs(*shape, 5, cuda)
-    runs = [gru_cell.gru_forward(xg, w, h0, mask) for _ in range(2)]
+    """No float atomics in B5 or B6: every sum has a fixed order."""
+    xg, w, h0, mask, dhs = _gru_inputs(*shape, 5, cuda)
+    runs = []
+    for _ in range(2):
+        hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+        runs.append((hs, stash) + gru_cell.gru_backward(stash, hs, w, h0,
+                                                        mask, dhs))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gru_fwd", "gru_bwd"])
 @pytest.mark.parametrize("shape", [(64, 512), (200, 512), (3, 20),
-                                   (64, 864)])
-def test_cuda_gru_launch_plan_matches_the_kernels(cuda, shape):
+                                   (64, 856), (64, 864)])
+def test_cuda_gru_launch_plan_matches_the_kernels(cuda, shape, kind):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    plan = gru_cell.launch_plan(*shape, sms=sms)
-    card = gru_cell.card_plan(*shape, cuda)
+    if (kind, shape) == ("gru_bwd", (64, 864)):
+        # past B6's shared memory: both plans refuse it
+        with pytest.raises(ValueError, match="resident"):
+            gru_cell.launch_plan(kind, *shape, sms=sms)
+        with pytest.raises(RuntimeError, match="gru_plan"):
+            gru_cell.card_plan(kind, *shape, cuda)
+        return
+    plan = gru_cell.launch_plan(kind, *shape, sms=sms)
+    card = gru_cell.card_plan(kind, *shape, cuda)
     assert card == {k: plan[k] for k in card}
     if shape == (64, 512):
         assert (plan["blocks"], plan["rows_in_flight"]) == (128, 2)
@@ -380,14 +395,22 @@ def test_cuda_gru_raises_on_what_the_kernels_do_not_take(cuda):
     # the SMs; W's slice past 227 KB from H = 872) the cooperative grid
     # cannot launch: the wrapper raises, never runs the plain version
     big = 8 * torch.cuda.get_device_properties(cuda).multi_processor_count + 8
-    xg, w, h0, mask, _ = _gru_inputs(2, 2, big, 5, cuda)
+    xg, w, h0, mask, dhs = _gru_inputs(2, 2, big, 5, cuda)
     with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
         gru_cell.gru_forward(xg, w, h0, mask)
-    with pytest.raises(ValueError, match="resident"):
-        gru_cell.launch_plan(2, big)
+    with pytest.raises(RuntimeError, match="gru_bwd launch failed"):
+        gru_cell.gru_backward(xg, dhs, w, h0, mask, dhs)
+    for kind in ("gru_fwd", "gru_bwd"):
+        with pytest.raises(ValueError, match="resident"):
+            gru_cell.launch_plan(kind, 2, big)
     xg, w, h0, mask, _ = _gru_inputs(2, 2, 872, 5, cuda)
     with pytest.raises(RuntimeError, match="gru_fwd launch failed"):
         gru_cell.gru_forward(xg, w, h0, mask)
+    # B6's slices of W, its slots and the partner's sums pass 227 KB
+    # from H = 864
+    xg, w, h0, mask, dhs = _gru_inputs(2, 2, 864, 5, cuda)
+    with pytest.raises(RuntimeError, match="gru_bwd launch failed"):
+        gru_cell.gru_backward(xg, dhs, w, h0, mask, dhs)
 
 
 def _close(got, want, rtol, atol_of_max):
