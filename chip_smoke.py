@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's four main paths through the entry points a user
+Drives the port's main paths through the entry points a user
 calls, on random weights and data made from ``--seed``:
 
 * KV-cached decode serving of the transformer LM at the repo's full
@@ -23,7 +23,18 @@ calls, on random weights and data made from ``--seed``:
   ``FLAGS_fused_conv1x1_bwd`` on, whose 1x1 stride-1 convolutions
   launch the fused dx+dw kernel in their backward). The two kernels
   cannot fire in one program: the first takes NHWC only, the second
-  NCHW only.
+  NCHW only;
+* the same ResNet-50 as bench.py runs convnets: bf16 AMP
+  (``amp.enable``) in config C "bench" (``passes.enable(prog,
+  layout="NHWC", epilogue_fusion=True, pallas_reductions=True)``: 49
+  fused ``conv2d_bn_act_grad`` and 4 ``batch_norm_grad`` launch the
+  batch-norm backward in bfloat16) and config D
+  "nchw+fused1x1+epilogue" (``epilogue_fusion=True`` and
+  ``FLAGS_fused_conv1x1_bwd``: 26 of the 30 1x1 stride-1 convolutions
+  launch the fused 1x1 backward in bfloat16 inside the fused op's
+  grad); and VGG-16 (config C's passes, 13 batch-norm backwards a
+  step), GoogLeNet (NCHW with the flag, 37 fused 1x1 backwards a step),
+  AlexNet and SmallNet, all under AMP at bench.py's full widths.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -45,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    float64 at T = 20, 40 and 80 and the GRU kernels at T = 10, 20 and
    30, beside their float32 plain versions, and run twice to the same
    bits; the GRU kernels also at the widest H the backward's launch
-   plan admits on the card);
+   plan admits on the card; the batch-norm backward in bfloat16 at
+   every distinct shape of config C, the fused 1x1 backward's config-D
+   shapes shown to be config B's);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -65,15 +78,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights at lr 0.01 whose loss falls at every step, a profile of one
    step, and the card against the CPU, and A against B again, at the
    ``resnet_cifar`` size (32x32, 10 classes, batch 8);
-8. time each kernel, its plain version and one PyTorch library call at
+8. bench.py's convnet configuration: C against D on the card from the
+   same weights under AMP (first-step loss and every gradient, at the
+   bf16 bounds), then each config's 2 warmup and 10 counted steps as in
+   7 (launch counts derived from the transformed program, and those
+   made inside ``conv2d_bn_act``'s grad counted apart), the card against
+   the CPU at the ``resnet_cifar`` size, and C against D there; then
+   VGG-16, GoogLeNet, AlexNet and SmallNet at full width, batch 64,
+   2 warmup and 5 counted steps each (exact launch counts, a finite
+   loss that comes under the first counted one);
+9. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
    over the valid prefix and the masked call over the whole cache; the
    flash-attention forward at six shapes, the fused 1x1 backward at
    every distinct shape of the ResNet-50 path, the LSTM kernels at T = 8
    and 80 and the GRU kernels at T = 3 and 30 for their cost a step,
-   with their launch plans), and profile the decode step;
-9. print the kernel table as one JSON line, then the result line.
+   with their launch plans; the batch-norm and fused 1x1 backwards
+   also in bfloat16 at every distinct shape of configs C and D, beside
+   their plain versions and the library's bfloat16 calls), and profile
+   the decode step;
+10. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -95,8 +120,9 @@ import torch.nn.functional as F
 # and float32 FLOP/s outside the tensor cores (the FMA kernels' path)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# dense TF32 tensor-core FLOP/s (the same data sheet)
+# dense TF32 and BF16 tensor-core FLOP/s (the same data sheet)
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 # full width: the repo's decode-serving configuration
 VOCAB, D_MODEL, N_LAYERS, N_HEADS = 8192, 512, 8, 8
@@ -165,6 +191,42 @@ RESNET_GTOL, RESNET_PL2TOL, RESNET_L2TOL = 5e-3, 2e-3, 4e-4
 # per-parameter norm carries the check (a gradient 5% wrong fails it)
 RESNET_AB_GTOL, RESNET_AB_PL2TOL, RESNET_AB_L2TOL = 1e-1, 2e-2, 2e-3
 
+# bench.py's convnet configuration: bf16 AMP (bench.py:303-304) and its
+# pass A/B's pipeline (bench.py:2237-2250)
+BENCH_PASSES = dict(layout="NHWC", epilogue_fusion=True,
+                    pallas_reductions=True)
+# Two bf16 runs' gradients (C against D, the card against the CPU):
+# the bf16 convolutions of two implementations accumulate differently,
+# and at the resnet_cifar size the gradients lie 0.13-0.14 from their
+# float32 values in relative L2 norm in the JAX package and in this one
+# alike (tests/test_torch_amp.py), single bias gradients, which nearly
+# cancel, up to 0.3: first-step losses rtol 1e-2, each gradient within
+# 0.5 of its own L2 norm, all together within 0.2 (PERF.md section 2)
+AMP_LTOL, AMP_PL2TOL, AMP_L2TOL = 1e-2, 0.5, 0.2
+# the other convnets at full width under AMP, batch RESNET_B: bench.py's
+# builders (bench.py:55-124) with their optimizers and lrs; VGG-16 in
+# bench.py's pass configuration, GoogLeNet NCHW with the fused 1x1
+# backward; want = (B7, B8) launches a step
+OTHER_MODELS = (
+    ("vgg16", dict(module="vgg", build="build_vgg16_train",
+                   image=(3, 224, 224), classes=1000, passes=BENCH_PASSES,
+                   flag=False, want=(13, 0))),
+    ("googlenet", dict(module="googlenet", build="build_googlenet_train",
+                       image=(3, 224, 224), classes=1000, flag=True,
+                       want=(0, 37))),
+    ("alexnet", dict(module="alexnet", build="build_alexnet_train",
+                     image=(3, 227, 227), classes=1000, flag=False,
+                     want=(0, 0))),
+    ("smallnet", dict(module="smallnet", build="build_smallnet_train",
+                      image=(3, 32, 32), classes=10, flag=False,
+                      want=(0, 0))))
+OTHER_WARMUP, OTHER_STEPS = 2, 5
+# further steps allowed for their loss to come under the first counted
+# one (dropout draws a new mask each step)
+OTHER_SETTLE_STEPS = 30
+# the batch-norm backward's three kernels (partial sums, finalize, dx)
+B7_KERNELS = ("bn_partial", "bn_finalize", "bn_dx")
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -193,7 +255,7 @@ BF16_RTOL, BF16_AMAX = 1e-2, 4e-3
 BN_SHAPES = ((64, 112, 112, 64), (64, 7, 7, 2048), (5, 7, 9, 24),
              (3, 5, 7, 6))
 # (B, Ci, H, W, Co): B8 is checked at every distinct shape of the
-# ResNet-50 path (derived from the program: c1_path_shapes) and at these,
+# ResNet-50 path (derived from the program: transformed_launches) and at these,
 # where no dimension fills a tile
 C1_EXTRA_SHAPES = ((3, 24, 5, 7, 40),)
 # dw chunk lengths (positions) of the precision sweep at 64 -> 256 @ 56x56
@@ -207,7 +269,9 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "gru_fwd": "paddle_tpu_torch/csrc/gru_cell.cu",
            "gru_bwd": "paddle_tpu_torch/csrc/gru_cell.cu",
            "bn_grad": "paddle_tpu_torch/csrc/bn_grad.cu",
-           "conv1x1_bwd": "paddle_tpu_torch/csrc/conv1x1_bwd.cu"}
+           "conv1x1_bwd": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
+           "bn_grad_bf16": "paddle_tpu_torch/csrc/bn_grad.cu",
+           "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
             "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
@@ -215,7 +279,9 @@ REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "gru_fwd": "paddle_tpu/kernels/gru_cell.py:67",
             "gru_bwd": "paddle_tpu/kernels/gru_cell.py:143",
             "bn_grad": "paddle_tpu/kernels/bn_grad.py:72",
-            "conv1x1_bwd": "paddle_tpu/kernels/conv1x1_bwd.py:85"}
+            "conv1x1_bwd": "paddle_tpu/kernels/conv1x1_bwd.py:85",
+            "bn_grad_bf16": "paddle_tpu/kernels/bn_grad.py:72",
+            "conv1x1_bwd_bf16": "paddle_tpu/kernels/conv1x1_bwd.py:85"}
 
 
 def phase(name):
@@ -338,7 +404,8 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
     """Profile ``n_steps`` calls of ``step`` with torch.profiler and print
     the card's busy share of ``step_ms`` (host wall time per step, taken
     without the profiler), the top-10 device kernels and, for
-    ``share_of``, the device time of the kernels whose name holds it."""
+    ``share_of`` (a name or a tuple of names), the device time of the
+    kernels whose name holds one."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -367,12 +434,15 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
         print("  device %-70s %9.1f us/step %6.1f calls/step" % (
             name[:70], us / n_steps, n / n_steps))
     if share_of is not None:
-        us = sum(u for k, (u, _) in by_kernel.items() if share_of in k)
-        n = sum(c for k, (_, c) in by_kernel.items() if share_of in k)
+        names = (share_of,) if isinstance(share_of, str) else share_of
+        mine = [v for k, v in by_kernel.items()
+                if any(n_ in k for n_ in names)]
+        us = sum(u for u, _ in mine)
+        n = sum(c for _, c in mine)
         print("%s: %s %.3f ms/step in %.1f launches/step, %.1f%% of the "
-              "device's busy time" % (label, share_of, us / 1000.0 / n_steps,
-                                      n / n_steps,
-                                      100.0 * us / 1000.0 / n_steps / busy_ms))
+              "device's busy time" % (
+                  label, "+".join(names), us / 1000.0 / n_steps,
+                  n / n_steps, 100.0 * us / 1000.0 / n_steps / busy_ms))
 
 
 def lstm_inputs(B, T, H, peep, g, dev, ragged=True):
@@ -813,7 +883,7 @@ def check_grad_diff(what, d, gtol, l2tol, pl2tol=None):
           "L2 norm (%s), all together %.3g in relative L2 norm" % (
               what, d["worst"], d["worst_name"], d["pl2"], d["pl2_name"],
               d["l2"]))
-    if d["worst"] > gtol or d["l2"] > l2tol or \
+    if (gtol is not None and d["worst"] > gtol) or d["l2"] > l2tol or \
             (pl2tol is not None and d["pl2"] > pl2tol):
         raise AssertionError("%s: gradients differ by more than %g x "
                              "max|g|, %s of one gradient's L2 norm or %g "
@@ -976,13 +1046,14 @@ def rel_close(what, got, want, rtol, amax):
     return float(err.max())
 
 
-def check_bn_grad(kbn, g, dev):
+def check_bn_grad(kbn, g, dev, shapes=BN_SHAPES,
+                  dtypes=(torch.float32, torch.bfloat16)):
     """B7 against its plain version on the card, and both against the
-    plain version in float64. Returns the float32 max abs err of dx
-    against the plain version."""
+    plain version in float64. Returns the max abs err of dx against the
+    plain version in the first of ``dtypes``."""
     worst = 0.0
-    for shape in BN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for shape in shapes:
+        for dtype in dtypes:
             x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype) \
                 .to(dev)
             dy = torch.randn(*shape, generator=g).to(dtype).to(dev)
@@ -1010,7 +1081,7 @@ def check_bn_grad(kbn, g, dev):
                   "plain-float64 %.3g %.3g %.3g (max|dscale| %.3g)" % (
                       what, *errs["plain"], *errs["float64"], *perr,
                       float(truth[1].abs().max())))
-            if f32:
+            if dtype == dtypes[0]:
                 worst = max(worst, errs["plain"][0])
             again = kbn.bn_grad(x, dy, scale, 1e-5)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -1019,23 +1090,15 @@ def check_bn_grad(kbn, g, dev):
     return worst
 
 
-def c1_path_shapes(fused):
-    """{(B, Ci, H, W, Co): launches a step} of the 1x1 convolutions that
-    resnet_expected_launches found in a config-B program."""
-    shapes = {}
-    for xshape, wshape in fused:
-        key = (RESNET_B, xshape[1], xshape[2], xshape[3], wshape[0])
-        shapes[key] = shapes.get(key, 0) + 1
-    return shapes
-
-
-def check_conv1x1(k1, g, dev, shapes):
+def check_conv1x1(k1, g, dev, shapes,
+                  dtypes=(torch.float32, torch.bfloat16)):
     """B8 against its plain version on the card, and both against
-    float64, at each (B, Ci, H, W, Co) of ``shapes``. Returns the float32
-    max abs err of dx and dw against the plain version."""
+    float64, at each (B, Ci, H, W, Co) of ``shapes``. Returns the max abs
+    err of dx and dw against the plain version in the first of
+    ``dtypes``."""
     worst = 0.0
     for b, ci, h, w, co in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x = torch.randn(b, ci, h, w, generator=g).to(dtype).to(dev)
             wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
                 .to(dtype).to(dev)
@@ -1062,7 +1125,7 @@ def check_conv1x1(k1, g, dev, shapes):
                   "(max|dw| %.3g)" % (what, *errs["plain"],
                                       *errs["float64"], *perr,
                                       float(truth[1].abs().max())))
-            if f32:
+            if dtype == dtypes[0]:
                 worst = max(worst, *errs["plain"])
             again = k1.conv1x1_bwd(x, wt, dy)
             if not all(torch.equal(a, r) for a, r in zip(got, again)):
@@ -1148,27 +1211,71 @@ def resnet_damp(prog, scope):
     return n
 
 
-def resnet_expected_launches(prog):
-    """Launches a step, worked out from the program as built: one B7 for
-    every batch_norm op (the reduction pass tags each one's grad in an
-    NHWC program), one B8 for every conv2d that is 1x1, stride 1,
-    unpadded, undilated and ungrouped. In ResNet-50 those are the 16
-    conv3 of the bottlenecks, 13 conv1 (all but the stride-2 ones that
-    open stages 2-4) and the one stride-1 shortcut of stage 1."""
-    block = prog.global_block()
-    n_bn = sum(op.type == "batch_norm" for op in block.ops)
-    fused = []
-    for op in block.ops:
-        if op.type != "conv2d":
-            continue
-        wshape = block.var(op.input("Filter")[0]).shape
-        a = op.attrs
-        if tuple(wshape[2:]) == (1, 1) and list(a["strides"]) == [1, 1] \
-                and not any(a["paddings"]) \
-                and list(a["dilations"]) == [1, 1] \
-                and (a.get("groups", 1) or 1) == 1:
-            fused.append((block.var(op.input("Input")[0]).shape, wshape))
-    return n_bn, fused
+def resnet_train(exe, prog, feed, loss, acc, scope, low, label, want,
+                 want_inside, share_of):
+    """WARMUP_STEPS and TRAIN_STEPS counted steps of a ResNet-50 config
+    from ``scope``: the launch counts of the counted steps must equal
+    ``want`` and those made inside ``conv2d_bn_act``'s grad
+    ``want_inside``; the loss (Momentum at lr 0.1 overshoots on the one
+    repeated batch) must be finite and come under the first counted one
+    within RESNET_SETTLE_STEPS further steps; from ``low``, the same
+    weights at RESNET_LOW_LR, it must fall at every step. Prints
+    ms/step, images/s, peak memory and a profile of one step (with
+    ``share_of``'s device time). Returns the counted launches."""
+    from paddle_tpu_torch.kernels import bn_grad as kbn
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARMUP_STEPS):
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    kbn.reset_launches()
+    k1.reset_launches()
+    losses, accs = [], []
+    with InsideFused(kbn, k1) as in_fused:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            l_, a_ = exe.run(prog, feed=feed, fetch_list=[loss, acc],
+                             scope=scope)
+            losses.append(float(l_))
+            accs.append(float(a_))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = {"bn_grad": kbn.launches["bn_grad"],
+           "conv1x1_bwd": k1.launches["conv1x1_bwd"]}
+    print("config %s: launches on the main path: %s expected %s; inside "
+          "conv2d_bn_act_grad %s expected %s" % (
+              label, json.dumps(got), json.dumps(want),
+              json.dumps(in_fused.counts), json.dumps(want_inside)))
+    if got != want or in_fused.counts != want_inside:
+        raise AssertionError("ResNet-50 config %s launch counts" % label)
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    print("accuracy:", " ".join("%.4f" % v for v in accs))
+    settle(exe, prog, feed, loss, scope, losses, RESNET_SETTLE_STEPS)
+    lr_name = next(op.input("LearningRate")[0]
+                   for op in prog.global_block().ops
+                   if op.type == "momentum")
+    low.set_var(lr_name, torch.full_like(low.find_var(lr_name),
+                                         RESNET_LOW_LR))
+    low_losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=low)[0])
+                  for _ in range(RESNET_LOW_LR_STEPS + 1)]
+    print("losses at lr %g:" % RESNET_LOW_LR,
+          " ".join("%.6f" % v for v in low_losses))
+    if not np.isfinite(low_losses).all() or \
+            not (np.diff(low_losses) < 0).all():
+        raise AssertionError("training loss at lr %g does not fall at "
+                             "every step: %s" % (RESNET_LOW_LR, low_losses))
+    step_ms = wall * 1000.0 / TRAIN_STEPS
+    print("config %s train: %d steps in %.3f s = %.3f ms/step, %.2f "
+          "images/s; peak device memory %.2f GB" % (
+              label, TRAIN_STEPS, wall, step_ms, RESNET_B / (step_ms / 1e3),
+              torch.cuda.max_memory_allocated() / 1e9))
+    device_profile(lambda: exe.run(prog, feed=feed, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "resnet50 config %s step" % label,
+                   share_of=share_of)
+    return got
 
 
 def resnet_phase(fluid, seed, dev):
@@ -1186,17 +1293,16 @@ def resnet_phase(fluid, seed, dev):
     for config in ("A", "B"):
         with unique_name.guard():
             progs[config] = resnet_build(config, RESNET)
-    n_bn, fused = resnet_expected_launches(progs["B"][0])
-    print("per step, from the program: %d batch_norm ops -> %d B7 launches "
-          "in config A; %d of %d conv2d ops are 1x1 stride-1 -> %d B8 "
-          "launches in config B" % (
-              n_bn, n_bn, len(fused),
-              sum(op.type == "conv2d"
-                  for op in progs["B"][0].global_block().ops), len(fused)))
-    if (n_bn, len(fused)) != (53, 30):
+    bn_shapes = transformed_launches(progs["A"][0], RESNET_B)[0]
+    c1_shapes = transformed_launches(progs["B"][0], RESNET_B)[1]
+    n_bn, n_c1 = sum(bn_shapes.values()), sum(c1_shapes.values())
+    print("per step, from the transformed programs: %d tagged batch-norm "
+          "grads -> %d B7 launches in config A; %d 1x1 stride-1 conv2d "
+          "ops -> %d B8 launches in config B" % (n_bn, n_bn, n_c1, n_c1))
+    if (n_bn, n_c1) != (53, 30):
         raise AssertionError("ResNet-50 should hold 53 batch norms and 30 "
                              "fusable convolutions, got %d and %d"
-                             % (n_bn, len(fused)))
+                             % (n_bn, n_c1))
 
     # one set of weights for everything below
     startup = progs["B"][1]
@@ -1260,81 +1366,14 @@ def resnet_phase(fluid, seed, dev):
         feed = feeds[config]
         set_fused(config == "B")
         try:
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(WARMUP_STEPS):
-                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
-            torch.cuda.synchronize()
-            kbn.reset_launches()
-            k1.reset_launches()
-            losses, accs = [], []
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_STEPS):
-                l_, a_ = exe.run(prog, feed=feed, fetch_list=[loss, acc],
-                                 scope=scope)
-                losses.append(float(l_))
-                accs.append(float(a_))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            got = {"bn_grad": kbn.launches["bn_grad"],
-                   "conv1x1_bwd": k1.launches["conv1x1_bwd"]}
-            want = {"bn_grad": n_bn * TRAIN_STEPS if config == "A" else 0,
-                    "conv1x1_bwd": len(fused) * TRAIN_STEPS
-                    if config == "B" else 0}
-            print("config %s (%s): launches on the main path: %s expected "
-                  "%s" % (config, name, json.dumps(got), json.dumps(want)))
-            if got != want:
-                raise AssertionError("ResNet-50 config %s launch counts %s "
-                                     "!= %s" % (config, got, want))
-            launches["bn_grad" if config == "A" else "conv1x1_bwd"] = \
-                got["bn_grad" if config == "A" else "conv1x1_bwd"]
-            print("losses:", " ".join("%.6f" % v for v in losses))
-            print("accuracy:", " ".join("%.4f" % v for v in accs))
-            # Momentum at lr 0.1 from the initial weights overshoots on
-            # the one repeated batch before it settles: the loss must be
-            # finite throughout and fall below the first counted loss
-            # within RESNET_SETTLE_STEPS further steps
-            more = []
-            while len(more) < RESNET_SETTLE_STEPS and \
-                    not min(losses[1:] + more) < losses[0]:
-                more.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
-                                          scope=scope)[0]))
-            if more:
-                print("further steps until the loss is under the first "
-                      "counted one:", " ".join("%.6f" % v for v in more))
-            if not np.isfinite(losses + more).all() or \
-                    not min(losses[1:] + more) < losses[0]:
-                raise AssertionError("training loss not finite and "
-                                     "falling: %s" % (losses + more))
-            # the same weights at the lower lr: the loss falls at
-            # every step
-            low = clone(scope0)
-            lr_name = next(op.input("LearningRate")[0]
-                           for op in prog.global_block().ops
-                           if op.type == "momentum")
-            low.set_var(lr_name, torch.full_like(low.find_var(lr_name),
-                                                 RESNET_LOW_LR))
-            low_losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
-                                        scope=low)[0])
-                          for _ in range(RESNET_LOW_LR_STEPS + 1)]
-            del low
-            print("losses at lr %g:" % RESNET_LOW_LR,
-                  " ".join("%.6f" % v for v in low_losses))
-            if not np.isfinite(low_losses).all() or \
-                    not (np.diff(low_losses) < 0).all():
-                raise AssertionError("training loss at lr %g does not fall "
-                                     "at every step: %s"
-                                     % (RESNET_LOW_LR, low_losses))
-            step_ms = wall * 1000.0 / TRAIN_STEPS
-            print("config %s train: %d steps in %.3f s = %.3f ms/step, "
-                  "%.2f images/s; peak device memory %.2f GB" % (
-                      config, TRAIN_STEPS, wall, step_ms,
-                      RESNET_B / (step_ms / 1e3),
-                      torch.cuda.max_memory_allocated() / 1e9))
-            device_profile(lambda: exe.run(prog, feed=feed,
-                                           fetch_list=[loss], scope=scope),
-                           1, step_ms, "resnet50 config %s step" % config,
-                           share_of=None if config == "A"
-                           else "conv1x1_bwd_kernel")
+            key = "bn_grad" if config == "A" else "conv1x1_bwd"
+            want = {"bn_grad": 0, "conv1x1_bwd": 0}
+            launches[key] = resnet_train(
+                exe, prog, feed, loss, acc, scope, clone(scope0),
+                "%s (%s)" % (config, name),
+                dict(want, **{key: (n_bn if config == "A" else n_c1)
+                              * TRAIN_STEPS}), want,
+                B7_KERNELS if config == "A" else "conv1x1_bwd_kernel")[key]
             if config == "B":
                 # the same program with the flag off: the library's two
                 # backward convolutions where B8 ran, for comparison of
@@ -1392,7 +1431,7 @@ def resnet_phase(fluid, seed, dev):
         print("cross-check launches on the card:",
               json.dumps({**kbn.launches, **k1.launches}))
         want = (n_bn * XCHECK_STEPS, 0) if config == "A" \
-            else (0, len(fused) * XCHECK_STEPS)
+            else (0, n_c1 * XCHECK_STEPS)
         if (kbn.launches["bn_grad"], k1.launches["conv1x1_bwd"]) != want:
             raise AssertionError("cross-check launch counts")
     # the two configs' startups draw the same weights, so the card's two
@@ -1406,14 +1445,362 @@ def resnet_phase(fluid, seed, dev):
                               [on_card["B"][n] for n in names]),
                     RESNET_GTOL, RESNET_L2TOL, RESNET_PL2TOL)
 
-    bn_shapes = {}
-    for op in progs["A"][0].global_block().ops:
-        if op.type == "batch_norm":
-            c, h, w = progs["B"][0].global_block().var(
-                op.input("X")[0]).shape[1:]
-            key = (RESNET_B, h, w, c)
-            bn_shapes[key] = bn_shapes.get(key, 0) + 1
-    return launches, bn_shapes, c1_path_shapes(fused)
+    return launches, bn_shapes, c1_shapes
+
+
+def fused_build(config, sizes):
+    """ResNet-50 under bf16 AMP (``amp.enable``, as bench.py runs every
+    convnet) in config C "bench" (NHWC, ``passes.enable(layout="NHWC",
+    epilogue_fusion=True, pallas_reductions=True)``, bench.py's pass
+    A/B) or D "nchw+fused1x1+epilogue" (NCHW, ``epilogue_fusion=True``;
+    the caller turns FLAGS_fused_conv1x1_bwd on)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.resnet import build_resnet50_train
+
+    prog, startup, feeds, (loss, acc) = build_resnet50_train(
+        layout="NHWC" if config == "C" else "NCHW", **sizes)
+    fluid.amp.enable(prog)
+    if config == "C":
+        fluid.passes.enable(prog, **BENCH_PASSES)
+    else:
+        fluid.passes.enable(prog, epilogue_fusion=True)
+    return prog, startup, feeds, (loss, acc)
+
+
+def transformed_launches(prog, batch, fetches=()):
+    """Launches a step and their shapes, read from the program the
+    executor runs (``passes.apply``): one B7 for every op the reduction
+    pass tagged, at its NHWC activation (for a fused op, its conv's
+    output), and one B8 for every 1x1 stride-1 unpadded undilated
+    ungrouped NCHW convolution, inside ``conv2d_bn_act`` or a plain
+    ``conv2d``. Returns ({(N, H, W, C): count}, {(B, Ci, H, W, Co):
+    count}, (how many of the B7, how many of the B8 sit inside
+    ``conv2d_bn_act``'s grad))."""
+    from paddle_tpu_torch import passes
+
+    out, _ = passes.apply(prog, protected=fetches)
+    block = out.global_block()
+    by_uid = {op.uid: op for op in block.ops}
+
+    def shape(name):
+        return tuple(batch if d == -1 else d for d in block.var(name).shape)
+
+    b7, b8, fused7, fused8 = {}, {}, 0, 0
+    for op in block.ops:
+        if op.attrs.get("use_pallas_reduction"):
+            key = shape(op.input("X")[0]) if op.type == "batch_norm_grad" \
+                else shape(by_uid[op.attrs["fwd_op_uid"]].output("Out")[0])
+            b7[key] = b7.get(key, 0) + 1
+            fused7 += op.type == "conv2d_bn_act_grad"
+        if op.type not in ("conv2d", "conv2d_bn_act") or \
+                op.attrs.get("conv_type", "conv2d") != "conv2d":
+            continue
+        a = op.attrs
+        wshape = block.var(op.input("Filter")[0]).shape
+        if tuple(wshape[2:]) == (1, 1) and list(a["strides"]) == [1, 1] \
+                and not any(a["paddings"]) \
+                and list(a["dilations"]) == [1, 1] \
+                and (a.get("groups", 1) or 1) == 1 \
+                and a.get("data_layout", "NCHW") == "NCHW":
+            x = shape(op.input("Input")[0])
+            key = x + (wshape[0],)
+            b8[key] = b8.get(key, 0) + 1
+            fused8 += op.type == "conv2d_bn_act"
+    return b7, b8, (fused7, fused8)
+
+
+def bench_path_shapes():
+    """B7's shapes in config C and B8's in config D at full width, from
+    the transformed programs."""
+    from paddle_tpu_torch import unique_name
+
+    with unique_name.guard():
+        prog_c = fused_build("C", RESNET)[0]
+    with unique_name.guard():
+        prog_d = fused_build("D", RESNET)[0]
+    return (transformed_launches(prog_c, RESNET_B)[0],
+            transformed_launches(prog_d, RESNET_B)[1])
+
+
+class InsideFused:
+    """Counts the B7 and B8 launches made inside ``conv2d_bn_act``'s
+    grad while it is entered (wraps the registered grad lowering)."""
+
+    def __init__(self, kbn, k1):
+        from paddle_tpu_torch.core import registry
+
+        self.spec = registry.get("conv2d_bn_act")
+        self.kbn, self.k1 = kbn, k1
+        self.counts = {"bn_grad": 0, "conv1x1_bwd": 0}
+
+    def __enter__(self):
+        self.real = real = self.spec.grad_lower
+
+        def counted(*a, **k):
+            b0 = self.kbn.launches["bn_grad"]
+            c0 = self.k1.launches["conv1x1_bwd"]
+            try:
+                return real(*a, **k)
+            finally:
+                self.counts["bn_grad"] += self.kbn.launches["bn_grad"] - b0
+                self.counts["conv1x1_bwd"] += \
+                    self.k1.launches["conv1x1_bwd"] - c0
+
+        self.spec.grad_lower = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.spec.grad_lower = self.real
+
+
+def settle(exe, prog, feed, loss, scope, losses, limit):
+    """Further steps until a loss comes under the first of ``losses``
+    (one repeated batch: a high lr overshoots first), at most ``limit``;
+    raises unless every loss is finite and one came under."""
+    more = []
+    while len(more) < limit and not min(losses[1:] + more) < losses[0]:
+        more.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0]))
+    if more:
+        print("further steps until the loss is under the first counted "
+              "one:", " ".join("%.6f" % v for v in more))
+    if not np.isfinite(losses + more).all() or \
+            not min(losses[1:] + more) < losses[0]:
+        raise AssertionError("training loss not finite and falling: %s"
+                             % (losses + more))
+
+
+def convnet_bench_phase(fluid, seed, dev):
+    """ResNet-50 at full width in bench.py's convnet configuration:
+    configs C and D under bf16 AMP, C against D, the card against the
+    CPU at the resnet_cifar size; then VGG-16, GoogLeNet, AlexNet and
+    SmallNet under AMP. Returns the counted steps' B7 (config C) and B8
+    (config D) launches."""
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.kernels import bn_grad as kbn
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    def set_fused(on):
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": on})
+
+    progs = {}
+    for config in ("C", "D"):
+        with unique_name.guard():
+            progs[config] = fused_build(config, RESNET)
+    plans = {c: transformed_launches(
+        p[0], RESNET_B, [p[3][0].name, p[3][1].name])
+        for c, p in progs.items()}
+    # (B7, B8) a step, and those inside conv2d_bn_act's grad
+    per_step = {c: (sum(pl[0].values()), sum(pl[1].values()))
+                for c, pl in plans.items()}
+    inside = {c: pl[2] for c, pl in plans.items()}
+    print("per step, from the transformed programs: config C %s (B7, B8), "
+          "%s inside conv2d_bn_act_grad; config D %s, %s inside" % (
+              per_step["C"], inside["C"], per_step["D"], inside["D"]))
+    if (per_step, inside) != ({"C": (53, 0), "D": (0, 30)},
+                              {"C": (49, 0), "D": (0, 26)}):
+        raise AssertionError("configs C and D should launch 53 B7 (49 "
+                             "fused) and 30 B8 (26 fused) a step")
+
+    startup = progs["D"][1]
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope0)
+
+    def clone(scope):
+        out = fluid.Scope()
+        for n, t in scope.vars.items():
+            out.set_var(n, t.clone())
+        return out
+
+    rng = np.random.RandomState(seed)
+    images = rng.randn(RESNET_B, *RESNET["image_shape"]).astype(np.float32)
+    labels = rng.randint(0, RESNET["class_dim"],
+                         (RESNET_B, 1)).astype(np.int64)
+    feeds = {
+        "C": {"data": torch.from_numpy(np.ascontiguousarray(
+            images.transpose(0, 2, 3, 1))).to(dev),
+            "label": torch.from_numpy(labels).to(dev)},
+        "D": {"data": torch.from_numpy(images).to(dev),
+              "label": torch.from_numpy(labels).to(dev)}}
+
+    # ---- C against D: same weights, same batch, first step ----
+    block = progs["D"][0].global_block()
+    grads = sorted(p.name + "@GRAD" for p in block.all_parameters())
+    first = {}
+    for config in ("C", "D"):
+        prog, _, _, (loss, _) = progs[config]
+        scope = clone(scope0)
+        resnet_damp(prog, scope)
+        set_fused(config == "D")
+        try:
+            first[config] = exe.run(prog, feed=feeds[config],
+                                    fetch_list=[loss.name] + grads,
+                                    scope=scope)
+        finally:
+            set_fused(False)
+        del scope
+    lc, ld = float(first["C"][0]), float(first["D"][0])
+    print("C vs D on the card under AMP, same weights (residual branches "
+          "damped x%g) and batch: first-step loss C %.7f D %.7f"
+          % (RESNET_DAMP, lc, ld))
+    if not all(str(g.dtype) == "float32" for g in first["C"][1:]):
+        raise AssertionError("master gradients must be float32 under AMP")
+    np.testing.assert_allclose(lc, ld, rtol=AMP_LTOL)
+    check_grad_diff("C vs D at full width, %d gradients" % len(grads),
+                    grad_diff(grads, first["C"][1:], first["D"][1:]),
+                    None, AMP_L2TOL, AMP_PL2TOL)
+    del first
+    torch.cuda.empty_cache()
+
+    # ---- train each config ----
+    launches = {}
+    for config, name in (("C", "bench"), ("D", "nchw+fused1x1+epilogue")):
+        prog, _, _, (loss, acc) = progs[config]
+        scope = clone(scope0)
+        set_fused(config == "D")
+        try:
+            key = "bn_grad" if config == "C" else "conv1x1_bwd"
+            launches[key + "_bf16"] = resnet_train(
+                exe, prog, feeds[config], loss, acc, scope, clone(scope0),
+                "%s (%s, bf16 AMP)" % (config, name),
+                {"bn_grad": per_step[config][0] * TRAIN_STEPS,
+                 "conv1x1_bwd": per_step[config][1] * TRAIN_STEPS},
+                {"bn_grad": inside[config][0] * TRAIN_STEPS,
+                 "conv1x1_bwd": inside[config][1] * TRAIN_STEPS},
+                B7_KERNELS if config == "C" else "conv1x1_bwd_kernel")[key]
+        finally:
+            set_fused(False)
+        del scope
+        torch.cuda.empty_cache()
+
+    # ---- the card against the CPU at the resnet_cifar size ----
+    xrng = np.random.RandomState(seed + 1)
+    ximages = xrng.randn(RESNET_XCHECK_B,
+                         *RESNET_XCHECK["image_shape"]).astype(np.float32)
+    xlabels = xrng.randint(0, RESNET_XCHECK["class_dim"],
+                           (RESNET_XCHECK_B, 1)).astype(np.int64)
+    on_card = {}
+    for config in ("C", "D"):
+        x = ximages if config == "D" else np.ascontiguousarray(
+            ximages.transpose(0, 2, 3, 1))
+
+        def build():
+            prog, startup, fds, (loss, _) = fused_build(config,
+                                                        RESNET_XCHECK)
+            return prog, startup, fds, (loss,)
+
+        set_fused(config == "D")
+        kbn.reset_launches()
+        k1.reset_launches()
+        try:
+            on_card[config] = cross_check(
+                fluid, exe, build, seed, {"data": x, "label": xlabels},
+                1, "config %s under AMP, %s, batch %d, residual branches "
+                "damped x%g" % (config, RESNET_XCHECK, RESNET_XCHECK_B,
+                                RESNET_DAMP),
+                gtol=None, ltol=AMP_LTOL, l2tol=AMP_L2TOL,
+                pl2tol=AMP_PL2TOL, edit=resnet_damp)
+        finally:
+            set_fused(False)
+        print("cross-check launches on the card:",
+              json.dumps({**kbn.launches, **k1.launches}))
+        if (kbn.launches["bn_grad"], k1.launches["conv1x1_bwd"]) != \
+                per_step[config]:
+            raise AssertionError("cross-check launch counts")
+    names = sorted(n for n in on_card["C"] if n != "loss")
+    np.testing.assert_allclose(on_card["C"]["loss"], on_card["D"]["loss"],
+                               rtol=AMP_LTOL)
+    check_grad_diff("C vs D on the card at %s" % RESNET_XCHECK,
+                    grad_diff(names, [on_card["C"][n] for n in names],
+                              [on_card["D"][n] for n in names]),
+                    None, AMP_L2TOL, AMP_PL2TOL)
+
+    # ---- the other convnets, as bench.py runs them ----
+    for name, kw in OTHER_MODELS:
+        other_model(fluid, exe, name, kw, seed, dev, kbn, k1, set_fused)
+    return launches
+
+
+def other_model(fluid, exe, name, kw, seed, dev, kbn, k1, set_fused):
+    """One of VGG-16, GoogLeNet, AlexNet and SmallNet at full width under
+    bf16 AMP: OTHER_WARMUP + OTHER_STEPS steps on one repeated batch of
+    uniform images (bench.py's fake data), exact launch counts from the
+    transformed program, a finite loss that comes under the first
+    counted one."""
+    import importlib
+
+    from paddle_tpu_torch import unique_name
+
+    mod = importlib.import_module("paddle_tpu_torch.models." + kw["module"])
+    nhwc = kw.get("passes") is not None
+    with unique_name.guard():
+        prog, startup, _, (loss, acc) = getattr(mod, kw["build"])(
+            image_shape=kw["image"], class_dim=kw["classes"],
+            **({"layout": "NHWC"} if nhwc else {}))
+    fluid.amp.enable(prog)
+    if nhwc:
+        fluid.passes.enable(prog, **kw["passes"])
+    b7, b8, _ = transformed_launches(prog, RESNET_B, [loss.name, acc.name])
+    n_b7, n_b8 = sum(b7.values()), sum(b8.values()) if kw["flag"] else 0
+    print("%s %s batch %d, bf16 AMP%s%s: %d B7 and %d B8 a step, from the "
+          "transformed program" % (
+              name, kw["image"], RESNET_B,
+              ", passes %s" % kw["passes"] if nhwc else "",
+              ", FLAGS_fused_conv1x1_bwd on" if kw["flag"] else "",
+              n_b7, n_b8))
+    if (n_b7, n_b8) != kw["want"]:
+        raise AssertionError("%s launches a step %s != %s"
+                             % (name, (n_b7, n_b8), kw["want"]))
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed)
+    images = rng.rand(RESNET_B, *kw["image"]).astype(np.float32)
+    if nhwc:
+        images = np.ascontiguousarray(images.transpose(0, 2, 3, 1))
+    feed = {"data": torch.from_numpy(images).to(dev),
+            "label": torch.from_numpy(rng.randint(
+                0, kw["classes"], (RESNET_B, 1)).astype(np.int64)).to(dev)}
+    set_fused(kw["flag"])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(OTHER_WARMUP):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        kbn.reset_launches()
+        k1.reset_launches()
+        t0 = time.perf_counter()
+        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0])
+                  for _ in range(OTHER_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (kbn.launches["bn_grad"], k1.launches["conv1x1_bwd"])
+        want = (n_b7 * OTHER_STEPS, n_b8 * OTHER_STEPS)
+        print("%s: launches (bn_grad, conv1x1_bwd) %s expected %s"
+              % (name, got, want))
+        if got != want:
+            raise AssertionError("%s launch counts" % name)
+        print("losses:", " ".join("%.6f" % v for v in losses))
+        settle(exe, prog, feed, loss, scope, losses, OTHER_SETTLE_STEPS)
+        step_ms = wall * 1000.0 / OTHER_STEPS
+        print("%s train: %d steps in %.3f s = %.3f ms/step, %.2f images/s; "
+              "peak device memory %.2f GB" % (
+                  name, OTHER_STEPS, wall, step_ms,
+                  RESNET_B / (step_ms / 1e3),
+                  torch.cuda.max_memory_allocated() / 1e9))
+        if n_b7 or n_b8:
+            device_profile(lambda: exe.run(prog, feed=feed,
+                                           fetch_list=[loss], scope=scope),
+                           1, step_ms, "%s step" % name,
+                           share_of=B7_KERNELS if n_b7
+                           else "conv1x1_bwd_kernel")
+    finally:
+        set_fused(False)
+    del scope
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1498,11 +1885,25 @@ def main():
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
     # B8 at every distinct shape the config-B program gives it
     with unique_name.guard():
-        c1_path = c1_path_shapes(resnet_expected_launches(
-            resnet_build("B", RESNET)[0])[1])
+        c1_path = transformed_launches(resnet_build("B", RESNET)[0],
+                                       RESNET_B)[1]
     max_err["conv1x1_bwd"] = check_conv1x1(
         k1, g, dev, sorted(c1_path) + list(C1_EXTRA_SHAPES))
     c1_chunk_sweep(k1, _build, g, dev)
+    # bench.py's configuration: B7 in bfloat16 at every distinct shape of
+    # config C, B8's shapes in config D (both dtypes checked above)
+    bn_bf16_shapes, c1_bf16_shapes = bench_path_shapes()
+    print("config C: B7 at %d distinct shapes %s; config D: B8 at %d "
+          "distinct shapes, the config-B set: %s" % (
+              len(bn_bf16_shapes), sorted(bn_bf16_shapes),
+              len(c1_bf16_shapes), set(c1_bf16_shapes) == set(c1_path)))
+    if set(c1_bf16_shapes) != set(c1_path):
+        raise AssertionError("config D's 1x1 shapes %s != config B's %s"
+                             % (sorted(c1_bf16_shapes), sorted(c1_path)))
+    max_err["bn_grad_bf16"] = check_bn_grad(
+        kbn, g, dev, sorted(bn_bf16_shapes), (torch.bfloat16,))
+    max_err["conv1x1_bwd_bf16"] = check_conv1x1(
+        k1, g, dev, sorted(c1_bf16_shapes), (torch.bfloat16,))
     print("max abs err:", json.dumps(max_err), "(dW through the outside "
           "GEMMs: LSTM %.3g, GRU %.3g)" % (dw_err, gru_dw_err))
 
@@ -1624,7 +2025,13 @@ def main():
                                                          dev)
     launches.update(resnet_launches)
 
-    # ---- 8. times ----
+    # ---- 8. bench.py's convnet configuration at full width ----
+    phase("convnet benchmark configuration at full width: ResNet-50 "
+          "configs C and D under bf16 AMP, VGG-16, GoogLeNet, AlexNet, "
+          "SmallNet (seed %d)" % args.seed)
+    launches.update(convnet_bench_phase(fluid, args.seed, dev))
+
+    # ---- 9. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
           "bn_grad and conv1x1_bwd)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -1837,7 +2244,7 @@ def main():
             list(shape), bn_shapes[shape]),
             ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
             plain_ms=float("nan"), library_ms=float("nan"),
-            bytes=4 * (5 * x.numel() + 3 * c), flops=12 * x.numel(),
+            bytes=4 * (3 * x.numel() + 3 * c), flops=12 * x.numel(),
             per_step=bn_shapes[shape])
         if full:
             xr = x.permute(0, 3, 1, 2).requires_grad_()
@@ -1888,6 +2295,67 @@ def main():
                for s_ in sorted(c1_shapes, key=lambda s_: (-s_[2], s_[1],
                                                            s_[4]))]
     rows.extend(c1_rows)
+
+    # B7 and B8 in bfloat16 on bench.py's path: B7 at every distinct
+    # shape of config C (beside F.batch_norm forward + autograd in
+    # bfloat16, channels last), B8 at every distinct shape of config D
+    # (beside cuDNN's bfloat16 convolution backward); a bfloat16 element
+    # is 2 bytes, and B8's products bound at the bfloat16 tensor-core
+    # rate (its one-pass TF32 floor printed beside: a bfloat16 value is
+    # exact in TF32, which is what B8 multiplies in)
+    bf16 = torch.bfloat16
+
+    def bn_bf16_case(shape):
+        n, h, w, c = shape
+        x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(bf16).to(dev)
+        dy = torch.randn(*shape, generator=g).to(bf16).to(dev)
+        sc = (torch.rand(c, generator=g) + 0.5).to(dev)
+        xr = x.permute(0, 3, 1, 2).requires_grad_()
+        dyr = dy.permute(0, 3, 1, 2)
+
+        def library():
+            y = F.batch_norm(xr, None, None, sc, None, True, 0.1, 1e-5)
+            torch.autograd.grad(y, xr, dyr)
+
+        return dict(
+            name="bn_grad_bf16", shape="%s x%d a config-C step" % (
+                list(shape), bn_bf16_shapes[shape]),
+            ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
+            plain_ms=time_ms(lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5),
+                             reps=10),
+            library_ms=time_ms(library, reps=10),
+            library="torch.nn.functional.batch_norm forward plus "
+                    "torch.autograd.grad to x, bfloat16, channels last: "
+                    "also runs the forward, gives no dscale or dbias",
+            bytes=2 * 3 * x.numel() + 4 * 3 * c, flops=12 * x.numel(),
+            per_step=bn_bf16_shapes[shape])
+
+    def c1_bf16_case(shape):
+        b, ci, h, w, co = shape
+        x = torch.randn(b, ci, h, w, generator=g).to(bf16).to(dev)
+        wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
+            .to(bf16).to(dev)
+        dy = torch.randn(b, co, h, w, generator=g).to(bf16).to(dev)
+        return dict(
+            name="conv1x1_bwd_bf16", shape="%s x%d a config-D step" % (
+                list(shape), c1_bf16_shapes[shape]),
+            ms=time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), reps=10),
+            plain_ms=time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
+                             reps=10),
+            library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+                dy, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
+                [True, True, False]), reps=10),
+            library="torch.ops.aten.convolution_backward (cuDNN), "
+                    "bfloat16: dx and dw in one call",
+            bytes=2 * (2 * x.numel() + dy.numel() + 2 * wt.numel()),
+            flops=4 * b * h * w * ci * co, per_step=c1_bf16_shapes[shape],
+            peak=BF16_FLOPS_PER_S)
+
+    bn_bf16_rows = [bn_bf16_case(s_) for s_ in sorted(
+        bn_bf16_shapes, key=lambda s_: (-s_[1], s_[3]))]
+    c1_bf16_rows = [c1_bf16_case(s_) for s_ in sorted(
+        c1_bf16_shapes, key=lambda s_: (-s_[2], s_[1], s_[4]))]
+    rows.extend(bn_bf16_rows + c1_bf16_rows)
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         # the float32 FMA rate; the 3xTF32 kernels' floor is three TF32
@@ -1895,6 +2363,8 @@ def main():
         t_fma = r["flops"] / FP32_FLOPS_PER_S * 1e3
         t_ops = 3 * r["flops"] / TF32_FLOPS_PER_S * 1e3 \
             if r.get("tf32x3") else t_fma
+        if "peak" in r:
+            t_ops = r["flops"] / r["peak"] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         # nan: not timed at this shape
@@ -1905,10 +2375,16 @@ def main():
                   r["bytes"], r["flops"],
                   "; 3xTF32 tensor-core bound %.6f, float32 FMA bound %.6f"
                   % (max(t_bytes, t_ops), max(t_bytes, t_fma))
-                  if r.get("tf32x3") else "",
+                  if r.get("tf32x3") else
+                  "; bfloat16 tensor-core bound %.6f, one-pass TF32 bound "
+                  "%.6f" % (max(t_bytes, t_ops), max(
+                      t_bytes, r["flops"] / TF32_FLOPS_PER_S * 1e3))
+                  if "peak" in r else "",
                   "; library: " + r["library"] if "library" in r else ""))
 
-    for name, krows in (("bn_grad", bn_rows), ("conv1x1_bwd", c1_rows)):
+    for name, krows in (("bn_grad", bn_rows), ("conv1x1_bwd", c1_rows),
+                        ("bn_grad_bf16", bn_bf16_rows),
+                        ("conv1x1_bwd_bf16", c1_bf16_rows)):
         print("%s over one ResNet-50 step: %d launches, kernel %.3f ms, "
               "bound %.3f ms%s" % (
                   name, sum(r["per_step"] for r in krows),
@@ -1917,7 +2393,7 @@ def main():
                   "; library %.3f ms, plain version %.3f ms" % (
                       sum(r["per_step"] * r["library_ms"] for r in krows),
                       sum(r["per_step"] * r["plain_ms"] for r in krows))
-                  if name == "conv1x1_bwd" else ""))
+                  if name != "bn_grad" else ""))
 
     # the decode step end to end: host wall time vs device busy time
     cache = engine.new_cache()
@@ -1936,7 +2412,7 @@ def main():
                    step_ms, "decode step at pos 160")
     torch.cuda.synchronize()
 
-    # ---- 9. result ----
+    # ---- 10. result ----
     by_name = {}
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
@@ -1946,7 +2422,8 @@ def main():
                                  "gru_bwd") \
                 or r["shape"].startswith(("[64, 112, 112, 64]",
                                           "[64, 64, 56, 56, 256]")):
-            # bn_grad at the stem, conv1x1_bwd at the first conv3
+            # bn_grad at the stem, conv1x1_bwd at the first conv3, in
+            # float32 and in bfloat16
             by_name[r["name"]] = r
     table = [{"name": n, "route": "cuda", "source": SOURCES[n],
               "replaces": REPLACES[n], "launches": launches[n],
@@ -1957,7 +2434,7 @@ def main():
               "library_ms": by_name[n]["library_ms"]}
              for n in ("flash_attention", "flash_decode", "lstm_fwd",
                        "lstm_bwd", "gru_fwd", "gru_bwd", "bn_grad",
-                       "conv1x1_bwd")]
+                       "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16")]
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
   the block runs, fetches are read from it afterwards. A ``lod_level >
   0`` var takes a ragged list (one array per sequence), packed here into
   a ``PackedSeq``, or a ``PackedSeq``; a fetched sequence comes back as
-  a ``PackedSeq`` of numpy arrays.
+  a ``PackedSeq`` of numpy arrays, and a bfloat16 one (mixed precision,
+  ``amp.py``) comes back as float32.
 * An op that updates a persistable in place (``adam``'s ParamOut and
   moments, names equal to its inputs') is written back to the scope
   with the other persistables the block wrote.
@@ -169,8 +170,13 @@ def _find_var(program, name):
 
 
 def _to_numpy(v):
+    """A fetch as numpy. numpy has no bfloat16, so a bfloat16 fetch (a
+    mixed-precision activation) comes back widened to float32, exactly;
+    ``return_numpy=False`` keeps the tensor and its dtype."""
     if isinstance(v, PackedSeq):
-        return PackedSeq(v.data.cpu().numpy(), v.lengths.cpu().numpy())
+        return PackedSeq(_to_numpy(v.data), v.lengths.cpu().numpy())
+    if v.dtype == torch.bfloat16:
+        v = v.float()
     return v.cpu().numpy()
 
 

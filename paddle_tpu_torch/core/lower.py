@@ -16,6 +16,11 @@ weights across with ``paddle_tpu_torch.interop``.
 A grad op that ``append_backward`` emitted (``<type>_grad``) runs the
 forward op's ``grad_lower`` or, by default, ``registry.generic_grad``.
 
+Mixed precision (``amp.py``): with ``program.amp_dtype`` set, each op's
+inputs are cast by ``amp.cast_ins`` as they enter its lowering, and
+before a hand-written ``grad_lower``; the generic grad casts inside the
+forward it differentiates (``registry.generic_grad``).
+
 A control-flow op (``scan_block``) runs its sub-block with the same
 ``run_block``, over a fresh environment that holds only the op's
 ``Params``/``X``/``Init`` bindings; an error inside it is annotated with
@@ -91,6 +96,9 @@ class TraceContext:
         self.training = training
         self.program = program
         self.device = device if device is not None else torch.device("cpu")
+        # mixed precision: the compute dtype cast in at lowering
+        # boundaries (amp.py); None = full precision
+        self.amp_dtype = getattr(program, "amp_dtype", None)
         self._op = None
 
     def for_op(self, op):
@@ -99,6 +107,7 @@ class TraceContext:
         c.training = self.training
         c.program = self.program
         c.device = self.device
+        c.amp_dtype = self.amp_dtype
         c._op = op
         return c
 
@@ -143,6 +152,9 @@ def run_op(ctx, block, op, env):
     spec = registry.get(op.type)
     ins = {slot: [_lookup(env, block, n) for n in names]
            for slot, names in op.inputs.items()}
+    if ctx.amp_dtype is not None:
+        from paddle_tpu_torch import amp
+        ins = amp.cast_ins(spec, ins, ctx.amp_dtype)
     result = spec.lower(ctx.for_op(op), ins, op.attrs, op)
     _bind_outputs(env, op, result)
 
@@ -165,6 +177,9 @@ def _run_generic_grad_op(ctx, block, op, env):
             fwd_ins[slot] = vals
     fwd_op = _FwdOpView(op)
     if spec.grad_lower is not None:
+        if ctx.amp_dtype is not None:
+            from paddle_tpu_torch import amp
+            fwd_ins = amp.cast_ins(spec, fwd_ins, ctx.amp_dtype)
         gins = spec.grad_lower(ctx.for_op(fwd_op), fwd_ins, out_grads,
                                fwd_op.attrs, fwd_op)
     else:

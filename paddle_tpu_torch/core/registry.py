@@ -157,6 +157,12 @@ def generic_grad(ctx, spec, fwd_op, ins, out_grads):
     full = dict(ins)
     full.update(leaves)
     with torch.enable_grad():
+        if ctx.amp_dtype is not None:
+            # cast INSIDE the differentiated function: cotangents flow
+            # back through the cast, so float32 master parameters get
+            # float32 gradients
+            from paddle_tpu_torch import amp
+            full = amp.cast_ins(spec, full, ctx.amp_dtype)
         result = normalize_outputs(
             spec.lower(ctx.for_op(fwd_op), full, fwd_op.attrs, fwd_op))
         outs, cots = [], []

@@ -6,7 +6,8 @@ inference so downstream layers can size parameters. These are the
 layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
 losses and metric, of the attention seq2seq model's training graph, and
-of the convnets (conv2d, pool2d, batch_norm, relu: LeNet and ResNet);
+of the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
+ResNet, VGG, AlexNet, GoogLeNet and SmallNet);
 the JAX package's other layers arrive with later slices.
 """
 
@@ -15,7 +16,8 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.initializer import Constant, Normal
 
 __all__ = [
-    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "relu",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "relu", "lrn",
+    "dropout",
     "dynamic_lstm", "dynamic_gru", "gru_unit",
     "sequence_pool", "sequence_first_step", "sequence_pad",
     "sequence_mask", "cross_entropy", "layer_norm", "elementwise_add",
@@ -154,6 +156,27 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
         {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
          "data_layout": data_layout})
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("dropout", {"X": [x]}, {"Out": [out], "Mask": [mask]},
+                     {"dropout_prob": dropout_prob, "is_test": is_test,
+                      "seed": seed or 0,
+                      "dropout_implementation": dropout_implementation})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("lrn", {"X": [input]}, {"Out": [out], "MidOut": [mid]},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 # ---- recurrent and sequence ----
@@ -502,15 +525,12 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
 
     With ``cache=``/``cache_mode=`` (and ``pos=`` or ``slot=``, see
     ``flash_attention``), runs in KV-cached mode and returns
-    ``(out, k_cache_out, v_cache_out)``. Dropout and the Megatron
-    tensor-parallel layout (``mp=True``) arrive with later slices."""
+    ``(out, k_cache_out, v_cache_out)``. ``dropout_rate`` drops the
+    attention context before the output projection. The Megatron
+    tensor-parallel layout (``mp=True``) arrives with a later slice."""
     if mp:
         raise NotImplementedError("multi_head_attention(mp=True): tensor "
                                   "parallelism arrives with a later slice")
-    if dropout_rate:
-        raise NotImplementedError("multi_head_attention(dropout_rate=%r): "
-                                  "dropout arrives with the training slice"
-                                  % (dropout_rate,))
     d_model = int(queries.shape[-1])
     if d_model % num_heads:
         raise ValueError("d_model %d not divisible by num_heads %d"
@@ -550,6 +570,8 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
                               seq_axis=seq_axis)
     ctx = transpose(ctx, [0, 2, 1, 3])
     ctx = reshape(ctx, [0, 0, d_model])
+    if dropout_rate:
+        ctx = dropout(ctx, dropout_prob=dropout_rate)
     out = fc(ctx, d_model, num_flatten_dims=2, param_attr=param_attr,
              bias_attr=False)
     return (out, kc_out, vc_out) if cache is not None else out

@@ -5,8 +5,8 @@ The JAX package's ``models/transformer.py``, built in this package's
 layers DSL: pre-norm decoder blocks over the fused flash-attention op.
 The programs it builds serialize to the same JSON as the JAX package's
 (same layer sequence, same names, same op uids). The training build
-(``build_transformer_lm``), pipeline stages (``pp_stages``), tensor
-parallelism (``mp``) and dropout arrive with later slices.
+(``build_transformer_lm``), pipeline stages (``pp_stages``) and tensor
+parallelism (``mp``) arrive with later slices.
 """
 
 import paddle_tpu_torch as fluid

@@ -1,13 +1,13 @@
 """Prebuilt network compositions.
 
 Capability parity: `python/paddle/fluid/nets.py`
-(simple_img_conv_pool), as the JAX package's ``nets.py`` builds it. Its
-other compositions arrive with later slices.
+(simple_img_conv_pool, img_conv_group), as the JAX package's ``nets.py``
+builds them. Its other compositions arrive with later slices.
 """
 
 from paddle_tpu_torch import layers
 
-__all__ = ["simple_img_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -18,3 +18,28 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                              act=act)
     return layers.pool2d(conv_out, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True):
+    tmp = input
+    if isinstance(conv_padding, int):
+        conv_padding = [conv_padding] * len(conv_num_filter)
+    if not isinstance(conv_with_batchnorm, (list, tuple)):
+        conv_with_batchnorm = [conv_with_batchnorm] * len(conv_num_filter)
+    if not isinstance(conv_batchnorm_drop_rate, (list, tuple)):
+        conv_batchnorm_drop_rate = \
+            [conv_batchnorm_drop_rate] * len(conv_num_filter)
+    for i, nf in enumerate(conv_num_filter):
+        local_act = None if conv_with_batchnorm[i] else conv_act
+        tmp = layers.conv2d(tmp, nf, conv_filter_size,
+                            padding=conv_padding[i], act=local_act,
+                            param_attr=param_attr)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(tmp, act=conv_act)
+            if conv_batchnorm_drop_rate[i]:
+                tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
+    return layers.pool2d(tmp, pool_size=pool_size, pool_type=pool_type,
+                         pool_stride=pool_stride)

@@ -1,8 +1,10 @@
 """Neural-network op lowerings.
 
-Capability parity: reference `conv_op`, `pool_op`, `batch_norm_op`,
-`layer_norm_op`, `softmax_op` and `cross_entropy_op`, as the JAX
-package's ``ops/nn_ops.py`` lowers them, with its gradient flags.
+Capability parity: reference `conv_op` (and its depthwise form),
+`pool_op`, `lrn_op`, `batch_norm_op`, `layer_norm_op`, `dropout_op`,
+`softmax_op` and `cross_entropy_op`, as the JAX package's
+``ops/nn_ops.py`` lowers them, with its gradient flags, and the fused
+``conv2d_bn_act`` the epilogue-fusion pass emits (``passes/epilogue.py``).
 Convolution and pooling go to the library (``torch.nn.functional``), as
 the JAX package leaves them to XLA; an NHWC activation is handed over as
 a channels-last view, so no copy is made for the layout. The module's
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import registry
+from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.registry import op
 
 
@@ -53,6 +56,14 @@ def _conv2d(ctx, ins, attrs, o):
     xn, nhwc = _to_nchw(x, attrs)
     out = F.conv2d(xn, w, None, strides, pads, dil, groups)
     return {"Output": _from_nchw(out, nhwc)}
+
+
+@op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs, o):
+    a = dict(attrs)
+    caxis = 3 if attrs.get("data_layout", "NCHW") == "NHWC" else 1
+    a["groups"] = ins["Input"][0].shape[caxis]
+    return _conv2d(ctx, ins, a, o)
 
 
 # ---- pooling ----
@@ -214,6 +225,91 @@ def _batch_norm_grad(ctx, ins, out_grads, attrs, o):
 registry.REGISTRY["batch_norm"].grad_lower = _batch_norm_grad
 
 
+# ---- fused conv epilogue (passes/epilogue.py rewrite target) ----
+
+def _bn_slot_ins(ins, conv_out):
+    return {"X": [conv_out], "Scale": ins["Scale"], "Bias": ins["Bias"],
+            "Mean": ins["Mean"], "Variance": ins["Variance"]}
+
+
+def _fused_conv_lower(attrs):
+    return _depthwise_conv2d \
+        if attrs.get("conv_type") == "depthwise_conv2d" else _conv2d
+
+
+def _epilogue_tail(y, res, attrs):
+    if res is not None:
+        y = torch.add(y, res)
+    return torch.relu(y) if attrs.get("act", None) == "relu" else y
+
+
+@op("conv2d_bn_act", stateful_outputs=("MeanOut", "VarianceOut"),
+    nondiff_inputs=("Mean", "Variance"))
+def _conv2d_bn_act(ctx, ins, attrs, o):
+    """conv2d -> batch_norm [-> residual add] [-> relu] as one op.
+
+    Emitted by the epilogue-fusion pass; re-uses the constituent
+    lowerings verbatim (the same conv call, the same float32 batch
+    statistics and casts, ``torch.relu``), so the fused program computes
+    bitwise what the unfused one does."""
+    conv_out = _fused_conv_lower(attrs)(
+        ctx, {"Input": ins["Input"], "Filter": ins["Filter"]}, attrs,
+        o)["Output"]
+    bn = _batch_norm(ctx, _bn_slot_ins(ins, conv_out), attrs, o)
+    res = ins["Residual"][0] if attrs.get("with_residual", False) else None
+    return {"Out": _epilogue_tail(bn["Y"], res, attrs),
+            "MeanOut": bn["MeanOut"], "VarianceOut": bn["VarianceOut"],
+            "SavedMean": bn["SavedMean"],
+            "SavedVariance": bn["SavedVariance"]}
+
+
+def _conv2d_bn_act_grad(ctx, ins, out_grads, attrs, o):
+    """The fused epilogue's backward, chained by hand from the pieces the
+    unfused program runs, in its order: autograd through the add/relu
+    tail, then the hand-written batch-norm backward (one launch of the
+    batch-norm backward kernel when the reduction pass tagged the op),
+    then autograd through the recomputed convolution, which is the fused
+    1x1 backward's ``conv1x1`` where ``conv2d`` would route there."""
+    dy = (out_grads.get("Out") or [None])[0]
+    if dy is None:
+        return {}
+    x, w = ins["Input"][0], ins["Filter"][0]
+    res = ins["Residual"][0] if attrs.get("with_residual", False) else None
+    conv_lower = _fused_conv_lower(attrs)
+    with torch.enable_grad():
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        conv_out = conv_lower(ctx, {"Input": [xl], "Filter": [wl]}, attrs,
+                              o)["Output"]
+    bn_ins = _bn_slot_ins(ins, conv_out.detach())
+    y_bn = _batch_norm(ctx, bn_ins, attrs, o)["Y"]
+    with torch.enable_grad():
+        leaves = [y_bn.detach().requires_grad_()]
+        if res is not None:
+            leaves.append(res.detach().requires_grad_())
+        out = _epilogue_tail(leaves[0], leaves[1] if res is not None
+                             else None, attrs)
+        tail = torch.autograd.grad(out, leaves,
+                                   dy.to(out.dtype).reshape(out.shape))
+    bg = _batch_norm_grad(ctx, bn_ins, {"Y": [tail[0]]}, attrs, o)
+    with torch.enable_grad():
+        dx, dw = torch.autograd.grad(conv_out, [xl, wl],
+                                     bg["X"][0].to(conv_out.dtype))
+    # under amp the generic conv grad yields the master dtype through the
+    # cast's backward; mirror it from the Filter var's declaration
+    wdecl = o.block.var(o.inputs["Filter"][0]).dtype \
+        if getattr(o, "block", None) is not None else None
+    if wdecl is not None and torch_dtype(wdecl) != dw.dtype:
+        dw = dw.to(torch_dtype(wdecl))
+    grads = {"Input": [dx], "Filter": [dw], "Scale": bg["Scale"],
+             "Bias": bg["Bias"]}
+    if res is not None:
+        grads["Residual"] = [tail[1]]
+    return grads
+
+
+registry.REGISTRY["conv2d_bn_act"].grad_lower = _conv2d_bn_act_grad
+
+
 @op("layer_norm")
 def _layer_norm(ctx, ins, attrs, o):
     x = ins["X"][0]
@@ -230,6 +326,58 @@ def _layer_norm(ctx, ins, attrs, o):
         y = y + ins["Bias"][0].reshape(shape)
     # squeeze() drops every size-1 dim, as jnp's squeeze() does
     return {"Y": y, "Mean": mean.squeeze(), "Variance": var.squeeze()}
+
+
+@op("dropout", seq_map=True)
+def _dropout(ctx, ins, attrs, o):
+    """Reference `dropout_op`, as the JAX package draws it: the keep
+    mask comes from 8 random bits an element, so the keep probability
+    is quantised to 1/256 (clamped at both edges), and
+    ``upscale_in_train`` divides by the realised keep probability. The
+    draw is the op's own stream (``TraceContext.rng``); the grad op
+    recomputes this forward under the forward op's uid, so it redraws
+    the same mask."""
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False) or not ctx.training or p == 0.0:
+        # downgrade mode scales by the keep probability at test time
+        # (train applies the raw mask); upscale mode is the identity
+        out = x * (1.0 - p) if (impl == "downgrade_in_infer" and p > 0.0) \
+            else x
+        return {"Out": out, "Mask": torch.ones_like(x)}
+    thresh = max(1, int(round((1.0 - p) * 256.0)))
+    if thresh >= 256:               # the keep probability rounds to 1
+        mask = torch.ones_like(x)
+        realized_keep = 1.0
+    else:
+        if x.device.type == "meta":
+            bits = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+        else:
+            bits = torch.randint(0, 256, tuple(x.shape), dtype=torch.uint8,
+                                 generator=ctx.rng(), device=x.device)
+        mask = (bits < thresh).to(x.dtype)
+        realized_keep = thresh / 256.0
+    if impl == "upscale_in_train":
+        out = x * mask / realized_keep
+    else:
+        out = x * mask
+    return {"Out": out, "Mask": mask}
+
+
+@op("lrn")
+def _lrn(ctx, ins, attrs, o):
+    """Reference `lrn_op` across channels (NCHW): x / (k + alpha *
+    sum of the n neighbouring channels' squares) ** beta."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    alpha, beta = attrs.get("alpha", 1e-4), attrs.get("beta", 0.75)
+    k = attrs.get("k", 2.0)
+    half = n // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    acc = sum(pad[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": x / torch.pow(mid, beta), "MidOut": mid}
 
 
 # ---- softmax & losses ----

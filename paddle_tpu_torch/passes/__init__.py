@@ -7,14 +7,16 @@ program and keeps the clone (``core.executor``), never on every step:
 
 * ``layout``: whole-program NHWC conversion with transpose elimination,
   forward AND backward ops (``passes/layout.py``).
-* ``reductions``: tags every NHWC training-mode ``batch_norm_grad`` for
-  the hand-written batch-norm backward kernel (``kernels/bn_grad.py``).
+* ``epilogue``: folds conv2d -> batch_norm [-> add] [-> relu] into one
+  ``conv2d_bn_act`` op, forward and backward (``passes/epilogue.py``).
+* ``reductions``: tags every NHWC training-mode ``batch_norm_grad`` and
+  ``conv2d_bn_act_grad`` for the hand-written batch-norm backward kernel
+  (``kernels/bn_grad.py``).
 * ``kernels``: pins ``kernel_params`` knobs as op attrs.
 
-``epilogue_fusion`` (the ``conv2d_bn_act`` fold) and ``remat`` are part
-of the config and its key, as in the JAX package, but their passes
-arrive with later slices: :func:`apply` raises ``NotImplementedError``
-for a config that asks for them. The JAX package's telemetry and
+``remat`` is part of the config and its key, as in the JAX package, but
+its pass arrives with a later slice: :func:`apply` raises
+``NotImplementedError`` for a config that asks for it. The JAX package's telemetry and
 IR-verifier hooks around each pass arrive with those modules.
 
 The pipeline is configured per program (``passes.enable(program, ...)``)
@@ -22,6 +24,7 @@ and never mutates the user's program: flipping the config selects
 another kept clone. With no config a program runs as it is.
 """
 
+from paddle_tpu_torch.passes import epilogue as _epilogue
 from paddle_tpu_torch.passes import kernels as _kernels
 from paddle_tpu_torch.passes import layout as _layout
 from paddle_tpu_torch.passes import reductions as _reductions
@@ -115,7 +118,7 @@ def _canon_kernel_params(params):
 # yet.
 PIPELINE = (
     ("layout", lambda c: c.layout == "NHWC", _layout),
-    ("epilogue", lambda c: c.epilogue_fusion, None),
+    ("epilogue", lambda c: c.epilogue_fusion, _epilogue),
     ("reductions", lambda c: c.pallas_reductions, _reductions),
     ("kernels", lambda c: bool(c.kernel_params), _kernels),
     ("remat", lambda c: bool(c.remat), None),

@@ -5,13 +5,15 @@ The JAX package's ``passes/kernels.py``: ``PassConfig.kernel_params``
 key) land as attrs on the matching ops, and the lowerings consult the
 attrs:
 
-* ``("batch_norm_grad", "tile", T)``: the batch-norm backward's row
-  tile (``pallas_tile`` attr, the name the JAX package serializes);
-  applied only to ops the reduction pass TAGGED
-  (``use_pallas_reduction``). The CUDA kernel picks its own blocking
-  and ignores the value; the plain version blocks its rows by it.
+* ``("batch_norm_grad" | "conv2d_bn_act_grad", "tile", T)``: the
+  batch-norm backward's row tile (``pallas_tile`` attr, the name the
+  JAX package serializes); applied only to ops the reduction pass
+  TAGGED (``use_pallas_reduction``). The CUDA kernel picks its own
+  blocking and ignores the value; the plain version blocks its rows by
+  it.
 
-This is the one knob a lowering of this package reads. Unknown
+This is the one knob a lowering of this package reads;
+``fused_attention``'s block knobs arrive with its op. Unknown
 (op_type, param) pairs are no-ops by design: a record tuned for a
 richer kernel set stays APPLICABLE (0 rewrites, not an error).
 """
@@ -21,6 +23,7 @@ __all__ = ["run"]
 # the knobs each op type accepts (and the attr each one lands on)
 _KNOBS = {
     "batch_norm_grad": {"tile": "pallas_tile"},
+    "conv2d_bn_act_grad": {"tile": "pallas_tile"},
 }
 
 

@@ -4,7 +4,8 @@ golden program round-trips byte-identically through the port's
 training programs (append_backward + Adam; seq2seq's StaticRNN
 sub-block and scan_block_grad), the MNIST MLP and LeNet training
 programs and the ResNet-50 training program (Momentum) give the same
-JSON in both packages."""
+JSON in both packages; LeNet under AMP, VGG-16, AlexNet, GoogLeNet and
+SmallNet build their goldens."""
 
 import json
 import os
@@ -24,11 +25,15 @@ from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.core.infer import infer_op_shapes
 from paddle_tpu_torch.core.ir import Program
+from paddle_tpu_torch.models import alexnet as talexnet
+from paddle_tpu_torch.models import googlenet as tgooglenet
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.models import seq2seq as tseq2seq
 from paddle_tpu_torch.models import stacked_lstm as tstacked
+from paddle_tpu_torch.models import smallnet as tsmallnet
 from paddle_tpu_torch.models import transformer as ttransformer
+from paddle_tpu_torch.models import vgg as tvgg
 
 # Under pytest-xdist each worker takes its share of the cores for
 # torch's intra-op threads: six workers at torch's default thread count
@@ -86,6 +91,28 @@ def test_one_shot_lm_json_identical_to_jax(which):
     t = _one_shot(tfluid, tlayers, tnames, ttransformer)
     i = 0 if which == "main" else 1
     assert _dump(t[i]) == _dump(j[i])
+
+
+def test_one_shot_lm_with_attention_dropout_json_identical_to_jax():
+    """``dropout_rate`` puts a ``dropout`` op on each block's attention
+    context in both packages."""
+    progs = []
+    for fluid, layers, names, transformer in (
+            (jfluid, jlayers, jnames, jtransformer),
+            (tfluid, tlayers, tnames, ttransformer)):
+        with names.guard():
+            prog = fluid.Program()
+            with fluid.program_guard(prog, fluid.Program()):
+                tokens = layers.data("tokens", [-1], dtype="int64")
+                transformer.transformer_lm(
+                    tokens, SIZE["vocab_size"], d_model=SIZE["d_model"],
+                    num_layers=SIZE["num_layers"],
+                    num_heads=SIZE["num_heads"], max_len=SIZE["max_len"],
+                    dropout_rate=0.1)
+        progs.append(prog)
+    assert _dump(progs[1]) == _dump(progs[0])
+    assert [op.type for op in progs[1].global_block().ops].count(
+        "dropout") == SIZE["num_layers"]
 
 
 def test_inferred_dtypes_follow_jax_x64_off():
@@ -156,6 +183,11 @@ def test_scan_block_shapes_infer_on_meta_tensors():
     assert [b0.var(n).type for n in op.output("Out")] == ["packed_seq"] * 2
 
 
+def _amp(built):
+    tfluid.amp.enable(built[0])
+    return built
+
+
 @pytest.mark.parametrize("name,build", [
     ("stacked_lstm", lambda: tstacked.build_stacked_lstm_train(
         **LSTM_SIZES["golden"])),
@@ -164,8 +196,17 @@ def test_scan_block_shapes_infer_on_meta_tensors():
     ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp")),
     ("mnist_cnn", lambda: tlenet.build_mnist_train(model="cnn")),
     ("resnet_cifar", lambda: tresnet.build_resnet50_train(
-        image_shape=(3, 32, 32), class_dim=10))])
+        image_shape=(3, 32, 32), class_dim=10)),
+    ("mnist_cnn_amp", lambda: _amp(tlenet.build_mnist_train(model="cnn"))),
+    ("vgg_cifar", lambda: tvgg.build_vgg16_train(image_shape=(3, 32, 32),
+                                                 class_dim=10)),
+    ("alexnet", lambda: talexnet.build_alexnet_train(
+        image_shape=(3, 67, 67), class_dim=10)),
+    ("googlenet", lambda: tgooglenet.build_googlenet_train(
+        image_shape=(3, 64, 64), class_dim=10)),
+    ("smallnet", lambda: tsmallnet.build_smallnet_train())])
 def test_training_program_equals_golden(name, build):
+    """The goldens' builders (tools/goldens.py), run in the port."""
     with tnames.guard():
         prog = build()[0]
     with open(os.path.join(GOLDEN_DIR, name + ".program.json")) as f:

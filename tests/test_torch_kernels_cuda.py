@@ -566,3 +566,137 @@ def test_cuda_conv1x1_bwd_unaligned_views_take_the_4_byte_copies(cuda,
     rtol, amax = (1e-4, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
     _close(dx, truth[0], rtol, amax)
     _close(dw, truth[1], rtol, amax)
+
+
+# ---- the fused conv epilogue (conv2d_bn_act) on the card ----
+
+def _fused_block_net(spatial=16, pointwise=False):
+    """A conv + bn + residual add + relu block and a conv + bn + relu
+    block, global pool, fc: both conv epilogues fuse."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        img = layers.data("img", [16, spatial, spatial])
+        label = layers.data("label", [1], dtype="int64")
+        k, pad = (1, 0) if pointwise else (3, 1)
+        c = layers.conv2d(img, 16, k, padding=pad, bias_attr=False)
+        x = layers.elementwise_add(img, layers.batch_norm(c), act="relu")
+        c = layers.conv2d(x, 32, k, padding=pad, bias_attr=False)
+        x = layers.batch_norm(c, act="relu")
+        pool = layers.pool2d(x, pool_type="avg", global_pooling=True)
+        fc = layers.fc(pool, size=10, act="softmax")
+        loss = layers.mean(layers.cross_entropy(fc, label))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return prog, startup, loss
+
+
+def _fused_run(cuda, cfg, amp, pointwise=False, nhwc=False, flag=False):
+    """One step of the block net from seeded weights on the card:
+    (loss, {param: grad}, bn_grad launches, conv1x1_bwd launches)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags, unique_name
+
+    with unique_name.guard():
+        prog, startup, loss = _fused_block_net(pointwise=pointwise)
+    if cfg is not None:
+        fluid.passes.enable(prog, **cfg)
+    if amp:
+        fluid.amp.enable(prog)
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 16, 16, 16).astype(np.float32)
+    if nhwc:
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    feed = {"img": x, "label": rng.randint(0, 10, (8, 1)).astype(np.int64)}
+    params = sorted(p.name for p in prog.global_block().all_parameters())
+    kbn.reset_launches()
+    k1.reset_launches()
+    flags.set_flags({"FLAGS_fused_conv1x1_bwd": flag})
+    try:
+        out = exe.run(prog, feed=feed, fetch_list=[loss.name]
+                      + [p + "@GRAD" for p in params], scope=scope)
+    finally:
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": False})
+    torch.cuda.synchronize()
+    return (float(out[0]), dict(zip(params, out[1:])),
+            kbn.launches["bn_grad"], k1.launches["conv1x1_bwd"])
+
+
+def _hold(got, want, each, together):
+    import numpy as np
+
+    num = den = 0.0
+    for n, w in want.items():
+        g = got[n].astype(np.float64)
+        w = w.astype(np.float64)
+        assert got[n].dtype == np.float32, n
+        assert np.linalg.norm(g - w) <= each * np.linalg.norm(w), n
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    assert (num / den) ** 0.5 <= together
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_cuda_fused_nhwc_step_launches_b7_and_matches_unfused(cuda, amp):
+    """NHWC + epilogue + reductions: each tagged conv2d_bn_act_grad
+    launches the batch-norm backward kernel (bf16 under AMP) once a
+    step. Fused against unfused from the same weights: cuDNN may choose
+    other algorithms for the two programs, so not bitwise; in float32
+    the A-vs-B bounds (loss rtol 1e-4, each gradient within 2e-2 of its
+    L2 norm, all together 2e-3), under AMP the bf16 ones (loss rtol
+    1e-2, each 0.5, all together 0.2; PERF.md section 2)."""
+    base = dict(layout="NHWC", pallas_reductions=True)
+    ref = _fused_run(cuda, base, amp, nhwc=True)
+    got = _fused_run(cuda, dict(base, epilogue_fusion=True), amp, nhwc=True)
+    assert ref[2] == got[2] == 2 and ref[3] == got[3] == 0
+    loss_rtol, each, together = (1e-2, 0.5, 0.2) if amp else (1e-4, 2e-2,
+                                                              2e-3)
+    assert abs(got[0] - ref[0]) <= loss_rtol * abs(ref[0])
+    _hold(got[1], ref[1], each, together)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_cuda_fused_1x1_step_launches_b8_inside_the_fused_grad(cuda, amp):
+    """NCHW + epilogue with FLAGS_fused_conv1x1_bwd: both 1x1 convs sit
+    inside conv2d_bn_act and launch the fused 1x1 backward (bf16 x, w
+    and dy under AMP; the filter's gradient float32, its master's
+    dtype) once a step each; against the unfused program with the flag
+    on, at the bounds of the test above."""
+    cfg = dict(epilogue_fusion=True)
+    ref = _fused_run(cuda, None, amp, pointwise=True, flag=True)
+    got = _fused_run(cuda, cfg, amp, pointwise=True, flag=True)
+    assert ref[3] == got[3] == 2 and ref[2] == got[2] == 0
+    loss_rtol, each, together = (1e-2, 0.5, 0.2) if amp else (1e-4, 2e-2,
+                                                              2e-3)
+    assert abs(got[0] - ref[0]) <= loss_rtol * abs(ref[0])
+    _hold(got[1], ref[1], each, together)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_grad_takes_a_permuted_nhwc_view(cuda):
+    """The NHWC conv output the port hands over may be a permute of an
+    NCHW result: the wrapper makes it contiguous and launches (no quiet
+    plain path on the card)."""
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(8, 24, 9, 7, generator=g).to(torch.bfloat16).to(cuda)
+    dy = torch.randn(8, 24, 9, 7, generator=g).to(torch.bfloat16).to(cuda)
+    scale = (torch.rand(24, generator=g) + 0.5).to(cuda)
+    xv, dyv = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+    assert not xv.is_contiguous()
+    n0 = kbn.launches["bn_grad"]
+    got = kbn.bn_grad(xv, dyv, scale, 1e-5)
+    assert kbn.launches["bn_grad"] == n0 + 1
+    want = kbn.bn_grad_reference(xv.contiguous(), dyv.contiguous(), scale,
+                                 1e-5)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], 1e-2, 4e-3)
+    _close(got[1], want[1], 1e-4, 1e-5)

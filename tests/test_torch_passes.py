@@ -58,6 +58,9 @@ CONFIGS = {
                        ("no_such_op", "knob", 1)]),
     "nchw_feed": dict(layout="NHWC", feed_layout="NCHW"),
     "reductions_only": dict(pallas_reductions=True, interpret=True),
+    "nhwc_epilogue_reductions": dict(layout="NHWC", epilogue_fusion=True,
+                                     pallas_reductions=True, interpret=True),
+    "epilogue_only": dict(epilogue_fusion=True),
 }
 MODELS = {
     "resnet_cifar": (lambda: jresnet.build_resnet50_train(**CIFAR),
@@ -144,7 +147,6 @@ def test_reductions_tag_every_nhwc_batch_norm_grad_and_no_nchw_one():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(epilogue_fusion=True), "epilogue"),
     (dict(layout="NHWC", remat="blocks"), "remat"),
     (dict(remat=2), "remat")])
 def test_unported_passes_raise_in_apply_not_in_the_constructor(kw, name):
