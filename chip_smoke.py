@@ -34,7 +34,13 @@ calls, on random weights and data made from ``--seed``:
   launch the fused 1x1 backward in bfloat16 inside the fused op's
   grad); and VGG-16 (config C's passes, 13 batch-norm backwards a
   step), GoogLeNet (NCHW with the flag, 37 fused 1x1 backwards a step),
-  AlexNet and SmallNet, all under AMP at bench.py's full widths.
+  AlexNet and SmallNet, all under AMP at bench.py's full widths;
+* training of the transformer LM as bench.py runs it (vocab 32000, seq
+  512, d_model 512, 8 layers, 8 heads, batch 16, Adam lr 1e-3, bf16
+  AMP): 8 flash-attention forwards and 8 more inside
+  ``fused_attention_grad`` a step, all in the bfloat16 kernel; and
+  bench.py's memory row (the same model in float32, attention dropout
+  0.1) with the remat pass off and ``remat="blocks"``.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -58,7 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bits; the GRU kernels also at the widest H the backward's launch
    plan admits on the card; the batch-norm backward in bfloat16 at
    every distinct shape of config C, the fused 1x1 backward's config-D
-   shapes shown to be config B's);
+   shapes shown to be config B's; the bfloat16 flash-attention forward
+   at the serving and training shapes and a packed case, also against
+   float64; both flash-attention forwards twice to the same bits);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
    kernels' launch counts and that greedy tokens equal the argmax of the
@@ -87,7 +95,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    VGG-16, GoogLeNet, AlexNet and SmallNet at full width, batch 64,
    2 warmup and 5 counted steps each (exact launch counts, a finite
    loss that comes under the first counted one);
-9. time each kernel, its plain version and one PyTorch library call at
+9. the transformer LM under bf16 AMP: 2 warmup and 10 counted steps
+   (exact bfloat16 B1 launches derived from the program, no float32
+   B1, a finite falling loss), a profile of one step, B1's backward
+   share of the step, the card against the CPU at a reduced size in
+   float32 and under AMP; then the memory row, remat off against
+   "blocks" from the same weights: equal losses and first-step
+   gradients (bitwise, or else within B1's tolerance, printed which),
+   the peak allocated memory of each (the "blocks" arm must be lower),
+   the activation ledger and each arm's B1 launches;
+10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
    over the valid prefix and the masked call over the whole cache; the
@@ -96,9 +113,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and 80 and the GRU kernels at T = 3 and 30 for their cost a step,
    with their launch plans; the batch-norm and fused 1x1 backwards
    also in bfloat16 at every distinct shape of configs C and D, beside
-   their plain versions and the library's bfloat16 calls), and profile
-   the decode step;
-10. print the kernel table as one JSON line, then the result line.
+   their plain versions and the library's bfloat16 calls; the bfloat16
+   flash-attention forward at the transformer's shape beside SDPA in
+   bfloat16), and profile the decode step;
+11. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -227,6 +245,25 @@ OTHER_SETTLE_STEPS = 30
 # the batch-norm backward's three kernels (partial sums, finalize, dx)
 B7_KERNELS = ("bn_partial", "bn_finalize", "bn_dx")
 
+# bench.py's transformer run (bench.py:221-253, DEFAULT_BATCH 16, bf16
+# AMP unless --fp32): vocab 32000, seq 512, d_model 512, 8 layers, 8
+# heads, Adam lr 1e-3
+LM = dict(vocab_size=32000, seq_len=512, d_model=512, num_layers=8,
+          num_heads=8, lr=1e-3)
+LM_B = 16
+# the card against the CPU at a reduced size
+LM_XCHECK = dict(vocab_size=1000, seq_len=64, d_model=128, num_layers=2,
+                 num_heads=2, lr=1e-3)
+LM_XCHECK_B, LM_XCHECK_STEPS = 4, 3
+# bench.py's memory row (_bench_memory, bench.py:2528-2635): the same
+# model in float32 with attention dropout 0.1, remat off against
+# remat="blocks"
+MEM_WARMUP, MEM_STEPS = 2, 3
+# B1 in bfloat16: the training path's shape, the serving shapes, and a
+# packed (segment) case
+B1_BF16_CASES = ((1, 8, 32, 64, True, False), (1, 8, 160, 64, True, False),
+                 (16, 8, 512, 64, True, False), (2, 8, 160, 64, True, True))
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -263,6 +300,8 @@ C1_SWEEP_SHAPE = (64, 64, 56, 56, 256)
 C1_SWEEP_CHUNKS = (64, 256, 1024, 4096)
 
 SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "flash_attention_bf16":
+               "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
            "lstm_fwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
            "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
@@ -273,6 +312,8 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "bn_grad_bf16": "paddle_tpu_torch/csrc/bn_grad.cu",
            "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
+            "flash_attention_bf16":
+                "paddle_tpu/kernels/flash_attention.py:70",
             "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
             "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
             "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198",
@@ -301,6 +342,7 @@ def card_line():
 # whose rows start on 2-byte boundaries stages through registers
 # (cp.async copies 4 bytes or more).
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
+                       ("flash_attention", "flash_fwd_bf16_kernel"),
                        ("conv1x1_bwd", "conv1x1_bwd_kernel"),
                        ("lstm_cell", "lstm_fwd_kernel"),
                        ("lstm_cell", "lstm_bwd_kernel"),
@@ -1803,6 +1845,304 @@ def other_model(fluid, exe, name, kw, seed, dev, kbn, k1, set_fused):
     torch.cuda.empty_cache()
 
 
+def same_bits(what, first, second):
+    """Two runs of a kernel on the same inputs give the same bits."""
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("%s: two runs differ" % what)
+
+
+def check_b1_bf16(fa, g, dev):
+    """B1 in bfloat16 at B1_BF16_CASES against its plain version (O at
+    one bfloat16 rounding, the log-sum-exp at ATOL/RTOL), against a
+    float64 softmax attention on the same bfloat16 values (O at one
+    bfloat16 rounding), and run twice to the same bits. Returns the
+    largest error against the plain version."""
+    worst = 0.0
+    for b, h, s, d, causal, seg in B1_BF16_CASES:
+        q, k, v = (torch.randn(b, h, s, d, generator=g).to(torch.bfloat16)
+                   .to(dev) for _ in range(3))
+        segs = None
+        if seg:
+            ids = torch.sort(torch.randint(0, 3, (b, s), generator=g),
+                             dim=1)[0].to(torch.int32).to(dev)
+            segs = (ids, ids)
+        n0 = dict(fa.launches)
+        ko, kl = fa.flash_attention(q, k, v, causal=causal,
+                                    segment_ids=segs, return_lse=True)
+        if fa.launches["flash_attention_bf16"] != \
+                n0["flash_attention_bf16"] + 1 or \
+                fa.launches["flash_attention"] != n0["flash_attention"]:
+            raise AssertionError("a bfloat16 call must launch the "
+                                 "bfloat16 kernel once: %s" % fa.launches)
+        ro, rl = fa.flash_attention_reference(q, k, v, causal, None, segs)
+        what = "flash_attention_bf16 %s causal=%s seg=%s" % (
+            (b, h, s, d), causal, seg)
+        same_bits(what, (ko, kl), fa.flash_attention(
+            q, k, v, causal=causal, segment_ids=segs, return_lse=True))
+        e = rel_close(what + " O", ko.float(), ro.to(torch.bfloat16).float(),
+                      BF16_RTOL, BF16_AMAX)
+        e = max(e, assert_close(what + " lse", kl, rl))
+        # float64: softmax(q k^T scale + mask) v on the bfloat16 values
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) \
+            * d ** -0.5
+        ok = torch.ones(s, s, dtype=torch.bool, device=dev)
+        if causal:
+            ok = ok.tril()
+        ok = ok[None, None]
+        if segs is not None:
+            ok = ok & (segs[0][:, None, :, None] == segs[1][:, None, None, :])
+        sc = torch.where(ok, sc, fa.DEFAULT_MASK_VALUE)
+        truth = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1),
+                             v.double())
+        e64 = rel_close(what + " O vs float64", ko.double(), truth,
+                        BF16_RTOL, BF16_AMAX)
+        print("%s: max abs err %.3g against the plain version, %.3g "
+              "against float64" % (what, e, e64))
+        worst = max(worst, e)
+    torch.cuda.synchronize()
+    return worst
+
+
+def attention_launches(prog):
+    """B1 launches a step, read from the program: one for every one-shot
+    ``fused_attention`` op and one for every ``fused_attention_grad``
+    (the generic grad re-runs the forward under autograd); plus one
+    for every ``fused_attention`` inside a segment that the remat plan
+    replays. Returns (forward, grad, replay)."""
+    from paddle_tpu_torch import passes
+
+    out, _ = passes.apply(prog)
+    ops = out.global_block().ops
+    fwd = sum(op.type == "fused_attention"
+              and op.attrs.get("cache_mode") is None for op in ops)
+    grad = sum(op.type == "fused_attention_grad" for op in ops)
+    plan = getattr(out, "_remat_plan", None)
+    replay = 0 if plan is None else sum(
+        ops[i].type == "fused_attention" for seg in plan.segments
+        for i in range(seg.start, seg.end))
+    return fwd, grad, replay
+
+
+def lm_feed(vocab, seq, batch, seed):
+    """bench.py's transformer batch (bench.py:238-242): tokens, then
+    targets, uniform ids from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    tgts = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    return {"tokens": toks, "targets": tgts}
+
+
+def transformer_phase(fluid, seed, dev):
+    """The transformer LM trained as bench.py runs it: bf16 AMP at full
+    width, 2 warmup and 10 counted steps on one repeated batch (exact
+    bf16 B1 launches, no float32 B1), a profile, B1's backward share;
+    the card against the CPU at a reduced size in float32 and under
+    AMP. Returns the counted steps' B1 launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build_transformer_lm(**LM)
+    fluid.amp.enable(prog)
+    fwd, grad, _ = attention_launches(prog)
+    if (fwd, grad) != (LM["num_layers"], LM["num_layers"]):
+        raise AssertionError("the program should hold %d fused_attention "
+                             "and as many grads, not %d and %d"
+                             % (LM["num_layers"], fwd, grad))
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if prog.global_block().var(n).is_parameter)
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    tokens = LM_B * LM["seq_len"]
+    print("parameters: %d (%.1f MB fp32 masters); batch %d x %d tokens; "
+          "bf16 AMP; B1 a step from the program: %d forward + %d inside "
+          "fused_attention_grad" % (n_params, n_params * 4 / 1e6, LM_B,
+                                    LM["seq_len"], fwd, grad))
+    for _ in range(WARMUP_STEPS):
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    want = {"flash_attention": 0,
+            "flash_attention_bf16": (fwd + grad) * TRAIN_STEPS,
+            "flash_decode": 0}
+    print("launches on the main path:", json.dumps(launches), "expected",
+          json.dumps(want))
+    if launches != want:
+        raise AssertionError("B1 launch counts %s != %s" % (launches, want))
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    step_ms = wall * 1000.0 / TRAIN_STEPS
+    print("transformer train (bf16 AMP): %d steps in %.3f s = %.3f ms/step, "
+          "%.2f sequences/s, %.1f tokens/s" % (
+              TRAIN_STEPS, wall, step_ms, LM_B / (step_ms / 1e3),
+              tokens / (step_ms / 1e3)))
+    device_profile(lambda: exe.run(prog, feed=feed, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "transformer step (bf16 AMP)",
+                   share_of="flash_fwd_bf16_kernel")
+    # B1's backward (plain PyTorch) at the path's shape, a step's worth
+    b, h, s, d = LM_B, LM["num_heads"], LM["seq_len"], \
+        LM["d_model"] // LM["num_heads"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g).to(torch.bfloat16)
+                   .to(dev) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    bwd_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True), reps=10)
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    print("B1 a step: forward kernel %d x %.6f ms = %.3f ms, backward "
+          "(flash_attention_bwd, plain PyTorch, bf16 in, float32 sums) "
+          "%d x %.6f ms = %.3f ms = %.1f%% of the %.3f ms step" % (
+              fwd + grad, fwd_ms, (fwd + grad) * fwd_ms, grad, bwd_ms,
+              grad * bwd_ms, 100.0 * grad * bwd_ms / step_ms, step_ms))
+    del scope, exe, feed, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at a reduced size, float32 and bf16 AMP
+    xfeed = lm_feed(LM_XCHECK["vocab_size"], LM_XCHECK["seq_len"],
+                    LM_XCHECK_B, seed + 1)
+    for amp in (False, True):
+        def build():
+            built = build_transformer_lm(**LM_XCHECK)
+            if amp:
+                fluid.amp.enable(built[0])
+            return built
+
+        fa.reset_launches()
+        cross_check(fluid, fluid.Executor(), build, seed, xfeed,
+                    LM_XCHECK_STEPS, "%s, batch %d, %s" % (
+                        LM_XCHECK, LM_XCHECK_B,
+                        "bf16 AMP" if amp else "float32"),
+                    **(dict(gtol=None, ltol=AMP_LTOL, l2tol=AMP_L2TOL,
+                            pl2tol=AMP_PL2TOL) if amp else {}))
+        key = "flash_attention_bf16" if amp else "flash_attention"
+        if fa.launches[key] != 2 * LM_XCHECK["num_layers"] * LM_XCHECK_STEPS:
+            raise AssertionError("cross-check launches %s" % fa.launches)
+    return launches
+
+
+def remat_phase(fluid, seed, dev):
+    """bench.py's memory row on the card: the transformer at full width
+    in float32 with attention dropout 0.1, remat off and "blocks", from
+    the same weights on the same batch: equal losses and first-step
+    gradients (bitwise, or else within B1's tolerance, said which), the
+    peak allocated memory of each arm's counted steps (the "blocks" arm
+    must be lower), the activation ledger, and the B1 launches of each
+    (the replay re-runs each segment's attention)."""
+    from paddle_tpu_torch import layers, passes, unique_name
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import transformer_lm
+    from paddle_tpu_torch.passes import remat as remat_lib
+
+    def build():
+        with unique_name.guard():
+            prog, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(prog, startup):
+                tokens = layers.data("tokens", [LM["seq_len"]],
+                                     dtype="int64")
+                targets = layers.data("targets", [LM["seq_len"]],
+                                      dtype="int64")
+                logits = transformer_lm(
+                    tokens, LM["vocab_size"], d_model=LM["d_model"],
+                    num_layers=LM["num_layers"], num_heads=LM["num_heads"],
+                    max_len=max(LM["seq_len"], 2048), dropout_rate=0.1)
+                loss = layers.mean(layers.softmax_with_cross_entropy(
+                    logits, layers.unsqueeze(targets, [2])))
+                fluid.optimizer.Adam(LM["lr"]).minimize(loss)
+        return prog, startup, loss
+
+    prog, startup, _ = build()
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope0)
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    off_ledger = remat_lib.activation_ledger(prog)
+    arms = {}
+    for policy in (None, "blocks"):
+        prog, _, loss = build()
+        if policy is not None:
+            passes.enable(prog, remat=policy)
+        grads = sorted(p.name + "@GRAD"
+                       for p in prog.global_block().all_parameters())
+        fwd, grad, replay = attention_launches(prog)
+        scope = fluid.Scope()
+        for n, t in scope0.vars.items():
+            scope.set_var(n, t.clone())
+        exe = fluid.Executor()
+        torch.cuda.synchronize()
+        first = exe.run(prog, feed=feed, fetch_list=[loss] + grads,
+                        scope=scope)
+        losses = [float(first[0])]
+        for _ in range(MEM_WARMUP - 1):
+            losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(MEM_STEPS):
+            losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1000.0 / MEM_STEPS
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = (fwd + grad + replay) * MEM_STEPS
+        if fa.launches["flash_attention"] != want:
+            raise AssertionError("remat %s: B1 launches %s, expected %d"
+                                 % (policy, fa.launches, want))
+        plan = passes.apply(prog, protected=[loss.name])[0]
+        ledger = remat_lib.activation_ledger(plan)
+        arms[policy] = dict(losses=losses, grads=first[1:], peak=peak)
+        print("remat %s: %.3f ms/step; peak allocated %d bytes (%.1f MB; "
+              "%.1f MB held between steps); B1 a step %d forward + %d grad "
+              "+ %d replayed; activation ledger stored %d, saved %d bytes "
+              "a sample; losses %s" % (
+                  policy, step_ms, peak, peak / 1e6, base / 1e6, fwd, grad,
+                  replay, ledger[0], ledger[1],
+                  " ".join("%.7f" % v for v in losses)))
+        del scope, exe, first
+        torch.cuda.empty_cache()
+    off, on = arms[None], arms["blocks"]
+    bitwise = off["losses"] == on["losses"] and all(
+        np.array_equal(a, b) for a, b in zip(off["grads"], on["grads"]))
+    if not bitwise:
+        np.testing.assert_allclose(on["losses"], off["losses"], rtol=1e-5)
+        names = ["g%d" % i for i in range(len(off["grads"]))]
+        check_grad_diff("remat blocks vs off, first-step gradients",
+                        grad_diff(names, on["grads"], off["grads"]),
+                        1e-4, 1e-4)
+    stored_off = off_ledger[0]
+    print("remat: losses and first-step gradients %s; peak allocated off "
+          "%.1f MB, blocks %.1f MB (%.1f%% lower); activation ledger off "
+          "%d bytes a sample, blocks stores %d (%.1f%% less)" % (
+              "bitwise equal" if bitwise else
+              "equal within rtol 1e-5 (losses) and 1e-4 x max|g| "
+              "(not bitwise)", off["peak"] / 1e6, on["peak"] / 1e6,
+              100.0 * (1 - on["peak"] / off["peak"]), stored_off,
+              ledger[0], 100.0 * (1 - ledger[0] / stored_off)))
+    if not on["peak"] < off["peak"]:
+        raise AssertionError("remat blocks peak %d not below off %d"
+                             % (on["peak"], off["peak"]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1870,11 +2210,15 @@ def main():
                                                       None, segs)
                 what = "flash_attention %s causal=%s seg=%s" % (
                     (b, h, s, d), causal, segs is not None)
+                same_bits(what, (ko, kl), fa.flash_attention(
+                    q, k, v, causal=causal, segment_ids=segs,
+                    return_lse=True))
                 e = max(assert_close(what + " O", ko, ro),
                         assert_close(what + " lse", kl, rl))
                 max_err["flash_attention"] = max(
                     max_err["flash_attention"], e)
     torch.cuda.synchronize()
+    max_err["flash_attention_bf16"] = check_b1_bf16(fa, g, dev)
     max_err["flash_decode"] = check_decode(fa, g, dev)
     lstm_err, dw_err = check_lstm(lc, g, dev)
     max_err.update(lstm_err)
@@ -1961,7 +2305,7 @@ def main():
             raise AssertionError("request %s: %s after %d tokens"
                                  % (p.tolist(), reason, len(got)))
     want = {"flash_attention": N_LAYERS * N_REQUESTS,
-            "flash_decode": N_LAYERS * steps}
+            "flash_attention_bf16": 0, "flash_decode": N_LAYERS * steps}
     print("launches on the main path:", json.dumps(launches),
           "expected", json.dumps(want))
     if launches != want:
@@ -2031,7 +2375,17 @@ def main():
           "SmallNet (seed %d)" % args.seed)
     launches.update(convnet_bench_phase(fluid, args.seed, dev))
 
-    # ---- 9. times ----
+    # ---- 9. the transformer LM as bench.py trains it, and remat ----
+    phase("transformer LM training as bench.py runs it: full width under "
+          "bf16 AMP, the card against the CPU in float32 and AMP (seed %d)"
+          % args.seed)
+    launches["flash_attention_bf16"] = transformer_phase(
+        fluid, args.seed, dev)["flash_attention_bf16"]
+    phase("remat at the memory row's width: float32, attention dropout "
+          "0.1, off against \"blocks\" (seed %d)" % args.seed)
+    remat_phase(fluid, args.seed, dev)
+
+    # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
           "bn_grad and conv1x1_bwd)")
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
@@ -2103,6 +2457,24 @@ def main():
                     "float32, causal, TF32 off",
             bytes=4 * (4 * b * N_HEADS * s * d + b * N_HEADS * s),
             flops=4 * b * N_HEADS * pairs * d, tf32x3=True))
+    # B1 in bfloat16 at the transformer training path's shape, beside
+    # SDPA in bfloat16 (its flash kernel): q, k, v, o 2 bytes an
+    # element, lse 4, the products at the bfloat16 tensor-core rate
+    b, s, d = LM_B, LM["seq_len"], LM["d_model"] // LM["num_heads"]
+    q, k, v = (randn(b, N_HEADS, s, d).to(torch.bfloat16) for _ in range(3))
+    rows.append(dict(
+        name="flash_attention_bf16",
+        shape="[%d,8,%d,%d] causal=True" % (b, s, d),
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, True), reps=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        library="torch.nn.functional.scaled_dot_product_attention, "
+                "bfloat16, causal",
+        bytes=2 * 4 * b * N_HEADS * s * d + 4 * b * N_HEADS * s,
+        flops=4 * b * N_HEADS * (s * (s + 1) // 2) * d,
+        peak=BF16_FLOPS_PER_S))
     # B3 and B4 at the training path's shape, every step valid, and at
     # T = 8: (t80 - t8) / 72 is a step's cost without the launch and the
     # blocks' set-up
@@ -2412,12 +2784,13 @@ def main():
                    step_ms, "decode step at pos 160")
     torch.cuda.synchronize()
 
-    # ---- 10. result ----
+    # ---- 11. result ----
     by_name = {}
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
                 ("flash_decode", "[16,8,512,64] cache_len=160"),
-                ("flash_attention", "[1,8,32,64] causal=True")) \
+                ("flash_attention", "[1,8,32,64] causal=True"),
+                ("flash_attention_bf16", "[16,8,512,64] causal=True")) \
                 or r["name"] in ("lstm_fwd", "lstm_bwd", "gru_fwd",
                                  "gru_bwd") \
                 or r["shape"].startswith(("[64, 112, 112, 64]",
@@ -2432,7 +2805,8 @@ def main():
               "bound_ms": by_name[n]["bound_ms"],
               "bound_by": by_name[n]["bound_by"],
               "library_ms": by_name[n]["library_ms"]}
-             for n in ("flash_attention", "flash_decode", "lstm_fwd",
+             for n in ("flash_attention", "flash_attention_bf16",
+                       "flash_decode", "lstm_fwd",
                        "lstm_bwd", "gru_fwd", "gru_bwd", "bn_grad",
                        "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16")]
     print("card:", card_line())

@@ -21,9 +21,9 @@ inputs are cast by ``amp.cast_ins`` as they enter its lowering, and
 before a hand-written ``grad_lower``; the generic grad casts inside the
 forward it differentiates (``registry.generic_grad``).
 
-A control-flow op (``scan_block``) runs its sub-block with the same
-``run_block``, over a fresh environment that holds only the op's
-``Params``/``X``/``Init`` bindings; an error inside it is annotated with
+A control-flow op (``scan_block``, ``recompute``) runs its sub-block
+with the same ``run_block``, over a fresh environment that holds only
+the op's ``Params``/``X``/``Init`` bindings; an error inside it is annotated with
 the inner op and block, then with the control-flow op and its block.
 """
 
@@ -129,12 +129,27 @@ def run_block(ctx, block, env):
     """Run ``block``'s ops in order over ``env`` (name -> tensor),
     mutating and returning env.
 
+    A program the remat pass planned (``passes/remat.py``) re-runs a
+    segment's forward ops at its first grad op (:func:`_replay_segment`)
+    and drops each segment-internal value from ``env`` after the op the
+    plan's ``release`` table names, so the eager run holds what the JAX
+    package's fenced replay holds.
+
     Errors are annotated with the failing op's identity — the
     enforce-layer capability of the reference (`platform/enforce.h:195`):
     the user sees WHICH op in WHICH block failed."""
+    remat = getattr(ctx.program, "_remat_plan", None) \
+        if block.idx == 0 and ctx.program is not None else None
     for op in block.ops:
         try:
+            if remat is not None:
+                seg = remat.by_trigger.get(op.uid)
+                if seg is not None:
+                    _replay_segment(ctx, block, seg, env)
             run_op(ctx, block, op, env)
+            if remat is not None:
+                for n in remat.release.get(op.uid, ()):
+                    env.pop(n, None)
         except Exception as e:
             e.add_note(
                 "  [paddle_tpu_torch] while running op '%s' (uid %d) in "
@@ -143,6 +158,20 @@ def run_block(ctx, block, env):
                    dict(op.outputs)))
             raise
     return env
+
+
+def _replay_segment(ctx, block, seg, env):
+    """Re-run a remat segment's forward ops (``passes/remat.py``) and
+    rebind its internal activations for the grad ops that follow. The
+    replay runs through the same ``run_op`` with the same TraceContext:
+    per-op random streams fold the same uids into the same step key
+    (dropout masks replay bitwise, never re-drawn) and amp casts
+    re-apply, so every re-materialized value is the stored one."""
+    sub = dict(env)
+    for i in range(seg.start, seg.end):
+        run_op(ctx, block, block.ops[i], sub)
+    for n in seg.internal:
+        env[n] = sub[n]
 
 
 def run_op(ctx, block, op, env):

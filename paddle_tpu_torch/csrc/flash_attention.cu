@@ -10,7 +10,8 @@
 // launch (0 on success).
 //
 // Layout is the JAX package's: q, k, v are [batch, heads, seq, head_dim]
-// float32, contiguous. Masked scores take the same finite mask value as
+// float32 (or bfloat16 for flash_attention_fwd_bf16), contiguous.
+// Masked scores take the same finite mask value as
 // the TPU kernels (-0.7 * FLT_MAX), so a row whose keys are all masked
 // averages V exactly as the reference does; keys past the end of the
 // sequence (the ragged edge) or past a cache row's length are excluded
@@ -44,6 +45,16 @@
 //   shared memory in warp order. The ragged edge is masked in the
 //   kernel, so seq need not divide the tile.
 //
+// flash_attention_fwd_bf16
+//   The same function on bfloat16 q, k, v and O (float32 lse; the mixed
+//   precision path of training), replacing the same Pallas kernel on
+//   bf16 inputs. The same blocking, with one mma.sync.m16n8k16 pass on
+//   bf16 operands where the float32 kernel takes three TF32 ones, and P
+//   rounded to bf16 before P V as the TPU kernel rounds it to V's dtype.
+//   Bound on the H100 at the training shape [16, 8, 512, 64] causal: the
+//   bytes (q, k, v, o in bf16, 33.6 MB, ~10 us at 3.35 TB/s; the products
+//   need 4.3 GFLOP, ~4.3 us at 989 TFLOP/s).
+//
 // flash_decode
 //   Replaces paddle_tpu/kernels/flash_attention.py `_decode_kernel` (the
 //   pallas_call in `_decode_pallas`): one query per (batch, head) against
@@ -72,6 +83,7 @@
 //   (lstm_breakdown.py --decode).
 // ---------------------------------------------------------------------
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -162,6 +174,66 @@ __device__ __forceinline__ void load_kv(float* s, const float* kb,
   stage_rows<DMAX>(s, SM::LDQ, kb, k0, kFwdBlockK, Sk, D, vec, lane, 32);
   stage_rows<DMAX>(s + SM::K_ELEMS, SM::LDV, vb, k0, kFwdBlockK, Sk, D, vec,
                    lane, 32);
+}
+
+// After a block's walk: its warps' (m, l, acc) merge in warp order
+// through shared memory `mem` (the ring, free by then), and the block
+// writes its rows of O, through put(index, value), and their
+// log-sum-exp. acc[i][e] is the mma C fragment of output columns
+// i 8 .. i 8 + 7: row g + 8 (e >> 1), column i 8 + 2 t + (e & 1); each
+// thread holds its share of the rows' sums l.
+template <int DMAX, typename Put>
+__device__ __forceinline__ void merge_rows(float* mem,
+                                           float (&acc)[DMAX / 8][4],
+                                           const float (&m)[2], float (&l)[2],
+                                           int bh, int q0, int Sq, int D,
+                                           float* __restrict__ lse, Put put) {
+  constexpr int ND = DMAX / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+  __syncthreads();   // every warp is done with the ring (and with Q)
+  float* macc = mem;                                     // [w][16][DMAX]
+  float* mm = mem + kFwdWarps * kFwdBlockQ * DMAX;       // [w][16]
+  float* ml = mm + kFwdWarps * kFwdBlockQ;               // [w][16]
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      macc[(warp * kFwdBlockQ + g + 8 * (e >> 1)) * DMAX + i * 8 + 2 * t +
+           (e & 1)] = acc[i][e];
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mm[warp * kFwdBlockQ + g + 8 * h] = m[h];
+      ml[warp * kFwdBlockQ + g + 8 * h] = l[h];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kFwdBlockQ * DMAX; idx += kFwdWarps * 32) {
+    const int r = idx / DMAX, d = idx % DMAX;
+    if (q0 + r >= Sq || d >= D) continue;
+    float m_all = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kFwdWarps; ++w)
+      m_all = fmaxf(m_all, mm[w * kFwdBlockQ + r]);
+    float l_all = 0.f, out = 0.f;
+#pragma unroll
+    for (int w = 0; w < kFwdWarps; ++w) {
+      const float mw = mm[w * kFwdBlockQ + r];
+      // a warp that saw no key has m = -inf and adds nothing
+      const float c = mw == -INFINITY ? 0.f : expf(mw - m_all);
+      l_all += ml[w * kFwdBlockQ + r] * c;
+      out += macc[(w * kFwdBlockQ + r) * DMAX + d] * c;
+    }
+    const float l_safe = l_all == 0.f ? 1.f : l_all;
+    put(((size_t)bh * Sq + q0 + r) * D + d, out / l_safe);
+    if (d == 0) lse[(size_t)bh * Sq + q0 + r] = m_all + logf(l_safe);
+  }
 }
 
 template <int DMAX>
@@ -323,51 +395,248 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();   // this stage is consumed before it is refilled
   }
   cp_wait<0>();
+  merge_rows<DMAX>(ring, acc, m, l, bh, q0, Sq, D, lse,
+                   [&](size_t i, float x) { o[i] = x; });
+}
+// ---- forward, bfloat16 ----
+//
+// The same blocking as the float32 kernel (a block of 4 warps per 16
+// query rows, the warps taking the 16-key tiles in turn through their
+// own 2-stage cp.async rings, the causal tile skip, the masks, the merge
+// in warp order), with bf16 operands: S = Q K^T and O += P V on
+// mma.sync.m16n8k16 in one pass (a bf16 operand is exact, so there is no
+// split), float32 accumulators, m, l and lse. A 16-key tile is exactly
+// one k16 step of P V, and S's C fragments (row g and g + 8, keys 2 t and
+// 2 t + 1 of each n8 tile) are already P's A fragment once rounded to
+// bf16, as the JAX kernel rounds P to V's dtype before P V; l sums the
+// unrounded float32 P. Q's A fragments stay in registers for the whole
+// walk. K's B fragment is a 32-bit pair of a key row; V's pairs two
+// rows, read as 16-bit halves (ldmatrix.trans would read them in one:
+// a later change). Rows padded by 8 bf16 keep every fragment read free
+// of bank conflicts.
 
-  // merge the warps' (m, l, acc) in warp order through shared memory
+template <int DMAX>
+struct FwdSmemBf16 {
+  static constexpr int LD = DMAX + 8;                 // bf16 a row
+  static constexpr int TILE = kFwdBlockK * LD;        // K or V tile
+  static constexpr int STAGE = 2 * TILE;              // K, then V
+  static constexpr int Q_ELEMS = kFwdBlockQ * LD;
+  static constexpr int RING = kFwdWarps * kFwdStages * STAGE;
+  static constexpr int RING_BYTES = 2 * RING;
+  // after the loop the ring holds the warps' float (acc, m, l)
+  static constexpr int MERGE_BYTES = 4 * kFwdWarps * kFwdBlockQ * (DMAX + 2);
+  static constexpr int BYTES =
+      2 * Q_ELEMS + (RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES);
+};
+
+// Stage rows [r0, r0 + rows) of a [n, D] bf16 matrix into s[rows][LD],
+// the columns D..DMAX-1 and the rows past n zero-filled: 16-byte
+// cp.async copies where rows start on 16-byte boundaries (D % 8 == 0),
+// else element by element through registers (cp.async copies 4 bytes or
+// more, a row here may start on a 2-byte boundary).
+template <int DMAX>
+__device__ __forceinline__ void stage_rows_bf16(uint16_t* s,
+                                                const uint16_t* src, int r0,
+                                                int rows, int n, int D,
+                                                bool vec, int lane,
+                                                int lanes) {
+  constexpr int LD = FwdSmemBf16<DMAX>::LD;
+  if (vec) {
+    for (int i = lane; i < rows * (DMAX / 8); i += lanes) {
+      const int r = i / (DMAX / 8), d = (i % (DMAX / 8)) * 8;
+      const bool ok = r0 + r < n && d < D;
+      cp16(&s[r * LD + d], ok ? src + (size_t)(r0 + r) * D + d : src, ok);
+    }
+  } else {
+    for (int i = lane; i < rows * DMAX; i += lanes) {
+      const int r = i / DMAX, d = i % DMAX;
+      s[r * LD + d] =
+          (r0 + r < n && d < D) ? src[(size_t)(r0 + r) * D + d] : 0;
+    }
+  }
+}
+
+// c += a b, one m16n8k16 bf16 product with float32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld_pair(const uint16_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// two floats rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      const int* __restrict__ q_seg,
+                      const int* __restrict__ k_seg,
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      int H, int Sq, int Sk, int D, float scale, int causal,
+                      int vec) {
+  using SM = FwdSmemBf16<DMAX>;
+  constexpr int LD = SM::LD;
+  constexpr int ND = DMAX / 8;    // n8 tiles of the output row
+  constexpr int NK = DMAX / 16;   // k16 steps of Q K^T
+  extern __shared__ __align__(16) float smem[];
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* ring = qs + SM::Q_ELEMS;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  // the diagonal-most query tiles, which walk the most keys, go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBlockQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool have_seg = q_seg != nullptr;
+
+  const uint16_t* qb = q + (size_t)bh * Sq * D;
+  const uint16_t* kb = k + (size_t)bh * Sk * D;
+  const uint16_t* vb = v + (size_t)bh * Sk * D;
+
+  stage_rows_bf16<DMAX>(qs, qb, q0, kFwdBlockQ, Sq, D, vec, tid,
+                        kFwdWarps * 32);
+  cp_commit();
+
+  int qi[2], qseg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(kFull, l[h], 1);
-    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    qi[h] = q0 + g + 8 * h;
+    qseg[h] = (have_seg && qi[h] < Sq) ? q_seg[(size_t)b * Sq + qi[h]] : 0;
   }
-  __syncthreads();   // every warp is done with the ring (and with Q)
-  float* macc = ring;                                    // [w][16][DMAX]
-  float* mm = ring + kFwdWarps * kFwdBlockQ * DMAX;      // [w][16]
-  float* ml = mm + kFwdWarps * kFwdBlockQ;               // [w][16]
+
+  const int k_end = causal ? min(Sk, q0 + kFwdBlockQ) : Sk;
+  const int n_kt = (k_end + kFwdBlockK - 1) / kFwdBlockK;
+  uint16_t* my_ring = ring + warp * kFwdStages * SM::STAGE;
+  auto load_kv = [&](uint16_t* slot, int kt) {
+    const int k0 = kt * kFwdBlockK;
+    stage_rows_bf16<DMAX>(slot, kb, k0, kFwdBlockK, Sk, D, vec, lane, 32);
+    stage_rows_bf16<DMAX>(slot + SM::TILE, vb, k0, kFwdBlockK, Sk, D, vec,
+                          lane, 32);
+  };
+  if (warp < n_kt) load_kv(my_ring, warp);
+  cp_commit();
+  cp_wait<1>();      // this thread's part of Q has landed ...
+  __syncthreads();   // ... and everyone's
+
+  // Q's A fragments: rows g, g + 8; depth 2 t, 2 t + 1 and 2 t + 8, + 9
+  unsigned qa[NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint16_t* r0 = qs + g * LD + kk * 16 + 2 * t;
+    qa[kk][0] = ld_pair(r0);
+    qa[kk][1] = ld_pair(r0 + 8 * LD);
+    qa[kk][2] = ld_pair(r0 + 8);
+    qa[kk][3] = ld_pair(r0 + 8 * LD + 8);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[ND][4];
 #pragma unroll
   for (int i = 0; i < ND; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      macc[(warp * kFwdBlockQ + g + 8 * (e >> 1)) * DMAX + i * 8 + 2 * t +
-           (e & 1)] = acc[i][e];
-  if (t == 0) {
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  int it = 0;
+  for (int kt = warp; kt < n_kt; kt += kFwdWarps, ++it) {
+    if (kt + kFwdWarps < n_kt) {
+      load_kv(my_ring + ((it + 1) % kFwdStages) * SM::STAGE, kt + kFwdWarps);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncwarp();   // the tile, staged by the warp's 32 lanes
+    const uint16_t* ks = my_ring + (it % kFwdStages) * SM::STAGE;
+    const uint16_t* vs = ks + SM::TILE;
+    const int k0 = kt * kFwdBlockK;
+
+    // S = Q K^T: 16 rows x 16 keys (two n8 tiles), depth DMAX
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint16_t* krow = ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
+        const unsigned kf[2] = {ld_pair(krow), ld_pair(krow + 8)};
+        mma_bf16(s[nt], qa[kk], kf);
+      }
+    // scale and mask; s[nt][2 h + e] is row g + 8 h, key k0 + nt 8 + 2 t + e
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + nt * 8 + 2 * t + e;
+        const bool j_in = j < Sk;
+        const int kseg = (have_seg && j_in) ? k_seg[(size_t)b * Sk + j] : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float x = s[nt][2 * h + e] * scale;
+          if (causal && qi[h] < j) x = kMask;
+          if (have_seg && qseg[h] != kseg) x = kMask;
+          if (!j_in) x = -INFINITY;   // past the ragged edge: no key
+          s[nt][2 * h + e] = x;
+          tmax[h] = fmaxf(tmax[h], x);
+        }
+      }
+    // online softmax; key k0 < Sk, so each row's max is finite
+    float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mm[warp * kFwdBlockQ + g + 8 * h] = m[h];
-      ml[warp * kFwdBlockQ + g + 8 * h] = l[h];
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 1));
+      tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 2));
+      const float m_new = fmaxf(m[h], tmax[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
     }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kFwdBlockQ * DMAX; idx += kFwdWarps * 32) {
-    const int r = idx / DMAX, d = idx % DMAX;
-    if (q0 + r >= Sq || d >= D) continue;
-    float m_all = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kFwdWarps; ++w)
-      m_all = fmaxf(m_all, mm[w * kFwdBlockQ + r]);
-    float l_all = 0.f, out = 0.f;
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int w = 0; w < kFwdWarps; ++w) {
-      const float mw = mm[w * kFwdBlockQ + r];
-      // a warp that saw no key has m = -inf and adds nothing
-      const float c = mw == -INFINITY ? 0.f : expf(mw - m_all);
-      l_all += ml[w * kFwdBlockQ + r] * c;
-      out += macc[(w * kFwdBlockQ + r) * DMAX + d] * c;
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - m[e >> 1]);
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+    // O += P V: one k16 step; P's A fragment from S's C fragments
+    const unsigned pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+    // V's B fragment of columns i 8 + g: keys 2 t, 2 t + 1 and 2 t + 8, + 9
+    const uint16_t* v0 = vs + 2 * t * LD + g;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const unsigned vf[2] = {
+          (unsigned)v0[i * 8] | ((unsigned)v0[LD + i * 8] << 16),
+          (unsigned)v0[8 * LD + i * 8] | ((unsigned)v0[9 * LD + i * 8] << 16)};
+      mma_bf16(acc[i], pa, vf);
     }
-    const float l_safe = l_all == 0.f ? 1.f : l_all;
-    o[((size_t)bh * Sq + q0 + r) * D + d] = out / l_safe;
-    if (d == 0) lse[(size_t)bh * Sq + q0 + r] = m_all + logf(l_safe);
+    __syncwarp();   // this stage is consumed before it is refilled
   }
+  cp_wait<0>();
+  merge_rows<DMAX>(reinterpret_cast<float*>(ring), acc, m, l, bh, q0, Sq, D,
+                   lse, [&](size_t i, float x) {
+                     o[i] = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+                   });
 }
 
 // ---- decode ----
@@ -664,6 +933,24 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+template <int DMAX>
+cudaError_t launch_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                            const uint16_t* v, const int* q_seg,
+                            const int* k_seg, uint16_t* o, float* lse, int B,
+                            int H, int Sq, int Sk, int D, float scale,
+                            int causal, int vec, cudaStream_t stream) {
+  constexpr int kBytes = FwdSmemBf16<DMAX>::BYTES;
+  static_assert(kBytes <= 227 * 1024, "ring exceeds shared memory");
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<DMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (Sq + kFwdBlockQ - 1) / kFwdBlockQ);
+  flash_fwd_bf16_kernel<DMAX><<<grid, kFwdWarps * 32, kBytes, stream>>>(
+      q, k, v, q_seg, k_seg, o, lse, H, Sq, Sk, D, scale, causal, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -692,6 +979,36 @@ cudaError_t flash_attention_fwd(const float* q, const float* k,
                           scale, causal, vec, stream);
   return launch_fwd<128>(q, k, v, q_seg, k_seg, o, lse, B, H, Sq, Sk, D,
                          scale, causal, vec, stream);
+}
+
+// The same in bfloat16: q, k, v, o bfloat16 (as raw 16-bit words), lse
+// float32.
+cudaError_t flash_attention_fwd_bf16(const void* q, const void* k,
+                                     const void* v, const int* q_seg,
+                                     const int* k_seg, void* o, float* lse,
+                                     int B, int H, int Sq, int Sk, int D,
+                                     float scale, int causal,
+                                     cudaStream_t stream) {
+  if (B * H == 0 || Sq == 0) return cudaSuccess;
+  if (D < 1 || D > 128 || (q_seg == nullptr) != (k_seg == nullptr))
+    return cudaErrorInvalidValue;
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  uint16_t* oh = static_cast<uint16_t*>(o);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  const int vec = D % 8 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  if (D <= 32)
+    return launch_fwd_bf16<32>(qh, kh, vh, q_seg, k_seg, oh, lse, B, H, Sq,
+                               Sk, D, scale, causal, vec, stream);
+  if (D <= 64)
+    return launch_fwd_bf16<64>(qh, kh, vh, q_seg, k_seg, oh, lse, B, H, Sq,
+                               Sk, D, scale, causal, vec, stream);
+  return launch_fwd_bf16<128>(qh, kh, vh, q_seg, k_seg, oh, lse, B, H, Sq,
+                              Sk, D, scale, causal, vec, stream);
 }
 
 // B2's launch plan at (B, H, S, D) on a card of `sms` SMs: out[0]

@@ -36,6 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
+        "flash_attention_fwd_bf16": ([_P] * 7 + [_I] * 5 + [_F, _I, _P],
+                                     _I),
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
         "decode_plan": ([_I] * 5 + [_P], _I),
     },

@@ -3,7 +3,16 @@
 The kernels are hand-written CUDA for Hopper (``csrc/flash_attention.cu``)
 and replace the JAX package's two Pallas kernels in
 ``paddle_tpu/kernels/flash_attention.py``: ``flash_attention`` replaces
-``_fwd_kernel`` and ``flash_decode`` replaces ``_decode_kernel``.
+``_fwd_kernel`` (a float32 kernel on 3xTF32 tensor cores and a bfloat16
+one, picked by the inputs' dtype) and ``flash_decode`` replaces
+``_decode_kernel``.
+
+``flash_attention`` is differentiable: it returns through the autograd
+Function :class:`FlashAttention`, whose backward is
+:func:`flash_attention_bwd`, the JAX package's ``_bwd_blockwise`` (plain
+array code outside any kernel there, plain PyTorch here, on every
+device): it walks key blocks, recomputes the probabilities from the
+saved log-sum-exp and sums dq, dk and dv in float32.
 
 Layout is the JAX package's: q, k, v are ``[batch, heads, seq,
 head_dim]``; KV caches are ``[batch, heads, max_len, head_dim]``.
@@ -23,8 +32,8 @@ Each wrapper dispatches on the device of the tensors it is given:
 * a meta tensor returns outputs of the right shape (construction-time
   shape inference).
 
-``launches`` counts kernel launches per kernel; plain-version calls do
-not count.
+``launches`` counts kernel launches per kernel (the forward's float32
+and bfloat16 kernels apart); plain-version calls do not count.
 """
 
 import ctypes
@@ -34,9 +43,11 @@ import torch
 from paddle_tpu_torch.kernels import H100_SMS
 
 __all__ = ["flash_attention", "flash_decode", "flash_attention_reference",
+           "flash_attention_bwd", "FlashAttention",
            "flash_decode_reference", "decode_plan", "decode_chunks",
            "launches", "reset_launches", "DEFAULT_MASK_VALUE", "BLOCK_Q",
-           "BLOCK_K", "KEY_SPLIT", "DECODE_BLOCK_K", "DECODE_WARPS"]
+           "BLOCK_K", "KEY_SPLIT", "BWD_BLOCK_K", "DECODE_BLOCK_K",
+           "DECODE_WARPS"]
 
 #: the TPU kernels' mask value for masked (not excluded) scores
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -54,6 +65,8 @@ BLOCK_K = 16
 KEY_SPLIT = 4
 DECODE_BLOCK_K = 8
 DECODE_WARPS = 4
+#: the backward's key block: the JAX op's ``block_k`` default
+BWD_BLOCK_K = 128
 #: the decode kernel's ring stages a warp
 DECODE_STAGES = 2
 #: the decode plan's rule: a row's cluster doubles while the grid holds
@@ -98,7 +111,8 @@ def decode_chunks(lengths, n):
 
 
 #: kernel name -> launches since the last reset_launches()
-launches = {"flash_attention": 0, "flash_decode": 0}
+launches = {"flash_attention": 0, "flash_attention_bf16": 0,
+            "flash_decode": 0}
 
 
 def reset_launches():
@@ -119,10 +133,14 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
     It follows the kernel's blocking: for each tile of ``block_q`` query
     rows, ``key_split`` online softmaxes each walk every ``key_split``-th
     tile of ``block_k`` keys (tiles wholly above the causal diagonal are
-    skipped), and their (m, l, acc) merge in order."""
+    skipped), and their (m, l, acc) merge in order. The arithmetic is
+    float32; bfloat16 inputs round P to bfloat16 before P V, as the JAX
+    kernel does (``p.astype(v.dtype)``) and the bfloat16 kernel does,
+    while l sums the unrounded P."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    pv_dtype = v.dtype
     q, k, v = q.float(), k.float(), v.float()
     dev = q.device
     inf = float("inf")
@@ -154,7 +172,8 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new)
                 l = alpha * l + p.sum(-1, keepdim=True)
-                acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+                acc = acc * alpha + torch.einsum(
+                    "bhqk,bhkd->bhqd", p.to(pv_dtype).float(), vt)
                 m = m_new
             parts.append((m, l, acc))
         m_all = parts[0][0]
@@ -171,6 +190,51 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None,
         out[:, :, q0:q0 + nq] = o / l_safe
         lse[:, :, q0:q0 + nq] = (m_all + torch.log(l_safe))[..., 0]
     return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, sm_scale=None,
+                        segment_ids=None, block_k=BWD_BLOCK_K):
+    """The forward's gradient, the JAX package's ``_bwd_blockwise``:
+    returns ``(dq, dk, dv)``, each in its input's dtype.
+
+    ``out`` and ``lse`` are the forward's outputs and ``do`` the
+    cotangent of ``out``. It walks blocks of ``block_k`` keys (all ``sk``
+    keys at once where ``block_k`` does not divide ``sk``), recomputes
+    each block's masked scores as the forward does (causal and segment
+    masks with the mask value) and the probabilities ``p = exp(s -
+    lse)``, and sums in float32: ``delta = sum(dO O)`` by row, ``dv =
+    p^T dO``, ``ds = p (dO V^T - delta) scale``, ``dq += ds K``, ``dk =
+    ds^T Q``."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    block_k = min(block_k, sk)
+    if sk % block_k:
+        block_k = sk
+    dev = q.device
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    delta = torch.sum(do32 * out.float(), -1, keepdim=True)
+    qi = torch.arange(sq, device=dev)[:, None]
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for k0 in range(0, sk, block_k):
+        ks, vs = k32[:, :, k0:k0 + block_k], v32[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, ks) * scale
+        if causal:
+            ki = torch.arange(k0, k0 + block_k, device=dev)[None, :]
+            s = torch.where(qi >= ki, s, DEFAULT_MASK_VALUE)
+        if segment_ids is not None:
+            ok = (segment_ids[0][:, None, :, None]
+                  == segment_ids[1][:, None, None, k0:k0 + block_k])
+            s = torch.where(ok, s, DEFAULT_MASK_VALUE)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, do32))
+        dp = torch.einsum("bhqd,bhkd->bhqk", do32, vs)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, ks)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, q32))
+    return (dq.to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
 
 
 def _merge(parts):
@@ -268,11 +332,11 @@ def _check(cond, msg, *args):
         raise ValueError(msg % args)
 
 
-def _check_float(name, t, device):
+def _check_float(name, t, device, dtype=torch.float32):
     _check(t.device == device, "%s is on %s, expected %s", name, t.device,
            device)
-    _check(t.dtype == torch.float32, "%s must be float32, got %s", name,
-           t.dtype)
+    _check(t.dtype == dtype, "%s must be %s, got %s", name,
+           str(dtype).replace("torch.", ""), t.dtype)
     _check(t.is_contiguous(), "%s must be contiguous", name)
 
 
@@ -292,12 +356,16 @@ def _raise_on(rc, fn):
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, segment_ids=None,
-                    return_lse=False):
-    """Fused attention. q [b, h, sq, d]; k, v [b, h, sk, d].
+                    return_lse=False, block_k=BWD_BLOCK_K):
+    """Fused attention, differentiable in q, k and v. q [b, h, sq, d];
+    k, v [b, h, sk, d], all float32 or all bfloat16.
 
     ``segment_ids``: optional (q_segments [b, sq], k_segments [b, sk])
-    int32 pair; tokens attend only within their own segment. Returns
-    ``out`` [b, h, sq, d], or ``(out, lse)`` with ``return_lse``."""
+    int32 pair; tokens attend only within their own segment.
+    ``block_k``: the backward's key block (the JAX op's ``block_k``; the
+    forward kernels' tiles are fixed). Returns ``out`` [b, h, sq, d] in
+    the inputs' dtype, or ``(out, lse)`` with ``return_lse`` (``lse``
+    float32, not differentiable)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D [b, h, s, d] tensors")
     b, h, sq, d = q.shape
@@ -305,21 +373,53 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, segment_ids=None,
     _check(tuple(k.shape) == (b, h, sk, d) and tuple(v.shape) == tuple(
         k.shape), "k/v shapes %s/%s do not match q %s", tuple(k.shape),
         tuple(v.shape), tuple(q.shape))
+    _check(q.dtype in (torch.float32, torch.bfloat16)
+           and k.dtype == v.dtype == q.dtype,
+           "flash_attention takes float32 or bfloat16 q, k, v of one "
+           "dtype, got %s, %s, %s", q.dtype, k.dtype, v.dtype)
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    dev = q.device
-    if dev.type == "meta":
-        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    elif dev.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, causal, scale,
-                                             segment_ids)
-        out = out.to(q.dtype)
-    elif dev.type == "cuda":
-        out, lse = _flash_attention_cuda(q, k, v, causal, scale,
-                                         segment_ids)
-    else:
-        raise ValueError("flash_attention: no kernel for device %s" % dev)
+    q_seg, k_seg = segment_ids if segment_ids is not None else (None, None)
+    out, lse = FlashAttention.apply(q, k, v, bool(causal), scale, q_seg,
+                                    k_seg, int(block_k))
     return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel (its plain version on the CPU, shapes on the
+    meta device) with :func:`flash_attention_bwd` as its backward, as
+    the JAX package ties ``_bwd_blockwise`` to the Pallas forward with a
+    ``custom_vjp``. Returns ``(out, lse)``; ``lse`` has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_seg, k_seg, block_k):
+        seg = (q_seg, k_seg) if q_seg is not None else None
+        dev = q.device
+        if dev.type == "meta":
+            b, h, sq, d = q.shape
+            out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        elif dev.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, causal, scale,
+                                                 seg)
+            out = out.to(q.dtype)
+        elif dev.type == "cuda":
+            out, lse = _flash_attention_cuda(q, k, v, causal, scale, seg)
+        else:
+            raise ValueError("flash_attention: no kernel for device %s"
+                             % dev)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, k_seg)
+        ctx.causal, ctx.scale, ctx.block_k = causal, scale, block_k
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
+        seg = (q_seg, k_seg) if q_seg is not None else None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.scale, seg,
+                                         ctx.block_k)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
@@ -329,26 +429,30 @@ def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
     sk = k.shape[2]
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_float(name, t, dev)
+        _check_float(name, t, dev, q.dtype)
     _check(1 <= d <= 128, "head_dim %d outside the kernel's 1..128", d)
     q_seg = k_seg = None
     if segment_ids is not None:
         q_seg, k_seg = segment_ids
         _check_int("q_segments", q_seg, (b, sq), dev)
         _check_int("k_segments", k_seg, (b, sk), dev)
+    if q.dtype == torch.bfloat16:
+        fn, name = "flash_attention_fwd_bf16", "flash_attention_bf16"
+    else:
+        fn, name = "flash_attention_fwd", "flash_attention"
     lib = _build.load("flash_attention")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.flash_attention_fwd(
+        rc = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_seg.data_ptr() if q_seg is not None else None,
             k_seg.data_ptr() if k_seg is not None else None,
             out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
             ctypes.c_float(scale), int(bool(causal)),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "flash_attention_fwd")
-    launches["flash_attention"] += 1
+    _raise_on(rc, fn)
+    launches[name] += 1
     return out, lse
 
 

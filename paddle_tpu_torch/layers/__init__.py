@@ -4,4 +4,6 @@ from paddle_tpu_torch.layers import control_flow, io, nn, tensor  # noqa: F401
 from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import recompute  # noqa: F401
+from paddle_tpu_torch.layers.recompute import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403

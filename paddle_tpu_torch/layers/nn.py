@@ -20,7 +20,8 @@ __all__ = [
     "dropout",
     "dynamic_lstm", "dynamic_gru", "gru_unit",
     "sequence_pool", "sequence_first_step", "sequence_pad",
-    "sequence_mask", "cross_entropy", "layer_norm", "elementwise_add",
+    "sequence_mask", "cross_entropy", "softmax_with_cross_entropy",
+    "layer_norm", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "mean", "scale", "softmax",
     "tanh", "topk", "accuracy", "reduce_sum", "reshape", "transpose",
     "squeeze", "unsqueeze", "flash_attention", "multi_head_attention",
@@ -304,6 +305,20 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
     helper.append_op("cross_entropy", {"X": [input], "Label": [label]},
                      {"Y": [out]}, {"soft_label": soft_label})
     return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": [logits], "Label": [label]},
+                     {"Loss": [loss], "Softmax": [softmax_out]},
+                     {"soft_label": soft_label})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

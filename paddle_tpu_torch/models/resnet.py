@@ -3,8 +3,8 @@
 Capability parity: `benchmark/fluid/resnet.py` (conv_bn_layer :90,
 shortcut :100, basicblock/bottleneck :110-125, resnet_imagenet :132,
 resnet_cifar10 :148), as the JAX package's ``models/resnet.py`` builds
-them. ``recompute=True`` (RecomputeRegion) arrives with a later slice
-and raises.
+them. ``recompute=True`` wraps each residual block in a
+``RecomputeRegion`` (``bench.py --recompute``).
 """
 
 import paddle_tpu_torch as fluid
@@ -45,12 +45,23 @@ def bottleneck(input, ch_out, stride, is_test=False):
     return layers.elementwise_add(short, conv3, act="relu")
 
 
+def _recompute_block(block_func):
+    """Wrap a residual block in a RecomputeRegion: its activations are
+    rematerialized during backward instead of stashed."""
+    def wrapped(input, ch_out, stride, is_test=False):
+        rr = layers.RecomputeRegion()
+        with rr.scope():
+            out = block_func(rr.input(input), ch_out, stride,
+                             is_test=is_test)
+            rr.output(out)
+        return rr()
+    return wrapped
+
+
 def layer_warp(block_func, input, ch_out, count, stride, is_test=False,
                recompute=False):
     if recompute:
-        raise NotImplementedError(
-            "recompute=True wraps each residual block in a RecomputeRegion, "
-            "which arrives with a later slice")
+        block_func = _recompute_block(block_func)
     res_out = block_func(input, ch_out, stride, is_test=is_test)
     for _ in range(1, count):
         res_out = block_func(res_out, ch_out, 1, is_test=is_test)

@@ -4,16 +4,18 @@ forwards.
 The JAX package's ``models/transformer.py``, built in this package's
 layers DSL: pre-norm decoder blocks over the fused flash-attention op.
 The programs it builds serialize to the same JSON as the JAX package's
-(same layer sequence, same names, same op uids). The training build
-(``build_transformer_lm``), pipeline stages (``pp_stages``) and tensor
-parallelism (``mp``) arrive with later slices.
+(same layer sequence, same names, same op uids): the training build
+(``build_transformer_lm``, next-token cross-entropy and Adam, as
+``bench.py`` trains it) and the KV-cached serving pair. Pipeline stages
+(``pp_stages``) and tensor parallelism (``mp``) arrive with later
+slices.
 """
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import layers
 
-__all__ = ["transformer_lm", "decoder_block", "build_transformer_decode",
-           "DecodeModelMeta"]
+__all__ = ["transformer_lm", "decoder_block", "build_transformer_lm",
+           "build_transformer_decode", "DecodeModelMeta"]
 
 
 def _ffn(x, d_model, d_ff, param_attr=None):
@@ -68,6 +70,28 @@ def transformer_lm(tokens, vocab_size, d_model=256, num_layers=4,
                           dropout_rate=dropout_rate, mp=mp)
     x = layers.layer_norm(x, begin_norm_axis=2)
     return layers.fc(x, vocab_size, num_flatten_dims=2)
+
+
+def build_transformer_lm(vocab_size=1000, seq_len=128, d_model=128,
+                         num_layers=2, num_heads=4, seq_axis=None,
+                         lr=1e-3, pp_stages=None, pp_micro=None,
+                         pp_schedule=None, mp=False):
+    """Build train program: next-token cross-entropy. Returns
+    (main, startup, feed names, [loss])."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        tokens = layers.data("tokens", [seq_len], dtype="int64")
+        targets = layers.data("targets", [seq_len], dtype="int64")
+        logits = transformer_lm(tokens, vocab_size, d_model=d_model,
+                                num_layers=num_layers, num_heads=num_heads,
+                                max_len=max(seq_len, 2048),
+                                seq_axis=seq_axis, pp_stages=pp_stages,
+                                pp_micro=pp_micro, pp_schedule=pp_schedule,
+                                mp=mp)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            logits, layers.unsqueeze(targets, [2])))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return prog, startup, ["tokens", "targets"], [loss]
 
 
 # ---------------------------------------------------------------------------

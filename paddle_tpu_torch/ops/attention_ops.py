@@ -19,15 +19,20 @@ re-emitted as KCacheOut/VCacheOut: where the JAX package donates the
 buffers through the call and XLA aliases them, here the op writes into
 the caller's tensors directly. The K/V writes are PyTorch indexing.
 
-The JAX op's ``block_q``/``block_k`` tile knobs were tuned for the TPU
-kernel and are not read here. Ring (sequence-parallel) attention,
-selected by ``seq_axis``, arrives with a later slice.
+The one-shot branch is differentiable (``FlashAttention``, whose
+backward walks the JAX op's ``block_k`` keys a block, 128 unless a pass
+pinned it); the JAX op's ``block_q`` was tuned for the TPU kernel and is
+not read here. Under mixed precision ``amp.cast_ins`` hands the op
+bfloat16 Q/K/V, which launch the bfloat16 forward kernel. Ring
+(sequence-parallel) attention, selected by ``seq_axis``, arrives with a
+later slice.
 """
 
 import torch
 
 from paddle_tpu_torch.core.registry import op
-from paddle_tpu_torch.kernels.flash_attention import (flash_attention,
+from paddle_tpu_torch.kernels.flash_attention import (BWD_BLOCK_K,
+                                                      flash_attention,
                                                       flash_decode)
 
 
@@ -90,4 +95,6 @@ def _fused_attention(ctx, ins, attrs, o):
                ins["KSeg"][0].to(torch.int32).contiguous())
     return {"Out": flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
-                                   sm_scale=sm_scale, segment_ids=seg)}
+                                   sm_scale=sm_scale, segment_ids=seg,
+                                   block_k=attrs.get("block_k",
+                                                     BWD_BLOCK_K))}

@@ -1,4 +1,5 @@
-"""Control-flow op lowerings: ``scan_block``, the engine of StaticRNN.
+"""Control-flow op lowerings: ``scan_block``, the engine of StaticRNN,
+and ``recompute``, the op of ``layers.RecomputeRegion``.
 
 Capability parity: reference `operators/recurrent_op.cc` (the static RNN
 unroll), as the JAX package's ``ops/control_flow_ops.py`` lowers
@@ -85,3 +86,33 @@ def _scan_block(ctx, ins, attrs, o):
 def _keep_finished(new, prev, m):
     """``new`` where step t is valid for the row, else ``prev``."""
     return torch.where(m.reshape((-1,) + (1,) * (new.dim() - 1)), new, prev)
+
+
+@op("recompute")
+def _recompute(ctx, ins, attrs, o):
+    """Run a sub-block over a local environment (``layers.
+    RecomputeRegion``): the executor's forward keeps none of the
+    region's intermediate activations, and the generic grad re-runs the
+    region from its inputs under autograd, which is ``jax.checkpoint``'s
+    semantics in the JAX package's op.
+
+    inputs:  X      -- the region's inputs -> attrs['in_names']
+             Params -- outer values the body reads -> attrs['param_names']
+    outputs: Out         -- attrs['out_names'] after the body
+             StatefulOut -- the outer persistables the body writes
+                            (batch-norm running statistics),
+                            attrs['stateful_names']"""
+    sub = o.block.program.block(attrs["sub_block_id"])
+    env = dict(zip(attrs.get("param_names", []), ins.get("Params", [])))
+    env.update(zip(attrs.get("in_names", []), ins.get("X", [])))
+    run_block(ctx, sub, env)
+    stateful = attrs.get("stateful_names", [])
+    # every stateful name was collected from sub-block op outputs at
+    # build time, so it MUST be bound here; a silent skip would
+    # misalign values with the StatefulOut names
+    missing = [n for n in stateful if n not in env]
+    if missing:
+        raise RuntimeError("recompute: stateful outputs not bound by the "
+                           "sub-block: %s" % missing)
+    return {"Out": [env[n] for n in attrs.get("out_names", [])],
+            "StatefulOut": [env[n] for n in stateful]}

@@ -2,7 +2,8 @@
 
 Capability parity: reference `conv_op` (and its depthwise form),
 `pool_op`, `lrn_op`, `batch_norm_op`, `layer_norm_op`, `dropout_op`,
-`softmax_op` and `cross_entropy_op`, as the JAX package's
+`softmax_op`, `cross_entropy_op` and `softmax_with_cross_entropy_op`,
+as the JAX package's
 ``ops/nn_ops.py`` lowers them, with its gradient flags, and the fused
 ``conv2d_bn_act`` the epilogue-fusion pass emits (``passes/epilogue.py``).
 Convolution and pooling go to the library (``torch.nn.functional``), as
@@ -402,3 +403,19 @@ def _cross_entropy(ctx, ins, attrs, o):
         p = torch.take_along_dim(x, lab[..., None], dim=-1)
         loss = -torch.log(torch.clamp_min(p, 1e-20))
     return {"Y": loss}
+
+
+@op("softmax_with_cross_entropy", nondiff_inputs=("Label",), seq_map=True)
+def _softmax_with_cross_entropy(ctx, ins, attrs, o):
+    """Reference `softmax_with_cross_entropy_op`: the loss from logits
+    through a log-softmax, and the softmax itself."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    logp = torch.log_softmax(logits, dim=-1)
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * logp, -1, keepdim=True)
+    else:
+        lab = label.to(torch.int64)
+        if lab.dim() == logits.dim() and lab.shape[-1] == 1:
+            lab = lab.squeeze(-1)
+        loss = -torch.take_along_dim(logp, lab[..., None], dim=-1)
+    return {"Loss": loss, "Softmax": torch.exp(logp)}

@@ -13,11 +13,12 @@ program and keeps the clone (``core.executor``), never on every step:
   ``conv2d_bn_act_grad`` for the hand-written batch-norm backward kernel
   (``kernels/bn_grad.py``).
 * ``kernels``: pins ``kernel_params`` knobs as op attrs.
+* ``remat``: plans rematerialization segments and attaches a
+  ``RematPlan`` that ``core.lower.run_block`` replays
+  (``passes/remat.py``); it runs last and only analyses.
 
-``remat`` is part of the config and its key, as in the JAX package, but
-its pass arrives with a later slice: :func:`apply` raises
-``NotImplementedError`` for a config that asks for it. The JAX package's telemetry and
-IR-verifier hooks around each pass arrive with those modules.
+The JAX package's telemetry and IR-verifier hooks around each pass
+arrive with those modules.
 
 The pipeline is configured per program (``passes.enable(program, ...)``)
 and never mutates the user's program: flipping the config selects
@@ -28,6 +29,7 @@ from paddle_tpu_torch.passes import epilogue as _epilogue
 from paddle_tpu_torch.passes import kernels as _kernels
 from paddle_tpu_torch.passes import layout as _layout
 from paddle_tpu_torch.passes import reductions as _reductions
+from paddle_tpu_torch.passes import remat as _remat
 
 __all__ = ["PassConfig", "enable", "disable", "plan_for", "apply",
            "PIPELINE"]
@@ -113,15 +115,14 @@ def _canon_kernel_params(params):
 
 # the ordered pipeline: (name, enabled_fn, module or None). Order matters
 # and is fixed: the reduction pass only tags NHWC ops, so layout must
-# have run first; kernel parameters land only on tagged ops. A None
-# module is a pass of the JAX package that this package does not carry
-# yet.
+# have run first; kernel parameters land only on tagged ops; remat runs
+# last: it only analyses the final op list (attaches a RematPlan).
 PIPELINE = (
     ("layout", lambda c: c.layout == "NHWC", _layout),
     ("epilogue", lambda c: c.epilogue_fusion, _epilogue),
     ("reductions", lambda c: c.pallas_reductions, _reductions),
     ("kernels", lambda c: bool(c.kernel_params), _kernels),
-    ("remat", lambda c: bool(c.remat), None),
+    ("remat", lambda c: bool(c.remat), _remat),
 )
 
 
@@ -173,11 +174,6 @@ def apply(program, protected=()):
     cfg = plan_for(program)
     if cfg is None:
         return program, {}
-    for name, enabled, mod in PIPELINE:
-        if mod is None and enabled(cfg):
-            raise NotImplementedError(
-                "the %r pass arrives with a later slice; %r asks for it"
-                % (name, cfg))
     out = program.clone()
     out.passes = cfg
     protected = frozenset(protected)

@@ -8,6 +8,15 @@ run them on the CPU (the Pallas kernels in interpret mode, or their
 plain references). Tolerance 2e-5 for O and for the log-sum-exp: the
 same fp32 math in another summation order.
 
+The backward (``flash_attention_bwd``, and autograd through the
+``FlashAttention`` Function that ``flash_attention`` returns through) is
+held against ``jax.vjp`` of the JAX package's ``flash_attention`` at
+1e-5: the same float32 blockwise math. The bfloat16 plain forward is
+held against the JAX blockwise forward on the same bfloat16 inputs at
+the bf16 bound (rtol 1e-2 plus 4e-3 of the largest magnitude): both
+round P to bfloat16 before P V, relative to running maxima of other
+key blocks, and round O to bfloat16.
+
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 """
@@ -20,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -253,8 +263,10 @@ def test_plain_versions_do_not_count_launches():
     tfa.reset_launches()
     x = torch.randn(1, 2, 8, 8)
     tfa.flash_attention(x, x, x, causal=True)
+    tfa.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16())
     tfa.flash_decode(x[:, :, :1], x, x, torch.tensor([3], dtype=torch.int32))
-    assert tfa.launches == {"flash_attention": 0, "flash_decode": 0}
+    assert tfa.launches == {"flash_attention": 0, "flash_attention_bf16": 0,
+                            "flash_decode": 0}
 
 
 def test_wrappers_reject_bad_shapes():
@@ -263,6 +275,121 @@ def test_wrappers_reject_bad_shapes():
         tfa.flash_attention(x, x[:, :, :, :4], x)
     with pytest.raises(ValueError):
         tfa.flash_decode(x, x, x, torch.tensor([3], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("q,k", [("float16", "float16"),
+                                 ("float32", "bfloat16"),
+                                 ("float64", "float64")])
+def test_forward_takes_float32_or_bfloat16_of_one_dtype(q, k):
+    x = torch.randn(1, 2, 8, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.flash_attention(x.to(getattr(torch, q)), x.to(getattr(torch, k)),
+                            x.to(getattr(torch, k)))
+
+
+# (b, h, sq, sk, d, causal, segments, block_k): causal, not, segments,
+# keys ragged against the queries (cross attention), a block_k that does
+# not divide sk (the backward then takes all keys as one block)
+BWD_CASES = {
+    "causal": (2, 2, 40, 40, 8, True, False, 16),
+    "non_causal": (1, 3, 33, 33, 16, False, False, 128),
+    "segments": (1, 2, 64, 64, 8, True, True, 32),
+    "ragged_sk": (2, 1, 24, 56, 8, False, False, 16),
+    "block_not_dividing": (1, 2, 20, 20, 8, True, False, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_matches_jax_vjp(case):
+    """``flash_attention_bwd`` on the port's forward outputs, and
+    autograd through the Function, against ``jax.vjp`` of the JAX
+    package's ``flash_attention`` (its Pallas forward in interpret mode,
+    its ``_bwd_blockwise`` backward) at 1e-5. Self-attention segments
+    are shared by queries and keys, so every causal row meets a key of
+    its own segment (a row that meets none averages the keys of the
+    tiles each kernel visits, which differ by design)."""
+    b, h, sq, sk, d, causal, seg, bk = BWD_CASES[case]
+    rng = np.random.RandomState(sq + sk + d)
+    q, k, v = _rand(rng, b, h, sq, d), _rand(rng, b, h, sk, d), \
+        _rand(rng, b, h, sk, d)
+    do = _rand(rng, b, h, sq, d)
+    segs = None
+    if seg:
+        s = _segments(rng, b, sq)
+        segs = (s, s)
+
+    def jf(q, k, v):
+        return jfa.flash_attention(
+            q, k, v, causal=causal, block_k=bk, interpret=True,
+            segment_ids=None if segs is None else tuple(
+                jnp.asarray(x) for x in segs))
+
+    jout, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tsegs = None if segs is None else tuple(torch.from_numpy(x)
+                                            for x in segs)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out, lse = tfa.flash_attention(*leaves, causal=causal,
+                                   segment_ids=tsegs, return_lse=True,
+                                   block_k=bk)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-5, atol=1e-5)
+    through_function = torch.autograd.grad(out, leaves,
+                                           torch.from_numpy(do))
+    direct = tfa.flash_attention_bwd(
+        *(t.detach() for t in leaves), out.detach(), lse,
+        torch.from_numpy(do), causal, None, tsegs, bk)
+    for name, g, f, w in zip("qkv", through_function, direct, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5,
+                                   err_msg="d" + name)
+        assert torch.equal(g, f), "d" + name
+        assert g.dtype == torch.float32
+
+
+def test_backward_returns_each_gradient_in_its_inputs_dtype():
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 24, 8)).bfloat16()
+               .requires_grad_() for _ in range(3))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(1, 2, 40, 16), (2, 2, 33, 8),
+                                   (1, 2, 160, 64)])
+def test_bf16_plain_forward_matches_jax_blockwise(shape, causal):
+    rng = np.random.RandomState(sum(shape) + causal)
+    q, k, v = (_rand(rng, *shape) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jo, jl = jfa._fwd_blockwise(jq, jk, jv, shape[-1] ** -0.5, causal, None,
+                                128)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    to, tl = tfa.flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    assert to.dtype == torch.bfloat16 and tl.dtype == torch.float32
+    want = np.asarray(jo.astype(jnp.float32))
+    err = np.abs(to.float().numpy() - want)
+    assert (err <= 1e-2 * np.abs(want) + 4e-3 * np.abs(want).max()).all(), \
+        err.max()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+
+
+def test_bf16_plain_forward_rounds_p_before_pv():
+    """The plain version's bfloat16 path rounds P to bfloat16 before P V
+    (the JAX kernel's ``p.astype(v.dtype)``): it differs from the same
+    inputs in float32, where nothing is rounded, by more than O's own
+    rounding alone."""
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(_rand(rng, 1, 2, 64, 16)).bfloat16()
+               for _ in range(3))
+    half, _ = tfa.flash_attention_reference(q, k, v, True)
+    full, _ = tfa.flash_attention_reference(q.float(), k.float(),
+                                            v.float(), True)
+    assert half.dtype == full.dtype == torch.float32
+    assert float((half - full).abs().max()) > 1e-4
 
 
 def test_forward_key_split_merges_like_one_walk():

@@ -2,9 +2,11 @@
 golden program round-trips byte-identically through the port's
 ``from_json``; the transformer builds, the stacked-LSTM and seq2seq
 training programs (append_backward + Adam; seq2seq's StaticRNN
-sub-block and scan_block_grad), the MNIST MLP and LeNet training
-programs and the ResNet-50 training program (Momentum) give the same
-JSON in both packages; LeNet under AMP, VGG-16, AlexNet, GoogLeNet and
+sub-block and scan_block_grad), the transformer LM's training program
+(next-token softmax cross-entropy, Adam) at the golden's size and at
+bench.py's width, the MNIST MLP and LeNet training programs and the
+ResNet-50 training program (Momentum) give the same JSON in both
+packages; LeNet under AMP, VGG-16, AlexNet, GoogLeNet and
 SmallNet build their goldens."""
 
 import json
@@ -164,6 +166,25 @@ def test_seq2seq_train_json_identical_to_jax(size, which):
     assert _dump(t[i]) == _dump(j[i])
 
 
+# the golden's size (tools/goldens.py) and bench.py's transformer run
+LM_SIZES = {"golden": dict(vocab_size=50, seq_len=16, d_model=32,
+                           num_layers=2, num_heads=2),
+            "full": dict(vocab_size=32000, seq_len=512, d_model=512,
+                         num_layers=8, num_heads=8)}
+
+
+@pytest.mark.parametrize("which", ["main", "startup"])
+@pytest.mark.parametrize("size", sorted(LM_SIZES))
+def test_transformer_lm_train_json_identical_to_jax(size, which):
+    with jnames.guard():
+        j = jtransformer.build_transformer_lm(**LM_SIZES[size])
+    with tnames.guard():
+        t = ttransformer.build_transformer_lm(**LM_SIZES[size])
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+    assert t[2] == j[2] == ["tokens", "targets"]
+
+
 def test_scan_block_shapes_infer_on_meta_tensors():
     """StaticRNN declares scan_block's outputs; running the op on meta
     tensors (one step of the sub-block) gives the same shapes and the
@@ -193,6 +214,8 @@ def _amp(built):
         **LSTM_SIZES["golden"])),
     ("seq2seq_train", lambda: tseq2seq.build_seq2seq(
         **SEQ2SEQ_SIZES["golden"])),
+    ("transformer_lm", lambda: ttransformer.build_transformer_lm(
+        **LM_SIZES["golden"])),
     ("mnist_mlp", lambda: tlenet.build_mnist_train(model="mlp")),
     ("mnist_cnn", lambda: tlenet.build_mnist_train(model="cnn")),
     ("resnet_cifar", lambda: tresnet.build_resnet50_train(

@@ -4,7 +4,8 @@ another summation order; the LSTM's and the GRU's backward 1e-5
 absolute and 1e-4 relative, their recurrences reorder sums over up to
 80 steps). The batch-norm backward and the fused 1x1-conv backward are
 also held against float64 plain versions, with the tolerances stated at
-their tests.
+their tests; the bfloat16 kernels at one bfloat16 rounding (rtol 1e-2
+plus 4e-3 of the largest magnitude).
 
 Marked ``cuda``: each test skips inside itself where torch finds no
 card. This file imports torch and the port only (the machine with the
@@ -105,6 +106,88 @@ def test_cuda_forward_unaligned_rows_take_the_4_byte_copies(cuda):
     torch.testing.assert_close(ko, ro, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ko2, ro2, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_close(got, want):
+    """One bfloat16 rounding: rtol 1e-2 plus 4e-3 of the largest
+    magnitude."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert bool((err <= 1e-2 * want.abs() + 4e-3 * want.abs().max()).all()), \
+        float(err.max())
+
+
+# The bfloat16 forward: every head_dim instantiation, rows on 16-byte
+# boundaries and (head_dim 13, 40 % 8 == 0 but 13 % 8 != 0) element-wise
+# staging, the training path's [16, 8, 512, 64], keys ragged against
+# the queries, with and without segments.
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(1, 8, 32, 32, 64), (2, 3, 37, 37, 40),
+                                   (1, 2, 17, 29, 13), (1, 2, 200, 200, 128),
+                                   (2, 2, 50, 50, 32), (16, 8, 512, 512, 64)])
+def test_cuda_bf16_forward_matches_plain(cuda, shape, causal):
+    b, h, sq, sk, d = shape
+    g = torch.Generator().manual_seed(sq + d)
+    q = torch.randn(b, h, sq, d, generator=g).bfloat16().to(cuda)
+    k, v = (torch.randn(b, h, sk, d, generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    seg = torch.sort(torch.randint(0, 3, (b, sq), generator=g),
+                     dim=1)[0].int().to(cuda)
+    for segs in (None, (seg, seg)) if sq == sk else (None,):
+        n0 = tfa.launches["flash_attention_bf16"]
+        f0 = tfa.launches["flash_attention"]
+        ko, kl = tfa.flash_attention(q, k, v, causal=causal,
+                                     segment_ids=segs, return_lse=True)
+        assert tfa.launches["flash_attention_bf16"] == n0 + 1
+        assert tfa.launches["flash_attention"] == f0
+        assert ko.dtype == torch.bfloat16 and kl.dtype == torch.float32
+        ro, rl = tfa.flash_attention_reference(q, k, v, causal, None, segs)
+        torch.cuda.synchronize()
+        _bf16_close(ko, ro.bfloat16())
+        torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_attention_grad_gives_qkv_gradients(cuda, dtype):
+    """``fused_attention``'s generic grad on the card returns dQ, dK and
+    dV equal to the CPU's: the forward kernel returns through the
+    ``FlashAttention`` Function, whose backward autograd calls. (Before
+    it did, the ctypes launch left no autograd graph, and the grad
+    returned None for all three.) Card against CPU: 1e-4 of the largest
+    magnitude in float32, one bfloat16 rounding in bfloat16."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lower import TraceContext
+
+    class FwdOp:
+        type, uid, attrs = "fused_attention", 1, {"causal": True}
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 100, 64, generator=g)
+                   for _ in range(4))
+    spec = registry.get("fused_attention")
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        ins = {n: [t.to(dev, dt)] for n, t in zip("QKV", (q, k, v))}
+        n0 = dict(tfa.launches)
+        grads = registry.generic_grad(TraceContext(device=dev), spec, FwdOp,
+                                      ins, {"Out": [do.to(dev, dt)]})
+        if dev.type == "cuda":
+            key = "flash_attention" if dtype == "float32" \
+                else "flash_attention_bf16"
+            assert tfa.launches[key] == n0[key] + 1
+        assert all(grads[n][0] is not None for n in "QKV"), grads
+        got[dev.type] = [grads[n][0] for n in "QKV"]
+    torch.cuda.synchronize()
+    for name, a, b in zip("QKV", got["cuda"], got["cpu"]):
+        assert a.dtype == dt, name
+        if dtype == "float32":
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+        else:
+            _bf16_close(a.cpu(), b)
 
 
 @pytest.mark.cuda

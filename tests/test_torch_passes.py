@@ -150,16 +150,21 @@ def test_reductions_tag_every_nhwc_batch_norm_grad_and_no_nchw_one():
     (dict(layout="NHWC", remat="blocks"), "remat"),
     (dict(remat=2), "remat")])
 def test_unported_passes_raise_in_apply_not_in_the_constructor(kw, name):
+    """Every pass of the JAX pipeline is ported now (remat last): a
+    config that asks for one builds with the JAX key and ``apply`` runs
+    it with the JAX package's rewrite counts, where it once raised."""
     with tnames.guard():
-        prog = tlenet.build_mnist_train(model="cnn")[0]
+        prog, _, _, (loss, _) = tlenet.build_mnist_train(model="cnn")
+    with jnames.guard():
+        jprog, _, _, (jloss, _) = jlenet.build_mnist_train(model="cnn")
     cfg = tpasses.PassConfig(**kw)
     assert cfg.key == jpasses.PassConfig(**kw).key
     prog.passes = cfg
-    with pytest.raises(NotImplementedError, match="%r pass" % name):
-        tpasses.apply(prog)
-    exe = tfluid.Executor(CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        exe.run(prog, feed={}, fetch_list=[])
+    jprog.passes = jpasses.PassConfig(**kw)
+    assert all(mod is not None for _, _, mod in tpasses.PIPELINE)
+    out, report = tpasses.apply(prog, protected=(loss.name,))
+    assert name in report
+    assert report == jpasses.apply(jprog, protected=(jloss.name,))[1]
 
 
 @pytest.mark.parametrize("kw", [
