@@ -40,7 +40,11 @@ calls, on random weights and data made from ``--seed``:
   AMP): 8 flash-attention forwards and 8 more inside
   ``fused_attention_grad`` a step, all in the bfloat16 kernel; and
   bench.py's memory row (the same model in float32, attention dropout
-  0.1) with the remat pass off and ``remat="blocks"``.
+  0.1) with the remat pass off and ``remat="blocks"``;
+* the stacked LSTM and seq2seq as bench.py trains them: bf16 AMP at the
+  full widths above, batch 64, every row at bench.py's full length (80
+  and 30): 6 bf16 LSTM forwards and 3 backwards a step, 4 bf16 GRU
+  forwards and 2 backwards a step.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -104,6 +108,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients (bitwise, or else within B1's tolerance, printed which),
    the peak allocated memory of each (the "blocks" arm must be lower),
    the activation ledger and each arm's B1 launches;
+9b. the stacked LSTM and seq2seq under bf16 AMP: 2 warmup and 10
+   counted steps each (exact bfloat16 B3/B4 and B5/B6 launches derived
+   from the program, no float32 one, a finite falling loss), a profile
+   of one step, the card against the CPU at the reduced sizes under AMP;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -115,7 +123,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    also in bfloat16 at every distinct shape of configs C and D, beside
    their plain versions and the library's bfloat16 calls; the bfloat16
    flash-attention forward at the transformer's shape beside SDPA in
-   bfloat16), and profile the decode step;
+   bfloat16; the bfloat16 LSTM and GRU kernels at the AMP paths' shapes
+   beside cuDNN's LSTM and GRU in bfloat16), and profile the decode
+   step;
 11. print the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -221,6 +231,11 @@ BENCH_PASSES = dict(layout="NHWC", epilogue_fusion=True,
 # cancel, up to 0.3: first-step losses rtol 1e-2, each gradient within
 # 0.5 of its own L2 norm, all together within 0.2 (PERF.md section 2)
 AMP_LTOL, AMP_PL2TOL, AMP_L2TOL = 1e-2, 0.5, 0.2
+# A gradient whose L2 norm is under this share of the largest gradient's
+# cancels at the initial weights (seq2seq's att_dec_w: 7.8e-7 in float32,
+# 2.0e-6 under bf16, on the CPU at S2S_XCHECK's size; the next smallest
+# 7.6e-4): the AMP cross-checks hold it in the whole's norm only
+AMP_CANCELS = 1e-4
 # the other convnets at full width under AMP, batch RESNET_B: bench.py's
 # builders (bench.py:55-124) with their optimizers and lrs; VGG-16 in
 # bench.py's pass configuration, GoogLeNet NCHW with the fused 1x1
@@ -263,6 +278,15 @@ MEM_WARMUP, MEM_STEPS = 2, 3
 # packed (segment) case
 B1_BF16_CASES = ((1, 8, 32, 64, True, False), (1, 8, 160, 64, True, False),
                  (16, 8, 512, 64, True, False), (2, 8, 160, 64, True, True))
+
+# bench.py's recurrent runs under bf16 AMP (bench.py:159-218, 303-304)
+# feed every row at the full length, LSTM_T and S2S_T (bench.py:175-176,
+# 203-204); the card against the CPU at XCHECK / S2S_XCHECK's sizes,
+# equal lengths.
+# The bfloat16 B3-B6 against their plain versions and the float64
+# witness (ragged masks with an empty and a full row), beside the AMP
+# paths' shapes
+RNN_BF16_SHAPES = ((8, 5, 32), (37, 17, 128), (200, 4, 64))
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -310,7 +334,11 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "bn_grad": "paddle_tpu_torch/csrc/bn_grad.cu",
            "conv1x1_bwd": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
            "bn_grad_bf16": "paddle_tpu_torch/csrc/bn_grad.cu",
-           "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu"}
+           "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
+           "lstm_fwd_bf16": "paddle_tpu_torch/csrc/lstm_cell.cu",
+           "lstm_bwd_bf16": "paddle_tpu_torch/csrc/lstm_cell.cu",
+           "gru_fwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu",
+           "gru_bwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_attention_bf16":
                 "paddle_tpu/kernels/flash_attention.py:70",
@@ -322,7 +350,11 @@ REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "bn_grad": "paddle_tpu/kernels/bn_grad.py:72",
             "conv1x1_bwd": "paddle_tpu/kernels/conv1x1_bwd.py:85",
             "bn_grad_bf16": "paddle_tpu/kernels/bn_grad.py:72",
-            "conv1x1_bwd_bf16": "paddle_tpu/kernels/conv1x1_bwd.py:85"}
+            "conv1x1_bwd_bf16": "paddle_tpu/kernels/conv1x1_bwd.py:85",
+            "lstm_fwd_bf16": "paddle_tpu/kernels/lstm_cell.py:97",
+            "lstm_bwd_bf16": "paddle_tpu/kernels/lstm_cell.py:198",
+            "gru_fwd_bf16": "paddle_tpu/kernels/gru_cell.py:67",
+            "gru_bwd_bf16": "paddle_tpu/kernels/gru_cell.py:143"}
 
 
 def phase(name):
@@ -801,6 +833,152 @@ def gru_witness(gc, g, dev):
                                                  S2S["hidden_dim"]))
 
 
+def check_rnn_bf16(lc, gc, g, dev):
+    """The bfloat16 B3-B6 at the AMP paths' shapes (LSTM [64, 80, 512]
+    with and without peepholes, GRU [64, 30, 512]) and at
+    RNN_BF16_SHAPES, ragged: each kernel against its plain version on
+    the same bfloat16 inputs (hs, cs, the stash; dxg, dh0, dc0, dpeep on
+    the plain forward's stash; dW through lstm_sequence's and
+    gru_sequence's GEMMs), all at one bfloat16 rounding, and against a
+    float64 witness that rounds to bfloat16 where the kernels do (the
+    plain versions in float64 with ``rounding=torch.bfloat16``), its
+    error printed beside the bf16 plain version's; then two runs of each
+    at the path's shape to the same bits. Returns the max errors
+    against the plain versions {kernel: err}."""
+    bf16 = torch.bfloat16
+    err = dict.fromkeys(("lstm_fwd_bf16", "lstm_bwd_bf16", "gru_fwd_bf16",
+                         "gru_bwd_bf16"), 0.0)
+
+    def held(name, what, got, want):
+        err[name] = max(err[name], rel_close(what, got.double(),
+                                             want.double(), BF16_RTOL,
+                                             BF16_AMAX))
+
+    for (B, T, H), peep in [((LSTM_B, LSTM_T, HID), True),
+                            ((LSTM_B, LSTM_T, HID), False)] + [
+            (sh, True) for sh in RNN_BF16_SHAPES]:
+        xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, peep, g,
+                                                       dev)
+        xg, w, dhs, dcs = (t.to(bf16) for t in (xg, w, dhs, dcs))
+        what = "lstm bf16 %s peep=%s" % ((B, T, H), peep)
+        hs, cs, st = lc.lstm_forward(xg, w, h0, c0, mask, p)
+        rhs, rcs, rst = lc.lstm_forward_reference(xg, w, h0, c0, mask, p)
+        for name, a, b in (("hs", hs, rhs), ("cs", cs, rcs),
+                           ("stash", st, rst)):
+            held("lstm_fwd_bf16", "%s %s" % (what, name), a, b)
+        got = lc.lstm_backward(rst, rcs, w, p, c0, mask, dhs, dcs)
+        want = lc.lstm_backward_reference(rst, rcs, w, p, c0, mask, dhs, dcs)
+        for name, a, b in zip(("dxg", "dh0", "dc0", "dpeep"), got, want):
+            held("lstm_bwd_bf16", "%s %s" % (what, name), a, b)
+        # dW through the GEMM outside the kernel, the card against its
+        # plain route on the CPU
+        leaves = [t.clone().requires_grad_() for t in (xg, w)]
+        kd = torch.autograd.grad(lc.lstm_sequence(
+            leaves[0], leaves[1], h0, c0, mask, p), leaves[1], (dhs, dcs))[0]
+        cl = [t.detach().cpu().requires_grad_() for t in leaves]
+        rd = torch.autograd.grad(lc.lstm_sequence(
+            cl[0], cl[1], h0.cpu(), c0.cpu(), mask.cpu(), p.cpu()), cl[1],
+            (dhs.cpu(), dcs.cpu()))[0]
+        rel_close(what + " dW", kd.double().cpu(), rd.double(), BF16_RTOL,
+                  BF16_AMAX)
+        # the float64 witness, with the kernels' roundings
+        f64 = [t.double() for t in (xg, w, h0, c0, mask, p, dhs, dcs)]
+        whs, wcs, wst = lc.lstm_forward_reference(*f64[:6], rounding=bf16)
+        wgot = lc.lstm_backward_reference(wst, wcs, f64[1], f64[5], f64[3],
+                                          f64[4], f64[6], f64[7],
+                                          rounding=bf16)
+        line = []
+        for label, outs in (("kernel", (hs, cs, st, got)),
+                            ("plain", (rhs, rcs, rst, want))):
+            e = [rel_close("%s %s vs float64 %s" % (what, label, n),
+                           a.double(), b, BF16_RTOL, BF16_AMAX)
+                 for n, a, b in (("hs", outs[0], whs), ("cs", outs[1], wcs),
+                                 ("stash", outs[2], wst))]
+            # the backward on the float64 witness's own stash
+            kb = (lc.lstm_backward if label == "kernel"
+                  else lc.lstm_backward_reference)(
+                wst.to(bf16), wcs.float(), w, p, c0, mask, dhs, dcs)
+            e += [rel_close("%s %s vs float64 %s" % (what, label, n),
+                            a.double(), b, BF16_RTOL, BF16_AMAX)
+                  for n, a, b in zip(("dxg", "dh0"), kb, wgot)]
+            line.append("%s hs %.3g cs %.3g stash %.3g dxg %.3g dh0 %.3g"
+                        % ((label,) + tuple(e)))
+        print("%s against the float64 witness (max abs err): %s"
+              % (what, "; ".join(line)))
+    for B, T, H in [(S2S_B, S2S_T, S2S["hidden_dim"])] + list(
+            RNN_BF16_SHAPES):
+        xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev)
+        xg, w, dhs = (t.to(bf16) for t in (xg, w, dhs))
+        what = "gru bf16 %s" % ((B, T, H),)
+        hs, st = gc.gru_forward(xg, w, h0, mask)
+        rhs, rst = gc.gru_forward_reference(xg, w, h0, mask)
+        for name, a, b in (("hs", hs, rhs), ("stash", st, rst)):
+            held("gru_fwd_bf16", "%s %s" % (what, name), a, b)
+        got = gc.gru_backward(rst, rhs, w, h0, mask, dhs)
+        want = gc.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
+        for name, a, b in zip(("dxg", "dh0"), got, want):
+            held("gru_bwd_bf16", "%s %s" % (what, name), a, b)
+        leaves = [t.clone().requires_grad_() for t in (xg, w)]
+        kd = torch.autograd.grad(gc.gru_sequence(leaves[0], leaves[1], h0,
+                                                 mask), leaves[1], dhs)[0]
+        cl = [t.detach().cpu().requires_grad_() for t in leaves]
+        rd = torch.autograd.grad(gc.gru_sequence(cl[0], cl[1], h0.cpu(),
+                                                 mask.cpu()), cl[1],
+                                 dhs.cpu())[0]
+        rel_close(what + " dW", kd.double().cpu(), rd.double(), BF16_RTOL,
+                  BF16_AMAX)
+        f64 = [t.double() for t in (xg, w, h0, mask, dhs)]
+        whs, wst = gc.gru_forward_reference(*f64[:4], rounding=bf16)
+        wgot = gc.gru_backward_reference(wst, whs, *f64[1:], rounding=bf16)
+        line = []
+        for label, outs in (("kernel", (hs, st)), ("plain", (rhs, rst))):
+            e = [rel_close("%s %s vs float64 %s" % (what, label, n),
+                           a.double(), b, BF16_RTOL, BF16_AMAX)
+                 for n, a, b in (("hs", outs[0], whs), ("stash", outs[1],
+                                                        wst))]
+            kb = (gc.gru_backward if label == "kernel"
+                  else gc.gru_backward_reference)(
+                wst.to(bf16), whs.to(bf16), w, h0, mask, dhs)
+            e += [rel_close("%s %s vs float64 %s" % (what, label, n),
+                            a.double(), b, BF16_RTOL, BF16_AMAX)
+                  for n, a, b in zip(("dxg", "dh0"), kb, wgot)]
+            line.append("%s hs %.3g stash %.3g dxg %.3g dh0 %.3g"
+                        % ((label,) + tuple(e)))
+        print("%s against the float64 witness (max abs err): %s"
+              % (what, "; ".join(line)))
+    # two runs at the paths' shapes to the same bits
+    xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(LSTM_B, LSTM_T, HID,
+                                                   True, g, dev, ragged=False)
+    xg, w, dhs, dcs = (t.to(bf16) for t in (xg, w, dhs, dcs))
+    runs = []
+    for _ in range(2):
+        hs, cs, st = lc.lstm_forward(xg, w, h0, c0, mask, p)
+        runs.append((hs, cs, st) + lc.lstm_backward(st, cs, w, p, c0, mask,
+                                                    dhs, dcs))
+    same_bits("lstm bf16 B3 and B4", *runs)
+    xg, w, h0, mask, dhs = gru_inputs(S2S_B, S2S_T, S2S["hidden_dim"], g,
+                                      dev, ragged=False)
+    xg, w, dhs = (t.to(bf16) for t in (xg, w, dhs))
+    runs = []
+    for _ in range(2):
+        hs, st = gc.gru_forward(xg, w, h0, mask)
+        runs.append((hs, st) + gc.gru_backward(st, hs, w, h0, mask, dhs))
+    same_bits("gru bf16 B5 and B6", *runs)
+    torch.cuda.synchronize()
+    plans = {k: lc.launch_plan(k, LSTM_B, HID, dev, bf16)
+             for k in ("lstm_fwd", "lstm_bwd")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k in ("gru_fwd", "gru_bwd"):
+        plans[k] = gc.launch_plan(k, S2S_B, S2S["hidden_dim"], sms, bf16)
+        card = gc.card_plan(k, S2S_B, S2S["hidden_dim"], dev, bf16)
+        if card != {k_: plans[k][k_] for k_ in card}:
+            raise AssertionError("%s bf16 launch_plan %s != the kernel's %s"
+                                 % (k, plans[k], card))
+    print("bf16 B3-B6: two runs at the paths' shapes agree to the bit; "
+          "launch plans %s" % json.dumps(plans))
+    return err
+
+
 def stacked_lstm_batch(rng, B, T, min_len, dict_dim):
     """Ragged ids uniform in [1, dict_dim), lengths uniform in
     [min_len, T] with one row of length T; labels 0/1."""
@@ -863,7 +1041,8 @@ def train_phase(fluid, seed, dev):
     wall = time.perf_counter() - t0
     launches = dict(lc.launches)
     want = {"lstm_fwd": 2 * STACKED * TRAIN_STEPS,
-            "lstm_bwd": STACKED * TRAIN_STEPS}
+            "lstm_bwd": STACKED * TRAIN_STEPS, "lstm_fwd_bf16": 0,
+            "lstm_bwd_bf16": 0}
     print("launches on the main path:", json.dumps(launches),
           "expected", json.dumps(want),
           "(per step: %d lstm ops forward, %d lstm_grad ops, each "
@@ -900,40 +1079,51 @@ def train_phase(fluid, seed, dev):
     return launches
 
 
-def grad_diff(names, got, want):
+def grad_diff(names, got, want, pl2_floor=0.0):
     """How far the gradients ``got`` lie from ``want``: the worst single
     entry as a share of its gradient's largest magnitude, the worst
-    gradient in relative L2 norm, and all together in relative L2 norm."""
-    d = dict(worst=0.0, worst_name="", pl2=0.0, pl2_name="")
+    gradient in relative L2 norm, and all together in relative L2 norm.
+    A gradient whose L2 norm is under ``pl2_floor`` times the largest
+    gradient's is a sum that cancels at these weights: it counts in the
+    whole's norm but not as a gradient of its own (listed in
+    ``cancels``)."""
+    d = dict(worst=0.0, worst_name="", pl2=0.0, pl2_name="", cancels=[])
     num = den = 0.0
+    top = max(float(np.linalg.norm(np.asarray(w, np.float64)))
+              for w in want)
     for name, g, w in zip(names, got, want):
         g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
-        e = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
         n2, d2 = float(((g - w) ** 2).sum()), float((w ** 2).sum())
+        num += n2
+        den += d2
+        if d2 ** 0.5 < pl2_floor * top:
+            d["cancels"].append("%s (%.3g of the largest norm)"
+                                % (name, d2 ** 0.5 / top))
+            continue
+        e = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
         if e > d["worst"]:
             d["worst"], d["worst_name"] = e, name
         if (n2 / max(d2, 1e-300)) ** 0.5 > d["pl2"]:
             d["pl2"], d["pl2_name"] = (n2 / max(d2, 1e-300)) ** 0.5, name
-        num += n2
-        den += d2
     d["l2"] = (num / max(den, 1e-300)) ** 0.5
     return d
 
 
 def check_grad_diff(what, d, gtol, l2tol, pl2tol=None):
     print("%s: worst entry %.3g x max|g| (%s), worst gradient %.3g of its "
-          "L2 norm (%s), all together %.3g in relative L2 norm" % (
+          "L2 norm (%s), all together %.3g in relative L2 norm%s" % (
               what, d["worst"], d["worst_name"], d["pl2"], d["pl2_name"],
-              d["l2"]))
+              d["l2"], "; held in the whole only, their sums cancel: "
+              + ", ".join(d["cancels"]) if d.get("cancels") else ""))
     if (gtol is not None and d["worst"] > gtol) or d["l2"] > l2tol or \
             (pl2tol is not None and d["pl2"] > pl2tol):
-        raise AssertionError("%s: gradients differ by more than %g x "
+        raise AssertionError("%s: gradients differ by more than %s x "
                              "max|g|, %s of one gradient's L2 norm or %g "
                              "of all together" % (what, gtol, pl2tol, l2tol))
 
 
 def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
-                ltol=1e-4, l2tol=1e-3, pl2tol=None, edit=None):
+                ltol=1e-4, l2tol=1e-3, pl2tol=None, edit=None, pl2_floor=0.0):
     """The card against the CPU from the same weights: the losses of
     ``steps`` optimizer steps within rtol ``ltol``, every first-step
     parameter gradient within ``gtol`` x its largest magnitude (and
@@ -970,8 +1160,8 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
             first = dict(zip(["loss"] + grads, k))
             check_grad_diff("card vs cpu at %s, %d first-step gradients"
                             % (label, len(grads)),
-                            grad_diff(grads, k[1:], c[1:]), gtol, l2tol,
-                            pl2tol)
+                            grad_diff(grads, k[1:], c[1:], pl2_floor), gtol,
+                            l2tol, pl2tol)
     print("card == cpu at %s: losses of %d steps within rtol %g" % (
         label, steps, ltol))
     torch.cuda.synchronize()
@@ -1041,7 +1231,8 @@ def seq2seq_phase(fluid, seed, dev):
     launches = dict(gc.launches)
     # per step: the two encoder GRUs forward, and each gru_grad op
     # recomputes its forward through the generic grad, then runs B6
-    want = {"gru_fwd": 4 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS}
+    want = {"gru_fwd": 4 * TRAIN_STEPS, "gru_bwd": 2 * TRAIN_STEPS,
+            "gru_fwd_bf16": 0, "gru_bwd_bf16": 0}
     print("launches on the main path:", json.dumps(launches),
           "expected", json.dumps(want),
           "(per step: 2 gru ops forward, 2 gru_grad ops, each recomputing "
@@ -1074,6 +1265,146 @@ def seq2seq_phase(fluid, seed, dev):
                 "%s, B %d, T <= %d" % (S2S_XCHECK, S2S_XCHECK_B,
                                        S2S_XCHECK_T), gtol=1e-3)
     return launches
+
+
+def recurrent_launches(prog, op_type):
+    """Launches of a recurrent kernel pair a step, read from the program
+    the executor runs (``passes.apply``): one forward for every ``op_type``
+    op and one more for every ``op_type + "_grad"`` (the generic grad
+    re-runs the forward under autograd), one backward for every grad.
+    Returns (forwards, backwards)."""
+    from paddle_tpu_torch import passes
+
+    out, _ = passes.apply(prog)
+    ops = out.global_block().ops
+    fwd = sum(op.type == op_type for op in ops)
+    grad = sum(op.type == op_type + "_grad" for op in ops)
+    return fwd + grad, grad
+
+
+def rnn_amp_phase(fluid, seed, dev, model):
+    """The stacked LSTM (``model="lstm"``) or seq2seq (``"gru"``) trained
+    as bench.py runs it: bf16 AMP at full width, batch 64, every row at
+    the full length, 2 warmup and 10 counted steps on one repeated batch
+    (exact bfloat16 B3/B4 or B5/B6 launches derived from the program, no
+    float32 one), a profile of one step, the card against the CPU at the
+    reduced size under AMP at the AMP bounds. Returns the counted steps'
+    launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq
+    from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
+
+    rng = np.random.RandomState(seed)
+    if model == "lstm":
+        kern, B, T = lc, LSTM_B, LSTM_T
+
+        def build(**kw):
+            built = build_stacked_lstm_train(class_dim=CLASSES, lr=LR, **kw)
+            return built[0], built[1], built[2], built[3][:1]
+
+        full = dict(dict_dim=DICT, emb_dim=EMB, hid_dim=HID,
+                    stacked_num=STACKED)
+        xsize = XCHECK
+        # bench.py's feed (bench.py:169-176): ids in [0, dict), labels 0/1
+        feed = {"words": rng.randint(0, DICT, (B, T, 1)),
+                "label": rng.randint(0, CLASSES, (B, 1))}
+        xfeed = {"words": [rng.randint(0, xsize["dict_dim"], (XCHECK_T, 1))
+                           for _ in range(XCHECK_B)],
+                 "label": rng.randint(0, CLASSES, (XCHECK_B, 1))}
+    else:
+        kern, B, T = gc, S2S_B, S2S_T
+
+        def build(**kw):
+            return build_seq2seq(lr=LR, **kw)
+
+        full, xsize = S2S, S2S_XCHECK
+        # bench.py's feed (bench.py:197-205): three independent id
+        # sequences in [1, vocab)
+        feed = {n: rng.randint(1, S2S["tgt_vocab"], (B, T, 1))
+                for n in ("src_ids", "tgt_ids", "tgt_next_ids")}
+        xfeed = {n: [rng.randint(1, xsize["tgt_vocab"], (S2S_XCHECK_T, 1))
+                     for _ in range(S2S_XCHECK_B)]
+                 for n in ("src_ids", "tgt_ids", "tgt_next_ids")}
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build(**full)
+    fluid.amp.enable(prog)
+    fwd, bwd = recurrent_launches(prog, model)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if prog.global_block().var(n).is_parameter)
+    on_card = {n: torch.from_numpy(a.astype(np.int64)).to(dev)
+               for n, a in feed.items()}
+    for n in on_card:
+        if on_card[n].dim() == 3:       # a sequence: every row full length
+            on_card[n] = fluid.PackedSeq(on_card[n], torch.full(
+                (B,), T, dtype=torch.int32, device=dev))
+    print("parameters: %d (%.1f MB fp32 masters); batch %d x %d tokens, "
+          "every row full length; bf16 AMP; from the program a step: %d "
+          "bf16 forwards (with the grads' recomputes), %d backwards"
+          % (n_params, n_params * 4 / 1e6, B, T, fwd, bwd))
+    for _ in range(WARMUP_STEPS):
+        exe.run(prog, feed=on_card, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.launches)
+    want = {model + "_fwd": 0, model + "_bwd": 0,
+            model + "_fwd_bf16": fwd * TRAIN_STEPS,
+            model + "_bwd_bf16": bwd * TRAIN_STEPS}
+    print("launches on the main path:", json.dumps(launches), "expected",
+          json.dumps(want))
+    if launches != want:
+        raise AssertionError("%s launch counts %s != %s"
+                             % (model, launches, want))
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("training loss not finite and falling: %s"
+                             % losses)
+    step_ms = wall * 1000.0 / TRAIN_STEPS
+    print("%s train (bf16 AMP): %d steps in %.3f s = %.3f ms/step, %.2f "
+          "sequences/s, %.1f tokens/s" % (
+              "stacked LSTM" if model == "lstm" else "seq2seq", TRAIN_STEPS,
+              wall, step_ms, B / (step_ms / 1e3), B * T / (step_ms / 1e3)))
+    device_profile(lambda: exe.run(prog, feed=on_card, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "%s step (bf16 AMP)" % model,
+                   share_of=(model + "_fwd_kernel", model + "_bwd_kernel"))
+    del scope, exe, on_card
+    torch.cuda.empty_cache()
+
+    kern.reset_launches()
+    # seq2seq's att_dec_w gradient cancels at initialisation (its norm is
+    # ~1e-6 of the largest gradient's in float32 and in bf16 alike, where
+    # the next smallest is ~8e-4): under bf16 what is left of it is the
+    # roundings of its terms, so it is held in the whole's norm only
+    cross_check(fluid, fluid.Executor(), lambda: _amp(fluid, build(**xsize)),
+                seed, xfeed, XCHECK_STEPS, "%s, equal lengths, bf16 AMP"
+                % (xsize,), gtol=None, ltol=AMP_LTOL, l2tol=AMP_L2TOL,
+                pl2tol=AMP_PL2TOL, pl2_floor=AMP_CANCELS)
+    with unique_name.guard():
+        xfwd, xbwd = recurrent_launches(_amp(fluid, build(**xsize))[0],
+                                        model)
+    if kern.launches[model + "_fwd_bf16"] != xfwd * XCHECK_STEPS or \
+            kern.launches[model + "_bwd_bf16"] != xbwd * XCHECK_STEPS or \
+            kern.launches[model + "_fwd"] or kern.launches[model + "_bwd"]:
+        raise AssertionError("cross-check launches %s" % kern.launches)
+    return launches
+
+
+def _amp(fluid, built):
+    fluid.amp.enable(built[0])
+    return built
 
 
 def rel_close(what, got, want, rtol, amax):
@@ -2226,6 +2557,7 @@ def main():
     gru_err, gru_dw_err = check_gru(gc, g, dev)
     max_err.update(gru_err)
     gru_witness(gc, g, dev)
+    max_err.update(check_rnn_bf16(lc, gc, g, dev))
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
     # B8 at every distinct shape the config-B program gives it
     with unique_name.guard():
@@ -2385,6 +2717,15 @@ def main():
           "0.1, off against \"blocks\" (seed %d)" % args.seed)
     remat_phase(fluid, args.seed, dev)
 
+    # ---- 9b. the stacked LSTM and seq2seq as bench.py trains them ----
+    for model, label in (("lstm", "stacked-LSTM"), ("gru", "seq2seq")):
+        phase("%s training as bench.py runs it: full width under bf16 AMP, "
+              "every row full length, the card against the CPU under AMP "
+              "(seed %d)" % (label, args.seed))
+        amp_launches = rnn_amp_phase(fluid, args.seed, dev, model)
+        launches.update({k: v for k, v in amp_launches.items()
+                         if k.endswith("_bf16")})
+
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
           "bn_grad and conv1x1_bwd)")
@@ -2477,27 +2818,34 @@ def main():
         peak=BF16_FLOPS_PER_S))
     # B3 and B4 at the training path's shape, every step valid, and at
     # T = 8: (t80 - t8) / 72 is a step's cost without the launch and the
-    # blocks' set-up
+    # blocks' set-up; in float32 and in bfloat16 (the AMP path's shape is
+    # the same)
+    bf16 = torch.bfloat16
     B, T, H = LSTM_B, LSTM_T, HID
-    lstm_t = {}
-    for T_ in (LSTM_SHORT_T, T):
-        xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T_, H, True, g,
-                                                       dev, ragged=False)
-        _, cs, stash = lc.lstm_forward(xg, w, h0, c0, mask, p)
-        lstm_t["lstm_fwd", T_] = time_ms(
-            lambda: lc.lstm_forward(xg, w, h0, c0, mask, p))
-        lstm_t["lstm_bwd", T_] = time_ms(
-            lambda: lc.lstm_backward(stash, cs, w, p, c0, mask, dhs, dcs))
-    for name in ("lstm_fwd", "lstm_bwd"):
-        pl = lc.launch_plan(name, B, H, dev)
-        print("%s at [%d,%d,%d]: %.6f ms, at T=%d %.6f ms: %.3f us a step; "
-              "cluster size %d, %d blocks, %d row groups of 32 in flight; "
-              "exchange through L2 %d bytes a step" % (
-                  name, B, T, H, lstm_t[name, T], LSTM_SHORT_T,
-                  lstm_t[name, LSTM_SHORT_T],
-                  (lstm_t[name, T] - lstm_t[name, LSTM_SHORT_T]) * 1e3
-                  / (T - LSTM_SHORT_T), pl["cluster"], pl["blocks"],
-                  pl["rows_in_flight"], pl["exchange_bytes"]))
+    lstm_t, lstm_in = {}, {}
+    for dt, sfx in ((torch.float32, ""), (bf16, "_bf16")):
+        for T_ in (LSTM_SHORT_T, T):
+            xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(
+                B, T_, H, True, g, dev, ragged=False)
+            xg, w, dhs, dcs = (t.to(dt) for t in (xg, w, dhs, dcs))
+            _, cs, stash = lc.lstm_forward(xg, w, h0, c0, mask, p)
+            lstm_t["lstm_fwd" + sfx, T_] = time_ms(
+                lambda: lc.lstm_forward(xg, w, h0, c0, mask, p))
+            lstm_t["lstm_bwd" + sfx, T_] = time_ms(
+                lambda: lc.lstm_backward(stash, cs, w, p, c0, mask, dhs,
+                                         dcs))
+        lstm_in[dt] = (xg, w, h0, c0, mask, p, dhs, dcs, cs, stash)
+        for kind in ("lstm_fwd", "lstm_bwd"):
+            pl, name = lc.launch_plan(kind, B, H, dev, dt), kind + sfx
+            print("%s at [%d,%d,%d]: %.6f ms, at T=%d %.6f ms: %.3f us a "
+                  "step; cluster size %d, %d blocks, %d row groups of 32 in "
+                  "flight; exchange through L2 %d bytes a step" % (
+                      name, B, T, H, lstm_t[name, T], LSTM_SHORT_T,
+                      lstm_t[name, LSTM_SHORT_T],
+                      (lstm_t[name, T] - lstm_t[name, LSTM_SHORT_T]) * 1e3
+                      / (T - LSTM_SHORT_T), pl["cluster"], pl["blocks"],
+                      pl["rows_in_flight"], pl["exchange_bytes"]))
+    xg, w, h0, c0, mask, p, dhs, dcs, cs, stash = lstm_in[torch.float32]
     cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
     x_in = torch.randn(B, T, H, generator=g).to(dev)
     gout = torch.randn(B, T, H, generator=g).to(dev)
@@ -2536,27 +2884,33 @@ def main():
     # T = GRU_SHORT_T: (t30 - t3) / 27 is a step's cost without the
     # launch and the blocks' set-up
     B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
-    gru_t = {}
-    for T_ in (GRU_SHORT_T, T):
-        xg, w, h0, mask, dhs = gru_inputs(B, T_, H, g, dev, ragged=False)
-        hs, stash = gc.gru_forward(xg, w, h0, mask)
-        gru_t["gru_fwd", T_] = time_ms(lambda: gc.gru_forward(xg, w, h0, mask))
-        gru_t["gru_bwd", T_] = time_ms(
-            lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs))
-    for name in ("gru_fwd", "gru_bwd"):
-        pl, card_pl = (gc.launch_plan(name, B, H, sms),
-                       gc.card_plan(name, B, H, dev))
-        if card_pl != {k: pl[k] for k in card_pl}:
-            raise AssertionError("%s launch_plan %s != the kernel's %s"
-                                 % (name, pl, card_pl))
-        print("%s at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
-              "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); launch plan "
-              "%s (the card's gru_plan agrees)" % (
-                  name, B, T, H, gru_t[name, T], gru_t[name, T] * 1e3 / T,
-                  GRU_SHORT_T, gru_t[name, GRU_SHORT_T],
-                  (gru_t[name, T] - gru_t[name, GRU_SHORT_T]) * 1e3
-                  / (T - GRU_SHORT_T), T, GRU_SHORT_T, T - GRU_SHORT_T,
-                  json.dumps(pl)))
+    gru_t, gru_in = {}, {}
+    for dt, sfx in ((torch.float32, ""), (bf16, "_bf16")):
+        for T_ in (GRU_SHORT_T, T):
+            xg, w, h0, mask, dhs = gru_inputs(B, T_, H, g, dev, ragged=False)
+            xg, w, dhs = (t.to(dt) for t in (xg, w, dhs))
+            hs, stash = gc.gru_forward(xg, w, h0, mask)
+            gru_t["gru_fwd" + sfx, T_] = time_ms(
+                lambda: gc.gru_forward(xg, w, h0, mask))
+            gru_t["gru_bwd" + sfx, T_] = time_ms(
+                lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs))
+        gru_in[dt] = (xg, w, h0, mask, dhs, hs, stash)
+        for kind in ("gru_fwd", "gru_bwd"):
+            pl, card_pl = (gc.launch_plan(kind, B, H, sms, dt),
+                           gc.card_plan(kind, B, H, dev, dt))
+            if card_pl != {k: pl[k] for k in card_pl}:
+                raise AssertionError("%s launch_plan %s != the kernel's %s"
+                                     % (kind, pl, card_pl))
+            name = kind + sfx
+            print("%s at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
+                  "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); launch "
+                  "plan %s (the card's gru_plan agrees)" % (
+                      name, B, T, H, gru_t[name, T], gru_t[name, T] * 1e3 / T,
+                      GRU_SHORT_T, gru_t[name, GRU_SHORT_T],
+                      (gru_t[name, T] - gru_t[name, GRU_SHORT_T]) * 1e3
+                      / (T - GRU_SHORT_T), T, GRU_SHORT_T, T - GRU_SHORT_T,
+                      json.dumps(pl)))
+    xg, w, h0, mask, dhs, hs, stash = gru_in[torch.float32]
     cudnn_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
     x_gru = torch.randn(B, T, H, generator=g).to(dev)
     g_gru = torch.randn(B, T, H, generator=g).to(dev)
@@ -2604,6 +2958,101 @@ def main():
         bytes=4 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H
                    + 2 * B * H + B * T),
         flops=2 * B * T * 3 * H * H, tf32x3=True))
+    # B3-B6 in bfloat16 at the AMP paths' shapes, every step valid: xg,
+    # w, hs, the stash, dhs, dcs and dxg 2 bytes an element, h0, c0,
+    # mask, peep, cs, dh0, dc0 and dpeep 4; the products at the bfloat16
+    # tensor-core rate; beside cuDNN's LSTM and GRU in bfloat16 (float16
+    # where this torch's cuDNN refuses bfloat16)
+    def cudnn_rnn(cls, H_):
+        for dt in (bf16, torch.float16):
+            rnn = cls(H_, H_, batch_first=True).to(dev, dt)
+            x = torch.randn(B, T, H_, generator=g).to(dev, dt)
+            try:
+                rnn(x)
+                return rnn, x, dt
+            except RuntimeError as e:
+                print("cuDNN %s refuses %s: %s" % (cls.__name__, dt, e))
+        raise AssertionError("cuDNN %s takes neither bf16 nor fp16"
+                             % cls.__name__)
+
+    B, T, H = LSTM_B, LSTM_T, HID
+    xg, w, h0, c0, mask, p, dhs, dcs, cs, stash = lstm_in[bf16]
+    lib_lstm, x_lib, lib_dt = cudnn_rnn(torch.nn.LSTM, H)
+    g_lib = torch.randn(B, T, H, generator=g).to(dev, lib_dt)
+
+    def cudnn_bf16_fwd():
+        with torch.no_grad():
+            lib_lstm(x_lib)
+
+    def cudnn_bf16_fwd_bwd():
+        out, _ = lib_lstm(x_lib)
+        out.backward(g_lib)
+
+    rows.append(dict(
+        name="lstm_fwd_bf16", shape="[64,80,512] peep, all steps valid",
+        ms=lstm_t["lstm_fwd_bf16", T],
+        plain_ms=time_ms(lambda: lc.lstm_forward_reference(
+            xg, w, h0, c0, mask, p)),
+        library_ms=time_ms(cudnn_bf16_fwd),
+        library="torch.nn.LSTM (cuDNN) forward in %s, input size 512, no "
+                "peepholes: also does the input GEMM" % lib_dt,
+        bytes=2 * (2 * B * T * 4 * H + H * 4 * H + B * T * H)
+        + 4 * (3 * H + 2 * B * H + B * T + B * T * H),
+        flops=2 * B * T * H * 4 * H, peak=BF16_FLOPS_PER_S))
+    rows.append(dict(
+        name="lstm_bwd_bf16", shape="[64,80,512] peep, all steps valid",
+        ms=lstm_t["lstm_bwd_bf16", T],
+        plain_ms=time_ms(lambda: lc.lstm_backward_reference(
+            stash, cs, w, p, c0, mask, dhs, dcs)),
+        library_ms=time_ms(cudnn_bf16_fwd_bwd),
+        library="torch.nn.LSTM (cuDNN) forward plus backward in %s, input "
+                "size 512, no peepholes: also does the input GEMMs and dW"
+                % lib_dt,
+        bytes=2 * (2 * B * T * 4 * H + H * 4 * H + 2 * B * T * H)
+        + 4 * (B * T * H + 2 * 3 * H + 3 * B * H + B * T),
+        flops=2 * B * T * 4 * H * H, peak=BF16_FLOPS_PER_S))
+    B, T, H = S2S_B, S2S_T, S2S["hidden_dim"]
+    xg, w, h0, mask, dhs, hs, stash = gru_in[bf16]
+    lib_gru, xg_lib, gdt = cudnn_rnn(torch.nn.GRU, H)
+    gg_lib = torch.randn(B, T, H, generator=g).to(dev, gdt)
+    frozen_bf16 = torch.nn.GRU(H, H, batch_first=True).to(dev, gdt)
+    frozen_bf16.requires_grad_(False)
+    xl_bf16 = xg_lib.clone().requires_grad_()
+    kept_bf16, _ = frozen_bf16(xl_bf16)
+
+    def cudnn_gru_bf16_fwd():
+        with torch.no_grad():
+            lib_gru(xg_lib)
+
+    def cudnn_gru_bf16_fwd_bwd():
+        out, _ = lib_gru(xg_lib)
+        out.backward(gg_lib)
+
+    rows.append(dict(
+        name="gru_fwd_bf16", shape="[64,30,512], all steps valid",
+        ms=gru_t["gru_fwd_bf16", T],
+        plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
+        library_ms=time_ms(cudnn_gru_bf16_fwd),
+        library="torch.nn.GRU (cuDNN) forward in %s, input size 512: r "
+                "after the product, and the input GEMM too" % gdt,
+        bytes=2 * (2 * B * T * 3 * H + H * 3 * H + B * T * H)
+        + 4 * (B * H + B * T),
+        flops=2 * B * T * H * 3 * H, peak=BF16_FLOPS_PER_S))
+    rows.append(dict(
+        name="gru_bwd_bf16", shape="[64,30,512], all steps valid",
+        ms=gru_t["gru_bwd_bf16", T],
+        plain_ms=time_ms(lambda: gc.gru_backward_reference(
+            stash, hs, w, h0, mask, dhs)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            kept_bf16, xl_bf16, gg_lib, retain_graph=True)),
+        library="cuDNN GRU backward-data in %s, r after the product, "
+                "includes dx of the input GEMM (parameters frozen, one "
+                "forward kept); cuDNN GRU forward plus backward, with the "
+                "input GEMMs and dW, %.6f ms" % (
+                    gdt, time_ms(cudnn_gru_bf16_fwd_bwd)),
+        bytes=2 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H)
+        + 4 * (2 * B * H + B * T),
+        flops=2 * B * T * 3 * H * H, peak=BF16_FLOPS_PER_S))
     # B7 at every distinct shape of the ResNet-50 path (kernel only), and
     # with its plain version and the library at the largest (the stem)
     # and the smallest; the activations exceed the L2, so no flush
@@ -2675,7 +3124,6 @@ def main():
     # is 2 bytes, and B8's products bound at the bfloat16 tensor-core
     # rate (its one-pass TF32 floor printed beside: a bfloat16 value is
     # exact in TF32, which is what B8 multiplies in)
-    bf16 = torch.bfloat16
 
     def bn_bf16_case(shape):
         n, h, w, c = shape
@@ -2792,7 +3240,8 @@ def main():
                 ("flash_attention", "[1,8,32,64] causal=True"),
                 ("flash_attention_bf16", "[16,8,512,64] causal=True")) \
                 or r["name"] in ("lstm_fwd", "lstm_bwd", "gru_fwd",
-                                 "gru_bwd") \
+                                 "gru_bwd", "lstm_fwd_bf16", "lstm_bwd_bf16",
+                                 "gru_fwd_bf16", "gru_bwd_bf16") \
                 or r["shape"].startswith(("[64, 112, 112, 64]",
                                           "[64, 64, 56, 56, 256]")):
             # bn_grad at the stem, conv1x1_bwd at the first conv3, in
@@ -2808,7 +3257,9 @@ def main():
              for n in ("flash_attention", "flash_attention_bf16",
                        "flash_decode", "lstm_fwd",
                        "lstm_bwd", "gru_fwd", "gru_bwd", "bn_grad",
-                       "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16")]
+                       "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16",
+                       "lstm_fwd_bf16", "lstm_bwd_bf16", "gru_fwd_bf16",
+                       "gru_bwd_bf16")]
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,17 @@
 // batch-major: xg [B, T, 3H] of pre-projected gate inputs (bias added),
 // columns [u | r | c~] in blocks of H; W [H, 3H] = [w_ur | w_c]; h0
 // [B, H]; mask [B, T] (1 = valid step, 0 = a finished row, which carries
-// h through unchanged and gets no gate gradient). Everything is float32
-// and contiguous.
+// h through unchanged and gets no gate gradient). Everything is
+// contiguous. Two instantiations of each kernel, by the element type E
+// of xg, W, hs, the stash, dhs and dxg: float (gru_fwd, gru_bwd) and
+// bfloat16 (gru_fwd_bf16, gru_bwd_bf16, the bf16 AMP path); h0, mask and
+// dh0 are float32 in both, and so are the carried h, the gates and every
+// sum: the JAX kernels' dtypes. The bf16 kernels round h_{t-1}, r
+// h_{t-1} (B5), da_c and da_ur (B6) to bf16 where the exchange carries
+// them, as the JAX kernels round each product's input, and the outputs
+// as they store them; B6 reads h_{t-1} from the stored hs, as the JAX
+// kernel does. In bf16 the recurrence's 3.02 GFLOP take 3.1 us at 989
+// TFLOP/s and the bytes ~16 us: the chain of steps bounds them.
 //
 // ---------------------------------------------------------------------
 // gru_fwd  (B5)
@@ -137,15 +146,17 @@ constexpr int kCNT = 1;    // round 2: the candidate's n8 tile
 // the most shared memory a block may ask for on an H100 (227 KB)
 constexpr size_t kMaxSmem = 232448;
 
+template <typename E>
 struct FwdArgs {
-  const float* xg;
-  const float* w;
+  const E* xg;
+  const E* w;
   const float* h0;
   const float* mask;
-  float* hs;
-  float* stash;
-  float* hx;         // [RG][2][nks][32][4]: h_{t-1}, zero-filled
-  float* rx;         // [RG][2][nks][32][4]: r h_{t-1}, zero-filled
+  E* hs;
+  E* stash;
+  E* hx;             // [RG][2][nks][32][16 bytes]: h_{t-1}, zero-filled
+  E* rx;             // [RG][2][nks][32][16 bytes]: r h_{t-1}, zero-filled
+  float* hcar;       // [B][H]: h carries past rs::kRegTiles
   unsigned* flags;   // [2][RG][nch]: h's counters, then r h's; zeroed
   int B, T, H, nch, RG, RGB, UGp;
 };
@@ -154,31 +165,35 @@ struct FwdArgs {
 struct CellIn {
   float xu, xr, xc, m;
 };
-__device__ __forceinline__ CellIn load_cell(const FwdArgs& a, int t, int b,
-                                            int unit) {
+template <typename E>
+__device__ __forceinline__ CellIn load_cell(const FwdArgs<E>& a, int t,
+                                            int b, int unit) {
   CellIn v = {};
   if (b < a.B && unit < a.H) {
     const size_t bt = (size_t)b * a.T + t;
-    const float* x = a.xg + bt * 3 * a.H;
-    v.xu = x[unit];
-    v.xr = x[a.H + unit];
-    v.xc = x[2 * (size_t)a.H + unit];
+    const E* x = a.xg + bt * 3 * a.H;
+    v.xu = rs::ld(x + unit);
+    v.xr = rs::ld(x + a.H + unit);
+    v.xc = rs::ld(x + 2 * (size_t)a.H + unit);
     v.m = a.mask[bt];
   }
   return v;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(rs::kThreads, 1)
-gru_fwd_kernel(FwdArgs a) {
+gru_fwd_kernel(FwdArgs<E> a) {
+  using WF = typename rs::Elem<E>::WFrag;
   extern __shared__ float4 smem4[];
   const int H = a.H, B = a.B, T = a.T, nch = a.nch;
-  const int nks = (H + 7) / 8;
+  const int nks = (H + rs::Elem<E>::kK - 1) / rs::Elem<E>::kK;
   const size_t G3 = 3 * (size_t)H;
-  const size_t tile = (size_t)2 * nks * 128;   // floats of a row group
-  float4* wur = smem4;                          // w_ur fragments
-  float4* wc = wur + (size_t)nks * kUrNT * 32;  // w_c fragments
+  // elements of a row group's tile
+  const size_t tile = (size_t)2 * nks * rs::kFragElems<E>;
+  WF* wur = reinterpret_cast<WF*>(smem4);       // w_ur fragments
+  WF* wc = wur + (size_t)nks * kUrNT * 32;      // w_c fragments
   // per warp: its two chunk slots, which then take its partial sums
-  float4* slots = wc + (size_t)nks * kCNT * 32;
+  float4* slots = reinterpret_cast<float4*>(wc + (size_t)nks * kCNT * 32);
   float* part = reinterpret_cast<float*>(slots);
   unsigned* hflag = a.flags;
   unsigned* rflag = a.flags + (size_t)a.RG * nch;
@@ -193,12 +208,13 @@ gru_fwd_kernel(FwdArgs a) {
   rs::stage_w<kUrNT>(wur, nks, [&](int k, int n) {
     const int u = u0 + n % rs::kUnits;
     return (k < H && u < H)
-               ? a.w[(size_t)k * G3 + (size_t)(n / rs::kUnits) * H + u]
+               ? rs::ld(a.w + (size_t)k * G3 + (size_t)(n / rs::kUnits) * H + u)
                : 0.f;
   });
   rs::stage_w<kCNT>(wc, nks, [&](int k, int n) {
     const int u = u0 + n;
-    return (k < H && u < H) ? a.w[(size_t)k * G3 + 2 * (size_t)H + u] : 0.f;
+    return (k < H && u < H) ? rs::ld(a.w + (size_t)k * G3 + 2 * (size_t)H + u)
+                            : 0.f;
   });
   const int r = tid / rs::kUnits, uu = tid % rs::kUnits;   // the cell
   const int unit = u0 + uu;
@@ -207,7 +223,8 @@ gru_fwd_kernel(FwdArgs a) {
   for (int rg = rgb; rg < a.RG; rg += a.RGB) {
     const int b = rg * rs::kRows + r;
     if (unit_ok && b < B)
-      a.hx[rg * tile + rs::frag_idx(r, unit, nks)] = a.h0[(size_t)b * H + unit];
+      rs::st(a.hx + rg * tile + rs::frag_idx<E>(r, unit, nks),
+             a.h0[(size_t)b * H + unit]);
   }
   __syncthreads();
   if (tid == 0)
@@ -229,6 +246,7 @@ gru_fwd_kernel(FwdArgs a) {
       const int b = rg * rs::kRows + r;
       const bool live = unit_ok && b < B;
       const size_t bt = (size_t)(live ? b : 0) * T + t;
+      const size_t bu = (size_t)(live ? b : 0) * H + unit;
       const CellIn in = cur;
       {
         // the next round's cell inputs, loaded while this round runs
@@ -239,17 +257,17 @@ gru_fwd_kernel(FwdArgs a) {
       float h_prev = 0.f;
       if (live) {
         if (t == 0) {
-          h_prev = a.h0[(size_t)b * H + unit];
+          h_prev = a.h0[bu];
         } else if (rl < rs::kRegTiles) {
 #pragma unroll
           for (int i = 0; i < rs::kRegTiles; ++i)
             if (rl == i) h_prev = hreg[i];
         } else {
-          h_prev = a.hs[(bt - 1) * H + unit];
+          h_prev = a.hcar[bu];
         }
       }
-      float* hx = a.hx + rg * tile;
-      float* rx = a.rx + rg * tile;
+      E* hx = a.hx + rg * tile;
+      E* rx = a.rx + rg * tile;
       float4* my_slots = slots + warp * 2 * rs::kSlot;
 
       // ---- round 1: u, r from h_{t-1} w_ur; a chunk of h_{t-1} is
@@ -270,7 +288,7 @@ gru_fwd_kernel(FwdArgs a) {
         u = rs::sigm(in.xu + rs::sum_partials(part, rs::kPart, row + uu));
         rr = rs::sigm(in.xr + rs::sum_partials(part, rs::kPart,
                                                row + rs::kUnits + uu));
-        rx[rs::frag_idx(r, unit, nks)] = rr * h_prev;
+        rs::st(rx + rs::frag_idx<E>(r, unit, nks), rr * h_prev);
       }
       __syncthreads();   // partials read, r h_{t-1} in the exchange
       if (tid == 0) rs::publish(&rflag[rg * nch + my_chunk]);
@@ -292,29 +310,34 @@ gru_fwd_kernel(FwdArgs a) {
                                            r * rs::part_ld<kCNT>() + uu));
         h_t = u * h_prev + (1.f - u) * c;
         h_t = in.m * h_t + (1.f - in.m) * h_prev;
-        if (t + 1 < T) hx[rs::frag_idx(r, unit, nks)] = h_t;
+        if (t + 1 < T) rs::st(hx + rs::frag_idx<E>(r, unit, nks), h_t);
       }
       __syncthreads();   // partials read, h_t in the exchange
       if (tid == 0 && t + 1 < T) rs::publish(&hflag[rg * nch + my_chunk]);
       // the outputs after the release, which waits for no more than the
       // exchange
       if (live) {
-        a.hs[bt * H + unit] = h_t;
-        float* st = a.stash + bt * G3;
-        st[unit] = u;
-        st[H + unit] = rr;
-        st[2 * (size_t)H + unit] = c;
+        rs::st(a.hs + bt * H + unit, h_t);
+        E* sp = a.stash + bt * G3;
+        rs::st(sp + unit, u);
+        rs::st(sp + H + unit, rr);
+        rs::st(sp + 2 * (size_t)H + unit, c);
+        if (rl < rs::kRegTiles) {
 #pragma unroll
-        for (int i = 0; i < rs::kRegTiles; ++i)
-          if (rl == i) hreg[i] = h_t;
+          for (int i = 0; i < rs::kRegTiles; ++i)
+            if (rl == i) hreg[i] = h_t;
+        } else {
+          a.hcar[bu] = h_t;
+        }
       }
     }
   }
 }
 
+template <typename E>
 size_t fwd_smem(int H) {
-  const size_t nks = (H + 7) / 8;
-  return nks * (kUrNT + kCNT) * 512 +
+  const int nks = (H + rs::Elem<E>::kK - 1) / rs::Elem<E>::kK;
+  return rs::w_bytes<E, kUrNT + kCNT>(nks) +
          (size_t)rs::kWarps * 2 * rs::kSlot * 16;
 }
 
@@ -322,8 +345,9 @@ size_t fwd_smem(int H) {
 // blocks, out[1] row groups in flight at once, out[2] row groups a block
 // runs a step, out[3] shared bytes a block. A row group takes ceil(H/8)
 // blocks; as many row groups run at once as the SMs hold.
+template <typename E>
 cudaError_t fwd_plan(int B, int H, int sms, int* out) {
-  const size_t smem = fwd_smem(H);
+  const size_t smem = fwd_smem<E>(H);
   const int per = (H + rs::kUnits - 1) / rs::kUnits;
   const int RG = (B + rs::kRows - 1) / rs::kRows;
   if (smem > kMaxSmem || per > sms) return cudaErrorCooperativeLaunchTooLarge;
@@ -341,18 +365,19 @@ cudaError_t fwd_plan(int B, int H, int sms, int* out) {
 
 constexpr int kPairNT = 2;   // round A: the n8 tiles of a pair's 16 units
 
+template <typename E>
 struct BwdArgs {
-  const float* stash;
-  const float* hs;
-  const float* w;
+  const E* stash;
+  const E* hs;
+  const E* w;
   const float* h0;
   const float* mask;
-  const float* dhs;
-  float* dxg;
+  const E* dhs;
+  E* dxg;
   float* dh0;
   float* carry;      // [B][H]: dhm past rs::kRegTiles
-  float* urx;        // [RG][2 halves][2][nks][32][4]: da_u | da_r, zero-filled
-  float* cx;         // [RG][2][nks][32][4]: da_c, zero-filled
+  E* urx;            // [RG][2 halves][2][nks][32][16 bytes]: da_u | da_r
+  E* cx;             // [RG][2][nks][32][16 bytes]: da_c; both zero-filled
   unsigned* flags;   // [2][RG][nch]: da_c's counters, then da_ur's; zeroed
   int B, T, H, nch, RG, RGB, UGp;
 };
@@ -361,34 +386,38 @@ struct BwdArgs {
 struct BwdIn {
   float u, r, c, hp, m, dhs;
 };
-__device__ __forceinline__ BwdIn load_bwd(const BwdArgs& a, int t, int b,
+template <typename E>
+__device__ __forceinline__ BwdIn load_bwd(const BwdArgs<E>& a, int t, int b,
                                           int unit) {
   BwdIn v = {};
   if (b < a.B && unit < a.H) {
     const int H = a.H;
     const size_t bt = (size_t)b * a.T + t;
-    const float* st = a.stash + bt * 3 * H;
-    v.u = st[unit];
-    v.r = st[H + unit];
-    v.c = st[2 * (size_t)H + unit];
-    v.hp = t ? a.hs[(bt - 1) * H + unit] : a.h0[(size_t)b * H + unit];
+    const E* sp = a.stash + bt * 3 * H;
+    v.u = rs::ld(sp + unit);
+    v.r = rs::ld(sp + H + unit);
+    v.c = rs::ld(sp + 2 * (size_t)H + unit);
+    v.hp = t ? rs::ld(a.hs + (bt - 1) * H + unit) : a.h0[(size_t)b * H + unit];
     v.m = a.mask[bt];
-    v.dhs = a.dhs[bt * H + unit];
+    v.dhs = rs::ld(a.dhs + bt * H + unit);
   }
   return v;
 }
 
+template <typename E>
 __global__ void __launch_bounds__(rs::kThreads, 1)
-gru_bwd_kernel(BwdArgs a) {
+gru_bwd_kernel(BwdArgs<E> a) {
+  using WF = typename rs::Elem<E>::WFrag;
   extern __shared__ float4 smem4[];
   const int H = a.H, B = a.B, T = a.T, nch = a.nch;
-  const int nks = (H + 7) / 8;
+  const int nks = (H + rs::Elem<E>::kK - 1) / rs::Elem<E>::kK;
   const size_t G3 = 3 * (size_t)H;
-  const size_t tile = (size_t)2 * nks * 128;   // floats of a K = H tile
-  float4* wur = smem4;                          // w_ur^T fragments, half hf
-  float4* wc = wur + (size_t)nks * kPairNT * 32;   // w_c^T fragments
+  // elements of a K = H tile
+  const size_t tile = (size_t)2 * nks * rs::kFragElems<E>;
+  WF* wur = reinterpret_cast<WF*>(smem4);       // w_ur^T fragments, half hf
+  WF* wc = wur + (size_t)nks * kPairNT * 32;    // w_c^T fragments
   // per warp: its two chunk slots, which then take its partial sums
-  float4* slots = wc + (size_t)nks * kCNT * 32;
+  float4* slots = reinterpret_cast<float4*>(wc + (size_t)nks * kCNT * 32);
   float* part = reinterpret_cast<float*>(slots);
   // the partner's sums for this block's cells, two rounds' buffers
   float* xpart = reinterpret_cast<float*>(slots + rs::kWarps * 2 * rs::kSlot);
@@ -411,11 +440,13 @@ gru_bwd_kernel(BwdArgs a) {
   // hf H + k; w_c^T: column n is unit u0 + n, row k gate column 2H + k
   rs::stage_w<kPairNT>(wur, nks, [&](int k, int n) {
     const int u = p16 + n;
-    return (k < H && u < H) ? a.w[(size_t)u * G3 + (size_t)hf * H + k] : 0.f;
+    return (k < H && u < H) ? rs::ld(a.w + (size_t)u * G3 + (size_t)hf * H + k)
+                            : 0.f;
   });
   rs::stage_w<kCNT>(wc, nks, [&](int k, int n) {
     const int u = u0 + n;
-    return (k < H && u < H) ? a.w[(size_t)u * G3 + 2 * (size_t)H + k] : 0.f;
+    return (k < H && u < H) ? rs::ld(a.w + (size_t)u * G3 + 2 * (size_t)H + k)
+                            : 0.f;
   });
   if (tid == 0) rs::mbar_init(xbar, 1);
   __syncthreads();
@@ -478,8 +509,8 @@ gru_bwd_kernel(BwdArgs a) {
         if (rg2 >= a.RG) rg2 = rgb, ++s2;
         if (s2 < T) cur = load_bwd(a, T - 1 - s2, rg2 * rs::kRows + r, unit);
       }
-      float* cx = a.cx + rg * tile;
-      float* urx = a.urx + rg * 2 * tile;
+      E* cx = a.cx + rg * tile;
+      E* urx = a.urx + rg * 2 * tile;
 
       // ---- round A: dh from the carry of step t + 1, then da_c ----
       const float car = s ? carry_of(rg, (unsigned)s) : 0.f;
@@ -497,11 +528,11 @@ gru_bwd_kernel(BwdArgs a) {
         }
         dh = in.dhs + (dhm + car);
         da_c = in.m * dh * (1.f - in.u) * (1.f - in.c * in.c);
-        cx[rs::frag_idx(r, unit, nks)] = da_c;
+        rs::st(cx + rs::frag_idx<E>(r, unit, nks), da_c);
       }
       __syncthreads();   // da_c in the exchange
       if (tid == 0 && has_units) rs::publish(&cflag[rg * nch + my_chunk]);
-      if (live) a.dxg[bt * G3 + 2 * (size_t)H + unit] = da_c;
+      if (live) rs::st(a.dxg + bt * G3 + 2 * (size_t)H + unit, da_c);
 
       // ---- round B: drh from da_c of every unit, then da_u, da_r ----
       if (has_units) {
@@ -528,16 +559,16 @@ gru_bwd_kernel(BwdArgs a) {
           } else {
             a.carry[bu] = dhm;
           }
-          urx[rs::frag_idx(r, unit, nks)] = da_u;
-          urx[tile + rs::frag_idx(r, unit, nks)] = da_r;
+          rs::st(urx + rs::frag_idx<E>(r, unit, nks), da_u);
+          rs::st(urx + tile + rs::frag_idx<E>(r, unit, nks), da_r);
         }
         __syncthreads();   // partials read, da_ur in the exchange
         if (tid == 0) rs::publish(&urflag[rg * nch + my_chunk]);
         // the outputs after the release, which waits for no more than
         // the exchange
         if (live) {
-          a.dxg[bt * G3 + unit] = da_u;
-          a.dxg[bt * G3 + H + unit] = da_r;
+          rs::st(a.dxg + bt * G3 + unit, da_u);
+          rs::st(a.dxg + bt * G3 + H + unit, da_r);
         }
       }
     }
@@ -564,9 +595,10 @@ gru_bwd_kernel(BwdArgs a) {
   rs::cluster_sync();   // no block leaves while its partner may address it
 }
 
+template <typename E>
 size_t bwd_smem(int H) {
-  const size_t nks = (H + 7) / 8;
-  return nks * (kPairNT + kCNT) * 512 +
+  const int nks = (H + rs::Elem<E>::kK - 1) / rs::Elem<E>::kK;
+  return rs::w_bytes<E, kPairNT + kCNT>(nks) +
          (size_t)rs::kWarps * 2 * rs::kSlot * 16 + 2 * rs::kThreads * 4 +
          sizeof(uint64_t);
 }
@@ -576,13 +608,15 @@ size_t bwd_smem(int H) {
 // runs a step, out[3] shared bytes a block. A row group takes two
 // blocks, a cluster, for each 16 units; as many row groups run at once
 // as the SMs and the card's resident clusters hold.
+template <typename E>
 cudaError_t bwd_plan(int B, int H, int sms, int* out) {
-  const size_t smem = bwd_smem(H);
+  const size_t smem = bwd_smem<E>(H);
   const int per = 2 * ((H + 2 * rs::kUnits - 1) / (2 * rs::kUnits));
   const int RG = (B + rs::kRows - 1) / rs::kRows;
   if (smem > kMaxSmem || per > sms) return cudaErrorCooperativeLaunchTooLarge;
   cudaError_t e = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(per);
@@ -596,7 +630,7 @@ cudaError_t bwd_plan(int B, int H, int sms, int* out) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  if ((e = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_kernel,
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_kernel<E>,
                                           &cfg)) != cudaSuccess)
     return e;
   const int rows = min(RG, min(sms, 2 * clusters) / per);
@@ -622,51 +656,35 @@ cudaError_t card_sms(int* sms) {
   return coop ? cudaSuccess : cudaErrorNotSupported;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The launch plan of gru_fwd (kind 0) or gru_bwd (kind 1) at (B, H) on
-// a card of `sms` SMs: out[0] cluster size, out[1] blocks, out[2] row
-// groups of 32 rows in flight, out[3] row groups a block runs a step,
-// out[4] shared bytes a block (kernels.gru_cell.launch_plan mirrors it).
-cudaError_t gru_plan(int kind, int B, int H, int sms, int* out) {
-  out[0] = kind == 0 ? 1 : 2;
-  return kind == 0 ? fwd_plan(B, H, sms, out + 1)
-                   : bwd_plan(B, H, sms, out + 1);
-}
-
-// xg [B,T,3H], w [H,3H], h0 [B,H], mask [B,T]; outputs hs [B,T,H] and
-// stash [B,T,3H]; hx and rx [RG,2,nks,32,4] and flags [2,RG,nch] are
-// zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8), nch =
-// ceil(H/128)).
-cudaError_t gru_fwd(const float* xg, const float* w, const float* h0,
-                    const float* mask, float* hs, float* stash, float* hx,
-                    float* rx, unsigned* flags, int B, int T, int H,
-                    cudaStream_t stream) {
+template <typename E>
+cudaError_t fwd(const void* xg, const void* w, const float* h0,
+                const float* mask, void* hs, void* stash, void* hx, void* rx,
+                float* hcar, unsigned* flags, int B, int T, int H,
+                cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   int sms = 0, per_sm = 0, p[4];
   cudaError_t e;
   if ((e = card_sms(&sms)) != cudaSuccess) return e;
-  if ((e = fwd_plan(B, H, sms, p)) != cudaSuccess) return e;
-  if ((e = cudaFuncSetAttribute(gru_fwd_kernel,
+  if ((e = fwd_plan<E>(B, H, sms, p)) != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(gru_fwd_kernel<E>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 p[3])) != cudaSuccess)
     return e;
   // the plan counts one block an SM: that one must fit
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gru_fwd_kernel, rs::kThreads, p[3])) != cudaSuccess)
+           &per_sm, gru_fwd_kernel<E>, rs::kThreads, p[3])) != cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  FwdArgs a;
-  a.xg = xg;
-  a.w = w;
+  FwdArgs<E> a;
+  a.xg = static_cast<const E*>(xg);
+  a.w = static_cast<const E*>(w);
   a.h0 = h0;
   a.mask = mask;
-  a.hs = hs;
-  a.stash = stash;
-  a.hx = hx;
-  a.rx = rx;
+  a.hs = static_cast<E*>(hs);
+  a.stash = static_cast<E*>(stash);
+  a.hx = static_cast<E*>(hx);
+  a.rx = static_cast<E*>(rx);
+  a.hcar = hcar;
   a.flags = flags;
   a.B = B;
   a.T = T;
@@ -675,36 +693,31 @@ cudaError_t gru_fwd(const float* xg, const float* w, const float* h0,
   a.RG = (B + rs::kRows - 1) / rs::kRows;
   a.RGB = p[1];
   a.UGp = p[0] / p[1];
-  return rs::launch(gru_fwd_kernel, a, 1, p[0], p[3], stream);
+  return rs::launch(gru_fwd_kernel<E>, a, 1, p[0], p[3], stream);
 }
 
-// stash [B,T,3H], hs [B,T,H], w [H,3H], h0 [B,H], mask [B,T], dhs
-// [B,T,H]; outputs dxg [B,T,3H] and dh0 [B,H]; carry [B,H] is scratch;
-// urx [RG,2,2,nks,32,4], cx [RG,2,nks,32,4] and flags [2,RG,nch] are
-// zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8), nch =
-// ceil(H/128)).
-cudaError_t gru_bwd(const float* stash, const float* hs, const float* w,
-                    const float* h0, const float* mask, const float* dhs,
-                    float* dxg, float* dh0, float* carry, float* urx,
-                    float* cx, unsigned* flags, int B, int T, int H,
-                    cudaStream_t stream) {
+template <typename E>
+cudaError_t bwd(const void* stash, const void* hs, const void* w,
+                const float* h0, const float* mask, const void* dhs,
+                void* dxg, float* dh0, float* carry, void* urx, void* cx,
+                unsigned* flags, int B, int T, int H, cudaStream_t stream) {
   if (B == 0 || T == 0 || H == 0) return cudaSuccess;
   int sms = 0, p[4];
   cudaError_t e;
   if ((e = card_sms(&sms)) != cudaSuccess) return e;
-  if ((e = bwd_plan(B, H, sms, p)) != cudaSuccess) return e;
-  BwdArgs a;
-  a.stash = stash;
-  a.hs = hs;
-  a.w = w;
+  if ((e = bwd_plan<E>(B, H, sms, p)) != cudaSuccess) return e;
+  BwdArgs<E> a;
+  a.stash = static_cast<const E*>(stash);
+  a.hs = static_cast<const E*>(hs);
+  a.w = static_cast<const E*>(w);
   a.h0 = h0;
   a.mask = mask;
-  a.dhs = dhs;
-  a.dxg = dxg;
+  a.dhs = static_cast<const E*>(dhs);
+  a.dxg = static_cast<E*>(dxg);
   a.dh0 = dh0;
   a.carry = carry;
-  a.urx = urx;
-  a.cx = cx;
+  a.urx = static_cast<E*>(urx);
+  a.cx = static_cast<E*>(cx);
   a.flags = flags;
   a.B = B;
   a.T = T;
@@ -713,7 +726,69 @@ cudaError_t gru_bwd(const float* stash, const float* hs, const float* w,
   a.RG = (B + rs::kRows - 1) / rs::kRows;
   a.RGB = p[1];
   a.UGp = p[0] / p[1];
-  return rs::launch(gru_bwd_kernel, a, 2, p[0], p[3], stream);
+  return rs::launch(gru_bwd_kernel<E>, a, 2, p[0], p[3], stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The launch plan of gru_fwd (kind 0) or gru_bwd (kind 1), of the float
+// (bf16 = 0) or bfloat16 (bf16 = 1) kernels, at (B, H) on a card of `sms`
+// SMs: out[0] cluster size, out[1] blocks, out[2] row groups of 32 rows
+// in flight, out[3] row groups a block runs a step, out[4] shared bytes a
+// block (kernels.gru_cell.launch_plan mirrors it).
+cudaError_t gru_plan(int kind, int bf16, int B, int H, int sms, int* out) {
+  out[0] = kind == 0 ? 1 : 2;
+  if (bf16)
+    return kind == 0 ? fwd_plan<rs::bf16>(B, H, sms, out + 1)
+                     : bwd_plan<rs::bf16>(B, H, sms, out + 1);
+  return kind == 0 ? fwd_plan<float>(B, H, sms, out + 1)
+                   : bwd_plan<float>(B, H, sms, out + 1);
+}
+
+// xg [B,T,3H], w [H,3H], h0 [B,H], mask [B,T]; outputs hs [B,T,H] and
+// stash [B,T,3H]; hcar [B,H] is scratch; hx and rx [RG,2,nks,32,16
+// bytes] and flags [2,RG,nch] are zero-filled scratch (RG = ceil(B/32),
+// nks = ceil(H/8) for float and ceil(H/16) for bfloat16, nch =
+// ceil(H/128)). xg, w, hs, stash, hx and rx are float in gru_fwd and
+// bfloat16 in gru_fwd_bf16; the rest float32 in both.
+cudaError_t gru_fwd(const void* xg, const void* w, const float* h0,
+                    const float* mask, void* hs, void* stash, void* hx,
+                    void* rx, float* hcar, unsigned* flags, int B, int T,
+                    int H, cudaStream_t stream) {
+  return fwd<float>(xg, w, h0, mask, hs, stash, hx, rx, hcar, flags, B, T,
+                    H, stream);
+}
+cudaError_t gru_fwd_bf16(const void* xg, const void* w, const float* h0,
+                         const float* mask, void* hs, void* stash, void* hx,
+                         void* rx, float* hcar, unsigned* flags, int B, int T,
+                         int H, cudaStream_t stream) {
+  return fwd<rs::bf16>(xg, w, h0, mask, hs, stash, hx, rx, hcar, flags, B,
+                       T, H, stream);
+}
+
+// stash [B,T,3H], hs [B,T,H], w [H,3H], h0 [B,H], mask [B,T], dhs
+// [B,T,H]; outputs dxg [B,T,3H] and dh0 [B,H]; carry [B,H] is scratch;
+// urx [RG,2,2,nks,32,16 bytes], cx [RG,2,nks,32,16 bytes] and flags
+// [2,RG,nch] are zero-filled scratch (RG = ceil(B/32), nks as gru_fwd's,
+// nch = ceil(H/128)). stash, hs, w, dhs, dxg, urx and cx are float in
+// gru_bwd and bfloat16 in gru_bwd_bf16; the rest float32 in both.
+cudaError_t gru_bwd(const void* stash, const void* hs, const void* w,
+                    const float* h0, const float* mask, const void* dhs,
+                    void* dxg, float* dh0, float* carry, void* urx, void* cx,
+                    unsigned* flags, int B, int T, int H,
+                    cudaStream_t stream) {
+  return bwd<float>(stash, hs, w, h0, mask, dhs, dxg, dh0, carry, urx, cx,
+                    flags, B, T, H, stream);
+}
+cudaError_t gru_bwd_bf16(const void* stash, const void* hs, const void* w,
+                         const float* h0, const float* mask, const void* dhs,
+                         void* dxg, float* dh0, float* carry, void* urx,
+                         void* cx, unsigned* flags, int B, int T, int H,
+                         cudaStream_t stream) {
+  return bwd<rs::bf16>(stash, hs, w, h0, mask, dhs, dxg, dh0, carry, urx,
+                       cx, flags, B, T, H, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,15 @@
 // blocks of H; W [H, 4H]; h0, c0 [B, H]; mask [B, T] (1 = valid step,
 // 0 = a finished row, which carries h and c through unchanged and gets
 // no gate gradient); peep [3, H] (w_ic, w_fc, w_oc; zeros for none).
-// Everything is float32 and contiguous; the cell state is float32.
+// Everything is contiguous. Two instantiations of each kernel, by the
+// element type E of xg, W, hs, the stash, dhs, dcs and dxg: float
+// (lstm_fwd, lstm_bwd) and bfloat16 (lstm_fwd_bf16, lstm_bwd_bf16, the
+// bf16 AMP path). h0, c0, mask, peep, cs, dh0, dc0 and dpeep are float32
+// in both, and so are the carried h and c, the gates and every sum: the
+// JAX kernels' dtypes. The bf16 kernels round h_{t-1} (B3) and dgates_t
+// (B4) to bf16 where the exchange carries them, as the JAX kernels round
+// the product's input (astype(w.dtype)), and the outputs as they store
+// them.
 //
 // ---------------------------------------------------------------------
 // lstm_fwd (B3) replaces paddle_tpu/kernels/lstm_cell.py `_fwd_kernel`
@@ -47,11 +55,15 @@
 //   64 KB a step at H 512 in B3, a 128 KB half in B4, where PR 5's
 //   kernels read 128 KB (B3: 64 rows) and 128 KB (B4) per block.
 // * Tensor cores. The recurrent product runs as mma.sync.m16n8k8 TF32 in
-//   3xTF32 (tf32x3.cuh). The tensor core's accumulation truncates, so
-//   every 32-deep stage goes into fresh accumulators (big*big apart from
-//   the two small cross products), whose sum is then added by an FADD
-//   (PR 5's finding for the fused 1x1 backward); the plain versions
-//   follow the same stages and order.
+//   3xTF32 (tf32x3.cuh), or in bf16 as one pass of mma.sync.m16n8k16
+//   with float32 accumulation. The tensor core's accumulation truncates,
+//   so every 32-deep stage goes into fresh accumulators (big*big apart
+//   from the two small cross products), whose sum is then added by an
+//   FADD (as the fused 1x1 backward found, conv1x1_bwd.cu); the plain
+//   versions follow the same stages and order. In bf16 at the path's
+//   shape the recurrence's 10.7 GFLOP take 10.9 us at 989 TFLOP/s and
+//   the bytes (~70 MB) ~21 us: the chain of steps bounds it all the
+//   more.
 // * The exchange in fragment order. A producer writes h_t (B3) or
 //   dgates_t (B4) straight into the A-fragment order of the product
 //   (frag_idx), so each lane of a consuming warp fetches its own
@@ -74,7 +86,7 @@
 //   published it, while later chunks are still being written.
 // * Carries in registers: B3's c and h, B4's dh and dc of each owned
 //   (row, unit) stay in registers for the first two row groups a block
-//   runs (in device memory past them: B > 128 at H 512).
+//   runs (in float32 device memory past them: B > 128 at H 512).
 //
 // lstm_bwd's one barrier a step. Its blocks own the same (row, unit)
 // pairs in both phases. Phase A: each thread forms the gate gradients of
@@ -119,17 +131,19 @@ constexpr int kBwdNT = 2;                // bwd: n8 tiles (units of a pair)
 // lstm_fwd (B3)
 // =====================================================================
 
+template <typename E>
 struct FwdArgs {
-  const float* xg;
-  const float* w;
+  const E* xg;
+  const E* w;
   const float* peep;
   const float* h0;
   const float* c0;
   const float* mask;
-  float* hs;
+  E* hs;
   float* cs;
-  float* stash;
-  float* hx;         // [2][RG][2][nks][32][4], zero-filled
+  E* stash;
+  E* hx;             // [2][RG][2][nks][32][16 bytes], zero-filled
+  float* hcar;       // [B][H]: h carries past kRegTiles
   unsigned* flags;   // [RG][nch], zero-filled
   int B, T, H, nch, RG, RGB, UGp;
 };
@@ -138,29 +152,34 @@ struct FwdArgs {
 struct CellIn {
   float x[4], m;
 };
-__device__ __forceinline__ CellIn load_cell(const FwdArgs& a, int t, int b,
-                                            int unit) {
+template <typename E>
+__device__ __forceinline__ CellIn load_cell(const FwdArgs<E>& a, int t,
+                                            int b, int unit) {
   CellIn v = {};
   if (b < a.B && unit < a.H) {
     const size_t bt = (size_t)b * a.T + t;
-    const float* x = a.xg + bt * 4 * a.H;
+    const E* x = a.xg + bt * 4 * a.H;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) v.x[q] = x[(size_t)q * a.H + unit];
+    for (int q = 0; q < 4; ++q) v.x[q] = ld(x + (size_t)q * a.H + unit);
     v.m = a.mask[bt];
   }
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_fwd_kernel(FwdArgs<E> a) {
+  using WF = typename Elem<E>::WFrag;
   extern __shared__ float4 smem4[];
-  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
-  const int nks = (H + 7) / 8;
+  const int H = a.H, B = a.B, T_ = a.T, nch = a.nch;
+  const int nks = (H + Elem<E>::kK - 1) / Elem<E>::kK;
   const size_t G4 = 4 * (size_t)H;
-  const size_t tile = (size_t)2 * nks * 128;   // floats of a row group
-  float4* wf = smem4;                           // W fragments
+  // elements of a row group's tile
+  const size_t tile = (size_t)2 * nks * kFragElems<E>;
+  WF* wf = reinterpret_cast<WF*>(smem4);        // W fragments
   // per warp: its two chunk slots, which then take its [32 x 32]
   // partial sums
-  float4* slots = wf + (size_t)nks * kFwdNT * 32;
+  float4* slots = reinterpret_cast<float4*>(wf + (size_t)nks * kFwdNT * 32);
   float* part = reinterpret_cast<float*>(slots);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -173,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   stage_w<kFwdNT>(wf, nks, [&](int k, int n) {
     const int u = u0 + n % kUnits;
     return (k < H && u < H)
-               ? a.w[(size_t)k * G4 + (size_t)(n / kUnits) * H + u]
+               ? ld(a.w + (size_t)k * G4 + (size_t)(n / kUnits) * H + u)
                : 0.f;
   });
   const int r = tid / kUnits, uu = tid % kUnits;   // the cell: row, unit
@@ -183,7 +202,8 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   for (int rg = rgb; rg < a.RG; rg += a.RGB) {
     const int b = rg * kRows + r;
     if (unit_ok && b < B)
-      a.hx[rg * tile + frag_idx(r, unit, nks)] = a.h0[(size_t)b * H + unit];
+      st(a.hx + rg * tile + frag_idx<E>(r, unit, nks),
+         a.h0[(size_t)b * H + unit]);
   }
   __syncthreads();
   if (tid == 0 && my_chunk >= 0)
@@ -197,31 +217,32 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
   const int grp = warp / 4, kw = warp % 4;   // chunk parity, slice
   CellIn cur = load_cell(a, 0, rgb * kRows + r, unit);
 
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < T_; ++t) {
     int rl = 0;
     for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl) {
       const int b = rg * kRows + r;
       const bool live = unit_ok && b < B;
-      const size_t bt = (size_t)(live ? b : 0) * T + t;
+      const size_t bt = (size_t)(live ? b : 0) * T_ + t;
+      const size_t bu = (size_t)(live ? b : 0) * H + unit;
       const CellIn in = cur;
       {
         // the next round's cell inputs, loaded while this round runs
         int rg2 = rg + a.RGB, t2 = t;
         if (rg2 >= a.RG) rg2 = rgb, ++t2;
-        if (t2 < T) cur = load_cell(a, t2, rg2 * kRows + r, unit);
+        if (t2 < T_) cur = load_cell(a, t2, rg2 * kRows + r, unit);
       }
       float c_prev = 0.f, h_prev = 0.f;
       if (live) {
         if (t == 0) {
-          c_prev = a.c0[(size_t)b * H + unit];
-          h_prev = a.h0[(size_t)b * H + unit];
+          c_prev = a.c0[bu];
+          h_prev = a.h0[bu];
         } else if (rl < kRegTiles) {
 #pragma unroll
           for (int i = 0; i < kRegTiles; ++i)
             if (rl == i) c_prev = creg[i], h_prev = hreg[i];
         } else {
           c_prev = a.cs[(bt - 1) * H + unit];
-          h_prev = a.hs[(bt - 1) * H + unit];
+          h_prev = a.hcar[bu];
         }
       }
 
@@ -258,24 +279,29 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
         h_t = act[3] * tanhf(c_t);
         h_t = m * h_t + (1.f - m) * h_prev;
         c_t = m * c_t + (1.f - m) * c_prev;
-        if (t + 1 < T)
-          a.hx[((size_t)((t + 1) & 1) * a.RG + rg) * tile +
-               frag_idx(r, unit, nks)] = h_t;
+        if (t + 1 < T_)
+          st(a.hx + ((size_t)((t + 1) & 1) * a.RG + rg) * tile +
+                 frag_idx<E>(r, unit, nks),
+             h_t);
       }
       __syncthreads();   // partials read, h_t in the exchange
-      if (tid == 0 && my_chunk >= 0 && t + 1 < T)
+      if (tid == 0 && my_chunk >= 0 && t + 1 < T_)
         publish(&a.flags[rg * nch + my_chunk]);
       // the outputs after the release, which waits for no more than the
       // exchange
       if (live) {
-        a.hs[bt * H + unit] = h_t;
+        st(a.hs + bt * H + unit, h_t);
         a.cs[bt * H + unit] = c_t;
-        float* st = a.stash + bt * G4;
+        E* sp = a.stash + bt * G4;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) st[(size_t)q * H + unit] = act[q];
+        for (int q = 0; q < 4; ++q) st(sp + (size_t)q * H + unit, act[q]);
+        if (rl < kRegTiles) {
 #pragma unroll
-        for (int i = 0; i < kRegTiles; ++i)
-          if (rl == i) creg[i] = c_t, hreg[i] = h_t;
+          for (int i = 0; i < kRegTiles; ++i)
+            if (rl == i) creg[i] = c_t, hreg[i] = h_t;
+        } else {
+          a.hcar[bu] = h_t;
+        }
       }
     }
   }
@@ -285,21 +311,22 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(FwdArgs a) {
 // lstm_bwd (B4)
 // =====================================================================
 
+template <typename E>
 struct BwdArgs {
-  const float* stash;
+  const E* stash;
   const float* cs;
-  const float* w;
+  const E* w;
   const float* peep;
   const float* c0;
   const float* mask;
-  const float* dhs;
-  const float* dcs;
-  float* dxg;
+  const E* dhs;
+  const E* dcs;
+  E* dxg;
   float* dh0;
   float* dc0;
   float* dpart;        // [RGB][3][H]
   float* carry;        // [2][B][H]: dh, dc carries past kRegTiles
-  float* dgx;          // [2][RG][2 halves][2][nks][32][4], zero-filled
+  E* dgx;              // [2][RG][2 halves][2][nks][32][16 bytes], zeroed
   unsigned* counters;  // [RG], zero-filled
   int B, T, H, nch, RG, RGB, UGp;
 };
@@ -309,34 +336,40 @@ struct BwdArgs {
 struct AIn {
   float m, i, g, f, o, c, cp, dh, dc;
 };
-__device__ __forceinline__ AIn load_a(const BwdArgs& a, int t, int b,
+template <typename E>
+__device__ __forceinline__ AIn load_a(const BwdArgs<E>& a, int t, int b,
                                       int unit) {
   AIn v = {};
   if (b < a.B && unit < a.H) {
     const int H = a.H;
     const size_t bt = (size_t)b * a.T + t;
-    const float* st = a.stash + bt * 4 * H;
+    const E* sp = a.stash + bt * 4 * H;
     v.m = a.mask[bt];
-    v.i = st[unit];
-    v.g = st[H + unit];
-    v.f = st[2 * H + unit];
-    v.o = st[3 * H + unit];
+    v.i = ld(sp + unit);
+    v.g = ld(sp + H + unit);
+    v.f = ld(sp + 2 * H + unit);
+    v.o = ld(sp + 3 * H + unit);
     v.c = a.cs[bt * H + unit];
     v.cp = t ? a.cs[(bt - 1) * H + unit] : a.c0[(size_t)b * H + unit];
-    v.dh = a.dhs[bt * H + unit];
-    v.dc = a.dcs[bt * H + unit];
+    v.dh = ld(a.dhs + bt * H + unit);
+    v.dc = ld(a.dcs + bt * H + unit);
   }
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bwd_kernel(BwdArgs<E> a) {
+  using WF = typename Elem<E>::WFrag;
   extern __shared__ float4 smem4[];
-  const int H = a.H, B = a.B, T = a.T, nch = a.nch;
+  const int H = a.H, B = a.B, T_ = a.T, nch = a.nch;
   const int G4 = 4 * H, H2 = 2 * H;
-  const int nks = (H2 + 7) / 8;
-  const size_t half = (size_t)2 * nks * 128;   // floats of a half tile
-  float4* wf = smem4;                           // W^T fragments
-  float4* slots = wf + (size_t)nks * kBwdNT * 32;   // and the partials
+  const int nks = (H2 + Elem<E>::kK - 1) / Elem<E>::kK;
+  // elements of a half tile
+  const size_t half = (size_t)2 * nks * kFragElems<E>;
+  WF* wf = reinterpret_cast<WF*>(smem4);        // W^T fragments
+  // and the partials
+  float4* slots = reinterpret_cast<float4*>(wf + (size_t)nks * kBwdNT * 32);
   float* part = reinterpret_cast<float*>(slots);
   float* xpart = reinterpret_cast<float*>(slots + kWarps * 2 * kSlot);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(xpart + 2 * kThreads);
@@ -352,14 +385,14 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
   auto xidx = [&](int par, int rg, int col, int r) {
     const int hh = col / H2;
     return (((size_t)par * a.RG + rg) * 2 + hh) * half +
-           frag_idx(r, col - hh * H2, nks);
+           frag_idx<E>(r, col - hh * H2, nks);
   };
 
   // W[16 p .. 16 p + 16, 2H hf .. 2H hf + 2H]^T: n8 tile nt holds units
   // 16 p + 8 nt ..
   stage_w<kBwdNT>(wf, nks, [&](int k, int n) {
     const int u = 16 * pair + n;
-    return (u < H && k < H2) ? a.w[(size_t)u * G4 + (size_t)hf * H2 + k]
+    return (u < H && k < H2) ? ld(a.w + (size_t)u * G4 + (size_t)hf * H2 + k)
                              : 0.f;
   });
   if (tid == 0) mbar_init(xbar, 1);
@@ -378,23 +411,23 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
   float* dhc = a.carry;
   float* dcc = a.carry + (size_t)B * H;
 
-  AIn cur = load_a(a, T - 1, rgb * kRows + r, unit);
+  AIn cur = load_a(a, T_ - 1, rgb * kRows + r, unit);
   int n = 0;   // rounds
-  for (int s = 0; s < T; ++s) {
-    const int t = T - 1 - s;
+  for (int s = 0; s < T_; ++s) {
+    const int t = T_ - 1 - s;
     int rl = 0;
     for (int rg = rgb; rg < a.RG; rg += a.RGB, ++rl, ++n) {
       // ---- phase A: the gate gradients of this thread's pair ----
       const int b = rg * kRows + r;
       const bool live = unit_ok && b < B;
-      const size_t bt = (size_t)(live ? b : 0) * T + t;
+      const size_t bt = (size_t)(live ? b : 0) * T_ + t;
       const size_t bu = (size_t)(live ? b : 0) * H + unit;
       const AIn in = cur;
       {
         // the next round's inputs, loaded while this round runs
         int rg2 = rg + a.RGB, s2 = s;
         if (rg2 >= a.RG) rg2 = rgb, ++s2;
-        if (s2 < T) cur = load_a(a, T - 1 - s2, rg2 * kRows + r, unit);
+        if (s2 < T_) cur = load_a(a, T_ - 1 - s2, rg2 * kRows + r, unit);
       }
       float m = 0.f, dh = 0.f, dg[4] = {0.f, 0.f, 0.f, 0.f};
       if (live) {
@@ -439,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
         dg[3] = dgo;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          a.dgx[xidx(s & 1, rg, q * H + unit, r)] = dg[q];
+          st(a.dgx + xidx(s & 1, rg, q * H + unit, r), dg[q]);
         dp0 += dgi * in.cp;
         dp1 += dgf * in.cp;
         dp2 += dgo * in.c;
@@ -449,9 +482,9 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
       if (live) {
         // dxg after the release, which waits for no more than the
         // exchange
-        float* out = a.dxg + bt * G4;
+        E* out = a.dxg + bt * G4;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) out[(size_t)q * H + unit] = dg[q];
+        for (int q = 0; q < 4; ++q) st(out + (size_t)q * H + unit, dg[q]);
       }
 
       // ---- phase B: this half of K for the pair's 16 units, once every
@@ -512,14 +545,16 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(BwdArgs a) {
   cluster_sync();   // no block leaves while its partner may address it
 }
 
+template <typename E>
 size_t fwd_smem(int H) {
-  const size_t nks = (H + 7) / 8;
-  return nks * kFwdNT * 512 + (size_t)kWarps * 2 * kSlot * 16;
+  const int nks = (H + Elem<E>::kK - 1) / Elem<E>::kK;
+  return w_bytes<E, kFwdNT>(nks) + (size_t)kWarps * 2 * kSlot * 16;
 }
 
+template <typename E>
 size_t bwd_smem(int H) {
-  const size_t nks = (2 * H + 7) / 8;
-  return nks * kBwdNT * 512 + (size_t)kWarps * 2 * kSlot * 16 +
+  const int nks = (2 * H + Elem<E>::kK - 1) / Elem<E>::kK;
+  return w_bytes<E, kBwdNT>(nks) + (size_t)kWarps * 2 * kSlot * 16 +
          2 * kThreads * 4 + sizeof(uint64_t);
 }
 
@@ -527,10 +562,11 @@ size_t bwd_smem(int H) {
 // in flight at once, out[3] row groups a block runs a step. A row group
 // takes ceil(H/8) blocks (B3) or two blocks, a cluster, for each 16
 // units (B4); as many row groups as can be resident run at once.
+template <typename E>
 cudaError_t plan(int kind, int B, int H, int* out, size_t* smem_out) {
-  const void* kernel = kind == 0 ? (const void*)lstm_fwd_kernel
-                                 : (const void*)lstm_bwd_kernel;
-  const size_t smem = kind == 0 ? fwd_smem(H) : bwd_smem(H);
+  const void* kernel = kind == 0 ? (const void*)lstm_fwd_kernel<E>
+                                 : (const void*)lstm_bwd_kernel<E>;
+  const size_t smem = kind == 0 ? fwd_smem<E>(H) : bwd_smem<E>(H);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -568,94 +604,139 @@ cudaError_t plan(int kind, int B, int H, int* out, size_t* smem_out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-// The launch plan of lstm_fwd (kind 0) or lstm_bwd (kind 1) at (B, H) on
-// the current device: out[0] cluster size, out[1] blocks, out[2] row
-// groups of 32 rows in flight, out[3] row groups a block runs a step.
-cudaError_t lstm_plan(int kind, int B, int H, int* out) {
-  size_t smem;
-  return plan(kind, B, H, out, &smem);
-}
-
-// xg [B,T,4H], w [H,4H], peep [3,H], h0/c0 [B,H], mask [B,T]; outputs
-// hs/cs [B,T,H] and stash [B,T,4H]; hx [2,RG,2,nks,32,4] and flags
-// [RG,nch] are zero-filled scratch (RG = ceil(B/32), nks = ceil(H/8),
-// nch = ceil(H/128)).
-cudaError_t lstm_fwd(const float* xg, const float* w, const float* peep,
-                     const float* h0, const float* c0, const float* mask,
-                     float* hs, float* cs, float* stash, float* hx,
-                     unsigned* flags, int B, int T, int H,
-                     cudaStream_t stream) {
-  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+template <typename E>
+cudaError_t fwd(const void* xg, const void* w, const float* peep,
+                const float* h0, const float* c0, const float* mask,
+                void* hs, float* cs, void* stash, void* hx, float* hcar,
+                unsigned* flags, int B, int T_, int H, cudaStream_t stream) {
+  if (B == 0 || T_ == 0 || H == 0) return cudaSuccess;
   int p[4];
   size_t smem;
-  cudaError_t e = plan(0, B, H, p, &smem);
+  cudaError_t e = plan<E>(0, B, H, p, &smem);
   if (e != cudaSuccess) return e;
-  FwdArgs a;
-  a.xg = xg;
-  a.w = w;
+  FwdArgs<E> a;
+  a.xg = static_cast<const E*>(xg);
+  a.w = static_cast<const E*>(w);
   a.peep = peep;
   a.h0 = h0;
   a.c0 = c0;
   a.mask = mask;
-  a.hs = hs;
+  a.hs = static_cast<E*>(hs);
   a.cs = cs;
-  a.stash = stash;
-  a.hx = hx;
+  a.stash = static_cast<E*>(stash);
+  a.hx = static_cast<E*>(hx);
+  a.hcar = hcar;
   a.flags = flags;
   a.B = B;
-  a.T = T;
+  a.T = T_;
   a.H = H;
   a.nch = (H + kKC - 1) / kKC;
   a.RG = (B + kRows - 1) / kRows;
   a.RGB = p[2];
   a.UGp = p[1] / p[2];
-  return launch(lstm_fwd_kernel, a, p[0], p[1], smem, stream);
+  return launch(lstm_fwd_kernel<E>, a, p[0], p[1], smem, stream);
 }
 
-// stash [B,T,4H], cs [B,T,H], w [H,4H], peep [3,H], c0 [B,H], mask
-// [B,T], dhs/dcs [B,T,H]; outputs dxg [B,T,4H], dh0/dc0 [B,H] and dpart
-// [RG,3,H] (zero-filled; dpeep = its sum over the first axis); carry
-// [2,B,H] is scratch; dgx [2,RG,2,2,nks,32,4] and counters [RG] are
-// zero-filled scratch (RG = ceil(B/32), nks = ceil(2H/8)).
-cudaError_t lstm_bwd(const float* stash, const float* cs, const float* w,
-                     const float* peep, const float* c0, const float* mask,
-                     const float* dhs, const float* dcs, float* dxg,
-                     float* dh0, float* dc0, float* dpart, float* carry,
-                     float* dgx, unsigned* counters, int B, int T, int H,
-                     cudaStream_t stream) {
-  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+template <typename E>
+cudaError_t bwd(const void* stash, const float* cs, const void* w,
+                const float* peep, const float* c0, const float* mask,
+                const void* dhs, const void* dcs, void* dxg, float* dh0,
+                float* dc0, float* dpart, float* carry, void* dgx,
+                unsigned* counters, int B, int T_, int H,
+                cudaStream_t stream) {
+  if (B == 0 || T_ == 0 || H == 0) return cudaSuccess;
   int p[4];
   size_t smem;
-  cudaError_t e = plan(1, B, H, p, &smem);
+  cudaError_t e = plan<E>(1, B, H, p, &smem);
   if (e != cudaSuccess) return e;
-  BwdArgs a;
-  a.stash = stash;
+  BwdArgs<E> a;
+  a.stash = static_cast<const E*>(stash);
   a.cs = cs;
-  a.w = w;
+  a.w = static_cast<const E*>(w);
   a.peep = peep;
   a.c0 = c0;
   a.mask = mask;
-  a.dhs = dhs;
-  a.dcs = dcs;
-  a.dxg = dxg;
+  a.dhs = static_cast<const E*>(dhs);
+  a.dcs = static_cast<const E*>(dcs);
+  a.dxg = static_cast<E*>(dxg);
   a.dh0 = dh0;
   a.dc0 = dc0;
   a.dpart = dpart;
   a.carry = carry;
-  a.dgx = dgx;
+  a.dgx = static_cast<E*>(dgx);
   a.counters = counters;
   a.B = B;
-  a.T = T;
+  a.T = T_;
   a.H = H;
   a.nch = (2 * H + kKC - 1) / kKC;
   a.RG = (B + kRows - 1) / kRows;
   a.RGB = p[2];
   a.UGp = p[1] / p[2];
-  return launch(lstm_bwd_kernel, a, p[0], p[1], smem, stream);
+  return launch(lstm_bwd_kernel<E>, a, p[0], p[1], smem, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The launch plan of lstm_fwd (kind 0) or lstm_bwd (kind 1), of the
+// float (bf16 = 0) or bfloat16 (bf16 = 1) kernels, at (B, H) on the
+// current device: out[0] cluster size, out[1] blocks, out[2] row groups
+// of 32 rows in flight, out[3] row groups a block runs a step.
+cudaError_t lstm_plan(int kind, int bf16, int B, int H, int* out) {
+  size_t smem;
+  return bf16 ? plan<rnn_step::bf16>(kind, B, H, out, &smem)
+              : plan<float>(kind, B, H, out, &smem);
+}
+
+// xg [B,T,4H], w [H,4H], peep [3,H], h0/c0 [B,H], mask [B,T]; outputs
+// hs/cs [B,T,H] and stash [B,T,4H]; hcar [B,H] is scratch; hx
+// [2,RG,2,nks,32,16 bytes] and flags [RG,nch] are zero-filled scratch
+// (RG = ceil(B/32), nks = ceil(H/8) for float and ceil(H/16) for
+// bfloat16, nch = ceil(H/128)). xg, w, hs, stash and hx are float in
+// lstm_fwd and bfloat16 in lstm_fwd_bf16; the rest float32 in both.
+cudaError_t lstm_fwd(const void* xg, const void* w, const float* peep,
+                     const float* h0, const float* c0, const float* mask,
+                     void* hs, float* cs, void* stash, void* hx, float* hcar,
+                     unsigned* flags, int B, int T, int H,
+                     cudaStream_t stream) {
+  return fwd<float>(xg, w, peep, h0, c0, mask, hs, cs, stash, hx, hcar,
+                    flags, B, T, H, stream);
+}
+cudaError_t lstm_fwd_bf16(const void* xg, const void* w, const float* peep,
+                          const float* h0, const float* c0,
+                          const float* mask, void* hs, float* cs, void* stash,
+                          void* hx, float* hcar, unsigned* flags, int B,
+                          int T, int H, cudaStream_t stream) {
+  return fwd<rnn_step::bf16>(xg, w, peep, h0, c0, mask, hs, cs, stash, hx,
+                             hcar, flags, B, T, H, stream);
+}
+
+// stash [B,T,4H], cs [B,T,H], w [H,4H], peep [3,H], c0 [B,H], mask
+// [B,T], dhs/dcs [B,T,H]; outputs dxg [B,T,4H], dh0/dc0 [B,H] and dpart
+// [RG,3,H] (zero-filled; dpeep = its sum over the first axis); carry
+// [2,B,H] is scratch; dgx [2,RG,2,2,nks,32,16 bytes] and counters [RG]
+// are zero-filled scratch (RG = ceil(B/32), nks = ceil(2H/8) for float
+// and ceil(2H/16) for bfloat16). stash, w, dhs, dcs, dxg and dgx are
+// float in lstm_bwd and bfloat16 in lstm_bwd_bf16; the rest float32.
+cudaError_t lstm_bwd(const void* stash, const float* cs, const void* w,
+                     const float* peep, const float* c0, const float* mask,
+                     const void* dhs, const void* dcs, void* dxg, float* dh0,
+                     float* dc0, float* dpart, float* carry, void* dgx,
+                     unsigned* counters, int B, int T, int H,
+                     cudaStream_t stream) {
+  return bwd<float>(stash, cs, w, peep, c0, mask, dhs, dcs, dxg, dh0, dc0,
+                    dpart, carry, dgx, counters, B, T, H, stream);
+}
+cudaError_t lstm_bwd_bf16(const void* stash, const float* cs, const void* w,
+                          const float* peep, const float* c0,
+                          const float* mask, const void* dhs, const void* dcs,
+                          void* dxg, float* dh0, float* dc0, float* dpart,
+                          float* carry, void* dgx, unsigned* counters, int B,
+                          int T, int H, cudaStream_t stream) {
+  return bwd<rnn_step::bf16>(stash, cs, w, peep, c0, mask, dhs, dcs, dxg,
+                             dh0, dc0, dpart, carry, dgx, counters, B, T, H,
+                             stream);
 }
 
 }  // extern "C"

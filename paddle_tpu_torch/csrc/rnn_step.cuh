@@ -1,18 +1,36 @@
 // The pieces of a persistent recurrent kernel that the LSTM kernels
 // (lstm_cell.cu, B3 and B4) and the GRU kernels (gru_cell.cu, B5 and
 // B6) share: the blocking (32 batch rows x 8 units a block, 8 warps),
-// the exchange tile in mma A-fragment order, W split once into 3xTF32
+// the exchange tile in mma A-fragment order, W staged once as mma
 // fragments in shared memory, one warp's share of a row group's product
 // fed by cp.async through a ring of two chunk slots, the warps' partial
 // sums, the release/acquire step counters with a wait that traps instead
 // of hanging, the pair of blocks of a cluster of two (B4, B6: the
 // partner's sums stored in its shared memory, an mbarrier arrival) and
 // the cooperative launch in clusters.
+//
+// Each kernel is a template over its element type T, the dtype of its
+// inputs, outputs and exchange (the cell state and every sum stay
+// float32):
+// * float: the product in 3xTF32 on mma.sync.m16n8k8 (W split once into
+//   big and small TF32 parts, a float4 of fragments an n8 tile, k8 step
+//   and lane);
+// * bfloat16: the product in one pass on mma.sync.m16n8k16 with float32
+//   accumulation (a bf16 value is exact, so there is nothing to split;
+//   8 bytes of W fragments an n8 tile, k16 step and lane); the exchange
+//   carries bf16 values, rounded by the producer, in m16n8k16's
+//   A-fragment order: a lane's fragment of a k16 step is still 16 bytes,
+//   so the one-cp.async-a-lane scheme holds and a step moves half the
+//   bytes.
+// Both sum each 32-deep stage (four k8 or two k16 steps) into fresh
+// accumulators and add the stage sums in the same order, so one plain
+// version (kernels/lstm_cell.py `_product`) serves both.
 // Sources include it by its relative name; kernels/_build.py hashes it
 // with every source, so an edit here rebuilds them all.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,6 +52,7 @@ constexpr int kUnits = 8;                // units whose cells a block runs
 constexpr int kKC = 128;                 // K of an exchange chunk
 constexpr int kSliceSteps = 4;           // k8 steps of a warp's 32-deep
                                          // slice of a chunk: one stage
+                                         // (a slot's room)
 constexpr int kRegTiles = 2;             // row groups whose carries stay
                                          // in registers
 // one chunk slot of a warp: kSliceSteps k8 steps of both m16 tiles, a
@@ -51,6 +70,60 @@ __host__ __device__ constexpr int part_ld() {
 static_assert(kThreads == kRows * kUnits, "one thread per (row, unit)");
 static_assert(kWarps == 2 * (kKC / 32), "warp = chunk parity x slice");
 static_assert(kPart >= 32 * part_ld<4>(), "partials fit the slots");
+
+// ---- the element type ----
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+// rounded to nearest even, as the JAX kernels' astype rounds
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int kK = 8;     // depth of one mma step (m16n8k8)
+  using WFrag = float4;            // an n8 tile's fragments, k step, lane
+};
+template <>
+struct Elem<bf16> {
+  static constexpr int kK = 16;    // m16n8k16
+  using WFrag = uint2;
+};
+// k steps of a 32-deep stage, of a chunk; elements of a lane's 16 bytes
+template <typename T>
+constexpr int kStageSteps = 32 / Elem<T>::kK;
+template <typename T>
+constexpr int kChunkSteps = kKC / Elem<T>::kK;
+template <typename T>
+constexpr int kFragElems = 32 * 16 / (int)sizeof(T);   // a k step's tile
+// shared bytes of W fragments: nks k steps of NT n8 tiles
+template <typename T, int NT>
+__host__ __device__ constexpr size_t w_bytes(int nks) {
+  return (size_t)nks * NT * 32 * sizeof(typename Elem<T>::WFrag);
+}
+
+// two floats rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+// c += a b, one m16n8k16 bf16 product with float32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // ---- waits that cannot hang, release/acquire counters ----
 
@@ -170,14 +243,27 @@ __device__ __forceinline__ void cp_wait_upto(int n) {
 // ---- the exchange tile and the product ----
 
 // Where (row r of a row group, k) lies in the row group's exchange tile
-// of nks k8 steps: in A-fragment order (PTX ISA, m16n8k8 .tf32: g =
-// lane / 4, t = lane % 4; A rows g, g + 8 and columns t, t + 4), so that
-// lane l of the warp that multiplies m16 tile r / 16 at k8 step k / 8
-// finds its four fragment values in one 16-byte word.
-__device__ __forceinline__ size_t frag_idx(int r, int k, int nks) {
+// of nks k steps, in A-fragment order (PTX ISA; g = lane / 4, t = lane %
+// 4), so that lane l of the warp that multiplies m16 tile r / 16 at k
+// step k / kK finds its fragment values in one 16-byte word:
+// * m16n8k8 .tf32: A rows g, g + 8 and columns t, t + 4, four floats;
+// * m16n8k16 .bf16: rows g, g + 8 and columns 2t, 2t + 1, 2t + 8,
+//   2t + 9, eight bf16 in register order (a0 a1 | a2 a3 | a4 a5 | a6 a7
+//   = (g, 2t..) (g + 8, 2t..) (g, 2t + 8..) (g + 8, 2t + 8..)).
+template <typename T>
+__device__ __forceinline__ size_t frag_idx(int r, int k, int nks);
+template <>
+__device__ __forceinline__ size_t frag_idx<float>(int r, int k, int nks) {
   const int row = r % 16, kk = k % 8;
   const int lane = (row % 8) * 4 + kk % 4, e = row / 8 + 2 * (kk / 4);
   return ((size_t)(r / 16) * nks + k / 8) * 128 + lane * 4 + e;
+}
+template <>
+__device__ __forceinline__ size_t frag_idx<bf16>(int r, int k, int nks) {
+  const int row = r % 16, kk = k % 16;
+  const int lane = (row % 8) * 4 + (kk % 8) / 2;
+  const int e = kk % 2 + 2 * (row / 8) + 4 * (kk / 8);
+  return ((size_t)(r / 16) * nks + k / 16) * 256 + lane * 8 + e;
 }
 
 // W's fragments for NT n8 tiles over nks k8 steps, split: per k8 step
@@ -220,10 +306,26 @@ __device__ __forceinline__ void stage_w(float4* wf, int nks, F wval) {
   }
 }
 
-// k8 steps of slice kw of chunk c, of a K of `K` rows (0 past the end)
+// The same for bf16 W: per k16 step, n8 tile nt and lane (g, t), one
+// uint2 of b0 b1 = wval(16 ks + 2t + {0, 1}, 8 nt + g) and b2 b3 =
+// wval(16 ks + 2t + 8 + {0, 1}, 8 nt + g), at (ks NT + nt) 32 + lane.
+// wval's values are bf16 already: the packing rounds nothing.
+template <int NT, typename F>
+__device__ __forceinline__ void stage_w(uint2* wf, int nks, F wval) {
+  for (int idx = threadIdx.x; idx < nks * NT * 32; idx += blockDim.x) {
+    const int l = idx % 32, nt = idx / 32 % NT, ks = idx / 32 / NT;
+    const int k = 16 * ks + 2 * (l % 4), n = 8 * nt + l / 4;
+    wf[idx] = make_uint2(pack_bf16(wval(k, n), wval(k + 1, n)),
+                         pack_bf16(wval(k + 8, n), wval(k + 9, n)));
+  }
+}
+
+// k steps of slice kw of chunk c, of a K of `K` rows (0 past the end)
+template <typename T>
 __device__ __forceinline__ int slice_steps(int c, int kw, int K) {
+  constexpr int kK = Elem<T>::kK;
   const int left = K - (c * kKC + kw * 32);
-  return left <= 0 ? 0 : min(kSliceSteps, (left + 7) / 8);
+  return left <= 0 ? 0 : min(kStageSteps<T>, (left + kK - 1) / kK);
 }
 
 // One stage: `steps` k8 steps of both m16 tiles (fragments in a slot:
@@ -291,28 +393,69 @@ __device__ __forceinline__ void stage_mma(const float4* af, const float4* wk,
       for (int e = 0; e < 4; ++e) acc[m][nt][e] += bbp[m][nt][e] + crs[m][nt][e];
 }
 
+// The same stage in bf16: `steps` k16 steps of both m16 tiles (a uint4
+// of A fragments a lane: af[(m * 2 + j) * 32 + lane]) against NT n8
+// tiles (wk[(j * NT + nt) * 32 + lane]), one pass, into fresh
+// accumulators whose sum is then added to acc.
+template <int NT>
+__device__ __forceinline__ void stage_mma(const float4* af, const uint2* wk,
+                                          int steps, int lane,
+                                          float (&acc)[2][NT][4]) {
+  float sp[2][NT][4] = {};
+  const uint4* a4 = reinterpret_cast<const uint4*>(af);
+#pragma unroll
+  for (int j = 0; j < kStageSteps<bf16>; ++j) {
+    if (j < steps) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint4 v = a4[(m * kStageSteps<bf16> + j) * 32 + lane];
+        a[m][0] = v.x;
+        a[m][1] = v.y;
+        a[m][2] = v.z;
+        a[m][3] = v.w;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint2 v = wk[(j * NT + nt) * 32 + lane];
+        const unsigned b[2] = {v.x, v.y};
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_bf16(sp[m][nt], a[m], b);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] += sp[m][nt][e];
+}
+
 // One warp's share of a row group's product: chunks grp, grp + 2, ... of
 // the nch chunks of K (`K` rows), slice kw of each, both m16 tiles.
-// `src` is the exchange tile (frag_idx order, nks k8 steps a m16 tile),
+// `src` is the exchange tile (frag_idx order, nks k steps a m16 tile),
 // `ready(c)` waits until chunk c is published, `slots` is the warp's
 // ring of two chunk slots. The copies of a chunk fly while the warp
 // multiplies the one before. Each lane copies and reads only its own
 // fragments.
-template <int NT, typename Ready>
-__device__ __forceinline__ void warp_product(const float* src, int nks,
-                                             int K, int nch, int grp, int kw,
-                                             const float4* wf, float4* slots,
+template <int NT, typename T, typename WF, typename Ready>
+__device__ __forceinline__ void warp_product(const T* src, int nks, int K,
+                                             int nch, int grp, int kw,
+                                             const WF* wf, float4* slots,
                                              int lane, Ready ready,
                                              float (&acc)[2][NT][4]) {
+  constexpr int SS = kStageSteps<T>, CS = kChunkSteps<T>;
+  const float4* src4 = reinterpret_cast<const float4*>(src);
   auto issue = [&](int c, float4* slot) {
     ready(c);
-    const int steps = slice_steps(c, kw, K);
-    const int ks0 = c * (kKC / 8) + kw * kSliceSteps;
+    const int steps = slice_steps<T>(c, kw, K);
+    const int ks0 = c * CS + kw * SS;
 #pragma unroll
     for (int m = 0; m < 2; ++m)
       for (int j = 0; j < steps; ++j)
-        cp16(slot + (m * kSliceSteps + j) * 32 + lane,
-             src + ((size_t)m * nks + ks0 + j) * 128 + lane * 4, true);
+        cp16(slot + (m * SS + j) * 32 + lane,
+             src4 + ((size_t)m * nks + ks0 + j) * 32 + lane, true);
     cp_commit();
   };
   if (grp < nch) issue(grp, slots);
@@ -320,11 +463,10 @@ __device__ __forceinline__ void warp_product(const float* src, int nks,
   for (int c = grp, i = 0; c < nch; c += 2, ++i) {
     cp_wait_upto(c + 2 < nch ? 1 : 0);
     float4* slot = slots + (i & 1) * kSlot;
-    const int steps = slice_steps(c, kw, K);
+    const int steps = slice_steps<T>(c, kw, K);
     if (steps)
-      stage_mma<NT>(slot,
-                    wf + (size_t)(c * (kKC / 8) + kw * kSliceSteps) * NT * 32,
-                    steps, lane, acc);
+      stage_mma<NT>(slot, wf + (size_t)(c * CS + kw * SS) * NT * 32, steps,
+                    lane, acc);
     if (c + 4 < nch) issue(c + 4, slot);
   }
 }

@@ -42,14 +42,18 @@ SOURCES = {
         "decode_plan": ([_I] * 5 + [_P], _I),
     },
     "lstm_cell": {
-        "lstm_fwd": ([_P] * 11 + [_I] * 3 + [_P], _I),
+        "lstm_fwd": ([_P] * 12 + [_I] * 3 + [_P], _I),
+        "lstm_fwd_bf16": ([_P] * 12 + [_I] * 3 + [_P], _I),
         "lstm_bwd": ([_P] * 15 + [_I] * 3 + [_P], _I),
-        "lstm_plan": ([_I] * 3 + [_P], _I),
+        "lstm_bwd_bf16": ([_P] * 15 + [_I] * 3 + [_P], _I),
+        "lstm_plan": ([_I] * 4 + [_P], _I),
     },
     "gru_cell": {
-        "gru_fwd": ([_P] * 9 + [_I] * 3 + [_P], _I),
-        "gru_plan": ([_I] * 4 + [_P], _I),
+        "gru_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "gru_fwd_bf16": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "gru_plan": ([_I] * 5 + [_P], _I),
         "gru_bwd": ([_P] * 12 + [_I] * 3 + [_P], _I),
+        "gru_bwd_bf16": ([_P] * 12 + [_I] * 3 + [_P], _I),
     },
     "bn_grad": {
         "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),

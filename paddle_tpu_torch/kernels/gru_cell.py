@@ -21,8 +21,9 @@ unchanged and gets no gate gradient). Per step::
 * a CUDA tensor launches the forward kernel, which also writes the
   stash of ``u, r, c`` the backward kernel reads; the backward launches
   the backward kernel, and dW = ``h_prev^T da_ur || (r h_prev)^T da_c``
-  is two GEMMs outside it, as in the JAX package. float32 only;
-  anything else raises, and a refused launch raises;
+  is two GEMMs outside it, as in the JAX package. xg and w float32 (the
+  3xTF32 kernels) or bfloat16 (the bf16 kernels); anything else raises,
+  and a refused launch raises;
 * a CPU tensor runs the plain versions beside the kernels: the step
   loop :func:`gru_forward_reference` and :func:`gru_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
@@ -34,6 +35,13 @@ unchanged and gets no gate gradient). Per step::
   (``lstm_cell._bwd_product``);
 * a meta tensor returns outputs of the right shape.
 
+The dtypes are the JAX kernels' (``paddle_tpu/kernels/gru_cell.py``):
+xg, w, hs, the stash and dxg in the input dtype; the carried h, the
+gates and every sum in float32 (the input dtype where it is wider);
+h_{t-1}, r h_{t-1}, da_c and da_ur rounded to the input dtype just
+before their recurrent products; the backward reads h_{t-1} from the
+stored hs; h0, mask and dh0 float32.
+
 ``launches`` counts kernel launches per kernel; plain-version calls do
 not count. :func:`launch_plan` is a kernel's launch plan (cluster size,
 row groups of 32 rows, blocks, residency), a pure function of the shape
@@ -43,17 +51,20 @@ and the card's SM count; :func:`card_plan` reads the kernel's own.
 import torch
 
 from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS
-from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, ROWS, _bwd_product,
-                                                _check, _check_float,
-                                                _product, _raise_on, _stages,
-                                                _stream)
+from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, K_STEP, ROWS, _acc,
+                                                _bwd_product, _check,
+                                                _check_tensor, _exchange,
+                                                _kernel_dtype, _product,
+                                                _raise_on, _rounder, _size,
+                                                _stages, _stream)
 
 __all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
            "gru_forward", "gru_backward", "launch_plan", "card_plan",
            "launches", "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
-launches = {"gru_fwd": 0, "gru_bwd": 0}
+launches = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0,
+            "gru_bwd_bf16": 0}
 
 #: the kernels' blocking (``rnn_step.cuh`` and ``gru_cell.cu``), which
 #: launch_plan restates: a block runs the cells of ROWS rows x UNITS
@@ -68,7 +79,7 @@ launches = {"gru_fwd": 0, "gru_bwd": 0}
 #: partner's sums of two rounds (a float a thread each) and an mbarrier
 UNITS, WARPS = 8, 8
 UR_TILES, C_TILES = 2, 1
-FRAG_BYTES = 32 * 16
+FRAG_BYTES = {torch.float32: 32 * 16, torch.bfloat16: 32 * 8}
 SLOT = 2 * 4 * 32
 PAIR = 2
 PARTNER_BYTES = 2 * 32 * WARPS * 4 + 8
@@ -83,56 +94,67 @@ def reset_launches():
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def gru_forward_reference(xg, w, h0, mask):
+def gru_forward_reference(xg, w, h0, mask, rounding=None):
     """Plain version of the forward kernel: the step loop, with both
-    products summed in the kernel's blocking (``_product``). Returns
-    ``(hs, stash)``: [B, T, H] and ``u, r, c`` [B, T, 3H]."""
+    products summed in the kernel's blocking (``_product``), state and
+    sums in _acc(xg.dtype), h_{t-1} and r h_{t-1} rounded to ``rounding``
+    (default xg's dtype) before their products, hs and the stash rounded
+    to it. Returns ``(hs, stash)``: [B, T, H] and ``u, r, c`` [B, T, 3H],
+    in xg's dtype."""
     b, t_len, g3 = xg.shape
     h = g3 // 3
+    dt, sd = xg.dtype, _acc(xg.dtype)
+    rnd = _rounder(dt, rounding)
+    w = w.to(sd)
     wur, wc = _stages(w[:, :2 * h]), _stages(w[:, 2 * h:])
-    h_prev = h0
+    h_prev = h0.to(sd)
     hs, stash = [], []
     for t in range(t_len):
-        g = xg[:, t]
-        a_ur = g[:, :2 * h] + _product(h_prev, wur)
+        g = xg[:, t].to(sd)
+        a_ur = g[:, :2 * h] + _product(rnd(h_prev), wur)
         u, r = torch.sigmoid(a_ur[:, :h]), torch.sigmoid(a_ur[:, h:])
-        c = torch.tanh(g[:, 2 * h:] + _product(r * h_prev, wc))
+        c = torch.tanh(g[:, 2 * h:] + _product(rnd(r * h_prev), wc))
         h_t = u * h_prev + (1 - u) * c
-        m = mask[:, t, None].to(xg.dtype)
+        m = mask[:, t, None].to(sd)
         h_t = m * h_t + (1 - m) * h_prev
         hs.append(h_t)
         stash.append(torch.cat([u, r, c], dim=-1))
         h_prev = h_t
     if not t_len:
         return xg.new_zeros((b, 0, h)), xg.new_zeros((b, 0, g3))
-    return torch.stack(hs, 1), torch.stack(stash, 1)
+    return (rnd(torch.stack(hs, 1)).to(dt),
+            rnd(torch.stack(stash, 1)).to(dt))
 
 
-def gru_backward_reference(stash, hs, w, h0, mask, dhs):
+def gru_backward_reference(stash, hs, w, h0, mask, dhs, rounding=None):
     """Plain version of the backward kernel, step by step from t = T-1
-    down: the gate gradients from the stash, h_{t-1} and the dh carry,
-    with drh = da_c w_c^T, then the carry dh_{t-1} = ((dh u + drh r) m +
-    (1 - m) dh) + da_ur w_ur^T; both products summed in the kernel's
-    blocking, the second as two halves, da_u w_u^T first. Returns
-    ``(dxg [B, T, 3H], dh0 [B, H])``."""
+    down: the gate gradients from the stash, h_{t-1} (from hs as stored)
+    and the dh carry, with drh = da_c w_c^T, then the carry dh_{t-1} =
+    ((dh u + drh r) m + (1 - m) dh) + da_ur w_ur^T; both products summed
+    in the kernel's blocking, the second as two halves, da_u w_u^T
+    first, da_c and da_ur rounded to ``rounding`` (default the stash's
+    dtype) before them; carries and sums in _acc(stash.dtype). Returns
+    ``(dxg [B, T, 3H] in the stash's dtype, dh0 [B, H] in _acc)``."""
     b, t_len, g3 = stash.shape
     h = g3 // 3
-    wt = w.t()
+    sd = _acc(stash.dtype)
+    rnd = _rounder(stash.dtype, rounding)
+    wt = w.to(sd).t()
     wc = _stages(wt[2 * h:])
     wur = (_stages(wt[:h]), _stages(wt[h:2 * h]))
-    dh_c = stash.new_zeros((b, h))
+    dh_c = stash.new_zeros((b, h), dtype=sd)
     dxg = stash.new_zeros((b, t_len, g3))
     for t in range(t_len - 1, -1, -1):
-        st = stash[:, t]
+        st = stash[:, t].to(sd)
         u, r, c = st[:, :h], st[:, h:2 * h], st[:, 2 * h:]
-        h_prev = hs[:, t - 1] if t else h0
-        m = mask[:, t, None].to(stash.dtype)
-        dh = dhs[:, t] + dh_c
-        da_c = m * dh * (1 - u) * (1 - c * c)
+        h_prev = hs[:, t - 1].to(sd) if t else h0.to(sd)
+        m = mask[:, t, None].to(sd)
+        dh = dhs[:, t].to(sd) + dh_c
+        da_c = rnd(m * dh * (1 - u) * (1 - c * c))
         drh = _product(da_c, wc)
         da_u = m * dh * (h_prev - c) * u * (1 - u)
         da_r = m * drh * h_prev * r * (1 - r)
-        da_ur = torch.cat([da_u, da_r], dim=-1)
+        da_ur = rnd(torch.cat([da_u, da_r], dim=-1))
         dxg[:, t] = torch.cat([da_ur, da_c], dim=-1)
         dh_c = ((dh * u + drh * r) * m + (1 - m) * dh
                 + _bwd_product(da_ur, wur))
@@ -143,10 +165,10 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def launch_plan(kind, b, h, sms=H100_SMS):
-    """The launch plan of ``"gru_fwd"`` or ``"gru_bwd"`` at (b, h) on a
-    card of ``sms`` SMs, a copy of ``gru_plan`` in ``csrc/gru_cell.cu``
-    that the CPU tests can call (the card test
+def launch_plan(kind, b, h, sms=H100_SMS, dtype=torch.float32):
+    """The launch plan of ``"gru_fwd"`` or ``"gru_bwd"`` at (b, h) for
+    inputs of ``dtype`` on a card of ``sms`` SMs, a copy of ``gru_plan``
+    in ``csrc/gru_cell.cu`` that the CPU tests can call (the card test
     ``test_cuda_gru_launch_plan_matches_the_kernels`` holds the two to
     the same numbers). One block an SM: a row group of ROWS rows takes
     ceil(h / UNITS) blocks (the forward) or PAIR blocks, a cluster, for
@@ -160,17 +182,19 @@ def launch_plan(kind, b, h, sms=H100_SMS):
     has units, all of da_c. Raises ValueError where the blocks cannot be
     resident: shared memory past H100_MAX_SMEM, or a row group wider
     than the SMs."""
-    nks = -(-h // 8)                     # k8 steps of the products
+    ks = K_STEP[dtype]
+    nks = -(-h // ks)                    # k steps of the products
     rg = -(-b // ROWS)
     cells = -(-h // UNITS)               # blocks that run cells
     slots = WARPS * 2 * SLOT * 16
+    frags = nks * (UR_TILES + C_TILES) * FRAG_BYTES[dtype]
     if kind == "gru_fwd":
         cluster = 1
-        smem = nks * (UR_TILES + C_TILES) * FRAG_BYTES + slots
+        smem = frags + slots
         per = cells
     else:
         cluster = PAIR
-        smem = nks * (UR_TILES + C_TILES) * FRAG_BYTES + slots + PARTNER_BYTES
+        smem = frags + slots + PARTNER_BYTES
         per = PAIR * -(-h // (PAIR * UNITS))
     if smem > H100_MAX_SMEM or per > sms:
         raise ValueError(
@@ -178,15 +202,15 @@ def launch_plan(kind, b, h, sms=H100_SMS):
             "past %d resident (one an SM, at most %d bytes)"
             % (kind, h, per, smem, sms, H100_MAX_SMEM))
     rows = min(rg, sms // per)
-    # a tile of ROWS rows x the k8 steps' 8 units
-    tile = ROWS * 8 * nks * 4
+    # a tile of ROWS rows x the k steps' units
+    tile = ROWS * ks * nks * _size(dtype)
     reads = 2 * per if kind == "gru_fwd" else per + cells
     return dict(cluster=cluster, blocks=per * rows, rows_in_flight=rows,
                 rounds=-(-rg // rows), smem_bytes=smem,
                 exchange_bytes=rg * reads * tile)
 
 
-def card_plan(kind, b, h, device=None):
+def card_plan(kind, b, h, device=None, dtype=torch.float32):
     """The kernel's own plan (``gru_plan``) on the card: the keys of
     :func:`launch_plan` but the exchange bytes. Raises where the kernel
     would refuse the launch."""
@@ -200,12 +224,23 @@ def card_plan(kind, b, h, device=None):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
-        rc = lib.gru_plan(0 if kind == "gru_fwd" else 1, b, h, sms,
+        rc = lib.gru_plan(0 if kind == "gru_fwd" else 1,
+                          int(dtype == torch.bfloat16), b, h, sms,
                           ctypes.addressof(out))
     _raise_on(rc, "gru_plan")
     cluster, blocks, rows, rounds, smem = list(out)
     return dict(cluster=cluster, blocks=blocks, rows_in_flight=rows,
                 rounds=rounds, smem_bytes=smem)
+
+
+def _scratch(b, h, tiles, dt, dev):
+    """``tiles`` zero-filled exchange tiles of a row group in A-fragment
+    order ([tiles, RG, 2, k steps, 32, 16 bytes]) and the counters the
+    blocks publish them with, [2, RG, chunks] (padding rows and units
+    stay zero)."""
+    rg, nch = -(-b // ROWS), -(-h // CHUNK)
+    return (_exchange(dt, (tiles, rg, 2), h, dev),
+            torch.zeros((2, rg, nch), dtype=torch.int32, device=dev))
 
 
 def _fwd_cuda(xg, w, h0, mask):
@@ -214,28 +249,27 @@ def _fwd_cuda(xg, w, h0, mask):
     b, t_len, g3 = xg.shape
     h = g3 // 3
     dev = xg.device
-    for name, t, shape in (("xg", xg, (b, t_len, g3)), ("w", w, (h, g3)),
-                           ("h0", h0, (b, h)), ("mask", mask, (b, t_len))):
-        _check_float(name, t, shape, dev)
+    dt, name = _kernel_dtype("gru_fwd", xg)
+    for n, t, shape, d in (("xg", xg, (b, t_len, g3), dt),
+                           ("w", w, (h, g3), dt),
+                           ("h0", h0, (b, h), torch.float32),
+                           ("mask", mask, (b, t_len), torch.float32)):
+        _check_tensor(n, t, shape, dev, d)
     lib = _build.load("gru_cell")
-    hs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
+    hs = torch.empty((b, t_len, h), dtype=dt, device=dev)
     stash = torch.empty_like(xg)
-    # the exchanges of h_{t-1} and r h_{t-1}, one tile a row group in
-    # A-fragment order each, then the counters the blocks publish them
-    # with, [2, RG, chunks]: one zero-filled buffer (padding rows and
-    # units stay zero)
-    rg, nks, nch = -(-b // ROWS), -(-h // 8), -(-h // CHUNK)
-    tile = rg * 2 * nks * 128
-    buf = torch.zeros((2 * tile + 2 * rg * nch,), dtype=torch.float32,
-                      device=dev)
-    flags = buf[2 * tile:].view(torch.int32)
+    # the carried h past the row groups whose carries stay in registers
+    hcar = torch.empty((b, h), dtype=torch.float32, device=dev)
+    # the exchanges of h_{t-1} and r h_{t-1}
+    x, flags = _scratch(b, h, 2, dt, dev)
     with torch.cuda.device(dev):
-        rc = lib.gru_fwd(xg.data_ptr(), w.data_ptr(), h0.data_ptr(),
-                         mask.data_ptr(), hs.data_ptr(), stash.data_ptr(),
-                         buf.data_ptr(), buf[tile:].data_ptr(),
-                         flags.data_ptr(), b, t_len, h, _stream(dev))
-    _raise_on(rc, "gru_fwd")
-    launches["gru_fwd"] += 1
+        rc = getattr(lib, name)(
+            xg.data_ptr(), w.data_ptr(), h0.data_ptr(), mask.data_ptr(),
+            hs.data_ptr(), stash.data_ptr(), x[0].data_ptr(),
+            x[1].data_ptr(), hcar.data_ptr(), flags.data_ptr(), b, t_len, h,
+            _stream(dev))
+    _raise_on(rc, name)
+    launches[name] += 1
     return hs, stash
 
 
@@ -245,34 +279,30 @@ def _bwd_cuda(stash, hs, w, h0, mask, dhs):
     b, t_len, g3 = stash.shape
     h = g3 // 3
     dev = stash.device
-    for name, t, shape in (("stash", stash, (b, t_len, g3)),
-                           ("hs", hs, (b, t_len, h)), ("w", w, (h, g3)),
-                           ("h0", h0, (b, h)), ("mask", mask, (b, t_len)),
-                           ("dhs", dhs, (b, t_len, h))):
-        _check_float(name, t, shape, dev)
+    dt, name = _kernel_dtype("gru_bwd", stash)
+    for n, t, shape, d in (("stash", stash, (b, t_len, g3), dt),
+                           ("hs", hs, (b, t_len, h), dt),
+                           ("w", w, (h, g3), dt),
+                           ("h0", h0, (b, h), torch.float32),
+                           ("mask", mask, (b, t_len), torch.float32),
+                           ("dhs", dhs, (b, t_len, h), dt)):
+        _check_tensor(n, t, shape, dev, d)
     lib = _build.load("gru_cell")
     dxg = torch.empty_like(stash)
     # zero-filled: a sequence of no steps leaves it untouched
     dh0 = torch.zeros((b, h), dtype=torch.float32, device=dev)
     # dhm past the row groups whose carries stay in registers
     carry = torch.empty((b, h), dtype=torch.float32, device=dev)
-    # the exchanges of da_ur (two halves, da_u and da_r) and da_c, one
-    # tile a row group in A-fragment order each, then the counters the
-    # blocks publish them with, [2, RG, chunks]: one zero-filled buffer
-    # (padding rows and units stay zero)
-    rg, nks, nch = -(-b // ROWS), -(-h // 8), -(-h // CHUNK)
-    tile = rg * 2 * nks * 128
-    buf = torch.zeros((3 * tile + 2 * rg * nch,), dtype=torch.float32,
-                      device=dev)
-    flags = buf[3 * tile:].view(torch.int32)
+    # the exchanges of da_ur (two halves, da_u and da_r) and da_c
+    x, flags = _scratch(b, h, 3, dt, dev)
     with torch.cuda.device(dev):
-        rc = lib.gru_bwd(stash.data_ptr(), hs.data_ptr(), w.data_ptr(),
-                         h0.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
-                         dxg.data_ptr(), dh0.data_ptr(), carry.data_ptr(),
-                         buf.data_ptr(), buf[2 * tile:].data_ptr(),
-                         flags.data_ptr(), b, t_len, h, _stream(dev))
-    _raise_on(rc, "gru_bwd")
-    launches["gru_bwd"] += 1
+        rc = getattr(lib, name)(
+            stash.data_ptr(), hs.data_ptr(), w.data_ptr(), h0.data_ptr(),
+            mask.data_ptr(), dhs.data_ptr(), dxg.data_ptr(), dh0.data_ptr(),
+            carry.data_ptr(), x[0].data_ptr(), x[2].data_ptr(),
+            flags.data_ptr(), b, t_len, h, _stream(dev))
+    _raise_on(rc, name)
+    launches[name] += 1
     return dxg, dh0
 
 
@@ -308,20 +338,24 @@ class _GRUSequence(torch.autograd.Function):
         h = w.shape[0]
         dxg, dh0 = gru_backward(stash, hs, w, h0, mask, dhs.contiguous())
         # dW = h_prev^T da_ur || (r h_prev)^T da_c: two GEMMs outside the
-        # kernel
-        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
-        dw_ur = torch.einsum("bth,btg->hg", h_prev, dxg[..., :2 * h])
-        dw_c = torch.einsum("bth,btg->hg", stash[..., h:2 * h] * h_prev,
-                            dxg[..., 2 * h:])
-        return dxg, torch.cat([dw_ur, dw_c], dim=1), dh0, None
+        # kernel, in _acc and rounded to w's dtype
+        sd = _acc(w.dtype)
+        h_prev = torch.cat([h0[:, None].to(hs.dtype), hs[:, :-1]],
+                           dim=1).to(sd)
+        dxs = dxg.to(sd)
+        dw_ur = torch.einsum("bth,btg->hg", h_prev, dxs[..., :2 * h])
+        dw_c = torch.einsum("bth,btg->hg", stash[..., h:2 * h].to(sd) * h_prev,
+                            dxs[..., 2 * h:])
+        return dxg, torch.cat([dw_ur, dw_c], dim=1).to(w.dtype), dh0, None
 
 
 def gru_sequence(xg, w, h0, mask):
     """Fused GRU over a full sequence, batch-major.
 
     xg [B, T, 3H] pre-projected gate inputs (bias added); w [H, 3H];
-    h0 [B, H]; mask [B, T]. Returns ``hs`` [B, T, H]. Differentiable in
-    xg, w and h0."""
+    h0 [B, H]; mask [B, T]. Returns ``hs`` [B, T, H] in xg's dtype. h0
+    and mask enter in float32 (in xg's dtype where it is wider), as in
+    the JAX package. Differentiable in xg, w and h0."""
     _check(xg.dim() == 3 and xg.shape[-1] % 3 == 0,
            "xg must be [B, T, 3H], got %s", tuple(xg.shape))
     b, t_len, g3 = xg.shape
@@ -330,5 +364,6 @@ def gru_sequence(xg, w, h0, mask):
            tuple(w.shape))
     if xg.device.type == "meta":
         return torch.empty((b, t_len, h), dtype=xg.dtype, device=xg.device)
+    sd = _acc(xg.dtype)
     return _GRUSequence.apply(xg.contiguous(), w.contiguous(),
-                              h0.contiguous(), mask.contiguous())
+                              h0.to(sd).contiguous(), mask.to(sd).contiguous())

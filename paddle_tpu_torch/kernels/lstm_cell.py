@@ -17,8 +17,9 @@ gradient); ``peep`` [3, H] peephole weights (w_ic, w_fc, w_oc) or None.
 * a CUDA tensor launches the forward kernel, which also writes the
   stash of gate activations the backward kernel reads; the backward
   launches the backward kernel, and dW = sum_t h_{t-1}^T dgates_t is one
-  GEMM outside it, as in the JAX package. float32 only; anything else
-  raises, and a refused launch raises;
+  GEMM outside it, as in the JAX package. xg and w float32 (the 3xTF32
+  kernels) or bfloat16 (the bf16 kernels); anything else raises, and a
+  refused launch raises;
 * a CPU tensor runs the plain versions beside the kernels: the step
   loop :func:`lstm_forward_reference` and :func:`lstm_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
@@ -28,6 +29,13 @@ gradient); ``peep`` [3, H] peephole weights (w_ic, w_fc, w_oc) or None.
   order (:func:`_product`), and the backward's two halves of K = 4H
   apart (:func:`_bwd_product`);
 * a meta tensor returns outputs of the right shape.
+
+The dtypes are the JAX kernels' (``paddle_tpu/kernels/lstm_cell.py``):
+xg, w, hs, the stash and dxg in the input dtype; the carried h and c,
+the gates and every sum in float32 (the input dtype where it is wider:
+the plain versions run float64 too); h_{t-1} and dgates_t rounded to
+the input dtype just before their recurrent product; h0, c0, mask,
+peep, cs (returned rounded), dh0, dc0 and dpeep float32.
 
 ``launches`` counts kernel launches per kernel; plain-version calls do
 not count. :func:`launch_plan` reads the kernels' launch plan on the
@@ -42,7 +50,8 @@ __all__ = ["lstm_sequence", "lstm_sequence_reference",
            "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
-launches = {"lstm_fwd": 0, "lstm_bwd": 0}
+launches = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_fwd_bf16": 0,
+            "lstm_bwd_bf16": 0}
 
 
 def reset_launches():
@@ -127,19 +136,37 @@ def _bwd_product(dgates, wst):
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def lstm_forward_reference(xg, w, h0, c0, mask, peep):
+def _acc(dtype):
+    """The dtype the plain versions keep state and sums in: float32 for
+    a 16-bit input, the input's own where it is wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _rounder(dtype, rounding):
+    """v -> v rounded to ``rounding`` (default: ``dtype``), kept in
+    _acc(dtype): where the kernels round (a product's input, an
+    output)."""
+    rd, sd = rounding or dtype, _acc(dtype)
+    return lambda v: v.to(rd).to(sd)
+
+
+def lstm_forward_reference(xg, w, h0, c0, mask, peep, rounding=None):
     """Plain version of the forward kernel: the step loop, with the
-    recurrent product summed in the kernel's blocking (_product).
+    recurrent product summed in the kernel's blocking (_product), state
+    and sums in _acc(xg.dtype), h_{t-1} rounded to ``rounding`` (default
+    xg's dtype) before the product, hs and the stash rounded to it.
     ``peep`` is [3, H] (zeros for none). Returns ``(hs, cs, stash)``:
-    [B, T, H], [B, T, H] and the gate activations [B, T, 4H] in gate
-    order."""
+    [B, T, H] in xg's dtype, [B, T, H] in _acc(xg.dtype) and the gate
+    activations [B, T, 4H] in gate order, in xg's dtype."""
     b, t_len, g4 = xg.shape
     h = g4 // 4
-    h_prev, c_prev = h0, c0
-    wst = _stages(w)
+    dt, sd = xg.dtype, _acc(xg.dtype)
+    rnd = _rounder(dt, rounding)
+    h_prev, c_prev, peep = h0.to(sd), c0.to(sd), peep.to(sd)
+    wst = _stages(w.to(sd))
     hs, cs, stash = [], [], []
     for t in range(t_len):
-        g = xg[:, t] + _product(h_prev, wst)
+        g = xg[:, t].to(sd) + _product(rnd(h_prev), wst)
         gi, gc, gf, go = g[:, :h], g[:, h:2 * h], g[:, 2 * h:3 * h], g[:, 3 * h:]
         gi = gi + c_prev * peep[0]
         gf = gf + c_prev * peep[1]
@@ -147,7 +174,7 @@ def lstm_forward_reference(xg, w, h0, c0, mask, peep):
         c_t = f_t * c_prev + i_t * g_t
         o_t = torch.sigmoid(go + c_t * peep[2])
         h_t = o_t * torch.tanh(c_t)
-        m = mask[:, t, None].to(xg.dtype)
+        m = mask[:, t, None].to(sd)
         h_t = m * h_t + (1 - m) * h_prev
         c_t = m * c_t + (1 - m) * c_prev
         hs.append(h_t)
@@ -156,40 +183,47 @@ def lstm_forward_reference(xg, w, h0, c0, mask, peep):
         h_prev, c_prev = h_t, c_t
     if not t_len:
         z = xg.new_zeros((b, 0, h))
-        return z, z.clone(), xg.new_zeros((b, 0, g4))
-    return (torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(stash, 1))
+        return z, z.to(sd), xg.new_zeros((b, 0, g4))
+    return (rnd(torch.stack(hs, 1)).to(dt), torch.stack(cs, 1),
+            rnd(torch.stack(stash, 1)).to(dt))
 
 
 def lstm_sequence_reference(xg, w, h0, c0, mask, peep=None):
-    """Plain forward: ``(hs, cs)`` [B, T, H] each."""
+    """Plain forward: ``(hs, cs)`` [B, T, H] each, in xg's dtype."""
     if peep is None:
         peep = xg.new_zeros((3, w.shape[0]))
     hs, cs, _ = lstm_forward_reference(xg, w, h0, c0, mask, peep)
-    return hs, cs
+    return hs, cs.to(xg.dtype)
 
 
-def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs):
+def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs,
+                            rounding=None):
     """Plain version of the backward kernel, step by step from t = T-1
     down: the gate gradients from the stash, c_t, c_{t-1} and the dh/dc
     carries, then dh_{t-1} = dgates_t W^T + (1 - m) dh, the product
-    summed in the kernel's blocking (_bwd_product). Returns
-    ``(dxg [B, T, 4H], dh0 [B, H], dc0 [B, H], dpeep [3, H])``."""
+    summed in the kernel's blocking (_bwd_product), with dgates_t rounded
+    to ``rounding`` (default the stash's dtype) before it; carries and
+    sums in _acc(stash.dtype). Returns ``(dxg [B, T, 4H] in the stash's
+    dtype, dh0 [B, H], dc0 [B, H], dpeep [3, H] in _acc)``."""
     b, t_len, g4 = stash.shape
     h = g4 // 4
-    wst = _bwd_stages(w)
-    dh_c = stash.new_zeros((b, h))
-    dc_c = stash.new_zeros((b, h))
-    dp = stash.new_zeros((3, h))
+    sd = _acc(stash.dtype)
+    rnd = _rounder(stash.dtype, rounding)
+    wst = _bwd_stages(w.to(sd))
+    peep, c0 = peep.to(sd), c0.to(sd)
+    dh_c = stash.new_zeros((b, h), dtype=sd)
+    dc_c = stash.new_zeros((b, h), dtype=sd)
+    dp = stash.new_zeros((3, h), dtype=sd)
     dxg = stash.new_zeros((b, t_len, g4))
     for t in range(t_len - 1, -1, -1):
-        st = stash[:, t]
+        st = stash[:, t].to(sd)
         i_t, g_t = st[:, :h], st[:, h:2 * h]
         f_t, o_t = st[:, 2 * h:3 * h], st[:, 3 * h:]
-        c_t = cs[:, t]
-        c_prev = cs[:, t - 1] if t else c0
-        m = mask[:, t, None].to(stash.dtype)
-        dh = dhs[:, t] + dh_c
-        dc_in = dcs[:, t] + dc_c
+        c_t = cs[:, t].to(sd)
+        c_prev = cs[:, t - 1].to(sd) if t else c0
+        m = mask[:, t, None].to(sd)
+        dh = dhs[:, t].to(sd) + dh_c
+        dc_in = dcs[:, t].to(sd) + dc_c
         tanh_c = torch.tanh(c_t)
         dgo = dh * tanh_c * o_t * (1 - o_t)
         dct = dh * o_t * (1 - tanh_c * tanh_c) + dc_in + dgo * peep[2]
@@ -198,7 +232,7 @@ def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs):
         dgf = dct * c_prev * f_t * (1 - f_t)
         dc_prev = dct * f_t + dgi * peep[0] + dgf * peep[1]
         dgi, dgc, dgf, dgo = m * dgi, m * dgc, m * dgf, m * dgo
-        dgates = torch.cat([dgi, dgc, dgf, dgo], dim=-1)
+        dgates = rnd(torch.cat([dgi, dgc, dgf, dgo], dim=-1))
         dxg[:, t] = dgates
         dh_c = _bwd_product(dgates, wst) + (1 - m) * dh
         dc_c = m * dc_prev + (1 - m) * dc_in
@@ -217,14 +251,39 @@ def _check(cond, msg, *args):
         raise ValueError(msg % args)
 
 
-def _check_float(name, t, shape, device):
+#: the input dtypes the kernels take: float32 (3xTF32 products) and
+#: bfloat16 (one-pass bf16 products), and each one's k step of the
+#: exchange (its mma's depth)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+K_STEP = {torch.float32: 8, torch.bfloat16: 16}
+
+
+def _check_tensor(name, t, shape, device, dtype=torch.float32):
     _check(t.device == device, "%s is on %s, expected %s", name, t.device,
            device)
-    _check(t.dtype == torch.float32, "%s must be float32, got %s", name,
-           t.dtype)
+    _check(t.dtype == dtype, "%s must be %s, got %s", name, dtype, t.dtype)
     _check(tuple(t.shape) == tuple(shape), "%s must be %s, got %s", name,
            tuple(shape), tuple(t.shape))
     _check(t.is_contiguous(), "%s must be contiguous", name)
+
+
+def _kernel_dtype(kind, t):
+    """The input dtype of a launch, and the name it counts under."""
+    _check(t.dtype in KERNEL_DTYPES, "%s: no kernel for %s (float32 or "
+           "bfloat16)", kind, t.dtype)
+    return t.dtype, kind if t.dtype == torch.float32 else kind + "_bf16"
+
+
+def _size(dtype):
+    return torch.finfo(dtype).bits // 8
+
+
+def _exchange(dtype, lead, k, device):
+    """A zero-filled exchange buffer of ``lead`` tiles in A-fragment
+    order over K = k: [*lead, k steps, 32 lanes, 16 bytes a lane]."""
+    return torch.zeros(tuple(lead) + (-(-k // K_STEP[dtype]), 32,
+                                      16 // _size(dtype)),
+                       dtype=dtype, device=device)
 
 
 def _raise_on(rc, fn):
@@ -236,13 +295,14 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def launch_plan(kind, b, h, device=None):
+def launch_plan(kind, b, h, device=None, dtype=torch.float32):
     """The card's launch plan of ``"lstm_fwd"`` or ``"lstm_bwd"`` at
-    (b, h), from the kernels' own rule (``lstm_plan`` in the source):
-    the cluster size, the blocks, the row groups in flight (1 for the
-    forward), the exchange rounds a step, and the bytes a step that L2
-    sends to shared memory for the exchange (each chunk once a cluster)
-    beside what it would send to each block alone."""
+    (b, h) for inputs of ``dtype``, from the kernels' own rule
+    (``lstm_plan`` in the source): the cluster size, the blocks, the row
+    groups in flight (1 for the forward), the exchange rounds a step,
+    and the bytes a step that L2 sends to shared memory for the exchange
+    (each chunk once a cluster) beside what it would send to each block
+    alone."""
     import ctypes
 
     from paddle_tpu_torch.kernels import _build
@@ -250,19 +310,21 @@ def launch_plan(kind, b, h, device=None):
     lib = _build.load("lstm_cell")
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device or torch.cuda.current_device()):
-        rc = lib.lstm_plan(0 if kind == "lstm_fwd" else 1, b, h,
+        rc = lib.lstm_plan(0 if kind == "lstm_fwd" else 1,
+                           int(dtype == torch.bfloat16), b, h,
                            ctypes.addressof(out))
     _raise_on(rc, "lstm_plan")
     cluster, blocks, rows, rounds = list(out)
     per = blocks // rows                  # blocks of a row group
+    ks, size = K_STEP[dtype], _size(dtype)
     if kind == "lstm_fwd":
         # every block of a row group reads its whole h_{t-1}
         _, rg = fwd_plan(b, h)
-        tile = ROWS * h * 4
+        tile = ROWS * -(-h // ks) * ks * size
     else:
         # each block of a pair reads one half of its row group's dgates_t
         _, rg = bwd_plan(b, h)
-        tile = ROWS * 2 * h * 4
+        tile = ROWS * -(-2 * h // ks) * ks * size
     return dict(cluster=cluster, blocks=blocks, rows_in_flight=rows,
                 rounds=rounds, exchange_bytes=rg * per * tile)
 
@@ -273,30 +335,34 @@ def _fwd_cuda(xg, w, h0, c0, mask, peep):
     b, t_len, g4 = xg.shape
     h = g4 // 4
     dev = xg.device
-    for name, t, shape in (("xg", xg, (b, t_len, g4)), ("w", w, (h, g4)),
-                           ("h0", h0, (b, h)), ("c0", c0, (b, h)),
-                           ("mask", mask, (b, t_len)),
-                           ("peep", peep, (3, h))):
-        _check_float(name, t, shape, dev)
+    dt, name = _kernel_dtype("lstm_fwd", xg)
+    for n, t, shape, d in (("xg", xg, (b, t_len, g4), dt),
+                           ("w", w, (h, g4), dt),
+                           ("h0", h0, (b, h), torch.float32),
+                           ("c0", c0, (b, h), torch.float32),
+                           ("mask", mask, (b, t_len), torch.float32),
+                           ("peep", peep, (3, h), torch.float32)):
+        _check_tensor(n, t, shape, dev, d)
     lib = _build.load("lstm_cell")
-    hs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
-    cs = torch.empty_like(hs)
+    hs = torch.empty((b, t_len, h), dtype=dt, device=dev)
+    cs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
     stash = torch.empty_like(xg)
+    # the carried h past the row groups whose carries stay in registers
+    hcar = torch.empty((b, h), dtype=torch.float32, device=dev)
     # the exchange of h_t, two buffers of chunk-major tiles, and the
     # counters the blocks publish them with; zero-filled: padding rows
     # and units stay zero
     nc, rg = fwd_plan(b, h)
-    hx = torch.zeros((2, rg, 2, -(-h // 8), 32, 4), dtype=torch.float32,
-                     device=dev)
+    hx = _exchange(dt, (2, rg, 2), h, dev)
     flags = torch.zeros((rg, nc), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.lstm_fwd(xg.data_ptr(), w.data_ptr(), peep.data_ptr(),
-                          h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-                          hs.data_ptr(), cs.data_ptr(), stash.data_ptr(),
-                          hx.data_ptr(), flags.data_ptr(), b, t_len, h,
-                          _stream(dev))
-    _raise_on(rc, "lstm_fwd")
-    launches["lstm_fwd"] += 1
+        rc = getattr(lib, name)(
+            xg.data_ptr(), w.data_ptr(), peep.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), mask.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            stash.data_ptr(), hx.data_ptr(), hcar.data_ptr(),
+            flags.data_ptr(), b, t_len, h, _stream(dev))
+    _raise_on(rc, name)
+    launches[name] += 1
     return hs, cs, stash
 
 
@@ -306,13 +372,16 @@ def _bwd_cuda(stash, cs, w, peep, c0, mask, dhs, dcs):
     b, t_len, g4 = stash.shape
     h = g4 // 4
     dev = stash.device
-    for name, t, shape in (("stash", stash, (b, t_len, g4)),
-                           ("cs", cs, (b, t_len, h)), ("w", w, (h, g4)),
-                           ("peep", peep, (3, h)), ("c0", c0, (b, h)),
-                           ("mask", mask, (b, t_len)),
-                           ("dhs", dhs, (b, t_len, h)),
-                           ("dcs", dcs, (b, t_len, h))):
-        _check_float(name, t, shape, dev)
+    dt, name = _kernel_dtype("lstm_bwd", stash)
+    for n, t, shape, d in (("stash", stash, (b, t_len, g4), dt),
+                           ("cs", cs, (b, t_len, h), torch.float32),
+                           ("w", w, (h, g4), dt),
+                           ("peep", peep, (3, h), torch.float32),
+                           ("c0", c0, (b, h), torch.float32),
+                           ("mask", mask, (b, t_len), torch.float32),
+                           ("dhs", dhs, (b, t_len, h), dt),
+                           ("dcs", dcs, (b, t_len, h), dt)):
+        _check_tensor(n, t, shape, dev, d)
     lib = _build.load("lstm_cell")
     dxg = torch.empty_like(stash)
     # zero-filled: a sequence of no steps leaves them untouched
@@ -323,24 +392,23 @@ def _bwd_cuda(stash, cs, w, peep, c0, mask, dhs, dcs):
     # below in a fixed order
     dpart = torch.zeros((rg, 3, h), dtype=torch.float32, device=dev)
     carry = torch.empty((2, b, h), dtype=torch.float32, device=dev)
-    dgx = torch.zeros((2, rg, 2, 2, -(-2 * h // 8), 32, 4),
-                      dtype=torch.float32, device=dev)
+    dgx = _exchange(dt, (2, rg, 2, 2), 2 * h, dev)
     counters = torch.zeros((rg,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.lstm_bwd(stash.data_ptr(), cs.data_ptr(), w.data_ptr(),
-                          peep.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-                          dhs.data_ptr(), dcs.data_ptr(), dxg.data_ptr(),
-                          dh0.data_ptr(), dc0.data_ptr(), dpart.data_ptr(),
-                          carry.data_ptr(), dgx.data_ptr(),
-                          counters.data_ptr(), b, t_len, h, _stream(dev))
-    _raise_on(rc, "lstm_bwd")
-    launches["lstm_bwd"] += 1
+        rc = getattr(lib, name)(
+            stash.data_ptr(), cs.data_ptr(), w.data_ptr(), peep.data_ptr(),
+            c0.data_ptr(), mask.data_ptr(), dhs.data_ptr(), dcs.data_ptr(),
+            dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dpart.data_ptr(),
+            carry.data_ptr(), dgx.data_ptr(), counters.data_ptr(), b, t_len,
+            h, _stream(dev))
+    _raise_on(rc, name)
+    launches[name] += 1
     return dxg, dh0, dc0, dpart.sum(0)
 
 
 def lstm_forward(xg, w, h0, c0, mask, peep):
     """One forward: the kernel on a CUDA tensor, the step loop on a CPU
-    one. Returns ``(hs, cs, stash)``."""
+    one. Returns ``(hs, cs, stash)``; cs in float32."""
     dev = xg.device
     if dev.type == "cuda":
         return _fwd_cuda(xg, w, h0, c0, mask, peep)
@@ -361,8 +429,10 @@ class _LSTMSequence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xg, w, h0, c0, mask, peep):
         hs, cs, stash = lstm_forward(xg, w, h0, c0, mask, peep)
+        # cs stays in float32 for the backward and is returned rounded,
+        # as the JAX package's _core_fwd keeps it
         ctx.save_for_backward(stash, cs, hs, w, peep, h0, c0, mask)
-        return hs, cs
+        return hs, cs.to(xg.dtype)
 
     @staticmethod
     def backward(ctx, dhs, dcs):
@@ -370,10 +440,12 @@ class _LSTMSequence(torch.autograd.Function):
         dxg, dh0, dc0, dpeep = lstm_backward(
             stash, cs, w, peep, c0, mask, dhs.contiguous(),
             dcs.contiguous())
-        # dW = sum_t h_{t-1}^T dgates_t: one GEMM outside the kernel
+        # dW = sum_t h_{t-1}^T dgates_t: one GEMM outside the kernel, in
+        # _acc and rounded to w's dtype
+        sd = _acc(w.dtype)
         h_prev = torch.cat([h0[:, None].to(hs.dtype), hs[:, :-1]], dim=1)
-        dw = torch.einsum("bth,btg->hg", h_prev, dxg)
-        return dxg, dw, dh0, dc0, None, dpeep
+        dw = torch.einsum("bth,btg->hg", h_prev.to(sd), dxg.to(sd))
+        return dxg, dw.to(w.dtype), dh0, dc0, None, dpeep
 
 
 def lstm_sequence(xg, w, h0, c0, mask, peep=None):
@@ -381,8 +453,9 @@ def lstm_sequence(xg, w, h0, c0, mask, peep=None):
 
     xg [B, T, 4H] pre-projected gate inputs (bias added); w [H, 4H];
     h0, c0 [B, H]; mask [B, T]; peep [3, H] or None. Returns
-    ``(hs, cs)``, [B, T, H] each. Differentiable in xg, w, h0, c0 and
-    peep."""
+    ``(hs, cs)``, [B, T, H] each, in xg's dtype. h0, c0, mask and peep
+    enter in float32 (in xg's dtype where it is wider), as in the JAX
+    package. Differentiable in xg, w, h0, c0 and peep."""
     _check(xg.dim() == 3 and xg.shape[-1] % 4 == 0,
            "xg must be [B, T, 4H], got %s", tuple(xg.shape))
     b, t_len, g4 = xg.shape
@@ -392,8 +465,10 @@ def lstm_sequence(xg, w, h0, c0, mask, peep=None):
     if xg.device.type == "meta":
         out = torch.empty((b, t_len, h), dtype=xg.dtype, device=xg.device)
         return out, torch.empty_like(out)
+    sd = _acc(xg.dtype)
     if peep is None:
-        peep = torch.zeros((3, h), dtype=xg.dtype, device=xg.device)
+        peep = torch.zeros((3, h), dtype=sd, device=xg.device)
     return _LSTMSequence.apply(xg.contiguous(), w.contiguous(),
-                               h0.contiguous(), c0.contiguous(),
-                               mask.contiguous(), peep.contiguous())
+                               h0.to(sd).contiguous(), c0.to(sd).contiguous(),
+                               mask.to(sd).contiguous(),
+                               peep.to(sd).contiguous())

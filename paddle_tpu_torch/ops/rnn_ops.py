@@ -95,7 +95,11 @@ def _lstm(ctx, ins, attrs, o):
     if act_g is torch.sigmoid and act_c is torch.tanh and act_h is torch.tanh:
         from paddle_tpu_torch.kernels.lstm_cell import lstm_sequence
 
-        hs, cs = lstm_sequence(xs, w, h0, c0, valid.to(x.dtype), peep=peep)
+        # the mask and the peepholes enter in float32, as in the JAX
+        # package, whatever the compute dtype
+        hs, cs = lstm_sequence(
+            xs, w, h0, c0, valid.to(torch.float32),
+            peep=None if peep is None else peep.to(torch.float32))
     else:
         hs, cs = _steps(xs, w, h0, c0, valid, peep, act_g, act_c, act_h)
     return {"Hidden": PackedSeq(_positional(hs, valid, gather_pos),
@@ -147,7 +151,7 @@ def _gru(ctx, ins, attrs, o):
     if act_c is torch.tanh and act_g is torch.sigmoid:
         from paddle_tpu_torch.kernels.gru_cell import gru_sequence
 
-        hs = gru_sequence(xs, w, h0, valid.to(x.dtype))
+        hs = gru_sequence(xs, w, h0, valid.to(torch.float32))
     else:
         hs = _gru_steps(xs, w, h0, valid, act_g, act_c)
     return {"Hidden": PackedSeq(_positional(hs, valid, gather_pos),

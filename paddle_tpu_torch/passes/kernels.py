@@ -11,11 +11,13 @@ attrs:
   TAGGED (``use_pallas_reduction``). The CUDA kernel picks its own
   blocking and ignores the value; the plain version blocks its rows by
   it.
+* ``("fused_attention", "block_q" | "block_k" | "decode_block_k", B)``:
+  the flash-attention and flash-decode block sizes, on every
+  ``fused_attention`` op. The CUDA kernels pick their own blocking; B1's
+  plain backward blocks its keys by ``block_k``.
 
-This is the one knob a lowering of this package reads;
-``fused_attention``'s block knobs arrive with its op. Unknown
-(op_type, param) pairs are no-ops by design: a record tuned for a
-richer kernel set stays APPLICABLE (0 rewrites, not an error).
+Unknown (op_type, param) pairs are no-ops by design: a record tuned for
+a richer kernel set stays APPLICABLE (0 rewrites, not an error).
 """
 
 __all__ = ["run"]
@@ -24,7 +26,12 @@ __all__ = ["run"]
 _KNOBS = {
     "batch_norm_grad": {"tile": "pallas_tile"},
     "conv2d_bn_act_grad": {"tile": "pallas_tile"},
+    "fused_attention": {"block_q": "block_q", "block_k": "block_k",
+                        "decode_block_k": "decode_block_k"},
 }
+
+# batch-norm backward tiles only matter on ops the reduction pass tagged
+_NEEDS_TAG = ("batch_norm_grad", "conv2d_bn_act_grad")
 
 
 def run(program, cfg, protected=()):
@@ -41,8 +48,8 @@ def run(program, cfg, protected=()):
             attr = known.get(param)
             if attr is None:
                 continue
-            # a tile only matters on an op the reduction pass tagged
-            if not op.attrs.get("use_pallas_reduction"):
+            if op.type in _NEEDS_TAG \
+                    and not op.attrs.get("use_pallas_reduction"):
                 continue
             op.attrs[attr] = int(value)
             applied += 1

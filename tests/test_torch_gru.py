@@ -224,7 +224,8 @@ def test_cpu_runs_the_plain_versions_and_counts_no_launch():
     leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
     hs = tcell.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
     torch.autograd.grad(hs.sum(), leaves)
-    assert tcell.launches == {"gru_fwd": 0, "gru_bwd": 0}
+    assert tcell.launches == {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0,
+                              "gru_bwd_bf16": 0}
 
 
 # ---- the gru op and its generic grad against the JAX op ----

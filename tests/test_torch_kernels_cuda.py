@@ -321,8 +321,8 @@ def test_cuda_lstm_matches_plain(cuda, shape, peep):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
-    assert lstm_cell.launches == {"lstm_fwd": n["lstm_fwd"] + 1,
-                                  "lstm_bwd": n["lstm_bwd"] + 1}
+    assert lstm_cell.launches == dict(n, lstm_fwd=n["lstm_fwd"] + 1,
+                                      lstm_bwd=n["lstm_bwd"] + 1)
 
 
 @pytest.mark.cuda
@@ -364,7 +364,8 @@ def test_cuda_lstm_autograd_goes_through_both_kernels(cuda):
     hs, cs = lstm_cell.lstm_sequence(leaves[0], leaves[1], leaves[2],
                                      leaves[3], mask, leaves[4])
     got = torch.autograd.grad((hs, cs), leaves, (dhs, dcs))
-    assert lstm_cell.launches == {"lstm_fwd": 1, "lstm_bwd": 1}
+    assert lstm_cell.launches == {"lstm_fwd": 1, "lstm_bwd": 1,
+                                  "lstm_fwd_bf16": 0, "lstm_bwd_bf16": 0}
     cpu = [t.detach().cpu().requires_grad_() for t in leaves]
     rhs, rcs = lstm_cell.lstm_sequence(cpu[0], cpu[1], cpu[2], cpu[3],
                                        mask.cpu(), cpu[4])
@@ -413,8 +414,8 @@ def test_cuda_gru_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
-    assert gru_cell.launches == {"gru_fwd": n["gru_fwd"] + 1,
-                                 "gru_bwd": n["gru_bwd"] + 1}
+    assert gru_cell.launches == dict(n, gru_fwd=n["gru_fwd"] + 1,
+                                     gru_bwd=n["gru_bwd"] + 1)
 
 
 @pytest.mark.cuda
@@ -459,7 +460,8 @@ def test_cuda_gru_autograd_goes_through_both_kernels(cuda):
     gru_cell.reset_launches()
     hs = gru_cell.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
     got = torch.autograd.grad(hs, leaves, dhs)
-    assert gru_cell.launches == {"gru_fwd": 1, "gru_bwd": 1}
+    assert gru_cell.launches == {"gru_fwd": 1, "gru_bwd": 1,
+                                 "gru_fwd_bf16": 0, "gru_bwd_bf16": 0}
     cpu = [t.detach().cpu().requires_grad_() for t in leaves]
     rhs = gru_cell.gru_sequence(cpu[0], cpu[1], cpu[2], mask.cpu())
     want = torch.autograd.grad(rhs, cpu, dhs.cpu())
@@ -502,6 +504,172 @@ def _close(got, want, rtol, atol_of_max):
     atol = atol_of_max * float(want.abs().max())
     torch.testing.assert_close(got.to(torch.float64), want, rtol=rtol,
                                atol=atol)
+
+# ---- the bfloat16 B3-B6 (the bf16 AMP path) ----
+#
+# Kernel and plain version take the same bf16 inputs and round at the
+# same places (h_{t-1}, r h_{t-1}, dgates_t, da_c, da_ur before their
+# products; the outputs as stored); their float32 sums differ in order,
+# and a difference at a rounding boundary flips one bf16 ulp that the
+# recurrence carries on: held at one bfloat16 rounding (rtol 1e-2 plus
+# 4e-3 of the largest magnitude), as chip_smoke.py holds them.
+BF16_RTOL, BF16_AMAX = 1e-2, 4e-3
+
+
+def _bf16(ts, n):
+    """The first n tensors (xg, w) in bfloat16, the rest as they are."""
+    return [t.to(torch.bfloat16) if i < n else t for i, t in enumerate(ts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peep", [True, False])
+@pytest.mark.parametrize("shape", [(8, 5, 32), (64, 80, 512), (37, 17, 128),
+                                   (70, 6, 40), (128, 9, 512), (200, 4, 64)])
+def test_cuda_lstm_bf16_matches_plain(cuda, shape, peep):
+    """(200, 4, 64) runs row groups past the two whose carries stay in
+    registers."""
+    xg, w, h0, c0, mask, p, dhs, dcs = _bf16(
+        _lstm_inputs(*shape, peep, 2, cuda), 2)
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    n = dict(lstm_cell.launches)
+    hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+    rhs, rcs, rst = lstm_cell.lstm_forward_reference(xg, w, h0, c0, mask, p)
+    torch.cuda.synchronize()
+    assert (hs.dtype, cs.dtype, stash.dtype) == (
+        torch.bfloat16, torch.float32, torch.bfloat16)
+    for got, want in ((hs, rhs), (cs, rcs), (stash, rst)):
+        _close(got, want, BF16_RTOL, BF16_AMAX)
+    got = lstm_cell.lstm_backward(rst, rcs, w, p, c0, mask, dhs, dcs)
+    want = lstm_cell.lstm_backward_reference(rst, rcs, w, p, c0, mask, dhs,
+                                             dcs)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got] == [t.dtype for t in want] == [
+        torch.bfloat16] + [torch.float32] * 3
+    for a, b in zip(got, want):
+        _close(a, b, BF16_RTOL, BF16_AMAX)
+    assert lstm_cell.launches == dict(
+        n, lstm_fwd_bf16=n["lstm_fwd_bf16"] + 1,
+        lstm_bwd_bf16=n["lstm_bwd_bf16"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_bf16_two_runs_agree_and_plan_halves_the_exchange(cuda):
+    xg, w, h0, c0, mask, p, dhs, dcs = _bf16(
+        _lstm_inputs(64, 80, 512, True, 5, cuda), 2)
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+        runs.append((hs, cs, stash) + lstm_cell.lstm_backward(
+            stash, cs, w, p, c0, mask, dhs, dcs))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for kind, cluster, k in (("lstm_fwd", 1, 512), ("lstm_bwd", 2, 1024)):
+        plan = lstm_cell.launch_plan(kind, 64, 512, cuda, torch.bfloat16)
+        assert (plan["cluster"], plan["blocks"], plan["rounds"]) == (
+            cluster, 128, 1)
+        assert plan["exchange_bytes"] == 128 * 32 * k * 2
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_bf16_autograd_goes_through_both_bf16_kernels(cuda):
+    xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(16, 9, 64, True, 3, cuda)
+    leaves = [t.clone().to(torch.bfloat16).requires_grad_()
+              for t in (xg, w, h0, c0)] + [p.clone().requires_grad_()]
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    lstm_cell.reset_launches()
+    hs, cs = lstm_cell.lstm_sequence(leaves[0], leaves[1], leaves[2],
+                                     leaves[3], mask, leaves[4])
+    got = torch.autograd.grad((hs, cs), leaves, (dhs, dcs))
+    assert lstm_cell.launches == {"lstm_fwd": 0, "lstm_bwd": 0,
+                                  "lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1}
+    assert [g.dtype for g in got] == [t.dtype for t in leaves]
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs, rcs = lstm_cell.lstm_sequence(cpu[0], cpu[1], cpu[2], cpu[3],
+                                       mask.cpu(), cpu[4])
+    want = torch.autograd.grad((rhs, rcs), cpu, (dhs.cpu(), dcs.cpu()))
+    for a, b in zip(got, want):
+        _close(a.cpu(), b, BF16_RTOL, BF16_AMAX)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 5, 32), (64, 30, 512), (37, 17, 128),
+                                   (70, 6, 40), (33, 11, 200), (200, 4, 64)])
+def test_cuda_gru_bf16_matches_plain(cuda, shape):
+    xg, w, h0, mask, dhs = _bf16(_gru_inputs(*shape, 2, cuda), 2)
+    dhs = dhs.to(torch.bfloat16)
+    n = dict(gru_cell.launches)
+    hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+    rhs, rst = gru_cell.gru_forward_reference(xg, w, h0, mask)
+    torch.cuda.synchronize()
+    assert hs.dtype == stash.dtype == torch.bfloat16
+    for got, want in ((hs, rhs), (stash, rst)):
+        _close(got, want, BF16_RTOL, BF16_AMAX)
+    got = gru_cell.gru_backward(rst, rhs, w, h0, mask, dhs)
+    want = gru_cell.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
+    torch.cuda.synchronize()
+    assert (got[0].dtype, got[1].dtype) == (torch.bfloat16, torch.float32)
+    for a, b in zip(got, want):
+        _close(a, b, BF16_RTOL, BF16_AMAX)
+    assert gru_cell.launches == dict(n, gru_fwd_bf16=n["gru_fwd_bf16"] + 1,
+                                     gru_bwd_bf16=n["gru_bwd_bf16"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_bf16_two_runs_agree_and_plans_match(cuda):
+    xg, w, h0, mask, dhs = _bf16(_gru_inputs(64, 30, 512, 5, cuda), 2)
+    dhs = dhs.to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+        runs.append((hs, stash) + gru_cell.gru_backward(stash, hs, w, h0,
+                                                        mask, dhs))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind in ("gru_fwd", "gru_bwd"):
+        for shape in ((64, 512), (200, 512), (3, 20)):
+            plan = gru_cell.launch_plan(kind, *shape, sms=sms,
+                                        dtype=torch.bfloat16)
+            card = gru_cell.card_plan(kind, *shape, cuda, torch.bfloat16)
+            assert card == {k: plan[k] for k in card}
+
+
+@pytest.mark.cuda
+def test_cuda_gru_bf16_autograd_goes_through_both_bf16_kernels(cuda):
+    xg, w, h0, mask, dhs = _gru_inputs(16, 9, 64, 3, cuda)
+    leaves = [t.clone().to(torch.bfloat16).requires_grad_()
+              for t in (xg, w, h0)]
+    dhs = dhs.to(torch.bfloat16)
+    gru_cell.reset_launches()
+    hs = gru_cell.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
+    got = torch.autograd.grad(hs, leaves, dhs)
+    assert gru_cell.launches == {"gru_fwd": 0, "gru_bwd": 0,
+                                 "gru_fwd_bf16": 1, "gru_bwd_bf16": 1}
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs = gru_cell.gru_sequence(cpu[0], cpu[1], cpu[2], mask.cpu())
+    want = torch.autograd.grad(rhs, cpu, dhs.cpu())
+    for a, b in zip(got, want):
+        _close(a.cpu(), b, BF16_RTOL, BF16_AMAX)
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_bf16_raises_on_what_the_kernels_do_not_take(cuda):
+    """bf16 xg with a float32 w, or a bf16 h0 at the kernel's entry,
+    raise: no launch, no plain version."""
+    xg, w, h0, c0, mask, p, _, _ = _lstm_inputs(4, 3, 8, True, 4, cuda)
+    with pytest.raises(ValueError, match="w must be torch.bfloat16"):
+        lstm_cell.lstm_forward(xg.to(torch.bfloat16), w, h0, c0, mask, p)
+    with pytest.raises(ValueError, match="h0 must be torch.float32"):
+        lstm_cell.lstm_forward(xg.to(torch.bfloat16), w.to(torch.bfloat16),
+                               h0.to(torch.bfloat16), c0, mask, p)
+    xg, w, h0, mask, _ = _gru_inputs(4, 3, 8, 4, cuda)
+    with pytest.raises(ValueError, match="no kernel for torch.float16"):
+        gru_cell.gru_forward(xg.half(), w.half(), h0, mask)
+
 
 
 # The stem of ResNet-50 at batch 64, its stage 4, a row count that no

@@ -29,6 +29,7 @@ from paddle_tpu import passes as jpasses
 from paddle_tpu import unique_name as jnames
 from paddle_tpu.models import lenet as jlenet
 from paddle_tpu.models import resnet as jresnet
+from paddle_tpu.models import transformer as jtransformer
 from paddle_tpu_torch import interop
 from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch import passes as tpasses
@@ -37,6 +38,7 @@ from paddle_tpu_torch.core import executor as texecutor
 from paddle_tpu_torch.kernels import bn_grad as tbn
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
+from paddle_tpu_torch.models import transformer as ttransformer
 
 # Under pytest-xdist each worker takes its share of the cores for
 # torch's intra-op threads: six workers at torch's default thread count
@@ -105,6 +107,37 @@ def test_apply_gives_the_jax_packages_program(model, cfg):
             or "layout" not in CONFIGS[cfg]:
         assert _dump(tprog) == before
     assert _dump(tpasses.disable(tprog)) == _dump(jpasses.disable(jprog))
+
+
+ATTENTION_KNOBS = [("fused_attention", "block_k", 64),
+                   ("fused_attention", "block_q", 32),
+                   ("fused_attention", "decode_block_k", 128),
+                   ("fused_attention", "no_such_knob", 2),
+                   ("batch_norm_grad", "tile", 8)]
+
+
+def test_attention_knobs_land_as_in_the_jax_package():
+    """``fused_attention``'s block knobs land on every attention op,
+    tagged or not, as the JAX package's pass lands them: the same report
+    and the same JSON; the batch-norm tile finds no tagged op."""
+    lm = dict(vocab_size=50, seq_len=16, d_model=32, num_layers=2,
+              num_heads=2)
+    with jnames.guard():
+        jprog, _, _, jfetch = jtransformer.build_transformer_lm(**lm)
+    with tnames.guard():
+        tprog, _, _, tfetch = ttransformer.build_transformer_lm(**lm)
+    jpasses.enable(jprog, kernel_params=ATTENTION_KNOBS)
+    tpasses.enable(tprog, kernel_params=ATTENTION_KNOBS)
+    jout, jreport = jpasses.apply(jprog, protected=[jfetch[0].name])
+    tout, treport = tpasses.apply(tprog, protected=[tfetch[0].name])
+    assert treport == jreport
+    assert treport["kernels"] == 3 * lm["num_layers"]
+    assert _dump(tout) == _dump(jout)
+    attn = [op for op in tout.global_block().ops
+            if op.type == "fused_attention"]
+    assert len(attn) == lm["num_layers"]
+    assert all((op.attrs["block_k"], op.attrs["block_q"],
+                op.attrs["decode_block_k"]) == (64, 32, 128) for op in attn)
 
 
 def test_resnet_carries_no_transpose_and_lenet_one_per_direction():

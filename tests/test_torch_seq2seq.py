@@ -229,7 +229,8 @@ def test_port_startup_trains_on_ragged_batches_without_launches_on_cpu():
     out = [exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0]
            for _ in range(4)]
     assert np.isfinite(out).all() and out[-1] < out[0]
-    assert gru_cell.launches == {"gru_fwd": 0, "gru_bwd": 0}
+    assert gru_cell.launches == {"gru_fwd": 0, "gru_bwd": 0,
+                                 "gru_fwd_bf16": 0, "gru_bwd_bf16": 0}
 
 
 def test_decode_mode_waits_for_its_slice():

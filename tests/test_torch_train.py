@@ -147,7 +147,8 @@ def test_startup_on_the_port_trains_and_counts_no_launch_on_cpu():
     out = [exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0]
            for _ in range(4)]
     assert np.isfinite(out).all() and out[-1] < out[0]
-    assert lstm_cell.launches == {"lstm_fwd": 0, "lstm_bwd": 0}
+    assert lstm_cell.launches == {"lstm_fwd": 0, "lstm_bwd": 0,
+                                  "lstm_fwd_bf16": 0, "lstm_bwd_bf16": 0}
 
 
 def test_fetch_packed_sequence_comes_back_as_numpy_pair():
