@@ -72,9 +72,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the serving and training shapes and a packed case, also against
    float64; both flash-attention forwards twice to the same bits);
 4. decode serving: create the weights with the port's Executor, warm a
-   DecodeEngine, push 24 mixed requests through a DecodeLoop, check the
-   kernels' launch counts and that greedy tokens equal the argmax of the
-   port's one-shot logits;
+   DecodeEngine (which captures the decode step and each prefill bucket
+   as a CUDA graph), push 24 mixed requests through a DecodeLoop, check
+   the kernels' launch counts (credited once per replay) and that greedy
+   tokens equal the argmax of the port's one-shot logits;
 5. stacked-LSTM training: startup, 2 warmup steps, 10 counted steps
    (falling finite loss, exact LSTM launch counts), a profile of one
    step, and the card against the CPU at a reduced size from the same
@@ -112,6 +113,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    counted steps each (exact bfloat16 B3/B4 and B5/B6 launches derived
    from the program, no float32 one, a finite falling loss), a profile
    of one step, the card against the CPU at the reduced sizes under AMP;
+9c. graphs: the decode engine (whose every entry is a captured CUDA
+   graph since phase 4) against one that runs its entries eagerly:
+   identical greedy tokens of 3 requests, ``compile_count()`` unchanged
+   after the loop served them, host ms of a decode step with and without
+   graphs; then ``Executor.run_chunk`` as replayed CUDA graphs on the
+   transformer as bench.py runs it (bf16 AMP, K=8, two chunks),
+   ResNet-50 configs C and D under AMP, the AMP stacked LSTM and
+   seq2seq, and the memory row (float32, attention dropout 0.1: a random
+   draw each step): from the same weights, the graph run's losses and
+   every state tensor bitwise equal to eager ``run()`` steps' (where two
+   eager runs already differ, those tensors are named and their updates
+   held at the card-against-card bounds), the launches through the
+   graphs exactly the program's, host ms/step and device busy ms/step
+   with and without graphs over one warm chunk;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -287,6 +302,11 @@ B1_BF16_CASES = ((1, 8, 32, 64, True, False), (1, 8, 160, 64, True, False),
 # witness (ragged masks with an empty and a full row), beside the AMP
 # paths' shapes
 RNN_BF16_SHAPES = ((8, 5, 32), (37, 17, 128), (200, 4, 64))
+
+# Executor.run_chunk as replayed CUDA graphs: steps a chunk (bench.py runs
+# the transformer row with K=8, bench.py:311-318) and chunks a path
+GRAPH_K = dict(transformer=8, resnet=4, rnn=4, dropout=4)
+GRAPH_CHUNKS = 2
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -2474,6 +2494,353 @@ def remat_phase(fluid, seed, dev):
                              % (on["peak"], off["peak"]))
 
 
+def all_launches():
+    """Every kernel wrapper's launch count, by name."""
+    from paddle_tpu_torch.core import graphs
+
+    out = {}
+    for counts in graphs.launch_counters():
+        out.update(counts)
+    return out
+
+
+def reset_all_launches():
+    from paddle_tpu_torch.core import graphs
+
+    for counts in graphs.launch_counters():
+        for n in counts:
+            counts[n] = 0
+
+
+def scope_state(scope):
+    return {n: t.clone() for n, t in scope.vars.items()
+            if isinstance(t, torch.Tensor)}
+
+
+def chunk_of(feed, k):
+    """One step's feed repeated over a [k, ...] chunk (the phases train
+    on one repeated batch)."""
+    from paddle_tpu_torch import PackedSeq
+
+    return {n: PackedSeq(torch.stack([v.data] * k), torch.stack(
+        [v.lengths] * k)) if isinstance(v, PackedSeq)
+        else torch.stack([v] * k) for n, v in feed.items()}
+
+
+def device_busy_ms(fn):
+    """Device time (ms) of the kernels and copies one call of ``fn``
+    runs, from torch.profiler, or None if it recorded no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA")]
+    return sum(us) / 1000.0 if us else None
+
+
+def graph_path(fluid, label, built, feed, k, chunks, seed, want, bounds):
+    """One training path through ``Executor.run_chunk`` on the card: from
+    the same weights, ``k * chunks`` eager ``run()`` steps twice, and
+    ``chunks`` chunks of ``k`` graph replays. Every loss and state tensor
+    on which the two eager runs agree must be bitwise equal in the graph
+    run; the tensors where they already differ (the library's
+    reductions that are not run-to-run deterministic) are named and
+    their updates held at ``bounds`` = (loss rtol, each update's relative
+    L2, all together; PERF.md section 2). The kernels' launches through
+    the graphs must equal ``want`` (a step's, from the program) times the
+    steps. Then host ms/step and device busy ms/step, eager against
+    graphs, over one warm chunk. Returns the numbers."""
+    prog, startup, loss = built
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope0)
+    init = scope_state(scope0)
+    steps = k * chunks
+    chunk = chunk_of(feed, k)
+
+    def fresh():
+        s = fluid.Scope()
+        for n, t in init.items():
+            s.set_var(n, t.clone())
+        return s
+
+    runs = []
+    for _ in range(2):
+        scope, exe = fresh(), fluid.Executor()
+        exe._step = 1                  # the step after startup's
+        reset_all_launches()
+        losses = [exe.run(prog, feed=feed, fetch_list=[loss],
+                          scope=scope)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        runs.append((np.stack(losses), scope_state(scope),
+                     all_launches()))
+        del scope, exe
+    scope, exe = fresh(), fluid.Executor()
+    reset_all_launches()
+    losses = []
+    for c in range(chunks):
+        losses.append(exe.run_chunk(prog, feed_chunk=chunk, k=k,
+                                    fetch_list=[loss], scope=scope,
+                                    step0=1 if c == 0 else None)[0])
+    torch.cuda.synchronize()
+    got = all_launches()
+    graph_losses, graph_state = np.concatenate(losses), scope_state(scope)
+    expect = {n: v * steps for n, v in want.items()}
+    print("graphs %s: launches through the graphs %s; eager %s; from the "
+          "program %s" % (label, json.dumps({n: v for n, v in got.items()
+                                               if v}),
+                          json.dumps({n: v for n, v in runs[0][2].items()
+                                      if v}),
+                          json.dumps(expect)))
+    if got != runs[0][2] or {n: v for n, v in got.items() if v} != \
+            {n: v for n, v in expect.items() if v}:
+        raise AssertionError("%s: launch counts through the graphs" % label)
+
+    (l1, s1, _), (l2, s2, _) = runs
+    noisy = sorted(n for n in s1 if not torch.equal(s1[n], s2[n]))
+    loss_noisy = not np.array_equal(l1, l2)
+    differ = sorted(n for n in s1 if n not in noisy
+                    and not torch.equal(s1[n], graph_state[n]))
+    if set(graph_state) != set(s1) or differ:
+        raise AssertionError("%s: graph replays differ from eager steps in "
+                             "%s, on which two eager runs agree"
+                             % (label, differ[:10]))
+    if not loss_noisy and not np.array_equal(l1, graph_losses):
+        raise AssertionError("%s: graph losses %s != eager %s"
+                             % (label, graph_losses, l1))
+    ltol, pl2tol, l2tol = bounds
+    if loss_noisy:
+        np.testing.assert_allclose(graph_losses, l1, rtol=ltol)
+    if noisy:
+        def upd(s):
+            return [(s[n].double() - init[n].double()).cpu().numpy()
+                    for n in noisy]
+        check_grad_diff("%s: updates of the %d tensors two eager runs "
+                        "already disagree on, graphs against eager"
+                        % (label, len(noisy)),
+                        grad_diff(noisy, upd(graph_state), upd(s1),
+                                  AMP_CANCELS), None, l2tol, pl2tol)
+        eager_d = grad_diff(noisy, upd(s2), upd(s1), AMP_CANCELS)
+        print("%s: the same two eager runs against each other: worst "
+              "update %.3g of its L2 norm, all together %.3g"
+              % (label, eager_d["pl2"], eager_d["l2"]))
+    print("graphs %s: K=%d x %d chunks; losses %s (%s); %d of %d state "
+          "tensors bitwise equal to the eager steps'%s" % (
+              label, k, chunks, "bitwise equal" if not loss_noisy else
+              "within rtol %g (two eager runs differ)" % ltol,
+              " ".join("%.6f" % v for v in graph_losses),
+              len(s1) - len(noisy), len(s1),
+              "; %d named, where two eager runs differ, held at the "
+              "bounds: %s" % (len(noisy), ", ".join(noisy[:8])
+                              + (" ..." if len(noisy) > 8 else ""))
+              if noisy else ""))
+    del runs, s1, s2, graph_state
+
+    # one warm chunk, eager and with graphs
+    def eager_chunk():
+        for _ in range(k):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+
+    def graph_chunk():
+        exe.run_chunk(prog, feed_chunk=chunk, k=k, fetch_list=[loss],
+                      scope=scope)
+
+    out = {}
+    for name, fn in (("eager", eager_chunk), ("graphs", graph_chunk),
+                     ("eager2", eager_chunk), ("graphs2", graph_chunk)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0 / k
+        out[name.rstrip("2")] = min(ms, out.get(name.rstrip("2"), ms))
+    busy = {n: device_busy_ms(fn) for n, fn in (("eager", eager_chunk),
+                                                ("graphs", graph_chunk))}
+    print("graphs %s: host ms/step eager %.3f, graphs %.3f (%.2fx); device "
+          "busy ms/step eager %s, graphs %s" % (
+              label, out["eager"], out["graphs"],
+              out["eager"] / out["graphs"],
+              *("%.3f" % (busy[n] / k) if busy[n] is not None
+                else "not measured (no device events)"
+                for n in ("eager", "graphs"))))
+    del scope, exe, chunk
+    torch.cuda.empty_cache()
+    return dict(host_eager=out["eager"], host_graphs=out["graphs"],
+                busy_eager=None if busy["eager"] is None
+                else busy["eager"] / k,
+                busy_graphs=None if busy["graphs"] is None
+                else busy["graphs"] / k, noisy=len(noisy))
+
+
+def graphs_phase(fluid, seed, dev):
+    """The training paths through ``Executor.run_chunk`` as replayed CUDA
+    graphs (graph_path): the transformer as bench.py runs it (bf16 AMP,
+    K=8, two chunks), ResNet-50 configs C and D under AMP, the AMP stacked
+    LSTM and seq2seq, and bench.py's memory row (float32, attention
+    dropout 0.1: a random draw every step)."""
+    from paddle_tpu_torch import flags, layers, unique_name
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq
+    from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
+    from paddle_tpu_torch.models.transformer import (build_transformer_lm,
+                                                     transformer_lm)
+
+    amp_bounds = (AMP_LTOL, AMP_PL2TOL, AMP_L2TOL)
+    fp32_bounds = (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL)
+    res = {}
+
+    # the transformer as bench.py trains it
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build_transformer_lm(**LM)
+    fluid.amp.enable(prog)
+    fwd, grad, _ = attention_launches(prog)
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    res["transformer"] = graph_path(
+        fluid, "transformer (bf16 AMP)", (prog, startup, loss), feed,
+        GRAPH_K["transformer"], GRAPH_CHUNKS, seed,
+        {"flash_attention_bf16": fwd + grad}, amp_bounds)
+
+    # ResNet-50 configs C and D under AMP
+    rng = np.random.RandomState(seed)
+    images = rng.randn(RESNET_B, *RESNET["image_shape"]).astype(np.float32)
+    labels = torch.from_numpy(rng.randint(
+        0, RESNET["class_dim"], (RESNET_B, 1)).astype(np.int64)).to(dev)
+    for config in ("C", "D"):
+        with unique_name.guard():
+            prog, startup, _, (loss, acc) = fused_build(config, RESNET)
+        b7, b8, _ = transformed_launches(prog, RESNET_B, [loss.name])
+        x = images if config == "D" else np.ascontiguousarray(
+            images.transpose(0, 2, 3, 1))
+        feed = {"data": torch.from_numpy(x).to(dev), "label": labels}
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": config == "D"})
+        try:
+            res["resnet_" + config] = graph_path(
+                fluid, "ResNet-50 config %s (bf16 AMP)" % config,
+                (prog, startup, loss), feed, GRAPH_K["resnet"], GRAPH_CHUNKS,
+                seed, {"bn_grad": sum(b7.values())} if config == "C"
+                else {"conv1x1_bwd": sum(b8.values())}, amp_bounds)
+        finally:
+            flags.set_flags({"FLAGS_fused_conv1x1_bwd": False})
+
+    # the AMP stacked LSTM and seq2seq, every row full length
+    for model in ("lstm", "gru"):
+        if model == "lstm":
+            with unique_name.guard():
+                prog, startup, _, (loss, _) = build_stacked_lstm_train(
+                    class_dim=CLASSES, lr=LR, dict_dim=DICT, emb_dim=EMB,
+                    hid_dim=HID, stacked_num=STACKED)
+            B, T = LSTM_B, LSTM_T
+            feed = {"words": rng.randint(0, DICT, (B, T, 1)),
+                    "label": rng.randint(0, CLASSES, (B, 1))}
+        else:
+            with unique_name.guard():
+                prog, startup, _, (loss,) = build_seq2seq(lr=LR, **S2S)
+            B, T = S2S_B, S2S_T
+            feed = {n: rng.randint(1, S2S["tgt_vocab"], (B, T, 1))
+                    for n in ("src_ids", "tgt_ids", "tgt_next_ids")}
+        fluid.amp.enable(prog)
+        fwd, bwd = recurrent_launches(prog, model)
+        on_card = {}
+        for n, a in feed.items():
+            t = torch.from_numpy(a.astype(np.int64)).to(dev)
+            on_card[n] = fluid.PackedSeq(t, torch.full(
+                (B,), T, dtype=torch.int32, device=dev)) if t.dim() == 3 \
+                else t
+        res[model] = graph_path(
+            fluid, "%s (bf16 AMP)" % ("stacked LSTM" if model == "lstm"
+                                      else "seq2seq"),
+            (prog, startup, loss), on_card, GRAPH_K["rnn"], GRAPH_CHUNKS,
+            seed, {model + "_fwd_bf16": fwd, model + "_bwd_bf16": bwd},
+            amp_bounds)
+
+    # a path that draws randomness: bench.py's memory row, float32 with
+    # attention dropout 0.1 (remat off)
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            tokens = layers.data("tokens", [LM["seq_len"]], dtype="int64")
+            targets = layers.data("targets", [LM["seq_len"]], dtype="int64")
+            logits = transformer_lm(
+                tokens, LM["vocab_size"], d_model=LM["d_model"],
+                num_layers=LM["num_layers"], num_heads=LM["num_heads"],
+                max_len=max(LM["seq_len"], 2048), dropout_rate=0.1)
+            loss = layers.mean(layers.softmax_with_cross_entropy(
+                logits, layers.unsqueeze(targets, [2])))
+            fluid.optimizer.Adam(LM["lr"]).minimize(loss)
+    n_drop = sum(op.type == "dropout" for op in prog.global_block().ops)
+    fwd, grad, _ = attention_launches(prog)
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    print("memory row: %d dropout ops a step, each a random stream the "
+          "graph reseeds before every replay" % n_drop)
+    if not n_drop:
+        raise AssertionError("the memory row should draw dropout masks")
+    res["dropout"] = graph_path(
+        fluid, "memory row (float32, attention dropout 0.1)",
+        (prog, startup, loss), feed, GRAPH_K["dropout"], GRAPH_CHUNKS,
+        seed, {"flash_attention": fwd + grad}, fp32_bounds)
+    return res
+
+
+def decode_graphs(engine, loop_cls, engine_cls, scope, prefill, decode, meta,
+                  workload):
+    """The decode engine with graphs (``engine``, warmed) against one
+    that runs every entry eagerly on the card: the greedy tokens of 3
+    requests identical, ``compile_count()`` unchanged after the loop
+    served them, and the host ms of a decode step with and without
+    graphs."""
+    eager = engine_cls(prefill, decode, meta, num_slots=SLOTS,
+                       prompt_buckets=BUCKETS, scope=scope)
+    eager._graphs = None               # every entry eager, on the card
+    eager.warmup()
+    count = engine.compile_count()
+    toks = {}
+    for name, eng in (("graphs", engine), ("eager", eager)):
+        loop = loop_cls(eng, name="chip-smoke-" + name)
+        try:
+            gens = [loop.submit(p, max_new_tokens=m)
+                    for p, m in workload[:3]]
+            toks[name] = [g.result(timeout=600)[0] for g in gens]
+        finally:
+            if not loop.close(timeout=120):
+                raise RuntimeError("decode loop did not drain")
+    if toks["graphs"] != toks["eager"]:
+        raise AssertionError("decode tokens with graphs %s != eager %s"
+                             % (toks["graphs"], toks["eager"]))
+    if engine.compile_count() != count or len(engine._graphs) != count:
+        raise AssertionError("compile_count moved while the loop served: "
+                             "%d -> %d" % (count, engine.compile_count()))
+    ms = {}
+    for name, eng in (("graphs", engine), ("eager", eager)):
+        cache = eng.new_cache()
+        cache.pos[:] = 160
+        last = np.ones(SLOTS, np.int64)
+        for _ in range(3):
+            eng.decode_step(last, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            eng.decode_step(last, cache)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1000.0 / 20
+        busy = device_busy_ms(lambda: eng.decode_step(last, cache))
+        ms[name + "_busy"] = busy
+    print("graphs decode: tokens of 3 requests identical with graphs and "
+          "eagerly (%d tokens); compile_count %d before and after; host "
+          "ms a decode step at pos 160: eager %.3f, graphs %.3f (%.2fx); "
+          "device busy ms eager %s, graphs %s" % (
+              sum(len(t) for t in toks["graphs"]), count, ms["eager"],
+              ms["graphs"], ms["eager"] / ms["graphs"],
+              *("%.3f" % ms[n + "_busy"] if ms[n + "_busy"] is not None
+                else "not measured" for n in ("eager", "graphs"))))
+    del eager
+    return ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2725,6 +3092,14 @@ def main():
         amp_launches = rnn_amp_phase(fluid, args.seed, dev, model)
         launches.update({k: v for k, v in amp_launches.items()
                          if k.endswith("_bf16")})
+
+    # ---- 9c. K steps a call as replayed CUDA graphs ----
+    phase("graphs: Executor.run_chunk replays against eager run() steps "
+          "(bitwise, launches exact), the decode engine's graphs against "
+          "eager entries (seed %d)" % args.seed)
+    decode_graphs(engine, DecodeLoop, DecodeEngine, scope, prefill, decode,
+                  meta, workload)
+    graphs_phase(fluid, args.seed, dev)
 
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
@@ -3215,7 +3590,8 @@ def main():
                       sum(r["per_step"] * r["plain_ms"] for r in krows))
                   if name != "bn_grad" else ""))
 
-    # the decode step end to end: host wall time vs device busy time
+    # the decode step end to end (one graph replay): host wall time vs
+    # device busy time, the kernels by name
     cache = engine.new_cache()
     cache.pos[:] = 160
     last = np.ones(SLOTS, np.int64)
@@ -3229,7 +3605,7 @@ def main():
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1000.0 / n_steps
     device_profile(lambda: engine.decode_step(last, cache), n_steps,
-                   step_ms, "decode step at pos 160")
+                   step_ms, "decode step at pos 160 (graphs)")
     torch.cuda.synchronize()
 
     # ---- 11. result ----

@@ -36,6 +36,9 @@ from paddle_tpu_torch import flags  # noqa: F401
 from paddle_tpu_torch import nets  # noqa: F401
 from paddle_tpu_torch import passes  # noqa: F401
 from paddle_tpu_torch import amp  # noqa: F401
+from paddle_tpu_torch import regularizer  # noqa: F401
+from paddle_tpu_torch import clip  # noqa: F401
+from paddle_tpu_torch.data_feeder import DataFeeder, stack_feeds  # noqa: F401
 from paddle_tpu_torch.flags import set_flags, get_flags  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401

@@ -28,6 +28,11 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
   protects the old names too) takes the old one's place. The passes
   rename no persistable, so what the clone writes lands in the scope
   under the user's names.
+* ``run_chunk`` runs K steps a call over a super-batch feed, as the
+  JAX package's ``lax.scan`` over K steps does: eagerly on the CPU, and
+  on the card as replays of one CUDA graph captured from the plan's
+  first step (``core/graphs.py``), the counterpart of the JAX package's
+  one compiled dispatch.
 """
 
 import numpy as np
@@ -41,7 +46,8 @@ from paddle_tpu_torch.core.lower import (PackedSeq, TraceContext, run_block,
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
-__all__ = ["Executor", "external_reads_and_writes"]
+__all__ = ["Executor", "external_reads_and_writes", "persistable_writes",
+           "run_program", "slice_feed", "stack_steps"]
 
 # plans an executor keeps; the oldest goes first (a dropped plan is made
 # again when its program next runs)
@@ -64,20 +70,45 @@ def external_reads_and_writes(program):
     return reads, written
 
 
+class _Plan:
+    """What the executor keeps for one (program version, pass config):
+    the program it runs (the user's, or the pass pipeline's clone), its
+    outside reads and its writes, the fetch names the clone protects,
+    and the CUDA graphs captured from it (``core/graphs.py``). Holding
+    the user program keeps its id() from being reused."""
+
+    __slots__ = ("user", "program", "reads", "written", "protected",
+                 "graphs")
+
+    def __init__(self, user, program, protected):
+        self.user = user
+        self.program = program
+        self.reads, self.written = external_reads_and_writes(program)
+        self.protected = protected
+        self.graphs = {}
+
+    def close(self):
+        """Free the plan's graphs and their memory pools."""
+        for g in self.graphs.values():
+            g.close()
+        self.graphs.clear()
+
+
 class Executor:
     """``Executor(place).run(program, feed={...}, fetch_list=[...])``.
 
     ``place`` defaults to ``CUDAPlace(0)`` and raises when there is no
     CUDA device: running on the CPU is asked for with ``CPUPlace()``.
+
+    ``run_chunk`` runs K steps a call; on the card each step after a
+    plan's first is one replay of a captured CUDA graph
+    (``core/graphs.py``).
     """
 
     def __init__(self, place=None):
         self.device = default_place(place)
         self._step = 0
-        # (program fingerprint, pass config key) -> (user program,
-        # program to run, its outside reads, its writes, the names the
-        # clone protects); holding the user program keeps its id() from
-        # being reused
+        # (program fingerprint, pass config key) -> _Plan
         self._plans = {}
 
     def _plan(self, program, fetch_names):
@@ -85,33 +116,89 @@ class Executor:
         key = (program.fingerprint, cfg.key if cfg else None)
         plan = self._plans.get(key)
         if plan is None or (cfg is not None
-                            and not plan[4].issuperset(fetch_names)):
+                            and not plan.protected.issuperset(fetch_names)):
             run, protected = program, frozenset()
             if cfg is not None:
                 # the fetches are protected from removal by a rewrite
                 protected = frozenset(fetch_names).union(
-                    plan[4] if plan else ())
+                    plan.protected if plan else ())
                 run, _ = passes_lib.apply(program, protected=protected)
-            plan = (program, run) + external_reads_and_writes(run) \
-                + (protected,)
-            self._plans.pop(key, None)
-            self._plans[key] = plan
+            old = self._plans.pop(key, None)
+            if old is not None:
+                old.close()
+            plan = self._plans[key] = _Plan(program, run, protected)
             while len(self._plans) > MAX_PLANS:
-                del self._plans[next(iter(self._plans))]
-        return plan[1:4]
+                self._plans.pop(next(iter(self._plans))).close()
+        return plan
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         program = program if program is not None \
             else ir.default_main_program()
         scope = scope if scope is not None else global_scope()
-        fetch_names = [v.name if isinstance(v, ir.Variable) else str(v)
-                       for v in (fetch_list or [])]
-        program, reads, written = self._plan(program, fetch_names)
-        feed = {n: self._to_device(program, n, v)
+        fetch_names = _fetch_names(fetch_list)
+        plan = self._plan(program, fetch_names)
+        feed = {n: self._to_device(plan.program, n, v)
                 for n, v in (feed or {}).items()}
+        fetches = self._run_step(plan, feed, scope, self._step, fetch_names)
+        self._step += 1
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    def run_chunk(self, program=None, feed_chunk=None, k=None,
+                  fetch_list=None, scope=None, return_numpy=True,
+                  step0=None):
+        """K training steps in one call: every feed carries a leading
+        ``[K, ...]`` axis (a super-batch: ``DataFeeder.feed_chunk`` or
+        ``stack_feeds``), staged onto the device in one copy.
+
+        The result is K sequential ``run()`` calls: step ``base + i``
+        draws from ``step_key(seed, base + i)``, the step counter
+        advances by K (``step0`` pins the base), and fetches come back
+        stacked ``[K, ...]`` (tensors on the device with
+        ``return_numpy=False``).
+
+        On the CPU the K steps run eagerly. On the card the plan's first
+        step runs eagerly and is then captured into a CUDA graph, which
+        every later step replays (``core/graphs.py``): the graph keeps
+        the scope's state tensors and updates them in place, so tensors
+        taken from the scope before the call hold the values after it
+        (the JAX package donates them instead). A capture or a replay
+        that fails raises; nothing falls back to eager steps."""
+        program = program if program is not None \
+            else ir.default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        plan = self._plan(program, fetch_names)
+        chunk = {n: self._to_device(plan.program, n, v)
+                 for n, v in (feed_chunk or {}).items()}
+        k = _chunk_k(chunk, k)
+        if step0 is not None:
+            self._step = int(step0)
+        base = self._step
+        self._step += k
+        if self.device.type == "cuda":
+            from paddle_tpu_torch.core import graphs
+            fetches = graphs.run_chunk(self, plan, chunk, k, fetch_names,
+                                       scope, base)
+        else:
+            steps = [self._run_step(plan, slice_feed(chunk, i), scope,
+                                    base + i, fetch_names)
+                     for i in range(k)]
+            fetches = [stack_steps([s[j] for s in steps])
+                       for j in range(len(fetch_names))]
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    def _run_step(self, plan, feed, scope, step, fetch_names, rngs=None):
+        """One eager step of ``plan`` at step index ``step``: reads state
+        from the scope, writes the persistables it changes back by
+        replacing the scope's tensors, returns the fetches. ``rngs``:
+        see ``TraceContext.rngs``."""
         env = {}
-        for n in reads:
+        for n in plan.reads:
             if n in feed:
                 continue
             v = scope.find_var(n)
@@ -123,29 +210,20 @@ class Executor:
                 env[n] = v
         env.update(feed)
 
-        ctx = TraceContext(key=step_key(program.random_seed, self._step),
-                           training=True, program=program,
-                           device=self.device)
-        self._step += 1
-        with torch.no_grad():
-            run_block(ctx, program.global_block(), env)
+        program = plan.program
+        run_program(program, self.device, env,
+                    step_key(program.random_seed, step), rngs=rngs)
 
         # write back state: persistables this block wrote (startup
         # initializers, in-place updates)
-        b0 = program.global_block()
-        for n in written:
-            v = b0.vars.get(n)
-            if v is not None and v.persistable and n in env:
-                scope.set_var(n, env[n])
+        for n, v in persistable_writes(program, plan.written, env).items():
+            scope.set_var(n, v)
 
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError("fetch %s: not computed by the program"
                            % missing)
-        fetches = [env[n] for n in fetch_names]
-        if return_numpy:
-            return [_to_numpy(f) for f in fetches]
-        return fetches
+        return [env[n] for n in fetch_names]
 
     def _to_device(self, program, name, v):
         if isinstance(v, PackedSeq):
@@ -160,6 +238,73 @@ class Executor:
                 return self._to_device(program, name,
                                        _pack_ragged(v, var.dtype))
         return torch.as_tensor(np.asarray(v), device=self.device)
+
+
+def run_program(program, device, env, key, rngs=None, training=True):
+    """Run ``program``'s global block over ``env`` (name -> tensor) on
+    ``device``, without autograd, drawing the random streams of the step
+    whose key is ``key`` (``rngs``: see ``TraceContext.rngs``)."""
+    ctx = TraceContext(key=key, training=training, program=program,
+                       device=device)
+    ctx.rngs = rngs
+    with torch.no_grad():
+        run_block(ctx, program.global_block(), env)
+    return env
+
+
+def _fetch_names(fetch_list):
+    return [v.name if isinstance(v, ir.Variable) else str(v)
+            for v in (fetch_list or [])]
+
+
+def persistable_writes(program, written, env):
+    """{name: value} of the persistables the block wrote."""
+    b0 = program.global_block()
+    out = {}
+    for n in written:
+        v = b0.vars.get(n)
+        if v is not None and v.persistable and n in env:
+            out[n] = env[n]
+    return out
+
+
+def slice_feed(chunk, i):
+    """Step ``i``'s feed of a super-batch chunk (views)."""
+    return {n: PackedSeq(v.data[i], v.lengths[i])
+            if isinstance(v, PackedSeq) else v[i]
+            for n, v in chunk.items()}
+
+
+def stack_steps(values):
+    """K steps' values of one fetch -> one ``[K, ...]`` value."""
+    if isinstance(values[0], PackedSeq):
+        return PackedSeq(torch.stack([v.data for v in values]),
+                         torch.stack([v.lengths for v in values]))
+    return torch.stack(values)
+
+
+def _chunk_k(chunk, k):
+    """Resolve and check the steps-a-call K of a super-batch feed: every
+    feed must carry the same leading [K, ...] axis."""
+    for name, v in chunk.items():
+        arr = v.data if isinstance(v, PackedSeq) else v
+        lead = arr.shape[0] if arr.dim() else None
+        if lead is None:
+            raise ValueError(
+                "run_chunk feed %r is a scalar — super-batch feeds need a "
+                "leading [K, ...] axis" % name)
+        if k is None:
+            k = int(lead)
+        elif int(lead) != k:
+            raise ValueError(
+                "run_chunk feed %r has leading dim %d but k=%d — stack "
+                "every feed over the same K steps (DataFeeder.feed_chunk "
+                "/ stack_feeds)" % (name, lead, k))
+    if k is None:
+        raise ValueError("run_chunk needs k= when there are no feeds")
+    if k < 1:
+        raise ValueError("run_chunk k must be >= 1, got %d" % k)
+    return int(k)
 
 
 def _find_var(program, name):

@@ -11,7 +11,10 @@ Randomness is deterministic per (step, op uid), as in the JAX package:
 stream is that key mixed with its uid (and a salt), seeding a
 ``torch.Generator`` on the program's device. The two packages draw
 different numbers from the same seed; tests that compare them carry
-weights across with ``paddle_tpu_torch.interop``.
+weights across with ``paddle_tpu_torch.interop``. A captured CUDA graph
+(``core/graphs.py``) hands out its own registered generators instead
+(``TraceContext.rngs``) and seeds each from :func:`op_seed` before every
+replay, so a replay draws what the eager step draws.
 
 A grad op that ``append_backward`` emitted (``<type>_grad``) runs the
 forward op's ``grad_lower`` or, by default, ``registry.generic_grad``.
@@ -31,7 +34,8 @@ import torch
 
 from paddle_tpu_torch.core import registry
 
-__all__ = ["TraceContext", "run_block", "run_op", "step_key", "PackedSeq"]
+__all__ = ["TraceContext", "run_block", "run_op", "step_key", "op_seed",
+           "PackedSeq"]
 
 
 class PackedSeq:
@@ -87,6 +91,14 @@ def step_key(random_seed, step_idx):
     return _fold_in(_splitmix64(int(random_seed) & _MASK64), step_idx)
 
 
+def op_seed(key, uid, salt=0):
+    """The seed of one op's stream in the step whose key is ``key``."""
+    k = _fold_in(key, uid)
+    if salt:
+        k = _fold_in(k, salt)
+    return k
+
+
 class TraceContext:
     """Carried through a block run; provides the device, per-op random
     streams and the mode flag to op lowerings."""
@@ -99,6 +111,9 @@ class TraceContext:
         # mixed precision: the compute dtype cast in at lowering
         # boundaries (amp.py); None = full precision
         self.amp_dtype = getattr(program, "amp_dtype", None)
+        # None, or what hands out the generators (``core/graphs.py``:
+        # the ones a CUDA graph registered, or a recorder of the draws)
+        self.rngs = None
         self._op = None
 
     def for_op(self, op):
@@ -108,6 +123,7 @@ class TraceContext:
         c.program = self.program
         c.device = self.device
         c.amp_dtype = self.amp_dtype
+        c.rngs = self.rngs
         c._op = op
         return c
 
@@ -119,10 +135,10 @@ class TraceContext:
             return None
         op = op if op is not None else self._op
         uid = op.uid if op is not None else 0
-        k = _fold_in(self.key, uid)
-        if salt:
-            k = _fold_in(k, salt)
-        return torch.Generator(device=self.device).manual_seed(k)
+        if self.rngs is not None:
+            return self.rngs.generator(self, uid, salt)
+        return torch.Generator(device=self.device).manual_seed(
+            op_seed(self.key, uid, salt))
 
 
 def run_block(ctx, block, env):

@@ -7,14 +7,16 @@ on the same weights, read the JAX package's scope into numpy arrays
 :func:`load_reference_state`. Every persistable variable goes across
 under its own name: parameters (convolution filters stay OIHW under
 either layout), batch-norm running means and variances, optimizer
-accumulators (Adam moments and beta powers, Momentum velocities) and
-the learning-rate variable.
+accumulators (Adam moments and beta powers, Momentum velocities), the
+learning-rate variable and a scheduler's step counter. The JAX package
+runs with 64-bit types off, so a variable declared int64 (the step
+counter) holds int32 there: it loads as the declared int64.
 """
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.infer import _CANONICAL, torch_dtype
 
 __all__ = ["load_reference_state"]
 
@@ -45,7 +47,8 @@ def load_reference_state(arrays, scope, place, programs):
         if tuple(a.shape) != tuple(var.shape):
             raise ValueError("%r: array shape %s, program declares %s"
                              % (n, tuple(a.shape), tuple(var.shape)))
-        if a.dtype.name != var.dtype:
+        if a.dtype.name != var.dtype and \
+                a.dtype.name != _CANONICAL.get(var.dtype):
             raise ValueError("%r: array dtype %s, program declares %s"
                              % (n, a.dtype.name, var.dtype))
         tensors[n] = torch.tensor(a, dtype=torch_dtype(var.dtype))

@@ -4,6 +4,8 @@ from paddle_tpu_torch.layers import control_flow, io, nn, tensor  # noqa: F401
 from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
+from paddle_tpu_torch.layers.learning_rate_scheduler import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import recompute  # noqa: F401
 from paddle_tpu_torch.layers.recompute import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403

@@ -4,15 +4,32 @@ Capability parity: `python/paddle/fluid/layers/control_flow.py`
 (StaticRNN :382), as the JAX package builds it: the step body is a
 sub-block, and the RNN is one differentiable ``scan_block`` op in the
 parent block (``ops/control_flow_ops.py``) instead of the reference's
-recurrent op and its hand-written grad. ``While``, ``DynamicRNN`` and
-the tensor-array layers arrive with the decode slice.
+recurrent op and its hand-written grad. ``increment`` and
+``less_than`` are here for the learning-rate schedulers. ``While``,
+``DynamicRNN`` and the tensor-array layers arrive with the decode
+slice.
 """
 
 import contextlib
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["StaticRNN"]
+__all__ = ["StaticRNN", "increment", "less_than"]
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", {"X": [x]}, {"Out": [out]}, {"step": value})
+    return out
+
+
+def less_than(x, y, cond=None):
+    helper = LayerHelper("less_than")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool")
+    helper.append_op("less_than", {"X": [x], "Y": [y]}, {"Out": [cond]})
+    return cond
 
 
 class StaticRNN:

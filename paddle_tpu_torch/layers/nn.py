@@ -25,6 +25,8 @@ __all__ = [
     "elementwise_sub", "elementwise_mul", "mean", "scale", "softmax",
     "tanh", "topk", "accuracy", "reduce_sum", "reshape", "transpose",
     "squeeze", "unsqueeze", "flash_attention", "multi_head_attention",
+    "elementwise_div", "exp", "floor", "sign", "pow", "clip",
+    "clip_by_norm", "where", "autoincreased_step_counter",
 ]
 
 
@@ -374,6 +376,14 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return helper.append_activation(out)
 
 
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_div", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("elementwise_div", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"axis": axis})
+    return helper.append_activation(out)
+
+
 def mean(x, name=None):
     return _single_op("mean", x, name=name)
 
@@ -590,3 +600,51 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
     out = fc(ctx, d_model, num_flatten_dims=2, param_attr=param_attr,
              bias_attr=False)
     return (out, kc_out, vc_out) if cache is not None else out
+
+
+# ---- unary math, clipping and selection (the lr schedulers, clip.py
+# and regularizer.py emit these) ----
+
+def exp(x, name=None):
+    return _single_op("exp", x, name=name)
+
+
+def floor(x, name=None):
+    return _single_op("floor", x, name=name)
+
+
+def sign(x, name=None):
+    return _single_op("sign", x, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_op("pow", x, {"factor": factor}, name=name)
+
+
+def clip(x, min, max, name=None):
+    return _single_op("clip", x, {"min": min, "max": max}, name=name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op("clip_by_norm", x, {"max_norm": max_norm}, name=name)
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", {"Condition": [condition], "X": [x], "Y": [y]},
+                     {"Out": [out]})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter that one in-program ``increment`` op
+    advances by ``step`` each run, starting at ``begin``."""
+    from paddle_tpu_torch.layers.tensor import create_global_var
+    counter = create_global_var([1], begin - step, "int64", persistable=True,
+                                name=counter_name or "@STEP_COUNTER@")
+    helper = LayerHelper("step_counter")
+    helper.append_op("increment", {"X": [counter]}, {"Out": [counter]},
+                     {"step": float(step)})
+    counter.stop_gradient = True
+    return counter

@@ -1,15 +1,27 @@
 """Tensor layers.
 
-Capability parity: `python/paddle/fluid/layers/tensor.py`. This slice
-carries ``cast``, ``concat``, ``ones_like`` and ``position_ids``; the
-rest of the module's layers arrive with later slices.
+Capability parity: `python/paddle/fluid/layers/tensor.py`. The port
+carries ``create_global_var``, ``cast``, ``concat``, ``fill_constant``,
+``ones_like`` and ``position_ids``; the rest of the module's layers
+arrive with later slices.
 """
 
 import numpy as np
 
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["cast", "concat", "ones_like", "position_ids"]
+__all__ = ["create_global_var", "cast", "concat", "fill_constant",
+           "ones_like", "position_ids"]
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    from paddle_tpu_torch.initializer import Constant
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(shape=shape, dtype=dtype,
+                                        persistable=persistable)
+    helper.set_variable_initializer(var, Constant(value))
+    return var
 
 
 def cast(x, dtype):
@@ -24,6 +36,17 @@ def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     out = helper.create_variable_for_type_inference(helper.input_dtype())
     helper.append_op("concat", {"X": input}, {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("fill_constant", {}, {"Out": [out]},
+                     {"shape": [int(s) for s in shape],
+                      "dtype": np.dtype(dtype).name, "value": float(value)})
+    out.stop_gradient = True
     return out
 
 

@@ -52,6 +52,21 @@ def _elementwise(name, fn):
 _elementwise("add", torch.add)
 _elementwise("sub", torch.sub)
 _elementwise("mul", torch.mul)
+_elementwise("div", torch.div)
+_elementwise("min", torch.minimum)
+
+
+# ---- activations (activation_op.cc catalogue) ----
+
+_ACTIVATIONS = {
+    "exp": torch.exp,
+    "floor": torch.floor,
+    "cos": torch.cos,
+    "sign": torch.sign,
+}
+
+for _name, _fn in _ACTIVATIONS.items():
+    op(_name, seq_map=True)(lambda ctx, ins, attrs, o, fn=_fn: fn(_x(ins)))
 
 
 @op("gelu", seq_map=True)
@@ -70,6 +85,13 @@ def _tanh(ctx, ins, attrs, o):
     return torch.tanh(_x(ins))
 
 
+@op("pow")
+def _pow(ctx, ins, attrs, o):
+    return torch.pow(_x(ins), attrs.get("factor", 1.0))
+
+
+# ---- scale / clip / misc unary with attrs ----
+
 @op("scale")
 def _scale(ctx, ins, attrs, o):
     s = attrs.get("scale", 1.0)
@@ -77,6 +99,43 @@ def _scale(ctx, ins, attrs, o):
     if attrs.get("bias_after_scale", True):
         return _x(ins) * s + b
     return (_x(ins) + b) * s
+
+
+@op("clip")
+def _clip(ctx, ins, attrs, o):
+    return torch.clamp(_x(ins), attrs["min"], attrs["max"])
+
+
+@op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs, o):
+    x = _x(ins)
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return torch.where(norm > max_norm,
+                       x * (max_norm / torch.clamp(norm, min=1e-12)), x)
+
+
+@op("global_norm_clip", no_grad=True)
+def _global_norm_clip(ctx, ins, attrs, o):
+    """GradientClipByGlobalNorm as ONE fused op over every grad in the
+    group: factor = clip_norm / max(global_norm, clip_norm), one
+    sum-of-squares reduction instead of the reference's per-grad
+    squared_l2_norm + sum + sqrt op chain (`python/paddle/fluid/
+    clip.py:137`). The reduction runs in float32 whatever the
+    gradients' dtype. A row-sparse gradient has no producer in this
+    package yet (``lookup_table(is_sparse=True)`` raises in its grad):
+    anything but a dense tensor raises."""
+    gs = ins["X"]
+    for g in gs:
+        if not isinstance(g, torch.Tensor):
+            raise NotImplementedError(
+                "global_norm_clip: a row-sparse gradient (%s) arrives "
+                "with a later slice" % type(g).__name__)
+    gnorm_sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+                   for g in gs)
+    clip_norm = float(attrs["clip_norm"])
+    factor = clip_norm / torch.clamp(torch.sqrt(gnorm_sq), min=clip_norm)
+    return {"Out": [g * factor.to(g.dtype) for g in gs]}
 
 
 # ---- reductions ----
@@ -113,6 +172,13 @@ def _sum(ctx, ins, attrs, o):
     for x in xs[1:]:
         out = out + x
     return out
+
+
+# ---- comparisons (no grad) ----
+
+@op("less_than", no_grad=True)
+def _less_than(ctx, ins, attrs, o):
+    return torch.lt(_x(ins), _x(ins, "Y"))
 
 
 # ---- linear algebra ----

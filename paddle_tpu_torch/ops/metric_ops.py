@@ -21,5 +21,5 @@ def _accuracy(ctx, ins, attrs, o):
     hit = torch.any(idx == label[:, None], dim=1)
     return {"Accuracy": torch.mean(hit.to(torch.float32)),
             "Correct": torch.sum(hit.to(torch.int32)).to(torch.int32),
-            "Total": torch.tensor(idx.shape[0], dtype=torch.int32,
-                                  device=idx.device)}
+            "Total": torch.full((), idx.shape[0], dtype=torch.int32,
+                                device=idx.device)}

@@ -66,8 +66,9 @@ def _sequence_pad(ctx, ins, attrs, o):
     if pad_value is not None and pad_value != 0.0:
         m = s.mask(torch.bool)
         m = m.reshape(tuple(m.shape) + (1,) * (data.dim() - 2))
-        data = torch.where(m, data, torch.tensor(pad_value, dtype=data.dtype,
-                                                 device=data.device))
+        data = torch.where(m, data, torch.full((), pad_value,
+                                               dtype=data.dtype,
+                                               device=data.device))
     return {"Out": data, "Length": s.lengths.to(torch.int64)}
 
 

@@ -1,7 +1,8 @@
 """Tensor-manipulation op lowerings.
 
 Capability parity: reference cast/reshape/transpose/squeeze/unsqueeze/
-concat/top_k/assign/fill_constant/uniform_random/gaussian_random
+concat/top_k/assign/fill_constant/increment/where/uniform_random/
+gaussian_random
 (`paddle/fluid/operators/`, §2.3
 "Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
 lowers them, with its gradient flags. The module's other ops arrive
@@ -111,6 +112,20 @@ def _fill_constant(ctx, ins, attrs, o):
     shape = tuple(int(s) for s in attrs.get("shape", []))
     return torch.full(shape, attrs.get("value", 0.0), dtype=dtype,
                       device=ctx.device)
+
+
+@op("increment", no_grad=True)
+def _increment(ctx, ins, attrs, o):
+    x = _x(ins)
+    step = attrs.get("step", 1.0)
+    # keep the dtype: an int counter stays int (the JAX package casts
+    # the step to the counter's dtype)
+    return x + (step if x.is_floating_point() else int(step))
+
+
+@op("where", nondiff_inputs=("Condition",))
+def _where(ctx, ins, attrs, o):
+    return torch.where(ins["Condition"][0], _x(ins), _x(ins, "Y"))
 
 
 @op("uniform_random", no_grad=True)

@@ -2,7 +2,8 @@
 
 Capability parity: `python/paddle/fluid/optimizer.py` (Optimizer base
 :34, SGD :117, Momentum :126, Adam :361). ``minimize`` = append_backward + clip + regularization
-+ one update op per parameter. The learning-rate variable and the
++ one update op per parameter; a parameter's own learning rate
+(``ParamAttr(learning_rate=...)``) is a ``scale`` of the shared rate. The learning-rate variable and the
 accumulators are created exactly as the JAX package creates them (same
 names, shapes, initializers), so a training program and its startup
 serialize identically in both packages. The other optimizers arrive
@@ -45,10 +46,10 @@ class Optimizer:
 
     def _lr(self, param=None):
         if param is not None and param.optimize_attr:
-            if param.optimize_attr.get("learning_rate", 1.0) != 1.0:
-                raise NotImplementedError(
-                    "a per-parameter learning rate on %r emits a scale op, "
-                    "which arrives with a later slice" % param.name)
+            plr = param.optimize_attr.get("learning_rate", 1.0)
+            if plr != 1.0:
+                from paddle_tpu_torch.layers.nn import scale
+                return scale(self._lr_var, scale=plr)
         return self._lr_var
 
     # ---- accumulators ----

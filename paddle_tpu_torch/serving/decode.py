@@ -13,12 +13,21 @@ EOS/length/deadline. Exactly two program families serve every request:
   ``[num_slots, 1]`` run (free rows compute masked garbage; the active
   set is host bookkeeping).
 
-PyTorch runs eagerly: there is no compile step. ``warmup()`` runs every
-prefill bucket and the decode step once on a scratch cache (so the
-kernels are built and loaded and the allocator is warm before the first
-request), and ``compile_count()`` counts those warmed entries
-(``len(buckets) + 1``), as the JAX package counts its executables. The
-cache buffers live on the engine's device and are updated in place.
+On the card each program entry (the decode step, each prefill bucket)
+is a CUDA graph (``core/graphs.py``), the port's form of the JAX
+package's executables: ``warmup()`` runs each entry once eagerly on a
+scratch cache (the kernels are built and loaded, the library handles
+made) and captures it, and every later call replays it.
+``compile_count()`` counts the captured entries (``len(buckets) + 1``
+after warmup, frozen while a loop serves). A graph reads fixed token,
+position and slot buffers, the scope's state tensors, and the engine's
+cache buffers, which the cache in use holds (``_bind``): a cache that
+does not hold them has its values copied in and takes them, and the
+cache that held them before gets its values back in buffers of its own.
+``KVCache.reset()`` zeroes the buffers in place, so a ``DecodeLoop``
+that resets its cache after a failure keeps them. On the CPU the
+entries run eagerly. The cache buffers live on the engine's device and
+are updated in place.
 
 Scheduling is **continuous batching** (`DecodeLoop`): requests claim
 and release slots BETWEEN token steps. A finished short generation
@@ -39,12 +48,14 @@ hot-swap barrier (``DecodeLoop.request_swap``) arrive with later slices.
 import collections
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.executor import external_reads_and_writes
-from paddle_tpu_torch.core.lower import TraceContext, run_block, step_key
+from paddle_tpu_torch.core.executor import (external_reads_and_writes,
+                                            run_program)
+from paddle_tpu_torch.core.lower import step_key
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 from paddle_tpu_torch.serving.batcher import (Closed, DeadlineExceeded,
@@ -110,10 +121,17 @@ class DecodeEngine:
         self._state_names = self._validate(decode_program,
                                            (meta.tokens_name,
                                             meta.pos_name))
-        self._validate(prefill_program, (meta.tokens_name,
-                                         meta.slot_name))
+        self._prefill_state = self._validate(prefill_program,
+                                             (meta.tokens_name,
+                                              meta.slot_name))
         self._warm = set()
         self._ready = False
+        # key -> _EntryGraph on the card; None runs every entry eagerly
+        self._graphs = {} if self.device.type == "cuda" else None
+        # the buffers every graph reads as the cache, and the cache
+        # that holds them
+        self._cache_buffers = None
+        self._owner = None
 
     # ---- program validation (the ServingEngine contract) ----
 
@@ -174,7 +192,9 @@ class DecodeEngine:
     def swap_state(self, new_state):
         """Swap the decode weights: shapes, dtypes and device must match
         exactly. Call it between steps (on the decode loop's thread, or
-        with no loop running). Returns the previous state."""
+        with no loop running). The new values are copied into the
+        scope's tensors, which the graphs read; returns copies of the
+        previous state."""
         missing = sorted(set(self._state_names) - set(new_state))
         if missing:
             raise ValueError("swap state is missing %s" % (missing,))
@@ -189,19 +209,24 @@ class DecodeEngine:
                        new.dtype, tuple(new.shape), new.device))
         old = {}
         for n in self._state_names:
-            old[n] = self.scope.find_var(n)
-            self.scope.set_var(n, new_state[n])
+            cur = self.scope.find_var(n)
+            old[n] = cur.clone()
+            cur.copy_(new_state[n])
         return old
 
     def warmup(self):
-        """Run the decode step + every prefill bucket once on a scratch
-        cache; ``ready`` flips only after the LAST one ran. Returns
-        {key: seconds}."""
+        """Make the decode step + every prefill bucket ready: on the card
+        run each once on a scratch cache and capture it; on the CPU run
+        each once on a scratch cache. ``ready`` flips only after the
+        LAST one. Returns {key: seconds}."""
         times = {}
-        scratch = self.new_cache()
+        scratch = self.new_cache() if self._graphs is None else None
         for key in [("decode",)] + [("prefill", b) for b in self.buckets]:
             t0 = time.perf_counter()
-            if key[0] == "decode":
+            if self._graphs is not None:
+                if key not in self._graphs:
+                    self._capture(key)
+            elif key[0] == "decode":
                 self.decode_step(np.zeros(self.num_slots, np.int64),
                                  scratch)
             else:
@@ -217,22 +242,103 @@ class DecodeEngine:
 
     # ---- dispatch ----
 
+    def _program(self, key):
+        if key[0] == "decode":
+            return self.decode_program, self._state_names
+        return self.prefill_program, self._prefill_state
+
     def _run(self, key, feeds, cache):
-        program = self.decode_program if key[0] == "decode" \
-            else self.prefill_program
-        env = self._state()
+        if self._graphs is None:
+            return self._run_eager(key, feeds, cache)
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(key)
+        self._bind(cache)
+        for n, buf in g.state.items():
+            cur = self.scope.find_var(n)
+            if cur is not buf:      # a swap or a training step replaced it
+                buf.copy_(cur)
+                self.scope.set_var(n, buf)
+        for n, buf in g.feeds.items():
+            buf.copy_(torch.from_numpy(feeds[n]))
+        g.run.replay()
+        return g.logits
+
+    def _run_eager(self, key, feeds, cache):
+        program, names = self._program(key)
+        env = {n: self.scope.find_var(n) for n in names}
         env.update(cache.buffers)
         env.update({n: torch.from_numpy(v).to(self.device)
                     for n, v in feeds.items()})
-        ctx = TraceContext(key=step_key(program.random_seed, 0),
-                           training=False, program=program,
-                           device=self.device)
-        with torch.no_grad():
-            run_block(ctx, program.global_block(), env)
+        run_program(program, self.device, env,
+                    step_key(program.random_seed, 0), training=False)
         # the ops updated the buffers in place and re-emit them
         cache.buffers = {n: env[o] for n, o in self.meta.cache_outs.items()}
         self._warm.add(key)
         return env[self.meta.logits_name]
+
+    def _feeds(self, key):
+        """Zero feeds of an entry's shapes."""
+        if key[0] == "decode":
+            return {self.meta.tokens_name: np.zeros((self.num_slots, 1, 1),
+                                                    np.int64),
+                    self.meta.pos_name: np.zeros(self.num_slots, np.int32)}
+        return {self.meta.tokens_name: np.zeros((1, key[1]), np.int64),
+                self.meta.slot_name: np.zeros(1, np.int32)}
+
+    def _capture(self, key):
+        """Run entry ``key`` once eagerly on a scratch cache, on the
+        capture's side stream, then capture it over the engine's cache
+        buffers, fixed feed buffers and the scope's state tensors."""
+        from paddle_tpu_torch.core import graphs
+
+        program, names = self._program(key)
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._run_eager(key, self._feeds(key), self.new_cache())
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        if self._cache_buffers is None:
+            self._cache_buffers = self.new_cache().buffers
+        g = _EntryGraph()
+        g.state = {n: self.scope.find_var(n) for n in names}
+        g.feeds = {n: torch.from_numpy(v).to(dev)
+                   for n, v in self._feeds(key).items()}
+        g.run = graphs.CapturedRun(dev)
+
+        def body(rngs):
+            env = dict(g.state)
+            env.update(self._cache_buffers)
+            env.update(g.feeds)
+            run_program(program, dev, env, step_key(program.random_seed, 0),
+                        rngs=rngs, training=False)
+            for n, o in self.meta.cache_outs.items():
+                if env[o] is not self._cache_buffers[n]:
+                    raise RuntimeError(
+                        "%s: the cache output %r is not the cache buffer "
+                        "it updates in place" % (key, o))
+            return env[self.meta.logits_name]
+
+        g.logits = g.run.capture(body, stream)
+        self._graphs[key] = g
+        self._warm.add(key)
+        return g
+
+    def _bind(self, cache):
+        """Make ``cache`` hold the buffers the graphs read (module
+        docstring)."""
+        mine = self._cache_buffers
+        if all(cache.buffers[n] is t for n, t in mine.items()):
+            return
+        owner = self._owner() if self._owner is not None else None
+        if owner is not None and owner is not cache and all(
+                owner.buffers[n] is t for n, t in mine.items()):
+            owner.buffers = {n: t.clone() for n, t in mine.items()}
+        for n, t in mine.items():
+            t.copy_(cache.buffers[n])
+        cache.buffers = dict(mine)
+        self._owner = weakref.ref(cache)
 
     def prefill(self, prompt, slot, cache):
         """Ingest one prompt into cache row ``slot``. ``prompt`` is a
@@ -260,6 +366,13 @@ class DecodeEngine:
                 self.num_slots, 1, 1),
             self.meta.pos_name: cache.pos.copy()}, cache)
         return logits.float().cpu().numpy()
+
+
+class _EntryGraph:
+    """A captured prefill or decode entry: its graph (``CapturedRun``),
+    the state tensors and feed buffers it reads, its logits buffer."""
+
+    __slots__ = ("run", "state", "feeds", "logits")
 
 
 class Generation:

@@ -102,8 +102,13 @@ class KVCache:
                    for b in self.buffers.values())
 
     def reset(self):
-        """Zero everything (engine-failure recovery)."""
-        self.buffers = {n: torch.zeros(self.shape, dtype=self.dtype,
-                                       device=self.device)
-                        for n in self.meta.cache_names}
+        """Zero everything (engine-failure recovery), in place: a CUDA
+        graph of the engine that reads these buffers keeps reading them."""
+        if self.buffers:
+            for b in self.buffers.values():
+                b.zero_()
+        else:
+            self.buffers = {n: torch.zeros(self.shape, dtype=self.dtype,
+                                           device=self.device)
+                            for n in self.meta.cache_names}
         self.pos[:] = 0

@@ -230,6 +230,29 @@ class TestServingContract:
         assert engine.ready and engine.compile_count() == 3
         assert engine.bucket_for(1) == 8 and engine.bucket_for(9) == 16
 
+    def test_swap_state_copies_in_place_and_returns_copies(self, models):
+        """The scope keeps its tensors (on the card the engine's graphs
+        read them): the new values land in them, the old ones come back
+        as copies, and swapping those back restores the logits."""
+        engine, scope = models["tengine"], models["tscope"]
+        names = engine._state_names
+        held = {n: scope.find_var(n) for n in names}
+        before = {n: t.clone() for n, t in held.items()}
+        prompt = np.arange(1, 6)
+        ref = engine.prefill(prompt, 0, engine.new_cache())
+        old = engine.swap_state({n: t * 0.5 for n, t in before.items()})
+        try:
+            assert all(scope.find_var(n) is held[n] for n in names)
+            assert all(torch.equal(held[n], before[n] * 0.5) for n in names)
+            assert all(torch.equal(old[n], before[n]) for n in names)
+            assert not np.array_equal(
+                engine.prefill(prompt, 0, engine.new_cache()), ref)
+        finally:
+            engine.swap_state(old)
+        assert all(torch.equal(held[n], before[n]) for n in names)
+        np.testing.assert_array_equal(
+            engine.prefill(prompt, 0, engine.new_cache()), ref)
+
     def test_batch_too_large_past_the_ladder(self, models):
         engine = models["tengine"]
         with pytest.raises(BatchTooLarge):

@@ -212,7 +212,7 @@ def test_a_fetched_internal_activation_is_kept_and_equal():
         fetched[policy] = exe.run(prog, feed=_feed(),
                                   fetch_list=[loss, name], scope=scope)
         if policy is not None:
-            (_, run), = [(k, v[1]) for k, v in exe._plans.items()
+            (_, run), = [(k, v.program) for k, v in exe._plans.items()
                          if k[1] is not None]
             assert all(name not in s.internal
                        for s in run._remat_plan.segments)
