@@ -54,8 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, all started together, and read from the built libraries that
    the flash-attention forward, the fused 1x1 backward and the LSTM and
    GRU forwards and backwards run on the tensor cores (HMMA) fed
-   by asynchronous copies (LDGSTS, or the TMA's), and that the decode
-   kernel moves 16-byte words, all with no spills;
+   by asynchronous copies (LDGSTS), the bfloat16 flash-attention forward
+   and fused 1x1 backward on wgmma (HGMMA) fed by TMA (UTMALDG; the 1x1
+   backward by the loader its plan gives each instantiation), and that
+   the decode kernel moves 16-byte words, all with no spills;
 3. hold each kernel against its plain PyTorch version on the card (the
    decode kernel at head_dim 32, 64 and 128 and lengths around its
    chunks' and tiles' edges, on a cache on 4-byte boundaries, with NaN
@@ -68,9 +70,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    bits; the GRU kernels also at the widest H the backward's launch
    plan admits on the card; the batch-norm backward in bfloat16 at
    every distinct shape of config C, the fused 1x1 backward's config-D
-   shapes shown to be config B's; the bfloat16 flash-attention forward
-   at the serving and training shapes and a packed case, also against
-   float64; both flash-attention forwards twice to the same bits);
+   shapes shown to be config B's, and at odd shapes for each of its
+   loaders; the bfloat16 flash-attention forward at the serving and
+   training shapes, packed cases, sq != sk, not causal, head_dim 32, 40,
+   128 and 13, against the plain version walking the keys as the kernel
+   does and against float64; both flash-attention forwards twice to the
+   same bits; the fused 1x1 backward's dw error against float64 by its
+   chunk length in float32 and bfloat16);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine (which captures the decode step and each prefill bucket
    as a CUDA graph), push 24 mixed requests through a DecodeLoop, check
@@ -289,10 +295,23 @@ LM_XCHECK_B, LM_XCHECK_STEPS = 4, 3
 # model in float32 with attention dropout 0.1, remat off against
 # remat="blocks"
 MEM_WARMUP, MEM_STEPS = 2, 3
-# B1 in bfloat16: the training path's shape, the serving shapes, and a
-# packed (segment) case
-B1_BF16_CASES = ((1, 8, 32, 64, True, False), (1, 8, 160, 64, True, False),
-                 (16, 8, 512, 64, True, False), (2, 8, 160, 64, True, True))
+# B1 in bfloat16, (b, h, sq, sk, d, causal, segments): the training
+# path's shape, the serving shapes, a packed (segment) case, sq not a
+# multiple of the wgmma kernel's 128 rows, sq != sk both ways, not
+# causal, head_dim 32 and 128, and head_dim 40 (a multiple of 8 that
+# needs zero columns) and 13 (not one: the mma.sync kernel)
+B1_BF16_CASES = ((1, 8, 32, 32, 64, True, False),
+                 (1, 8, 160, 160, 64, True, False),
+                 (16, 8, 512, 512, 64, True, False),
+                 (2, 8, 160, 160, 64, True, True),
+                 (2, 4, 200, 200, 64, True, False),
+                 (2, 3, 200, 120, 64, False, False),
+                 (2, 3, 120, 200, 64, True, False),
+                 (2, 4, 256, 256, 64, False, True),
+                 (2, 2, 130, 130, 32, True, False),
+                 (1, 2, 200, 200, 128, True, True),
+                 (1, 2, 64, 100, 40, True, False),
+                 (1, 2, 17, 29, 13, True, False))
 
 # bench.py's recurrent runs under bf16 AMP (bench.py:159-218, 303-304)
 # feed every row at the full length, LSTM_T and S2S_T (bench.py:175-176,
@@ -337,8 +356,11 @@ BN_SHAPES = ((64, 112, 112, 64), (64, 7, 7, 2048), (5, 7, 9, 24),
              (3, 5, 7, 6))
 # (B, Ci, H, W, Co): B8 is checked at every distinct shape of the
 # ResNet-50 path (derived from the program: transformed_launches) and at these,
-# where no dimension fills a tile
-C1_EXTRA_SHAPES = ((3, 24, 5, 7, 40),)
+# where no dimension fills a tile: HW = 35 and 49 (bfloat16: bulk copies),
+# 100 (8-byte cp.async) and 81 (through registers), Ci and Co not
+# multiples of 64
+C1_EXTRA_SHAPES = ((3, 24, 5, 7, 40), (2, 40, 7, 7, 72),
+                   (2, 72, 10, 10, 48), (2, 24, 9, 9, 40))
 # dw chunk lengths (positions) of the precision sweep at 64 -> 256 @ 56x56
 C1_SWEEP_SHAPE = (64, 64, 56, 56, 256)
 C1_SWEEP_CHUNKS = (64, 256, 1024, 4096)
@@ -389,33 +411,55 @@ def card_line():
 
 
 # B1, B3, B4, B5, B6 and B8 run on the tensor cores fed by asynchronous
-# copies: (library, kernel function). cp.async shows as LDGSTS in the
-# SASS; the TMA's copies (UTMALDG, UBLKCP) count as well. The bfloat16 B8
-# whose rows start on 2-byte boundaries stages through registers
-# (cp.async copies 4 bytes or more).
+# copies: (library, kernel function). The mma.sync kernels show HMMA in
+# the SASS and cp.async as LDGSTS; the bfloat16 B1 and B8 on wgmma show
+# HGMMA and TMA loads (UTMALDG; bulk copies,
+# UBLKCP). Which loader an instantiation of the bfloat16 B8 runs is its
+# last template argument (kernels.conv1x1_bwd.LOADERS): TMA must show
+# UTMALDG, the bulk copies UBLKCP and UTMALDG (w), the 8-byte cp.async
+# copies LDGSTS; the one that stages through registers needs none.
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
                        ("flash_attention", "flash_fwd_bf16_kernel"),
+                       ("flash_attention", "flash_fwd_wgmma_kernel"),
                        ("conv1x1_bwd", "conv1x1_bwd_kernel"),
+                       ("conv1x1_bwd", "conv1x1_bwd_bf16_kernel"),
                        ("lstm_cell", "lstm_fwd_kernel"),
                        ("lstm_cell", "lstm_bwd_kernel"),
                        ("gru_cell", "gru_fwd_kernel"),
                        ("gru_cell", "gru_bwd_kernel"))
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "conv1x1_bwd_bf16_kernel")
+# the bf16 B8's kernel in a profile (the AMP paths' 1x1 backward)
+B8_BF16_KERNELS = ("conv1x1_bwd_bf16_kernel",)
 # B2 is bound by bytes and has no product for the tensor cores: its SASS
 # must move 16-byte words (LDGSTS of 16 bytes, or LDG.E.128)
 WIDE_LOAD_KERNELS = (("flash_attention", "flash_decode_kernel"),)
-SYNC_STAGED = "13__nv_bfloat16Li1E"
 ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
 # an LDGSTS or LDG with the .128 (16-byte) modifier
 WIDE_LOAD = re.compile(r"\b(LDGSTS|LDG)(\.[A-Z0-9_]+)*\.128\b")
+# the bfloat16 B8's loader: the last template argument
+C1_LOADER = re.compile(r"conv1x1_bwd_bf16_kernelILi\d+ELi\d+ELi(\d)E")
+
+
+def copies_wanted(fn):
+    """The copy instructions an instantiation must show: a tuple of
+    opcodes it needs all of, or of which any one will do (a list)."""
+    if "flash_fwd_wgmma_kernel" in fn:
+        return ("UTMALDG",)
+    m = C1_LOADER.search(fn)
+    if m:
+        return {0: ("UTMALDG",), 1: ("LDGSTS",), 2: (),
+                3: ("UBLKCP", "UTMALDG")}[int(m.group(1))]
+    return list(ASYNC_COPIES)
 
 
 def sass_check(build):
     """For every instantiation of the tensor-core kernels: registers,
-    stack and local memory from the built library, and its SASS's HMMA
-    (tensor-core) instructions, asynchronous copies (ASYNC_COPIES) and
-    local-memory loads and stores (spills). Fails where a kernel has no
-    HMMA, no asynchronous copy (but SYNC_STAGED), or spills. The kernels
-    of WIDE_LOAD_KERNELS must have 16-byte loads instead of HMMA."""
+    stack and local memory from the built library, and its SASS's
+    tensor-core instructions (HMMA, or HGMMA for WGMMA_KERNELS, which
+    must have them), its copies (copies_wanted) and local-memory loads and
+    stores (spills). Fails where a kernel lacks its tensor-core
+    instructions or its copies, or spills. The kernels of
+    WIDE_LOAD_KERNELS must have 16-byte loads instead."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, kernel in TENSOR_CORE_KERNELS + WIDE_LOAD_KERNELS:
         wide = (lib, kernel) in WIDE_LOAD_KERNELS
@@ -433,31 +477,44 @@ def sass_check(build):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = [0, 0, 0, 0]
+                counts[fn] = dict(HMMA=0, HGMMA=0, local=0, wide=0,
+                                  **{op: 0 for op in ASYNC_COPIES})
             elif fn is not None:
-                counts[fn][0] += "HMMA" in line
-                counts[fn][1] += any(op in line for op in ASYNC_COPIES)
-                counts[fn][2] += bool(re.search(r"\b(LDL|STL)\b", line))
-                counts[fn][3] += bool(WIDE_LOAD.search(line))
-        mine = sorted(f for f in counts if kernel in f)
+                c = counts[fn]
+                c["HMMA"] += "HMMA" in line
+                c["HGMMA"] += "HGMMA" in line
+                for op in ASYNC_COPIES:
+                    c[op] += op in line
+                c["local"] += bool(re.search(r"\b(LDL|STL)\b", line))
+                c["wide"] += bool(WIDE_LOAD.search(line))
+        # "flash_fwd_bf16_kernel" must not match "flash_fwd_wgmma_kernel"
+        mine = sorted(f for f in counts if re.search(kernel + r"I", f))
         if not mine:
             raise AssertionError("%s: no %s in its SASS" % (path, kernel))
         for f in mine:
-            hmma, copies, local, wide16 = counts[f]
+            c = counts[f]
             use = usage.get(f, "REG:? STACK:? SHARED:? LOCAL:?")
-            print("sass %s: %s; HMMA %d, asynchronous copies %d, 16-byte "
-                  "loads %d, local loads/stores %d" % (
-                      f, use, hmma, copies, wide16, local))
-            spills = local or "STACK:0 " not in use \
+            print("sass %s: %s; HMMA %d, HGMMA %d, %s, 16-byte loads %d, "
+                  "local loads/stores %d" % (
+                      f, use, c["HMMA"], c["HGMMA"],
+                      ", ".join("%s %d" % (op, c[op]) for op in ASYNC_COPIES),
+                      c["wide"], c["local"]))
+            spills = c["local"] or "STACK:0 " not in use \
                 or not use.endswith("LOCAL:0")
             if wide:
-                if wide16 == 0 or spills:
+                if c["wide"] == 0 or spills:
                     raise AssertionError("%s: no 16-byte loads, or spills"
                                          % f)
-            elif hmma == 0 or (copies == 0 and SYNC_STAGED not in f) \
-                    or spills:
-                raise AssertionError("%s: not a spill-free tensor-core "
-                                     "kernel fed by asynchronous copies" % f)
+                continue
+            tensor = c["HGMMA"] if kernel in WGMMA_KERNELS else c["HMMA"]
+            want = copies_wanted(f)
+            copies_ok = any(c[op] for op in want) if isinstance(want, list) \
+                else all(c[op] for op in want)
+            if tensor == 0 or not copies_ok or spills:
+                raise AssertionError(
+                    "%s: not a spill-free tensor-core kernel (%s) with its "
+                    "copies (%s)" % (f, "HGMMA" if kernel in WGMMA_KERNELS
+                                     else "HMMA", want))
 
 
 def assert_close(what, got, want, atol=ATOL, rtol=RTOL):
@@ -1503,7 +1560,9 @@ def check_conv1x1(k1, g, dev, shapes,
             f32 = dtype == torch.float32
             rtol, amax = (C1_RTOL, C1_AMAX) if f32 else (BF16_RTOL,
                                                          BF16_AMAX)
-            what = "conv1x1_bwd %s %s" % ((b, ci, h, w, co), dtype)
+            what = "conv1x1_bwd %s %s (%s)" % (
+                (b, ci, h, w, co), dtype,
+                k1.plan(b, ci, co, h * w, x.element_size()).loader)
             errs = {}
             for ref_name, ref in (("plain", plain), ("float64", truth)):
                 errs[ref_name] = [
@@ -1528,52 +1587,64 @@ def check_conv1x1(k1, g, dev, shapes,
 
 
 def c1_chunk_sweep(k1, build, g, dev):
-    """dw's error against float64 at C1_SWEEP_SHAPE in float32 when its
-    depth is cut into chunks of each length of C1_SWEEP_CHUNKS (the
-    plan's other numbers as plan() works them out for that chunk): the
-    longer a block's chain of tensor-core products, the more a truncating
-    accumulation shows. Each must hold the path's tolerance."""
+    """dw's error against float64 at C1_SWEEP_SHAPE when its depth is cut
+    into chunks of each length of C1_SWEEP_CHUNKS (the plan's other
+    numbers as plan() works them out for that chunk): the longer a
+    block's chain of tensor-core products, the more a truncating
+    accumulation shows. float32 (each 32-deep stage summed apart) must
+    hold the path's tolerance; bfloat16 (one accumulator a chunk, on
+    wgmma) the bfloat16 one, and the sweep shows how far inside it."""
     b, ci, h, w, co = C1_SWEEP_SHAPE
-    hw, j = h * w, b * h * w
-    x = torch.randn(b, ci, h, w, generator=g).to(dev)
-    wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).to(dev)
-    dy = torch.randn(b, co, h, w, generator=g).to(dev)
-    truth = k1.conv1x1_bwd_reference(x.double(), wt.double(), dy.double())[1]
-    top = float(truth.abs().max())
-    pl = k1.plan(b, ci, co, hw)
-    tiles = -(-co // pl.co_tile) * -(-ci // pl.ci_tile)
+    hw = h * w
     lib = build.load("conv1x1_bwd")
-    errs = []
-    for chunk in C1_SWEEP_CHUNKS:
-        splits = -(-j // chunk)
-        group = math.isqrt(splits - 1) + 1
-        partial = torch.empty((splits, co, ci), dtype=torch.float32,
-                              device=dev)
-        tickets = torch.zeros((tiles * (-(-splits // group) + 1),),
-                              dtype=torch.int32, device=dev)
-        dx, dw = torch.empty_like(x), torch.empty_like(wt)
-        rc = lib.conv1x1_bwd(x.data_ptr(), wt.data_ptr(), dy.data_ptr(),
-                             dx.data_ptr(), dw.data_ptr(),
-                             partial.data_ptr(), tickets.data_ptr(), b, ci,
-                             co, hw, splits, chunk, group, pl.order, 0,
-                             pl.ci_tile, pl.co_tile, int(pl.vec),
-                             torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError("conv1x1_bwd chunk %d: cudaError %d"
-                               % (chunk, rc))
-        err = (dw.double() - truth).abs()
-        tol = C1_AMAX * top + C1_RTOL * truth.abs()
-        e = float(err.max())
-        errs.append((chunk, e, bool((err <= tol).all())
-                     and bool(torch.isfinite(dw).all())))
-    print("conv1x1_bwd %s float32 dw vs float64 by chunk length (max|dw| "
-          "%.4g): %s" % (C1_SWEEP_SHAPE, top, "; ".join(
-              "chunk %d: %.4g (%.3g of max)%s" % (c, e, e / top,
-                                                  "" if ok else " OUTSIDE")
-              for c, e, ok in errs)))
-    if not all(ok for _, _, ok in errs):
-        raise AssertionError("conv1x1_bwd: dw outside rtol %g + %g max at "
-                             "some chunk length" % (C1_RTOL, C1_AMAX))
+    for dtype, rtol, amax in ((torch.float32, C1_RTOL, C1_AMAX),
+                              (torch.bfloat16, BF16_RTOL, BF16_AMAX)):
+        x = torch.randn(b, ci, h, w, generator=g).to(dtype).to(dev)
+        wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
+            .to(dtype).to(dev)
+        dy = torch.randn(b, co, h, w, generator=g).to(dtype).to(dev)
+        truth = k1.conv1x1_bwd_reference(x.double(), wt.double(),
+                                         dy.double())[1]
+        top = float(truth.abs().max())
+        pl = k1.plan(b, ci, co, hw, x.element_size())
+        depth = b * pl.hw_pad
+        tiles = -(-co // pl.co_tile) * -(-ci // pl.ci_tile)
+        errs = []
+        for chunk in C1_SWEEP_CHUNKS:
+            splits = -(-depth // chunk)
+            group = math.isqrt(splits - 1) + 1
+            partial = torch.empty((splits, co, ci), dtype=torch.float32,
+                                  device=dev)
+            tickets = torch.zeros((tiles * (-(-splits // group) + 1),),
+                                  dtype=torch.int32, device=dev)
+            dx, dw = torch.empty_like(x), torch.empty_like(wt)
+            if dtype == torch.bfloat16:
+                fn, last = lib.conv1x1_bwd_bf16, k1.LOADERS[pl.loader]
+            else:
+                fn, last = lib.conv1x1_bwd, int(pl.vec)
+            rc = fn(x.data_ptr(), wt.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
+                    tickets.data_ptr(), b, ci, co, hw, splits, chunk, group,
+                    pl.order, pl.ci_tile, pl.co_tile, last,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError("conv1x1_bwd %s chunk %d: cudaError %d"
+                                   % (dtype, chunk, rc))
+            err = (dw.double() - truth).abs()
+            tol = amax * top + rtol * truth.abs()
+            e = float(err.max())
+            errs.append((chunk, e, bool((err <= tol).all())
+                         and bool(torch.isfinite(dw).all())))
+        print("conv1x1_bwd %s %s dw vs float64 by chunk length (max|dw| "
+              "%.4g, loader %s): %s" % (C1_SWEEP_SHAPE, dtype, top,
+                                        pl.loader, "; ".join(
+            "chunk %d: %.4g (%.3g of max)%s" % (c, e, e / top,
+                                                "" if ok else " OUTSIDE")
+            for c, e, ok in errs)))
+        if not all(ok for _, _, ok in errs):
+            raise AssertionError("conv1x1_bwd %s: dw outside rtol %g + %g "
+                                 "max at some chunk length"
+                                 % (dtype, rtol, amax))
     torch.cuda.synchronize()
 
 
@@ -2062,7 +2133,7 @@ def convnet_bench_phase(fluid, seed, dev):
                  "conv1x1_bwd": per_step[config][1] * TRAIN_STEPS},
                 {"bn_grad": inside[config][0] * TRAIN_STEPS,
                  "conv1x1_bwd": inside[config][1] * TRAIN_STEPS},
-                B7_KERNELS if config == "C" else "conv1x1_bwd_kernel")[key]
+                B7_KERNELS if config == "C" else B8_BF16_KERNELS)[key]
         finally:
             set_fused(False)
         del scope
@@ -2189,7 +2260,7 @@ def other_model(fluid, exe, name, kw, seed, dev, kbn, k1, set_fused):
                                            fetch_list=[loss], scope=scope),
                            1, step_ms, "%s step" % name,
                            share_of=B7_KERNELS if n_b7
-                           else "conv1x1_bwd_kernel")
+                           else B8_BF16_KERNELS)
     finally:
         set_fused(False)
     del scope
@@ -2203,20 +2274,23 @@ def same_bits(what, first, second):
 
 
 def check_b1_bf16(fa, g, dev):
-    """B1 in bfloat16 at B1_BF16_CASES against its plain version (O at
-    one bfloat16 rounding, the log-sum-exp at ATOL/RTOL), against a
-    float64 softmax attention on the same bfloat16 values (O at one
-    bfloat16 rounding), and run twice to the same bits. Returns the
-    largest error against the plain version."""
+    """B1 in bfloat16 at B1_BF16_CASES against its plain version walking
+    the keys as the kernel the plan picks does (``fwd_plan``: O at one
+    bfloat16 rounding, the log-sum-exp at ATOL/RTOL), against a float64
+    softmax attention on the same bfloat16 values (O at one bfloat16
+    rounding), and run twice to the same bits. Returns the largest error
+    against the plain version."""
     worst = 0.0
-    for b, h, s, d, causal, seg in B1_BF16_CASES:
-        q, k, v = (torch.randn(b, h, s, d, generator=g).to(torch.bfloat16)
-                   .to(dev) for _ in range(3))
+    for b, h, sq, sk, d, causal, seg in B1_BF16_CASES:
+        q = torch.randn(b, h, sq, d, generator=g).to(torch.bfloat16).to(dev)
+        k, v = (torch.randn(b, h, sk, d, generator=g).to(torch.bfloat16)
+                .to(dev) for _ in range(2))
         segs = None
-        if seg:
-            ids = torch.sort(torch.randint(0, 3, (b, s), generator=g),
+        if seg:   # queries' ids = keys' (sq == sk)
+            ids = torch.sort(torch.randint(0, 3, (b, sq), generator=g),
                              dim=1)[0].to(torch.int32).to(dev)
             segs = (ids, ids)
+        pl = fa.fwd_plan(b, h, sq, sk, d)
         n0 = dict(fa.launches)
         ko, kl = fa.flash_attention(q, k, v, causal=causal,
                                     segment_ids=segs, return_lse=True)
@@ -2225,9 +2299,11 @@ def check_b1_bf16(fa, g, dev):
                 fa.launches["flash_attention"] != n0["flash_attention"]:
             raise AssertionError("a bfloat16 call must launch the "
                                  "bfloat16 kernel once: %s" % fa.launches)
-        ro, rl = fa.flash_attention_reference(q, k, v, causal, None, segs)
-        what = "flash_attention_bf16 %s causal=%s seg=%s" % (
-            (b, h, s, d), causal, seg)
+        ro, rl = fa.flash_attention_reference(
+            q, k, v, causal, None, segs, block_q=pl["walk_q"],
+            block_k=pl["block_k"], key_split=pl["key_split"])
+        what = "flash_attention_bf16 %s causal=%s seg=%s (%s)" % (
+            (b, h, sq, sk, d), causal, seg, pl["loader"])
         same_bits(what, (ko, kl), fa.flash_attention(
             q, k, v, causal=causal, segment_ids=segs, return_lse=True))
         e = rel_close(what + " O", ko.float(), ro.to(torch.bfloat16).float(),
@@ -2236,9 +2312,10 @@ def check_b1_bf16(fa, g, dev):
         # float64: softmax(q k^T scale + mask) v on the bfloat16 values
         sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) \
             * d ** -0.5
-        ok = torch.ones(s, s, dtype=torch.bool, device=dev)
+        ok = torch.ones(sq, sk, dtype=torch.bool, device=dev)
         if causal:
-            ok = ok.tril()
+            ok = torch.arange(sq, device=dev)[:, None] >= \
+                torch.arange(sk, device=dev)[None, :]
         ok = ok[None, None]
         if segs is not None:
             ok = ok & (segs[0][:, None, :, None] == segs[1][:, None, None, :])
@@ -2345,7 +2422,8 @@ def transformer_phase(fluid, seed, dev):
     device_profile(lambda: exe.run(prog, feed=feed, fetch_list=[loss],
                                    scope=scope),
                    1, step_ms, "transformer step (bf16 AMP)",
-                   share_of="flash_fwd_bf16_kernel")
+                   share_of=("flash_fwd_wgmma_kernel",
+                             "flash_fwd_bf16_kernel"))
     # B1's backward (plain PyTorch) at the path's shape, a step's worth
     b, h, s, d = LM_B, LM["num_heads"], LM["seq_len"], \
         LM["d_model"] // LM["num_heads"]
@@ -2876,9 +2954,11 @@ def main():
     phase("build")
     t0 = time.perf_counter()
     _build.load_all()
-    print("built %s in %.2f s (nvcc %s)" % (
-        sorted(_build.SOURCES), time.perf_counter() - t0,
-        " ".join(_build.NVCC_FLAGS)))
+    print("built %s in %.2f s (nvcc %s); each library's nvcc, all started "
+          "together: %s" % (
+              sorted(_build.SOURCES), time.perf_counter() - t0,
+              " ".join(_build.NVCC_FLAGS), json.dumps(
+                  {k: round(v, 2) for k, v in _build.build_seconds.items()})))
     sass_check(_build)
 
     # ---- 3. kernels against their plain versions ----

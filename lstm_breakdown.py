@@ -5,6 +5,8 @@ B6), or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
     python3 lstm_breakdown.py --gru      # B5 at [64, T, 512]
     python3 lstm_breakdown.py --gru-bwd  # B6 at [64, T, 512]
     python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
+    python3 lstm_breakdown.py --flash-bf16   # bf16 B1 at [16, 8, 512, 64]
+    python3 lstm_breakdown.py --conv1x1-bf16 # bf16 B8 at config D's shapes
 
 Builds variants of a kernel's source under ``paddle_tpu_torch/csrc/``
 (and of the headers it shares) with one part changed or switched off,
@@ -51,8 +53,20 @@ it (clean lines), and warm (the cache already in L2). Its variants:
 * ``empty``: every block returns at once (launch and scheduling only).
 
 Also the events alone (no kernel between them) and
-``F.scaled_dot_product_attention`` over the valid prefix. Needs a card
-and ``nvcc``; builds into ``build/lstm_breakdown/``.
+``F.scaled_dot_product_attention`` over the valid prefix.
+
+The bfloat16 flash-attention forward on wgmma (``--flash-bf16``) is
+timed at the transformer's [16, 8, 512, 64], causal and not, beside
+SDPA in bfloat16. Its variants: ``noqk`` (no S = Q K^T product),
+``nosoftmax`` (P = S / 1000: no exponentials, no rescaling), ``nopv``
+(no O += P V product), ``nostore`` (O is not stored). The bfloat16 fused
+1x1 backward (``--conv1x1-bf16``) is timed at one config-D shape for each
+of its loaders (TMA at 56x56 and 28x28, 8-byte cp.async at 14x14, bulk
+copies at 7x7) beside cuDNN's bfloat16 ``convolution_backward``; its
+variants: ``nomma`` (no wgmma product), ``norelayout`` (the bulk copies
+are not swizzled into the tiles).
+
+Needs a card and ``nvcc``; builds into ``build/lstm_breakdown/``.
 """
 
 import argparse
@@ -112,6 +126,35 @@ EDITS = {
                  "  if (g == 0) out[(size_t)bh * D + 4 * t] = acc[0][0] + l;"
                  "\n  return;\n  float* slot = slots;")],
     "empty": [(ARRIVE, "  if (S >= 0) return;\n" + ARRIVE)],
+    "noqk": [("        hopper::wgmma_ss_n64<0, 0>(\n            s, desc(q_addr",
+              "        if (kk < 0) hopper::wgmma_ss_n64<0, 0>(\n"
+              "            s, desc(q_addr")],
+    "nosoftmax": [("          s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1]));",
+                   "          s[i] = s[i] * 0.001f;"),
+                  ("        alpha[h] = ex2((m[h] - m_new) * kLog2e);",
+                   "        alpha[h] = 1.f;")],
+    "nopv": [("            hopper::wgmma_rs_n64<1>(acc[n], pa[c], dv, 1);",
+              "            { if (c < 0) hopper::wgmma_rs_n64<1>(acc[n], pa[c],"
+              " dv, 1); }"),
+             ("            hopper::wgmma_rs_n32<1>(acc[n], pa[c], dv, 1);",
+              "            { if (c < 0) hopper::wgmma_rs_n32<1>(acc[n], pa[c],"
+              " dv, 1); }")],
+    "nostore": [("  if (wi == 0 && lane == 0) {\n#pragma unroll\n"
+                 "    for (int sub = 0;",
+                 "  if (wi < 0) {\n#pragma unroll\n    for (int sub = 0;")],
+    "nomma": [("        hopper::wgmma_ss_n64<TA, TB>(acc[n], da, db, 1);",
+               "        { if (kk < 0) hopper::wgmma_ss_n64<TA, TB>(acc[n], da,"
+               " db, 1); }"),
+              ("        hopper::wgmma_ss_n32<TA, TB>(acc[n], da, db, 1);",
+               "        { if (kk < 0) hopper::wgmma_ss_n32<TA, TB>(acc[n], da,"
+               " db, 1); }")],
+    "norelayout": [("      relayout_rows(swzbuf, lin, min(CO_T, Co - m0), HW,"
+                    " tid);\n      relayout_rows(swzbuf + A_SUBS * kSubBytes,"
+                    " lin + CO_T * HW,\n                    min(CI_T, Ci - n0),"
+                    " HW, tid);", ""),
+                   ("        for (int i = 0; i < imgs; ++i)\n          relayout("
+                    "swzbuf, lin + i * kBK * HW, rows, HW, i * HW, warp, lane);",
+                    "")],
 }
 LSTM_VARIANTS = {"kernels": [], "nowait": ["nowait"], "nomma": ["nomma"],
                  "nowait+nomma": ["nowait", "nomma"],
@@ -128,6 +171,13 @@ GRU_BWD_VARIANTS = {"kernel": [], "nomma": ["nomma"], "nowait": ["nowait"],
                                                "nopartner"]}
 DECODE_VARIANTS = {"kernel": [], **{name: [name] for name in (
     "stages4", "n1", "n4", "noload", "nomerge", "empty")}}
+FLASH_BF16_VARIANTS = {"kernel": [], **{name: [name] for name in (
+    "noqk", "nosoftmax", "nopv", "nostore")}}
+C1_BF16_VARIANTS = {"kernel": [], "nomma": ["nomma"],
+                    "norelayout": ["norelayout"]}
+# (B, Ci, H, W, Co): one config-D shape for each loader of the bf16 B8
+C1_BF16_SHAPES = ((64, 64, 56, 56, 256), (64, 128, 28, 28, 512),
+                  (64, 256, 14, 14, 1024), (64, 512, 7, 7, 2048))
 B, H = 64, 512
 DECODE_SHAPE = (16, 8, 512, 64)
 
@@ -297,6 +347,47 @@ def decode(out_dir, dev, g):
                 flush=True)
 
 
+def flash_bf16(out_dir, dev, g):
+    libs = build(out_dir, "flash_attention", FLASH_BF16_VARIANTS)
+    q, k, v = (torch.randn(*DECODE_SHAPE, generator=g).bfloat16().to(dev)
+               for _ in range(3))
+    print("plan at %s: %s" % (list(DECODE_SHAPE), fa.fwd_plan(
+        *DECODE_SHAPE[:3], DECODE_SHAPE[2], DECODE_SHAPE[3])))
+    for causal in (True, False):
+        for name, lib in libs.items():
+            _build._libs["flash_attention"] = lib
+            print("causal=%-5s %-10s %.2f us" % (causal, name, 1e3 * time_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal), 25)),
+                flush=True)
+        print("causal=%-5s %-10s %.2f us" % (causal, "sdpa", 1e3 * time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal), 25)),
+            flush=True)
+
+
+def conv1x1_bf16(out_dir, dev, g):
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    libs = build(out_dir, "conv1x1_bwd", C1_BF16_VARIANTS)
+    for b, ci, h, w, co in C1_BF16_SHAPES:
+        x = torch.randn(b, ci, h, w, generator=g).bfloat16().to(dev)
+        wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5) \
+            .bfloat16().to(dev)
+        dy = torch.randn(b, co, h, w, generator=g).bfloat16().to(dev)
+        loader = k1.plan(b, ci, co, h * w, 2).loader
+        for name, lib in libs.items():
+            _build._libs["conv1x1_bwd"] = lib
+            print("%s %-9s %-10s %.2f us" % (
+                [b, ci, h, w, co], loader, name,
+                1e3 * time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), 10)),
+                flush=True)
+        print("%s %-9s %-10s %.2f us" % (
+            [b, ci, h, w, co], loader, "cudnn", 1e3 * time_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    dy, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0],
+                    1, [True, True, False]), 10)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -306,6 +397,10 @@ def main():
                       help="break down B6 (gru_bwd) instead")
     mode.add_argument("--decode", action="store_true",
                       help="break down B2 (flash_decode) instead")
+    mode.add_argument("--flash-bf16", action="store_true",
+                      help="break down the bfloat16 B1 (wgmma) instead")
+    mode.add_argument("--conv1x1-bf16", action="store_true",
+                      help="break down the bfloat16 B8 (wgmma) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("lstm_breakdown: no CUDA device")
@@ -314,7 +409,8 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     g = torch.Generator().manual_seed(0)
     run = (decode if args.decode else gru if args.gru
-           else gru_bwd if args.gru_bwd else lstm)
+           else gru_bwd if args.gru_bwd else flash_bf16 if args.flash_bf16
+           else conv1x1_bf16 if args.conv1x1_bf16 else lstm)
     run(out_dir, dev, g)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

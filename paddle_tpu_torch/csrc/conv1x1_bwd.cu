@@ -1,12 +1,13 @@
 // Fused dx + dw backward of a 1x1, stride-1, NCHW convolution for Hopper
-// (sm_90a) (B8).
+// (sm_90a) (B8): a float32 kernel on 3xTF32 mma.sync and a bfloat16 one
+// on wgmma.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// and bound with ctypes: the entry point below is `extern "C"`, takes raw
-// device pointers and a stream, launches on that stream without
-// synchronising, allocates nothing, and returns the cudaError_t of the
+// and bound with ctypes: the entry points below are `extern "C"`, take raw
+// device pointers and a stream, launch on that stream without
+// synchronising, allocate nothing, and return the cudaError_t of the
 // launch (0 on success).
 //
 // Replaces paddle_tpu/kernels/conv1x1_bwd.py `_bwd_kernel` (the
@@ -36,8 +37,8 @@
 // the block's sum in float32: 5-6e-7 of max|dw| at every chunk length,
 // under the cuBLAS einsums' 1e-6 (PERF.md; chip_smoke.py sweeps the
 // chunk length).
-// bfloat16 values are exact in TF32, so the bfloat16 kernel does the one
-// big*big product.
+// The bfloat16 kernel (conv1x1_bwd_bf16_kernel, below) keeps this plan
+// and runs its products on bf16 wgmma, fed by TMA (see there).
 //
 // Design. The TPU kernel walks the images one after another, keeps one
 // image's dy block and ALL of dw resident in fast memory, and forms both
@@ -69,9 +70,8 @@
 // stage: 16-byte copies where every staged row starts on a 16-byte
 // boundary (HW and Ci multiples of 16 bytes' worth of elements, and the
 // tensors 16-byte aligned), 4-byte copies otherwise (HW = 49 and the
-// odd test shapes; bfloat16 rows there start on 2-byte boundaries,
-// below cp.async's grain, and go through registers). Rows are padded so
-// that the fragment loads hit 32 banks.
+// odd test shapes). Rows are padded so that the fragment loads hit 32
+// banks.
 //
 // A dx tile leaves through shared memory as 16-byte stores along the
 // positions.
@@ -102,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -112,6 +113,7 @@ using tf32x3::cp_commit;
 using tf32x3::cp_wait;
 using tf32x3::mma;
 using tf32x3::smem_u32;
+using tf32x3::split;
 
 constexpr int kThreads = 256;
 constexpr int kWarpsM = 2, kWarpsN = 4;
@@ -123,21 +125,11 @@ constexpr int kInterleave = 0, kDxFirst = 1, kDwFirst = 2;
 
 template <typename T> struct Elem;
 template <> struct Elem<float> {
-  static constexpr int kVec = 4;     // elements in 16 bytes
   static constexpr int kPadK = 4;    // 36-float rows: banks 4g + t
-  static constexpr bool kSplit = true;
-};
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static constexpr int kPadK = 8;    // rows stay 16-byte aligned
-  static constexpr bool kSplit = false;
 };
 constexpr int kPadMN = 8;            // BM + 8 floats: banks 8t + g
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -146,24 +138,6 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
 // one element
 __device__ __forceinline__ void cp1(float* dst, const float* src, bool ok) {
   cp4(dst, src, ok);
-}
-// bfloat16 rows may start on 2-byte boundaries, below cp.async's grain
-__device__ __forceinline__ void cp1(__nv_bfloat16* dst,
-                                    const __nv_bfloat16* src, bool ok) {
-  *dst = ok ? *src : __float2bfloat16(0.f);
-}
-
-// the 3xTF32 split (tf32x3.cuh) of a float32 operand; a bfloat16 value is
-// exact in TF32 and needs no small part
-template <bool SPLIT>
-__device__ __forceinline__ void split(float v, unsigned& big,
-                                      unsigned& small) {
-  if (SPLIT) {
-    tf32x3::split(v, big, small);
-  } else {
-    big = __float_as_uint(v);
-    small = 0u;
-  }
 }
 
 // Four 8 x 4 float32 matrices from shared memory, one register each:
@@ -199,7 +173,7 @@ struct Stage {
   }
 };
 
-// V elements: one 16-byte copy (V = Elem<T>::kVec) or one element
+// V elements: one 16-byte copy (V = 4) or one element
 template <int V, typename T>
 __device__ __forceinline__ void copy(T* dst, const T* src, bool ok) {
   if constexpr (V == 1)
@@ -219,9 +193,8 @@ template <typename T, typename S>
 __device__ __forceinline__ void stage_mma(const T* s, int wm0, int wn0,
                                           int lane,
                                           float (&acc)[S::MT][S::NT][4]) {
-  constexpr bool SPLIT = Elem<T>::kSplit;
-  // float32 K-major tiles (dw) load their fragments with ldmatrix
-  constexpr bool LDSM = S::KMAJ && sizeof(T) == 4;
+  // K-major tiles (dw) load their fragments with ldmatrix
+  constexpr bool LDSM = S::KMAJ;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 8) {
@@ -236,7 +209,7 @@ __device__ __forceinline__ void stage_mma(const T* s, int wm0, int wn0,
                      4 * (q >> 1));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          split<SPLIT>(__uint_as_float(v[i]), ab[mt][i], as[mt][i]);
+          split(__uint_as_float(v[i]), ab[mt][i], as[mt][i]);
       }
 #pragma unroll
       for (int nt = 0; nt < S::NT; nt += 2) {
@@ -245,35 +218,33 @@ __device__ __forceinline__ void stage_mma(const T* s, int wm0, int wn0,
                      kk + 4 * (q & 1));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          split<SPLIT>(__uint_as_float(v[i]), bb[nt + (i >> 1)][i & 1],
+          split(__uint_as_float(v[i]), bb[nt + (i >> 1)][i & 1],
                        bs[nt + (i >> 1)][i & 1]);
       }
     } else {
 #pragma unroll
       for (int mt = 0; mt < S::MT; ++mt) {
         const int m = wm0 + mt * 16 + g;
-        split<SPLIT>(S::a(s, m, kk + t), ab[mt][0], as[mt][0]);
-        split<SPLIT>(S::a(s, m + 8, kk + t), ab[mt][1], as[mt][1]);
-        split<SPLIT>(S::a(s, m, kk + t + 4), ab[mt][2], as[mt][2]);
-        split<SPLIT>(S::a(s, m + 8, kk + t + 4), ab[mt][3], as[mt][3]);
+        split(S::a(s, m, kk + t), ab[mt][0], as[mt][0]);
+        split(S::a(s, m + 8, kk + t), ab[mt][1], as[mt][1]);
+        split(S::a(s, m, kk + t + 4), ab[mt][2], as[mt][2]);
+        split(S::a(s, m + 8, kk + t + 4), ab[mt][3], as[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < S::NT; ++nt) {
         const int n = wn0 + nt * 8 + g;
-        split<SPLIT>(S::b(s, kk + t, n), bb[nt][0], bs[nt][0]);
-        split<SPLIT>(S::b(s, kk + t + 4, n), bb[nt][1], bs[nt][1]);
+        split(S::b(s, kk + t, n), bb[nt][0], bs[nt][0]);
+        split(S::b(s, kk + t + 4, n), bb[nt][1], bs[nt][1]);
       }
     }
-    if (SPLIT) {
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+    for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt) mma(acc[mt][nt], as[mt], bb[nt]);
+      for (int nt = 0; nt < S::NT; ++nt) mma(acc[mt][nt], as[mt], bb[nt]);
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+    for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt) mma(acc[mt][nt], ab[mt], bs[nt]);
-    }
+      for (int nt = 0; nt < S::NT; ++nt) mma(acc[mt][nt], ab[mt], bs[nt]);
 #pragma unroll
     for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
@@ -479,7 +450,7 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ partial,
 }
 
 // CI_T: the tile over Ci (dx rows, dw columns); CO_T: over Co (dw rows).
-// V: elements a copy, Elem<T>::kVec (16 bytes) or 1.
+// V: elements a copy, 4 (16 bytes) or 1.
 template <typename T, int V, int CI_T, int CO_T>
 __global__ void __launch_bounds__(kThreads, 1)
 conv1x1_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -707,29 +678,764 @@ cudaError_t pick(int ci_tile, int co_tile, const void* x, const void* w,
 
 bool tile_ok(int v) { return v == 64 || v == 128; }
 
+// ---- bfloat16: wgmma, fed by TMA where the rows allow it ----
+//
+// The bfloat16 kernel keeps the float32 kernel's plan (the two roles in
+// one grid, their block order, dw's chunks and its two-level sum with
+// tickets) and runs its products as wgmma.m64nNk16 bf16 -> float32, both
+// operands read from shared memory by descriptor: no fragment is loaded
+// by a lane. A stage is 64 deep (one 128-byte swizzle row of bf16) and
+// every tile is a stack of [64 rows][64 columns] sub-tiles in the
+// 128-byte swizzle (hopper.cuh), the columns being the operand's
+// contiguous dim in device memory:
+//   dx role  A = w^T: sub-tiles [64 co][64 ci], MN-major (ci contiguous);
+//            B = dy:  sub-tiles [64 co][64 positions], MN-major;
+//   dw role  A = dy:  sub-tiles [64 co][64 positions], K-major;
+//            B = x:   sub-tiles [64 ci][64 positions], K-major.
+// The block's two warpgroups split the tile: 64 rows each where it has
+// 128, else half of its columns each.
+//   Loaders (kernels/conv1x1_bwd.py `plan` chooses by shape, never on a
+// failed launch):
+// * TMA where every row starts on a 16-byte boundary (HW and Ci multiples
+//   of 8, the tensors 16-byte aligned: 56x56 and 28x28). One thread
+//   issues a stage's boxes of [b][channel][position] maps against the
+//   slot's "full" mbarrier; a __syncthreads a stage frees the slot it
+//   refills. A box never crosses an image, so each image's positions are
+//   cut into tiles of their own (the last zero-filled past HW).
+// * bulk copies where an image's rows of 64 channels lie in one 16-byte
+//   aligned run (HW <= 64, Ci and Co multiples of 8: 7x7 and the odd
+//   test shapes): one cp.async.bulk a run, as it lies (w still by TMA),
+//   then the block's threads swizzle it in shared memory (relayout) and
+//   fence it for wgmma. A dx tile takes 128 / HW whole images.
+// * 8-byte cp.async copies where the rows start on 8-byte boundaries (HW
+//   and Ci multiples of 4: 14x14), else one element a thread through
+//   registers, over positions j = b HW + p taken straight across images.
+//   Accumulation: one float32 accumulator per chunk of dw's depth. The
+// float32 kernel sums each 32-deep stage apart because its 3xTF32 sums
+// must hold 1e-4 of max|dw|; a chain over a whole chunk drifts by about
+// 1e-5 of max|dw| (PERF.md), far inside the bfloat16 tolerance (4e-3 of
+// max|dw|), and chip_smoke.py's chunk sweep prints it for this kernel.
+
+constexpr int kBK = 64;               // depth of a bf16 stage
+constexpr int kSubBytes = 64 * 128;   // a [64][64] bf16 sub-tile
+constexpr int kBfStages = 3;        // two blocks an SM fit
+constexpr int kBulkStages = 2;      // the same with the swizzled tiles
+// the loaders (the plan's `loader`)
+constexpr int kTma = 0, kCpAsync = 1, kRegisters = 2, kBulk = 3;
+using bf16 = __nv_bfloat16;
+
+template <int CI_T, int CO_T>
+struct Bf16Tiles {
+  static constexpr int DX_SUBS = CI_T / 64 + kDxBN / 64;   // w, then dy
+  static constexpr int DW_SUBS = CO_T / 64 + CI_T / 64;    // dy, then x
+  static constexpr int STAGE =
+      (DX_SUBS > DW_SUBS ? DX_SUBS : DW_SUBS) * kSubBytes;
+  static constexpr int BYTES = 1024 + kBfStages * STAGE;
+  // kBulk: a ring of kBulkStages holds the copies as they lie in device
+  // memory, and one more stage's room takes the swizzled tiles
+  static constexpr int BULK_BYTES = 1024 + (kBulkStages + 1) * STAGE;
+  static constexpr int LDC = kDxBN + kPadMN;   // the dx tile's float rows
+};
+
+// byte offset of element (r, c) of a [64][64] bf16 sub-tile in the
+// 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// 16 bytes of shared memory from byte address b (2-byte aligned): five
+// aligned words, shifted into place
+__device__ __forceinline__ uint4 ld16_at(unsigned b) {
+  const unsigned a = b & ~3u, sh = (b & 2u) * 8;
+  unsigned w[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w[i]) : "r"(a + 4 * i));
+  return make_uint4(__funnelshift_r(w[0], w[1], sh),
+                    __funnelshift_r(w[1], w[2], sh),
+                    __funnelshift_r(w[2], w[3], sh),
+                    __funnelshift_r(w[3], w[4], sh));
+}
+
+// element e of a 16-byte chunk (8 bf16), as the low or high half of its word
+__device__ __forceinline__ unsigned word_of(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// kBulk, dw role: rows [0, rows_valid) of a [rows][HW] chunk as it lies
+// in shared memory at `src` (HW <= 64) into the swizzled tile at `dst`,
+// element (r, p) at row r, column p; 16 bytes at a time: the 8 columns
+// of a destination chunk are 8 positions in a row of the source, read as
+// 5 aligned words and shifted into place (the source rows start on
+// 2-byte boundaries). Columns past HW are written as zeros; rows past
+// rows_valid and chunks wholly past HW are left as they are (zero: the
+// tile is zeroed once, and no stage writes there).
+__device__ __forceinline__ void relayout_rows(unsigned char* dst,
+                                              const bf16* src, int rows_valid,
+                                              int HW, int tid) {
+  // thread tid: chunk tid % 8 of rows tid / 8, + 32, ... (a row has at
+  // most 8 chunks, HW <= 64)
+  const int k = tid % 8;
+  if (8 * k >= HW) return;
+  const unsigned base = tf32x3::smem_u32(src);
+  for (int r = tid / 8; r < rows_valid; r += kThreads / 8) {
+    const uint4 x = ld16_at(base + 2 * (r * HW + 8 * k));
+    const int nv = min(8, HW - 8 * k);   // positions in the chunk
+    uint4 v;
+    unsigned* o = &v.x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int left = nv - 2 * j;   // valid elements from this word on
+      o[j] = left >= 2 ? word_of(x, j)
+                       : left == 1 ? (word_of(x, j) & 0xffffu) : 0u;
+    }
+    *reinterpret_cast<uint4*>(dst + (r >> 6) * kSubBytes +
+                              swz(r & 63, 8 * k)) = v;
+  }
+}
+
+// kBulk, dx role: the 64 rows of a [64][HW] chunk as it lies in shared
+// memory (HW <= 64; rows_valid of them copied, the rest zero) into the
+// swizzled [64][128] tile at `dst`, element (r, p) at row r, column col0
+// + p (image i of the tile at col0 = i HW: a destination chunk may hold
+// positions of two images, so this goes element by element). Warp w
+// moves rows w, w + 8, ...; every load of the thread is issued before
+// its first store.
+__device__ __forceinline__ void relayout(unsigned char* dst, const bf16* src,
+                                         int rows_valid, int HW, int col0,
+                                         int warp, int lane) {
+  constexpr int R = 64 / (kThreads / 32);   // rows a warp
+  bf16 v[R][2];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = warp + i * (kThreads / 32);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h;
+      v[i][h] = r < rows_valid && p < HW ? src[r * HW + p]
+                                         : __float2bfloat16(0.f);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = warp + i * (kThreads / 32);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = lane + 32 * h, c = col0 + p;
+      if (p < HW)
+        *reinterpret_cast<bf16*>(dst + (c >> 6) * kSubBytes + swz(r, c & 63)) =
+            v[i][h];
+    }
+  }
+}
+
+// kBulk: `bytes` (a multiple of 16) from device memory to shared memory
+// in one asynchronous bulk copy, completing `bar`'s transactions
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(tf32x3::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(tf32x3::smem_u32(bar))
+      : "memory");
+}
+
+// Stage a [64 rows][64 columns] sub-tile at `dst` through the block's
+// threads (the manual loaders): element (r, c) from src.at(r, c), or zero
+// where it falls outside. V = 4: one 8-byte cp.async of 4 columns; V = 1:
+// one element through registers, every load of the thread issued before
+// its first store. A thread's column is fixed, so its address is worked
+// out once and steps by whole rows.
+template <int V, typename Src>
+__device__ __forceinline__ void stage_sub(unsigned char* dst, int tid,
+                                          const Src& src) {
+  constexpr int COLS_T = 64 / V;              // threads along a row
+  constexpr int RSTEP = kThreads / COLS_T;    // rows between a thread's
+  constexpr int N = 64 / RSTEP;               // rows a thread
+  const int c = (tid % COLS_T) * V, r0 = tid / COLS_T;
+  const bf16* p = src.at(r0, c);   // null: the column lies outside
+  const size_t step = src.row_step() * RSTEP;
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool ok = p != nullptr && src.row_ok(r0 + i * RSTEP);
+      const unsigned a = tf32x3::smem_u32(dst + swz(r0 + i * RSTEP, c));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(a),
+                   "l"(ok ? p + i * step : src.base), "r"(ok ? 8 : 0));
+    }
+  } else {
+    bf16 v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] = p != nullptr && src.row_ok(r0 + i * RSTEP) ? __ldg(p + i * step)
+                                                       : __float2bfloat16(0.f);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      *reinterpret_cast<bf16*>(dst + swz(r0 + i * RSTEP, c)) = v[i];
+  }
+}
+
+// rows: channels ch0 + r (< C) of x or dy; columns: positions j0 + c of
+// the flattened j = b HW + p (c < n)
+struct ChanPos {
+  const bf16* base;
+  int C, HW, ch0, j0, n;
+  __device__ const bf16* at(int r, int c) const {
+    if (c >= n) return nullptr;
+    const int j = j0 + c, b = j / HW;
+    return base + ((size_t)b * C + ch0 + r) * HW + (j - b * HW);
+  }
+  __device__ bool row_ok(int r) const { return ch0 + r < C; }
+  __device__ size_t row_step() const { return HW; }
+};
+// rows: co = co0 + r (< Co); columns: ci = ci0 + c (< Ci) of w [Co][Ci]
+struct WRows {
+  const bf16* base;
+  int Ci, Co, co0, ci0;
+  __device__ const bf16* at(int r, int c) const {
+    if (ci0 + c >= Ci) return nullptr;
+    return base + (size_t)(co0 + r) * Ci + ci0 + c;
+  }
+  __device__ bool row_ok(int r) const { return co0 + r < Co; }
+  __device__ size_t row_step() const { return Ci; }
+};
+
+// out = the sum, in order, of the partial tiles first, first + stride,
+// ... (count of them) over a CO_T x CI_T tile at (m0, n0): thread tid
+// owns column tid % CI_T of every (kThreads / CI_T)-th row, and issues
+// its loads of 16 rows of a partial tile before it adds them.
+template <int CO_T, int CI_T, typename D>
+__device__ __forceinline__ void sum_tile(const float* __restrict__ partial,
+                                         int first, int count, int stride,
+                                         int Co, int Ci, int m0, int n0,
+                                         int tid, D* out) {
+  constexpr int STEP = kThreads / CI_T;        // rows between a thread's
+  constexpr int E = 16;                        // rows a pass
+  static_assert(CO_T % (STEP * E) == 0, "passes do not tile the rows");
+  const size_t plane = (size_t)Co * Ci;
+  const int ci = n0 + tid % CI_T;
+  if (ci >= Ci) return;
+#pragma unroll 1
+  for (int r0 = m0 + tid / CI_T; r0 < m0 + CO_T; r0 += STEP * E) {
+    float sum[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) sum[e] = 0.f;
+    for (int i = 0; i < count; ++i) {
+      const float* src =
+          partial + (size_t)(first + i * stride) * plane + ci;
+      float v[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int co = r0 + e * STEP;
+        v[e] = co < Co ? __ldcg(src + (size_t)co * Ci) : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) sum[e] += v[e];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int co = r0 + e * STEP;
+      if (co < Co) put(&out[(size_t)co * Ci + ci], sum[e]);
+    }
+  }
+}
+
+// The products of one stage into the warpgroup's accumulators: 4 k16
+// steps of NB products m64nN, A at a_addr, product n's B at b_addr + n
+// b_step (shared addresses); TA / TB: MN-major operands step 16 rows a
+// k16 step, K-major ones 32 bytes.
+template <int NB, int R, int TA, int TB>
+__device__ __forceinline__ void stage_wgmma(float (&acc)[NB][R],
+                                            unsigned a_addr, unsigned b_addr,
+                                            unsigned b_step) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) hopper::fence_regs(acc[n]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t da =
+        hopper::desc(a_addr + kk * (TA ? 16 * 128 : 32), 1024, 1);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const uint64_t db = hopper::desc(
+          b_addr + n * b_step + kk * (TB ? 16 * 128 : 32), 1024, 1);
+      if constexpr (R == 32)
+        hopper::wgmma_ss_n64<TA, TB>(acc[n], da, db, 1);
+      else
+        hopper::wgmma_ss_n32<TA, TB>(acc[n], da, db, 1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NB; ++n) hopper::fence_regs(acc[n]);
+}
+
+// The ring of S stages over steps 0 .. nk - 1: load(slot, step)
+// fills a slot, mma(slot) multiplies one. TMA: thread 0 issues the loads
+// against the slots' "full" mbarriers; the manual loaders: every thread
+// copies its share, then makes it visible to wgmma (the async proxy).
+template <int LOADER, typename Load, typename Mma>
+__device__ __forceinline__ void bf16_mainloop(unsigned char* ring,
+                                              uint64_t* full, int nk,
+                                              int tid, const Load& load,
+                                              const Mma& mma) {
+  constexpr int S = LOADER == kBulk ? kBulkStages : kBfStages;
+  if constexpr (LOADER == kTma || LOADER == kBulk) {
+    if (tid == 0)
+      for (int s = 0; s < S - 1 && s < nk; ++s) load(s, s);
+    for (int kt = 0; kt < nk; ++kt) {
+      __syncthreads();   // stage kt - 1 is consumed: its slot is free
+      const int nx = kt + S - 1;
+      if (tid == 0 && nx < nk) load(nx % S, nx);
+      hopper::mbar_wait(&full[kt % S], (kt / S) & 1);
+      mma(kt % S);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < nk) load(s, s);
+      cp_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_wait<S - 2>();   // this thread's copies of stage kt ...
+      hopper::fence_proxy_async();
+      __syncthreads();            // ... and everyone's; kt - 1 consumed
+      const int nx = kt + S - 1;
+      if (nx < nk) load(nx % S, nx);
+      cp_commit();
+      mma(kt % S);
+    }
+    cp_wait<0>();
+  }
+}
+
+// CI_T: the tile over Ci (dx rows, dw columns); CO_T: over Co (dw rows).
+template <int CI_T, int CO_T, int LOADER>
+__global__ void __launch_bounds__(kThreads, LOADER == kRegisters ? 1 : 2)
+conv1x1_bwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_w,
+                        const __grid_constant__ CUtensorMap tm_dy,
+                        const bf16* __restrict__ x,
+                        const bf16* __restrict__ w,
+                        const bf16* __restrict__ dy, bf16* __restrict__ dx,
+                        bf16* __restrict__ dw, float* __restrict__ partial,
+                        int* __restrict__ tickets, int B, int Ci, int Co,
+                        int HW, int splits, int chunk, int group, int order,
+                        int n_dx, int n_dw) {
+  using TT = Bf16Tiles<CI_T, CO_T>;
+  constexpr int V = LOADER == kCpAsync ? 4 : 1;
+  extern __shared__ unsigned char c1_smem_raw[];
+  __shared__ uint64_t full[kBfStages];
+  __shared__ int s_last;
+  const unsigned raw = tf32x3::smem_u32(c1_smem_raw);
+  unsigned char* ring = c1_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const unsigned ring_addr = tf32x3::smem_u32(ring);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int J = B * HW;   // the entry point bounds it
+  const int ci_tiles = (Ci + CI_T - 1) / CI_T;
+
+  // kBulk: the swizzled tiles past the ring, zeroed once (what the block's
+  // chunks leave unwritten stays zero)
+  unsigned char* swzbuf = ring + kBulkStages * TT::STAGE;
+  const unsigned swz_addr = ring_addr + kBulkStages * TT::STAGE;
+  if constexpr (LOADER == kBulk)
+    for (int i = tid; i < TT::STAGE / 16; i += kThreads)
+      reinterpret_cast<uint4*>(swzbuf)[i] = make_uint4(0, 0, 0, 0);
+  if ((LOADER == kTma || LOADER == kBulk) && tid == 0) {
+    hopper::prefetch_map(&tm_w);
+    if (LOADER == kTma) {
+      hopper::prefetch_map(&tm_x);
+      hopper::prefetch_map(&tm_dy);
+    }
+    for (int s = 0; s < kBfStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the roles in block order, as the float32 kernel takes them
+  const long long L = blockIdx.x, total = (long long)n_dx + n_dw;
+  int dw_before;
+  bool is_dw;
+  if (order == kInterleave) {
+    dw_before = (int)(L * n_dw / total);
+    is_dw = (int)((L + 1) * n_dw / total) > dw_before;
+  } else if (order == kDxFirst) {
+    is_dw = L >= n_dx;
+    dw_before = is_dw ? (int)(L - n_dx) : 0;
+  } else {
+    is_dw = L < n_dw;
+    dw_before = is_dw ? (int)L : n_dw;
+  }
+
+  if (!is_dw) {
+    // ---- dx role: rows m = ci, columns n = positions, depth k = co ----
+    const int idx = (int)L - dw_before;
+    const int m0 = (idx % ci_tiles) * CI_T;
+    const int tile = idx / ci_tiles;
+    // the tile's positions: j0 .. j0 + n - 1 (one image with TMA; kBulk:
+    // the imgs whole images from b0)
+    int b0 = 0, p0 = 0, imgs = 1, j0, n;
+    if (LOADER == kTma) {
+      const int per = (HW + kDxBN - 1) / kDxBN;
+      b0 = tile / per;
+      p0 = (tile - b0 * per) * kDxBN;
+      j0 = b0 * HW + p0;
+      n = min(kDxBN, HW - p0);
+    } else if (LOADER == kBulk) {
+      const int k = kDxBN / HW;
+      b0 = tile * k;
+      imgs = min(k, B - b0);
+      j0 = b0 * HW;
+      n = imgs * HW;
+    } else {
+      j0 = tile * kDxBN;
+      n = min(kDxBN, J - j0);
+    }
+    constexpr int A_SUBS = CI_T / 64;
+    auto load = [&](int slot, int step) {
+      unsigned char* st = ring + slot * TT::STAGE;
+      const int k0 = step * kBK;
+      if constexpr (LOADER == kTma) {
+        const int halves = n > 64 ? 2 : 1;   // boxes wholly past HW: none
+        hopper::mbar_expect_tx(&full[slot], (A_SUBS + halves) * kSubBytes);
+#pragma unroll
+        for (int s = 0; s < A_SUBS; ++s)
+          hopper::tma_load_2d(st + s * kSubBytes, &tm_w, &full[slot],
+                              m0 + 64 * s, k0);
+        for (int h = 0; h < halves; ++h)
+          hopper::tma_load_3d(st + (A_SUBS + h) * kSubBytes, &tm_dy,
+                              &full[slot], p0 + 64 * h, k0, b0);
+      } else if constexpr (LOADER == kBulk) {
+        // w by TMA; dy's rows k0 .. of each image, as they lie
+        const unsigned rows = min(kBK, Co - k0), bytes = rows * HW * 2;
+        hopper::mbar_expect_tx(&full[slot],
+                               A_SUBS * kSubBytes + imgs * bytes);
+#pragma unroll
+        for (int s = 0; s < A_SUBS; ++s)
+          hopper::tma_load_2d(st + s * kSubBytes, &tm_w, &full[slot],
+                              m0 + 64 * s, k0);
+        for (int i = 0; i < imgs; ++i)
+          bulk_copy(st + A_SUBS * kSubBytes + i * kBK * HW * 2,
+                    dy + ((size_t)(b0 + i) * Co + k0) * HW, bytes,
+                    &full[slot]);
+      } else {
+#pragma unroll
+        for (int s = 0; s < A_SUBS; ++s)
+          stage_sub<V>(st + s * kSubBytes, tid,
+                       WRows{w, Ci, Co, k0, m0 + 64 * s});
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          stage_sub<V>(st + (A_SUBS + h) * kSubBytes, tid,
+                       ChanPos{dy, Co, HW, k0, j0 + 64 * h, n - 64 * h});
+      }
+    };
+    // warpgroup wg: rows 64 wg .. of a 128-row tile and both position
+    // halves, or all 64 rows and position half wg
+    constexpr int NB = CI_T == 128 ? 2 : 1;
+    float acc[NB][32];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    const int a_sub = CI_T == 128 ? wg : 0;
+    const int b_sub = A_SUBS + (CI_T == 128 ? 0 : wg);
+    int kt = 0;
+    auto mma = [&](int slot) {
+      const unsigned st = ring_addr + slot * TT::STAGE;
+      if constexpr (LOADER == kBulk) {
+        // dy's chunks into the swizzled tile: image i at columns i HW ..
+        const bf16* lin = reinterpret_cast<const bf16*>(
+            ring + slot * TT::STAGE + A_SUBS * kSubBytes);
+        const int rows = min(kBK, Co - kt * kBK);
+        for (int i = 0; i < imgs; ++i)
+          relayout(swzbuf, lin + i * kBK * HW, rows, HW, i * HW, warp, lane);
+        hopper::fence_proxy_async();
+        __syncthreads();
+        ++kt;
+        stage_wgmma<NB, 32, 1, 1>(acc, st + a_sub * kSubBytes,
+                                  swz_addr + (b_sub - A_SUBS) * kSubBytes,
+                                  kSubBytes);
+      } else {
+        stage_wgmma<NB, 32, 1, 1>(acc, st + a_sub * kSubBytes,
+                                  st + b_sub * kSubBytes, kSubBytes);
+      }
+    };
+    bf16_mainloop<LOADER>(ring, full, (Co + kBK - 1) / kBK, tid, load, mma);
+
+    // The tile leaves through shared memory (the ring, free by now): rows
+    // of kDxBN positions go out as 8-byte stores of 4 positions of one
+    // image where they can.
+    float* ct = reinterpret_cast<float*>(ring);
+    __syncthreads();   // every warpgroup is done with the ring
+    const int row0 = (CI_T == 128 ? wg * 64 : 0) + wi * 16 + g;
+    const int col0 = (CI_T == 128 ? 0 : wg * 64) + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              &ct[(row0 + 8 * h) * TT::LDC + col0 + nb * 64 + 8 * i]) =
+              make_float2(acc[nb][4 * i + 2 * h], acc[nb][4 * i + 2 * h + 1]);
+    __syncthreads();
+    constexpr int QG = kDxBN / 4;   // 4-position groups a row
+    const int c4 = (tid % QG) * 4;
+    int bq[4], pq[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + min(c4 + u, n - 1);
+      bq[u] = j / HW;
+      pq[u] = j - bq[u] * HW;
+    }
+    // four positions of one image, on an 8-byte boundary
+    const bool whole = HW % 4 == 0 && c4 + 3 < n &&
+                       reinterpret_cast<uintptr_t>(dx) % 8 == 0;
+#pragma unroll 4
+    for (int r = tid / QG; r < CI_T; r += kThreads / QG) {
+      const int ci = m0 + r;
+      if (ci >= Ci) break;
+      const float* src = &ct[r * TT::LDC + c4];
+      if (whole) {
+        store4(dx + ((size_t)bq[0] * Ci + ci) * HW + pq[0], src);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c4 + u < n)
+            from_f(&dx[((size_t)bq[u] * Ci + ci) * HW + pq[u]], src[u]);
+      }
+    }
+    return;
+  }
+
+  // ---- dw role: rows m = co, columns n = ci, depth k = positions ----
+  const int tiles = ((Co + CO_T - 1) / CO_T) * ci_tiles;
+  const int split_i = dw_before / tiles;
+  const int tile = dw_before % tiles;
+  const int m0 = (tile / ci_tiles) * CO_T;
+  const int n0 = (tile % ci_tiles) * CI_T;
+  // the chunk's stages: chunk positions of the padded depth (TMA: each
+  // image's positions padded to whole stages)
+  // stages an image (TMA; kBulk: HW <= 64, one)
+  const int per = (HW + kBK - 1) / kBK;
+  const bool per_image = LOADER == kTma || LOADER == kBulk;
+  const int steps = per_image ? B * per : (J + kBK - 1) / kBK;
+  const int s_begin = split_i * (chunk / kBK);
+  const int nk = min(chunk / kBK, steps - s_begin);
+  constexpr int A_SUBS = CO_T / 64, B_SUBS = CI_T / 64;
+  auto load = [&](int slot, int kt) {
+    unsigned char* st = ring + slot * TT::STAGE;
+    const int step = s_begin + kt;
+    if constexpr (LOADER == kTma) {
+      const int b = step / per, p0 = (step - b * per) * kBK;
+      hopper::mbar_expect_tx(&full[slot], (A_SUBS + B_SUBS) * kSubBytes);
+#pragma unroll
+      for (int s = 0; s < A_SUBS; ++s)
+        hopper::tma_load_3d(st + s * kSubBytes, &tm_dy, &full[slot], p0,
+                            m0 + 64 * s, b);
+#pragma unroll
+      for (int s = 0; s < B_SUBS; ++s)
+        hopper::tma_load_3d(st + (A_SUBS + s) * kSubBytes, &tm_x,
+                            &full[slot], p0, n0 + 64 * s, b);
+    } else if constexpr (LOADER == kBulk) {
+      // image `step`'s rows of dy (co) and x (ci), as they lie
+      const unsigned a_bytes = min(CO_T, Co - m0) * HW * 2;
+      const unsigned b_bytes = min(CI_T, Ci - n0) * HW * 2;
+      hopper::mbar_expect_tx(&full[slot], a_bytes + b_bytes);
+      bulk_copy(st, dy + ((size_t)step * Co + m0) * HW, a_bytes, &full[slot]);
+      bulk_copy(st + CO_T * HW * 2, x + ((size_t)step * Ci + n0) * HW,
+                b_bytes, &full[slot]);
+    } else {
+      const int j0 = step * kBK, nj = min(kBK, J - j0);
+#pragma unroll
+      for (int s = 0; s < A_SUBS; ++s)
+        stage_sub<V>(st + s * kSubBytes, tid,
+                     ChanPos{dy, Co, HW, m0 + 64 * s, j0, nj});
+#pragma unroll
+      for (int s = 0; s < B_SUBS; ++s)
+        stage_sub<V>(st + (A_SUBS + s) * kSubBytes, tid,
+                     ChanPos{x, Ci, HW, n0 + 64 * s, j0, nj});
+    }
+  };
+  // warpgroup wg: rows 64 wg .. of a 128-row tile and every column, or
+  // all 64 rows and column half wg (64 or 32 wide)
+  constexpr int NB = CO_T == 128 ? CI_T / 64 : 1;
+  constexpr int R = (CO_T == 64 && CI_T == 64) ? 16 : 32;
+  constexpr int NW = R * 2;   // columns a product
+  float acc[NB][R];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[nb][i] = 0.f;
+  const int a_off = (CO_T == 128 ? wg : 0) * kSubBytes;
+  const int b_off = A_SUBS * kSubBytes + (CO_T == 128 ? 0 : wg * NW * 128);
+  auto mma = [&](int slot) {
+    unsigned st = ring_addr + slot * TT::STAGE;
+    if constexpr (LOADER == kBulk) {
+      const bf16* lin =
+          reinterpret_cast<const bf16*>(ring + slot * TT::STAGE);
+      relayout_rows(swzbuf, lin, min(CO_T, Co - m0), HW, tid);
+      relayout_rows(swzbuf + A_SUBS * kSubBytes, lin + CO_T * HW,
+                    min(CI_T, Ci - n0), HW, tid);
+      hopper::fence_proxy_async();
+      __syncthreads();
+      st = swz_addr;
+    }
+    stage_wgmma<NB, R, 0, 0>(acc, st + a_off, st + b_off, kSubBytes);
+  };
+  bf16_mainloop<LOADER>(ring, full, nk, tid, load, mma);
+
+  // this thread's outputs: (co, ci) = (m0 + row0 + 8 h, n0 + col0 + nb NW
+  // + 8 i + 2 t + e), accumulator element 4 i + 2 h + e
+  const int row0 = (CO_T == 128 ? wg * 64 : 0) + wi * 16 + g;
+  const int col0 = (CO_T == 128 ? 0 : wg * NW) + 2 * t;
+  auto each = [&](auto&& f) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = m0 + row0 + 8 * h;
+            const int ci = n0 + col0 + nb * NW + 8 * i + e;
+            if (co < Co && ci < Ci)
+              f((size_t)co * Ci + ci, acc[nb][4 * i + 2 * h + e]);
+          }
+  };
+  if (splits == 1) {
+    each([&](size_t o, float v) { from_f(&dw[o], v); });
+    return;
+  }
+  // this block's tile of partial[split_i], then the two-level sum as the
+  // float32 kernel does it
+  const size_t plane = (size_t)Co * Ci;
+  float* mine = partial + (size_t)split_i * plane;
+  each([&](size_t o, float v) { __stcg(&mine[o], v); });
+  const int n_groups = (splits + group - 1) / group;
+  const int grp = split_i / group, first = grp * group;
+  const int members = min(group, splits - first);
+  int* tk = tickets + (size_t)tile * (n_groups + 1);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&tk[grp], 1) == members - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (n_groups == 1) {
+    sum_tile<CO_T, CI_T>(partial, 0, splits, 1, Co, Ci, m0, n0, tid, dw);
+    return;
+  }
+  sum_tile<CO_T, CI_T>(partial, first, members, 1, Co, Ci, m0, n0, tid,
+                       partial + (size_t)first * plane);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&tk[n_groups], 1) == n_groups - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  sum_tile<CO_T, CI_T>(partial, 0, n_groups, group, Co, Ci, m0, n0, tid, dw);
+}
+
+template <int CI_T, int CO_T, int LOADER>
+cudaError_t launch_bf16(const void* x, const void* w, const void* dy,
+                        void* dx, void* dw, float* partial, int* tickets,
+                        int B, int Ci, int Co, int HW, int splits, int chunk,
+                        int group, int order, cudaStream_t stream) {
+  using TT = Bf16Tiles<CI_T, CO_T>;
+  static_assert(TT::BYTES <= 227 * 1024, "stage ring exceeds shared memory");
+  static_assert(CI_T * TT::LDC * 4 <= kBfStages * TT::STAGE,
+                "the dx tile does not fit the ring");
+  // the manual loaders read no map; kBulk only w's
+  CUtensorMap mx = {}, mw = {}, mdy = {};
+  if (LOADER == kBulk) {
+    const uint64_t w_dims[2] = {(uint64_t)Ci, (uint64_t)Co};
+    const uint64_t w_strides[1] = {2 * (uint64_t)Ci};
+    const uint32_t box[2] = {64, 64};
+    if (!hopper::make_map(&mw, w, 2, w_dims, w_strides, box, 128))
+      return cudaErrorInvalidValue;
+  }
+  if (LOADER == kTma) {
+    const uint64_t hw = HW;
+    const uint64_t x_dims[3] = {hw, (uint64_t)Ci, (uint64_t)B};
+    const uint64_t x_strides[2] = {2 * hw, 2 * hw * Ci};
+    const uint64_t dy_dims[3] = {hw, (uint64_t)Co, (uint64_t)B};
+    const uint64_t dy_strides[2] = {2 * hw, 2 * hw * Co};
+    const uint64_t w_dims[2] = {(uint64_t)Ci, (uint64_t)Co};
+    const uint64_t w_strides[1] = {2 * (uint64_t)Ci};
+    const uint32_t box[3] = {64, 64, 1};
+    if (!hopper::make_map(&mx, x, 3, x_dims, x_strides, box, 128) ||
+        !hopper::make_map(&mdy, dy, 3, dy_dims, dy_strides, box, 128) ||
+        !hopper::make_map(&mw, w, 2, w_dims, w_strides, box, 128))
+      return cudaErrorInvalidValue;
+  }
+  auto kernel = conv1x1_bwd_bf16_kernel<CI_T, CO_T, LOADER>;
+  const int bytes = LOADER == kBulk ? TT::BULK_BYTES : TT::BYTES;
+  static_assert(TT::BULK_BYTES <= 227 * 1024, "kBulk exceeds shared memory");
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  const long long J = (long long)B * HW;
+  const long long pos_tiles =
+      LOADER == kTma    ? (long long)B * ((HW + kDxBN - 1) / kDxBN)
+      : LOADER == kBulk ? (B + kDxBN / HW - 1) / (kDxBN / HW)
+                        : (J + kDxBN - 1) / kDxBN;
+  const long long n_dx = ((Ci + CI_T - 1) / CI_T) * pos_tiles;
+  const long long n_dw = (long long)((Co + CO_T - 1) / CO_T) *
+                         ((Ci + CI_T - 1) / CI_T) * splits;
+  if (n_dx + n_dw > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)(n_dx + n_dw), kThreads, bytes, stream>>>(
+      mx, mw, mdy, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+      static_cast<bf16*>(dw), partial, tickets, B, Ci, Co, HW, splits, chunk,
+      group, order, (int)n_dx, (int)n_dw);
+  return cudaGetLastError();
+}
+
+template <int LOADER>
+cudaError_t pick_bf16(int ci_tile, int co_tile, const void* x, const void* w,
+                      const void* dy, void* dx, void* dw, float* p, int* tk,
+                      int B, int Ci, int Co, int HW, int splits, int chunk,
+                      int group, int order, cudaStream_t s) {
+  if (ci_tile == 64 && co_tile == 64)
+    return launch_bf16<64, 64, LOADER>(x, w, dy, dx, dw, p, tk, B, Ci, Co,
+                                       HW, splits, chunk, group, order, s);
+  if (ci_tile == 64)
+    return launch_bf16<64, 128, LOADER>(x, w, dy, dx, dw, p, tk, B, Ci, Co,
+                                        HW, splits, chunk, group, order, s);
+  if (co_tile == 64)
+    return launch_bf16<128, 64, LOADER>(x, w, dy, dx, dw, p, tk, B, Ci, Co,
+                                        HW, splits, chunk, group, order, s);
+  return launch_bf16<128, 128, LOADER>(x, w, dy, dx, dw, p, tk, B, Ci, Co,
+                                       HW, splits, chunk, group, order, s);
+}
+
+
 }  // namespace
 
 // x [B, Ci, HW], w [Co, Ci], dy [B, Co, HW], dx [B, Ci, HW], dw [Co, Ci]:
-// contiguous, all float32 (is_bf16 = 0) or all bfloat16 (1). The plan:
-// ci_tile (64 or 128) channels of Ci a dx block (beside 128 positions)
-// and a dw block, co_tile (64 or 128) channels of Co a dw block; dw's
-// depth B*HW cut into `splits` chunks of `chunk` positions (a multiple
-// of 32; splits * chunk >= B*HW, every chunk non-empty), summed in
-// groups of `group`; order: the roles interleaved in block order (0),
-// the dx blocks first (1) or the dw blocks first (2); vec = 1 stages
-// with 16-byte copies, which needs HW
-// and Ci multiples of 16 bytes' worth of elements and 16-byte aligned x,
-// w and dy. With splits > 1, partial is [splits, Co, Ci] float32 scratch
-// and tickets (ceil(splits / group) + 1) ints per dw tile, zeroed by the
-// caller; with splits == 1 neither is read.
+// contiguous float32. The plan: ci_tile (64 or 128) channels of Ci a dx
+// block (beside 128 positions) and a dw block, co_tile (64 or 128)
+// channels of Co a dw block; dw's depth B*HW cut into `splits` chunks of
+// `chunk` positions (a multiple of 32; splits * chunk >= B*HW, every
+// chunk non-empty), summed in groups of `group`; order: the roles
+// interleaved in block order (0), the dx blocks first (1) or the dw
+// blocks first (2); vec = 1 stages with 16-byte copies, which needs HW
+// and Ci multiples of 4 and 16-byte aligned x, w and dy. With splits > 1,
+// partial is [splits, Co, Ci] float32 scratch and tickets (ceil(splits /
+// group) + 1) ints per dw tile, zeroed by the caller; with splits == 1
+// neither is read.
 extern "C" int conv1x1_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, void* partial, void* tickets,
                            int B, int Ci, int Co, int HW, int splits,
-                           int chunk, int group, int order, int is_bf16,
-                           int ci_tile, int co_tile, int vec,
-                           void* stream) {
+                           int chunk, int group, int order, int ci_tile,
+                           int co_tile, int vec, void* stream) {
   const long long J = (long long)B * HW;
-  const int V = is_bf16 ? 8 : 4;
   const bool aligned =
       (((uintptr_t)x | (uintptr_t)w | (uintptr_t)dy) & 15) == 0;
   if (B <= 0 || Ci <= 0 || Co <= 0 || HW <= 0 || splits < 1 || chunk < 1 ||
@@ -737,24 +1443,67 @@ extern "C" int conv1x1_bwd(const void* x, const void* w, const void* dy,
       order > kDwFirst || J + kDxBN > 0x7fffffffLL ||
       (long long)splits * chunk < J ||
       (long long)(splits - 1) * chunk >= J || !tile_ok(ci_tile) ||
-      !tile_ok(co_tile) ||
-      (vec && (HW % V != 0 || Ci % V != 0 || !aligned)))
+      !tile_ok(co_tile) || (vec && (HW % 4 != 0 || Ci % 4 != 0 || !aligned)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   int* tk = static_cast<int*>(tickets);
-  cudaError_t e;
-  if (is_bf16)
-    e = vec ? pick<__nv_bfloat16, 8>(ci_tile, co_tile, x, w, dy, dx, dw, p,
-                                     tk, B, Ci, Co, HW, splits, chunk, group,
-                                     order, s)
-            : pick<__nv_bfloat16, 1>(ci_tile, co_tile, x, w, dy, dx, dw, p,
-                                     tk, B, Ci, Co, HW, splits, chunk, group,
-                                     order, s);
-  else
-    e = vec ? pick<float, 4>(ci_tile, co_tile, x, w, dy, dx, dw, p, tk, B,
-                             Ci, Co, HW, splits, chunk, group, order, s)
-            : pick<float, 1>(ci_tile, co_tile, x, w, dy, dx, dw, p, tk, B,
-                             Ci, Co, HW, splits, chunk, group, order, s);
-  return (int)e;
+  return (int)(vec ? pick<float, 4>(ci_tile, co_tile, x, w, dy, dx, dw, p,
+                                    tk, B, Ci, Co, HW, splits, chunk, group,
+                                    order, s)
+                   : pick<float, 1>(ci_tile, co_tile, x, w, dy, dx, dw, p,
+                                    tk, B, Ci, Co, HW, splits, chunk, group,
+                                    order, s));
+}
+
+// The same in bfloat16 (x, w, dy, dx, dw raw 16-bit words; partial
+// float32). loader: 0 TMA (HW and Ci multiples of 8, x, w and dy
+// 16-byte aligned), 1 8-byte cp.async copies (HW and Ci multiples of 4,
+// 8-byte aligned), 2 through registers (any shape), 3 bulk copies of
+// whole images (HW <= 64, Ci and Co multiples of 8, 16-byte aligned).
+// The depth is B * hw_pad positions, hw_pad = HW rounded up to a multiple
+// of 64 with TMA and bulk copies (each image's positions in whole stages)
+// and HW otherwise; `chunk`
+// counts positions of that depth, a multiple of 64 (splits * chunk >=
+// the depth, every chunk non-empty).
+extern "C" int conv1x1_bwd_bf16(const void* x, const void* w, const void* dy,
+                                void* dx, void* dw, void* partial,
+                                void* tickets, int B, int Ci, int Co, int HW,
+                                int splits, int chunk, int group, int order,
+                                int ci_tile, int co_tile, int loader,
+                                void* stream) {
+  const uintptr_t addr = (uintptr_t)x | (uintptr_t)w | (uintptr_t)dy;
+  const bool rows_ok =
+      loader == kTma ? HW % 8 == 0 && Ci % 8 == 0 && (addr & 15) == 0
+      : loader == kCpAsync ? HW % 4 == 0 && Ci % 4 == 0 && (addr & 7) == 0
+      : loader == kBulk
+          ? HW <= kBK && Ci % 8 == 0 && Co % 8 == 0 && (addr & 15) == 0
+          : loader == kRegisters;
+  const long long hw_pad = loader == kTma || loader == kBulk
+                               ? (HW + kBK - 1) / kBK * (long long)kBK
+                               : HW;
+  const long long depth = B * hw_pad;
+  if (B <= 0 || Ci <= 0 || Co <= 0 || HW <= 0 || !rows_ok || splits < 1 ||
+      chunk < 1 || chunk % kBK != 0 || group < 1 || order < kInterleave ||
+      order > kDwFirst || depth + 2 * kDxBN > 0x7fffffffLL ||
+      (long long)splits * chunk < depth ||
+      (long long)(splits - 1) * chunk >= depth || !tile_ok(ci_tile) ||
+      !tile_ok(co_tile))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  int* tk = static_cast<int*>(tickets);
+  if (loader == kTma)
+    return (int)pick_bf16<kTma>(ci_tile, co_tile, x, w, dy, dx, dw, p, tk, B,
+                                Ci, Co, HW, splits, chunk, group, order, s);
+  if (loader == kBulk)
+    return (int)pick_bf16<kBulk>(ci_tile, co_tile, x, w, dy, dx, dw, p, tk, B,
+                                 Ci, Co, HW, splits, chunk, group, order, s);
+  if (loader == kCpAsync)
+    return (int)pick_bf16<kCpAsync>(ci_tile, co_tile, x, w, dy, dx, dw, p, tk,
+                                    B, Ci, Co, HW, splits, chunk, group,
+                                    order, s);
+  return (int)pick_bf16<kRegisters>(ci_tile, co_tile, x, w, dy, dx, dw, p,
+                                    tk, B, Ci, Co, HW, splits, chunk, group,
+                                    order, s);
 }

@@ -48,12 +48,18 @@
 // flash_attention_fwd_bf16
 //   The same function on bfloat16 q, k, v and O (float32 lse; the mixed
 //   precision path of training), replacing the same Pallas kernel on
-//   bf16 inputs. The same blocking, with one mma.sync.m16n8k16 pass on
-//   bf16 operands where the float32 kernel takes three TF32 ones, and P
-//   rounded to bf16 before P V as the TPU kernel rounds it to V's dtype.
+//   bf16 inputs, P rounded to bf16 before P V as the TPU kernel rounds it
+//   to V's dtype. Two kernels, chosen by shape (kernels/flash_attention.py
+//   `fwd_plan`): flash_fwd_wgmma_kernel (wgmma fed by TMA, 128 query rows
+//   a block; below) wherever TMA can address the rows, and
+//   flash_fwd_bf16_kernel (the float32 kernel's blocking with one
+//   mma.sync.m16n8k16 pass on bf16 operands) for head_dim not a multiple
+//   of 8 or unaligned tensors.
 //   Bound on the H100 at the training shape [16, 8, 512, 64] causal: the
 //   bytes (q, k, v, o in bf16, 33.6 MB, ~10 us at 3.35 TB/s; the products
-//   need 4.3 GFLOP, ~4.3 us at 989 TFLOP/s).
+//   need 4.3 GFLOP, ~4.3 us at 989 TFLOP/s). The wgmma kernel is bound by
+//   each warpgroup's chain of a tile (S product, softmax on the special
+//   function unit, P V product), not by either: PERF.md.
 //
 // flash_decode
 //   Replaces paddle_tpu/kernels/flash_attention.py `_decode_kernel` (the
@@ -90,6 +96,7 @@
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace cg = cooperative_groups;
@@ -398,7 +405,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   merge_rows<DMAX>(ring, acc, m, l, bh, q0, Sq, D, lse,
                    [&](size_t i, float x) { o[i] = x; });
 }
-// ---- forward, bfloat16 ----
+// ---- forward, bfloat16, on mma.sync (shapes TMA cannot take) ----
 //
 // The same blocking as the float32 kernel (a block of 4 warps per 16
 // query rows, the warps taking the 16-key tiles in turn through their
@@ -637,6 +644,355 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
                    lse, [&](size_t i, float x) {
                      o[i] = __bfloat16_as_ushort(__float2bfloat16_rn(x));
                    });
+}
+
+// ---- forward, bfloat16, on wgmma fed by TMA ----
+//
+// The bfloat16 forward at every shape whose rows TMA can address (head_dim
+// a multiple of 8, up to 128, and 16-byte aligned q, k, v; the plan,
+// kernels/flash_attention.py `fwd_plan`, says which kernel a call takes:
+// the others take flash_fwd_bf16_kernel above). A block takes 128 query
+// rows of one (batch, head): two warpgroups of 64 rows each. Thread 0
+// loads Q once and streams the 64-key tiles of K and V through a ring of
+// kWgStages stages with TMA, each stage guarded by a "full" mbarrier (the
+// TMA's transactions) and an "empty" one (an arrival from each of the 8
+// warps; thread 0 refills a slot once both warpgroups are done with it,
+// kWgStages - 1 tiles ahead of the one it multiplies). Both
+// warpgroups read every tile, so a K or V byte crosses from L2 once for
+// 128 query rows, and no warp merges with another. Tiles wholly above
+// the causal diagonal are never loaded (a warpgroup skips the last one
+// where it lies wholly above its own 64 rows), and the query blocks with
+// the most tiles are issued first.
+//   S = Q K^T is wgmma.m64n64k16 bf16 -> float32 with both operands in
+// shared memory (K-major: head_dim contiguous); the online softmax runs
+// in float32 on S's accumulator, whose fragments, rounded to bf16 pairs,
+// are already the register A operand of O += P V, as the JAX kernel
+// rounds P to V's dtype (l sums the unrounded P). V is read MN-major
+// (head_dim contiguous) through the descriptor's transpose. Shared
+// memory is in the swizzle that TMA writes and wgmma reads (hopper.cuh):
+// 128-byte rows of 64 columns, head_dim 128 as two such sub-tiles,
+// head_dim <= 32 as 64-byte rows. Columns past head_dim and keys past the
+// sequence arrive as zeros (the tensor maps are 3-D, [bh][seq][dim], so a
+// box never reads the next head); keys past the sequence are excluded.
+// O leaves through shared memory (each warpgroup's rows of Q's tile) by
+// TMA stores, which drop rows past Sq and columns past head_dim.
+// Registers: two blocks an SM at head_dim <= 64 (no setmaxnreg: there is
+// no producer warp to give registers up).
+
+constexpr int kWgRows = 128;     // query rows a block
+constexpr int kWgKeys = 64;      // keys a tile
+constexpr int kWgStages = 4;     // the K/V ring
+constexpr int kWgThreads = 2 * 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special function unit (flushes denormal results to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DMAX>
+struct WgFwd {
+  static constexpr int SW = DMAX == 32 ? 64 : 128;   // bytes a sub-tile row
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;   // the descriptor's
+  static constexpr int COLS = SW / 2;                // columns a sub-tile
+  static constexpr int NSUB = DMAX / COLS;           // sub-tiles of a row
+  static constexpr int GROUP = 8 * SW;               // an 8-row group
+  static constexpr int Q_SUB = kWgRows * SW;
+  static constexpr int KV_SUB = kWgKeys * SW;
+  static constexpr int Q_BYTES = NSUB * Q_SUB;
+  static constexpr int KV_BYTES = NSUB * KV_SUB;     // a K (or V) tile
+  static constexpr int STAGE = 2 * KV_BYTES;         // K, then V
+  static constexpr int NO = DMAX == 32 ? 1 : DMAX / 64;   // P V products
+  static constexpr int OREG = DMAX == 32 ? 16 : 32;       // a product's
+  // the alignment slack, Q, the ring; the barriers are static
+  static constexpr int BYTES = 1024 + Q_BYTES + kWgStages * STAGE;
+  // two blocks an SM where the registers allow
+  static constexpr int MIN_BLOCKS = DMAX <= 64 ? 2 : 1;
+};
+
+template <int DMAX>
+__global__ void __launch_bounds__(kWgThreads, WgFwd<DMAX>::MIN_BLOCKS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o,
+                       const int* __restrict__ q_seg,
+                       const int* __restrict__ k_seg,
+                       float* __restrict__ lse,
+                       int H, int Sq, int Sk, int D, float scale,
+                       int causal) {
+  using W = WgFwd<DMAX>;
+  using hopper::desc;
+  using hopper::fence_regs;
+  using hopper::mbar_arrive;
+  using hopper::mbar_expect_tx;
+  using hopper::mbar_init;
+  using hopper::mbar_wait;
+  using hopper::smem_u32;
+  using hopper::tma_load_3d;
+  using hopper::wgmma_commit;
+  using hopper::wgmma_fence;
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ uint64_t bar_q, bar_full[kWgStages], bar_empty[kWgStages];
+  // the swizzled tiles start on a 1024-byte boundary
+  const unsigned raw = smem_u32(wg_smem_raw);
+  unsigned char* smem = wg_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* qs = smem;
+  unsigned char* ring = smem + W::Q_BYTES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  // the diagonal-most query blocks, which walk the most keys, go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const int k_end = causal ? min(Sk, q0 + kWgRows) : Sk;
+  const int n_kt = (k_end + kWgKeys - 1) / kWgKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // thread 0 loads: Q, and key tile kt into ring slot kt % kWgStages
+  auto load_kv = [&](int kt) {
+    const int st = kt % kWgStages;
+    unsigned char* ks = ring + st * W::STAGE;
+    mbar_expect_tx(&bar_full[st], W::STAGE);
+#pragma unroll
+    for (int s = 0; s < W::NSUB; ++s) {
+      tma_load_3d(ks + s * W::KV_SUB, &tm_k, &bar_full[st], s * W::COLS,
+                  kt * kWgKeys, bh);
+      tma_load_3d(ks + W::KV_BYTES + s * W::KV_SUB, &tm_v, &bar_full[st],
+                  s * W::COLS, kt * kWgKeys, bh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hopper::prefetch_map(&tm_q);
+    hopper::prefetch_map(&tm_k);
+    hopper::prefetch_map(&tm_v);
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], 8);   // one arrival a warp
+    }
+    hopper::mbar_fence_init();
+    mbar_expect_tx(&bar_q, W::Q_BYTES);
+#pragma unroll
+    for (int s = 0; s < W::NSUB; ++s)
+      tma_load_3d(qs + s * W::Q_SUB, &tm_q, &bar_q, s * W::COLS, q0, bh);
+    for (int kt = 0; kt < kWgStages && kt < n_kt; ++kt) load_kv(kt);
+  }
+  __syncthreads();
+
+  // ---- consumers: warpgroup wg owns rows r0 .. r0 + 63 ----
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * 64;
+  const bool have_seg = q_seg != nullptr;
+  int qi[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = r0 + wi * 16 + g + 8 * h;
+    qseg[h] = (have_seg && qi[h] < Sq) ? q_seg[(size_t)b * Sq + qi[h]] : 0;
+  }
+  // tiles past this warpgroup's own diagonal are only waited for
+  const int my_kt = causal ? (min(Sk, r0 + 64) + kWgKeys - 1) / kWgKeys
+                           : n_kt;
+  const unsigned q_addr = smem_u32(qs) + wg * 64 * W::SW;
+
+  float m[2] = {-INFINITY, -INFINITY};   // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};               // this thread's share of the sums
+  float acc[W::NO][W::OREG];
+#pragma unroll
+  for (int n = 0; n < W::NO; ++n)
+#pragma unroll
+    for (int i = 0; i < W::OREG; ++i) acc[n][i] = 0.f;
+
+  mbar_wait(&bar_q, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kWgStages;
+    // thread 0 refills the slot of tile kt - 1 with tile kt - 1 +
+    // kWgStages once both warpgroups are done with it
+    if (threadIdx.x == 0 && kt >= 1 && kt - 1 + kWgStages < n_kt) {
+      mbar_wait(&bar_empty[(kt - 1) % kWgStages],
+                ((kt - 1) / kWgStages) & 1);
+      load_kv(kt - 1 + kWgStages);
+    }
+    mbar_wait(&bar_full[st], (kt / kWgStages) & 1);
+    __syncwarp();   // the warp converges before the warpgroup's products
+    if (kt < my_kt) {
+      const unsigned k_addr = smem_u32(ring + st * W::STAGE);
+      const unsigned v_addr = k_addr + W::KV_BYTES;
+      const int k0 = kt * kWgKeys;
+      // S = Q K^T: 64 rows x 64 keys, depth DMAX
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        const int sub = kk * 16 / W::COLS, off = (kk * 16 % W::COLS) * 2;
+        hopper::wgmma_ss_n64<0, 0>(
+            s, desc(q_addr + sub * W::Q_SUB + off, W::GROUP, W::LAYOUT),
+            desc(k_addr + sub * W::KV_SUB + off, W::GROUP, W::LAYOUT), 1);
+      }
+      wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_regs(s);
+      // scale, and mask where the tile needs it (segments, the ragged
+      // edge, or keys past the warpgroup's first row); s[4 i + 2 h + e]
+      // is row g + 8 h, key k0 + 8 i + 2 t + e
+      float tmax[2] = {-INFINITY, -INFINITY};
+      const bool edge = have_seg || k0 + kWgKeys > Sk ||
+                        (causal && k0 + kWgKeys - 1 > r0);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = k0 + 8 * i + 2 * t + e;
+            const bool j_in = j < Sk;
+            const int kseg =
+                (have_seg && j_in) ? k_seg[(size_t)b * Sk + j] : 0;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float x = s[4 * i + 2 * h + e] * scale;
+              if (causal && qi[h] < j) x = kMask;
+              if (have_seg && qseg[h] != kseg) x = kMask;
+              if (!j_in) x = -INFINITY;   // past the ragged edge: no key
+              s[4 * i + 2 * h + e] = x;
+            }
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= scale;
+      }
+      // each row's max over this thread's 16 keys, as a tree
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]);
+#pragma unroll
+        for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+          for (int i = 0; i < w; ++i) v[i] = fmaxf(v[i], v[i + w]);
+        tmax[h] = v[0];
+      }
+      // online softmax; key k0 < Sk, so each row's max is finite
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 1));
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(kFull, tmax[h], 2));
+        const float m_new = fmaxf(m[h], tmax[h]);
+        alpha[h] = ex2((m[h] - m_new) * kLog2e);
+        m[h] = m_new;
+      }
+      // p = 2^(x log2 e - m log2 e), one FMA; with segments a row's max
+      // may be the mask value, whose product with log2 e overflows, so
+      // there (x - m) comes first. This thread's share of each row's sum
+      // as a tree.
+      if (have_seg) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = ex2((s[i] - m[(i >> 1) & 1]) * kLog2e);
+      } else {
+        const float ml[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = ex2(fmaf(s[i], kLog2e, -ml[(i >> 1) & 1]));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = s[4 * i + 2 * h] + s[4 * i + 2 * h + 1];
+#pragma unroll
+        for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+          for (int i = 0; i < w; ++i) v[i] += v[i + w];
+        l[h] = fmaf(l[h], alpha[h], v[0]);
+      }
+      // P's A operand: keys 16 c .. 16 c + 15 of rows g, g + 8
+      unsigned pa[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pa[c][0] = pack_bf16(s[8 * c + 0], s[8 * c + 1]);
+        pa[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);
+        pa[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);
+        pa[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);
+      }
+#pragma unroll
+      for (int n = 0; n < W::NO; ++n)
+#pragma unroll
+        for (int i = 0; i < W::OREG; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
+      // O += P V: 4 k16 steps of 16 keys; V MN-major, 16 keys = 16 rows
+#pragma unroll
+      for (int n = 0; n < W::NO; ++n) fence_regs(acc[n]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int n = 0; n < W::NO; ++n) {
+          const uint64_t dv = desc(v_addr + n * W::KV_SUB + c * 16 * W::SW,
+                                   W::GROUP, W::LAYOUT);
+          if constexpr (W::OREG == 32)
+            hopper::wgmma_rs_n64<1>(acc[n], pa[c], dv, 1);
+          else
+            hopper::wgmma_rs_n32<1>(acc[n], pa[c], dv, 1);
+        }
+      wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < W::NO; ++n) fence_regs(acc[n]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bar_empty[st]);   // this warp is done
+  }
+
+  // the rows' sums over their 4 lanes, then O / l into the warpgroup's
+  // rows of Q's tile (free: its last product has read them), in the same
+  // swizzle, and out by one TMA store a sub-tile (rows past Sq and
+  // columns past D are not written); the log-sum-exp by the t == 0 lanes
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    const float inv = 1.f / l_safe;
+    const int r = wg * 64 + wi * 16 + g + 8 * h;   // row of the block
+#pragma unroll
+    for (int n = 0; n < W::NO; ++n)
+#pragma unroll
+      for (int i = 0; i < W::OREG / 4; ++i) {
+        const int c = n * 64 + 8 * i + 2 * t;        // column of the row
+        const int sub = c / W::COLS, cb = (c % W::COLS) * 2;
+        const int chunk = (cb >> 4) ^ ((r * W::SW >> 7) & (W::SW / 16 - 1));
+        *reinterpret_cast<unsigned*>(qs + sub * W::Q_SUB + r * W::SW +
+                                     chunk * 16 + (cb & 15)) =
+            pack_bf16(acc[n][4 * i + 2 * h] * inv,
+                      acc[n][4 * i + 2 * h + 1] * inv);
+      }
+    if (t == 0 && qi[h] < Sq)
+      lse[(size_t)bh * Sq + qi[h]] = m[h] + logf(l_safe);
+  }
+  hopper::fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (wi == 0 && lane == 0) {
+#pragma unroll
+    for (int sub = 0; sub < W::NSUB; ++sub)
+      asm volatile(
+          "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, "
+          "%3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_o)),
+          "r"(smem_u32(qs + sub * W::Q_SUB + wg * 64 * W::SW)),
+          "r"(sub * W::COLS), "r"(r0), "r"(bh)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
 }
 
 // ---- decode ----
@@ -951,6 +1307,39 @@ cudaError_t launch_fwd_bf16(const uint16_t* q, const uint16_t* k,
   return cudaGetLastError();
 }
 
+template <int DMAX>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             const int* q_seg, const int* k_seg, uint16_t* o,
+                             float* lse, int B, int H, int Sq, int Sk, int D,
+                             float scale, int causal, cudaStream_t stream) {
+  using W = WgFwd<DMAX>;
+  static_assert(W::BYTES <= 227 * 1024, "ring exceeds shared memory");
+  // [bh][seq][dim] maps: a box never reads past its head's rows, and rows
+  // and columns outside the tensor read as zero
+  const uint64_t bh = (uint64_t)B * H, d = (uint64_t)D;
+  const uint64_t q_dims[3] = {d, (uint64_t)Sq, bh};
+  const uint64_t q_strides[2] = {2 * d, 2 * d * Sq};
+  const uint64_t kv_dims[3] = {d, (uint64_t)Sk, bh};
+  const uint64_t kv_strides[2] = {2 * d, 2 * d * Sk};
+  const uint32_t q_box[3] = {W::COLS, kWgRows, 1};
+  const uint32_t kv_box[3] = {W::COLS, kWgKeys, 1};
+  const uint32_t o_box[3] = {W::COLS, 64, 1};   // a warpgroup's rows
+  CUtensorMap mq, mk, mv, mo;
+  if (!hopper::make_map(&mq, q, 3, q_dims, q_strides, q_box, W::SW) ||
+      !hopper::make_map(&mk, k, 3, kv_dims, kv_strides, kv_box, W::SW) ||
+      !hopper::make_map(&mv, v, 3, kv_dims, kv_strides, kv_box, W::SW) ||
+      !hopper::make_map(&mo, o, 3, q_dims, q_strides, o_box, W::SW))
+    return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<DMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, W::BYTES);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (Sq + kWgRows - 1) / kWgRows);
+  flash_fwd_wgmma_kernel<DMAX><<<grid, kWgThreads, W::BYTES, stream>>>(
+      mq, mk, mv, mo, q_seg, k_seg, lse, H, Sq, Sk, D, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -982,25 +1371,41 @@ cudaError_t flash_attention_fwd(const float* q, const float* k,
 }
 
 // The same in bfloat16: q, k, v, o bfloat16 (as raw 16-bit words), lse
-// float32.
+// float32. loader 1: the wgmma kernel fed by TMA, which needs head_dim a
+// multiple of 8, q, k and v on 16-byte boundaries and Sk >= 1; loader 0:
+// the mma.sync kernel, which takes any shape (kernels/flash_attention.py
+// `fwd_plan` chooses).
 cudaError_t flash_attention_fwd_bf16(const void* q, const void* k,
                                      const void* v, const int* q_seg,
                                      const int* k_seg, void* o, float* lse,
                                      int B, int H, int Sq, int Sk, int D,
-                                     float scale, int causal,
+                                     float scale, int causal, int loader,
                                      cudaStream_t stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
-  if (D < 1 || D > 128 || (q_seg == nullptr) != (k_seg == nullptr))
+  if (D < 1 || D > 128 || (q_seg == nullptr) != (k_seg == nullptr) ||
+      loader < 0 || loader > 1)
     return cudaErrorInvalidValue;
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);
   uint16_t* oh = static_cast<uint16_t*>(o);
-  // 16-byte copies where every row starts on a 16-byte boundary
-  const int vec = D % 8 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(q) |
-                    reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  // rows on 16-byte boundaries
+  const bool aligned = D % 8 == 0 &&
+                       ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  if (loader == 1) {
+    if (!aligned || Sk < 1) return cudaErrorInvalidValue;
+    if (D <= 32)
+      return launch_fwd_wgmma<32>(q, k, v, q_seg, k_seg, oh, lse, B, H, Sq,
+                                  Sk, D, scale, causal, stream);
+    if (D <= 64)
+      return launch_fwd_wgmma<64>(q, k, v, q_seg, k_seg, oh, lse, B, H, Sq,
+                                  Sk, D, scale, causal, stream);
+    return launch_fwd_wgmma<128>(q, k, v, q_seg, k_seg, oh, lse, B, H, Sq,
+                                 Sk, D, scale, causal, stream);
+  }
+  const int vec = aligned;   // 16-byte copies
   if (D <= 32)
     return launch_fwd_bf16<32>(qh, kh, vh, q_seg, k_seg, oh, lse, B, H, Sq,
                                Sk, D, scale, causal, vec, stream);

@@ -20,8 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "load", "load_all"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "load", "load_all", "build_seconds"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,8 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
-        "flash_attention_fwd_bf16": ([_P] * 7 + [_I] * 5 + [_F, _I, _P],
-                                     _I),
+        "flash_attention_fwd_bf16": ([_P] * 7 + [_I] * 5
+                                     + [_F, _I, _I, _P], _I),
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
         "decode_plan": ([_I] * 5 + [_P], _I),
     },
@@ -59,12 +60,16 @@ SOURCES = {
         "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),
     },
     "conv1x1_bwd": {
-        "conv1x1_bwd": ([_P] * 7 + [_I] * 12 + [_P], _I),
+        "conv1x1_bwd": ([_P] * 7 + [_I] * 11 + [_P], _I),
+        "conv1x1_bwd_bf16": ([_P] * 7 + [_I] * 11 + [_P], _I),
     },
 }
 
 _lock = threading.Lock()
 _libs = {}
+#: library name -> seconds from starting its nvcc to collecting it (an
+#: upper bound on its compile time when several build at once)
+build_seconds = {}
 
 
 def _nvcc():
@@ -92,7 +97,8 @@ def _target(name):
 
 def _start(name):
     """Start compiling ``csrc/<name>.cu`` unless its library is already
-    built. Returns ``(process, tmp, out)``, or None when built."""
+    built. Returns ``(process, tmp, out, start time)``, or None when
+    built."""
     src, out = _target(name)
     if os.path.exists(out):
         return None
@@ -101,14 +107,15 @@ def _start(name):
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name, started):
     if started is None:
         return
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log = proc.communicate()[0]
+    build_seconds[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -31,8 +31,11 @@ this kernel tiles every shape, among them Ci 256 -> Co 64 at 56x56 in
 float32, which that limit refuses.
 
 :func:`plan` is the kernel's launch plan (tile widths, dw's chunks, the
-copy width), a pure function of the shapes that the CPU tests hold to
-its rules.
+loader and its copy width), a pure function of the shapes that the CPU
+tests hold to its rules. float32 runs on 3xTF32 ``mma.sync`` fed by
+cp.async; bfloat16 on ``wgmma``, fed by TMA where every staged row starts
+on a 16-byte boundary (56x56 and 28x28 at the ResNet-50 path's shapes)
+and by 8-byte cp.async copies or registers elsewhere.
 
 ``launches`` counts kernel launches; plain-version calls do not count.
 """
@@ -52,8 +55,10 @@ __all__ = ["conv1x1", "conv1x1_bwd", "conv1x1_bwd_reference", "supported",
 #: kernel name -> launches since the last reset_launches()
 launches = {"conv1x1_bwd": 0}
 
-#: depth of one staged tile (the kernel's BK); dw chunks are multiples
+#: depth of one staged tile (the float32 kernel's BK; the bfloat16
+#: kernel's is STAGE_K_BF16); dw chunks are multiples
 STAGE_K = 32
+STAGE_K_BF16 = 64
 #: positions a dx block covers
 DX_BN = 128
 # positions a dw chunk aims for: longer chunks cut the partial sums'
@@ -70,9 +75,12 @@ _L2_RESIDENT = 40 * 2 ** 20
 #: block orders of the two roles (the kernel's kInterleave, kDxFirst,
 #: kDwFirst)
 INTERLEAVE, DX_FIRST, DW_FIRST = 0, 1, 2
+#: the bfloat16 kernel's loaders, by the C entry's code
+LOADERS = {"tma": 0, "cp.async": 1, "registers": 2, "bulk": 3}
 
 Plan = collections.namedtuple(
-    "Plan", "ci_tile co_tile splits chunk group tickets order vec")
+    "Plan", "ci_tile co_tile splits chunk group tickets order vec loader "
+            "stage_k hw_pad")
 
 
 def reset_launches():
@@ -118,19 +126,35 @@ def _tile(n):
     return 64 if n <= 64 else 128
 
 
-def plan(b, ci, co, hw, itemsize=4, aligned=True):
+def plan(b, ci, co, hw, itemsize=4, aligned=True, aligned8=None):
     """The kernel's launch plan for x [b, ci, hw] and dy [b, co, hw]: a
     :class:`Plan` of
 
     * ``ci_tile``: channels of Ci a dx block (beside DX_BN positions)
       and a dw block, ``co_tile``: channels of Co a dw block (64 or
       128 each: 128 where the channels reach it);
-    * ``splits``, ``chunk``: dw's depth j = b*hw cut into ``splits``
-      chunks of ``chunk`` positions, a multiple of STAGE_K, none empty.
-      A chunk holds about _DW_DEPTH positions, more chunks where the
-      launch would hold fewer than _MIN_BLOCKS blocks, and the float32
-      partial sums [splits, co, ci] stay under 1/_PARTIAL_SHARE of x's
-      and dy's elements;
+    * ``loader``, ``vec``: how tiles reach shared memory. float32:
+      ``"cp.async"``, 16-byte copies (``vec``) where every staged row
+      starts on a 16-byte boundary (hw * itemsize and ci * itemsize
+      multiples of 16, the tensors ``aligned`` to 16 bytes), else 4-byte
+      ones (hw = 49 at stage 4). bfloat16: ``"tma"`` where the rows
+      start on 16-byte boundaries (``vec``: 56x56, 28x28); else
+      ``"bulk"`` where an image's rows of 64 channels lie in one
+      16-byte-aligned run (hw <= 64, ci and co multiples of 8, the
+      tensors ``aligned``: 7x7), copied as they lie and swizzled in shared
+      memory; else ``"cp.async"`` with 8-byte copies where the rows start
+      on 8-byte boundaries (hw and ci multiples of 4, the tensors
+      ``aligned8``: 14x14); else ``"registers"`` (any shape);
+    * ``stage_k``: positions a stage (32 float32, 64 bfloat16);
+      ``hw_pad``: positions an image counts in dw's depth ``b * hw_pad``
+      (with TMA and bulk copies hw rounded up to whole stages, since a
+      stage never crosses an image; else hw);
+    * ``splits``, ``chunk``: that depth cut into ``splits`` chunks of
+      ``chunk`` positions, a multiple of ``stage_k``, none empty. A
+      chunk holds about _DW_DEPTH positions, more chunks where the launch
+      would hold fewer than _MIN_BLOCKS blocks, and the float32 partial
+      sums [splits, co, ci] stay under 1/_PARTIAL_SHARE of x's and dy's
+      elements;
     * ``group``: chunks whose partial sums one block adds before the
       last group's block adds the groups' sums (about sqrt(splits), so
       that neither level reads much more than the other);
@@ -140,22 +164,42 @@ def plan(b, ci, co, hw, itemsize=4, aligned=True):
       that one role pulls from device memory is still in L2 when the
       other asks for it; where x and dy stay in L2 anyway (7x7), the
       role with the longer blocks first (DX_FIRST or DW_FIRST), so that
-      no long block starts last;
-    * ``vec``: stage with 16-byte copies, which needs every staged row
-      to start on a 16-byte boundary: hw * itemsize and ci * itemsize
-      multiples of 16, and the tensors ``aligned`` to 16 bytes. Else
-      4-byte copies (hw = 49 at stage 4 in float32)."""
+      no long block starts last."""
     j = b * hw
     ci_tile, co_tile = _tile(ci), _tile(co)
     tiles = -(-co // co_tile) * -(-ci // ci_tile)
-    n_dx = -(-ci // ci_tile) * -(-j // DX_BN)
-    want = max(-(-j // _DW_DEPTH), -(-(_MIN_BLOCKS - n_dx) // tiles))
-    cap = max(1, j * (ci + co) // (_PARTIAL_SHARE * co * ci))
-    want = max(1, min(want, cap, -(-j // STAGE_K)))
-    chunk = -(-(-(-j // want)) // STAGE_K) * STAGE_K
     vec = bool(aligned and (hw * itemsize) % 16 == 0
                and (ci * itemsize) % 16 == 0)
-    splits = -(-j // chunk)
+    if itemsize == 2:
+        aligned8 = aligned if aligned8 is None else aligned8
+        if vec:
+            loader = "tma"
+        elif aligned and hw <= STAGE_K_BF16 and ci % 8 == 0 \
+                and co % 8 == 0:
+            loader = "bulk"
+        elif aligned8 and hw % 4 == 0 and ci % 4 == 0:
+            loader = "cp.async"
+        else:
+            loader = "registers"
+        stage_k = STAGE_K_BF16
+        per_image = loader in ("tma", "bulk")
+        hw_pad = -(-hw // stage_k) * stage_k if per_image else hw
+        if loader == "tma":        # each image's positions in dx tiles
+            pos_tiles = b * -(-hw // DX_BN)
+        elif loader == "bulk":     # whole images, DX_BN // hw a tile
+            pos_tiles = -(-b // (DX_BN // hw))
+        else:
+            pos_tiles = -(-j // DX_BN)
+    else:
+        loader, stage_k, hw_pad = "cp.async", STAGE_K, hw
+        pos_tiles = -(-j // DX_BN)
+    depth = b * hw_pad
+    n_dx = -(-ci // ci_tile) * pos_tiles
+    want = max(-(-depth // _DW_DEPTH), -(-(_MIN_BLOCKS - n_dx) // tiles))
+    cap = max(1, j * (ci + co) // (_PARTIAL_SHARE * co * ci))
+    want = max(1, min(want, cap, -(-depth // stage_k)))
+    chunk = -(-(-(-depth // want)) // stage_k) * stage_k
+    splits = -(-depth // chunk)
     group = math.isqrt(splits - 1) + 1
     tickets = tiles * (-(-splits // group) + 1)
     if j * (ci + co) * itemsize > _L2_RESIDENT:
@@ -164,7 +208,8 @@ def plan(b, ci, co, hw, itemsize=4, aligned=True):
         order = DX_FIRST
     else:
         order = DW_FIRST
-    return Plan(ci_tile, co_tile, splits, chunk, group, tickets, order, vec)
+    return Plan(ci_tile, co_tile, splits, chunk, group, tickets, order, vec,
+                loader, stage_k, hw_pad)
 
 
 def _bwd_cuda(x, w, dy):
@@ -191,7 +236,8 @@ def _bwd_cuda(x, w, dy):
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     pl = plan(b, ci, co, hw, x.element_size(),
-              all(t.data_ptr() % 16 == 0 for t in (x, w, dy)))
+              all(t.data_ptr() % 16 == 0 for t in (x, w, dy)),
+              all(t.data_ptr() % 8 == 0 for t in (x, w, dy)))
     if pl.splits > 1:
         partial = torch.empty((pl.splits, co, ci), dtype=torch.float32,
                               device=dev)
@@ -200,14 +246,17 @@ def _bwd_cuda(x, w, dy):
     else:
         p_ptr = t_ptr = None
     lib = _build.load("conv1x1_bwd")
+    if x.dtype == torch.bfloat16:
+        fn, last = "conv1x1_bwd_bf16", LOADERS[pl.loader]
+    else:
+        fn, last = "conv1x1_bwd", int(pl.vec)
     with torch.cuda.device(dev):
-        rc = lib.conv1x1_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
-                             dx.data_ptr(), dw.data_ptr(), p_ptr, t_ptr, b,
-                             ci, co, hw, pl.splits, pl.chunk, pl.group,
-                             pl.order, int(x.dtype == torch.bfloat16),
-                             pl.ci_tile, pl.co_tile, int(pl.vec),
-                             _stream(dev))
-    _raise_on(rc, "conv1x1_bwd")
+        rc = getattr(lib, fn)(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                              dx.data_ptr(), dw.data_ptr(), p_ptr, t_ptr, b,
+                              ci, co, hw, pl.splits, pl.chunk, pl.group,
+                              pl.order, pl.ci_tile, pl.co_tile, last,
+                              _stream(dev))
+    _raise_on(rc, fn)
     launches["conv1x1_bwd"] += 1
     return dx, dw
 

@@ -44,7 +44,8 @@ from paddle_tpu_torch.kernels import H100_SMS
 
 __all__ = ["flash_attention", "flash_decode", "flash_attention_reference",
            "flash_attention_bwd", "FlashAttention",
-           "flash_decode_reference", "decode_plan", "decode_chunks",
+           "flash_decode_reference", "fwd_plan", "decode_plan",
+           "decode_chunks",
            "launches", "reset_launches", "DEFAULT_MASK_VALUE", "BLOCK_Q",
            "BLOCK_K", "KEY_SPLIT", "BWD_BLOCK_K", "DECODE_BLOCK_K",
            "DECODE_WARPS"]
@@ -69,6 +70,13 @@ DECODE_WARPS = 4
 BWD_BLOCK_K = 128
 #: the decode kernel's ring stages a warp
 DECODE_STAGES = 2
+#: the bfloat16 forward on wgmma fed by TMA (fwd_plan): query rows a
+#: block (two warpgroups of WG_ROWS), keys a tile, ring stages, threads
+WG_BLOCK_Q = 128
+WG_ROWS = 64
+WG_BLOCK_K = 64
+WG_STAGES = 4
+WG_THREADS = 2 * 128
 #: the decode plan's rule: a row's cluster doubles while the grid holds
 #: fewer than DECODE_FILL blocks an SM and a chunk of a full row keeps
 #: DECODE_MIN_TILES tiles a warp, up to the portable cluster size
@@ -99,6 +107,45 @@ def decode_plan(b, h, s, d, sms=H100_SMS):
     return dict(blocks_per_row=n, blocks=n * b * h,
                 threads=32 * DECODE_WARPS, stages=DECODE_STAGES,
                 smem_bytes=smem, tile_keys=DECODE_BLOCK_K)
+
+
+def fwd_plan(b, h, sq, sk, d, dtype=torch.bfloat16, aligned=True):
+    """The forward kernel a call of ``flash_attention`` takes and its
+    blocking, a pure function of the shapes (the card tests hold the
+    kernels to it):
+
+    * bfloat16 with ``d`` a multiple of 8 (rows on 16-byte boundaries),
+      ``d`` <= 128, ``sk`` >= 1 and q, k, v ``aligned`` to 16 bytes:
+      ``loader="tma"``, the wgmma kernel. A block of WG_BLOCK_Q query
+      rows, two warpgroups of WG_ROWS each; WG_BLOCK_K keys a tile
+      through a WG_STAGES-stage ring; shared memory in the
+      ``swizzle`` of 128-byte rows (64-byte rows for ``d`` <= 32), head_dim
+      padded to ``dmax`` (32, 64 or 128);
+    * any other bfloat16 call, and every float32 one: ``loader=
+      "mma_sync"``, the earlier blocking (BLOCK_Q rows, BLOCK_K keys a
+      tile, KEY_SPLIT warps each walking every KEY_SPLIT-th tile, cp.async
+      copies: ``vec`` 16-byte ones where rows start on 16-byte
+      boundaries).
+
+    ``walk_q``, ``block_k`` and ``key_split`` are the arguments that make
+    :func:`flash_attention_reference` walk the keys as the kernel does."""
+    dmax = 32 if d <= 32 else 64 if d <= 64 else 128
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d % 8 == 0 and 1 <= d <= 128 and sk >= 1 and aligned:
+        sw = 64 if dmax == 32 else 128
+        q_bytes = WG_BLOCK_Q * 2 * dmax
+        stage = 2 * WG_BLOCK_K * 2 * dmax
+        return dict(loader="tma", grid=(b * h, -(-sq // WG_BLOCK_Q)),
+                    threads=WG_THREADS, block_q=WG_BLOCK_Q, walk_q=WG_ROWS,
+                    block_k=WG_BLOCK_K, key_split=1, stages=WG_STAGES,
+                    dmax=dmax, swizzle=sw,
+                    smem_bytes=1024 + q_bytes + WG_STAGES * stage)
+    size = 2 if bf16 else 4
+    return dict(loader="mma_sync", grid=(b * h, -(-sq // BLOCK_Q)),
+                threads=32 * KEY_SPLIT, block_q=BLOCK_Q, walk_q=BLOCK_Q,
+                block_k=BLOCK_K, key_split=KEY_SPLIT, stages=2, dmax=dmax,
+                swizzle=0,
+                vec=bool(aligned and (d * size) % 16 == 0))
 
 
 def decode_chunks(lengths, n):
@@ -436,8 +483,12 @@ def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
         q_seg, k_seg = segment_ids
         _check_int("q_segments", q_seg, (b, sq), dev)
         _check_int("k_segments", k_seg, (b, sk), dev)
+    extra = ()
     if q.dtype == torch.bfloat16:
         fn, name = "flash_attention_fwd_bf16", "flash_attention_bf16"
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        extra = (int(fwd_plan(b, h, sq, sk, d, q.dtype, aligned)["loader"]
+                     == "tma"),)
     else:
         fn, name = "flash_attention_fwd", "flash_attention"
     lib = _build.load("flash_attention")
@@ -449,7 +500,7 @@ def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
             q_seg.data_ptr() if q_seg is not None else None,
             k_seg.data_ptr() if k_seg is not None else None,
             out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
-            ctypes.c_float(scale), int(bool(causal)),
+            ctypes.c_float(scale), int(bool(causal)), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, fn)
     launches[name] += 1

@@ -339,9 +339,16 @@ def test_plan_covers_the_depth_in_whole_stages(b, ci, h, w, co, dtype):
     size = torch.empty((), dtype=dtype).element_size()
     hw, j = h * w, b * h * w
     p = tk.plan(b, ci, co, hw, size)
-    # the chunks cover B*HW exactly, none is empty, each is whole stages
-    assert p.chunk % tk.STAGE_K == 0 and p.chunk > 0
-    assert p.splits * p.chunk >= j > (p.splits - 1) * p.chunk
+    # the depth: B*HW positions, each image's padded to whole stages
+    # where a TMA box (bfloat16) may not cross an image
+    assert p.stage_k == (tk.STAGE_K if size == 4 else tk.STAGE_K_BF16)
+    assert p.hw_pad == (-(-hw // p.stage_k) * p.stage_k
+                        if p.loader in ("tma", "bulk") else hw)
+    depth = b * p.hw_pad
+    # the chunks cover the depth exactly, none is empty, each is whole
+    # stages
+    assert p.chunk % p.stage_k == 0 and p.chunk > 0
+    assert p.splits * p.chunk >= depth > (p.splits - 1) * p.chunk
     # tiles: 128 where the channels reach it
     assert p.ci_tile == (64 if ci <= 64 else 128)
     assert p.co_tile == (64 if co <= 64 else 128)
@@ -353,10 +360,11 @@ def test_plan_covers_the_depth_in_whole_stages(b, ci, h, w, co, dtype):
     # the partial sums stay under half of x's and dy's elements
     if p.splits > 1:
         assert p.splits * co * ci <= j * (ci + co) // 2
-    # 16-byte copies exactly where every staged row starts on a 16-byte
-    # boundary
+    # 16-byte copies (bfloat16: TMA) exactly where every staged row starts
+    # on a 16-byte boundary
     assert p.vec == ((hw * size) % 16 == 0 and (ci * size) % 16 == 0)
     assert not tk.plan(b, ci, co, hw, size, aligned=False).vec
+    assert (p.loader == "tma") == (size == 2 and p.vec)
 
 
 def test_plan_stages_the_path_as_the_kernel_notes_say():
@@ -390,3 +398,51 @@ def test_plan_orders_the_roles_by_where_x_and_dy_live():
                            else tk.DW_FIRST)
     assert tk.plan(64, 512, 2048, 49).order == tk.DX_FIRST
     assert tk.plan(64, 2048, 512, 49).order == tk.DW_FIRST
+
+
+# ---- the bfloat16 kernel's loaders ----
+
+def test_bf16_plan_takes_tma_where_rows_allow_and_refuses_14x14_and_7x7():
+    """bfloat16 at the ResNet-50 path's shapes: TMA at 56x56 and 28x28
+    (rows of 6272 and 1568 bytes start on 16-byte boundaries), never at
+    14x14 (392-byte rows: 8-byte cp.async copies) or 7x7 (98-byte rows:
+    bulk copies of whole images, swizzled in shared memory); one stage is
+    64 positions deep, and with TMA and bulk copies each image's
+    positions fill whole stages."""
+    for (ci, h, w, co) in PATH_SHAPES:
+        hw = h * w
+        p = tk.plan(64, ci, co, hw, 2)
+        want = {56: "tma", 28: "tma", 14: "cp.async", 7: "bulk"}[h]
+        assert p.loader == want and p.vec == (want == "tma")
+        assert p.stage_k == tk.STAGE_K_BF16 == 64
+        assert p.hw_pad == (-(-hw // 64) * 64 if want in ("tma", "bulk")
+                            else hw)
+        assert p.chunk % 64 == 0
+    # the float32 plan is the one it was
+    p32 = tk.plan(64, 64, 256, 3136)
+    assert (p32.loader, p32.stage_k, p32.hw_pad) == ("cp.async", 32, 3136)
+
+
+@pytest.mark.parametrize("args,kw,want", [
+    ((3, 24, 40, 35), {}, "bulk"),                 # the odd test shape
+    ((2, 40, 72, 49), {}, "bulk"),
+    ((2, 20, 72, 49), {}, "registers"),            # Ci % 8 != 0
+    ((2, 72, 48, 100), {}, "cp.async"),            # 200-byte rows
+    ((2, 24, 40, 81), {}, "registers"),            # odd hw past a stage
+    ((4, 64, 128, 64), {}, "tma"),
+    ((4, 64, 128, 64), {"aligned": False, "aligned8": False}, "registers"),
+    ((4, 64, 128, 64), {"aligned": False, "aligned8": True}, "cp.async"),
+    ((2, 40, 72, 49), {"aligned": False, "aligned8": True}, "registers"),
+])
+def test_bf16_plan_loader_by_shape_and_alignment(args, kw, want):
+    """The loader is a function of the shape and the tensors' alignment,
+    chosen before the launch: TMA needs hw and ci multiples of 8 and
+    16-byte aligned tensors; bulk copies hw <= 64, ci and co multiples of
+    8 and 16-byte aligned tensors; 8-byte cp.async hw and ci multiples of
+    4 and 8-byte alignment; registers take any shape."""
+    p = tk.plan(*args, itemsize=2, **kw)
+    assert p.loader == want
+    assert tk.LOADERS[p.loader] in (0, 1, 2, 3)
+    b, ci, co, hw = args
+    depth = b * p.hw_pad
+    assert p.splits * p.chunk >= depth > (p.splits - 1) * p.chunk

@@ -447,3 +447,75 @@ def test_3xtf32_attention_within_1e5_one_tf32_pass_is_not():
     err1 = (attention(lambda a, b: _tf32(a) @ _tf32(b), q, k, v).double()
             - truth).abs().max()
     assert err3 < 1e-5 < err1
+
+
+# ---- the bfloat16 forward's plan: which kernel, which blocking ----
+
+@pytest.mark.parametrize("d,dmax,swizzle", [(8, 32, 64), (32, 32, 64),
+                                            (40, 64, 128), (64, 64, 128),
+                                            (96, 128, 128), (128, 128, 128)])
+def test_fwd_plan_takes_the_wgmma_kernel_where_tma_addresses_the_rows(
+        d, dmax, swizzle):
+    """bfloat16 with head_dim a multiple of 8 (rows on 16-byte
+    boundaries), up to 128, aligned tensors and keys to walk: the wgmma
+    kernel fed by TMA, 128 query rows a block as two warpgroups of 64,
+    64-key tiles through a 4-stage ring, 128-byte swizzled rows (64-byte
+    rows where head_dim fits 32 columns), within one block's shared
+    memory and two blocks an SM where head_dim <= 64."""
+    p = tfa.fwd_plan(16, 8, 512, 512, d)
+    assert p["loader"] == "tma"
+    assert (p["dmax"], p["swizzle"]) == (dmax, swizzle)
+    assert p["grid"] == (128, 4) and p["threads"] == 256
+    assert (p["block_q"], p["walk_q"], p["block_k"], p["key_split"],
+            p["stages"]) == (128, 64, 64, 1, 4)
+    assert p["smem_bytes"] <= 227 * 1024
+    if d <= 64:
+        assert 2 * p["smem_bytes"] <= 228 * 1024
+    # sq that no block divides: the last block's rows past sq are masked
+    assert tfa.fwd_plan(2, 3, 200, 120, d)["grid"] == (6, 2)
+
+
+@pytest.mark.parametrize("args,kw", [((1, 2, 17, 29, 13), {}),
+                                     ((1, 2, 64, 64, 20), {}),
+                                     ((1, 2, 64, 64, 64), {"aligned": False}),
+                                     ((1, 2, 64, 0, 64), {}),
+                                     ((1, 2, 64, 64, 64),
+                                      {"dtype": torch.float32})])
+def test_fwd_plan_keeps_the_mma_sync_kernel_where_tma_cannot_go(args, kw):
+    """head_dim not a multiple of 8, tensors off 16-byte boundaries, no
+    keys, and every float32 call: the mma.sync kernels, with their
+    blocking (16 query rows, 16-key tiles split between 4 warps)."""
+    p = tfa.fwd_plan(*args, **kw)
+    assert p["loader"] == "mma_sync"
+    assert (p["block_q"], p["block_k"], p["key_split"]) == (
+        tfa.BLOCK_Q, tfa.BLOCK_K, tfa.KEY_SPLIT)
+    b, h, sq = args[:3]
+    assert p["grid"] == (b * h, -(-sq // tfa.BLOCK_Q))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 200, 120, 64), (1, 2, 130, 130, 32),
+                                   (1, 2, 64, 100, 40)])
+def test_bf16_plain_forward_at_the_wgmma_blocking_within_one_rounding(
+        shape, causal):
+    """The plain version walking the keys as the wgmma kernel does
+    (fwd_plan: 64-row walks, 64-key tiles, no split) and as the mma.sync
+    kernel does (16, 16, 4 warps) agree to one bfloat16 rounding of O
+    and to 1e-5 on the log-sum-exp: P is rounded against other running
+    maxima, nothing else moves. Sq != Sk and head_dims that need zero
+    columns included."""
+    b, h, sq, sk, d = shape
+    rng = np.random.RandomState(sq + d)
+    q = torch.from_numpy(_rand(rng, b, h, sq, d)).bfloat16()
+    k, v = (torch.from_numpy(_rand(rng, b, h, sk, d)).bfloat16()
+            for _ in range(2))
+    p = tfa.fwd_plan(b, h, sq, sk, d)
+    wo, wl = tfa.flash_attention_reference(
+        q, k, v, causal, block_q=p["walk_q"], block_k=p["block_k"],
+        key_split=p["key_split"])
+    mo, ml = tfa.flash_attention_reference(q, k, v, causal)
+    err = (wo.bfloat16().float() - mo.bfloat16().float()).abs()
+    want = mo.abs()
+    assert bool((err <= 1e-2 * want + 4e-3 * want.max()).all()), \
+        float(err.max())
+    np.testing.assert_allclose(wl.numpy(), ml.numpy(), rtol=1e-5, atol=1e-5)

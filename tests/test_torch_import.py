@@ -111,3 +111,24 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         _build.load_all()
     assert not _build._libs
 
+
+
+def test_a_failed_build_raises_with_the_compilers_message(monkeypatch,
+                                                          tmp_path):
+    """A source that does not compile (here a shared header it includes
+    is missing) raises with nvcc's own message; nothing is loaded and no
+    other kernel takes its place."""
+    from paddle_tpu_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'flash_attention.cu: fatal error: "
+                    "hopper.cuh: No such file or directory' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed for "
+                       "csrc/flash_attention.cu.*hopper.cuh: No such file"):
+        _build.load("flash_attention")
+    assert not _build._libs
+    assert not any(p.suffix == ".so" for p in (tmp_path / "build").iterdir())

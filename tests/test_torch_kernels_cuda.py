@@ -288,6 +288,78 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                          torch.tensor([3], device=cuda))
 
 
+# The bfloat16 forward redesigned for Hopper (wgmma fed by TMA) at its
+# edges, held against the plain version walking the keys as the kernel
+# does (fwd_plan) and against float64, twice to the same bits: sq not a
+# multiple of its 128 rows, sq != sk both ways, not causal, head_dim 32,
+# 40 (zero columns) and 128, segments, and head_dim 13, which the plan
+# sends to the mma.sync kernel.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 4, 200, 200, 64, True, False),
+                                  (2, 3, 200, 120, 64, False, False),
+                                  (2, 3, 120, 200, 64, True, False),
+                                  (2, 4, 256, 256, 64, False, True),
+                                  (2, 2, 130, 130, 32, True, False),
+                                  (1, 2, 200, 200, 128, True, True),
+                                  (1, 2, 64, 100, 40, True, False),
+                                  (1, 2, 17, 29, 13, True, False)])
+def test_cuda_bf16_forward_at_the_wgmma_kernels_edges(cuda, case):
+    b, h, sq, sk, d, causal, seg = case
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q = torch.randn(b, h, sq, d, generator=g).bfloat16().to(cuda)
+    k, v = (torch.randn(b, h, sk, d, generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    segs = None
+    if seg:
+        ids = torch.sort(torch.randint(0, 3, (b, sq), generator=g),
+                         dim=1)[0].int().to(cuda)
+        segs = (ids, ids)
+    plan = tfa.fwd_plan(b, h, sq, sk, d)
+    assert plan["loader"] == ("tma" if d % 8 == 0 else "mma_sync")
+    n0 = tfa.launches["flash_attention_bf16"]
+    ko, kl = tfa.flash_attention(q, k, v, causal=causal, segment_ids=segs,
+                                 return_lse=True)
+    assert tfa.launches["flash_attention_bf16"] == n0 + 1
+    ko2, kl2 = tfa.flash_attention(q, k, v, causal=causal, segment_ids=segs,
+                                   return_lse=True)
+    ro, rl = tfa.flash_attention_reference(
+        q, k, v, causal, None, segs, block_q=plan["walk_q"],
+        block_k=plan["block_k"], key_split=plan["key_split"])
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * d ** -0.5
+    ok = torch.ones(sq, sk, dtype=torch.bool, device=cuda)
+    if causal:
+        ok = torch.arange(sq, device=cuda)[:, None] >= \
+            torch.arange(sk, device=cuda)[None, :]
+    ok = ok[None, None]
+    if segs is not None:
+        ok = ok & (segs[0][:, None, :, None] == segs[1][:, None, None, :])
+    truth = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(
+        torch.where(ok, sc, tfa.DEFAULT_MASK_VALUE), -1), v.double())
+    torch.cuda.synchronize()
+    assert torch.equal(ko, ko2) and torch.equal(kl, kl2)
+    _bf16_close(ko, ro.bfloat16())
+    _bf16_close(ko, truth)
+    torch.testing.assert_close(kl, rl, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_forward_refuses_tma_where_the_rows_do_not_allow(cuda):
+    """The C entry checks the plan's choice and returns an error where
+    TMA cannot address the rows (head_dim 13): no launch, no fallback."""
+    import ctypes
+    from paddle_tpu_torch.kernels import _build
+
+    q = torch.randn(1, 2, 16, 13, device=cuda).bfloat16()
+    o = torch.empty_like(q)
+    lse = torch.empty(1, 2, 16, device=cuda)
+    lib = _build.load("flash_attention")
+    rc = lib.flash_attention_fwd_bf16(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), None, None, o.data_ptr(),
+        lse.data_ptr(), 1, 2, 16, 16, 13, ctypes.c_float(0.25), 1, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
 def _lstm_inputs(B, T, H, peep, seed, device):
     g = torch.Generator().manual_seed(seed)
     xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
@@ -817,6 +889,57 @@ def test_cuda_conv1x1_bwd_unaligned_views_take_the_4_byte_copies(cuda,
     rtol, amax = (1e-4, 2e-5) if dtype == torch.float32 else (1e-2, 4e-3)
     _close(dx, truth[0], rtol, amax)
     _close(dw, truth[1], rtol, amax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,loader", [((4, 64, 16, 16, 128), "tma"),
+                                          ((2, 128, 28, 28, 64), "tma"),
+                                          ((2, 40, 7, 7, 72), "bulk"),
+                                          ((3, 24, 5, 7, 40), "bulk"),
+                                          ((2, 72, 10, 10, 48), "cp.async"),
+                                          ((2, 24, 9, 9, 40), "registers")])
+def test_cuda_conv1x1_bwd_bf16_through_each_loader(cuda, shape, loader):
+    """The bfloat16 kernel (wgmma) through each loader its plan chooses by
+    shape, held against the plain version and float64 at one bfloat16
+    rounding, and twice to the same bits."""
+    b, ci, h, w, co = shape
+    assert k1.plan(b, ci, co, h * w, 2).loader == loader
+    g = torch.Generator().manual_seed(ci + co + h)
+    x = torch.randn(b, ci, h, w, generator=g).bfloat16().to(cuda)
+    wt = (torch.randn(co, ci, 1, 1, generator=g) * ci ** -0.5).bfloat16() \
+        .to(cuda)
+    dy = torch.randn(b, co, h, w, generator=g).bfloat16().to(cuda)
+    n0 = k1.launches["conv1x1_bwd"]
+    dx, dw = k1.conv1x1_bwd(x, wt, dy)
+    assert k1.launches["conv1x1_bwd"] == n0 + 1
+    dx2, dw2 = k1.conv1x1_bwd(x, wt, dy)
+    plain = k1.conv1x1_bwd_reference(x, wt, dy)
+    truth = k1.conv1x1_bwd_reference(x.double(), wt.double(), dy.double())
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    for ref in (plain, truth):
+        _close(dx, ref[0], 1e-2, 4e-3)
+        _close(dw, ref[1], 1e-2, 4e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_bwd_bf16_refuses_a_loader_the_rows_do_not_allow(cuda):
+    """TMA asked for at 7x7 (98-byte rows): the C entry returns an error
+    and launches nothing."""
+    from paddle_tpu_torch.kernels import _build
+
+    b, ci, hw, co = 2, 64, 49, 64
+    x = torch.randn(b, ci, hw, device=cuda).bfloat16()
+    wt = torch.randn(co, ci, device=cuda).bfloat16()
+    dy = torch.randn(b, co, hw, device=cuda).bfloat16()
+    dx, dw = torch.empty_like(x), torch.empty_like(wt)
+    lib = _build.load("conv1x1_bwd")
+    rc = lib.conv1x1_bwd_bf16(x.data_ptr(), wt.data_ptr(), dy.data_ptr(),
+                              dx.data_ptr(), dw.data_ptr(), None, None, b,
+                              ci, co, hw, 1, 128, 1, 1, 64, 64,
+                              k1.LOADERS["tma"],
+                              torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 # ---- the fused conv epilogue (conv2d_bn_act) on the card ----
