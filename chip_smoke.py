@@ -321,6 +321,9 @@ B1_BF16_CASES = ((1, 8, 32, 32, 64, True, False),
 # witness (ragged masks with an empty and a full row), beside the AMP
 # paths' shapes
 RNN_BF16_SHAPES = ((8, 5, 32), (37, 17, 128), (200, 4, 64))
+# an LSTM shape kernels.lstm_cell.cluster_plan refuses (W does not fit a
+# cluster of 16 blocks): the bf16 B3 and B4 of lstm_cell.cu stay held
+LSTM_BF16_REFUSED = ((16, 6, 1024),)
 
 # Executor.run_chunk as replayed CUDA graphs: steps a chunk (bench.py runs
 # the transformer row with K=8, bench.py:311-318) and chunks a path
@@ -377,8 +380,8 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "conv1x1_bwd": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
            "bn_grad_bf16": "paddle_tpu_torch/csrc/bn_grad.cu",
            "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
-           "lstm_fwd_bf16": "paddle_tpu_torch/csrc/lstm_cell.cu",
-           "lstm_bwd_bf16": "paddle_tpu_torch/csrc/lstm_cell.cu",
+           "lstm_fwd_bf16": "paddle_tpu_torch/csrc/lstm_cluster.cu",
+           "lstm_bwd_bf16": "paddle_tpu_torch/csrc/lstm_cluster.cu",
            "gru_fwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu",
            "gru_bwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
@@ -412,8 +415,8 @@ def card_line():
 
 # B1, B3, B4, B5, B6 and B8 run on the tensor cores fed by asynchronous
 # copies: (library, kernel function). The mma.sync kernels show HMMA in
-# the SASS and cp.async as LDGSTS; the bfloat16 B1 and B8 on wgmma show
-# HGMMA and TMA loads (UTMALDG; bulk copies,
+# the SASS and cp.async as LDGSTS; the bfloat16 B1, B3, B4 and B8 on
+# wgmma show HGMMA and TMA loads (UTMALDG; bulk copies,
 # UBLKCP). Which loader an instantiation of the bfloat16 B8 runs is its
 # last template argument (kernels.conv1x1_bwd.LOADERS): TMA must show
 # UTMALDG, the bulk copies UBLKCP and UTMALDG (w), the 8-byte cp.async
@@ -425,9 +428,12 @@ TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
                        ("conv1x1_bwd", "conv1x1_bwd_bf16_kernel"),
                        ("lstm_cell", "lstm_fwd_kernel"),
                        ("lstm_cell", "lstm_bwd_kernel"),
+                       ("lstm_cluster", "lstm_fwd_cluster_kernel"),
+                       ("lstm_cluster", "lstm_bwd_cluster_kernel"),
                        ("gru_cell", "gru_fwd_kernel"),
                        ("gru_cell", "gru_bwd_kernel"))
-WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "conv1x1_bwd_bf16_kernel")
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "conv1x1_bwd_bf16_kernel",
+                 "lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel")
 # the bf16 B8's kernel in a profile (the AMP paths' 1x1 backward)
 B8_BF16_KERNELS = ("conv1x1_bwd_bf16_kernel",)
 # B2 is bound by bytes and has no product for the tensor cores: its SASS
@@ -445,6 +451,12 @@ def copies_wanted(fn):
     opcodes it needs all of, or of which any one will do (a list)."""
     if "flash_fwd_wgmma_kernel" in fn:
         return ("UTMALDG",)
+    # the bf16 LSTM's cluster kernels: their inputs by TMA, W staged by
+    # cp.async; B3's all-gather by bulk copies between the blocks
+    if "lstm_fwd_cluster_kernel" in fn:
+        return ("UTMALDG", "LDGSTS", "UBLKCP")
+    if "lstm_bwd_cluster_kernel" in fn:
+        return ("UTMALDG", "LDGSTS")
     m = C1_LOADER.search(fn)
     if m:
         return {0: ("UTMALDG",), 1: ("LDGSTS",), 2: (),
@@ -487,8 +499,10 @@ def sass_check(build):
                     c[op] += op in line
                 c["local"] += bool(re.search(r"\b(LDL|STL)\b", line))
                 c["wide"] += bool(WIDE_LOAD.search(line))
-        # "flash_fwd_bf16_kernel" must not match "flash_fwd_wgmma_kernel"
-        mine = sorted(f for f in counts if re.search(kernel + r"I", f))
+        # "flash_fwd_bf16_kernel" must not match "flash_fwd_wgmma_kernel";
+        # a template's instantiations continue with I, a plain function
+        # with its parameters (E...)
+        mine = sorted(f for f in counts if re.search(kernel + r"[IE]", f))
         if not mine:
             raise AssertionError("%s: no %s in its SASS" % (path, kernel))
         for f in mine:
@@ -913,7 +927,11 @@ def gru_witness(gc, g, dev):
 def check_rnn_bf16(lc, gc, g, dev):
     """The bfloat16 B3-B6 at the AMP paths' shapes (LSTM [64, 80, 512]
     with and without peepholes, GRU [64, 30, 512]) and at
-    RNN_BF16_SHAPES, ragged: each kernel against its plain version on
+    RNN_BF16_SHAPES, ragged (the LSTM on the cluster kernels of
+    lstm_cluster.cu wherever kernels.lstm_cell.cluster_plan takes the
+    shape, and also at LSTM_BF16_REFUSED, which it refuses, on
+    lstm_cell.cu's), the card's cluster plan equal to cluster_plan's:
+    each kernel against its plain version on
     the same bfloat16 inputs (hs, cs, the stash; dxg, dh0, dc0, dpeep on
     the plain forward's stash; dW through lstm_sequence's and
     gru_sequence's GEMMs), all at one bfloat16 rounding, and against a
@@ -931,9 +949,28 @@ def check_rnn_bf16(lc, gc, g, dev):
                                              want.double(), BF16_RTOL,
                                              BF16_AMAX))
 
+    if not lc.cluster_plan(LSTM_B, HID)["take"]:
+        raise AssertionError("the path's LSTM [%d, *, %d] is not on the "
+                             "cluster kernels" % (LSTM_B, HID))
+    for B, H in [(LSTM_B, HID)] + [(b, h) for b, _, h in
+                                   RNN_BF16_SHAPES + LSTM_BF16_REFUSED]:
+        want = lc.cluster_plan(B, H)
+        for kind in ("lstm_fwd", "lstm_bwd"):
+            card = lc.card_cluster_plan(kind, B, H, dev)
+            if {k: card[k] for k in want} != want:
+                raise AssertionError("%s [%d, *, %d]: the card's cluster "
+                                     "plan %s != cluster_plan's %s"
+                                     % (kind, B, H, card, want))
+    for B, _, H in LSTM_BF16_REFUSED:
+        if lc.cluster_plan(B, H)["take"]:
+            raise AssertionError("cluster_plan takes [%d, *, %d]" % (B, H))
+    print("lstm bf16 cluster plans (card = cluster_plan): path %s; "
+          "refused %s" % (json.dumps(lc.card_cluster_plan(
+              "lstm_bwd", LSTM_B, HID, dev)), [
+              sh for sh in LSTM_BF16_REFUSED]))
     for (B, T, H), peep in [((LSTM_B, LSTM_T, HID), True),
                             ((LSTM_B, LSTM_T, HID), False)] + [
-            (sh, True) for sh in RNN_BF16_SHAPES]:
+            (sh, True) for sh in RNN_BF16_SHAPES + LSTM_BF16_REFUSED]:
         xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, peep, g,
                                                        dev)
         xg, w, dhs, dcs = (t.to(bf16) for t in (xg, w, dhs, dcs))
@@ -3291,15 +3328,26 @@ def main():
                                          dcs))
         lstm_in[dt] = (xg, w, h0, c0, mask, p, dhs, dcs, cs, stash)
         for kind in ("lstm_fwd", "lstm_bwd"):
-            pl, name = lc.launch_plan(kind, B, H, dev, dt), kind + sfx
+            name = kind + sfx
+            if lc.cluster_plan(B, H, dt)["take"]:
+                pl = lc.card_cluster_plan(kind, B, H, dev)
+                how = ("one cluster of %d blocks per row group of %d rows "
+                       "(%d row groups, %d clusters at once); exchange "
+                       "through distributed shared memory" % (
+                           pl["blocks"], pl["rows"], pl["row_groups"],
+                           pl["clusters_at_once"]))
+            else:
+                pl = lc.launch_plan(kind, B, H, dev, dt)
+                how = ("cluster size %d, %d blocks, %d row groups of 32 in "
+                       "flight; exchange through L2 %d bytes a step" % (
+                           pl["cluster"], pl["blocks"], pl["rows_in_flight"],
+                           pl["exchange_bytes"]))
             print("%s at [%d,%d,%d]: %.6f ms, at T=%d %.6f ms: %.3f us a "
-                  "step; cluster size %d, %d blocks, %d row groups of 32 in "
-                  "flight; exchange through L2 %d bytes a step" % (
+                  "step; %s" % (
                       name, B, T, H, lstm_t[name, T], LSTM_SHORT_T,
                       lstm_t[name, LSTM_SHORT_T],
                       (lstm_t[name, T] - lstm_t[name, LSTM_SHORT_T]) * 1e3
-                      / (T - LSTM_SHORT_T), pl["cluster"], pl["blocks"],
-                      pl["rows_in_flight"], pl["exchange_bytes"]))
+                      / (T - LSTM_SHORT_T), how))
     xg, w, h0, c0, mask, p, dhs, dcs, cs, stash = lstm_in[torch.float32]
     cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
     x_in = torch.randn(B, T, H, generator=g).to(dev)

@@ -2,6 +2,7 @@
 B6), or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
 
     python3 lstm_breakdown.py            # B3 and B4 at [64, T, 512]
+    python3 lstm_breakdown.py --lstm-bf16  # bf16 B3, B4 (cluster kernels)
     python3 lstm_breakdown.py --gru      # B5 at [64, T, 512]
     python3 lstm_breakdown.py --gru-bwd  # B6 at [64, T, 512]
     python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
@@ -33,6 +34,20 @@ the difference of T is the cost of one step. Their variants:
 
 B6 is timed on a stash that the kernels' own forward wrote; the
 variants change the backward's library only.
+
+The bfloat16 B3 and B4 that run one thread-block cluster per row group
+(``lstm_cluster.cu``, ``--lstm-bf16``) are timed the same way, at T 8
+and 80 (B4 on the stash of the kernels' own forward), at the 16 rows a
+cluster they are built for (32 and 64 would not fit the shared memory
+at H 512: the bytes they would need are printed).
+Their variants: ``nowait`` (each step's waits for the exchange move
+after the product, off the chain), ``nomma`` (no wgmma product),
+``nocell`` (B3: the cell's arithmetic without its exponentials; B4: no
+gate gradients), ``noexchange`` (no all-gather in B3, no reduce-scatter
+in B4: each block waits for its own arrival only), and
+``nomma+nocell``: the exchange and its waits alone, the floor of the
+chain that this design leaves. Last, lstm_cell.cu's bf16 kernels at the
+same inputs, as the wrappers take them where the plan refuses a shape.
 
 The difference of a variant's step from the kernels' own is what that
 part costs on the step's chain.
@@ -156,6 +171,51 @@ EDITS = {
                     "swzbuf, lin + i * kBK * HW, rows, HW, i * HW, warp, lane);",
                     "")],
 }
+CLUSTER_WAIT_FWD = ("    rc::wait(&full[par], (t >> 1) & 1);\n    __syncwarp();\n"
+                    "    float acc[NR];")
+CLUSTER_PRODUCT_DONE = "    hopper::wgmma_wait<0>();\n    fence_regs(acc);\n"
+CLUSTER_WAIT_BWD = "      rc::wait(&rbar[(s - 1) & 1], ((s - 1) >> 1) & 1);\n"
+CLUSTER_A_DONE = ("    hopper::fence_proxy_async();\n"
+                  "    __syncthreads();   // dgates_t is in its tile")
+CLUSTER_CELL = ("      act[0] = rc::sigm_fast(gi);\n"
+                "      act[1] = rc::tanh_fast(gsum[1]);\n"
+                "      act[2] = rc::sigm_fast(gf);\n"
+                "      float c_t = act[2] * c_prev + act[0] * act[1];\n"
+                "      act[3] = rc::sigm_fast(gsum[3] + c_t * p2);\n"
+                "      float h_t = act[3] * rc::tanh_fast(c_t);\n")
+EDITS.update({
+    "c_nowait": [(CLUSTER_WAIT_FWD, "    __syncwarp();\n    float acc[NR];"),
+                 (CLUSTER_PRODUCT_DONE, CLUSTER_PRODUCT_DONE
+                  + "    rc::wait(&full[par], (t >> 1) & 1);\n"),
+                 (CLUSTER_WAIT_BWD, ""),
+                 (CLUSTER_A_DONE, "    if (s) " + CLUSTER_WAIT_BWD.strip()
+                  + "\n" + CLUSTER_A_DONE)],
+    "c_nomma": [("for (int kk = 0; kk < KS; ++kk)",
+                 "for (int kk = 0; kk < 0; ++kk)"),
+                ("for (int kk = 0; kk < 8; ++kk) {",
+                 "for (int kk = 0; kk < 0; ++kk) {")],
+    "c_nocell": [(CLUSTER_CELL,
+                  "      act[0] = gi;\n      act[1] = gsum[1];\n"
+                  "      act[2] = gf;\n      float c_t = c_prev;\n"
+                  "      act[3] = gsum[3];\n      float h_t = h_prev;\n"),
+                 ("      for (int e = 0; e < 2; ++e) {\n"
+                  "        const int n = rows[e], x0",
+                  "      for (int e = 0; e < 0; ++e) {\n"
+                  "        const int n = rows[e], x0")],
+    "c_noexchange": [("const unsigned xbytes = (nb - 1) * kSlice;",
+                      "const unsigned xbytes = 0;"),
+                     ("const unsigned xbytes = (unsigned)((nb - 1) * kPiece);",
+                      "const unsigned xbytes = 0;"),
+                     ("rc::all_gather(", "if (0) rc::all_gather("),
+                     ("rc::scatter_tile<kRows>(",
+                      "if (0) rc::scatter_tile<kRows>(")],
+})
+CLUSTER_VARIANTS = {"kernels": [], "nowait": ["c_nowait"],
+                    "nomma": ["c_nomma"], "nocell": ["c_nocell"],
+                    "noexchange": ["c_noexchange"],
+                    "nomma+nocell": ["c_nomma", "c_nocell"],
+                    "nomma+nocell+noexchange": ["c_nomma", "c_nocell",
+                                                "c_noexchange"]}
 LSTM_VARIANTS = {"kernels": [], "nowait": ["nowait"], "nomma": ["nomma"],
                  "nowait+nomma": ["nowait", "nomma"],
                  "nowait+nomma+nocell": ["nowait", "nomma", "nocell"],
@@ -271,6 +331,64 @@ def lstm(out_dir, dev, g):
                 k, ms[k, t_long], t_long, ms[k, t_short], t_short,
                 (ms[k, t_long] - ms[k, t_short]) * 1e3 / (t_long - t_short))
             for k in ("fwd", "bwd")), flush=True)
+
+
+def lstm_bf16(out_dir, dev, g):
+    t_short, t_long = 8, 80
+    inputs = {}
+    for T in (t_short, t_long):
+        xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
+        w = torch.randn(H, 4 * H, generator=g) * H ** -0.5
+        h0, c0 = (torch.randn(B, H, generator=g) * 0.1 for _ in range(2))
+        p = torch.randn(3, H, generator=g) * 0.1
+        dhs, dcs = (torch.randn(B, T, H, generator=g) for _ in range(2))
+        xg, w, dhs, dcs = (t.bfloat16() for t in (xg, w, dhs, dcs))
+        inputs[T] = [t.to(dev) for t in (xg, w, h0, c0, torch.ones(B, T), p,
+                                         dhs, dcs)]
+    print("plan at [%d, *, %d]: %s" % (B, H, lc.cluster_plan(B, H)))
+    libs = build(out_dir, "lstm_cluster", CLUSTER_VARIANTS)
+    # the stash each backward reads: the kernels' own forward's
+    _build._libs["lstm_cluster"] = libs["kernels"]
+    for T, (xg, w, h0, c0, mask, p, dhs, dcs) in inputs.items():
+        _, cs, st = lc.lstm_forward(xg, w, h0, c0, mask, p)
+        inputs[T] += [cs, st]
+    nb = -(-H // lc.CLUSTER_UNITS)
+    for rows in (32, 64):
+        print("%d rows a cluster: refused, %s" % (rows, ", ".join(
+            "%s %d bytes of shared memory a block" % (
+                k, lc.cluster_smem("lstm_" + k, nb, rows))
+            for k in ("fwd", "bwd"))) + " (%d allowed)" % lc.SMEM_LIMIT)
+    for name, lib in libs.items():
+        _build._libs["lstm_cluster"] = lib
+        ms = {}
+        for T, (xg, w, h0, c0, mask, p, dhs, dcs, cs, st) in inputs.items():
+            ms["fwd", T] = time_ms(
+                lambda: lc._fwd_cluster(xg, w, h0, c0, mask, p))
+            ms["bwd", T] = time_ms(
+                lambda: lc._bwd_cluster(st, cs, w, p, c0, mask, dhs, dcs))
+        print("%-24s %s" % (name, " | ".join(
+            "%s %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
+                k, ms[k, t_long], t_long, ms[k, t_short], t_short,
+                (ms[k, t_long] - ms[k, t_short]) * 1e3 / (t_long - t_short))
+            for k in ("fwd", "bwd"))), flush=True)
+    # lstm_cell.cu's bf16 kernels at the same inputs, as the wrappers take
+    # them for a shape the plan refuses
+    real = lc.cluster_plan
+    lc.cluster_plan = lambda *a, **k: dict(real(*a, **k), take=False)
+    try:
+        ms = {}
+        for T, (xg, w, h0, c0, mask, p, dhs, dcs, cs, st) in inputs.items():
+            ms["fwd", T] = time_ms(
+                lambda: lc.lstm_forward(xg, w, h0, c0, mask, p))
+            ms["bwd", T] = time_ms(
+                lambda: lc.lstm_backward(st, cs, w, p, c0, mask, dhs, dcs))
+    finally:
+        lc.cluster_plan = real
+    print("%-24s          %s" % ("lstm_cell.cu bf16", " | ".join(
+        "%s %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
+            k, ms[k, t_long], t_long, ms[k, t_short], t_short,
+            (ms[k, t_long] - ms[k, t_short]) * 1e3 / (t_long - t_short))
+        for k in ("fwd", "bwd"))), flush=True)
 
 
 def gru(out_dir, dev, g):
@@ -391,6 +509,9 @@ def conv1x1_bf16(out_dir, dev, g):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--lstm-bf16", action="store_true",
+                      help="break down the bfloat16 B3 and B4 (the cluster "
+                           "kernels) instead")
     mode.add_argument("--gru", action="store_true",
                       help="break down B5 (gru_fwd) instead of B3 and B4")
     mode.add_argument("--gru-bwd", action="store_true",
@@ -410,7 +531,8 @@ def main():
     g = torch.Generator().manual_seed(0)
     run = (decode if args.decode else gru if args.gru
            else gru_bwd if args.gru_bwd else flash_bf16 if args.flash_bf16
-           else conv1x1_bf16 if args.conv1x1_bf16 else lstm)
+           else conv1x1_bf16 if args.conv1x1_bf16
+           else lstm_bf16 if args.lstm_bf16 else lstm)
     run(out_dir, dev, g)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,9 +1,10 @@
 // Hopper pieces shared by the bfloat16 kernels that run on wgmma
-// (flash_attention.cu's forward, conv1x1_bwd.cu): mbarriers whose waits
-// trap instead of hanging, TMA tile loads, the shared-memory matrix
-// descriptors of wgmma, its fences and the m64nNk16 bf16 products, and
-// on the host the TMA tensor maps, encoded through the driver's entry
-// point so that no library links against libcuda.
+// (flash_attention.cu's forward, conv1x1_bwd.cu, lstm_cluster.cu):
+// mbarriers whose waits trap instead of hanging, TMA tile loads and
+// stores, the shared-memory matrix descriptors of wgmma, its fences and
+// the m64nNk16 bf16 products, and on the host the TMA tensor maps,
+// encoded through the driver's entry point so that no library links
+// against libcuda.
 // Sources include it by its relative name; kernels/_build.py hashes it
 // with every source, so an edit here rebuilds them all.
 //
@@ -124,6 +125,54 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a shared-memory box into the tensor map's box at coordinates (c0
+// innermost, ...), as one bulk group of this thread (bulk_commit); the
+// box's shared memory is in the map's layout, written by ordinary stores
+// that fence_proxy_async and a barrier made visible. Parts of the box
+// past the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* m,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... and have written their global memory
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- wgmma ----
 
 // The descriptor of a swizzled operand at shared address `addr`: rows of
@@ -186,6 +235,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (+)= A B, m64n16k16, A from registers (the warp's 16 x 16 slice,
+// mma.m16n8k16's A fragment), B from shared memory; TB: B MN-major (1)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                          const unsigned (&a)[4], uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
 // d (+)= A B, m64n64k16, A from registers (the warp's 16 x 16 slice,
 // mma.m16n8k16's A fragment), B from shared memory; TB: B MN-major (1)
 template <int TB>
@@ -245,14 +309,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a bfloat16 tensor of `rank` dims (dims[0] innermost, its
-// elements contiguous; strides[i] the bytes between steps of dims[i +
-// 1], multiples of 16), read in boxes of `box` elements with the
-// swizzle of `sw` bytes (128 or 64: box[0] * 2 == sw); elements outside
-// the tensor read as zero. False where the driver refuses it.
+// The map of a tensor of `rank` dims (dims[0] innermost, its elements
+// contiguous; strides[i] the bytes between steps of dims[i + 1],
+// multiples of 16), read or written in boxes of `box` elements with the
+// swizzle of `sw` bytes (128 or 64: box[0] * 2 == sw; 0: none, the box
+// dense in shared memory); elements outside the tensor read as zero and
+// are not written. bfloat16 unless `type` says otherwise. False where the
+// driver refuses it.
 inline bool make_map(CUtensorMap* m, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box, int sw) {
+                     const uint32_t* box, int sw,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -263,10 +331,11 @@ inline bool make_map(CUtensorMap* m, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-            const_cast<void*>(base), d, s, bx, es,
+  return fn(m, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, bx, es,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
-            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -49,6 +49,11 @@ SOURCES = {
         "lstm_bwd_bf16": ([_P] * 15 + [_I] * 3 + [_P], _I),
         "lstm_plan": ([_I] * 4 + [_P], _I),
     },
+    "lstm_cluster": {
+        "lstm_fwd_cluster": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "lstm_bwd_cluster": ([_P] * 12 + [_I] * 3 + [_P], _I),
+        "lstm_cluster_plan": ([_I] * 3 + [_P], _I),
+    },
     "gru_cell": {
         "gru_fwd": ([_P] * 10 + [_I] * 3 + [_P], _I),
         "gru_fwd_bf16": ([_P] * 10 + [_I] * 3 + [_P], _I),

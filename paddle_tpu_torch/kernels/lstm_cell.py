@@ -1,9 +1,12 @@
 """Whole-sequence LSTM: the forward (B3) and backward (B4) kernels.
 
-The kernels are hand-written CUDA for Hopper (``csrc/lstm_cell.cu``) and
-replace the JAX package's two Pallas kernels in
-``paddle_tpu/kernels/lstm_cell.py``: the forward launch replaces
-``_fwd_kernel`` and the backward launch replaces ``_bwd_kernel``.
+The kernels are hand-written CUDA for Hopper (``csrc/lstm_cell.cu``, and
+for bfloat16 wherever :func:`cluster_plan` takes the shape
+``csrc/lstm_cluster.cu``: one thread-block cluster per row group, W
+resident in the cluster, the product on wgmma) and replace the JAX
+package's two Pallas kernels in ``paddle_tpu/kernels/lstm_cell.py``: the
+forward launch replaces ``_fwd_kernel`` and the backward launch replaces
+``_bwd_kernel``.
 
 Layout is the JAX package's public one, batch-major: ``xg`` [B, T, 4H]
 pre-projected gate inputs (bias added), gate order (i, c~, f, o);
@@ -24,10 +27,13 @@ gradient); ``peep`` [3, H] peephole weights (w_ic, w_fc, w_oc) or None.
   loop :func:`lstm_forward_reference` and :func:`lstm_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
   not autograd of the forward). Both sum the recurrent product in the
-  kernels' blocking: K in chunks of CHUNK, each STAGE_K slice of a chunk
-  a stage summed apart, the slices' sums added in the kernels' warp
-  order (:func:`_product`), and the backward's two halves of K = 4H
-  apart (:func:`_bwd_product`);
+  blocking of the kernel the shape gets: under :func:`cluster_plan` one
+  float32 sum over K in k16 steps (:func:`_k16_product`), and for the
+  backward one such partial per block's 128 gate columns, added in rank
+  order (:func:`_cluster_bwd_product`); elsewhere K in chunks of CHUNK,
+  each STAGE_K slice of a chunk a stage summed apart, the slices' sums
+  added in the kernels' warp order (:func:`_product`), and the
+  backward's two halves of K = 4H apart (:func:`_bwd_product`);
 * a meta tensor returns outputs of the right shape.
 
 The dtypes are the JAX kernels' (``paddle_tpu/kernels/lstm_cell.py``):
@@ -37,16 +43,21 @@ the plain versions run float64 too); h_{t-1} and dgates_t rounded to
 the input dtype just before their recurrent product; h0, c0, mask,
 peep, cs (returned rounded), dh0, dc0 and dpeep float32.
 
-``launches`` counts kernel launches per kernel; plain-version calls do
-not count. :func:`launch_plan` reads the kernels' launch plan on the
-card (cluster size, blocks, row groups in flight, exchange bytes).
+``launches`` counts kernel launches per kernel (the cluster kernels
+under ``lstm_fwd_bf16`` and ``lstm_bwd_bf16``, as the bfloat16 kernels
+they replace); plain-version calls do not count. :func:`launch_plan`
+reads lstm_cell.cu's launch plan on the card (cluster size, blocks, row
+groups in flight, exchange bytes), :func:`card_cluster_plan` the cluster
+kernels' (:func:`cluster_plan`'s numbers and the clusters the card holds
+at once).
 """
 
 import torch
 
 __all__ = ["lstm_sequence", "lstm_sequence_reference",
            "lstm_forward_reference", "lstm_backward_reference",
-           "fwd_plan", "bwd_plan", "launch_plan", "launches",
+           "fwd_plan", "bwd_plan", "cluster_plan", "cluster_smem",
+           "launch_plan", "card_cluster_plan", "launches",
            "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
@@ -116,6 +127,120 @@ def _product(x, wst):
     return tot
 
 
+# the cluster kernels (csrc/lstm_cluster.cu): a block owns CLUSTER_UNITS
+# units (4 x 32 = 128 gate columns, two m64 wgmma tiles) and keeps their
+# slice of W in registers; a cluster of at most MAX_CLUSTER blocks runs a
+# row group of CLUSTER_ROWS batch rows (the rows the kernels are built
+# for); their rings of inputs hold FWD_STAGES and BWD_STAGES steps
+CLUSTER_UNITS, MAX_CLUSTER, CLUSTER_ROWS = 32, 16, 16
+FWD_STAGES, BWD_STAGES = 8, 8
+#: shared memory a block may take on the card (Hopper's opt-in limit,
+#: cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_LIMIT = 232448
+
+
+def cluster_smem(kind, blocks, rows=CLUSTER_ROWS):
+    """Shared bytes a block of the cluster kernel ``kind`` ("lstm_fwd" or
+    "lstm_bwd") takes with ``blocks`` blocks a cluster and ``rows`` rows
+    (the kernels are built for CLUSTER_ROWS; other rows say what a build
+    for them would need):
+    2048 of mbarriers and alignment, then the forward's W^T slice (staged
+    for its registers), two buffers of h, three slots of the outputs on
+    their way out, its warpgroups' swap of sums and the ring of inputs,
+    or the backward's dgates tile, dxg's box, two buffers each
+    of the float32 pieces it receives and sends, and the ring of inputs
+    (its W is in registers). The products run over the
+    largest cluster's 512 units whatever h is (zeros past it)."""
+    kp = MAX_CLUSTER * CLUSTER_UNITS
+    gates = rows * 4 * CLUSTER_UNITS * 2          # a [rows, 4, 32] bf16 box
+    plane = rows * CLUSTER_UNITS                  # elements of a [rows, 32]
+    if kind == "lstm_fwd":
+        return (2048 + 2 * kp * 128 + 2 * MAX_CLUSTER * rows * 64
+                + 3 * (gates + 6 * plane) + 256 * 16
+                + FWD_STAGES * (gates + 128))
+    return (2048 + 2 * rows * 128 + gates
+            + max(2 * blocks * plane * 4, kp * 2 * 128)
+            + BWD_STAGES * (gates + 8 * plane + 128))
+
+
+def cluster_plan(b, h, dtype=torch.bfloat16):
+    """Whether the cluster kernels take a [b, *, h] LSTM of ``dtype``, a
+    pure function of the shape that the CPU's plain versions follow too:
+    bfloat16 (float32's W does not fit), h a multiple of 8 (W's rows in
+    16-byte copies, TMA's 16-byte strides), ceil(h / 32) blocks a cluster
+    at most 16, and both kernels' shared memory within SMEM_LIMIT (so h
+    up to 512). Returns ``dict(take, blocks, rows, units, row_groups)``,
+    as the card's plan (:func:`card_cluster_plan`) reports them."""
+    blocks = -(-h // CLUSTER_UNITS)
+    take = (dtype == torch.bfloat16 and h > 0 and h % 8 == 0
+            and blocks <= MAX_CLUSTER
+            and all(cluster_smem(k, blocks) <= SMEM_LIMIT
+                    for k in ("lstm_fwd", "lstm_bwd")))
+    return dict(take=bool(take), blocks=blocks, rows=CLUSTER_ROWS,
+                units=CLUSTER_UNITS, row_groups=-(-b // CLUSTER_ROWS))
+
+
+def _k16_slices(w):
+    """A [K, N] right-hand side as the wgmma steps cut it: [ceil(K / 16),
+    16, N], zero-padded."""
+    k, n = w.shape
+    ns = -(-k // 16)
+    wp = w.new_zeros((ns * 16, n))
+    wp[:k] = w
+    return wp.reshape(ns, 16, n)
+
+
+def _k16_product(x, ws):
+    """x [B, K] @ W as the cluster kernels' wgmma accumulates it: one
+    float32 sum over K, the k16 slices' products added in order."""
+    ns = ws.shape[0]
+    b, k = x.shape
+    xp = x.new_zeros((b, ns * 16))
+    xp[:, :k] = x
+    part = torch.einsum("bsk,skn->sbn", xp.reshape(b, ns, 16), ws)
+    tot = part[0]
+    for s in range(1, ns):
+        tot = tot + part[s]
+    return tot
+
+
+def _by_block(a, blocks):
+    """[..., 4H] gate columns as the cluster's blocks own them: [...,
+    blocks, 128], block r's column 32 q + j being gate q of unit 32 r + j
+    (zeros past H)."""
+    h = a.shape[-1] // 4
+    lead = a.shape[:-1]
+    ap = a.new_zeros(lead + (4, blocks * CLUSTER_UNITS))
+    ap[..., :h] = a.reshape(lead + (4, h))
+    ap = ap.reshape(lead + (4, blocks, CLUSTER_UNITS))
+    return ap.movedim(-2, -3).reshape(lead + (blocks, 4 * CLUSTER_UNITS))
+
+
+def _cluster_bwd_slices(w, blocks):
+    """W [H, 4H] as the cluster backward holds it: block r's 128 columns
+    as the K of W[:, cols]^T [128, H], cut into k16 slices: [blocks, 8,
+    16, H]."""
+    h = w.shape[0]
+    wb = _by_block(w, blocks)                       # [H, blocks, 128]
+    return wb.permute(1, 2, 0).reshape(blocks, 8, 16, h)
+
+
+def _cluster_bwd_product(dgates, ws):
+    """dgates W^T as the cluster backward forms it: each block's float32
+    partial over its 128 columns (k16 slices added in order), the
+    partials added in rank order."""
+    blocks = ws.shape[0]
+    db = _by_block(dgates, blocks).reshape(dgates.shape[0], blocks, 8, 16)
+    part = torch.einsum("brsk,rskh->rsbh", db, ws)
+    tot = None
+    for r in range(blocks):
+        acc = part[r, 0]
+        for s in range(1, 8):
+            acc = acc + part[r, s]
+        tot = acc if tot is None else tot + acc
+    return tot
+
+
 def _bwd_stages(w):
     """W^T [4H, H] cut as the backward kernel cuts it: its two halves of
     K = 4H (one a block of a pair), each as _stages cuts it."""
@@ -152,8 +277,9 @@ def _rounder(dtype, rounding):
 
 def lstm_forward_reference(xg, w, h0, c0, mask, peep, rounding=None):
     """Plain version of the forward kernel: the step loop, with the
-    recurrent product summed in the kernel's blocking (_product), state
-    and sums in _acc(xg.dtype), h_{t-1} rounded to ``rounding`` (default
+    recurrent product summed in the blocking of the kernel the shape gets
+    (_k16_product under cluster_plan, else _product), state and sums in
+    _acc(xg.dtype), h_{t-1} rounded to ``rounding`` (default
     xg's dtype) before the product, hs and the stash rounded to it.
     ``peep`` is [3, H] (zeros for none). Returns ``(hs, cs, stash)``:
     [B, T, H] in xg's dtype, [B, T, H] in _acc(xg.dtype) and the gate
@@ -163,10 +289,15 @@ def lstm_forward_reference(xg, w, h0, c0, mask, peep, rounding=None):
     dt, sd = xg.dtype, _acc(xg.dtype)
     rnd = _rounder(dt, rounding)
     h_prev, c_prev, peep = h0.to(sd), c0.to(sd), peep.to(sd)
-    wst = _stages(w.to(sd))
+    if cluster_plan(b, h, dt)["take"]:
+        ws = _k16_slices(w.to(sd))
+        product = lambda x: _k16_product(x, ws)  # noqa: E731
+    else:
+        wst = _stages(w.to(sd))
+        product = lambda x: _product(x, wst)  # noqa: E731
     hs, cs, stash = [], [], []
     for t in range(t_len):
-        g = xg[:, t].to(sd) + _product(rnd(h_prev), wst)
+        g = xg[:, t].to(sd) + product(rnd(h_prev))
         gi, gc, gf, go = g[:, :h], g[:, h:2 * h], g[:, 2 * h:3 * h], g[:, 3 * h:]
         gi = gi + c_prev * peep[0]
         gf = gf + c_prev * peep[1]
@@ -201,15 +332,22 @@ def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs,
     """Plain version of the backward kernel, step by step from t = T-1
     down: the gate gradients from the stash, c_t, c_{t-1} and the dh/dc
     carries, then dh_{t-1} = dgates_t W^T + (1 - m) dh, the product
-    summed in the kernel's blocking (_bwd_product), with dgates_t rounded
-    to ``rounding`` (default the stash's dtype) before it; carries and
+    summed in the blocking of the kernel the shape gets
+    (_cluster_bwd_product under cluster_plan, else _bwd_product), with
+    dgates_t rounded to ``rounding`` (default the stash's dtype) before it; carries and
     sums in _acc(stash.dtype). Returns ``(dxg [B, T, 4H] in the stash's
     dtype, dh0 [B, H], dc0 [B, H], dpeep [3, H] in _acc)``."""
     b, t_len, g4 = stash.shape
     h = g4 // 4
     sd = _acc(stash.dtype)
     rnd = _rounder(stash.dtype, rounding)
-    wst = _bwd_stages(w.to(sd))
+    plan = cluster_plan(b, h, stash.dtype)
+    if plan["take"]:
+        ws = _cluster_bwd_slices(w.to(sd), plan["blocks"])
+        product = lambda d: _cluster_bwd_product(d, ws)  # noqa: E731
+    else:
+        wst = _bwd_stages(w.to(sd))
+        product = lambda d: _bwd_product(d, wst)  # noqa: E731
     peep, c0 = peep.to(sd), c0.to(sd)
     dh_c = stash.new_zeros((b, h), dtype=sd)
     dc_c = stash.new_zeros((b, h), dtype=sd)
@@ -234,7 +372,7 @@ def lstm_backward_reference(stash, cs, w, peep, c0, mask, dhs, dcs,
         dgi, dgc, dgf, dgo = m * dgi, m * dgc, m * dgf, m * dgo
         dgates = rnd(torch.cat([dgi, dgc, dgf, dgo], dim=-1))
         dxg[:, t] = dgates
-        dh_c = _bwd_product(dgates, wst) + (1 - m) * dh
+        dh_c = product(dgates) + (1 - m) * dh
         dc_c = m * dc_prev + (1 - m) * dc_in
         dp[0] += (dgi * c_prev).sum(0)
         dp[1] += (dgf * c_prev).sum(0)
@@ -329,6 +467,99 @@ def launch_plan(kind, b, h, device=None, dtype=torch.float32):
                 rounds=rounds, exchange_bytes=rg * per * tile)
 
 
+def card_cluster_plan(kind, b, h, device=None):
+    """The card's plan of the cluster kernel ``kind`` ("lstm_fwd" or
+    "lstm_bwd") at (b, h), from the kernels' own rule
+    (``lstm_cluster_plan`` in the source): :func:`cluster_plan`'s keys,
+    and ``clusters_at_once``, the clusters of the plan that the card
+    holds at once (0 where it does not take the shape; the row groups
+    past it queue)."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.load("lstm_cluster")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        rc = lib.lstm_cluster_plan(0 if kind == "lstm_fwd" else 1, b, h,
+                                   ctypes.addressof(out))
+    _raise_on(rc, "lstm_cluster_plan")
+    take, blocks, rows, units, groups, at_once = list(out)
+    return dict(take=bool(take), blocks=blocks, rows=rows, units=units,
+                row_groups=groups, clusters_at_once=at_once)
+
+
+def _aligned(t):
+    """t, or a copy of it at a 16-byte aligned address (the cluster
+    kernels copy W's rows 16 bytes at a time and address the others by
+    TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _mask_t(mask):
+    """The mask as the cluster kernels read it by TMA: [T, B] with B
+    padded to a multiple of 4 (16-byte rows), the padding zero."""
+    b, t_len = mask.shape
+    out = torch.zeros((t_len, -(-b // 4) * 4), dtype=torch.float32,
+                      device=mask.device)
+    out[:, :b] = mask.t()
+    return out
+
+
+def _fwd_cluster(xg, w, h0, c0, mask, peep):
+    """The bfloat16 forward on the cluster kernel; the inputs checked by
+    the caller."""
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g4 = xg.shape
+    h = g4 // 4
+    dev = xg.device
+    lib = _build.load("lstm_cluster")
+    hs = torch.empty((b, t_len, h), dtype=xg.dtype, device=dev)
+    cs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
+    stash = torch.empty_like(xg)
+    xg, w = _aligned(xg), _aligned(w)
+    mask_t = _mask_t(mask)
+    with torch.cuda.device(dev):
+        rc = lib.lstm_fwd_cluster(
+            xg.data_ptr(), w.data_ptr(), peep.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), mask_t.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            stash.data_ptr(), b, t_len, h, _stream(dev))
+    _raise_on(rc, "lstm_fwd_cluster")
+    launches["lstm_fwd_bf16"] += 1
+    return hs, cs, stash
+
+
+def _bwd_cluster(stash, cs, w, peep, c0, mask, dhs, dcs):
+    """The bfloat16 backward on the cluster kernel; the inputs checked by
+    the caller."""
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g4 = stash.shape
+    h = g4 // 4
+    dev = stash.device
+    lib = _build.load("lstm_cluster")
+    dxg = torch.empty_like(stash)
+    # zero-filled: a sequence of no steps leaves them untouched
+    dh0 = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    dc0 = torch.zeros_like(dh0)
+    # dpeep's sums a row group, added below in a fixed order
+    dpart = torch.zeros((-(-b // CLUSTER_ROWS), 3, h), dtype=torch.float32,
+                        device=dev)
+    stash, cs, w, c0, dhs, dcs = (_aligned(t) for t in (stash, cs, w, c0,
+                                                          dhs, dcs))
+    mask_t = _mask_t(mask)
+    with torch.cuda.device(dev):
+        rc = lib.lstm_bwd_cluster(
+            stash.data_ptr(), cs.data_ptr(), w.data_ptr(), peep.data_ptr(),
+            c0.data_ptr(), mask_t.data_ptr(), dhs.data_ptr(), dcs.data_ptr(),
+            dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dpart.data_ptr(),
+            b, t_len, h, _stream(dev))
+    _raise_on(rc, "lstm_bwd_cluster")
+    launches["lstm_bwd_bf16"] += 1
+    return dxg, dh0, dc0, dpart.sum(0)
+
+
 def _fwd_cuda(xg, w, h0, c0, mask, peep):
     from paddle_tpu_torch.kernels import _build
 
@@ -343,6 +574,8 @@ def _fwd_cuda(xg, w, h0, c0, mask, peep):
                            ("mask", mask, (b, t_len), torch.float32),
                            ("peep", peep, (3, h), torch.float32)):
         _check_tensor(n, t, shape, dev, d)
+    if cluster_plan(b, h, dt)["take"]:
+        return _fwd_cluster(xg, w, h0, c0, mask, peep)
     lib = _build.load("lstm_cell")
     hs = torch.empty((b, t_len, h), dtype=dt, device=dev)
     cs = torch.empty((b, t_len, h), dtype=torch.float32, device=dev)
@@ -382,6 +615,8 @@ def _bwd_cuda(stash, cs, w, peep, c0, mask, dhs, dcs):
                            ("dhs", dhs, (b, t_len, h), dt),
                            ("dcs", dcs, (b, t_len, h), dt)):
         _check_tensor(n, t, shape, dev, d)
+    if cluster_plan(b, h, dt)["take"]:
+        return _bwd_cluster(stash, cs, w, peep, c0, mask, dhs, dcs)
     lib = _build.load("lstm_cell")
     dxg = torch.empty_like(stash)
     # zero-filled: a sequence of no steps leaves them untouched

@@ -665,6 +665,98 @@ def test_cuda_lstm_bf16_autograd_goes_through_both_bf16_kernels(cuda):
         _close(a.cpu(), b, BF16_RTOL, BF16_AMAX)
 
 
+# ---- the bfloat16 B3 and B4 as one thread-block cluster per row group
+# (csrc/lstm_cluster.cu), wherever kernels.lstm_cell.cluster_plan takes
+# the shape; lstm_cell.cu's bf16 kernels take the rest ----
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_cluster_plan_is_the_cards(cuda):
+    """The card's plan (lstm_cluster_plan) is cluster_plan's for both
+    kernels: the path's [64, *, 512] in clusters of 16 blocks, 4 row
+    groups of 16 rows, all at once; H 1024 and H 36 refused."""
+    for b, h in ((64, 512), (8, 32), (5, 40), (200, 64), (16, 1024), (5, 36)):
+        want = lstm_cell.cluster_plan(b, h)
+        for kind in ("lstm_fwd", "lstm_bwd"):
+            card = lstm_cell.card_cluster_plan(kind, b, h, cuda)
+            assert {k: card[k] for k in want} == want, (kind, b, h)
+            assert card["clusters_at_once"] >= (1 if want["take"] else 0)
+    assert lstm_cell.cluster_plan(64, 512) == dict(
+        take=True, blocks=16, rows=16, units=32, row_groups=4)
+    for kind in ("lstm_fwd", "lstm_bwd"):
+        assert lstm_cell.card_cluster_plan(kind, 64, 512,
+                                           cuda)["clusters_at_once"] >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peep", [True, False])
+@pytest.mark.parametrize("shape", [(8, 5, 32), (5, 7, 40), (64, 80, 512),
+                                   (37, 17, 128), (200, 4, 64), (16, 6, 1024),
+                                   (5, 7, 36)])
+def test_cuda_lstm_cluster_matches_plain(cuda, shape, peep):
+    """Each shape on the kernel its plan gives it (H 1024 and H 36 on
+    lstm_cell.cu's), held against the plain version in the same blocking,
+    the forward's stash read back by the backward, and counted under the
+    bf16 kernels' names."""
+    xg, w, h0, c0, mask, p, dhs, dcs = _bf16(
+        _lstm_inputs(*shape, peep, 7, cuda), 2)
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    n = dict(lstm_cell.launches)
+    hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+    rhs, rcs, rst = lstm_cell.lstm_forward_reference(xg, w, h0, c0, mask, p)
+    got = lstm_cell.lstm_backward(stash, cs, w, p, c0, mask, dhs, dcs)
+    want = lstm_cell.lstm_backward_reference(stash, cs, w, p, c0, mask, dhs,
+                                             dcs)
+    torch.cuda.synchronize()
+    for a, b in ((hs, rhs), (cs, rcs), (stash, rst)) + tuple(zip(got, want)):
+        assert a.dtype == b.dtype
+        _close(a, b, BF16_RTOL, BF16_AMAX)
+    assert lstm_cell.launches == dict(
+        n, lstm_fwd_bf16=n["lstm_fwd_bf16"] + 1,
+        lstm_bwd_bf16=n["lstm_bwd_bf16"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_cluster_two_runs_agree_to_the_bit(cuda):
+    assert lstm_cell.cluster_plan(64, 512)["take"]
+    xg, w, h0, c0, mask, p, dhs, dcs = _bf16(
+        _lstm_inputs(64, 80, 512, True, 8, cuda), 2)
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        hs, cs, stash = lstm_cell.lstm_forward(xg, w, h0, c0, mask, p)
+        runs.append((hs, cs, stash) + lstm_cell.lstm_backward(
+            stash, cs, w, p, c0, mask, dhs, dcs))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_cluster_autograd_goes_through_both_kernels(cuda):
+    """lstm_sequence on bf16 inputs at a shape the plan takes: one launch
+    of each cluster kernel (under the bf16 kernels' counters), gradients
+    of every input against the CPU's plain route."""
+    assert lstm_cell.cluster_plan(21, 96)["take"]
+    xg, w, h0, c0, mask, p, dhs, dcs = _lstm_inputs(21, 11, 96, True, 9,
+                                                    cuda)
+    leaves = [t.clone().to(torch.bfloat16).requires_grad_()
+              for t in (xg, w, h0, c0)] + [p.clone().requires_grad_()]
+    dhs, dcs = dhs.to(torch.bfloat16), dcs.to(torch.bfloat16)
+    lstm_cell.reset_launches()
+    hs, cs = lstm_cell.lstm_sequence(leaves[0], leaves[1], leaves[2],
+                                     leaves[3], mask, leaves[4])
+    got = torch.autograd.grad((hs, cs), leaves, (dhs, dcs))
+    assert lstm_cell.launches == {"lstm_fwd": 0, "lstm_bwd": 0,
+                                  "lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs, rcs = lstm_cell.lstm_sequence(cpu[0], cpu[1], cpu[2], cpu[3],
+                                       mask.cpu(), cpu[4])
+    want = torch.autograd.grad((rhs, rcs), cpu, (dhs.cpu(), dcs.cpu()))
+    for a, b in zip((hs, cs) + got, (rhs, rcs) + want):
+        _close(a.detach().cpu(), b.detach(), BF16_RTOL, BF16_AMAX)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 5, 32), (64, 30, 512), (37, 17, 128),
                                    (70, 6, 40), (33, 11, 200), (200, 4, 64)])

@@ -126,12 +126,16 @@ def _port_lstm(xg, w, h0, c0, mask, p, dhs, dcs, dtype):
 LSTM_NAMES = ("hs", "cs", "dxg", "dw", "dpeep", "dh0", "dc0")
 
 
+@pytest.mark.parametrize("plan, h", [("cluster", 64), ("grid", 60)])
 @pytest.mark.parametrize("peep", [True, False])
-def test_lstm_bf16_plain_matches_the_jax_kernel(peep):
+def test_lstm_bf16_plain_matches_the_jax_kernel(peep, plan, h):
     """B3 and B4's plain versions in bf16 against the JAX kernels in
     interpret mode, forward and backward, every output's dtype
-    included."""
-    args = _lstm_inputs(8, 12, 64, peep)
+    included, in each plan's blocking: H 64 takes the cluster kernels'
+    (lstm_cluster.cu: k16 steps, partials by block in rank order), H 60
+    (not a multiple of 8) lstm_cell.cu's."""
+    assert tlstm_cell.cluster_plan(8, h)["take"] == (plan == "cluster")
+    args = _lstm_inputs(8, 12, h, peep)
     (jhs, jcs), jg = _jax_lstm(*args, jnp.bfloat16)
     (ths, tcs), tg = _port_lstm(*args, BF16)
     assert [t.dtype for t in (ths, tcs) + tuple(tg)] == \
