@@ -54,10 +54,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, all started together, and read from the built libraries that
    the flash-attention forward, the fused 1x1 backward and the LSTM and
    GRU forwards and backwards run on the tensor cores (HMMA) fed
-   by asynchronous copies (LDGSTS), the bfloat16 flash-attention forward
-   and fused 1x1 backward on wgmma (HGMMA) fed by TMA (UTMALDG; the 1x1
-   backward by the loader its plan gives each instantiation), and that
-   the decode kernel moves 16-byte words, all with no spills;
+   by asynchronous copies (LDGSTS), the bfloat16 flash-attention forward,
+   fused 1x1 backward and the LSTM's and GRU's cluster kernels on wgmma
+   (HGMMA) fed by TMA (UTMALDG; the 1x1 backward by the loader its plan
+   gives each instantiation; the cluster forwards' all-gathers by bulk
+   copies, UBLKCP), and that the decode kernel moves 16-byte words, all
+   with no spills;
 3. hold each kernel against its plain PyTorch version on the card (the
    decode kernel at head_dim 32, 64 and 128 and lengths around its
    chunks' and tiles' edges, on a cache on 4-byte boundaries, with NaN
@@ -76,7 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    128 and 13, against the plain version walking the keys as the kernel
    does and against float64; both flash-attention forwards twice to the
    same bits; the fused 1x1 backward's dw error against float64 by its
-   chunk length in float32 and bfloat16);
+   chunk length in float32 and bfloat16; the bfloat16 LSTM and GRU
+   kernels at the AMP paths' shapes, on the cluster kernels where
+   cluster_plan takes a shape and at one it refuses, the card's plans
+   equal to cluster_plan's, against their plain versions and a float64
+   witness that rounds where they round, and twice to the same bits);
 4. decode serving: create the weights with the port's Executor, warm a
    DecodeEngine (which captures the decode step and each prefill bucket
    as a CUDA graph), push 24 mixed requests through a DecodeLoop, check
@@ -324,6 +330,9 @@ RNN_BF16_SHAPES = ((8, 5, 32), (37, 17, 128), (200, 4, 64))
 # an LSTM shape kernels.lstm_cell.cluster_plan refuses (W does not fit a
 # cluster of 16 blocks): the bf16 B3 and B4 of lstm_cell.cu stay held
 LSTM_BF16_REFUSED = ((16, 6, 1024),)
+# and a GRU shape kernels.gru_cell.cluster_plan refuses: the bf16 B5 and
+# B6 of gru_cell.cu stay held
+GRU_BF16_REFUSED = ((16, 6, 1024),)
 
 # Executor.run_chunk as replayed CUDA graphs: steps a chunk (bench.py runs
 # the transformer row with K=8, bench.py:311-318) and chunks a path
@@ -382,8 +391,8 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "conv1x1_bwd_bf16": "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
            "lstm_fwd_bf16": "paddle_tpu_torch/csrc/lstm_cluster.cu",
            "lstm_bwd_bf16": "paddle_tpu_torch/csrc/lstm_cluster.cu",
-           "gru_fwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu",
-           "gru_bwd_bf16": "paddle_tpu_torch/csrc/gru_cell.cu"}
+           "gru_fwd_bf16": "paddle_tpu_torch/csrc/gru_cluster.cu",
+           "gru_bwd_bf16": "paddle_tpu_torch/csrc/gru_cluster.cu"}
 REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_attention_bf16":
                 "paddle_tpu/kernels/flash_attention.py:70",
@@ -415,7 +424,7 @@ def card_line():
 
 # B1, B3, B4, B5, B6 and B8 run on the tensor cores fed by asynchronous
 # copies: (library, kernel function). The mma.sync kernels show HMMA in
-# the SASS and cp.async as LDGSTS; the bfloat16 B1, B3, B4 and B8 on
+# the SASS and cp.async as LDGSTS; the bfloat16 B1, B3-B6 and B8 on
 # wgmma show HGMMA and TMA loads (UTMALDG; bulk copies,
 # UBLKCP). Which loader an instantiation of the bfloat16 B8 runs is its
 # last template argument (kernels.conv1x1_bwd.LOADERS): TMA must show
@@ -431,9 +440,12 @@ TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel"),
                        ("lstm_cluster", "lstm_fwd_cluster_kernel"),
                        ("lstm_cluster", "lstm_bwd_cluster_kernel"),
                        ("gru_cell", "gru_fwd_kernel"),
-                       ("gru_cell", "gru_bwd_kernel"))
+                       ("gru_cell", "gru_bwd_kernel"),
+                       ("gru_cluster", "gru_fwd_cluster_kernel"),
+                       ("gru_cluster", "gru_bwd_cluster_kernel"))
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "conv1x1_bwd_bf16_kernel",
-                 "lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel")
+                 "lstm_fwd_cluster_kernel", "lstm_bwd_cluster_kernel",
+                 "gru_fwd_cluster_kernel", "gru_bwd_cluster_kernel")
 # the bf16 B8's kernel in a profile (the AMP paths' 1x1 backward)
 B8_BF16_KERNELS = ("conv1x1_bwd_bf16_kernel",)
 # B2 is bound by bytes and has no product for the tensor cores: its SASS
@@ -451,11 +463,12 @@ def copies_wanted(fn):
     opcodes it needs all of, or of which any one will do (a list)."""
     if "flash_fwd_wgmma_kernel" in fn:
         return ("UTMALDG",)
-    # the bf16 LSTM's cluster kernels: their inputs by TMA, W staged by
-    # cp.async; B3's all-gather by bulk copies between the blocks
-    if "lstm_fwd_cluster_kernel" in fn:
+    # the bf16 LSTM's and GRU's cluster kernels: their inputs by TMA, W
+    # staged by cp.async; B3's and B5's all-gathers by bulk copies between
+    # the blocks
+    if "lstm_fwd_cluster_kernel" in fn or "gru_fwd_cluster_kernel" in fn:
         return ("UTMALDG", "LDGSTS", "UBLKCP")
-    if "lstm_bwd_cluster_kernel" in fn:
+    if "lstm_bwd_cluster_kernel" in fn or "gru_bwd_cluster_kernel" in fn:
         return ("UTMALDG", "LDGSTS")
     m = C1_LOADER.search(fn)
     if m:
@@ -930,7 +943,9 @@ def check_rnn_bf16(lc, gc, g, dev):
     RNN_BF16_SHAPES, ragged (the LSTM on the cluster kernels of
     lstm_cluster.cu wherever kernels.lstm_cell.cluster_plan takes the
     shape, and also at LSTM_BF16_REFUSED, which it refuses, on
-    lstm_cell.cu's), the card's cluster plan equal to cluster_plan's:
+    lstm_cell.cu's; the GRU on gru_cluster.cu's wherever
+    kernels.gru_cell.cluster_plan takes it, and at GRU_BF16_REFUSED on
+    gru_cell.cu's), the card's cluster plans equal to cluster_plan's:
     each kernel against its plain version on
     the same bfloat16 inputs (hs, cs, the stash; dxg, dh0, dc0, dpeep on
     the plain forward's stash; dW through lstm_sequence's and
@@ -968,6 +983,26 @@ def check_rnn_bf16(lc, gc, g, dev):
           "refused %s" % (json.dumps(lc.card_cluster_plan(
               "lstm_bwd", LSTM_B, HID, dev)), [
               sh for sh in LSTM_BF16_REFUSED]))
+    s2s_h = S2S["hidden_dim"]
+    if not gc.cluster_plan(S2S_B, s2s_h)["take"]:
+        raise AssertionError("the path's GRU [%d, *, %d] is not on the "
+                             "cluster kernels" % (S2S_B, s2s_h))
+    for B, H in [(S2S_B, s2s_h)] + [(b, h) for b, _, h in
+                                   RNN_BF16_SHAPES + GRU_BF16_REFUSED]:
+        want = gc.cluster_plan(B, H)
+        for kind in ("gru_fwd", "gru_bwd"):
+            card = gc.card_cluster_plan(kind, B, H, dev)
+            if {k: card[k] for k in want} != want:
+                raise AssertionError("%s [%d, *, %d]: the card's cluster "
+                                     "plan %s != cluster_plan's %s"
+                                     % (kind, B, H, card, want))
+    for B, _, H in GRU_BF16_REFUSED:
+        if gc.cluster_plan(B, H)["take"]:
+            raise AssertionError("cluster_plan takes [%d, *, %d]" % (B, H))
+    print("gru bf16 cluster plans (card = cluster_plan): path %s; refused "
+          "%s" % (json.dumps({k: gc.card_cluster_plan(k, S2S_B, s2s_h, dev)
+                              for k in ("gru_fwd", "gru_bwd")}),
+                  [sh for sh in GRU_BF16_REFUSED]))
     for (B, T, H), peep in [((LSTM_B, LSTM_T, HID), True),
                             ((LSTM_B, LSTM_T, HID), False)] + [
             (sh, True) for sh in RNN_BF16_SHAPES + LSTM_BF16_REFUSED]:
@@ -1020,7 +1055,7 @@ def check_rnn_bf16(lc, gc, g, dev):
         print("%s against the float64 witness (max abs err): %s"
               % (what, "; ".join(line)))
     for B, T, H in [(S2S_B, S2S_T, S2S["hidden_dim"])] + list(
-            RNN_BF16_SHAPES):
+            RNN_BF16_SHAPES + GRU_BF16_REFUSED):
         xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev)
         xg, w, dhs = (t.to(bf16) for t in (xg, w, dhs))
         what = "gru bf16 %s" % ((B, T, H),)
@@ -1079,17 +1114,20 @@ def check_rnn_bf16(lc, gc, g, dev):
         runs.append((hs, st) + gc.gru_backward(st, hs, w, h0, mask, dhs))
     same_bits("gru bf16 B5 and B6", *runs)
     torch.cuda.synchronize()
-    plans = {k: lc.launch_plan(k, LSTM_B, HID, dev, bf16)
-             for k in ("lstm_fwd", "lstm_bwd")}
+    # gru_cell.cu's bf16 plan at the refused shape, its copy against the
+    # kernel's
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for k in ("gru_fwd", "gru_bwd"):
-        plans[k] = gc.launch_plan(k, S2S_B, S2S["hidden_dim"], sms, bf16)
-        card = gc.card_plan(k, S2S_B, S2S["hidden_dim"], dev, bf16)
-        if card != {k_: plans[k][k_] for k_ in card}:
-            raise AssertionError("%s bf16 launch_plan %s != the kernel's %s"
-                                 % (k, plans[k], card))
+    plans = {}
+    for B, _, H in GRU_BF16_REFUSED:
+        for k in ("gru_fwd", "gru_bwd"):
+            plans[k] = gc.launch_plan(k, B, H, sms, bf16)
+            card = gc.card_plan(k, B, H, dev, bf16)
+            if card != {k_: plans[k][k_] for k_ in card}:
+                raise AssertionError("%s bf16 launch_plan %s != the kernel's "
+                                     "%s" % (k, plans[k], card))
     print("bf16 B3-B6: two runs at the paths' shapes agree to the bit; "
-          "launch plans %s" % json.dumps(plans))
+          "gru_cell.cu's bf16 launch plans at %s %s" % (
+              list(GRU_BF16_REFUSED), json.dumps(plans)))
     return err
 
 
@@ -3399,20 +3437,30 @@ def main():
                 lambda: gc.gru_backward(stash, hs, w, h0, mask, dhs))
         gru_in[dt] = (xg, w, h0, mask, dhs, hs, stash)
         for kind in ("gru_fwd", "gru_bwd"):
-            pl, card_pl = (gc.launch_plan(kind, B, H, sms, dt),
-                           gc.card_plan(kind, B, H, dev, dt))
-            if card_pl != {k: pl[k] for k in card_pl}:
-                raise AssertionError("%s launch_plan %s != the kernel's %s"
-                                     % (kind, pl, card_pl))
+            if gc.cluster_plan(B, H, dt)["take"]:
+                pl = gc.card_cluster_plan(kind, B, H, dev)
+                how = ("one cluster of %d blocks per row group of %d rows "
+                       "(%d row groups, %d clusters at once); both "
+                       "exchanges through distributed shared memory; the "
+                       "card's plan %s" % (
+                           pl["blocks"], pl["rows"], pl["row_groups"],
+                           pl["clusters_at_once"], json.dumps(pl)))
+            else:
+                pl, card_pl = (gc.launch_plan(kind, B, H, sms, dt),
+                               gc.card_plan(kind, B, H, dev, dt))
+                if card_pl != {k: pl[k] for k in card_pl}:
+                    raise AssertionError("%s launch_plan %s != the kernel's "
+                                         "%s" % (kind, pl, card_pl))
+                how = ("launch plan %s (the card's gru_plan agrees)"
+                       % json.dumps(pl))
             name = kind + sfx
             print("%s at [%d,%d,%d]: %.6f ms, %.3f us a step (time / T); at "
-                  "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); launch "
-                  "plan %s (the card's gru_plan agrees)" % (
+                  "T=%d %.6f ms: %.3f us a step ((t%d - t%d) / %d); %s" % (
                       name, B, T, H, gru_t[name, T], gru_t[name, T] * 1e3 / T,
                       GRU_SHORT_T, gru_t[name, GRU_SHORT_T],
                       (gru_t[name, T] - gru_t[name, GRU_SHORT_T]) * 1e3
                       / (T - GRU_SHORT_T), T, GRU_SHORT_T, T - GRU_SHORT_T,
-                      json.dumps(pl)))
+                      how))
     xg, w, h0, mask, dhs, hs, stash = gru_in[torch.float32]
     cudnn_gru = torch.nn.GRU(H, H, batch_first=True).to(dev)
     x_gru = torch.randn(B, T, H, generator=g).to(dev)

@@ -3,6 +3,7 @@ B6), or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
 
     python3 lstm_breakdown.py            # B3 and B4 at [64, T, 512]
     python3 lstm_breakdown.py --lstm-bf16  # bf16 B3, B4 (cluster kernels)
+    python3 lstm_breakdown.py --gru-bf16   # bf16 B5, B6 (cluster kernels)
     python3 lstm_breakdown.py --gru      # B5 at [64, T, 512]
     python3 lstm_breakdown.py --gru-bwd  # B6 at [64, T, 512]
     python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
@@ -48,6 +49,24 @@ in B4: each block waits for its own arrival only), and
 ``nomma+nocell``: the exchange and its waits alone, the floor of the
 chain that this design leaves. Last, lstm_cell.cu's bf16 kernels at the
 same inputs, as the wrappers take them where the plan refuses a shape.
+
+The bfloat16 B5 and B6 as one cluster per row group (``gru_cluster.cu``,
+``--gru-bf16``) are timed at [64, T, 512] for T 8 and 30 (B6 on the
+stash of the kernels' own forward), with the same variants: ``nowait``
+(each wait for an exchange moves past the work that reads it, before
+the next send), ``nomma``, ``nocell`` (B5: the cell without its
+exponentials; B6: no gate gradients), ``nogather`` (B6 reads only the
+first block's piece of each reduce-scatter), ``chain32`` (B5's
+warpgroups each run their 16 k16 steps of both products twice: the
+32-deep chain of a product whose K is not split), ``lateu`` (B6 issues
+the carry's da_u half beside its da_r half, after drh has come, instead
+of beside drh's product), ``noexchange1`` and
+``noexchange2`` (no bytes of the step's first exchange, B5's h_{t-1}
+and B6's drh, or of its second, B5's r h_{t-1} and B6's carry: each
+block waits for its own thread 0's arrival only), ``noexchange`` (neither),
+``nomma+nocell`` (the two exchanges and their waits alone: the chain
+floor) and all of those; then gru_cell.cu's bf16 kernels at the same
+inputs.
 
 The difference of a variant's step from the kernels' own is what that
 part costs on the step's chain.
@@ -216,6 +235,79 @@ CLUSTER_VARIANTS = {"kernels": [], "nowait": ["c_nowait"],
                     "nomma+nocell": ["c_nomma", "c_nocell"],
                     "nomma+nocell+noexchange": ["c_nomma", "c_nocell",
                                                 "c_noexchange"]}
+G_WAIT_H = "    rc::wait(hbar, ph);\n"
+G_WAIT_R = "    rc::wait(rbar, ph);\n"
+G_WAIT_C = ("      rc::wait(cbar, (s - 1) & 1);\n"
+            "      if (tid == 0) rc::expect(cbar, xbytes);\n")
+G_WAIT_D = ("    rc::wait(dbar, s & 1);\n"
+            "    if (tid == 0 && s + 1 < T_) rc::expect(dbar, xbytes);\n")
+G_A_DONE = "    __syncthreads();   // da_c and da_u are in their tiles\n"
+G_R_DONE = ("    hopper::fence_proxy_async();\n"
+            "    __syncthreads();   // da_r is in its tile")
+G_P2R = ("    hopper::wgmma_fence();\n#pragma unroll\n    for (int half = 0; "
+         "half < 2; ++half) {\n#pragma unroll\n      for (int kk = 0; kk < 2; "
+         "++kk) {\n        const uint64_t db = desc(dra")
+G_P2U = ("    hopper::wgmma_fence();\n#pragma unroll\n"
+         "    for (int kk = 0; kk < 2; ++kk)\n#pragma unroll\n"
+         "      for (int i = 0; i < kTilesWg; ++i)\n"
+         "        hopper::wgmma_rs_n16<0>(acc2[i], wur_f[i][kk],\n"
+         "                                desc(dua + kk * 32, 512, 2), 1);\n")
+G_CELLS = ("for (int e = 0; e < 2; ++e) {\n      const int n = rows[e]",
+           "for (int e = 0; e < 2; ++e) {\n        const int n = rows[e]")
+EDITS.update({
+    "g_nowait": [(G_WAIT_H + "    float acc[8];", "    float acc[8];"),
+                 ("    hopper::wgmma_wait<0>();\n    fence_regs(acc);\n",
+                  "    hopper::wgmma_wait<0>();\n    fence_regs(acc);\n"
+                  + G_WAIT_H),
+                 (G_WAIT_R + "    float acc2[8];", "    float acc2[8];"),
+                 ("    hopper::wgmma_wait<0>();\n    fence_regs(acc2);\n",
+                  "    hopper::wgmma_wait<0>();\n    fence_regs(acc2);\n"
+                  + G_WAIT_R),
+                 (G_WAIT_C, ""),
+                 (G_A_DONE, G_A_DONE + "    if (s) {\n" + G_WAIT_C
+                  + "    }\n"),
+                 (G_WAIT_D, ""),
+                 (G_R_DONE, G_WAIT_D + G_R_DONE)],
+    "g_nomma": [("for (int kk = 0; kk < kKsWg; ++kk) {\n      const int ks",
+                 "for (int kk = 0; kk < 0; ++kk) {\n      const int ks"),
+                ("for (int kk = 0; kk < 2; ++kk) {",
+                 "for (int kk = 0; kk < 0; ++kk) {")],
+    "g_nocell": [("rc::sigm_fast(", "("), ("rc::tanh_fast(", "(")]
+    + [(c, c.replace("e < 2", "e < 0")) for c in G_CELLS],
+    "g_chain32": [("for (int kk = 0; kk < kKsWg; ++kk) {\n      const int ks = "
+                   "kKsWg * wg + kk;",
+                   "for (int kk = 0; kk < 2 * kKsWg; ++kk) {\n      const int "
+                   "ks = kKsWg * wg + kk % kKsWg;"),
+                  ("acc, wur_f[kk], desc(", "acc, wur_f[kk % kKsWg], desc("),
+                  ("{wc_f[kk][0], zero, wc_f[kk][1], zero}",
+                   "{wc_f[kk % kKsWg][0], zero, wc_f[kk % kKsWg][1], zero}")],
+    "g_lateu": [("      if (half == 0) {\n#pragma unroll\n        for (int kk",
+                 "      if (half < 0) {\n#pragma unroll\n        for (int kk"),
+                (G_P2R, G_P2U + G_P2R)],
+    "g_nogather": [(", nb, ju, quad, hf)", ", 1, ju, quad, hf)")],
+    "g_nox1": [("rc::expect(hbar, xbytes)", "rc::expect(hbar, 0)"),
+               ("rc::all_gather(own_h,", "if (0) rc::all_gather(own_h,"),
+               ("rc::expect(dbar, xbytes)", "rc::expect(dbar, 0)"),
+               ("hopper::mbar_init(dbar, 1 + rc::kOwnArrivals);",
+                "hopper::mbar_init(dbar, 1);"),
+               ("rc::scatter_tile<kRows, true>(acc[i],",
+                "if (0) rc::scatter_tile<kRows, true>(acc[i],")],
+    "g_nox2": [("rc::expect(rbar, xbytes)", "rc::expect(rbar, 0)"),
+               ("rc::all_gather(own_r,", "if (0) rc::all_gather(own_r,"),
+               ("rc::expect(cbar, xbytes)", "rc::expect(cbar, 0)"),
+               ("hopper::mbar_init(cbar, 1 + rc::kOwnArrivals);",
+                "hopper::mbar_init(cbar, 1);"),
+               ("rc::scatter_tile<kRows, true>(acc2[i],",
+                "if (0) rc::scatter_tile<kRows, true>(acc2[i],")],
+})
+GRU_CLUSTER_VARIANTS = {
+    "kernels": [], "nowait": ["g_nowait"], "nomma": ["g_nomma"],
+    "nocell": ["g_nocell"], "nogather": ["g_nogather"],
+    "chain32": ["g_chain32"], "lateu": ["g_lateu"],
+    "noexchange1": ["g_nox1"],
+    "noexchange2": ["g_nox2"], "noexchange": ["g_nox1", "g_nox2"],
+    "nomma+nocell": ["g_nomma", "g_nocell"],
+    "nomma+nocell+noexchange": ["g_nomma", "g_nocell", "g_nox1", "g_nox2"]}
 LSTM_VARIANTS = {"kernels": [], "nowait": ["nowait"], "nomma": ["nomma"],
                  "nowait+nomma": ["nowait", "nomma"],
                  "nowait+nomma+nocell": ["nowait", "nomma", "nocell"],
@@ -391,6 +483,58 @@ def lstm_bf16(out_dir, dev, g):
         for k in ("fwd", "bwd"))), flush=True)
 
 
+def gru_bf16(out_dir, dev, g):
+    t_short, t_long = 8, 30
+    inputs = {}
+    for T in (t_short, t_long):
+        xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
+        w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
+        h0 = torch.randn(B, H, generator=g) * 0.1
+        dhs = torch.randn(B, T, H, generator=g)
+        xg, w, dhs = (t.bfloat16() for t in (xg, w, dhs))
+        inputs[T] = [t.to(dev) for t in (xg, w, h0, torch.ones(B, T), dhs)]
+    print("plan at [%d, *, %d]: %s" % (B, H, gc.cluster_plan(B, H)))
+    libs = build(out_dir, "gru_cluster", GRU_CLUSTER_VARIANTS)
+    # the stash each backward reads: the kernels' own forward's
+    _build._libs["gru_cluster"] = libs["kernels"]
+    for T, (xg, w, h0, mask, dhs) in inputs.items():
+        inputs[T] += list(gc._fwd_cluster(xg, w, h0, mask))
+    nb = -(-H // gc.CLUSTER_UNITS)
+    print("32 rows a cluster: refused, %s" % ", ".join(
+        "%s %d bytes of shared memory a block" % (
+            k, gc.cluster_smem("gru_" + k, nb, 32)) for k in ("fwd", "bwd"))
+        + " (%d allowed)" % gc.SMEM_LIMIT)
+
+    def line(name, ms):
+        print("%-24s %s" % (name, " | ".join(
+            "%s %.4f ms at T=%d, %.4f at T=%d: %.3f us a step" % (
+                k, ms[k, t_long], t_long, ms[k, t_short], t_short,
+                (ms[k, t_long] - ms[k, t_short]) * 1e3 / (t_long - t_short))
+            for k in ("fwd", "bwd"))), flush=True)
+
+    for name, lib in libs.items():
+        _build._libs["gru_cluster"] = lib
+        ms = {}
+        for T, (xg, w, h0, mask, dhs, hs, st) in inputs.items():
+            ms["fwd", T] = time_ms(lambda: gc._fwd_cluster(xg, w, h0, mask))
+            ms["bwd", T] = time_ms(
+                lambda: gc._bwd_cluster(st, hs, w, h0, mask, dhs))
+        line(name, ms)
+    # gru_cell.cu's bf16 kernels at the same inputs, as the wrappers take
+    # them for a shape the plan refuses
+    real = gc.cluster_plan
+    gc.cluster_plan = lambda *a, **k: dict(real(*a, **k), take=False)
+    try:
+        ms = {}
+        for T, (xg, w, h0, mask, dhs, hs, st) in inputs.items():
+            ms["fwd", T] = time_ms(lambda: gc.gru_forward(xg, w, h0, mask))
+            ms["bwd", T] = time_ms(
+                lambda: gc.gru_backward(st, hs, w, h0, mask, dhs))
+    finally:
+        gc.cluster_plan = real
+    line("gru_cell.cu bf16", ms)
+
+
 def gru(out_dir, dev, g):
     t_short, t_long = 3, 30
     libs = build(out_dir, "gru_cell", GRU_VARIANTS)
@@ -512,6 +656,9 @@ def main():
     mode.add_argument("--lstm-bf16", action="store_true",
                       help="break down the bfloat16 B3 and B4 (the cluster "
                            "kernels) instead")
+    mode.add_argument("--gru-bf16", action="store_true",
+                      help="break down the bfloat16 B5 and B6 (the cluster "
+                           "kernels) instead")
     mode.add_argument("--gru", action="store_true",
                       help="break down B5 (gru_fwd) instead of B3 and B4")
     mode.add_argument("--gru-bwd", action="store_true",
@@ -532,7 +679,8 @@ def main():
     run = (decode if args.decode else gru if args.gru
            else gru_bwd if args.gru_bwd else flash_bf16 if args.flash_bf16
            else conv1x1_bf16 if args.conv1x1_bf16
-           else lstm_bf16 if args.lstm_bf16 else lstm)
+           else lstm_bf16 if args.lstm_bf16
+           else gru_bf16 if args.gru_bf16 else lstm)
     run(out_dir, dev, g)
     print("card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

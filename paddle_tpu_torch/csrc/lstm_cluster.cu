@@ -105,15 +105,17 @@ using hopper::desc;
 using hopper::fence_regs;
 using hopper::smem_u32;
 namespace rc = rnn_cluster;
+using rc::bf;
+using rc::kHead;
+using rc::kRows;
+using rc::sw128;
+using rc::sw64;
+using rc::tiles;
 
-constexpr int kRows = 16;          // R: batch rows a cluster (a row group)
 constexpr int kFwdThreads = 256;   // B3: two warpgroups
 constexpr int kBwdThreads = 256;   // B4: two warpgroups
 constexpr int kFwdStages = 8;      // B3's ring of inputs, steps ahead
 constexpr int kBwdStages = 8;      // B4's
-// dynamic shared memory ahead of the tiles: the mbarriers (at most 32),
-// then the pad to a 1024-byte boundary (the swizzle's)
-constexpr int kHead = 2048;
 
 // The products run over the largest cluster's units whatever H is (K of
 // B3 and M of B4 are 512, zero past H): no product depends on a runtime
@@ -158,24 +160,6 @@ size_t bwd_smem(int nb) {
   const size_t x = 2 * (size_t)nb * kPiece;
   return (size_t)kHead + kBwdDg + kGates + (x > kBwdW ? x : kBwdW) +
          kBwdStages * kBwdStage;
-}
-
-// byte offset of (row, byte) in a tile of 64- or 128-byte swizzled rows
-__device__ __forceinline__ int sw64(int row, int byte) {
-  return row * 64 + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
-}
-__device__ __forceinline__ int sw128(int row, int byte) {
-  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
-}
-
-// the 1024-aligned tiles after the mbarriers at the head
-__device__ __forceinline__ unsigned char* tiles(unsigned char* raw) {
-  const unsigned a = smem_u32(raw);
-  return raw + (((a + 256 + 1023) & ~1023u) - a);
-}
-
-__device__ __forceinline__ float bf(const unsigned char* p, int i) {
-  return __bfloat162float(reinterpret_cast<const bf16*>(p)[i]);
 }
 
 // =====================================================================
@@ -672,39 +656,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   rc::cluster_sync();   // no block leaves while a peer may still store
 }
 
-// The map of a [B][T][H] (gates: [B][T][4][H]) tensor of `es`-byte
-// elements in boxes of 32 units x R rows (x 4 gates), dense in shared
-// memory (also [B][H]: T = 0).
-bool unit_map(CUtensorMap* m, const void* base, bool gates, int es,
-              CUtensorMapDataType type, int B, int T, int H) {
-  const uint64_t h = H, row = (uint64_t)(gates ? 4 : 1) * H * es;
-  if (gates) {
-    const uint64_t dims[4] = {h, 4, (uint64_t)T, (uint64_t)B};
-    const uint64_t strides[3] = {h * es, row, row * T};
-    const uint32_t box[4] = {rc::kUnits, 4, 1, kRows};
-    return hopper::make_map(m, base, 4, dims, strides, box, 0, type);
-  }
-  if (T == 0) {
-    const uint64_t dims[2] = {h, (uint64_t)B};
-    const uint64_t strides[1] = {row};
-    const uint32_t box[2] = {rc::kUnits, kRows};
-    return hopper::make_map(m, base, 2, dims, strides, box, 0, type);
-  }
-  const uint64_t dims[3] = {h, (uint64_t)T, (uint64_t)B};
-  const uint64_t strides[2] = {row, row * T};
-  const uint32_t box[3] = {rc::kUnits, 1, kRows};
-  return hopper::make_map(m, base, 3, dims, strides, box, 0, type);
-}
-// the mask, [T][bp] float32 (bp a multiple of 4, rows past B zero), in
-// boxes of R rows
-bool mask_map(CUtensorMap* m, const float* mask_t, int B, int T, int bp) {
-  const uint64_t dims[2] = {(uint64_t)B, (uint64_t)T};
-  const uint64_t strides[1] = {(uint64_t)bp * 4};
-  const uint32_t box[2] = {kRows, 1};
-  return hopper::make_map(m, mask_t, 2, dims, strides, box, 0,
-                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
-}
-
 constexpr CUtensorMapDataType kBf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
@@ -716,15 +667,11 @@ constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 cudaError_t plan(int kind, int B, int H, int* out, size_t* smem) {
   const int nb = (H + rc::kUnits - 1) / rc::kUnits;
   *smem = kind == 0 ? kFwdSmem : bwd_smem(nb);
-  int dev = 0, optin = 0;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(
-           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-      cudaSuccess)
-    return e;
+  size_t optin = 0;
+  const cudaError_t e = rc::smem_optin(&optin);
+  if (e != cudaSuccess) return e;
   const bool take = H > 0 && H % 8 == 0 && nb <= rc::kMaxCluster &&
-                    *smem <= (size_t)optin;
+                    *smem <= optin;
   out[0] = take;
   out[1] = nb;
   out[2] = kRows;
@@ -766,11 +713,11 @@ cudaError_t lstm_fwd_cluster(const void* xg, const void* w, const float* peep,
   if (e != cudaSuccess) return e;
   if (!p[0]) return cudaErrorInvalidValue;
   FwdArgs a;
-  if (!unit_map(&a.tm_xg, xg, true, 2, kBf, B, T, H) ||
-      !mask_map(&a.tm_mask, mask_t, B, T, (B + 3) / 4 * 4) ||
-      !unit_map(&a.tm_hs, hs, false, 2, kBf, B, T, H) ||
-      !unit_map(&a.tm_cs, cs, false, 4, kF32, B, T, H) ||
-      !unit_map(&a.tm_stash, stash, true, 2, kBf, B, T, H))
+  if (!rc::unit_map(&a.tm_xg, xg, 4, 2, kBf, B, T, H) ||
+      !rc::mask_map(&a.tm_mask, mask_t, B, T, (B + 3) / 4 * 4) ||
+      !rc::unit_map(&a.tm_hs, hs, 0, 2, kBf, B, T, H) ||
+      !rc::unit_map(&a.tm_cs, cs, 0, 4, kF32, B, T, H) ||
+      !rc::unit_map(&a.tm_stash, stash, 4, 2, kBf, B, T, H))
     return cudaErrorInvalidValue;
   a.w = static_cast<const bf16*>(w);
   a.peep = peep;
@@ -802,13 +749,13 @@ cudaError_t lstm_bwd_cluster(const void* stash, const float* cs,
   if (e != cudaSuccess) return e;
   if (!p[0]) return cudaErrorInvalidValue;
   BwdArgs a;
-  if (!unit_map(&a.tm_stash, stash, true, 2, kBf, B, T, H) ||
-      !unit_map(&a.tm_cs, cs, false, 4, kF32, B, T, H) ||
-      !unit_map(&a.tm_c0, c0, false, 4, kF32, B, 0, H) ||
-      !unit_map(&a.tm_dhs, dhs, false, 2, kBf, B, T, H) ||
-      !unit_map(&a.tm_dcs, dcs, false, 2, kBf, B, T, H) ||
-      !mask_map(&a.tm_mask, mask_t, B, T, (B + 3) / 4 * 4) ||
-      !unit_map(&a.tm_dxg, dxg, true, 2, kBf, B, T, H))
+  if (!rc::unit_map(&a.tm_stash, stash, 4, 2, kBf, B, T, H) ||
+      !rc::unit_map(&a.tm_cs, cs, 0, 4, kF32, B, T, H) ||
+      !rc::unit_map(&a.tm_c0, c0, 0, 4, kF32, B, 0, H) ||
+      !rc::unit_map(&a.tm_dhs, dhs, 0, 2, kBf, B, T, H) ||
+      !rc::unit_map(&a.tm_dcs, dcs, 0, 2, kBf, B, T, H) ||
+      !rc::mask_map(&a.tm_mask, mask_t, B, T, (B + 3) / 4 * 4) ||
+      !rc::unit_map(&a.tm_dxg, dxg, 4, 2, kBf, B, T, H))
     return cudaErrorInvalidValue;
   a.w = static_cast<const bf16*>(w);
   a.cs = cs;

@@ -1,25 +1,30 @@
 // The pieces of a recurrent kernel that runs one thread-block cluster per
-// row group (lstm_cluster.cu's bfloat16 B3 and B4): the blocking (a block
-// owns 32 units, so 4 x 32 = 128 gate columns, two m64 wgmma tiles), the
-// cell's nonlinearities, ldmatrix for W's fragments in registers, the
-// step's all-gather and reduce-scatter between the cluster's blocks
-// through distributed shared memory, each completing the receiver's
-// mbarrier by its bytes, the wait on it (acquire at cluster scope, a trap
-// after 10 s instead of a hang) and the launch in clusters.
+// row group (lstm_cluster.cu's bfloat16 B3 and B4, gru_cluster.cu's B5
+// and B6): the blocking (a block owns 32 units of a row group of 16
+// rows), the swizzled tiles that wgmma reads, the cell's nonlinearities,
+// ldmatrix for W's fragments in registers, the step's all-gather and
+// reduce-scatter between the cluster's blocks through distributed shared
+// memory, each completing the receiver's mbarrier by its bytes, the wait
+// on it (acquire at cluster scope, a trap after 10 s instead of a hang),
+// the TMA maps of the [B][T][(gates)][H] tensors in boxes of a block's
+// units and rows, and the launch in clusters.
 //
 // The exchange needs no global counters and no cooperative launch: the
 // rows of one row group depend on no other row group, so clusters may
-// queue behind each other. Each exchange buffer comes in two, by the
-// parity of the step, each with an mbarrier of one arrival (the
-// receiver's own, expecting the peers' bytes) that completes once a
+// queue behind each other. lstm_cluster.cu keeps each exchange buffer in
+// two, by the parity of the step, each with an mbarrier of one arrival
+// (the receiver's own, expecting the peers' bytes) that completes once a
 // step. Two buffers are enough: a block can send step s + 2 into buffer
 // s & 1 only after it has received step s + 1 from every block, and each
-// block sends step s + 1 only after it has read step s.
+// block sends step s + 1 only after it has read step s. gru_cluster.cu's
+// two exchanges a step alternate, and one buffer each is enough (the
+// argument is in its head).
 // Sources include it by its relative name; kernels/_build.py hashes it
 // with every source, so an edit here rebuilds them all.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,8 +37,30 @@ using hopper::smem_u32;
 using rnn_step::cluster_rank;
 using rnn_step::cluster_sync;
 
-constexpr int kUnits = 32;        // units a block owns (128 gate columns)
+constexpr int kUnits = 32;        // units a block owns
 constexpr int kMaxCluster = 16;   // blocks a cluster (non-portable > 8)
+constexpr int kRows = 16;         // R: batch rows a cluster (a row group)
+// dynamic shared memory ahead of the tiles: the mbarriers (at most 32),
+// then the pad to a 1024-byte boundary (the swizzle's)
+constexpr int kHead = 2048;
+
+// byte offset of (row, byte) in a tile of 64- or 128-byte swizzled rows
+__device__ __forceinline__ int sw64(int row, int byte) {
+  return row * 64 + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
+}
+__device__ __forceinline__ int sw128(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// the 1024-aligned tiles after the mbarriers at the head
+__device__ __forceinline__ unsigned char* tiles(unsigned char* raw) {
+  const unsigned a = smem_u32(raw);
+  return raw + (((a + 256 + 1023) & ~1023u) - a);
+}
+
+__device__ __forceinline__ float bf(const unsigned char* p, int i) {
+  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+}
 
 // The cell's nonlinearities on the special function unit: __expf and a
 // fast reciprocal, within a few ulp of float32 (the gates then round to
@@ -63,6 +90,25 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// The two 8 x 8 bf16 matrices at the addresses of lanes 0 .. 15 (lanes
+// 8 i .. 8 i + 7: the rows of matrix i), transposed, as registers 0, 1:
+// from an MN-major tile half of an A fragment (its rows 0 .. 7, K 0 .. 7
+// and 8 .. 15; registers 0 and 2 of the fragment)
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// A barrier of the two warps `id` - 1 and `id` + 3 (the same warp of
+// each warpgroup: named barrier id, 64 threads), for a swap of sums
+// between thread tid and thread tid ^ 128
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
 }
 
 // p's offset in the shared memory of the cluster's block `rank`
@@ -141,9 +187,12 @@ __device__ __forceinline__ int piece_row(int quad, int e) {
 // units' piece into the `recv` of the block that owns them, at this
 // block's slot, 16 bytes a store straight from the registers: by
 // st.async, completing that block's mbarrier at bar's offset, or by an
-// ordinary store where this block owns them itself. Units past the
-// cluster's go nowhere.
-template <int R>
+// ordinary store where this block owns them itself, then (ARRIVE) an
+// arrival of each of the storing threads on bar, whose count includes
+// them (kOwnArrivals), in place of a barrier of the block. Units past
+// the cluster's go nowhere.
+constexpr int kOwnArrivals = 64;   // two warps store a block's own piece
+template <int R, bool ARRIVE = false>
 __device__ __forceinline__ void scatter_tile(const float (&d)[R / 2], int m0,
                                              int nunits, float* recv,
                                              uint64_t* bar, unsigned rank,
@@ -170,21 +219,37 @@ __device__ __forceinline__ void scatter_tile(const float (&d)[R / 2], int m0,
             : "memory");
     }
   }
+  if (ARRIVE && (unsigned)dst == rank) hopper::mbar_arrive(bar);
 }
 
 // The receiving side: this block's sum, in rank order, of the nb pieces'
 // values for unit ju at rows piece_row(quad, 2 hf) and piece_row(quad,
-// 2 hf + 1) (half hf of the quad)
-template <int R>
+// 2 hf + 1) (half hf of the quad). NMAX > 0: the loads of all NMAX
+// pieces' places issued together ahead of the sums, which take the
+// first nb (the same sums in the same order), instead of one load after
+// each sum; recv must lie in NMAX pieces' bytes of shared memory.
+template <int R, int NMAX = 0>
 __device__ __forceinline__ float2 gather_sum(const float* recv, int nb,
                                              int ju, int quad, int hf) {
   const float* p = recv + piece_idx<R>(0, ju, quad) + 2 * hf;
   float2 s = *reinterpret_cast<const float2*>(p);
-  for (int src = 1; src < nb; ++src) {
-    const float2 v =
-        *reinterpret_cast<const float2*>(p + (size_t)src * kUnits * R);
-    s.x += v.x;
-    s.y += v.y;
+  if constexpr (NMAX > 0) {
+    float2 v[NMAX];
+#pragma unroll
+    for (int src = 1; src < NMAX; ++src)
+      v[src] = *reinterpret_cast<const float2*>(p + (size_t)src * kUnits * R);
+#pragma unroll
+    for (int src = 1; src < NMAX; ++src) {
+      s.x = src < nb ? s.x + v[src].x : s.x;
+      s.y = src < nb ? s.y + v[src].y : s.y;
+    }
+  } else {
+    for (int src = 1; src < nb; ++src) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(p + (size_t)src * kUnits * R);
+      s.x += v.x;
+      s.y += v.y;
+    }
   }
   return s;
 }
@@ -214,6 +279,54 @@ inline cudaError_t prepare(const void* kernel, int nb, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// The map of a [B][T][H] tensor (gates > 0: [B][T][gates][H]) of
+// `es`-byte elements in boxes of 32 units x R rows (x the gates), dense
+// in shared memory (also [B][H]: T = 0, no gates).
+inline bool unit_map(CUtensorMap* m, const void* base, int gates, int es,
+                     CUtensorMapDataType type, int B, int T, int H) {
+  const uint64_t h = H, row = (uint64_t)(gates ? gates : 1) * H * es;
+  if (gates) {
+    const uint64_t dims[4] = {h, (uint64_t)gates, (uint64_t)T, (uint64_t)B};
+    const uint64_t strides[3] = {h * es, row, row * T};
+    const uint32_t box[4] = {kUnits, (uint32_t)gates, 1, kRows};
+    return hopper::make_map(m, base, 4, dims, strides, box, 0, type);
+  }
+  if (T == 0) {
+    const uint64_t dims[2] = {h, (uint64_t)B};
+    const uint64_t strides[1] = {row};
+    const uint32_t box[2] = {kUnits, kRows};
+    return hopper::make_map(m, base, 2, dims, strides, box, 0, type);
+  }
+  const uint64_t dims[3] = {h, (uint64_t)T, (uint64_t)B};
+  const uint64_t strides[2] = {row, row * T};
+  const uint32_t box[3] = {kUnits, 1, kRows};
+  return hopper::make_map(m, base, 3, dims, strides, box, 0, type);
+}
+// the mask, [T][bp] float32 (bp a multiple of 4, rows past B zero), in
+// boxes of R rows
+inline bool mask_map(CUtensorMap* m, const float* mask_t, int B, int T,
+                     int bp) {
+  const uint64_t dims[2] = {(uint64_t)B, (uint64_t)T};
+  const uint64_t strides[1] = {(uint64_t)bp * 4};
+  const uint32_t box[2] = {kRows, 1};
+  return hopper::make_map(m, mask_t, 2, dims, strides, box, 0,
+                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// The shared memory a block may take on the current device (its opt-in
+// limit)
+inline cudaError_t smem_optin(size_t* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return e;
+  *bytes = (size_t)optin;
+  return cudaSuccess;
 }
 
 // One cluster of nb blocks per row group; not cooperative: clusters that

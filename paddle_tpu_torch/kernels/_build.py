@@ -61,6 +61,11 @@ SOURCES = {
         "gru_bwd": ([_P] * 12 + [_I] * 3 + [_P], _I),
         "gru_bwd_bf16": ([_P] * 12 + [_I] * 3 + [_P], _I),
     },
+    "gru_cluster": {
+        "gru_fwd_cluster": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        "gru_bwd_cluster": ([_P] * 8 + [_I] * 3 + [_P], _I),
+        "gru_cluster_plan": ([_I] * 3 + [_P], _I),
+    },
     "bn_grad": {
         "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),
     },

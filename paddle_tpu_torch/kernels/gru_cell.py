@@ -1,8 +1,11 @@
 """Whole-sequence GRU: the forward (B5) and backward (B6) kernels.
 
-The kernels are hand-written CUDA for Hopper (``csrc/gru_cell.cu``) and
-replace the JAX package's two Pallas kernels in
-``paddle_tpu/kernels/gru_cell.py``: the forward launch replaces
+The kernels are hand-written CUDA for Hopper (``csrc/gru_cell.cu``, and
+for bfloat16 wherever :func:`cluster_plan` takes the shape
+``csrc/gru_cluster.cu``: one thread-block cluster per row group, W in
+registers, both of a step's exchanges through distributed shared memory,
+the products on wgmma) and replace the JAX package's two Pallas kernels
+in ``paddle_tpu/kernels/gru_cell.py``: the forward launch replaces
 ``_fwd_kernel`` and the backward launch replaces ``_bwd_kernel``.
 
 Layout is the JAX package's public one (the reference gru_op's),
@@ -28,9 +31,15 @@ unchanged and gets no gate gradient). Per step::
   loop :func:`gru_forward_reference` and :func:`gru_backward_reference`,
   which writes the backward kernel's arithmetic out step by step (it is
   not autograd of the forward). Every product of both is summed in the
-  kernels' blocking (the LSTM kernels', ``lstm_cell._product``: K in
-  chunks of 128, each 32-deep slice a stage summed apart, the slices'
-  sums added in warp order); the backward's carry da_ur w_ur^T as the
+  blocking of the kernel the shape gets: under :func:`cluster_plan` the
+  forward's as the cluster forward's two warpgroups split K, each half
+  one float32 sum in k16 steps, half 0's first
+  (:func:`_split_k16_product`), and the backward's as one partial per
+  block's columns (k16 steps; the carry's u columns before its r
+  columns), added in rank order (``lstm_cell._cluster_bwd_product``);
+  elsewhere gru_cell.cu's (the LSTM kernels', ``lstm_cell._product``: K
+  in chunks of 128, each 32-deep slice a stage summed apart, the slices'
+  sums added in warp order), the backward's carry da_ur w_ur^T as the
   two halves of a cluster pair form it, half 0 (da_u w_u^T) first
   (``lstm_cell._bwd_product``);
 * a meta tensor returns outputs of the right shape.
@@ -42,25 +51,30 @@ h_{t-1}, r h_{t-1}, da_c and da_ur rounded to the input dtype just
 before their recurrent products; the backward reads h_{t-1} from the
 stored hs; h0, mask and dh0 float32.
 
-``launches`` counts kernel launches per kernel; plain-version calls do
-not count. :func:`launch_plan` is a kernel's launch plan (cluster size,
-row groups of 32 rows, blocks, residency), a pure function of the shape
-and the card's SM count; :func:`card_plan` reads the kernel's own.
+``launches`` counts kernel launches per kernel (the cluster kernels
+under ``gru_fwd_bf16`` and ``gru_bwd_bf16``, as the bfloat16 kernels
+they replace); plain-version calls do not count. :func:`launch_plan` is
+gru_cell.cu's launch plan (cluster size, row groups of 32 rows, blocks,
+residency), a pure function of the shape and the card's SM count;
+:func:`card_plan` reads the kernel's own, and :func:`card_cluster_plan`
+the cluster kernels' (:func:`cluster_plan`'s numbers and the clusters
+the card holds at once).
 """
 
 import torch
 
 from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS
-from paddle_tpu_torch.kernels.lstm_cell import (CHUNK, K_STEP, ROWS, _acc,
-                                                _bwd_product, _check,
-                                                _check_tensor, _exchange,
-                                                _kernel_dtype, _product,
-                                                _raise_on, _rounder, _size,
-                                                _stages, _stream)
+from paddle_tpu_torch.kernels.lstm_cell import (
+    CHUNK, CLUSTER_ROWS, CLUSTER_UNITS, K_STEP, MAX_CLUSTER, ROWS,
+    SMEM_LIMIT, _acc, _aligned, _bwd_product, _check, _check_tensor,
+    _cluster_bwd_product, _cluster_bwd_slices, _exchange, _k16_slices,
+    _kernel_dtype, _mask_t, _product, _raise_on, _rounder, _size, _stages,
+    _stream)
 
 __all__ = ["gru_sequence", "gru_forward_reference", "gru_backward_reference",
-           "gru_forward", "gru_backward", "launch_plan", "card_plan",
-           "launches", "reset_launches"]
+           "gru_forward", "gru_backward", "cluster_plan", "cluster_smem",
+           "launch_plan", "card_plan", "card_cluster_plan", "launches",
+           "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0,
@@ -90,13 +104,85 @@ def reset_launches():
         launches[k] = 0
 
 
+# the cluster kernels (csrc/gru_cluster.cu): a block owns CLUSTER_UNITS
+# units (u, r and c of each: W's 96 columns in registers) of a row group
+# of CLUSTER_ROWS rows, a cluster of at most MAX_CLUSTER blocks; the
+# forward's two warpgroups split K (512 units, zeros past H) at SPLIT_K;
+# their rings of inputs hold FWD_STAGES and BWD_STAGES steps, their
+# output slots FWD_OUT_SLOTS and BWD_OUT_SLOTS steps
+FWD_STAGES, BWD_STAGES = 8, 8
+FWD_OUT_SLOTS, BWD_OUT_SLOTS = 3, 3
+SPLIT_K = MAX_CLUSTER * CLUSTER_UNITS // 2
+
+
+def cluster_smem(kind, blocks, rows=CLUSTER_ROWS):
+    """Shared bytes a block of the cluster kernel ``kind`` ("gru_fwd" or
+    "gru_bwd") takes with ``blocks`` blocks a cluster and ``rows`` rows
+    (the kernels are built for CLUSTER_ROWS; other rows say what a build
+    for them would need): 2048 of mbarriers and alignment, then the
+    forward's slices of W_ur^T and W_c^T (staged for its registers), its
+    h and r h buffers, three slots of the outputs on their way out, its
+    warpgroups' swaps of sums and the ring of inputs, or the backward's
+    three B tiles (da_c, da_u, da_r), three slots of dxg's box, its two
+    receive buffers of float32 pieces (W staged in the same bytes before
+    the first step) and the ring of inputs."""
+    kp = MAX_CLUSTER * CLUSTER_UNITS
+    gates = rows * 3 * CLUSTER_UNITS * 2          # a [rows, 3, 32] bf16 box
+    plane = rows * CLUSTER_UNITS                  # elements of a [rows, 32]
+    if kind == "gru_fwd":
+        return (2048 + kp * (128 + 64) + 2 * MAX_CLUSTER * plane * 2
+                + FWD_OUT_SLOTS * (gates + 2 * plane) + 256 * (16 + 8)
+                + FWD_STAGES * (gates + 128))
+    return (2048 + 3 * plane * 2 + BWD_OUT_SLOTS * gates
+            + max(2 * blocks * plane * 4, kp * (64 + 128))
+            + BWD_STAGES * (gates + 6 * plane + 128))
+
+
+def cluster_plan(b, h, dtype=torch.bfloat16):
+    """Whether the cluster kernels take a [b, *, h] GRU of ``dtype``, a
+    pure function of the shape that the CPU's plain versions follow too:
+    bfloat16 (float32's W does not fit), h a multiple of 8 (W's rows in
+    16-byte copies, TMA's 16-byte strides), ceil(h / 32) blocks a cluster
+    at most 16 (h up to 512), and both kernels' shared memory within
+    SMEM_LIMIT. Returns ``dict(take, blocks, rows, units, row_groups)``,
+    as the card's plan (:func:`card_cluster_plan`) reports them."""
+    blocks = -(-h // CLUSTER_UNITS)
+    take = (dtype == torch.bfloat16 and h > 0 and h % 8 == 0
+            and blocks <= MAX_CLUSTER
+            and all(cluster_smem(k, blocks) <= SMEM_LIMIT
+                    for k in ("gru_fwd", "gru_bwd")))
+    return dict(take=bool(take), blocks=blocks, rows=CLUSTER_ROWS,
+                units=CLUSTER_UNITS, row_groups=-(-b // CLUSTER_ROWS))
+
+
+def _split_k16_product(x, ws):
+    """x [B, K] @ W as the cluster forward's two warpgroups form it: each
+    takes one half of K (512 units, split at SPLIT_K; zeros past K) and
+    sums its k16 slices' products in order in float32; then half 0's sum
+    plus half 1's. ``ws`` is ``lstm_cell._k16_slices(W)``."""
+    ns = ws.shape[0]
+    b, k = x.shape
+    xp = x.new_zeros((b, ns * 16))
+    xp[:, :k] = x
+    part = torch.einsum("bsk,skn->sbn", xp.reshape(b, ns, 16), ws)
+    half = SPLIT_K // 16
+    sums = []
+    for lo in (0, half):
+        acc = part.new_zeros(part.shape[1:])
+        for s in range(lo, min(lo + half, ns)):
+            acc = acc + part[s]
+        sums.append(acc)
+    return sums[0] + sums[1]
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 def gru_forward_reference(xg, w, h0, mask, rounding=None):
     """Plain version of the forward kernel: the step loop, with both
-    products summed in the kernel's blocking (``_product``), state and
+    products summed in the blocking of the kernel the shape gets
+    (_split_k16_product under cluster_plan, else _product), state and
     sums in _acc(xg.dtype), h_{t-1} and r h_{t-1} rounded to ``rounding``
     (default xg's dtype) before their products, hs and the stash rounded
     to it. Returns ``(hs, stash)``: [B, T, H] and ``u, r, c`` [B, T, 3H],
@@ -106,14 +192,18 @@ def gru_forward_reference(xg, w, h0, mask, rounding=None):
     dt, sd = xg.dtype, _acc(xg.dtype)
     rnd = _rounder(dt, rounding)
     w = w.to(sd)
-    wur, wc = _stages(w[:, :2 * h]), _stages(w[:, 2 * h:])
+    if cluster_plan(b, h, dt)["take"]:
+        cut, product = _k16_slices, _split_k16_product
+    else:
+        cut, product = _stages, _product
+    wur, wc = cut(w[:, :2 * h]), cut(w[:, 2 * h:])
     h_prev = h0.to(sd)
     hs, stash = [], []
     for t in range(t_len):
         g = xg[:, t].to(sd)
-        a_ur = g[:, :2 * h] + _product(rnd(h_prev), wur)
+        a_ur = g[:, :2 * h] + product(rnd(h_prev), wur)
         u, r = torch.sigmoid(a_ur[:, :h]), torch.sigmoid(a_ur[:, h:])
-        c = torch.tanh(g[:, 2 * h:] + _product(rnd(r * h_prev), wc))
+        c = torch.tanh(g[:, 2 * h:] + product(rnd(r * h_prev), wc))
         h_t = u * h_prev + (1 - u) * c
         m = mask[:, t, None].to(sd)
         h_t = m * h_t + (1 - m) * h_prev
@@ -131,17 +221,30 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs, rounding=None):
     down: the gate gradients from the stash, h_{t-1} (from hs as stored)
     and the dh carry, with drh = da_c w_c^T, then the carry dh_{t-1} =
     ((dh u + drh r) m + (1 - m) dh) + da_ur w_ur^T; both products summed
-    in the kernel's blocking, the second as two halves, da_u w_u^T
-    first, da_c and da_ur rounded to ``rounding`` (default the stash's
-    dtype) before them; carries and sums in _acc(stash.dtype). Returns
-    ``(dxg [B, T, 3H] in the stash's dtype, dh0 [B, H] in _acc)``."""
+    in the blocking of the kernel the shape gets (under cluster_plan one
+    partial per block's columns, added in rank order:
+    ``_cluster_bwd_product``; else ``_product``, the carry as two halves,
+    da_u w_u^T first), da_c and da_ur rounded to ``rounding`` (default the
+    stash's dtype) before them; carries and sums in _acc(stash.dtype).
+    Returns ``(dxg [B, T, 3H] in the stash's dtype, dh0 [B, H] in
+    _acc)``."""
     b, t_len, g3 = stash.shape
     h = g3 // 3
     sd = _acc(stash.dtype)
     rnd = _rounder(stash.dtype, rounding)
-    wt = w.to(sd).t()
-    wc = _stages(wt[2 * h:])
-    wur = (_stages(wt[:h]), _stages(wt[h:2 * h]))
+    plan = cluster_plan(b, h, stash.dtype)
+    if plan["take"]:
+        ws = w.to(sd)
+        wc = _cluster_bwd_slices(ws[:, 2 * h:], plan["blocks"])
+        wur = _cluster_bwd_slices(ws[:, :2 * h], plan["blocks"])
+        drh_of = lambda d: _cluster_bwd_product(d, wc)  # noqa: E731
+        carry_of = lambda d: _cluster_bwd_product(d, wur)  # noqa: E731
+    else:
+        wt = w.to(sd).t()
+        wc = _stages(wt[2 * h:])
+        wur = (_stages(wt[:h]), _stages(wt[h:2 * h]))
+        drh_of = lambda d: _product(d, wc)  # noqa: E731
+        carry_of = lambda d: _bwd_product(d, wur)  # noqa: E731
     dh_c = stash.new_zeros((b, h), dtype=sd)
     dxg = stash.new_zeros((b, t_len, g3))
     for t in range(t_len - 1, -1, -1):
@@ -151,13 +254,12 @@ def gru_backward_reference(stash, hs, w, h0, mask, dhs, rounding=None):
         m = mask[:, t, None].to(sd)
         dh = dhs[:, t].to(sd) + dh_c
         da_c = rnd(m * dh * (1 - u) * (1 - c * c))
-        drh = _product(da_c, wc)
+        drh = drh_of(da_c)
         da_u = m * dh * (h_prev - c) * u * (1 - u)
         da_r = m * drh * h_prev * r * (1 - r)
         da_ur = rnd(torch.cat([da_u, da_r], dim=-1))
         dxg[:, t] = torch.cat([da_ur, da_c], dim=-1)
-        dh_c = ((dh * u + drh * r) * m + (1 - m) * dh
-                + _bwd_product(da_ur, wur))
+        dh_c = (dh * u + drh * r) * m + (1 - m) * dh + carry_of(da_ur)
     return dxg, dh_c
 
 
@@ -233,6 +335,75 @@ def card_plan(kind, b, h, device=None, dtype=torch.float32):
                 rounds=rounds, smem_bytes=smem)
 
 
+def card_cluster_plan(kind, b, h, device=None):
+    """The card's plan of the cluster kernel ``kind`` ("gru_fwd" or
+    "gru_bwd") at (b, h), from the kernels' own rule
+    (``gru_cluster_plan`` in the source): :func:`cluster_plan`'s keys,
+    and ``clusters_at_once``, the clusters of the plan that the card
+    holds at once (0 where it does not take the shape; the row groups
+    past it queue)."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.load("gru_cluster")
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        rc = lib.gru_cluster_plan(0 if kind == "gru_fwd" else 1, b, h,
+                                  ctypes.addressof(out))
+    _raise_on(rc, "gru_cluster_plan")
+    take, blocks, rows, units, groups, at_once = list(out)
+    return dict(take=bool(take), blocks=blocks, rows=rows, units=units,
+                row_groups=groups, clusters_at_once=at_once)
+
+
+def _fwd_cluster(xg, w, h0, mask):
+    """The bfloat16 forward on the cluster kernel; the inputs checked by
+    the caller."""
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g3 = xg.shape
+    h = g3 // 3
+    dev = xg.device
+    lib = _build.load("gru_cluster")
+    hs = torch.empty((b, t_len, h), dtype=xg.dtype, device=dev)
+    stash = torch.empty_like(xg)
+    xg, w = _aligned(xg), _aligned(w)
+    mask_t = _mask_t(mask)
+    with torch.cuda.device(dev):
+        rc = lib.gru_fwd_cluster(
+            xg.data_ptr(), w.data_ptr(), h0.data_ptr(), mask_t.data_ptr(),
+            hs.data_ptr(), stash.data_ptr(), b, t_len, h, _stream(dev))
+    _raise_on(rc, "gru_fwd_cluster")
+    launches["gru_fwd_bf16"] += 1
+    return hs, stash
+
+
+def _bwd_cluster(stash, hs, w, h0, mask, dhs):
+    """The bfloat16 backward on the cluster kernel; the inputs checked by
+    the caller."""
+    from paddle_tpu_torch.kernels import _build
+
+    b, t_len, g3 = stash.shape
+    h = g3 // 3
+    dev = stash.device
+    lib = _build.load("gru_cluster")
+    dxg = torch.empty_like(stash)
+    # the kernel writes all of dh0 but for a sequence of no steps
+    dh0 = (torch.empty if t_len else torch.zeros)((b, h), dtype=torch.float32,
+                                                   device=dev)
+    stash, hs, w, h0, dhs = (_aligned(t) for t in (stash, hs, w, h0, dhs))
+    mask_t = _mask_t(mask)
+    with torch.cuda.device(dev):
+        rc = lib.gru_bwd_cluster(
+            stash.data_ptr(), hs.data_ptr(), w.data_ptr(), h0.data_ptr(),
+            mask_t.data_ptr(), dhs.data_ptr(), dxg.data_ptr(), dh0.data_ptr(),
+            b, t_len, h, _stream(dev))
+    _raise_on(rc, "gru_bwd_cluster")
+    launches["gru_bwd_bf16"] += 1
+    return dxg, dh0
+
+
 def _scratch(b, h, tiles, dt, dev):
     """``tiles`` zero-filled exchange tiles of a row group in A-fragment
     order ([tiles, RG, 2, k steps, 32, 16 bytes]) and the counters the
@@ -255,6 +426,8 @@ def _fwd_cuda(xg, w, h0, mask):
                            ("h0", h0, (b, h), torch.float32),
                            ("mask", mask, (b, t_len), torch.float32)):
         _check_tensor(n, t, shape, dev, d)
+    if cluster_plan(b, h, dt)["take"]:
+        return _fwd_cluster(xg, w, h0, mask)
     lib = _build.load("gru_cell")
     hs = torch.empty((b, t_len, h), dtype=dt, device=dev)
     stash = torch.empty_like(xg)
@@ -287,6 +460,8 @@ def _bwd_cuda(stash, hs, w, h0, mask, dhs):
                            ("mask", mask, (b, t_len), torch.float32),
                            ("dhs", dhs, (b, t_len, h), dt)):
         _check_tensor(n, t, shape, dev, d)
+    if cluster_plan(b, h, dt)["take"]:
+        return _bwd_cluster(stash, hs, w, h0, mask, dhs)
     lib = _build.load("gru_cell")
     dxg = torch.empty_like(stash)
     # zero-filled: a sequence of no steps leaves it untouched

@@ -204,38 +204,40 @@ def _k16_product(x, ws):
     return tot
 
 
-def _by_block(a, blocks):
-    """[..., 4H] gate columns as the cluster's blocks own them: [...,
-    blocks, 128], block r's column 32 q + j being gate q of unit 32 r + j
-    (zeros past H)."""
-    h = a.shape[-1] // 4
+def _by_block(a, blocks, gates):
+    """[..., gates H] gate columns as the cluster's blocks own them:
+    [..., blocks, gates 32], block r's column 32 q + j being gate q of
+    unit 32 r + j (zeros past H)."""
+    h = a.shape[-1] // gates
     lead = a.shape[:-1]
-    ap = a.new_zeros(lead + (4, blocks * CLUSTER_UNITS))
-    ap[..., :h] = a.reshape(lead + (4, h))
-    ap = ap.reshape(lead + (4, blocks, CLUSTER_UNITS))
-    return ap.movedim(-2, -3).reshape(lead + (blocks, 4 * CLUSTER_UNITS))
+    ap = a.new_zeros(lead + (gates, blocks * CLUSTER_UNITS))
+    ap[..., :h] = a.reshape(lead + (gates, h))
+    ap = ap.reshape(lead + (gates, blocks, CLUSTER_UNITS))
+    return ap.movedim(-2, -3).reshape(lead + (blocks, gates * CLUSTER_UNITS))
 
 
 def _cluster_bwd_slices(w, blocks):
-    """W [H, 4H] as the cluster backward holds it: block r's 128 columns
-    as the K of W[:, cols]^T [128, H], cut into k16 slices: [blocks, 8,
-    16, H]."""
+    """W [H, gates H] as the cluster backward holds it: block r's gates x
+    32 columns as the K of W[:, cols]^T [gates 32, H], cut into k16
+    slices: [blocks, 2 gates, 16, H]."""
     h = w.shape[0]
-    wb = _by_block(w, blocks)                       # [H, blocks, 128]
-    return wb.permute(1, 2, 0).reshape(blocks, 8, 16, h)
+    gates = w.shape[1] // h
+    wb = _by_block(w, blocks, gates)                # [H, blocks, gates 32]
+    return wb.permute(1, 2, 0).reshape(blocks, 2 * gates, 16, h)
 
 
 def _cluster_bwd_product(dgates, ws):
     """dgates W^T as the cluster backward forms it: each block's float32
-    partial over its 128 columns (k16 slices added in order), the
-    partials added in rank order."""
-    blocks = ws.shape[0]
-    db = _by_block(dgates, blocks).reshape(dgates.shape[0], blocks, 8, 16)
+    partial over its columns (k16 slices added in order), the partials
+    added in rank order."""
+    blocks, ns = ws.shape[:2]
+    db = _by_block(dgates, blocks, ns // 2).reshape(dgates.shape[0], blocks,
+                                                    ns, 16)
     part = torch.einsum("brsk,rskh->rsbh", db, ws)
     tot = None
     for r in range(blocks):
         acc = part[r, 0]
-        for s in range(1, 8):
+        for s in range(1, ns):
             acc = acc + part[r, s]
         tot = acc if tot is None else tot + acc
     return tot
@@ -500,8 +502,9 @@ def _mask_t(mask):
     """The mask as the cluster kernels read it by TMA: [T, B] with B
     padded to a multiple of 4 (16-byte rows), the padding zero."""
     b, t_len = mask.shape
-    out = torch.zeros((t_len, -(-b // 4) * 4), dtype=torch.float32,
+    out = torch.empty((t_len, -(-b // 4) * 4), dtype=torch.float32,
                       device=mask.device)
+    out[:, b:] = 0          # no launch where B is a multiple of 4
     out[:, :b] = mask.t()
     return out
 

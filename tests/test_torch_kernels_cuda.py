@@ -820,6 +820,91 @@ def test_cuda_gru_bf16_autograd_goes_through_both_bf16_kernels(cuda):
         _close(a.cpu(), b, BF16_RTOL, BF16_AMAX)
 
 
+# ---- the bfloat16 B5 and B6 as one thread-block cluster per row group
+# (csrc/gru_cluster.cu), wherever kernels.gru_cell.cluster_plan takes the
+# shape; gru_cell.cu's bf16 kernels take the rest ----
+
+
+@pytest.mark.cuda
+def test_cuda_gru_cluster_plan_is_the_cards(cuda):
+    """The card's plan (gru_cluster_plan) is cluster_plan's for both
+    kernels: the path's [64, *, 512] in clusters of 16 blocks, 4 row
+    groups of 16 rows, all at once; H 1024 and H 36 refused."""
+    for b, h in ((64, 512), (8, 32), (5, 40), (200, 64), (16, 1024), (5, 36)):
+        want = gru_cell.cluster_plan(b, h)
+        for kind in ("gru_fwd", "gru_bwd"):
+            card = gru_cell.card_cluster_plan(kind, b, h, cuda)
+            assert {k: card[k] for k in want} == want, (kind, b, h)
+            assert card["clusters_at_once"] >= (1 if want["take"] else 0)
+    assert gru_cell.cluster_plan(64, 512) == dict(
+        take=True, blocks=16, rows=16, units=32, row_groups=4)
+    for kind in ("gru_fwd", "gru_bwd"):
+        assert gru_cell.card_cluster_plan(kind, 64, 512,
+                                          cuda)["clusters_at_once"] >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 5, 32), (5, 7, 40), (64, 30, 512),
+                                   (37, 17, 128), (18, 6, 288), (16, 6, 1024),
+                                   (5, 7, 36)])
+def test_cuda_gru_cluster_matches_plain(cuda, shape):
+    """Each shape on the kernel its plan gives it (H 1024 and H 36 on
+    gru_cell.cu's; H 288 fills both of the cluster forward's K halves),
+    held against the plain version in the same blocking, the forward's
+    stash and hs read back by the backward, and counted under the bf16
+    kernels' names."""
+    xg, w, h0, mask, dhs = _bf16(_gru_inputs(*shape, 7, cuda), 2)
+    dhs = dhs.to(torch.bfloat16)
+    n = dict(gru_cell.launches)
+    hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+    rhs, rst = gru_cell.gru_forward_reference(xg, w, h0, mask)
+    got = gru_cell.gru_backward(stash, hs, w, h0, mask, dhs)
+    want = gru_cell.gru_backward_reference(stash, hs, w, h0, mask, dhs)
+    torch.cuda.synchronize()
+    for a, b in ((hs, rhs), (stash, rst)) + tuple(zip(got, want)):
+        assert a.dtype == b.dtype
+        _close(a, b, BF16_RTOL, BF16_AMAX)
+    assert gru_cell.launches == dict(n, gru_fwd_bf16=n["gru_fwd_bf16"] + 1,
+                                     gru_bwd_bf16=n["gru_bwd_bf16"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_cluster_two_runs_agree_to_the_bit(cuda):
+    assert gru_cell.cluster_plan(64, 512)["take"]
+    xg, w, h0, mask, dhs = _bf16(_gru_inputs(64, 30, 512, 8, cuda), 2)
+    dhs = dhs.to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        hs, stash = gru_cell.gru_forward(xg, w, h0, mask)
+        runs.append((hs, stash) + gru_cell.gru_backward(stash, hs, w, h0,
+                                                        mask, dhs))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_cluster_autograd_goes_through_both_kernels(cuda):
+    """gru_sequence on bf16 inputs at a shape the plan takes: one launch
+    of each cluster kernel (under the bf16 kernels' counters), hs and the
+    gradients of every input against the CPU's plain route."""
+    assert gru_cell.cluster_plan(21, 96)["take"]
+    xg, w, h0, mask, dhs = _gru_inputs(21, 11, 96, 9, cuda)
+    leaves = [t.clone().to(torch.bfloat16).requires_grad_()
+              for t in (xg, w, h0)]
+    dhs = dhs.to(torch.bfloat16)
+    gru_cell.reset_launches()
+    hs = gru_cell.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
+    got = torch.autograd.grad(hs, leaves, dhs)
+    assert gru_cell.launches == {"gru_fwd": 0, "gru_bwd": 0,
+                                 "gru_fwd_bf16": 1, "gru_bwd_bf16": 1}
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    rhs = gru_cell.gru_sequence(cpu[0], cpu[1], cpu[2], mask.cpu())
+    want = torch.autograd.grad(rhs, cpu, dhs.cpu())
+    for a, b in zip((hs,) + got, (rhs,) + want):
+        _close(a.detach().cpu(), b.detach(), BF16_RTOL, BF16_AMAX)
+
+
 @pytest.mark.cuda
 def test_cuda_rnn_bf16_raises_on_what_the_kernels_do_not_take(cuda):
     """bf16 xg with a float32 w, or a bf16 h0 at the kernel's entry,

@@ -93,7 +93,7 @@ def test_cluster_products_are_the_plain_products(k, n):
 def test_by_block_orders_each_blocks_columns_by_gate_then_unit():
     h = 40
     cols = torch.arange(4 * h, dtype=torch.float64)[None] + 1
-    got = tcell._by_block(cols, 2)[0]
+    got = tcell._by_block(cols, 2, 4)[0]
     # block 1 owns units 32..39 (then zeros): column 32 q + j is gate q of
     # unit 32 + j
     for q in range(4):

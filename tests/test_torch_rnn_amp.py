@@ -183,10 +183,16 @@ def _port_gru(xg, w, h0, mask, dhs, dtype):
     return hs, torch.autograd.grad(hs, leaves, torch.tensor(dhs).to(dtype))
 
 
-@pytest.mark.parametrize("shape", [(8, 12, 64), (5, 7, 40)])
-def test_gru_bf16_plain_matches_the_jax_kernel(shape):
+@pytest.mark.parametrize("plan, shape", [("cluster", (8, 12, 64)),
+                                         ("cluster", (5, 7, 40)),
+                                         ("grid", (5, 7, 36))])
+def test_gru_bf16_plain_matches_the_jax_kernel(plan, shape):
     """B5 and B6's plain versions in bf16 against the JAX kernels in
-    interpret mode (H 40: no multiple of 16, the kernels' k16 step)."""
+    interpret mode, in each plan's blocking: H 64 and 40 (no multiple of
+    16, the kernels' k16 step) take the cluster kernels' (gru_cluster.cu:
+    K split over two warpgroups in k16 steps, partials by block in rank
+    order), H 36 (not a multiple of 8) gru_cell.cu's."""
+    assert tgru.cluster_plan(shape[0], shape[2])["take"] == (plan == "cluster")
     args = _gru_inputs(*shape)
     jhs, jg = _jax_gru(*args, jnp.bfloat16)
     ths, tg = _port_gru(*args, BF16)
