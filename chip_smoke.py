@@ -7,7 +7,8 @@ calls, on random weights and data made from ``--seed``:
 
 * KV-cached decode serving of the transformer LM at the repo's full
   decode-serving width (vocab 8192, d_model 512, 8 layers, 8 heads,
-  max_len 512, 16 slots, prompt buckets 8/16/32);
+  max_len 512, 16 slots, prompt buckets 8/16/32), from a float32 and
+  from a bfloat16 KV cache (``DecodeEngine(cache_dtype="bfloat16")``);
 * training of the stacked-LSTM text classifier at the repo's full width
   (dict 30000, emb 512, hid 512, 3 layers, 2 classes, Adam lr 1e-3) on a
   batch of 64 ragged sequences of 16..80 ids;
@@ -40,7 +41,10 @@ calls, on random weights and data made from ``--seed``:
   AMP): 8 flash-attention forwards and 8 more inside
   ``fused_attention_grad`` a step, all in the bfloat16 kernel; and
   bench.py's memory row (the same model in float32, attention dropout
-  0.1) with the remat pass off and ``remat="blocks"``;
+  0.1) with the remat pass off and ``remat="blocks"``; and the same
+  transformer under the training-health guard with dynamic loss scaling
+  (``amp.enable(prog, loss=..., dynamic_loss_scale=True)``), a
+  non-finite gradient injected at two steps;
 * the stacked LSTM and seq2seq as bench.py trains them: bf16 AMP at the
   full widths above, batch 64, every row at bench.py's full length (80
   and 30): 6 bf16 LSTM forwards and 3 backwards a step, 4 bf16 GRU
@@ -63,7 +67,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card (the
    decode kernel at head_dim 32, 64 and 128 and lengths around its
    chunks' and tiles' edges, on a cache on 4-byte boundaries, with NaN
-   past the lengths, and twice to the same bits; the fused 1x1 backward
+   past the lengths, and twice to the same bits, and over bfloat16 caches
+   at head_dim 64, 32, 128 and 13, also against a float64 witness that
+   rounds p where it does; the fused 1x1 backward
    at every distinct shape of the ResNet-50 path, as derived from the
    program, also against float64, and its float32 dw error against
    float64 by the length of its dw chunks; the LSTM kernels also against
@@ -88,6 +94,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    as a CUDA graph), push 24 mixed requests through a DecodeLoop, check
    the kernels' launch counts (credited once per replay) and that greedy
    tokens equal the argmax of the port's one-shot logits;
+4b. the same from a bfloat16 KV cache (half the bytes): launch counts
+   (8 bf16 B2 a decode step, none float32), tokens/s, gaps and time to
+   first token, the greedy tokens of 3 requests against the float32
+   cache's wherever its top-two margin exceeds twice the largest logit
+   difference between the engines (teacher-forced), the same tokens with
+   graphs and eagerly, ``compile_count()`` frozen while the loop serves;
 5. stacked-LSTM training: startup, 2 warmup steps, 10 counted steps
    (falling finite loss, exact LSTM launch counts), a profile of one
    step, and the card against the CPU at a reduced size from the same
@@ -139,10 +151,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    held at the card-against-card bounds), the launches through the
    graphs exactly the program's, host ms/step and device busy ms/step
    with and without graphs over one warm chunk;
+9d. the transformer under bf16 AMP and the step guard with dynamic loss
+   scaling, three chunks of K=8 through ``run_chunk``'s graphs (clean;
+   ``guard.nonfinite`` armed at steps 11 and 12; clean): the health
+   rows skip exactly those steps and the scale follows the rule, every
+   state tensor but the guard's is bitwise unchanged across a skipped
+   step, the 24 replays equal 24 eager steps bitwise (tensors two eager
+   runs already disagree on held at the AMP bounds), the guard without
+   scaling equals no guard, 16 bf16 B1 a step skipped or not, and the
+   guard's overhead in host and device ms/step with graphs;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
-   over the valid prefix and the masked call over the whole cache; the
+   over the valid prefix and the masked call over the whole cache, and
+   over bfloat16 caches beside SDPA in bfloat16; the
    flash-attention forward at six shapes, the fused 1x1 backward at
    every distinct shape of the ResNet-50 path, the LSTM kernels at T = 8
    and 80 and the GRU kernels at T = 3 and 30 for their cost a step,
@@ -153,7 +175,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    bfloat16; the bfloat16 LSTM and GRU kernels at the AMP paths' shapes
    beside cuDNN's LSTM and GRU in bfloat16), and profile the decode
    step;
-11. print the kernel table as one JSON line, then the result line.
+11. print the seconds it took, the card, the kernel table as one JSON
+   line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -338,6 +361,8 @@ GRU_BF16_REFUSED = ((16, 6, 1024),)
 # the transformer row with K=8, bench.py:311-318) and chunks a path
 GRAPH_K = dict(transformer=8, resnet=4, rnn=4, dropout=4)
 GRAPH_CHUNKS = 2
+# the guard phase's growth interval: the scale grows after 4 clean steps
+GUARD_GROWTH = 4
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -381,6 +406,7 @@ SOURCES = {"flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_attention_bf16":
                "paddle_tpu_torch/csrc/flash_attention.cu",
            "flash_decode": "paddle_tpu_torch/csrc/flash_attention.cu",
+           "flash_decode_bf16": "paddle_tpu_torch/csrc/flash_attention.cu",
            "lstm_fwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
            "lstm_bwd": "paddle_tpu_torch/csrc/lstm_cell.cu",
            "gru_fwd": "paddle_tpu_torch/csrc/gru_cell.cu",
@@ -397,6 +423,7 @@ REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "flash_attention_bf16":
                 "paddle_tpu/kernels/flash_attention.py:70",
             "flash_decode": "paddle_tpu/kernels/flash_attention.py:374",
+            "flash_decode_bf16": "paddle_tpu/kernels/flash_attention.py:374",
             "lstm_fwd": "paddle_tpu/kernels/lstm_cell.py:97",
             "lstm_bwd": "paddle_tpu/kernels/lstm_cell.py:198",
             "gru_fwd": "paddle_tpu/kernels/gru_cell.py:67",
@@ -796,6 +823,67 @@ def check_decode(fa, g, dev):
               "err %.3g; two runs bit-identical; NaN past the lengths never "
               "read" % (d, lens.tolist(), n, pl["threads"], pl["stages"],
                         pl["smem_bytes"], worst))
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_decode_bf16(fa, g, dev):
+    """B2 over bfloat16 caches (``DecodeEngine(cache_dtype="bfloat16")``)
+    at the decode path's [16, 8, 512, d], d = 64 (the path's), 32, 128
+    and 13 (2-byte loads): ragged lengths with 512 and 160 among them,
+    0, around the chunks' and tiles' edges and past the cache. Held
+    against its plain version (the same walk, p rounded to bf16 where
+    the kernel rounds it) and a float64 witness with the same roundings,
+    at one bfloat16 rounding (BF16_RTOL, BF16_AMAX: p's rounding can flip
+    by one bf16 ulp where the two compute exp(s - m) in another order);
+    once more on a cache 2 bytes into its storage (no 16-byte rows), once
+    with NaN past every row's length (never read), twice to the same
+    bits; an empty row is 0, the output float32. Returns the max abs err
+    against the plain version."""
+    b, h, s = SLOTS, N_HEADS, MAX_LEN
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = 0.0
+    for d in (64, 32, 128, 13):
+        n = fa.decode_plan(b, h, s, d, sms, 2)["blocks_per_row"]
+        lens = torch.tensor([512, 160, 0, 1, n - 1, n + 1, 32 * n - 1,
+                             32 * n + 1, 159, 161, 300, 511, 600, 2, 77,
+                             512], dtype=torch.int32).to(dev)
+        q = torch.randn(b, h, 1, d, generator=g).to(dev)
+        kc, vc = (torch.randn(b, h, s, d, generator=g).to(torch.bfloat16)
+                  .to(dev) for _ in range(2))
+        what = "flash_decode bf16 %s lens %s" % ((b, h, s, d), lens.tolist())
+        out = fa.flash_decode(q, kc, vc, lens)
+        if out.dtype != torch.float32:
+            raise AssertionError(what + ": output %s" % out.dtype)
+        worst = max(worst, rel_close(
+            what, out, fa.flash_decode_reference(q, kc, vc, lens),
+            BF16_RTOL, BF16_AMAX))
+        rel_close(what + " against float64", out, fa.flash_decode_reference(
+            q, kc, vc, lens, acc=torch.float64), BF16_RTOL, BF16_AMAX)
+        if not torch.equal(out, fa.flash_decode(q, kc, vc, lens)):
+            raise AssertionError(what + ": two runs differ")
+        if float(out[2].abs().max()) != 0.0:
+            raise AssertionError(what + ": an empty cache row is not 0")
+        flat = torch.randn(1 + b * h * s * d, generator=g).to(
+            torch.bfloat16).to(dev)
+        kv = flat[1:].view(b, h, s, d)
+        worst = max(worst, rel_close(
+            what + " 2-byte aligned cache", fa.flash_decode(q, kv, kv, lens),
+            fa.flash_decode_reference(q, kv, kv, lens), BF16_RTOL,
+            BF16_AMAX))
+        for i, n_ in enumerate(lens.tolist()):
+            kc[i, :, n_:] = float("nan")
+            vc[i, :, n_:] = float("nan")
+        if not torch.equal(fa.flash_decode(q, kc, vc, lens), out):
+            raise AssertionError(what + ": NaN past the lengths changed "
+                                 "the output")
+        pl = fa.decode_plan(b, h, s, d, sms, 2)
+        print("flash_decode bf16 d=%d: %s; %d blocks a row, %d shared bytes "
+              "a block (float32 cache: %d); max abs err %.3g (plain "
+              "version and float64 witness at one bf16 rounding); two runs "
+              "bit-identical; NaN past the lengths never read" % (
+                  d, lens.tolist(), n, pl["smem_bytes"],
+                  fa.decode_plan(b, h, s, d, sms)["smem_bytes"], worst))
     torch.cuda.synchronize()
     return worst
 
@@ -2480,7 +2568,7 @@ def transformer_phase(fluid, seed, dev):
     launches = dict(fa.launches)
     want = {"flash_attention": 0,
             "flash_attention_bf16": (fwd + grad) * TRAIN_STEPS,
-            "flash_decode": 0}
+            "flash_decode": 0, "flash_decode_bf16": 0}
     print("launches on the main path:", json.dumps(launches), "expected",
           json.dumps(want))
     if launches != want:
@@ -2939,15 +3027,410 @@ def graphs_phase(fluid, seed, dev):
     return res
 
 
+def expected_scales(cfg, skipped):
+    """The loss scale after each step, by the guard's rule (halve on a
+    skip, floor min_loss_scale; grow after growth_interval clean steps,
+    cap max_loss_scale)."""
+    scale, good, out = cfg.init_loss_scale, 0, []
+    for skip in skipped:
+        if skip:
+            scale, good = max(scale * cfg.scale_backoff,
+                              cfg.min_loss_scale), 0
+        else:
+            good += 1
+            if good >= cfg.growth_interval:
+                scale, good = min(scale * cfg.scale_growth,
+                                  cfg.max_loss_scale), 0
+        out.append(scale)
+    return out
+
+
+def guard_phase(fluid, seed, dev):
+    """The transformer as bench.py trains it (bf16 AMP, K=8) under the
+    step guard with dynamic loss scaling: ``amp.enable(prog, loss=...,
+    dynamic_loss_scale=True, growth_interval=GUARD_GROWTH,
+    divergence=False)``, three chunks of ``run_chunk``: clean, then with
+    ``fault.inject("guard.nonfinite", crash_on_nth=11, times=2)``, then
+    clean after ``fault.clear()``. Checks (a) the health rows: skipped
+    exactly at steps 11 and 12, the scale halved twice there and grown by
+    the rule elsewhere; (b) every state tensor but the guard's bitwise
+    unchanged across each skipped step, the guard's moving by the rule;
+    (c) the 24 replayed steps bitwise equal to 24 eager run() steps from
+    the same weights with the same rule (a tensor on which two eager
+    runs already differ is named and its update held at the AMP bounds);
+    (d) the guard on without scaling and with no fault bitwise equal to
+    the guard off, through the graphs; (e) 16 bf16 B1 launches every
+    step, skipped or not. Then (f) host and device busy ms/step of a warm
+    chunk through the graphs, guarded against unguarded: the guard's
+    overhead."""
+    from paddle_tpu_torch import fault, guard, unique_name
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+
+    def build(armed):
+        with unique_name.guard():
+            prog, startup, _, (loss,) = build_transformer_lm(**LM)
+        if armed == "scaling":
+            fluid.amp.enable(prog, loss=loss, dynamic_loss_scale=True,
+                             growth_interval=GUARD_GROWTH, divergence=False)
+        else:
+            fluid.amp.enable(prog)
+            if armed == "guard":
+                guard.enable(prog, loss, divergence=False)
+        return prog, startup, loss
+
+    prog, startup, loss = build("scaling")
+    fwd, grad, _ = attention_launches(prog)
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope0)
+    init = scope_state(scope0)
+    del scope0
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    k, chunks = GRAPH_K["transformer"], 3
+    steps = k * chunks
+    poison = (11, 12)
+
+    def fresh():
+        s_ = fluid.Scope()
+        for n, t in init.items():
+            s_.set_var(n, t.clone())
+        return s_
+
+    def armed_at(step):
+        """The rule as the runs arm it: before chunk 2's first step,
+        cleared before chunk 3's."""
+        if step == k:
+            fault.inject("guard.nonfinite", crash_on_nth=poison[0],
+                         times=len(poison))
+        elif step == 2 * k:
+            fault.clear()
+
+    # eager run() steps, twice, snapshotting around the skipped steps
+    runs = []
+    for rep in range(2):
+        scope, exe = fresh(), fluid.Executor()
+        exe._step = 0
+        fault.clear()
+        reset_all_launches()
+        losses, rows, around = [], [], {}
+        for i in range(steps):
+            armed_at(i)
+            losses.append(exe.run(prog, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0])
+            rows.append(exe.last_health)
+            if rep == 0 and i + 1 in (poison[0] - 1,) + poison:
+                around[i + 1] = scope_state(scope)
+        exe.poll_health()
+        fault.clear()
+        torch.cuda.synchronize()
+        runs.append((np.stack(losses), scope_state(scope), all_launches(),
+                     np.concatenate(rows), around))
+        del scope, exe
+    # the graph run: three chunks of K replays
+    scope, exe = fresh(), fluid.Executor()
+    chunk = chunk_of(feed, k)
+    fault.clear()
+    reset_all_launches()
+    g_losses, g_rows = [], []
+    for c in range(chunks):
+        armed_at(c * k)
+        g_losses.append(exe.run_chunk(prog, feed_chunk=chunk, k=k,
+                                      fetch_list=[loss], scope=scope,
+                                      step0=0 if c == 0 else None)[0])
+        g_rows.append(exe.last_health)
+    exe.poll_health()
+    fault.clear()
+    torch.cuda.synchronize()
+    g_launch, g_state = all_launches(), scope_state(scope)
+    g_losses, g_rows = np.concatenate(g_losses), np.concatenate(g_rows)
+    cfg = prog.guard
+    del scope, exe
+
+    # (a) the health rows
+    skipped = [i + 1 for i in range(steps) if g_rows[i, 2] > 0.5]
+    want_scale = expected_scales(cfg, [i + 1 in poison
+                                       for i in range(steps)])
+    print("guard: health rows of the 24 replayed steps (loss, grad_norm, "
+          "skipped, nonfinite_loss, nonfinite_grad, loss_scale): skipped at "
+          "%s; loss scale %s; grad norms %s" % (
+              skipped, " ".join("%g" % v for v in g_rows[:, 5]),
+              " ".join("%.4g" % v for v in g_rows[:, 1])))
+    if skipped != list(poison) or list(g_rows[:, 5]) != want_scale:
+        raise AssertionError("(a) skipped %s (want %s), scales %s (want %s)"
+                             % (skipped, list(poison), list(g_rows[:, 5]),
+                                want_scale))
+    if not (g_rows[[p - 1 for p in poison], 4] == 1).all() or \
+            g_rows[:, 3].any() or not np.isfinite(np.delete(
+                g_rows[:, :2], [p - 1 for p in poison], 0)).all():
+        raise AssertionError("(a) non-finite flags %s" % g_rows[:, 3:5])
+    # (b) across each skipped step
+    around = runs[0][4]
+    for p_ in poison:
+        a, b = around[p_ - 1], around[p_]
+        moved = sorted(n for n in a if not n.startswith("guard@")
+                       and not torch.equal(a[n], b[n]))
+        if moved:
+            raise AssertionError("(b) step %d skipped but %s changed"
+                                 % (p_, moved[:5]))
+        if int(b["guard@skipped_steps"]) != int(a["guard@skipped_steps"]) + 1 \
+                or float(b["guard@loss_scale"]) != \
+                float(a["guard@loss_scale"]) * cfg.scale_backoff \
+                or int(b["guard@good_steps"]) != 0:
+            raise AssertionError("(b) the guard state across step %d" % p_)
+    n_state = sum(not n.startswith("guard@") for n in around[poison[0]])
+    print("guard: across each skipped step (11, 12) all %d state tensors "
+          "but the guard's bitwise unchanged (parameters, Adam moments and "
+          "beta powers); the skip counter +1, the scale halved, the clean "
+          "streak 0" % n_state)
+    # (c) graphs against eager, (e) launches
+    (l1, s1, e_launch, e_rows, _), (l2, s2, _, _, _) = runs
+    want = {"flash_attention_bf16": (fwd + grad) * steps}
+    if {n: v for n, v in g_launch.items() if v} != want or \
+            g_launch != e_launch:
+        raise AssertionError("(e) launches through the graphs %s, eager %s,"
+                             " want %s" % (g_launch, e_launch, want))
+    noisy = sorted(n for n in s1 if not torch.equal(s1[n], s2[n]))
+    loss_noisy = not np.array_equal(l1, l2)
+    differ = sorted(n for n in s1 if n not in noisy
+                    and not torch.equal(s1[n], g_state[n]))
+    if set(g_state) != set(s1) or differ:
+        raise AssertionError("(c) graph replays differ from eager steps in "
+                             "%s, on which two eager runs agree" % differ[:10])
+    if not loss_noisy and not np.array_equal(l1, g_losses):
+        raise AssertionError("(c) graph losses %s != eager %s"
+                             % (g_losses, l1))
+    if not np.array_equal(e_rows[:, 2:], g_rows[:, 2:]):
+        raise AssertionError("(c) health flags or scales differ: eager %s, "
+                             "graphs %s" % (e_rows[:, 2:], g_rows[:, 2:]))
+    if loss_noisy:
+        np.testing.assert_allclose(g_losses, l1, rtol=AMP_LTOL)
+    if noisy:
+        def upd(s_):
+            return [(s_[n].double() - init[n].double()).cpu().numpy()
+                    if n in init else s_[n].double().cpu().numpy()
+                    for n in noisy]
+        check_grad_diff("guard: updates of the %d tensors two eager runs "
+                        "already disagree on, graphs against eager"
+                        % len(noisy), grad_diff(noisy, upd(g_state), upd(s1),
+                                                AMP_CANCELS),
+                        None, AMP_L2TOL, AMP_PL2TOL)
+    print("guard (c): the 24 replayed steps' losses %s and %d of %d state "
+          "tensors bitwise equal to the eager steps', health rows' flags "
+          "and scales equal%s; (e) launches %s = %d bf16 B1 a step (%d "
+          "forward + %d in fused_attention_grad), skipped or not" % (
+              "bitwise equal" if not loss_noisy else
+              "within rtol %g (two eager runs differ)" % AMP_LTOL,
+              len(s1) - len(noisy), len(s1),
+              "; %d named, where two eager runs differ, held at the AMP "
+              "bounds: %s" % (len(noisy), ", ".join(noisy[:6])) if noisy
+              else "", json.dumps(want), fwd + grad, fwd, grad))
+    del runs, s1, s2, g_state, around
+
+    # (d) guard on without scaling, no fault, against guard off; (f) the
+    # guard's overhead with graphs
+    res = {}
+    chunk = chunk_of(feed, k)
+    for armed in ("off", "guard", "scaling"):
+        prog_, _, loss_ = build(armed)
+        scope, exe = fresh(), fluid.Executor()
+        first = exe.run_chunk(prog_, feed_chunk=chunk, k=k,
+                              fetch_list=[loss_], scope=scope, step0=0)[0]
+        exe.poll_health()
+        state = {n: t for n, t in scope_state(scope).items()
+                 if not n.startswith("guard@")}
+
+        def run_one():
+            exe.run_chunk(prog_, feed_chunk=chunk, k=k, fetch_list=[loss_],
+                          scope=scope)
+            exe.poll_health()
+
+        host = []
+        for _ in range(2):
+            run_one()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_one()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1000.0 / k)
+        busy = device_busy_ms(run_one)
+        res[armed] = dict(losses=first, state=state, host=min(host),
+                          busy=None if busy is None else busy / k)
+        if armed != "guard":
+            # where the guard's time goes: its select (one where a state
+            # tensor), the gradients' concatenation and dot
+            device_profile(run_one, 1, min(host) * k,
+                           "guard (f) %s, one chunk of %d steps" % (armed, k),
+                           share_of=("where", "CatArrayBatchedCopy", "dot"))
+        del scope, exe
+        torch.cuda.empty_cache()
+    off, on = res["off"], res["guard"]
+    differ = sorted(n for n in off["state"] if n not in noisy
+                    and not torch.equal(off["state"][n], on["state"][n]))
+    if set(off["state"]) != set(on["state"]) or differ or (
+            not loss_noisy and not np.array_equal(off["losses"],
+                                                  on["losses"])):
+        raise AssertionError("(d) guard on (no scaling, no fault) differs "
+                             "from guard off in %s" % differ[:10])
+    print("guard (d): on without scaling and with no fault against off, 8 "
+          "replayed steps from the same weights: losses %s, %d of %d state "
+          "tensors bitwise equal%s" % (
+              "bitwise equal" if np.array_equal(off["losses"], on["losses"])
+              else "within the AMP bounds (two eager runs differ)",
+              len(off["state"]) - len(noisy), len(off["state"]),
+              " (the %d that differ between two eager runs excepted)"
+              % len(noisy) if noisy else ""))
+
+    def fmt(v):
+        return "%.3f" % v if v is not None else "not measured"
+
+    print("guard (f) overhead with graphs (transformer bf16 AMP, K=%d, one "
+          "warm chunk, the better of two for host): host ms/step off %.3f, "
+          "guard %.3f, guard + dynamic loss scale %.3f; device busy ms/step "
+          "off %s, guard %s, guard + scale %s" % (
+              k, res["off"]["host"], res["guard"]["host"],
+              res["scaling"]["host"], fmt(res["off"]["busy"]),
+              fmt(res["guard"]["busy"]), fmt(res["scaling"]["busy"])))
+    return res
+
+
+def forced_logits(engine, reqs):
+    """Each request's logits rows as the engine computes them when fed
+    ``tokens`` (teacher forcing): request r in slot r, its prefill's
+    row, then one decode step a token; row i predicts tokens[i]."""
+    cache = engine.new_cache()
+    rows = []
+    for r, (prompt, _) in enumerate(reqs):
+        rows.append([engine.prefill(prompt, r, cache)])
+    last = np.zeros(SLOTS, np.int64)
+    for j in range(max(len(t) for _, t in reqs) - 1):
+        live = [r for r, (_, t) in enumerate(reqs) if j < len(t) - 1]
+        for r in live:
+            last[r] = reqs[r][1][j]
+        logits = engine.decode_step(last, cache)
+        for r in live:
+            rows[r].append(logits[r, 0])
+            cache.pos[r] += 1
+    return [np.stack(r) for r in rows]
+
+
+def decode_bf16_phase(engine, loop_cls, engine_cls, scope, prefill, decode,
+                      meta, workload, outs):
+    """Decode serving from a bfloat16 KV cache at full width: the same
+    weights and workload as the float32 phase through a
+    ``DecodeEngine(cache_dtype="bfloat16")`` with its graphs, 8 bf16 B2
+    launches a decode step (none float32), credited once per replay; the
+    greedy tokens of 3 requests against the float32-cache engine's
+    wherever that engine's top-two logit margin exceeds twice the
+    largest logit difference between the two engines on those steps
+    (teacher-forced: both fed the float32 engine's tokens); the same
+    tokens with graphs and eagerly, ``compile_count()`` unchanged while
+    the loop serves. Returns the main path's B2 bf16 launches."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    eng = engine_cls(prefill, decode, meta, num_slots=SLOTS,
+                     prompt_buckets=BUCKETS, scope=scope,
+                     cache_dtype="bfloat16")
+    t0 = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    count = eng.compile_count()
+    if count != len(BUCKETS) + 1:
+        raise AssertionError("bf16 engine compile_count %d" % count)
+    cache16, cache32 = eng.new_cache(), engine.new_cache()
+    if cache16.dtype != torch.bfloat16 or \
+            2 * cache16.nbytes() != cache32.nbytes():
+        raise AssertionError("bf16 cache %s, %d bytes against %d" % (
+            cache16.dtype, cache16.nbytes(), cache32.nbytes()))
+    print("bf16 KV cache %.1f MB (float32 %.1f MB); warmup %.2f s; "
+          "compile_count %d" % (cache16.nbytes() / 1e6,
+                                cache32.nbytes() / 1e6, warmup_s, count))
+    del cache16, cache32
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loop = loop_cls(eng, max_queue=N_REQUESTS, name="chip-smoke-bf16")
+    t0 = time.perf_counter()
+    try:
+        gens = [loop.submit(p, max_new_tokens=m) for p, m in workload]
+        got = [gen.result(timeout=600) for gen in gens]
+    finally:
+        if not loop.close(timeout=120):
+            raise RuntimeError("decode loop did not drain")
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    steps = loop.steps_dispatched()
+    toks = sum(len(o[0]) for o in got)
+    want = {"flash_attention": N_LAYERS * N_REQUESTS,
+            "flash_attention_bf16": 0, "flash_decode": 0,
+            "flash_decode_bf16": N_LAYERS * steps}
+    print("launches on the bf16-cache path:", json.dumps(launches),
+          "expected", json.dumps(want))
+    if launches != want:
+        raise AssertionError("bf16-cache launch counts %s != %s"
+                             % (launches, want))
+    if eng.compile_count() != count or len(eng._graphs) != count:
+        raise AssertionError("bf16 compile_count moved while the loop "
+                             "served: %d -> %d" % (count, eng.compile_count()))
+    for (t, reason), (p, m) in zip(got, workload):
+        if reason != "length" or len(t) != m:
+            raise AssertionError("bf16 request %s: %s after %d tokens"
+                                 % (p.tolist(), reason, len(t)))
+    gaps_ms = np.asarray([b_ - a_ for gen in gens for a_, b_ in zip(
+        gen.token_times, gen.token_times[1:])]) * 1000.0
+    ttft_ms = np.asarray([gen.token_times[0] - gen.submitted
+                          for gen in gens]) * 1000.0
+    print("decode bf16 cache: %d requests, %d tokens in %.3f s = %.2f "
+          "tokens/s; %d steps (%.3f ms/step); per-token gap p50 %.3f ms "
+          "p99 %.3f ms; time to first token p50 %.3f ms max %.3f ms" % (
+              N_REQUESTS, toks, wall, toks / wall, steps,
+              wall * 1000.0 / steps, float(np.percentile(gaps_ms, 50)),
+              float(np.percentile(gaps_ms, 99)), float(np.median(ttft_ms)),
+              float(ttft_ms.max())))
+
+    # the greedy tokens against the float32-cache engine's
+    reqs = [(p, t) for (t, _), (p, _m) in list(zip(outs, workload))[:3]]
+    l32, l16 = forced_logits(engine, reqs), forced_logits(eng, reqs)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(l32, l16))
+    checked = ties = 0
+    for (p, t), a, b, (t16, _) in zip(reqs, l32, l16, got):
+        top2 = np.sort(a, -1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        clear = margin > 2 * diff
+        if (np.argmax(b, -1) != np.asarray(t))[clear].any():
+            raise AssertionError("bf16-cache argmax differs from the "
+                                 "float32 engine's token where its margin "
+                                 "exceeds 2 x %.3g" % diff)
+        # the free-running bf16 loop: the same tokens up to the first
+        # near-tie
+        first = int(np.argmin(clear)) if not clear.all() else len(t)
+        if list(t16[:first]) != list(t[:first]):
+            raise AssertionError("bf16 loop tokens %s != float32 %s before "
+                                 "the first near-tie at %d" % (
+                                     t16[:first], t[:first], first))
+        checked += int(clear.sum())
+        ties += int((~clear).sum())
+    print("bf16 cache against float32 cache, 3 requests teacher-forced: "
+          "largest logit difference %.6g; argmax equal on all %d tokens "
+          "whose float32 top-two margin exceeds %.6g (%d within it); the "
+          "free-running loops' tokens equal up to the first such step" % (
+              diff, checked, 2 * diff, ties))
+    decode_graphs(eng, loop_cls, engine_cls, scope, prefill, decode, meta,
+                  workload, cache_dtype="bfloat16")
+    del eng
+    torch.cuda.empty_cache()
+    return launches["flash_decode_bf16"]
+
+
 def decode_graphs(engine, loop_cls, engine_cls, scope, prefill, decode, meta,
-                  workload):
+                  workload, cache_dtype="float32"):
     """The decode engine with graphs (``engine``, warmed) against one
     that runs every entry eagerly on the card: the greedy tokens of 3
     requests identical, ``compile_count()`` unchanged after the loop
     served them, and the host ms of a decode step with and without
     graphs."""
     eager = engine_cls(prefill, decode, meta, num_slots=SLOTS,
-                       prompt_buckets=BUCKETS, scope=scope)
+                       prompt_buckets=BUCKETS, scope=scope,
+                       cache_dtype=cache_dtype)
     eager._graphs = None               # every entry eager, on the card
     eager.warmup()
     count = engine.compile_count()
@@ -2982,11 +3465,13 @@ def decode_graphs(engine, loop_cls, engine_cls, scope, prefill, decode, meta,
         ms[name] = (time.perf_counter() - t0) * 1000.0 / 20
         busy = device_busy_ms(lambda: eng.decode_step(last, cache))
         ms[name + "_busy"] = busy
-    print("graphs decode: tokens of 3 requests identical with graphs and "
-          "eagerly (%d tokens); compile_count %d before and after; host "
+    print("graphs decode (%s cache): tokens of 3 requests identical with "
+          "graphs and eagerly (%d tokens); compile_count %d before and "
+          "after; host "
           "ms a decode step at pos 160: eager %.3f, graphs %.3f (%.2fx); "
           "device busy ms eager %s, graphs %s" % (
-              sum(len(t) for t in toks["graphs"]), count, ms["eager"],
+              cache_dtype, sum(len(t) for t in toks["graphs"]), count,
+              ms["eager"],
               ms["graphs"], ms["eager"] / ms["graphs"],
               *("%.3f" % ms[n + "_busy"] if ms[n + "_busy"] is not None
                 else "not measured" for n in ("eager", "graphs"))))
@@ -2995,6 +3480,7 @@ def decode_graphs(engine, loop_cls, engine_cls, scope, prefill, decode, meta,
 
 
 def main():
+    started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3073,6 +3559,7 @@ def main():
     torch.cuda.synchronize()
     max_err["flash_attention_bf16"] = check_b1_bf16(fa, g, dev)
     max_err["flash_decode"] = check_decode(fa, g, dev)
+    max_err["flash_decode_bf16"] = check_decode_bf16(fa, g, dev)
     lstm_err, dw_err = check_lstm(lc, g, dev)
     max_err.update(lstm_err)
     lstm_witness(lc, g, dev)
@@ -3159,7 +3646,8 @@ def main():
             raise AssertionError("request %s: %s after %d tokens"
                                  % (p.tolist(), reason, len(got)))
     want = {"flash_attention": N_LAYERS * N_REQUESTS,
-            "flash_attention_bf16": 0, "flash_decode": N_LAYERS * steps}
+            "flash_attention_bf16": 0, "flash_decode": N_LAYERS * steps,
+            "flash_decode_bf16": 0}
     print("launches on the main path:", json.dumps(launches),
           "expected", json.dumps(want))
     if launches != want:
@@ -3208,6 +3696,13 @@ def main():
     print("greedy == one-shot argmax on %d tokens of 3 requests" % checked)
     torch.cuda.synchronize()
 
+    # ---- 4b. decode serving from a bfloat16 KV cache ----
+    phase("decode serving from a bfloat16 KV cache at full width (seed %d)"
+          % args.seed)
+    launches["flash_decode_bf16"] = decode_bf16_phase(
+        engine, DecodeLoop, DecodeEngine, scope, prefill, decode, meta,
+        workload, outs)
+
     # ---- 5. the training slice at full width ----
     phase("stacked-LSTM training at full width (seed %d)" % args.seed)
     launches.update(train_phase(fluid, args.seed, dev))
@@ -3255,6 +3750,12 @@ def main():
     decode_graphs(engine, DecodeLoop, DecodeEngine, scope, prefill, decode,
                   meta, workload)
     graphs_phase(fluid, args.seed, dev)
+
+    # ---- 9d. AMP training under the step guard ----
+    phase("the transformer as bench.py trains it under the step guard with "
+          "dynamic loss scaling (bf16 AMP, K=%d, guard.nonfinite at steps "
+          "11 and 12; seed %d)" % (GRAPH_K["transformer"], args.seed))
+    guard_phase(fluid, args.seed, dev)
 
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
@@ -3307,6 +3808,40 @@ def main():
                             lambda: F.scaled_dot_product_attention(
                                 q1, kc, vc, attn_mask=mask), flush=flush)),
             bytes=4 * (2 * bh * dh + 2 * bh * L * dh + SLOTS),
+            flops=4 * bh * L * dh))
+    # B2 over bfloat16 caches (the bf16-cache decode path): K and V 2
+    # bytes an element, q and the output 4; beside SDPA in bfloat16 over
+    # the valid prefix (a bfloat16 q and output, where B2 takes and
+    # gives float32)
+    kb, vb = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    q1b = q1.to(torch.bfloat16)
+    print("flash_decode bf16 launch plan at %s: %s" % (
+        list(kv_shape), json.dumps(fa.decode_plan(*kv_shape, sms, 2))))
+    for L in (MAX_LEN, 160):
+        lens = torch.full((SLOTS,), L, dtype=torch.int32, device=dev)
+        kp, vp = kb[:, :, :L], vb[:, :, :L]
+        bh, dh = SLOTS * N_HEADS, kv_shape[3]
+        print("time flash_decode_bf16 [16,8,512,64] cache_len=%d with the "
+              "L2 flushed by a read: kernel_ms %.6f library_ms %.6f (SDPA "
+              "bf16 over the valid prefix)" % (
+                  L, time_ms(lambda: fa.flash_decode(q1, kb, vb, lens),
+                             flush=clean_flush),
+                  time_ms(lambda: F.scaled_dot_product_attention(
+                      q1b, kp, vp), flush=clean_flush)))
+        rows.append(dict(
+            name="flash_decode_bf16",
+            shape="[16,8,512,64] cache_len=%d" % L,
+            ms=time_ms(lambda: fa.flash_decode(q1, kb, vb, lens),
+                       flush=flush),
+            plain_ms=time_ms(lambda: fa.flash_decode_reference(
+                q1, kb, vb, lens), flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q1b, kp, vp), flush=flush),
+            library="torch.nn.functional.scaled_dot_product_attention in "
+                    "bfloat16 over the valid prefix kb[:, :, :%d], no mask: "
+                    "q and the output bfloat16 where B2 takes and gives "
+                    "float32" % L,
+            bytes=2 * 2 * bh * L * dh + 4 * (2 * bh * dh + SLOTS),
             flops=4 * bh * L * dh))
     # B1 at the prefill buckets, the one-shot forward of the 160-token
     # check, the transformer training shape (bench.py's [16,8,512,64]) and
@@ -3789,6 +4324,7 @@ def main():
     for r in rows:   # the main path's deepest decode and largest bucket
         if (r["name"], r["shape"]) in (
                 ("flash_decode", "[16,8,512,64] cache_len=160"),
+                ("flash_decode_bf16", "[16,8,512,64] cache_len=160"),
                 ("flash_attention", "[1,8,32,64] causal=True"),
                 ("flash_attention_bf16", "[16,8,512,64] causal=True")) \
                 or r["name"] in ("lstm_fwd", "lstm_bwd", "gru_fwd",
@@ -3807,11 +4343,12 @@ def main():
               "bound_by": by_name[n]["bound_by"],
               "library_ms": by_name[n]["library_ms"]}
              for n in ("flash_attention", "flash_attention_bf16",
-                       "flash_decode", "lstm_fwd",
+                       "flash_decode", "flash_decode_bf16", "lstm_fwd",
                        "lstm_bwd", "gru_fwd", "gru_bwd", "bn_grad",
                        "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16",
                        "lstm_fwd_bf16", "lstm_bwd_bf16", "gru_fwd_bf16",
                        "gru_bwd_bf16")]
+    print("chip_smoke: %.1f s in all" % (time.perf_counter() - started))
     print("card:", card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

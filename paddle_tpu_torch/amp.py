@@ -17,9 +17,9 @@ gradients.
 Enable per program: ``program.amp_dtype = "bfloat16"`` or
 ``amp.enable(program)``; the Executor picks it up.
 
-Dynamic loss scaling (``dynamic_loss_scale=True``) arms the JAX
-package's training-health guard (``guard.py``), which this package does
-not carry yet: it raises ``NotImplementedError``.
+Dynamic loss scaling (``dynamic_loss_scale=True``) arms the
+training-health guard (``guard.py``) as the JAX package's ``amp.enable``
+does.
 """
 
 import torch
@@ -61,25 +61,30 @@ def enable(program, dtype="bfloat16", loss=None, dynamic_loss_scale=False,
            **guard_opts):
     """Mark ``program`` for mixed-precision lowering.
 
-    ``loss=`` and guard options configure the dynamic loss scaling of
-    the JAX package's guard only: without ``dynamic_loss_scale=True``
-    they raise ``ValueError`` (a typo'd option must not pass silently).
-    ``dynamic_loss_scale=True`` raises ``NotImplementedError``: the guard
-    (``guard.py``) is not in this package yet."""
+    ``dynamic_loss_scale=True`` also arms the training-health guard
+    (``guard.py``) with dynamic loss scaling: the backward's seed is
+    multiplied by a scale kept in the scope, parameter gradients are
+    unscaled (to their true magnitude, float32 for float32 masters)
+    before clipping, regularization and the optimizer, the scale halves
+    when a step overflows and grows after ``growth_interval`` clean
+    steps, and the overflowing step applies no state update. It needs
+    ``loss=`` (the loss Variable); the other ``guard_opts`` go to
+    ``guard.GuardConfig`` (init_loss_scale, growth_interval, ...).
+    Without ``dynamic_loss_scale=True``, ``loss=`` or a guard option
+    raises ``ValueError`` (a typo'd option must not pass silently)."""
     if not dynamic_loss_scale and (loss is not None or guard_opts):
         raise ValueError(
             "amp.enable: loss=/%s have no effect without "
             "dynamic_loss_scale=True" % (sorted(guard_opts) or "guard "
                                          "options"))
+    program.amp_dtype = dtype
     if dynamic_loss_scale:
         if loss is None:
             raise ValueError(
                 "amp.enable(dynamic_loss_scale=True) needs loss= (the "
                 "loss Variable the scale seeds)")
-        raise NotImplementedError(
-            "amp.enable(dynamic_loss_scale=True) arms the training-health "
-            "guard (guard.py), which this package does not carry yet")
-    program.amp_dtype = dtype
+        from paddle_tpu_torch import guard
+        guard.enable(program, loss, dynamic_loss_scale=True, **guard_opts)
     return program
 
 

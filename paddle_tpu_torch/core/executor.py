@@ -33,12 +33,35 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
   on the card as replays of one CUDA graph captured from the plan's
   first step (``core/graphs.py``), the counterpart of the JAX package's
   one compiled dispatch.
+* A guarded program (``guard.enable``, or ``amp.enable(...,
+  dynamic_loss_scale=True)``) runs each step under a ``TraceGuard``:
+  every state tensor the step writes is chosen between its candidate
+  and its old value on the device, and each step's health row (loss,
+  grad_norm, skipped, nonfinite_loss, nonfinite_grad, loss_scale) comes
+  back as a trailing result that the executor strips. As in the JAX
+  package the rows of a dispatch are processed on the host (metrics,
+  fault accounting, the divergence detector) at the NEXT dispatch, or at
+  ``poll_health``. The guard plan's key (config, scaling knobs, poison
+  window, fault rule) is part of the plan key, so arming the guard or
+  ``guard.nonfinite`` builds one named plan, and clearing the rule
+  returns to the cached one.
+* ``use_program_cache=False`` builds the plan for this call only (no
+  cached plan is read or kept); on the card such a ``run_chunk`` runs
+  its K steps eagerly, without graphs.
+* With ``telemetry.enable()`` each call is recorded, and each plan
+  built (a cache miss: the port's compile) goes to the recompile
+  detector with a signature that names the guard and pass config.
 """
+
+import time
+import warnings
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch import guard as guard_lib
 from paddle_tpu_torch import passes as passes_lib
+from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.lower import (PackedSeq, TraceContext, run_block,
@@ -47,7 +70,7 @@ from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
 __all__ = ["Executor", "external_reads_and_writes", "persistable_writes",
-           "run_program", "slice_feed", "stack_steps"]
+           "run_program", "run_step", "slice_feed", "stack_steps"]
 
 # plans an executor keeps; the oldest goes first (a dropped plan is made
 # again when its program next runs)
@@ -78,14 +101,33 @@ class _Plan:
     the user program keeps its id() from being reused."""
 
     __slots__ = ("user", "program", "reads", "written", "protected",
-                 "graphs")
+                 "graphs", "guard")
 
-    def __init__(self, user, program, protected):
+    def __init__(self, user, program, protected, guard=None):
         self.user = user
         self.program = program
         self.reads, self.written = external_reads_and_writes(program)
         self.protected = protected
         self.graphs = {}
+        # guard.GuardPlan of a guarded program, else None
+        self.guard = guard
+
+    def state_names(self, scope, feed, device):
+        """The names of the scope state one step reads: the outside
+        reads that are not fed; under the guard also the guard's state
+        (made on ``device`` if missing) and the write-only persistables
+        that have a value in ``scope`` (the skip needs their old value:
+        ``guard.prepare_carry``)."""
+        names = [n for n in self.reads
+                 if n not in feed and scope.find_var(n) is not None]
+        if self.guard is not None:
+            b0 = self.program.global_block()
+            extra = [n for n in self.written
+                     if n not in names and n not in feed
+                     and (v := b0.vars.get(n)) is not None and v.persistable]
+            guard_lib.prepare_carry(scope, self.guard, names, sorted(extra),
+                                    device)
+        return names
 
     def close(self):
         """Free the plan's graphs and their memory pools."""
@@ -108,47 +150,74 @@ class Executor:
     def __init__(self, place=None):
         self.device = default_place(place)
         self._step = 0
-        # (program fingerprint, pass config key) -> _Plan
+        # (program fingerprint, pass config key, guard plan key) -> _Plan
         self._plans = {}
+        # guarded dispatches whose health rows are not processed yet:
+        # (guard plan, program, base step, rows on the device), oldest
+        # first; the rows of dispatch N are processed after dispatch
+        # N + 1 is submitted (or at poll_health)
+        self._pending_health = []
+        self._last_health = None
+        # whether the last _plan() call found its plan cached
+        self._last_plan_hit = True
 
-    def _plan(self, program, fetch_names):
+    def _plan(self, program, fetch_names, use_cache=True):
         cfg = passes_lib.plan_for(program)
-        key = (program.fingerprint, cfg.key if cfg else None)
-        plan = self._plans.get(key)
-        if plan is None or (cfg is not None
-                            and not plan.protected.issuperset(fetch_names)):
-            run, protected = program, frozenset()
-            if cfg is not None:
-                # the fetches are protected from removal by a rewrite
-                protected = frozenset(fetch_names).union(
-                    plan.protected if plan else ())
-                run, _ = passes_lib.apply(program, protected=protected)
-            old = self._plans.pop(key, None)
-            if old is not None:
-                old.close()
-            plan = self._plans[key] = _Plan(program, run, protected)
-            while len(self._plans) > MAX_PLANS:
-                self._plans.pop(next(iter(self._plans))).close()
-        return plan
+        gplan = guard_lib.plan_for(program)
+        key = (program.fingerprint, cfg.key if cfg else None,
+               gplan.key if gplan else None)
+        plan = self._plans.get(key) if use_cache else None
+        if plan is not None and (cfg is None
+                                 or plan.protected.issuperset(fetch_names)):
+            self._last_plan_hit = True
+            return plan
+        self._last_plan_hit = False
+        run, protected = program, frozenset()
+        if cfg is not None:
+            # the fetches are protected from removal by a rewrite
+            protected = frozenset(fetch_names).union(
+                plan.protected if plan else ())
+            run, _ = passes_lib.apply(program, protected=protected)
+        new = _Plan(program, run, protected, gplan)
+        if telemetry.enabled():
+            telemetry.record_jit_miss(program, _miss_signature(
+                fetch_names, guard=str(gplan.key) if gplan else None,
+                passes=str(cfg.key) if cfg else None))
+        if not use_cache:
+            return new
+        old = self._plans.pop(key, None)
+        if old is not None:
+            old.close()
+        self._plans[key] = new
+        while len(self._plans) > MAX_PLANS:
+            self._plans.pop(next(iter(self._plans))).close()
+        return new
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True):
+        t0 = time.perf_counter() if telemetry.enabled() else 0.0
         program = program if program is not None \
             else ir.default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = _fetch_names(fetch_list)
-        plan = self._plan(program, fetch_names)
+        plan = self._plan(program, fetch_names, use_program_cache)
+        hit = self._last_plan_hit
         feed = {n: self._to_device(plan.program, n, v)
                 for n, v in (feed or {}).items()}
-        fetches = self._run_step(plan, feed, scope, self._step, fetch_names)
+        step = self._step
+        fetches = self._run_step(plan, feed, scope, step, fetch_names)
         self._step += 1
+        fetches = self._after_dispatch(plan, program, step, fetches)
+        if t0:
+            self._record(program, step, t0, hit, feed, fetches, 1)
+        self._drain_health(keep_latest=True)
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
 
     def run_chunk(self, program=None, feed_chunk=None, k=None,
                   fetch_list=None, scope=None, return_numpy=True,
-                  step0=None):
+                  use_program_cache=True, step0=None):
         """K training steps in one call: every feed carries a leading
         ``[K, ...]`` axis (a super-batch: ``DataFeeder.feed_chunk`` or
         ``stack_feeds``), staged onto the device in one copy.
@@ -165,12 +234,19 @@ class Executor:
         the scope's state tensors and updates them in place, so tensors
         taken from the scope before the call hold the values after it
         (the JAX package donates them instead). A capture or a replay
-        that fails raises; nothing falls back to eager steps."""
+        that fails raises; nothing falls back to eager steps.
+        ``use_program_cache=False`` runs the K steps eagerly on every
+        device, with a plan made for this call.
+
+        A guarded program's K health rows come back as one ``[K, 6]``
+        tensor on the device, processed at the next dispatch."""
+        t0 = time.perf_counter() if telemetry.enabled() else 0.0
         program = program if program is not None \
             else ir.default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = _fetch_names(fetch_list)
-        plan = self._plan(program, fetch_names)
+        plan = self._plan(program, fetch_names, use_program_cache)
+        hit = self._last_plan_hit
         chunk = {n: self._to_device(plan.program, n, v)
                  for n, v in (feed_chunk or {}).items()}
         k = _chunk_k(chunk, k)
@@ -178,7 +254,8 @@ class Executor:
             self._step = int(step0)
         base = self._step
         self._step += k
-        if self.device.type == "cuda":
+        n_out = len(fetch_names) + (plan.guard is not None)
+        if self.device.type == "cuda" and use_program_cache:
             from paddle_tpu_torch.core import graphs
             fetches = graphs.run_chunk(self, plan, chunk, k, fetch_names,
                                        scope, base)
@@ -187,7 +264,11 @@ class Executor:
                                     base + i, fetch_names)
                      for i in range(k)]
             fetches = [stack_steps([s[j] for s in steps])
-                       for j in range(len(fetch_names))]
+                       for j in range(n_out)]
+        fetches = self._after_dispatch(plan, program, base, fetches)
+        if t0:
+            self._record(program, base, t0, hit, chunk, fetches, k)
+        self._drain_health(keep_latest=True)
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
@@ -195,35 +276,108 @@ class Executor:
     def _run_step(self, plan, feed, scope, step, fetch_names, rngs=None):
         """One eager step of ``plan`` at step index ``step``: reads state
         from the scope, writes the persistables it changes back by
-        replacing the scope's tensors, returns the fetches. ``rngs``:
-        see ``TraceContext.rngs``."""
+        replacing the scope's tensors, returns the fetches (and, for a
+        guarded plan, the step's health row after them). ``rngs``: see
+        ``TraceContext.rngs``."""
         env = {}
-        for n in plan.reads:
-            if n in feed:
-                continue
+        for n in plan.state_names(scope, feed, self.device):
             v = scope.find_var(n)
-            if v is not None:
-                if v.device != self.device:
-                    raise ValueError(
-                        "scope variable %r lives on %s but this executor "
-                        "runs on %s" % (n, v.device, self.device))
-                env[n] = v
+            if v.device != self.device:
+                raise ValueError(
+                    "scope variable %r lives on %s but this executor "
+                    "runs on %s" % (n, v.device, self.device))
+            env[n] = v
+        old = dict(env)
         env.update(feed)
-
-        program = plan.program
-        run_program(program, self.device, env,
-                    step_key(program.random_seed, step), rngs=rngs)
-
+        step_t = None
+        if plan.guard is not None and plan.guard.poison is not None:
+            step_t = torch.full((), step, dtype=torch.int64,
+                                device=self.device)
+        fetches, writes = run_step(plan, self.device, env, old,
+                                   step_key(plan.program.random_seed, step),
+                                   fetch_names, step_t, rngs)
         # write back state: persistables this block wrote (startup
-        # initializers, in-place updates)
-        for n, v in persistable_writes(program, plan.written, env).items():
+        # initializers, updates)
+        for n, v in writes.items():
             scope.set_var(n, v)
+        return fetches
 
-        missing = [n for n in fetch_names if n not in env]
-        if missing:
-            raise KeyError("fetch %s: not computed by the program"
-                           % missing)
-        return [env[n] for n in fetch_names]
+    def _after_dispatch(self, plan, program, base, fetches):
+        """Strip a guarded dispatch's health rows off its results and
+        queue them for processing."""
+        if plan.guard is None:
+            return fetches
+        fetches = list(fetches)
+        self._pending_health.append((plan.guard, program, int(base),
+                                     fetches.pop()))
+        if len(self._pending_health) > 16:
+            warnings.warn(
+                "guard health backlog exceeded 16 dispatches (repeatedly "
+                "failing runs?); dropping the oldest rows", RuntimeWarning)
+            del self._pending_health[0]
+        return fetches
+
+    def _record(self, program, step, t0, hit, feed, fetches, steps):
+        telemetry.record_executor_step(
+            executor=type(self).__name__, step=step,
+            duration=time.perf_counter() - t0, cache_hit=hit,
+            feed_bytes=sum(telemetry.value_bytes(v) for v in feed.values()),
+            fetch_bytes=sum(telemetry.value_bytes(f) for f in fetches),
+            program=program, steps=steps)
+        if not hit or step % 16 < steps:
+            telemetry.sample_device_memory(self.device)
+
+    def _drain_health(self, keep_latest):
+        """Process queued health rows in dispatch order; ``keep_latest``
+        leaves the newest entry queued (its rows may still be in flight
+        on the card). Entries leave the queue before they are processed,
+        so a raising detector cannot process them twice."""
+        while len(self._pending_health) > (1 if keep_latest else 0):
+            self._process_health(self._pending_health.pop(0))
+
+    def _process_health(self, entry):
+        plan, program, base, dev = entry
+        h = _health_numpy(dev)
+        self._last_health = h
+        try:
+            guard_lib.after_dispatch(plan, program, h, base)
+        except guard_lib.Divergence:
+            # whoever catches this abandons the trajectory: the newer
+            # dispatches' rows belong to it
+            del self._pending_health[:]
+            raise
+
+    def poll_health(self):
+        """Process the health rows of every queued guarded dispatch (this
+        waits for them on the card). Raises ``guard.Divergence`` if the
+        detector trips. Returns the latest rows (numpy [steps, 6]: loss,
+        grad_norm, skipped, nonfinite_loss, nonfinite_grad, loss_scale),
+        or None before the first guarded dispatch."""
+        self._drain_health(keep_latest=False)
+        return self._last_health
+
+    @property
+    def last_health(self):
+        """Health rows of the most recent guarded dispatch. A pure read:
+        queued rows are converted but not processed (that happens at the
+        next dispatch or :meth:`poll_health`)."""
+        if self._pending_health:
+            return _health_numpy(self._pending_health[-1][3])
+        return self._last_health
+
+    def close(self):
+        """Process the queued health rows, then free the plans and their
+        graphs. A divergence found here is a warning: there is no loop
+        left to roll back."""
+        try:
+            self.poll_health()
+        except guard_lib.Divergence as e:
+            warnings.warn("divergence detected while draining health "
+                          "rows at close: %s" % e, RuntimeWarning)
+        finally:
+            for plan in self._plans.values():
+                plan.close()
+            self._plans.clear()
 
     def _to_device(self, program, name, v):
         if isinstance(v, PackedSeq):
@@ -240,16 +394,59 @@ class Executor:
         return torch.as_tensor(np.asarray(v), device=self.device)
 
 
-def run_program(program, device, env, key, rngs=None, training=True):
+def run_program(program, device, env, key, rngs=None, training=True,
+                guard=None):
     """Run ``program``'s global block over ``env`` (name -> tensor) on
     ``device``, without autograd, drawing the random streams of the step
-    whose key is ``key`` (``rngs``: see ``TraceContext.rngs``)."""
+    whose key is ``key`` (``rngs``: see ``TraceContext.rngs``) under the
+    ``guard.TraceGuard`` ``guard``, if any."""
     ctx = TraceContext(key=key, training=training, program=program,
-                       device=device)
+                       device=device, guard=guard)
     ctx.rngs = rngs
     with torch.no_grad():
         run_block(ctx, program.global_block(), env)
     return env
+
+
+def run_step(plan, device, env, old, key, fetch_names, step_t, rngs):
+    """One training step of ``plan`` over ``env`` (the state the step
+    reads, ``old``, plus the feeds), eagerly or under graph capture
+    (``core/graphs.py``). Returns ``(fetches, writes)``: the fetches,
+    then the health row of a guarded plan; and {name: value} of the
+    persistables the step wrote (for a guarded plan, the guard's choice
+    between candidate and old value, and the guard's state). ``step_t``:
+    the step index as a 0-d int64 tensor on the device, which a poison
+    window compares with."""
+    program = plan.program
+    tg = None
+    if plan.guard is not None:
+        tg = guard_lib.TraceGuard(
+            plan.guard, {n: env[n] for n in guard_lib.STATE_NAMES}, step_t,
+            program)
+    run_program(program, device, env, key, rngs=rngs, guard=tg)
+    writes = persistable_writes(program, plan.written, env)
+    extra = []
+    if tg is not None:
+        writes, health = guard_lib.finalize(tg, env, old, writes)
+        extra = [health]
+    missing = [n for n in fetch_names if n not in env]
+    if missing:
+        raise KeyError("fetch %s: not computed by the program" % missing)
+    return [env[n] for n in fetch_names] + extra, writes
+
+
+def _miss_signature(fetch_names, **extra):
+    """The recompile detector's signature of one plan build: one field
+    per setting so its diff names what changed (None fields dropped)."""
+    sig = {"fetch": ",".join(fetch_names)}
+    sig.update({k: v for k, v in extra.items() if v is not None})
+    return sig
+
+
+def _health_numpy(rows):
+    """Health rows (a device tensor) as numpy [steps, 6]."""
+    h = rows.detach().to("cpu", torch.float32).numpy()
+    return h if h.ndim == 2 else h[None, :]
 
 
 def _fetch_names(fetch_list):

@@ -38,6 +38,16 @@ What a replay needs, and how it gets it:
 * **Launch counts.** The kernels' wrappers count on the host, and a
   replay runs no Python: the capture's counts are taken back, and each
   replay adds them once.
+* **The guard** (``guard.py``). A guarded plan's step chooses between
+  the candidate and the old value of each state tensor on the device,
+  and its guard state (``guard@loss_scale``, ``guard@good_steps``,
+  ``guard@skipped_steps``) is scope tensors the graph reads and updates
+  in place like the parameters. The step index a poison window compares
+  with is a device tensor of the graph's, set before each replay like a
+  feed; the fault rules were read when the plan was built. Each step's
+  health row is a trailing output, copied into the chunk's ``[K, 6]``
+  rows after its replay and read on the host after the chunk, never
+  inside the captured step.
 * **The first step.** The first ``run_chunk`` of a plan runs its first
   step eagerly, on the side stream the capture then uses (that run loads
   the kernels and makes the library handles and workspaces), captures
@@ -51,8 +61,8 @@ read inside a lowering, say, fails the capture).
 
 import torch
 
-from paddle_tpu_torch.core.executor import (persistable_writes, run_program,
-                                            slice_feed)
+from paddle_tpu_torch import telemetry
+from paddle_tpu_torch.core.executor import run_step, slice_feed
 from paddle_tpu_torch.core.lower import PackedSeq, op_seed, step_key
 
 __all__ = ["run_chunk", "StepGraph", "CapturedRun", "RecordDraws",
@@ -209,12 +219,8 @@ class StepGraph:
         self.program = plan.program
         self.state = {}
         seen = set()
-        for n in plan.reads:
-            if n in feed:
-                continue
+        for n in plan.state_names(scope, feed, executor.device):
             v = scope.find_var(n)
-            if v is None:
-                continue
             s = v.untyped_storage().data_ptr()
             if s in seen:
                 # two names on one tensor: the step may write them apart
@@ -228,6 +234,11 @@ class StepGraph:
         self.feeds = {n: _buffer_like(v) for n, v in feed.items()}
         for n, v in feed.items():
             _copy_into(self.feeds[n], v)
+        # the step index a guard's poison window compares with
+        self.step_t = None
+        if plan.guard is not None and plan.guard.poison is not None:
+            self.step_t = torch.zeros((), dtype=torch.int64,
+                                      device=executor.device)
         self.outputs = {}
         self.run = CapturedRun(executor.device, draws)
         self.fetches = self.run.capture(
@@ -237,16 +248,12 @@ class StepGraph:
     def _step(self, executor, plan, fetch_names, rngs):
         env = dict(self.state)
         env.update(self.feeds)
-        run_program(self.program, executor.device, env, key=0, rngs=rngs)
-        missing = [n for n in fetch_names if n not in env]
-        if missing:
-            raise KeyError("fetch %s: not computed by the program"
-                           % missing)
+        fetches, writes = run_step(plan, executor.device, env, self.state,
+                                   0, fetch_names, self.step_t, rngs)
         held = _storages(list(self.state.values())
                          + list(self.feeds.values()))
         copies = []
-        for n, v in persistable_writes(self.program, plan.written,
-                                       env).items():
+        for n, v in writes.items():
             if _storages([v]) & held:
                 v = _clone(v)          # a view of a buffer the step reads
             old = self.state.get(n)
@@ -255,15 +262,14 @@ class StepGraph:
             elif v is not old:
                 copies.append((old, v))
         overwritten = _storages([old for old, _ in copies])
-        fetches = []
-        for n in fetch_names:
-            f = env[n]
+        kept = []
+        for f in fetches:
             if _storages([f]) & overwritten:
                 f = _clone(f)          # keep the value the step computed
-            fetches.append(f)
+            kept.append(f)
         for old, v in copies:
             old.copy_(v)
-        return fetches
+        return kept
 
     def replay(self, feed, step, scope):
         for n, buf in self.state.items():
@@ -282,6 +288,8 @@ class StepGraph:
             scope.set_var(n, buf)
         for n, buf in self.feeds.items():
             _copy_into(buf, feed[n])
+        if self.step_t is not None:
+            self.step_t.fill_(step)
         self.run.replay(step_key(self.program.random_seed, step))
         for n, v in self.outputs.items():
             scope.set_var(n, v)
@@ -295,7 +303,8 @@ def run_chunk(executor, plan, chunk, k, fetch_names, scope, base):
     """``Executor.run_chunk`` on the card: K steps from ``base``, each a
     replay of the plan's graph for this chunk's signature (the first of
     a new signature runs eagerly, then is captured). Returns the fetches
-    stacked ``[K, ...]`` on the device."""
+    stacked ``[K, ...]`` on the device, then a guarded plan's health
+    rows ``[K, 6]``."""
     dev = executor.device
     key = (tuple(sorted((n, _sig(v)) for n, v in chunk.items())),
            tuple(fetch_names), scope.token)
@@ -314,6 +323,10 @@ def run_chunk(executor, plan, chunk, k, fetch_names, scope, base):
             start = 1
             graph = StepGraph(executor, plan, feed0, fetch_names, scope,
                               draws.calls, stream)
+            if telemetry.enabled():
+                telemetry.record_jit_miss(plan.user, {
+                    "fetch": ",".join(fetch_names), "graph": str(key[0]),
+                    "guard": str(plan.guard.key) if plan.guard else None})
             plan.graphs[key] = graph
             while len(plan.graphs) > MAX_GRAPHS:
                 plan.graphs.pop(next(iter(plan.graphs))).close()

@@ -24,6 +24,12 @@ inputs are cast by ``amp.cast_ins`` as they enter its lowering, and
 before a hand-written ``grad_lower``; the generic grad casts inside the
 forward it differentiates (``registry.generic_grad``).
 
+The training-health guard (``guard.py``) rides ``TraceContext.guard``:
+``run_op`` hands each op's inputs to ``guard.before_op`` (after the amp
+casts) and each output to ``guard.rewrite_output``, as the JAX
+package's lowering does; the generic grad's outputs pass through
+``rewrite_output`` too.
+
 A control-flow op (``scan_block``, ``recompute``) runs its sub-block
 with the same ``run_block``, over a fresh environment that holds only
 the op's ``Params``/``X``/``Init`` bindings; an error inside it is annotated with
@@ -103,7 +109,8 @@ class TraceContext:
     """Carried through a block run; provides the device, per-op random
     streams and the mode flag to op lowerings."""
 
-    def __init__(self, key=0, training=True, program=None, device=None):
+    def __init__(self, key=0, training=True, program=None, device=None,
+                 guard=None):
         self.key = int(key)
         self.training = training
         self.program = program
@@ -111,6 +118,10 @@ class TraceContext:
         # mixed precision: the compute dtype cast in at lowering
         # boundaries (amp.py); None = full precision
         self.amp_dtype = getattr(program, "amp_dtype", None)
+        # the training-health guard (guard.TraceGuard): records the
+        # optimizer-input grads, poisons and unscales them, scales the
+        # backward's seed; None = unguarded
+        self.guard = guard
         # None, or what hands out the generators (``core/graphs.py``:
         # the ones a CUDA graph registered, or a recorder of the draws)
         self.rngs = None
@@ -123,6 +134,7 @@ class TraceContext:
         c.program = self.program
         c.device = self.device
         c.amp_dtype = self.amp_dtype
+        c.guard = self.guard
         c.rngs = self.rngs
         c._op = op
         return c
@@ -200,8 +212,29 @@ def run_op(ctx, block, op, env):
     if ctx.amp_dtype is not None:
         from paddle_tpu_torch import amp
         ins = amp.cast_ins(spec, ins, ctx.amp_dtype)
+    if ctx.guard is not None:
+        # the guard records the optimizer-input grads after the casts,
+        # as the update math sees them
+        ins = ctx.guard.before_op(op, spec, ins)
     result = spec.lower(ctx.for_op(op), ins, op.attrs, op)
+    if ctx.guard is not None:
+        result = _guard_rewrite(ctx.guard, op, result)
     _bind_outputs(env, op, result)
+
+
+def _guard_rewrite(guard, op, result):
+    """The guard's output rewrites (the seed's scaling, a parameter
+    gradient's poison and unscale at its final producer) over one
+    lowering's result."""
+    result = registry.normalize_outputs(result)
+    out = {}
+    for slot, vals in result.items():
+        names = op.outputs.get(slot, ())
+        out[slot] = [
+            guard.rewrite_output(names[i], v, op.uid)
+            if i < len(names) and names[i] else v
+            for i, v in enumerate(vals)]
+    return out
 
 
 def _run_generic_grad_op(ctx, block, op, env):
@@ -241,6 +274,8 @@ def _run_generic_grad_op(ctx, block, op, env):
                 # a gradient the forward says is zero: zeros shaped like
                 # the forward input
                 g = _zeros_like(fwd_ins[base][i])
+            if ctx.guard is not None:
+                g = ctx.guard.rewrite_output(n, g, op.uid)
             env[n] = g
 
 

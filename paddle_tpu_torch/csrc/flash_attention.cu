@@ -87,6 +87,16 @@
 //   workspace, no counter, no atomics: two runs give the same bits.
 //   What bounds it on the card is measured in PERF.md
 //   (lstm_breakdown.py --decode).
+//   The kernel is a template over the cache's element type: float32, or
+//   bfloat16 (flash_decode_bf16: q and the output stay float32, as the
+//   JAX kernel's out_shape is q's dtype). A bf16 cache halves the bytes
+//   (16.8 MB at the path's shape, ~5 us): the same walk reads 16-byte
+//   words of 8 elements, widens them to float32 in registers, and rounds
+//   p = exp(s - m) to bf16 before the P V sum as the JAX kernel does
+//   (`p.astype(v_ref.dtype)`), while l sums the unrounded p. A bf16 row
+//   whose head_dim is not a multiple of 8, or a cache not on a 16-byte
+//   boundary, is staged by 2-byte loads through registers (cp.async
+//   copies 4 bytes at least).
 // ---------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -1005,39 +1015,77 @@ constexpr int kDecMaxCluster = 8; // the portable cluster size
 // --decode, PERF.md), and 2 keep a block at 34 KB at head_dim 64
 constexpr int kDecStages = 2;
 
-template <int DMAX>
+template <int DMAX, typename T>
 struct DecSmem {
-  static constexpr int TILE = kDecTile * DMAX;    // floats of K (or V)
+  // elements of a 16-byte word, 16-byte words of a row
+  static constexpr int E = 16 / (int)sizeof(T);
+  static constexpr int WORDS = DMAX / E;
+  static constexpr int TILE = kDecTile * DMAX;    // elements of K (or V)
   static constexpr int STAGE = 2 * TILE;          // K, then V
   static constexpr int RING = kDecWarps * kDecStages * STAGE;
-  // a warp's partial (acc[DMAX], m, l) in rank 0's slots
+  // a warp's partial (acc[DMAX], m, l) in rank 0's slots, in floats
   static constexpr int SLOT = DMAX + 4;
-  // floats of a block of a cluster of n: rank 0 takes every warp's slot
-  static constexpr int elems(int n) { return n * kDecWarps * SLOT + RING; }
+  // bytes of a block of a cluster of n: rank 0 takes every warp's slot
+  static constexpr int bytes(int n) {
+    return 4 * n * kDecWarps * SLOT + (int)sizeof(T) * RING;
+  }
 };
 
-// float index of 16-byte word j of key row r of a tile: the words of odd
-// rows are swizzled by 4, so that the 8 lanes of a quarter warp (keys
-// 2i, 2i + 1, quarters 0..3) read 8 distinct bank groups
+// element index of 16-byte word j of key row r of a tile: the words of
+// odd rows are swizzled by 4 where a row holds 8 words or more, so that
+// the 8 lanes of a quarter warp (keys 2i, 2i + 1, quarters 0..3) read 8
+// distinct bank groups (a row of 4 words, bf16 at head_dim 32, needs
+// none: keys 2i and 2i + 1 already sit in different banks)
+template <int DMAX, typename T>
 __device__ __forceinline__ int dec_word(int r, int j) {
-  return 4 * (j ^ ((r & 1) << 2));
+  using SM = DecSmem<DMAX, T>;
+  return SM::E * (SM::WORDS >= 8 ? j ^ ((r & 1) << 2) : j);
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// the 16-byte word at p as float32: 4 floats, or 8 bfloat16 widened
+__device__ __forceinline__ void widen(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void widen(const uint16_t* p, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);
+    x[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);
+  }
+}
+
+// p as the P V product takes it: float32 as it is, or rounded to bf16
+// (round to nearest even) and widened again
+__device__ __forceinline__ float round_p(float p, const float*) { return p; }
+__device__ __forceinline__ float round_p(float p, const uint16_t*) {
+  return __bfloat162float(__float2bfloat16_rn(p));
 }
 
 // A warp stages keys [k0, k0 + kDecTile) of a [S, D] cache row into a
 // tile s[kDecTile][DMAX]; keys >= k_end and columns >= D are zero-filled
-// and never read.
-template <int DMAX>
-__device__ __forceinline__ void stage_keys(float* s, const float* src,
-                                           int k0, int k_end, int D,
-                                           bool vec, int lane) {
+// and never read. vec: 16-byte copies (D a multiple of the word's
+// elements, rows on 16-byte boundaries); else 4-byte copies (float32) or
+// 2-byte loads through registers (bfloat16).
+template <int DMAX, typename T>
+__device__ __forceinline__ void stage_keys(T* s, const T* src, int k0,
+                                           int k_end, int D, bool vec,
+                                           int lane) {
+  using SM = DecSmem<DMAX, T>;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < kDecTile * DMAX / 4 / 32; ++it) {
+    for (int it = 0; it < kDecTile * SM::WORDS / 32; ++it) {
       const int i = lane + 32 * it;
-      const int r = i / (DMAX / 4), j = i % (DMAX / 4);
-      const bool ok = k0 + r < k_end && 4 * j < D;
-      cp16(&s[r * DMAX + dec_word(r, j)],
-           ok ? src + (size_t)(k0 + r) * D + 4 * j : src, ok);
+      const int r = i / SM::WORDS, j = i % SM::WORDS;
+      const bool ok = k0 + r < k_end && SM::E * j < D;
+      cp16(&s[r * DMAX + dec_word<DMAX, T>(r, j)],
+           ok ? src + (size_t)(k0 + r) * D + SM::E * j : src, ok);
     }
   } else {
 #pragma unroll 8
@@ -1045,29 +1093,34 @@ __device__ __forceinline__ void stage_keys(float* s, const float* src,
       const int i = lane + 32 * it;
       const int r = i / DMAX, d = i % DMAX;
       const bool ok = k0 + r < k_end && d < D;
-      cp4(&s[r * DMAX + dec_word(r, d / 4) + d % 4],
-          ok ? src + (size_t)(k0 + r) * D + d : src, ok);
+      T* dst = &s[r * DMAX + dec_word<DMAX, T>(r, d / SM::E) + d % SM::E];
+      if constexpr (sizeof(T) == 4) {
+        cp4(dst, ok ? src + (size_t)(k0 + r) * D + d : src, ok);
+      } else {
+        *dst = ok ? src[(size_t)(k0 + r) * D + d] : T(0);
+      }
     }
   }
 }
 
-template <int DMAX>
+template <int DMAX, typename T>
 __global__ void __launch_bounds__(kDecWarps * 32)
 flash_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_cache,
-                    const float* __restrict__ v_cache,
+                    const T* __restrict__ k_cache,
+                    const T* __restrict__ v_cache,
                     const int* __restrict__ cache_len,
                     float* __restrict__ out, int H, int S, int D,
                     float scale, int vec) {
-  using SM = DecSmem<DMAX>;
-  constexpr int NW = DMAX / 16;   // 16-byte words of a row a lane owns
+  using SM = DecSmem<DMAX, T>;
+  constexpr int E = SM::E;
+  constexpr int NW = DMAX / (4 * E);  // 16-byte words of a row a lane owns
   extern __shared__ __align__(16) float smem[];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int n = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   float* slots = smem;                            // [n][warp][SLOT]
-  float* ring = smem + n * kDecWarps * SM::SLOT;
+  T* ring = reinterpret_cast<T*>(smem + n * kDecWarps * SM::SLOT);
   // this block has started; rank 0's slots are written only after every
   // block of the cluster has (the wait below)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -1082,15 +1135,15 @@ flash_decode_kernel(const float* __restrict__ q,
   const int my_tiles =
       warp < n_tiles ? (n_tiles - warp + kDecWarps - 1) / kDecWarps : 0;
 
-  const float* kb = k_cache + (size_t)bh * S * D;
-  const float* vb = v_cache + (size_t)bh * S * D;
-  float* my_ring = ring + warp * kDecStages * SM::STAGE;
+  const T* kb = k_cache + (size_t)bh * S * D;
+  const T* vb = v_cache + (size_t)bh * S * D;
+  T* my_ring = ring + warp * kDecStages * SM::STAGE;
   // the warp's i-th tile: tile warp + i kDecWarps of the chunk
   auto load = [&](int i) {
-    float* st = my_ring + (i % kDecStages) * SM::STAGE;
+    T* st = my_ring + (i % kDecStages) * SM::STAGE;
     const int k0 = c0 + (warp + i * kDecWarps) * kDecTile;
-    stage_keys<DMAX>(st, kb, k0, c1, D, vec, lane);
-    stage_keys<DMAX>(st + SM::TILE, vb, k0, c1, D, vec, lane);
+    stage_keys<DMAX, T>(st, kb, k0, c1, D, vec, lane);
+    stage_keys<DMAX, T>(st + SM::TILE, vb, k0, c1, D, vec, lane);
   };
 #pragma unroll
   for (int i = 0; i < kDecStages - 1; ++i) {
@@ -1098,41 +1151,39 @@ flash_decode_kernel(const float* __restrict__ q,
     cp_commit();
   }
 
-  // the lane's words of q: columns 4 (t + 4 i) .. + 3
-  float qr[NW][4];
+  // the lane's words of q: columns E (t + 4 i) .. + E - 1
+  float qr[NW][E];
 #pragma unroll
   for (int i = 0; i < NW; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (t + 4 * i) + e;
+    for (int e = 0; e < E; ++e) {
+      const int d = E * (t + 4 * i) + e;
       qr[i][e] = d < D ? q[(size_t)bh * D + d] : 0.f;
     }
 
   // the warp's running max (the same in every lane), the lane's key
   // slot's share of the sum and of O over its columns
-  float m = -INFINITY, l = 0.f, acc[NW][4];
+  float m = -INFINITY, l = 0.f, acc[NW][E];
 #pragma unroll
   for (int i = 0; i < NW; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
 
   for (int it = 0; it < my_tiles; ++it) {
     if (it + kDecStages - 1 < my_tiles) load(it + kDecStages - 1);
     cp_commit();
     cp_wait<kDecStages - 1>();
     __syncwarp();   // the tile, staged by the warp's 32 lanes
-    const float* ks = my_ring + (it % kDecStages) * SM::STAGE;
-    const float* vs = ks + SM::TILE;
+    const T* ks = my_ring + (it % kDecStages) * SM::STAGE;
+    const T* vs = ks + SM::TILE;
     const int key = c0 + (warp + it * kDecWarps) * kDecTile + g;
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
-      const float4 kv = *reinterpret_cast<const float4*>(
-          &ks[g * DMAX + dec_word(g, t + 4 * i)]);
-      s = fmaf(qr[i][0], kv.x, s);
-      s = fmaf(qr[i][1], kv.y, s);
-      s = fmaf(qr[i][2], kv.z, s);
-      s = fmaf(qr[i][3], kv.w, s);
+      float kv[E];
+      widen(&ks[g * DMAX + dec_word<DMAX, T>(g, t + 4 * i)], kv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s = fmaf(qr[i][e], kv[e], s);
     }
     s += __shfl_xor_sync(kFull, s, 1);
     s += __shfl_xor_sync(kFull, s, 2);
@@ -1146,14 +1197,13 @@ flash_decode_kernel(const float* __restrict__ q,
     const float alpha = expf(m - m_new);
     const float p = expf(s - m_new);   // 0 past the chunk
     l = fmaf(l, alpha, p);
+    const float pv = round_p(p, ks);
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
-      const float4 vv = *reinterpret_cast<const float4*>(
-          &vs[g * DMAX + dec_word(g, t + 4 * i)]);
-      acc[i][0] = fmaf(p, vv.x, acc[i][0] * alpha);
-      acc[i][1] = fmaf(p, vv.y, acc[i][1] * alpha);
-      acc[i][2] = fmaf(p, vv.z, acc[i][2] * alpha);
-      acc[i][3] = fmaf(p, vv.w, acc[i][3] * alpha);
+      float vv[E];
+      widen(&vs[g * DMAX + dec_word<DMAX, T>(g, t + 4 * i)], vv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] = fmaf(pv, vv[e], acc[i][e] * alpha);
     }
     m = m_new;
     __syncwarp();   // this stage is consumed before it is refilled
@@ -1167,7 +1217,7 @@ flash_decode_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < NW; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < E; ++e)
         acc[i][e] += __shfl_xor_sync(kFull, acc[i][e], off);
   }
 
@@ -1179,8 +1229,11 @@ flash_decode_kernel(const float* __restrict__ q,
   if (g == 0) {
 #pragma unroll
     for (int i = 0; i < NW; ++i)
-      *reinterpret_cast<float4*>(&slot[4 * (t + 4 * i)]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+#pragma unroll
+      for (int e = 0; e < E; e += 4)
+        *reinterpret_cast<float4*>(&slot[E * (t + 4 * i) + e]) =
+            make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2],
+                        acc[i][e + 3]);
     if (t == 0) {
       slot[DMAX] = m;
       slot[DMAX + 1] = l;
@@ -1222,11 +1275,19 @@ flash_decode_kernel(const float* __restrict__ q,
 
 // B2's launch plan: out[0] blocks a (batch, head) row, the cluster size
 // n; out[1] threads a block; out[2] ring stages a warp; out[3] shared
-// bytes a block; out[4] keys a warp's tile. n doubles from 1 while the
-// grid holds fewer than 1.5 blocks an SM, a chunk of a full row keeps at
-// least two tiles a warp and n stays within the portable cluster size.
+// bytes a block (for cache elements of `esize` bytes); out[4] keys a
+// warp's tile. n doubles from 1 while the grid holds fewer than 1.5
+// blocks an SM, a chunk of a full row keeps at least two tiles a warp
+// and n stays within the portable cluster size.
 // kernels.flash_attention.decode_plan mirrors it.
-void dec_plan(int B, int H, int S, int D, int sms, int* out) {
+template <typename T>
+int dec_bytes(int D, int n) {
+  return D <= 32   ? DecSmem<32, T>::bytes(n)
+         : D <= 64 ? DecSmem<64, T>::bytes(n)
+                   : DecSmem<128, T>::bytes(n);
+}
+
+void dec_plan(int B, int H, int S, int D, int sms, int esize, int* out) {
   int n = 1;
   while (n < kDecMaxCluster && 2 * n * kDecWarps * kDecTile <= S &&
          2LL * B * H * n < 3LL * sms)
@@ -1234,21 +1295,19 @@ void dec_plan(int B, int H, int S, int D, int sms, int* out) {
   out[0] = n;
   out[1] = kDecWarps * 32;
   out[2] = kDecStages;
-  out[3] = 4 * (D <= 32   ? DecSmem<32>::elems(n)
-                : D <= 64 ? DecSmem<64>::elems(n)
-                          : DecSmem<128>::elems(n));
+  out[3] = esize == 2 ? dec_bytes<uint16_t>(D, n) : dec_bytes<float>(D, n);
   out[4] = kDecTile;
 }
 
-template <int DMAX>
-cudaError_t launch_decode(const float* q, const float* k, const float* v,
+template <int DMAX, typename T>
+cudaError_t launch_decode(const float* q, const T* k, const T* v,
                           const int* cache_len, float* out, int B, int H,
                           int S, int D, float scale, int vec, const int* p,
                           cudaStream_t stream) {
   const int n = p[0], bytes = p[3];
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_decode_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_decode_kernel<DMAX, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n * B * H);
@@ -1263,10 +1322,40 @@ cudaError_t launch_decode(const float* q, const float* k, const float* v,
   cfg.attrs = at;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, flash_decode_kernel<DMAX>, q, k, v, cache_len,
-                         out, H, S, D, scale, vec);
+      cudaLaunchKernelEx(&cfg, flash_decode_kernel<DMAX, T>, q, k, v,
+                         cache_len, out, H, S, D, scale, vec);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// the decode launch for caches of element type T: plan, then the
+// instantiation of the smallest DMAX >= D
+template <typename T>
+cudaError_t decode(const float* q, const T* k_cache, const T* v_cache,
+                   const int* cache_len, float* out, int B, int H, int S,
+                   int D, float scale, cudaStream_t stream) {
+  if (B * H == 0) return cudaSuccess;
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, p[5];
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  dec_plan(B, H, S, D, sms, (int)sizeof(T), p);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  constexpr int E = 16 / (int)sizeof(T);
+  const int vec = D % E == 0 &&
+                  ((reinterpret_cast<uintptr_t>(k_cache) |
+                    reinterpret_cast<uintptr_t>(v_cache)) & 15) == 0;
+  if (D <= 32)
+    return launch_decode<32, T>(q, k_cache, v_cache, cache_len, out, B, H,
+                                S, D, scale, vec, p, stream);
+  if (D <= 64)
+    return launch_decode<64, T>(q, k_cache, v_cache, cache_len, out, B, H,
+                                S, D, scale, vec, p, stream);
+  return launch_decode<128, T>(q, k_cache, v_cache, cache_len, out, B, H,
+                               S, D, scale, vec, p, stream);
 }
 
 template <int DMAX>
@@ -1416,12 +1505,15 @@ cudaError_t flash_attention_fwd_bf16(const void* q, const void* k,
                               Sk, D, scale, causal, vec, stream);
 }
 
-// B2's launch plan at (B, H, S, D) on a card of `sms` SMs: out[0]
-// blocks a row (the cluster size), out[1] threads a block, out[2] ring
-// stages a warp, out[3] shared bytes a block, out[4] keys a warp's tile.
-cudaError_t decode_plan(int B, int H, int S, int D, int sms, int* out) {
-  if (D < 1 || D > 128 || sms < 1) return cudaErrorInvalidValue;
-  dec_plan(B, H, S, D, sms, out);
+// B2's launch plan at (B, H, S, D) on a card of `sms` SMs, for cache
+// elements of `esize` bytes (4: float32, 2: bfloat16): out[0] blocks a
+// row (the cluster size), out[1] threads a block, out[2] ring stages a
+// warp, out[3] shared bytes a block, out[4] keys a warp's tile.
+cudaError_t decode_plan(int B, int H, int S, int D, int sms, int esize,
+                        int* out) {
+  if (D < 1 || D > 128 || sms < 1 || (esize != 4 && esize != 2))
+    return cudaErrorInvalidValue;
+  dec_plan(B, H, S, D, sms, esize, out);
   return cudaSuccess;
 }
 
@@ -1430,27 +1522,18 @@ cudaError_t flash_decode(const float* q, const float* k_cache,
                          const float* v_cache, const int* cache_len,
                          float* out, int B, int H, int S, int D,
                          float scale, cudaStream_t stream) {
-  if (B * H == 0) return cudaSuccess;
-  if (D < 1 || D > 128) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, p[5];
-  cudaError_t e;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  dec_plan(B, H, S, D, sms, p);
-  // 16-byte copies where every row starts on a 16-byte boundary
-  const int vec = D % 4 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(k_cache) |
-                    reinterpret_cast<uintptr_t>(v_cache)) & 15) == 0;
-  if (D <= 32)
-    return launch_decode<32>(q, k_cache, v_cache, cache_len, out, B, H, S,
-                             D, scale, vec, p, stream);
-  if (D <= 64)
-    return launch_decode<64>(q, k_cache, v_cache, cache_len, out, B, H, S,
-                             D, scale, vec, p, stream);
-  return launch_decode<128>(q, k_cache, v_cache, cache_len, out, B, H, S, D,
-                            scale, vec, p, stream);
+  return decode<float>(q, k_cache, v_cache, cache_len, out, B, H, S, D,
+                       scale, stream);
+}
+
+// The same over bfloat16 caches (raw 16-bit words); q and out float32.
+cudaError_t flash_decode_bf16(const float* q, const void* k_cache,
+                              const void* v_cache, const int* cache_len,
+                              float* out, int B, int H, int S, int D,
+                              float scale, cudaStream_t stream) {
+  return decode<uint16_t>(q, static_cast<const uint16_t*>(k_cache),
+                          static_cast<const uint16_t*>(v_cache), cache_len,
+                          out, B, H, S, D, scale, stream);
 }
 
 }  // extern "C"

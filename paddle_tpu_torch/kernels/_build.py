@@ -40,7 +40,8 @@ SOURCES = {
         "flash_attention_fwd_bf16": ([_P] * 7 + [_I] * 5
                                      + [_F, _I, _I, _P], _I),
         "flash_decode": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
-        "decode_plan": ([_I] * 5 + [_P], _I),
+        "flash_decode_bf16": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
+        "decode_plan": ([_I] * 6 + [_P], _I),
     },
     "lstm_cell": {
         "lstm_fwd": ([_P] * 12 + [_I] * 3 + [_P], _I),

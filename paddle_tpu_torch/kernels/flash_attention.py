@@ -5,7 +5,9 @@ and replace the JAX package's two Pallas kernels in
 ``paddle_tpu/kernels/flash_attention.py``: ``flash_attention`` replaces
 ``_fwd_kernel`` (a float32 kernel on 3xTF32 tensor cores and a bfloat16
 one, picked by the inputs' dtype) and ``flash_decode`` replaces
-``_decode_kernel``.
+``_decode_kernel`` (a float32 query against a float32 or a bfloat16
+cache, picked by the caches' dtype; the output is float32, the query's
+dtype, as the JAX kernel's).
 
 ``flash_attention`` is differentiable: it returns through the autograd
 Function :class:`FlashAttention`, whose backward is
@@ -28,12 +30,14 @@ Each wrapper dispatches on the device of the tensors it is given:
   causal diagonal skipped; the decode kernel's split of each row's valid
   prefix into :func:`decode_plan`'s chunks, each walked by its warps in
   key tiles and merged, the chunks merged in rank order; the ``l == 0``
-  guard), so the CPU tests exercise that logic;
+  guard; over a bfloat16 cache ``p`` rounded to bfloat16 before the
+  P V sum), so the CPU tests exercise that logic;
 * a meta tensor returns outputs of the right shape (construction-time
   shape inference).
 
-``launches`` counts kernel launches per kernel (the forward's float32
-and bfloat16 kernels apart); plain-version calls do not count.
+``launches`` counts kernel launches per kernel (the forward's and the
+decode's float32 and bfloat16 kernels apart); plain-version calls do not
+count.
 """
 
 import ctypes
@@ -85,15 +89,16 @@ DECODE_MIN_TILES = 2
 DECODE_MAX_CLUSTER = 8
 
 
-def decode_plan(b, h, s, d, sms=H100_SMS):
+def decode_plan(b, h, s, d, sms=H100_SMS, itemsize=4):
     """The decode kernel's launch plan, a copy of ``dec_plan`` in
     ``csrc/flash_attention.cu`` that the CPU tests can call (the card
     test ``test_cuda_decode_plan_matches_the_kernels`` holds the two to
     the same numbers): ``blocks_per_row`` n, the cluster of blocks that
     splits each (batch, head) row, by the DECODE_FILL / DECODE_MIN_TILES
     / DECODE_MAX_CLUSTER rule; also the threads of a block, a warp's
-    ring stages, a block's shared bytes and the keys of a warp's tile
-    (the kernel takes ``d`` of 1..128)."""
+    ring stages, a block's shared bytes (for cache elements of
+    ``itemsize`` bytes: 4 float32, 2 bfloat16) and the keys of a warp's
+    tile (the kernel takes ``d`` of 1..128)."""
     n = 1
     while (n < DECODE_MAX_CLUSTER
            and DECODE_MIN_TILES * n * DECODE_WARPS * DECODE_BLOCK_K <= s
@@ -102,8 +107,8 @@ def decode_plan(b, h, s, d, sms=H100_SMS):
     dmax = 32 if d <= 32 else 64 if d <= 64 else 128
     slot = dmax + 4                      # a warp's (m, l, acc) to merge
     stage = 2 * DECODE_BLOCK_K * dmax    # a tile of K, then one of V
-    smem = 4 * (n * DECODE_WARPS * slot
-                + DECODE_WARPS * DECODE_STAGES * stage)
+    smem = (4 * n * DECODE_WARPS * slot
+            + itemsize * DECODE_WARPS * DECODE_STAGES * stage)
     return dict(blocks_per_row=n, blocks=n * b * h,
                 threads=32 * DECODE_WARPS, stages=DECODE_STAGES,
                 smem_bytes=smem, tile_keys=DECODE_BLOCK_K)
@@ -159,7 +164,7 @@ def decode_chunks(lengths, n):
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"flash_attention": 0, "flash_attention_bf16": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, "flash_decode_bf16": 0}
 
 
 def reset_launches():
@@ -300,35 +305,43 @@ def _merge(parts):
 
 
 def flash_decode_reference(q, k_cache, v_cache, cache_len, sm_scale=None,
-                           block_k=DECODE_BLOCK_K):
+                           block_k=DECODE_BLOCK_K, acc=torch.float32):
     """Plain version of the decode kernel. ``q`` [b, h, 1, d] or
-    [b, h, d]; returns the same rank.
+    [b, h, d]; returns the same rank, in float32.
 
     It follows the kernel's blocking: each row's valid prefix is cut
     into decode_plan's chunks (decode_chunks; on the tensor's own card,
     or an H100), each chunk's tiles of ``block_k`` keys are walked in
     turn by DECODE_WARPS online softmaxes, merged in warp order, and the
     chunks merged in rank order. Positions past a row's length are never
-    used."""
+    used. Scores are float32 (q against the widened keys); over a
+    bfloat16 cache ``p = exp(s - m)`` is rounded to bfloat16 before the
+    P V sum, against the walk's running max, as the JAX kernel rounds it
+    (``p.astype(v_ref.dtype)``) and the CUDA kernel does; ``l`` sums the
+    unrounded ``p``. ``acc=torch.float64`` does the arithmetic in
+    float64 with the same roundings of ``p``: a witness of the kernel."""
     b, h, s, d = k_cache.shape
     dev = q.device
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else H100_SMS)
     n = decode_plan(b, h, s, d, sms)["blocks_per_row"]
     return _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, n,
-                        DECODE_WARPS, block_k)
+                        DECODE_WARPS, block_k, acc)
 
 
 def _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, blocks, warps,
-                 block_k):
+                 block_k, acc_dtype=torch.float32):
     """Decode attention walked as ``blocks`` chunks of each row's valid
     prefix, each by ``warps`` online softmaxes over tiles of ``block_k``
-    keys taken in turn; ``blocks = warps = 1`` is one walk."""
+    keys taken in turn; ``blocks = warps = 1`` is one walk, and with
+    ``block_k=128`` it walks as the JAX kernel does."""
     squeeze = q.dim() == 3
     b, h, s, d = k_cache.shape
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     dev = q.device
-    q2 = (q if squeeze else q[:, :, 0, :]).float().reshape(b * h, d)
+    pv_dtype = v_cache.dtype
+    f = acc_dtype
+    q2 = (q if squeeze else q[:, :, 0, :]).to(f).reshape(b * h, d)
     k2 = k_cache.reshape(b * h, s, d)
     v2 = v_cache.reshape(b * h, s, d)
     lens = cache_len.to(torch.int64).clamp(0, s).repeat_interleave(h)
@@ -339,9 +352,9 @@ def _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, blocks, warps,
         n_tiles = int(-(-(c1 - c0).max() // block_k)) if b * h else 0
         parts = []
         for w in range(warps):
-            m = torch.full((b * h,), -inf, device=dev)
-            l = torch.zeros((b * h,), device=dev)
-            acc = torch.zeros((b * h, d), device=dev)
+            m = torch.full((b * h,), -inf, dtype=f, device=dev)
+            l = torch.zeros((b * h,), dtype=f, device=dev)
+            acc = torch.zeros((b * h, d), dtype=f, device=dev)
             for tile in range(w, n_tiles, warps):
                 pos = c0[:, None] + tile * block_k + torch.arange(
                     block_k, device=dev)[None, :]
@@ -350,7 +363,7 @@ def _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, blocks, warps,
                 idx = torch.where(ok, pos, 0)[..., None].expand(-1, -1, d)
                 kt = torch.where(ok[..., None], torch.gather(k2, 1, idx), 0.0)
                 vt = torch.where(ok[..., None], torch.gather(v2, 1, idx), 0.0)
-                sc = torch.einsum("nd,nkd->nk", q2, kt.float()) * scale
+                sc = torch.einsum("nd,nkd->nk", q2, kt.to(f)) * scale
                 sc = torch.where(ok, sc, -inf)
                 m_new = torch.maximum(m, sc.amax(-1))
                 # a row with no valid key yet keeps alpha = p = 0
@@ -359,7 +372,7 @@ def _decode_walk(q, k_cache, v_cache, cache_len, sm_scale, blocks, warps,
                 p = torch.exp(sc - m_safe[:, None])
                 l = alpha * l + p.sum(-1)
                 acc = acc * alpha[:, None] + torch.einsum(
-                    "nk,nkd->nd", p, vt.float())
+                    "nk,nkd->nd", p.to(pv_dtype).to(f), vt.to(f))
                 m = m_new
             parts.append((m, l, acc))
         chunks.append(_merge(parts))
@@ -510,9 +523,10 @@ def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
 def flash_decode(q, k_cache, v_cache, cache_len, sm_scale=None):
     """Single-query decode attention against a length-masked KV cache.
 
-    ``q`` [b, h, 1, d] (or [b, h, d]); caches [b, h, max_len, d];
-    ``cache_len`` [b] int32: row b attends to cache positions
-    < cache_len[b]. Returns the same rank as ``q``."""
+    ``q`` [b, h, 1, d] (or [b, h, d]) float32; caches [b, h, max_len,
+    d], both float32 or both bfloat16; ``cache_len`` [b] int32: row b
+    attends to cache positions < cache_len[b]. Returns the same rank as
+    ``q``, float32."""
     squeeze = q.dim() == 3
     if k_cache.dim() != 4 or tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError("flash_decode caches must be equal 4-D "
@@ -521,6 +535,10 @@ def flash_decode(q, k_cache, v_cache, cache_len, sm_scale=None):
     qshape = (b, h, d) if squeeze else (b, h, 1, d)
     _check(tuple(q.shape) == qshape, "q must be %s, got %s", qshape,
            tuple(q.shape))
+    cdt = k_cache.dtype
+    _check(cdt in (torch.float32, torch.bfloat16) and v_cache.dtype == cdt,
+           "flash_decode takes float32 or bfloat16 caches of one dtype, "
+           "got %s, %s", k_cache.dtype, v_cache.dtype)
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     dev = q.device
     if dev.type == "meta":
@@ -532,18 +550,20 @@ def flash_decode(q, k_cache, v_cache, cache_len, sm_scale=None):
         raise ValueError("flash_decode: no kernel for device %s" % dev)
     from paddle_tpu_torch.kernels import _build
 
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _check_float(name, t, dev)
+    _check_float("q", q, dev)
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _check_float(name, t, dev, cdt)
     _check_int("cache_len", cache_len, (b,), dev)
     _check(1 <= d <= 128, "head_dim %d outside the kernel's 1..128", d)
+    fn = "flash_decode_bf16" if cdt == torch.bfloat16 else "flash_decode"
     lib = _build.load("flash_attention")
     out = torch.empty(qshape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.flash_decode(
+        rc = getattr(lib, fn)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), out.data_ptr(), b, h, s, d,
             ctypes.c_float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "flash_decode")
-    launches["flash_decode"] += 1
+    _raise_on(rc, fn)
+    launches[fn] += 1
     return out

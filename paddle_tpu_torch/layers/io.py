@@ -2,7 +2,8 @@
 
 Capability parity: `python/paddle/fluid/layers/io.py` (data). A
 ``lod_level > 0`` var is a packed sequence, [batch, time, ...]; feed it
-a ragged list (one array per sequence) or a ``PackedSeq``.
+a ragged list (one array per sequence) or a ``PackedSeq``. ``type`` is
+accepted and unused, as in the JAX package.
 """
 
 from paddle_tpu_torch.core import ir
@@ -11,7 +12,7 @@ __all__ = ["data"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
-         stop_gradient=True):
+         stop_gradient=True, type=None):
     shape = list(shape)
     if append_batch_size:
         shape = [-1] + shape

@@ -124,7 +124,9 @@ def _global_norm_clip(ctx, ins, attrs, o):
     clip.py:137`). The reduction runs in float32 whatever the
     gradients' dtype. A row-sparse gradient has no producer in this
     package yet (``lookup_table(is_sparse=True)`` raises in its grad):
-    anything but a dense tensor raises."""
+    anything but a dense tensor raises. Under the training-health guard
+    the reduction is shared: the guard's health norm reuses it
+    (``guard.py``)."""
     gs = ins["X"]
     for g in gs:
         if not isinstance(g, torch.Tensor):
@@ -135,6 +137,8 @@ def _global_norm_clip(ctx, ins, attrs, o):
                    for g in gs)
     clip_norm = float(attrs["clip_norm"])
     factor = clip_norm / torch.clamp(torch.sqrt(gnorm_sq), min=clip_norm)
+    if ctx.guard is not None:
+        ctx.guard.note_clip_norm(gnorm_sq, attrs.get("param_names", ()))
     return {"Out": [g * factor.to(g.dtype) for g in gs]}
 
 

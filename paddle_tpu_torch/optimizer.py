@@ -23,9 +23,10 @@ __all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
 
 
 class Optimizer:
-    def __init__(self, learning_rate, regularization=None):
+    def __init__(self, learning_rate, regularization=None, name=None):
         self._learning_rate = learning_rate
         self.regularization = regularization
+        self._name = name
         self._accumulators = {}   # name -> {param_name: var}
         self._lr_var = None
 

@@ -41,6 +41,9 @@ Failure model: an engine failure mid-run fails every LIVE generation
 with the error, resets the cache + slot array, and keeps serving the
 queue. Queued requests survive.
 
+The KV cache is float32 or bfloat16 (``DecodeEngine(cache_dtype=)``):
+a bfloat16 cache goes through the bfloat16 decode kernel.
+
 Telemetry, fault-injection seams, the persistent AOT cache and the
 hot-swap barrier (``DecodeLoop.request_swap``) arrive with later slices.
 """
@@ -55,6 +58,7 @@ import torch
 
 from paddle_tpu_torch.core.executor import (external_reads_and_writes,
                                             run_program)
+from paddle_tpu_torch.core.infer import dtype_name
 from paddle_tpu_torch.core.lower import step_key
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
@@ -62,6 +66,7 @@ from paddle_tpu_torch.serving.batcher import (Closed, DeadlineExceeded,
                                               Overloaded)
 from paddle_tpu_torch.serving.engine import (BatchTooLarge, _find_var,
                                              default_buckets)
+from paddle_tpu_torch.serving import kv_cache
 from paddle_tpu_torch.serving.kv_cache import KVCache, SlotAllocator
 
 __all__ = ["DecodeEngine", "DecodeLoop", "Generation", "active_loops"]
@@ -97,17 +102,25 @@ class DecodeEngine:
 
     ``place`` defaults to ``CUDAPlace(0)`` and raises when there is no
     CUDA device; the parameters in ``scope`` must already live on that
-    device. The KV cache is float32 (the decode kernel takes float32
-    only). ``prefill``/``decode_step`` mutate the KVCache they are
-    handed and must be called from ONE thread (the DecodeLoop's)."""
+    device. ``cache_dtype`` is the KV cache's dtype, as in the JAX
+    package: ``"float32"``, or ``"bfloat16"`` (half the bytes; the
+    attention op rounds K/V to it on write, and the decode kernel reads
+    it widened, the query and the logits staying float32); it is part of
+    every entry's key. ``prefill``/``decode_step`` mutate the KVCache
+    they are handed and must be called from ONE thread (the
+    DecodeLoop's)."""
 
     def __init__(self, prefill_program, decode_program, meta, *,
-                 num_slots=8, prompt_buckets=None, scope=None, place=None):
+                 num_slots=8, prompt_buckets=None, scope=None, place=None,
+                 cache_dtype="float32"):
         self.device = default_place(place)
         self.prefill_program = prefill_program
         self.decode_program = decode_program
         self.meta = meta
         self.num_slots = int(num_slots)
+        self.cache_dtype = cache_dtype
+        self._cache_dt = kv_cache.cache_dtype(cache_dtype)
+        self._kv = ("kv", dtype_name(self._cache_dt))
         self.scope = scope if scope is not None else global_scope()
         buckets = tuple(sorted(set(
             int(b) for b in (prompt_buckets
@@ -175,6 +188,11 @@ class DecodeEngine:
         warmup, frozen forever after)."""
         return len(self._warm)
 
+    def _key(self, key):
+        """An entry's key: the entry and the cache dtype, as the JAX
+        package's ``_dtype_sig`` carries ``("kv", dtype)``."""
+        return key + (self._kv,)
+
     def bucket_for(self, n):
         """Smallest prompt bucket >= n; BatchTooLarge past the last."""
         if n < 1:
@@ -224,7 +242,7 @@ class DecodeEngine:
         for key in [("decode",)] + [("prefill", b) for b in self.buckets]:
             t0 = time.perf_counter()
             if self._graphs is not None:
-                if key not in self._graphs:
+                if self._key(key) not in self._graphs:
                     self._capture(key)
             elif key[0] == "decode":
                 self.decode_step(np.zeros(self.num_slots, np.int64),
@@ -238,7 +256,8 @@ class DecodeEngine:
         return times
 
     def new_cache(self):
-        return KVCache(self.meta, self.num_slots, self.device)
+        return KVCache(self.meta, self.num_slots, dtype=self._cache_dt,
+                       device=self.device)
 
     # ---- dispatch ----
 
@@ -248,9 +267,13 @@ class DecodeEngine:
         return self.prefill_program, self._prefill_state
 
     def _run(self, key, feeds, cache):
+        if cache.dtype != self._cache_dt:
+            raise ValueError(
+                "the cache holds %s but the engine's cache_dtype is %s"
+                % (cache.dtype, self._kv[1]))
         if self._graphs is None:
             return self._run_eager(key, feeds, cache)
-        g = self._graphs.get(key)
+        g = self._graphs.get(self._key(key))
         if g is None:
             g = self._capture(key)
         self._bind(cache)
@@ -274,7 +297,7 @@ class DecodeEngine:
                     step_key(program.random_seed, 0), training=False)
         # the ops updated the buffers in place and re-emit them
         cache.buffers = {n: env[o] for n, o in self.meta.cache_outs.items()}
-        self._warm.add(key)
+        self._warm.add(self._key(key))
         return env[self.meta.logits_name]
 
     def _feeds(self, key):
@@ -321,8 +344,8 @@ class DecodeEngine:
             return env[self.meta.logits_name]
 
         g.logits = g.run.capture(body, stream)
-        self._graphs[key] = g
-        self._warm.add(key)
+        self._graphs[self._key(key)] = g
+        self._warm.add(self._key(key))
         return g
 
     def _bind(self, cache):

@@ -9,7 +9,8 @@ moment the generation terminates — BETWEEN token steps, so a new
 request never waits behind an unrelated long generation (continuous
 batching).
 
-Shapes never change: the slot count, cache length, and buffer dtypes
+Shapes never change: the slot count, cache length, and buffer dtype
+(float32, or bfloat16: half the bytes; the decode kernel reads either)
 are fixed at construction, and claiming and releasing slots is pure
 host bookkeeping (a free list and an active mask). The buffers live on
 the engine's device and every prefill/decode call updates them in
@@ -25,7 +26,17 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["SlotAllocator", "KVCache"]
+from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.place import default_place
+
+__all__ = ["SlotAllocator", "KVCache", "cache_dtype"]
+
+
+def cache_dtype(dtype):
+    """A cache dtype (a name, as the JAX package takes it, or a torch
+    dtype) as a torch dtype."""
+    return dtype if isinstance(dtype, torch.dtype) \
+        else torch_dtype(str(dtype))
 
 
 class SlotAllocator:
@@ -84,13 +95,17 @@ class KVCache:
     model's ``DecodeModelMeta``) to its tensor on ``device``; ``pos`` is
     the host-side per-slot write position (``pos[s]`` = how many cache
     entries slot ``s`` has filled = the position its NEXT token writes).
-    Only the decode loop thread mutates either."""
+    Only the decode loop thread mutates either. ``dtype`` (a name or a
+    torch dtype) is the buffers' dtype; ``nbytes()`` follows it.
+    ``device`` (a torch device or a place) defaults to ``CUDAPlace(0)``,
+    which raises when there is no card."""
 
-    def __init__(self, meta, num_slots, device):
+    def __init__(self, meta, num_slots, dtype="float32", device=None):
         self.meta = meta
         self.num_slots = int(num_slots)
-        self.device = torch.device(device)
-        self.dtype = torch.float32
+        self.device = torch.device(device) if isinstance(
+            device, (torch.device, str)) else default_place(device)
+        self.dtype = cache_dtype(dtype)
         self.shape = (self.num_slots, meta.num_heads, meta.max_len,
                       meta.head_dim)
         self.buffers = {}

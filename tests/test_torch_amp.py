@@ -135,10 +135,18 @@ def test_enable_refuses_what_the_jax_package_refuses():
             amp.enable(fluid.Program(), init_loss_scale=2.0 ** 15)
         with pytest.raises(ValueError, match="needs loss="):
             amp.enable(fluid.Program(), dynamic_loss_scale=True)
-    prog = tfluid.Program()
-    with pytest.raises(NotImplementedError, match="guard.py"):
-        tamp.enable(prog, loss=object(), dynamic_loss_scale=True)
-    assert prog.amp_dtype is None
+    # what both take: dynamic loss scaling arms the guard the same way
+    armed = []
+    for fluid, amp in ((jfluid, jamp), (tfluid, tamp)):
+        prog = fluid.Program()
+        amp.enable(prog, loss="loss", dynamic_loss_scale=True,
+                   growth_interval=4, divergence=False)
+        cfg = prog.guard
+        armed.append((prog.amp_dtype, cfg.loss_name, cfg.dynamic_loss_scale,
+                      cfg.init_loss_scale, cfg.growth_interval,
+                      cfg.detector is None))
+    assert armed[0] == armed[1] == ("bfloat16", "loss", True, 2.0 ** 15, 4,
+                                    True)
     assert tamp.FP32_OPS == jamp.FP32_OPS
     assert tamp._SKIP == jamp._SKIP and tamp._FP32_SLOTS == jamp._FP32_SLOTS
 

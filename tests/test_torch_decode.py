@@ -4,7 +4,18 @@ KV-cached decode serving against the JAX package's, on the same weights
 
 Tolerances: logits within 1e-4 and caches within 1e-5 (fp32 math in
 another summation order, through 2 layers and a 53-way head); greedy
-tokens identical."""
+tokens identical.
+
+A bfloat16 KV cache (``cache_dtype="bfloat16"`` in both packages): the
+first layer's cache within one bf16 ulp (K/V rounded to bf16 from
+float32 projections that differ in their last bits); the deeper layers'
+caches and the decode logits at one bfloat16 rounding (rtol 1e-2 plus
+4e-3 of the largest magnitude), because the decode kernel's chunked walk
+rounds p = exp(s - m) to bf16 against other maxima than the JAX
+kernel's single walk, which moves each layer's attention output at the
+bf16 level (tests/test_torch_flash_attention.py); prefill logits within
+1e-4 (the prompt's attention reads float32 K/V); greedy tokens
+identical."""
 
 import os
 
@@ -222,6 +233,91 @@ class TestDecodeParity:
             static.extend(live[i] for i in range(len(group)))
             cache.pos[:] = 0
         assert cont == static
+
+
+@pytest.fixture(scope="module")
+def bf16_engines(models):
+    """Both packages' decode engines over bfloat16 caches, from the same
+    weights as ``models``."""
+    jpre, jdec, jmeta = jbuild_decode(vocab_size=VOCAB, **SIZE)
+    jengine = JEngine(jpre, jdec, jmeta, num_slots=2, prompt_buckets=(8, 16),
+                      scope=models["jengine"].scope,
+                      service="torch-parity-jax-bf16", cache_dtype="bfloat16")
+    jengine.warmup()
+    tpre, tdec, tmeta = tbuild_decode(vocab_size=VOCAB, **SIZE)
+    tengine = DecodeEngine(tpre, tdec, tmeta, num_slots=2,
+                           prompt_buckets=(8, 16), scope=models["tscope"],
+                           place=CPU, cache_dtype="bfloat16")
+    tengine.warmup()
+    return jengine, tengine
+
+
+def _bf16_bound(got, want):
+    err = np.abs(got - want)
+    return (err <= 1e-2 * np.abs(want) + 4e-3 * np.abs(want).max()).all()
+
+
+def _within_one_ulp(got, want):
+    """|got - want| within one bf16 ulp of the larger magnitude."""
+    g, w = torch.from_numpy(got), torch.from_numpy(want)
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return bool(((g - w).abs() <= torch.ldexp(torch.ones_like(g), e - 8))
+                .all())
+
+
+class TestBf16Cache:
+    def test_logits_and_caches_match_jax(self, bf16_engines):
+        je, te = bf16_engines
+        jc, tc = je.new_cache(), te.new_cache()
+        rng = np.random.RandomState(5)
+        for slot, n in ((0, 4), (1, 9)):
+            p = rng.randint(1, VOCAB, n)
+            np.testing.assert_allclose(te.prefill(p, slot, tc),
+                                       je.prefill(p, slot, jc),
+                                       rtol=1e-4, atol=1e-4)
+        toks = np.asarray([7, 11], np.int64)
+        for _ in range(4):
+            jl = np.asarray(je.decode_step(toks, jc))
+            tl = te.decode_step(toks, tc)
+            assert tl.dtype == np.float32 and tl.shape == jl.shape
+            assert _bf16_bound(tl, jl), float(np.abs(tl - jl).max())
+            jc.pos += 1
+            tc.pos += 1
+            toks = np.argmax(jl[:, 0], -1).astype(np.int64)
+        for n in te.meta.cache_names:
+            got = tc.buffers[n].float().numpy()
+            want = np.asarray(jc.buffers[n]).astype(np.float32)
+            assert tc.buffers[n].dtype == torch.bfloat16
+            if n.startswith("kv_l0_"):
+                assert _within_one_ulp(got, want), n
+            else:
+                assert _bf16_bound(got, want), n
+
+    def test_greedy_tokens_identical_to_jax(self, bf16_engines):
+        je, te = bf16_engines
+        rng = np.random.RandomState(7)
+        cases = [(rng.randint(1, VOCAB, plen), n)
+                 for plen, n in ((2, 8), (7, 10), (13, 6))]
+        with JLoop(je, name="torch-parity-jax-bf16") as jloop:
+            want = [_greedy(jloop, p, n) for p, n in cases]
+        with DecodeLoop(te, name="parity-bf16") as loop:
+            got = [_greedy(loop, p, n) for p, n in cases]
+        assert got == want
+
+    def test_cache_bytes_keys_and_dtype(self, models, bf16_engines):
+        je, te = bf16_engines
+        assert te.ready and te.compile_count() == 3 == je.compile_count()
+        cache = te.new_cache()
+        assert cache.dtype == torch.bfloat16
+        assert all(b.dtype == torch.bfloat16 for b in cache.buffers.values())
+        assert 2 * cache.nbytes() == models["tengine"].new_cache().nbytes()
+        assert cache.nbytes() == je.new_cache().nbytes()
+        assert all(k[-1] == ("kv", "bfloat16") for k in te._warm)
+        assert all(k[-1] == ("kv", "float32")
+                   for k in models["tengine"]._warm)
+        with pytest.raises(ValueError, match="cache_dtype"):
+            te.decode_step(np.zeros(2, np.int64),
+                           models["tengine"].new_cache())
 
 
 class TestServingContract:

@@ -17,6 +17,12 @@ the bf16 bound (rtol 1e-2 plus 4e-3 of the largest magnitude): both
 round P to bfloat16 before P V, relative to running maxima of other
 key blocks, and round O to bfloat16.
 
+Over a bfloat16 KV cache the decode's single walk is held against the
+JAX kernel in interpret mode at TOL (both round p against the same
+running maxima), and the chunked plain version against the JAX
+``decode_reference`` at the bf16 bound (it rounds the normalized
+probabilities instead).
+
 The CUDA kernels themselves are held against the plain versions on the
 card by tests/test_torch_kernels_cuda.py.
 """
@@ -179,6 +185,128 @@ def test_decode_chunked_walk_equals_one_walk(shape):
     assert got.shape == (b, h, 1, d)
 
 
+# A bfloat16 cache (DecodeEngine(cache_dtype="bfloat16")): q float32, the
+# output float32, the scores float32 from q against the widened keys, and
+# p = exp(s - m) rounded to bfloat16 before the P V sum. At ragged
+# lengths (0 and past the cache included), head_dim 64 and 13.
+_BF16_LENS = [[0, 1, 77], [128, 40, 255], [256, 3, 300]]
+
+
+def _bf16_cache(rng, b, h, s, d):
+    """float32 q, and K/V rounded to bfloat16 (numpy and torch views)."""
+    q = _rand(rng, b, h, 1, d)
+    kv = [torch.from_numpy(_rand(rng, b, h, s, d)).to(torch.bfloat16)
+          for _ in range(2)]
+    return q, kv, [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                   for t in kv]
+
+
+@pytest.mark.parametrize("d", [64, 13])
+@pytest.mark.parametrize("lens", _BF16_LENS)
+def test_decode_bf16_one_walk_matches_jax_kernel(d, lens):
+    """The single walk (one block, one warp, 128-key tiles: the JAX
+    kernel's blocking) against the JAX kernel in interpret mode on the
+    same bf16 caches: both round p against the same running maxima, so
+    they agree to float32 summation order (TOL), except where a score's
+    last bits (q.k summed in another order) put p = exp(s - m) on the
+    other side of a bf16 rounding boundary. Such a flip moves one
+    weight of V by one bf16 ulp (2^-7 of p <= 1), the row's output by
+    at most 2^-7 max|v| / l, where l >= 1 is the row's softmax sum: the
+    tolerance is TOL plus that, row by row."""
+    rng = np.random.RandomState(d + lens[1])
+    b, h, s = 3, 2, 256
+    q, (kc, vc), (jk, jv) = _bf16_cache(rng, b, h, s, d)
+    ln = np.asarray(lens, np.int32)
+    jout = np.asarray(jfa.flash_decode(jnp.asarray(q), jk, jv,
+                                       jnp.asarray(ln), interpret=True,
+                                       block_k=128))
+    assert jout.dtype == np.float32
+    one = tfa._decode_walk(torch.from_numpy(q), kc, vc, torch.from_numpy(ln),
+                           None, blocks=1, warps=1, block_k=128)
+    assert one.dtype == torch.float32
+    err = np.abs(one.numpy() - jout)[:, :, 0]
+    k64, v64 = kc.double().numpy(), vc.double().numpy()
+    for i, n in enumerate(np.minimum(ln, s)):
+        if n == 0:
+            assert not err[i].any()
+            continue
+        sc = np.einsum("hd,hkd->hk", q[i, :, 0].astype(np.float64),
+                       k64[i, :, :n]) * d ** -0.5
+        l = np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)
+        flip = 2.0 ** -7 * np.abs(v64[i, :, :n]).max((-2, -1)) / l
+        assert (err[i] <= TOL + TOL * np.abs(jout[i, :, 0])
+                + flip[:, None]).all(), (i, float(err[i].max()))
+
+
+@pytest.mark.parametrize("d", [64, 13])
+@pytest.mark.parametrize("lens", _BF16_LENS)
+def test_decode_bf16_plain_matches_jax_reference(d, lens):
+    """The port's plain version (the CUDA kernel's chunked walk) against
+    the JAX package's ``decode_reference`` on the same bf16 caches, at
+    one bfloat16 rounding (rtol 1e-2 plus 4e-3 of the largest
+    magnitude): the walk rounds p = exp(s - m) against each chunk's and
+    warp's running max, the reference rounds the normalized
+    probabilities, so each weight of V differs by up to a bf16 ulp."""
+    rng = np.random.RandomState(2 * d + lens[0])
+    b, h, s = 3, 2, 256
+    q, (kc, vc), (jk, jv) = _bf16_cache(rng, b, h, s, d)
+    ln = np.asarray(lens, np.int32)
+    want = np.asarray(jfa.decode_reference(
+        jnp.asarray(q[:, :, 0]), jk, jv,
+        jnp.asarray(np.minimum(ln, s)))).astype(np.float32)
+    got = tfa.flash_decode(torch.from_numpy(q), kc, vc, torch.from_numpy(ln))
+    assert got.dtype == torch.float32 and got.shape == (b, h, 1, d)
+    got = got.numpy()[:, :, 0]
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any()   # the l == 0 guard
+            continue
+        err = np.abs(got[i] - want[i])
+        assert (err <= 1e-2 * np.abs(want[i])
+                + 4e-3 * np.abs(want[i]).max()).all(), float(err.max())
+
+
+def test_decode_bf16_rounds_p_where_the_kernel_does():
+    """Over a bf16 cache the walk rounds p before P V: its result equals
+    the float64 walk with the same roundings to float32 rounding, and
+    differs from the float32 walk over the same (widened) values."""
+    rng = np.random.RandomState(5)
+    b, h, s, d = 2, 2, 64, 16
+    q, (kc, vc), _ = _bf16_cache(rng, b, h, s, d)
+    q = torch.from_numpy(q)
+    lens = torch.tensor([64, 37], dtype=torch.int32)
+    got = tfa.flash_decode_reference(q, kc, vc, lens)
+    f64 = tfa.flash_decode_reference(q, kc, vc, lens, acc=torch.float64)
+    assert f64.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), f64.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    wide = tfa.flash_decode_reference(q, kc.float(), vc.float(), lens)
+    assert not torch.equal(got, wide)
+    np.testing.assert_allclose(got.numpy(), wide.numpy(), rtol=1e-2,
+                               atol=4e-3 * float(wide.abs().max()))
+
+
+def test_decode_plan_takes_the_element_size():
+    """A bfloat16 cache halves the ring: at the serving shape 2 blocks a
+    row either way, 34944 shared bytes a block in float32, 18560 in
+    bfloat16 (the 4 warps' 2-stage rings of 8 keys x 64 columns, K and
+    V, plus 2 x 4 merge slots of 68 floats)."""
+    f32 = tfa.decode_plan(16, 8, 512, 64, sms=132)
+    bf16 = tfa.decode_plan(16, 8, 512, 64, sms=132, itemsize=2)
+    assert f32["smem_bytes"] == 34944 and bf16["smem_bytes"] == 18560
+    assert {k: v for k, v in f32.items() if k != "smem_bytes"} == \
+        {k: v for k, v in bf16.items() if k != "smem_bytes"}
+
+
+def test_decode_refuses_mixed_or_half_caches():
+    x = torch.randn(1, 2, 8, 8)
+    lens = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.flash_decode(x[:, :, :1], x, x.bfloat16(), lens)
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.flash_decode(x[:, :, :1], x.half(), x.half(), lens)
+
+
 def test_decode_plan_chunks_cover_the_valid_prefix():
     """For every length 0..S the chunks of a row are contiguous, in rank
     order, cover [0, L) with no gap or overlap, and none is empty while
@@ -265,8 +393,10 @@ def test_plain_versions_do_not_count_launches():
     tfa.flash_attention(x, x, x, causal=True)
     tfa.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16())
     tfa.flash_decode(x[:, :, :1], x, x, torch.tensor([3], dtype=torch.int32))
+    tfa.flash_decode(x[:, :, :1], x.bfloat16(), x.bfloat16(),
+                     torch.tensor([3], dtype=torch.int32))
     assert tfa.launches == {"flash_attention": 0, "flash_attention_bf16": 0,
-                            "flash_decode": 0}
+                            "flash_decode": 0, "flash_decode_bf16": 0}
 
 
 def test_wrappers_reject_bad_shapes():

@@ -129,6 +129,62 @@ def test_cuda_chunk_bitwise_with_dropout(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_guarded_chunk_with_a_poisoned_step_bitwise(cuda):
+    """A guarded program (dynamic loss scaling) with guard.nonfinite
+    armed at step 3: two chunks of 4 graph replays against 8 run()
+    calls, from the same weights with the same rule: every loss, state
+    tensor (the guard's scale and counters too) and health row bitwise
+    equal; the poisoned step skipped (its state unchanged), the scale
+    halved there and grown after every 2 clean steps; the step index reaches
+    the graph as a device tensor, so the replay at step 3 is the one
+    that skips."""
+    from paddle_tpu_torch import fault, guard
+
+    prog, startup, loss = _conv()
+    guard.enable(prog, loss, dynamic_loss_scale=True, init_loss_scale=64.0,
+                 growth_interval=2, divergence=False)
+    feeds = _conv_feeds(8)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    init = _snapshot(scope)
+    runs = []
+    for chunked in (False, True):
+        fault.clear()
+        fault.inject("guard.nonfinite", crash_on_nth=3, times=1)
+        sc = fluid.Scope()
+        _restore(sc, init)
+        exe = fluid.Executor()
+        states, rows = [], []
+        if chunked:
+            losses = []
+            for c in (0, 4):
+                losses += list(exe.run_chunk(
+                    prog, feed_chunk=stack_feeds(feeds[c:c + 4]),
+                    fetch_list=[loss], scope=sc,
+                    step0=0 if c == 0 else None)[0])
+                rows.append(exe.last_health)
+        else:
+            losses = []
+            for f in feeds:
+                losses.append(exe.run(prog, feed=f, fetch_list=[loss],
+                                      scope=sc)[0])
+                states.append(_snapshot(sc))
+                rows.append(exe.last_health)
+        exe.poll_health()
+        runs.append((losses, _snapshot(sc), np.concatenate(rows), states))
+    fault.clear()
+    (seq, seq_state, seq_rows, states), (got, got_state, got_rows, _) = runs
+    _assert_bitwise((seq, seq_state), (got, got_state))
+    assert np.array_equal(seq_rows, got_rows, equal_nan=True)
+    assert list(got_rows[:, 2]) == [0, 0, 1, 0, 0, 0, 0, 0]
+    assert list(got_rows[:, 5]) == [64, 128, 64, 64, 128, 128, 256, 256]
+    assert int(got_state["guard@skipped_steps"]) == 1
+    for n in states[1]:
+        if not n.startswith("guard@"):
+            assert torch.equal(states[1][n], states[2][n]), n
+
+
+@pytest.mark.cuda
 def test_cuda_chunk_credits_launches_per_replay(cuda):
     """The stacked LSTM (B3, B4): the capture counts nothing, each
     replay counts the step's launches once, so K steps count K times
@@ -278,7 +334,8 @@ def test_cuda_decode_graphs_token_identical_and_frozen(cuda):
     # 2 layers: 2 B1 a prefill, 2 B2 a decode step, credited per replay
     assert fa.launches == {"flash_attention": 2 * len(PROMPTS),
                            "flash_attention_bf16": 0,
-                           "flash_decode": 2 * steps[0]}
+                           "flash_decode": 2 * steps[0],
+                           "flash_decode_bf16": 0}
 
 
 @pytest.mark.cuda

@@ -58,6 +58,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.kernels.bn_grad\n"
         "import paddle_tpu_torch.kernels.conv1x1_bwd\n"
         "import paddle_tpu_torch.passes.layout, paddle_tpu_torch.flags\n"
+        "import paddle_tpu_torch.guard, paddle_tpu_torch.fault\n"
+        "import paddle_tpu_torch.telemetry\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"

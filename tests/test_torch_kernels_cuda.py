@@ -238,6 +238,57 @@ def test_cuda_decode_splits_rows_over_a_cluster(cuda, d):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
+# B2 over bfloat16 caches (DecodeEngine(cache_dtype="bfloat16")): q and
+# the output float32, p rounded to bf16 before the P V sum. Held against
+# its plain version (the same walk and roundings) and a float64 witness
+# with the same roundings, at one bfloat16 rounding (_bf16_close: the
+# rounding of p can flip by one bf16 ulp where the two compute p = exp(s
+# - m) in another order), at every head_dim instantiation, head_dim 40
+# and 13 (13 % 8 != 0: 2-byte loads) and a cache 2 bytes into its
+# storage (no 16-byte rows); ragged lengths; twice to the same bits; and
+# replayed in a CUDA graph to its eager bits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 40, 13])
+def test_cuda_decode_bf16_matches_plain_and_float64(cuda, d):
+    g = torch.Generator().manual_seed(100 + d)
+    b, h, s = 16, 8, 512
+    q = torch.randn(b, h, 1, d, generator=g).to(cuda)
+    kc, vc = (torch.randn(b, h, s, d, generator=g).to(torch.bfloat16)
+              .to(cuda) for _ in range(2))
+    lens = torch.tensor([0, 1, 2, 3, 4, 5, 159, 160, 161, 300, 303, 511,
+                         512, 600, 127, 129], dtype=torch.int32).to(cuda)
+    n0 = dict(tfa.launches)
+    out = tfa.flash_decode(q, kc, vc, lens)
+    again = tfa.flash_decode(q, kc, vc, lens)
+    assert tfa.launches["flash_decode_bf16"] == n0["flash_decode_bf16"] + 2
+    assert tfa.launches["flash_decode"] == n0["flash_decode"]
+    assert out.dtype == torch.float32
+    plain = tfa.flash_decode_reference(q, kc, vc, lens)
+    witness = tfa.flash_decode_reference(q, kc, vc, lens,
+                                         acc=torch.float64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not out[0].any()
+    _bf16_close(out, plain)
+    _bf16_close(out, witness)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_decode(q, kc, vc, lens)         # loaded before capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = tfa.flash_decode(q, kc, vc, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, out)
+    flat = torch.randn(1 + b * h * s * d, generator=g).to(
+        torch.bfloat16).to(cuda)
+    kv = flat[1:].view(b, h, s, d)
+    _bf16_close(tfa.flash_decode(q, kv, kv, lens),
+                tfa.flash_decode_reference(q, kv, kv, lens))
+
+
 @pytest.mark.cuda
 def test_cuda_decode_never_reads_past_the_length(cuda):
     g = torch.Generator().manual_seed(3)
@@ -265,14 +316,15 @@ def test_cuda_decode_plan_matches_the_kernels(cuda, shape):
     from paddle_tpu_torch.kernels import _build
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    out = (ctypes.c_int * 5)()
-    rc = _build.load("flash_attention").decode_plan(*shape, sms,
-                                                    ctypes.addressof(out))
-    assert rc == 0
-    plan = tfa.decode_plan(*shape, sms)
-    assert list(out) == [plan["blocks_per_row"], plan["threads"],
-                         plan["stages"], plan["smem_bytes"],
-                         plan["tile_keys"]]
+    for itemsize in (4, 2):     # float32 and bfloat16 caches
+        out = (ctypes.c_int * 5)()
+        rc = _build.load("flash_attention").decode_plan(
+            *shape, sms, itemsize, ctypes.addressof(out))
+        assert rc == 0
+        plan = tfa.decode_plan(*shape, sms, itemsize)
+        assert list(out) == [plan["blocks_per_row"], plan["threads"],
+                             plan["stages"], plan["smem_bytes"],
+                             plan["tile_keys"]]
 
 
 @pytest.mark.cuda

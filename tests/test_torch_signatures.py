@@ -1,0 +1,211 @@
+"""The port takes every keyword the JAX package takes: for every public
+name (``__all__``) that a module of the port and the module of the same
+path in the JAX package both export, each parameter of the JAX
+function, class constructor or public method is a parameter of the
+port's, of the same kind and with the same default. A parameter the port
+adds must have a default (or be ``*args``/``**kwargs``), so a call
+written for the JAX package still works.
+
+The differences that stay are listed by name below, each with its
+reason; a difference that is not listed fails the test."""
+
+import importlib
+import importlib.util
+import inspect
+import os
+import pkgutil
+
+import pytest
+
+import paddle_tpu  # noqa: F401  (the JAX package: every module compared)
+import paddle_tpu_torch
+
+# the Pallas kernels' interpreter switch and their TPU tiling: the CUDA
+# kernels' tiles are fixed, and a CPU tensor runs the plain version
+_PALLAS = "the Pallas interpreter switch and TPU tiling (VMEM)"
+
+#: "module:qualname" -> {parameter: reason}, or {"*": reason} for a
+#: signature that differs as a whole
+DELIBERATE = {
+    "serving.decode:DecodeEngine": {
+        "service": "the serving tier's service name (telemetry labels, "
+                   "the AOT cache) arrives with the serving tier",
+        "aot_cache": "the persistent AOT cache arrives with the serving "
+                     "tier"},
+    "serving.decode:DecodeEngine.__init__": {
+        "service": "as DecodeEngine", "aot_cache": "as DecodeEngine"},
+    "serving.decode:DecodeLoop": {
+        "name": "defaults to the engine's service name in the JAX package, "
+                "which the port's engine does not carry yet"},
+    "serving.decode:DecodeLoop.__init__": {"name": "as DecodeLoop"},
+    "core.lower:TraceContext": {
+        "*": "it carries what a run needs: the port's device and random "
+             "generators, not JAX's key, mesh and comm layer"},
+    "core.lower:TraceContext.__init__": {"*": "as TraceContext"},
+    "core.registry:OpSpec": {
+        "raw": "the JAX package's raw lowerings (control flow over the "
+               "environment) have no counterpart in the eager port"},
+    "core.registry:OpSpec.__init__": {"raw": "as OpSpec"},
+    "passes.remat:RematPlan": {
+        "fence": "XLA's optimization barrier around a replay; the eager "
+                 "port replays without one"},
+    "passes.remat:RematPlan.__init__": {"fence": "as RematPlan"},
+    "kernels.flash_attention:flash_attention": {
+        "block_q": _PALLAS, "interpret": _PALLAS},
+    "kernels.flash_attention:flash_decode": {
+        "block_k": _PALLAS, "interpret": _PALLAS},
+    "kernels.bn_grad:bn_grad": {"interpret": _PALLAS},
+    "kernels.bn_grad:supported": {"interpret": _PALLAS},
+    "kernels.bn_grad:valid_tile": {"c": _PALLAS, "itemsize": _PALLAS},
+    "kernels.conv1x1_bwd:supported": {"interpret": _PALLAS},
+    "kernels.gru_cell:gru_sequence": {"interpret": _PALLAS},
+    "kernels.lstm_cell:lstm_sequence": {"interpret": _PALLAS},
+}
+
+
+def _shared_modules():
+    """Relative module paths the port has and the JAX package has too."""
+    out = [""]
+    for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                   "paddle_tpu_torch."):
+        rel = m.name[len("paddle_tpu_torch."):]
+        if rel.endswith("__main__"):
+            continue
+        if importlib.util.find_spec("paddle_tpu." + rel) is not None:
+            out.append(rel)
+    return sorted(out)
+
+
+def _module(pkg, rel):
+    return importlib.import_module(pkg + ("." + rel if rel else ""))
+
+
+def _callables(jm, tm):
+    """(qualified name, JAX object, port object) of every shared public
+    callable and every public method (and constructor) of a shared
+    class."""
+    names = set(getattr(jm, "__all__", ())) & set(getattr(tm, "__all__", ()))
+    for n in sorted(names):
+        a, b = getattr(jm, n, None), getattr(tm, n, None)
+        if not (callable(a) and callable(b)):
+            continue
+        yield n, a, b
+        if inspect.isclass(a) and inspect.isclass(b):
+            for mn, ma in inspect.getmembers(a):
+                if mn.startswith("_") and mn != "__init__":
+                    continue
+                mb = getattr(b, mn, None)
+                if callable(ma) and callable(mb):
+                    yield n + "." + mn, ma, mb
+
+
+def _norm(v):
+    """A default as compared: a dtype by its name (jnp.float32 and
+    torch.float32 are one default)."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.dtype):
+        return str(v).replace("torch.", "")
+    if isinstance(v, type) and hasattr(v, "dtype"):
+        try:
+            return np.dtype(v).name
+        except TypeError:
+            return v
+    return v
+
+
+def _same_default(a, b):
+    if a is inspect.Parameter.empty:
+        return True             # the port may give a default the JAX
+                                # package does not
+    if b is inspect.Parameter.empty:
+        return False
+    a, b = _norm(a), _norm(b)
+    try:
+        return bool(a == b) and type(a) is type(b)
+    except Exception:
+        return repr(a) == repr(b)
+
+
+def _differences(a, b):
+    """{parameter: what differs} of the port's ``b`` against ``a``."""
+    try:
+        sa, sb = inspect.signature(a), inspect.signature(b)
+    except (TypeError, ValueError):
+        return {}
+    pa, pb = sa.parameters, sb.parameters
+    var_kw = any(p.kind == p.VAR_KEYWORD for p in pb.values())
+    out = {}
+    for name, p in pa.items():
+        q = pb.get(name)
+        if q is None:
+            if not (var_kw and p.kind in (p.KEYWORD_ONLY,
+                                          p.POSITIONAL_OR_KEYWORD)
+                    and p.default is not p.empty):
+                out[name] = "missing"
+            continue
+        if p.kind != q.kind and not (
+                p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD)):
+            out[name] = "kind %s -> %s" % (p.kind, q.kind)
+        elif not _same_default(p.default, q.default):
+            out[name] = "default %r -> %r" % (p.default, q.default)
+    for name, q in pb.items():
+        if name not in pa and q.default is q.empty and q.kind not in (
+                q.VAR_POSITIONAL, q.VAR_KEYWORD, q.KEYWORD_ONLY):
+            out[name] = "added without a default"
+    return out
+
+
+MODULES = _shared_modules()
+
+
+@pytest.mark.parametrize("rel", MODULES, ids=lambda r: r or "paddle_tpu")
+def test_the_port_takes_every_keyword_of_the_jax_package(rel):
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {}
+    for qual, a, b in _callables(jm, tm):
+        diff = _differences(a, b)
+        if diff:
+            found["%s:%s" % (rel, qual)] = diff
+    unlisted = {}
+    for key, diff in found.items():
+        listed = DELIBERATE.get(key, {})
+        if "*" in listed:
+            continue
+        rest = {p: d for p, d in diff.items() if p not in listed}
+        if rest:
+            unlisted[key] = rest
+    assert not unlisted, "signatures that differ from the JAX package's " \
+        "and are not listed as deliberate: %s" % unlisted
+    # a listed difference that went away leaves the list
+    stale = [k for k in DELIBERATE if k.split(":")[0] == rel
+             and k not in found]
+    assert not stale, "listed as deliberate but no longer different: %s" \
+        % stale
+
+
+def test_the_list_names_only_compared_modules():
+    assert {k.split(":")[0] for k in DELIBERATE} <= set(MODULES)
+
+
+def test_the_repaired_keywords_work():
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+
+    for opt in (fluid.optimizer.SGD(0.1, name="opt"),
+                fluid.optimizer.Momentum(0.1, 0.9, name="opt"),
+                fluid.optimizer.Adam(0.1, name="opt")):
+        assert opt._name == "opt"
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        x = layers.data("x", [3], type="ignored")
+    assert tuple(x.shape) == (-1, 3)
+
+
+def test_compared_modules_cover_the_public_surface():
+    for rel in ("", "optimizer", "layers.io", "core.executor", "amp",
+                "guard", "fault", "telemetry", "serving.decode",
+                "serving.kv_cache"):
+        assert rel in MODULES, rel
+    assert os.path.basename(paddle_tpu_torch.__file__) == "__init__.py"
