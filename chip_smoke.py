@@ -14,7 +14,14 @@ calls, on random weights and data made from ``--seed``:
   batch of 64 ragged sequences of 16..80 ids;
 * training of the attention seq2seq (NMT) model at the repo's full width
   (vocab 30000 source and target, emb 512, hid 512, Adam lr 1e-3) on a
-  batch of 64 ragged source and target sequences of 8..30 ids;
+  batch of 64 ragged source and target sequences of 8..30 ids, then its
+  beam-search decode from the trained weights
+  (``build_seq2seq(mode="decode")``: beam 4, 32 steps, 64 sources of 30
+  ids), whose encoder's two directions launch the GRU forward kernel;
+* row-sparse embedding training: the word_embedding model (4 context
+  words through one [30000, 512] table, ``is_sparse=True``) under SGD
+  and lazy Adam, against dense updates, through CUDA graphs and under
+  the step guard;
 * training of ResNet-50 at full width (3x224x224 images, 1000 classes,
   depth 50, batch 64, float32, Momentum lr 0.1 mu 0.9), twice from the
   same weights: config A "nhwc+reductions" (``layout="NHWC"`` and
@@ -105,6 +112,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, and the card against the CPU at a reduced size from the same
    weights (losses of 3 steps, first-step gradients);
 6. seq2seq training, the same way (exact GRU launch counts);
+6b. the seq2seq beam-search decode from the trained scope: exactly 2
+   float32 GRU forwards a decode call (from the program), well-formed
+   beams (best first, 1 <= length <= 32, eos past each length), every
+   beam's score x length equal to its teacher-forced log-probability
+   (the training graph run forward only) within 1e-4 relative, a
+   beam-1 decode emitting the teacher-forced argmax away from near-ties,
+   the card against the CPU at a reduced width (ids and lengths equal,
+   scores at rtol 1e-4, rows past a near-tie of the K-th and (K+1)-th
+   candidates excepted and counted); wall ms, tokens/s, device busy
+   time, launches and peak memory of a decode call;
+6c. row-sparse embedding training (the word_embedding graph at dict
+   30000, embedding 512, batch 64): sparse against dense SGD over 3
+   steps, lazy Adam leaving every row no id looks up bitwise unchanged
+   while the loss falls, the card against the CPU at dict 1000, sparse
+   and dense SGD and Adam through ``run_chunk``'s graphs bitwise against
+   eager steps (host and device ms/step), and the step guard skipping a
+   step whose row-sparse gradient is NaN;
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -363,6 +387,27 @@ GRAPH_K = dict(transformer=8, resnet=4, rnn=4, dropout=4)
 GRAPH_CHUNKS = 2
 # the guard phase's growth interval: the scale grows after 4 clean steps
 GUARD_GROWTH = 4
+
+# the seq2seq beam-search decode: the JAX package's default beam, 32
+# steps, from the seq2seq training phase's scope, over S2S_B source
+# sentences of S2S_T ids each (equal lengths, as bench.py feeds them);
+# the margin under which a teacher-forced argmax or a K-th/(K+1)-th
+# candidate gap counts as a near-tie
+BEAM, BEAM_T, BOS, EOS = 4, 32, 0, 1
+BEAM_TIE = 1e-4
+# the card-against-CPU decode multiplies the output layer's weights by
+# this: at initialisation the logits are so flat that 14 of 16 rows pass
+# a step whose K-th and (K+1)-th candidates lie within BEAM_TIE (1 of 16
+# at 30; measured on the CPU)
+BEAM_XCHECK_SHARPEN = 30.0
+# row-sparse embedding training: the word_embedding golden's graph
+# (tools/goldens.py:70-86: 4 context words through one table,
+# fc(act="sigmoid"), fc(act="softmax"), cross-entropy) at bench.py's
+# text widths (dict 30000, embedding 512, bench.py:163-167), hidden 512,
+# batch 64; the card against the CPU at dict 1000, embedding 64
+W2V = dict(dict_size=30000, emb=512, hidden=512)
+W2V_XCHECK = dict(dict_size=1000, emb=64, hidden=64)
+W2V_B, W2V_CONTEXT = 64, 4
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -1425,7 +1470,7 @@ def seq2seq_batch(rng, B, T, min_len, vocab):
 def seq2seq_phase(fluid, seed, dev):
     """The seq2seq training path at full width, then the card against
     the CPU at a reduced size. Returns the B5/B6 launch counts of the
-    counted steps."""
+    counted steps and the trained scope (the beam decode's weights)."""
     from paddle_tpu_torch import unique_name
     from paddle_tpu_torch.kernels import gru_cell as gc
     from paddle_tpu_torch.models.seq2seq import build_seq2seq
@@ -1504,7 +1549,7 @@ def seq2seq_phase(fluid, seed, dev):
                 seed, xbatch, XCHECK_STEPS,
                 "%s, B %d, T <= %d" % (S2S_XCHECK, S2S_XCHECK_B,
                                        S2S_XCHECK_T), gtol=1e-3)
-    return launches
+    return launches, scope
 
 
 def recurrent_launches(prog, op_type):
@@ -1520,6 +1565,449 @@ def recurrent_launches(prog, op_type):
     fwd = sum(op.type == op_type for op in ops)
     grad = sum(op.type == op_type + "_grad" for op in ops)
     return fwd + grad, grad
+
+
+def beam_decode_phase(fluid, seed, dev, scope):
+    """The seq2seq beam-search decode at full width (``S2S``), from the
+    scope the seq2seq training phase leaves (the decode program shares
+    its parameters by name): ``build_seq2seq(mode="decode",
+    beam_size=BEAM, max_len=BEAM_T)`` over S2S_B sources of S2S_T ids.
+    Checks (a) the launches of one decode call: one float32 B5 for each
+    ``gru`` op of the program (the two encoder directions), nothing else;
+    (b) well-formed beams: the shapes, best first, 1 <= length <= BEAM_T,
+    ``EOS`` past each length; (c) every one of the S2S_B x BEAM beams
+    rescored by a forward-only program ``seq2seq_train`` builds over the
+    same scope (tgt = BOS then the beam's first L-1 ids, tgt_next its L
+    ids): its summed log-probability equals score x length (the decode
+    normalises by length) within 1e-4 relative; (d) a beam-1 decode
+    emits the argmax of that teacher-forced distribution wherever the
+    top-two margin exceeds BEAM_TIE; (e) the card against the port on
+    the CPU at S2S_XCHECK's widths from the same weights (the output
+    layer sharpened by BEAM_XCHECK_SHARPEN): ids and lengths equal,
+    scores at rtol 1e-4, except the rows with a step whose K-th and
+    (K+1)-th candidates lie within BEAM_TIE on either device. Then the wall ms of a call (median of 5 after a warm call),
+    generated and candidate tokens/s, the device's busy time and
+    launches in a call, and the peak memory. Returns the kernels'
+    launches of the counted call."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq, seq2seq_train
+    from paddle_tpu_torch.ops import beam_search_ops
+
+    print("card:", card_line())
+    def decode_prog(sizes, beam):
+        with unique_name.guard():
+            prog, _, _, outs = build_seq2seq(
+                mode="decode", beam_size=beam, max_len=BEAM_T, bos_id=BOS,
+                eos_id=EOS, **sizes)
+        return prog, list(outs)
+
+    def on_card(src):
+        b, t = src.shape[:2]
+        return fluid.PackedSeq(torch.from_numpy(src).to(dev), torch.full(
+            (b,), t, dtype=torch.int32, device=dev))
+
+    prog, outs = decode_prog(S2S, BEAM)
+    fwd, bwd = recurrent_launches(prog, "gru")
+    rng = np.random.RandomState(seed + 1)
+    src = rng.randint(2, S2S["src_vocab"], (S2S_B, S2S_T, 1)).astype(
+        np.int64)
+    feed = {"src_ids": on_card(src)}
+    exe = fluid.Executor()
+    exe.run(prog, feed=feed, fetch_list=outs, scope=scope)      # warm
+    torch.cuda.synchronize()
+    reset_all_launches()
+    ids, scores, lengths = exe.run(prog, feed=feed, fetch_list=outs,
+                                   scope=scope)
+    torch.cuda.synchronize()
+    got = {n: v for n, v in all_launches().items() if v}
+    want = {"gru_fwd": fwd}
+    print("launches of one decode call: %s, expected %s (one B5 for each "
+          "of the program's %d gru ops, the encoder's two directions; %d "
+          "gru_grad)" % (json.dumps(got), json.dumps(want), fwd, bwd))
+    if got != want or bwd:
+        raise AssertionError("beam decode launches %s != %s" % (got, want))
+
+    # (b) well-formed beams
+    B, K, T = S2S_B, BEAM, BEAM_T
+    if ids.shape != (B, K, T) or scores.shape != (B, K) \
+            or lengths.shape != (B, K):
+        raise AssertionError("beam shapes %s %s %s" % (
+            ids.shape, scores.shape, lengths.shape))
+    past = np.arange(T)[None, None, :] >= lengths[:, :, None]
+    if not (np.isfinite(scores).all() and np.all(np.diff(scores, axis=1)
+                                                 <= 0)
+            and np.all((lengths >= 1) & (lengths <= T))
+            and np.all(ids[past] == EOS)):
+        raise AssertionError("beams not well formed")
+    print("beams: ids %s, scores %s, lengths %s; best first; lengths %d.."
+          "%d (mean %.2f), %d of %d beams ended by EOS; eos past every "
+          "length" % (list(ids.shape), list(scores.shape),
+                      list(lengths.shape), lengths.min(), lengths.max(),
+                      lengths.mean(), int(np.sum(lengths < T)), B * K))
+
+    # (c) rescoring by the teacher-forced training graph, forward only
+    with unique_name.guard():
+        fprog, fstart = fluid.Program(), fluid.Program()
+        with fluid.program_guard(fprog, fstart):
+            seq2seq_train(**S2S)
+    b0 = fprog.global_block()
+    # the per-sentence sum of the token losses (the last sequence_pool;
+    # sequence_first_step is the first)
+    pooled = [o for o in b0.ops if o.type == "sequence_pool"][-1] \
+        .output("Out")[0]
+    probs = [o for o in b0.ops if o.type == "softmax"][-1].output("Out")[0]
+
+    def forced(beam_ids, beam_lens, fetch):
+        """Teacher-force each beam (row b * k + j) through ``fprog``."""
+        k = beam_ids.shape[1]
+        tgt, nxt = [], []
+        for b in range(beam_ids.shape[0]):
+            for j in range(k):
+                y = beam_ids[b, j, :beam_lens[b, j]].reshape(-1, 1)
+                nxt.append(y)
+                tgt.append(np.concatenate([[[BOS]], y[:-1]]).astype(
+                    np.int64))
+        return exe.run(fprog, feed={
+            "src_ids": on_card(np.repeat(src, k, axis=0)), "tgt_ids": tgt,
+            "tgt_next_ids": nxt}, fetch_list=[fetch], scope=scope)[0]
+
+    logp = -forced(ids, lengths, pooled).reshape(B, K).astype(np.float64)
+    want_sum = scores.astype(np.float64) * lengths
+    rel = np.abs(logp - want_sum) / np.maximum(np.abs(want_sum), 1e-30)
+    print("rescoring: the %d beams' teacher-forced log-probability sums "
+          "%.4f..%.4f; score x length within %.3g relative at worst "
+          "(limit 1e-4)" % (B * K, logp.min(), logp.max(), rel.max()))
+    if not rel.max() <= 1e-4:
+        raise AssertionError("rescored beams disagree: %.3g" % rel.max())
+
+    # (d) beam 1 against the teacher-forced argmax
+    prog1, outs1 = decode_prog(S2S, 1)
+    ids1, _, len1 = exe.run(prog1, feed=feed, fetch_list=outs1, scope=scope)
+    p1 = forced(ids1, len1, probs).data
+    checked = ties = 0
+    for b in range(B):
+        for t in range(int(len1[b, 0])):
+            lp = np.log(np.maximum(p1[b, t].astype(np.float64), 1e-30))
+            top2 = np.partition(lp, -2)[-2:]
+            if top2[1] - top2[0] <= BEAM_TIE:
+                ties += 1
+                continue
+            checked += 1
+            if int(np.argmax(lp)) != int(ids1[b, 0, t]):
+                raise AssertionError(
+                    "beam 1: row %d step %d emitted %d, the teacher-forced "
+                    "argmax is %d" % (b, t, ids1[b, 0, t], np.argmax(lp)))
+    print("beam 1: %d emitted tokens equal the teacher-forced argmax; %d "
+          "near-ties (top-two margin <= %g) excepted" % (checked, ties,
+                                                          BEAM_TIE))
+    del p1
+
+    # (e) the card against the CPU at a reduced width, same weights
+    with unique_name.guard():
+        _, xstart, _, _ = build_seq2seq(lr=LR, **S2S_XCHECK)
+    xstart.random_seed = seed
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(xstart, scope=cpu_scope)
+    for n in ("dec_out_w", "dec_out_b"):
+        cpu_scope.find_var(n).mul_(BEAM_XCHECK_SHARPEN)
+    for n, t_ in cpu_scope.vars.items():
+        card_scope.set_var(n, t_.to(dev))
+    xprog, xouts = decode_prog(S2S_XCHECK, BEAM)
+    xsrc = rng.randint(2, S2S_XCHECK["src_vocab"],
+                       (S2S_XCHECK_B, S2S_XCHECK_T, 1)).astype(np.int64)
+    orig = beam_search_ops.top_k_lower_index_first
+    res = {}
+    for name, ex, sc in (("cpu", fluid.Executor(fluid.CPUPlace()),
+                          cpu_scope),
+                         ("card", exe, card_scope)):
+        gaps = []
+
+        def recording(x, k):
+            # the first k of the top k + 1 are the top k
+            v, i = orig(x, k + 1)
+            gaps.append((v[:, k - 1] - v[:, k]).abs().cpu())
+            return v[:, :k], i[:, :k]
+
+        beam_search_ops.top_k_lower_index_first = recording
+        try:
+            out = ex.run(xprog, feed={"src_ids": [r for r in xsrc]},
+                         fetch_list=xouts, scope=sc)
+        finally:
+            beam_search_ops.top_k_lower_index_first = orig
+        res[name] = (out, torch.stack(gaps).min(0).values.numpy())
+    near = (res["cpu"][1] <= BEAM_TIE) | (res["card"][1] <= BEAM_TIE)
+    ok = ~near
+    (ci, cs, cl), (ki, ks, kl) = res["cpu"][0], res["card"][0]
+    if not (np.array_equal(ki[ok], ci[ok]) and np.array_equal(kl[ok],
+                                                              cl[ok])):
+        raise AssertionError("beam decode: card and CPU disagree on ids or "
+                             "lengths away from near-ties")
+    np.testing.assert_allclose(ks[ok], cs[ok], rtol=1e-4)
+    print("card == cpu at %s (output layer x%g), %d sources of %d ids, "
+          "beam %d, max_len %d: ids and lengths equal, scores within rtol "
+          "1e-4 (worst %.3g) on %d of %d rows; %d rows excepted (a step's "
+          "K-th and (K+1)-th candidates within %g)" % (
+              S2S_XCHECK, BEAM_XCHECK_SHARPEN, S2S_XCHECK_B, S2S_XCHECK_T,
+              BEAM, BEAM_T,
+              float(np.max(np.abs(ks[ok] - cs[ok]) / np.abs(cs[ok])))
+              if ok.any() else 0.0, int(ok.sum()), len(ok),
+              int(near.sum()), BEAM_TIE))
+    del cpu_scope, card_scope
+
+    # the decode call's wall time, tokens/s, device time, memory
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(prog, feed=feed, fetch_list=outs, scope=scope)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+    wall = float(np.median(walls))
+    gen = int(lengths[:, 0].sum())
+    print("decode call: %.3f ms wall (median of 5: %s); %d sentences, %.1f "
+          "sentences/s; %d generated tokens (the top beams' lengths), "
+          "%.1f generated tokens/s; %d candidate tokens (B x K x T), %.1f "
+          "candidate tokens/s" % (
+              wall, " ".join("%.3f" % w for w in walls), B,
+              B / wall * 1e3, gen, gen / wall * 1e3, B * K * T,
+              B * K * T / wall * 1e3))
+    device_profile(lambda: exe.run(prog, feed=feed, fetch_list=outs,
+                                   scope=scope),
+                   1, wall, "beam decode call", share_of="gru_fwd_kernel")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    exe.run(prog, feed=feed, fetch_list=outs, scope=scope)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print("decode call: peak allocated %.1f MB, %.1f MB above the %.1f MB "
+          "held before it (the training scope)" % (
+              peak / 1e6, (peak - base) / 1e6, base / 1e6))
+    return {"gru_fwd": fwd}
+
+
+def word_embedding_build(fluid, sizes, is_sparse, opt, only_table=False):
+    """The word_embedding golden's graph (tools/goldens.py:70-86) at
+    ``sizes``, its table row-sparse or dense, trained by ``opt()``; only
+    the table with ``only_table``."""
+    from paddle_tpu_torch import layers, unique_name
+
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            words = [layers.data("w%d" % i, [1], dtype="int64")
+                     for i in range(W2V_CONTEXT)]
+            embs = [layers.embedding(
+                w, size=[sizes["dict_size"], sizes["emb"]],
+                is_sparse=is_sparse, param_attr=fluid.ParamAttr(
+                    name="shared")) for w in words]
+            hidden = layers.fc(layers.concat(embs, axis=1), sizes["hidden"],
+                               act="sigmoid")
+            predict = layers.fc(hidden, sizes["dict_size"], act="softmax")
+            label = layers.data("next", [1], dtype="int64")
+            loss = layers.mean(layers.cross_entropy(predict, label))
+            opt().minimize(loss, parameter_list=["shared"] if only_table
+                           else None)
+    return prog, startup, loss
+
+
+def word_embedding_feed(rng, sizes, dev=None):
+    """W2V_B windows of Zipf-distributed ids (a text's word frequencies:
+    the frequent words repeat within a batch, so the row-sparse gradient
+    carries duplicate rows), as tensors on ``dev`` or numpy."""
+    ids = np.minimum(rng.zipf(1.1, (W2V_CONTEXT + 1, W2V_B, 1)),
+                     sizes["dict_size"]) - 1
+    feed = {"w%d" % i: ids[i].astype(np.int64) for i in range(W2V_CONTEXT)}
+    feed["next"] = ids[W2V_CONTEXT].astype(np.int64)
+    if dev is not None:
+        feed = {n: torch.from_numpy(a).to(dev) for n, a in feed.items()}
+    return feed
+
+
+def sparse_phase(fluid, seed, dev):
+    """Row-sparse embedding training at full width (``W2V``): (a) sparse
+    SGD (lr 0.1) against dense SGD from the same weights, 3 steps: losses
+    at rtol 1e-5, the table within 1e-5 x max|table|; (b) sparse Adam
+    (1e-3), 2 + 10 steps: each step leaves the parameter and both moments
+    of every row it does not look up bitwise unchanged, the loss falls,
+    and no kernel of the port's is launched (the path has none); (c) the
+    card against the port on the CPU at ``W2V_XCHECK``, sparse Adam, 3
+    steps: losses and every state tensor at rtol 1e-4; (d) ``run_chunk``
+    (K=4, two chunks of graph replays) against eager steps, sparse and
+    dense, SGD and Adam (graph_path: bitwise, and the sparse updates
+    bitwise from one eager run to the next), with host and device ms/step
+    eager and with graphs; (e) the step guard over the table alone:
+    ``guard.nonfinite`` at step 2 puts a NaN into the row-sparse
+    gradient, the only gradient, and the step is skipped with every state
+    tensor bitwise unchanged."""
+    from paddle_tpu_torch import fault, guard
+
+    print("card:", card_line())
+    rng = np.random.RandomState(seed + 2)
+    feed = word_embedding_feed(rng, W2V, dev)
+    ids = torch.cat([feed["w%d" % i].reshape(-1)
+                     for i in range(W2V_CONTEXT)])
+    touched = torch.unique(ids)
+    untouched = torch.ones(W2V["dict_size"], dtype=torch.bool, device=dev)
+    untouched[touched] = False
+    V, E = W2V["dict_size"], W2V["emb"]
+    print("batch %d windows: %d ids, %d distinct rows of %d; the table "
+          "%.1f MB, with Adam's moments %.1f MB" % (
+              W2V_B, ids.numel(), touched.numel(), V, V * E * 4 / 1e6,
+              3 * V * E * 4 / 1e6))
+    exe = fluid.Executor()
+
+    # (a) sparse SGD against dense SGD
+    sgd = (lambda: fluid.optimizer.SGD(0.1))
+    adam = (lambda: fluid.optimizer.Adam(1e-3))
+    sp = word_embedding_build(fluid, W2V, True, sgd)
+    de = word_embedding_build(fluid, W2V, False, sgd)
+    sp[1].random_seed = seed
+    s_scope, d_scope = fluid.Scope(), fluid.Scope()
+    exe.run(sp[1], scope=s_scope)
+    for n, t in s_scope.vars.items():
+        d_scope.set_var(n, t.clone())
+    ls, ld = [], []
+    for _ in range(3):
+        ls.append(float(exe.run(sp[0], feed=feed, fetch_list=[sp[2]],
+                                scope=s_scope)[0]))
+        ld.append(float(exe.run(de[0], feed=feed, fetch_list=[de[2]],
+                                scope=d_scope)[0]))
+    np.testing.assert_allclose(ls, ld, rtol=1e-5)
+    ts, td = s_scope.find_var("shared"), d_scope.find_var("shared")
+    err, amax = float((ts - td).abs().max()), float(td.abs().max())
+    print("sparse SGD == dense SGD over 3 steps: losses %s / %s (rtol "
+          "1e-5), the table within %.3g of max|table| %.4g (limit 1e-5)"
+          % (" ".join("%.6f" % v for v in ls),
+             " ".join("%.6f" % v for v in ld), err / amax, amax))
+    if not err <= 1e-5 * amax:
+        raise AssertionError("sparse and dense SGD tables differ: %.3g"
+                             % err)
+    del s_scope, d_scope
+
+    # (b) sparse Adam: untouched rows bitwise, the loss falls
+    prog, startup, loss = word_embedding_build(fluid, W2V, True, adam)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    table = ["shared"] + sorted(
+        n for n, v in prog.global_block().vars.items()
+        if getattr(v, "optimizer_state_for", None) == "shared"
+        and tuple(v.shape) == (V, E))
+    reset_all_launches()
+    losses = []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        before = {n: scope.find_var(n)[untouched].clone() for n in table}
+        losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        for n in table:
+            if not torch.equal(scope.find_var(n)[untouched], before[n]):
+                raise AssertionError("lazy Adam moved untouched rows of %s"
+                                     % n)
+    torch.cuda.synchronize()
+    launched = {n: v for n, v in all_launches().items() if v}
+    print("sparse Adam: %d steps, %s and its moments %s bitwise unchanged "
+          "on the %d rows no id looks up; losses %s; kernel launches %s "
+          "(the path runs none of the port's kernels)" % (
+              len(losses), table[0], table[1:], int(untouched.sum()),
+              " ".join("%.6f" % v for v in losses), json.dumps(launched)))
+    if len(table) != 3 or launched or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("sparse Adam: moments %s, launches %s, losses "
+                             "%s" % (table, launched, losses))
+    del scope
+
+    # (c) the card against the CPU at a reduced width
+    xprog, xstart, xloss = word_embedding_build(fluid, W2V_XCHECK, True,
+                                                adam)
+    xstart.random_seed = seed
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(xstart, scope=cpu_scope)
+    for n, t in cpu_scope.vars.items():
+        card_scope.set_var(n, t.to(dev))
+    xfeed = word_embedding_feed(rng, W2V_XCHECK)
+    for step in range(3):
+        c = float(cpu.run(xprog, feed=xfeed, fetch_list=[xloss],
+                          scope=cpu_scope)[0])
+        k = float(exe.run(xprog, feed=xfeed, fetch_list=[xloss],
+                          scope=card_scope)[0])
+        np.testing.assert_allclose(k, c, rtol=1e-4)
+    worst = 0.0
+    for n, want in cpu_scope.vars.items():
+        got = card_scope.find_var(n).cpu()
+        d = (got.double() - want.double()).abs()
+        lim = 1e-4 * want.double().abs() + 1e-6 * float(
+            want.double().abs().max())
+        if bool((d > lim).any()):
+            raise AssertionError("sparse Adam card vs cpu: %s" % n)
+        worst = max(worst, float((d / (want.double().abs() + 1e-30))
+                                 .max()) if want.numel() else 0.0)
+    print("card == cpu at %s, batch %d: 3 sparse Adam steps' losses (last "
+          "%.7f / %.7f) and all %d state tensors within rtol 1e-4 (+ 1e-6 "
+          "of each tensor's max)" % (W2V_XCHECK, W2V_B, c, k,
+                                     len(cpu_scope.vars)))
+    del cpu_scope, card_scope
+
+    # (d) run_chunk's graphs against eager steps; ms/step
+    times = {}
+    for opt_name, opt in (("SGD", sgd), ("Adam", adam)):
+        for sparse in (True, False):
+            label = "word_embedding %s %s" % ("sparse" if sparse
+                                              else "dense", opt_name)
+            r = graph_path(fluid, label, word_embedding_build(
+                fluid, W2V, sparse, opt), feed, 4, 2, seed, {},
+                (1e-5, 1e-4, 1e-5))
+            if sparse and r["noisy"]:
+                raise AssertionError("%s: %d state tensors differ between "
+                                     "two eager runs" % (label, r["noisy"]))
+            times[label] = r
+    print("word_embedding ms/step (host eager, host graphs, busy eager, "
+          "busy graphs): %s" % "; ".join(
+              "%s %.3f %.3f %s %s" % (n, r["host_eager"], r["host_graphs"],
+                                      "%.3f" % r["busy_eager"]
+                                      if r["busy_eager"] is not None
+                                      else "n/m",
+                                      "%.3f" % r["busy_graphs"]
+                                      if r["busy_graphs"] is not None
+                                      else "n/m")
+              for n, r in times.items()))
+
+    # (e) the guard skips a step whose row-sparse gradient is NaN
+    prog, startup, loss = word_embedding_build(fluid, W2V, True, adam,
+                                               only_table=True)
+    guard.enable(prog, loss, divergence=False)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    gexe = fluid.Executor()             # its steps count from 1 here
+    fault.clear()
+    fault.inject("guard.nonfinite", crash_on_nth=2, times=1)
+    try:
+        rows = []
+        for i in range(4):
+            before = scope_state(scope)
+            gexe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            rows.append(gexe.poll_health())
+            after = scope_state(scope)
+            if i == 1:
+                moved = [n for n in before if not n.startswith("guard@")
+                         and not torch.equal(before[n], after[n])]
+                if moved:
+                    raise AssertionError("the skipped step moved %s"
+                                         % moved)
+            if not bool(torch.isfinite(after["shared"]).all()):
+                raise AssertionError("a NaN reached the table")
+    finally:
+        fault.clear()
+    skipped = np.concatenate(rows)[:, 2]
+    print("guard over the row-sparse table gradient alone, NaN injected at "
+          "step 2: skipped %s (want [0, 1, 0, 0]); every state tensor "
+          "bitwise unchanged across the skip; the table finite" %
+          skipped.tolist())
+    if skipped.tolist() != [0.0, 1.0, 0.0, 0.0]:
+        raise AssertionError("guard skipped %s" % skipped)
+    return times
 
 
 def rnn_amp_phase(fluid, seed, dev, model):
@@ -3709,7 +4197,26 @@ def main():
 
     # ---- 6. the seq2seq training slice at full width ----
     phase("seq2seq training at full width (seed %d)" % args.seed)
-    launches.update(seq2seq_phase(fluid, args.seed, dev))
+    s2s_launches, s2s_scope = seq2seq_phase(fluid, args.seed, dev)
+    launches.update(s2s_launches)
+
+    # ---- 6b. the seq2seq beam-search decode at full width ----
+    phase("seq2seq beam-search decode at full width: beam %d, max_len %d, "
+          "%d sources of %d ids, from the trained scope (seed %d)"
+          % (BEAM, BEAM_T, S2S_B, S2S_T, args.seed))
+    t0 = time.perf_counter()
+    launches["gru_fwd"] += beam_decode_phase(fluid, args.seed, dev,
+                                             s2s_scope)["gru_fwd"]
+    del s2s_scope
+    print("beam decode phase: %.1f s" % (time.perf_counter() - t0))
+
+    # ---- 6c. row-sparse embedding training at full width ----
+    phase("row-sparse embedding training at full width: the "
+          "word_embedding graph, dict %d, embedding %d, batch %d (seed %d)"
+          % (W2V["dict_size"], W2V["emb"], W2V_B, args.seed))
+    t0 = time.perf_counter()
+    sparse_phase(fluid, args.seed, dev)
+    print("row-sparse phase: %.1f s" % (time.perf_counter() - t0))
 
     # ---- 7. the convnet training slice at full width ----
     phase("ResNet-50 training at full width, configs A and B (seed %d)"

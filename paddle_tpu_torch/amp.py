@@ -94,9 +94,12 @@ def disable(program):
 
 
 def _cast_val(v, src, dst):
-    """Cast ``v`` (tensor or PackedSeq) from dtype ``src`` to ``dst``."""
-    from paddle_tpu_torch.core.lower import PackedSeq
+    """Cast ``v`` (tensor, PackedSeq or RowSparse) from dtype ``src`` to
+    ``dst``."""
+    from paddle_tpu_torch.core.lower import PackedSeq, RowSparse
 
+    if isinstance(v, RowSparse):
+        return v.astype(dst) if v.dtype == src else v
     if isinstance(v, PackedSeq):
         if v.data.dtype == src:
             return PackedSeq(v.data.to(dst), v.lengths)
@@ -119,9 +122,8 @@ def cast_ins(spec, ins, amp_dtype):
             p = ins["Param"][0]
             if isinstance(p, torch.Tensor):
                 ins = dict(ins)
-                ins["Grad"] = [
-                    g.to(p.dtype) if isinstance(g, torch.Tensor)
-                    and g.dtype == dt else g for g in ins["Grad"]]
+                ins["Grad"] = [_cast_val(g, dt, p.dtype)
+                               for g in ins["Grad"]]
         return ins
     if spec.type in FP32_OPS:
         return {slot: [_cast_val(v, dt, torch.float32) for v in vals]

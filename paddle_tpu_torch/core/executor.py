@@ -64,8 +64,8 @@ from paddle_tpu_torch import passes as passes_lib
 from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.core.infer import torch_dtype
-from paddle_tpu_torch.core.lower import (PackedSeq, TraceContext, run_block,
-                                         step_key)
+from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TraceContext,
+                                         run_block, step_key)
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
@@ -473,7 +473,13 @@ def slice_feed(chunk, i):
 
 
 def stack_steps(values):
-    """K steps' values of one fetch -> one ``[K, ...]`` value."""
+    """K steps' values of one fetch -> one ``[K, ...]`` value (a
+    RowSparse's rows and values stacked, as ``lax.scan`` stacks its
+    leaves in the JAX package)."""
+    if isinstance(values[0], RowSparse):
+        return RowSparse(torch.stack([v.rows for v in values]),
+                         torch.stack([v.values for v in values]),
+                         values[0].height)
     if isinstance(values[0], PackedSeq):
         return PackedSeq(torch.stack([v.data for v in values]),
                          torch.stack([v.lengths for v in values]))
@@ -514,7 +520,15 @@ def _find_var(program, name):
 def _to_numpy(v):
     """A fetch as numpy. numpy has no bfloat16, so a bfloat16 fetch (a
     mixed-precision activation) comes back widened to float32, exactly;
-    ``return_numpy=False`` keeps the tensor and its dtype."""
+    ``return_numpy=False`` keeps the tensor and its dtype. A RowSparse
+    comes back as the JAX executor returns it (``np.asarray`` of the
+    object): a 0-d object array holding the RowSparse, here of numpy
+    arrays."""
+    if isinstance(v, RowSparse):
+        out = np.empty((), dtype=object)
+        out[()] = RowSparse(_to_numpy(v.rows), _to_numpy(v.values),
+                            v.height)
+        return out
     if isinstance(v, PackedSeq):
         return PackedSeq(_to_numpy(v.data), v.lengths.cpu().numpy())
     if v.dtype == torch.bfloat16:

@@ -63,7 +63,8 @@ import torch
 
 from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core.executor import run_step, slice_feed
-from paddle_tpu_torch.core.lower import PackedSeq, op_seed, step_key
+from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, op_seed,
+                                         step_key)
 
 __all__ = ["run_chunk", "StepGraph", "CapturedRun", "RecordDraws",
            "launch_counters"]
@@ -166,7 +167,21 @@ class CapturedRun:
 
 
 def _tensors(v):
-    return [v.data, v.lengths] if isinstance(v, PackedSeq) else [v]
+    if isinstance(v, PackedSeq):
+        return [v.data, v.lengths]
+    if isinstance(v, RowSparse):
+        return [v.rows, v.values]
+    return [v]
+
+
+def _rebuild(v, ts):
+    """A value like ``v`` (a tensor, PackedSeq or RowSparse) made of the
+    tensors ``ts``, in ``_tensors``' order."""
+    if isinstance(v, PackedSeq):
+        return PackedSeq(*ts)
+    if isinstance(v, RowSparse):
+        return RowSparse(ts[0], ts[1], v.height)
+    return ts[0]
 
 
 def _storages(values):
@@ -175,17 +190,12 @@ def _storages(values):
 
 
 def _clone(v):
-    if isinstance(v, PackedSeq):
-        return PackedSeq(v.data.clone(), v.lengths.clone())
-    return v.clone()
+    return _rebuild(v, [t.clone() for t in _tensors(v)])
 
 
 def _buffer_like(v):
-    if isinstance(v, PackedSeq):
-        return PackedSeq(torch.empty_like(v.data, memory_format=torch.
-                                          contiguous_format),
-                         torch.empty_like(v.lengths))
-    return torch.empty_like(v, memory_format=torch.contiguous_format)
+    return _rebuild(v, [torch.empty_like(
+        t, memory_format=torch.contiguous_format) for t in _tensors(v)])
 
 
 def _copy_into(dst, src):
@@ -194,15 +204,12 @@ def _copy_into(dst, src):
 
 
 def _stacked_like(v, k):
-    if isinstance(v, PackedSeq):
-        return PackedSeq(v.data.new_empty((k,) + tuple(v.data.shape)),
-                         v.lengths.new_empty((k,) + tuple(v.lengths.shape)))
-    return v.new_empty((k,) + tuple(v.shape))
+    return _rebuild(v, [t.new_empty((k,) + tuple(t.shape))
+                        for t in _tensors(v)])
 
 
 def _row(v, i):
-    return PackedSeq(v.data[i], v.lengths[i]) if isinstance(v, PackedSeq) \
-        else v[i]
+    return _rebuild(v, [t[i] for t in _tensors(v)])
 
 
 def _sig(v):

@@ -41,7 +41,7 @@ import torch
 from paddle_tpu_torch.core import registry
 
 __all__ = ["TraceContext", "run_block", "run_op", "step_key", "op_seed",
-           "PackedSeq"]
+           "PackedSeq", "RowSparse", "add_rows"]
 
 
 class PackedSeq:
@@ -77,6 +77,61 @@ class PackedSeq:
     def __repr__(self):
         return "PackedSeq(data=%s, lengths=%s)" % (
             tuple(self.data.shape), tuple(self.lengths.shape))
+
+
+class RowSparse:
+    """Row-sparse gradient: the SelectedRows redesign (reference
+    `framework/selected_rows.h`, `operators/math/selected_rows_functor.cc`),
+    as the JAX package carries it. ``rows`` [K] int32 indices into a
+    height-``height`` table; ``values`` [K, ...] per-row data. Duplicate
+    rows are allowed and mean summation. Produced by lookup_table's
+    backward under ``is_sparse`` and consumed by the sparse-aware
+    optimizer ops: an embedding update touches K rows, not the whole
+    [V, D] table. K is the batch's id count, so a step's shapes stay
+    fixed and a CUDA graph captures it. Rows are added with
+    :func:`add_rows`."""
+
+    __slots__ = ("rows", "values", "height")
+
+    def __init__(self, rows, values, height):
+        self.rows = rows
+        self.values = values
+        self.height = int(height)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def shape(self):
+        return (self.height,) + tuple(self.values.shape[1:])
+
+    def to_dense(self):
+        return add_rows(self.values.new_zeros(self.shape), self.rows,
+                        self.values)
+
+    def astype(self, dtype):
+        return RowSparse(self.rows, self.values.to(dtype), self.height)
+
+    def __repr__(self):
+        return "RowSparse(rows=%s, values=%s, height=%d)" % (
+            tuple(self.rows.shape), tuple(self.values.shape), self.height)
+
+
+def add_rows(t, rows, values):
+    """``t`` with ``values[i]`` added to row ``rows[i]`` for every i (a
+    new tensor), duplicate rows added one after another in index order,
+    as the JAX package's scatter-add on the CPU adds them, so the result
+    has the same bits from run to run. On the card ``index_put(...,
+    accumulate=True)`` sorts the rows (stably) and adds each row's
+    duplicates in one thread; ``index_add`` would add them by atomics
+    there, in any order. On the CPU ``index_add`` is the serial loop,
+    where ``index_put`` adds by atomics across threads."""
+    rows = rows.to(torch.int64)
+    if t.device.type == "cuda":
+        return t.index_put((rows,), values, accumulate=True)
+    return t.index_add(0, rows, values)
+
 
 _MASK64 = (1 << 64) - 1
 
@@ -280,6 +335,8 @@ def _run_generic_grad_op(ctx, block, op, env):
 
 
 def _zeros_like(v):
+    if isinstance(v, RowSparse):
+        return RowSparse(v.rows, torch.zeros_like(v.values), v.height)
     if isinstance(v, PackedSeq):
         return PackedSeq(torch.zeros_like(v.data), v.lengths)
     return torch.zeros_like(v)

@@ -49,6 +49,7 @@ import torch
 
 from paddle_tpu_torch import fault
 from paddle_tpu_torch import telemetry
+from paddle_tpu_torch.core.lower import RowSparse
 
 __all__ = ["GuardConfig", "Divergence", "DivergenceDetector",
            "HealthTracker", "enable", "disable", "reset_state",
@@ -430,11 +431,27 @@ class TraceGuard:
 
     def _poison(self, g):
         bad = torch.where(self._poisoned, float("nan"), 0.0)
+        if isinstance(g, RowSparse):
+            return RowSparse(g.rows, g.values + bad.to(g.values.dtype),
+                             g.height)
         return g + bad.to(g.dtype)
 
     def _unscale(self, g):
         inv = 1.0 / self.scale
+        if isinstance(g, RowSparse):
+            return RowSparse(g.rows, g.values * inv.to(g.values.dtype),
+                             g.height)
         return g * inv.to(g.dtype)
+
+
+def _float_leaves(g):
+    """The float tensors of a gradient, as the JAX package's
+    ``_float_leaves`` takes a pytree's: a ``RowSparse`` gives its
+    values (its int32 rows are not float)."""
+    if isinstance(g, RowSparse):
+        g = g.values
+    return [g] if isinstance(g, torch.Tensor) and g.is_floating_point() \
+        else []
 
 
 def finalize(tg, env, old_mut, cand_mut):
@@ -456,9 +473,9 @@ def finalize(tg, env, old_mut, cand_mut):
     # shared sum of squares) and the finiteness test: a NaN/Inf in any
     # gradient reaches the float32 sum, and a sum that overflows reads
     # as unhealthy too
-    leaves = [g.to(torch.float32).reshape(-1)
+    leaves = [leaf.to(torch.float32).reshape(-1)
               for name, g in tg._grads if name not in tg._clip_covered
-              and isinstance(g, torch.Tensor) and g.is_floating_point()]
+              for leaf in _float_leaves(g)]
     if leaves:
         flat = leaves[0] if len(leaves) == 1 else torch.cat(leaves)
         extra_sq = torch.dot(flat, flat)

@@ -5,14 +5,17 @@ Capability parity: `python/paddle/fluid/layers/control_flow.py`
 sub-block, and the RNN is one differentiable ``scan_block`` op in the
 parent block (``ops/control_flow_ops.py``) instead of the reference's
 recurrent op and its hand-written grad. ``increment`` and
-``less_than`` are here for the learning-rate schedulers. ``While``,
-``DynamicRNN`` and the tensor-array layers arrive with the decode
-slice.
+``less_than`` are here for the learning-rate schedulers. A memory
+without ``init`` is filled in the parent block by
+``fill_constant_batch_size_like``. ``While``, ``Switch``, ``DynamicRNN``
+and the tensor-array layers arrive with a later slice; the beam-search
+decode needs none of them (``layers/decoder.py``).
 """
 
 import contextlib
 
 from paddle_tpu_torch.layer_helper import LayerHelper
+from paddle_tpu_torch.layers import tensor as tensor_layers
 
 __all__ = ["StaticRNN", "increment", "less_than"]
 
@@ -78,10 +81,17 @@ class StaticRNN:
                init_batch_dim_idx=0, ref_batch_dim_idx=0):
         self._in_step("memory")
         if init is None:
-            raise NotImplementedError(
-                "StaticRNN.memory(init=None): a memory filled from "
-                "batch_ref (fill_constant_batch_size_like) arrives with a "
-                "later slice; pass init=")
+            if shape is None or batch_ref is None:
+                raise ValueError("memory needs init var or (shape, batch_ref)")
+            # the fill goes in the parent block
+            prog = self.helper.main_program
+            cur = prog.current_block_idx
+            prog.current_block_idx = self.parent_block.idx
+            init = tensor_layers.fill_constant_batch_size_like(
+                batch_ref, [1] + [int(s) for s in shape[1:]] if shape[0] == -1
+                else [int(s) for s in shape],
+                "float32", init_value, ref_batch_dim_idx, init_batch_dim_idx)
+            prog.current_block_idx = cur
         pre = self.sub_block.create_var(
             name=self.helper.name + ".mem_%d" % len(self.memories),
             shape=init.shape, dtype=init.dtype)

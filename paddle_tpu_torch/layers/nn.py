@@ -7,7 +7,7 @@ layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
 losses and metric, of the attention seq2seq model's training graph, and
 of the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
-ResNet, VGG, AlexNet, GoogLeNet and SmallNet);
+ResNet, VGG, AlexNet, GoogLeNet and SmallNet), and the activations;
 the JAX package's other layers arrive with later slices.
 """
 
@@ -27,6 +27,8 @@ __all__ = [
     "squeeze", "unsqueeze", "flash_attention", "multi_head_attention",
     "elementwise_div", "exp", "floor", "sign", "pow", "clip",
     "clip_by_norm", "where", "autoincreased_step_counter",
+    "sigmoid", "sqrt", "log", "square", "abs", "ceil", "prelu",
+    "leaky_relu", "elu", "relu6", "swish", "brelu", "soft_relu", "maxout",
 ]
 
 
@@ -602,11 +604,34 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
     return (out, kc_out, vc_out) if cache is not None else out
 
 
-# ---- unary math, clipping and selection (the lr schedulers, clip.py
-# and regularizer.py emit these) ----
+# ---- unary math, activations, clipping and selection ----
+
+def sigmoid(x, name=None):
+    return _single_op("sigmoid", x, name=name)
+
+
+def sqrt(x, name=None):
+    return _single_op("sqrt", x, name=name)
+
 
 def exp(x, name=None):
     return _single_op("exp", x, name=name)
+
+
+def log(x, name=None):
+    return _single_op("log", x, name=name)
+
+
+def square(x, name=None):
+    return _single_op("square", x, name=name)
+
+
+def abs(x, name=None):
+    return _single_op("abs", x, name=name)
+
+
+def ceil(x, name=None):
+    return _single_op("ceil", x, name=name)
 
 
 def floor(x, name=None):
@@ -619,6 +644,50 @@ def sign(x, name=None):
 
 def pow(x, factor=1.0, name=None):
     return _single_op("pow", x, {"factor": factor}, name=name)
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    else:
+        alpha_shape = [int(s) for s in x.shape[1:]]
+    alpha = helper.create_parameter(helper.param_attr, alpha_shape, x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", {"X": [x], "Alpha": [alpha]}, {"Out": [out]},
+                     {"mode": mode})
+    return out
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _single_op("leaky_relu", x, {"alpha": alpha}, name=name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _single_op("elu", x, {"alpha": alpha}, name=name)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _single_op("relu6", x, {"threshold": threshold}, name=name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _single_op("swish", x, {"beta": beta}, name=name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _single_op("brelu", x, {"t_min": t_min, "t_max": t_max}, name=name)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _single_op("soft_relu", x, {"threshold": threshold}, name=name)
+
+
+def maxout(x, groups, name=None):
+    return _single_op("maxout", x, {"groups": groups}, name=name)
 
 
 def clip(x, min, max, name=None):

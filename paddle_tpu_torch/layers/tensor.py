@@ -2,7 +2,8 @@
 
 Capability parity: `python/paddle/fluid/layers/tensor.py`. The port
 carries ``create_global_var``, ``cast``, ``concat``, ``fill_constant``,
-``ones_like`` and ``position_ids``; the rest of the module's layers
+``fill_constant_batch_size_like``, ``ones_like`` and ``position_ids``;
+the rest of the module's layers
 arrive with later slices.
 """
 
@@ -11,7 +12,7 @@ import numpy as np
 from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["create_global_var", "cast", "concat", "fill_constant",
-           "ones_like", "position_ids"]
+           "fill_constant_batch_size_like", "ones_like", "position_ids"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -46,6 +47,20 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper.append_op("fill_constant", {}, {"Out": [out]},
                      {"shape": [int(s) for s in shape],
                       "dtype": np.dtype(dtype).name, "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("fill_constant_batch_size_like", {"Input": [input]},
+                     {"Out": [out]},
+                     {"shape": [int(s) for s in shape],
+                      "dtype": np.dtype(dtype).name, "value": float(value),
+                      "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
     out.stop_gradient = True
     return out
 

@@ -1,19 +1,20 @@
-"""Attention seq2seq (NMT): the training graph.
+"""Attention seq2seq (NMT) with beam-search decoding.
 
 Capability parity: the machine_translation book model (bi-GRU encoder,
-Bahdanau-attention GRU decoder trained with teacher forcing) and
-`benchmark/fluid/machine_translation.py`. The JAX package's
+Bahdanau-attention GRU decoder trained with teacher forcing, beam-search
+decode) and `benchmark/fluid/machine_translation.py`. The JAX package's
 ``models/seq2seq.py``, name for name: the train decoder is a StaticRNN
 step (one ``scan_block`` op), attention is a dense masked softmax over
-the padded encoder states, and the vocabulary projection runs once over
-all steps outside the loop. The beam-search decode of the same model
-arrives with a later slice.
+the padded encoder states, the vocabulary projection runs once over all
+steps outside the loop, and the decode is one ``beam_search_block`` op
+(``layers/decoder.py``) whose step shares the training program's
+parameters by name.
 """
 
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import layers
 
-__all__ = ["seq2seq_train", "build_seq2seq"]
+__all__ = ["seq2seq_train", "seq2seq_decode", "build_seq2seq"]
 
 
 def _encoder(src_ids, src_vocab, emb_dim, hidden_dim):
@@ -119,21 +120,55 @@ def seq2seq_train(src_vocab, tgt_vocab, emb_dim=32, hidden_dim=32):
     return [src.name, tgt.name, tgt_next.name], avg_cost
 
 
+def seq2seq_decode(src_vocab, tgt_vocab, emb_dim=32, hidden_dim=32,
+                   beam_size=4, max_len=16, bos_id=0, eos_id=1):
+    """Builds the beam-search decode graph (shares weights by param name);
+    returns (feed_name, (ids, scores, lengths))."""
+    src = layers.data("src_ids", [1], dtype="int64", lod_level=1)
+    enc, init_state = _encoder(src, src_vocab, emb_dim, hidden_dim)
+    enc_dense, _ = layers.sequence_pad(enc)
+    enc_mask = layers.cast(layers.sequence_mask(enc), "float32")
+    enc_proj = layers.fc(enc_dense, hidden_dim, num_flatten_dims=2,
+                         param_attr=fluid.ParamAttr(name="att_enc_w"),
+                         bias_attr=False)
+
+    dec = layers.BeamSearchDecoder(beam_size=beam_size, max_len=max_len,
+                                   bos_id=bos_id, eos_id=eos_id)
+    with dec.step():
+        tok = dec.token()                       # [B*K,1]
+        state = dec.state(init_state)           # [B*K,H] (auto-tiled)
+        enc_dense_t = dec.batch_input(enc_dense)
+        enc_proj_t = dec.batch_input(enc_proj)
+        enc_mask_t = dec.batch_input(enc_mask)
+        cur_emb = layers.embedding(
+            tok, size=[tgt_vocab, emb_dim],
+            param_attr=fluid.ParamAttr(name="tgt_emb"))
+        ctx = _attention(state, enc_dense_t, enc_proj_t, enc_mask_t,
+                         hidden_dim)
+        new_state = _decoder_cell(cur_emb, ctx, state, hidden_dim)
+        logits = _out_logits(new_state, ctx, tgt_vocab)
+        dec.update_state(state, new_state)
+        dec.set_logits(logits)
+    ids, scores, lengths = dec()
+    return src.name, (ids, scores, lengths)
+
+
 def build_seq2seq(src_vocab, tgt_vocab, emb_dim=32, hidden_dim=32,
                   mode="train", beam_size=4, max_len=16, bos_id=0, eos_id=1,
                   lr=1e-3):
     """(main_program, startup_program, feed_names, fetch_vars) for the
     NMT config (reference benchmark/fluid/machine_translation.py shape).
-    ``mode`` "train" is the teacher-forced graph with Adam; "decode"
-    (beam search) arrives with a later slice and raises."""
-    if mode != "train":
-        raise NotImplementedError(
-            "build_seq2seq(mode=%r): the beam-search decode (while, "
-            "beam_search) arrives with the beam-search decode slice; "
-            "only mode='train' is ported" % (mode,))
+    ``mode``: "train" (teacher-forced, Adam) or "decode" (beam search;
+    shares parameters with a train program by name)."""
     prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(prog, startup):
-        feeds, avg_cost = seq2seq_train(src_vocab, tgt_vocab, emb_dim,
-                                        hidden_dim)
-        fluid.optimizer.Adam(lr).minimize(avg_cost)
-    return prog, startup, feeds, (avg_cost,)
+        if mode == "train":
+            feeds, avg_cost = seq2seq_train(src_vocab, tgt_vocab, emb_dim,
+                                            hidden_dim)
+            fluid.optimizer.Adam(lr).minimize(avg_cost)
+            return prog, startup, feeds, (avg_cost,)
+        feed_name, outs = seq2seq_decode(
+            src_vocab, tgt_vocab, emb_dim, hidden_dim,
+            beam_size=beam_size, max_len=max_len, bos_id=bos_id,
+            eos_id=eos_id)
+        return prog, startup, (feed_name,), outs

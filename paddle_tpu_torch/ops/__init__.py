@@ -10,4 +10,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     rnn_ops,
     optimizer_ops,
     control_flow_ops,
+    beam_search_ops,
 )

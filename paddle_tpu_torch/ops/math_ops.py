@@ -3,8 +3,9 @@
 Capability parity: reference `paddle/fluid/operators/` elementwise group
 (`elementwise_op_function.h` broadcasting), `activation_op.*`,
 `scale_op`, `reduce_sum_op`, `mean_op`, `sum_op`, `mul_op` and
-`lookup_table_op`, as the JAX package's
-``ops/math_ops.py`` lowers them, with its gradient flags. A plain
+`lookup_table_op` (with its row-sparse gradient), as the JAX package's
+``ops/math_ops.py`` lowers them, with its gradient flags: the whole
+activation table and the attr-taking activations after it. A plain
 product stays ``torch.matmul``, as the JAX package left it to XLA. The
 module's other ops arrive with later slices.
 """
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import registry
-from paddle_tpu_torch.core.lower import PackedSeq
+from paddle_tpu_torch.core.lower import PackedSeq, RowSparse
 from paddle_tpu_torch.core.registry import op
 
 
@@ -58,36 +59,138 @@ _elementwise("min", torch.minimum)
 
 # ---- activations (activation_op.cc catalogue) ----
 
+# The JAX package's table, op for op. ``round`` rounds half to even as
+# ``jnp.round`` does (so does ``torch.round``); ``gelu`` is the exact
+# erf form (reference gelu_op defaults to non-approximate); ``softplus``
+# is ``logaddexp(x, 0)`` as ``jax.nn.softplus``.
 _ACTIVATIONS = {
+    "sigmoid": torch.sigmoid,
+    "logsigmoid": F.logsigmoid,
     "exp": torch.exp,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "tanh_shrink": lambda x: x - torch.tanh(x),
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "abs": torch.abs,
+    "ceil": torch.ceil,
     "floor": torch.floor,
+    "round": torch.round,
     "cos": torch.cos,
+    "sin": torch.sin,
+    "reciprocal": lambda x: 1.0 / x,
+    "log": torch.log,
+    "square": torch.square,
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "softsign": F.softsign,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "silu": F.silu,
     "sign": torch.sign,
+    "erf": torch.erf,
 }
 
 for _name, _fn in _ACTIVATIONS.items():
     op(_name, seq_map=True)(lambda ctx, ins, attrs, o, fn=_fn: fn(_x(ins)))
 
 
-@op("gelu", seq_map=True)
-def _gelu(ctx, ins, attrs, o):
-    # exact erf form (reference gelu_op defaults to non-approximate)
-    return F.gelu(_x(ins), approximate="none")
+@op("leaky_relu", seq_map=True)
+def _leaky_relu(ctx, ins, attrs, o):
+    # jax.nn.leaky_relu: the slope-1 side includes 0 (its gradient too)
+    x = _x(ins)
+    return torch.where(x >= 0, x, attrs.get("alpha", 0.02) * x)
 
 
-@op("relu", seq_map=True)
-def _relu(ctx, ins, attrs, o):
-    return torch.relu(_x(ins))
+@op("elu", seq_map=True)
+def _elu(ctx, ins, attrs, o):
+    # jax.nn.elu: expm1 of the non-positive side only
+    x = _x(ins)
+    pos = x > 0
+    return torch.where(pos, x, attrs.get("alpha", 1.0) * torch.expm1(
+        torch.where(pos, torch.zeros_like(x), x)))
 
 
-@op("tanh", seq_map=True)
-def _tanh(ctx, ins, attrs, o):
-    return torch.tanh(_x(ins))
+@op("relu6")
+def _relu6(ctx, ins, attrs, o):
+    return torch.clamp(_x(ins), 0.0, attrs.get("threshold", 6.0))
 
 
 @op("pow")
 def _pow(ctx, ins, attrs, o):
     return torch.pow(_x(ins), attrs.get("factor", 1.0))
+
+
+@op("hard_sigmoid")
+def _hard_sigmoid(ctx, ins, attrs, o):
+    slope = attrs.get("slope", 0.2)
+    offset = attrs.get("offset", 0.5)
+    return torch.clamp(_x(ins) * slope + offset, 0.0, 1.0)
+
+
+@op("soft_relu")
+def _soft_relu(ctx, ins, attrs, o):
+    t = attrs.get("threshold", 40.0)
+    return torch.log1p(torch.exp(torch.clamp(_x(ins), -t, t)))
+
+
+@op("swish")
+def _swish(ctx, ins, attrs, o):
+    return _x(ins) * torch.sigmoid(attrs.get("beta", 1.0) * _x(ins))
+
+
+@op("brelu")
+def _brelu(ctx, ins, attrs, o):
+    return torch.clamp(_x(ins), attrs.get("t_min", 0.0),
+                       attrs.get("t_max", 24.0))
+
+
+@op("prelu")
+def _prelu(ctx, ins, attrs, o):
+    x, alpha = _x(ins), _x(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return torch.where(x > 0, x, a * x)
+
+
+@op("maxout")
+def _maxout(ctx, ins, attrs, o):
+    x = _x(ins)  # NCHW
+    g = attrs["groups"]
+    n, c, h, w = x.shape
+    # amax spreads a tie's gradient evenly, as jnp.max's does
+    return torch.amax(x.reshape(n, c // g, g, h, w), dim=2)
+
+
+@op("hard_shrink")
+def _hard_shrink(ctx, ins, attrs, o):
+    t = attrs.get("threshold", 0.5)
+    x = _x(ins)
+    return torch.where(torch.abs(x) > t, x, 0.0)
+
+
+@op("soft_shrink")
+def _soft_shrink(ctx, ins, attrs, o):
+    lam = attrs.get("lambda", 0.5)
+    x = _x(ins)
+    return torch.sign(x) * torch.clamp(torch.abs(x) - lam, min=0.0)
+
+
+@op("thresholded_relu")
+def _thresholded_relu(ctx, ins, attrs, o):
+    t = attrs.get("threshold", 1.0)
+    x = _x(ins)
+    return torch.where(x > t, x, 0.0)
+
+
+@op("stanh")
+def _stanh(ctx, ins, attrs, o):
+    a = attrs.get("scale_a", 2.0 / 3.0)
+    b = attrs.get("scale_b", 1.7159)
+    return b * torch.tanh(a * _x(ins))
 
 
 # ---- scale / clip / misc unary with attrs ----
@@ -122,24 +225,29 @@ def _global_norm_clip(ctx, ins, attrs, o):
     sum-of-squares reduction instead of the reference's per-grad
     squared_l2_norm + sum + sqrt op chain (`python/paddle/fluid/
     clip.py:137`). The reduction runs in float32 whatever the
-    gradients' dtype. A row-sparse gradient has no producer in this
-    package yet (``lookup_table(is_sparse=True)`` raises in its grad):
-    anything but a dense tensor raises. Under the training-health guard
-    the reduction is shared: the guard's health norm reuses it
-    (``guard.py``)."""
+    gradients' dtype; a row-sparse gradient contributes its values
+    (duplicate rows unmerged, as in the JAX package) and is scaled
+    row by row. Under the training-health guard the reduction is
+    shared: the guard's health norm reuses it (``guard.py``)."""
     gs = ins["X"]
-    for g in gs:
-        if not isinstance(g, torch.Tensor):
-            raise NotImplementedError(
-                "global_norm_clip: a row-sparse gradient (%s) arrives "
-                "with a later slice" % type(g).__name__)
-    gnorm_sq = sum(torch.sum(torch.square(g.to(torch.float32)))
-                   for g in gs)
+
+    def sq(g):
+        v = g.values if isinstance(g, RowSparse) else g
+        return torch.sum(torch.square(v.to(torch.float32)))
+
+    gnorm_sq = sum(sq(g) for g in gs)
     clip_norm = float(attrs["clip_norm"])
     factor = clip_norm / torch.clamp(torch.sqrt(gnorm_sq), min=clip_norm)
+
+    def scale(g):
+        if isinstance(g, RowSparse):
+            return RowSparse(g.rows, g.values * factor.to(g.values.dtype),
+                             g.height)
+        return g * factor.to(g.dtype)
+
     if ctx.guard is not None:
         ctx.guard.note_clip_norm(gnorm_sq, attrs.get("param_names", ()))
-    return {"Out": [g * factor.to(g.dtype) for g in gs]}
+    return {"Out": [scale(g) for g in gs]}
 
 
 # ---- reductions ----
@@ -171,7 +279,17 @@ def _mean(ctx, ins, attrs, o):
 
 @op("sum", seq_map=True)
 def _sum(ctx, ins, attrs, o):
+    """Reference sum_op. Over row-sparse inputs only, the sum is their
+    concatenation (duplicate rows accumulate where the rows are applied,
+    `selected_rows_functor.cc`): the backward emits it when one table is
+    looked up several times. Mixed inputs are densified first."""
     xs = ins["X"]
+    if any(isinstance(x, RowSparse) for x in xs):
+        if all(isinstance(x, RowSparse) for x in xs):
+            return RowSparse(torch.cat([x.rows for x in xs]),
+                             torch.cat([x.values for x in xs]),
+                             xs[0].height)
+        xs = [x.to_dense() if isinstance(x, RowSparse) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -241,15 +359,30 @@ def _lookup_table(ctx, ins, attrs, o):
 
 
 def _lookup_table_grad(ctx, ins, out_grads, attrs, o):
-    """The dense gradient of the table (``is_sparse`` False) is the
-    generic one: a [V, D] scatter-add, as in the JAX package. The
-    row-sparse gradient of ``is_sparse`` arrives with a later slice."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table(is_sparse=True): row-sparse gradients arrive "
-            "with a later slice")
-    spec = registry.REGISTRY["lookup_table"]
-    return registry.generic_grad(ctx, spec, o, ins, out_grads)
+    """``is_sparse``: a ``RowSparse`` gradient (rows = the looked-up ids,
+    values = the output cotangents) instead of a scatter-add into a
+    dense [V, D] zeros, the sparse-update path of the reference
+    (`selected_rows_functor.cc`, `distribute_transpiler.py:531`). A
+    PackedSeq's padded steps and the rows of ``padding_idx`` contribute
+    zeros. The dense gradient is the generic one, as in the JAX
+    package."""
+    if not attrs.get("is_sparse", False):
+        spec = registry.REGISTRY["lookup_table"]
+        return registry.generic_grad(ctx, spec, o, ins, out_grads)
+    w, ids = ins["W"][0], ins["Ids"][0]
+    dy = out_grads.get("Out", [None])[0]
+    if dy is None:
+        return {}
+    ids_arr = ids.data if isinstance(ids, PackedSeq) else ids
+    dy_arr = dy.data if isinstance(dy, PackedSeq) else dy
+    ids_flat = ids_arr.to(torch.int32).reshape(-1)
+    vals = dy_arr.reshape(ids_flat.shape[0], -1)
+    if isinstance(ids, PackedSeq):
+        vals = vals * ids.mask(vals.dtype).reshape(-1, 1)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        vals = torch.where((ids_flat == pad)[:, None], 0.0, vals)
+    return {"W": [RowSparse(ids_flat, vals, w.shape[0])], "Ids": [None]}
 
 
 registry.REGISTRY["lookup_table"].grad_lower = _lookup_table_grad

@@ -1,8 +1,8 @@
 """Tensor-manipulation op lowerings.
 
 Capability parity: reference cast/reshape/transpose/squeeze/unsqueeze/
-concat/top_k/assign/fill_constant/increment/where/uniform_random/
-gaussian_random
+concat/top_k/assign/fill_constant/fill_constant_batch_size_like/
+increment/where/uniform_random/gaussian_random
 (`paddle/fluid/operators/`, §2.3
 "Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
 lowers them, with its gradient flags. The module's other ops arrive
@@ -112,6 +112,20 @@ def _fill_constant(ctx, ins, attrs, o):
     shape = tuple(int(s) for s in attrs.get("shape", []))
     return torch.full(shape, attrs.get("value", 0.0), dtype=dtype,
                       device=ctx.device)
+
+
+@op("fill_constant_batch_size_like", no_grad=True)
+def _fill_constant_bsl(ctx, ins, attrs, o):
+    """A constant whose ``output_dim_idx`` dim is the ``input_dim_idx``
+    dim of Input (a PackedSeq's padded buffer counts its batch there)."""
+    ref = _x(ins, "Input")
+    ref = ref.data if isinstance(ref, PackedSeq) else ref
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return torch.full(tuple(shape), attrs.get("value", 0.0),
+                      dtype=torch_dtype(attrs.get("dtype", "float32")),
+                      device=ref.device)
 
 
 @op("increment", no_grad=True)

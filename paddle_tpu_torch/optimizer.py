@@ -1,7 +1,7 @@
 """Optimizers: build update ops from params_grads.
 
 Capability parity: `python/paddle/fluid/optimizer.py` (Optimizer base
-:34, SGD :117, Momentum :126, Adam :361). ``minimize`` = append_backward + clip + regularization
+:34, SGD :117, Momentum :126, Adagrad :320, Adam :361). ``minimize`` = append_backward + clip + regularization
 + one update op per parameter; a parameter's own learning rate
 (``ParamAttr(learning_rate=...)``) is a ``scale`` of the shared rate. The learning-rate variable and the
 accumulators are created exactly as the JAX package creates them (same
@@ -18,8 +18,9 @@ from paddle_tpu_torch.initializer import Constant
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
-           "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "SGDOptimizer",
+           "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer",
+           "Optimizer"]
 
 
 class Optimizer:
@@ -132,6 +133,25 @@ class Momentum(Optimizer):
             {"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, program, params):
+        for p in params:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param, grad):
+        m = self._get_accumulator("moment", param)
+        return block.append_op(
+            "adagrad",
+            {"Param": [param.name], "Grad": [grad.name], "Moment": [m.name],
+             "LearningRate": [self._lr(param).name]},
+            {"ParamOut": [param.name], "MomentOut": [m.name]},
+            {"epsilon": self._epsilon})
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -168,4 +188,5 @@ class Adam(Optimizer):
 # reference-compatible aliases
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum
+AdagradOptimizer = Adagrad
 AdamOptimizer = Adam

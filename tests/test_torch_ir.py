@@ -6,8 +6,9 @@ sub-block and scan_block_grad), the transformer LM's training program
 (next-token softmax cross-entropy, Adam) at the golden's size and at
 bench.py's width, the MNIST MLP and LeNet training programs and the
 ResNet-50 training program (Momentum) give the same JSON in both
-packages; LeNet under AMP, VGG-16, AlexNet, GoogLeNet and
-SmallNet build their goldens."""
+packages; LeNet under AMP, VGG-16, AlexNet, GoogLeNet, SmallNet and
+the word-embedding model build their goldens; the seq2seq beam-search
+decode and the counting decoder give the same JSON in both packages."""
 
 import json
 import os
@@ -166,6 +167,53 @@ def test_seq2seq_train_json_identical_to_jax(size, which):
     assert _dump(t[i]) == _dump(j[i])
 
 
+@pytest.mark.parametrize("which", ["main", "startup"])
+@pytest.mark.parametrize("size", sorted(SEQ2SEQ_SIZES))
+def test_seq2seq_decode_json_identical_to_jax(size, which):
+    """``build_seq2seq(mode="decode")``: the beam_search_block op, its
+    step sub-block and its Params in the JAX package's order."""
+    kw = dict(SEQ2SEQ_SIZES[size], mode="decode", beam_size=4, max_len=16)
+    with jnames.guard():
+        j = jseq2seq.build_seq2seq(**kw)
+    with tnames.guard():
+        t = tseq2seq.build_seq2seq(**kw)
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+    assert [op.type for op in t[0].global_block().ops].count(
+        "beam_search_block") == 1
+
+
+def _counting_decoder(fluid, layers):
+    """tests/test_beam_search.py's counting decoder."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        init_h = layers.fill_constant(shape=[2, 1], dtype="float32",
+                                      value=0.0)
+        dec = layers.BeamSearchDecoder(beam_size=4, max_len=4, bos_id=0,
+                                       eos_id=0, length_normalize=False)
+        with dec.step():
+            dec.token()
+            h = dec.state(init_h)
+            new_h = layers.increment(h, value=1.0, in_place=False)
+            logits = layers.fc(new_h, 6,
+                               param_attr=fluid.ParamAttr(name="bs_toy_w"),
+                               bias_attr=fluid.ParamAttr(name="bs_toy_b"))
+            dec.update_state(h, new_h)
+            dec.set_logits(logits)
+        dec()
+    return prog, startup
+
+
+@pytest.mark.parametrize("which", ["main", "startup"])
+def test_counting_decoder_json_identical_to_jax(which):
+    with jnames.guard():
+        j = _counting_decoder(jfluid, jlayers)
+    with tnames.guard():
+        t = _counting_decoder(tfluid, tlayers)
+    i = 0 if which == "main" else 1
+    assert _dump(t[i]) == _dump(j[i])
+
+
 # the golden's size (tools/goldens.py) and bench.py's transformer run
 LM_SIZES = {"golden": dict(vocab_size=50, seq_len=16, d_model=32,
                            num_layers=2, num_heads=2),
@@ -204,6 +252,25 @@ def test_scan_block_shapes_infer_on_meta_tensors():
     assert [b0.var(n).type for n in op.output("Out")] == ["packed_seq"] * 2
 
 
+def _word_embedding():
+    """tools/goldens.py's word_embedding: four lookups of one table,
+    fc(act="sigmoid"), fc(act="softmax"), cross-entropy, SGD."""
+    prog, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(prog, startup):
+        words = [tlayers.data("w%d" % i, [1], dtype="int64")
+                 for i in range(4)]
+        embs = [tlayers.embedding(w, size=[100, 16],
+                                  param_attr=tfluid.ParamAttr(name="shared"))
+                for w in words]
+        concat = tlayers.concat(embs, axis=1)
+        hidden = tlayers.fc(concat, 32, act="sigmoid")
+        predict = tlayers.fc(hidden, 100, act="softmax")
+        label = tlayers.data("next", [1], dtype="int64")
+        cost = tlayers.mean(tlayers.cross_entropy(predict, label))
+        tfluid.optimizer.SGD(0.1).minimize(cost)
+    return prog, startup
+
+
 def _amp(built):
     tfluid.amp.enable(built[0])
     return built
@@ -227,7 +294,8 @@ def _amp(built):
         image_shape=(3, 67, 67), class_dim=10)),
     ("googlenet", lambda: tgooglenet.build_googlenet_train(
         image_shape=(3, 64, 64), class_dim=10)),
-    ("smallnet", lambda: tsmallnet.build_smallnet_train())])
+    ("smallnet", lambda: tsmallnet.build_smallnet_train()),
+    ("word_embedding", _word_embedding)])
 def test_training_program_equals_golden(name, build):
     """The goldens' builders (tools/goldens.py), run in the port."""
     with tnames.guard():

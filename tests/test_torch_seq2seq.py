@@ -17,7 +17,6 @@ reference instead."""
 import os
 
 import numpy as np
-import pytest
 import torch
 
 import paddle_tpu as jfluid
@@ -231,8 +230,3 @@ def test_port_startup_trains_on_ragged_batches_without_launches_on_cpu():
     assert np.isfinite(out).all() and out[-1] < out[0]
     assert gru_cell.launches == {"gru_fwd": 0, "gru_bwd": 0,
                                  "gru_fwd_bf16": 0, "gru_bwd_bf16": 0}
-
-
-def test_decode_mode_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="beam-search"):
-        tseq.build_seq2seq(mode="decode", **SMALL)

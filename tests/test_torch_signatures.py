@@ -209,3 +209,29 @@ def test_compared_modules_cover_the_public_surface():
                 "serving.kv_cache"):
         assert rel in MODULES, rel
     assert os.path.basename(paddle_tpu_torch.__file__) == "__init__.py"
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("layers.decoder", "BeamSearchDecoder"),
+    ("layers.decoder", "BeamSearchDecoder.__init__"),
+    ("layers.control_flow", "StaticRNN.memory"),
+    ("optimizer", "Adagrad"),
+    ("optimizer", "AdagradOptimizer"),
+    ("layers.tensor", "fill_constant_batch_size_like"),
+    ("models.seq2seq", "build_seq2seq"),
+    ("models.seq2seq", "seq2seq_decode"),
+    ("layers.nn", "sigmoid"),
+    ("layers.nn", "prelu"),
+    ("core.lower", "RowSparse"),
+    ("core.lower", "RowSparse.astype"),
+])
+def test_the_beam_decode_and_sparse_names_are_compared(rel, qual):
+    """The names the beam-search decode and the row-sparse gradients
+    brought are shared public names, compared like every other, with
+    no deliberate difference."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
