@@ -18,6 +18,10 @@ calls, on random weights and data made from ``--seed``:
   beam-search decode from the trained weights
   (``build_seq2seq(mode="decode")``: beam 4, 32 steps, 64 sources of 30
   ids), whose encoder's two directions launch the GRU forward kernel;
+* one-shot serving: LeNet saved, loaded and served over RPC
+  (``ServingEngine``, ``DynamicBatcher``, ``ServingServer``,
+  ``ServingClient``), the stacked LSTM's ragged requests through the
+  engine and batcher, ``generate`` over RPC, and the ``serve`` CLI;
 * row-sparse embedding training: the word_embedding model (4 context
   words through one [30000, 512] table, ``is_sparse=True``) under SGD
   and lazy Adam, against dense updates, through CUDA graphs and under
@@ -107,6 +111,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    cache's wherever its top-two margin exceeds twice the largest logit
    difference between the engines (teacher-forced), the same tokens with
    graphs and eagerly, ``compile_count()`` frozen while the loop serves;
+4c. serving (S1-S4): LeNet from startup weights saved with
+   ``io.save_inference_model`` and loaded back, served by a
+   ``ServingEngine`` (buckets 1-64, each a captured CUDA graph) behind a
+   ``ServingServer`` (3 ms window) to 16 ``ServingClient`` threads x 64
+   requests of batch 1, as bench.py's serving row runs on an accelerator:
+   every answer bitwise equal to the eager run of its padded bucket and
+   within 1e-5 of ``Executor.run`` on its row alone, no capture and no
+   jit miss during the traffic, req/s, latency p50/p90/p99 and where a
+   request's time goes (tracing spans), then a typed ``Overloaded`` from
+   a held batch and a drain that answers every admitted request; the
+   stacked LSTM at bench.py's widths through the engine (``seq_lens``
+   80) and a ``DynamicBatcher`` fed ragged requests by 8 threads, 3 B3
+   launches a replay, the same two bounds; ``generate`` over RPC on phase
+   4's engine, tokens identical to its in-process loop, 8 B1 a prefill
+   and 8 B2 a step, a 1 ms deadline; and ``python -m paddle_tpu_torch
+   serve`` as a subprocess, its answer bitwise S1's float32 engine's,
+   SIGTERM to exit 0;
 5. stacked-LSTM training: startup, 2 warmup steps, 10 counted steps
    (falling finite loss, exact LSTM launch counts), a profile of one
    step, and the card against the CPU at a reduced size from the same
@@ -206,12 +227,17 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 
 import argparse
+import collections
 import json
 import math
+import os
+import queue
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -230,6 +256,20 @@ BF16_FLOPS_PER_S = 989e12
 VOCAB, D_MODEL, N_LAYERS, N_HEADS = 8192, 512, 8, 8
 MAX_LEN, SLOTS, BUCKETS = 512, 16, (8, 16, 32)
 N_REQUESTS, LONG_NEW, SHORT_NEW = 24, 128, 8
+
+# one-shot serving over RPC as bench.py's _bench_serving runs it on an
+# accelerator (bench.py:650-751): LeNet, buckets up to 64, a 3 ms
+# coalescing window, 16 clients x 64 requests of batch 1; the stacked
+# LSTM's ragged requests from 8 threads of 8 each; generate over RPC
+# from 8 threads. An answer is held within rtol 1e-5 plus 1e-6 of the
+# largest magnitude of Executor.run on its rows alone (another batch
+# size may take another cuDNN or cuBLAS algorithm), and bitwise against
+# the eager run of its padded bucket
+SERVE_MAX_BATCH, SERVE_MAX_QUEUE = 64, 64
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 64
+RAGGED_THREADS, RAGGED_PER_THREAD = 8, 8
+GEN_THREADS = 8
+SERVE_RTOL, SERVE_AMAX = 1e-5, 1e-6
 
 # full width: the repo's stacked-LSTM configuration (bench.py:163-167)
 # at the reference's published batch of 64
@@ -3967,6 +4007,603 @@ def decode_graphs(engine, loop_cls, engine_cls, scope, prefill, decode, meta,
     return ms
 
 
+def serving_breakdown(spans):
+    """Per-request tracing spans of a serving run as {bucket: {phase:
+    {p50, p99}}} in ms: queue wait, batch form, padding (the pad_rows /
+    bucket share of the compute span) and compute, as bench.py's
+    ``_serving_breakdown`` (bench.py:596-648) aggregates them."""
+    per_trace = {}
+    for s in spans:
+        per_trace.setdefault(s["trace_id"], []).append(s)
+    rows = {}
+    for ss in per_trace.values():
+        comp = next((s for s in ss
+                     if s["name"] == "paddle_tpu.serving.compute"), None)
+        if comp is None:
+            continue
+        bucket = comp["attrs"]["bucket"]
+        queue = sum(s["dur_us"] for s in ss
+                    if s["name"] == "paddle_tpu.serving.queue_wait")
+        form = sum(s["dur_us"] for s in ss
+                   if s["name"] == "paddle_tpu.serving.batch_form")
+        pad = comp["dur_us"] * comp["attrs"]["pad_rows"] / float(bucket)
+        rows.setdefault(bucket, []).append(
+            (queue, form, pad, comp["dur_us"] - pad))
+    out = {}
+    for bucket in sorted(rows):
+        arr = np.asarray(rows[bucket]) / 1000.0
+        entry = {"requests": len(rows[bucket])}
+        for i, name in enumerate(("queue", "batch_form", "padding",
+                                  "compute")):
+            entry[name + "_ms"] = {
+                "p50": float(np.percentile(arr[:, i], 50)),
+                "p99": float(np.percentile(arr[:, i], 99))}
+        out[str(bucket)] = entry
+    return out
+
+
+def request_split(spans):
+    """p50 over requests of each layer's own ms: the client span less the
+    server's (framing, the socket and the client's wait to run), the
+    server span less the batcher's (the handler and its wait for the
+    batch's future to resolve), the batcher's queue wait, batch form and
+    compute (copy-in, replay, copy-out)."""
+    per_trace = {}
+    for s in spans:
+        per_trace.setdefault(s["trace_id"], {})[s["name"]] = s["dur_us"]
+    rows = []
+    for d in per_trace.values():
+        if "paddle_tpu.serving.compute" not in d:
+            continue
+        batch = sum(d.get("paddle_tpu.serving." + n, 0.0) for n in (
+            "queue_wait", "batch_form", "compute"))
+        rows.append((d["paddle_tpu.serving.client_infer"]
+                     - d["paddle_tpu.rpc.server"],
+                     d["paddle_tpu.rpc.server"] - batch,
+                     d["paddle_tpu.serving.queue_wait"],
+                     d["paddle_tpu.serving.batch_form"],
+                     d["paddle_tpu.serving.compute"],
+                     d["paddle_tpu.serving.client_infer"]))
+    arr = np.asarray(rows) / 1000.0
+    return {name: float(np.median(arr[:, i])) for i, name in enumerate((
+        "client_and_transport", "server_handler", "queue_wait",
+        "batch_form", "compute", "total"))}
+
+
+class Recording:
+    """An engine as the batcher sees it, keeping each dispatched batch's
+    feed and outputs (host copies) so that every answer can be held
+    against an eager run of the same padded bucket afterwards."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.batches = []
+        self.lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def infer(self, feed, **kw):
+        outs = self.engine.infer(feed, **kw)
+        with self.lock:
+            self.batches.append(({n: _host_copy(v) for n, v in feed.items()},
+                                 [o.copy() for o in outs]))
+        return outs
+
+
+class Gated:
+    """An engine whose dispatches wait for ``gate`` (a blocked batch);
+    ``entered`` is set when the first one arrives."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.gate = threading.Event()
+        self.entered = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def infer(self, feed, **kw):
+        self.entered.set()
+        if not self.gate.wait(120):
+            raise RuntimeError("the gate never opened")
+        return self.engine.infer(feed, **kw)
+
+
+def _host_copy(v):
+    from paddle_tpu_torch import PackedSeq
+    if isinstance(v, PackedSeq):
+        return PackedSeq(np.array(v.data), np.array(v.lengths))
+    return np.array(v)
+
+
+def wait_for(pred, timeout=30.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError("condition never held")
+        time.sleep(0.005)
+
+
+def serving_close(what, got, want, rtol=SERVE_RTOL, amax=SERVE_AMAX):
+    """``got`` within rtol plus amax of max|want| of ``want``; returns the
+    largest error over that bound's scale, for printing."""
+    tol = rtol * np.abs(want) + amax * float(np.abs(want).max())
+    err = np.abs(got - want)
+    if not (err <= tol).all():
+        raise AssertionError("%s: max abs err %.3g exceeds rtol %g + %g "
+                             "max|want|" % (what, float(err.max()), rtol,
+                                            amax))
+    return float(err.max())
+
+
+def serving_oneshot(fluid, seed, dev, work):
+    """S1: LeNet over RPC as bench.py's _bench_serving runs it on an
+    accelerator (bench.py:650-751), from startup weights saved and
+    loaded back; then overload and drain."""
+    from paddle_tpu_torch import layers, telemetry, tracing, unique_name
+    from paddle_tpu_torch.models.lenet import lenet
+    from paddle_tpu_torch.serving import (Overloaded, DynamicBatcher,
+                                          ServingClient, ServingEngine,
+                                          ServingServer)
+
+    scope = fluid.Scope()
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = seed
+        with fluid.program_guard(prog, startup):
+            img = layers.data("img", [1, 28, 28])
+            predict = lenet(img)
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    model_dir = os.path.join(work, "lenet")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(model_dir, ["img"], [predict], exe,
+                                      main_program=prog)
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        iprog, feeds, fetch_vars = fluid.io.load_inference_model(model_dir,
+                                                                 exe)
+    fetches = [v.name for v in fetch_vars]
+    for n in scope.vars:
+        if not torch.equal(loaded.find_var(n), scope.find_var(n)):
+            raise AssertionError("%s changed through save/load" % n)
+
+    # the eager engine every answer is held against, built before the
+    # telemetry counts: the counters then see the served engine alone
+    eager = ServingEngine(iprog, feeds, fetches, scope=loaded,
+                          max_batch=SERVE_MAX_BATCH)
+    eager._capture = False
+    eager.warmup()
+    telemetry.reset()
+    telemetry.enable()
+    engine = ServingEngine(iprog, feeds, fetches, scope=loaded,
+                           max_batch=SERVE_MAX_BATCH)
+    t0 = time.perf_counter()
+    per_bucket = engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    if engine.compile_count() != 7 or engine.buckets != (1, 2, 4, 8, 16,
+                                                         32, 64):
+        raise AssertionError("buckets %s, compile_count %d"
+                             % (engine.buckets, engine.compile_count()))
+    print("S1 LeNet: %d buckets %s captured in %.3f s (%s); counted flops "
+          "a bucket %s" % (
+              engine.compile_count(), list(engine.buckets), warmup_s,
+              json.dumps({b: round(s, 4) for b, s in per_bucket.items()}),
+              json.dumps({b: c["flops"] for b, c in
+                          sorted(engine.bucket_costs().items())})))
+    misses0 = telemetry.summary()[
+        "paddle_tpu_executor_jit_cache_misses_total"]
+
+    spans = []
+    server = ServingServer(engine, max_delay_ms=3.0,
+                           max_queue=SERVE_MAX_QUEUE)
+    rec = Recording(engine)
+    server.batcher.engine = rec
+    server.start()
+    rng = np.random.RandomState(seed)
+    images = rng.rand(SERVE_CLIENTS, SERVE_PER_CLIENT, 1, 1, 28,
+                      28).astype(np.float32)
+    answers = np.full((SERVE_CLIENTS, SERVE_PER_CLIENT, 10), np.nan,
+                      np.float32)
+    latencies = []
+    lock = threading.Lock()
+    errors = []
+
+    def client(i):
+        try:
+            with ServingClient(server.address) as c:
+                c.ready()
+                for k in range(SERVE_PER_CLIENT):
+                    t = time.perf_counter()
+                    answers[i, k] = c.infer({"img": images[i, k]})[0][0]
+                    with lock:
+                        latencies.append(time.perf_counter() - t)
+        except Exception as e:      # surfaced below, never swallowed
+            errors.append(repr(e))
+
+    tracing.add_sink(spans.append)
+    tracing.enable()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    tracing.disable()
+    tracing.remove_sink(spans.append)
+    server.drain()
+    if errors:
+        raise AssertionError("S1 clients failed: %s" % errors[:3])
+    n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+    if len(latencies) != n_req or not np.isfinite(answers).all():
+        raise AssertionError("S1: %d of %d requests answered"
+                             % (len(latencies), n_req))
+    s = telemetry.summary()
+    if s["paddle_tpu_executor_jit_cache_misses_total"] != misses0 or \
+            engine.compile_count() != 7:
+        raise AssertionError("S1 traffic rebuilt a bucket: misses %s -> "
+                             "%s, compile_count %d" % (
+                                 misses0, s[
+                                     "paddle_tpu_executor_jit_cache_"
+                                     "misses_total"],
+                                 engine.compile_count()))
+    # every answer bitwise equal to the eager run of its padded bucket
+    where = {}
+    eager_outs = []
+    for b, (feed, outs) in enumerate(rec.batches):
+        want = eager.infer(feed)[0]
+        if not np.array_equal(want, outs[0]):
+            raise AssertionError("S1 batch %d (%d rows): the replay is not "
+                                 "the eager bucket's bits" % (
+                                     b, len(outs[0])))
+        eager_outs.append(want)
+        for r, x in enumerate(feed["img"]):
+            where[x.tobytes()] = (b, r)
+    sizes = collections.Counter(len(o[0]) for _, o in rec.batches)
+    worst = 0.0
+    for i in range(SERVE_CLIENTS):
+        for k in range(SERVE_PER_CLIENT):
+            b, r = where[images[i, k, 0].tobytes()]
+            if not np.array_equal(answers[i, k], eager_outs[b][r]):
+                raise AssertionError("S1 answer %d/%d differs from its "
+                                     "batch's eager row" % (i, k))
+            alone = exe.run(iprog, feed={"img": images[i, k]},
+                            fetch_list=fetches, scope=loaded)[0][0]
+            worst = max(worst, serving_close("S1 answer %d/%d" % (i, k),
+                                             answers[i, k], alone))
+    lat = np.sort(np.asarray(latencies)) * 1000.0
+    p50, p90, p99 = (float(np.percentile(lat, p)) for p in (50, 90, 99))
+    breakdown = serving_breakdown(spans)
+    if not breakdown:
+        raise AssertionError("S1 recorded no request traces")
+    print("S1 LeNet over RPC: %d clients x %d requests of batch 1 = %d in "
+          "%.3f s = %.1f req/s; latency p50 %.3f p90 %.3f p99 %.3f ms; %d "
+          "batches by rows %s; every answer bitwise equal to its padded "
+          "bucket run eagerly, and within rtol %g + %g max|want| of "
+          "Executor.run on its row alone (max abs err %.3g); "
+          "compile_count 7 and jit misses %d before and after" % (
+              SERVE_CLIENTS, SERVE_PER_CLIENT, n_req, wall, n_req / wall,
+              p50, p90, p99, len(rec.batches),
+              json.dumps(dict(sorted(sizes.items()))), SERVE_RTOL,
+              SERVE_AMAX, worst, misses0))
+    print("S1 per-bucket breakdown (ms, from the tracing spans): %s"
+          % json.dumps(breakdown))
+    print("S1 where a request's time goes (ms, p50 over requests, from "
+          "the tracing spans): %s" % json.dumps(request_split(spans)))
+    print("S1 telemetry: %s" % json.dumps(
+        {k: v for k, v in sorted(s.items()) if "serving" in k}))
+
+    # overload: a batch held at the engine, a queue of 1
+    gated = Gated(engine)
+    small = ServingServer(batcher=DynamicBatcher(
+        gated, max_delay_ms=1.0, max_queue=1, name="overload"))
+    small.start(warmup=False)
+    got = {"ok": 0, "overloaded": 0}
+
+    def probe(k):
+        with ServingClient(small.address) as c:
+            try:
+                c.infer({"img": images[0, k]})
+                key = "ok"
+            except Overloaded:
+                key = "overloaded"
+            with lock:
+                got[key] += 1
+
+    held = [threading.Thread(target=probe, args=(0,))]
+    held[0].start()
+    if not gated.entered.wait(60):
+        raise AssertionError("S1 overload: the first batch never arrived")
+    held.append(threading.Thread(target=probe, args=(1,)))
+    held[1].start()
+    wait_for(lambda: small.batcher.depth() == 1)
+    probe(2)
+    if got["overloaded"] != 1:
+        raise AssertionError("S1 overload: %s" % got)
+    # drain while the two admitted requests wait: both are answered
+    drainer = threading.Thread(target=small.drain)
+    drainer.start()
+    time.sleep(0.05)
+    gated.gate.set()
+    drainer.join(120)
+    for t in held:
+        t.join(120)
+    if got != {"ok": 2, "overloaded": 1} or drainer.is_alive():
+        raise AssertionError("S1 drain: %s" % got)
+    print("S1 overload: a held batch and max_queue=1 shed the third request "
+          "with a typed Overloaded; drain answered both admitted ones")
+    telemetry.disable()
+    return dict(req_s=n_req / wall, p50=p50, p90=p90, p99=p99,
+                warmup_s=warmup_s), model_dir, engine, eager
+
+
+def serving_ragged(fluid, seed, dev, work):
+    """S2: the stacked-LSTM classifier at bench.py's widths
+    (bench.py:159-183), its inference program saved and loaded back,
+    ragged PackedSeq requests through a DynamicBatcher from 8 threads:
+    B3 inside the bucket graphs."""
+    from paddle_tpu_torch import PackedSeq, layers, unique_name
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models.stacked_lstm import stacked_lstm_net
+    from paddle_tpu_torch.serving import DynamicBatcher, ServingEngine
+
+    scope = fluid.Scope()
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = seed
+        with fluid.program_guard(prog, startup):
+            words = layers.data("words", [1], dtype="int64", lod_level=1)
+            prediction = stacked_lstm_net(words, DICT, class_dim=CLASSES,
+                                          emb_dim=EMB, hid_dim=HID,
+                                          stacked_num=STACKED)
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    infer = fluid.io.get_inference_program([prediction], prog)
+    model_dir = os.path.join(work, "stacked_lstm")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(model_dir, ["words"], [prediction],
+                                      exe, main_program=infer)
+    loaded = fluid.Scope()
+    with fluid.scope_guard(loaded):
+        iprog, feeds, fetch_vars = fluid.io.load_inference_model(model_dir,
+                                                                 exe)
+    fetches = [v.name for v in fetch_vars]
+    n_lstm = sum(op.type == "lstm" for op in iprog.global_block().ops)
+    if n_lstm != STACKED:
+        raise AssertionError("%d lstm ops in the inference program"
+                             % n_lstm)
+    engine = ServingEngine(iprog, feeds, fetches, scope=loaded,
+                           seq_lens={"words": LSTM_T},
+                           max_batch=SERVE_MAX_BATCH)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    eager = ServingEngine(iprog, feeds, fetches, scope=loaded,
+                          seq_lens={"words": LSTM_T},
+                          max_batch=SERVE_MAX_BATCH)
+    eager._capture = False
+    eager.warmup()
+    rng = np.random.RandomState(seed + 1)
+    reqs = []
+    for _ in range(RAGGED_THREADS * RAGGED_PER_THREAD):
+        rows = int(rng.randint(1, 9))
+        lens = rng.randint(MIN_LEN, LSTM_T + 1, rows).astype(np.int32)
+        ids = np.zeros((rows, int(lens.max()), 1), np.int64)
+        for r, n in enumerate(lens):
+            ids[r, :n, 0] = rng.randint(0, DICT, n)
+        reqs.append(PackedSeq(ids, lens))
+    rec = Recording(engine)
+    answers = [None] * len(reqs)
+    errors = []
+    torch.cuda.synchronize()
+    lc.reset_launches()
+    batcher = DynamicBatcher(rec, max_delay_ms=3.0, max_queue=len(reqs),
+                             name="ragged")
+
+    def worker(k):
+        try:
+            for i in range(k, len(reqs), RAGGED_THREADS):
+                answers[i] = batcher.submit({"words": reqs[i]}).result(
+                    300)[0]
+        except Exception as e:      # surfaced below, never swallowed
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(RAGGED_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if not batcher.close(timeout=120):
+        raise AssertionError("S2 batcher did not drain")
+    launches = dict(lc.launches)
+    if errors or any(a is None for a in answers):
+        raise AssertionError("S2: %s" % (errors[:3] or "requests lost"))
+    n_batches = len(rec.batches)
+    want = {"lstm_fwd": n_lstm * n_batches, "lstm_bwd": 0,
+            "lstm_fwd_bf16": 0, "lstm_bwd_bf16": 0}
+    print("S2 launches over %d replays: %s, expected %s (%d lstm ops)" % (
+        n_batches, json.dumps(launches), json.dumps(want), n_lstm))
+    if launches != want:
+        raise AssertionError("S2 B3 launches %s != %s" % (launches, want))
+    where = {}
+    for b, (feed, outs) in enumerate(rec.batches):
+        if not np.array_equal(eager.infer(feed)[0], outs[0]):
+            raise AssertionError("S2 batch %d: the replay is not the eager "
+                                 "bucket's bits" % b)
+        seq = feed["words"]
+        for r in range(len(seq.lengths)):
+            where[(seq.data[r, :seq.lengths[r]].tobytes())] = (b, r)
+    worst = 0.0
+    rows = 0
+    for i, (req, got) in enumerate(zip(reqs, answers)):
+        for r in range(len(req.lengths)):
+            b, rr = where[req.data[r, :req.lengths[r]].tobytes()]
+            if not np.array_equal(got[r], rec.batches[b][1][0][rr]):
+                raise AssertionError("S2 request %d row %d is not its "
+                                     "batch's row" % (i, r))
+        alone = exe.run(iprog, feed={"words": req}, fetch_list=fetches,
+                        scope=loaded)[0]
+        if got.shape != (len(req.lengths), CLASSES):
+            raise AssertionError("S2 answer shape %s" % (got.shape,))
+        worst = max(worst, serving_close("S2 request %d" % i, got, alone))
+        rows += len(req.lengths)
+    print("S2 stacked LSTM (dict %d, emb/hid %d, %d layers): %d requests of "
+          "1-8 ragged rows (%d rows, lengths %d..%d) from %d threads in "
+          "%.3f s = %.1f req/s, %d batches; warmup %.3f s for %d buckets; "
+          "every answer bitwise equal to its padded bucket run eagerly and "
+          "within rtol %g + %g max|want| of Executor.run on the request's "
+          "rows alone (max abs err %.3g)" % (
+              DICT, HID, STACKED, len(reqs), rows, MIN_LEN, LSTM_T,
+              RAGGED_THREADS, wall, len(reqs) / wall, n_batches, warmup_s,
+              engine.compile_count(), SERVE_RTOL, SERVE_AMAX, worst))
+    return launches
+
+
+def serving_generate(engine, workload, outs):
+    """S3: ``generate`` over RPC through the full-width decode engine of
+    phase 4, the same 24 requests from 8 threads; tokens equal to phase
+    4's in-process DecodeLoop."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import (DeadlineExceeded, DecodeLoop,
+                                          ServingClient, ServingServer)
+
+    compiled = engine.compile_count()
+    loop = DecodeLoop(engine, max_queue=N_REQUESTS)
+    seen = []
+    submit = loop.submit
+
+    def recording_submit(*a, **kw):
+        g = submit(*a, **kw)
+        seen.append(g)
+        return g
+
+    loop.submit = recording_submit
+    server = ServingServer(decoder=loop).start()
+    got = [None] * N_REQUESTS
+    errors = []
+
+    def worker(k):
+        try:
+            with ServingClient(server.address) as c:
+                for i in range(k, N_REQUESTS, GEN_THREADS):
+                    p, m = workload[i]
+                    got[i] = c.generate(p, max_new_tokens=m)
+        except Exception as e:      # surfaced below, never swallowed
+            errors.append(repr(e))
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(GEN_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    steps = loop.steps_dispatched()
+    if errors or any(g is None for g in got):
+        raise AssertionError("S3: %s" % (errors[:3] or "requests lost"))
+    want = {"flash_attention": N_LAYERS * N_REQUESTS,
+            "flash_attention_bf16": 0, "flash_decode": N_LAYERS * steps,
+            "flash_decode_bf16": 0}
+    print("S3 launches: %s, expected %s (%d decode steps)" % (
+        json.dumps(launches), json.dumps(want), steps))
+    if launches != want:
+        raise AssertionError("S3 launches %s != %s" % (launches, want))
+    for i, ((toks, reason), (ref, ref_reason)) in enumerate(zip(got, outs)):
+        if list(toks) != list(ref) or reason != ref_reason:
+            raise AssertionError("S3 request %d: %s/%s over RPC, %s/%s in "
+                                 "process" % (i, toks[:8], reason, ref[:8],
+                                              ref_reason))
+    if engine.compile_count() != compiled:
+        raise AssertionError("S3 compile_count %d -> %d"
+                             % (compiled, engine.compile_count()))
+    toks = sum(len(t) for t, _ in got)
+    gaps = np.asarray([b - a for g in seen
+                       for a, b in zip(g.token_times, g.token_times[1:])])
+    p50, p99 = (float(np.percentile(gaps * 1000.0, p)) for p in (50, 99))
+    # a 1 ms deadline: the generation stops at it, or never gets a slot
+    with ServingClient(server.address) as c:
+        try:
+            _, reason = c.generate(workload[0][0], max_new_tokens=LONG_NEW,
+                                   deadline_ms=1)
+            verdict = "finish_reason %r" % reason
+            if reason != "deadline":
+                raise AssertionError("S3 1 ms deadline: %s" % verdict)
+        except DeadlineExceeded:
+            verdict = "a typed DeadlineExceeded"
+    server.drain()
+    print("S3 generate over RPC: %d requests from %d threads, %d tokens in "
+          "%.3f s = %.2f tokens/s; per-token gap p50 %.3f ms p99 %.3f ms; "
+          "tokens identical to the in-process DecodeLoop; compile_count %d "
+          "frozen; a 1 ms deadline gave %s" % (
+              N_REQUESTS, GEN_THREADS, toks, wall, toks / wall, p50, p99,
+              compiled, verdict))
+    return dict(tokens_s=toks / wall, gap_p50=p50, gap_p99=p99)
+
+
+def serving_cli(model_dir, engine):
+    """S4: ``python -m paddle_tpu_torch serve`` over S1's model as a
+    subprocess: it answers one row bitwise as S1's float32 engine does
+    (the serve process turns TF32 off, as this script does), and SIGTERM
+    drains it to exit 0."""
+    from paddle_tpu_torch.serving import ServingClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "serve", "--model-dir",
+         model_dir, "--port", "0", "--max-batch", "8", "--die-with-parent"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=here)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(l) for l in proc.stdout],
+                     daemon=True).start()
+    try:
+        t0 = time.perf_counter()
+        line = ""
+        while "serving listening on" not in line:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve did not start (rc %s)"
+                                         % proc.poll())
+        ready_s = time.perf_counter() - t0
+        host, port = line.split("listening on ")[1].split(" ")[0].split(":")
+        x = np.random.RandomState(7).rand(1, 1, 28, 28).astype(np.float32)
+        with ServingClient((host, int(port))) as c:
+            if not c.ready()["ready"]:
+                raise AssertionError("serve is not ready")
+            out = c.infer({"img": x})[0]
+        want = engine.infer({"img": x})[0]
+        if not np.array_equal(out, want):
+            raise AssertionError("serve's answer %s != S1's %s"
+                                 % (out, want))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError("serve exited %d after SIGTERM" % rc)
+        print("S4 python -m paddle_tpu_torch serve: listening after %.2f s "
+              "(%s), its answer bitwise equal to S1's float32 engine on "
+              "the same row, SIGTERM drained it to exit 0"
+              % (ready_s, line.strip()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main():
     started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4190,6 +4827,26 @@ def main():
     launches["flash_decode_bf16"] = decode_bf16_phase(
         engine, DecodeLoop, DecodeEngine, scope, prefill, decode, meta,
         workload, outs)
+
+    # ---- 4c. the serving tier: one-shot over RPC, ragged, generate, CLI --
+    phase("serving at full width: S1 LeNet over RPC (%d clients x %d), S2 "
+          "the stacked LSTM's ragged requests, S3 generate over RPC, S4 "
+          "python -m paddle_tpu_torch serve (seed %d)" % (
+              SERVE_CLIENTS, SERVE_PER_CLIENT, args.seed))
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    s1, lenet_dir, s1_engine, s1_eager = serving_oneshot(
+        fluid, args.seed, dev, work)
+    s2_launches = serving_ragged(fluid, args.seed, dev, work)
+    s3 = serving_generate(engine, workload, outs)
+    serving_cli(lenet_dir, s1_engine)
+    del s1_engine, s1_eager
+    shutil.rmtree(work, ignore_errors=True)
+    print("serving: %s; S2 B3 launches %d (card: %s)" % (
+        json.dumps(dict(s1, **s3)), s2_launches["lstm_fwd"], card_line()))
+    print("serving phase: %.1f s" % (time.perf_counter() - t0))
 
     # ---- 5. the training slice at full width ----
     phase("stacked-LSTM training at full width (seed %d)" % args.seed)

@@ -38,6 +38,9 @@ from paddle_tpu_torch import passes  # noqa: F401
 from paddle_tpu_torch import amp  # noqa: F401
 from paddle_tpu_torch import regularizer  # noqa: F401
 from paddle_tpu_torch import clip  # noqa: F401
+from paddle_tpu_torch import io  # noqa: F401
+from paddle_tpu_torch import telemetry  # noqa: F401
+from paddle_tpu_torch import tracing  # noqa: F401
 from paddle_tpu_torch.data_feeder import DataFeeder, stack_feeds  # noqa: F401
 from paddle_tpu_torch.flags import set_flags, get_flags  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401

@@ -78,19 +78,55 @@ MAX_PLANS = 16
 
 
 def external_reads_and_writes(program):
-    """Names read before written in block 0, and names written by
-    block-0 ops. A sub-block reads only what its control-flow op lists
-    as inputs in block 0, so block 0 holds every outside read."""
+    """Names read before written in block 0, conservatively including
+    every read of a sub-block an op of block 0 names (its
+    ``*block_id``/``*block_ids`` attributes), and names written by
+    block-0 ops. The executor's plans, the decode engine and the serving
+    engine find the state a program reads with it; the engines also
+    refuse a program that writes persistable state."""
     written = set()
     reads = []
     seen_reads = set()
+
+    def note_read(n):
+        if n and n not in written and n not in seen_reads:
+            seen_reads.add(n)
+            reads.append(n)
+
     for op in program.global_block().ops:
         for n in op.input_arg_names:
-            if n and n not in written and n not in seen_reads:
-                seen_reads.add(n)
-                reads.append(n)
+            note_read(n)
+        for sub_idx in _sub_block_ids(op):
+            for n in _block_external_reads(program.block(sub_idx), program):
+                note_read(n)
         written.update(n for n in op.output_arg_names if n)
     return reads, written
+
+
+def _sub_block_ids(op):
+    ids = []
+    for k, v in op.attrs.items():
+        if k.endswith("block_id") and isinstance(v, int):
+            ids.append(v)
+        if k.endswith("block_ids") and isinstance(v, (list, tuple)):
+            ids.extend(v)
+    return ids
+
+
+def _block_external_reads(block, program):
+    """Names ``block`` (and the sub-blocks its ops name) reads before
+    writing them, in order, repeats kept."""
+    written = set()
+    reads = []
+    for op in block.ops:
+        for n in op.input_arg_names:
+            if n and n not in written:
+                reads.append(n)
+        for sub_idx in _sub_block_ids(op):
+            reads.extend(_block_external_reads(program.block(sub_idx),
+                                               program))
+        written.update(x for x in op.output_arg_names if x)
+    return reads
 
 
 class _Plan:

@@ -55,9 +55,26 @@ What a replay needs, and how it gets it:
   replay all K. No step runs twice and no state changes outside a
   counted step.
 
+Captures next to other CUDA work: every capture (``CapturedRun.capture``:
+the executor's steps, the decode engine's entries, the one-shot serving
+engine's buckets) takes :data:`CAPTURE_LOCK`, so one capture runs at a
+time in the process, and captures in ``capture_error_mode=
+"thread_local"``: an unsafe CUDA call (a host read, a synchronisation)
+on the capturing thread fails the capture, while other threads go on
+replaying and copying on their own streams (a decode loop stepping
+while a server warms its one-shot engine). Replays never take the lock.
+The launches on a capturing stream (the capturing thread's, and those of
+autograd's backward thread) go to the capture's own tally
+(``kernels.capturing_launches``), which each replay credits; another
+thread's eager launches during the capture count as eager launches and
+never enter the tally. The default "global" mode would fail the capture
+for any such call on any thread.
+
 Nothing falls back: a capture or a replay that fails raises (a host
 read inside a lowering, say, fails the capture).
 """
+
+import threading
 
 import torch
 
@@ -65,12 +82,16 @@ from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core.executor import run_step, slice_feed
 from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, op_seed,
                                          step_key)
+from paddle_tpu_torch.kernels import capturing_launches, credit_launches
 
 __all__ = ["run_chunk", "StepGraph", "CapturedRun", "RecordDraws",
            "launch_counters"]
 
 # graphs a plan keeps; the oldest goes first
 MAX_GRAPHS = 8
+
+#: one capture at a time in the process (module docstring)
+CAPTURE_LOCK = threading.Lock()
 
 
 def launch_counters():
@@ -134,32 +155,23 @@ class CapturedRun:
         self.delta = None
 
     def capture(self, fn, stream):
-        counters = launch_counters()
-        before = [dict(c) for c in counters]
         rngs = _GraphDraws(self.draws, self.gens)
-        try:
-            with torch.cuda.graph(self.graph, stream=stream):
+        with CAPTURE_LOCK, capturing_launches() as tally:
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = fn(rngs)
-        finally:
-            after = [dict(c) for c in counters]
-            for c, b in zip(counters, before):
-                c.update(b)
         if rngs.next != len(self.draws):
             raise RuntimeError(
                 "the step under capture asked for %d random streams, its "
                 "eager run for %d" % (rngs.next, len(self.draws)))
-        self.delta = [{n: a[n] - b.get(n, 0) for n in a
-                       if a[n] != b.get(n, 0)}
-                      for a, b in zip(after, before)]
+        self.delta = tally
         return out
 
     def replay(self, key=0):
         for (uid, salt), g in zip(self.draws, self.gens):
             g.manual_seed(op_seed(key, uid, salt))
         self.graph.replay()
-        for c, d in zip(launch_counters(), self.delta):
-            for n, v in d.items():
-                c[n] += v
+        credit_launches(self.delta)
 
     def close(self):
         self.graph.reset()

@@ -41,7 +41,7 @@ import torch
 from paddle_tpu_torch.core import registry
 
 __all__ = ["TraceContext", "run_block", "run_op", "step_key", "op_seed",
-           "PackedSeq", "RowSparse", "add_rows"]
+           "PackedSeq", "RowSparse", "add_rows", "concat_time_padded"]
 
 
 class PackedSeq:
@@ -134,6 +134,26 @@ def add_rows(t, rows, values):
 
 
 _MASK64 = (1 << 64) - 1
+
+
+def concat_time_padded(datas, lengths_list, xp=torch):
+    """LoD batch-concat semantics shared by the concat op lowering and
+    the serving batcher: pad each ``[batch, time, ...]`` buffer to the
+    common max time dim (the per-sequence lengths carry the truth), then
+    concatenate along batch. ``xp`` is ``torch`` (tensors) or ``numpy``
+    (host arrays). Returns ``(data, lengths)``."""
+    maxt = max(d.shape[1] for d in datas)
+    if xp is torch:
+        datas = [torch.nn.functional.pad(
+            d, [0, 0] * (d.dim() - 2) + [0, maxt - d.shape[1]])
+            if d.shape[1] < maxt else d for d in datas]
+        return torch.cat(datas, dim=0), torch.cat(lengths_list)
+    datas = [
+        xp.pad(d, [(0, 0), (0, maxt - d.shape[1])]
+               + [(0, 0)] * (d.ndim - 2)) if d.shape[1] < maxt else d
+        for d in datas]
+    return (xp.concatenate(datas, axis=0),
+            xp.concatenate(lengths_list))
 
 
 def _splitmix64(x):

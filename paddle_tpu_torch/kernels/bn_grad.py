@@ -36,7 +36,7 @@ import warnings
 
 import torch
 
-from paddle_tpu_torch.kernels import H100_SMS
+from paddle_tpu_torch.kernels import H100_SMS, count_launch
 from paddle_tpu_torch.kernels.lstm_cell import _check, _raise_on, _stream
 
 __all__ = ["bn_grad", "bn_grad_reference", "supported", "valid_tile",
@@ -157,7 +157,7 @@ def _bn_grad_cuda(x, dy, scale, eps):
                          float(eps), int(x.dtype == torch.bfloat16), vec, rb,
                          _stream(dev))
     _raise_on(rc, "bn_grad")
-    launches["bn_grad"] += 1
+    count_launch(launches, "bn_grad")
     return dx, dscale, dbias
 
 

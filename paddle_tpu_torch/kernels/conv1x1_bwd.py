@@ -46,7 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.kernels import H100_SMS
+from paddle_tpu_torch.kernels import H100_SMS, count_launch
 from paddle_tpu_torch.kernels.lstm_cell import _check, _raise_on, _stream
 
 __all__ = ["conv1x1", "conv1x1_bwd", "conv1x1_bwd_reference", "supported",
@@ -257,7 +257,7 @@ def _bwd_cuda(x, w, dy):
                               pl.order, pl.ci_tile, pl.co_tile, last,
                               _stream(dev))
     _raise_on(rc, fn)
-    launches["conv1x1_bwd"] += 1
+    count_launch(launches, "conv1x1_bwd")
     return dx, dw
 
 

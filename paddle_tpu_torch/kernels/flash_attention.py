@@ -44,7 +44,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.kernels import H100_SMS
+from paddle_tpu_torch.kernels import H100_SMS, count_launch
 
 __all__ = ["flash_attention", "flash_decode", "flash_attention_reference",
            "flash_attention_bwd", "FlashAttention",
@@ -516,7 +516,7 @@ def _flash_attention_cuda(q, k, v, causal, scale, segment_ids):
             ctypes.c_float(scale), int(bool(causal)), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, fn)
-    launches[name] += 1
+    count_launch(launches, name)
     return out, lse
 
 
@@ -565,5 +565,5 @@ def flash_decode(q, k_cache, v_cache, cache_len, sm_scale=None):
             ctypes.c_float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, fn)
-    launches[fn] += 1
+    count_launch(launches, fn)
     return out

@@ -63,7 +63,7 @@ the card holds at once).
 
 import torch
 
-from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS
+from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS, count_launch
 from paddle_tpu_torch.kernels.lstm_cell import (
     CHUNK, CLUSTER_ROWS, CLUSTER_UNITS, K_STEP, MAX_CLUSTER, ROWS,
     SMEM_LIMIT, _acc, _aligned, _bwd_product, _check, _check_tensor,
@@ -375,7 +375,7 @@ def _fwd_cluster(xg, w, h0, mask):
             xg.data_ptr(), w.data_ptr(), h0.data_ptr(), mask_t.data_ptr(),
             hs.data_ptr(), stash.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, "gru_fwd_cluster")
-    launches["gru_fwd_bf16"] += 1
+    count_launch(launches, "gru_fwd_bf16")
     return hs, stash
 
 
@@ -400,7 +400,7 @@ def _bwd_cluster(stash, hs, w, h0, mask, dhs):
             mask_t.data_ptr(), dhs.data_ptr(), dxg.data_ptr(), dh0.data_ptr(),
             b, t_len, h, _stream(dev))
     _raise_on(rc, "gru_bwd_cluster")
-    launches["gru_bwd_bf16"] += 1
+    count_launch(launches, "gru_bwd_bf16")
     return dxg, dh0
 
 
@@ -442,7 +442,7 @@ def _fwd_cuda(xg, w, h0, mask):
             x[1].data_ptr(), hcar.data_ptr(), flags.data_ptr(), b, t_len, h,
             _stream(dev))
     _raise_on(rc, name)
-    launches[name] += 1
+    count_launch(launches, name)
     return hs, stash
 
 
@@ -477,7 +477,7 @@ def _bwd_cuda(stash, hs, w, h0, mask, dhs):
             carry.data_ptr(), x[0].data_ptr(), x[2].data_ptr(),
             flags.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, name)
-    launches[name] += 1
+    count_launch(launches, name)
     return dxg, dh0
 
 

@@ -54,6 +54,8 @@ at once).
 
 import torch
 
+from paddle_tpu_torch.kernels import count_launch
+
 __all__ = ["lstm_sequence", "lstm_sequence_reference",
            "lstm_forward_reference", "lstm_backward_reference",
            "fwd_plan", "bwd_plan", "cluster_plan", "cluster_smem",
@@ -529,7 +531,7 @@ def _fwd_cluster(xg, w, h0, c0, mask, peep):
             c0.data_ptr(), mask_t.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             stash.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, "lstm_fwd_cluster")
-    launches["lstm_fwd_bf16"] += 1
+    count_launch(launches, "lstm_fwd_bf16")
     return hs, cs, stash
 
 
@@ -559,7 +561,7 @@ def _bwd_cluster(stash, cs, w, peep, c0, mask, dhs, dcs):
             dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dpart.data_ptr(),
             b, t_len, h, _stream(dev))
     _raise_on(rc, "lstm_bwd_cluster")
-    launches["lstm_bwd_bf16"] += 1
+    count_launch(launches, "lstm_bwd_bf16")
     return dxg, dh0, dc0, dpart.sum(0)
 
 
@@ -598,7 +600,7 @@ def _fwd_cuda(xg, w, h0, c0, mask, peep):
             stash.data_ptr(), hx.data_ptr(), hcar.data_ptr(),
             flags.data_ptr(), b, t_len, h, _stream(dev))
     _raise_on(rc, name)
-    launches[name] += 1
+    count_launch(launches, name)
     return hs, cs, stash
 
 
@@ -640,7 +642,7 @@ def _bwd_cuda(stash, cs, w, peep, c0, mask, dhs, dcs):
             carry.data_ptr(), dgx.data_ptr(), counters.data_ptr(), b, t_len,
             h, _stream(dev))
     _raise_on(rc, name)
-    launches[name] += 1
+    count_launch(launches, name)
     return dxg, dh0, dc0, dpart.sum(0)
 
 

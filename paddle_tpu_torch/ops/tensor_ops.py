@@ -12,7 +12,7 @@ with later slices.
 import torch
 
 from paddle_tpu_torch.core.infer import torch_dtype
-from paddle_tpu_torch.core.lower import PackedSeq
+from paddle_tpu_torch.core.lower import PackedSeq, concat_time_padded
 from paddle_tpu_torch.core.registry import op
 
 
@@ -57,17 +57,6 @@ def _unsqueeze(ctx, ins, attrs, o):
 @op("transpose")
 def _transpose(ctx, ins, attrs, o):
     return {"Out": _x(ins).permute(*attrs["axis"]), "XShape": None}
-
-
-def concat_time_padded(datas, lengths_list):
-    """LoD batch-concat: pad each ``[batch, time, ...]`` buffer to the
-    common max time dim, then concatenate along batch. Returns
-    ``(data, lengths)``."""
-    maxt = max(d.shape[1] for d in datas)
-    datas = [torch.nn.functional.pad(
-        d, [0, 0] * (d.dim() - 2) + [0, maxt - d.shape[1]])
-        if d.shape[1] < maxt else d for d in datas]
-    return torch.cat(datas, dim=0), torch.cat(lengths_list)
 
 
 @op("concat")

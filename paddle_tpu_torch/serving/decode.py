@@ -44,8 +44,13 @@ queue. Queued requests survive.
 The KV cache is float32 or bfloat16 (``DecodeEngine(cache_dtype=)``):
 a bfloat16 cache goes through the bfloat16 decode kernel.
 
-Telemetry, fault-injection seams, the persistent AOT cache and the
-hot-swap barrier (``DecodeLoop.request_swap``) arrive with later slices.
+Telemetry: the loop records each request's outcome, each prefill and
+decode step, and the slot occupancy (``paddle_tpu_decode_*``)
+under its name, which defaults to the engine's ``service``. Fault
+seam: ``<name>.decode_step`` fires before every decode step (a delay
+rule slows each token step, a crash rule fails the live generations).
+The persistent AOT cache and the hot-swap barrier
+(``DecodeLoop.request_swap``) arrive with later slices.
 """
 
 import collections
@@ -56,6 +61,8 @@ import weakref
 import numpy as np
 import torch
 
+from paddle_tpu_torch import fault
+from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core.executor import (external_reads_and_writes,
                                             run_program)
 from paddle_tpu_torch.core.infer import dtype_name
@@ -112,8 +119,9 @@ class DecodeEngine:
 
     def __init__(self, prefill_program, decode_program, meta, *,
                  num_slots=8, prompt_buckets=None, scope=None, place=None,
-                 cache_dtype="float32"):
+                 service="decode", cache_dtype="float32"):
         self.device = default_place(place)
+        self.service = service
         self.prefill_program = prefill_program
         self.decode_program = decode_program
         self.meta = meta
@@ -455,9 +463,9 @@ class DecodeLoop:
     Admission is a bounded queue: ``submit()`` raises ``Overloaded``
     past ``max_queue`` waiting requests, ``Closed`` once draining."""
 
-    def __init__(self, engine, max_queue=64, name="decode"):
+    def __init__(self, engine, max_queue=64, name=None):
         self.engine = engine
-        self.name = name
+        self.name = name or engine.service
         self.max_queue = int(max_queue)
         self.cache = engine.new_cache()
         self.slots = SlotAllocator(engine.num_slots)
@@ -504,8 +512,12 @@ class DecodeLoop:
         g = Generation(prompt, max_new, eos_id, deadline)
         with self._cv:
             if self._closed:
+                if telemetry.enabled():
+                    telemetry.record_decode_request(self.name, "closed")
                 raise Closed("decode loop is draining; request refused")
             if len(self._queue) >= self.max_queue:
+                if telemetry.enabled():
+                    telemetry.record_decode_request(self.name, "shed")
                 raise Overloaded(
                     "Overloaded: %d generations waiting (max_queue=%d, "
                     "slots=%d)" % (len(self._queue), self.max_queue,
@@ -552,10 +564,17 @@ class DecodeLoop:
         self._last_tok[g.slot] = 0
         g.finish_reason = reason
         g._done.set()
+        if telemetry.enabled():
+            telemetry.record_decode_request(self.name, reason,
+                                            tokens=len(g.tokens))
+            telemetry.set_decode_occupancy(self.name,
+                                           self.slots.occupancy())
 
-    def _fail_error(self, g, err):
+    def _fail_error(self, g, err, outcome):
         g.error = err
         g._done.set()
+        if telemetry.enabled():
+            telemetry.record_decode_request(self.name, outcome)
 
     def _fail_live(self, e):
         """Engine failure mid-run: the cache may hold a half-written
@@ -564,11 +583,13 @@ class DecodeLoop:
         for g in list(self._live.values()):
             self.slots.release(g.slot)
             self._fail_error(g, e if isinstance(e, Exception)
-                             else RuntimeError(repr(e)))
+                             else RuntimeError(repr(e)), "error")
         self._live.clear()
         self.cache.reset()
         self.slots.reset()
         self._last_tok[:] = 0
+        if telemetry.enabled():
+            telemetry.set_decode_occupancy(self.name, 0.0)
         if not isinstance(e, Exception):  # KeyboardInterrupt etc.
             # this thread is about to die: nothing will ever serve the
             # queue again — fail queued generations too (no client may
@@ -578,7 +599,7 @@ class DecodeLoop:
                 queued, self._queue = list(self._queue), \
                     collections.deque()
             for g in queued:
-                self._fail_error(g, RuntimeError(repr(e)))
+                self._fail_error(g, RuntimeError(repr(e)), "error")
             raise e
 
     def _check_termination(self, g, now):
@@ -612,9 +633,12 @@ class DecodeLoop:
             if g._cancelled:
                 g.finish_reason = "cancelled"
                 g._done.set()
+                if telemetry.enabled():
+                    telemetry.record_decode_request(self.name,
+                                                    "cancelled")
             elif g.deadline is not None and now > g.deadline:
                 self._fail_error(g, DeadlineExceeded(
-                    "deadline elapsed before a slot freed"))
+                    "deadline elapsed before a slot freed"), "expired")
             else:
                 keep.append(g)
         self._queue = keep
@@ -632,6 +656,7 @@ class DecodeLoop:
                 # visible to close(drain=False) while it is in
                 # neither _queue nor _live (prefill in flight)
                 self._admitting = g
+            t0 = time.perf_counter()
             try:
                 last_logits = self.engine.prefill(g.prompt, slot,
                                                   self.cache)
@@ -644,8 +669,13 @@ class DecodeLoop:
                 with self._cv:
                     self._admitting = None
                 if isinstance(e, Exception):
-                    self._fail_error(g, e)
+                    self._fail_error(g, e, "error")
                 raise
+            if telemetry.enabled():
+                telemetry.record_decode_prefill(
+                    self.name, time.perf_counter() - t0)
+                telemetry.set_decode_occupancy(self.name,
+                                               self.slots.occupancy())
             g.slot = slot
             self._live[slot] = g
             with self._cv:
@@ -662,11 +692,21 @@ class DecodeLoop:
     def _step(self):
         if not self._live:
             return
+        if fault._active:
+            # chaos seam: a delay rule here slows every token step (a
+            # loaded chip), a crash rule poisons the dispatch
+            fault.fire(self.name + ".decode_step")
+        t0 = time.perf_counter()
         logits = self.engine.decode_step(self._last_tok, self.cache)
+        dt = time.perf_counter() - t0
         self._steps += 1
         live = sorted(self._live)
         for s in live:
             self.cache.pos[s] += 1
+        if telemetry.enabled():
+            telemetry.record_decode_step(self.name, dt)
+            telemetry.set_decode_occupancy(self.name,
+                                           self.slots.occupancy())
         now = time.monotonic()
         for s in live:
             g = self._live[s]
@@ -698,7 +738,8 @@ class DecodeLoop:
                 while self._queue:
                     g = self._queue.popleft()
                     self._fail_error(g, Closed(
-                        "decode loop shut down before a slot freed"))
+                        "decode loop shut down before a slot freed"),
+                        "closed")
                 # snapshot: the loop thread del-etes finished entries
                 # from _live without holding _cv
                 for g in list(self._live.values()):

@@ -383,3 +383,41 @@ def test_cuda_decode_swap_state_under_graphs(cuda):
     assert swapped != before
     eng.swap_state(old)
     assert _serve(eng, PROMPTS[:2]) == before
+
+
+@pytest.mark.cuda
+def test_cuda_a_backward_on_autograds_thread_counts_in_the_graph(cuda):
+    """Autograd runs a backward on a thread of its own, on its forward's
+    stream: B8's launch inside a captured backward goes to the graph's
+    tally and is credited once a replay, never counted at the capture."""
+    from paddle_tpu_torch.core.graphs import CapturedRun
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 64, 14, 14, generator=g).to(cuda).requires_grad_()
+    w = (torch.randn(128, 64, 1, 1, generator=g) * 0.125).to(cuda) \
+        .requires_grad_()
+
+    def step(rngs=None):
+        y = k1.conv1x1(x, w)
+        return torch.autograd.grad((y * y).sum(), [x, w])
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = step()                          # built, and eager once
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    k1.reset_launches()
+    run = CapturedRun(cuda)
+    got = run.capture(step, stream)
+    torch.cuda.synchronize()
+    assert k1.launches["conv1x1_bwd"] == 0
+    assert run.delta == [(k1.launches, {"conv1x1_bwd": 1})]
+    for i in range(3):
+        run.replay()
+    torch.cuda.synchronize()
+    assert k1.launches["conv1x1_bwd"] == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    run.close()

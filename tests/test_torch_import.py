@@ -60,6 +60,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.passes.layout, paddle_tpu_torch.flags\n"
         "import paddle_tpu_torch.guard, paddle_tpu_torch.fault\n"
         "import paddle_tpu_torch.telemetry\n"
+        "import paddle_tpu_torch.io, paddle_tpu_torch.tracing\n"
+        "import paddle_tpu_torch.distributed.rpc\n"
+        "import paddle_tpu_torch.serving.server, paddle_tpu_torch.cli\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
