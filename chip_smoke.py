@@ -59,7 +59,18 @@ calls, on random weights and data made from ``--seed``:
 * the stacked LSTM and seq2seq as bench.py trains them: bf16 AMP at the
   full widths above, batch 64, every row at bench.py's full length (80
   and 30): 6 bf16 LSTM forwards and 3 backwards a step, 4 bf16 GRU
-  forwards and 2 backwards a step.
+  forwards and 2 backwards a step;
+* the book's semantic-role tagger (``models/srl.py``) at the CoNLL-2005
+  widths (44068 words, 3162 predicates, 59 labels, embedding 32, LSTM
+  size 512, Adam lr 1e-3, float32), batches of 16 sentences of 5..39
+  ids: a bidirectional ``dynamic_lstm`` (4 float32 LSTM forwards and 2
+  backwards a step), ``linear_chain_crf``, then ``crf_decoding`` and
+  ``chunk_eval`` on a held-out batch;
+* Fluid control flow: ``tests/test_control_flow.py``'s While RNN
+  (trained through ``max_iters``, and for inference) and Switch at
+  width 64, and benchmark/fluid/stacked_dynamic_lstm.py's LSTM cell
+  written with Variable operators inside a ``DynamicRNN`` (dict 30000,
+  embedding 512, H 512, batch 32, lengths 16..80).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -150,6 +161,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    and dense SGD and Adam through ``run_chunk``'s graphs bitwise against
    eager steps (host and device ms/step), and the step guard skipping a
    step whose row-sparse gradient is NaN;
+6d. the SRL tagger: startup, 1 warmup and 5 counted steps (finite
+   falling loss, 4 B3 + 2 B4 a step derived from the program), a
+   profile of one step, crf_decoding and chunk_eval on a held-out batch
+   (2 B3; precision, recall and F1 printed), run_chunk's graph replays
+   bitwise against eager steps (launches credited once per replay), and
+   the card against the CPU at word vocab 1000, hid 32 (losses of 3
+   steps at rtol 1e-4; Viterbi tags equal on every row whose path has no
+   near-tie, one within 1e-5 or within what the two devices' scores can
+   differ by);
+6e. control flow, each program's eager steps against run_chunk's graph
+   replays, bitwise: the While RNN trained (its while stamped
+   differentiable: max_iters masked steps) and for inference (the eager
+   loop reads its predicate on the host, the graph runs the masked
+   form), each running exactly 3 iterations; a While without max_iters
+   refusing the capture; the Switch in both branches, and with
+   0 * log(0 * y) inside its branch (NaN taken, finite not taken, as
+   under lax.cond); the DynamicRNN cell (a loss falling over 3 steps);
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -449,6 +477,31 @@ W2V = dict(dict_size=30000, emb=512, hidden=512)
 W2V_XCHECK = dict(dict_size=1000, emb=64, hidden=64)
 W2V_B, W2V_CONTEXT = 64, 4
 
+# the semantic-role tagger (paddle_tpu_torch/models/srl.py) at the
+# CoNLL-2005 schema's widths (paddle_tpu/dataset/conll05.py:9-11: 44068
+# words, 3162 predicates, 59 labels) and the book's (embedding 32,
+# dynamic_lstm size 512 = 4 x hid 128), Adam lr 1e-3, float32; batches
+# of 16 sentences whose lengths are drawn as conll05.py draws them
+# (randint(5, 40): SRL_LENS is its inclusive range); the card against
+# the CPU at word vocab 1000, hid 32
+SRL = dict(emb_dim=32, hid_dim=128, lr=1e-3)
+SRL_LENS = (5, 39)
+SRL_B, SRL_WARMUP, SRL_STEPS = 16, 1, 5
+SRL_XCHECK = dict(word_dict_len=1000, emb_dim=32, hid_dim=32, lr=1e-3)
+SRL_XCHECK_B, SRL_XCHECK_STEPS = 16, 3
+# a Viterbi step whose top two scores lie within this (or within what
+# the card's and the CPU's scores can differ by) counts as a near-tie
+SRL_TIE = 1e-5
+# control flow (path B): tests/test_control_flow.py's While RNN (trained
+# through max_iters T steps) and Switch at width CF_H, batch CF_B; the
+# DynamicRNN LSTM cell of benchmark/fluid/stacked_dynamic_lstm.py
+# written with Variable operators, at the stacked LSTM's dict and H 512,
+# batch 32, lengths MIN_LEN..80
+CF_H, CF_B, CF_T, CF_MAX_ITERS = 64, 16, 3, 8
+DRNN = dict(vocab=DICT, emb=512, hid=512)
+DRNN_B, DRNN_T, DRNN_STEPS = 32, 80, 3
+GRAPH_K.update(srl=4, control=4, drnn=2)
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -735,16 +788,16 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
                   n / n_steps, 100.0 * us / 1000.0 / n_steps / busy_ms))
 
 
-def lstm_inputs(B, T, H, peep, g, dev, ragged=True):
-    """Seeded LSTM inputs on the card; ragged masks hold a row of length
-    0 and a row of length T."""
+def lstm_inputs(B, T, H, peep, g, dev, ragged=True, min_len=0):
+    """Seeded LSTM inputs on the card; ragged lengths are uniform in
+    [min_len, T] with a row of length min_len and a row of length T."""
     xg = torch.randn(B, T, 4 * H, generator=g) * 0.5
     w = torch.randn(H, 4 * H, generator=g) * H ** -0.5
     h0 = torch.randn(B, H, generator=g) * 0.1
     c0 = torch.randn(B, H, generator=g) * 0.1
     if ragged:
-        lens = torch.randint(0, T + 1, (B,), generator=g)
-        lens[0], lens[-1] = 0, T
+        lens = torch.randint(min_len, T + 1, (B,), generator=g)
+        lens[0], lens[-1] = min_len, T
     else:
         lens = torch.full((B,), T)
     mask = (torch.arange(T)[None] < lens[:, None]).float()
@@ -756,14 +809,20 @@ def lstm_inputs(B, T, H, peep, g, dev, ragged=True):
 
 def check_lstm(lc, g, dev):
     """B3 and B4 against their plain versions: hs, cs; dxg, dW (through
-    the GEMM outside the kernel), dh0, dc0, dpeep. Returns the max abs
+    the GEMM outside the kernel), dh0, dc0, dpeep; at the stacked LSTM's
+    shape and at the SRL tagger's (SRL_B sentences of SRL_LENS, hid 128:
+    either direction gives the kernel a valid prefix, so one mask shape
+    covers the forward, the reverse and the decode). Returns the max abs
     errors {kernel: err} and dW's."""
     err = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
     dw_err = 0.0
-    for B, T, H in ((8, 5, 32), (LSTM_B, LSTM_T, HID), (37, 17, 128)):
+    for B, T, H, lo in ((8, 5, 32, 0), (LSTM_B, LSTM_T, HID, 0),
+                        (37, 17, 128, 0),
+                        (SRL_B, SRL_LENS[1], SRL["hid_dim"], SRL_LENS[0])):
+        case = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
         for peep in (True, False):
-            xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(B, T, H, peep,
-                                                           g, dev)
+            xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(
+                B, T, H, peep, g, dev, min_len=lo)
             what = "lstm %s peep=%s" % ((B, T, H), peep)
             leaves = [t.clone().requires_grad_() for t in (xg, w, h0, c0, p)]
             hs, cs = lc.lstm_sequence(leaves[0], leaves[1], leaves[2],
@@ -775,7 +834,7 @@ def check_lstm(lc, g, dev):
             h_prev = torch.cat([h0[:, None], rhs[:, :-1]], dim=1)
             dw = torch.einsum("bth,btg->hg", h_prev, dxg)
             for name, a, b in (("hs", hs, rhs), ("cs", cs, rcs)):
-                err["lstm_fwd"] = max(err["lstm_fwd"], assert_close(
+                case["lstm_fwd"] = max(case["lstm_fwd"], assert_close(
                     "%s %s" % (what, name), a.detach(), b,
                     LSTM_ATOL, LSTM_RTOL))
             for name, a, b in (("dxg", got[0], dxg), ("dW", got[1], dw),
@@ -787,7 +846,10 @@ def check_lstm(lc, g, dev):
                 if name == "dW":
                     dw_err = max(dw_err, e)
                 else:
-                    err["lstm_bwd"] = max(err["lstm_bwd"], e)
+                    case["lstm_bwd"] = max(case["lstm_bwd"], e)
+        print("lstm [%d,%d,%d], lengths %d..%d: max abs err B3 %.3g, B4 "
+              "%.3g" % (B, T, H, lo, T, case["lstm_fwd"], case["lstm_bwd"]))
+        err = {k: max(v, case[k]) for k, v in err.items()}
     torch.cuda.synchronize()
     return err, dw_err
 
@@ -1343,13 +1405,7 @@ def train_phase(fluid, seed, dev):
               tokens, LSTM_B * LSTM_T))
     # the first step feeds the ragged list; the packed batch then stays
     # on the card
-    packed = np.zeros((LSTM_B, LSTM_T, 1), np.int64)
-    for i, w in enumerate(words):
-        packed[i, :len(w)] = w
-    on_card = {"words": fluid.PackedSeq(
-        torch.from_numpy(packed).to(dev),
-        torch.from_numpy(lens.astype(np.int32)).to(dev)),
-        "label": torch.from_numpy(label).to(dev)}
+    on_card = packed_on(fluid, {"words": words, "label": label}, dev)
     for i in range(WARMUP_STEPS):
         exe.run(prog, feed={"words": words, "label": label} if i == 0
                 else on_card, fetch_list=[loss], scope=scope)
@@ -1533,14 +1589,7 @@ def seq2seq_phase(fluid, seed, dev):
               S2S_T))
     # the first step feeds the ragged lists; the packed batch then stays
     # on the card
-    on_card = {}
-    for name, seqs in feed.items():
-        packed = np.zeros((S2S_B, S2S_T, 1), np.int64)
-        for i, s_ in enumerate(seqs):
-            packed[i, :len(s_)] = s_
-        lens = np.asarray([len(s_) for s_ in seqs], np.int32)
-        on_card[name] = fluid.PackedSeq(torch.from_numpy(packed).to(dev),
-                                        torch.from_numpy(lens).to(dev))
+    on_card = packed_on(fluid, feed, dev)
     for i in range(WARMUP_STEPS):
         exe.run(prog, feed=feed if i == 0 else on_card, fetch_list=[loss],
                 scope=scope)
@@ -2048,6 +2097,485 @@ def sparse_phase(fluid, seed, dev):
     if skipped.tolist() != [0.0, 1.0, 0.0, 0.0]:
         raise AssertionError("guard skipped %s" % skipped)
     return times
+
+
+def srl_batch(rng, b, sizes):
+    """``b`` sentences as paddle_tpu/dataset/conll05.py makes them:
+    lengths randint(5, 40), word ids uniform, one predicate a sentence,
+    labels uniform over the tag set. Returns (lengths, ragged feed)."""
+    lens = rng.randint(SRL_LENS[0], SRL_LENS[1] + 1, b)
+    return lens, {
+        "word": [rng.randint(0, sizes["word_dict_len"], (n, 1))
+                 .astype(np.int64) for n in lens],
+        "pred": [np.full((n, 1), rng.randint(sizes["pred_dict_len"]),
+                         np.int64) for n in lens],
+        "label": [rng.randint(0, sizes["label_dict_len"], (n, 1))
+                  .astype(np.int64) for n in lens]}
+
+
+def packed_on(fluid, feed, dev):
+    """A feed on the card, so that it stays there: ragged [len_i, 1] id
+    lists packed as the executor packs them (zero-padded to the
+    longest), arrays as they are."""
+    from paddle_tpu_torch.core.executor import _pack_ragged
+
+    out = {}
+    for name, v in feed.items():
+        if isinstance(v, list):
+            p = _pack_ragged(v, "int64")
+            out[name] = fluid.PackedSeq(p.data.to(dev), p.lengths.to(dev))
+        else:
+            out[name] = torch.from_numpy(v).to(dev)
+    return out
+
+
+def viterbi_margins(em, lens, trans):
+    """The smallest margin along each row's Viterbi path, in float64:
+    at every step the best previous tag's score over the second best's
+    for the tag the path takes, and at the end the best last tag over
+    the second. Returns (paths, margins)."""
+    start, end, tr = (trans[0].astype(np.float64),
+                      trans[1].astype(np.float64),
+                      trans[2:].astype(np.float64))
+    paths, margins = [], []
+    for row, n in enumerate(lens):
+        e = em[row, :n].astype(np.float64)
+        delta = start + e[0]
+        bps, gaps = [], []
+        for t in range(1, n):
+            sc = delta[:, None] + tr
+            top = np.sort(sc, 0)
+            bps.append(np.argmax(sc, 0))
+            gaps.append(top[-1] - top[-2])
+            delta = top[-1] + e[t]
+        fin = np.sort(delta + end)
+        tag = int(np.argmax(delta + end))
+        gap, path = fin[-1] - fin[-2], [tag]
+        for t in range(n - 2, -1, -1):
+            gap = min(gap, gaps[t][tag])
+            tag = int(bps[t][tag])
+            path.append(tag)
+        paths.append(path[::-1])
+        margins.append(gap)
+    return paths, np.asarray(margins)
+
+
+def srl_phase(fluid, seed, dev):
+    """Path A: the semantic-role tagger at full width (float32): startup,
+    warmup and counted Adam steps (finite falling loss, B3 and B4 counts
+    derived from the program), a profile of one step, crf_decoding and
+    chunk_eval on a held-out batch (2 B3), run_chunk's graph replays
+    bitwise against eager steps, and the card against the CPU at a
+    reduced width (losses of 3 steps, Viterbi tags outside near-ties).
+    Returns the counted steps' launches."""
+    from paddle_tpu_torch import interop, unique_name
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models import srl
+
+    t0 = time.perf_counter()
+    sizes = dict(word_dict_len=srl.WORDS, pred_dict_len=srl.PREDICATES,
+                 label_dict_len=srl.LABELS)
+    with unique_name.guard():
+        prog, startup, _, (loss,) = srl.build_srl(mode="train", **sizes,
+                                                  **SRL)
+    with unique_name.guard():
+        iprog, _, _, ifetch = srl.build_srl(mode="infer", **sizes, **SRL)
+    fwd, bwd = recurrent_launches(prog, "lstm")
+    ifwd = sum(op.type == "lstm" for op in iprog.global_block().ops)
+    print("from the programs: %d B3 and %d B4 a training step (2 lstm "
+          "ops, 2 lstm_grad each recomputing its forward), %d B3 a decode"
+          % (fwd, bwd, ifwd))
+    if (fwd, bwd, ifwd) != (4, 2, 2):
+        raise AssertionError("SRL launches a step %s" % ((fwd, bwd, ifwd),))
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    n_params = sum(p.numel() for n, p in scope.vars.items()
+                   if prog.global_block().var(n).is_parameter)
+    rng = np.random.RandomState(seed)
+    lens, feed = srl_batch(rng, SRL_B, sizes)
+    tokens = int(lens.sum())
+    print("parameters: %d (%.1f MB fp32); batch %d sentences, lengths "
+          "%d..%d, %d tokens of %d padded" % (
+              n_params, n_params * 4 / 1e6, SRL_B, lens.min(), lens.max(),
+              tokens, SRL_B * lens.max()))
+    on_card = packed_on(fluid, feed, dev)
+    for i in range(SRL_WARMUP):
+        exe.run(prog, feed=feed if i == 0 else on_card, fetch_list=[loss],
+                scope=scope)
+    torch.cuda.synchronize()
+    lc.reset_launches()
+    losses = []
+    t1 = time.perf_counter()
+    for _ in range(SRL_STEPS):
+        losses.append(float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(lc.launches)
+    want = {"lstm_fwd": fwd * SRL_STEPS, "lstm_bwd": bwd * SRL_STEPS,
+            "lstm_fwd_bf16": 0, "lstm_bwd_bf16": 0}
+    print("launches on path A:", json.dumps(launches), "expected",
+          json.dumps(want))
+    if launches != want:
+        raise AssertionError("SRL launch counts %s != %s" % (launches, want))
+    print("losses:", " ".join("%.6f" % v for v in losses))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("SRL loss not finite and falling: %s" % losses)
+    step_ms = wall * 1000.0 / SRL_STEPS
+    print("train: %d steps in %.3f s = %.3f ms/step, %.2f sentences/s, "
+          "%.1f tokens/s" % (SRL_STEPS, wall, step_ms,
+                             SRL_B / (step_ms / 1e3),
+                             tokens / (step_ms / 1e3)))
+    device_profile(lambda: exe.run(prog, feed=on_card, fetch_list=[loss],
+                                   scope=scope),
+                   1, step_ms, "SRL train step", share_of="lstm_")
+
+    # the held-out batch: Viterbi tags and chunk_eval
+    hlens, held = srl_batch(rng, SRL_B, sizes)
+    lc.reset_launches()
+    t1 = time.perf_counter()
+    out = exe.run(iprog, feed=held, fetch_list=list(ifetch), scope=scope)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) * 1000.0
+    if lc.launches["lstm_fwd"] != ifwd or lc.launches["lstm_bwd"]:
+        raise AssertionError("decode launches %s" % lc.launches)
+    tags, (prec, rec, f1, ni, nl, nc) = out[0], out[1:]
+    t = np.asarray(tags.data)
+    if t.shape != (SRL_B, hlens.max(), 1) or t.min() < 0 \
+            or t.max() >= srl.LABELS \
+            or list(tags.lengths) != list(hlens) \
+            or any(t[i, n:].any() for i, n in enumerate(hlens)):
+        raise AssertionError("Viterbi tags malformed: %s" % (t.shape,))
+    vals = [float(prec), float(rec), float(f1)]
+    if not all(0.0 <= v <= 1.0 for v in vals) or int(nc) > min(int(ni),
+                                                                int(nl)):
+        raise AssertionError("chunk_eval out of range: %s" % out[1:])
+    print("held-out batch (%d sentences, %d tokens): decode %.3f ms (%d "
+          "B3); chunk_eval IOB: precision %.6f recall %.6f F1 %.6f (%d "
+          "chunks inferred, %d labelled, %d correct)" % (
+              SRL_B, int(hlens.sum()), decode_ms, ifwd, *vals, int(ni),
+              int(nl), int(nc)))
+
+    # run_chunk's graph replays against eager steps
+    graph_path(fluid, "SRL tagger (float32)", (prog, startup, loss),
+               on_card, GRAPH_K["srl"], GRAPH_CHUNKS, seed,
+               {"lstm_fwd": fwd, "lstm_bwd": bwd},
+               (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
+
+    # the card against the CPU from the same weights at a reduced width
+    xsizes = dict(sizes, **SRL_XCHECK)
+    with unique_name.guard():
+        xprog, xstart, _, (xloss,) = srl.build_srl(mode="train", **xsizes)
+    with unique_name.guard():
+        xiprog, _, _, xifetch = srl.build_srl(mode="infer", **xsizes)
+    xstart.random_seed = seed
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(xstart, scope=cpu_scope)
+    interop.load_reference_state(
+        {n: v.numpy() for n, v in cpu_scope.vars.items()}, card_scope,
+        fluid.CUDAPlace(0), [xprog, xstart])
+    _, xbatch = srl_batch(rng, SRL_XCHECK_B, xsizes)
+    for step in range(SRL_XCHECK_STEPS):
+        c = float(cpu.run(xprog, feed=xbatch, fetch_list=[xloss],
+                          scope=cpu_scope)[0])
+        k = float(exe.run(xprog, feed=xbatch, fetch_list=[xloss],
+                          scope=card_scope)[0])
+        print("cross-check step %d: loss cpu %.7f card %.7f" % (step, c, k))
+        np.testing.assert_allclose(k, c, rtol=1e-4)
+    emission = [op for op in xiprog.global_block().ops
+                if op.type == "crf_decoding"][0].input("Emission")[0]
+    xlens, xheld = srl_batch(rng, SRL_XCHECK_B, xsizes)
+    c = cpu.run(xiprog, feed=xheld, fetch_list=[xifetch[0], emission],
+                scope=cpu_scope)
+    k = exe.run(xiprog, feed=xheld, fetch_list=[xifetch[0], emission],
+                scope=card_scope)
+    trans = cpu_scope.find_var("crfw").numpy()
+    d_em = float(np.abs(np.asarray(k[1].data) - np.asarray(c[1].data)).max())
+    d_tr = float(np.abs(card_scope.find_var("crfw").cpu().numpy()
+                        - trans).max())
+    em = np.asarray(c[1].data)
+    paths, margins = viterbi_margins(em, xlens, trans)
+    # a path's score moves by at most len x (d_em + d_tr) between the
+    # card and the CPU, and float32 sums of len terms round by about
+    # len x eps x their size against float64
+    size = np.array([np.abs(em[i, :n]).max(-1).sum() + n * np.abs(
+        trans).max() for i, n in enumerate(xlens)])
+    tie = np.maximum(SRL_TIE, 2.0 * xlens * (d_em + d_tr)
+                     + 2.0 * xlens * np.finfo(np.float32).eps * size)
+    ct, kt = np.asarray(c[0].data)[:, :, 0], np.asarray(k[0].data)[:, :, 0]
+    differ = [i for i in range(len(xlens)) if not np.array_equal(
+        ct[i, :xlens[i]], kt[i, :xlens[i]])]
+    wrong = [i for i in differ if margins[i] > tie[i]]
+    ref_wrong = [i for i, n in enumerate(xlens)
+                 if margins[i] > tie[i] and list(ct[i, :n]) != paths[i]]
+    print("card vs cpu at %s, B %d: losses of %d steps within rtol 1e-4; "
+          "Viterbi tags: %d of %d rows differ, %d of them past a near-tie "
+          "(emissions differ by %.3g, transitions by %.3g; smallest path "
+          "margin %.3g)" % (SRL_XCHECK, SRL_XCHECK_B, SRL_XCHECK_STEPS,
+                            len(differ), len(xlens), len(differ) -
+                            len(wrong), d_em, d_tr, float(margins.min())))
+    if wrong or ref_wrong:
+        raise AssertionError("Viterbi tags differ outside near-ties: rows "
+                             "%s (card vs cpu), %s (cpu vs float64)"
+                             % (wrong, ref_wrong))
+    torch.cuda.synchronize()
+    print("SRL phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
+def while_program(fluid, layers, max_iters, train):
+    """tests/test_control_flow.py's While RNN (h <- tanh(fc(h)) CF_T
+    times) at width CF_H with a softmax classifier; ``train``: SGD (the
+    while is stamped differentiable), else inference."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        x = layers.data("x", [CF_H])
+        label = layers.data("label", [1], dtype="int64")
+        i = layers.fill_constant([1], "int32", 0)
+        n = layers.fill_constant([1], "int32", CF_T)
+        h = layers.fc(x, CF_H, act="tanh", bias_attr=False)
+        cond = layers.less_than(i, n)
+        w = layers.While(cond, max_iters=max_iters)
+        with w.block():
+            h2 = layers.fc(h, CF_H, act="tanh", bias_attr=False)
+            layers.assign(h2, output=h)
+            layers.increment(i, value=1.0, in_place=True)
+            layers.less_than(i, n, cond=cond)
+        pred = layers.fc(h, 3, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        if train:
+            fluid.optimizer.SGD(0.5).minimize(loss)
+    return prog, startup, loss, i
+
+
+def switch_program(fluid, layers, taken, nan):
+    """tests/test_control_flow.py's conditional program at width CF_H;
+    with ``nan`` the branch also adds 0 * log(0 * y): -inf in its
+    forward, 0 / 0 in its gradient."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        x = layers.data("x", [CF_H])
+        a = layers.fill_constant([1], "int32", 0 if taken else 5)
+        b = layers.fill_constant([1], "int32", 3)
+        cond = layers.less_than(a, b)
+        y = layers.fc(x, CF_H, param_attr=fluid.ParamAttr(name="cb_w"),
+                      bias_attr=False)
+        sw = layers.Switch()
+        with sw.case(cond):
+            y2 = layers.scale(y, scale=3.0)
+            if nan:
+                bad = layers.log(layers.scale(y, scale=0.0))
+                y2 = layers.elementwise_add(y2, layers.scale(bad, scale=0.0))
+            layers.assign(y2, output=y)
+        loss = layers.mean(y)
+        fluid.append_backward(loss)
+    return prog, startup, loss
+
+
+def switch_in_while_program(fluid, layers, taken):
+    """The NaN branch of switch_program(nan=True) as a Switch inside a
+    While of max_iters CF_T (h <- tanh(fc(h)), then tripled, plus
+    0 * log(0 * h), when taken); loss = mean(h), differentiated through
+    the loop's masked steps, so the conditional's own backward selects
+    its gradients."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        x = layers.data("x", [CF_H])
+        i = layers.fill_constant([1], "int32", 0)
+        n = layers.fill_constant([1], "int32", CF_T)
+        a = layers.fill_constant([1], "int32", 0 if taken else 5)
+        b = layers.fill_constant([1], "int32", 3)
+        h = layers.fc(x, CF_H, act="tanh", bias_attr=False)
+        cond = layers.less_than(i, n)
+        w = layers.While(cond, max_iters=CF_T)
+        with w.block():
+            h2 = layers.fc(h, CF_H, act="tanh",
+                           param_attr=fluid.ParamAttr(name="loop_w"),
+                           bias_attr=False)
+            sw = layers.Switch()
+            with sw.case(layers.less_than(a, b)):
+                bad = layers.log(layers.scale(h2, scale=0.0))
+                layers.assign(layers.elementwise_add(
+                    layers.scale(h2, scale=3.0), layers.scale(bad, scale=0.0)),
+                    output=h2)
+            layers.assign(h2, output=h)
+            layers.increment(i, value=1.0, in_place=True)
+            layers.less_than(i, n, cond=cond)
+        loss = layers.mean(h)
+        fluid.append_backward(loss)
+    return prog, startup, loss
+
+
+def dynamic_rnn_program(fluid, layers, vocab, emb, hid, lr=1e-3):
+    """benchmark/fluid/stacked_dynamic_lstm.py's model: an LSTM cell
+    written with Variable operators (fc gates, sigmoid/tanh, * and +)
+    inside a DynamicRNN, memory(value=0.0, shape=[hid]), the last step
+    pooled, a softmax over CLASSES, Adam."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        words = layers.data("words", [1], dtype="int64", lod_level=1)
+        label = layers.data("label", [1], dtype="int64")
+        sentence = layers.embedding(words, size=[vocab, emb])
+        sentence = layers.fc(sentence, hid, act="tanh", num_flatten_dims=2)
+        rnn = layers.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(sentence)
+            prev_hidden = rnn.memory(value=0.0, shape=[hid])
+            prev_cell = rnn.memory(value=0.0, shape=[hid])
+
+            def gate_common(ipt, hidden, size):
+                gate0 = layers.fc(ipt, size, bias_attr=True)
+                gate1 = layers.fc(hidden, size, bias_attr=False)
+                return gate0 + gate1
+
+            forget_gate = layers.sigmoid(gate_common(word, prev_hidden, hid))
+            input_gate = layers.sigmoid(gate_common(word, prev_hidden, hid))
+            output_gate = layers.sigmoid(gate_common(word, prev_hidden, hid))
+            cell_gate = layers.tanh(gate_common(word, prev_hidden, hid))
+            cell = forget_gate * prev_cell + input_gate * cell_gate
+            hidden = output_gate * layers.tanh(cell)
+            rnn.update_memory(prev_cell, cell)
+            rnn.update_memory(prev_hidden, hidden)
+            rnn.output(hidden)
+        last = layers.sequence_pool(rnn(), "last")
+        logit = layers.fc(last, CLASSES, act="softmax")
+        loss = layers.mean(layers.cross_entropy(logit, label))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return prog, startup, loss
+
+
+def control_flow_phase(fluid, seed, dev):
+    """Path B: the While RNN trained through max_iters and run for
+    inference, the Switch in both branches (and with a NaN inside the
+    branch, at the top level and inside a While), the DynamicRNN operator cell at H 512: eager steps against
+    run_chunk's graph replays, bitwise; a While without max_iters refuses
+    the capture."""
+    from paddle_tpu_torch import layers, unique_name
+    from paddle_tpu_torch.data_feeder import stack_feeds
+
+    t0 = time.perf_counter()
+    bounds = (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL)
+    rng = np.random.RandomState(seed)
+    feed = {"x": torch.from_numpy(rng.rand(CF_B, CF_H).astype(
+        np.float32)).to(dev), "label": torch.from_numpy(rng.randint(
+            0, 3, (CF_B, 1)).astype(np.int64)).to(dev)}
+    res = {}
+    for train, max_iters in ((True, CF_T), (False, CF_MAX_ITERS)):
+        with unique_name.guard():
+            prog, startup, loss, i = while_program(fluid, layers, max_iters,
+                                                   train)
+        label = "While RNN (%s, max_iters %d)" % (
+            "SGD" if train else "inference", max_iters)
+        res[label] = graph_path(fluid, label, (prog, startup, loss), feed,
+                                GRAPH_K["control"], GRAPH_CHUNKS, seed, {},
+                                bounds)
+        scope = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope)
+        n = fluid.Executor().run(prog, feed=feed, fetch_list=[i],
+                                 scope=scope)[0]
+        if int(n[0]) != CF_T:
+            raise AssertionError("%s ran %s iterations, not %d"
+                                 % (label, n, CF_T))
+
+    # a while without max_iters reads its predicate on the host: it runs
+    # eagerly and refuses a graph
+    with unique_name.guard():
+        prog, startup, loss, i = while_program(fluid, layers, 0, False)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    if int(exe.run(prog, feed=feed, fetch_list=[i], scope=scope)[0][0]) \
+            != CF_T:
+        raise AssertionError("the unbounded while's iterations")
+    try:
+        exe.run_chunk(prog, feed_chunk=chunk_of(feed, 2), fetch_list=[loss],
+                      scope=scope)
+    except RuntimeError as e:
+        if "max_iters=N" not in str(e):
+            raise
+        print("an unbounded While under capture raises: %s" %
+              str(e).split("\n")[0][:110])
+    else:
+        raise AssertionError("an unbounded While was captured")
+
+    # the Switch in both branches, and with a NaN inside the branch
+    for taken in (True, False):
+        with unique_name.guard():
+            built = switch_program(fluid, layers, taken, False)
+        res["switch_%s" % taken] = graph_path(
+            fluid, "Switch (branch %s)" % ("taken" if taken else
+                                            "not taken"),
+            built, {"x": feed["x"]}, GRAPH_K["control"], GRAPH_CHUNKS, seed,
+            {}, bounds)
+        for where, build, grad in (
+                ("", lambda f, l_, t: switch_program(f, l_, t, True),
+                 "cb_w@GRAD"),
+                (" inside a While", switch_in_while_program, "loop_w@GRAD")):
+            with unique_name.guard():
+                prog, startup, loss = build(fluid, layers, taken)
+            startup.random_seed = seed
+            scope = fluid.Scope()
+            fluid.Executor().run(startup, scope=scope)
+            feeds = [{"x": rng.rand(CF_B, CF_H).astype(np.float32)}
+                     for _ in range(3)]
+            fetch = [loss.name, grad]
+            exe = fluid.Executor()
+            eager = [exe.run(prog, feed=f, fetch_list=fetch, scope=scope,
+                             return_numpy=False) for f in feeds]
+            chunk = fluid.Executor().run_chunk(
+                prog, feed_chunk=stack_feeds(feeds), fetch_list=fetch,
+                scope=scope, return_numpy=False)
+            for j, name in enumerate(fetch):
+                want = torch.stack([e[j] for e in eager])
+                if not torch.equal(torch.nan_to_num(chunk[j], nan=7.0),
+                                   torch.nan_to_num(want, nan=7.0)) or \
+                        bool(torch.isnan(chunk[j]).any()) != taken:
+                    raise AssertionError(
+                        "Switch%s with NaN in the branch (%s): %s through "
+                        "the graph" % (where, "taken" if taken else
+                                       "not taken", name))
+            print("Switch%s with 0 * log(0 * y) in the branch, %s: the "
+                  "graph's loss and %s bitwise the eager steps' (%s)" % (
+                      where, "taken" if taken else "not taken", grad,
+                      "NaN in both, as under lax.cond" if taken else
+                      "finite: the branch not taken stays out of the "
+                      "gradient"))
+
+    # the DynamicRNN operator cell at H 512
+    with unique_name.guard():
+        prog, startup, loss = dynamic_rnn_program(fluid, layers, **DRNN)
+    lens, words, label = stacked_lstm_batch(rng, DRNN_B, DRNN_T, MIN_LEN,
+                                            DRNN["vocab"])
+    dfeed = packed_on(fluid, {"words": words, "label": label}, dev)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    exe.run(prog, feed={"words": words, "label": label}, fetch_list=[loss],
+            scope=scope)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [float(exe.run(prog, feed=dfeed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(DRNN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1000.0 / DRNN_STEPS
+    print("DynamicRNN cell (dict %d, emb %d, H %d, batch %d, lengths "
+          "%d..%d): losses %s; eager %.3f ms/step" % (
+              DRNN["vocab"], DRNN["emb"], DRNN["hid"], DRNN_B, lens.min(),
+              lens.max(), " ".join("%.6f" % v for v in losses), step_ms))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("DynamicRNN loss not finite and falling: %s"
+                             % losses)
+    del scope, exe
+    res["drnn"] = graph_path(fluid, "DynamicRNN LSTM cell (H %d)"
+                             % DRNN["hid"], (prog, startup, loss), dfeed,
+                             GRAPH_K["drnn"], GRAPH_CHUNKS, seed, {}, bounds)
+    torch.cuda.synchronize()
+    print("control-flow phase: %.1f s" % (time.perf_counter() - t0))
+    return res
 
 
 def rnn_amp_phase(fluid, seed, dev, model):
@@ -4874,6 +5402,21 @@ def main():
     t0 = time.perf_counter()
     sparse_phase(fluid, args.seed, dev)
     print("row-sparse phase: %.1f s" % (time.perf_counter() - t0))
+
+    # ---- 6d. path A: the SRL tagger at full width ----
+    phase("semantic-role tagger (bi-LSTM + CRF) at full width: words %d, "
+          "predicates %d, labels %d, embedding %d, LSTM size %d, batch %d "
+          "(seed %d)" % (44068, 3162, 59, SRL["emb_dim"],
+                         4 * SRL["hid_dim"], SRL_B, args.seed))
+    srl_launches = srl_phase(fluid, args.seed, dev)
+    launches["lstm_fwd"] += srl_launches["lstm_fwd"]
+    launches["lstm_bwd"] += srl_launches["lstm_bwd"]
+
+    # ---- 6e. path B: control flow ----
+    phase("control flow: While (max_iters), Switch, DynamicRNN with "
+          "Variable operators, eager against graph replays (seed %d)"
+          % args.seed)
+    control_flow_phase(fluid, args.seed, dev)
 
     # ---- 7. the convnet training slice at full width ----
     phase("ResNet-50 training at full width, configs A and B (seed %d)"

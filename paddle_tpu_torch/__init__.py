@@ -25,7 +25,9 @@ from paddle_tpu_torch.core.ir import (  # noqa: F401
     switch_main_program, switch_startup_program, program_guard,
 )
 from paddle_tpu_torch.core.executor import Executor  # noqa: F401
-from paddle_tpu_torch.core.lower import PackedSeq, RowSparse  # noqa: F401
+from paddle_tpu_torch.core.backward import append_backward  # noqa: F401
+from paddle_tpu_torch.core.lower import (  # noqa: F401
+    PackedSeq, RowSparse, TensorArray)
 from paddle_tpu_torch.core.scope import (  # noqa: F401
     Scope, global_scope, scope_guard)
 from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: F401

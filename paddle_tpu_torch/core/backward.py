@@ -19,10 +19,12 @@ After an op's grad consumes the cotangent of an output name, the
 accumulator for that name is reset, so an in-place output (a name that
 is also an input) accumulates its pre-update gradient separately.
 
-Control-flow ops (``scan_block``) are functional, as in the JAX
-package: their ``X``/``Init``/``Params`` are ordinary differentiable
-inputs and their sub-block is not walked here; ``scan_block_grad``
-differentiates the whole loop through the generic grad.
+Control-flow ops (``scan_block``, ``while``, ``conditional_block``)
+are functional, as in the JAX package: their ``X``/``Init``/``Params``
+are ordinary differentiable inputs and their sub-block is not walked
+here; their grad ops differentiate the whole loop or branch. A
+``while`` that gets a grad op is stamped ``differentiable=True`` here,
+so its forward and its grad run the same bounded masked loop.
 """
 
 from paddle_tpu_torch.core import ir, registry
@@ -171,6 +173,10 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         if not grad_out:
             continue
 
+        if op.type == "while":
+            # both directions run the bounded masked loop: reverse mode
+            # needs it (ops/control_flow_ops.py)
+            op.attrs["differentiable"] = True
         ins = {slot: list(names) for slot, names in op.inputs.items()}
         ins.update(grad_in)
         attrs = dict(op.attrs)
@@ -193,9 +199,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                 raise RuntimeError(
                     "append_backward: parameter %r is consumed on the path "
                     "to the loss but received no gradient — a "
-                    "non-differentiable (no_grad) op is in the way. Add the "
-                    "parameter to no_grad_set to silence intentionally."
-                    % pname)
+                    "non-differentiable (no_grad) op is in the way, or a "
+                    "While loop lacks max_iters. Add the parameter to "
+                    "no_grad_set to silence intentionally." % pname)
             continue
         params_grads.append((block.program.global_block().var(pname),
                              block.var(g)))

@@ -14,7 +14,9 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
   0`` var takes a ragged list (one array per sequence), packed here into
   a ``PackedSeq``, or a ``PackedSeq``; a fetched sequence comes back as
   a ``PackedSeq`` of numpy arrays, and a bfloat16 one (mixed precision,
-  ``amp.py``) comes back as float32.
+  ``amp.py``) comes back as float32. A ``TensorArray`` (the control-flow
+  ops' arrays) is fed, kept in a scope and fetched the same way: a
+  fetched one is a ``TensorArray`` of numpy arrays.
 * An op that updates a persistable in place (``adam``'s ParamOut and
   moments, names equal to its inputs') is written back to the scope
   with the other persistables the block wrote.
@@ -64,8 +66,8 @@ from paddle_tpu_torch import passes as passes_lib
 from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.core.infer import torch_dtype
-from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TraceContext,
-                                         run_block, step_key)
+from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
+                                         TraceContext, run_block, step_key)
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
@@ -416,6 +418,10 @@ class Executor:
             self._plans.clear()
 
     def _to_device(self, program, name, v):
+        if isinstance(v, TensorArray):
+            return TensorArray(self._to_device(program, name, v.data),
+                               torch.as_tensor(v.size).to(self.device,
+                                                          torch.int32))
         if isinstance(v, PackedSeq):
             return PackedSeq(self._to_device(program, name, v.data),
                              torch.as_tensor(v.lengths).to(self.device,
@@ -504,7 +510,8 @@ def persistable_writes(program, written, env):
 def slice_feed(chunk, i):
     """Step ``i``'s feed of a super-batch chunk (views)."""
     return {n: PackedSeq(v.data[i], v.lengths[i])
-            if isinstance(v, PackedSeq) else v[i]
+            if isinstance(v, PackedSeq) else TensorArray(v.data[i], v.size[i])
+            if isinstance(v, TensorArray) else v[i]
             for n, v in chunk.items()}
 
 
@@ -519,6 +526,9 @@ def stack_steps(values):
     if isinstance(values[0], PackedSeq):
         return PackedSeq(torch.stack([v.data for v in values]),
                          torch.stack([v.lengths for v in values]))
+    if isinstance(values[0], TensorArray):
+        return TensorArray(torch.stack([v.data for v in values]),
+                           torch.stack([v.size for v in values]))
     return torch.stack(values)
 
 
@@ -526,7 +536,7 @@ def _chunk_k(chunk, k):
     """Resolve and check the steps-a-call K of a super-batch feed: every
     feed must carry the same leading [K, ...] axis."""
     for name, v in chunk.items():
-        arr = v.data if isinstance(v, PackedSeq) else v
+        arr = v.data if isinstance(v, (PackedSeq, TensorArray)) else v
         lead = arr.shape[0] if arr.dim() else None
         if lead is None:
             raise ValueError(
@@ -567,6 +577,8 @@ def _to_numpy(v):
         return out
     if isinstance(v, PackedSeq):
         return PackedSeq(_to_numpy(v.data), v.lengths.cpu().numpy())
+    if isinstance(v, TensorArray):
+        return TensorArray(_to_numpy(v.data), v.size.cpu().numpy())
     if v.dtype == torch.bfloat16:
         v = v.float()
     return v.cpu().numpy()

@@ -80,8 +80,8 @@ import torch
 
 from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core.executor import run_step, slice_feed
-from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, op_seed,
-                                         step_key)
+from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
+                                         op_seed, step_key)
 from paddle_tpu_torch.kernels import capturing_launches, credit_launches
 
 __all__ = ["run_chunk", "StepGraph", "CapturedRun", "RecordDraws",
@@ -181,16 +181,20 @@ class CapturedRun:
 def _tensors(v):
     if isinstance(v, PackedSeq):
         return [v.data, v.lengths]
+    if isinstance(v, TensorArray):
+        return [v.data, v.size]
     if isinstance(v, RowSparse):
         return [v.rows, v.values]
     return [v]
 
 
 def _rebuild(v, ts):
-    """A value like ``v`` (a tensor, PackedSeq or RowSparse) made of the
-    tensors ``ts``, in ``_tensors``' order."""
+    """A value like ``v`` (a tensor, PackedSeq, TensorArray or RowSparse)
+    made of the tensors ``ts``, in ``_tensors``' order."""
     if isinstance(v, PackedSeq):
         return PackedSeq(*ts)
+    if isinstance(v, TensorArray):
+        return TensorArray(*ts)
     if isinstance(v, RowSparse):
         return RowSparse(ts[0], ts[1], v.height)
     return ts[0]
@@ -224,6 +228,13 @@ def _row(v, i):
     return _rebuild(v, [t[i] for t in _tensors(v)])
 
 
+def _layout(v):
+    """A value's kind and its tensors' dtypes, shapes and devices."""
+    return (type(v).__name__,) + tuple(
+        "%s %s %s" % (t.dtype, tuple(t.shape), t.device)
+        for t in _tensors(v))
+
+
 def _sig(v):
     """A feed's per-step signature (its chunk's without the K axis)."""
     return tuple((tuple(t.shape[1:]), str(t.dtype)) for t in _tensors(v))
@@ -240,15 +251,15 @@ class StepGraph:
         seen = set()
         for n in plan.state_names(scope, feed, executor.device):
             v = scope.find_var(n)
-            s = v.untyped_storage().data_ptr()
-            if s in seen:
+            if _storages([v]) & seen:
                 # two names on one tensor: the step may write them apart
-                v = v.clone()
+                v = _clone(v)
                 scope.set_var(n, v)
-            seen.add(s)
+            seen |= _storages([v])
             # made on the side stream by the eager step; replays use them
             # on the current one
-            v.record_stream(torch.cuda.current_stream(v.device))
+            for t in _tensors(v):
+                t.record_stream(torch.cuda.current_stream(t.device))
             self.state[n] = v
         self.feeds = {n: _buffer_like(v) for n, v in feed.items()}
         for n, v in feed.items():
@@ -287,7 +298,7 @@ class StepGraph:
                 f = _clone(f)          # keep the value the step computed
             kept.append(f)
         for old, v in copies:
-            old.copy_(v)
+            _copy_into(old, v)
         return kept
 
     def replay(self, feed, step, scope):
@@ -295,15 +306,13 @@ class StepGraph:
             cur = scope.find_var(n)
             if cur is buf:
                 continue
-            if cur is None or tuple(cur.shape) != tuple(buf.shape) \
-                    or cur.dtype != buf.dtype or cur.device != buf.device:
+            if cur is None or _layout(cur) != _layout(buf):
                 raise ValueError(
-                    "scope variable %r is %s, not the %s %s %s the graph "
-                    "was captured over" % (
-                        n, None if cur is None else "%s %s %s" % (
-                            cur.dtype, tuple(cur.shape), cur.device),
-                        buf.dtype, tuple(buf.shape), buf.device))
-            buf.copy_(cur)
+                    "scope variable %r is %s, not the %s the graph was "
+                    "captured over" % (
+                        n, None if cur is None else _layout(cur),
+                        _layout(buf)))
+            _copy_into(buf, cur)
             scope.set_var(n, buf)
         for n, buf in self.feeds.items():
             _copy_into(buf, feed[n])

@@ -39,9 +39,11 @@ the inner op and block, then with the control-flow op and its block.
 import torch
 
 from paddle_tpu_torch.core import registry
+from paddle_tpu_torch.core.ir import VarType
 
 __all__ = ["TraceContext", "run_block", "run_op", "step_key", "op_seed",
-           "PackedSeq", "RowSparse", "add_rows", "concat_time_padded"]
+           "PackedSeq", "RowSparse", "TensorArray", "add_rows",
+           "concat_time_padded"]
 
 
 class PackedSeq:
@@ -116,6 +118,35 @@ class RowSparse:
     def __repr__(self):
         return "RowSparse(rows=%s, values=%s, height=%d)" % (
             tuple(self.rows.shape), tuple(self.values.shape), self.height)
+
+
+class TensorArray:
+    """Fixed-capacity tensor array, as the JAX package carries it: a
+    stacked ``[capacity, ...]`` buffer ``data`` plus a 0-d int32 ``size``
+    on the same device. It replaces the reference's growing
+    LoDTensorArray with one static allocation, so writes index the
+    buffer on the device (no host read of the index) and a CUDA graph
+    captures them. Gradients flow through ``data`` only. A program
+    reads a tensor-array variable that no op has written yet as None:
+    the first ``write_to_array`` allocates the buffer."""
+
+    __slots__ = ("data", "size")
+
+    def __init__(self, data, size):
+        self.data = data
+        self.size = size
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def __repr__(self):
+        return "TensorArray(data=%s, size=%s)" % (
+            tuple(self.data.shape), tuple(self.size.shape))
 
 
 def add_rows(t, rows, values):
@@ -355,6 +386,8 @@ def _run_generic_grad_op(ctx, block, op, env):
 
 
 def _zeros_like(v):
+    if isinstance(v, TensorArray):
+        return TensorArray(torch.zeros_like(v.data), v.size)
     if isinstance(v, RowSparse):
         return RowSparse(v.rows, torch.zeros_like(v.values), v.height)
     if isinstance(v, PackedSeq):
@@ -381,6 +414,8 @@ class _FwdOpView:
 def _lookup(env, block, name):
     if name in env:
         return env[name]
+    if block.has_var(name) and block.var(name).type == VarType.TENSOR_ARRAY:
+        return None               # an array no op has written yet
     raise KeyError(
         "op input %r has no value at run time (not fed, not in scope, and "
         "not produced by an earlier op in block %d)" % (name, block.idx))

@@ -125,20 +125,22 @@ def normalize_outputs(result):
 
 def _leaf(v):
     """A detached copy of a float forward input that autograd tracks; a
-    PackedSeq differentiates through its data only."""
-    from paddle_tpu_torch.core.lower import PackedSeq
+    PackedSeq (a TensorArray) differentiates through its data only."""
+    from paddle_tpu_torch.core.lower import PackedSeq, TensorArray
 
     if isinstance(v, PackedSeq):
         return PackedSeq(_leaf(v.data), v.lengths)
+    if isinstance(v, TensorArray):
+        return TensorArray(_leaf(v.data), v.size)
     if isinstance(v, torch.Tensor) and v.is_floating_point():
         return v.detach().requires_grad_()
     return v
 
 
 def _data(v):
-    from paddle_tpu_torch.core.lower import PackedSeq
+    from paddle_tpu_torch.core.lower import PackedSeq, TensorArray
 
-    return v.data if isinstance(v, PackedSeq) else v
+    return v.data if isinstance(v, (PackedSeq, TensorArray)) else v
 
 
 def generic_grad(ctx, spec, fwd_op, ins, out_grads):
@@ -148,9 +150,10 @@ def generic_grad(ctx, spec, fwd_op, ins, out_grads):
     or None]} cotangents for each forward output (a missing cotangent is
     zero). Returns {slot: [grad or None]} for the differentiable inputs;
     None where no gradient flows. A PackedSeq input's gradient is a
-    PackedSeq with the same lengths.
+    PackedSeq with the same lengths, a TensorArray's a TensorArray of the
+    same size.
     """
-    from paddle_tpu_torch.core.lower import PackedSeq
+    from paddle_tpu_torch.core.lower import PackedSeq, TensorArray
 
     leaves = {s: [_leaf(v) for v in vals] for s, vals in ins.items()
               if s not in spec.nondiff_inputs}
@@ -187,6 +190,9 @@ def generic_grad(ctx, spec, fwd_op, ins, out_grads):
     for (s, i, _), g in zip(flat, grads):
         if g is not None:
             v = ins[s][i]
-            out[s][i] = PackedSeq(g, v.lengths) \
-                if isinstance(v, PackedSeq) else g
+            if isinstance(v, PackedSeq):
+                g = PackedSeq(g, v.lengths)
+            elif isinstance(v, TensorArray):
+                g = TensorArray(g, v.size)
+            out[s][i] = g
     return out

@@ -49,7 +49,7 @@ import torch
 
 from paddle_tpu_torch import fault
 from paddle_tpu_torch import telemetry
-from paddle_tpu_torch.core.lower import RowSparse
+from paddle_tpu_torch.core.lower import RowSparse, TensorArray
 
 __all__ = ["GuardConfig", "Divergence", "DivergenceDetector",
            "HealthTracker", "enable", "disable", "reset_state",
@@ -454,6 +454,15 @@ def _float_leaves(g):
         else []
 
 
+def _choose(healthy, cand, old):
+    """``torch.where(healthy, cand, old)`` over a state value: a tensor,
+    or each tensor of a ``TensorArray``."""
+    if isinstance(cand, TensorArray):
+        return TensorArray(torch.where(healthy, cand.data, old.data),
+                           torch.where(healthy, cand.size, old.size))
+    return torch.where(healthy, cand, old)
+
+
 def finalize(tg, env, old_mut, cand_mut):
     """Close one step: the health summary, the skip (every state tensor
     in both ``old_mut`` and ``cand_mut`` becomes ``torch.where(healthy,
@@ -490,7 +499,7 @@ def finalize(tg, env, old_mut, cand_mut):
     for n, cand in cand_mut.items():
         old = old_mut.get(n)
         if old is not None and n not in STATE_NAMES and old is not cand:
-            out[n] = torch.where(healthy, cand, old)
+            out[n] = _choose(healthy, cand, old)
 
     skipped = (~healthy).to(_COUNTER)
     out[K_SKIPPED] = tg.state[K_SKIPPED] + skipped

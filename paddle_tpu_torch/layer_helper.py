@@ -97,6 +97,9 @@ class LayerHelper:
             name=name or unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype or "float32")
 
+    def create_variable(self, *args, **kwargs):
+        return self.block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs):
         return self.main_program.global_block().create_var(
             name=kwargs.get("name") or unique_name.generate(

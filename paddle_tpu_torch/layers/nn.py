@@ -5,8 +5,10 @@ appends ops to the current program block; shapes propagate by meta-tensor
 inference so downstream layers can size parameters. These are the
 layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
-losses and metric, of the attention seq2seq model's training graph, and
-of the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
+losses and metric, of the attention seq2seq model's training graph, of
+the CRF sequence tagger (``linear_chain_crf``, ``crf_decoding``,
+``chunk_eval``), the single LSTM step and the projected LSTM, and of
+the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
 ResNet, VGG, AlexNet, GoogLeNet and SmallNet), and the activations;
 the JAX package's other layers arrive with later slices.
 """
@@ -18,7 +20,8 @@ from paddle_tpu_torch.initializer import Constant, Normal
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "relu", "lrn",
     "dropout",
-    "dynamic_lstm", "dynamic_gru", "gru_unit",
+    "dynamic_lstm", "dynamic_lstmp", "dynamic_gru", "gru_unit",
+    "lstm_unit", "linear_chain_crf", "crf_decoding", "chunk_eval",
     "sequence_pool", "sequence_first_step", "sequence_pad",
     "sequence_mask", "cross_entropy", "softmax_with_cross_entropy",
     "layer_norm", "elementwise_add",
@@ -213,6 +216,36 @@ def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
     return hidden, cell
 
 
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  dtype="float32", name=None):
+    """input: PackedSeq [B, T, 4H] (pre-projected); size = 4H; the
+    hidden state is projected to ``proj_size``. Returns ``(projection,
+    cell)``."""
+    helper = LayerHelper("dynamic_lstmp", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    h = size // 4
+    w = helper.create_parameter(helper.param_attr, [proj_size, 4 * h], dtype)
+    proj_w = helper.create_parameter(
+        helper.param_attr if helper.kwargs.get("param_attr") else None,
+        [h, proj_size], dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, 4 * h], dtype,
+                                is_bias=True)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "lstmp",
+        {"Input": [input], "Weight": [w], "ProjWeight": [proj_w], "Bias": [b]},
+        {"Projection": [proj], "Cell": [cell]},
+        {"use_peepholes": use_peepholes, "is_reverse": is_reverse,
+         "gate_activation": gate_activation, "cell_activation": cell_activation,
+         "candidate_activation": candidate_activation,
+         "proj_activation": proj_activation})
+    return proj, cell
+
+
 def dynamic_gru(input, size, param_attr=None, bias_attr=None,
                 is_reverse=False, gate_activation="sigmoid",
                 candidate_activation="tanh", h_0=None, name=None):
@@ -257,6 +290,25 @@ def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
                      {"activation": activation,
                       "gate_activation": gate_activation})
     return out, reset, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: ``fc`` of [x_t, hidden_t_prev] to the 4H gates,
+    then the ``lstm_unit`` op. Returns ``(hidden, cell)``."""
+    from paddle_tpu_torch.layers.tensor import concat
+
+    helper = LayerHelper("lstm_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    size = int(cell_t_prev.shape[1])
+    concat_in = concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(concat_in, 4 * size, param_attr=helper.kwargs.get("param_attr"),
+                bias_attr=helper.kwargs.get("bias_attr"))
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op("lstm_unit", {"X": [fc_out], "C_prev": [cell_t_prev]},
+                     {"C": [c], "H": [h]}, {"forget_bias": forget_bias})
+    return h, c
 
 
 def sequence_pool(input, pool_type):
@@ -717,3 +769,67 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
                      {"step": float(step)})
     counter.stop_gradient = True
     return counter
+
+
+def linear_chain_crf(input, label, param_attr=None, name=None):
+    """CRF training loss (reference layers/nn.py linear_chain_crf ->
+    operators/linear_chain_crf_op.cc). Returns each sequence's negative
+    log likelihood [batch, 1]; the transition parameter's rows are
+    start, end, then [tag x tag]."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         name=name)
+    size = int(input.shape[-1])
+    transition = helper.create_parameter(helper.param_attr,
+                                         [size + 2, size], input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    e_exps = helper.create_variable_for_type_inference(input.dtype)
+    t_exps = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("linear_chain_crf",
+                     {"Emission": [input], "Transition": [transition],
+                      "Label": [label]},
+                     {"LogLikelihood": [ll], "Alpha": [alpha],
+                      "EmissionExps": [e_exps], "TransitionExps": [t_exps]},
+                     {})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, name=None):
+    """Viterbi decode with the transition ``linear_chain_crf`` learned
+    (reference operators/crf_decoding_op.cc); pass the same
+    param_attr."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, name=name)
+    size = int(input.shape[-1])
+    transition = helper.create_parameter(helper.param_attr,
+                                         [size + 2, size], input.dtype)
+    path = helper.create_variable_for_type_inference("int64")
+    ins = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        ins["Label"] = [label]
+    helper.append_op("crf_decoding", ins, {"ViterbiPath": [path]}, {})
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme="IOB", num_chunk_types=1,
+               excluded_chunk_types=None, name=None):
+    """Chunking precision/recall/F1 over packed tag sequences (reference
+    operators/chunk_eval_op.cc, fluid.layers.chunk_eval). Returns
+    ``(precision, recall, f1, num_infer_chunks, num_label_chunks,
+    num_correct_chunks)``."""
+    helper = LayerHelper("chunk_eval", name=name)
+    prec = helper.create_variable_for_type_inference("float32")
+    rec = helper.create_variable_for_type_inference("float32")
+    f1 = helper.create_variable_for_type_inference("float32")
+    n_inf = helper.create_variable_for_type_inference("int64")
+    n_lab = helper.create_variable_for_type_inference("int64")
+    n_cor = helper.create_variable_for_type_inference("int64")
+    helper.append_op("chunk_eval",
+                     {"Inference": [input], "Label": [label]},
+                     {"Precision": [prec], "Recall": [rec],
+                      "F1-Score": [f1], "NumInferChunks": [n_inf],
+                      "NumLabelChunks": [n_lab],
+                      "NumCorrectChunks": [n_cor]},
+                     {"chunk_scheme": chunk_scheme,
+                      "num_chunk_types": num_chunk_types,
+                      "excluded_chunk_types": excluded_chunk_types or []})
+    return prec, rec, f1, n_inf, n_lab, n_cor

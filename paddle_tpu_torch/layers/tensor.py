@@ -1,17 +1,19 @@
 """Tensor layers.
 
 Capability parity: `python/paddle/fluid/layers/tensor.py`. The port
-carries ``create_global_var``, ``cast``, ``concat``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``ones_like`` and ``position_ids``;
+carries ``create_global_var``, ``cast``, ``concat``, ``assign``,
+``fill_constant``, ``fill_constant_batch_size_like``, ``ones_like`` and
+``position_ids``;
 the rest of the module's layers
 arrive with later slices.
 """
 
 import numpy as np
 
+from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "cast", "concat", "fill_constant",
+__all__ = ["create_global_var", "cast", "concat", "assign", "fill_constant",
            "fill_constant_batch_size_like", "ones_like", "position_ids"]
 
 
@@ -38,6 +40,23 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(helper.input_dtype())
     helper.append_op("concat", {"X": input}, {"Out": [out]}, {"axis": axis})
     return out
+
+
+def assign(input, output=None):
+    """``output`` (a new variable if None) takes ``input``'s value: a
+    Variable through an ``assign`` op, a numpy array or list through an
+    ``assign_value`` op that holds its values."""
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference("float32")
+    if isinstance(input, ir.Variable):
+        helper.append_op("assign", {"X": [input]}, {"Out": [output]})
+    else:
+        arr = np.asarray(input)
+        helper.append_op("assign_value", {}, {"Out": [output]},
+                         {"shape": list(arr.shape), "dtype": arr.dtype.name,
+                          "values": arr.reshape(-1).tolist()})
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

@@ -11,4 +11,6 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     optimizer_ops,
     control_flow_ops,
     beam_search_ops,
+    crf_ops,
+    detection_ops,
 )

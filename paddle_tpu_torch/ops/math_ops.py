@@ -55,6 +55,7 @@ _elementwise("sub", torch.sub)
 _elementwise("mul", torch.mul)
 _elementwise("div", torch.div)
 _elementwise("min", torch.minimum)
+_elementwise("pow", torch.pow)
 
 
 # ---- activations (activation_op.cc catalogue) ----
@@ -296,11 +297,29 @@ def _sum(ctx, ins, attrs, o):
     return out
 
 
-# ---- comparisons (no grad) ----
+# ---- comparisons and logicals (no grad) ----
 
-@op("less_than", no_grad=True)
-def _less_than(ctx, ins, attrs, o):
-    return torch.lt(_x(ins), _x(ins, "Y"))
+def _cmp(name, fn):
+    @op(name, no_grad=True)
+    def _c(ctx, ins, attrs, o, fn=fn):
+        return fn(_x(ins), _x(ins, "Y"))
+    return _c
+
+
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+_cmp("logical_and", torch.logical_and)
+_cmp("logical_or", torch.logical_or)
+_cmp("logical_xor", torch.logical_xor)
+
+
+@op("logical_not", no_grad=True)
+def _logical_not(ctx, ins, attrs, o):
+    return torch.logical_not(_x(ins))
 
 
 # ---- linear algebra ----

@@ -1,16 +1,18 @@
 """Recurrent op lowerings: the LSTM and the GRU over packed sequences,
-and the single GRU step.
+the single GRU and LSTM steps, and the projected LSTM.
 
 Capability parity: reference `operators/lstm_op.*`, `gru_op.*`,
-`gru_unit_op`, `math/lstm_compute.*`, `math/gru_compute.*` and the
-fused CUDA cell kernels (`math/detail/`), as the JAX package's
-``ops/rnn_ops.py`` lowers ``lstm``, ``gru`` and ``gru_unit``: a static
+`gru_unit_op`, `lstm_unit_op`, `lstmp_op`, `math/lstm_compute.*`,
+`math/gru_compute.*` and the fused CUDA cell kernels (`math/detail/`),
+as the JAX package's ``ops/rnn_ops.py`` lowers ``lstm``, ``gru``,
+``gru_unit``, ``lstm_unit`` and ``lstmp``: a static
 trip count (the padded max_len), masked for finished sequences. With
 the default activations ``lstm`` runs the whole-sequence kernels of
 ``kernels/lstm_cell.py`` (B3 forward, B4 backward) and ``gru`` those of
 ``kernels/gru_cell.py`` (B5, B6); other activations run a plain step
-loop that autograd differentiates. ``gru_unit`` is plain PyTorch, as the
-JAX package runs no kernel for it.
+loop that autograd differentiates. ``gru_unit``, ``lstm_unit`` and
+``lstmp`` are plain PyTorch, as the JAX package runs no kernel for
+them.
 
 One deliberate difference from the JAX package: a reverse LSTM or GRU
 writes its outputs back to their positions with a gather, not a
@@ -204,3 +206,62 @@ def _gru_unit(ctx, ins, attrs, o):
     c = act(x[:, 2 * h:] + (r * h_prev) @ w[:, 2 * h:])
     return {"Hidden": u * h_prev + (1 - u) * c, "Gate": gu_r,
             "ResetHiddenPrev": r * h_prev}
+
+
+@op("lstm_unit")
+def _lstm_unit(ctx, ins, attrs, o):
+    """Single LSTM step (reference lstm_unit_op): X=[B,4H]
+    preactivations in gate order i, f, c, o, C_prev=[B,H] -> C, H;
+    ``forget_bias`` is added to f."""
+    x, c_prev = ins["X"][0], ins["C_prev"][0]
+    fb = attrs.get("forget_bias", 0.0)
+    i, f, c, out = torch.chunk(x, 4, dim=-1)
+    new_c = c_prev * torch.sigmoid(f + fb) + torch.sigmoid(i) * torch.tanh(c)
+    new_h = torch.tanh(new_c) * torch.sigmoid(out)
+    return {"C": new_c, "H": new_h}
+
+
+@op("lstmp")
+def _lstmp(ctx, ins, attrs, o):
+    """LSTM with a recurrent projection (reference lstmp_op): the hidden
+    state H is projected to P dims (ProjWeight [H, P], then
+    ``proj_activation``) and the projection is what recurs (Weight
+    [P, 4H], gate order i, c, f, o). As in the JAX package the steps run
+    forward and without peepholes whatever ``is_reverse`` and
+    ``use_peepholes`` say (ROADMAP.md Queue 3); a finished row keeps its
+    projection and cell."""
+    s = ins["Input"][0]
+    w = ins["Weight"][0]
+    proj = ins["ProjWeight"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    h = w.shape[1] // 4
+    act_g = _ACT[attrs.get("gate_activation", "sigmoid")]
+    act_c = _ACT[attrs.get("cell_activation", "tanh")]
+    act_h = _ACT[attrs.get("candidate_activation", "tanh")]
+    act_p = _ACT[attrs.get("proj_activation", "identity")]
+    x = s.data
+    if bias is not None:
+        x = x + bias.reshape(-1)[None, None, :4 * h]
+    valid = s.mask(x.dtype)
+    r_prev = x.new_zeros((x.shape[0], proj.shape[1]))
+    c_prev = x.new_zeros((x.shape[0], h))
+    steps = 1 if ctx.device.type == "meta" else x.shape[1]
+    rs, cs = [], []
+    for t in range(steps):
+        g = x[:, t] + r_prev @ w
+        gi, gc, gf, go = torch.chunk(g, 4, dim=-1)
+        c_t = act_g(gf) * c_prev + act_g(gi) * act_c(gc)
+        r_t = act_p((act_g(go) * act_h(c_t)) @ proj)
+        m = valid[:, t, None]
+        r_prev = m * r_t + (1 - m) * r_prev
+        c_prev = m * c_t + (1 - m) * c_prev
+        rs.append(r_prev)
+        cs.append(c_prev)
+    def stacked(ys):
+        if ctx.device.type == "meta":   # shape inference runs one step
+            return ys[0].unsqueeze(1).expand(
+                (ys[0].shape[0], x.shape[1]) + tuple(ys[0].shape[1:]))
+        return torch.stack(ys, 1)
+
+    return {"Projection": PackedSeq(stacked(rs), s.lengths),
+            "Cell": PackedSeq(stacked(cs), s.lengths)}

@@ -1,7 +1,7 @@
 """Tensor-manipulation op lowerings.
 
 Capability parity: reference cast/reshape/transpose/squeeze/unsqueeze/
-concat/top_k/assign/fill_constant/fill_constant_batch_size_like/
+concat/top_k/assign/assign_value/fill_constant/fill_constant_batch_size_like/
 increment/where/uniform_random/gaussian_random
 (`paddle/fluid/operators/`, §2.3
 "Tensor manipulation"), as the JAX package's ``ops/tensor_ops.py``
@@ -9,6 +9,7 @@ lowers them, with its gradient flags. The module's other ops arrive
 with later slices.
 """
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.infer import torch_dtype
@@ -93,6 +94,12 @@ def _top_k(ctx, ins, attrs, o):
 @op("assign")
 def _assign(ctx, ins, attrs, o):
     return _x(ins)
+
+
+@op("assign_value", no_grad=True)
+def _assign_value(ctx, ins, attrs, o):
+    vals = np.asarray(attrs["values"], dtype=attrs.get("dtype", "float32"))
+    return torch.as_tensor(vals.reshape(attrs["shape"]), device=ctx.device)
 
 
 @op("fill_constant", no_grad=True)

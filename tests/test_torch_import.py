@@ -63,6 +63,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.io, paddle_tpu_torch.tracing\n"
         "import paddle_tpu_torch.distributed.rpc\n"
         "import paddle_tpu_torch.serving.server, paddle_tpu_torch.cli\n"
+        "import paddle_tpu_torch.models.srl\n"
+        "import paddle_tpu_torch.ops.crf_ops\n"
+        "import paddle_tpu_torch.ops.detection_ops\n"
+        "import paddle_tpu_torch.layers.math_op_patch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
