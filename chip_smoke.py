@@ -70,7 +70,14 @@ calls, on random weights and data made from ``--seed``:
   (trained through ``max_iters``, and for inference) and Switch at
   width 64, and benchmark/fluid/stacked_dynamic_lstm.py's LSTM cell
   written with Variable operators inside a ``DynamicRNN`` (dict 30000,
-  embedding 512, H 512, batch 32, lengths 16..80).
+  embedding 512, H 512, batch 32, lengths 16..80);
+* the dense op library: its 60 op types, the book's fit_a_line (13
+  features, batch 20) and movielens recommender (6040 users, 3952
+  movies, title vocabulary 5175, ``nets.sequence_conv_pool`` over the
+  titles, ``cos_sim``, batch 256), and ``nets.scaled_dot_product_attention``
+  at the transformer cell's width (batch 16, seq 512, d_model 512, 8
+  heads) against the ``fused_attention`` op, whose float32 B1 it
+  launches.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -178,6 +185,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    refusing the capture; the Switch in both branches, and with
    0 * log(0 * y) inside its branch (NaN taken, finite not taken, as
    under lax.cond); the DynamicRNN cell (a loss falling over 3 steps);
+6f. the dense op library: each of its 60 op types through its lowering
+   on the card and on the CPU from the same numpy inputs (outputs, and
+   the gradients by autograd where it is differentiable: integers
+   exact, floats within rtol 1e-5 plus 1e-6 of the largest magnitude),
+   the six random ops at their JAX tests' properties, the same bits from
+   the same stream and through run_chunk's graphs bitwise; fit_a_line
+   and the recommender trained eagerly (a finite falling loss over 10
+   steps) and through run_chunk (K=4, 2 chunks, bitwise), the card
+   against the CPU from the same weights (3 steps' losses at rtol 1e-4,
+   first-step gradients within 1e-4 of their largest magnitude); the
+   nets attention against float32 B1 on the same q, k, v (outputs and
+   their gradients within PERF.md section 2's bound, B1's launches
+   exactly the program's, both calls' host ms, device busy ms and
+   device ops);
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -501,6 +522,35 @@ CF_H, CF_B, CF_T, CF_MAX_ITERS = 64, 16, 3, 8
 DRNN = dict(vocab=DICT, emb=512, hid=512)
 DRNN_B, DRNN_T, DRNN_STEPS = 32, 80, 3
 GRAPH_K.update(srl=4, control=4, drnn=2)
+# the dense op library (phase 6f): each type at the JAX sweeps' shapes,
+# the card against the CPU from the same numpy inputs: integer and shape
+# results exact, float results and gradients within DENSE_RTOL plus
+# DENSE_AMAX of the largest magnitude
+DENSE_RTOL, DENSE_AMAX = 1e-5, 1e-6
+# the book's fit_a_line over uci_housing's 13 features
+# (tests/test_book.py:166-196), batch 20, SGD lr 0.01
+FIT_B, FIT_LR = 20, 0.01
+# the book's recommender (tests/test_book.py:236-283) at movielens' table
+# sizes (paddle_tpu/dataset/movielens.py:12-16: 6040 users, 2 genders, 7
+# ages, 3952 movies, title vocabulary 5175) and the 2018 book's widths
+# (id embeddings 32, gender and age 16, tower fc 200, 32 title filters of
+# width 3 pooled by sum), batch 256, titles of 1..15 ids, SGD lr 0.1
+REC = dict(users=6040, genders=2, ages=7, movies=3952, title_vocab=5175,
+           id_emb=32, small_emb=16, fc=200, filters=32, filter_size=3,
+           lr=0.1)
+REC_B, REC_TITLE = 256, (1, 15)
+BOOK_STEPS = 10
+GRAPH_K.update(book=4)
+# nets.scaled_dot_product_attention against B1 at the transformer cell's
+# width (bench.py:221-253): batch 16, sequence 512, d_model 512, 8 heads,
+# float32, not causal
+SDPA = dict(b=16, t=512, d=512, heads=8)
+# B1 in float32 (3xTF32 GEMMs, an online softmax over key blocks, its
+# backward recomputing P) against the float32 cuBLAS chain with TF32 off
+# (PERF.md section 2): the outputs within SDPA_OUT_TOL of their largest
+# magnitude, the gradients with respect to q, k and v each within
+# SDPA_GRAD_TOL of its own
+SDPA_OUT_TOL, SDPA_GRAD_TOL = 1e-5, 1e-4
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -2576,6 +2626,590 @@ def control_flow_phase(fluid, seed, dev):
     torch.cuda.synchronize()
     print("control-flow phase: %.1f s" % (time.perf_counter() - t0))
     return res
+
+
+def dense_cases(rng):
+    """(name, op type, inputs, attrs) of phase 6f's sweep: each type of
+    the dense op library at the JAX sweeps' shapes (tests/
+    test_op_sweep_{math,tensor,nn,rnn_seq}.py) and at the cases where
+    the obvious call computes something else (signs under mod,
+    out-of-range ids, ties, wraps). A ("seq", data, lengths) input is a
+    PackedSeq."""
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def i64(*a):
+        return np.array(a, np.int64)
+
+    def seq(data, lens):
+        data = data.copy()
+        for r, n in enumerate(lens):
+            data[r, n:] = 0
+        return ("seq", data, np.asarray(lens, np.int32))
+
+    a = rng.rand(2, 3, 4).astype(np.float32) + 0.5
+    b = rng.rand(2, 3, 4).astype(np.float32) + 0.5
+    xs = (rng.rand(3, 4).astype(np.float32) - 0.5) * 4
+    boxes = np.sort(rng.rand(5, 2, 2), 1).reshape(5, 4).astype(np.float32)
+    cases = [
+        ("max", "elementwise_max", {"X": [a], "Y": [b]}, {}),
+        ("mod", "elementwise_mod", {"X": [f(4, 5) * 3], "Y": [
+            np.where(rng.rand(4, 5) > 0.5, 1.0, -1.0).astype(np.float32)
+            * (rng.rand(4, 5) + 0.5).astype(np.float32)]}, {}),
+        ("mod_int", "elementwise_mod", {
+            "X": [np.array([7, -7, 7, -7], np.int32)],
+            "Y": [np.array([3, 3, -3, -3], np.int32)]}, {}),
+        ("floordiv", "elementwise_floordiv",
+         {"X": [f(4, 5) * 5], "Y": [f(4, 5) + 0.1]}, {})]
+    for r in ("mean", "max", "min", "prod"):
+        cases += [("reduce_%s" % r, "reduce_" + r, {"X": [a]},
+                   {"dim": [1], "keep_dim": True}),
+                  ("reduce_%s_all" % r, "reduce_" + r, {"X": [a]},
+                   {"reduce_all": True})]
+    cases += [
+        ("l1_norm", "l1_norm", {"X": [xs]}, {}),
+        ("squared_l2_norm", "squared_l2_norm", {"X": [xs]}, {}),
+        ("squared_l2_distance", "squared_l2_distance",
+         {"X": [f(4, 5)], "Y": [f(4, 5)]}, {}),
+        ("frobenius_norm", "frobenius_norm", {"X": [a]}, {"dim": [1, 2]}),
+        ("norm", "norm", {"X": [xs]}, {"axis": 1}),
+        ("isfinite", "isfinite", {"X": [np.array([1.0, np.inf],
+                                                 np.float32)]}, {}),
+        ("cumsum", "cumsum", {"X": [a]}, {"axis": 1, "exclusive": True,
+                                         "reverse": True}),
+        ("label_smooth", "label_smooth", {
+            "X": [np.eye(4, dtype=np.float32)[rng.randint(0, 4, 5)]],
+            "PriorDist": [np.array([[0.1, 0.2, 0.3, 0.4]], np.float32)]},
+         {"epsilon": 0.2}),
+        ("matmul", "matmul", {"X": [f(2, 1, 3, 4)], "Y": [f(3, 5, 4)]},
+         {"transpose_Y": True, "alpha": 0.5}),
+        ("matmul_vec", "matmul", {"X": [f(4)], "Y": [f(4, 5)]},
+         {"transpose_X": True}),
+        ("dot", "dot", {"X": [f(3, 5)], "Y": [f(3, 5)]}, {}),
+        ("cos_sim", "cos_sim", {"X": [f(4, 6)], "Y": [f(1, 6)]}, {}),
+        ("bilinear", "bilinear_tensor_product", {
+            "X": [f(3, 4)], "Y": [f(3, 5)], "Weight": [f(6, 4, 5)],
+            "Bias": [f(1, 6)]}, {}),
+        ("iou", "iou_similarity", {"X": [boxes], "Y": [boxes[:3]]}, {}),
+        ("log_softmax", "log_softmax", {"X": [seq(f(2, 4, 5), [4, 2])]},
+         {}),
+        ("square_error_cost", "square_error_cost",
+         {"X": [f(4, 1)], "Y": [f(4, 1)]}, {}),
+        ("sequence_conv", "sequence_conv", {
+            "X": [seq(f(2, 4, 2), [4, 3])], "Filter": [f(6, 4)]},
+         {"contextLength": 3, "contextStart": -1}),
+        ("split", "split", {"X": [a]}, {"axis": 2, "sections": [1, 3]}),
+        ("reshape2", "reshape2", {"X": [a]}, {"shape": [0, -1]}),
+        ("transpose2", "transpose2", {"X": [a]}, {"axis": [2, 0, 1]}),
+        ("flatten", "flatten", {"X": [a]}, {"axis": 2}),
+        ("expand", "expand", {"X": [a]}, {"expand_times": [2, 1, 3]}),
+        ("tile", "tile", {"X": [a]}, {"repeat_times": [1, 2, 1]}),
+        ("stack", "stack", {"X": [a, b]}, {"axis": 1}),
+        ("unstack", "unstack", {"X": [a]}, {"axis": 1}),
+        ("pad", "pad", {"X": [a]}, {"paddings": [0, 1, 1, 0, 0, 2],
+                                    "pad_value": 0.5}),
+        ("pad2d", "pad2d", {"X": [f(2, 3, 4, 5)]},
+         {"paddings": [1, 1, 1, 1], "mode": "reflect"}),
+        ("pad2d_edge", "pad2d", {"X": [f(2, 3, 4, 5)]},
+         {"paddings": [2, 0, 1, 3], "mode": "edge"}),
+        ("crop", "crop", {"X": [a]}, {"offsets": [1, 2, 3],
+                                      "shape": [2, 2, 3]}),
+        ("slice", "slice", {"X": [a]}, {"axes": [2, 1], "starts": [-3, -2],
+                                        "ends": [-1, 100]}),
+        ("strided_slice", "strided_slice", {"X": [a]}, {
+            "axes": [2, 1], "starts": [-1, 2], "ends": [-10, 0],
+            "strides": [-2, -1]}),
+        ("reverse", "reverse", {"X": [a]}, {"axis": [0, 2]}),
+        ("shape", "shape", {"Input": [a]}, {}),
+        ("gather", "gather", {"X": [f(3, 4)], "Index": [i64(5, -1, 0, 2)]},
+         {}),
+        ("gather_nd", "gather_nd", {"X": [f(4, 3)], "Index": [
+            i64([5, 0], [-1, 2], [2, 1])]}, {}),
+        ("scatter", "scatter", {"X": [f(5, 3)], "Ids": [i64(3, 0, -1)],
+                                "Updates": [f(3, 3)]}, {}),
+        ("scatter_add", "scatter", {"X": [f(5, 3)], "Ids": [i64(3, 0, 3, 3)],
+                                    "Updates": [f(4, 3)]},
+         {"overwrite": False}),
+        ("multiplex", "multiplex", {"X": [f(4, 5), f(4, 5)], "Ids": [
+            np.array([[3], [-1], [0], [1]], np.int32)]}, {}),
+        ("one_hot", "one_hot", {"X": [i64(1, 4, -1, 3, 0)]}, {"depth": 4}),
+        ("arg_max", "arg_max", {"X": [np.array([[1, 3, 3, 0], [2, 2, 2, 2]],
+                                               np.float32)]}, {}),
+        ("arg_min", "arg_min", {"X": [f(3, 6)]}, {"axis": 0}),
+        ("argsort", "argsort", {"X": [rng.randint(0, 3, (2, 3000))
+                                      .astype(np.float32)]}, {}),
+        ("unique_with_counts", "unique_with_counts",
+         {"X": [i64(3, 1, 3, 2, 5, 3)]}, {}),
+        ("hash", "hash", {"X": [np.array([[0], [1], [12345], [2 ** 31 - 1],
+                                          [-1], [987654321]], np.int64)]},
+         {"hash_size": 977, "num_hash": 3}),
+        ("similarity_focus", "similarity_focus", {"X": [f(2, 3, 4, 4)]},
+         {"axis": 1, "indexes": [2, 0]}),
+        ("fill_zeros_like", "fill_zeros_like", {"X": [a]}, {}),
+        ("minus", "minus", {"X": [a], "Y": [b]}, {}),
+        ("linspace", "linspace", {}, {"start": 3.0, "stop": -2.0,
+                                      "num": 11}),
+        ("range", "range", {}, {"start": -3, "end": 10, "step": 3,
+                                "dtype": "int32"}),
+        ("row_conv", "row_conv", {"X": [seq(f(2, 4, 3), [4, 2])],
+                                  "Filter": [f(3, 3)]}, {}),
+    ]
+    return cases
+
+
+# the random ops: (type, inputs, attrs), each held to its JAX test's
+# property on the card
+DENSE_RANDOM = (
+    ("uniform_random_batch_size_like", "Input", (6, 2),
+     {"shape": [-1, 500], "min": -2.0, "max": 3.0}),
+    ("truncated_gaussian_random", None, None,
+     {"shape": [128, 128], "mean": 0.5, "std": 2.0}),
+    ("randint", None, None, {"shape": [40, 50], "low": -3, "high": 9}),
+    ("shuffle_batch", "X", (32, 2), {}),
+    ("sampling_id", "X", (4000, 3), {}),
+    ("random_crop", "X", (2, 3, 8, 8), {"shape": [3, 5, 5]}))
+
+
+def _lower(type, ins, attrs, dev, key=0, uid=1, grad_cots=None):
+    """One op's lowering on ``dev`` over numpy inputs: its outputs on the
+    host, and (``grad_cots``, one cotangent a float output) the
+    gradients with respect to its float inputs by autograd."""
+    from paddle_tpu_torch import PackedSeq
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lower import TraceContext
+
+    class Op:
+        def __init__(self):
+            self.type, self.attrs, self.uid = type, attrs, uid
+            self.inputs, self.outputs = {}, {}
+
+    spec = registry.get(type)
+    leaves = []
+
+    def put(v, slot):
+        if isinstance(v, tuple):
+            d = torch.from_numpy(v[1]).to(dev)
+            if grad_cots is not None and slot not in spec.nondiff_inputs:
+                d.requires_grad_()
+                leaves.append(d)
+            return PackedSeq(d, torch.from_numpy(v[2]).to(dev))
+        t = torch.from_numpy(np.array(v)).to(dev)
+        if grad_cots is not None and t.is_floating_point() and \
+                slot not in spec.nondiff_inputs:
+            t.requires_grad_()
+            leaves.append(t)
+        return t
+
+    tins = {s: [put(v, s) for v in vals] for s, vals in ins.items()}
+    op = Op()
+    with torch.enable_grad():
+        out = registry.normalize_outputs(spec.lower(
+            TraceContext(key=key, device=dev).for_op(op), tins, attrs, op))
+        flat = [v.data if isinstance(v, PackedSeq) else v
+                for s in sorted(out) for v in out[s] if v is not None]
+        for v in flat:
+            if v.device.type != dev.type:
+                raise AssertionError("%s: an output on %s, not %s"
+                                     % (type, v.device, dev))
+        host = [v.detach().cpu().numpy() for v in flat]
+        if grad_cots is None:
+            return host, None
+        fl = [v for v in flat if v.is_floating_point()]
+        pairs = [(v, torch.from_numpy(c).to(dev))
+                 for v, c in zip(fl, grad_cots) if v.requires_grad]
+        g = torch.autograd.grad([v for v, _ in pairs], leaves,
+                                [c for _, c in pairs], allow_unused=True) \
+            if pairs else [None] * len(leaves)
+    return host, [np.zeros(x.shape, np.float32) if gi is None
+                  else gi.cpu().numpy() for x, gi in zip(leaves, g)]
+
+
+def _dense_close(what, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError("%s: card %s %s, cpu %s %s" % (
+            what, got.shape, got.dtype, want.shape, want.dtype))
+    if not np.issubdtype(want.dtype, np.floating):
+        if not np.array_equal(got, want):
+            raise AssertionError("%s: card and cpu differ" % what)
+        return 0.0
+    amax = float(np.nanmax(np.abs(want))) if want.size and \
+        not np.isnan(want).all() else 0.0
+    np.testing.assert_allclose(got, want, rtol=DENSE_RTOL,
+                               atol=DENSE_AMAX * amax, err_msg=what)
+    err = np.abs(np.nan_to_num(got) - np.nan_to_num(want))
+    return float(err.max() / max(amax, 1e-30)) if err.size else 0.0
+
+
+def dense_sweep(dev, seed):
+    """Phase 6f (a): every type on the card against the CPU."""
+    from paddle_tpu_torch.core import registry
+
+    rng = np.random.RandomState(seed)
+    cpu = torch.device("cpu")
+    worst, types, n_grads = 0.0, set(), 0
+    for name, type, ins, attrs in dense_cases(rng):
+        types.add(type)
+        want, _ = _lower(type, ins, attrs, cpu)
+        got, _ = _lower(type, ins, attrs, dev)
+        for k, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _dense_close("%s out %d" % (name, k), g, w))
+        spec = registry.get(type)
+        if spec.no_grad or not any(np.issubdtype(w.dtype, np.floating)
+                                   for w in want):
+            continue
+        cots = [np.asarray(rng.randn(*w.shape), np.float32) for w in want
+                if np.issubdtype(w.dtype, np.floating)]
+        _, gw = _lower(type, ins, attrs, cpu, grad_cots=cots)
+        _, gg = _lower(type, ins, attrs, dev, grad_cots=cots)
+        for k, (g, w) in enumerate(zip(gg, gw)):
+            worst = max(worst, _dense_close("%s grad %d" % (name, k), g, w))
+            n_grads += 1
+    # the random ops: their JAX tests' properties, and the same bits
+    # from the same (step key, op uid, seed)
+    for type, slot, shape, attrs in DENSE_RANDOM:
+        types.add(type)
+        ins = {}
+        if type == "sampling_id":
+            ins = {slot: [np.tile(np.array([[0.2, 0.5, 0.3]], np.float32),
+                                  (shape[0], 1))]}
+        elif slot is not None:
+            ins = {slot: [np.arange(np.prod(shape), dtype=np.float32)
+                          .reshape(shape)]}
+        out, _ = _lower(type, ins, attrs, dev, key=seed)
+        again, _ = _lower(type, ins, attrs, dev, key=seed)
+        other, _ = _lower(type, ins, attrs, dev, key=seed, uid=2)
+        if any(not np.array_equal(x, y) for x, y in zip(out, again)) or \
+                np.array_equal(out[0], other[0]):
+            raise AssertionError("%s: not a function of its stream" % type)
+        v = out[0]
+        if type == "uniform_random_batch_size_like":
+            ok = v.shape == (6, 500) and v.min() >= -2.0 and v.max() < 3.0 \
+                and abs(v.mean() - 0.5) < 0.1
+        elif type == "truncated_gaussian_random":
+            z = (v - 0.5) / 2.0
+            ok = np.abs(z).max() <= 2.0 + 1e-6 and abs(z.mean()) < 0.03 \
+                and abs(z.std() - 0.8796) < 0.02
+        elif type == "randint":
+            ok = v.dtype == np.int32 and v.min() == -3 and v.max() == 8
+        elif type == "shuffle_batch":
+            idx = out[1]
+            ok = sorted(idx.tolist()) == list(range(32)) and \
+                np.array_equal(v, ins["X"][0][idx])
+        elif type == "sampling_id":
+            freq = np.bincount(v, minlength=3) / v.size
+            ok = np.abs(freq - [0.2, 0.5, 0.3]).max() < 0.03
+        else:
+            x = ins["X"][0]
+            ok = v.shape == (2, 3, 5, 5) and sum(
+                np.array_equal(v, x[:, :, i:i + 5, j:j + 5])
+                for i in range(4) for j in range(4)) == 1
+        if not ok:
+            raise AssertionError("%s: the property fails on the card" % type)
+    if len(types) != 60:
+        raise AssertionError("the sweep covers %d types" % len(types))
+    print("dense sweep: %d types on the card against the CPU, %d gradients; "
+          "integer results exact, the worst float %.3g x max|ref| (bound "
+          "rtol %g + %g x max|ref|); 6 random ops at their properties, "
+          "the same bits from the same stream"
+          % (len(types), n_grads, worst, DENSE_RTOL, DENSE_AMAX))
+    return worst
+
+
+def random_ops_program(fluid, layers):
+    """The six random ops in one program, their outputs fetched."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        x = layers.data("x", [2])
+        probs = layers.data("probs", [3])
+        img = layers.data("img", [3, 8, 8])
+        outs = [layers.uniform_random_batch_size_like(x, [-1, 50]),
+                layers.sampling_id(probs),
+                layers.random_crop(img, [3, 5, 5])]
+        block = prog.global_block()
+        for name, type, attrs in (
+                ("tg", "truncated_gaussian_random", {"shape": [16, 16]}),
+                ("ri", "randint", {"shape": [8, 8], "low": 0, "high": 9})):
+            block.create_var(name=name, shape=attrs["shape"],
+                             dtype="float32" if name == "tg" else "int32")
+            block.append_op(type, {}, {"Out": [name]}, attrs)
+            outs.append(block.var(name))
+        sb = block.create_var(name="sb", shape=[-1, 2], dtype="float32")
+        block.create_var(name="sb_idx", shape=[-1], dtype="int32")
+        block.append_op("shuffle_batch", {"X": [x.name]},
+                        {"Out": ["sb"], "ShuffleIdx": ["sb_idx"]}, {})
+        outs.append(sb)
+    return prog, startup, outs
+
+
+def random_graphs(fluid, seed, dev):
+    """Phase 6f (a): the random ops through run_chunk's graph replays
+    bitwise against eager run() steps."""
+    from paddle_tpu_torch import layers, unique_name
+
+    with unique_name.guard():
+        prog, startup, outs = random_ops_program(fluid, layers)
+    startup.random_seed = prog.random_seed = seed
+    rng = np.random.RandomState(seed)
+    feed = {"x": torch.from_numpy(rng.rand(32, 2).astype(np.float32)).to(dev),
+            "probs": torch.from_numpy(np.tile(np.array(
+                [[0.2, 0.5, 0.3]], np.float32), (64, 1))).to(dev),
+            "img": torch.from_numpy(rng.rand(2, 3, 8, 8).astype(
+                np.float32)).to(dev)}
+    k = GRAPH_K["book"]
+    names = [v.name for v in outs]
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    exe._step = 1
+    eager = [exe.run(prog, feed=feed, fetch_list=names, scope=scope)
+             for _ in range(k * GRAPH_CHUNKS)]
+    exe = fluid.Executor()
+    chunks = [exe.run_chunk(prog, feed_chunk=chunk_of(feed, k), k=k,
+                            fetch_list=names, scope=scope,
+                            step0=1 if c == 0 else None)
+              for c in range(GRAPH_CHUNKS)]
+    for j, n in enumerate(names):
+        want = np.stack([e[j] for e in eager])
+        got = np.concatenate([c[j] for c in chunks])
+        if not np.array_equal(got, want):
+            raise AssertionError("random op %s: graph replays differ from "
+                                 "eager steps" % n)
+        if np.array_equal(want[0], want[1]):
+            raise AssertionError("random op %s drew the same at two steps"
+                                 % n)
+    print("random ops through run_chunk (K=%d x %d chunks): %d outputs "
+          "bitwise equal to eager steps, each step's draw its own"
+          % (k, GRAPH_CHUNKS, len(names)))
+
+
+def book_build(fluid, which):
+    """tests/test_book.py's fit_a_line (:166-174) or recommender
+    (:236-262) program, at the widths of FIT_* and REC."""
+    from paddle_tpu_torch import layers, nets
+
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        if which == "fit_a_line":
+            x = layers.data("x", [13])
+            y = layers.data("y", [1])
+            loss = layers.mean(layers.square_error_cost(layers.fc(x, 1), y))
+            fluid.optimizer.SGD(FIT_LR).minimize(loss)
+            return prog, startup, None, (loss,)
+        r = REC
+        ids = {n: layers.data(n, [1], dtype="int64")
+               for n in ("uid", "gender", "age", "mid")}
+        usr = layers.fc(layers.concat([
+            layers.embedding(ids["uid"], size=[r["users"], r["id_emb"]]),
+            layers.embedding(ids["gender"],
+                             size=[r["genders"], r["small_emb"]]),
+            layers.embedding(ids["age"], size=[r["ages"], r["small_emb"]])],
+            axis=1), r["fc"], act="tanh")
+        title = layers.data("title", [1], dtype="int64", lod_level=1)
+        tfeat = nets.sequence_conv_pool(
+            layers.embedding(title, size=[r["title_vocab"], r["id_emb"]]),
+            num_filters=r["filters"], filter_size=r["filter_size"],
+            act="tanh", pool_type="sum")
+        mov = layers.fc(layers.concat([
+            layers.embedding(ids["mid"], size=[r["movies"], r["id_emb"]]),
+            tfeat], axis=1), r["fc"], act="tanh")
+        sim = layers.scale(layers.cos_sim(usr, mov), scale=5.0)
+        rating = layers.data("rating", [1])
+        loss = layers.mean(layers.square_error_cost(sim, rating))
+        fluid.optimizer.SGD(r["lr"]).minimize(loss)
+    return prog, startup, None, (loss,)
+
+
+def book_feed(rng, which):
+    """A batch at the program's widths: uci_housing's 13 features and a
+    linear price, or movielens rows (ids over the tables, ratings 1..5,
+    titles of REC_TITLE ids)."""
+    if which == "fit_a_line":
+        x = rng.rand(FIT_B, 13).astype(np.float32)
+        return {"x": x, "y": (x @ rng.rand(13, 1)).astype(np.float32)}
+    r = REC
+    out = {n: rng.randint(0, r[t], (REC_B, 1)).astype(np.int64)
+           for n, t in (("uid", "users"), ("gender", "genders"),
+                        ("age", "ages"), ("mid", "movies"))}
+    out["title"] = [rng.randint(0, r["title_vocab"], (int(n), 1))
+                    .astype(np.int64)
+                    for n in rng.randint(REC_TITLE[0], REC_TITLE[1] + 1,
+                                         REC_B)]
+    out["rating"] = rng.randint(1, 6, (REC_B, 1)).astype(np.float32)
+    return out
+
+
+def book_phase(fluid, seed, dev):
+    """Phase 6f (b): fit_a_line and the recommender trained eagerly and
+    through run_chunk's graphs (bitwise), and the card against the CPU
+    from the same weights."""
+    from paddle_tpu_torch import unique_name
+
+    bounds = (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL)
+    res = {}
+    for which in ("fit_a_line", "recommender"):
+        feed = book_feed(np.random.RandomState(seed), which)
+        on_card = packed_on(fluid, feed, dev)
+        with unique_name.guard():
+            prog, startup, _, (loss,) = book_build(fluid, which)
+        startup.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        exe.run(prog, feed=on_card, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = [float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(BOOK_STEPS)]
+        step_ms = (time.perf_counter() - t1) * 1000.0 / BOOK_STEPS
+        print("%s: losses %s; eager %.3f ms/step (with the loss's host "
+              "read)" % (which, " ".join("%.6f" % v for v in losses),
+                         step_ms))
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("%s: loss not finite and falling: %s"
+                                 % (which, losses))
+        del scope, exe
+        res[which] = graph_path(fluid, which, (prog, startup, loss),
+                                on_card, GRAPH_K["book"], GRAPH_CHUNKS, seed,
+                                {}, bounds)
+        cross_check(fluid, fluid.Executor(),
+                    lambda w=which: book_build(fluid, w), seed, feed, 3,
+                    which, gtol=1e-4, ltol=1e-4)
+    return res
+
+
+def device_ops(fn):
+    """(device busy ms, kernel count) of one call of ``fn``, from
+    torch.profiler; (None, 0) if it recorded no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not ev:
+        return None, 0
+    return sum(e.time_range.elapsed_us() for e in ev) / 1000.0, len(ev)
+
+
+def sdpa_build(fluid, fused):
+    """q, k, v parameters [B, T, D] and a loss sum(out * r): ``out`` from
+    nets.scaled_dot_product_attention (matmul, softmax, matmul) or from
+    the fused_attention op over the same heads (B1, not causal)."""
+    from paddle_tpu_torch import layers, nets
+
+    b, t, d, h = SDPA["b"], SDPA["t"], SDPA["d"], SDPA["heads"]
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        q, k, v = (layers.create_parameter(
+            [b, t, d], "float32", attr=fluid.ParamAttr(name=n))
+            for n in ("q", "k", "v"))
+        r = layers.data("r", [t, d])
+        if fused:
+            def heads(x):
+                return layers.transpose(layers.reshape(x, [0, 0, h, d // h]),
+                                        [0, 2, 1, 3])
+            o = layers.flash_attention(heads(q), heads(k), heads(v),
+                                       causal=False)
+            out = layers.reshape(layers.transpose(o, [0, 2, 1, 3]),
+                                 [0, 0, d])
+        else:
+            out = nets.scaled_dot_product_attention(q, k, v, num_heads=h)
+        loss = layers.reduce_sum(layers.elementwise_mul(out, r))
+        fluid.append_backward(loss)
+    return prog, out
+
+
+def sdpa_phase(fluid, seed, dev):
+    """Phase 6f (c): nets.scaled_dot_product_attention against the
+    fused_attention op (float32 B1) on the same q, k, v: outputs and
+    the gradients with respect to q, k and v, B1's launches from the
+    program, each call's time. Returns B1's launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, t, d = SDPA["b"], SDPA["t"], SDPA["d"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vals = {n: torch.randn(b, t, d, generator=g).to(dev)
+            for n in ("q", "k", "v")}
+    feed = {"r": torch.randn(b, t, d, generator=g).to(dev)}
+    res, timing = {}, {}
+    for fused in (False, True):
+        with unique_name.guard():
+            prog, out = sdpa_build(fluid, fused)
+        scope = fluid.Scope()
+        for n, v in vals.items():
+            scope.set_var(n, v.clone())
+        exe = fluid.Executor()
+        fetch = [out.name, "q@GRAD", "k@GRAD", "v@GRAD"]
+
+        def call():
+            return exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                           return_numpy=False)
+        reset_all_launches()
+        res[fused] = call()
+        torch.cuda.synchronize()
+        got = all_launches()
+        fwd, grad, _ = attention_launches(prog)
+        want = {"flash_attention": fwd + grad} if fused else {}
+        if {n: c for n, c in got.items() if c} != want:
+            raise AssertionError("attention %s: launches %s, from the "
+                                 "program %s" % ("B1" if fused else "nets",
+                                                 got, want))
+        if fused:
+            launched = got["flash_attention"]
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1000.0)
+        busy, n_ops = device_ops(call)
+        timing[fused] = (float(np.median(walls[1:])), busy, n_ops)
+        label = "fused_attention (float32 B1)" if fused else \
+            "nets.scaled_dot_product_attention"
+        print("%s, forward and backward at batch %d, seq %d, d_model %d, "
+              "%d heads: %.3f ms a call (host, median of 5), device busy "
+              "%s ms in %d device ops; B1 launches %d (program: %d "
+              "forward + %d in the grad)" % (
+                  label, b, t, d, SDPA["heads"], timing[fused][0],
+                  "%.3f" % busy if busy is not None else "not measured",
+                  n_ops, got["flash_attention"], fwd if fused else 0,
+                  grad if fused else 0))
+        del scope, exe
+    for j, name in enumerate(("out", "dq", "dk", "dv")):
+        ref, ker = res[False][j], res[True][j]
+        e = float((ker - ref).abs().max() / ref.abs().max())
+        tol = SDPA_OUT_TOL if j == 0 else SDPA_GRAD_TOL
+        print("B1 against the nets composition, %s: max|diff| %.3g x "
+              "max|ref| (bound %g)" % (name, e, tol))
+        if not bool(torch.isfinite(ker).all()) or e > tol:
+            raise AssertionError("attention %s: B1 and the nets "
+                                 "composition differ by %.3g x max" % (name,
+                                                                       e))
+    print("attention: the nets composition takes %.2fx B1's host ms a call "
+          "and %s its device busy ms (card: %s)" % (
+              timing[False][0] / timing[True][0],
+              "%.2fx" % (timing[False][1] / timing[True][1])
+              if timing[True][1] and timing[False][1] else "not measured",
+              card_line()))
+    torch.cuda.empty_cache()
+    return launched
+
+
+def dense_phase(fluid, seed, dev):
+    """Phase 6f: the dense op library on the card. Returns B1's
+    launches."""
+    t0 = time.perf_counter()
+    dense_sweep(dev, seed)
+    random_graphs(fluid, seed, dev)
+    book_phase(fluid, seed, dev)
+    launched = sdpa_phase(fluid, seed, dev)
+    torch.cuda.synchronize()
+    print("dense phase: %.1f s" % (time.perf_counter() - t0))
+    return launched
 
 
 def rnn_amp_phase(fluid, seed, dev, model):
@@ -5417,6 +6051,16 @@ def main():
           "Variable operators, eager against graph replays (seed %d)"
           % args.seed)
     control_flow_phase(fluid, args.seed, dev)
+
+    # ---- 6f. the dense op library ----
+    phase("dense op library: %d types on the card against the CPU, the "
+          "random ops through graphs, fit_a_line and the recommender "
+          "(users %d, movies %d, titles %d, batch %d), "
+          "nets.scaled_dot_product_attention against B1 at batch %d, seq "
+          "%d, d_model %d (seed %d)" % (
+              60, REC["users"], REC["movies"], REC["title_vocab"], REC_B,
+              SDPA["b"], SDPA["t"], SDPA["d"], args.seed))
+    launches["flash_attention"] += dense_phase(fluid, args.seed, dev)
 
     # ---- 7. the convnet training slice at full width ----
     phase("ResNet-50 training at full width, configs A and B (seed %d)"

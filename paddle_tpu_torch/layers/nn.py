@@ -7,10 +7,13 @@ layers of the transformer LM and its KV-cached serving forwards, of
 the stacked-LSTM classifier and the MNIST MLP with their training
 losses and metric, of the attention seq2seq model's training graph, of
 the CRF sequence tagger (``linear_chain_crf``, ``crf_decoding``,
-``chunk_eval``), the single LSTM step and the projected LSTM, and of
+``chunk_eval``), the single LSTM step and the projected LSTM, of
 the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
-ResNet, VGG, AlexNet, GoogLeNet and SmallNet), and the activations;
-the JAX package's other layers arrive with later slices.
+ResNet, VGG, AlexNet, GoogLeNet and SmallNet), the activations, and
+the dense op library's layers (products, reductions, shape and index
+manipulation, the sequence convolution, the losses of the book's
+regression and recommender programs, and the random draws); the JAX
+package's other layers arrive with later slices.
 """
 
 from paddle_tpu_torch.core import ir
@@ -32,6 +35,15 @@ __all__ = [
     "clip_by_norm", "where", "autoincreased_step_counter",
     "sigmoid", "sqrt", "log", "square", "abs", "ceil", "prelu",
     "leaky_relu", "elu", "relu6", "swish", "brelu", "soft_relu", "maxout",
+    "mul", "matmul", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_prod", "split", "stack", "unstack", "expand", "flatten",
+    "gather", "gather_nd", "scatter", "slice", "strided_slice", "shape",
+    "one_hot", "pad", "pad2d", "cumsum", "l2_normalize", "label_smooth",
+    "multiplex", "cos_sim", "square_error_cost", "sequence_conv",
+    "bilinear_tensor_product", "hash", "sampling_id", "similarity_focus",
+    "argsort", "unique_with_counts", "random_crop", "row_conv",
+    "gaussian_random", "uniform_random_batch_size_like",
+    "gaussian_random_batch_size_like",
 ]
 
 
@@ -39,6 +51,26 @@ def _single_op(type_name, x, attrs=None, dtype=None, name=None):
     helper = LayerHelper(type_name, name=name)
     out = helper.create_variable_for_type_inference(dtype or x.dtype)
     helper.append_op(type_name, {"X": [x]}, {"Out": [out]}, attrs or {})
+    return out
+
+
+def _two_in_op(type_name, x, y, attrs=None, name=None):
+    helper = LayerHelper(type_name, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type_name, {"X": [x], "Y": [y]}, {"Out": [out]},
+                     attrs or {})
+    return out
+
+
+def _reduce_layer(type_name, input, dim, keep_dim, name):
+    helper = LayerHelper(type_name, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        attrs = {"reduce_all": True, "keep_dim": keep_dim}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type_name, {"X": [input]}, {"Out": [out]}, attrs)
     return out
 
 
@@ -489,15 +521,23 @@ def accuracy(input, label, k=1, correct=None, total=None):
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is None:
-        attrs = {"reduce_all": True, "keep_dim": keep_dim}
-    else:
-        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
-                 "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op("reduce_sum", {"X": [input]}, {"Out": [out]}, attrs)
-    return out
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
@@ -833,3 +873,304 @@ def chunk_eval(input, label, chunk_scheme="IOB", num_chunk_types=1,
                       "num_chunk_types": num_chunk_types,
                       "excluded_chunk_types": excluded_chunk_types or []})
     return prec, rec, f1, n_inf, n_lab, n_cor
+
+
+# ---- the dense op library ----
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    return _two_in_op("mul", x, y, {"x_num_col_dims": x_num_col_dims,
+                                    "y_num_col_dims": y_num_col_dims},
+                      name=name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    return _two_in_op("matmul", x, y,
+                      {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                       "alpha": alpha}, name=name)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+    else:
+        num, sections = 0, list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num if num else len(sections))]
+    helper.append_op("split", {"X": [input]}, {"Out": outs},
+                     {"axis": dim, "num": num, "sections": sections})
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", {"X": x}, {"Y": [out]}, {"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = int(x.shape[axis])
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", {"X": [x]}, {"Y": outs},
+                     {"axis": axis, "num": num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    return _single_op("expand", x, {"expand_times": list(expand_times)},
+                      name=name)
+
+
+def flatten(x, axis=1, name=None):
+    return _single_op("flatten", x, {"axis": axis}, name=name)
+
+
+def gather(input, index, axis=0):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", {"X": [input], "Index": [index]},
+                     {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", {"X": [input], "Index": [index]},
+                     {"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter",
+                     {"X": [input], "Ids": [index], "Updates": [updates]},
+                     {"Out": [out]}, {"overwrite": overwrite})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    return _single_op("slice", input,
+                      {"axes": list(axes), "starts": list(starts),
+                       "ends": list(ends)}, name=name)
+
+
+def strided_slice(input, axes, starts, ends, strides, name=None):
+    return _single_op("strided_slice", input,
+                      {"axes": list(axes), "starts": list(starts),
+                       "ends": list(ends), "strides": list(strides)},
+                      name=name)
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference("int32")
+    helper.append_op("shape", {"Input": [input]}, {"Out": [out]})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", {"X": [input]}, {"Out": [out]},
+                     {"depth": depth})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single_op("pad", x, {"paddings": list(paddings),
+                                 "pad_value": pad_value}, name=name)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _single_op("pad2d", input,
+                      {"paddings": list(paddings), "mode": mode,
+                       "pad_value": pad_value}, name=name)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    return _single_op("cumsum", x, {"axis": axis, "exclusive": exclusive,
+                                    "reverse": reverse}, name=name)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("norm", {"X": [x]}, {"Out": [out], "Norm": [norm]},
+                     {"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    ins = {"X": [label]}
+    if prior_dist is not None:
+        ins["PriorDist"] = [prior_dist]
+    helper.append_op("label_smooth", ins, {"Out": [out]},
+                     {"epsilon": epsilon})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op("multiplex", {"X": inputs, "Ids": [index]},
+                     {"Out": [out]})
+    return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out, xn, yn = (helper.create_variable_for_type_inference(X.dtype)
+                   for _ in range(3))
+    helper.append_op("cos_sim", {"X": [X], "Y": [Y]},
+                     {"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost", {"X": [input], "Y": [label]},
+                     {"Out": [out]})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    w = helper.create_parameter(
+        helper.param_attr, [filter_size * int(input.shape[-1]), num_filters],
+        dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("sequence_conv", {"X": [input], "Filter": [w]},
+                     {"Out": [out]},
+                     {"contextLength": filter_size,
+                      "contextStart": -(filter_size // 2),
+                      "contextStride": filter_stride})
+    pre_act = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(pre_act)
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None, param_attr=None,
+                            bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(
+        helper.param_attr, [size, int(x.shape[1]), int(y.shape[1])], x.dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, size], x.dtype,
+                                is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op("bilinear_tensor_product", ins, {"Out": [out]})
+    return helper.append_activation(out)
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    return _single_op("hash", input,
+                      {"hash_size": hash_size, "num_hash": num_hash},
+                      dtype="int64", name=name)
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("sampling_id", {"X": [x]}, {"Out": [out]},
+                     {"min": min, "max": max, "seed": seed})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _single_op("similarity_focus", input,
+                      {"axis": axis, "indexes": list(indexes)}, name=name)
+
+
+def argsort(input, axis=-1, name=None):
+    from paddle_tpu_torch.layers.tensor import argsort as _argsort
+    return _argsort(input, axis, name)
+
+
+def unique_with_counts(x, dtype="int32"):
+    helper = LayerHelper("unique_with_counts")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(dtype)
+    count = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("unique_with_counts", {"X": [x]},
+                     {"Out": [out], "Index": [index], "Count": [count]})
+    return out, index, count
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("random_crop", {"X": [x]}, {"Out": [out]},
+                     {"shape": list(shape), "seed": seed or 0})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    w = helper.create_parameter(
+        helper.param_attr, [future_context_size + 1, int(input.shape[-1])],
+        input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("row_conv", {"X": [input], "Filter": [w]},
+                     {"Out": [out]})
+    return helper.append_activation(out)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("gaussian_random", {}, {"Out": [out]},
+                     {"shape": [int(s) for s in shape], "mean": mean,
+                      "std": std, "seed": seed, "dtype": dtype})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("uniform_random_batch_size_like", {"Input": [input]},
+                     {"Out": [out]},
+                     {"shape": [int(s) for s in shape], "dtype": dtype,
+                      "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx,
+                      "min": min, "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    """Emits a ``uniform_random_batch_size_like`` op drawing in mean +/- 3
+    std, as the JAX package's layer does, so both packages' programs
+    serialize alike (a uniform draw, not a Gaussian one: ROADMAP.md
+    Queue 3)."""
+    helper = LayerHelper("gaussian_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("uniform_random_batch_size_like", {"Input": [input]},
+                     {"Out": [out]},
+                     {"shape": [int(s) for s in shape], "dtype": dtype,
+                      "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx,
+                      "min": mean - 3 * std, "max": mean + 3 * std,
+                      "seed": seed})
+    return out

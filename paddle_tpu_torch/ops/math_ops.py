@@ -2,12 +2,13 @@
 
 Capability parity: reference `paddle/fluid/operators/` elementwise group
 (`elementwise_op_function.h` broadcasting), `activation_op.*`,
-`scale_op`, `reduce_sum_op`, `mean_op`, `sum_op`, `mul_op` and
-`lookup_table_op` (with its row-sparse gradient), as the JAX package's
-``ops/math_ops.py`` lowers them, with its gradient flags: the whole
-activation table and the attr-taking activations after it. A plain
-product stays ``torch.matmul``, as the JAX package left it to XLA. The
-module's other ops arrive with later slices.
+`scale_op`, `reduce_op.*`, `mean_op`, `sum_op`, the norms,
+`cumsum_op`, `label_smooth_op`, `mul_op`/`matmul_op`, `dot`, `cos_sim`,
+`bilinear_tensor_product`, `iou_similarity` and `lookup_table_op` (with
+its row-sparse gradient), as the JAX package's ``ops/math_ops.py``
+lowers them, with its gradient flags: every op of that module. A plain
+product stays ``torch.matmul`` (``torch.einsum`` for the bilinear
+form), as the JAX package left it to XLA.
 """
 
 import torch
@@ -54,8 +55,16 @@ _elementwise("add", torch.add)
 _elementwise("sub", torch.sub)
 _elementwise("mul", torch.mul)
 _elementwise("div", torch.div)
+_elementwise("max", torch.maximum)
 _elementwise("min", torch.minimum)
 _elementwise("pow", torch.pow)
+# jnp.mod takes the divisor's sign (Python's rule): torch.remainder, not
+# torch.fmod. floor_divide rounds toward minus infinity in both; it is
+# piecewise constant, so its gradient is zero, as jnp.floor_divide's
+# (torch has no derivative for it: it is taken off the graph)
+_elementwise("mod", torch.remainder)
+_elementwise("floordiv",
+             lambda x, y: torch.floor_divide(x.detach(), y.detach()))
 
 
 # ---- activations (activation_op.cc catalogue) ----
@@ -251,17 +260,83 @@ def _global_norm_clip(ctx, ins, attrs, o):
     return {"Out": [scale(g) for g in gs]}
 
 
+@op("label_smooth")
+def _label_smooth(ctx, ins, attrs, o):
+    x = _x(ins)
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist") and ins["PriorDist"][0] is not None:
+        return (1 - eps) * x + eps * ins["PriorDist"][0]
+    return (1 - eps) * x + eps / x.shape[-1]
+
+
+@op("cumsum")
+def _cumsum(ctx, ins, attrs, o):
+    """``exclusive`` subtracts x from the inclusive sum, as the JAX
+    package does (not a shifted sum: the last bits follow its form)."""
+    x = _x(ins)
+    axis = attrs.get("axis", -1)
+    if attrs.get("reverse"):
+        r = torch.flip(torch.cumsum(torch.flip(x, (axis,)), axis,
+                                    dtype=x.dtype), (axis,))
+    else:
+        r = torch.cumsum(x, axis, dtype=x.dtype)
+    if attrs.get("exclusive"):
+        r = r - x
+    return r
+
+
+def pairwise_iou(x, y):
+    """[N,4] x [M,4] xyxy boxes -> [N,M] IoU."""
+    def area(b):
+        return torch.clamp(b[..., 2] - b[..., 0], min=0) * \
+            torch.clamp(b[..., 3] - b[..., 1], min=0)
+    xi = torch.maximum(x[:, None, 0], y[None, :, 0])
+    yi = torch.maximum(x[:, None, 1], y[None, :, 1])
+    xa = torch.minimum(x[:, None, 2], y[None, :, 2])
+    ya = torch.minimum(x[:, None, 3], y[None, :, 3])
+    inter = torch.clamp(xa - xi, min=0) * torch.clamp(ya - yi, min=0)
+    union = area(x)[:, None] + area(y)[None, :] - inter
+    return inter / torch.clamp(union, min=1e-10)
+
+
+@op("iou_similarity")
+def _iou_similarity(ctx, ins, attrs, o):
+    return pairwise_iou(_x(ins), _x(ins, "Y"))
+
+
 # ---- reductions ----
 
-@op("reduce_sum")
-def _reduce_sum(ctx, ins, attrs, o):
-    x = _x(ins)
-    keep = attrs.get("keep_dim", False)
+def _reduce_dims(x, attrs):
+    """The dims a reduce op folds: all of them under ``reduce_all``."""
     if attrs.get("reduce_all", False):
-        return torch.sum(x, dim=tuple(range(x.dim())), keepdim=keep)
+        return tuple(range(x.dim()))
     dim = attrs.get("dim", [0])
-    dim = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-    return torch.sum(x, dim=dim, keepdim=keep)
+    return tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+
+
+def _prod_over(x, dims, keepdim):
+    # torch.prod folds one dim a call: fold the highest first, so the
+    # lower dims keep their places
+    for d in sorted({d % x.dim() for d in dims} if x.dim() else (),
+                    reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+_REDUCERS = {
+    "sum": lambda x, d, k: torch.sum(x, dim=d, keepdim=k),
+    "mean": lambda x, d, k: torch.mean(x, dim=d, keepdim=k),
+    # amax/amin split a tie's gradient evenly, as jnp.max/min's do
+    "max": lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
+    "min": lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
+    "prod": _prod_over,
+}
+
+for _name, _fn in _REDUCERS.items():
+    op("reduce_" + _name)(
+        lambda ctx, ins, attrs, o, fn=_fn: fn(
+            _x(ins), _reduce_dims(_x(ins), attrs),
+            attrs.get("keep_dim", False)))
 
 
 @op("mean")
@@ -297,6 +372,41 @@ def _sum(ctx, ins, attrs, o):
     return out
 
 
+@op("l1_norm")
+def _l1_norm(ctx, ins, attrs, o):
+    return torch.sum(torch.abs(_x(ins)))
+
+
+@op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs, o):
+    return torch.sum(torch.square(_x(ins)))
+
+
+@op("squared_l2_distance")
+def _squared_l2_distance(ctx, ins, attrs, o):
+    d = _x(ins) - _x(ins, "Y")
+    return {"Out": torch.sum(torch.square(d), dim=tuple(range(1, d.dim())),
+                             keepdim=True),
+            "sub_result": d}
+
+
+@op("frobenius_norm")
+def _frobenius_norm(ctx, ins, attrs, o):
+    x = _x(ins)
+    if attrs.get("reduce_all", False) or "dim" not in attrs:
+        return torch.sqrt(torch.sum(torch.square(x)))
+    return torch.sqrt(torch.sum(torch.square(x), dim=tuple(attrs["dim"]),
+                                keepdim=attrs.get("keep_dim", False)))
+
+
+@op("norm")
+def _norm(ctx, ins, attrs, o):
+    x = _x(ins)
+    n = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", 1),
+                             keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
 # ---- comparisons and logicals (no grad) ----
 
 def _cmp(name, fn):
@@ -320,6 +430,11 @@ _cmp("logical_xor", torch.logical_xor)
 @op("logical_not", no_grad=True)
 def _logical_not(ctx, ins, attrs, o):
     return torch.logical_not(_x(ins))
+
+
+@op("isfinite", no_grad=True)
+def _isfinite(ctx, ins, attrs, o):
+    return torch.all(torch.isfinite(_x(ins)))
 
 
 # ---- linear algebra ----
@@ -355,6 +470,46 @@ def _mul(ctx, ins, attrs, o):
     y2 = y.reshape(_prod(ys[:yd]), _prod(ys[yd:]))
     out = torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:])
     return PackedSeq(out, lengths) if lengths is not None else out
+
+
+@op("matmul")
+def _matmul(ctx, ins, attrs, o):
+    """Reference matmul_op: ``transpose_X``/``transpose_Y`` swap the last
+    two dims of an operand of two or more (a 1-D operand stays as it
+    is), then ``torch.matmul``'s batch broadcasting, scaled by
+    ``alpha``."""
+    x, y = _x(ins), _x(ins, "Y")
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    return out * alpha if alpha != 1.0 else out
+
+
+@op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs, o):
+    x, y, w = _x(ins), _x(ins, "Y"), _x(ins, "Weight")
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)     # w: [out, xdim, ydim]
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        out = out + ins["Bias"][0].reshape(1, -1)
+    return out
+
+
+@op("cos_sim")
+def _cos_sim(ctx, ins, attrs, o):
+    x, y = _x(ins), _x(ins, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    out = torch.sum(x * y, -1, keepdim=True) / torch.clamp(xn * yn,
+                                                           min=1e-12)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+@op("dot")
+def _dot(ctx, ins, attrs, o):
+    return torch.sum(_x(ins) * _x(ins, "Y"), dim=-1, keepdim=True)
 
 
 @op("lookup_table", nondiff_inputs=("Ids",))

@@ -2,8 +2,9 @@
 
 Capability parity: reference `conv_op` (and its depthwise form),
 `pool_op`, `lrn_op`, `batch_norm_op`, `layer_norm_op`, `dropout_op`,
-`softmax_op`, `cross_entropy_op` and `softmax_with_cross_entropy_op`,
-as the JAX package's
+`softmax_op`, `log_softmax`, `cross_entropy_op`,
+`softmax_with_cross_entropy_op` and `square_error_cost`, as the JAX
+package's
 ``ops/nn_ops.py`` lowers them, with its gradient flags, and the fused
 ``conv2d_bn_act`` the epilogue-fusion pass emits (``passes/epilogue.py``).
 Convolution and pooling go to the library (``torch.nn.functional``), as
@@ -386,6 +387,16 @@ def _lrn(ctx, ins, attrs, o):
 @op("softmax", seq_map=True)
 def _softmax(ctx, ins, attrs, o):
     return torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))
+
+
+@op("log_softmax", seq_map=True)
+def _log_softmax(ctx, ins, attrs, o):
+    return torch.log_softmax(ins["X"][0], dim=attrs.get("axis", -1))
+
+
+@op("square_error_cost")
+def _square_error_cost(ctx, ins, attrs, o):
+    return torch.square(ins["X"][0] - ins["Y"][0])
 
 
 @op("cross_entropy", nondiff_inputs=("Label",), seq_map=True)

@@ -1,7 +1,8 @@
 """Sequence op lowerings over PackedSeq (the LoD tensor).
 
 Capability parity: reference `operators/sequence_pool_op`,
-`sequence_pad_op`, `sequence_mask_op` and `math/sequence_pooling.*`,
+`sequence_conv_op` (with `math/context_project`), `sequence_pad_op`,
+`sequence_mask_op` and `math/sequence_pooling.*`,
 which operate on LoDTensors, as the JAX
 package's ``ops/sequence_ops.py`` lowers them: variable-length batches
 are PackedSeq (padded dense [B, T, ...] + lengths [B]) and masking
@@ -53,6 +54,30 @@ def _sequence_pool(ctx, ins, attrs, o):
     else:
         raise ValueError("unknown pooltype %r" % ptype)
     return {"Out": out, "MaxIndex": None}
+
+
+@op("sequence_conv")
+def _sequence_conv(ctx, ins, attrs, o):
+    """Context-window projection and one GEMM over time (reference
+    sequence_conv_op, math/context_project): step t sees rows t +
+    contextStart .. t + contextStart + contextLength - 1 of its own
+    sequence (zeros outside it), concatenated into [B, T, ctx * D] and
+    multiplied by Filter [ctx * D, out]; steps past a row's length are
+    zero."""
+    s = _seq(ins)
+    w = ins["Filter"][0]
+    ctx_len = attrs.get("contextLength", 3)
+    ctx_start = attrs.get("contextStart", -(ctx_len // 2))
+    x = s.data                                    # [B, T, D]
+    t = torch.arange(x.shape[1], device=x.device)[None, :]
+    cols = []
+    for j in range(ctx_len):
+        shift = ctx_start + j
+        valid = (t + shift >= 0) & (t + shift < s.lengths[:, None])
+        cols.append(torch.where(valid[..., None],
+                                torch.roll(x, -shift, dims=1), 0.0))
+    out = torch.matmul(torch.cat(cols, dim=-1), w)
+    return PackedSeq(out * s.mask(out.dtype)[..., None], s.lengths)
 
 
 @op("sequence_pad")
