@@ -199,6 +199,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    their gradients within PERF.md section 2's bound, B1's launches
    exactly the program's, both calls' host ms, device busy ms and
    device ops);
+6g. the vision and detection families: each of their 21 op types on
+   the card against the CPU (outputs and gradients at 6f's bounds, the
+   pools' masks, matches and NMS kept sets exact; the conv-like types
+   also at one large shape, the detection types at SSD300's sizes); a
+   duplicate-id scatter and out-of-range labels and ids on the card
+   (the CPU's bits, NaN with no device-side assert); the book's
+   word2vec at its width, dense and row-sparse (a falling loss over 10
+   eager steps, run_chunk K=4 x 2 bitwise, the card against the CPU
+   from the same weights); SSD300 at its published widths in config B
+   (8732 priors, batch 32: B8 against its plain version at the
+   program's 1x1 shapes, a falling loss over 1 + 5 eager steps, B8's
+   launches exactly the program's eagerly and per replay, run_chunk
+   K=4 x 2 bitwise, detection output and mAP at SSD300's test settings
+   on the trained weights, the NMS loop's share of the evaluation, and
+   the card against the CPU at channels / 8 and batch 4);
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -551,6 +566,56 @@ SDPA = dict(b=16, t=512, d=512, heads=8)
 # magnitude, the gradients with respect to q, k and v each within
 # SDPA_GRAD_TOL of its own
 SDPA_OUT_TOL, SDPA_GRAD_TOL = 1e-5, 1e-4
+
+# the vision and detection families (phase 6g): each type at the JAX
+# sweeps' shapes (plus one large shape for each conv-like type), the
+# card against the CPU at the DENSE_* bounds, integer results, NMS kept
+# sets and matches exact. A large case ("_large") sums 1728 to 16384
+# products an output (cuDNN's order against oneDNN's): its floats within
+# DENSE_RTOL plus VISION_LARGE_AMAX of the largest magnitude (an H100
+# run found 1.6e-6 and 2.3e-6 where DENSE_AMAX allows 1e-6)
+VISION_LARGE_AMAX = 1e-5
+# the book's word2vec (tests/test_book.py:198-233) at imikolov's
+# dictionary (paddle_tpu/dataset/imikolov.py:9: 2073 words) and the
+# book's widths: four context words through one shared 32-wide table,
+# a sigmoid hidden layer of 256, a softmax over the dictionary, batch
+# 32, SGD at tests/test_book.py's lr 0.05, dense and row-sparse
+BOOK_W2V = dict(dict_size=2073, emb=32, hid=256, lr=0.05)
+BOOK_W2V_B, BOOK_W2V_STEPS = 32, 10
+GRAPH_K.update(w2v=4, ssd=4)
+# SSD300 (Liu et al., SSD: Single Shot MultiBox Detector, ECCV 2016,
+# the PASCAL VOC SSD300 configuration): a 300x300 input, 21 classes,
+# six source maps (38, 19, 10, 5, 3, 1 cells; 512, 1024, 512, 256, 256,
+# 256 channels) with 4, 6, 6, 6, 4, 4 priors a cell, 8732 priors in all,
+# on a VGG-16 trunk with a batch norm after every conv (the repo's
+# VGG-16, paddle_tpu/models/vgg.py:10-15); cut: no L2Norm on conv4_3.
+# Batch 32, 8 ground-truth boxes an image, Momentum 0.9 at lr 1e-3.
+SSD = dict(size=300, div=1, maps=6, classes=21, gt=8, lr=1e-3)
+SSD_B, SSD_PRIORS = 32, 8732
+SSD_MIN = (30, 60, 111, 162, 213, 264)
+SSD_MAX = (60, 111, 162, 213, 264, 315)
+SSD_AR = ((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0), (2.0,), (2.0,))
+# SSD300's test settings for detection_output
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+               score_threshold=0.01)
+# the card against the CPU: channels / 8 and batch 4 at the 300x300
+# input (all six maps, 8732 priors), 3 Momentum steps' losses within
+# SSD_LTOL (the ResNet bound: batch norm over few values a channel and
+# relu gates amplify rounding); the detections' scores within rtol
+# 1e-4, their rows equal but for near-ties
+SSD_X = dict(div=8, batch=4)
+SSD_LTOL = 1e-3
+# and the first-step gradients: each within SSD_GTOL of its largest
+# magnitude and SSD_PL2TOL of its L2 norm (the ResNet A-vs-B bounds), all
+# together within SSD_L2TOL; a conv bias under a batch norm has a
+# gradient that cancels to rounding noise (held in the whole only,
+# AMP_CANCELS). Why: the trunk's batch norms see few values a channel
+# at the 3x3 and 1x1 maps and the mining's ranks flip on rounding, so a
+# 1e-6 change of the input moves the port's own first-step gradients on
+# the CPU by 1.2e-3 all together, 2.3e-3 of one gradient's L2 norm and
+# 8e-3 of one's largest entry; an H100 run found 3.0e-3 all together,
+# card against CPU
+SSD_GTOL, SSD_PL2TOL, SSD_L2TOL = 1e-1, 2e-2, 1e-2
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -2824,7 +2889,8 @@ def _lower(type, ins, attrs, dev, key=0, uid=1, grad_cots=None):
                   else gi.cpu().numpy() for x, gi in zip(leaves, g)]
 
 
-def _dense_close(what, got, want):
+def _dense_close(what, got, want, amax_share=None):
+    amax_share = DENSE_AMAX if amax_share is None else amax_share
     got, want = np.asarray(got), np.asarray(want)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError("%s: card %s %s, cpu %s %s" % (
@@ -2836,7 +2902,7 @@ def _dense_close(what, got, want):
     amax = float(np.nanmax(np.abs(want))) if want.size and \
         not np.isnan(want).all() else 0.0
     np.testing.assert_allclose(got, want, rtol=DENSE_RTOL,
-                               atol=DENSE_AMAX * amax, err_msg=what)
+                               atol=amax_share * amax, err_msg=what)
     err = np.abs(np.nan_to_num(got) - np.nan_to_num(want))
     return float(err.max() / max(amax, 1e-30)) if err.size else 0.0
 
@@ -3209,6 +3275,887 @@ def dense_phase(fluid, seed, dev):
     launched = sdpa_phase(fluid, seed, dev)
     torch.cuda.synchronize()
     print("dense phase: %.1f s" % (time.perf_counter() - t0))
+    return launched
+
+
+# ---- phase 6g: the vision and detection families, word2vec, SSD300 ----
+
+def w2v_body(fluid, dict_size, emb, hid, is_sparse=False, lr=None):
+    """tests/test_book.py:198-233's word2vec n-gram model, appended to the
+    current program through ``fluid``'s layers (either package): four
+    context words SHARING one embedding table, concat, a sigmoid hidden
+    layer, a softmax over the dictionary, cross entropy against the next
+    word, SGD. Returns (prediction, loss)."""
+    layers = fluid.layers
+    emb_attr = fluid.ParamAttr(name="shared_w")
+    words = [layers.data("w%d" % i, [1], dtype="int64") for i in range(4)]
+    embs = [layers.embedding(w, size=[dict_size, emb], is_sparse=is_sparse,
+                             param_attr=emb_attr) for w in words]
+    hidden = layers.fc(layers.concat(embs, axis=1), hid, act="sigmoid")
+    predict = layers.fc(hidden, dict_size, act="softmax")
+    nxt = layers.data("next", [1], dtype="int64")
+    loss = layers.mean(layers.cross_entropy(predict, nxt))
+    fluid.optimizer.SGD(lr or BOOK_W2V["lr"]).minimize(loss)
+    return predict, loss
+
+
+def w2v_build(fluid, is_sparse=False):
+    """The word2vec program at BOOK_W2V's widths."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        predict, loss = w2v_body(fluid, BOOK_W2V["dict_size"],
+                                 BOOK_W2V["emb"], BOOK_W2V["hid"],
+                                 is_sparse)
+    return prog, startup, predict, (loss,)
+
+
+def w2v_feed(rng, batch, dict_size):
+    out = {"w%d" % i: rng.randint(0, dict_size, (batch, 1)).astype(np.int64)
+           for i in range(4)}
+    out["next"] = rng.randint(0, dict_size, (batch, 1)).astype(np.int64)
+    return out
+
+
+def ssd_build(fluid, size=300, div=1, maps=6, classes=21, gt=8, lr=1e-3,
+              config="A", neg_pos_ratio=3.0):
+    """SSD300 (SSD's constants above) through ``fluid``'s layers (either
+    package), at an input of ``size`` pixels, every trunk, extra and head
+    width divided by ``div``, and the first ``maps`` of the six source
+    maps; the prior sizes scale with ``size / 300``. The trunk is VGG-16
+    built as the repo's VGG-16 builds its blocks (conv, batch norm,
+    relu), with what SSD changes: pool3 in ceil mode (75 -> 38), pool5
+    3x3 stride 1, fc6 a 3x3 conv of 1024 at dilation 6 and fc7 a 1x1
+    conv of 1024; the extras are 1x1 then 3x3 convs, stride 2 for the
+    10 and 5 maps, unpadded for the 3 and 1 maps. Every source map gets
+    3x3 conv heads for its priors' offsets and class logits, turned to
+    [B, priors, 4] and [B, priors, classes]; ssd_loss at overlap 0.5 and
+    neg_pos_ratio 3, its mean under Momentum 0.9. Config "A" attaches
+    the NHWC layout and reduction passes, as ResNet-50's config A does:
+    every batch_norm_grad then launches B7.
+
+    Returns (program, startup, (loc, conf, priors, variances), (loss,))."""
+    layers = fluid.layers
+    det = layers.detection
+    scale = size / 300.0
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        img = layers.data("img", [3, size, size])
+        gt_box = layers.data("gt_box", [gt, 4])
+        gt_label = layers.data("gt_label", [gt, 1], dtype="int64")
+
+        def cbr(x, n, k, stride=1, pad=0, dil=1):
+            y = layers.conv2d(x, max(n // div, 1), k, stride=stride,
+                              padding=pad, dilation=dil)
+            return layers.batch_norm(y, act="relu")
+
+        def block(x, n, reps):
+            for _ in range(reps):
+                x = cbr(x, n, 3, pad=1)
+            return x
+
+        x = layers.pool2d(block(img, 64, 2), 2, pool_stride=2)
+        x = layers.pool2d(block(x, 128, 2), 2, pool_stride=2)
+        x = layers.pool2d(block(x, 256, 3), 2, pool_stride=2,
+                          ceil_mode=True)
+        sources = [block(x, 512, 3)]                         # conv4_3
+        x = layers.pool2d(sources[0], 2, pool_stride=2)
+        x = layers.pool2d(block(x, 512, 3), 3, pool_stride=1,
+                          pool_padding=1)                    # pool5
+        x = cbr(x, 1024, 3, pad=6, dil=6)                    # fc6
+        sources.append(cbr(x, 1024, 1))                      # fc7
+        x = sources[-1]
+        for mid, out, stride, pad in ((256, 512, 2, 1), (128, 256, 2, 1),
+                                      (128, 256, 1, 0),
+                                      (128, 256, 1, 0))[:max(maps - 2, 0)]:
+            x = cbr(cbr(x, mid, 1), out, 3, stride=stride, pad=pad)
+            sources.append(x)
+        locs, confs, boxes, variances = [], [], [], []
+        for i, src in enumerate(sources[:maps]):
+            box, var = det.prior_box(
+                src, img, min_sizes=[SSD_MIN[i] * scale],
+                max_sizes=[SSD_MAX[i] * scale], aspect_ratios=SSD_AR[i],
+                variance=(0.1, 0.1, 0.2, 0.2), flip=True)
+            p = 2 + 2 * len(SSD_AR[i])
+            for n, out in ((4, locs), (classes, confs)):
+                h = layers.conv2d(src, n * p, 3, padding=1)
+                out.append(layers.reshape(
+                    layers.transpose(h, [0, 2, 3, 1]), [0, -1, n]))
+            boxes.append(layers.reshape(box, [-1, 4]))
+            variances.append(layers.reshape(var, [-1, 4]))
+        loc = layers.concat(locs, axis=1)
+        conf = layers.concat(confs, axis=1)
+        prior = layers.concat(boxes, axis=0)
+        prior_var = layers.concat(variances, axis=0)
+        loss = layers.mean(det.ssd_loss(loc, conf, gt_box, gt_label, prior,
+                                        prior_var, overlap_threshold=0.5,
+                                        neg_pos_ratio=neg_pos_ratio))
+        fluid.optimizer.Momentum(lr, 0.9).minimize(loss)
+    if config == "A":
+        fluid.passes.enable(prog, layout="NHWC", pallas_reductions=True)
+    return prog, startup, (loc, conf, prior, prior_var), (loss,)
+
+
+def ssd_eval_program(fluid, prog, heads, nms=None):
+    """The trained program cut to its heads for inference (a
+    ``clone(for_test=True)`` without the loss, the backward and the
+    optimizer: ``io.get_inference_program``) with SSD300's detection
+    output (the logits' softmax, the offsets decoded against the priors,
+    multiclass NMS at ``nms``, SSD_NMS by default) and its mAP at
+    overlap 0.5 against a ground-truth feed ``gt`` [G, 5] rows of
+    (label, box). A run feeds ``img`` and ``gt``. Returns (program,
+    detections, mAP)."""
+    layers = fluid.layers
+    test = fluid.io.get_inference_program(list(heads), main_program=prog)
+    block = test.global_block()
+    loc, conf, prior, prior_var = (block.var(v.name) for v in heads)
+    with fluid.program_guard(test, fluid.Program()):
+        scores = layers.softmax(conf)
+        dets = layers.detection.detection_output(
+            loc, scores, prior, prior_var, **(nms or SSD_NMS))
+        gt = layers.data("gt", [int(prog.global_block().var(
+            "gt_box").shape[1]), 5])
+        m = layers.detection.detection_map(dets, gt, overlap_threshold=0.5)
+    return test, dets, m
+
+
+def ssd_feed(rng, batch, size=300, gt=8, classes=21):
+    """A synthetic batch: images N(0, 1), ``gt`` boxes an image (sides
+    0.1..0.6 of the image, anywhere inside it), labels 1..classes-1, no
+    padding rows; ``gt`` is the same boxes as detection_map's (label,
+    box) rows."""
+    img = rng.randn(batch, 3, size, size).astype(np.float32)
+    wh = rng.uniform(0.1, 0.6, (batch, gt, 2))
+    xy = rng.uniform(0, 1, (batch, gt, 2)) * (1 - wh)
+    box = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    label = rng.randint(1, classes, (batch, gt, 1)).astype(np.int64)
+    return {"img": img, "gt_box": box, "gt_label": label,
+            "gt": np.concatenate([label.astype(np.float32), box], -1)}
+
+
+def vision_cases(rng):
+    """(name, op type, inputs, attrs) of phase 6g's sweep: each of the 21
+    vision and detection types at the JAX sweeps' shapes
+    (tests/test_op_sweep_{nn,tensor}.py, tests/test_detection.py) and
+    the tie and edge cases of tests/test_torch_{vision_ops,detection}.py,
+    plus one large shape for each conv-like type (a decoder's stride-2
+    conv2d_transpose [32, 512, 19, 19] -> [32, 256, 38, 38], so cuDNN
+    picks its real algorithms) and the detection types at SSD300's
+    sizes. A ("seq", data, lengths) input is a PackedSeq."""
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def boxes(*lead):
+        a = np.sort(rng.rand(*lead, 2, 2), -2)
+        return np.concatenate([a[..., 0, :], a[..., 1, :]], -1).astype(
+            np.float32)
+
+    def seq(data, lens):
+        data = data.copy()
+        for r, n in enumerate(lens):
+            data[r, n:] = 0
+        return ("seq", data, np.asarray(lens, np.int32))
+
+    def ssd_loss_ins(b, m, c, g, ties=False):
+        prior = boxes(m)
+        gt = prior[rng.randint(0, m, (b, g))] + f(b, g, 4) * 0.02
+        gt[-1, -1] = 0.0
+        conf = f(b, m, c)
+        if ties:
+            conf[:, ::2] = 0.5
+        return {"Loc": [f(b, m, 4) * 0.2], "Conf": [conf], "GTBox": [gt],
+                "GTLabel": [rng.randint(1, c, (b, g, 1)).astype(np.int32)],
+                "PriorBox": [prior],
+                "PriorBoxVar": [np.array([.1, .1, .2, .2], np.float32)]}
+
+    def det_rows(b, d, g):
+        gtb = boxes(b, g)
+        gl = rng.randint(1, 4, (b, g, 1)).astype(np.float32)
+        pick = rng.randint(0, g, (b, d))
+        near = np.take_along_axis(gtb, pick[..., None], 1) + f(b, d, 4) * .03
+        far = rng.rand(b, d, 1) < 0.3
+        return (np.concatenate([np.take_along_axis(gl, pick[..., None], 1),
+                                np.round(rng.rand(b, d, 1), 1),
+                                np.where(far, boxes(b, d), near)], -1)
+                .astype(np.float32),
+                np.concatenate([gl, gtb], -1).astype(np.float32))
+
+    prior_attrs = {"min_sizes": [8.0], "max_sizes": [16.0],
+                   "aspect_ratios": [2.0], "flip": True, "clip": True,
+                   "variances": [0.1, 0.1, 0.2, 0.2], "step_w": 0.0,
+                   "step_h": 0.0, "offset": 0.5}
+    det, gt = det_rows(3, 12, 5)
+    sdet, sgt = det_rows(SSD_B, SSD_NMS["keep_top_k"], SSD["gt"])
+    pool_in = f(32, 64, 56, 56)
+    return [
+        ("conv3d", "conv3d", {"Input": [f(1, 2, 5, 5, 5)],
+                              "Filter": [f(3, 2, 3, 3, 3)]},
+         {"strides": [1, 1, 1], "paddings": [0, 0, 0]}),
+        ("conv3d_groups_dilated", "conv3d",
+         {"Input": [f(2, 4, 5, 6, 5)], "Filter": [f(4, 2, 3, 3, 3)]},
+         {"strides": [2, 1, 1], "paddings": [1, 1, 0],
+          "dilations": [1, 2, 1], "groups": 2}),
+        ("conv3d_large", "conv3d", {"Input": [f(8, 64, 16, 32, 32)],
+                                    "Filter": [f(64, 64, 3, 3, 3) * 0.05]},
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1]}),
+        ("conv2d_transpose", "conv2d_transpose",
+         {"Input": [f(1, 2, 4, 4)], "Filter": [f(2, 3, 3, 3)]},
+         {"strides": [2, 2], "paddings": [1, 1]}),
+        ("conv2d_transpose_groups_dilated", "conv2d_transpose",
+         {"Input": [f(2, 4, 5, 4)], "Filter": [f(4, 3, 3, 2)]},
+         {"strides": [2, 1], "paddings": [0, 1], "dilations": [2, 1],
+          "groups": 2}),
+        ("conv2d_transpose_large", "conv2d_transpose",
+         {"Input": [f(32, 512, 19, 19)], "Filter": [f(512, 256, 4, 4) * .02]},
+         {"strides": [2, 2], "paddings": [1, 1]}),
+        ("conv3d_transpose_output_size", "conv3d_transpose",
+         {"Input": [f(1, 2, 3, 3, 3)], "Filter": [f(2, 3, 3, 3, 3)]},
+         {"strides": [2, 2, 2], "paddings": [1, 1, 1],
+          "output_size": [6, 7, 5]}),
+        ("conv3d_transpose_groups", "conv3d_transpose",
+         {"Input": [f(1, 4, 3, 3, 3)], "Filter": [f(4, 2, 2, 3, 3)]},
+         {"strides": [2, 1, 2], "paddings": [0, 1, 0], "groups": 2,
+          "dilations": [1, 2, 1]}),
+        ("conv3d_transpose_large", "conv3d_transpose",
+         {"Input": [f(8, 64, 8, 16, 16)], "Filter": [f(64, 32, 4, 4, 4) * .05]},
+         {"strides": [2, 2, 2], "paddings": [1, 1, 1]}),
+        ("pool3d_max_ceil", "pool3d", {"X": [f(2, 2, 5, 6, 5)]},
+         {"pooling_type": "max", "ksize": [2, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 0, 1], "ceil_mode": True}),
+        ("pool3d_avg", "pool3d", {"X": [f(2, 2, 5, 6, 5)]},
+         {"pooling_type": "avg", "ksize": [2, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 0]}),
+        ("pool3d_avg_inclusive", "pool3d", {"X": [f(2, 2, 5, 6, 5)]},
+         {"pooling_type": "avg", "ksize": [2, 2, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 0], "exclusive": False}),
+        ("pool3d_large", "pool3d", {"X": [f(8, 64, 16, 32, 32)]},
+         {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2]}),
+        ("pool2d_with_index", "pool2d_with_index", {"X": [f(2, 2, 6, 6)]},
+         {"ksize": [2, 2], "strides": [2, 2]}),
+        ("pool2d_with_index_negative_padded", "pool2d_with_index",
+         {"X": [np.full((1, 1, 4, 4), -5.0, np.float32)]},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [1, 1]}),
+        ("pool2d_with_index_large", "pool2d_with_index", {"X": [pool_in]},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}),
+        ("max_pool3d_with_index", "max_pool3d_with_index",
+         {"X": [f(1, 2, 5, 6, 4)]},
+         {"ksize": [2, 3, 2], "strides": [2, 2, 1], "paddings": [1, 1, 0]}),
+        ("max_pool3d_with_index_large", "max_pool3d_with_index",
+         {"X": [f(8, 32, 16, 32, 32)]}, {"ksize": [2, 2, 2],
+                                         "strides": [2, 2, 2]}),
+        ("unpool", "unpool", {"X": [f(2, 2, 3, 3)], "Indices": [
+            rng.randint(0, 36, (2, 2, 3, 3)).astype(np.int32)]},
+         {"ksize": [2, 2], "strides": [2, 2]}),
+        ("unpool_duplicates", "unpool", {"X": [f(1, 1, 2, 2)], "Indices": [
+            np.array([[[[3, 3], [3, 0]]]], np.int32)]},
+         {"ksize": [2, 2], "strides": [2, 2]}),
+        ("unpool_large", "unpool", {"X": [f(32, 64, 28, 28)], "Indices": [
+            (np.arange(28)[:, None] * 112 + np.arange(28)[None, :] * 2
+             + rng.randint(0, 2, (32, 64, 28, 28))
+             + 56 * rng.randint(0, 2, (32, 64, 28, 28))).astype(np.int32)]},
+         {"ksize": [2, 2], "strides": [2, 2]}),
+        ("spp_max", "spp", {"X": [f(2, 3, 7, 5)]},
+         {"pyramid_height": 3, "pooling_type": "max"}),
+        ("spp_avg", "spp", {"X": [f(32, 256, 13, 13)]},
+         {"pyramid_height": 3, "pooling_type": "avg"}),
+        ("im2sequence", "im2sequence", {"X": [f(1, 2, 4, 4)]},
+         {"kernels": [2, 2], "strides": [2, 2]}),
+        ("im2sequence_large", "im2sequence", {"X": [f(32, 64, 32, 32)]},
+         {"kernels": [3, 3], "strides": [1, 1]}),
+        ("resize_nearest", "resize_nearest", {"X": [f(2, 2, 5, 3)]},
+         {"out_h": 7, "out_w": 8}),
+        ("resize_nearest_large", "resize_nearest",
+         {"X": [f(32, 256, 19, 19)]}, {"out_h": 38, "out_w": 38}),
+        ("resize_bilinear", "resize_bilinear", {"X": [f(1, 2, 4, 4)]},
+         {"out_h": 8, "out_w": 8}),
+        ("resize_bilinear_shrink", "resize_bilinear", {"X": [f(2, 3, 9, 7)]},
+         {"out_h": 4, "out_w": 11}),
+        ("resize_bilinear_large", "resize_bilinear",
+         {"X": [f(32, 256, 19, 19)]}, {"out_h": 38, "out_w": 38}),
+        ("grid_sampler", "grid_sampler", {"X": [f(2, 3, 5, 6)], "Grid": [
+            (rng.rand(2, 4, 3, 2) * 2.4 - 1.2).astype(np.float32)]}, {}),
+        ("grid_sampler_large", "grid_sampler", {"X": [f(32, 64, 38, 38)],
+                                                "Grid": [(rng.rand(
+            32, 38, 38, 2) * 2.2 - 1.1).astype(np.float32)]}, {}),
+        ("roi_pool", "roi_pool", {
+            "X": [np.arange(16, dtype=np.float32).reshape(1, 1, 4, 4)],
+            "ROIs": [np.array([[0, 0, 0, 3, 3]], np.float32)]},
+         {"pooled_height": 2, "pooled_width": 2, "spatial_scale": 1.0}),
+        ("roi_pool_scaled", "roi_pool", {"X": [f(2, 3, 12, 10)], "ROIs": [
+            np.array([[0, 1, 2, 7, 9], [1, 0, 0, 9, 11],
+                      [1, 3.4, 2.6, 5.5, 4.5]], np.float32)]},
+         {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.8}),
+        ("prior_box", "prior_box", {
+            "Input": [np.zeros((1, 8, 4, 4), np.float32)],
+            "Image": [np.zeros((1, 3, 32, 32), np.float32)]}, prior_attrs),
+        ("prior_box_ssd300_conv4_3", "prior_box", {
+            "Input": [np.zeros((1, 8, 38, 38), np.float32)],
+            "Image": [np.zeros((1, 3, 300, 300), np.float32)]},
+         dict(prior_attrs, min_sizes=[30.0], max_sizes=[60.0], clip=False)),
+        ("box_coder_encode", "box_coder", {
+            "PriorBox": [boxes(5)],
+            "PriorBoxVar": [np.full((5, 4), 0.1, np.float32)],
+            "TargetBox": [boxes(3)]}, {"code_type": "encode_center_size"}),
+        ("box_coder_decode_ssd300", "box_coder", {
+            "PriorBox": [boxes(SSD_PRIORS)],
+            "PriorBoxVar": [np.array([.1, .1, .2, .2], np.float32)],
+            "TargetBox": [f(SSD_B, SSD_PRIORS, 4) * 0.3]},
+         {"code_type": "decode_center_size"}),
+        ("bipartite_match", "bipartite_match", {"DistMat": [np.array(
+            [[0.9, 0.4, 0.1], [0.8, 0.7, 0.2]], np.float32)]}, {}),
+        ("bipartite_match_ties_per_prediction", "bipartite_match",
+         {"DistMat": [np.round(rng.rand(2, 5, 6), 1).astype(np.float32)]},
+         {"match_type": "per_prediction", "dist_threshold": 0.5}),
+        ("bipartite_match_ssd300", "bipartite_match",
+         {"DistMat": [rng.rand(SSD_B, SSD["gt"], SSD_PRIORS).astype(
+             np.float32)]}, {}),
+        ("target_assign", "target_assign", {
+            "X": [np.arange(12, dtype=np.float32).reshape(1, 3, 4)],
+            "MatchIndices": [np.array([[1, -1, 2, 0]], np.int32)]},
+         {"mismatch_value": -9}),
+        ("target_assign_packed", "target_assign", {
+            "X": [seq(f(2, 4, 3), [4, 2])],
+            "MatchIndices": [rng.randint(-1, 4, (2, 6)).astype(np.int32)]},
+         {}),
+        ("mine_hard_examples", "mine_hard_examples", {
+            "ClsLoss": [np.array([[0.9, 0.1, 0.5, 0.7, 0.3]], np.float32)],
+            "MatchIndices": [np.array([[2, -1, -1, -1, -1]], np.int32)]},
+         {"neg_pos_ratio": 2.0}),
+        ("mine_hard_examples_ties_ssd300", "mine_hard_examples", {
+            "ClsLoss": [np.round(rng.rand(SSD_B, SSD_PRIORS), 2).astype(
+                np.float32)],
+            "MatchIndices": [np.where(rng.rand(SSD_B, SSD_PRIORS) < 0.02,
+                                      rng.randint(0, 8, (SSD_B, SSD_PRIORS)),
+                                      -1).astype(np.int32)]},
+         {"neg_pos_ratio": 3.0}),
+        ("multiclass_nms", "multiclass_nms", {
+            "BBoxes": [np.array([[[0, 0, 1, 1], [0, 0, 1.05, 1.05],
+                                  [2, 2, 3, 3]]], np.float32)],
+            "Scores": [np.array([[[0, 0, 0], [0.9, 0.8, 0.7]]],
+                                np.float32)]},
+         {"score_threshold": 0.1, "nms_threshold": 0.5, "keep_top_k": 5}),
+        ("multiclass_nms_ties", "multiclass_nms", {
+            "BBoxes": [boxes(2, 30)],
+            "Scores": [np.round(rng.rand(2, 4, 30), 1).astype(np.float32)]},
+         {"score_threshold": 0.05, "nms_threshold": 0.45, "nms_top_k": -1,
+          "keep_top_k": -1, "background_label": -1}),
+        ("multiclass_nms_ssd300", "multiclass_nms", {
+            "BBoxes": [boxes(4, SSD_PRIORS)],
+            "Scores": [rng.dirichlet(np.ones(SSD["classes"]), (
+                4, SSD_PRIORS)).transpose(0, 2, 1).astype(np.float32)]},
+         dict(SSD_NMS, background_label=0)),
+        ("detection_map", "detection_map", {"DetectRes": [seq(
+            det, [12, 7, 0])], "Label": [seq(gt, [5, 3, 4])]},
+         {"overlap_threshold": 0.5}),
+        ("detection_map_ssd300", "detection_map", {"DetectRes": [sdet],
+                                                   "Label": [sgt]},
+         {"overlap_threshold": 0.5}),
+        ("ssd_loss", "ssd_loss", ssd_loss_ins(2, 40, 4, 3), {
+            "overlap_threshold": 0.5, "neg_pos_ratio": 3.0,
+            "background_label": 0}),
+        ("ssd_loss_background_ties", "ssd_loss",
+         ssd_loss_ins(3, 60, 5, 4, True), {
+             "overlap_threshold": 0.4, "neg_pos_ratio": 2.0,
+             "background_label": 0}),
+        ("ssd_loss_ssd300", "ssd_loss",
+         ssd_loss_ins(4, SSD_PRIORS, SSD["classes"], SSD["gt"]), {
+             "overlap_threshold": 0.5, "neg_pos_ratio": 3.0,
+             "background_label": 0}),
+    ]
+
+
+VISION_TYPES = 21
+
+
+def nms_near_ties(ins, attrs):
+    """How many (image, class) rows of a multiclass_nms case hold two
+    unequal scores of its first ``nms_top_k``, or a score and the score
+    threshold, within 1e-6, or an IoU within 1e-6 of the NMS threshold:
+    rows where two roundings could order or keep boxes differently. The
+    card and the CPU compute the same IEEE operations on the same inputs
+    here, so these rows are held exact all the same; the count says how
+    much of the sweep that claim covers."""
+    from paddle_tpu_torch.ops.math_ops import pairwise_iou
+
+    boxes, scores = ins["BBoxes"][0], ins["Scores"][0]
+    thr = attrs.get("nms_threshold", 0.3)
+    sthr = attrs.get("score_threshold", 0.0)
+    top = attrs.get("nms_top_k", -1)
+    n = 0
+    for b in range(scores.shape[0]):
+        for c in range(scores.shape[1]):
+            order = np.argsort(-scores[b, c], kind="stable")
+            order = order[:top] if top > 0 else order
+            s = scores[b, c][order]
+            d = np.diff(s)
+            cand = torch.from_numpy(boxes[b][order])
+            iou = pairwise_iou(cand, cand).numpy()
+            if ((d != 0) & (np.abs(d) < 1e-6)).any() or \
+                    (np.abs(s - sthr) < 1e-6).any() or \
+                    (np.abs(iou - thr) < 1e-6).any():
+                n += 1
+    return n
+
+
+def vision_amax(name):
+    """The share of the largest magnitude a case's floats are held to."""
+    return VISION_LARGE_AMAX if name.endswith("_large") else DENSE_AMAX
+
+
+def vision_sweep(dev, seed):
+    """Phase 6g (a): the 21 vision and detection types on the card against
+    the CPU, outputs and autograd gradients; NMS rows where no near-tie
+    could reorder them."""
+    from paddle_tpu_torch.core import registry
+
+    rng = np.random.RandomState(seed + 7)
+    cpu = torch.device("cpu")
+    worst, types, n_grads, near = 0.0, set(), 0, 0
+    for name, type, ins, attrs in vision_cases(rng):
+        types.add(type)
+        want, _ = _lower(type, ins, attrs, cpu)
+        got, _ = _lower(type, ins, attrs, dev)
+        torch.cuda.synchronize()
+        if type == "multiclass_nms":
+            near += nms_near_ties(ins, attrs)
+        share = vision_amax(name)
+        for k, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _dense_close("%s out %d" % (name, k), g, w,
+                                            share))
+        spec = registry.get(type)
+        if spec.no_grad or not any(np.issubdtype(w.dtype, np.floating)
+                                   for w in want):
+            continue
+        cots = [np.asarray(rng.randn(*w.shape), np.float32) for w in want
+                if np.issubdtype(w.dtype, np.floating)]
+        _, gw = _lower(type, ins, attrs, cpu, grad_cots=cots)
+        _, gg = _lower(type, ins, attrs, dev, grad_cots=cots)
+        for k, (g, w) in enumerate(zip(gg, gw)):
+            worst = max(worst, _dense_close("%s grad %d" % (name, k), g, w,
+                                            share))
+            n_grads += 1
+    if len(types) != VISION_TYPES:
+        raise AssertionError("the sweep covers %d types" % len(types))
+    print("vision and detection sweep: %d types on the card against the "
+          "CPU, %d gradients; integer results, kept sets and matches exact, "
+          "the worst float %.3g x max|ref| (bound rtol %g + %g x "
+          "max|ref|, %g at the large shapes); NMS (image, class) rows "
+          "holding a near-tie, held exact all the same: %d" % (
+              len(types), n_grads, worst, DENSE_RTOL, DENSE_AMAX,
+              VISION_LARGE_AMAX, near))
+    return worst
+
+
+def repairs_on_card(dev):
+    """Phase 6g (a): the two repairs that the card could break. A
+    duplicate-id scatter under ``overwrite`` writes the CPU's bits (the
+    last update wins) and sends the gradient to it alone; an
+    out-of-range hard label or embedding id reads NaN on the card with no
+    device-side assert, and the sparse update of such a row drops it."""
+    cpu = torch.device("cpu")
+    ins = {"X": [np.zeros((3, 2), np.float32)],
+           "Ids": [np.array([1, 1, 1], np.int64)],
+           "Updates": [np.arange(6, dtype=np.float32).reshape(3, 2)]}
+    cots = [np.arange(6, dtype=np.float32).reshape(3, 2) + 1]
+    for d in (cpu, dev):
+        out, grads = _lower("scatter", ins, {"overwrite": True}, d,
+                            grad_cots=cots)
+        if d == cpu:
+            want = (out, grads)
+        elif not all(np.array_equal(a, b) for a, b in
+                     zip(out + grads, want[0] + want[1])):
+            raise AssertionError("scatter duplicates: the card's bits "
+                                 "differ from the CPU's")
+    if not np.array_equal(want[0][0], [[0, 0], [4, 5], [0, 0]]) or \
+            not np.array_equal(want[1][1][:2], np.zeros((2, 2))):
+        raise AssertionError("scatter duplicates: not the last update")
+    labels = np.array([[4], [-100], [-1], [2]], np.int64)
+    probs = np.tile(np.array([[.1, .2, .3, .4]], np.float32), (4, 1))
+    nan_rows = {}
+    for type, slot, x in (("cross_entropy", "X", probs),
+                          ("softmax_with_cross_entropy", "Logits", probs)):
+        got, g = _lower(type, {slot: [x], "Label": [labels]}, {}, dev,
+                        grad_cots=[np.ones((4, 1), np.float32)] +
+                        ([np.zeros((4, 4), np.float32)]
+                         if type != "cross_entropy" else []))
+        torch.cuda.synchronize()
+        loss = got[0] if type == "cross_entropy" else got[0]
+        nan_rows[type] = int(np.isnan(loss).sum())
+        if not (np.isnan(loss[:2]).all() and np.isfinite(loss[2:]).all()
+                and np.isfinite(g[0]).all() and not g[0][:2].any()):
+            raise AssertionError("%s: out-of-range labels on the card" % type)
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    got, g = _lower("lookup_table", {"W": [w], "Ids": [np.array(
+        [[4], [1], [-1], [-9]], np.int64)]}, {}, dev,
+        grad_cots=[np.ones((4, 3), np.float32)])
+    torch.cuda.synchronize()
+    if not (np.isnan(got[0][[0, 3]]).all() and
+            np.array_equal(got[0][[1, 2]], w[[1, 3]]) and
+            np.array_equal(g[0].sum(1), [0, 3, 0, 3])):
+        raise AssertionError("lookup_table: out-of-range ids on the card")
+    from paddle_tpu_torch.core.lower import RowSparse
+    from paddle_tpu_torch.ops.optimizer_ops import _merge_rows
+
+    grad = RowSparse(torch.tensor([4, 1, -1, 9], device=dev),
+                     torch.ones(4, 3, device=dev), 4)
+    dense = grad.to_dense()
+    rows, _, valid = _merge_rows(grad)
+    torch.cuda.synchronize()
+    if dense.sum(1).tolist() != [0, 3, 0, 3] or int(valid.sum()) != 2 \
+            or sorted(rows[valid[:, 0]].tolist()) != [1, 3]:
+        raise AssertionError("row-sparse rows out of range on the card")
+    print("repairs on the card: a duplicate-id scatter writes the CPU's "
+          "bits, the last update, and its gradient reaches that update "
+          "only; labels 4 and -100 of 4 classes give NaN losses (%s) and "
+          "no gradient, no device-side assert; embedding ids 4 and -9 of a "
+          "4-row table give NaN rows, and the row-sparse update drops them"
+          % json.dumps(nan_rows))
+
+
+def w2v_phase(fluid, seed, dev):
+    """Phase 6g (b): the book's word2vec at BOOK_W2V's widths, dense and
+    row-sparse: 10 eager steps whose loss is finite and falls;
+    run_chunk's graph replays bitwise against eager steps; and the card
+    against the CPU from the same weights: 3 losses within rtol 1e-4,
+    every first-step gradient (the row-sparse one made dense) within
+    1e-4 x its largest magnitude. Returns the graph_path numbers."""
+    from paddle_tpu_torch import interop, unique_name
+
+    res = {}
+    dict_size = BOOK_W2V["dict_size"]
+    for sparse in (False, True):
+        label = "word2vec %s" % ("row-sparse" if sparse else "dense")
+        feed = w2v_feed(np.random.RandomState(seed + 3), BOOK_W2V_B,
+                        dict_size)
+        on_card = {n: torch.from_numpy(v).to(dev) for n, v in feed.items()}
+        with unique_name.guard():
+            prog, startup, _, (loss,) = w2v_build(fluid, sparse)
+        startup.random_seed = seed
+        scope, exe = fluid.Scope(), fluid.Executor()
+        exe.run(startup, scope=scope)
+        exe.run(prog, feed=on_card, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                scope=scope)[0])
+                  for _ in range(BOOK_W2V_STEPS)]
+        step_ms = (time.perf_counter() - t0) * 1000.0 / BOOK_W2V_STEPS
+        print("%s: losses %s; eager %.3f ms/step (with the loss's host "
+              "read)" % (label, " ".join("%.6f" % v for v in losses),
+                         step_ms))
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("%s: loss not finite and falling: %s"
+                                 % (label, losses))
+        n_ops = device_ops(lambda: exe.run(prog, feed=on_card,
+                                           fetch_list=[loss], scope=scope))
+        del scope, exe
+        res[label] = graph_path(
+            fluid, label, (prog, startup, loss), on_card, GRAPH_K["w2v"],
+            GRAPH_CHUNKS, seed, {}, (1e-4, RESNET_AB_PL2TOL,
+                                     RESNET_AB_L2TOL))
+        res[label]["ops"] = n_ops[1]
+        print("%s: %d device ops an eager step (card: %s)"
+              % (label, n_ops[1], card_line()))
+        # the card against the CPU from the same weights
+        cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+        cpu = fluid.Executor(fluid.CPUPlace())
+        cpu.run(startup, scope=cpu_scope)
+        interop.load_reference_state(
+            {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
+            fluid.CUDAPlace(0), [prog, startup])
+        grads = sorted(p.name + "@GRAD"
+                       for p in prog.global_block().all_parameters())
+
+        def dense(v):
+            v = v.to_dense() if hasattr(v, "rows") else v
+            return v.detach().cpu().numpy()
+        card = fluid.Executor()
+        for step in range(3):
+            extra = grads if step == 0 else []
+            c = cpu.run(prog, feed=feed, fetch_list=[loss] + extra,
+                        scope=cpu_scope, return_numpy=False)
+            k = card.run(prog, feed=on_card, fetch_list=[loss] + extra,
+                         scope=card_scope, return_numpy=False)
+            np.testing.assert_allclose(float(k[0]), float(c[0]), rtol=1e-4)
+            if step == 0:
+                check_grad_diff(
+                    "card vs cpu at %s, %d first-step gradients"
+                    % (label, len(grads)),
+                    grad_diff(grads, [dense(v) for v in k[1:]],
+                              [dense(v) for v in c[1:]]), 1e-4, 1e-3)
+        print("card == cpu at %s: losses of 3 steps within rtol 1e-4"
+              % label)
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssd_rows_agree(what, card, cpu):
+    """Detection rows [B, K, 6] with counts, card against CPU: each card
+    row has a CPU row of its label, box (atol 1e-4) and score (rtol
+    1e-4), and the counts are equal, but for near-ties: a row without a
+    partner is excused if its score lies within 1e-4 (relative) of its
+    image's lowest kept score, where keep_top_k cuts among near-equal
+    scores, or of another row's score of its class, where NMS ranks two
+    near-equal boxes. Returns (rows compared, rows excused)."""
+    (cd, cl), (pd, pl) = card, cpu
+    if not np.array_equal(cl, pl):
+        raise AssertionError("%s: counts card %s cpu %s" % (what, cl, pl))
+    rows = excused = 0
+    for b in range(cd.shape[0]):
+        n = int(cl[b])
+        a, r = cd[b, :n], pd[b, :n]
+        cut = float(r[:, 1].min()) if n else 0.0
+        for row in a:
+            rows += 1
+            same = (r[:, 0] == row[0]) & (np.abs(r[:, 2:] - row[2:]).max(
+                1) <= 1e-4) & (np.abs(r[:, 1] - row[1]) <= 1e-4 * row[1])
+            if same.any():
+                continue
+            peers = r[r[:, 0] == row[0], 1]
+            if abs(row[1] - cut) <= 1e-4 * cut or \
+                    (np.abs(peers - row[1]) <= 1e-4 * row[1]).any():
+                excused += 1
+                continue
+            raise AssertionError("%s: image %d, the card's row %s has no "
+                                 "CPU partner and is no near-tie"
+                                 % (what, b, row.tolist()))
+    return rows, excused
+
+
+def ssd_detect(fluid, exe, test, dets, m, feed, scope):
+    out = exe.run(test, feed=feed, fetch_list=[dets, m], scope=scope,
+                  return_numpy=False)
+    return (out[0].data.cpu().numpy(), out[0].lengths.cpu().numpy(),
+            float(out[1]))
+
+
+def ssd_phase(fluid, seed, dev):
+    """Phase 6g (c): SSD300 at its published widths in config B (the JAX
+    package's NHWC pass refuses the program: ROADMAP.md Queue 3): 8732
+    priors asserted; B8 against its plain version at the program's 1x1
+    shapes; 1 + 5 eager Momentum steps at batch 32 whose loss is finite
+    and falls, B8's launches equal to the program's 1x1 stride-1 convs a
+    step; run_chunk's graph replays bitwise against eager steps, B8
+    credited once a replay; SSD300's test-time detection output and mAP
+    on the trained weights (rows in range, counts <= keep_top_k, labels
+    1..20, mAP in [0, 1], graph replays bitwise), with the NMS loop's
+    share of the evaluation; and the card against the CPU at channels / 8
+    and batch 4 (the 300x300 input, the six maps, 8732 priors): 3 losses
+    within SSD_LTOL, the first-step gradients at the ResNet A-vs-B
+    bounds, and the detections of the CPU-trained weights. Returns B8's
+    launches on the main path."""
+    from paddle_tpu_torch import flags, interop, unique_name
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lower import TraceContext
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+
+    t0 = time.perf_counter()
+    flags.set_flags({"FLAGS_fused_conv1x1_bwd": True})
+    # cuDNN's default convolution backwards may sum in a run-dependent
+    # order; the hard-negative ranks turn such a difference into another
+    # set of negatives within a few steps, so the bitwise claims need
+    # the deterministic algorithms (the phase's times are theirs)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with unique_name.guard():
+            prog, startup, heads, (loss,) = ssd_build(fluid, config="B",
+                                                      **SSD)
+        if tuple(heads[2].shape) != (SSD_PRIORS, 4) or \
+                tuple(heads[1].shape)[1:] != (SSD_PRIORS, SSD["classes"]):
+            raise AssertionError("SSD300 priors %s, conf %s" % (
+                heads[2].shape, heads[1].shape))
+        c1_shapes = transformed_launches(prog, SSD_B)[1]
+        n_c1 = sum(c1_shapes.values())
+        print("SSD300: %d priors; per step, from the program: %d 1x1 "
+              "stride-1 convs -> %d B8 launches at %s" % (
+                  SSD_PRIORS, n_c1, n_c1, sorted(c1_shapes)))
+        if n_c1 != 5:
+            raise AssertionError("SSD300 holds fc7 and four extra 1x1 "
+                                 "convs, found %d" % n_c1)
+        g = torch.Generator(device="cpu").manual_seed(seed + 9)
+        check_conv1x1(k1, g, dev, sorted(c1_shapes),
+                      dtypes=(torch.float32,))
+        feed = ssd_feed(np.random.RandomState(seed + 4), SSD_B)
+        train = {n: torch.from_numpy(v).to(dev) for n, v in feed.items()
+                 if n != "gt"}
+        startup.random_seed = seed
+        scope, exe = fluid.Scope(), fluid.Executor()
+        exe.run(startup, scope=scope)
+        exe.run(prog, feed=train, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t1 = time.perf_counter()
+        losses = [float(exe.run(prog, feed=train, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(5)]
+        step_ms = (time.perf_counter() - t1) * 1000.0 / 5
+        got = {n: c for n, c in all_launches().items() if c}
+        print("SSD300 eager: losses %s; %.3f ms/step (with the loss's host "
+              "read); launches %s, from the program %s" % (
+                  " ".join("%.6f" % v for v in losses), step_ms,
+                  json.dumps(got), json.dumps({"conv1x1_bwd": 5 * n_c1})))
+        if got != {"conv1x1_bwd": 5 * n_c1}:
+            raise AssertionError("SSD300 launch counts")
+        launched = got["conv1x1_bwd"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError("SSD300: loss not finite and falling: %s"
+                                 % losses)
+        device_profile(lambda: exe.run(prog, feed=train, fetch_list=[loss],
+                                       scope=scope), 1, step_ms,
+                       "SSD300 step (eager)", share_of=("conv1x1_bwd",))
+        # evaluation on the trained weights
+        with unique_name.guard():
+            test, dets, m = ssd_eval_program(fluid, prog, heads)
+        ev = {"img": train["img"], "gt": torch.from_numpy(
+            feed["gt"]).to(dev)}
+        rows, counts, mean_ap = ssd_detect(fluid, exe, test, dets, m, ev,
+                                           scope)
+        valid = np.arange(rows.shape[1])[None, :] < counts[:, None]
+        lab = rows[..., 0][valid]
+        ok = rows.shape[1] == SSD_NMS["keep_top_k"] and \
+            (counts <= SSD_NMS["keep_top_k"]).all() and counts.min() > 0 \
+            and np.isfinite(rows).all() and (lab >= 1).all() and \
+            (lab <= SSD["classes"] - 1).all() and (lab == lab.round()).all() \
+            and (rows[..., 1][valid] > SSD_NMS["score_threshold"]).all() \
+            and 0.0 <= mean_ap <= 1.0 and not rows[~valid].any()
+        print("SSD300 evaluation: detections a image %s (of at most %d), "
+              "labels %d..%d, scores %.4f..%.4f, mAP@0.5 %.6f" % (
+                  np.bincount(counts).nonzero()[0].tolist(),
+                  SSD_NMS["keep_top_k"], lab.min(), lab.max(),
+                  rows[..., 1][valid].min(), rows[..., 1][valid].max(),
+                  mean_ap))
+        if not ok:
+            raise AssertionError("SSD300 detections out of range")
+        chunk = chunk_of(ev, 2)
+        eager = [ssd_detect(fluid, exe, test, dets, m, ev, scope)
+                 for _ in range(2)]
+        reps = [exe.run_chunk(test, feed_chunk=chunk, k=2, fetch_list=[m],
+                              scope=scope)[0] for _ in range(2)]
+        same = all(np.array_equal(e[0], rows) and np.array_equal(
+            e[1], counts) for e in eager) and all(np.array_equal(
+                np.asarray(r), np.full(2, mean_ap, np.float32))
+                for r in reps)
+        if not same:
+            raise AssertionError("SSD300 evaluation: graph replays or a "
+                                 "second eager call differ")
+
+        # the NMS loop's share of the evaluation
+        def ev_call():
+            exe.run(test, feed=ev, fetch_list=[dets, m], scope=scope,
+                    return_numpy=False)
+        ev_call()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(3):
+            ev_call()
+        torch.cuda.synchronize()
+        ev_ms = (time.perf_counter() - t1) * 1000.0 / 3
+        nms_op = next(op for op in test.global_block().ops
+                      if op.type == "multiclass_nms")
+        nms_in = exe.run(test, feed=ev, fetch_list=[
+            nms_op.input("BBoxes")[0], nms_op.input("Scores")[0]],
+            scope=scope, return_numpy=False)
+        spec = registry.get("multiclass_nms")
+        ctx = TraceContext(device=dev).for_op(nms_op)
+
+        def nms_call():
+            spec.lower(ctx, {"BBoxes": [nms_in[0]], "Scores": [nms_in[1]]},
+                       nms_op.attrs, nms_op)
+        nms_call()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nms_call()
+        torch.cuda.synchronize()
+        nms_ms = (time.perf_counter() - t1) * 1000.0
+        ev_busy, ev_ops = device_ops(ev_call)
+        nms_busy, nms_ops = device_ops(nms_call)
+        print("SSD300 evaluation call (eager, batch %d): host %.3f ms, "
+              "device busy %s ms in %d device ops; multiclass_nms alone: "
+              "host %.3f ms, busy %s ms in %d device ops = %s of the "
+              "evaluation's busy time (card: %s)" % (
+                  SSD_B, ev_ms, "%.3f" % ev_busy if ev_busy else
+                  "not measured", ev_ops, nms_ms,
+                  "%.3f" % nms_busy if nms_busy else "not measured",
+                  nms_ops, "%.1f%%" % (100.0 * nms_busy / ev_busy)
+                  if ev_busy and nms_busy else "not measured", card_line()))
+        del scope, exe, test, chunk
+        torch.cuda.empty_cache()
+
+        res = graph_path(fluid, "ssd300", (prog, startup, loss), train,
+                         GRAPH_K["ssd"], GRAPH_CHUNKS, seed,
+                         {"conv1x1_bwd": n_c1},
+                         (SSD_LTOL, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
+        print("SSD300 graphs: B8 %d launches a step, credited once a "
+              "replay (card: %s)" % (n_c1, card_line()))
+        del train
+        torch.cuda.empty_cache()
+
+        # the card against the CPU at channels / 8, batch 4
+        xfeed = ssd_feed(np.random.RandomState(seed + 5), SSD_X["batch"])
+        xtrain = {n: v for n, v in xfeed.items() if n != "gt"}
+
+        def build():
+            return ssd_build(fluid, config="B", **dict(SSD, div=SSD_X["div"]))
+        reset_all_launches()
+        cross_check(fluid, fluid.Executor(), build, seed, xtrain, 3,
+                    "SSD300 / %d, batch %d" % (SSD_X["div"], SSD_X["batch"]),
+                    gtol=SSD_GTOL, ltol=SSD_LTOL, l2tol=SSD_L2TOL,
+                    pl2tol=SSD_PL2TOL, pl2_floor=AMP_CANCELS)
+        # the detections of the CPU's weights after 3 steps, on both
+        with unique_name.guard():
+            xprog, xstart, xheads, (xloss,) = build()
+        xstart.random_seed = seed
+        cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+        cpu = fluid.Executor(fluid.CPUPlace())
+        cpu.run(xstart, scope=cpu_scope)
+        for _ in range(3):
+            cpu.run(xprog, feed=xtrain, fetch_list=[xloss], scope=cpu_scope)
+        interop.load_reference_state(
+            {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
+            fluid.CUDAPlace(0), [xprog, xstart])
+        with unique_name.guard():
+            xtest, xdets, xm = ssd_eval_program(fluid, xprog, xheads)
+        xev = {n: xfeed[n] for n in ("img", "gt")}
+        c_rows, c_counts, c_map = ssd_detect(fluid, cpu, xtest, xdets, xm,
+                                             xev, cpu_scope)
+        k_rows, k_counts, k_map = ssd_detect(
+            fluid, fluid.Executor(), xtest, xdets, xm,
+            {n: torch.from_numpy(v).to(dev) for n, v in xev.items()},
+            card_scope)
+        n_rows, n_excused = ssd_rows_agree(
+            "SSD300 / %d detections" % SSD_X["div"], (k_rows, k_counts),
+            (c_rows, c_counts))
+        np.testing.assert_allclose(k_map, c_map, rtol=1e-3, atol=1e-4)
+        print("card == cpu at SSD300 / %d: %d detection rows, %d excused "
+              "as near-ties; mAP card %.6f cpu %.6f" % (
+                  SSD_X["div"], n_rows, n_excused, k_map, c_map))
+    finally:
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": False})
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    print("SSD300 phase: %.1f s" % (time.perf_counter() - t0))
+    return launched, res
+
+
+def vision_phase(fluid, seed, dev):
+    """Phase 6g: the vision and detection families on the card. Returns
+    B8's launches on SSD300's main path."""
+    t0 = time.perf_counter()
+    vision_sweep(dev, seed)
+    repairs_on_card(dev)
+    t1 = time.perf_counter()
+    w2v = w2v_phase(fluid, seed, dev)
+    t2 = time.perf_counter()
+    launched, ssd = ssd_phase(fluid, seed, dev)
+    torch.cuda.synchronize()
+    print("vision phase parts: sweep and repairs %.1f s, word2vec %.1f s, "
+          "SSD300 %.1f s" % (t1 - t0, t2 - t1, time.perf_counter() - t2))
+    print("vision phase: %.1f s; host ms/step eager / graphs, busy ms/step "
+          "eager / graphs: %s (card: %s)" % (
+              time.perf_counter() - t0, json.dumps({
+                  k: [round(v[n], 3) if v[n] is not None else None
+                      for n in ("host_eager", "host_graphs", "busy_eager",
+                                "busy_graphs")]
+                  for k, v in dict(w2v, ssd300=ssd).items()}), card_line()))
     return launched
 
 
@@ -6062,12 +7009,21 @@ def main():
               SDPA["b"], SDPA["t"], SDPA["d"], args.seed))
     launches["flash_attention"] += dense_phase(fluid, args.seed, dev)
 
+    # ---- 6g. the vision and detection families, word2vec, SSD300 ----
+    phase("vision and detection: %d types on the card against the CPU, "
+          "the repairs, word2vec (dictionary %d, batch %d), SSD300 (%d "
+          "priors, batch %d) in config B (seed %d)" % (
+              VISION_TYPES, BOOK_W2V["dict_size"], BOOK_W2V_B, SSD_PRIORS,
+              SSD_B, args.seed))
+    ssd_b8 = vision_phase(fluid, args.seed, dev)
+
     # ---- 7. the convnet training slice at full width ----
     phase("ResNet-50 training at full width, configs A and B (seed %d)"
           % args.seed)
     resnet_launches, bn_shapes, c1_shapes = resnet_phase(fluid, args.seed,
                                                          dev)
     launches.update(resnet_launches)
+    launches["conv1x1_bwd"] += ssd_b8
 
     # ---- 8. bench.py's convnet configuration at full width ----
     phase("convnet benchmark configuration at full width: ResNet-50 "

@@ -46,6 +46,6 @@ from paddle_tpu_torch import tracing  # noqa: F401
 from paddle_tpu_torch.data_feeder import DataFeeder, stack_feeds  # noqa: F401
 from paddle_tpu_torch.flags import set_flags, get_flags  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
-from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401
+from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

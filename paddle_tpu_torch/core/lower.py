@@ -43,7 +43,7 @@ from paddle_tpu_torch.core.ir import VarType
 
 __all__ = ["TraceContext", "run_block", "run_op", "step_key", "op_seed",
            "PackedSeq", "RowSparse", "TensorArray", "add_rows",
-           "concat_time_padded"]
+           "wrap_ids", "last_writes", "concat_time_padded"]
 
 
 class PackedSeq:
@@ -149,6 +149,31 @@ class TensorArray:
             tuple(self.data.shape), tuple(self.size.shape))
 
 
+def wrap_ids(ids, n):
+    """``(index, in_range)`` of integer ids into an axis of ``n``, as jnp
+    indexes: a negative id wraps once; ``in_range`` is False for an id
+    outside [-n, n), whose ``index`` is a valid row to read and discard.
+    Three elementwise kernels (a clamp, a remainder, a compare), no host
+    read."""
+    c = torch.clamp(ids, -n, n - 1)
+    return torch.remainder(c, n), c == ids
+
+
+def last_writes(idx, size):
+    """``idx`` (int64 targets along the last dim, in [0, size]; ``size``
+    is a spare slot the caller drops) with every write but the last to
+    each target sent to the spare slot: the winner jnp's scatter leaves
+    among duplicates on the CPU, picked explicitly (the largest position
+    of each target), so the card writes the CPU's bits and only the
+    written update gets a gradient, as under ``jax.vjp``."""
+    pos = torch.arange(idx.shape[-1], device=idx.device).expand(
+        idx.shape).contiguous()
+    last = torch.full(tuple(idx.shape[:-1]) + (size + 1,), -1,
+                      dtype=torch.int64, device=idx.device).scatter_reduce(
+        -1, idx, pos, "amax")
+    return torch.where(last.gather(-1, idx) == pos, idx, size)
+
+
 def add_rows(t, rows, values):
     """``t`` with ``values[i]`` added to row ``rows[i]`` for every i (a
     new tensor), duplicate rows added one after another in index order,
@@ -157,11 +182,20 @@ def add_rows(t, rows, values):
     accumulate=True)`` sorts the rows (stably) and adds each row's
     duplicates in one thread; ``index_add`` would add them by atomics
     there, in any order. On the CPU ``index_add`` is the serial loop,
-    where ``index_put`` adds by atomics across threads."""
-    rows = rows.to(torch.int64)
+    where ``index_put`` adds by atomics across threads. A negative row
+    wraps once and a row out of range is dropped, as jnp's scatter does
+    (an embedding id out of range reaches here through a ``RowSparse``
+    gradient): such rows add into a spare row that the result leaves
+    out, where an index out of range would fault on the card."""
+    n = t.shape[0]
+    idx, ok = wrap_ids(rows.to(torch.int64), n)
+    rows = torch.where(ok, idx, n)
+    ext = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
     if t.device.type == "cuda":
-        return t.index_put((rows,), values, accumulate=True)
-    return t.index_add(0, rows, values)
+        ext.index_put_((rows,), values, accumulate=True)
+    else:
+        ext.index_add_(0, rows, values)
+    return ext[:n]
 
 
 _MASK64 = (1 << 64) - 1

@@ -1,6 +1,6 @@
 import paddle_tpu_torch.ops  # noqa: F401  (registers all op lowerings)
 
-from paddle_tpu_torch.layers import control_flow, decoder, io, nn, tensor  # noqa: F401
+from paddle_tpu_torch.layers import control_flow, decoder, detection, io, nn, tensor  # noqa: F401
 from paddle_tpu_torch.layers.control_flow import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.decoder import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403

@@ -12,8 +12,12 @@ the convnets (conv2d, pool2d, batch_norm, relu, lrn, dropout: LeNet,
 ResNet, VGG, AlexNet, GoogLeNet and SmallNet), the activations, and
 the dense op library's layers (products, reductions, shape and index
 manipulation, the sequence convolution, the losses of the book's
-regression and recommender programs, and the random draws); the JAX
-package's other layers arrive with later slices.
+regression and recommender programs, and the random draws), of the
+vision family (3-D and transposed convolutions, the other pools,
+unpooling, spatial pyramids, image-to-sequence, grid sampling and
+resizing) and four of the layers over ops already ported (group norm,
+the 1-D batch norm, the last step of a sequence, the dice loss); the
+JAX package's other layers arrive with later slices.
 """
 
 from paddle_tpu_torch.core import ir
@@ -44,6 +48,10 @@ __all__ = [
     "argsort", "unique_with_counts", "random_crop", "row_conv",
     "gaussian_random", "uniform_random_batch_size_like",
     "gaussian_random_batch_size_like",
+    "conv3d", "conv2d_transpose", "pool3d", "max_pool3d_with_index",
+    "conv3d_transpose", "unpool", "spp", "im2sequence", "grid_sampler",
+    "image_resize", "resize_bilinear", "resize_nearest", "group_norm",
+    "batch_norm_1d", "sequence_last_step", "dice_loss",
 ]
 
 
@@ -1174,3 +1182,224 @@ def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
                       "min": mean - 3 * std, "max": mean + 3 * std,
                       "seed": seed})
     return out
+
+
+# ---- the vision family ----
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = int(input.shape[1])
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size] * 3
+    filter_shape = [num_filters, num_channels // groups] + list(fsize)
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv3d", {"Input": [input], "Filter": [w]}, {"Output": [pre_bias]},
+        {"strides": _pair(stride, 3), "paddings": _pair(padding, 3),
+         "dilations": _pair(dilation, 3), "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = int(input.shape[1])
+    if filter_size is None:
+        # from output_size (reference nn.py:1845): invert
+        # out = (in-1)*stride - 2*pad + dilation*(filter-1) + 1
+        if output_size is None:
+            raise ValueError(
+                "conv2d_transpose needs filter_size or output_size")
+        osz = output_size if isinstance(output_size, (list, tuple)) \
+            else [output_size, output_size]
+        strides, pads = _pair(stride), _pair(padding)
+        dils = _pair(dilation)
+        filter_size = [
+            (int(osz[i]) - (int(input.shape[2 + i]) - 1) * strides[i]
+             + 2 * pads[i] - 1) // dils[i] + 1
+            for i in range(2)]
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else [filter_size, filter_size]
+    filter_shape = [num_channels, num_filters // (groups or 1)] + list(fsize)
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d_transpose", {"Input": [input], "Filter": [w]},
+        {"Output": [pre_bias]},
+        {"strides": _pair(stride), "paddings": _pair(padding),
+         "dilations": _pair(dilation), "groups": groups or 1})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    """3-D pooling over NCDHW (reference `pool_op.cc` Pool3D)."""
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool3d", {"X": [input]}, {"Out": [out]},
+        {"pooling_type": pool_type, "ksize": _pair(pool_size, 3),
+         "strides": _pair(pool_stride, 3), "paddings": _pair(pool_padding, 3),
+         "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+         "exclusive": exclusive})
+    return out
+
+
+def max_pool3d_with_index(input, pool_size, pool_stride=1, pool_padding=0,
+                          name=None):
+    """3-D max pool returning (Out, Mask) (reference
+    `pool_with_index_op.cc`)."""
+    helper = LayerHelper("max_pool3d_with_index", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mask = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "max_pool3d_with_index", {"X": [input]},
+        {"Out": [out], "Mask": [mask]},
+        {"ksize": _pair(pool_size, 3), "strides": _pair(pool_stride, 3),
+         "paddings": _pair(pool_padding, 3)})
+    return out, mask
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Transposed 3-D convolution (reference `conv_transpose_op.cc`)."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = int(input.shape[1])
+    if filter_size is None:
+        raise ValueError("filter_size required")
+    fsize = list(filter_size) if isinstance(filter_size, (list, tuple)) \
+        else [filter_size] * 3
+    filter_shape = [num_channels, num_filters // (groups or 1)] + fsize
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    attrs = {"strides": _pair(stride, 3), "paddings": _pair(padding, 3),
+             "dilations": _pair(dilation, 3), "groups": groups or 1}
+    if output_size is not None:
+        attrs["output_size"] = (list(output_size)
+                                if isinstance(output_size, (list, tuple))
+                                else [output_size] * 3)
+    helper.append_op(
+        "conv3d_transpose", {"Input": [input], "Filter": [w]},
+        {"Output": [pre_bias]}, attrs)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def unpool(input, indices, ksize, strides=1, paddings=0, name=None):
+    """Max-unpooling from max_pool2d_with_index's Mask (reference
+    `unpool_op.cc`)."""
+    helper = LayerHelper("unpool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "unpool", {"X": [input], "Indices": [indices]}, {"Out": [out]},
+        {"ksize": _pair(ksize), "strides": _pair(strides),
+         "paddings": _pair(paddings), "unpooling_type": "max"})
+    return out
+
+
+def spp(input, pyramid_height, pool_type="max", name=None):
+    """Spatial pyramid pooling (reference `spp_op.cc`)."""
+    helper = LayerHelper("spp", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "spp", {"X": [input]}, {"Out": [out]},
+        {"pyramid_height": pyramid_height, "pooling_type": pool_type})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("im2sequence", {"X": [input]}, {"Out": [out]},
+                     {"kernels": _pair(filter_size), "strides": _pair(stride),
+                      "paddings": _pair(padding)})
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("grid_sampler", {"X": [x], "Grid": [grid]},
+                     {"Output": [out]})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR"):
+    helper = LayerHelper("image_resize", name=name)
+    if out_shape is None:
+        h = int(int(input.shape[2]) * scale)
+        w = int(int(input.shape[3]) * scale)
+        out_shape = [h, w]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("resize_bilinear" if resample == "BILINEAR"
+                     else "resize_nearest",
+                     {"X": [input]}, {"Out": [out]},
+                     {"out_h": int(out_shape[0]), "out_w": int(out_shape[1])})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "BILINEAR")
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, "NEAREST")
+
+
+# ---- layers over ops already ported ----
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = int(input.shape[1])
+    reshaped = reshape(input, [0, groups, -1])
+    normed = layer_norm(reshaped, scale=False, shift=False, begin_norm_axis=2,
+                        epsilon=epsilon)
+    out = reshape(normed, [0, c] + [int(s) for s in input.shape[2:]])
+    scale_p = helper.create_parameter(helper.param_attr, [c], input.dtype,
+                                      default_initializer=Constant(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], input.dtype,
+                                   is_bias=True)
+    bshape = [1, c] + [1] * (len(input.shape) - 2)
+    out = elementwise_mul(out, reshape(scale_p, bshape))
+    if bias is not None:
+        out = elementwise_add(out, reshape(bias, bshape))
+    return helper.append_activation(out)
+
+
+batch_norm_1d = batch_norm
+
+
+def sequence_last_step(input):
+    return sequence_pool(input, "last")
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    label = one_hot(label, depth=int(input.shape[-1]))
+    reduce_dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(elementwise_mul(input, label), dim=reduce_dims)
+    dice_denominator = elementwise_add(reduce_sum(input, dim=reduce_dims),
+                                       reduce_sum(label, dim=reduce_dims))
+    dice_score = scale(elementwise_div(
+        scale(inse, scale=2.0),
+        scale(dice_denominator, scale=1.0, bias=epsilon)),
+        scale=-1.0, bias=1.0)
+    return reduce_mean(dice_score)

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import registry
-from paddle_tpu_torch.core.lower import PackedSeq, RowSparse
+from paddle_tpu_torch.core.lower import PackedSeq, RowSparse, wrap_ids
 from paddle_tpu_torch.core.registry import op
 
 
@@ -521,7 +521,11 @@ def _lookup_table(ctx, ins, attrs, o):
         # the reference's [.., 1] id convention: a trailing id dim of 1 goes
         if ids.dim() > 1 and ids.shape[-1] == 1:
             ids = ids.squeeze(-1)
-        out = F.embedding(ids, w)
+        # jnp.take: a negative id wraps once, an id out of range reads a
+        # row of NaN (and passes no gradient), where F.embedding would
+        # raise on the CPU and fault on the card
+        idx, ok = wrap_ids(ids, w.shape[0])
+        out = torch.where(ok[..., None], F.embedding(idx, w), float("nan"))
         pad = attrs.get("padding_idx", -1)
         if pad is not None and pad >= 0:
             out = torch.where((ids == pad)[..., None], 0.0, out)
@@ -538,22 +542,40 @@ def _lookup_table_grad(ctx, ins, out_grads, attrs, o):
     dense [V, D] zeros, the sparse-update path of the reference
     (`selected_rows_functor.cc`, `distribute_transpiler.py:531`). A
     PackedSeq's padded steps and the rows of ``padding_idx`` contribute
-    zeros. The dense gradient is the generic one, as in the JAX
-    package."""
-    if not attrs.get("is_sparse", False):
-        spec = registry.REGISTRY["lookup_table"]
-        return registry.generic_grad(ctx, spec, o, ins, out_grads)
+    zeros.
+
+    Dense: what the generic grad gives (autograd through the lowering,
+    as in the JAX package), formed without recomputing the lookup: the
+    cotangent, zero where the id is out of range or ``padding_idx``,
+    scattered to the rows by ``embedding_dense_backward``, the kernel
+    autograd calls for ``F.embedding``. Under AMP the generic grad
+    runs (its casts)."""
     w, ids = ins["W"][0], ins["Ids"][0]
     dy = out_grads.get("Out", [None])[0]
+    if not attrs.get("is_sparse", False) and (dy is None or
+                                              ctx.amp_dtype is not None):
+        spec = registry.REGISTRY["lookup_table"]
+        return registry.generic_grad(ctx, spec, o, ins, out_grads)
     if dy is None:
         return {}
     ids_arr = ids.data if isinstance(ids, PackedSeq) else ids
     dy_arr = dy.data if isinstance(dy, PackedSeq) else dy
+    pad = attrs.get("padding_idx", -1)
+    if not attrs.get("is_sparse", False):
+        ids64 = ids_arr.to(torch.int64)
+        if ids64.dim() > 1 and ids64.shape[-1] == 1:
+            ids64 = ids64.squeeze(-1)
+        idx, keep = wrap_ids(ids64, w.shape[0])
+        if pad is not None and pad >= 0:
+            keep = keep & (ids64 != pad)
+        g = torch.where(keep[..., None], dy_arr.to(w.dtype).reshape(
+            tuple(idx.shape) + (w.shape[1],)), 0.0)
+        return {"W": [torch.ops.aten.embedding_dense_backward(
+            g, idx, w.shape[0], -1, False)], "Ids": [None]}
     ids_flat = ids_arr.to(torch.int32).reshape(-1)
     vals = dy_arr.reshape(ids_flat.shape[0], -1)
     if isinstance(ids, PackedSeq):
         vals = vals * ids.mask(vals.dtype).reshape(-1, 1)
-    pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         vals = torch.where((ids_flat == pad)[:, None], 0.0, vals)
     return {"W": [RowSparse(ids_flat, vals, w.shape[0])], "Ids": [None]}

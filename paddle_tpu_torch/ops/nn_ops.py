@@ -7,10 +7,14 @@ Capability parity: reference `conv_op` (and its depthwise form),
 package's
 ``ops/nn_ops.py`` lowers them, with its gradient flags, and the fused
 ``conv2d_bn_act`` the epilogue-fusion pass emits (``passes/epilogue.py``).
+The vision family too: the 3-D and transposed convolutions
+(`conv_transpose_op`), `pool3d`, the pools with an index
+(`pool_with_index_op`), `unpool_op`, `spp_op` and `im2sequence_op`.
 Convolution and pooling go to the library (``torch.nn.functional``), as
 the JAX package leaves them to XLA; an NHWC activation is handed over as
 a channels-last view, so no copy is made for the layout. The module's
-other ops arrive with later slices.
+other ops (the losses, ``conv_shift``, ``moe``) arrive with later
+slices.
 """
 
 import torch
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core import registry
 from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.lower import last_writes, wrap_ids
 from paddle_tpu_torch.core.registry import op
 
 
@@ -399,6 +404,19 @@ def _square_error_cost(ctx, ins, attrs, o):
     return torch.square(ins["X"][0] - ins["Y"][0])
 
 
+def _take_label(x, label):
+    """``jnp.take_along_axis(x, label[..., None], -1)`` for hard labels:
+    a negative label wraps once, and a label out of [-C, C) reads NaN
+    (jnp's fill), with no gradient into ``x``; ``take_along_dim`` would
+    read another class on the CPU and fault on the card."""
+    lab = label.to(torch.int64)
+    if lab.dim() == x.dim() and lab.shape[-1] == 1:
+        lab = lab.squeeze(-1)
+    idx, ok = wrap_ids(lab[..., None], x.shape[-1])
+    return torch.where(ok, torch.take_along_dim(x, idx, dim=-1),
+                       float("nan"))
+
+
 @op("cross_entropy", nondiff_inputs=("Label",), seq_map=True)
 def _cross_entropy(ctx, ins, attrs, o):
     """Takes probabilities (post-softmax), like the reference
@@ -408,10 +426,7 @@ def _cross_entropy(ctx, ins, attrs, o):
         loss = -torch.sum(label * torch.log(torch.clamp_min(x, 1e-20)), -1,
                           keepdim=True)
     else:
-        lab = label.to(torch.int64)
-        if lab.dim() == x.dim() and lab.shape[-1] == 1:
-            lab = lab.squeeze(-1)
-        p = torch.take_along_dim(x, lab[..., None], dim=-1)
+        p = _take_label(x, label)
         loss = -torch.log(torch.clamp_min(p, 1e-20))
     return {"Y": loss}
 
@@ -425,8 +440,227 @@ def _softmax_with_cross_entropy(ctx, ins, attrs, o):
     if attrs.get("soft_label", False):
         loss = -torch.sum(label * logp, -1, keepdim=True)
     else:
-        lab = label.to(torch.int64)
-        if lab.dim() == logits.dim() and lab.shape[-1] == 1:
-            lab = lab.squeeze(-1)
-        loss = -torch.take_along_dim(logp, lab[..., None], dim=-1)
+        loss = -_take_label(logp, label)
     return {"Loss": loss, "Softmax": torch.exp(logp)}
+
+
+# ---- the vision family: 3-D and transposed convolutions, the other
+# pools, unpooling, spatial pyramids, image-to-sequence ----
+
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+@op("conv3d")
+def _conv3d(ctx, ins, attrs, o):
+    x, w = ins["Input"][0], ins["Filter"][0]  # NCDHW, OIDHW
+    return {"Output": F.conv3d(
+        x, w, None, _pair(attrs.get("strides", [1, 1, 1]), 3),
+        _pair(attrs.get("paddings", [0, 0, 0]), 3),
+        _pair(attrs.get("dilations", [1, 1, 1]), 3),
+        attrs.get("groups", 1) or 1)}
+
+
+def _conv_transpose(x, w, attrs, nd, extra=None):
+    """The gradient of an ``nd``-D convolution with respect to its input,
+    as the JAX package computes it (the input dilated by the strides,
+    convolved with the flipped, IO-swapped filter at padding k_eff-1-p):
+    output size (H-1)*s - 2p + k_eff, plus ``extra`` cells on the high
+    side. The filter is [C_in, C_out / groups, k...], the library's
+    layout. The library takes an extra size below max(stride, dilation)
+    as ``output_padding``; a larger one (the JAX package allows up to
+    stride + dilation - 1) is cut from the unpadded output, where the
+    cells past its end receive no input and stay zero."""
+    strides = _pair(attrs.get("strides", [1] * nd), nd)
+    pads = _pair(attrs.get("paddings", [0] * nd), nd)
+    dil = _pair(attrs.get("dilations", [1] * nd), nd)
+    groups = attrs.get("groups", 1) or 1
+    extra = extra or (0,) * nd
+    if all(e < max(s, d) for e, s, d in zip(extra, strides, dil)):
+        return _CONV_T[nd](x, w, None, strides, pads, tuple(extra), groups,
+                           dil)
+    full = _CONV_T[nd](x, w, None, strides, 0, 0, groups, dil)
+    keff = [(w.shape[2 + i] - 1) * dil[i] + 1 for i in range(nd)]
+    for i in range(nd):
+        size = (x.shape[2 + i] - 1) * strides[i] - 2 * pads[i] + keff[i] \
+            + extra[i]
+        have = full.shape[2 + i] - pads[i]
+        full = full.narrow(2 + i, pads[i], min(size, have))
+        if size > have:
+            spec = [0, 0] * (nd - 1 - i) + [0, size - have]
+            full = F.pad(full, spec)
+    return full
+
+
+@op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs, o):
+    """Reference `conv_transpose_op.cc`: the gradient of conv2d with
+    respect to its input; output size (H-1)*stride - 2*pad + k_eff."""
+    return {"Output": _conv_transpose(ins["Input"][0], ins["Filter"][0],
+                                      attrs, 2)}
+
+
+@op("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs, o):
+    """Transposed 3-D conv (reference `conv_transpose_op.cc` Conv3D).
+    ``output_size`` picks among the sizes a strided conv maps to one
+    input size: its surplus over the default is high-side padding, and
+    one out of [default, default + stride + dilation - 1) raises, as in
+    the JAX package."""
+    x, w = ins["Input"][0], ins["Filter"][0]  # NCDHW; [Cin, Cout, kd,kh,kw]
+    strides = _pair(attrs.get("strides", [1, 1, 1]), 3)
+    pads = _pair(attrs.get("paddings", [0, 0, 0]), 3)
+    dil = _pair(attrs.get("dilations", [1, 1, 1]), 3)
+    keff = [(w.shape[2 + i] - 1) * dil[i] + 1 for i in range(3)]
+    out_size = attrs.get("output_size", None)
+    extra = [0, 0, 0]
+    if out_size:
+        for i in range(3):
+            dflt = (x.shape[2 + i] - 1) * strides[i] - 2 * pads[i] + keff[i]
+            extra[i] = int(out_size[i]) - dflt
+            if not 0 <= extra[i] < strides[i] + max(0, dil[i] - 1) + 1:
+                raise ValueError(
+                    "conv3d_transpose output_size[%d]=%s unreachable "
+                    "(default %d, stride %d)" % (i, out_size[i], dflt,
+                                                 strides[i]))
+    return {"Output": _conv_transpose(x, w, attrs, 3, extra)}
+
+
+def _pool_nd(x, attrs, nd):
+    """``pool2d``'s rule over the last ``nd`` dims of an NC... tensor:
+    max pools pad with -inf, average pools divide by the count of cells
+    inside the image where padding (or ceil mode) adds cells and
+    ``exclusive`` holds, else by the window's size."""
+    ptype = attrs.get("pooling_type", "max")
+    k = _pair(attrs.get("ksize", [2] * nd), nd)
+    if attrs.get("global_pooling", False):
+        k = tuple(x.shape[2:])
+        strides, pads = (1,) * nd, (0,) * nd
+    else:
+        strides = _pair(attrs.get("strides", [1] * nd), nd)
+        pads = _pair(attrs.get("paddings", [0] * nd), nd)
+    ceil_mode = attrs.get("ceil_mode", False)
+    pp = _pool_pads(x.shape[2:], k, strides, pads, ceil_mode)
+    flat = tuple(v for lo, hi in reversed(pp) for v in (lo, hi))
+    padded = any(lo or hi for lo, hi in pp)
+    mp = {2: F.max_pool2d, 3: F.max_pool3d}[nd]
+    ap = {2: F.avg_pool2d, 3: F.avg_pool3d}[nd]
+    if ptype == "max":
+        return mp(F.pad(x, flat, value=float("-inf")), k, strides)
+    s = ap(F.pad(x, flat), k, strides, divisor_override=1)
+    if (attrs.get("exclusive", True) or ceil_mode) and padded:
+        cnt = ap(F.pad(torch.ones_like(x), flat), k, strides,
+                 divisor_override=1)
+        return s / torch.clamp_min(cnt, 1.0)
+    n = 1
+    for kk in k:
+        n *= kk
+    return s / float(n)
+
+
+@op("pool3d")
+def _pool3d(ctx, ins, attrs, o):
+    """3-D pooling over NCDHW (reference `pool_op.cc` Pool3D kernels)."""
+    return _pool_nd(ins["X"][0], attrs, 3)
+
+
+def _max_with_index(x, attrs, nd):
+    """Max pool and the flat position of each maximum in the unpadded
+    map (reference `pool_with_index_op.cc`), as the JAX package finds
+    them: padding with the dtype's lowest value, the windows as patches
+    (row-major within a window), the first maximum of each. The maximum
+    is ``amax``, whose gradient splits among equal values as
+    ``jnp.max``'s does."""
+    k = _pair(attrs.get("ksize", [2] * nd), nd)
+    strides = _pair(attrs.get("strides", k), nd)
+    pads = _pair(attrs.get("paddings", [0] * nd), nd)
+    lowest = torch.finfo(x.dtype).min
+    xp = F.pad(x, tuple(v for p in reversed(pads) for v in (p, p)),
+               value=lowest)
+    for i in range(nd):
+        xp = xp.unfold(2 + i, k[i], strides[i])
+    outs = tuple(xp.shape[2:2 + nd])
+    patches = xp.reshape(tuple(xp.shape[:2 + nd]) + (-1,))
+    win = torch.argmax(patches, dim=-1)
+    out = torch.amax(patches, dim=-1)
+    mask = torch.zeros_like(win)
+    for i in range(nd):
+        inner = 1
+        for kk in k[i + 1:]:
+            inner *= kk
+        wi = torch.div(win, inner, rounding_mode="floor") % k[i]
+        shape = [1] * nd
+        shape[i] = outs[i]
+        zi = torch.arange(outs[i], device=x.device).reshape(shape) \
+            * strides[i] - pads[i] + wi
+        mask = mask * x.shape[2 + i] + zi
+    return {"Out": out, "Mask": mask.to(torch.int32)}
+
+
+@op("pool2d_with_index")
+def _pool2d_with_index(ctx, ins, attrs, o):
+    return _max_with_index(ins["X"][0], attrs, 2)
+
+
+@op("max_pool3d_with_index")
+def _max_pool3d_with_index(ctx, ins, attrs, o):
+    return _max_with_index(ins["X"][0], attrs, 3)
+
+
+@op("unpool")
+def _unpool(ctx, ins, attrs, o):
+    """Max-unpooling (reference `unpool_op.cc`): the pooled values go back
+    to the positions max_pool2d_with_index's Mask recorded."""
+    x, idx = ins["X"][0], ins["Indices"][0]
+    n, c, h, w = x.shape
+    k = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    ho = (h - 1) * strides[0] - 2 * pads[0] + k[0]
+    wo = (w - 1) * strides[1] - 2 * pads[1] + k[1]
+    # jnp's scatter: a negative index wraps once, one out of range is
+    # dropped (the spare slot), the last of duplicates wins
+    size = ho * wo
+    at, ok = wrap_ids(idx.reshape(n * c, h * w).to(torch.int64), size)
+    at = last_writes(torch.where(ok, at, size), size)
+    out = x.new_zeros((n * c, size + 1)).scatter(
+        1, at, x.reshape(n * c, h * w))
+    return {"Out": out[:, :size].reshape(n, c, ho, wo)}
+
+
+@op("spp")
+def _spp(ctx, ins, attrs, o):
+    """Spatial pyramid pooling (reference `spp_op.cc`): level l pools the
+    map into 2^l x 2^l bins (kernel ceil(dim / bins), padded so the
+    windows tile it), each level flattened, all concatenated: [N, C *
+    sum(4^l)]. Average bins divide by their cells inside the image."""
+    x = ins["X"][0]
+    n, c, h, w = x.shape
+    ptype = attrs.get("pooling_type", "max")
+    outs = []
+    for lvl in range(attrs.get("pyramid_height", 1)):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        flat = (pw, kw * bins - w - pw, ph, kh * bins - h - ph)
+        if ptype == "max":
+            pooled = F.max_pool2d(F.pad(x, flat, value=float("-inf")),
+                                  (kh, kw), (kh, kw))
+        else:
+            s = F.avg_pool2d(F.pad(x, flat), (kh, kw), (kh, kw),
+                             divisor_override=1)
+            cnt = F.avg_pool2d(F.pad(torch.ones_like(x), flat), (kh, kw),
+                               (kh, kw), divisor_override=1)
+            pooled = s / torch.clamp_min(cnt, 1.0)
+        outs.append(pooled.reshape(n, -1))
+    return {"Out": torch.cat(outs, dim=1)}
+
+
+@op("im2sequence")
+def _im2sequence(ctx, ins, attrs, o):
+    """Reference `im2sequence_op.cc`, as the JAX package lowers it: the
+    VALID patches of the image (``paddings`` is not read), one row a
+    patch, [N, OH*OW, C*kh*kw] with the channel outermost in a row."""
+    x = ins["X"][0]  # NCHW
+    k = _pair(attrs.get("kernels", [1, 1]))
+    s = _pair(attrs.get("strides", [1, 1]))
+    return F.unfold(x, k, stride=s).transpose(1, 2)

@@ -19,7 +19,7 @@ either device, so an update has the same bits from run to run.
 
 import torch
 
-from paddle_tpu_torch.core.lower import RowSparse, add_rows
+from paddle_tpu_torch.core.lower import RowSparse, add_rows, wrap_ids
 from paddle_tpu_torch.core.registry import op
 
 
@@ -35,9 +35,14 @@ def _merge_rows(g):
     package marks the tail past the distinct rows with an out-of-bounds
     row that its scatters drop; torch has no dropping scatter, so here
     the tail repeats the last distinct row and its values: a set writes
-    that row's value again, and an add is multiplied by ``valid``."""
-    k = g.rows.shape[0]
-    r, order = torch.sort(g.rows.to(torch.int64), stable=True)
+    that row's value again, and an add is multiplied by ``valid``. A
+    negative row wraps once; a row out of range (an embedding id past
+    the table) becomes the spare row ``height``, which sorts last, is
+    never valid, and which ``_set_rows`` and ``add_rows`` drop, as the
+    JAX package's scatters drop it."""
+    k, n = g.rows.shape[0], g.height
+    idx, ok = wrap_ids(g.rows.to(torch.int64), n)
+    r, order = torch.sort(torch.where(ok, idx, n), stable=True)
     v = g.values[order]
     newseg = torch.cat([torch.ones(1, dtype=torch.bool, device=r.device),
                         r[1:] != r[:-1]])
@@ -47,7 +52,21 @@ def _merge_rows(g):
     pos = torch.arange(k, device=r.device)
     last = seg[-1:]
     idx = torch.minimum(pos, last)
-    return merged_r[idx], merged_v[idx], (pos <= last)[:, None]
+    rows = merged_r[idx]
+    return rows, merged_v[idx], ((pos <= last) & (rows < n))[:, None]
+
+
+def _get_rows(t, rows):
+    """``t[rows]``; the spare row (``rows == len(t)``) reads the last
+    row, a value no caller keeps."""
+    return t[torch.clamp(rows, max=t.shape[0] - 1)]
+
+
+def _set_rows(t, rows, vals):
+    """``t`` with ``vals`` written to ``rows``, the spare row dropped."""
+    ext = torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+    ext[rows] = vals
+    return ext[:t.shape[0]]
 
 
 def _rows_like(p, rows, vals):
@@ -98,12 +117,12 @@ def _adam(ctx, ins, attrs, o):
         rows, mvals, valid = _merge_rows(g)
         vals = _rows_like(p, rows, mvals)
         valid = valid.reshape((-1,) + (1,) * (vals.dim() - 1))
-        m1r = b1 * m1[rows] + (1 - b1) * vals
-        m2r = b2 * m2[rows] + (1 - b2) * torch.square(vals)
+        m1r = b1 * _get_rows(m1, rows) + (1 - b1) * vals
+        m2r = b2 * _get_rows(m2, rows) + (1 - b2) * torch.square(vals)
         upd = -(lr_t * m1r / (torch.sqrt(m2r) + eps)).to(p.dtype) * valid
         return {"ParamOut": add_rows(p, rows, upd),
-                "Moment1Out": m1.index_put((rows,), m1r),
-                "Moment2Out": m2.index_put((rows,), m2r),
+                "Moment1Out": _set_rows(m1, rows, m1r),
+                "Moment2Out": _set_rows(m2, rows, m2r),
                 "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
     m1n = b1 * m1 + (1 - b1) * g
     m2n = b2 * m2 + (1 - b2) * torch.square(g)
@@ -124,7 +143,7 @@ def _adagrad(ctx, ins, attrs, o):
         vals = _rows_like(p, rows, mvals)
         valid = valid.reshape((-1,) + (1,) * (vals.dim() - 1))
         mn = add_rows(m, rows, torch.square(vals) * valid)
-        upd = -lr * vals / (torch.sqrt(mn[rows]) + eps) * valid
+        upd = -lr * vals / (torch.sqrt(_get_rows(mn, rows)) + eps) * valid
         return {"ParamOut": add_rows(p, rows, upd), "MomentOut": mn}
     mn = m + torch.square(g)
     return {"ParamOut": p - lr * g / (torch.sqrt(mn) + eps), "MomentOut": mn}

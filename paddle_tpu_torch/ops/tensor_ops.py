@@ -4,9 +4,9 @@ Capability parity: reference cast/concat/split/reshape/transpose/expand/
 pad/crop/slice/gather/scatter/multiplex/one_hot/top_k/arg_max/argsort/
 fill*/assign/hash/row_conv and the random family
 (`paddle/fluid/operators/`, §2.3 "Tensor manipulation"), as the JAX
-package's ``ops/tensor_ops.py`` lowers them, with its gradient flags.
-Its four vision ops (``resize_nearest``, ``resize_bilinear``,
-``grid_sampler``, ``roi_pool``) arrive with a later slice.
+package's ``ops/tensor_ops.py`` lowers them, with its gradient flags,
+and its four vision ops (``resize_nearest``, ``resize_bilinear``,
+``grid_sampler``, ``roi_pool``).
 
 Every lowering runs on the card inside a captured CUDA graph: no value
 goes to or comes from the host while a step runs (constants are Python
@@ -14,8 +14,9 @@ scalars or ``torch.arange``, never ``torch.tensor`` of a host list), and
 an output whose size would depend on the data (``unique_with_counts``)
 has the static size the JAX package gives it. Out-of-range indices
 follow ``jnp``: ``gather`` (``jnp.take``) fills the row with NaN,
-``gather_nd`` and ``multiplex`` clamp, ``scatter`` drops the update;
-all of them wrap a negative id once. Integer results are recorded as
+``gather_nd`` and ``multiplex`` clamp, ``scatter`` drops the update
+(and under ``overwrite`` the last of duplicate ids wins); all of them
+wrap a negative id once. Integer results are recorded as
 the JAX package records them with 64-bit types off (int32). The random
 ops draw from the op's generator (``TraceContext.rng``), so a graph
 replay draws what the eager step draws.
@@ -29,8 +30,9 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.lower import (PackedSeq, add_rows,
-                                         concat_time_padded)
+                                         concat_time_padded, last_writes)
 from paddle_tpu_torch.core.registry import op
+from paddle_tpu_torch.ops.beam_search_ops import top_k_lower_index_first
 
 
 def _x(ins, slot="X"):
@@ -256,8 +258,10 @@ def _gather_nd(ctx, ins, attrs, o):
 def _scatter(ctx, ins, attrs, o):
     """``x.at[ids].set(updates)`` (``overwrite``) or ``.add``: a negative
     id wraps once, and an update whose id is out of range is dropped
-    (written to a spare row that the result leaves out). Duplicate ids
-    under ``overwrite`` have no defined winner, in either package."""
+    (written to a spare row that the result leaves out). Among duplicate
+    ids under ``overwrite`` the last update wins, as the JAX package's
+    scatter on the CPU has it, and only it is written
+    (``last_writes``)."""
     x, ids, upd = _x(ins), ins["Ids"][0].to(torch.int64), ins["Updates"][0]
     if ids.dim() == 2 and ids.shape[1] == 1:
         ids = ids[:, 0]
@@ -266,7 +270,7 @@ def _scatter(ctx, ins, attrs, o):
     ids = torch.where((ids >= 0) & (ids < n), ids, n)
     ext = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
     if attrs.get("overwrite", True):
-        ext = ext.index_put((ids,), upd.to(x.dtype))
+        ext = ext.index_put((last_writes(ids, n),), upd.to(x.dtype))
     else:
         ext = add_rows(ext, ids, upd.to(x.dtype))
     return ext[:n]
@@ -438,7 +442,14 @@ def _concat(ctx, ins, attrs, o):
 
 @op("top_k")
 def _top_k(ctx, ins, attrs, o):
-    v, i = torch.topk(_x(ins), attrs.get("k", 1), dim=-1)
+    """``lax.top_k``: largest first, the lower index first among equal
+    values (``torch.topk`` promises no order for ties)."""
+    x, k = _x(ins), attrs.get("k", 1)
+    if x.is_floating_point():
+        v, i = top_k_lower_index_first(x, k)
+    else:
+        v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+        v, i = v[..., :k], i[..., :k]
     return {"Out": v, "Indices": i}
 
 
@@ -591,3 +602,143 @@ def _position_ids(ctx, ins, attrs, o):
     # int32 as the JAX package records it (torch.arange defaults to int64)
     return {"Out": torch.arange(s, dtype=torch.int32,
                                 device=x.device).expand(b, s)}
+
+
+# ---- the vision ops: resizing, grid sampling, ROI pooling ----
+
+@op("resize_nearest")
+def _resize_nearest(ctx, ins, attrs, o):
+    """Output cell i reads input cell floor(i * H / out_h), as the JAX
+    package indexes (not ``F.interpolate``'s scale rule)."""
+    x = _x(ins)  # NCHW
+    oh, ow = attrs["out_h"], attrs["out_w"]
+    h, w = x.shape[2], x.shape[3]
+    ridx = torch.div(torch.arange(oh, device=x.device) * h, oh,
+                     rounding_mode="floor")
+    cidx = torch.div(torch.arange(ow, device=x.device) * w, ow,
+                     rounding_mode="floor")
+    return x[:, :, ridx][:, :, :, cidx]
+
+
+def _resize_weights(n_in, n_out, device):
+    """``jax.image.resize``'s linear weights [n_in, n_out]: half-pixel
+    centres, the triangle kernel widened by in/out when shrinking (it
+    antialiases), each column normalised to sum 1, and a column whose
+    sample lies outside the input zero. float32 throughout, as the JAX
+    package computes it with 64-bit types off."""
+    inv_scale = float(np.float32(1.0 / (n_out / n_in)))
+    kscale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv_scale - 0.5
+    dist = torch.abs(sample[None, :] - torch.arange(
+        n_in, dtype=torch.float32, device=device)[:, None]) / kscale
+    wts = torch.clamp_min(1.0 - torch.abs(dist), 0.0)
+    total = torch.sum(wts, dim=0, keepdim=True)
+    wts = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(
+        np.float32).eps), wts / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0)
+
+
+@op("resize_bilinear")
+def _resize_bilinear(ctx, ins, attrs, o):
+    """``jax.image.resize(x, ..., "bilinear")``: a dim whose size stays is
+    left alone; the others are contracted with :func:`_resize_weights`
+    (half-pixel centres, antialiased when shrinking). Not
+    ``F.interpolate``'s bilinear, which neither antialiases nor
+    renormalises at the edges."""
+    x = _x(ins)  # NCHW
+    oh, ow = attrs["out_h"], attrs["out_w"]
+    h, w = x.shape[2], x.shape[3]
+    if h != oh:
+        x = torch.einsum("nchw,ho->ncow", x,
+                         _resize_weights(h, oh, x.device).to(x.dtype))
+    if w != ow:
+        x = torch.einsum("nchw,wp->nchp", x,
+                         _resize_weights(w, ow, x.device).to(x.dtype))
+    return x
+
+
+@op("grid_sampler")
+def _grid_sampler(ctx, ins, attrs, o):
+    """Bilinear sampling of X [N, C, H, W] at Grid [N, OH, OW, 2] (x, y in
+    [-1, 1], corners aligned), as the JAX package samples: the four
+    neighbours clamped into the image and the weights taken from the
+    clamped lower neighbour, differentiable in X and Grid."""
+    x, grid = _x(ins), ins["Grid"][0]
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0 = torch.clamp(torch.floor(gx).to(torch.int64), 0, w - 1)
+    y0 = torch.clamp(torch.floor(gy).to(torch.int64), 0, h - 1)
+    x1, y1 = torch.clamp(x0 + 1, 0, w - 1), torch.clamp(y0 + 1, 0, h - 1)
+    wx = gx - x0.to(gx.dtype)
+    wy = gy - y0.to(gy.dtype)
+    xl = x.permute(0, 2, 3, 1)
+    bidx = torch.arange(n, device=x.device)[:, None, None]
+
+    def g(yy, xx):
+        return xl[bidx, yy, xx]  # [N, OH, OW, C]
+    out = (g(y0, x0) * ((1 - wx) * (1 - wy))[..., None] +
+           g(y0, x1) * (wx * (1 - wy))[..., None] +
+           g(y1, x0) * ((1 - wx) * wy)[..., None] +
+           g(y1, x1) * (wx * wy)[..., None])
+    return {"Output": out.permute(0, 3, 1, 2)}
+
+
+def _linspace01(n):
+    """``jnp.linspace(0, 1, n + 1)`` as Python floats: XLA multiplies by
+    the float32 reciprocal of n, which ``torch.linspace`` does not."""
+    r = np.float32(1) / np.float32(n)
+    return [float(np.float32(i) * r) for i in range(n)] + [1.0]
+
+
+@op("roi_pool", nondiff_inputs=("ROIs",))
+def _roi_pool(ctx, ins, attrs, o):
+    """ROI max pooling (reference `roi_pool_op`), as the JAX package pools:
+    ROIs [R, 5] (batch index, x1, y1, x2, y2) or [R, 4] (image 0), end
+    coordinates inclusive (the exclusive bound is round(x2 * scale) + 1),
+    each bin at least one cell. The maximum is ``amax`` over the masked
+    image, whose gradient splits among equal values as ``jnp.max``'s
+    does; the ROIs pass no gradient."""
+    x = _x(ins)  # NCHW
+    rois = ins["ROIs"][0]
+    ph, pw = attrs.get("pooled_height", 1), attrs.get("pooled_width", 1)
+    scale = attrs.get("spatial_scale", 1.0)
+    if rois.shape[-1] == 5:
+        bidx = rois[:, 0].to(torch.int64)
+        boxes = rois[:, 1:]
+    else:
+        bidx = torch.zeros(rois.shape[0], dtype=torch.int64,
+                           device=rois.device)
+        boxes = rois
+    c, h, w = x.shape[1], x.shape[2], x.shape[3]
+    i32 = torch.int32
+
+    def corner(j):
+        return torch.round(boxes[:, j] * scale).to(i32)
+    x1, y1 = corner(0), corner(1)
+    x2 = torch.maximum(corner(2) + 1, x1 + 1)
+    y2 = torch.maximum(corner(3) + 1, y1 + 1)
+    img = x[bidx]  # [R, C, H, W]
+    lowest = torch.finfo(x.dtype).min
+    yy = torch.arange(h, device=x.device)[None, :]
+    xx = torch.arange(w, device=x.device)[None, :]
+
+    def span(lo, hi, fr, grid, a, b):
+        s0 = lo + ((hi - lo) * fr[a]).to(i32)
+        s1 = lo + torch.ceil((hi - lo) * fr[b]).to(i32)
+        return (grid >= s0[:, None]) & (grid < torch.maximum(
+            s1, s0 + 1)[:, None])
+    ys, xs = _linspace01(ph), _linspace01(pw)
+    rows = []
+    for i in range(ph):
+        my = span(y1, y2, ys, yy, i, i + 1)              # [R, H]
+        cols = []
+        for j in range(pw):
+            mx = span(x1, x2, xs, xx, j, j + 1)          # [R, W]
+            m2 = (my[:, :, None] & mx[:, None, :])[:, None]
+            cols.append(torch.amax(torch.where(m2, img, lowest),
+                                   dim=(2, 3)))
+        rows.append(torch.stack(cols, -1))
+    return {"Out": torch.stack(rows, -2), "Argmax": None}

@@ -3,9 +3,13 @@
 Capability parity: `python/paddle/fluid/param_attr.py`. The ``sharding``
 field (mesh axes per parameter dim) is kept so layer code reads as the
 JAX package's; this package runs on one device and does not read it.
+``WeightNormParamAttr`` carries the reference's weight-norm ``dim``; as
+in the JAX package, a layer builds the same parameter from it as from a
+``ParamAttr``, so the program and the weights ``interop`` carries are
+those of a ``ParamAttr``.
 """
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
@@ -40,3 +44,9 @@ class ParamAttr:
             return ParamAttr() if arg else False
         # an Initializer instance
         return ParamAttr(initializer=arg)
+
+
+class WeightNormParamAttr(ParamAttr):
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

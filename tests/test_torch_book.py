@@ -1,6 +1,7 @@
-"""The book's linear regression (fit_a_line) and movielens recommender in
-the port against the JAX package, at ``tests/test_book.py``'s sizes, on
-the CPU:
+"""The book's linear regression (fit_a_line), movielens recommender and
+word2vec n-gram model (dense and row-sparse table gradients) in the
+port against the JAX package, at ``tests/test_book.py``'s sizes, on the
+CPU:
 
 * both packages build byte-identical program JSON;
 * from the JAX startup's weights (``interop.load_reference_state``), 5
@@ -18,6 +19,7 @@ the CPU:
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +36,10 @@ from paddle_tpu_torch import nets as tnets
 from paddle_tpu_torch import unique_name as tnames
 from paddle_tpu_torch.core.executor import _pack_ragged
 from paddle_tpu_torch.data_feeder import stack_feeds
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 _WORKERS = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
 if _WORKERS:
@@ -83,6 +89,8 @@ def recommender(fluid, layers, nets):
 
 def _feed(which, seed):
     rng = np.random.RandomState(seed)
+    if which.startswith("word2vec"):
+        return chip_smoke.w2v_feed(rng, 8, 100)
     if which == "fit_a_line":
         xv = rng.rand(16, 13).astype(np.float32)
         return {"x": xv, "y": (xv @ rng.rand(13, 1)).astype(np.float32)}
@@ -98,7 +106,22 @@ def _feed(which, seed):
     }
 
 
-BOOKS = {"fit_a_line": fit_a_line, "recommender": recommender}
+def word2vec(fluid, layers, nets, is_sparse=False):
+    """tests/test_book.py:198-233: four context words through ONE shared
+    embedding table, concat, a sigmoid hidden layer, a softmax over the
+    dictionary, cross entropy, SGD 0.05; dense or row-sparse table
+    gradients. ``chip_smoke.w2v_body``, which the card runs at the book's
+    width, at the JAX test's (dictionary 100, embedding 16, hidden 32)."""
+    predict, loss = chip_smoke.w2v_body(fluid, 100, 16, 32, is_sparse)
+    return loss, predict, ["w%d" % i for i in range(4)]
+
+
+def word2vec_sparse(fluid, layers, nets):
+    return word2vec(fluid, layers, nets, is_sparse=True)
+
+
+BOOKS = {"fit_a_line": fit_a_line, "recommender": recommender,
+         "word2vec": word2vec, "word2vec_sparse": word2vec_sparse}
 
 
 def _build(fluid, which):
@@ -116,6 +139,12 @@ def _dump(prog):
 
 
 def _close(got, want, what, amax=1e-6):
+    got, want = (v.item() if isinstance(v, np.ndarray) and v.dtype == object
+                 else v for v in (got, want))
+    if hasattr(want, "rows"):       # a row-sparse gradient: same rows
+        np.testing.assert_array_equal(np.asarray(got.rows),
+                                      np.asarray(want.rows), err_msg=what)
+        got, want = got.values, want.values
     got, want = np.asarray(got), np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=amax * float(np.abs(want).max()),

@@ -176,6 +176,116 @@ def test_layer_builds_the_jax_packages_json(name):
     assert _dump(t[1]) == _dump(j[1])
 
 
+# ---- the vision family's layers, the family-1 layers and the
+# detection layers ----
+
+def _vision_body(fluid, layers, name):
+    """One use of a vision, family-1 or detection layer over small data
+    vars."""
+    img = layers.data("img", [3, 8, 8])
+    vol = layers.data("vol", [2, 5, 6, 5])
+    words = layers.data("words", [4], lod_level=1)
+    ids = layers.data("ids", [1], dtype="int64")
+    det = layers.detection
+    feat = layers.data("feat", [8, 4, 4])
+    boxes = layers.data("boxes", [6, 4])
+
+    def prior():
+        return det.prior_box(feat, img, [4.0], [6.0], [2.0, 3.0], flip=True,
+                             clip=True, steps=(2.0, 2.0), offset=0.4)
+    calls = {
+        "conv3d": lambda: layers.conv3d(vol, 3, 3, padding=1, act="relu"),
+        "conv2d_transpose": lambda: [
+            layers.conv2d_transpose(img, 4, filter_size=3, stride=2,
+                                    padding=1),
+            layers.conv2d_transpose(img, 4, output_size=16, stride=2,
+                                    padding=1, groups=1, act="relu")],
+        "pool3d": lambda: layers.pool3d(vol, 2, "avg", 2, ceil_mode=True,
+                                        exclusive=False),
+        "max_pool3d_with_index": lambda: layers.max_pool3d_with_index(
+            vol, 2, 2, 1),
+        "conv3d_transpose": lambda: layers.conv3d_transpose(
+            vol, 4, output_size=[10, 12, 10], filter_size=2, stride=2,
+            groups=2),
+        "unpool": lambda: layers.unpool(
+            layers.data("pm", [3, 4, 4]),
+            layers.data("mk", [3, 4, 4], dtype="int32"), 2, 2),
+        "spp": lambda: layers.spp(img, 2, "avg"),
+        "im2sequence": lambda: layers.im2sequence(img, 2, 2),
+        "grid_sampler": lambda: layers.grid_sampler(
+            img, layers.data("grid", [4, 4, 2])),
+        "image_resize": lambda: layers.image_resize(img, scale=1.5),
+        "resize_bilinear": lambda: layers.resize_bilinear(img, [5, 7]),
+        "resize_nearest": lambda: layers.resize_nearest(img, [16, 16]),
+        "group_norm": lambda: layers.group_norm(img, 3, act="relu"),
+        "batch_norm_1d": lambda: layers.batch_norm_1d(layers.data("v", [6])),
+        "sequence_last_step": lambda: layers.sequence_last_step(words),
+        "dice_loss": lambda: layers.dice_loss(
+            layers.softmax(layers.fc(layers.data("a", [6]), 4)), ids),
+        "WeightNormParamAttr": lambda: layers.fc(
+            layers.data("b", [5]), 3, param_attr=fluid.WeightNormParamAttr(
+                dim=0, name="wn")),
+        "prior_box": prior,
+        "box_coder": lambda: det.box_coder(
+            layers.reshape(prior()[0], [-1, 4]),
+            layers.reshape(prior()[1], [-1, 4]), boxes),
+        "iou_similarity": lambda: det.iou_similarity(boxes, boxes),
+        "bipartite_match": lambda: det.bipartite_match(
+            layers.data("dist", [5]), "per_prediction", 0.4),
+        "target_assign": lambda: det.target_assign(
+            boxes, layers.data("match", [7], dtype="int32"), -1),
+        "multiclass_nms": lambda: det.multiclass_nms(
+            boxes, layers.data("scores", [3, 6]), 0.05, 4, 5, 0.4, 1),
+        "mine_hard_examples": lambda: det.mine_hard_examples(
+            layers.data("cls_loss", [7]),
+            layers.data("match", [7], dtype="int32"), 2.0),
+        "detection_map": lambda: det.detection_map(
+            layers.data("dets", [5, 6]), layers.data("gt", [3, 5]), 0.4),
+        "detection_output": lambda: det.detection_output(
+            layers.data("loc", [6, 4]), layers.data("sc", [6, 3]),
+            layers.data("pb", [4]), layers.data("pv", [4]),
+            nms_threshold=0.45, keep_top_k=3),
+        "ssd_loss": lambda: det.ssd_loss(
+            layers.data("loc", [6, 4]), layers.data("conf", [6, 3]),
+            layers.data("gb", [2, 4]),
+            layers.data("gl", [2, 1], dtype="int64"),
+            layers.data("pb", [4]), layers.data("pv", [4]),
+            overlap_threshold=0.4, neg_pos_ratio=2.0),
+    }
+    return calls[name]()
+
+
+VISION_NAMES = ["conv3d", "conv2d_transpose", "pool3d",
+                "max_pool3d_with_index", "conv3d_transpose", "unpool", "spp",
+                "im2sequence", "grid_sampler", "image_resize",
+                "resize_bilinear", "resize_nearest"]
+FAMILY1_NAMES = ["group_norm", "batch_norm_1d", "sequence_last_step",
+                 "dice_loss", "WeightNormParamAttr"]
+DETECTION_NAMES = ["prior_box", "box_coder", "iou_similarity",
+                   "bipartite_match", "detection_output", "ssd_loss",
+                   "target_assign", "multiclass_nms", "mine_hard_examples",
+                   "detection_map"]
+
+
+def test_the_slice_names_its_layers():
+    import paddle_tpu.layers.detection as jdet
+
+    assert set(DETECTION_NAMES) == set(jdet.__all__) == \
+        set(tlayers.detection.__all__)
+    assert all(hasattr(tlayers, n) for n in VISION_NAMES + FAMILY1_NAMES[:-1])
+    assert set(VISION_NAMES + FAMILY1_NAMES[:-1]) <= set(tlayers.nn.__all__)
+    assert tfluid.WeightNormParamAttr(dim=1, name="w").dim == 1
+
+
+@pytest.mark.parametrize("name", VISION_NAMES + FAMILY1_NAMES +
+                         DETECTION_NAMES)
+def test_vision_and_detection_layer_builds_the_jax_packages_json(name):
+    j = _program(jfluid, lambda f, l_, n: _vision_body(f, l_, name))
+    t = _program(tfluid, lambda f, l_, n: _vision_body(f, l_, name))
+    assert _dump(t[0]) == _dump(j[0])
+    assert _dump(t[1]) == _dump(j[1])
+
+
 def test_gaussian_random_batch_size_like_emits_a_uniform_draw():
     """Both packages emit ``uniform_random_batch_size_like`` in mean +/- 3
     std (ROADMAP.md Queue 3): the port keeps the JSON identical."""

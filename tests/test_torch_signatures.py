@@ -242,3 +242,27 @@ def test_the_beam_decode_and_sparse_names_are_compared(rel, qual):
     assert qual in found
     assert not _differences(*found[qual])
     assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("layers.nn", n) for n in (
+        "conv3d", "conv2d_transpose", "pool3d", "max_pool3d_with_index",
+        "conv3d_transpose", "unpool", "spp", "im2sequence", "grid_sampler",
+        "image_resize", "resize_bilinear", "resize_nearest", "group_norm",
+        "batch_norm_1d", "sequence_last_step", "dice_loss")] + [
+    ("layers.detection", n) for n in (
+        "prior_box", "box_coder", "iou_similarity", "bipartite_match",
+        "detection_output", "ssd_loss", "target_assign", "multiclass_nms",
+        "mine_hard_examples", "detection_map")] + [
+    ("param_attr", "WeightNormParamAttr"),
+    ("param_attr", "WeightNormParamAttr.__init__")])
+def test_the_vision_and_detection_names_are_compared(rel, qual):
+    """The names the vision and detection families brought are shared
+    public names, compared like every other, with no deliberate
+    difference."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
