@@ -435,8 +435,9 @@ OTHER_WARMUP, OTHER_STEPS = 2, 5
 # further steps allowed for their loss to come under the first counted
 # one (dropout draws a new mask each step)
 OTHER_SETTLE_STEPS = 30
-# the batch-norm backward's three kernels (partial sums, finalize, dx)
-B7_KERNELS = ("bn_partial", "bn_finalize", "bn_dx")
+# the batch-norm backward's one kernel (a cooperative launch: the sums,
+# the grid barrier and dx), every instantiation
+B7_KERNELS = ("bn_grad_kernel",)
 
 # bench.py's transformer run (bench.py:221-253, DEFAULT_BATCH 16, bf16
 # AMP unless --fp32): vocab 32000, seq 512, d_model 512, 8 layers, 8
@@ -641,9 +642,16 @@ BN_RTOL, BN_AMAX = 1e-4, 1e-5
 C1_RTOL, C1_AMAX = 1e-4, 2e-5
 BF16_RTOL, BF16_AMAX = 1e-2, 4e-3
 # (N, H, W, C): the ResNet-50 stem at batch 64, a stage-4 shape, a row
-# count (315) that no power of two divides, channels that fill no float4
+# count (315) that no power of two divides, channels that fill no float4;
+# x and dy wholly resident in the blocks' shared memory (64x14x14x256),
+# just past it (64x56x56x64: in float32 a third of the tiles is read
+# again), and fewer rows than blocks (2x3x5x40)
 BN_SHAPES = ((64, 112, 112, 64), (64, 7, 7, 2048), (5, 7, 9, 24),
-             (3, 5, 7, 6))
+             (3, 5, 7, 6), (64, 14, 14, 256), (64, 56, 56, 64),
+             (2, 3, 5, 40))
+# B7's three loaders, each forced where the plan would take another, at
+# a shape with more tiles than slots and at two odd ones
+BN_LOADER_SHAPES = ((16, 56, 56, 64), (5, 7, 9, 24), (2, 3, 5, 40))
 # (B, Ci, H, W, Co): B8 is checked at every distinct shape of the
 # ResNet-50 path (derived from the program: transformed_launches) and at these,
 # where no dimension fills a tile: HW = 35 and 49 (bfloat16: bulk copies),
@@ -731,6 +739,10 @@ B8_BF16_KERNELS = ("conv1x1_bwd_bf16_kernel",)
 # B2 is bound by bytes and has no product for the tensor cores: its SASS
 # must move 16-byte words (LDGSTS of 16 bytes, or LDG.E.128)
 WIDE_LOAD_KERNELS = (("flash_attention", "flash_decode_kernel"),)
+# B7 is bound by bytes: by its loader (the last template argument), the
+# TMA instantiation must have UTMALDG, the 16-byte one LDG of 16 bytes,
+# the element one neither; none may spill
+B7_LOADER = re.compile(r"bn_grad_kernelILb\dELi(\d)E")
 ASYNC_COPIES = ("LDGSTS", "UTMALDG", "UBLKCP")
 # an LDGSTS or LDG with the .128 (16-byte) modifier
 WIDE_LOAD = re.compile(r"\b(LDGSTS|LDG)(\.[A-Z0-9_]+)*\.128\b")
@@ -764,9 +776,11 @@ def sass_check(build):
     must have them), its copies (copies_wanted) and local-memory loads and
     stores (spills). Fails where a kernel lacks its tensor-core
     instructions or its copies, or spills. The kernels of
-    WIDE_LOAD_KERNELS must have 16-byte loads instead."""
+    WIDE_LOAD_KERNELS must have 16-byte loads instead, and B7's by its
+    loader (B7_LOADER)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, kernel in TENSOR_CORE_KERNELS + WIDE_LOAD_KERNELS:
+    for lib, kernel in TENSOR_CORE_KERNELS + WIDE_LOAD_KERNELS + (
+            ("bn_grad", "bn_grad_kernel"),):
         wide = (lib, kernel) in WIDE_LOAD_KERNELS
         path = build._target(lib)[1]
         res = subprocess.run([tool, "--dump-resource-usage", path],
@@ -808,6 +822,15 @@ def sass_check(build):
                       c["wide"], c["local"]))
             spills = c["local"] or "STACK:0 " not in use \
                 or not use.endswith("LOCAL:0")
+            m = B7_LOADER.search(f)
+            if m:
+                loader = int(m.group(1))
+                ok = (c["UTMALDG"] > 0, c["wide"] > 0, True)[loader]
+                if spills or not ok:
+                    raise AssertionError(
+                        "%s: spills, or lacks its loader's copies (%s)" % (
+                            f, ("UTMALDG", "16-byte LDG", "-")[loader]))
+                continue
             if wide:
                 if c["wide"] == 0 or spills:
                     raise AssertionError("%s: no 16-byte loads, or spills"
@@ -4340,6 +4363,72 @@ def check_bn_grad(kbn, g, dev, shapes=BN_SHAPES,
     return worst
 
 
+def check_bn_loaders(kbn, g, dev, shapes=BN_LOADER_SHAPES):
+    """B7's three loaders at each shape of ``shapes``, in both dtypes,
+    forced (``bn_grad_cuda``'s ``loader``): each within the bounds of
+    check_bn_grad of the plain version, the 16-byte loads bitwise TMA's
+    (the element loader's threads take one column each: another order
+    of the sums); then five calls of mixed shapes captured in one CUDA graph
+    and replayed twice, an eager call between, every result bitwise the
+    eager one (the grid barrier's counter only grows through it all)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    inputs = []
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype) \
+                .to(dev)
+            dy = torch.randn(*shape, generator=g).to(dtype).to(dev)
+            scale = (torch.rand(shape[-1], generator=g) + 0.5).to(dev)
+            inputs.append((x, dy, scale))
+            want = kbn.bn_grad_cuda(x, dy, scale, 1e-5, loader="tma")
+            plain = kbn.bn_grad_reference(x, dy, scale, 1e-5)
+            f32 = dtype == torch.float32
+            n, h, w, c = shape
+            for loader in kbn.LOADERS:
+                pl = kbn.plan(n * h * w, c, dtype, True, sms, loader)
+                got = kbn.bn_grad_cuda(x, dy, scale, 1e-5, loader=loader)
+                what = "bn_grad %s %s loader %s (%s W %d G %d R %d BR %d " \
+                       "S %d)" % (shape, dtype, loader, pl.loader, pl.width,
+                                  pl.groups, pl.slabs, pl.tile_rows,
+                                  pl.slots)
+                rel_close(what + " dx", got[0], plain[0],
+                          BN_RTOL if f32 else BF16_RTOL,
+                          BN_AMAX if f32 else BF16_AMAX)
+                rel_close(what + " dscale", got[1], plain[1], BN_RTOL,
+                          BN_AMAX)
+                rel_close(what + " dbias", got[2], plain[2], BN_RTOL,
+                          BN_AMAX)
+                if loader == "vec" and not all(
+                        torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(what + ": not TMA's bits")
+    inputs = inputs[:5]
+    want = [kbn.bn_grad(*inp, 1e-5) for inp in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for inp in inputs:
+            kbn.bn_grad(*inp, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kbn.bn_grad(*inp, 1e-5) for inp in inputs]
+    for rep in range(2):
+        graph.replay()
+        mid = kbn.bn_grad(*inputs[rep], 1e-5)
+        torch.cuda.synchronize()
+        for o, w_ in zip(outs, want):
+            if not all(torch.equal(a, b) for a, b in zip(o, w_)):
+                raise AssertionError("bn_grad: a graph replay differs from "
+                                     "the eager call")
+        if not all(torch.equal(a, b) for a, b in zip(mid, want[rep])):
+            raise AssertionError("bn_grad: an eager call between replays "
+                                 "differs")
+    print("bn_grad: loaders %s at %s in float32 and bfloat16 within the "
+          "bounds, vec bitwise tma; 5 calls in a graph, 2 replays bitwise "
+          "eager" % (sorted(kbn.LOADERS), list(shapes)))
+    del graph
+
+
 def check_conv1x1(k1, g, dev, shapes,
                   dtypes=(torch.float32, torch.bfloat16)):
     """B8 against its plain version on the card, and both against
@@ -6802,6 +6891,7 @@ def main():
     gru_witness(gc, g, dev)
     max_err.update(check_rnn_bf16(lc, gc, g, dev))
     max_err["bn_grad"] = check_bn_grad(kbn, g, dev)
+    check_bn_loaders(kbn, g, dev)
     # B8 at every distinct shape the config-B program gives it
     with unique_name.guard():
         c1_path = transformed_launches(resnet_build("B", RESNET)[0],
@@ -7446,36 +7536,68 @@ def main():
         bytes=2 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H)
         + 4 * (2 * B * H + B * T),
         flops=2 * B * T * 3 * H * H, peak=BF16_FLOPS_PER_S))
-    # B7 at every distinct shape of the ResNet-50 path (kernel only), and
-    # with its plain version and the library at the largest (the stem)
-    # and the smallest; the activations exceed the L2, so no flush
-    def bn_case(shape, full):
+    # B7 at every distinct shape of the ResNet-50 path: the kernel with
+    # the L2 flushed before each call (x + dy fit it at the smaller
+    # shapes, where a warm loop would read them from the L2), its warm
+    # time beside, its plan's floor, and the one PyTorch call that
+    # computes the same function from the saved statistics
+    # (native_batch_norm_backward, channels last); F.batch_norm forward
+    # plus autograd (which also runs a forward) as a second column, and
+    # the plain version, at the stem and the smallest shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def bn_row(name, shape, dtype, per_step, full, step):
         n, h, w, c = shape
-        x = torch.randn(*shape, generator=g).to(dev)
-        dy = torch.randn(*shape, generator=g).to(dev)
+        m = n * h * w
+        x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype).to(dev)
+        dy = torch.randn(*shape, generator=g).to(dtype).to(dev)
         sc = (torch.rand(c, generator=g) + 0.5).to(dev)
-        row = dict(name="bn_grad", shape="%s x%d a step" % (
-            list(shape), bn_shapes[shape]),
-            ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
-            plain_ms=float("nan"), library_ms=float("nan"),
-            bytes=4 * (3 * x.numel() + 3 * c), flops=12 * x.numel(),
-            per_step=bn_shapes[shape])
+        xf = x.float().reshape(m, c)
+        mean = xf.mean(0)
+        invstd = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+        del xf
+        xr = x.permute(0, 3, 1, 2)
+        dyr = dy.permute(0, 3, 1, 2)
+        xg = xr.detach().requires_grad_()
+
+        def fwd_grad():
+            y = F.batch_norm(xg, None, None, sc, None, True, 0.1, 1e-5)
+            torch.autograd.grad(y, xg, dyr)
+
+        pl = kbn.plan(m, c, dtype, True, sms)
+        elt = x.element_size()
+        row = dict(
+            name=name, shape="%s x%d a %s step" % (list(shape), per_step,
+                                                   step),
+            ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10,
+                       flush=flush),
+            warm_ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
+            plain_ms=float("nan"),
+            library_ms=time_ms(
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    dyr, xr, sc, None, None, mean, invstd, True, 1e-5,
+                    [True, True, True]), reps=10, flush=flush),
+            library="torch.ops.aten.native_batch_norm_backward, channels "
+                    "last, from the saved mean and inverse std: dx, "
+                    "dscale, dbias (L2 flushed)",
+            fwd_grad_ms=time_ms(fwd_grad, reps=10, flush=flush),
+            floor_ms=pl.hbm_bytes / HBM_BYTES_PER_S * 1e3,
+            bytes=3 * elt * x.numel() + 4 * 3 * c, flops=12 * x.numel(),
+            per_step=per_step)
         if full:
-            xr = x.permute(0, 3, 1, 2).requires_grad_()
-            dyr = dy.permute(0, 3, 1, 2)
-
-            def library():
-                y = F.batch_norm(xr, None, None, sc, None, True, 0.1, 1e-5)
-                torch.autograd.grad(y, xr, dyr)
-
             row["plain_ms"] = time_ms(
                 lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5), reps=10)
-            row["library_ms"] = time_ms(library, reps=10)
-            row["library"] = ("torch.nn.functional.batch_norm forward "
-                              "plus torch.autograd.grad to x, channels "
-                              "last: also runs the forward, gives no "
-                              "dscale or dbias")
+        row["extra"] = (
+            "; L2 flushed (warm %.6f ms); plan floor %.6f ms (%s W %d G %d "
+            "R %d BR %d S %d, %d bytes); F.batch_norm forward + autograd "
+            "%.6f ms" % (row["warm_ms"], row["floor_ms"], pl.loader,
+                         pl.width, pl.groups, pl.slabs, pl.tile_rows,
+                         pl.slots, pl.hbm_bytes, row["fwd_grad_ms"]))
         return row
+
+    def bn_case(shape, full):
+        return bn_row("bn_grad", shape, torch.float32, bn_shapes[shape],
+                      full, "config-A")
 
     by_size = sorted(bn_shapes, key=lambda s_: s_[0] * s_[1] * s_[2] * s_[3])
     bn_rows = [bn_case(s_, s_ in (by_size[0], (64, 112, 112, 64)))
@@ -7519,29 +7641,8 @@ def main():
     # exact in TF32, which is what B8 multiplies in)
 
     def bn_bf16_case(shape):
-        n, h, w, c = shape
-        x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(bf16).to(dev)
-        dy = torch.randn(*shape, generator=g).to(bf16).to(dev)
-        sc = (torch.rand(c, generator=g) + 0.5).to(dev)
-        xr = x.permute(0, 3, 1, 2).requires_grad_()
-        dyr = dy.permute(0, 3, 1, 2)
-
-        def library():
-            y = F.batch_norm(xr, None, None, sc, None, True, 0.1, 1e-5)
-            torch.autograd.grad(y, xr, dyr)
-
-        return dict(
-            name="bn_grad_bf16", shape="%s x%d a config-C step" % (
-                list(shape), bn_bf16_shapes[shape]),
-            ms=time_ms(lambda: kbn.bn_grad(x, dy, sc, 1e-5), reps=10),
-            plain_ms=time_ms(lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5),
-                             reps=10),
-            library_ms=time_ms(library, reps=10),
-            library="torch.nn.functional.batch_norm forward plus "
-                    "torch.autograd.grad to x, bfloat16, channels last: "
-                    "also runs the forward, gives no dscale or dbias",
-            bytes=2 * 3 * x.numel() + 4 * 3 * c, flops=12 * x.numel(),
-            per_step=bn_bf16_shapes[shape])
+        return bn_row("bn_grad_bf16", shape, bf16, bn_bf16_shapes[shape],
+                      True, "config-C")
 
     def c1_bf16_case(shape):
         b, ci, h, w, co = shape
@@ -7593,20 +7694,31 @@ def main():
                   "%.6f" % (max(t_bytes, t_ops), max(
                       t_bytes, r["flops"] / TF32_FLOPS_PER_S * 1e3))
                   if "peak" in r else "",
-                  "; library: " + r["library"] if "library" in r else ""))
+                  "; library: " + r["library"] if "library" in r else "")
+              + r.get("extra", ""))
 
     for name, krows in (("bn_grad", bn_rows), ("conv1x1_bwd", c1_rows),
                         ("bn_grad_bf16", bn_bf16_rows),
                         ("conv1x1_bwd_bf16", c1_bf16_rows)):
         print("%s over one ResNet-50 step: %d launches, kernel %.3f ms, "
-              "bound %.3f ms%s" % (
+              "bound %.3f ms%s%s" % (
                   name, sum(r["per_step"] for r in krows),
                   sum(r["per_step"] * r["ms"] for r in krows),
                   sum(r["per_step"] * r["bound_ms"] for r in krows),
-                  "; library %.3f ms, plain version %.3f ms" % (
-                      sum(r["per_step"] * r["library_ms"] for r in krows),
-                      sum(r["per_step"] * r["plain_ms"] for r in krows))
-                  if name != "bn_grad" else ""))
+                  "; library %.3f ms" % sum(
+                      r["per_step"] * r["library_ms"] for r in krows),
+                  "; plain version %.3f ms" % sum(
+                      r["per_step"] * r["plain_ms"] for r in krows)
+                  if name != "bn_grad" else
+                  "; warm %.3f ms, plan floor %.3f ms, F.batch_norm forward "
+                  "+ autograd %.3f ms" % tuple(
+                      sum(r["per_step"] * r[k] for r in krows)
+                      for k in ("warm_ms", "floor_ms", "fwd_grad_ms"))))
+        if name == "bn_grad_bf16":
+            print("bn_grad_bf16 over one ResNet-50 step: warm %.3f ms, plan "
+                  "floor %.3f ms, F.batch_norm forward + autograd %.3f ms"
+                  % tuple(sum(r["per_step"] * r[k] for r in krows)
+                          for k in ("warm_ms", "floor_ms", "fwd_grad_ms")))
 
     # the decode step end to end (one graph replay): host wall time vs
     # device busy time, the kernels by name

@@ -9,6 +9,7 @@ B6), or a call of the decode kernel (B2), goes, on one NVIDIA GPU.
     python3 lstm_breakdown.py --decode   # B2 at [16, 8, 512, 64]
     python3 lstm_breakdown.py --flash-bf16   # bf16 B1 at [16, 8, 512, 64]
     python3 lstm_breakdown.py --conv1x1-bf16 # bf16 B8 at config D's shapes
+    python3 lstm_breakdown.py --bn-grad      # B7 at ResNet-50 shapes
 
 Builds variants of a kernel's source under ``paddle_tpu_torch/csrc/``
 (and of the headers it shares) with one part changed or switched off,
@@ -99,6 +100,18 @@ of its loaders (TMA at 56x56 and 28x28, 8-byte cp.async at 14x14, bulk
 copies at 7x7) beside cuDNN's bfloat16 ``convolution_backward``; its
 variants: ``nomma`` (no wgmma product), ``norelayout`` (the bulk copies
 are not swizzled into the tiles).
+
+The batch-norm backward (``--bn-grad``, B7, ``bn_grad.cu``) is timed at
+ResNet-50 shapes in both dtypes, warm and with the L2 flushed by a write
+and by a read, beside ``native_batch_norm_backward``. Its variants:
+``contiguous`` (each block takes one run of neighbouring tiles instead
+of every R-th tile), ``nohint`` (no tile is marked to leave the L2
+first), ``empty`` (every block arrives at the barrier's counter, waits
+and returns: the cooperative launch and the barrier alone), ``nowait``
+(no block waits at the grid barrier), ``nophase2`` (no dx: the sums,
+the barrier and the coefficients), ``nofinal`` (no block adds the
+partial rows after the barrier), ``nopartial`` (no block adds its row
+lanes or writes its partial row).
 
 Needs a card and ``nvcc``; builds into ``build/lstm_breakdown/``.
 """
@@ -327,6 +340,37 @@ FLASH_BF16_VARIANTS = {"kernel": [], **{name: [name] for name in (
     "noqk", "nosoftmax", "nopv", "nostore")}}
 C1_BF16_VARIANTS = {"kernel": [], "nomma": ["nomma"],
                     "norelayout": ["norelayout"]}
+EDITS.update({
+    "empty": [("  if (r >= a.R) {   // no rows: arrive,",
+               "  if (true) {   // no rows: arrive,")],
+    "nowait": [("  if (tid == 0) {\n    arrive();\n    wait_arrivals(target);",
+                "  if (tid == 0) {\n    arrive();")],
+    "nophase2": [("  for (int t = n - 1; t >= 0; --t) {",
+                  "  for (int t = n - 1; t >= n; --t) {")],
+    "contiguous": [(
+        "  const int n = r < a.T ? (a.T - 1 - r) / a.R + 1 : 0;\n"
+        "  auto tile = [&](int k) { return (long long)r + (long long)k * "
+        "a.R; };",
+        "  const long long t0 = (long long)r * a.T / a.R;\n"
+        "  const int n = (int)((long long)(r + 1) * a.T / a.R - t0);\n"
+        "  auto tile = [&](int k) { return t0 + k; };")],
+    "nohint": [("      if (last) {", "      if (false) {")],
+    "nofinal": [("  if (ni <= kThreads) {", "  if (ni < 0) {"),
+                ("    for (int item = tid; item < ni; item += kThreads)",
+                 "    for (int item = tid; item < 0; item += kThreads)")],
+    "nopartial": [("  if (tpr <= 16 && (tpr & (tpr - 1)) == 0) {",
+                   "  if (false) {"),
+                  ("    for (int q = 0; q < 4; ++q) {\n      if (l < lanes)",
+                   "    for (int q = 0; q < 0; ++q) {\n      if (l < lanes)")],
+})
+BN_VARIANTS = {"kernel": [], **{name: [name] for name in (
+    "contiguous", "nohint", "empty", "nowait", "nophase2", "nofinal",
+    "nopartial")}}
+# (N, H, W, C, dtype): B7 at the stem, a shape just past the blocks'
+# shared memory, two wholly resident ones, in bfloat16; one in float32
+BN_SHAPES = ((64, 112, 112, 64, "bf16"), (64, 56, 56, 64, "bf16"),
+             (64, 14, 14, 256, "bf16"), (64, 7, 7, 2048, "bf16"),
+             (64, 7, 7, 512, "fp32"))
 # (B, Ci, H, W, Co): one config-D shape for each loader of the bf16 B8
 C1_BF16_SHAPES = ((64, 64, 56, 56, 256), (64, 128, 28, 28, 512),
                   (64, 256, 14, 14, 1024), (64, 512, 7, 7, 2048))
@@ -650,6 +694,64 @@ def conv1x1_bf16(out_dir, dev, g):
                     1, [True, True, False]), 10)), flush=True)
 
 
+def bn_grad(out_dir, dev, g):
+    from paddle_tpu_torch.kernels import bn_grad as kbn
+
+    libs = build(out_dir, "bn_grad", BN_VARIANTS)
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    flush_sum = torch.empty((), device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def clean_flush():
+        torch.sum(flush_buf, dim=0, out=flush_sum)
+
+    for n, h, w, c, dt in BN_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn(n, h, w, c, generator=g).to(dtype).to(dev)
+        dy = torch.randn(n, h, w, c, generator=g).to(dtype).to(dev)
+        sc = (torch.rand(c, generator=g) + 0.5).to(dev)
+        m = n * h * w
+        pl = kbn.plan(m, c, dtype, True, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        print("%s %s: plan %s W %d G %d R %d BR %d S %d; one pass %.2f us, "
+              "plan floor %.2f us" % (
+                  [n, h, w, c], dt, pl.loader, pl.width, pl.groups,
+                  pl.slabs, pl.tile_rows, pl.slots,
+                  pl.one_pass_bytes / 3.35e6, pl.hbm_bytes / 3.35e6))
+        for name, lib in libs.items():
+            _build._libs["bn_grad"] = lib
+            fn = lambda: kbn.bn_grad(x, dy, sc, 1e-5)  # noqa: E731
+            print("%s %s %-10s warm %.2f us, flushed %.2f us, by a read "
+                  "%.2f us" % (
+                      [n, h, w, c], dt, name, 1e3 * time_ms(fn, 15),
+                      1e3 * time_ms(fn, 15, flush),
+                      1e3 * time_ms(fn, 15, clean_flush)), flush=True)
+        xf = x.float().reshape(m, c)
+        mean = xf.mean(0)
+        inv = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+        xr, dyr = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        fn = lambda: torch.ops.aten.native_batch_norm_backward(  # noqa
+            dyr, xr, sc, None, None, mean, inv, True, 1e-5,
+            [True, True, True])
+        print("%s %s %-10s warm %.2f us, flushed %.2f us, by a read %.2f "
+              "us" % ([n, h, w, c], dt, "library", 1e3 * time_ms(fn, 15),
+                      1e3 * time_ms(fn, 15, flush),
+                      1e3 * time_ms(fn, 15, clean_flush)), flush=True)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    ts = []
+    for _ in range(15):
+        torch.cuda._sleep(1_000_000)
+        a.record()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    print("the events alone: %.2f us" % (1e3 * sorted(ts)[len(ts) // 2]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -669,6 +771,8 @@ def main():
                       help="break down the bfloat16 B1 (wgmma) instead")
     mode.add_argument("--conv1x1-bf16", action="store_true",
                       help="break down the bfloat16 B8 (wgmma) instead")
+    mode.add_argument("--bn-grad", action="store_true",
+                      help="break down B7 (bn_grad) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("lstm_breakdown: no CUDA device")
@@ -679,6 +783,7 @@ def main():
     run = (decode if args.decode else gru if args.gru
            else gru_bwd if args.gru_bwd else flash_bf16 if args.flash_bf16
            else conv1x1_bf16 if args.conv1x1_bf16
+           else bn_grad if args.bn_grad
            else lstm_bf16 if args.lstm_bf16
            else gru_bf16 if args.gru_bf16 else lstm)
     run(out_dir, dev, g)

@@ -68,7 +68,7 @@ SOURCES = {
         "gru_cluster_plan": ([_I] * 3 + [_P], _I),
     },
     "bn_grad": {
-        "bn_grad": ([_P] * 8 + [_I, _I, _F, _I, _I, _I, _P], _I),
+        "bn_grad": ([_P] * 7 + [_I, _I, _F] + [_I] * 8 + [_P], _I),
     },
     "conv1x1_bwd": {
         "conv1x1_bwd": ([_P] * 7 + [_I] * 11 + [_P], _I),

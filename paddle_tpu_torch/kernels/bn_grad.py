@@ -14,9 +14,12 @@ as [M, C] rows with channels minor, and ``scale`` [C]::
 channel gradients float32; the four sums are always float32. It
 dispatches on the device of ``x``:
 
-* a CUDA tensor launches the kernel (float32 or bfloat16, any M: the
-  kernel masks its row tail, so no tile has to divide M). Anything the
-  kernel does not take raises, and a refused launch raises;
+* a CUDA tensor launches the kernel (:func:`bn_grad_cuda`, float32 or
+  bfloat16, any M under 2**31: the kernel masks its row tail, so no tile
+  has to divide M): one cooperative launch of one block an SM, which
+  keeps what it can of x and dy in shared memory between the four sums
+  and dx, as :func:`plan` lays out. Anything the kernel does not take
+  raises, and a refused launch raises;
 * a CPU tensor runs the plain version :func:`bn_grad_reference`.
 
 ``tile`` is the JAX package's row-tile knob (the ``pallas_tile`` attr).
@@ -27,28 +30,44 @@ warns and is dropped. The CUDA kernel picks its own blocking and ignores
 
 :func:`supported` keeps the JAX package's structural rules (NHWC, 4-D,
 training mode). Its limit on the tile's size in fast memory belongs to
-the other chip and is gone: every 4-D NHWC shape is taken.
+the other chip and is gone: every 4-D NHWC shape is taken (below 2**31
+rows, and at most 256 column vectors for each of the card's SMs: 16
+bytes each, one element where the rows are not 16-byte multiples).
 
 ``launches`` counts kernel launches; plain-version calls do not count.
 """
 
+import collections
+import functools
 import warnings
 
 import torch
 
-from paddle_tpu_torch.kernels import H100_SMS, count_launch
+from paddle_tpu_torch.kernels import H100_MAX_SMEM, H100_SMS, count_launch
 from paddle_tpu_torch.kernels.lstm_cell import _check, _raise_on, _stream
 
-__all__ = ["bn_grad", "bn_grad_reference", "supported", "valid_tile",
-           "launches", "reset_launches"]
+__all__ = ["bn_grad", "bn_grad_cuda", "bn_grad_reference", "supported",
+           "valid_tile", "plan", "block_tiles", "tile_box",
+           "reread_parity", "Plan",
+           "LOADERS", "launches", "reset_launches"]
 
 #: kernel name -> launches since the last reset_launches()
 launches = {"bn_grad": 0}
 
-# blocks the row-walking kernels aim to keep on the card: 8 for each of
-# the H100's 132 SMs
-_TARGET_BLOCKS = 8 * H100_SMS
+#: the kernel's loaders, by the number its C entry takes
+LOADERS = {"tma": 0, "vec": 1, "scalar": 2}
+# threads a block (the kernel's kThreads)
 _THREADS = 256
+# bytes of one tensor's tile in a slot that the plan aims at
+_TILE_BYTES = 8192
+# the least columns of a channel group (rows of 256 bytes in float32, 128
+# in bfloat16): narrow groups, so that a block adds few partial rows after
+# the barrier (slabs * 4 * width floats, which falls as the square of the
+# groups)
+_GROUP_COLS = 64
+# the bytes of phase 2's re-read that the 50 MB L2 is expected to serve:
+# the lines phase 1 pulled last, with room left for dx's writes
+L2_REREAD_BYTES = 30 * 2 ** 20
 
 
 def reset_launches():
@@ -111,19 +130,151 @@ def bn_grad_reference(x, dy, scale, eps, tile=None):
     return dx.to(x.dtype).reshape(n, h, w, c), dscale, dbias
 
 
-def _row_blocks(m, c, vec):
-    """How many blocks split the rows: enough that the grid holds about
-    ``_TARGET_BLOCKS`` blocks, and no more than there are row lanes."""
-    tx = 16 if (vec == 4 and c <= 64) else 32
-    ty = _THREADS // tx
-    col_blocks = -(-(-(-c // vec)) // tx)
-    want = max(1, _TARGET_BLOCKS // col_blocks)
-    return max(1, min(want, -(-m // ty), 65535))
+Plan = collections.namedtuple("Plan", (
+    "rows channels itemsize loader vec width padded_width groups slabs "
+    "grid tile_rows tiles slots smem one_pass_bytes reread_bytes "
+    "hbm_bytes"))
 
 
-def _bn_grad_cuda(x, dy, scale, eps):
+def _up(a, b):
+    return -(-a // b) * b
+
+
+def _smem(slots, half, vec, padded_width):
+    """The kernel's dynamic shared memory (``smem_bytes`` in the source):
+    the slots, their mbarriers, the block sums' scratch, the group's sums
+    and coefficients."""
+    return (slots * 2 * half + _up(8 * slots, 16)
+            + 4 * _THREADS * max(vec, 4) + 36 * padded_width)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m, c, dtype, aligned, sms=H100_SMS, loader=None):
+    """The kernel's launch plan for x, dy viewed as [m, c] in ``dtype``
+    (float32 or bfloat16), ``aligned`` when x, dy and dx start on 16-byte
+    boundaries, on a card of ``sms`` SMs. A :class:`Plan` of
+
+    * ``grid``: one block an SM (the kernel asks for all the shared
+      memory a block may have, so no second block fits beside it);
+    * ``vec``: elements a thread's column vector (16 bytes, or 1);
+      ``width``: columns a channel group (a multiple of ``vec``, at least
+      64 where the channels reach that, more where more groups than SMs
+      would be needed), ``padded_width``: width rounded up
+      to 4 (the partial sums' layout); ``groups`` = ceil(c / width);
+      ``slabs`` = grid // groups row slabs: block b takes group b % groups
+      and slab b // groups, and blocks past groups * slabs hold no rows;
+    * ``tile_rows``: rows a tile (about 8 KB of each tensor, at most 256:
+      a TMA box's limit, and no more than a slab's share of the rows);
+      ``tiles``: tiles a group, ceil(m / tile_rows); slab r takes tiles
+      r, r + slabs, r + 2 slabs, ... (:func:`block_tiles`): the blocks
+      sweep the rows together;
+    * ``slots``: x-and-dy tile pairs in shared memory, as many as fit
+      beside the scratch (``smem`` bytes in all; the kernel asks for all
+      232,448 a block may use, whatever it uses) and no more than a slab
+      has tiles: a slab's last ``slots`` tiles stay resident between the
+      sums and dx;
+    * ``loader``: ``"tma"`` (2-D boxes) where the rows are multiples of 16
+      bytes (c * itemsize), x, dy, dx ``aligned`` and the group fits a
+      box (width <= 256); ``"vec"`` (16-byte loads) where only the first
+      two hold; else
+      ``"scalar"`` (element loads, vec 1). ``loader`` forces one the
+      shape allows (to check each of the kernel's instantiations);
+    * ``one_pass_bytes``: x and dy read once, dx written once, scale read
+      and dscale, dbias written: the bound's bytes; ``reread_bytes``: what
+      phase 2 reads again (the tiles that were not resident);
+      ``hbm_bytes``: the plan's own floor, one pass plus the re-read past
+      the ``L2_REREAD_BYTES`` that the L2 is expected to still hold."""
+    _check(dtype in (torch.float32, torch.bfloat16),
+           "bn_grad: no kernel for %s (float32 or bfloat16)", dtype)
+    _check(0 < m < 2 ** 31 and c > 0, "bn_grad: [%d, %d] out of range", m,
+           c)
+    elt = 4 if dtype == torch.float32 else 2
+    vec16 = bool(aligned) and (c * elt) % 16 == 0
+    _check(loader in (None, "tma", "vec", "scalar"), "unknown loader %r",
+           loader)
+    _check(loader in (None, "scalar") or vec16, "bn_grad: the %s loader "
+           "needs 16-byte rows and aligned tensors ([%d, %d] %s)", loader,
+           m, c, dtype)
+    vec = 16 // elt if vec16 and loader != "scalar" else 1
+    width = min(_up(c, vec), _up(_GROUP_COLS, vec))
+    if -(-c // width) > sms:
+        width = _up(-(-c // sms), vec)
+    _check(width // vec <= _THREADS, "bn_grad: %d channels exceed the "
+           "kernel's %d column vectors a block on %d SMs", c, _THREADS, sms)
+    groups = -(-c // width)
+    tma_ok = vec16 and width <= 256
+    if loader is None:
+        loader = "tma" if tma_ok else "vec" if vec16 else "scalar"
+    _check(loader != "tma" or tma_ok, "bn_grad: a TMA box cannot hold "
+           "%d columns", width)
+    slabs = sms // groups
+    tile_rows = min(256, max(1, _TILE_BYTES // (width * elt)),
+                    -(-m // slabs))
+    tiles = -(-m // tile_rows)
+    half = _up(tile_rows * width * elt, 128)
+    padded_width = _up(width, 4)
+    slots = (H100_MAX_SMEM - _smem(0, half, vec, padded_width)) \
+        // (2 * half + 8)
+    while _smem(slots, half, vec, padded_width) > H100_MAX_SMEM:
+        slots -= 1
+    _check(slots >= 2, "bn_grad: no room for two slots of %d bytes", half)
+    # no more slots than a slab has tiles
+    slots = min(slots, max(2, -(-tiles // slabs)))
+    reread_rows = 0
+    for r in range(slabs):
+        for t in range(r, tiles, slabs)[:-slots]:
+            reread_rows += min(m, (t + 1) * tile_rows) - t * tile_rows
+    one_pass = 3 * m * c * elt + 3 * 4 * c
+    reread = 2 * reread_rows * c * elt
+    return Plan(m, c, elt, loader, vec, width, padded_width, groups, slabs,
+                sms, tile_rows, tiles, slots,
+                _smem(slots, half, vec, padded_width), one_pass, reread,
+                one_pass + max(0, reread - L2_REREAD_BYTES))
+
+
+def block_tiles(pl, b):
+    """Block ``b``'s channel group and its tiles in phase 1's order (none
+    for a block past groups * slabs). Phase 2 walks them in reverse: the
+    last ``pl.slots`` from shared memory, the rest read again."""
+    g, r = b % pl.groups, b // pl.groups
+    if r >= pl.slabs:
+        return g, range(0)
+    return g, range(r, pl.tiles, pl.slabs)
+
+
+def reread_parity(t, n, slots):
+    """The phase parity the kernel waits on (``reread_parity`` in the
+    source) for phase 2's re-read of a slab's tile ``t`` (its index in
+    the slab, t < n - slots) in slot t % slots: phase 1 completed (n - 1
+    - s) // slots + 1 phases of slot s, and phase 2 loads the slot with
+    its tiles in descending order."""
+    s = t % slots
+    return ((n - 1 - s) // slots + 1 + (n - slots - 1 - t) // slots) & 1
+
+
+def tile_box(pl, g, t):
+    """The rows [r0, r1) and columns [c0, c1) of [m, c] that tile ``t`` of
+    group ``g`` covers (its rows past m and columns past c read as zero
+    and are not written)."""
+    r0, c0 = t * pl.tile_rows, g * pl.width
+    return (r0, min(pl.rows, r0 + pl.tile_rows), c0,
+            min(pl.channels, c0 + pl.width))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def bn_grad_cuda(x, dy, scale, eps, loader=None):
+    """The kernel on CUDA tensors: one cooperative launch, counted in
+    ``launches``. ``loader`` forces one of the plan's loaders (see
+    :func:`plan`); None takes the plan's own."""
     from paddle_tpu_torch.kernels import _build
 
+    _check(x.dim() == 4 and x.device.type == "cuda",
+           "x must be [N, H, W, C] on a CUDA device, got %s on %s",
+           tuple(x.shape), x.device)
     n, h, w, c = x.shape
     m = n * h * w
     dev = x.device
@@ -136,26 +287,25 @@ def _bn_grad_cuda(x, dy, scale, eps):
     _check(tuple(scale.shape) == (c,) and scale.device == dev,
            "scale must be [%d] on %s, got %s on %s", c, dev,
            tuple(scale.shape), scale.device)
-    _check(m > 0 and c > 0 and m * c < 2 ** 62, "empty activation %s",
-           tuple(x.shape))
+    _check(0 < m < 2 ** 31 and c > 0, "activation %s out of range (rows "
+           "in [1, 2**31))", tuple(x.shape))
     x, dy = x.contiguous(), dy.contiguous()
     scale = scale.to(torch.float32).contiguous()
     dx = torch.empty_like(x)
     dscale = torch.empty((c,), dtype=torch.float32, device=dev)
     dbias = torch.empty((c,), dtype=torch.float32, device=dev)
-    align = 4 * x.element_size()
-    vec = 4 if (c % 4 == 0 and all(t.data_ptr() % align == 0
-                                   for t in (x, dy, dx))) else 1
-    rb = _row_blocks(m, c, vec)
-    partial = torch.empty((rb, 4, c), dtype=torch.float32, device=dev)
-    coef = torch.empty((5, c), dtype=torch.float32, device=dev)
+    pl = plan(m, c, x.dtype, all(t.data_ptr() % 16 == 0
+                                 for t in (x, dy, dx)), _sms(dev), loader)
+    partial = torch.empty((pl.slabs, 4, pl.groups * pl.padded_width),
+                          dtype=torch.float32, device=dev)
     lib = _build.load("bn_grad")
     with torch.cuda.device(dev):
         rc = lib.bn_grad(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
                          dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-                         partial.data_ptr(), coef.data_ptr(), m, c,
-                         float(eps), int(x.dtype == torch.bfloat16), vec, rb,
-                         _stream(dev))
+                         partial.data_ptr(), m, c, float(eps),
+                         int(x.dtype == torch.bfloat16), LOADERS[pl.loader],
+                         pl.width, pl.groups, pl.slabs, pl.tile_rows,
+                         pl.slots, pl.grid, _stream(dev))
     _raise_on(rc, "bn_grad")
     count_launch(launches, "bn_grad")
     return dx, dscale, dbias
@@ -172,7 +322,7 @@ def bn_grad(x, dy, scale, eps, tile=None):
     dev = x.device
     if dev.type == "cuda":
         _checked_tile(n * h * w, c, x.dtype, tile)
-        return _bn_grad_cuda(x, dy, scale, eps)
+        return bn_grad_cuda(x, dy, scale, eps)
     if dev.type == "cpu":
         return bn_grad_reference(x, dy, scale, eps, tile=tile)
     if dev.type == "meta":

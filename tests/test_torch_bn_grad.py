@@ -151,3 +151,179 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     with pytest.raises(ValueError, match=r"\[N, H, W, C\]"):
         tbn.bn_grad(torch.zeros(4, 4), torch.zeros(4, 4), torch.zeros(4),
                     EPS)
+
+
+# ---- the card kernel's launch plan (pure Python, checked here) ----
+
+# ResNet-50's nine batch-norm shapes at batch 64 (the 53 a step), the odd
+# shapes the card checks (rows no power of two divides, channels that
+# fill no 16-byte word) and shapes with fewer rows than blocks
+RESNET_BN = [(64, 112, 112, 64), (64, 56, 56, 64), (64, 56, 56, 256),
+             (64, 28, 28, 128), (64, 28, 28, 512), (64, 14, 14, 256),
+             (64, 14, 14, 1024), (64, 7, 7, 512), (64, 7, 7, 2048)]
+ODD_BN = [(5, 7, 9, 24), (3, 5, 7, 6), (2, 3, 5, 40), (1, 13, 1, 4),
+          (7, 11, 1, 5)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _plan(shape, dtype, aligned=True, **kw):
+    n, h, w, c = shape
+    return tbn.plan(n * h * w, c, dtype, aligned, **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RESNET_BN + ODD_BN)
+def test_plan_covers_every_row_and_channel_once(shape, dtype):
+    """The blocks' tiles cover [M, C] exactly once: the groups' columns
+    cut [0, C), and each group's tiles, over all blocks of the group,
+    cut [0, M) without gap or overlap; blocks past groups * slabs hold
+    none. Small shapes are also counted cell by cell."""
+    pl = _plan(shape, dtype)
+    m, c = pl.rows, pl.channels
+    assert pl.groups * pl.slabs <= pl.grid == tbn.H100_SMS
+    rows = {g: [] for g in range(pl.groups)}
+    cols = {}
+    for b in range(pl.grid):
+        g, tiles = tbn.block_tiles(pl, b)
+        if b >= pl.groups * pl.slabs:
+            assert len(tiles) == 0
+        for t in tiles:
+            r0, r1, c0, c1 = tbn.tile_box(pl, g, t)
+            rows[g].append((r0, r1))
+            cols.setdefault(g, (c0, c1))
+            assert cols[g] == (c0, c1)
+    edges = sorted(cols.values())
+    assert edges[0][0] == 0 and edges[-1][1] == c
+    assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+    for g in range(pl.groups):
+        spans = sorted(rows[g])
+        assert spans[0][0] == 0 and spans[-1][1] == m
+        assert all(a[1] == b[0] and a[0] < a[1]
+                   for a, b in zip(spans, spans[1:]))
+    if m * c <= 1 << 16:
+        hits = np.zeros((m, c), np.int64)
+        for b in range(pl.grid):
+            g, tiles = tbn.block_tiles(pl, b)
+            for t in tiles:
+                r0, r1, c0, c1 = tbn.tile_box(pl, g, t)
+                hits[r0:r1, c0:c1] += 1
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RESNET_BN + ODD_BN)
+def test_plan_residency_and_ring_fit_shared_memory(shape, dtype):
+    """The slots (resident tiles and ring alike), their mbarriers and the
+    scratch fit the 232,448 bytes a block may use; at least two slots,
+    no more than a slab has tiles; a tile within a TMA box's 256 rows
+    and its group's columns within the 256 threads' vectors."""
+    pl = _plan(shape, dtype)
+    assert pl.smem <= tbn.H100_MAX_SMEM == 232448
+    assert 2 <= pl.slots <= max(2, -(-pl.tiles // pl.slabs))
+    assert 1 <= pl.tile_rows <= 256
+    assert pl.width % pl.vec == 0 and pl.width // pl.vec <= 256
+    assert pl.groups == -(-pl.channels // pl.width)
+    if pl.slots < -(-pl.tiles // pl.slabs):   # the budget binds: ~200 KB
+        assert 2 * pl.slots * pl.tile_rows * pl.width * pl.itemsize \
+            >= 190 * 1024
+
+
+@pytest.mark.parametrize("c,dtype,aligned,want", [
+    (64, torch.float32, True, "tma"),      # 256-byte rows
+    (2048, torch.bfloat16, True, "tma"),
+    (24, torch.bfloat16, True, "tma"),     # 48-byte rows
+    (4, torch.float32, True, "tma"),       # one 16-byte word a row
+    (6, torch.float32, True, "scalar"),    # 24-byte rows
+    (12, torch.bfloat16, True, "scalar"),  # 24-byte rows
+    (64, torch.float32, False, "scalar"),  # a tensor off 16 bytes
+    (40000, torch.float32, True, "vec"),   # a group wider than a box
+])
+def test_plan_loader_follows_row_bytes_and_alignment(c, dtype, aligned,
+                                                     want):
+    pl = tbn.plan(3136, c, dtype, aligned)
+    assert pl.loader == want
+    assert pl.vec == (1 if want == "scalar" else 16 // pl.itemsize)
+    assert (pl.loader == "tma") == (pl.width <= 256 and want != "scalar")
+
+
+def test_plan_forces_only_the_loaders_a_shape_allows():
+    assert tbn.plan(3136, 64, torch.float32, True, loader="vec").loader \
+        == "vec"
+    sc = tbn.plan(3136, 64, torch.bfloat16, True, loader="scalar")
+    assert (sc.loader, sc.vec) == ("scalar", 1)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        tbn.plan(3136, 6, torch.float32, True, loader="vec")
+    with pytest.raises(ValueError, match="16-byte rows"):
+        tbn.plan(3136, 64, torch.float32, False, loader="tma")
+    with pytest.raises(ValueError, match="TMA box"):
+        tbn.plan(3136, 40000, torch.float32, True, loader="tma")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tbn.plan(3136, 64, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RESNET_BN + ODD_BN)
+def test_plan_moves_one_pass_where_x_and_dy_fit(shape, dtype):
+    """Where x and dy fit the blocks' slots plus the L2's share, the
+    plan's HBM bytes are one pass (x, dy read once, dx written once);
+    past it, one pass plus the re-read the L2 does not hold."""
+    pl = _plan(shape, dtype)
+    elt = pl.itemsize
+    assert pl.one_pass_bytes == 3 * pl.rows * pl.channels * elt \
+        + 12 * pl.channels
+    on_chip = pl.groups * pl.slabs * pl.slots * 2 * pl.tile_rows \
+        * pl.width * elt
+    if 2 * pl.rows * pl.channels * elt <= on_chip + tbn.L2_REREAD_BYTES:
+        assert pl.hbm_bytes == pl.one_pass_bytes
+    assert pl.hbm_bytes == pl.one_pass_bytes + max(
+        0, pl.reread_bytes - tbn.L2_REREAD_BYTES)
+
+
+def test_plan_one_pass_at_43_of_53_bf16_layers():
+    """bench.py's config C (bf16): all but the stem, the four 56x56x256
+    and the five 28x28x512 layers run in one pass."""
+    per_step = dict(zip(RESNET_BN, (1, 6, 4, 8, 5, 12, 7, 6, 4)))
+    one = sum(k for s, k in per_step.items()
+              if _plan(s, torch.bfloat16).hbm_bytes
+              == _plan(s, torch.bfloat16).one_pass_bytes)
+    assert sum(per_step.values()) == 53 and one == 43
+
+
+@pytest.mark.parametrize("n,slots", [(1, 2), (2, 2), (5, 2), (8, 3),
+                                     (13, 13), (95, 13), (190, 13)])
+def test_phase_two_reverses_phase_one_and_waits_on_the_right_phase(n,
+                                                                    slots):
+    """The slot machine the kernel runs, simulated: phase 1 puts tile t in
+    slot t % slots and loads it again (tile t + slots) once read; phase 2
+    takes the tiles in reverse, finds the last ``slots`` still resident,
+    and re-reads the others, each into its slot once the tile above it
+    there has been written out, the newest first. Every wait's parity is
+    the one ``reread_parity`` (the kernel's formula) gives."""
+    content, parity = {}, {}
+    phases = [0] * slots
+
+    def load(t):
+        s = t % slots
+        phases[s] += 1          # the phase this load completes
+        content[s] = t
+        return (phases[s] - 1) & 1
+
+    for t in range(min(n, slots)):
+        parity[t] = load(t)
+    p1 = []
+    for t in range(n):
+        assert content[t % slots] == t and parity.pop(t) == (t // slots) & 1
+        p1.append(t)
+        if t + slots < n:
+            parity[t + slots] = load(t + slots)
+    p2, reloads = [], []
+    for t in range(n - 1, -1, -1):
+        assert content[t % slots] == t
+        if t < n - slots:
+            reloads.append(t)
+            assert parity.pop(t) == tbn.reread_parity(t, n, slots)
+        p2.append(t)
+        if t - slots >= 0:
+            parity[t - slots] = load(t - slots)
+    assert p2 == p1[::-1] and not parity
+    assert reloads == list(range(n - slots - 1, -1, -1))

@@ -974,11 +974,16 @@ def test_cuda_rnn_bf16_raises_on_what_the_kernels_do_not_take(cuda):
 
 
 # The stem of ResNet-50 at batch 64, its stage 4, a row count that no
-# power of two divides, and a channel count that fills no float4.
+# power of two divides, and a channel count that fills no float4; a
+# shape whose x and dy stay wholly in the blocks' shared memory
+# (64x14x14x256), one just past it (64x56x56x64: in float32 a third of
+# the tiles is read again), and one with fewer rows than blocks.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(64, 112, 112, 64), (64, 7, 7, 2048),
-                                   (5, 7, 9, 24), (3, 5, 7, 6)])
+                                   (5, 7, 9, 24), (3, 5, 7, 6),
+                                   (64, 14, 14, 256), (64, 56, 56, 64),
+                                   (2, 3, 5, 40)])
 def test_cuda_bn_grad_matches_plain(cuda, shape, dtype):
     """Kernel vs the plain version on the card, and both vs the plain
     version in float64. The sums run over up to 802816 rows in another
@@ -1009,6 +1014,90 @@ def test_cuda_bn_grad_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def _bn_inputs(shape, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(*shape, generator=g) * 1.5 + 0.7).to(dtype).to(dev)
+    dy = torch.randn(*shape, generator=g).to(dtype).to(dev)
+    scale = (torch.rand(shape[-1], generator=g) + 0.5).to(dev)
+    return x, dy, scale
+
+
+# Each loader's instantiation where the shape allows it: 16-byte loads
+# and element loads also where the plan would take TMA, and on a shape
+# with more tiles than slots (the re-read) and one with fewer rows than
+# blocks.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("loader", ["tma", "vec", "scalar"])
+@pytest.mark.parametrize("shape", [(16, 56, 56, 64), (5, 7, 9, 24),
+                                   (2, 3, 5, 40)])
+def test_cuda_bn_grad_each_loader_matches_plain(cuda, shape, loader, dtype):
+    x, dy, scale = _bn_inputs(shape, dtype, 7, cuda)
+    n, h, w, c = shape
+    pl = kbn.plan(n * h * w, c, dtype, True,
+                  torch.cuda.get_device_properties(0).multi_processor_count,
+                  loader)
+    assert pl.loader == loader
+    got = kbn.bn_grad_cuda(x, dy, scale, 1e-5, loader=loader)
+    plain = kbn.bn_grad_reference(x, dy, scale, 1e-5)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    _close(got[0], plain[0], 1e-4 if f32 else 1e-2, 1e-5 if f32 else 4e-3)
+    _close(got[1], plain[1], 1e-4, 1e-5)
+    _close(got[2], plain[2], 1e-4, 1e-5)
+    # TMA and the 16-byte loads fill shared memory alike and share the
+    # threads' columns: the same bits (the element loader's threads take
+    # one column each, so its sums run in another order)
+    if loader != "scalar":
+        want = kbn.bn_grad_cuda(x, dy, scale, 1e-5, loader="tma")
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_grad_back_to_back_and_graph_replays_are_bitwise(cuda):
+    """Five calls of mixed shapes and dtypes back to back on one stream,
+    then captured in one CUDA graph and replayed twice (an eager call
+    between the replays): every result bitwise the single eager call's.
+    The grid barrier's counter only grows across all of it."""
+    cases = [((64, 14, 14, 256), torch.float32),
+             ((64, 7, 7, 2048), torch.bfloat16),
+             ((5, 7, 9, 24), torch.float32),
+             ((3, 5, 7, 6), torch.bfloat16),
+             ((64, 56, 56, 64), torch.bfloat16)]
+    inputs = [_bn_inputs(s, d, 11 + i, cuda)
+              for i, (s, d) in enumerate(cases)]
+    want = []
+    for inp in inputs:
+        want.append(kbn.bn_grad(*inp, 1e-5))
+        torch.cuda.synchronize()
+    got = [kbn.bn_grad(*inp, 1e-5) for inp in inputs]
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g_, w_))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for inp in inputs:
+            kbn.bn_grad(*inp, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [kbn.bn_grad(*inp, 1e-5) for inp in inputs]
+    for rep in range(2):
+        for o in outs:
+            for t in o:
+                t.fill_(float("nan"))
+        graph.replay()
+        if rep == 0:
+            mid = kbn.bn_grad(*inputs[1], 1e-5)
+        torch.cuda.synchronize()
+        for o, w_ in zip(outs, want):
+            assert all(torch.equal(a, b) for a, b in zip(o, w_))
+    assert all(torch.equal(a, b) for a, b in zip(mid, want[1]))
 
 
 @pytest.mark.cuda
