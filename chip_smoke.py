@@ -77,7 +77,14 @@ calls, on random weights and data made from ``--seed``:
   titles, ``cos_sim``, batch 256), and ``nets.scaled_dot_product_attention``
   at the transformer cell's width (batch 16, seq 512, d_model 512, 8
   heads) against the ``fused_attention`` op, whose float32 B1 it
-  launches.
+  launches;
+* the CRNN-CTC text recognizer (PaddlePaddle/models'
+  ocr_recognition/crnn_ctc_model.py: 48x512 images, conv channels 16 to
+  128, GRUs of 200, 95 classes and the blank, batch 32, Momentum lr
+  1e-3 with L2 decay): trained and evaluated (``warpctc``,
+  ``ctc_greedy_decoder``, ``edit_distance``) with the published relu
+  candidate (the GRU's step loop) and with tanh (4 float32 GRU forwards
+  and 2 backwards a step at [32, 64, 200]).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -214,6 +221,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    K=4 x 2 bitwise, detection output and mAP at SSD300's test settings
    on the trained weights, the NMS loop's share of the evaluation, and
    the card against the CPU at channels / 8 and batch 4);
+6h. the sequence and CTC families: each of their 16 op types on the
+   card against the CPU (outputs, lengths and gradients at 6f's bounds,
+   warpctc and edit_distance also at the CRNN's sizes), a duplicate-id
+   sequence_scatter twice to the same bits; B5 and B6 at the CRNN's
+   [32, 64, 200] against their plain versions and float64, twice to the
+   same bits, timed beside their bound and cuDNN's GRU; the CRNN-CTC
+   recognizer at full width, relu and tanh candidates (1 + 5 eager
+   Momentum steps with a falling loss, B5/B6 launches exactly the
+   program's, 0 for relu, eagerly and per replay, run_chunk K=4 x 2
+   bitwise, the eval program's decodes and edit distances in range, a
+   profile of a step with warpctc's share, the eval call's host and busy
+   ms), and the card against the CPU at channels / 4 and batch 8 (3
+   losses, first-step gradients at bounds set from what a 1e-6 input
+   change does to them, the sharpened eval's decodes row for row);
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -618,6 +639,54 @@ SSD_LTOL = 1e-3
 # card against CPU
 SSD_GTOL, SSD_PL2TOL, SSD_L2TOL = 1e-1, 2e-2, 1e-2
 
+# the CRNN-CTC text recognizer (PaddlePaddle/models,
+# fluid/ocr_recognition/crnn_ctc_model.py: ocr_convs, encoder_net,
+# ctc_train_net; ctc_reader.py: DATA_SHAPE [1, 48, 512], 95 classes):
+# four groups of two 3x3 convs (16, 32, 64, 128 channels), each with a
+# batch norm and relu, the first three groups ending in a 2x2 max pool
+# in ceil mode; image-to-sequence over the 6-row map (64 frames of 768);
+# two fcs of 3 x 200 feeding a forward and a reverse GRU of 200 with the
+# relu candidate (variant "a", as published) or tanh ("b": dynamic_gru's
+# default, which runs B5 and B6); an fc to 96 classes; warpctc (blank
+# 95, norm_by_times), its sum under Momentum 0.9 at lr 1e-3, L2 decay
+# 4e-4 on every parameter. Batch 32; labels of 8..24 ids in 0..94, every
+# row alignable in its 64 frames. Cut: none of the widths; the frames'
+# lengths are fed to sequence_unpad (the repo's im2sequence is dense).
+CRNN = dict(width=512, channels=(16, 32, 64, 128), hidden=200, classes=95,
+            lr=1e-3)
+CRNN_B, CRNN_LABELS, CRNN_L2 = 32, (8, 24), 4e-4
+CRNN_ACTS = (("a", "relu"), ("b", "tanh"))
+GRAPH_K.update(crnn=4)
+# the card against the CPU: channels / 4, batch 8 at the full 48 x 512
+# input and H 200: 3 losses within CRNN_LTOL; the eval program's
+# decodes from the startup's weights with the output layer x
+# CRNN_SHARPEN equal row for row but at frames whose top-two logit
+# margin is under CRNN_TIE (counted); the first-step gradients all together
+# within CRNN_L2TOL in relative L2 norm, each within CRNN_GTOL of its
+# largest magnitude; a
+# gradient whose L2 norm is under CRNN_CANCELS of the largest one's is
+# held in the whole only. Why: at the published initialisers (batch-norm
+# scales from N(0, 0.01), whose epsilon then outweighs the variance of
+# the tiny activations) the conv trunk's gradients are 1e-15 to 4e-2 of
+# the largest and ill-conditioned: relu gates of batch-norm outputs
+# near 0 flip on rounding, so a 1e-6 change of the input moves the
+# CPU's own trunk gradients by up to ~4e-3 of their largest entry
+# (crnn_conditioning prints it for each run) while the encoder's (fcs,
+# GRUs) do not move, and all together move ~2e-5
+CRNN_X = dict(channels=(4, 8, 16, 32), batch=8)
+CRNN_LTOL, CRNN_TIE, CRNN_SHARPEN = 1e-4, 1e-5, 30.0
+CRNN_GTOL, CRNN_L2TOL, CRNN_CANCELS = 1e-2, 1e-4, 1e-4
+# phase 6h's sweep: the sequence and CTC types at the JAX sweeps' shapes
+# and at the CRNN's ([32, 64, 96] logits, labels of 8..24; 32 rows of 64
+# ids against 24), the card against the CPU at the DENSE_* bounds,
+# integers and lengths exact. A CRNN-size case ("_crnn") holds its floats
+# within DENSE_RTOL plus SEQ_LONG_AMAX of the largest magnitude: warpctc's
+# gradient runs back through 64 frames of log-add-exp, the card's exp and
+# log1p against the CPU's (an H100 run found 6.1e-6 of the largest
+# magnitude where DENSE_AMAX allows 1e-6)
+SEQ_TYPES = 16
+SEQ_LONG_AMAX = 2e-5
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -699,8 +768,12 @@ REPLACES = {"flash_attention": "paddle_tpu/kernels/flash_attention.py:70",
             "gru_bwd_bf16": "paddle_tpu/kernels/gru_cell.py:143"}
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name):
-    print("== %s" % name, flush=True)
+    print("== %s [%.1f s]" % (name, time.perf_counter() - _STARTED),
+          flush=True)
 
 
 def card_line():
@@ -856,6 +929,17 @@ def assert_close(what, got, want, atol=ATOL, rtol=RTOL):
     return float(err.max()) if err.numel() else 0.0
 
 
+# the plain versions' times are context for the kernels' (1 to 350 ms a
+# call, the host's launches as much as the device's work): the median of
+# PLAIN_REPS runs after the warmup
+PLAIN_REPS = 5
+
+
+def plain_time_ms(fn, reps=PLAIN_REPS, flush=None):
+    """time_ms for a plain version: PLAIN_REPS runs unless told."""
+    return time_ms(fn, reps=reps, flush=flush)
+
+
 def time_ms(fn, reps=25, flush=None):
     """Median over ``reps`` runs of one call's device time (CUDA
     events), after warmup; ``flush`` runs before each timed call to
@@ -886,11 +970,14 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
     the card's busy share of ``step_ms`` (host wall time per step, taken
     without the profiler), the top-10 device kernels and, for
     ``share_of`` (a name or a tuple of names), the device time of the
-    kernels whose name holds one."""
+    kernels whose name holds one. Returns (busy ms, device ops) a step,
+    (None, 0) where the profiler recorded no device event. The profiler
+    records the device's activity only: recording every host op as well
+    multiplies the cost of profiling an eager step of thousands of
+    launches several times over and adds nothing to these sums."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
@@ -903,7 +990,7 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
     if not by_kernel:
         print("%s: host %.3f ms/step; device busy not measured (the "
               "profiler recorded no device events)" % (label, step_ms))
-        return
+        return None, 0
     busy_ms = sum(us for us, _ in by_kernel.values()) / 1000.0 / n_steps
     ops = sum(n for _, n in by_kernel.values()) / n_steps
     print("%s: host %.3f ms/step; device busy %.3f ms/step (%.1f%%, idle "
@@ -924,6 +1011,7 @@ def device_profile(step, n_steps, step_ms, label, share_of=None):
               "device's busy time" % (
                   label, "+".join(names), us / 1000.0 / n_steps,
                   n / n_steps, 100.0 * us / 1000.0 / n_steps / busy_ms))
+    return busy_ms, ops
 
 
 def lstm_inputs(B, T, H, peep, g, dev, ragged=True, min_len=0):
@@ -1195,11 +1283,39 @@ def gru_widest(gc, dev):
                          "not" % (h + 8))
 
 
+def check_gru_shape(gc, B, T, H, g, dev, ragged=True):
+    """B5 and B6 against their plain versions at [B, T, H]: hs and the
+    stash; dxg, dW (through the GEMMs outside the kernel) and dh0.
+    Returns the max abs errors of the forward, the backward and dW."""
+    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged)
+    what = "gru %s" % ((B, T, H),)
+    leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
+    hs = gc.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
+    got = torch.autograd.grad(hs, leaves, dhs)
+    _, stash = gc.gru_forward(xg, w, h0, mask)
+    rhs, rst = gc.gru_forward_reference(xg, w, h0, mask)
+    dxg, dh0 = gc.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
+    h_prev = torch.cat([h0[:, None], rhs[:, :-1]], dim=1)
+    dw = torch.cat([
+        torch.einsum("bth,btg->hg", h_prev, dxg[..., :2 * H]),
+        torch.einsum("bth,btg->hg", rst[..., H:2 * H] * h_prev,
+                     dxg[..., 2 * H:])], dim=1)
+    fwd = max(assert_close("%s %s" % (what, name), a.detach(), b, LSTM_ATOL,
+                           LSTM_RTOL)
+              for name, a, b in (("hs", hs, rhs), ("stash", stash, rst)))
+    errs = {}
+    for name, a, b in (("dxg", got[0], dxg), ("dW", got[1], dw),
+                       ("dh0", got[2], dh0)):
+        atol = LSTM_ATOL * max(1.0, float(b.abs().max()))
+        errs[name] = assert_close("%s %s" % (what, name), a, b, atol,
+                                  LSTM_RTOL)
+    return fwd, max(errs["dxg"], errs["dh0"]), errs["dW"]
+
+
 def check_gru(gc, g, dev):
-    """B5 and B6 against their plain versions: hs and the stash; dxg, dW
-    (through the GEMMs outside the kernel) and dh0, at three shapes and
-    at the widest H that B6 takes on this card. Returns the max abs
-    errors {kernel: err} and dW's."""
+    """B5 and B6 against their plain versions (check_gru_shape) at three
+    shapes and at the widest H that B6 takes on this card. Returns the
+    max abs errors {kernel: err} and dW's."""
     err = {"gru_fwd": 0.0, "gru_bwd": 0.0}
     dw_err = 0.0
     h_max, plan = gru_widest(gc, dev)
@@ -1207,31 +1323,10 @@ def check_gru(gc, g, dev):
           "card: %d (%s)" % (S2S_B, h_max, json.dumps(plan)))
     for B, T, H in ((8, 5, 32), (S2S_B, S2S_T, S2S["hidden_dim"]),
                     (37, 17, 128), (S2S_B, S2S_T, h_max)):
-        xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev)
-        what = "gru %s" % ((B, T, H),)
-        leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
-        hs = gc.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
-        got = torch.autograd.grad(hs, leaves, dhs)
-        _, stash = gc.gru_forward(xg, w, h0, mask)
-        rhs, rst = gc.gru_forward_reference(xg, w, h0, mask)
-        dxg, dh0 = gc.gru_backward_reference(rst, rhs, w, h0, mask, dhs)
-        h_prev = torch.cat([h0[:, None], rhs[:, :-1]], dim=1)
-        dw = torch.cat([
-            torch.einsum("bth,btg->hg", h_prev, dxg[..., :2 * H]),
-            torch.einsum("bth,btg->hg", rst[..., H:2 * H] * h_prev,
-                         dxg[..., 2 * H:])], dim=1)
-        for name, a, b in (("hs", hs, rhs), ("stash", stash, rst)):
-            err["gru_fwd"] = max(err["gru_fwd"], assert_close(
-                "%s %s" % (what, name), a.detach(), b, LSTM_ATOL,
-                LSTM_RTOL))
-        for name, a, b in (("dxg", got[0], dxg), ("dW", got[1], dw),
-                           ("dh0", got[2], dh0)):
-            atol = LSTM_ATOL * max(1.0, float(b.abs().max()))
-            e = assert_close("%s %s" % (what, name), a, b, atol, LSTM_RTOL)
-            if name == "dW":
-                dw_err = max(dw_err, e)
-            else:
-                err["gru_bwd"] = max(err["gru_bwd"], e)
+        fwd, bwd, dw = check_gru_shape(gc, B, T, H, g, dev)
+        err["gru_fwd"] = max(err["gru_fwd"], fwd)
+        err["gru_bwd"] = max(err["gru_bwd"], bwd)
+        dw_err = max(dw_err, dw)
     torch.cuda.synchronize()
     return err, dw_err
 
@@ -2254,13 +2349,13 @@ def srl_batch(rng, b, sizes):
 def packed_on(fluid, feed, dev):
     """A feed on the card, so that it stays there: ragged [len_i, 1] id
     lists packed as the executor packs them (zero-padded to the
-    longest), arrays as they are."""
+    longest, in the arrays' dtype), arrays as they are."""
     from paddle_tpu_torch.core.executor import _pack_ragged
 
     out = {}
     for name, v in feed.items():
         if isinstance(v, list):
-            p = _pack_ragged(v, "int64")
+            p = _pack_ragged(v, v[0].dtype.name)
             out[name] = fluid.PackedSeq(p.data.to(dev), p.lengths.to(dev))
         else:
             out[name] = torch.from_numpy(v).to(dev)
@@ -2858,10 +2953,12 @@ DENSE_RANDOM = (
     ("random_crop", "X", (2, 3, 8, 8), {"shape": [3, 5, 5]}))
 
 
-def _lower(type, ins, attrs, dev, key=0, uid=1, grad_cots=None):
+def _lower(type, ins, attrs, dev, key=0, uid=1, grad_cots=None,
+           lengths=False):
     """One op's lowering on ``dev`` over numpy inputs: its outputs on the
-    host, and (``grad_cots``, one cotangent a float output) the
-    gradients with respect to its float inputs by autograd."""
+    host (with ``lengths``, each sequence output's lengths after them),
+    and (``grad_cots``, one cotangent a float output) the gradients with
+    respect to its float inputs by autograd."""
     from paddle_tpu_torch import PackedSeq
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.core.lower import TraceContext
@@ -2900,6 +2997,9 @@ def _lower(type, ins, attrs, dev, key=0, uid=1, grad_cots=None):
                 raise AssertionError("%s: an output on %s, not %s"
                                      % (type, v.device, dev))
         host = [v.detach().cpu().numpy() for v in flat]
+        if lengths:
+            host += [v.lengths.cpu().numpy() for s in sorted(out)
+                     for v in out[s] if isinstance(v, PackedSeq)]
         if grad_cots is None:
             return host, None
         fl = [v for v in flat if v.is_floating_point()]
@@ -3172,8 +3272,7 @@ def device_ops(fn):
     torch.profiler; (None, 0) if it recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
@@ -4180,6 +4279,713 @@ def vision_phase(fluid, seed, dev):
                                 "busy_graphs")]
                   for k, v in dict(w2v, ssd300=ssd).items()}), card_line()))
     return launched
+
+
+# ---- phase 6h: the sequence and CTC families, CRNN-CTC ----
+
+def crnn_build(fluid, width=512, channels=(16, 32, 64, 128), hidden=200,
+               classes=95, lr=1e-3, act="relu"):
+    """The CRNN-CTC recognizer (CRNN's comment above) through ``fluid``'s
+    layers (either package), at an input of 48 x ``width``, the four
+    conv groups' ``channels``, GRUs of ``hidden`` with candidate
+    activation ``act``, and ``classes`` + 1 outputs (the blank last).
+    The initializers are the published ones: Normal(0, 0.0005) for the
+    first group's conv weights, Normal(0, 0.01) for the other convs' and
+    every batch norm's scale, Normal(0, 0) for the batch norms' shifts,
+    Normal(0, 0.02) for the fcs, TruncatedNormal(0, 0.02) for the GRUs'
+    weights and Normal(0, 0.02) at learning rate 2 for their biases; L2
+    decay CRNN_L2 on every parameter. The eval program is the forward
+    cloned for test (batch norms on their running statistics) with the
+    greedy decoder and the edit distance to the label, unnormalised.
+    Feeds: ``pixel`` [B, 1, 48, width], ``label`` (int32 sequences) and
+    ``seq_len`` [B, 1] int64 (the frames of each row).
+
+    Returns (program, startup, eval program, (loss, logits), (decoded,
+    distance))."""
+    layers, init = fluid.layers, fluid.initializer
+
+    def attr(std, **kw):
+        return fluid.ParamAttr(
+            regularizer=fluid.regularizer.L2Decay(CRNN_L2),
+            initializer=init.Normal(0.0, std), **kw)
+
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        pixel = layers.data("pixel", [1, 48, width])
+        label = layers.data("label", [1], dtype="int32", lod_level=1)
+        seq_len = layers.data("seq_len", [1], dtype="int64")
+        x = pixel
+        for g, ch in enumerate(channels):
+            for _ in range(2):
+                x = layers.conv2d(x, ch, 3, padding=1,
+                                  param_attr=attr(0.0005 if g == 0
+                                                  else 0.01))
+                x = layers.batch_norm(x, act="relu", param_attr=attr(0.01),
+                                      bias_attr=attr(0.0))
+            if g < len(channels) - 1:
+                x = layers.pool2d(x, 2, "max", pool_stride=2,
+                                  ceil_mode=True)
+        feat = layers.im2sequence(x, filter_size=[int(x.shape[2]), 1],
+                                  stride=[1, 1])
+        frames = layers.sequence_unpad(feat, seq_len)
+        grus = []
+        for reverse in (False, True):
+            xg = layers.fc(frames, 3 * hidden, num_flatten_dims=2,
+                           param_attr=attr(0.02), bias_attr=attr(0.02))
+            grus.append(layers.dynamic_gru(
+                xg, hidden, is_reverse=reverse,
+                param_attr=fluid.ParamAttr(
+                    regularizer=fluid.regularizer.L2Decay(CRNN_L2),
+                    initializer=init.TruncatedNormal(0.0, 0.02)),
+                bias_attr=attr(0.02, learning_rate=2.0),
+                candidate_activation=act))
+        logits = layers.fc(grus, classes + 1, num_flatten_dims=2,
+                           param_attr=attr(0.02), bias_attr=attr(0.0))
+        cost = layers.warpctc(logits, label, blank=classes,
+                              norm_by_times=True)
+        loss = layers.reduce_sum(cost)
+    test = prog.clone(for_test=True)
+    block = test.global_block()
+    with fluid.program_guard(test, fluid.Program()):
+        decoded = layers.ctc_greedy_decoder(block.var(logits.name),
+                                            blank=classes)
+        dist, _ = layers.edit_distance(
+            decoded, layers.cast(block.var(label.name), "int64"),
+            normalized=False)
+    with fluid.program_guard(prog, startup):
+        fluid.optimizer.Momentum(lr, 0.9).minimize(loss)
+    return prog, startup, test, (loss, logits), (decoded, dist)
+
+
+def crnn_labels(rng, batch, frames, classes=95, lengths=(8, 24)):
+    """``batch`` labels of ``lengths`` ids in 0..classes-1, each one
+    alignable in ``frames`` frames: its length plus its adjacent repeats
+    (each needs a blank between) at most ``frames``."""
+    rows = []
+    while len(rows) < batch:
+        n = rng.randint(lengths[0], lengths[1] + 1)
+        r = rng.randint(0, classes, n)
+        if n + int((r[1:] == r[:-1]).sum()) <= frames:
+            rows.append(r.astype(np.int32).reshape(-1, 1))
+    return rows
+
+
+def crnn_feed(rng, batch, width=512, classes=95, lengths=(8, 24)):
+    """A synthetic batch: pixels uniform in [0, 1), labels of
+    ``lengths`` ids (a ragged list of [L, 1] int32), every row width / 8
+    frames."""
+    frames = width // 8
+    return {"pixel": rng.uniform(0, 1, (batch, 1, 48, width)).astype(
+                np.float32),
+            "label": crnn_labels(rng, batch, frames, classes, lengths),
+            "seq_len": np.full((batch, 1), frames, np.int64)}
+
+
+def seq_cases(rng):
+    """(name, op type, inputs, attrs) of phase 6h's sweep: each of the 13
+    sequence types and the 3 CTC types at the JAX sweeps' shapes
+    (tests/test_op_sweep_rnn_seq.py TestSequenceFamily and
+    TestMaskedGradients, tests/test_op_tail.py TestLodReset,
+    tests/test_crf_ctc.py), with rows of length 0 and duplicate ids,
+    and warpctc and edit_distance at the CRNN's sizes. A ("seq", data,
+    lengths) input is a PackedSeq."""
+    def seq(data, lens):
+        data = np.array(data)
+        for i, n in enumerate(lens):
+            data[i, n:] = 0
+        return ("seq", data, np.asarray(lens, np.int32))
+
+    def ps(b, t, d, lens, scale=1.0):
+        return seq((rng.rand(b, t, d).astype(np.float32) - 0.5) * scale,
+                   lens)
+
+    def ids(rows, width, dtype=np.int32):
+        data = np.zeros((len(rows), width, 1), dtype)
+        for i, r in enumerate(rows):
+            data[i, :len(r), 0] = r
+        return seq(data, [len(r) for r in rows])
+
+    def flat_x(lens, d, t):
+        data = np.zeros((len(lens), t, d), np.float32)
+        stream = rng.rand(sum(lens), d).astype(np.float32)
+        pos = 0
+        for b, n in enumerate(lens):
+            data[b, :n] = stream[pos:pos + n]
+            pos += n
+        return seq(data, lens)
+
+    tokens = seq(np.array([[[1], [2], [0], [2]], [[2], [2], [0], [0]],
+                           [[3], [0], [0], [0]]], np.int64), [4, 2, 0])
+    wide_lab = crnn_labels(rng, CRNN_B, CRNN["width"] // 8,
+                           CRNN["classes"], CRNN_LABELS)
+    hyps = [rng.randint(0, CRNN["classes"],
+                        rng.randint(0, CRNN["width"] // 8 + 1))
+            for _ in range(CRNN_B)]
+    return [
+        ("unpad", "sequence_unpad",
+         {"X": [rng.randn(3, 4, 2).astype(np.float32)],
+          "Length": [np.array([4, 2, 0], np.int64)]}, {}),
+        ("softmax", "sequence_softmax", {"X": [ps(2, 4, 1, [4, 2])]}, {}),
+        ("softmax_2d_empty_row", "sequence_softmax",
+         {"X": [seq(rng.randn(3, 5).astype(np.float32) * 3, [5, 0, 2])]},
+         {}),
+        ("expand_dense", "sequence_expand",
+         {"X": [np.array([[1.0], [2.0]], np.float32)],
+          "Y": [ps(2, 3, 1, [3, 2])]}, {"ref_level": -1}),
+        ("expand_seq", "sequence_expand",
+         {"X": [ps(2, 2, 3, [1, 2])], "Y": [ps(2, 4, 1, [3, 4])]}, {}),
+        ("expand_as", "sequence_expand_as",
+         {"X": [np.array([[1.0], [2.0]], np.float32)],
+          "Y": [ps(2, 3, 1, [3, 1])]}, {}),
+        ("concat", "sequence_concat",
+         {"X": [ps(3, 3, 2, [3, 0, 1]), ps(3, 2, 2, [0, 2, 1]),
+                ps(3, 4, 2, [2, 4, 0])]}, {}),
+        ("reverse", "sequence_reverse",
+         {"X": [ps(3, 4, 2, [4, 0, 3], scale=2.0)]}, {}),
+        ("erase", "sequence_erase", {"X": [tokens]}, {"tokens": [0, 2]}),
+        ("slice", "sequence_slice",
+         {"X": [ps(3, 4, 2, [4, 2, 3], scale=2.0)],
+          "Offset": [np.array([[0], [3], [1]], np.int64)],
+          "Length": [np.array([[2], [1], [2]], np.int64)]}, {}),
+        ("reshape", "sequence_reshape", {"X": [ps(2, 4, 3, [3, 1])]},
+         {"new_dim": 4}),
+        ("scatter_duplicates", "sequence_scatter",
+         {"X": [rng.randn(3, 6).astype(np.float32)],
+          "Ids": [seq(np.array([[2, 2, 5, 2], [-1, 0, 7, -1],
+                                [1, 1, 1, 1]], np.int64)[..., None],
+                      [4, 4, 0])],
+          "Updates": [seq(rng.randn(3, 4, 1).astype(np.float32) * 1e3,
+                          [4, 4, 0])]}, {}),
+        ("enumerate", "sequence_enumerate",
+         {"X": [seq(rng.randint(0, 9, (3, 5, 1)).astype(np.int64),
+                    [5, 1, 0])]}, {"win_size": 3, "pad_value": -1}),
+        ("roll", "sequence_roll", {"X": [ps(3, 5, 2, [5, 3, 0])]},
+         {"offset": -1}),
+        ("lod_reset_target_lod", "lod_reset",
+         {"X": [flat_x([2, 3, 0, 2], 2, 3)]}, {"target_lod": [0, 1, 1, 7]}),
+        ("lod_reset_y", "lod_reset",
+         {"X": [flat_x([4, 2], 1, 4)],
+          "Y": [seq(np.zeros((3, 3, 1), np.float32), [1, 2, 3])]}, {}),
+        ("warpctc", "warpctc",
+         {"Logits": [seq(rng.randn(4, 7, 5).astype(np.float32) * 2,
+                         [7, 5, 4, 6])],
+          "Label": [ids([[1, 2, 2], [3, 3], [1, 2, 3, 4], []], 4)]},
+         {"blank": 0, "norm_by_times": True}),
+        ("warpctc_crnn", "warpctc",
+         {"Logits": [seq(rng.randn(CRNN_B, CRNN["width"] // 8,
+                                   CRNN["classes"] + 1).astype(np.float32),
+                         [CRNN["width"] // 8] * CRNN_B)],
+          "Label": [ids([r[:, 0] for r in wide_lab], CRNN_LABELS[1])]},
+         {"blank": CRNN["classes"], "norm_by_times": True}),
+        ("ctc_align", "ctc_align",
+         {"Input": [seq(rng.randint(0, 4, (4, 8, 1)).astype(np.int32),
+                        [8, 3, 8, 0])]}, {"blank": 0}),
+        ("ctc_align_ties", "ctc_align",
+         {"Input": [seq(np.array([[[1.0, 3.0, 3.0, 0.0], [2.0, 2.0, 2.0, 2.0],
+                                   [0.0, 0.0, 1.0, 1.0]],
+                                  [[0.5, 0.5, 0.0, 0.5], [1.0, 0.0, 1.0, 0.0],
+                                   [0.0, 4.0, 0.0, 4.0]]], np.float32),
+                        [3, 3])]}, {"blank": 0}),
+        ("ctc_align_logits", "ctc_align",
+         {"Input": [seq(rng.randn(CRNN_B, CRNN["width"] // 8,
+                                  CRNN["classes"] + 1).astype(np.float32),
+                        [CRNN["width"] // 8] * CRNN_B)]},
+         {"blank": CRNN["classes"]}),
+        ("edit_distance", "edit_distance",
+         {"Hyps": [ids([[1, 2, 3], [4], [], [5, 6, 7, 8]], 4)],
+          "Refs": [ids([[1, 3], [], [2, 2], [8, 7, 6, 5, 4]], 5)]},
+         {"normalized": True}),
+        ("edit_distance_crnn", "edit_distance",
+         {"Hyps": [ids(hyps, CRNN["width"] // 8, np.int64)],
+          "Refs": [ids([r[:, 0] for r in wide_lab], CRNN_LABELS[1],
+                       np.int64)]}, {"normalized": False}),
+    ]
+
+
+def seq_amax(name):
+    """The share of the largest magnitude that phase 6h's sweep allows a
+    case's floats (None: DENSE_AMAX)."""
+    return SEQ_LONG_AMAX if name.endswith("_crnn") else None
+
+
+def seq_sweep(dev, seed):
+    """Phase 6h (a): the 16 sequence and CTC types on the card against
+    the CPU from the same numpy inputs: outputs and lengths, and the
+    gradients by autograd where the type is differentiable; integers and
+    lengths exact, floats within DENSE_RTOL plus DENSE_AMAX of the
+    largest magnitude. sequence_scatter's duplicate ids (added in index
+    order, core.lower.add_rows) give the same bits on two runs."""
+    from paddle_tpu_torch.core import registry
+
+    rng = np.random.RandomState(seed + 23)
+    cpu = torch.device("cpu")
+    worst, types, n_grads = 0.0, set(), 0
+    for name, type, ins, attrs in seq_cases(rng):
+        types.add(type)
+        want, _ = _lower(type, ins, attrs, cpu, lengths=True)
+        got, _ = _lower(type, ins, attrs, dev, lengths=True)
+        share = seq_amax(name)
+        for k, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _dense_close("%s out %d" % (name, k), g, w,
+                                            share))
+        spec = registry.get(type)
+        if spec.no_grad or not any(np.issubdtype(w.dtype, np.floating)
+                                   for w in want):
+            continue
+        cots = [np.asarray(rng.randn(*w.shape), np.float32) for w in want
+                if np.issubdtype(w.dtype, np.floating)]
+        _, gw = _lower(type, ins, attrs, cpu, grad_cots=cots)
+        _, gg = _lower(type, ins, attrs, dev, grad_cots=cots)
+        for k, (g, w) in enumerate(zip(gg, gw)):
+            worst = max(worst, _dense_close("%s grad %d" % (name, k), g, w,
+                                            share))
+            n_grads += 1
+        if type == "sequence_scatter":
+            again, _ = _lower(type, ins, attrs, dev)
+            _, gg2 = _lower(type, ins, attrs, dev, grad_cots=cots)
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(got + gg, again + gg2)):
+                raise AssertionError("sequence_scatter: two runs on the "
+                                     "card differ")
+            print("sequence_scatter with duplicate ids: two runs on the "
+                  "card bitwise equal; bitwise the CPU's: %s" % all(
+                      np.array_equal(a, b) for a, b in zip(got, want)))
+    if len(types) != SEQ_TYPES:
+        raise AssertionError("the sweep covers %d types" % len(types))
+    print("sequence and CTC sweep: %d types on the card against the CPU, "
+          "%d gradients; integers and lengths exact, the worst float %.3g "
+          "x max|ref| (bound rtol %g + %g x max|ref|, %g at the CRNN's "
+          "sizes)" % (len(types), n_grads, worst, DENSE_RTOL, DENSE_AMAX,
+                      SEQ_LONG_AMAX))
+    return worst
+
+
+def crnn_gru_kernels(gc, g, dev):
+    """Phase 6h (c): B5 and B6 at variant (b)'s shape, [CRNN_B, 64, 200]
+    float32, every step valid: against their plain versions at the
+    kernels' bounds (check_gru_shape), against the float64 plain
+    versions (B6 on the float64 stash), twice to the same bits, and
+    their times beside their bound and cuDNN's GRU at the same shape.
+    Returns the max abs errors {kernel: err}."""
+    B, T, H = CRNN_B, CRNN["width"] // 8, CRNN["hidden"]
+    fwd, bwd, dw = check_gru_shape(gc, B, T, H, g, dev, ragged=False)
+    fplan = gc.launch_plan("gru_fwd", B, H, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    bplan = gc.launch_plan("gru_bwd", B, H, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    for kind, pl in (("gru_fwd", fplan), ("gru_bwd", bplan)):
+        card = gc.card_plan(kind, B, H, dev)
+        if card != {k: pl[k] for k in card}:
+            raise AssertionError("%s at H %d: launch_plan %s != the "
+                                 "kernel's %s" % (kind, H, pl, card))
+    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged=False)
+    f64 = [t.double() for t in (xg, w, h0, mask, dhs)]
+    ths, tst = gc.gru_forward_reference(*f64[:4])
+    tdxg, tdh0 = gc.gru_backward_reference(tst, ths, *f64[1:])
+    hs, st = gc.gru_forward(xg, w, h0, mask)
+    dxg, dh0 = gc.gru_backward(tst.float(), ths.float(), w, h0, mask, dhs)
+    assert_close("gru [%d,%d,%d] float64 hs" % (B, T, H), hs.double(), ths,
+                 LSTM_ATOL, LSTM_RTOL)
+    assert_close("gru [%d,%d,%d] float64 stash" % (B, T, H), st.double(),
+                 tst, LSTM_ATOL, LSTM_RTOL)
+    for name, a, b in (("dxg", dxg, tdxg), ("dh0", dh0, tdh0)):
+        assert_close("gru [%d,%d,%d] float64 %s" % (B, T, H, name),
+                     a.double(), b,
+                     LSTM_ATOL * max(1.0, float(b.abs().max())), LSTM_RTOL)
+    runs = []
+    for _ in range(2):
+        hs_, st_ = gc.gru_forward(xg, w, h0, mask)
+        runs.append((hs_, st_) + gc.gru_backward(st_, hs_, w, h0, mask, dhs))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("gru [%d,%d,%d]: two runs differ" % (B, T, H))
+    print("gru at [%d,%d,%d] (CRNN variant b): against the plain versions "
+          "hs/stash %.3g, dxg/dh0 %.3g, dW %.3g (atol %g, rtol %g); "
+          "against float64 hs %.3g stash %.3g, dxg %.3g dh0 %.3g of their "
+          "largest magnitude; two runs bitwise equal; plans %s %s" % (
+              B, T, H, fwd, bwd, dw, LSTM_ATOL, LSTM_RTOL,
+              float((hs.double() - ths).abs().max()),
+              float((st.double() - tst).abs().max()),
+              float((dxg.double() - tdxg).abs().max() / tdxg.abs().max()),
+              float((dh0.double() - tdh0).abs().max() / tdh0.abs().max()),
+              json.dumps(fplan), json.dumps(bplan)))
+    # times: the kernels, their plain versions, cuDNN's GRU (input size
+    # H: it also does the input GEMM, and applies r after the product)
+    hs, st = gc.gru_forward(xg, w, h0, mask)
+    t_short = {}
+    xs, ws, h0s, ms_, dhss = gru_inputs(B, GRU_SHORT_T, H, g, dev,
+                                        ragged=False)
+    hss, sts = gc.gru_forward(xs, ws, h0s, ms_)
+    t_short["gru_fwd"] = time_ms(lambda: gc.gru_forward(xs, ws, h0s, ms_))
+    t_short["gru_bwd"] = time_ms(lambda: gc.gru_backward(
+        sts, hss, ws, h0s, ms_, dhss))
+    rnn = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    x_in = torch.randn(B, T, H, generator=g).to(dev)
+    frozen = torch.nn.GRU(H, H, batch_first=True).to(dev)
+    frozen.requires_grad_(False)
+    x_leaf = x_in.clone().requires_grad_()
+    kept, _ = frozen(x_leaf)
+    g_out = torch.randn(B, T, H, generator=g).to(dev)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            rnn(x_in)
+    rows = [dict(name="gru_fwd", ms=time_ms(lambda: gc.gru_forward(
+                     xg, w, h0, mask)),
+                 plain_ms=plain_time_ms(lambda: gc.gru_forward_reference(
+                     xg, w, h0, mask)),
+                 library_ms=time_ms(cudnn_fwd),
+                 bytes=4 * (2 * B * T * 3 * H + H * 3 * H + B * H + B * T
+                            + B * T * H),
+                 flops=2 * B * T * H * 3 * H),
+            dict(name="gru_bwd", ms=time_ms(lambda: gc.gru_backward(
+                     st, hs, w, h0, mask, dhs)),
+                 plain_ms=plain_time_ms(lambda: gc.gru_backward_reference(
+                     st, hs, w, h0, mask, dhs)),
+                 library_ms=time_ms(lambda: torch.autograd.grad(
+                     kept, x_leaf, g_out, retain_graph=True)),
+                 bytes=4 * (2 * B * T * 3 * H + 2 * B * T * H + H * 3 * H
+                            + 2 * B * H + B * T),
+                 flops=2 * B * T * 3 * H * H)]
+    for r in rows:
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * r["flops"] / TF32_FLOPS_PER_S * 1e3
+        print("time %s [%d,%d,%d] all steps valid (CRNN variant b): "
+              "kernel_ms %.6f (%.3f us a step; at T=%d %.6f ms: %.3f us a "
+              "step (t%d - t%d) / %d) plain_ms %.6f library_ms %.6f "
+              "bound_ms %.6f (%s; %d bytes, %d flops, 3xTF32); library: "
+              "%s (card: %s)" % (
+                  r["name"], B, T, H, r["ms"], r["ms"] * 1e3 / T,
+                  GRU_SHORT_T, t_short[r["name"]],
+                  (r["ms"] - t_short[r["name"]]) * 1e3 / (T - GRU_SHORT_T),
+                  T, GRU_SHORT_T, T - GRU_SHORT_T, r["plain_ms"],
+                  r["library_ms"], max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations", r["bytes"],
+                  r["flops"], "torch.nn.GRU (cuDNN) forward, input size "
+                  "200, no grad" if r["name"] == "gru_fwd" else
+                  "cuDNN GRU backward-data (torch.nn.GRU, input size 200, "
+                  "parameters frozen, one forward kept, "
+                  "torch.autograd.grad to the input)", card_line()))
+    del rnn, frozen, kept
+    torch.cuda.empty_cache()
+    return {"gru_fwd": fwd, "gru_bwd": bwd}
+
+
+def crnn_decode_rows(logits, decoded, dist):
+    """Host arrays of one eval call: logits [B, T, C], decoded ids and
+    lengths, distances."""
+    return (np.asarray(logits.data.cpu()), np.asarray(decoded.data.cpu()),
+            np.asarray(decoded.lengths.cpu()), np.asarray(dist.cpu()))
+
+
+def crnn_eval(exe, test, fetches, feed, scope):
+    """One eval call: (logits, decoded, distances) as host arrays."""
+    return crnn_decode_rows(*exe.run(test, feed=feed, fetch_list=fetches,
+                                     scope=scope, return_numpy=False))
+
+
+def crnn_sharpen(prog, scope):
+    """Multiply the output layer's weights (the program's last two
+    ``mul`` ops: the fc over the two GRUs) in ``scope`` by
+    CRNN_SHARPEN."""
+    for op in [op for op in prog.global_block().ops
+               if op.type == "mul"][-2:]:
+        name = op.input("Y")[0]
+        scope.set_var(name, scope.find_var(name) * CRNN_SHARPEN)
+
+
+def crnn_conditioning(fluid, build, seed, feed, label):
+    """How far the CPU's own first-step gradients move for a 1e-6 change
+    of the pixels (the cross-check's bounds rest on it): printed as
+    grad_diff at the cross-check's floor."""
+    from paddle_tpu_torch import unique_name
+
+    got = []
+    for eps in (0.0, 1e-6):
+        with unique_name.guard():
+            prog, startup, _, (loss,) = build()
+        startup.random_seed = seed
+        scope, cpu = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
+        cpu.run(startup, scope=scope)
+        f = dict(feed, pixel=feed["pixel"] + np.float32(eps) * np.random.
+                 RandomState(seed).randn(*feed["pixel"].shape).astype(
+                     np.float32))
+        names = sorted(p.name + "@GRAD"
+                       for p in prog.global_block().all_parameters())
+        got.append(cpu.run(prog, feed=f, fetch_list=names, scope=scope))
+    d = grad_diff(names, got[1], got[0], CRNN_CANCELS)
+    print("%s: a 1e-6 change of the pixels moves the CPU's own first-step "
+          "gradients: worst entry %.3g x max|g| (%s), worst gradient %.3g "
+          "of its L2 norm (%s), all together %.3g; %d held in the whole "
+          "only" % (label, d["worst"], d["worst_name"], d["pl2"],
+                    d["pl2_name"], d["l2"], len(d["cancels"])))
+    return d
+
+
+def crnn_variant(fluid, seed, dev, tag, act):
+    """Phase 6h (b, d): one CRNN-CTC variant at full width (CRNN, batch
+    CRNN_B): startup, 1 + 5 eager Momentum steps with a finite falling
+    loss, B5/B6 launches exactly the program's (recurrent_launches; none
+    for the relu candidate), the eval program on the trained scope
+    (decodes in range, distances >= 0) with its host and busy ms,
+    run_chunk's graph replays (one chunk of GRAPH_K["crnn"]) bitwise
+    against eager steps (launches credited per replay) with host and
+    busy ms/step and device ops a step, warpctc's share of the busy
+    step, and the card against the CPU at CRNN_X's width from the same
+    weights: 3 losses within CRNN_LTOL, first-step gradients within the
+    CRNN_* bounds (crnn_conditioning prints what a 1e-6 input change
+    does to them on the CPU), the eval decodes row for row from the
+    startup's weights with the output layer sharpened (crnn_sharpen) but
+    at frames whose top-two margin is under CRNN_TIE. cuDNN runs its
+    deterministic convolutions, so that graph replays can be held
+    bitwise. Returns (B5/B6 launches on the main path, numbers)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _crnn_variant(fluid, seed, dev, tag, act)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _crnn_variant(fluid, seed, dev, tag, act):
+    from paddle_tpu_torch import interop, unique_name
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lower import PackedSeq, TraceContext
+
+    t0 = time.perf_counter()
+    label = "CRNN-CTC (%s, %s)" % (tag, act)
+    with unique_name.guard():
+        prog, startup, test, (loss, logits), (decoded, dist) = crnn_build(
+            fluid, act=act, **CRNN)
+    fwd, bwd = recurrent_launches(prog, "gru")
+    want = {"gru_fwd": fwd, "gru_bwd": bwd} if act == "tanh" else {}
+    print("%s: per step, from the program: %d gru ops and %d gru_grad -> "
+          "%s" % (label, fwd - bwd, bwd, json.dumps(want) if want else
+                  "no GRU kernel (the relu candidate runs the step loop)"))
+    feed = crnn_feed(np.random.RandomState(seed + 11), CRNN_B,
+                     CRNN["width"], CRNN["classes"], CRNN_LABELS)
+    train = packed_on(fluid, feed, dev)
+    startup.random_seed = seed
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    exe.run(prog, feed=train, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t1 = time.perf_counter()
+    losses = [float(exe.run(prog, feed=train, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(5)]
+    step_ms = (time.perf_counter() - t1) * 1000.0 / 5
+    got = {n: c for n, c in all_launches().items() if c}
+    expect = {n: 5 * v for n, v in want.items() if v}
+    print("%s eager: losses %s; %.3f ms/step (with the loss's host read); "
+          "launches %s, from the program %s" % (
+              label, " ".join("%.6f" % v for v in losses), step_ms,
+              json.dumps(got), json.dumps(expect)))
+    if got != expect:
+        raise AssertionError("%s launch counts" % label)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("%s: loss not finite and falling: %s"
+                             % (label, losses))
+
+    t_eager = time.perf_counter()
+    # warpctc's share: its forward, and its grad op (the forward again
+    # under autograd, then the backward), on the step's own logits
+    lg = exe.run(prog, feed=train, fetch_list=[logits], scope=scope,
+                 return_numpy=False)[0]
+    ctc_op = next(op for op in prog.global_block().ops
+                  if op.type == "warpctc")
+    spec = registry.get("warpctc")
+    ctx = TraceContext(device=dev).for_op(ctc_op)
+
+    def ctc_fwd():
+        spec.lower(ctx, {"Logits": [lg], "Label": [train["label"]]},
+                   ctc_op.attrs, ctc_op)
+
+    def ctc_grad():
+        x = lg.data.detach().requires_grad_()
+        with torch.enable_grad():
+            out = spec.lower(ctx, {"Logits": [PackedSeq(x, lg.lengths)],
+                                   "Label": [train["label"]]},
+                             ctc_op.attrs, ctc_op)
+            torch.autograd.grad(out["Loss"].sum(), x)
+    ctc_fwd()
+    ctc_grad()
+    f_busy, f_ops = device_ops(ctc_fwd)
+    g_busy, g_ops = device_ops(ctc_grad)
+    ctc_busy = None if f_busy is None or g_busy is None else f_busy + g_busy
+
+    # the eval program on the trained scope
+    t_profile = time.perf_counter()
+    fetches = [logits, decoded, dist]
+    _, ids, lens, dists = crnn_eval(exe, test, fetches, train, scope)
+    frames = CRNN["width"] // 8
+    shape_ok = ids.shape == (CRNN_B, frames, 1)
+    ids = ids[..., 0]
+    valid = np.arange(ids.shape[1])[None, :] < lens[:, None]
+    ok = shape_ok and (lens <= frames).all() and (ids[valid] >= 0).all() \
+        and (ids[valid] < CRNN["classes"]).all() and not ids[~valid].any() \
+        and np.isfinite(dists).all() and (dists >= 0).all() and \
+        (dists == dists.round()).all()
+    print("%s eval on the trained weights: decode lengths %d..%d, ids in "
+          "%s, edit distances %d..%d (mean %.3f)" % (
+              label, lens.min(), lens.max(),
+              "[%d, %d]" % (ids[valid].min(), ids[valid].max())
+              if valid.any() else "(none)", dists.min(), dists.max(),
+              dists.mean()))
+    if not ok:
+        raise AssertionError("%s: decodes or distances out of range" % label)
+
+    def ev_call():
+        exe.run(test, feed=train, fetch_list=[decoded, dist], scope=scope,
+                return_numpy=False)
+    ev_call()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        ev_call()
+    torch.cuda.synchronize()
+    ev_ms = (time.perf_counter() - t1) * 1000.0 / 3
+    ev_busy, ev_ops = device_ops(ev_call)
+    print("%s eval call (eager, batch %d): host %.3f ms, device busy %s ms "
+          "in %d device ops (card: %s)" % (
+              label, CRNN_B, ev_ms, "%.3f" % ev_busy if ev_busy is not None
+              else "not measured", ev_ops, card_line()))
+    # six steps leave every frame's argmax on the blank (the blank's bias
+    # grows first); from the startup's weights with the output layer
+    # sharpened, the decodes hold labels
+    fresh = fluid.Scope()
+    exe.run(startup, scope=fresh)
+    crnn_sharpen(prog, fresh)
+    _, ids, lens, dists = crnn_eval(exe, test, fetches, train, fresh)
+    ids = ids[..., 0]
+    valid = np.arange(ids.shape[1])[None, :] < lens[:, None]
+    if not (valid.any() and (ids[valid] >= 0).all()
+            and (ids[valid] < CRNN["classes"]).all()
+            and not ids[~valid].any() and (dists >= 0).all()):
+        raise AssertionError("%s: sharpened decodes out of range" % label)
+    print("%s eval from the startup's weights, output layer x%g: decode "
+          "lengths %d..%d, ids in [%d, %d], edit distances %d..%d" % (
+              label, CRNN_SHARPEN, lens.min(), lens.max(), ids[valid].min(),
+              ids[valid].max(), dists.min(), dists.max()))
+    del scope, fresh, exe
+    torch.cuda.empty_cache()
+    t_eval = time.perf_counter()
+
+    res = graph_path(fluid, "crnn-ctc %s" % tag, (prog, startup, loss),
+                     train, GRAPH_K["crnn"], 1, seed, want,
+                     (CRNN_LTOL, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
+    res.update(eval_host=ev_ms, eval_busy=ev_busy, ctc_busy=ctc_busy)
+    step_busy = res["busy_eager"]
+    print("%s: warpctc a step (forward, and its grad op's forward + "
+          "backward) %s ms busy in %d device ops of the eager step's %s ms "
+          "in %.0f: %s (card: %s)" % (
+              label, "%.3f" % ctc_busy if ctc_busy is not None else
+              "not measured", f_ops + g_ops, "%.3f" % step_busy
+              if step_busy is not None else "not measured",
+              res["ops_eager"], "%.1f%%" % (100.0 * ctc_busy / step_busy)
+              if ctc_busy is not None and step_busy else "not measured",
+              card_line()))
+    del train
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at CRNN_X's width, batch CRNN_X["batch"]
+    t_graphs = time.perf_counter()
+    kw = dict(CRNN, channels=CRNN_X["channels"], act=act)
+    xfeed = crnn_feed(np.random.RandomState(seed + 12), CRNN_X["batch"],
+                      CRNN["width"], CRNN["classes"], CRNN_LABELS)
+
+    def build():
+        built = crnn_build(fluid, **kw)
+        return built[0], built[1], None, (built[3][0],)
+    crnn_conditioning(fluid, build, seed, xfeed, label)
+    cross_check(fluid, fluid.Executor(), build, seed, xfeed, 3,
+                "%s channels %s, batch %d" % (label, CRNN_X["channels"],
+                                              CRNN_X["batch"]),
+                gtol=CRNN_GTOL, ltol=CRNN_LTOL, l2tol=CRNN_L2TOL,
+                pl2_floor=CRNN_CANCELS)
+    # the eval program from the same weights on both: the startup's, its
+    # output layer sharpened (as the beam decode's comparison does), so
+    # that frames decode to labels and not all to the blank
+    with unique_name.guard():
+        xprog, xstart, xtest, (xloss, xlogits), xdec = crnn_build(fluid,
+                                                                  **kw)
+    xstart.random_seed = seed
+    cpu_scope, card_scope = fluid.Scope(), fluid.Scope()
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(xstart, scope=cpu_scope)
+    crnn_sharpen(xprog, cpu_scope)
+    interop.load_reference_state(
+        {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
+        fluid.CUDAPlace(0), [xprog, xstart])
+    xf = [xlogits] + list(xdec)
+    c_lg, c_ids, c_lens, c_d = crnn_eval(cpu, xtest, xf, xfeed, cpu_scope)
+    k_lg, k_ids, k_lens, k_d = crnn_eval(fluid.Executor(), xtest, xf,
+                                         packed_on(fluid, xfeed, dev),
+                                         card_scope)
+    top2 = np.sort(c_lg, -1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    near = margin < CRNN_TIE
+    flips = np.argmax(k_lg, -1) != np.argmax(c_lg, -1)
+    if (flips & ~near).any():
+        raise AssertionError("%s: a frame's argmax differs card against "
+                             "CPU at a margin over %g" % (label, CRNN_TIE))
+    rows_near = near.any(-1)
+    same = [r for r in range(c_ids.shape[0]) if not rows_near[r]]
+    if not (np.array_equal(k_ids[same], c_ids[same])
+            and np.array_equal(k_lens[same], c_lens[same])
+            and np.array_equal(k_d[same], c_d[same])):
+        raise AssertionError("%s: decodes differ card against CPU" % label)
+    print("card == cpu at %s channels %s, output layer x%g: decodes and "
+          "edit distances equal on %d of %d rows (decode lengths %d..%d); "
+          "frames under a top-two margin of %g: %d (in %d rows, excused), "
+          "argmax flipped at %d of them" % (
+              label, CRNN_X["channels"], CRNN_SHARPEN, len(same),
+              c_ids.shape[0], c_lens.min(), c_lens.max(), CRNN_TIE,
+              int(near.sum()), int(rows_near.sum()), int(flips.sum())))
+    t1 = time.perf_counter()
+    print("%s: %.1f s (eager steps %.1f, warpctc alone %.1f, eval %.1f, "
+          "graphs %.1f, card against CPU %.1f)" % (
+              label, t1 - t0, t_eager - t0, t_profile - t_eager,
+              t_eval - t_profile, t_graphs - t_eval, t1 - t_graphs))
+    return expect, res
+
+
+def ocr_phase(fluid, seed, dev):
+    """Phase 6h: the sequence and CTC families and the CRNN-CTC text
+    recognizer on the card: the 16 types' sweep, B5/B6 at variant (b)'s
+    shape, then variants (a) and (b) (crnn_variant). Returns ({kernel:
+    max abs err}, B5/B6 launches on the main path)."""
+    from paddle_tpu_torch.kernels import gru_cell as gc
+
+    t0 = time.perf_counter()
+    seq_sweep(dev, seed)
+    t1 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(seed + 13)
+    errs = crnn_gru_kernels(gc, g, dev)
+    t2 = time.perf_counter()
+    launched, nums = collections.Counter(), {}
+    for tag, act in CRNN_ACTS:
+        n, nums[tag] = crnn_variant(fluid, seed, dev, tag, act)
+        launched.update(n)
+    print("sequence/CTC phase parts: sweep %.1f s, B5/B6 at the CRNN's "
+          "shape %.1f s, CRNN variants %.1f s" % (
+              t1 - t0, t2 - t1, time.perf_counter() - t2))
+    print("sequence/CTC phase: %.1f s; per variant host ms/step eager / "
+          "graphs, busy ms/step eager / graphs, device ops a step, "
+          "warpctc's share of the busy step, eval host / busy ms: %s "
+          "(card: %s)" % (
+              time.perf_counter() - t0, json.dumps({
+                  tag: [None if v[n] is None else round(v[n], 3)
+                        for n in ("host_eager", "host_graphs", "busy_eager",
+                                  "busy_graphs")]
+                  + [v["ops_eager"], None if not v["ctc_busy"]
+                     or not v["busy_eager"] else
+                     round(v["ctc_busy"] / v["busy_eager"], 4),
+                     round(v["eval_host"], 3), None if v["eval_busy"] is None
+                     else round(v["eval_busy"], 3)]
+                  for tag, v in nums.items()}), card_line()))
+    return errs, dict(launched)
 
 
 def rnn_amp_phase(fluid, seed, dev, model):
@@ -5499,8 +6305,7 @@ def device_busy_ms(fn):
     runs, from torch.profiler, or None if it recorded no device event."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
@@ -5519,7 +6324,8 @@ def graph_path(fluid, label, built, feed, k, chunks, seed, want, bounds):
     L2, all together; PERF.md section 2). The kernels' launches through
     the graphs must equal ``want`` (a step's, from the program) times the
     steps. Then host ms/step and device busy ms/step, eager against
-    graphs, over one warm chunk. Returns the numbers."""
+    graphs, and the device ops a step eagerly, over one warm chunk.
+    Returns the numbers."""
     prog, startup, loss = built
     startup.random_seed = seed
     scope0 = fluid.Scope()
@@ -5625,8 +6431,9 @@ def graph_path(fluid, label, built, feed, k, chunks, seed, want, bounds):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1000.0 / k
         out[name.rstrip("2")] = min(ms, out.get(name.rstrip("2"), ms))
-    busy = {n: device_busy_ms(fn) for n, fn in (("eager", eager_chunk),
-                                                ("graphs", graph_chunk))}
+    prof = {n: device_ops(fn) for n, fn in (("eager", eager_chunk),
+                                            ("graphs", graph_chunk))}
+    busy = {n: v[0] for n, v in prof.items()}
     print("graphs %s: host ms/step eager %.3f, graphs %.3f (%.2fx); device "
           "busy ms/step eager %s, graphs %s" % (
               label, out["eager"], out["graphs"],
@@ -5640,7 +6447,8 @@ def graph_path(fluid, label, built, feed, k, chunks, seed, want, bounds):
                 busy_eager=None if busy["eager"] is None
                 else busy["eager"] / k,
                 busy_graphs=None if busy["graphs"] is None
-                else busy["graphs"] / k, noisy=len(noisy))
+                else busy["graphs"] / k, ops_eager=prof["eager"][1] / k,
+                noisy=len(noisy))
 
 
 def graphs_phase(fluid, seed, dev):
@@ -7107,6 +7915,20 @@ def main():
               SSD_B, args.seed))
     ssd_b8 = vision_phase(fluid, args.seed, dev)
 
+    # ---- 6h. the sequence and CTC families, CRNN-CTC ----
+    phase("sequence and CTC: %d types on the card against the CPU, B5/B6 "
+          "at [%d,%d,%d], the CRNN-CTC recognizer (48x%d, conv channels %s, "
+          "GRUs of %d, %d classes + blank, batch %d) with the relu and the "
+          "tanh candidate (seed %d)" % (
+              SEQ_TYPES, CRNN_B, CRNN["width"] // 8, CRNN["hidden"],
+              CRNN["width"], CRNN["channels"], CRNN["hidden"],
+              CRNN["classes"], CRNN_B, args.seed))
+    ocr_err, ocr_launches = ocr_phase(fluid, args.seed, dev)
+    for n, e in ocr_err.items():
+        max_err[n] = max(max_err[n], e)
+    for n, c in ocr_launches.items():
+        launches[n] += c
+
     # ---- 7. the convnet training slice at full width ----
     phase("ResNet-50 training at full width, configs A and B (seed %d)"
           % args.seed)
@@ -7191,7 +8013,7 @@ def main():
         rows.append(dict(
             name="flash_decode", shape="[16,8,512,64] cache_len=%d" % L,
             ms=time_ms(lambda: fa.flash_decode(q1, kc, vc, lens), flush=flush),
-            plain_ms=time_ms(lambda: fa.flash_decode_reference(
+            plain_ms=plain_time_ms(lambda: fa.flash_decode_reference(
                 q1, kc, vc, lens), flush=flush),
             # every row's length is L here: SDPA over the valid prefix,
             # unmasked, computes the same function
@@ -7230,7 +8052,7 @@ def main():
             shape="[16,8,512,64] cache_len=%d" % L,
             ms=time_ms(lambda: fa.flash_decode(q1, kb, vb, lens),
                        flush=flush),
-            plain_ms=time_ms(lambda: fa.flash_decode_reference(
+            plain_ms=plain_time_ms(lambda: fa.flash_decode_reference(
                 q1, kb, vb, lens), flush=flush),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q1b, kp, vp), flush=flush),
@@ -7252,7 +8074,7 @@ def main():
             name="flash_attention",
             shape="[%d,8,%d,%d] causal=%s" % (b, s, d, causal),
             ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
-            plain_ms=time_ms(lambda: fa.flash_attention_reference(
+            plain_ms=plain_time_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal), reps=5 if b > 1 else 25),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)),
@@ -7269,7 +8091,7 @@ def main():
         name="flash_attention_bf16",
         shape="[%d,8,%d,%d] causal=True" % (b, s, d),
         ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: fa.flash_attention_reference(
+        plain_ms=plain_time_ms(lambda: fa.flash_attention_reference(
             q, k, v, True), reps=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)),
@@ -7334,7 +8156,7 @@ def main():
     rows.append(dict(
         name="lstm_fwd", shape="[64,80,512] peep, all steps valid",
         ms=lstm_t["lstm_fwd", T],
-        plain_ms=time_ms(lambda: lc.lstm_forward_reference(
+        plain_ms=plain_time_ms(lambda: lc.lstm_forward_reference(
             xg, w, h0, c0, mask, p)),
         library_ms=time_ms(cudnn_fwd),
         library="torch.nn.LSTM (cuDNN) forward, input size 512, no "
@@ -7345,7 +8167,7 @@ def main():
     rows.append(dict(
         name="lstm_bwd", shape="[64,80,512] peep, all steps valid",
         ms=lstm_t["lstm_bwd", T],
-        plain_ms=time_ms(lambda: lc.lstm_backward_reference(
+        plain_ms=plain_time_ms(lambda: lc.lstm_backward_reference(
             stash, cs, w, p, c0, mask, dhs, dcs)),
         library_ms=time_ms(cudnn_fwd_bwd),
         library="torch.nn.LSTM (cuDNN) forward plus backward, input size "
@@ -7419,7 +8241,8 @@ def main():
     rows.append(dict(
         name="gru_fwd", shape="[64,30,512], all steps valid",
         ms=gru_t["gru_fwd", T],
-        plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
+        plain_ms=plain_time_ms(lambda: gc.gru_forward_reference(
+            xg, w, h0, mask)),
         library_ms=time_ms(cudnn_gru_fwd),
         library="torch.nn.GRU (cuDNN) forward, input size 512: applies r "
                 "after the product (r * (h W_hn)) where Paddle takes "
@@ -7430,7 +8253,7 @@ def main():
     rows.append(dict(
         name="gru_bwd", shape="[64,30,512], all steps valid",
         ms=gru_t["gru_bwd", T],
-        plain_ms=time_ms(lambda: gc.gru_backward_reference(
+        plain_ms=plain_time_ms(lambda: gc.gru_backward_reference(
             stash, hs, w, h0, mask, dhs)),
         library_ms=time_ms(cudnn_gru_bwd_data),
         library="cuDNN GRU backward-data, r after the product, includes dx "
@@ -7474,7 +8297,7 @@ def main():
     rows.append(dict(
         name="lstm_fwd_bf16", shape="[64,80,512] peep, all steps valid",
         ms=lstm_t["lstm_fwd_bf16", T],
-        plain_ms=time_ms(lambda: lc.lstm_forward_reference(
+        plain_ms=plain_time_ms(lambda: lc.lstm_forward_reference(
             xg, w, h0, c0, mask, p)),
         library_ms=time_ms(cudnn_bf16_fwd),
         library="torch.nn.LSTM (cuDNN) forward in %s, input size 512, no "
@@ -7485,7 +8308,7 @@ def main():
     rows.append(dict(
         name="lstm_bwd_bf16", shape="[64,80,512] peep, all steps valid",
         ms=lstm_t["lstm_bwd_bf16", T],
-        plain_ms=time_ms(lambda: lc.lstm_backward_reference(
+        plain_ms=plain_time_ms(lambda: lc.lstm_backward_reference(
             stash, cs, w, p, c0, mask, dhs, dcs)),
         library_ms=time_ms(cudnn_bf16_fwd_bwd),
         library="torch.nn.LSTM (cuDNN) forward plus backward in %s, input "
@@ -7514,7 +8337,8 @@ def main():
     rows.append(dict(
         name="gru_fwd_bf16", shape="[64,30,512], all steps valid",
         ms=gru_t["gru_fwd_bf16", T],
-        plain_ms=time_ms(lambda: gc.gru_forward_reference(xg, w, h0, mask)),
+        plain_ms=plain_time_ms(lambda: gc.gru_forward_reference(
+            xg, w, h0, mask)),
         library_ms=time_ms(cudnn_gru_bf16_fwd),
         library="torch.nn.GRU (cuDNN) forward in %s, input size 512: r "
                 "after the product, and the input GEMM too" % gdt,
@@ -7524,7 +8348,7 @@ def main():
     rows.append(dict(
         name="gru_bwd_bf16", shape="[64,30,512], all steps valid",
         ms=gru_t["gru_bwd_bf16", T],
-        plain_ms=time_ms(lambda: gc.gru_backward_reference(
+        plain_ms=plain_time_ms(lambda: gc.gru_backward_reference(
             stash, hs, w, h0, mask, dhs)),
         library_ms=time_ms(lambda: torch.autograd.grad(
             kept_bf16, xl_bf16, gg_lib, retain_graph=True)),
@@ -7585,8 +8409,8 @@ def main():
             bytes=3 * elt * x.numel() + 4 * 3 * c, flops=12 * x.numel(),
             per_step=per_step)
         if full:
-            row["plain_ms"] = time_ms(
-                lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5), reps=10)
+            row["plain_ms"] = plain_time_ms(
+                lambda: kbn.bn_grad_reference(x, dy, sc, 1e-5))
         row["extra"] = (
             "; L2 flushed (warm %.6f ms); plan floor %.6f ms (%s W %d G %d "
             "R %d BR %d S %d, %d bytes); F.batch_norm forward + autograd "
@@ -7616,7 +8440,7 @@ def main():
             name="conv1x1_bwd", shape="%s x%d a step" % (
                 list(shape), c1_shapes[shape]),
             ms=time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), reps=10),
-            plain_ms=time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
+            plain_ms=plain_time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
                              reps=10),
             library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
                 dy, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,
@@ -7654,7 +8478,7 @@ def main():
             name="conv1x1_bwd_bf16", shape="%s x%d a config-D step" % (
                 list(shape), c1_bf16_shapes[shape]),
             ms=time_ms(lambda: k1.conv1x1_bwd(x, wt, dy), reps=10),
-            plain_ms=time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
+            plain_ms=plain_time_ms(lambda: k1.conv1x1_bwd_reference(x, wt, dy),
                              reps=10),
             library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
                 dy, x, wt, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1,

@@ -15,9 +15,12 @@ manipulation, the sequence convolution, the losses of the book's
 regression and recommender programs, and the random draws), of the
 vision family (3-D and transposed convolutions, the other pools,
 unpooling, spatial pyramids, image-to-sequence, grid sampling and
-resizing) and four of the layers over ops already ported (group norm,
-the 1-D batch norm, the last step of a sequence, the dice loss); the
-JAX package's other layers arrive with later slices.
+resizing), four of the layers over ops already ported (group norm,
+the 1-D batch norm, the last step of a sequence, the dice loss), the
+sequence family's layers (softmax, expand, reshape, reverse, concat,
+slice and unpad over sequences, and re-segmenting them) and the CTC
+layers (the loss, the greedy decoder, the edit distance); the JAX
+package's other layers arrive with later slices.
 """
 
 from paddle_tpu_torch.core import ir
@@ -52,6 +55,9 @@ __all__ = [
     "conv3d_transpose", "unpool", "spp", "im2sequence", "grid_sampler",
     "image_resize", "resize_bilinear", "resize_nearest", "group_norm",
     "batch_norm_1d", "sequence_last_step", "dice_loss",
+    "lod_reset", "sequence_softmax", "sequence_expand", "sequence_reshape",
+    "sequence_reverse", "sequence_concat", "sequence_slice",
+    "sequence_unpad", "warpctc", "ctc_greedy_decoder", "edit_distance",
 ]
 
 
@@ -382,6 +388,76 @@ def sequence_pad(x, pad_value=None, maxlen=None, name=None):
     helper.append_op("sequence_pad", {"X": [x]},
                      {"Out": [out], "Length": [length]}, attrs)
     return out, length
+
+
+def sequence_unpad(x, length, name=None):
+    """A dense [B, T, ...] tensor and its lengths [B] as a sequence."""
+    helper = LayerHelper("sequence_unpad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sequence_unpad", {"X": [x], "Length": [length]},
+                     {"Out": [out]})
+    return out
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    """Softmax over each sequence's steps; ``use_cudnn`` is accepted and
+    unused."""
+    return _single_op("sequence_softmax", input, name=name)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sequence_expand", {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"ref_level": ref_level})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("sequence_reshape", {"X": [input]}, {"Out": [out]},
+                     {"new_dim": new_dim})
+    return out
+
+
+def sequence_reverse(x, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sequence_reverse", {"X": [x]}, {"Y": [out]})
+    return out
+
+
+def sequence_concat(input, name=None):
+    """Concatenate a list of sequences example by example along time."""
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op("sequence_concat", {"X": input}, {"Out": [out]})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("sequence_slice",
+                     {"X": [input], "Offset": [offset], "Length": [length]},
+                     {"Out": [out]})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None, name=None):
+    """Re-segment sequences: keep the flat tokens, change the boundaries
+    (reference `lod_reset_op.cc`) to ``y``'s lengths or the offsets
+    ``target_lod``."""
+    helper = LayerHelper("lod_reset", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.lod_level = 1
+    ins = {"X": [x]}
+    if y is not None:
+        ins["Y"] = [y]
+    helper.append_op("lod_reset", ins, {"Out": [out]},
+                     {"target_lod": list(target_lod) if target_lod else []})
+    return out
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
@@ -856,6 +932,42 @@ def crf_decoding(input, param_attr, label=None, name=None):
         ins["Label"] = [label]
     helper.append_op("crf_decoding", ins, {"ViterbiPath": [path]}, {})
     return path
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, name=None):
+    """CTC loss (reference operators/warpctc_op.cc): input = sequence of
+    unnormalised logits [B, T, V], label = sequence of ids."""
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("warpctc", {"Logits": [input], "Label": [label]},
+                     {"Loss": [loss], "WarpCTCGrad": [grad]},
+                     {"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode: argmax per frame, merge repeats, drop blanks
+    (reference operators/ctc_align_op.cc)."""
+    helper = LayerHelper("ctc_align", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op("ctc_align", {"Input": [input]}, {"Output": [out]},
+                     {"blank": blank})
+    return out
+
+
+def edit_distance(input, label, normalized=True, name=None):
+    """Levenshtein distance between sequences of ids, row by row
+    (reference operators/edit_distance_op.cc). Returns ``(distances [B,
+    1], sequence count [1])``."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    helper.append_op("edit_distance",
+                     {"Hyps": [input], "Refs": [label]},
+                     {"Out": [out], "SequenceNum": [seq_num]},
+                     {"normalized": normalized})
+    return out, seq_num
 
 
 def chunk_eval(input, label, chunk_scheme="IOB", num_chunk_types=1,

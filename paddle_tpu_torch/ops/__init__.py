@@ -13,4 +13,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     beam_search_ops,
     crf_ops,
     detection_ops,
+    ctc_ops,
 )

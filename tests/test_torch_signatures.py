@@ -266,3 +266,22 @@ def test_the_vision_and_detection_names_are_compared(rel, qual):
     assert qual in found
     assert not _differences(*found[qual])
     assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("layers.nn", n) for n in (
+        "lod_reset", "sequence_softmax", "sequence_expand",
+        "sequence_reshape", "sequence_reverse", "sequence_concat",
+        "sequence_slice", "sequence_unpad", "warpctc", "ctc_greedy_decoder",
+        "edit_distance")])
+def test_the_sequence_and_ctc_names_are_compared(rel, qual):
+    """The 11 layers the sequence and CTC families brought are shared
+    public names (``sequence_softmax``'s ``use_cudnn``, ``warpctc``'s
+    ``norm_by_times``, ``edit_distance``'s ``normalized`` ...), compared
+    like every other, with no deliberate difference."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]

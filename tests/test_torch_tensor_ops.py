@@ -319,8 +319,8 @@ def test_every_type_of_the_slice_is_registered_with_the_jax_flags():
             (t.no_grad, tuple(t.nondiff_inputs)), n
     assert set(treg.REGISTRY) <= set(jreg.REGISTRY)
     # 179 after the dense op library, 200 with the vision and detection
-    # families
-    assert len(set(treg.REGISTRY) & set(jreg.REGISTRY)) == 200
+    # families, 216 with the sequence and CTC families
+    assert len(set(treg.REGISTRY) & set(jreg.REGISTRY)) == 216
 
 
 def test_every_case_names_a_type_of_the_slice():

@@ -77,9 +77,18 @@ def _data(v):
     return v.data if isinstance(v, (JSeq, TSeq, Seq)) else v
 
 
-def _host(d):
-    return {s: [None if v is None else np.asarray(_data(v)) for v in vals]
-            for s, vals in d.items()}
+def _host(d, lengths=False):
+    """Each output slot's arrays; with ``lengths``, also a slot
+    ``<slot>@lengths`` holding each sequence output's lengths (None for
+    a dense output)."""
+    out = {s: [None if v is None else np.asarray(_data(v)) for v in vals]
+           for s, vals in d.items()}
+    if lengths:
+        for s, vals in d.items():
+            out[s + "@lengths"] = [
+                np.asarray(v.lengths) if isinstance(v, (JSeq, TSeq))
+                else None for v in vals]
+    return out
 
 
 def _leaves(type, ins):
@@ -92,20 +101,20 @@ def _leaves(type, ins):
             if np.issubdtype(np.asarray(_data(v)).dtype, np.floating)]
 
 
-def run_jax(type, ins, attrs, uid=1):
+def run_jax(type, ins, attrs, uid=1, lengths=False):
     op = Op(type, attrs, uid)
     out = jreg.get(type).lower(JCtx(key=jax.random.PRNGKey(0)).for_op(op),
                                {s: [_j(a) for a in v] for s, v in
                                 ins.items()}, attrs, op)
-    return _host(jreg.normalize_outputs(out))
+    return _host(jreg.normalize_outputs(out), lengths)
 
 
-def run_port(type, ins, attrs, uid=1, key=0):
+def run_port(type, ins, attrs, uid=1, key=0, lengths=False):
     op = Op(type, attrs, uid)
     out = treg.get(type).lower(TCtx(key=key).for_op(op),
                                {s: [_t(a) for a in v] for s, v in
                                 ins.items()}, attrs, op)
-    return _host(treg.normalize_outputs(out))
+    return _host(treg.normalize_outputs(out), lengths)
 
 
 def grads(type, ins, attrs, seed=0):
@@ -184,9 +193,11 @@ def same(j, t):
                     a.dtype.name, (slot, b.dtype, a.dtype)
 
 
-def check(type, ins, attrs, grad=True):
-    """Forward outputs, then (``grad``) the gradients, both packages."""
-    same(run_jax(type, ins, attrs), run_port(type, ins, attrs))
+def check(type, ins, attrs, grad=True, lengths=False):
+    """Forward outputs, then (``grad``) the gradients, both packages;
+    with ``lengths``, each sequence output's lengths too, exact."""
+    same(run_jax(type, ins, attrs, lengths=lengths),
+         run_port(type, ins, attrs, lengths=lengths))
     if grad and _leaves(type, ins):
         jg, tg = grads(type, ins, attrs)
         for k in jg:
