@@ -84,7 +84,13 @@ calls, on random weights and data made from ``--seed``:
   1e-3 with L2 decay): trained and evaluated (``warpctc``,
   ``ctc_greedy_decoder``, ``edit_distance``) with the published relu
   candidate (the GRU's step loop) and with tanh (4 float32 GRU forwards
-  and 2 backwards a step at [32, 64, 200]).
+  and 2 backwards a step at [32, 64, 200]);
+* the loss, optimizer and metric families: the stacked-LSTM classifier
+  above under each optimizer this port adds (RMSProp, Adamax, Adadelta,
+  DecayedAdagrad, FTRL, LAMB, with ModelAverage), evaluated by
+  ``layers.auc``, ``evaluator.Accuracy`` and ``average.WeightedAverage``
+  over a pass, and the book's word2vec with PaddlePaddle/models'
+  ``hsigmoid`` and ``nce`` heads.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -235,6 +241,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms), and the card against the CPU at channels / 4 and batch 8 (3
    losses, first-step gradients at bounds set from what a 1e-6 input
    change does to them, the sharpened eval's decodes row for row);
+6i. the losses, the optimizers and the metrics: each of their 26 op
+   types on the card against the CPU (outputs and the losses' gradients
+   at 6f's bounds, counts exact; nce's draw at 6f's random-op checks and
+   its arithmetic on the card's ids); the stacked LSTM at full width
+   under RMSProp (plain, and centered with momentum), Adamax, Adadelta,
+   DecayedAdagrad, FTRL and LAMB, each with cross entropy,
+   ``evaluator.Accuracy`` and ``layers.auc`` (1 + 3 eager steps with a
+   falling loss, 6 B3 and 3 B4 a step from the program;
+   ``ModelAverage.accumulate`` on the Adamax run, its sums against the
+   parameters summed on the host; the for_test clone over 4 batches, 3
+   B3 a batch, the streamed AUC against ``metrics.Auc`` and a numpy
+   AUC, ``evaluator.Accuracy`` and ``average.WeightedAverage`` against
+   the pass accuracy; run_chunk K=4 bitwise against eager steps; the
+   update ops' device time beside the bytes a one-pass update moves;
+   the card against the CPU at dict 1000, hid 128: 3 losses, first-step
+   gradients, every parameter and accumulator after step 3); and
+   word2vec with the ``hsigmoid`` and the ``nce`` head over its 2073
+   words (10 steps with a falling loss, graph replays bitwise, the card
+   against the CPU with nce's draws the card's on both);
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -313,6 +338,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -686,6 +712,69 @@ CRNN_GTOL, CRNN_L2TOL, CRNN_CANCELS = 1e-2, 1e-4, 1e-4
 # magnitude where DENSE_AMAX allows 1e-6)
 SEQ_TYPES = 16
 SEQ_LONG_AMAX = 2e-5
+
+# phase 6i: the losses, the optimizers and the metrics. The sweep: the
+# 26 types at the JAX sweeps' shapes, the card against the CPU at the
+# DENSE_* bounds, counts exact (nce's arithmetic on the card's own ids;
+# its draw at phase 6f's random-op checks: the same bits from the same
+# stream, uniform within 0.03 over NCE_DRAWS draws)
+OPTIM_TYPES = 26
+NCE_DRAWS = 100000
+# the stacked-LSTM classifier at train_phase's widths (DICT, EMB, HID,
+# STACKED, CLASSES; batch LSTM_B of MIN_LEN..LSTM_T ids) with cross
+# entropy, evaluator.Accuracy and layers.auc, under each optimizer this
+# slice adds: (tag, class, keywords). The rates give a first step of
+# about 1e-3 a weight: RMSProp and Adadelta move a weight by about
+# sqrt(1 / (1 - decay)) x rate, but one whose gradient is under
+# sqrt(epsilon / (1 - decay)) by about its gradient; DecayedAdagrad,
+# whose epsilon sits outside the root, moves every weight with a
+# gradient by sqrt(1 / (1 - decay)) x rate (at 1e-3 the loss rose from
+# the second step on the card: 0.54, 2.32, 11.5), Adamax and FTRL by
+# their rate (FTRL at 5e-3: 0.66, 2.11, 11.4), LAMB by its rate x each
+# weight's norm (at 1e-2 the first step raised the loss: 0.84)
+OPTIMIZERS = (
+    ("rmsprop", "RMSProp", dict(learning_rate=1e-3)),
+    ("rmsprop_centered", "RMSProp",
+     dict(learning_rate=1e-3, momentum=0.9, centered=True)),
+    ("adamax", "Adamax", dict(learning_rate=2e-3)),
+    ("adadelta", "Adadelta", dict(learning_rate=1.0)),
+    ("decayed_adagrad", "DecayedAdagrad", dict(learning_rate=3e-4)),
+    ("ftrl", "Ftrl", dict(learning_rate=1e-3, l1=1e-5, l2=1e-5)),
+    ("lamb", "Lamb", dict(learning_rate=3e-3)),
+)
+# 1 warmup and OPTIM_STEPS counted eager steps; ModelAverage rides the
+# OPTIM_AVERAGE run; the for_test clone streams the metrics over
+# OPTIM_EVAL_BATCHES batches; run_chunk K=GRAPH_K["optim"], one chunk
+OPTIM_WARMUP, OPTIM_STEPS = 1, 3
+OPTIM_AVERAGE = "adamax"
+OPTIM_EVAL_BATCHES = 4
+GRAPH_K.update(optim=4)
+# the card against the CPU at XCHECK's size (dict 1000, hid 128): 3
+# losses within rtol 1e-4, first-step gradients within 1e-4 x max|g|,
+# every parameter and optimizer accumulator after the first step within
+# OPTIM_STATE_TOL of its largest magnitude ...
+# ... plus COND_FACTOR times the most that NOISE_PROBES draws of a 1e-6
+# relative change of every weight move that tensor on the CPU over the
+# same step (check_state, weight_noise). These updates normalise each
+# gradient element, so an element whose gradient is rounding noise takes
+# a step of the full rate in a rounding-noise direction: on the CPU at
+# XCHECK's size such a change moved Adamax's state by 0.26, FTRL's by
+# 1.7e-3 and LAMB's by 1.1e-4 of the largest magnitude after 3 steps.
+# The state is held after the first step: by the third, the max pools
+# over time have met near-ties whose winner flips on rounding (3 of 6
+# such draws moved centered RMSProp's fc_2.w_0 momentum by 0.105 there,
+# as the card did in one run), which no number of draws bounds for sure
+OPTIM_STATE_TOL = 1e-4
+COND_FACTOR, NOISE_PROBES = 4, 4
+# ... that allowance never above NOISE_CAP of a tensor's largest
+# magnitude, so no tensor gets a bound that would pass nearly anything
+NOISE_CAP = 1e-2
+# the update ops' share of an eager step: the median of UPDATE_PROFILES
+# profiles, the update ops' kernels read from a record_function range
+UPDATE_PROFILES, UPDATE_RANGE = 3, "update_ops"
+# word2vec (BOOK_W2V) with its softmax head replaced by layers.hsigmoid
+# and by layers.nce over the 2073 words
+W2V_HEADS = ("hsigmoid", "nce")
 
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
@@ -1736,15 +1825,106 @@ def check_grad_diff(what, d, gtol, l2tol, pl2tol=None):
                              "of all together" % (what, gtol, pl2tol, l2tol))
 
 
+def state_names(prog):
+    """The program's parameters and optimizer accumulators."""
+    return sorted(v.name for v in prog.list_vars() if v.persistable and (
+        v.is_parameter or getattr(v, "optimizer_state_for", None)))
+
+
+def state_diffs(names, got, want):
+    """{name: max |got - want| / max |want|} over the float tensors
+    ``got(name)`` and ``want(name)`` (tensors or arrays)."""
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    out = {}
+    for n in names:
+        w = host(want(n))
+        if not np.issubdtype(w.dtype, np.floating) or not w.size:
+            continue
+        w = w.astype(np.float64)
+        g = host(got(n)).astype(np.float64).reshape(w.shape)
+        out[n] = float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                  1e-30)
+    return out
+
+
+def weight_noise(prog, scope, seed, rel=1e-6):
+    """Every float parameter of ``prog`` in ``scope`` x (1 + ``rel`` x a
+    standard normal draw from ``seed``): a probe of how far rounding
+    moves a run of the program."""
+    g = torch.Generator().manual_seed(seed)
+    for p in prog.global_block().all_parameters():
+        t = scope.find_var(p.name)
+        if t.is_floating_point():
+            n = torch.randn(tuple(t.shape), generator=g).to(t.device, t.dtype)
+            scope.set_var(p.name, t * (1 + rel * n))
+
+
+def check_state(label, diffs, moved, tol):
+    """Each tensor's difference (``state_diffs``) within ``tol`` plus
+    COND_FACTOR times ``moved[name]``, the most that a 1e-6 relative
+    change of the weights (weight_noise, NOISE_PROBES draws) moves that
+    tensor over the same steps, that allowance never above NOISE_CAP: a
+    tensor that rounding moves further is held at ``tol`` + NOISE_CAP,
+    not at a bound that would pass nearly anything."""
+    allow = {n: min(COND_FACTOR * moved.get(n, 0.0), NOISE_CAP)
+             for n in diffs}
+    worst = max(diffs, key=lambda n: diffs[n] / (tol + allow[n]))
+    over = [n for n in diffs if diffs[n] > tol + allow[n]]
+    capped = sorted(n for n in diffs if allow[n] == NOISE_CAP)
+    print("%s: %d parameters and optimizer accumulators, the worst %s at "
+          "%.3g x its largest magnitude where a 1e-6 weight change moves it "
+          "by %.3g (bound %g + min(%d x that, %g)); %d of them beyond %g; "
+          "%d held at the cap%s" % (
+              label, len(diffs), worst, diffs[worst], moved.get(worst, 0.0),
+              tol, COND_FACTOR, NOISE_CAP,
+              sum(d > tol for d in diffs.values()), tol, len(capped),
+              " (%s, differing by %s)" % (", ".join(capped[:4]), " ".join(
+                  "%.3g" % diffs[n] for n in capped[:4])) if capped else ""))
+    if over:
+        raise AssertionError("%s: %s differ by %s" % (
+            label, over[:5], [diffs[n] for n in over[:5]]))
+
+
+def noise_moves(fluid, prog, fetch, init, feed, steps, names):
+    """{name: the most any of NOISE_PROBES weight_noise draws moves that
+    state tensor over ``steps`` runs of ``prog`` from ``init`` on the
+    CPU}, against the same runs without noise."""
+    exe = fluid.Executor(fluid.CPUPlace())
+    runs = []
+    for seed in [None] + list(range(NOISE_PROBES)):
+        sc = fluid.Scope()
+        for n, t in init.items():
+            sc.set_var(n, t.clone())
+        if seed is not None:
+            weight_noise(prog, sc, seed)
+        for _ in range(steps):
+            exe.run(prog, feed=feed, fetch_list=[fetch], scope=sc)
+        runs.append(sc)
+    moved = {}
+    for sc in runs[1:]:
+        for n, d in state_diffs(names, sc.find_var, runs[0].find_var).items():
+            moved[n] = max(moved.get(n, 0.0), d)
+    return moved
+
+
 def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
-                ltol=1e-4, l2tol=1e-3, pl2tol=None, edit=None, pl2_floor=0.0):
+                ltol=1e-4, l2tol=1e-3, pl2tol=None, edit=None, pl2_floor=0.0,
+                state_tol=None):
     """The card against the CPU from the same weights: the losses of
     ``steps`` optimizer steps within rtol ``ltol``, every first-step
     parameter gradient within ``gtol`` x its largest magnitude (and
     within ``pl2tol`` of its L2 norm, where given) and all of them
-    together within ``l2tol`` in relative L2 norm. ``edit(prog, scope)``
-    changes the CPU's weights before they are carried to the card.
-    Returns the card's first-step loss and gradients, by name."""
+    together within ``l2tol`` in relative L2 norm; with ``state_tol``,
+    every parameter and optimizer accumulator after the first step
+    (check_state, against what weight_noise moves them by on the CPU).
+    ``edit(prog, scope)`` changes the CPU's
+    weights before they are carried to the card. Each step runs on the
+    card first, then on the CPU (each executor draws from generators of
+    its own step key and op, so the order changes no draw; SameDraws
+    replays the card's draws on the CPU). Returns the card's first-step
+    loss and gradients, by name."""
     from paddle_tpu_torch import interop, unique_name
 
     with unique_name.guard():
@@ -1755,6 +1935,7 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
     cpu.run(xstart, scope=cpu_scope)
     if edit is not None:
         edit(xprog, cpu_scope)
+    init = scope_state(cpu_scope)
     interop.load_reference_state(
         {n: t.numpy() for n, t in cpu_scope.vars.items()}, card_scope,
         fluid.CUDAPlace(0), [xprog, xstart])
@@ -1763,10 +1944,12 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
     first = None
     for step in range(steps):
         extra = grads if step == 0 else []
-        c = cpu.run(xprog, feed=batch, fetch_list=[xloss] + extra,
-                    scope=cpu_scope)
-        k = exe.run(xprog, feed=batch, fetch_list=[xloss] + extra,
-                    scope=card_scope)
+        out = {}
+        for where in ("card", "cpu"):
+            e, sc = (exe, card_scope) if where == "card" else (cpu, cpu_scope)
+            out[where] = e.run(xprog, feed=batch, fetch_list=[xloss] + extra,
+                               scope=sc)
+        c, k = out["cpu"], out["card"]
         print("cross-check step %d: loss cpu %.7f card %.7f" % (
             step, float(c[0]), float(k[0])))
         np.testing.assert_allclose(k[0], c[0], rtol=ltol)
@@ -1776,6 +1959,14 @@ def cross_check(fluid, exe, build, seed, batch, steps, label, gtol=1e-4,
                             % (label, len(grads)),
                             grad_diff(grads, k[1:], c[1:], pl2_floor), gtol,
                             l2tol, pl2tol)
+            if state_tol is not None:
+                names = state_names(xprog)
+                check_state(
+                    "card vs cpu at %s after the first step" % label,
+                    state_diffs(names, card_scope.find_var,
+                                cpu_scope.find_var),
+                    noise_moves(fluid, xprog, xloss, init, batch, 1, names),
+                    state_tol)
     print("card == cpu at %s: losses of %d steps within rtol %g" % (
         label, steps, ltol))
     torch.cuda.synchronize()
@@ -3402,32 +3593,42 @@ def dense_phase(fluid, seed, dev):
 
 # ---- phase 6g: the vision and detection families, word2vec, SSD300 ----
 
-def w2v_body(fluid, dict_size, emb, hid, is_sparse=False, lr=None):
+def w2v_body(fluid, dict_size, emb, hid, is_sparse=False, lr=None,
+             head="softmax"):
     """tests/test_book.py:198-233's word2vec n-gram model, appended to the
     current program through ``fluid``'s layers (either package): four
     context words SHARING one embedding table, concat, a sigmoid hidden
     layer, a softmax over the dictionary, cross entropy against the next
-    word, SGD. Returns (prediction, loss)."""
+    word, SGD. ``head`` "hsigmoid" or "nce" puts ``layers.hsigmoid`` or
+    ``layers.nce`` over the dictionary in the softmax's place, as
+    PaddlePaddle/models' hsigmoid and nce_cost n-gram examples do; their
+    cost is the prediction. Returns (prediction, loss)."""
     layers = fluid.layers
     emb_attr = fluid.ParamAttr(name="shared_w")
     words = [layers.data("w%d" % i, [1], dtype="int64") for i in range(4)]
     embs = [layers.embedding(w, size=[dict_size, emb], is_sparse=is_sparse,
                              param_attr=emb_attr) for w in words]
     hidden = layers.fc(layers.concat(embs, axis=1), hid, act="sigmoid")
-    predict = layers.fc(hidden, dict_size, act="softmax")
     nxt = layers.data("next", [1], dtype="int64")
-    loss = layers.mean(layers.cross_entropy(predict, nxt))
+    if head == "softmax":
+        predict = layers.fc(hidden, dict_size, act="softmax")
+        cost = layers.cross_entropy(predict, nxt)
+    elif head == "hsigmoid":
+        predict = cost = layers.hsigmoid(hidden, nxt, dict_size)
+    else:
+        predict = cost = layers.nce(hidden, nxt, dict_size)
+    loss = layers.mean(cost)
     fluid.optimizer.SGD(lr or BOOK_W2V["lr"]).minimize(loss)
     return predict, loss
 
 
-def w2v_build(fluid, is_sparse=False):
+def w2v_build(fluid, is_sparse=False, head="softmax"):
     """The word2vec program at BOOK_W2V's widths."""
     prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(prog, startup):
         predict, loss = w2v_body(fluid, BOOK_W2V["dict_size"],
                                  BOOK_W2V["emb"], BOOK_W2V["hid"],
-                                 is_sparse)
+                                 is_sparse, head=head)
     return prog, startup, predict, (loss,)
 
 
@@ -4986,6 +5187,594 @@ def ocr_phase(fluid, seed, dev):
                      else round(v["eval_busy"], 3)]
                   for tag, v in nums.items()}), card_line()))
     return errs, dict(launched)
+
+
+# ---- phase 6i: the losses, the optimizers and the metrics ----
+
+def optim_cases(rng):
+    """Phase 6i (a)'s cases, (name, type, inputs, attrs): the loss,
+    optimizer and metric types but ``nce`` (held apart: its draw) at the
+    JAX sweeps' shapes (tests/test_op_sweep_nn.py:256-327 and 376-400,
+    tests/test_op_sweep_optim_metric.py:24-175, 183-230 and 246), and
+    conv_shift at the reference's NTM shape ([4, 17] against [4, 3])."""
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def pos(*shape):
+        return (rng.rand(*shape) * 0.1 + 0.01).astype(np.float32)
+
+    def bits(*shape):
+        return (rng.rand(*shape) > 0.5).astype(np.float32)
+
+    p, g, lr = rng.rand(4, 3).astype(np.float32), f(4, 3) - 0.5, \
+        np.array([0.1], np.float32)
+    b1p, b2p = np.array([0.9], np.float32), np.array([0.999], np.float32)
+    probs = rng.rand(64).astype(np.float32)
+    return [
+        ("sigmoid_ce", "sigmoid_cross_entropy_with_logits",
+         {"X": [f(4, 3) * 2], "Label": [bits(4, 3)]}, {}),
+        ("huber", "huber_loss", {"X": [f(4, 3)], "Y": [f(4, 3)]},
+         {"delta": 0.3}),
+        ("smooth_l1", "smooth_l1_loss", {"X": [f(4, 3)], "Y": [f(4, 3)]},
+         {"sigma": 2.0}),
+        ("hinge", "hinge_loss", {"Logits": [f(4, 1) * 1.5],
+                                 "Labels": [bits(4, 1)]}, {}),
+        ("modified_huber", "modified_huber_loss",
+         {"X": [f(4, 1) * 1.5], "Y": [bits(4, 1)]}, {}),
+        ("rank", "rank_loss", {"Label": [bits(4, 1)], "Left": [f(4, 1)],
+                               "Right": [f(4, 1)]}, {}),
+        ("margin_rank", "margin_rank_loss",
+         {"Label": [np.sign(f(4, 1))], "X1": [f(4, 1)], "X2": [f(4, 1)]},
+         {"margin": 0.1}),
+        ("log", "log_loss",
+         {"Predicted": [rng.uniform(0.1, 0.9, (4, 1)).astype(np.float32)],
+          "Labels": [bits(4, 1)]}, {"epsilon": 1e-4}),
+        ("kldiv", "kldiv_loss",
+         {"X": [np.log(rng.uniform(0.1, 0.9, (4, 5))).astype(np.float32)],
+          "Target": [rng.uniform(0.1, 0.9, (4, 5)).astype(np.float32)]},
+         {"reduction": "batchmean"}),
+        ("bpr", "bpr_loss",
+         {"X": [f(4, 6)], "Label": [rng.randint(0, 6, (4, 1))]}, {}),
+        ("hsigmoid", "hierarchical_sigmoid",
+         {"X": [rng.rand(4, 6).astype(np.float32)],
+          "W": [rng.rand(7, 6).astype(np.float32)],
+          "Label": [rng.randint(0, 8, (4, 1))], "Bias": [f(1, 7)]},
+         {"num_classes": 8}),
+        ("conv_shift", "conv_shift", {"X": [f(4, 17)], "Y": [f(4, 3)]}, {}),
+        ("adamax", "adamax",
+         {"Param": [p], "Grad": [g], "Moment": [pos(4, 3)],
+          "InfNorm": [pos(4, 3)], "Beta1Pow": [b1p], "LearningRate": [lr]},
+         {}),
+        ("decayed_adagrad", "decayed_adagrad",
+         {"Param": [p], "Grad": [g], "Moment": [pos(4, 3)],
+          "LearningRate": [lr]}, {"decay": 0.95, "epsilon": 1e-6}),
+        ("adadelta", "adadelta",
+         {"Param": [p], "Grad": [g], "AvgSquaredGrad": [pos(4, 3)],
+          "AvgSquaredUpdate": [pos(4, 3)]}, {"rho": 0.95, "epsilon": 1e-6}),
+        ("rmsprop", "rmsprop",
+         {"Param": [p], "Grad": [g], "Moment": [pos(4, 3)],
+          "MeanSquare": [pos(4, 3) + 0.1], "MeanGrad": [f(4, 3) * 0.01],
+          "LearningRate": [lr]},
+         {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9}),
+        ("rmsprop_centered", "rmsprop",
+         {"Param": [p], "Grad": [g], "Moment": [pos(4, 3)],
+          "MeanSquare": [pos(4, 3) + 0.1], "MeanGrad": [f(4, 3) * 0.01],
+          "LearningRate": [lr]},
+         {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9, "centered": True}),
+        ("ftrl", "ftrl",
+         {"Param": [p], "Grad": [g], "SquaredAccumulator": [pos(4, 3)],
+          "LinearAccumulator": [pos(4, 3)], "LearningRate": [lr]},
+         {"l1": 0.1, "l2": 0.1}),
+        ("proximal_gd", "proximal_gd",
+         {"Param": [p], "Grad": [g], "LearningRate": [lr]},
+         {"l1": 0.05, "l2": 0.05}),
+        ("proximal_adagrad", "proximal_adagrad",
+         {"Param": [p], "Grad": [g], "Moment": [pos(4, 3)],
+          "LearningRate": [lr]}, {"l1": 0.05, "l2": 0.05}),
+        ("lamb", "lamb",
+         {"Param": [p], "Grad": [g], "Moment1": [pos(4, 3)],
+          "Moment2": [pos(4, 3)], "Beta1Pow": [b1p], "Beta2Pow": [b2p],
+          "LearningRate": [lr]}, {"weight_decay": 0.01}),
+        ("average_accumulates", "average_accumulates",
+         {"param": [rng.rand(3, 2).astype(np.float32)],
+          "in_sum_1": [pos(3, 2)], "in_sum_2": [pos(3, 2)],
+          "in_sum_3": [pos(3, 2)],
+          "in_num_accumulates": [np.array([0], np.int64)],
+          "in_old_num_accumulates": [np.array([0], np.int64)],
+          "in_num_updates": [np.array([0], np.int64)]},
+         {"average_window": 10, "max_average_window": 20}),
+        ("auc", "auc",
+         {"Predict": [np.stack([1 - probs, probs], 1)],
+          "Label": [rng.randint(0, 2, (64, 1))],
+          "StatPos": [np.floor(pos(4096) * 100)],
+          "StatNeg": [np.floor(pos(4096) * 100)]}, {}),
+        ("precision_recall", "precision_recall",
+         {"Indices": [np.array([0, 1, 1, 2], np.int64)],
+          "Labels": [np.array([[0], [1], [2], [2]], np.int64)],
+          "StatesInfo": [np.floor(pos(3, 4) * 100)]},
+         {"class_number": 3}),
+        ("positive_negative_pair", "positive_negative_pair",
+         {"Score": [np.array([0.9, 0.2, 0.5, 0.6, 0.5], np.float32)],
+          "Label": [np.array([1.0, 0.0, 0.0, 1.0, 2.0], np.float32)],
+          "QueryID": [np.array([7, 7, 7, 7, 3], np.int64)]}, {}),
+        ("mean_iou", "mean_iou",
+         {"Predictions": [np.array([0, 1, 1, 1], np.int64)],
+          "Labels": [np.array([0, 1, 1, 0], np.int64)]},
+         {"num_classes": 3}),
+    ]
+
+
+def optim_sweep(dev, seed):
+    """Phase 6i (a): the 26 types on the card against the CPU from the
+    same numpy inputs: outputs, and the losses' gradients by autograd;
+    integers and every integer-valued float (counts, ``Activated``)
+    exact, floats within DENSE_RTOL plus DENSE_AMAX of the largest
+    magnitude. ``nce``: its draw a function of the op's stream (the same
+    bits twice, others under another uid), the label columns first,
+    negatives in range and uniform within 0.03 over NCE_DRAWS draws; its
+    arithmetic and gradients on the card's ids against the CPU's on the
+    same ids."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops import nn_ops
+
+    rng = np.random.RandomState(seed + 29)
+    cpu = torch.device("cpu")
+    worst, types, n_grads, exact = 0.0, set(), 0, 0
+    for name, type, ins, attrs in optim_cases(rng):
+        types.add(type)
+        want, _ = _lower(type, ins, attrs, cpu)
+        got, _ = _lower(type, ins, attrs, dev)
+        for k, (g, w) in enumerate(zip(got, want)):
+            worst = max(worst, _dense_close("%s out %d" % (name, k), g, w))
+            if np.issubdtype(w.dtype, np.floating) and \
+                    np.array_equal(w, np.round(w)):
+                exact += 1
+                if not np.array_equal(g, w):
+                    raise AssertionError("%s out %d: a count differs"
+                                         % (name, k))
+        if registry.get(type).no_grad:
+            continue
+        cots = [np.asarray(rng.randn(*w.shape), np.float32) for w in want
+                if np.issubdtype(w.dtype, np.floating)]
+        _, gw = _lower(type, ins, attrs, cpu, grad_cots=cots)
+        _, gg = _lower(type, ins, attrs, dev, grad_cots=cots)
+        for k, (g, w) in enumerate(zip(gg, gw)):
+            worst = max(worst, _dense_close("%s grad %d" % (name, k), g, w))
+            n_grads += 1
+    # nce: the draw, then the arithmetic on the card's ids
+    types.add("nce")
+    attrs = {"num_neg_samples": 3, "num_total_classes": 10}
+    ins = {"Input": [rng.rand(4, 6).astype(np.float32)],
+           "Weight": [rng.rand(10, 6).astype(np.float32)],
+           "Bias": [rng.randn(10, 1).astype(np.float32)],
+           "Label": [rng.randint(0, 10, (4, 1))]}
+    out, _ = _lower("nce", ins, attrs, dev, key=seed)
+    again, _ = _lower("nce", ins, attrs, dev, key=seed)
+    other, _ = _lower("nce", ins, attrs, dev, key=seed, uid=2)
+    ids = out[1]            # the outputs by slot: Cost, SampleLabels, ...
+    if not all(np.array_equal(a, b) for a, b in zip(out, again)) or \
+            np.array_equal(ids, other[1]):
+        raise AssertionError("nce: not a function of its stream")
+    rows, total = NCE_DRAWS // 10, 20
+    big = {"Input": [np.zeros((rows, 2), np.float32)],
+           "Weight": [np.zeros((total, 2), np.float32)],
+           "Label": [np.arange(rows)[:, None] % total]}
+    drawn, _ = _lower("nce", big, {"num_neg_samples": 10,
+                                   "num_total_classes": total}, dev, key=seed)
+    neg = drawn[1][:, 1:]
+    freq = np.bincount(neg.ravel(), minlength=total) / neg.size
+    if not np.array_equal(drawn[1][:, 0], big["Label"][0][:, 0]) or \
+            neg.min() < 0 or neg.max() >= total or \
+            np.abs(freq - 1.0 / total).max() >= 0.03:
+        raise AssertionError("nce: the draw's properties fail on the card: "
+                             "frequencies %s" % freq)
+    res = {}
+    for d in (cpu, dev):
+        leaves = [torch.from_numpy(ins[k][0]).to(d).requires_grad_()
+                  for k in ("Input", "Weight", "Bias")]
+        cost, logits = nn_ops.nce_logits(
+            *leaves, torch.from_numpy(ids.astype(np.int64)).to(d), 1, 3, 10)
+        c = torch.from_numpy(np.ones(cost.shape, np.float32)).to(d)
+        grads = torch.autograd.grad([cost, logits], leaves,
+                                    [c, torch.ones_like(logits)])
+        res[d.type] = [v.detach().cpu().numpy()
+                       for v in [cost, logits, *grads]]
+    for k, (g, w) in enumerate(zip(res[dev.type], res["cpu"])):
+        worst = max(worst, _dense_close("nce on the card's ids %d" % k, g, w))
+    _dense_close("nce Cost from the op", out[0], res[dev.type][0])
+    if len(types) != OPTIM_TYPES:
+        raise AssertionError("the sweep covers %d types" % len(types))
+    print("losses/optimizers/metrics sweep: %d types on the card against "
+          "the CPU, %d gradients; integers and %d integer-valued float "
+          "outputs exact, the worst float %.3g x max|ref| (bound rtol %g + "
+          "%g x max|ref|); nce's draw the same bits from the same stream, "
+          "uniform within %.4f over %d draws (bound 0.03)" % (
+              len(types), n_grads + 3, exact, worst, DENSE_RTOL, DENSE_AMAX,
+              float(np.abs(freq - 1.0 / total).max()), neg.size))
+    return worst
+
+
+def optim_build(fluid, kind, kw, dict_dim=None, emb_dim=None, hid_dim=None,
+                average=False):
+    """The stacked-LSTM classifier (``models.stacked_lstm.stacked_lstm_net``
+    of ``fluid``, either package) with cross entropy,
+    ``evaluator.Accuracy`` and ``layers.auc``, trained by
+    ``fluid.optimizer.<kind>(**kw)``; the eval program is the forward
+    cloned for test before the optimizer. ``average`` appends
+    ``ModelAverage.accumulate``. Feeds "words" (ragged ids) and
+    "label"; the widths default to DICT, EMB and HID. Returns the
+    programs and variables by name."""
+    import importlib
+
+    dict_dim, emb_dim, hid_dim = dict_dim or DICT, emb_dim or EMB, \
+        hid_dim or HID
+    layers = fluid.layers
+    net = importlib.import_module(
+        fluid.__name__ + ".models.stacked_lstm").stacked_lstm_net
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup):
+        words = layers.data("words", [1], dtype="int64", lod_level=1)
+        label = layers.data("label", [1], dtype="int64")
+        predict = net(words, dict_dim, CLASSES, emb_dim, hid_dim, STACKED)
+        loss = layers.mean(layers.cross_entropy(predict, label))
+        ev = fluid.evaluator.Accuracy(input=predict, label=label)
+        auc, _, stats = layers.auc(predict, label)
+        test = prog.clone(for_test=True)
+        getattr(fluid.optimizer, kind)(**kw).minimize(loss)
+        avg = None
+        if average:
+            avg = fluid.optimizer.ModelAverage()
+            avg.accumulate(loss)
+    return dict(prog=prog, startup=startup, test=test, loss=loss,
+                acc=ev.metrics[0], auc=auc, stats=stats, ev=ev,
+                predict=predict, average=avg)
+
+
+def update_share(exe, prog, loss, scope, feed, k, label):
+    """The update ops' (those whose lowering writes a ``ParamOut``) share
+    of an eager step, from the step's own trace: UPDATE_PROFILES
+    profiles (host and device) of ``k`` warm eager steps each, every
+    update op's lowering inside a record_function range (UPDATE_RANGE).
+    Per profile: the device busy ms a step (every kernel, copy and set)
+    and the device ms of the kernels launched inside the ranges; the
+    median of each, and of their ratio. Also the bytes a one-pass update
+    must move (each parameter-shaped input read once, each
+    parameter-shaped output written once, as the lowerings were handed
+    them) over HBM_BYTES_PER_S. Returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.core import registry
+
+    specs = sorted({registry.get(op.type) for op in prog.global_block().ops
+                    if registry.has(op.type) and "ParamOut"
+                    in registry.get(op.type).stateful_outputs},
+                   key=lambda sp: sp.type)
+    moved, n_params = {}, {}
+
+    def annotated(lower):
+        def run(ctx, ins, attrs, op):
+            with record_function(UPDATE_RANGE):
+                out = lower(ctx, ins, attrs, op)
+            shape = ins["Param"][0].shape
+            read = [t for sl, v in ins.items() if not (
+                op.type == "rmsprop" and sl == "MeanGrad"
+                and not attrs.get("centered", False))      # not read
+                for t in v]
+            wrote = [t for v in registry.normalize_outputs(out).values()
+                     for t in v]
+            moved[op.uid] = sum(t.numel() * t.element_size()
+                                for t in read + wrote
+                                if isinstance(t, torch.Tensor)
+                                and t.shape == shape)
+            n_params[op.uid] = ins["Param"][0].numel()
+            return out
+        return run
+
+    def steps():
+        for _ in range(k):
+            exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+
+    orig = [sp.lower for sp in specs]
+    samples = []
+    try:
+        for sp in specs:
+            sp.lower = annotated(sp.lower)
+        steps()                                          # warm
+        for _ in range(UPDATE_PROFILES):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                steps()
+            ev = prof.events()
+            busy = sum(e.time_range.elapsed_us() for e in ev
+                       if str(e.device_type).endswith("CUDA")
+                       and e.name != UPDATE_RANGE
+                       and not getattr(e, "is_user_annotation", False))
+            upd = sum(e.device_time_total for e in ev
+                      if e.name == UPDATE_RANGE
+                      and str(e.device_type).endswith("CPU"))
+            samples.append((busy / 1000.0 / k, upd / 1000.0 / k))
+    finally:
+        for sp, lower in zip(specs, orig):
+            sp.lower = lower
+    busy = float(np.median([b for b, _ in samples]))
+    upd = float(np.median([u for _, u in samples]))
+    share = float(np.median([u / b for b, u in samples])) if busy else None
+    total = sum(moved.values())
+    bound = total / HBM_BYTES_PER_S * 1000.0
+    n = sum(n_params.values())
+    print("%s: %d update ops (%s) over %d parameters (%.1f MB float32), "
+          "from %d profiles of %d eager steps: update kernels %s ms a step "
+          "(median; each profile %s), %s of the step's busy %.3f ms "
+          "(median; each %s); a one-pass update moves %.1f MB, %.4f ms at "
+          "%.2f TB/s (%s)" % (
+              label, len(moved), ",".join(sp.type for sp in specs), n,
+              n * 4 / 1e6, UPDATE_PROFILES, k, "%.4f" % upd,
+              " ".join("%.4f" % u for _, u in samples),
+              "%.2f%%" % (100.0 * share) if share is not None
+              else "a share not measured", busy,
+              " ".join("%.4f" % b for b, _ in samples), total / 1e6, bound,
+              HBM_BYTES_PER_S / 1e12,
+              "%.1fx the bound" % (upd / bound) if upd else "-"))
+    if not upd:
+        raise AssertionError("%s: the profiles put no device time in the "
+                             "update ops' ranges" % label)
+    return dict(update_busy=upd, update_share=share, update_step_busy=busy,
+                update_mb=total / 1e6, update_bound=bound)
+
+
+def binned_auc(scores, labels, bins=4096):
+    """P(a positive's bin > a negative's) + half P(equal), by pairs, over
+    the bins layers.auc puts scores in."""
+    b = np.clip((scores.astype(np.float32) * (bins - 1)).astype(np.int64), 0,
+                bins - 1)
+    pos, neg = b[labels == 1], b[labels == 0]
+    if not pos.size or not neg.size:
+        return 0.0
+    d = pos[:, None] - neg[None, :]
+    return float((d > 0).sum() + 0.5 * (d == 0).sum()) / d.size
+
+
+def optim_path(fluid, seed, dev, tag, kind, kw):
+    """Phase 6i (b): the stacked LSTM at full width under one optimizer:
+    startup, 1 + OPTIM_STEPS eager steps with a finite falling loss and
+    B3/B4 launches exactly the program's; ModelAverage's sums and counts
+    (on the OPTIM_AVERAGE run) against the parameters summed on the host;
+    the for_test clone over OPTIM_EVAL_BATCHES batches (3 B3 a batch from
+    the program): the streamed AUC against metrics.Auc and a numpy AUC on
+    the same predictions, evaluator.Accuracy and WeightedAverage against
+    the pass accuracy; run_chunk's graph replays bitwise against eager
+    steps; the update ops' share of the step; the card against the CPU at
+    XCHECK's size. Returns (B3/B4 launches, numbers)."""
+    from paddle_tpu_torch import average, metrics, unique_name
+
+    started = time.perf_counter()
+    label = "stacked LSTM under %s" % tag
+    with unique_name.guard():
+        m = optim_build(fluid, kind, kw, average=tag == OPTIM_AVERAGE)
+    prog, startup, loss = m["prog"], m["startup"], m["loss"]
+    startup.random_seed = seed
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed)
+    lens, words, lab = stacked_lstm_batch(rng, LSTM_B, LSTM_T, MIN_LEN, DICT)
+    on_card = packed_on(fluid, {"words": words, "label": lab}, dev)
+    fwd, bwd = recurrent_launches(prog, "lstm")
+    ma = m["average"]
+    host_sums = {n: torch.zeros(scope.find_var(n).shape)
+                 for n in (ma.params if ma else ())}
+
+    def accumulate():
+        for n, acc in host_sums.items():
+            acc += scope.find_var(n).cpu()
+    losses, run_s = [], 0.0
+    for i in range(OPTIM_WARMUP + OPTIM_STEPS):
+        if i == OPTIM_WARMUP:
+            torch.cuda.synchronize()
+            reset_all_launches()
+            run_s = 0.0
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                                    scope=scope)[0]))
+        run_s += time.perf_counter() - t0
+        accumulate()
+    step_ms = run_s * 1000.0 / OPTIM_STEPS
+    got = {n: c for n, c in all_launches().items() if c}
+    want = {n: c for n, c in (("lstm_fwd", fwd * OPTIM_STEPS),
+                              ("lstm_bwd", bwd * OPTIM_STEPS)) if c}
+    counted = losses[OPTIM_WARMUP:]
+    print("%s: losses %s (warmup %.6f); eager %.3f ms/step with the loss's "
+          "host read; launches %s, from the program %s" % (
+              label, " ".join("%.6f" % v for v in counted), losses[0],
+              step_ms, json.dumps(got), json.dumps(want)))
+    if got != want:
+        raise AssertionError("%s: launches %s != %s" % (label, got, want))
+    if not np.isfinite(losses).all() or not counted[-1] < counted[0]:
+        raise AssertionError("%s: loss not finite and falling: %s"
+                             % (label, losses))
+    if ma is not None:
+        worst = 0.0
+        for n, (s, c) in ma.params.items():
+            dsum = scope.find_var(s.name).cpu()
+            np.testing.assert_allclose(dsum.numpy(), host_sums[n].numpy(),
+                                       rtol=1e-6, err_msg=n)
+            worst = max(worst, float((dsum - host_sums[n]).abs().max()
+                                     / host_sums[n].abs().max()))
+            if float(scope.find_var(c.name).cpu()[0]) != len(losses):
+                raise AssertionError("ModelAverage count of %s" % n)
+        print("%s: ModelAverage over %d parameters: sums equal the "
+              "parameters summed on the host after each of %d steps "
+              "(worst %.3g x max, bound rtol 1e-6), counts %d" % (
+                  label, len(ma.params), len(losses), worst, len(losses)))
+
+    # the for_test clone streams the metrics over fresh batches
+    test, (tfwd, _) = m["test"], recurrent_launches(m["test"], "lstm")
+    ref, wavg = metrics.Auc(), average.WeightedAverage()
+    scores, labels = [], []
+    with fluid.scope_guard(scope):
+        m["ev"].reset()
+        for v in m["stats"]:
+            scope.set_var(v.name, torch.zeros_like(scope.find_var(v.name)))
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for _ in range(OPTIM_EVAL_BATCHES):
+            _, w, y = stacked_lstm_batch(rng, LSTM_B, LSTM_T, MIN_LEN, DICT)
+            pr, a, auc = exe.run(test, feed={"words": w, "label": y},
+                                 fetch_list=[m["predict"], m["acc"],
+                                             m["auc"]], scope=scope)
+            ref.update(pr, y)
+            wavg.add(a, LSTM_B)
+            scores.append(pr[:, 1])
+            labels.append(y[:, 0])
+        eval_ms = (time.perf_counter() - t0) * 1000.0 / OPTIM_EVAL_BATCHES
+        passed = m["ev"].eval()
+    got = {n: c for n, c in all_launches().items() if c}
+    scores, labels = np.concatenate(scores), np.concatenate(labels)
+    pass_acc = float((np.argmax(np.stack([1 - scores, scores], 1), 1)
+                      == labels).mean())
+    exact = binned_auc(scores, labels)
+    print("%s: eval over %d batches: streamed AUC %.7f, metrics.Auc %.7f, "
+          "numpy AUC %.7f on the bins (%.7f on the raw scores); pass "
+          "accuracy %.6f, evaluator.Accuracy %.6f, WeightedAverage %.6f; "
+          "%.3f host ms a batch; launches %s, from the program %d B3 a "
+          "batch" % (label, OPTIM_EVAL_BATCHES, float(auc), ref.eval(), exact,
+                     binned_auc(scores, labels, bins=1 << 24), pass_acc,
+                     float(passed[0]), wavg.eval(), eval_ms, json.dumps(got),
+                     tfwd))
+    if got != ({"lstm_fwd": tfwd * OPTIM_EVAL_BATCHES} if tfwd else {}):
+        raise AssertionError("%s: eval launches %s" % (label, got))
+    if abs(float(auc) - ref.eval()) > 1e-6 * max(ref.eval(), 1e-30) or \
+            abs(ref.eval() - exact) > 1e-6 or \
+            abs(float(passed[0]) - pass_acc) > 1e-6 or \
+            abs(wavg.eval() - pass_acc) > 1e-6:
+        raise AssertionError("%s: the eval pass's metrics disagree" % label)
+    launched = {"lstm_fwd": fwd * OPTIM_STEPS + tfwd * OPTIM_EVAL_BATCHES,
+                "lstm_bwd": bwd * OPTIM_STEPS}
+    nums = graph_path(fluid, label, (prog, startup, loss), on_card,
+                      GRAPH_K["optim"], 1, seed,
+                      {"lstm_fwd": fwd, "lstm_bwd": bwd},
+                      (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
+    nums.update(update_share(exe, prog, loss, scope, on_card,
+                             GRAPH_K["optim"], label))
+    nums.update(eval_ms=eval_ms, step_ms=step_ms)
+    print("%s: %.1f s" % (label, time.perf_counter() - started))
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    xlens, xwords, xlabel = stacked_lstm_batch(rng, XCHECK_B, XCHECK_T, 1,
+                                               XCHECK["dict_dim"])
+
+    def build():
+        x = optim_build(fluid, kind, kw, dict_dim=XCHECK["dict_dim"],
+                        emb_dim=XCHECK["emb_dim"], hid_dim=XCHECK["hid_dim"],
+                        average=tag == OPTIM_AVERAGE)
+        return x["prog"], x["startup"], None, (x["loss"],)
+
+    cross_check(fluid, fluid.Executor(), build, seed,
+                {"words": xwords, "label": xlabel}, XCHECK_STEPS,
+                "%s, %s, B %d" % (label, XCHECK, XCHECK_B),
+                state_tol=OPTIM_STATE_TOL)
+    return launched, nums
+
+
+class SameDraws:
+    """nce's negatives drawn on the card and replayed in order on the
+    CPU, whose generator gives other numbers from the same seed: while
+    entered, ``ops.nn_ops.nce_draw`` records each draw made on the card
+    and hands the CPU the oldest recorded one."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import nn_ops
+
+        self.orig, self.drawn = nn_ops.nce_draw, collections.deque()
+
+        def draw(gen, batch, num_neg, total, device):
+            if device.type == "cpu":
+                return self.drawn.popleft().to(device)
+            ids = self.orig(gen, batch, num_neg, total, device)
+            if device.type == "cuda":
+                self.drawn.append(ids)
+            return ids
+        nn_ops.nce_draw = draw
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import nn_ops
+
+        nn_ops.nce_draw = self.orig
+
+
+def w2v_head_path(fluid, seed, dev, head):
+    """Phase 6i (c): word2vec at BOOK_W2V's widths with the ``head``
+    ("hsigmoid" or "nce") over its 2073 words: a finite falling loss over
+    BOOK_W2V_STEPS eager steps, run_chunk's graph replays bitwise against
+    eager steps, the update ops' share of the step, and the card against
+    the CPU from the same weights (3 losses within rtol 1e-4, first-step
+    gradients within 1e-4 x max|g|; nce's draws the card's on both).
+    Returns the numbers."""
+    from paddle_tpu_torch import unique_name
+
+    label = "word2vec with the %s head" % head
+    feed = w2v_feed(np.random.RandomState(seed + 7), BOOK_W2V_B,
+                    BOOK_W2V["dict_size"])
+    on_card = {n: torch.from_numpy(v).to(dev) for n, v in feed.items()}
+    with unique_name.guard():
+        prog, startup, _, (loss,) = w2v_build(fluid, head=head)
+    startup.random_seed = seed
+    scope, exe = fluid.Scope(), fluid.Executor()
+    exe.run(startup, scope=scope)
+    exe.run(prog, feed=on_card, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(exe.run(prog, feed=on_card, fetch_list=[loss],
+                            scope=scope)[0])
+              for _ in range(BOOK_W2V_STEPS)]
+    step_ms = (time.perf_counter() - t0) * 1000.0 / BOOK_W2V_STEPS
+    print("%s: losses %s; eager %.3f ms/step (with the loss's host read)"
+          % (label, " ".join("%.6f" % v for v in losses), step_ms))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("%s: loss not finite and falling: %s"
+                             % (label, losses))
+    nums = graph_path(fluid, label, (prog, startup, loss), on_card,
+                      GRAPH_K["w2v"], GRAPH_CHUNKS, seed, {},
+                      (1e-4, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
+    nums.update(update_share(exe, prog, loss, scope, on_card,
+                             GRAPH_K["w2v"], label))
+    nums["step_ms"] = step_ms
+    del scope, exe
+    with SameDraws() if head == "nce" else contextlib.nullcontext():
+        cross_check(fluid, fluid.Executor(),
+                    lambda: w2v_build(fluid, head=head), seed, feed, 3, label)
+    torch.cuda.empty_cache()
+    return nums
+
+
+def optim_phase(fluid, seed, dev):
+    """Phase 6i: the losses, the optimizers and the metrics on the card:
+    the 26 types' sweep, the stacked LSTM under each of OPTIMIZERS
+    (optim_path), word2vec with each of W2V_HEADS (w2v_head_path).
+    Returns the B3/B4 launches on the main path."""
+    t0 = time.perf_counter()
+    optim_sweep(dev, seed)
+    t1 = time.perf_counter()
+    launched, nums = collections.Counter(), {}
+    for tag, kind, kw in OPTIMIZERS:
+        n, nums[tag] = optim_path(fluid, seed, dev, tag, kind, kw)
+        launched.update(n)
+    t2 = time.perf_counter()
+    for head in W2V_HEADS:
+        nums["w2v_" + head] = w2v_head_path(fluid, seed, dev, head)
+    print("losses/optimizers/metrics phase parts: sweep %.1f s, stacked "
+          "LSTM under %d optimizers %.1f s, word2vec heads %.1f s" % (
+              t1 - t0, len(OPTIMIZERS), t2 - t1, time.perf_counter() - t2))
+    keys = ("host_eager", "host_graphs", "busy_eager", "busy_graphs",
+            "ops_eager", "update_busy", "update_step_busy", "update_share",
+            "update_mb", "update_bound")
+    print("losses/optimizers/metrics phase: %.1f s; per run %s: %s (card: "
+          "%s)" % (time.perf_counter() - t0, ", ".join(keys), json.dumps({
+              tag: [None if v.get(k) is None else round(v[k], 4)
+                    for k in keys] for tag, v in nums.items()}), card_line()))
+    return dict(launched)
 
 
 def rnn_amp_phase(fluid, seed, dev, model):
@@ -7927,6 +8716,16 @@ def main():
     for n, e in ocr_err.items():
         max_err[n] = max(max_err[n], e)
     for n, c in ocr_launches.items():
+        launches[n] += c
+
+    # ---- 6i. the losses, the optimizers and the metrics ----
+    phase("losses, optimizers and metrics: %d types on the card against the "
+          "CPU, the stacked LSTM at full width under %s with layers.auc, "
+          "evaluator.Accuracy and ModelAverage, word2vec (dictionary %d) "
+          "with the %s heads (seed %d)" % (
+              OPTIM_TYPES, ", ".join(o[0] for o in OPTIMIZERS),
+              BOOK_W2V["dict_size"], " and ".join(W2V_HEADS), args.seed))
+    for n, c in optim_phase(fluid, args.seed, dev).items():
         launches[n] += c
 
     # ---- 7. the convnet training slice at full width ----

@@ -41,6 +41,9 @@ from paddle_tpu_torch import amp  # noqa: F401
 from paddle_tpu_torch import regularizer  # noqa: F401
 from paddle_tpu_torch import clip  # noqa: F401
 from paddle_tpu_torch import io  # noqa: F401
+from paddle_tpu_torch import metrics  # noqa: F401
+from paddle_tpu_torch import average  # noqa: F401
+from paddle_tpu_torch import evaluator  # noqa: F401
 from paddle_tpu_torch import telemetry  # noqa: F401
 from paddle_tpu_torch import tracing  # noqa: F401
 from paddle_tpu_torch.data_feeder import DataFeeder, stack_feeds  # noqa: F401

@@ -19,8 +19,11 @@ resizing), four of the layers over ops already ported (group norm,
 the 1-D batch norm, the last step of a sequence, the dice loss), the
 sequence family's layers (softmax, expand, reshape, reverse, concat,
 slice and unpad over sequences, and re-segmenting them) and the CTC
-layers (the loss, the greedy decoder, the edit distance); the JAX
-package's other layers arrive with later slices.
+layers (the loss, the greedy decoder, the edit distance), the loss
+family's layers (the pointwise and ranking losses, the ``nce`` and
+``hsigmoid`` heads, the NTM's ``conv_shift``) and the streaming
+metrics (``auc``, ``mean_iou``); the JAX package's other layers
+(concurrency, pipeline, mixture of experts) arrive with later slices.
 """
 
 from paddle_tpu_torch.core import ir
@@ -58,6 +61,9 @@ __all__ = [
     "lod_reset", "sequence_softmax", "sequence_expand", "sequence_reshape",
     "sequence_reverse", "sequence_concat", "sequence_slice",
     "sequence_unpad", "warpctc", "ctc_greedy_decoder", "edit_distance",
+    "conv_shift", "smooth_l1", "sigmoid_cross_entropy_with_logits",
+    "log_loss", "huber_loss", "kldiv_loss", "rank_loss", "margin_rank_loss",
+    "bpr_loss", "hinge_loss", "nce", "hsigmoid", "auc", "mean_iou",
 ]
 
 
@@ -1515,3 +1521,186 @@ def dice_loss(input, label, epsilon=1e-5):
         scale(dice_denominator, scale=1.0, bias=epsilon)),
         scale=-1.0, bias=1.0)
     return reduce_mean(dice_score)
+
+
+# ---- the loss family's layers, the sampled and tree-structured
+# softmax heads, the NTM shift and the streaming metrics ----
+
+def conv_shift(x, y, name=None):
+    """Circular convolution, the NTM attention shift (reference
+    `conv_shift_op.cc`)."""
+    helper = LayerHelper("conv_shift", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("conv_shift", {"X": [x], "Y": [y]}, {"Out": [out]}, {})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1")
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        ins["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        ins["OutsideWeight"] = [outside_weight]
+    helper.append_op("smooth_l1_loss", ins, {"Out": [loss], "Diff": [diff]},
+                     {"sigma": sigma or 1.0})
+    return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x], "Label": [label]}, {"Out": [out]}, {})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_loss", {"Predicted": [input], "Labels": [label]},
+                     {"Loss": [out]}, {"epsilon": epsilon})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    resid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("huber_loss", {"X": [input], "Y": [label]},
+                     {"Out": [out], "Residual": [resid]}, {"delta": delta})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    """As in the JAX package, the op's result goes to its "Loss" slot,
+    which this layer does not name: ``out`` is never written (ROADMAP.md
+    Queue 3)."""
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("kldiv_loss", {"X": [x], "Target": [target]},
+                     {"Out": [out]}, {"reduction": reduction})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op("rank_loss",
+                     {"Label": [label], "Left": [left], "Right": [right]},
+                     {"Out": [out]})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op("margin_rank_loss",
+                     {"Label": [label], "X1": [left], "X2": [right]},
+                     {"Out": [out], "Activated": [act]}, {"margin": margin})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    helper = LayerHelper("bpr_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("bpr_loss", {"X": [input], "Label": [label]},
+                     {"Y": [out]})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper("hinge_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("hinge_loss", {"Logits": [input], "Labels": [label]},
+                     {"Loss": [out]})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None):
+    """Noise-contrastive estimation: W [V, D], bias [V, 1], 10 negatives
+    a row unless ``num_neg_samples`` says otherwise. ``sample_weight`` is
+    accepted and not passed on, as in the JAX package (ROADMAP.md Queue
+    3)."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = int(input.shape[1])
+    w = helper.create_parameter(helper.param_attr, [num_total_classes, dim],
+                                input.dtype)
+    b = helper.create_parameter(helper.bias_attr, [num_total_classes, 1],
+                                input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(input.dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    ins = {"Input": [input], "Label": [label], "Weight": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op("nce", ins,
+                     {"Cost": [cost], "SampleLogits": [sample_logits],
+                      "SampleLabels": [sample_labels]},
+                     {"num_total_classes": num_total_classes,
+                      "num_neg_samples": num_neg_samples or 10})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """The hierarchical sigmoid over a complete binary tree of
+    ``num_classes`` leaves: W [C - 1, D], bias [1, C - 1]."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = int(input.shape[1])
+    w = helper.create_parameter(helper.param_attr, [num_classes - 1, dim],
+                                input.dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, num_classes - 1],
+                                input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"X": [input], "W": [w], "Label": [label]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op("hierarchical_sigmoid", ins,
+                     {"Out": [out], "PreOut": [pre]},
+                     {"num_classes": num_classes})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1):
+    """Streaming AUC: persistable histograms ``<name>.stat_pos`` and
+    ``.stat_neg`` of ``num_thresholds + 1`` bins, zeroed by the startup
+    program and carried from batch to batch. Returns (auc, auc,
+    [stat_pos, stat_neg])."""
+    helper = LayerHelper("auc")
+    auc_out = helper.create_variable_for_type_inference("float32")
+    stat_pos = helper.create_global_variable(
+        persistable=True, shape=[num_thresholds + 1], dtype="float32",
+        name=helper.name + ".stat_pos")
+    stat_neg = helper.create_global_variable(
+        persistable=True, shape=[num_thresholds + 1], dtype="float32",
+        name=helper.name + ".stat_neg")
+    helper.set_variable_initializer(stat_pos, Constant(0.0))
+    helper.set_variable_initializer(stat_neg, Constant(0.0))
+    helper.append_op("auc",
+                     {"Predict": [input], "Label": [label],
+                      "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+                     {"AUC": [auc_out], "StatPosOut": [stat_pos],
+                      "StatNegOut": [stat_neg]},
+                     {"num_thresholds": num_thresholds})
+    return auc_out, auc_out, [stat_pos, stat_neg]
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    out = helper.create_variable_for_type_inference("float32")
+    wrong = helper.create_variable_for_type_inference("float32")
+    correct = helper.create_variable_for_type_inference("float32")
+    helper.append_op("mean_iou",
+                     {"Predictions": [input], "Labels": [label]},
+                     {"OutMeanIou": [out], "OutWrong": [wrong],
+                      "OutCorrect": [correct]},
+                     {"num_classes": num_classes})
+    return out, wrong, correct

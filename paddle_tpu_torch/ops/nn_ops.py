@@ -12,17 +12,26 @@ The vision family too: the 3-D and transposed convolutions
 (`pool_with_index_op`), `unpool_op`, `spp_op` and `im2sequence_op`.
 Convolution and pooling go to the library (``torch.nn.functional``), as
 the JAX package leaves them to XLA; an NHWC activation is handed over as
-a channels-last view, so no copy is made for the layout. The module's
-other ops (the losses, ``conv_shift``, ``moe``) arrive with later
-slices.
+a channels-last view, so no copy is made for the layout. The loss
+family too: the pointwise and ranking losses (`sigmoid_cross_entropy_
+with_logits_op`, `huber_loss_op`, `smooth_l1_loss_op`, `hinge_loss_op`,
+`modified_huber_loss_op`, `rank_loss_op`, `margin_rank_loss_op`,
+`log_loss_op`, `kldiv_loss_op`, `bpr_loss_op`), the sampled and
+tree-structured softmax heads (`nce_op`, `hierarchical_sigmoid_op`) and
+the NTM shift (`conv_shift_op`), each with the JAX package's formula,
+overflows included. The heads gather rows of W per example
+(:class:`_RowGather`), whose backward adds a row's duplicates in index
+order. ``moe`` arrives with a later slice.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import registry
 from paddle_tpu_torch.core.infer import torch_dtype
-from paddle_tpu_torch.core.lower import last_writes, wrap_ids
+from paddle_tpu_torch.core.lower import add_rows, last_writes, wrap_ids
 from paddle_tpu_torch.core.registry import op
 
 
@@ -664,3 +673,246 @@ def _im2sequence(ctx, ins, attrs, o):
     k = _pair(attrs.get("kernels", [1, 1]))
     s = _pair(attrs.get("strides", [1, 1]))
     return F.unfold(x, k, stride=s).transpose(1, 2)
+
+
+# ---- the loss family (family 4): the pointwise and ranking losses,
+# the sampled and tree-structured softmax heads, and the NTM shift ----
+
+class _RowGather(torch.autograd.Function):
+    """``w[idx]`` for int64 rows ``idx`` in range (any shape): rows of
+    ``w`` [V, ...] gathered to ``idx.shape + w.shape[1:]``. The backward
+    adds the cotangents of one row's reads in index order through
+    ``core.lower.add_rows``, so a gradient has the same bits from run to
+    run (``index_select``'s and ``embedding``'s backwards add duplicates
+    by atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, w, idx):
+        ctx.save_for_backward(idx)
+        ctx.w_shape = tuple(w.shape)
+        return w[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows = idx.reshape(-1)
+        vals = g.reshape((rows.shape[0],) + ctx.w_shape[1:])
+        return add_rows(g.new_zeros(ctx.w_shape), rows, vals), None
+
+
+def _take_rows(w, ids):
+    """``jnp.take(w, ids, axis=0)``: a negative id wraps once, an id out
+    of range reads NaN and passes no gradient."""
+    idx, ok = wrap_ids(ids.to(torch.int64), w.shape[0])
+    out = _RowGather.apply(w, idx)
+    ok = ok.reshape(tuple(ok.shape) + (1,) * (out.dim() - ok.dim()))
+    return torch.where(ok, out, float("nan"))
+
+
+def _sigmoid_ce(x, label):
+    """max(x, 0) - x label + log1p(exp(-|x|)), the JAX formula with its
+    derivatives at x = 0: the maximum splits the gradient (as
+    ``torch.maximum`` does) and |x| passes it whole (jnp.abs's
+    derivative is 1 at 0, ``torch.abs``'s 0)."""
+    a = torch.where(x >= 0, x, -x)
+    return torch.maximum(x, torch.zeros_like(x)) - x * label + \
+        torch.log1p(torch.exp(-a))
+
+
+@op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_cross_entropy_with_logits(ctx, ins, attrs, o):
+    return _sigmoid_ce(ins["X"][0], ins["Label"][0])
+
+
+@op("huber_loss")
+def _huber_loss(ctx, ins, attrs, o):
+    x, y = ins["X"][0], ins["Y"][0]
+    d = attrs.get("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    loss = torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d))
+    return {"Out": loss, "Residual": r}
+
+
+@op("smooth_l1_loss")
+def _smooth_l1_loss(ctx, ins, attrs, o):
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    if ins.get("InsideWeight") and ins["InsideWeight"][0] is not None:
+        d = d * ins["InsideWeight"][0]
+    a = torch.abs(d)
+    loss = torch.where(a < 1.0 / s2, 0.5 * d * d * s2, a - 0.5 / s2)
+    if ins.get("OutsideWeight") and ins["OutsideWeight"][0] is not None:
+        loss = loss * ins["OutsideWeight"][0]
+    out = torch.sum(loss.reshape(loss.shape[0], -1), -1, keepdim=True)
+    return {"Out": out, "Diff": d}
+
+
+@op("hinge_loss", nondiff_inputs=("Labels",))
+def _hinge_loss(ctx, ins, attrs, o):
+    logits, labels = ins["Logits"][0], ins["Labels"][0]
+    m = 1.0 - (2.0 * labels - 1.0) * logits
+    return {"Loss": torch.maximum(m, torch.zeros_like(m))}
+
+
+@op("modified_huber_loss", nondiff_inputs=("Y",))
+def _modified_huber_loss(ctx, ins, attrs, o):
+    x, y = ins["X"][0], ins["Y"][0]
+    z = x * (2.0 * y - 1.0)
+    loss = torch.where(z >= 1.0, 0.0, torch.where(
+        z >= -1.0, torch.square(1.0 - z), -4.0 * z))
+    return {"Out": loss, "IntermediateVal": z}
+
+
+@op("rank_loss")
+def _rank_loss(ctx, ins, attrs, o):
+    """log1p(exp(d)) - label d, as the JAX package writes it: inf where
+    d passes about 88 (softplus would not overflow)."""
+    label, left, right = ins["Label"][0], ins["Left"][0], ins["Right"][0]
+    d = left - right
+    return torch.log1p(torch.exp(d)) - label * d
+
+
+@op("margin_rank_loss")
+def _margin_rank_loss(ctx, ins, attrs, o):
+    label, x1, x2 = ins["Label"][0], ins["X1"][0], ins["X2"][0]
+    m = -label * (x1 - x2) + attrs.get("margin", 0.0)
+    act = torch.maximum(torch.zeros_like(m), m)
+    return {"Out": act, "Activated": (act > 0).to(x1.dtype)}
+
+
+@op("log_loss")
+def _log_loss(ctx, ins, attrs, o):
+    p, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": -label * torch.log(p + eps)
+            - (1 - label) * torch.log(1 - p + eps)}
+
+
+@op("kldiv_loss")
+def _kldiv_loss(ctx, ins, attrs, o):
+    """target (log(max(target, 1e-20)) - x), then the reduction: "mean"
+    (the default), "sum", "batchmean" (the sum over the batch size) or
+    none. The result goes to "Loss", which the JAX package's layer does
+    not name (ROADMAP.md Queue 3)."""
+    x, tgt = ins["X"][0], ins["Target"][0]
+    loss = tgt * (torch.log(torch.clamp_min(tgt, 1e-20)) - x)
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = torch.mean(loss)
+    elif red == "sum":
+        loss = torch.sum(loss)
+    elif red == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    return {"Loss": loss}
+
+
+@op("bpr_loss", nondiff_inputs=("Label",))
+def _bpr_loss(ctx, ins, attrs, o):
+    """-sum_j log(sigmoid(x_label - x_j)) / (C - 1) over every class j,
+    the label's own included, as the JAX package writes it: log of the
+    sigmoid, -inf where the difference passes about -88 below (the
+    log-sigmoid would stay finite)."""
+    x = ins["X"][0]
+    diff = _take_label(x, ins["Label"][0]) - x
+    n = x.shape[-1]
+    return {"Y": -torch.sum(torch.log(torch.sigmoid(diff)), -1,
+                            keepdim=True) / (n - 1)}
+
+
+def nce_draw(gen, batch, num_neg, total, device):
+    """The negatives of one ``nce`` op: [batch, num_neg] int64 ids
+    uniform in [0, total) from ``gen`` (``TraceContext.rng``), on the
+    device (a captured graph replays the draw)."""
+    if device.type == "meta":
+        return torch.empty((batch, num_neg), dtype=torch.int64,
+                           device=device)
+    return torch.randint(0, total, (batch, num_neg), generator=gen,
+                         dtype=torch.int64, device=device)
+
+
+def nce_logits(x, w, b, ids, num_true, num_neg, total):
+    """The arithmetic of ``nce`` on its sampled ids [B, T + N] (the T
+    label columns first): each row's logits against its ids' rows of W
+    (and of the bias [V, 1]) less log(N / total), the sigmoid cross
+    entropy against 1 for the labels and 0 for the negatives, summed
+    over the row. Returns (cost [B, 1], logits [B, T + N])."""
+    logits = torch.einsum("bd,btd->bt", x, _take_rows(w, ids))
+    if b is not None:
+        logits = logits + _take_rows(b.reshape(-1), ids)
+    pnoise = torch.full((), float(num_neg) / total, dtype=torch.float32,
+                        device=x.device)
+    logits = logits - torch.log(pnoise)
+    labels01 = torch.cat(
+        [torch.ones((x.shape[0], num_true), device=x.device),
+         torch.zeros((x.shape[0], num_neg), device=x.device)], 1)
+    cost = torch.sum(_sigmoid_ce(logits, labels01), 1, keepdim=True)
+    return cost, logits
+
+
+@op("nce", nondiff_inputs=("Label", "SampleWeight"))
+def _nce(ctx, ins, attrs, o):
+    """Noise-contrastive estimation (`operators/nce_op.*`) as the JAX
+    package lowers it: per-example sampled softmax with uniform noise.
+    The draw of the negatives (:func:`nce_draw`, the op's own stream)
+    and the arithmetic on the ids (:func:`nce_logits`) are apart: the
+    two packages draw other numbers from one seed, and the tests hold
+    the arithmetic on the JAX package's ids. The grad op recomputes this
+    forward under the forward op's uid, so it draws the same ids.
+    ``SampleWeight`` is not read (ROADMAP.md Queue 3)."""
+    x, w = ins["Input"][0], ins["Weight"][0]       # [B, D], [V, D]
+    label = ins["Label"][0].to(torch.int64)         # [B, num_true]
+    if label.dim() == 1:
+        label = label[:, None]
+    num_neg = attrs.get("num_neg_samples", 10)
+    total = attrs.get("num_total_classes", w.shape[0])
+    b = ins.get("Bias", [None])[0]
+    neg = nce_draw(ctx.rng(), x.shape[0], num_neg, total, x.device)
+    ids = torch.cat([label, neg], dim=1)
+    cost, logits = nce_logits(x, w, b, ids, label.shape[1], num_neg, total)
+    return {"Cost": cost, "SampleLogits": logits,
+            "SampleLabels": ids.to(torch.int32)}
+
+
+@op("hierarchical_sigmoid", nondiff_inputs=("Label",))
+def _hierarchical_sigmoid(ctx, ins, attrs, o):
+    """The JAX package's simplified hierarchical sigmoid: a complete
+    binary tree over ``num_classes`` leaves (leaf c at position C + c,
+    internal node n at row n - 1 of W [C - 1, D]), ceil(log2(C)) rounds
+    each taking one step to the parent, a sigmoid cross entropy at the
+    parent's node against the side the path came from, and rounds past
+    the root masked out. ``PreOut`` is ``Out`` (ROADMAP.md Queue 3)."""
+    x, w = ins["X"][0], ins["W"][0]
+    label = ins["Label"][0].to(torch.int64).reshape(-1)
+    num_classes = attrs["num_classes"]
+    bias = ins.get("Bias", [None])[0]
+    code_len = max(1, math.ceil(math.log2(num_classes)))
+    idx = label + num_classes
+    loss = torch.zeros((x.shape[0], 1), dtype=x.dtype, device=x.device)
+    for _ in range(code_len):
+        parent = idx // 2
+        bit = (idx % 2).to(x.dtype)
+        valid = (parent >= 1) & (parent - 1 < num_classes - 1)
+        node = torch.clamp(parent - 1, 0, w.shape[0] - 1)
+        logit = torch.sum(x * _RowGather.apply(w, node), -1, keepdim=True)
+        if bias is not None:
+            logit = logit + _RowGather.apply(bias.reshape(-1), node)[:, None]
+        ce = _sigmoid_ce(logit, bit[:, None])
+        loss = loss + torch.where(valid[:, None], ce, 0.0)
+        idx = parent
+    return {"Out": loss, "PreOut": loss}
+
+
+@op("conv_shift")
+def _conv_shift(ctx, ins, attrs, o):
+    """Circular convolution (reference `conv_shift_op.cc`, the NTM
+    shift): Out[b, i] = sum_j X[b, (i + j - (N-1)/2) mod M] Y[b, j] for
+    X [B, M] and an odd-width Y [B, N]. X's N shifted copies are rolls,
+    whose backward is a roll: no scatter with duplicates."""
+    x, y = ins["X"][0], ins["Y"][0]
+    half = (y.shape[1] - 1) // 2
+    shifted = torch.stack([torch.roll(x, half - j, dims=1)
+                           for j in range(y.shape[1])], dim=-1)
+    return {"Out": torch.einsum("bmn,bn->bm", shifted, y)}

@@ -67,6 +67,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.ops.crf_ops\n"
         "import paddle_tpu_torch.ops.detection_ops\n"
         "import paddle_tpu_torch.layers.math_op_patch\n"
+        "import paddle_tpu_torch.metrics, paddle_tpu_torch.average\n"
+        "import paddle_tpu_torch.evaluator, paddle_tpu_torch.optimizer\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"

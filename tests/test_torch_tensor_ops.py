@@ -319,8 +319,9 @@ def test_every_type_of_the_slice_is_registered_with_the_jax_flags():
             (t.no_grad, tuple(t.nondiff_inputs)), n
     assert set(treg.REGISTRY) <= set(jreg.REGISTRY)
     # 179 after the dense op library, 200 with the vision and detection
-    # families, 216 with the sequence and CTC families
-    assert len(set(treg.REGISTRY) & set(jreg.REGISTRY)) == 216
+    # families, 216 with the sequence and CTC families, 242 with the
+    # losses, optimizers and metrics
+    assert len(set(treg.REGISTRY) & set(jreg.REGISTRY)) == 242
 
 
 def test_every_case_names_a_type_of_the_slice():
