@@ -91,6 +91,11 @@ calls, on random weights and data made from ``--seed``:
   ``layers.auc``, ``evaluator.Accuracy`` and ``average.WeightedAverage``
   over a pass, and the book's word2vec with PaddlePaddle/models'
   ``hsigmoid`` and ``nce`` heads.
+* the v2 frontend (``paddle_tpu_torch.v2``) with its readers and the
+  imdb loader: the v2 book's stacked-LSTM sentiment net at the widths
+  above over imdb's 5149 words and a v2 GRU classifier, trained, tested,
+  checkpointed and inferred through ``paddle.v2``, and the staging
+  readers ``device_chunks`` and ``double_buffer``.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -260,6 +265,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    word2vec with the ``hsigmoid`` and the ``nce`` head over its 2073
    words (10 steps with a falling loss, graph replays bitwise, the card
    against the CPU with nce's draws the card's on both);
+6j. the v2 frontend through ``paddle_tpu_torch.v2``'s own entry points
+   (``init``, the v2 layers, ``parameters.create``,
+   ``trainer.SGD(...).train`` with an event handler, ``trainer.test``,
+   ``Parameters.to_tar`` and ``from_tar``, ``paddle.infer``), fed by
+   ``paddle.batch(paddle.reader.shuffle(paddle.dataset.imdb.train(
+   word_dict), 1024), 64)``: the v2 book's stacked-LSTM sentiment net at
+   emb/hid 512, 3 layers, imdb's 5149 words (8 Adam batches, 2 test
+   batches, the checkpoint's arrays equal, 64 rows inferred with the
+   detached and the live parameters to the same bits; 6 B3 + 3 B4 a
+   step, 3 B3 a test batch and an infer call, from the programs) and a
+   v2 GRU net at H 512 (4 batches, 1 test; 2 B5 + 1 B6 a step); test()
+   after the pass below the first batch's cost; host ms a batch, device
+   busy ms and ops a step, ``feeder.build_feed``'s host ms;
+   ``run_chunk`` over ``device_chunks(super_batch(buffered(r, 2), 4))``
+   bitwise the same chunks fed from host numpy, ``double_buffer``'s
+   batches equal to the host's on the card; the first step card against
+   CPU through v2 (the CPU's weights from the card's tar) at emb/hid 128;
 7. ResNet-50 training: A against B on the card from the same weights
    (first-step loss and every gradient, each held to its own norm),
    then each config's startup, 2 warmup and 10 counted steps at lr 0.1
@@ -339,10 +361,12 @@ It imports nothing of JAX and nothing of the JAX package.
 import argparse
 import collections
 import contextlib
+import io
 import json
 import math
 import os
 import queue
+import random
 import re
 import shutil
 import signal
@@ -776,6 +800,35 @@ UPDATE_PROFILES, UPDATE_RANGE = 3, "update_ops"
 # and by layers.nce over the 2073 words
 W2V_HEADS = ("hsigmoid", "nce")
 
+# phase 6j: the v2 frontend (paddle_tpu_torch.v2) and its readers. The
+# v2 book's stacked-LSTM sentiment net (v2_stacked_build) at
+# train_phase's widths (EMB, HID, STACKED, CLASSES) over
+# dataset.imdb.word_dict()'s 5149 words, fed paddle.batch(paddle.reader.
+# shuffle(paddle.dataset.imdb.train(word_dict), V2_SHUFFLE), V2_B) (rows
+# of 8..119 ids), at the default (tanh) activations, so that lstmemory
+# runs B3/B4; Adam. V2_TRAIN_BATCHES batches of one pass through
+# trainer.SGD.train, trainer.test over V2_TEST_BATCHES, to_tar and
+# from_tar, paddle.infer on V2_INFER_ROWS rows with the detached and with
+# the live parameters
+V2_B, V2_SHUFFLE, V2_LR = 64, 1024, 1e-3
+# the imdb loader's shortest and longest rows (dataset/imdb.py): B3-B6
+# run at [V2_B, up to V2_T, HID] on this path, so check_lstm and
+# check_gru hold them there too, ragged from V2_MIN_LEN
+V2_MIN_LEN, V2_T = 8, 119
+V2_TRAIN_BATCHES, V2_TEST_BATCHES, V2_INFER_ROWS = 8, 2, 64
+# the v2 GRU classifier (v2_gru_build) at H = HID on the same reader:
+# V2_GRU_BATCHES trained, V2_GRU_TEST_BATCHES tested (B5/B6)
+V2_GRU_BATCHES, V2_GRU_TEST_BATCHES = 4, 1
+# the staging readers: Executor.run_chunk over V2_CHUNKS chunks of V2_K
+# steps from device_chunks(super_batch(buffered(r, 2), V2_K)) against
+# the same chunks fed from host numpy
+V2_K, V2_CHUNKS = 4, 2
+# the card against the CPU (first step: cost and updated parameters):
+# the stacked net at XCHECK's widths over the same vocabulary, batch
+# XCHECK_B, at phase 6i's bounds (cross_check)
+V2_XCHECK = dict(emb_dim=XCHECK["emb_dim"], hid_dim=XCHECK["hid_dim"],
+                 stacked_num=XCHECK["stacked_num"])
+
 # kernel vs plain version: the same fp32 math in another summation order
 ATOL = RTOL = 1e-5
 # the LSTM: hs/cs within atol 1e-5, rtol 1e-4 (80 dependent steps reorder
@@ -1125,15 +1178,17 @@ def lstm_inputs(B, T, H, peep, g, dev, ragged=True, min_len=0):
 def check_lstm(lc, g, dev):
     """B3 and B4 against their plain versions: hs, cs; dxg, dW (through
     the GEMM outside the kernel), dh0, dc0, dpeep; at the stacked LSTM's
-    shape and at the SRL tagger's (SRL_B sentences of SRL_LENS, hid 128:
-    either direction gives the kernel a valid prefix, so one mask shape
-    covers the forward, the reverse and the decode). Returns the max abs
-    errors {kernel: err} and dW's."""
+    shape, at the SRL tagger's (SRL_B sentences of SRL_LENS, hid 128)
+    and at the v2 stacked net's longest batch (V2_B rows of
+    V2_MIN_LEN..V2_T ids, HID): either direction gives the kernel a
+    valid prefix, so one mask shape covers the forward, the reverse and
+    the decode. Returns the max abs errors {kernel: err} and dW's."""
     err = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
     dw_err = 0.0
     for B, T, H, lo in ((8, 5, 32, 0), (LSTM_B, LSTM_T, HID, 0),
                         (37, 17, 128, 0),
-                        (SRL_B, SRL_LENS[1], SRL["hid_dim"], SRL_LENS[0])):
+                        (SRL_B, SRL_LENS[1], SRL["hid_dim"], SRL_LENS[0]),
+                        (V2_B, V2_T, HID, V2_MIN_LEN)):
         case = {"lstm_fwd": 0.0, "lstm_bwd": 0.0}
         for peep in (True, False):
             xg, w, h0, c0, mask, p, dhs, dcs = lstm_inputs(
@@ -1224,15 +1279,15 @@ def lstm_witness(lc, g, dev):
           % (LSTM_B, LSTM_T, HID))
 
 
-def gru_inputs(B, T, H, g, dev, ragged=True):
-    """Seeded GRU inputs on the card; ragged masks hold a row of length
-    0 and a row of length T."""
+def gru_inputs(B, T, H, g, dev, ragged=True, min_len=0):
+    """Seeded GRU inputs on the card; ragged lengths are uniform in
+    [min_len, T] with a row of length min_len and a row of length T."""
     xg = torch.randn(B, T, 3 * H, generator=g) * 0.5
     w = torch.randn(H, 3 * H, generator=g) * H ** -0.5
     h0 = torch.randn(B, H, generator=g) * 0.1
     if ragged:
-        lens = torch.randint(0, T + 1, (B,), generator=g)
-        lens[0], lens[-1] = 0, T
+        lens = torch.randint(min_len, T + 1, (B,), generator=g)
+        lens[0], lens[-1] = min_len, T
     else:
         lens = torch.full((B,), T)
     mask = (torch.arange(T)[None] < lens[:, None]).float()
@@ -1372,11 +1427,11 @@ def gru_widest(gc, dev):
                          "not" % (h + 8))
 
 
-def check_gru_shape(gc, B, T, H, g, dev, ragged=True):
+def check_gru_shape(gc, B, T, H, g, dev, ragged=True, min_len=0):
     """B5 and B6 against their plain versions at [B, T, H]: hs and the
     stash; dxg, dW (through the GEMMs outside the kernel) and dh0.
     Returns the max abs errors of the forward, the backward and dW."""
-    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged)
+    xg, w, h0, mask, dhs = gru_inputs(B, T, H, g, dev, ragged, min_len)
     what = "gru %s" % ((B, T, H),)
     leaves = [t.clone().requires_grad_() for t in (xg, w, h0)]
     hs = gc.gru_sequence(leaves[0], leaves[1], leaves[2], mask)
@@ -1403,16 +1458,20 @@ def check_gru_shape(gc, B, T, H, g, dev, ragged=True):
 
 def check_gru(gc, g, dev):
     """B5 and B6 against their plain versions (check_gru_shape) at three
-    shapes and at the widest H that B6 takes on this card. Returns the
-    max abs errors {kernel: err} and dW's."""
+    shapes, at the v2 GRU net's longest batch (V2_B rows of
+    V2_MIN_LEN..V2_T ids, HID) and at the widest H that B6 takes on this
+    card. Returns the max abs errors {kernel: err} and dW's."""
     err = {"gru_fwd": 0.0, "gru_bwd": 0.0}
     dw_err = 0.0
     h_max, plan = gru_widest(gc, dev)
     print("gru_bwd: the widest H its launch plan admits at B=%d on this "
           "card: %d (%s)" % (S2S_B, h_max, json.dumps(plan)))
-    for B, T, H in ((8, 5, 32), (S2S_B, S2S_T, S2S["hidden_dim"]),
-                    (37, 17, 128), (S2S_B, S2S_T, h_max)):
-        fwd, bwd, dw = check_gru_shape(gc, B, T, H, g, dev)
+    for B, T, H, lo in ((8, 5, 32, 0), (S2S_B, S2S_T, S2S["hidden_dim"], 0),
+                        (37, 17, 128, 0), (V2_B, V2_T, HID, V2_MIN_LEN),
+                        (S2S_B, S2S_T, h_max, 0)):
+        fwd, bwd, dw = check_gru_shape(gc, B, T, H, g, dev, min_len=lo)
+        print("gru [%d,%d,%d], lengths %d..%d: max abs err B5 %.3g, B6 "
+              "%.3g, dW %.3g" % (B, T, H, lo, T, fwd, bwd, dw))
         err["gru_fwd"] = max(err["gru_fwd"], fwd)
         err["gru_bwd"] = max(err["gru_bwd"], bwd)
         dw_err = max(dw_err, dw)
@@ -1861,15 +1920,27 @@ def weight_noise(prog, scope, seed, rel=1e-6):
             scope.set_var(p.name, t * (1 + rel * n))
 
 
-def check_state(label, diffs, moved, tol):
+def check_state(label, diffs, moved, tol, detail=False):
     """Each tensor's difference (``state_diffs``) within ``tol`` plus
     COND_FACTOR times ``moved[name]``, the most that a 1e-6 relative
     change of the weights (weight_noise, NOISE_PROBES draws) moves that
     tensor over the same steps, that allowance never above NOISE_CAP: a
     tensor that rounding moves further is held at ``tol`` + NOISE_CAP,
-    not at a bound that would pass nearly anything."""
+    not at a bound that would pass nearly anything. With ``detail``,
+    prints each tensor's difference beside its allowance, and the
+    largest allowance granted to an optimizer moment."""
     allow = {n: min(COND_FACTOR * moved.get(n, 0.0), NOISE_CAP)
              for n in diffs}
+    if detail:
+        for n in sorted(diffs):
+            print("%s: %s differs by %.3g, allowed %g + %.3g" % (
+                label, n, diffs[n], tol, allow[n]))
+        moments = [n for n in diffs if "moment" in n]
+        if moments:
+            top = max(moments, key=allow.get)
+            print("%s: the largest allowance of the %d moment tensors: %s "
+                  "%.3g (it differs by %.3g)" % (
+                      label, len(moments), top, allow[top], diffs[top]))
     worst = max(diffs, key=lambda n: diffs[n] / (tol + allow[n]))
     over = [n for n in diffs if diffs[n] > tol + allow[n]]
     capped = sorted(n for n in diffs if allow[n] == NOISE_CAP)
@@ -5430,6 +5501,57 @@ def optim_build(fluid, kind, kw, dict_dim=None, emb_dim=None, hid_dim=None,
                 predict=predict, average=avg)
 
 
+def v2_stacked_build(paddle, dict_dim, emb_dim=EMB, hid_dim=HID,
+                     stacked_num=STACKED, act=None):
+    """The v2 book's stacked-LSTM sentiment net in either package's v2
+    DSL (``paddle`` is ``paddle_tpu.v2`` or ``paddle_tpu_torch.v2``):
+    embedding, fc(4 hid_dim) -> lstmemory, stacked_num - 1 more
+    fc([fc, lstm]) -> lstmemory pairs, every second one reversed, the max
+    pools of the last fc and the last lstm, a softmax fc over CLASSES,
+    classification_cost. ``act`` is lstmemory's candidate activation
+    (None: tanh; the book passes Relu, which takes the step loop). Data
+    layers "words" (ids) and "label". Returns (cost, output)."""
+    words = paddle.layer.data(
+        "words", paddle.data_type.integer_value_sequence(dict_dim))
+    label = paddle.layer.data("label",
+                              paddle.data_type.integer_value(CLASSES))
+    emb = paddle.layer.embedding(input=words, size=emb_dim)
+    fc = paddle.layer.fc(input=emb, size=hid_dim * 4)
+    lstm = paddle.layer.lstmemory(input=fc, act=act)
+    for i in range(2, stacked_num + 1):
+        fc = paddle.layer.fc(input=[fc, lstm], size=hid_dim * 4)
+        lstm = paddle.layer.lstmemory(input=fc, reverse=i % 2 == 0,
+                                      act=act)
+    fc_last = paddle.layer.pooling(input=fc,
+                                   pooling_type=paddle.pooling.Max())
+    lstm_last = paddle.layer.pooling(input=lstm,
+                                     pooling_type=paddle.pooling.Max())
+    output = paddle.layer.fc(input=[fc_last, lstm_last], size=CLASSES,
+                             act=paddle.activation.Softmax())
+    return paddle.layer.classification_cost(input=output, label=label), \
+        output
+
+
+def v2_gru_build(paddle, dict_dim, emb_dim=EMB, hid_dim=HID):
+    """A v2 GRU classifier in either package's v2 DSL: embedding,
+    fc(3 hid_dim) -> grumemory (hidden hid_dim, tanh), max pool, a
+    softmax fc over CLASSES, classification_cost; data layers "words"
+    and "label". Returns (cost, output)."""
+    words = paddle.layer.data(
+        "words", paddle.data_type.integer_value_sequence(dict_dim))
+    label = paddle.layer.data("label",
+                              paddle.data_type.integer_value(CLASSES))
+    emb = paddle.layer.embedding(input=words, size=emb_dim)
+    gru = paddle.layer.grumemory(
+        input=paddle.layer.fc(input=emb, size=hid_dim * 3))
+    pooled = paddle.layer.pooling(input=gru,
+                                  pooling_type=paddle.pooling.Max())
+    output = paddle.layer.fc(input=pooled, size=CLASSES,
+                             act=paddle.activation.Softmax())
+    return paddle.layer.classification_cost(input=output, label=label), \
+        output
+
+
 def update_share(exe, prog, loss, scope, feed, k, label):
     """The update ops' (those whose lowering writes a ``ParamOut``) share
     of an eager step, from the step's own trace: UPDATE_PROFILES
@@ -5774,6 +5896,365 @@ def optim_phase(fluid, seed, dev):
           "%s)" % (time.perf_counter() - t0, ", ".join(keys), json.dumps({
               tag: [None if v.get(k) is None else round(v[k], 4)
                     for k in keys] for tag, v in nums.items()}), card_line()))
+    return dict(launched)
+
+
+@contextlib.contextmanager
+def v2_session(fluid, paddle, use_gpu, seed):
+    """A fresh main and startup program (the startup seeded), scope and
+    name counters, with ``paddle.init(use_gpu=use_gpu)``: the place of
+    every executor v2 makes inside."""
+    with fluid.unique_name.guard(), \
+            fluid.program_guard(fluid.Program(), fluid.Program()), \
+            fluid.scope_guard(fluid.Scope()):
+        paddle.init(use_gpu=use_gpu, trainer_count=1)
+        fluid.default_startup_program().random_seed = seed
+        yield
+
+
+def v2_reader(paddle, word_dict, batches, batch=V2_B, split="train"):
+    """The v2 book's reader: ``batches`` batches of ``batch`` rows of
+    ``paddle.batch(paddle.reader.shuffle(paddle.dataset.imdb.<split>(
+    word_dict), V2_SHUFFLE), batch)`` (``random`` seeded by the
+    caller)."""
+    rows = getattr(paddle.dataset.imdb, split)(word_dict)
+    return paddle.reader.firstn(paddle.batch(
+        paddle.reader.shuffle(rows, buf_size=V2_SHUFFLE), batch), batches)
+
+
+def v2_train_path(fluid, paddle, seed, dev, label, build, op_type, n_train,
+                  n_test, batch=V2_B, checkpoint=True):
+    """One v2 model on the card through its own entry points: ``init``,
+    the layers (``build()`` returns (cost, output)),
+    ``parameters.create``, ``trainer.SGD(...).train`` over ``n_train``
+    batches of the imdb reader with an event handler that records each
+    ``EndIteration`` cost, ``trainer.test`` over ``n_test`` batches; with
+    ``checkpoint``, ``Parameters.to_tar`` and ``from_tar`` (every array
+    equal) and ``paddle.infer`` on V2_INFER_ROWS rows with the detached
+    and with the live parameters (the same bits). The ``op_type``
+    kernels' launches over the whole run must equal the programs' (from
+    the program, as phase 6i derives them). Returns (launches, numbers)."""
+    from paddle_tpu_torch.v2 import feeder
+
+    started = time.perf_counter()
+    word_dict = paddle.dataset.imdb.word_dict()
+    kernels = {"lstm": ("lstm_fwd", "lstm_bwd"),
+               "gru": ("gru_fwd", "gru_bwd")}[op_type]
+    nums = {}
+    with v2_session(fluid, paddle, True, seed):
+        cost, output = build()
+        params = paddle.parameters.create(cost)
+        scope = fluid.global_scope()
+        n_params = sum(scope.find_var(n).numel() for n in params.names())
+        if scope.find_var(params.names()[0]).device != dev:
+            raise AssertionError("%s: parameters on %s" % (
+                label, scope.find_var(params.names()[0]).device))
+        sgd = paddle.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=paddle.optimizer.Adam(learning_rate=V2_LR))
+        prog = cost.block.program
+        fwd, bwd = recurrent_launches(prog, op_type)
+        tfwd, _ = recurrent_launches(sgd._test_program, op_type)
+        ifwd = recurrent_launches(paddle.inference.Inference(
+            output, params)._program, op_type)[0] if checkpoint else 0
+        random.seed(seed)
+        seen, costs, batch_ms, began = [], [], [], []
+
+        def recorded():
+            for b in v2_reader(paddle, word_dict, n_train, batch)():
+                seen.append(b)
+                yield b
+
+        def handler(e):
+            if isinstance(e, paddle.event.BeginIteration):
+                began.append(time.perf_counter())
+            elif isinstance(e, paddle.event.EndIteration):
+                batch_ms.append((time.perf_counter() - began[-1]) * 1e3)
+                costs.append(e.cost)
+
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        sgd.train(recorded, num_passes=1, event_handler=handler)
+        train_s = time.perf_counter() - t0
+        result = sgd.test(v2_reader(paddle, word_dict, n_test, batch,
+                                    split="test"))
+        if checkpoint:
+            t0 = time.perf_counter()
+            buf = io.BytesIO()
+            params.to_tar(buf)
+            buf.seek(0)
+            detached = paddle.parameters.Parameters.from_tar(buf)
+            tar_s = time.perf_counter() - t0
+            rows = [(ids,) for ids, _ in paddle.reader.firstn(
+                paddle.dataset.imdb.test(word_dict), V2_INFER_ROWS)()]
+            probs = [paddle.infer(output_layer=output, parameters=p,
+                                  input=rows) for p in (detached, params)]
+        torch.cuda.synchronize()
+        got = {n: c for n, c in all_launches().items() if c}
+        want = {kernels[0]: fwd * n_train + tfwd * n_test + 2 * ifwd,
+                kernels[1]: bwd * n_train}
+        want = {n: c for n, c in want.items() if c}
+        lens = [len(r[0]) for b in seen for r in b]
+        print("%s: %d parameters on %s; %d batches of %d rows of %d..%d "
+              "ids: costs %s; eager %.3f host ms a batch (median; the cost's "
+              "host read included), %.3f s in all; test() cost %.6f over %d "
+              "batches; launches %s, from the programs %s (%d + %d a "
+              "training step, %d a test batch, %d an infer call)" % (
+                  label, n_params, dev, len(seen), batch, min(lens),
+                  max(lens), " ".join("%.6f" % c for c in costs),
+                  float(np.median(batch_ms)), train_s, result.cost, n_test,
+                  json.dumps(got), json.dumps(want), fwd, bwd, tfwd, ifwd))
+        if got != want:
+            raise AssertionError("%s: launches %s != %s" % (label, got,
+                                                             want))
+        # learning, read on held-out rows: test() after the pass below
+        # the first batch's cost (batch costs are one batch each and may
+        # jump: Adam on the nearly separable synthetic rows overshot at
+        # full width on an H100, 0.025 then 2.74 then 4e-6, the test
+        # cost 1.9e-4)
+        if len(costs) != n_train or not np.isfinite(costs).all() or \
+                not np.isfinite(result.cost) or \
+                not result.cost < costs[0]:
+            raise AssertionError("%s: costs not finite, or test() not "
+                                 "below the first batch's cost: %s, test "
+                                 "%s" % (label, costs, result.cost))
+        if checkpoint:
+            for n in params.names():
+                if not np.array_equal(detached[n], params[n]):
+                    raise AssertionError("%s: from_tar's %s differs" % (
+                        label, n))
+            for p in probs:
+                if p.shape != (V2_INFER_ROWS, CLASSES) or \
+                        not np.isfinite(p).all() or \
+                        np.abs(p.sum(1) - 1).max() > 1e-5:
+                    raise AssertionError("%s: infer gave %s" % (label, p))
+            if not np.array_equal(probs[0], probs[1]):
+                raise AssertionError(
+                    "%s: infer from the detached checkpoint differs from "
+                    "the live parameters by %.3g" % (
+                        label, float(np.abs(probs[0] - probs[1]).max())))
+            print("%s: to_tar + from_tar of %d parameters in %.3f s, every "
+                  "array equal; paddle.infer on %d rows: the detached and "
+                  "the live parameters give the same bits" % (
+                      label, len(params.names()), tar_s, V2_INFER_ROWS))
+        feeds = [feeder.build_feed(prog, sgd._data_names, b) for b in seen]
+        t0 = time.perf_counter()
+        for b in seen:
+            feeder.build_feed(prog, sgd._data_names, b)
+        feed_ms = (time.perf_counter() - t0) * 1e3 / len(seen)
+        busy, ops = device_ops(lambda: sgd._exe.run(
+            prog, feed=feeds[-1], fetch_list=[cost], return_numpy=False))
+        nums.update(batch_ms=float(np.median(batch_ms)), busy_ms=busy,
+                    ops=ops, feed_ms=feed_ms, params=n_params)
+        print("%s: device busy %s ms and %d device ops a training step "
+              "(torch.profiler, one eager step); feeder.build_feed %.3f "
+              "host ms a batch; %.1f s (card: %s)" % (
+                  label, "%.3f" % busy if busy is not None else "not "
+                  "measured", ops, feed_ms, time.perf_counter() - started,
+                  card_line()))
+    torch.cuda.empty_cache()
+    return got, nums
+
+
+def staged_fields(got, want):
+    """(name, staged tensor, host value) of each field of a staged feed
+    dict ``got`` and its host feed dict ``want``, a PackedSeq's data and
+    lengths apart."""
+    for n, v in want.items():
+        if hasattr(v, "lengths"):
+            yield n, got[n].data, v.data
+            yield n, got[n].lengths, v.lengths
+        else:
+            yield n, got[n], v
+
+
+def check_staged(what, got, want, dev):
+    """Every field of ``got`` a tensor on ``dev`` equal to the host's, in
+    the host's dtype; compared on the consumer's stream."""
+    for n, t, h in staged_fields(got, want):
+        ref = torch.as_tensor(np.asarray(h)).to(dev)
+        if t.device != dev or t.dtype != ref.dtype or \
+                not torch.equal(t, ref):
+            raise AssertionError("%s: %s differs from the host's" % (what,
+                                                                    n))
+
+
+def v2_feeds(paddle, prog, data_names, word_dict, batches, batch):
+    """A reader of the imdb batches as feed dicts (``feeder.build_feed``,
+    the ragged ids packed as the executor packs them: a PackedSeq)."""
+    from paddle_tpu_torch.core.executor import _pack_ragged
+    from paddle_tpu_torch.v2 import feeder
+
+    def reader():
+        for b in v2_reader(paddle, word_dict, batches, batch)():
+            feed = feeder.build_feed(prog, data_names, b)
+            yield {n: _pack_ragged(v, prog.global_block().var(n).dtype)
+                   if isinstance(v, list) else v for n, v in feed.items()}
+    return reader
+
+
+def v2_readers(fluid, paddle, seed, dev, build, batch=V2_B, k=V2_K,
+               chunks=V2_CHUNKS):
+    """Phase 6j (c): the staging readers on the card. From one state of
+    the v2 net ``build()`` gives (trained by Adam), ``Executor.run_chunk``
+    over ``chunks`` chunks of ``k`` steps from
+    ``device_chunks(super_batch(buffered(r, 2), k))`` against the same
+    chunks of host numpy (``super_batch(r, k)``): the losses and every
+    scope tensor the same bits; every staged field a CUDA tensor equal
+    to the host's. ``double_buffer(r, place=CUDAPlace(0))``: every batch
+    a CUDA tensor equal to the host batch, read on the consumer's
+    stream. Returns the numbers."""
+    word_dict = paddle.dataset.imdb.word_dict()
+    reader = paddle.reader
+    with v2_session(fluid, paddle, True, seed):
+        cost, _ = build()
+        params = paddle.parameters.create(cost)
+        sgd = paddle.trainer.SGD(
+            cost=cost, parameters=params,
+            update_equation=paddle.optimizer.Adam(learning_rate=V2_LR))
+        prog, scope = cost.block.program, fluid.global_scope()
+        init = scope_state(scope)
+        r = v2_feeds(paddle, prog, sgd._data_names, word_dict, k * chunks,
+                     batch)
+        runs = {}
+        for where, chunked in (
+                ("device_chunks", lambda: reader.device_chunks(
+                    reader.super_batch(reader.buffered(r, 2), k))),
+                ("host", lambda: reader.super_batch(r, k))):
+            random.seed(seed)
+            sc = fluid.Scope()
+            for n, t in init.items():
+                sc.set_var(n, t.clone())
+            exe, losses, staged = fluid.Executor(), [], []
+            t0 = time.perf_counter()
+            for chunk in chunked()():
+                staged.append(chunk)
+                losses.append(exe.run_chunk(prog, feed_chunk=chunk,
+                                            fetch_list=[cost], scope=sc)[0])
+            torch.cuda.synchronize()
+            runs[where] = (losses, sc, staged, time.perf_counter() - t0)
+        (dl, dsc, dstaged, ds), (hl, hsc, hstaged, hs) = \
+            runs["device_chunks"], runs["host"]
+        if len(dl) != chunks or len(hl) != chunks:
+            raise AssertionError("run_chunk over %d and %d chunks"
+                                 % (len(dl), len(hl)))
+        for d, h in zip(dstaged, hstaged):
+            check_staged("device_chunks", d, h, dev)
+        same_bits("run_chunk from device_chunks against host numpy",
+                  [torch.from_numpy(np.stack(dl))] +
+                  [dsc.find_var(n) for n in init],
+                  [torch.from_numpy(np.stack(hl))] +
+                  [hsc.find_var(n) for n in init])
+        print("device_chunks: %d chunks of %d steps through run_chunk, "
+              "losses %s, bitwise the host-fed chunks' (%d scope tensors "
+              "equal); %.3f s against %.3f s host-fed" % (
+                  chunks, k, " ".join("%.6f" % v for v in
+                                      np.concatenate(dl)), len(init), ds,
+                  hs))
+        random.seed(seed)
+        host = list(r())
+        random.seed(seed)
+        n = 0
+        t0 = time.perf_counter()
+        for got, want in zip(reader.double_buffer(
+                r, place=fluid.CUDAPlace(0))(), host):
+            check_staged("double_buffer", got, want, dev)
+            n += 1
+        if n != len(host):
+            raise AssertionError("double_buffer gave %d of %d batches"
+                                 % (n, len(host)))
+        print("double_buffer: %d batches staged on a side stream, each "
+              "equal to its host batch on the consumer's stream (%.3f s)"
+              % (n, time.perf_counter() - t0))
+    del runs, init
+    torch.cuda.empty_cache()
+    return dict(chunks_s=ds, host_chunks_s=hs)
+
+
+def v2_cross_check(fluid, paddle, seed, build, batch):
+    """The card against the CPU through v2's own entry points: one v2
+    session on the card and one on the CPU (``init(use_gpu=False)``,
+    the kernels' plain versions), the CPU's weights loaded from the
+    card's ``to_tar`` by ``init_from_tar``; one ``train`` batch each.
+    The costs within rtol 1e-4, every parameter and Adam accumulator
+    after the step within OPTIM_STATE_TOL of its largest magnitude plus
+    what 1e-6 weight draws move it on the CPU (check_state: Adam's first
+    step moves every weight with a nonzero gradient by its rate, a
+    gradient of rounding noise too)."""
+    word_dict = paddle.dataset.imdb.word_dict()
+    random.seed(seed)
+    rows = next(iter(v2_reader(paddle, word_dict, 1, batch)()))
+    out, tar = {}, None
+    for use_gpu in (True, False):
+        with v2_session(fluid, paddle, use_gpu, seed):
+            cost, _ = build()
+            params = paddle.parameters.create(cost)
+            sgd = paddle.trainer.SGD(
+                cost=cost, parameters=params,
+                update_equation=paddle.optimizer.Adam(learning_rate=V2_LR))
+            if tar is None:
+                tar = io.BytesIO()
+                params.to_tar(tar)
+            else:
+                tar.seek(0)
+                params.init_from_tar(tar)
+            prog, scope = cost.block.program, fluid.global_scope()
+            init = {n: t.cpu() for n, t in scope_state(scope).items()}
+            costs = []
+            sgd.train(lambda: iter([rows]), event_handler=lambda e:
+                      costs.append(e.cost)
+                      if isinstance(e, paddle.event.EndIteration) else None)
+            names = state_names(prog)
+            out[use_gpu] = (costs[0], {n: scope.find_var(n).cpu()
+                                       for n in names})
+            if not use_gpu:
+                moved = noise_moves(fluid, prog, cost, init,
+                                    sgd._feed_from_batch(rows, None), 1,
+                                    names)
+    (kc, ks), (cc, cs) = out[True], out[False]
+    label = "v2 stacked LSTM %s, batch %d" % (V2_XCHECK, batch)
+    print("%s: first-step cost card %.7f cpu %.7f" % (label, kc, cc))
+    np.testing.assert_allclose(kc, cc, rtol=1e-4)
+    check_state("card vs cpu at %s after the first step" % label,
+                state_diffs(names, ks.get, cs.get), moved, OPTIM_STATE_TOL,
+                detail=True)
+
+
+def v2_phase(fluid, seed, dev):
+    """Phase 6j: the v2 frontend on the card at full width: (a) the
+    stacked-LSTM sentiment net (v2_stacked_build: train, test,
+    checkpoint, infer), (b) the GRU classifier (v2_gru_build: train,
+    test), (c) the staging readers (v2_readers), and the first step
+    card against CPU at V2_XCHECK's widths (v2_cross_check). Returns the
+    B3-B6 launches of (a) and (b)."""
+    import paddle_tpu_torch.v2 as paddle
+
+    t0 = time.perf_counter()
+    dict_dim = len(paddle.dataset.imdb.word_dict())
+    launched, nums = collections.Counter(), {}
+    got, nums["stacked"] = v2_train_path(
+        fluid, paddle, seed, dev, "v2 stacked LSTM (emb %d, hid %d, %d "
+        "layers, dict %d)" % (EMB, HID, STACKED, dict_dim),
+        lambda: v2_stacked_build(paddle, dict_dim), "lstm",
+        V2_TRAIN_BATCHES, V2_TEST_BATCHES)
+    launched.update(got)
+    got, nums["gru"] = v2_train_path(
+        fluid, paddle, seed, dev, "v2 GRU classifier (emb %d, H %d, dict "
+        "%d)" % (EMB, HID, dict_dim),
+        lambda: v2_gru_build(paddle, dict_dim), "gru", V2_GRU_BATCHES,
+        V2_GRU_TEST_BATCHES, checkpoint=False)
+    launched.update(got)
+    t1 = time.perf_counter()
+    nums["readers"] = v2_readers(fluid, paddle, seed, dev,
+                                 lambda: v2_stacked_build(paddle, dict_dim))
+    t2 = time.perf_counter()
+    v2_cross_check(fluid, paddle, seed, lambda: v2_stacked_build(
+        paddle, dict_dim, **V2_XCHECK), XCHECK_B)
+    print("v2 phase: %.1f s (paths %.1f, readers %.1f, card vs cpu %.1f); "
+          "%s (card: %s)" % (
+              time.perf_counter() - t0, t1 - t0, t2 - t1,
+              time.perf_counter() - t2, json.dumps(nums), card_line()))
     return dict(launched)
 
 
@@ -8726,6 +9207,15 @@ def main():
               OPTIM_TYPES, ", ".join(o[0] for o in OPTIMIZERS),
               BOOK_W2V["dict_size"], " and ".join(W2V_HEADS), args.seed))
     for n, c in optim_phase(fluid, args.seed, dev).items():
+        launches[n] += c
+
+    # ---- 6j. the v2 frontend, its readers and the imdb loader ----
+    phase("v2 frontend: the stacked-LSTM sentiment net (emb %d, hid %d, %d "
+          "layers, imdb's %d words) trained, tested, checkpointed and "
+          "inferred through paddle.v2, the GRU classifier (H %d), "
+          "device_chunks and double_buffer (seed %d)" % (
+              EMB, HID, STACKED, 5149, HID, args.seed))
+    for n, c in v2_phase(fluid, args.seed, dev).items():
         launches[n] += c
 
     # ---- 7. the convnet training slice at full width ----

@@ -69,6 +69,11 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.layers.math_op_patch\n"
         "import paddle_tpu_torch.metrics, paddle_tpu_torch.average\n"
         "import paddle_tpu_torch.evaluator, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.v2 as paddle\n"
+        "import paddle_tpu_torch.reader, paddle_tpu_torch.dataset\n"
+        "import paddle_tpu_torch.dataset.common\n"
+        "assert paddle.reader is paddle_tpu_torch.reader\n"
+        "assert paddle.dataset is paddle_tpu_torch.dataset\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"

@@ -65,6 +65,20 @@ DELIBERATE = {
     "kernels.conv1x1_bwd:supported": {"interpret": _PALLAS},
     "kernels.gru_cell:gru_sequence": {"interpret": _PALLAS},
     "kernels.lstm_cell:lstm_sequence": {"interpret": _PALLAS},
+    "v2:init": {
+        "use_gpu": "v2's executors run on the card unless asked for the "
+                   "CPU: init() means CUDAPlace(0) as Executor() does; "
+                   "paddle_tpu takes use_gpu=False and ignores it"},
+}
+
+#: the public names of a package whose ``__init__`` has no ``__all__``,
+#: compared as if it listed them
+PUBLIC = {
+    "v2": ("init", "infer", "batch"),
+    "reader": ("map_readers", "buffered", "compose", "chain", "shuffle",
+               "firstn", "xmap_readers", "cache", "double_buffer",
+               "super_batch", "device_chunks", "ElasticShardPlan",
+               "elastic_shard", "batch"),
 }
 
 
@@ -90,6 +104,8 @@ def _callables(jm, tm):
     callable and every public method (and constructor) of a shared
     class."""
     names = set(getattr(jm, "__all__", ())) & set(getattr(tm, "__all__", ()))
+    rel = tm.__name__[len("paddle_tpu_torch."):]
+    names |= {n for n in PUBLIC.get(rel, ()) if hasattr(jm, n)}
     for n in sorted(names):
         a, b = getattr(jm, n, None), getattr(tm, n, None)
         if not (callable(a) and callable(b)):
@@ -285,3 +301,30 @@ def test_the_sequence_and_ctc_names_are_compared(rel, qual):
     assert qual in found
     assert not _differences(*found[qual])
     assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("v2", "init"), ("v2", "infer"), ("v2", "batch"),
+    ("v2.trainer", "SGD.__init__"), ("v2.trainer", "SGD.train"),
+    ("v2.trainer", "SGD.test"), ("v2.parameters", "create"),
+    ("v2.parameters", "Parameters.from_tar"),
+    ("v2.parameters", "Parameters.init_from_tar"),
+    ("v2.inference", "Inference.__init__"), ("v2.layer", "lstmemory"),
+    ("v2.layer", "grumemory"), ("v2.layer", "beam_search"),
+    ("v2.networks", "simple_gru"), ("v2.optimizer", "Adam.__init__"),
+    ("v2.evaluator", "detection_map_evaluator"),
+    ("reader", "device_chunks"), ("reader", "double_buffer"),
+    ("reader.decorator", "super_batch"), ("reader.batch", "batch"),
+    ("dataset.common", "download"), ("dataset.common", "convert"),
+    ("dataset.imdb", "train"), ("dataset.movielens", "MovieInfo.__init__"),
+    ("dataset.wmt16", "train")])
+def test_the_v2_reader_and_dataset_names_are_compared(rel, qual):
+    """The v2 frontend, the readers and the dataset loaders are shared
+    public names, compared like every other; the one deliberate
+    difference is ``v2.init``'s ``use_gpu`` default (the card)."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    listed = DELIBERATE.get("%s:%s" % (rel, qual), {})
+    assert set(_differences(*found[qual])) == set(listed)
