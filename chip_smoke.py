@@ -96,6 +96,13 @@ calls, on random weights and data made from ``--seed``:
   above over imdb's 5149 words and a v2 GRU classifier, trained, tested,
   checkpointed and inferred through ``paddle.v2``, and the staging
   readers ``device_chunks`` and ``double_buffer``.
+* the executor and program tooling: every program above runs under
+  the IR verifier (``FLAGS_verify_ir``, on by default: each plan miss
+  and each pass stage verified); the per-op NaN/Inf guard
+  (``set_check_nan_inf``) on the transformer as bench.py trains it;
+  ``calc_gradient`` through the stacked LSTM; seq2seq fed through
+  ``LoDTensor``; ``InferenceTranspiler`` on ResNet-50's is_test clone;
+  ``Executor.cost_analysis`` of the transformer and ResNet-50 steps.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -337,6 +344,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    runs already disagree on held at the AMP bounds), the guard without
    scaling equals no guard, 16 bf16 B1 a step skipped or not, and the
    guard's overhead in host and device ms/step with graphs;
+9e. (6k) the executor and program tooling at full width: (a) the
+   transformer of 9 under bf16 AMP, 3 eager steps and a run_chunk of 4
+   replays from the same weights twice with FLAGS_check_nan_inf off and
+   once on: losses and every state tensor bitwise (tensors two unguarded
+   runs already disagree on named), B1's launches equal and the
+   program's; one NaN in the first layer's query weight raises after
+   the next eager step, and after the next chunk's first replay, naming
+   the first op in program order that reads it; every scope tensor alive
+   after the raise, the startup re-run and a clean guarded step finite;
+   a target id past the vocabulary at chunk step 2 names the first
+   float op downstream of the targets and that step; busy ms and device
+   ops a step with the flag on and off, eager and with graphs; (b)
+   ``calc_gradient`` of the stacked LSTM's loss (dict 30000, emb/hid
+   512, 3 layers, batch 64, lengths 16..80) with respect to its
+   embedding's output: 6 B3 + 3 B4 from the program, the gradient
+   within 1e-4 x max|g| of the port's CPU run from the same weights;
+   (c) seq2seq at full width fed through ``LoDTensor`` as the
+   reference's machine_translation.py builds its feeds: 2 Adam steps
+   bitwise the list-fed steps, 4 B5 + 2 B6 a step; (d)
+   ``InferenceTranspiler`` on ResNet-50's is_test clone (float32, batch
+   64, 224x224): all 53 batch norms folded on the card, the logits
+   within rtol 1e-4 + 1e-5 max of the unfolded program's, busy ms of
+   each; (e) ``cost_analysis`` of the transformer step and a config-C
+   ResNet-50 step beside their busy ms (achieved TFLOP/s), with B1's
+   and B3-B6's ops' flops apart;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -352,8 +384,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bfloat16; the bfloat16 LSTM and GRU kernels at the AMP paths' shapes
    beside cuDNN's LSTM and GRU in bfloat16), and profile the decode
    step;
-11. print the seconds it took, the card, the kernel table as one JSON
-   line, then the result line.
+11. print the IR verifier's count and host seconds over the whole run,
+   the seconds it took, the card, the kernel table as one JSON line,
+   then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -8880,6 +8913,564 @@ def serving_cli(model_dir, engine):
             proc.wait()
 
 
+# ---- phase 6k: the executor and program tooling ----
+# (a) the NaN/Inf guard on the transformer as bench.py trains it: eager
+# steps, then one run_chunk of TOOL_K graph replays; the chunk step whose
+# targets hold an id past the vocabulary (read as NaN by the jnp rule)
+TOOL_EAGER, TOOL_K, TOOL_BAD_STEP = 3, 4, 2
+
+
+def to_lodtensor(fluid, rows):
+    """benchmark/fluid/machine_translation.py's ``to_lodtensor``: the
+    rows flattened into one [sum(len), 1] int64 array and their offsets
+    as the LoD."""
+    lod = [0]
+    for r in rows:
+        lod.append(lod[-1] + len(r))
+    flat = np.concatenate(rows, axis=0).astype("int64")
+    t = fluid.LoDTensor()
+    t.set(flat.reshape([len(flat), 1]), fluid.CUDAPlace(0))
+    t.set_lod([lod])
+    return t
+
+
+def fresh_scope(fluid, init):
+    s = fluid.Scope()
+    for n, t in init.items():
+        s.set_var(n, t.clone())
+    return s
+
+
+def bitwise_or_noisy(label, runs, got):
+    """``got`` (losses, state) against the first of two reference runs
+    from the same weights: every loss and state tensor on which the two
+    references agree must be bitwise ``got``'s. Returns the names where
+    the references already differ (the library's reductions that are not
+    run-to-run deterministic), printed, with their largest difference
+    from ``got`` as a share of the tensor's largest magnitude."""
+    (l1, s1), (l2, s2) = runs
+    lg, sg = got
+    noisy = sorted(n for n in s1 if not torch.equal(s1[n], s2[n]))
+    differ = sorted(n for n in s1 if n not in noisy
+                    and not torch.equal(s1[n], sg[n]))
+    if set(sg) != set(s1) or differ:
+        raise AssertionError("%s: differs in %s, on which two reference "
+                             "runs agree" % (label, differ[:10]))
+    if np.array_equal(l1, l2) and not np.array_equal(l1, lg):
+        raise AssertionError("%s: losses %s != %s" % (label, lg, l1))
+    worst = max((float((sg[n].double() - s1[n].double()).abs().max()
+                       / max(s1[n].double().abs().max(), 1e-30))
+                 for n in noisy), default=0.0)
+    print("%s: losses %s (%s); %d of %d state tensors bitwise equal%s" % (
+        label, " ".join("%.6f" % v for v in lg),
+        "bitwise equal" if np.array_equal(l1, lg) else
+        "two reference runs differ too", len(s1) - len(noisy), len(s1),
+        "; %d where two reference runs already differ (%s), at most "
+        "%.3g of their largest magnitude from the reference" % (
+            len(noisy), ", ".join(noisy[:6]), worst) if noisy else ""))
+    return noisy
+
+
+def first_float_reader(prog, name):
+    """The first op in program order downstream of ``name`` whose
+    output is a float: where a NaN read from ``name`` first shows."""
+    block = prog.global_block()
+    seen = {name}
+    for op in block.ops:
+        if not any(n in seen for n in op.input_arg_names):
+            continue
+        outs = [n for n in op.output_arg_names if n]
+        if any(str(block._find_var_recursive(n).dtype).startswith(
+                ("float", "bfloat")) for n in outs):
+            return op
+        seen.update(outs)
+    raise AssertionError("nothing downstream of %r makes a float" % name)
+
+
+def attention_weight(prog):
+    """The weight of the product that makes the first fused_attention's
+    Q (the first layer's query projection), and the first op in program
+    order that reads it."""
+    block = prog.global_block()
+    producer = {n: op for op in block.ops for n in op.output_arg_names}
+    att = next(op for op in block.ops if op.type == "fused_attention")
+    op = producer[att.inputs["Q"][0]]
+    while op.type != "mul":
+        op = producer[op.input_arg_names[0]]
+    w = op.inputs["Y"][0]
+    return w, next(o for o in block.ops if w in o.input_arg_names)
+
+
+def expect_nan(fluid, label, want_op, call, step=None):
+    """``call()`` must raise the NaN/Inf guard's error naming ``want_op``
+    (and ``step``, for a chunk)."""
+    from paddle_tpu_torch.core import debug
+
+    try:
+        call()
+    except debug.NanInfError as e:
+        got = (e.op_type, e.op_uid, e.step)
+        if got != (want_op.type, want_op.uid, step):
+            raise AssertionError("%s: the guard named %s, the program "
+                                 "says %s" % (label, got, (
+                                     want_op.type, want_op.uid, step)))
+        print("%s: raised %r" % (label, str(e)))
+        return
+    raise AssertionError("%s: the NaN/Inf guard did not raise" % label)
+
+
+def nan_guard_path(fluid, dev, cfg, batch, seed, eager=TOOL_EAGER,
+                   k=TOOL_K, bad_step=TOOL_BAD_STEP):
+    """(a) of phase 6k: the transformer LM under bf16 AMP (``cfg``, a
+    ``build_transformer_lm`` configuration) with the NaN/Inf guard.
+    ``eager`` steps and one ``run_chunk`` of ``k`` steps from the same
+    weights, twice with the flag off and once on: the guarded run's
+    losses and state bitwise the unguarded one's, its B1 launches the
+    same. Then, guarded: one NaN in the first layer's query weight makes
+    the next step raise naming the first op that reads it; the scope is
+    whole after the raise; the startup re-run and a clean step pass; the
+    same inside the chunk's graph (chunk step 0), and an out-of-range
+    target at chunk step ``bad_step`` names the first float op
+    downstream of the targets and that step. Returns the numbers: busy
+    ms and device ops a step with the flag on and off, eager and with
+    graphs, and the step's cost_analysis."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build_transformer_lm(**cfg)
+    fluid.amp.enable(prog)
+    fwd, grad, _ = attention_launches(prog)
+    startup.random_seed = seed
+    s0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    init = scope_state(s0)
+    del s0
+    feeds = [{n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        cfg["vocab_size"], cfg["seq_len"], batch, seed + i).items()}
+        for i in range(eager + k)]
+    chunk = {n: torch.stack([f[n] for f in feeds[eager:]]) for n in feeds[0]}
+
+    def train(flag):
+        fluid.set_check_nan_inf(flag)
+        try:
+            scope, exe = fresh_scope(fluid, init), fluid.Executor()
+            exe._step = 1
+            reset_all_launches()
+            losses = [exe.run(prog, feed=f, fetch_list=[loss],
+                              scope=scope)[0] for f in feeds[:eager]]
+            losses.extend(exe.run_chunk(prog, feed_chunk=chunk, k=k,
+                                        fetch_list=[loss], scope=scope)[0])
+            torch.cuda.synchronize()
+            return (np.stack([np.asarray(v).ravel()[0] for v in losses]),
+                    scope_state(scope), all_launches(), exe, scope)
+        finally:
+            fluid.set_check_nan_inf(False)
+
+    off, off2, on = train(False), train(False), train(True)
+    want = {n: 0 for n in off[2]}
+    want["flash_attention_bf16"] = (fwd + grad) * (eager + k)
+    print("guard: launches off %s, on %s; from the program %s" % (
+        json.dumps({n: v for n, v in off[2].items() if v}),
+        json.dumps({n: v for n, v in on[2].items() if v}),
+        json.dumps({n: v for n, v in want.items() if v})))
+    if on[2] != want or off[2] != want:
+        raise AssertionError("guard: B1 launches %s / %s != %s"
+                             % (off[2], on[2], want))
+    noisy = bitwise_or_noisy(
+        "guard: %d eager steps + a chunk of %d replays, the flag on "
+        "against off" % (eager, k),
+        [(off[0], off[1]), (off2[0], off2[1])], (on[0], on[1]))
+    del off2
+
+    out = {"noisy": len(noisy)}
+    exe_off, scope_off, exe_on, scope_on = off[3], off[4], on[3], on[4]
+    for label, exe, scope, flag in (("off", exe_off, scope_off, False),
+                                    ("on", exe_on, scope_on, True)):
+        fluid.set_check_nan_inf(flag)
+        try:
+            out["eager_" + label] = device_ops(lambda: exe.run(
+                prog, feed=feeds[0], fetch_list=[loss], scope=scope))
+            graph = device_ops(lambda: exe.run_chunk(
+                prog, feed_chunk=chunk, k=k, fetch_list=[loss],
+                scope=scope))
+            out["graphs_" + label] = (None if graph[0] is None
+                                      else graph[0] / k, graph[1] / k)
+        finally:
+            fluid.set_check_nan_inf(False)
+    for mode in ("eager", "graphs"):
+        print("guard %s: device busy ms/step off %s, on %s; device ops/step "
+              "off %.1f, on %.1f" % (
+                  mode, *("%.3f" % out["%s_%s" % (mode, f)][0]
+                          if out["%s_%s" % (mode, f)][0] is not None
+                          else "not measured" for f in ("off", "on")),
+                  out[mode + "_off"][1], out[mode + "_on"][1]))
+    out["cost"] = exe_off.cost_analysis(prog, feed=feeds[0],
+                                        fetch_list=[loss], scope=scope_off)
+    del off, exe_off, scope_off
+
+    fluid.set_check_nan_inf(True)
+    try:
+        w, first = attention_weight(prog)
+        scope_on.find_var(w)[0, 0] = float("nan")
+        expect_nan(fluid, "guard: one NaN in %s, an eager step" % w, first,
+                   lambda: exe_on.run(prog, feed=feeds[0],
+                                      fetch_list=[loss], scope=scope_on))
+        alive = torch.stack([t.float().sum() for t in scope_on.vars.values()
+                             if isinstance(t, torch.Tensor)])
+        torch.cuda.synchronize()
+        print("guard: after the raise all %d scope tensors are alive"
+              % alive.numel())
+        exe_on.run(startup, scope=scope_on)
+        clean = exe_on.run(prog, feed=feeds[0], fetch_list=[loss],
+                           scope=scope_on)[0]
+        if not np.isfinite(clean).all():
+            raise AssertionError("guard: the clean step after the startup "
+                                 "re-run is not finite: %s" % clean)
+        scope_on.find_var(w)[0, 0] = float("nan")
+        base = exe_on._step
+        expect_nan(fluid, "guard: one NaN in %s, a chunk of %d replays"
+                   % (w, k), first,
+                   lambda: exe_on.run_chunk(prog, feed_chunk=chunk, k=k,
+                                            fetch_list=[loss],
+                                            scope=scope_on), step=base)
+        exe_on.run(startup, scope=scope_on)
+        bad = {n: v.clone() for n, v in chunk.items()}
+        bad["targets"][bad_step, 0, 0] = cfg["vocab_size"] + 7
+        base = exe_on._step
+        expect_nan(fluid, "guard: target id %d at chunk step %d"
+                   % (cfg["vocab_size"] + 7, bad_step),
+                   first_float_reader(prog, "targets"),
+                   lambda: exe_on.run_chunk(prog, feed_chunk=bad, k=k,
+                                            fetch_list=[loss],
+                                            scope=scope_on),
+                   step=base + bad_step)
+    finally:
+        fluid.set_check_nan_inf(False)
+    del exe_on, scope_on
+    torch.cuda.empty_cache()
+    return out
+
+
+def max_pool_winners(seq, lens):
+    """For each (row, feature) of a [B, T, F] sequence, the set of time
+    steps that hold its largest valid value, as a boolean [B, T, F]."""
+    x = np.asarray(seq, np.float64)
+    valid = np.arange(x.shape[1])[None, :, None] < lens[:, None, None]
+    x = np.where(valid, x, -np.inf)
+    return x == x.max(axis=1, keepdims=True)
+
+
+def calc_gradient_path(fluid, dev, dims, batch, T, min_len, seed,
+                       max_flipped=4):
+    """(b) of phase 6k: ``calc_gradient`` of the stacked LSTM's loss with
+    respect to its embedding's output (an activation, not a parameter),
+    on the card: the B3 and B4 launches of the call are the program's
+    (one B3 a ``lstm`` op and one more inside each ``lstm_grad``, one B4
+    a ``lstm_grad``), and the gradient equals the port's CPU run from the
+    same weights within 1e-4 of its largest magnitude on every row whose
+    max pools pick the same time steps on both. The net ends in two max
+    pools over ~2560 features of up to 80 steps a row: a gap between a
+    feature's two largest values that the card's and the CPU's roundings
+    order differently (or tie) sends that feature's gradient to another
+    step, which the recurrences carry over the whole row. Such rows (at
+    most ``max_flipped``) are named, with their error, and left out.
+    Returns the numbers and the program, feed and scope."""
+    from paddle_tpu_torch import layers, unique_name
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models.stacked_lstm import stacked_lstm_net
+
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            words = layers.data("words", [1], dtype="int64", lod_level=1)
+            label = layers.data("label", [1], dtype="int64")
+            pred = stacked_lstm_net(words, dims["dict_dim"], CLASSES,
+                                    dims["emb_dim"], dims["hid_dim"],
+                                    dims["stacked_num"])
+            loss = layers.mean(layers.cross_entropy(pred, label))
+            emb = next(op for op in prog.global_block().ops
+                       if op.type == "lookup_table").outputs["Out"][0]
+            (g,) = fluid.calc_gradient(loss, [emb])
+    pooled = [op.inputs["X"][0] for op in prog.global_block().ops
+              if op.type == "sequence_pool"]
+    fetch = [loss, g] + pooled
+    fwd, bwd = recurrent_launches(prog, "lstm")
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed)
+    lens, words_, label_ = stacked_lstm_batch(rng, batch, T, min_len,
+                                              dims["dict_dim"])
+    feed = {"words": words_, "label": label_}
+    exe.run(prog, feed=feed, fetch_list=[loss, g], scope=scope)
+    torch.cuda.synchronize()
+    lc.reset_launches()
+    t0 = time.perf_counter()
+    card = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0
+    want = {"lstm_fwd": fwd, "lstm_bwd": bwd, "lstm_fwd_bf16": 0,
+            "lstm_bwd_bf16": 0}
+    if dict(lc.launches) != want:
+        raise AssertionError("calc_gradient: LSTM launches %s != %s"
+                             % (dict(lc.launches), want))
+    cpu_scope = fluid.Scope()
+    for n, t in scope.vars.items():
+        cpu_scope.set_var(n, t.cpu())
+    t0 = time.perf_counter()
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    flipped = sorted({int(r) for a, b in zip(card[2:], cpu[2:])
+                      for r in np.nonzero((max_pool_winners(a.data, lens)
+                                           != max_pool_winners(b.data, lens))
+                                          .any(axis=(1, 2)))[0]})
+    gc_, gp = card[1].data, cpu[1].data
+    top = float(np.abs(gp).max())
+    d = np.abs(gc_ - gp).reshape(gc_.shape[0], -1).max(axis=1) / top
+    kept = [r for r in range(gc_.shape[0]) if r not in flipped]
+    err = float(d[kept].max())
+    print("calc_gradient: d loss / d %s [%s], lengths %d..%d, %d + %d "
+          "B3 + %d B4 (from the program); loss card %.7f, CPU %.7f; the "
+          "gradient's largest difference %.3g x max|g| (bound 1e-4) over "
+          "the %d rows whose max pools pick the same steps; %s; card call "
+          "%.3f ms, CPU %.1f s" % (
+              emb, "x".join(map(str, gc_.shape)), lens.min(), lens.max(),
+              fwd - bwd, bwd, bwd, float(card[0]), float(cpu[0]), err,
+              len(kept), "rows whose max pools pick other steps on the "
+              "card and the CPU (a near-tie): %s" % ", ".join(
+                  "%d (length %d, %.3g x max|g|)" % (r, lens[r], d[r])
+                  for r in flipped) if flipped else "no max pool picks "
+              "other steps", ms, cpu_s))
+    if not np.isfinite(gc_).all() or err > 1e-4 or \
+            len(flipped) > max_flipped:
+        raise AssertionError("calc_gradient: the card's gradient differs "
+                             "from the CPU's by %.3g x max|g| (%d rows "
+                             "left out)" % (err, len(flipped)))
+    if abs(float(card[0]) - float(cpu[0])) > 1e-4 * abs(float(cpu[0])):
+        raise AssertionError("calc_gradient: losses %s, %s"
+                             % (card[0], cpu[0]))
+    del cpu_scope
+    return dict(ms=ms, rel_err=err, flipped=flipped, launches=want), (
+        prog, feed, [loss, g], scope)
+
+
+def lod_feed_path(fluid, dev, cfg, batch, T, min_len, seed, steps=2):
+    """(c) of phase 6k: seq2seq (``cfg``, a ``build_seq2seq``
+    configuration) fed through ``LoDTensor`` as the reference's
+    machine_translation.py builds its feeds (``set`` of the flattened
+    ids, ``set_lod`` of the offsets): ``steps`` Adam steps bitwise the
+    same steps fed as lists of rows (twice, to name any tensor two
+    list-fed runs already disagree on), 4 B5 + 2 B6 a step from the
+    program. Returns the numbers and the program, feed and scope."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import gru_cell as gc
+    from paddle_tpu_torch.models.seq2seq import build_seq2seq
+
+    with unique_name.guard():
+        prog, startup, _, (loss,) = build_seq2seq(lr=LR, **cfg)
+    fwd, bwd = recurrent_launches(prog, "gru")
+    startup.random_seed = seed
+    s0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    init = scope_state(s0)
+    del s0
+    rng = np.random.RandomState(seed)
+    rows = seq2seq_batch(rng, batch, T, min_len, cfg["tgt_vocab"])
+    lod = {n: to_lodtensor(fluid, r) for n, r in rows.items()}
+
+    def train(feed):
+        scope, exe = fresh_scope(fluid, init), fluid.Executor()
+        exe._step = 1
+        gc.reset_launches()
+        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(steps)]
+        torch.cuda.synchronize()
+        return np.asarray(losses), scope_state(scope), dict(gc.launches)
+
+    by_rows, by_rows2, by_lod = train(rows), train(rows), train(lod)
+    want = {"gru_fwd": fwd * steps, "gru_bwd": bwd * steps,
+            "gru_fwd_bf16": 0, "gru_bwd_bf16": 0}
+    if by_lod[2] != want or by_rows[2] != want:
+        raise AssertionError("LoDTensor feeds: GRU launches %s / %s != %s"
+                             % (by_lod[2], by_rows[2], want))
+    noisy = bitwise_or_noisy(
+        "LoDTensor feeds: %d steps of %d pairs, lengths %d..%d, fed "
+        "through LoDTensor against lists of rows; %d B5 + %d B6 a step "
+        "(from the program)" % (steps, batch, min_len, T, fwd, bwd),
+        [by_rows[:2], by_rows2[:2]], by_lod[:2])
+    del by_rows, by_rows2, by_lod
+    torch.cuda.empty_cache()
+    return dict(noisy=len(noisy), launches=want), (prog, rows, [loss], init)
+
+
+def resnet_logits(train):
+    """The input of the softmax whose output the loss reads."""
+    ops = train.global_block().ops
+    probs = next(op for op in ops if op.type == "cross_entropy").inputs[
+        "X"][0]
+    return next(op for op in ops if op.type == "softmax"
+                and op.outputs["Out"][0] == probs).inputs["X"][0]
+
+
+def calibrate_bn(fluid, exe, train, logits, feed, scope):
+    """Set every batch norm's running statistics to its statistics over
+    the batch ``feed``: the training-mode forward pruned to ``logits``,
+    run once with each batch norm's momentum at 0. The is_test program
+    then normalises that batch as training does (random statistics
+    silence a deep net: its logits come out 0)."""
+    from paddle_tpu_torch import io
+
+    calib = io.get_inference_program([logits], main_program=train)
+    n = 0
+    for op in calib.global_block().ops:
+        if op.type == "batch_norm":
+            op.attrs["momentum"] = 0.0
+            n += 1
+    exe.run(calib, feed=feed, fetch_list=[logits], scope=scope)
+    return n
+
+
+def fold_path(fluid, dev, cfg, batch, seed):
+    """(d) of phase 6k: ``InferenceTranspiler`` on ResNet-50's is_test
+    clone (``cfg``, a ``build_resnet50_train`` configuration), float32,
+    pruned to its logits, with each batch norm's running statistics set
+    to those of the batch (``calibrate_bn``): every ``batch_norm`` folds
+    into its conv on the card, and the folded program's logits equal
+    the unfolded one's within rtol 1e-4 plus 1e-5 of the largest
+    magnitude. Returns the batch norms folded, the gap and each
+    program's busy ms."""
+    from paddle_tpu_torch import io, unique_name
+    from paddle_tpu_torch.models.resnet import build_resnet50_train
+
+    with unique_name.guard():
+        train, startup, _, _ = build_resnet50_train(**cfg)
+    logits = resnet_logits(train)
+    infer = io.get_inference_program(
+        [logits], main_program=train.clone(for_test=True))
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((batch,) + tuple(cfg["image_shape"]), generator=gen,
+                   device=dev)
+    calibrate_bn(fluid, exe, train, logits, {"data": x}, scope)
+    n_bn = sum(op.type == "batch_norm" for op in infer.global_block().ops)
+
+    def run():
+        return exe.run(infer, feed={"data": x}, fetch_list=[logits],
+                       scope=scope, return_numpy=False)[0]
+
+    ref = run().clone()
+    busy_ref = device_busy_ms(run)
+    version = infer.fingerprint
+    with unique_name.guard():
+        fluid.InferenceTranspiler().transpile(infer, scope=scope)
+    left = sum(op.type == "batch_norm" for op in infer.global_block().ops)
+    if infer.fingerprint == version or left or n_bn != 53:
+        raise AssertionError("fold: %d batch norms, %d left; the "
+                             "fingerprint %s moved" % (
+                                 n_bn, left, infer.fingerprint != version))
+    got = run()
+    busy = device_busy_ms(run)
+    d = (got.double() - ref.double()).abs()
+    top = float(ref.double().abs().max())
+    bound = 1e-4 * ref.double().abs() + 1e-5 * top
+    gap = float(d.max())
+    share = float((d / bound).max())
+    print("fold: %d batch_norm ops folded into their convs on the card "
+          "(ResNet-50 is_test, batch %d, %s); logits' largest gap %.3g "
+          "(max|logit| %.3g), %.3g of the bound rtol 1e-4 + 1e-5 max at "
+          "its worst entry; device busy ms unfolded %s, folded %s" % (
+              n_bn, batch, "x".join(map(str, cfg["image_shape"])), gap,
+              top, share, *("%.3f" % b if b is not None else "not measured"
+                            for b in (busy_ref, busy))))
+    if not bool((d <= bound).all()):
+        raise AssertionError("fold: the folded logits differ by %.3g" % gap)
+    del scope, exe
+    torch.cuda.empty_cache()
+    return dict(folded=n_bn, gap=gap, share=share, busy_unfolded=busy_ref,
+                busy_folded=busy)
+
+
+def cost_line(label, cost, busy_ms, kinds):
+    """Print one step's cost_analysis beside its busy ms, and the flops
+    of the op types ``kinds`` (the hand-written kernels' ops) apart."""
+    f, b = cost["flops"], cost["bytes accessed"]
+    print("cost %s: %.4g flops, %.4g bytes accessed; device busy %s ms "
+          "-> %s TFLOP/s" % (
+              label, f, b, "%.3f" % busy_ms if busy_ms else "not measured",
+              "%.2f" % (f / busy_ms / 1e9) if busy_ms else "not measured"))
+    by = cost["flops by op"]
+    print("cost %s: %s" % (label, ", ".join(
+        "%s %.4g (%.1f%%)" % (n, by[n], 100.0 * by[n] / f)
+        for n in kinds if n in by)))
+
+
+def tooling_phase(fluid, seed, dev):
+    """Phase 6k: the executor and program tooling at full width
+    (``nan_guard_path``, ``calc_gradient_path``, ``lod_feed_path``,
+    ``fold_path``, then each step's ``cost_analysis``: the transformer
+    of (a) and ResNet-50 config C, with B1's and B3-B6's ops apart)."""
+    from paddle_tpu_torch import unique_name
+
+    t0 = time.perf_counter()
+    guard = nan_guard_path(fluid, dev, LM, LM_B, seed)
+    calc, (lprog, lfeed, lfetch, lscope) = calc_gradient_path(
+        fluid, dev, dict(dict_dim=DICT, emb_dim=EMB, hid_dim=HID,
+                         stacked_num=STACKED), LSTM_B, LSTM_T, MIN_LEN, seed)
+    lcost = fluid.Executor().cost_analysis(lprog, feed=lfeed,
+                                           fetch_list=lfetch, scope=lscope)
+    lbusy = device_busy_ms(lambda: fluid.Executor().run(
+        lprog, feed=lfeed, fetch_list=lfetch, scope=lscope))
+    del lscope
+    lod, (sprog, srows, sfetch, sinit) = lod_feed_path(
+        fluid, dev, S2S, S2S_B, S2S_T, S2S_MIN, seed)
+    sscope = fresh_scope(fluid, sinit)
+    scost = fluid.Executor().cost_analysis(sprog, feed=srows,
+                                           fetch_list=sfetch, scope=sscope)
+    del sscope, sinit
+    fold = fold_path(fluid, dev, RESNET, RESNET_B, seed)
+
+    # config C's step, for its cost beside its busy time
+    with unique_name.guard():
+        cprog, cstart, _, (closs, _acc) = fused_build("C", RESNET)
+    cstart.random_seed = seed
+    cscope, cexe = fluid.Scope(), fluid.Executor()
+    cexe.run(cstart, scope=cscope)
+    rng = np.random.RandomState(seed)
+    cfeed = {"data": torch.from_numpy(rng.randn(
+        RESNET_B, *RESNET["image_shape"][1:], RESNET["image_shape"][0])
+        .astype(np.float32)).to(dev), "label": torch.from_numpy(
+        rng.randint(0, RESNET["class_dim"], (RESNET_B, 1))).to(dev)}
+    for _ in range(2):
+        cexe.run(cprog, feed=cfeed, fetch_list=[closs], scope=cscope)
+    cbusy = device_busy_ms(lambda: cexe.run(cprog, feed=cfeed,
+                                            fetch_list=[closs],
+                                            scope=cscope))
+    ccost = cexe.cost_analysis(cprog, feed=cfeed, fetch_list=[closs],
+                               scope=cscope)
+    del cscope, cexe
+    torch.cuda.empty_cache()
+    cost_line("transformer step (bf16 AMP, batch %d)" % LM_B, guard["cost"],
+              guard["eager_off"][0], ("fused_attention",
+                                      "fused_attention_grad", "mul",
+                                      "mul_grad"))
+    cost_line("ResNet-50 config C step (bf16 AMP, batch %d)" % RESNET_B,
+              ccost, cbusy, ("conv2d", "conv2d_grad", "conv2d_bn_act",
+                             "conv2d_bn_act_grad"))
+    cost_line("stacked-LSTM calc_gradient call (float32, batch %d)"
+              % LSTM_B, lcost, lbusy, ("lstm", "lstm_grad", "mul",
+                                       "mul_grad"))
+    cost_line("seq2seq step (float32, batch %d, rows fed)" % S2S_B, scost,
+              None, ("gru", "gru_grad", "mul", "mul_grad"))
+    print("phase 6k: %.1f s" % (time.perf_counter() - t0))
+    return dict(guard=guard, calc=calc, lod=lod, fold=fold)
+
+
 def main():
     started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9264,6 +9855,14 @@ def main():
           "dynamic loss scaling (bf16 AMP, K=%d, guard.nonfinite at steps "
           "11 and 12; seed %d)" % (GRAPH_K["transformer"], args.seed))
     guard_phase(fluid, args.seed, dev)
+
+    # ---- 9e. the executor and program tooling (phase 6k) ----
+    phase("executor and program tooling at full width: the NaN/Inf guard "
+          "on the transformer (eager and in graphs), calc_gradient "
+          "through the stacked LSTM, seq2seq fed through LoDTensor, "
+          "InferenceTranspiler on ResNet-50, cost_analysis (seed %d)"
+          % args.seed)
+    tooling_phase(fluid, args.seed, dev)
 
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "
@@ -9880,6 +10479,12 @@ def main():
                        "conv1x1_bwd", "bn_grad_bf16", "conv1x1_bwd_bf16",
                        "lstm_fwd_bf16", "lstm_bwd_bf16", "gru_fwd_bf16",
                        "gru_bwd_bf16")]
+    from paddle_tpu_torch import analysis
+    vs = analysis.stats()
+    print("IR verifier (FLAGS_verify_ir, on): %d verifications (plan "
+          "misses, new feed signatures, pipeline stages), %d failed (the "
+          "expected ones none), %.3f host s in all" % (
+              vs["runs"], vs["failures"], vs["seconds"]))
     print("chip_smoke: %.1f s in all" % (time.perf_counter() - started))
     print("card:", card_line())
     print(json.dumps({"kernels": table}))

@@ -25,12 +25,20 @@ from paddle_tpu_torch.core.ir import (  # noqa: F401
     switch_main_program, switch_startup_program, program_guard,
 )
 from paddle_tpu_torch.core.executor import Executor  # noqa: F401
-from paddle_tpu_torch.core.backward import append_backward  # noqa: F401
+from paddle_tpu_torch.core.backward import (  # noqa: F401
+    append_backward, calc_gradient)
 from paddle_tpu_torch.core.lower import (  # noqa: F401
     PackedSeq, RowSparse, TensorArray)
+from paddle_tpu_torch.core.lod_tensor import LoDTensor  # noqa: F401
 from paddle_tpu_torch.core.scope import (  # noqa: F401
     Scope, global_scope, scope_guard)
-from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace  # noqa: F401
+from paddle_tpu_torch.core.place import (  # noqa: F401
+    CPUPlace, CUDAPlace, is_compiled_with_cuda, is_compiled_with_tpu)
+from paddle_tpu_torch.core import registry as op_registry  # noqa: F401
+from paddle_tpu_torch import analysis  # noqa: F401
+from paddle_tpu_torch.inference_transpiler import (  # noqa: F401
+    InferenceTranspiler)
+from paddle_tpu_torch.layout_transpiler import LayoutTranspiler  # noqa: F401
 from paddle_tpu_torch import layers  # noqa: F401
 from paddle_tpu_torch import initializer  # noqa: F401
 from paddle_tpu_torch import optimizer  # noqa: F401
@@ -47,10 +55,15 @@ from paddle_tpu_torch import evaluator  # noqa: F401
 from paddle_tpu_torch import telemetry  # noqa: F401
 from paddle_tpu_torch import tracing  # noqa: F401
 from paddle_tpu_torch.data_feeder import DataFeeder, stack_feeds  # noqa: F401
-from paddle_tpu_torch.flags import set_flags, get_flags  # noqa: F401
+from paddle_tpu_torch.flags import (  # noqa: F401
+    set_flags, get_flags, set_check_nan_inf)
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch import reader  # noqa: F401
 from paddle_tpu_torch import dataset  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from paddle_tpu_torch import serving  # noqa: F401
+
+from paddle_tpu_torch.memory_optimize import (  # noqa: F401
+    memory_optimize, release_memory)
 
 __version__ = "0.1.0"

@@ -30,7 +30,7 @@ so its forward and its grad run the same bounded masked loop.
 from paddle_tpu_torch.core import ir, registry
 from paddle_tpu_torch.core.ir import grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient"]
 
 
 def _collect_relevant_ops(block, loss_name, stop_vars):
@@ -86,6 +86,10 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
 
     # grad contributions: var name -> list of grad var names to be summed
     contribs = {}
+    # var name -> its grad var, once materialized: an activation's
+    # gradient is consumed (its contributions reset) by its producer's
+    # grad op, and calc_gradient may still ask for it
+    materialized = {}
 
     def add_contrib(var_name, grad_name):
         contribs.setdefault(var_name, []).append(grad_name)
@@ -97,6 +101,7 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
         if not c:
             return None
         gname = grad_var_name(var_name)
+        materialized[var_name] = gname
         if len(c) == 1:
             if c[0] != gname:
                 block.append_op("assign", {"X": [c[0]]}, {"Out": [gname]})
@@ -193,7 +198,10 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     for pname in params:
         if isinstance(pname, ir.Variable):
             pname = pname.name
-        g = materialize_grad(pname)
+        # an activation's gradient (calc_gradient) was materialized when
+        # its producer's grad op consumed it; the JAX package raises
+        # here (ROADMAP Queue 3)
+        g = materialize_grad(pname) or materialized.get(pname)
         if g is None:
             if pname in needed and pname not in stop:
                 raise RuntimeError(
@@ -207,6 +215,29 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                              block.var(g)))
     block.program._op_role_vars = [(p.name, g.name) for p, g in params_grads]
     return params_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of `targets` w.r.t. arbitrary `inputs`
+    (reference backward.py:555), as the JAX package writes it: one
+    target, whose ``append_backward`` takes ``inputs`` as its parameter
+    list. Returns the grad variables (``<input>@GRAD``), None for an
+    input that gets no gradient. An input an op produces (an activation)
+    gets its gradient here; the JAX package's ``append_backward``
+    raises for one (ROADMAP Queue 3), so its programs are compared on
+    inputs no op produces."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    assert len(targets) == 1, "calc_gradient currently supports one target"
+    loss = targets[0]
+    block = loss.block
+    names = [v.name if isinstance(v, ir.Variable) else v for v in inputs]
+    append_backward(loss, parameter_list=names, no_grad_set=no_grad_set)
+    outs = []
+    for n in names:
+        g = grad_var_name(n)
+        outs.append(block.var(g) if block.has_var(g) else None)
+    return outs
 
 
 def _unique_grad_name(block, var_name, used):

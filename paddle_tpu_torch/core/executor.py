@@ -53,6 +53,21 @@ traces a block once into a jitted function; PyTorch runs eagerly, so
 * With ``telemetry.enable()`` each call is recorded, and each plan
   built (a cache miss: the port's compile) goes to the recompile
   detector with a signature that names the guard and pass config.
+* With ``FLAGS_verify_ir`` (on by default) the plan's final program is
+  verified (``paddle_tpu_torch/analysis``) the first time the plan
+  meets a call: on every plan miss, and again for each new (feed
+  signature, fetch names, scope) it is run with, so a pass or a feed
+  mix-up raises a typed ``VerifyError`` before anything runs. A call
+  the plan has seen verifies nothing. The flag is in no plan key.
+* With ``FLAGS_check_nan_inf`` every float output of every op is
+  checked on the device (``core/debug.py``); the executor reads the
+  step's result once, after the state is written back and the health
+  rows are queued, and raises ``debug.NanInfError`` naming the first
+  op whose output held a NaN or an Inf. The flag is part of the plan
+  key (``nan_guard``).
+* A ``LoDTensor`` fed to a ``lod_level > 0`` variable is packed into a
+  ``PackedSeq`` on the device; fed to a ``lod_level == 0`` one it is
+  its dense array, as in the JAX package.
 """
 
 import time
@@ -61,18 +76,21 @@ import warnings
 import numpy as np
 import torch
 
+from paddle_tpu_torch import analysis
 from paddle_tpu_torch import guard as guard_lib
 from paddle_tpu_torch import passes as passes_lib
 from paddle_tpu_torch import telemetry
-from paddle_tpu_torch.core import ir
+from paddle_tpu_torch.core import debug, ir
 from paddle_tpu_torch.core.infer import torch_dtype
+from paddle_tpu_torch.core.lod_tensor import LoDTensor
 from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
                                          TraceContext, run_block, step_key)
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
 __all__ = ["Executor", "external_reads_and_writes", "persistable_writes",
-           "run_program", "run_step", "slice_feed", "stack_steps"]
+           "run_program", "run_step", "slice_feed", "stack_steps",
+           "stage_feed"]
 
 # plans an executor keeps; the oldest goes first (a dropped plan is made
 # again when its program next runs)
@@ -139,9 +157,10 @@ class _Plan:
     the user program keeps its id() from being reused."""
 
     __slots__ = ("user", "program", "reads", "written", "protected",
-                 "graphs", "guard")
+                 "graphs", "guard", "nan_guard", "verified")
 
-    def __init__(self, user, program, protected, guard=None):
+    def __init__(self, user, program, protected, guard=None,
+                 nan_guard=False):
         self.user = user
         self.program = program
         self.reads, self.written = external_reads_and_writes(program)
@@ -149,6 +168,29 @@ class _Plan:
         self.graphs = {}
         # guard.GuardPlan of a guarded program, else None
         self.guard = guard
+        # FLAGS_check_nan_inf when the plan was built: each step then
+        # ends with its debug.NanCheck slot
+        self.nan_guard = nan_guard
+        # the (feed signature, fetch names, scope) calls verified
+        self.verified = set()
+
+    def verify(self, feed, fetch_names, scope, chunk=None):
+        """``FLAGS_verify_ir``'s check of one call: verify the plan's
+        program against the call's feed signature, fetch names and
+        scope the first time the plan meets them."""
+        if not analysis.enabled():
+            return
+        infos = {n: analysis.feed_info(v, chunk=chunk)
+                 for n, v in feed.items()}
+        sig = (tuple(sorted((n, None if i is None else (i.shape, i.dtype))
+                            for n, i in infos.items())),
+               tuple(fetch_names), scope.token)
+        if sig in self.verified:
+            return
+        analysis.verify_prepared(self.program, feed_vals=feed,
+                                 fetch_names=fetch_names, scope=scope,
+                                 chunk=chunk)
+        self.verified.add(sig)
 
     def state_names(self, scope, feed, device):
         """The names of the scope state one step reads: the outside
@@ -198,12 +240,15 @@ class Executor:
         self._last_health = None
         # whether the last _plan() call found its plan cached
         self._last_plan_hit = True
+        # each step's debug.NanCheck records in the current dispatch
+        self._nan_records = []
 
     def _plan(self, program, fetch_names, use_cache=True):
         cfg = passes_lib.plan_for(program)
         gplan = guard_lib.plan_for(program)
+        nan_guard = debug.check_nan_inf_enabled()
         key = (program.fingerprint, cfg.key if cfg else None,
-               gplan.key if gplan else None)
+               gplan.key if gplan else None, nan_guard)
         plan = self._plans.get(key) if use_cache else None
         if plan is not None and (cfg is None
                                  or plan.protected.issuperset(fetch_names)):
@@ -216,10 +261,11 @@ class Executor:
             protected = frozenset(fetch_names).union(
                 plan.protected if plan else ())
             run, _ = passes_lib.apply(program, protected=protected)
-        new = _Plan(program, run, protected, gplan)
+        new = _Plan(program, run, protected, gplan, nan_guard)
         if telemetry.enabled():
             telemetry.record_jit_miss(program, _miss_signature(
-                fetch_names, guard=str(gplan.key) if gplan else None,
+                fetch_names, nan_guard=nan_guard,
+                guard=str(gplan.key) if gplan else None,
                 passes=str(cfg.key) if cfg else None))
         if not use_cache:
             return new
@@ -242,7 +288,9 @@ class Executor:
         hit = self._last_plan_hit
         feed = {n: self._to_device(plan.program, n, v)
                 for n, v in (feed or {}).items()}
+        plan.verify(feed, fetch_names, scope)
         step = self._step
+        self._nan_records = []
         fetches = self._run_step(plan, feed, scope, step, fetch_names)
         self._step += 1
         fetches = self._after_dispatch(plan, program, step, fetches)
@@ -288,11 +336,14 @@ class Executor:
         chunk = {n: self._to_device(plan.program, n, v)
                  for n, v in (feed_chunk or {}).items()}
         k = _chunk_k(chunk, k)
+        plan.verify(chunk, fetch_names, scope, chunk=k)
+        self._nan_records = []
         if step0 is not None:
             self._step = int(step0)
         base = self._step
         self._step += k
-        n_out = len(fetch_names) + (plan.guard is not None)
+        n_out = len(fetch_names) + (plan.guard is not None) \
+            + plan.nan_guard
         if self.device.type == "cuda" and use_program_cache:
             from paddle_tpu_torch.core import graphs
             fetches = graphs.run_chunk(self, plan, chunk, k, fetch_names,
@@ -331,29 +382,46 @@ class Executor:
         if plan.guard is not None and plan.guard.poison is not None:
             step_t = torch.full((), step, dtype=torch.int64,
                                 device=self.device)
+        nan = debug.NanCheck() if plan.nan_guard else None
         fetches, writes = run_step(plan, self.device, env, old,
                                    step_key(plan.program.random_seed, step),
-                                   fetch_names, step_t, rngs)
+                                   fetch_names, step_t, rngs, nan)
         # write back state: persistables this block wrote (startup
         # initializers, updates)
         for n, v in writes.items():
             scope.set_var(n, v)
+        if nan is not None:
+            self._nan_records.append(nan.records)
         return fetches
 
     def _after_dispatch(self, plan, program, base, fetches):
         """Strip a guarded dispatch's health rows off its results and
-        queue them for processing."""
-        if plan.guard is None:
-            return fetches
+        queue them for processing; then, under the NaN/Inf guard, read
+        the dispatch's slots (its one host read) and raise for the
+        first failing op: after the state was written back and the
+        rows were queued, so neither is lost."""
         fetches = list(fetches)
+        slots = fetches.pop() if plan.nan_guard else None
+        if plan.guard is not None:
+            self._queue_health(plan, program, base, fetches.pop())
+        if slots is not None:
+            bad = debug.first_failure(slots, self._nan_records)
+            if bad is not None:
+                i, (name, op_type, uid) = bad
+                chunked = slots.dim() > 0
+                raise debug.NanInfError(
+                    name, op_type, uid,
+                    step=base + i if chunked else None, chunk_step=i)
+        return fetches
+
+    def _queue_health(self, plan, program, base, rows):
         self._pending_health.append((plan.guard, program, int(base),
-                                     fetches.pop()))
+                                     rows))
         if len(self._pending_health) > 16:
             warnings.warn(
                 "guard health backlog exceeded 16 dispatches (repeatedly "
                 "failing runs?); dropping the oldest rows", RuntimeWarning)
             del self._pending_health[0]
-        return fetches
 
     def _record(self, program, step, t0, hit, feed, fetches, steps):
         telemetry.record_executor_step(
@@ -418,43 +486,108 @@ class Executor:
             self._plans.clear()
 
     def _to_device(self, program, name, v):
-        if isinstance(v, TensorArray):
-            return TensorArray(self._to_device(program, name, v.data),
-                               torch.as_tensor(v.size).to(self.device,
-                                                          torch.int32))
-        if isinstance(v, PackedSeq):
-            return PackedSeq(self._to_device(program, name, v.data),
-                             torch.as_tensor(v.lengths).to(self.device,
-                                                           torch.int32))
-        if isinstance(v, torch.Tensor):
-            return v.to(self.device)
-        if isinstance(v, (list, tuple)):
-            var = _find_var(program, name)
-            if var is not None and var.lod_level > 0:
-                return self._to_device(program, name,
-                                       _pack_ragged(v, var.dtype))
-        return torch.as_tensor(np.asarray(v), device=self.device)
+        return stage_feed(program, name, v, self.device)
+
+    def cost_analysis(self, program=None, feed=None, fetch_list=None,
+                      scope=None):
+        """Flops and bytes accessed of one step of the plan's final
+        program (``analysis/cost.py``): ``{"flops", "bytes accessed",
+        "flops by op"}``. The JAX package reads XLA's cost model here;
+        the port counts each op's work from its shapes, which a run of
+        the step on the meta device gives. Nothing runs on the card and
+        nothing in the scope moves (the plan is built, and verified,
+        as ``run`` would build it)."""
+        from paddle_tpu_torch.analysis import cost
+
+        program = program if program is not None \
+            else ir.default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        plan = self._plan(program, fetch_names)
+        cpu = torch.device("cpu")
+        values = {n: stage_feed(plan.program, n, v, cpu)
+                  for n, v in (feed or {}).items()}
+        plan.verify(values, fetch_names, scope)
+        for n in plan.reads:
+            if n not in values and scope.find_var(n) is not None:
+                values[n] = scope.find_var(n)
+        return cost.step_cost(plan.program, values)
+
+    def memory_analysis(self, program=None, feed=None, fetch_list=None,
+                        scope=None):
+        """Not ported yet: a step's peak needs the allocator's reading
+        of a real step, which moves the scope. It arrives with the
+        port's benchmark (ROADMAP Queue 1 item 1)."""
+        raise NotImplementedError(
+            "Executor.memory_analysis is not ported yet: it comes with "
+            "the port's benchmark (ROADMAP Queue 1 item 1)")
+
+    def hlo_text(self, program=None, feed=None, fetch_list=None,
+                 scope=None, optimized=True):
+        """Not ported: the port has no HLO. Its structural audit (a
+        census of the NCCL calls) arrives with the parallel executor
+        (ROADMAP Queue 1 item 4)."""
+        raise NotImplementedError(
+            "Executor.hlo_text has no counterpart yet: the structural "
+            "audit comes with the parallel executor (ROADMAP Queue 1 "
+            "item 4)")
+
+
+def stage_feed(program, name, v, device):
+    """One feed value as the executor runs it on ``device``: a tensor,
+    or a ``PackedSeq`` (a ragged list or a ``LoDTensor`` fed to a
+    ``lod_level > 0`` variable) or a ``TensorArray``."""
+    if isinstance(v, TensorArray):
+        return TensorArray(stage_feed(program, name, v.data, device),
+                           torch.as_tensor(v.size).to(device, torch.int32))
+    if isinstance(v, PackedSeq):
+        return PackedSeq(stage_feed(program, name, v.data, device),
+                         torch.as_tensor(v.lengths).to(device, torch.int32))
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, LoDTensor):
+        # reference semantics: a lod set on a lod_level=0 var is inert
+        # (the book tests attach a [0,1,..,N] lod to plain [N,1] id
+        # feeds); only a declared LoD var packs
+        var = _find_var(program, name)
+        ragged = v.to_ragged()
+        if var is not None and var.lod_level > 0 and ragged is not None:
+            return stage_feed(program, name,
+                              _pack_ragged(ragged, var.dtype), device)
+        return torch.as_tensor(v.numpy(), device=device)
+    if isinstance(v, (list, tuple)):
+        var = _find_var(program, name)
+        if var is not None and var.lod_level > 0:
+            return stage_feed(program, name, _pack_ragged(v, var.dtype),
+                              device)
+    return torch.as_tensor(np.asarray(v), device=device)
 
 
 def run_program(program, device, env, key, rngs=None, training=True,
-                guard=None):
+                guard=None, nan=None):
     """Run ``program``'s global block over ``env`` (name -> tensor) on
     ``device``, without autograd, drawing the random streams of the step
     whose key is ``key`` (``rngs``: see ``TraceContext.rngs``) under the
-    ``guard.TraceGuard`` ``guard``, if any."""
+    ``guard.TraceGuard`` ``guard``, if any, checking every op's float
+    outputs into the ``debug.NanCheck`` ``nan``, if any."""
     ctx = TraceContext(key=key, training=training, program=program,
                        device=device, guard=guard)
     ctx.rngs = rngs
+    ctx.nan = nan
     with torch.no_grad():
         run_block(ctx, program.global_block(), env)
     return env
 
 
-def run_step(plan, device, env, old, key, fetch_names, step_t, rngs):
+def run_step(plan, device, env, old, key, fetch_names, step_t, rngs,
+             nan=None):
     """One training step of ``plan`` over ``env`` (the state the step
     reads, ``old``, plus the feeds), eagerly or under graph capture
     (``core/graphs.py``). Returns ``(fetches, writes)``: the fetches,
-    then the health row of a guarded plan; and {name: value} of the
+    then the health row of a guarded plan, then the slot of the
+    ``debug.NanCheck`` ``nan`` (given under the NaN/Inf guard: the
+    index of the step's first failing output, or -1, on the device);
+    and {name: value} of the
     persistables the step wrote (for a guarded plan, the guard's choice
     between candidate and old value, and the guard's state). ``step_t``:
     the step index as a 0-d int64 tensor on the device, which a poison
@@ -465,12 +598,14 @@ def run_step(plan, device, env, old, key, fetch_names, step_t, rngs):
         tg = guard_lib.TraceGuard(
             plan.guard, {n: env[n] for n in guard_lib.STATE_NAMES}, step_t,
             program)
-    run_program(program, device, env, key, rngs=rngs, guard=tg)
+    run_program(program, device, env, key, rngs=rngs, guard=tg, nan=nan)
     writes = persistable_writes(program, plan.written, env)
     extra = []
     if tg is not None:
         writes, health = guard_lib.finalize(tg, env, old, writes)
         extra = [health]
+    if nan is not None:
+        extra.append(nan.slot(device))
     missing = [n for n in fetch_names if n not in env]
     if missing:
         raise KeyError("fetch %s: not computed by the program" % missing)

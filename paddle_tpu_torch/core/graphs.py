@@ -48,6 +48,12 @@ What a replay needs, and how it gets it:
   health row is a trailing output, copied into the chunk's ``[K, 6]``
   rows after its replay and read on the host after the chunk, never
   inside the captured step.
+* **The NaN/Inf guard** (``core/debug.py``). Under
+  ``FLAGS_check_nan_inf`` the captured step checks every op's float
+  outputs on the device and ends with its slot (the index of its first
+  failing output, or -1), a trailing output like the health row; the
+  capture keeps the host's list of what each index names
+  (``StepGraph.nan_records``), which every replay's slot indexes.
 * **The first step.** The first ``run_chunk`` of a plan runs its first
   step eagerly, on the side stream the capture then uses (that run loads
   the kernels and makes the library handles and workspaces), captures
@@ -79,6 +85,7 @@ import threading
 import torch
 
 from paddle_tpu_torch import telemetry
+from paddle_tpu_torch.core import debug
 from paddle_tpu_torch.core.executor import run_step, slice_feed
 from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
                                          op_seed, step_key)
@@ -270,6 +277,8 @@ class StepGraph:
             self.step_t = torch.zeros((), dtype=torch.int64,
                                       device=executor.device)
         self.outputs = {}
+        # what each index of the captured NaN/Inf slot names
+        self.nan_records = None
         self.run = CapturedRun(executor.device, draws)
         self.fetches = self.run.capture(
             lambda rngs: self._step(executor, plan, fetch_names, rngs),
@@ -278,8 +287,11 @@ class StepGraph:
     def _step(self, executor, plan, fetch_names, rngs):
         env = dict(self.state)
         env.update(self.feeds)
+        nan = debug.NanCheck() if plan.nan_guard else None
         fetches, writes = run_step(plan, executor.device, env, self.state,
-                                   0, fetch_names, self.step_t, rngs)
+                                   0, fetch_names, self.step_t, rngs, nan)
+        if nan is not None:
+            self.nan_records = nan.records
         held = _storages(list(self.state.values())
                          + list(self.feeds.values()))
         copies = []
@@ -332,7 +344,8 @@ def run_chunk(executor, plan, chunk, k, fetch_names, scope, base):
     replay of the plan's graph for this chunk's signature (the first of
     a new signature runs eagerly, then is captured). Returns the fetches
     stacked ``[K, ...]`` on the device, then a guarded plan's health
-    rows ``[K, 6]``."""
+    rows ``[K, 6]``, then the NaN/Inf guard's slots ``[K]`` (each
+    replay's records go to ``executor._nan_records``)."""
     dev = executor.device
     key = (tuple(sorted((n, _sig(v)) for n, v in chunk.items())),
            tuple(fetch_names), scope.token)
@@ -365,6 +378,8 @@ def run_chunk(executor, plan, chunk, k, fetch_names, scope, base):
                 t.record_stream(torch.cuda.current_stream(dev))
         for i in range(start, k):
             graph.replay(slice_feed(chunk, i), base + i, scope)
+            if graph.nan_records is not None:
+                executor._nan_records.append(graph.nan_records)
             for o, f in zip(outs, graph.fetches):
                 _copy_into(_row(o, i), f)
     return outs

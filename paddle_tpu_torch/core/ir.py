@@ -384,6 +384,19 @@ class Program:
             for v in b.vars.values():
                 yield v
 
+    def verify(self, fetch_names=(), scope_names=None):
+        """Static IR verification + shape/dtype inference over this
+        program (paddle_tpu_torch.analysis): raises a typed
+        ``VerifyError`` naming the check class, op, block, and var on
+        the first provable defect; returns the inferred {name: Info}
+        env. The executor runs this automatically on every plan miss
+        behind ``FLAGS_verify_ir`` — call it directly to vet a
+        hand-built or hand-rewritten program before execution."""
+        from paddle_tpu_torch import analysis
+
+        return analysis.verify(self, fetch_names=fetch_names,
+                               scope_names=scope_names)
+
     # ---- serialization (JSON stands in for the reference's protobuf) ----
 
     def to_dict(self):

@@ -30,6 +30,11 @@ casts) and each output to ``guard.rewrite_output``, as the JAX
 package's lowering does; the generic grad's outputs pass through
 ``rewrite_output`` too.
 
+The NaN/Inf debug guard (``core/debug.py``) rides ``TraceContext.nan``:
+``run_op`` hands each op's bound outputs to the step's ``NanCheck``,
+which records a device-side finiteness flag for each float tensor, as
+the JAX package's ``_bind_outputs`` calls ``debug.guard_outputs``.
+
 A control-flow op (``scan_block``, ``recompute``) runs its sub-block
 with the same ``run_block``, over a fresh environment that holds only
 the op's ``Params``/``X``/``Init`` bindings; an error inside it is annotated with
@@ -265,6 +270,8 @@ class TraceContext:
         # None, or what hands out the generators (``core/graphs.py``:
         # the ones a CUDA graph registered, or a recorder of the draws)
         self.rngs = None
+        # the step's debug.NanCheck under FLAGS_check_nan_inf, else None
+        self.nan = None
         self._op = None
 
     def for_op(self, op):
@@ -276,6 +283,7 @@ class TraceContext:
         c.amp_dtype = self.amp_dtype
         c.guard = self.guard
         c.rngs = self.rngs
+        c.nan = self.nan
         c._op = op
         return c
 
@@ -359,7 +367,9 @@ def run_op(ctx, block, op, env):
     result = spec.lower(ctx.for_op(op), ins, op.attrs, op)
     if ctx.guard is not None:
         result = _guard_rewrite(ctx.guard, op, result)
-    _bind_outputs(env, op, result)
+    updates = _bind_outputs(env, op, result)
+    if ctx.nan is not None:
+        ctx.nan.check(op, updates)
 
 
 def _guard_rewrite(guard, op, result):
@@ -456,7 +466,10 @@ def _lookup(env, block, name):
 
 
 def _bind_outputs(env, op, result):
+    """Bind a lowering's outputs into ``env``; returns the bound
+    ``[(name, value)]``."""
     result = registry.normalize_outputs(result)
+    updates = []
     for slot, names in op.outputs.items():
         if slot not in result:
             continue
@@ -464,3 +477,5 @@ def _bind_outputs(env, op, result):
         for i, n in enumerate(names):
             if n and i < len(vals) and vals[i] is not None:
                 env[n] = vals[i]
+                updates.append((n, vals[i]))
+    return updates

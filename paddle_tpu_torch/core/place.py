@@ -8,7 +8,8 @@ tests do) and runs each kernel's plain PyTorch version.
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "default_place"]
+__all__ = ["CPUPlace", "CUDAPlace", "default_place",
+           "is_compiled_with_cuda", "is_compiled_with_tpu"]
 
 
 class Place:
@@ -50,3 +51,16 @@ def default_place(place):
     """Resolve an entry point's ``place`` argument to a torch device:
     None means ``CUDAPlace(0)``, which raises when there is no card."""
     return (place if place is not None else CUDAPlace(0)).torch_device()
+
+
+def is_compiled_with_cuda():
+    """True when torch sees a CUDA device (reference
+    `fluid.core.is_compiled_with_cuda`)."""
+    return torch.cuda.is_available()
+
+
+def is_compiled_with_tpu():
+    """Always False: the port runs on CUDA and the CPU only (the
+    reference's TPU build flag; the JAX package answers for its
+    backend)."""
+    return False

@@ -22,7 +22,8 @@ emits the same grad ops in both packages.
 import torch
 
 __all__ = ["OpSpec", "register", "op", "get", "has", "REGISTRY",
-           "normalize_outputs", "generic_grad"]
+           "attr_schema", "set_attr_schema", "normalize_outputs",
+           "generic_grad"]
 
 REGISTRY = {}
 
@@ -41,6 +42,11 @@ class OpSpec:
         # output slots aliasing an input var (in-place updates: optimizer
         # ops). Purely informational.
         self.stateful_outputs = tuple(stateful_outputs)
+        # {attr name: type | tuple-of-types | set enumeration | predicate}
+        # consulted by the IR verifier (paddle_tpu_torch/analysis);
+        # installed after registration via set_attr_schema — grad ops
+        # inherit the forward's schema
+        self.attr_schema = {}
 
 
 def _seq_mapped(lower):
@@ -111,6 +117,28 @@ def get(type):
 
 def has(type):
     return type in REGISTRY
+
+
+def set_attr_schema(type, schema):
+    """Attach (merge) an attr schema onto a registered op — the IR
+    verifier validates any PRESENT attr of that name against its rule
+    (a type, a tuple of types, a set enumeration, or a predicate).
+    Absent attrs always pass: lowerings default them."""
+    spec = REGISTRY.get(type)
+    if spec is None:
+        raise KeyError("cannot attach attr schema: op %r is not "
+                       "registered" % type)
+    spec.attr_schema.update(schema)
+    return spec
+
+
+def attr_schema(type):
+    """The registered attr schema for ``type`` ({} when none / unknown
+    op). Grad types resolve through their forward spec."""
+    spec = REGISTRY.get(type)
+    if spec is None and type.endswith("_grad"):
+        spec = REGISTRY.get(type[:-len("_grad")])
+    return spec.attr_schema if spec is not None else {}
 
 
 def normalize_outputs(result):

@@ -17,8 +17,10 @@ program and keeps the clone (``core.executor``), never on every step:
   ``RematPlan`` that ``core.lower.run_block`` replays
   (``passes/remat.py``); it runs last and only analyses.
 
-The JAX package's telemetry and IR-verifier hooks around each pass
-arrive with those modules.
+With ``FLAGS_verify_ir`` (on by default) ``apply`` verifies the
+program after EACH stage (``paddle_tpu_torch/analysis``): a bad rewrite
+raises a typed ``VerifyError`` attributed to its pass, as in the JAX
+package.
 
 The pipeline is configured per program (``passes.enable(program, ...)``)
 and never mutates the user's program: flipping the config selects
@@ -174,11 +176,21 @@ def apply(program, protected=()):
     cfg = plan_for(program)
     if cfg is None:
         return program, {}
+    from paddle_tpu_torch import analysis
+
     out = program.clone()
     out.passes = cfg
     protected = frozenset(protected)
     report = {}
+    verify = analysis.enabled()
     for name, enabled, mod in PIPELINE:
-        if enabled(cfg):
-            report[name] = int(mod.run(out, cfg, protected))
+        if not enabled(cfg):
+            continue
+        report[name] = int(mod.run(out, cfg, protected))
+        if verify:
+            # post-condition: every stage must emit a proven-well-formed
+            # program — a bad rewrite fails HERE, as a VerifyError
+            # attributed to its pass, not later inside a lowering. Runs
+            # only on plan misses (apply() is never on the hot path)
+            analysis.verify(out, fetch_names=protected, pass_name=name)
     return out, report

@@ -142,7 +142,9 @@ def test_supported_case_by_case(flag_on, x, w, attrs, want):
 def test_flags_registry():
     with pytest.raises(KeyError, match="unknown flag"):
         tflags.set_flags({"FLAGS_no_such_flag": 1})
-    assert set(tflags.get_flags()) == {"FLAGS_fused_conv1x1_bwd"}
+    assert set(tflags.get_flags()) == {"FLAGS_fused_conv1x1_bwd",
+                                       "FLAGS_check_nan_inf",
+                                       "FLAGS_verify_ir"}
     assert tflags._coerce(False, "Yes") is True
     assert tflags._coerce(False, "0") is False
 

@@ -16,9 +16,10 @@ skipped step. The AMP case trains the tiny transformer under dynamic
 loss scaling in both packages and holds them at PERF.md section 2's
 AMP bounds.
 
-``TestHealthManifests``, ``TestDivergenceRollbackChaos``,
-``TestParallelGuard`` and the checkify test wait for the port's
-checkpoints, recovery loop, ParallelExecutor and ``core/debug.py``."""
+``TestHealthManifests``, ``TestDivergenceRollbackChaos`` and
+``TestParallelGuard`` wait for the port's checkpoints, recovery loop
+and ParallelExecutor; the checkify test is
+``tests/test_torch_debug.py::test_checkify_throw_does_not_orphan_queued_rows``."""
 
 import os
 import types

@@ -24,7 +24,7 @@ PORT = os.path.join(REPO, "paddle_tpu_torch")
 
 def _port_files():
     out = [os.path.join(REPO, f) for f in (
-        "chip_smoke.py", "lstm_breakdown.py")]
+        "chip_smoke.py", "lstm_breakdown.py", "lstm_grad_check.py")]
     for root, _, files in os.walk(PORT):
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
     return sorted(out)
@@ -72,6 +72,15 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.v2 as paddle\n"
         "import paddle_tpu_torch.reader, paddle_tpu_torch.dataset\n"
         "import paddle_tpu_torch.dataset.common\n"
+        "import paddle_tpu_torch.analysis.cost\n"
+        "import paddle_tpu_torch.analysis.effects\n"
+        "import paddle_tpu_torch.core.debug\n"
+        "import paddle_tpu_torch.core.lod_tensor\n"
+        "import paddle_tpu_torch.inference_transpiler\n"
+        "import paddle_tpu_torch.layout_transpiler\n"
+        "import paddle_tpu_torch.memory_optimize\n"
+        "assert paddle_tpu_torch.op_registry is "
+        "paddle_tpu_torch.core.registry\n"
         "assert paddle.reader is paddle_tpu_torch.reader\n"
         "assert paddle.dataset is paddle_tpu_torch.dataset\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"

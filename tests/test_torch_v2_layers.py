@@ -199,13 +199,12 @@ def lstm_step(p):
 
 
 def huber_classification(p):
-    """The JAX test's ``calc_gradient`` is ``append_backward`` here: the
-    port has no ``calc_gradient`` yet (ROADMAP.md Queue 1 item 3)."""
+    """The JAX test's case: the gradient of the cost with respect to the
+    data var ``x`` through ``calc_gradient``."""
     x = p.L.data("x", [1])
     x.stop_gradient = False
     cost = p.v2l.huber_classification_cost(x, p.L.data("lab", [1]))
-    p.fluid.append_backward(cost)
-    return [cost, x.block.var("x@GRAD")]
+    return [cost, p.fluid.calc_gradient(cost, [x])[0]]
 
 
 def kmax_negative(p):
