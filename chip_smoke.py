@@ -407,6 +407,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -4456,7 +4457,7 @@ def ssd_phase(fluid, seed, dev):
         eager = [ssd_detect(fluid, exe, test, dets, m, ev, scope)
                  for _ in range(2)]
         reps = [exe.run_chunk(test, feed_chunk=chunk, k=2, fetch_list=[m],
-                              scope=scope)[0] for _ in range(2)]
+                              scope=scope)[0]]
         same = all(np.array_equal(e[0], rows) and np.array_equal(
             e[1], counts) for e in eager) and all(np.array_equal(
                 np.asarray(r), np.full(2, mean_ap, np.float32))
@@ -4508,7 +4509,7 @@ def ssd_phase(fluid, seed, dev):
         torch.cuda.empty_cache()
 
         res = graph_path(fluid, "ssd300", (prog, startup, loss), train,
-                         GRAPH_K["ssd"], GRAPH_CHUNKS, seed,
+                         GRAPH_K["ssd"], 1, seed,
                          {"conv1x1_bwd": n_c1},
                          (SSD_LTOL, RESNET_AB_PL2TOL, RESNET_AB_L2TOL))
         print("SSD300 graphs: B8 %d launches a step, credited once a "
@@ -9471,6 +9472,367 @@ def tooling_phase(fluid, seed, dev):
     return dict(guard=guard, calc=calc, lod=lod, fold=fold)
 
 
+# ---- phase 6l: data parallelism (paddle_tpu_torch.parallel) ----
+# The card holds one rank: the parallel path runs at NCCL world 1 (NCCL
+# refuses two ranks of one communicator on one card), where every bucket,
+# reduce-scatter, all-gather and quantized exchange is real and each sum
+# over the ranks has one addend; the sums across ranks are held on the
+# CPU by tests/test_torch_parallel.py's gloo worlds of 2, 3 and 4.
+# (a) ResNet-50 config D (bf16 AMP, NCHW, epilogue fusion, fused 1x1
+# backward; Momentum; batch RESNET_B): PE_STEPS steps in each mode from
+# one start state; (b) the stacked LSTM at train_phase's widths under
+# CommConfig(bucket_mb=PE_BUCKET_MB): PE_LSTM_K eager steps against one
+# run_chunk of PE_LSTM_K graph replays, the collectives captured.
+PE_STEPS, PE_LSTM_K, PE_BUCKET_MB = 2, 4, 4.0
+# the modes of (a): (comm_config keywords or None, executor zero_stage)
+PE_MODES = (("none_z0", None, 0), ("none_z1", None, 1),
+            ("comm_fp32", dict(bucket_mb=PE_BUCKET_MB), 0),
+            ("comm_int8", dict(bucket_mb=PE_BUCKET_MB, quantize="int8"), 0),
+            ("comm_z1", dict(bucket_mb=PE_BUCKET_MB, zero_stage=1), 0))
+
+
+def free_port():
+    """A free TCP port on the loopback interface (the rendezvous)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def comm_profile(fn, reps=3):
+    """``reps`` calls of ``fn``, each under torch.profiler: (the median
+    device busy ms of a call's kernels and copies, (NCCL calls on the
+    host, their ranges on the device, the ranges' device us) of the
+    first call). PyTorch marks each NCCL call on the device timeline as
+    a range ``nccl:<kind>`` (at one rank NCCL moves the data by a device
+    copy inside it): those ranges are counted apart, not added to the
+    busy time. Only the first call records the host too (the NCCL calls
+    are counted there); the others record the device alone, which costs
+    the host far less."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.parallel import comm_audit
+
+    busy, nccl = [], None
+    for i in range(reps):
+        acts = [ProfilerActivity.CUDA] if i else \
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and not e.name.startswith("nccl:")]
+        if us:
+            busy.append(sum(us) / 1000.0)
+        if nccl is None:
+            nccl = comm_audit.device_collectives(prof)
+    return (float(np.median(busy)) if busy else None), nccl
+
+
+def same_state(a, b):
+    """Names whose values differ bit for bit between two scope states
+    (a ZeRO shard compared as its flat elements)."""
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+
+    bad = [n for n in a if n in b and not torch.equal(bits(a[n]),
+                                                      bits(b[n]))]
+    return sorted(bad) + sorted(set(a) ^ set(b))
+
+
+def pe_state(scope):
+    """A scope's tensors, ZeRO shards as their local rows (flat)."""
+    return {n: t.detach().as_subclass(torch.Tensor).clone()
+            for n, t in scope.vars.items() if isinstance(t, torch.Tensor)}
+
+
+def parallel_phase(fluid, seed, dev):
+    """Phase 6l: data parallelism through ``ParallelExecutor`` over NCCL
+    at world 1 on the card (``distribute.init_multihost``). (a) ResNet-50
+    config D: the plain Executor, then every PE_MODES mode, PE_STEPS steps
+    each from the same start state. The global view at zero_stage 0 is
+    the plain Executor bitwise (at one rank every cross-rank sum is its
+    one addend and the local-view mean and batch-norm forms are exactly
+    the serial ones); zero_stage 1, the bucketed comm path and ZeRO-1
+    are bitwise the global view; int8 after its first step is within its
+    quantization bound (each element of a bucket moves by at most lr x
+    the bucket's max gradient / 127: half a step in each of the two
+    phases); the second step of every mode is finite. cuDNN runs its
+    deterministic algorithms for the phase (its default backward is not
+    run-to-run deterministic). Launches: exactly the program's bf16 B8 a
+    step (transformed_launches); the NCCL calls a step equal the step's
+    census. (b) the stacked LSTM: PE_LSTM_K eager PE steps against one
+    run_chunk of PE_LSTM_K graph replays with the collectives captured,
+    bitwise, 6 B3 + 3 B4 a step credited per replay, the census of the
+    captured step holding one exchange a bucket. Prints, for each mode,
+    busy ms a step, the NCCL calls' us, buckets and wire bytes from the
+    plan, and each bucket's overlap (launched before the last backward
+    op). Returns the counted steps' launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import flags, unique_name
+    from paddle_tpu_torch.kernels import conv1x1_bwd as k1
+    from paddle_tpu_torch.kernels import lstm_cell as lc
+    from paddle_tpu_torch.models.stacked_lstm import build_stacked_lstm_train
+    from paddle_tpu_torch.parallel import CommConfig, ParallelExecutor
+    from paddle_tpu_torch.parallel import comm_audit
+    from paddle_tpu_torch.parallel.distribute import init_multihost
+
+    t0 = time.perf_counter()
+    init_multihost("localhost:%d" % free_port(), 1, 0, device=dev)
+    print("process group: backend %s, world %d, rank %d (card: %s)" % (
+        dist.get_backend(), dist.get_world_size(), dist.get_rank(),
+        card_line()))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    launches = {"conv1x1_bwd_bf16": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+    try:
+        # ---- (a) ResNet-50 config D ----
+        with unique_name.guard():
+            prog, startup, _, (loss, acc) = fused_build("D", RESNET)
+        _, b8, _ = transformed_launches(prog, RESNET_B, [loss.name])
+        want_b8 = sum(b8.values())
+        startup.random_seed = seed
+        scope0 = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope0)
+        init = scope_state(scope0)
+        del scope0
+        rng = np.random.RandomState(seed)
+        feed = {"data": torch.from_numpy(rng.randn(
+            RESNET_B, *RESNET["image_shape"]).astype(np.float32)).to(dev),
+            "label": torch.from_numpy(rng.randint(
+                0, RESNET["class_dim"], (RESNET_B, 1)).astype(np.int64))
+            .to(dev)}
+
+        def fresh():
+            s = fluid.Scope()
+            for n, t in init.items():
+                s.set_var(n, t.clone())
+            return s
+
+        flags.set_flags({"FLAGS_fused_conv1x1_bwd": True})
+        runs = {}
+        try:
+            for name, cfg, zero in (("plain", None, 0),) + PE_MODES:
+                scope = fresh()
+                exe = fluid.Executor() if name == "plain" else \
+                    ParallelExecutor(loss_name=loss.name, main_program=prog,
+                                     zero_stage=zero,
+                                     comm_config=None if cfg is None
+                                     else CommConfig(**cfg))
+                exe._step = 1          # the step after startup's
+
+                def step():
+                    return float(exe.run(program=prog, feed=feed,
+                                         fetch_list=[loss], scope=scope)[0])
+
+                losses, states = [], []
+                # the local view's batch norm keeps per-rank running
+                # statistics: one warning a statistic, counted instead
+                # of printed
+                with warnings.catch_warnings(record=True) as noted:
+                    warnings.simplefilter("always", RuntimeWarning)
+                    for s in range(PE_STEPS):
+                        if s == PE_STEPS - 1:
+                            reset_all_launches()
+                        losses.append(step())
+                        torch.cuda.synchronize()
+                        states.append(pe_state(scope))
+                    b8_step = k1.launches["conv1x1_bwd"]
+                    # further steps, profiled: busy, the NCCL calls
+                    busy, nccl = comm_profile(step)
+                if b8_step != want_b8:
+                    raise AssertionError(
+                        "%s: %d bf16 B8 launches in a step, the program "
+                        "has %d" % (name, b8_step, want_b8))
+                if name != "plain":
+                    launches["conv1x1_bwd_bf16"] += b8_step
+                    print("%s: %d warnings of state updated from this "
+                          "rank's rows (the local view's batch-norm "
+                          "statistics)" % (name, len(noted)))
+                runs[name] = dict(
+                    losses=losses, states=states, busy=busy, nccl=nccl,
+                    census=getattr(exe, "last_census", None),
+                    plan=getattr(exe, "_comm_plans", {}).get(
+                        prog.fingerprint))
+                if not np.isfinite(losses).all():
+                    raise AssertionError("%s: losses %s" % (name, losses))
+                del scope, exe
+                torch.cuda.empty_cache()
+        finally:
+            flags.set_flags({"FLAGS_fused_conv1x1_bwd": False})
+
+        for name, ref in (("none_z0", "plain"), ("none_z1", "none_z0"),
+                          ("comm_fp32", "none_z0"),
+                          ("comm_z1", "comm_fp32")):
+            a, b = runs[name], runs[ref]
+            bad = same_state(a["states"][-1], b["states"][-1])
+            if a["losses"] != b["losses"] or bad:
+                raise AssertionError(
+                    "%s is not bitwise %s: losses %s %s, state differs at "
+                    "%s" % (name, ref, a["losses"], b["losses"], bad[:5]))
+            print("ResNet-50 config D: %s bitwise %s (losses %s, %d state "
+                  "tensors)" % (name, ref, a["losses"], len(b["states"][-1])))
+        # int8 after its first step against the float32 exchange
+        q, f = runs["comm_int8"], runs["comm_fp32"]
+        if q["losses"][0] != f["losses"][0]:
+            raise AssertionError("int8's first loss (before any update) "
+                                 "must be the float32 path's")
+        lr = RESNET["lr"]
+        worst = 0.0
+        for b in f["plan"].buckets:
+            grads = {p: (init[p].float() - f["states"][0][p].float())
+                     .reshape(-1) / lr for p, _ in b.grads}
+            step = max(float(g.abs().max()) for g in grads.values()) / 127.0
+            for p, _ in b.grads:
+                d = float((q["states"][0][p].float()
+                           - f["states"][0][p].float()).abs().max())
+                ulp = 4 * float(init[p].float().abs().max()) * 2.0 ** -23
+                worst = max(worst, d / (lr * step + ulp))
+        if worst > 1.01:
+            raise AssertionError("int8: a parameter moved %.3f of its "
+                                 "bucket's quantization bound" % worst)
+        print("ResNet-50 config D: int8 after one step within %.3f of its "
+              "bound (lr x bucket max|g| / 127 an element); second-step "
+              "loss %.7f against the float32 path's %.7f" % (
+                  worst, q["losses"][1], f["losses"][1]))
+
+        for name, _, _ in PE_MODES:
+            r = runs[name]
+            plan, census = r["plan"], r["census"]
+            overlap = comm_audit.bucket_overlap(census)
+            stats = comm_audit.collective_stats(census)
+            calls, ranges, nus = r["nccl"]
+            if calls != len(census):
+                raise AssertionError(
+                    "%s: the profiler saw %d NCCL calls in a step (%d "
+                    "device ranges), the census has %d"
+                    % (name, calls, ranges, len(census)))
+            print("PE %s (ResNet-50 config D, bf16 AMP, batch %d, NCCL "
+                  "world 1): busy %s ms a step (median of 3), %d NCCL "
+                  "calls a step = the census (%s), %d device ranges seen, "
+                  "their device time %.1f us; plan: %d buckets, %d grad "
+                  "bytes, %d wire bytes modeled; bucket exchanges launched "
+                  "before the last backward op: %d of %d %s; %d bf16 B8 a "
+                  "step (card: %s)" % (
+                      name, RESNET_B, "%.3f" % r["busy"] if r["busy"]
+                      else "not measured", calls, json.dumps(
+                          {k: v["count"] for k, v in stats.items()}),
+                      ranges, nus, len(plan.buckets), plan.grad_bytes,
+                      plan.wire_bytes(), sum(overlap.values()),
+                      len(overlap), json.dumps(
+                          {str(k): v for k, v in sorted(overlap.items())})
+                      if len(overlap) <= 16 else "",
+                      want_b8, card_line()))
+        print("plain Executor (ResNet-50 config D): busy %s ms a step "
+              "(median of 3)" % (
+            "%.3f" % runs["plain"]["busy"] if runs["plain"]["busy"]
+            else "not measured"))
+        del runs, init
+        torch.cuda.empty_cache()
+
+        # ---- (b) the stacked LSTM, its collectives in a CUDA graph ----
+        with unique_name.guard():
+            prog, startup, _, (loss, acc) = build_stacked_lstm_train(
+                dict_dim=DICT, class_dim=CLASSES, emb_dim=EMB, hid_dim=HID,
+                stacked_num=STACKED, lr=LR)
+        fwd, bwd = recurrent_launches(prog, "lstm")
+        startup.random_seed = seed
+        scope0 = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope0)
+        init = scope_state(scope0)
+        del scope0
+        lens, words, label = stacked_lstm_batch(
+            np.random.RandomState(seed), LSTM_B, LSTM_T, MIN_LEN, DICT)
+        on_card = packed_on(fluid, {"words": words, "label": label}, dev)
+
+        def lstm_pe():
+            s = fluid.Scope()
+            for n, t in init.items():
+                s.set_var(n, t.clone())
+            pe = ParallelExecutor(
+                loss_name=loss.name, main_program=prog, zero_stage=0,
+                comm_config=CommConfig(bucket_mb=PE_BUCKET_MB))
+            pe._step = 1
+            return s, pe
+
+        scope, pe = lstm_pe()
+        reset_all_launches()
+        t1 = time.perf_counter()
+        eager = [float(pe.run(fetch_list=[loss], feed=on_card,
+                              scope=scope)[0]) for _ in range(PE_LSTM_K)]
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t1) * 1000.0 / PE_LSTM_K
+        eager_launch = (lc.launches["lstm_fwd"], lc.launches["lstm_bwd"])
+        eager_state = pe_state(scope)
+        plan = pe._comm_plans[prog.fingerprint]
+        eager_census = pe.last_census
+        busy_e, (ncalls_e, _, nus_e) = comm_profile(lambda: pe.run(
+            fetch_list=[loss], feed=on_card, scope=scope))
+        del scope, pe
+        scope, pe = lstm_pe()
+        chunk = chunk_of(on_card, PE_LSTM_K)
+        reset_all_launches()
+        out = pe.run_chunk(prog, feed_chunk=chunk, fetch_list=[loss],
+                           scope=scope)
+        torch.cuda.synchronize()
+        graph = [float(v) for v in np.asarray(out[0]).ravel()]
+        graph_launch = (lc.launches["lstm_fwd"], lc.launches["lstm_bwd"])
+        census = pe.last_census
+        bad = same_state(pe_state(scope), eager_state)
+        if graph != eager or bad:
+            raise AssertionError(
+                "stacked LSTM under PE: graph replays differ from eager "
+                "steps: %s %s, state %s" % (graph, eager, bad[:5]))
+        want = (fwd * PE_LSTM_K, bwd * PE_LSTM_K)
+        if eager_launch != want or graph_launch != want:
+            raise AssertionError(
+                "stacked LSTM under PE: B3/B4 launches eager %s, graphs "
+                "%s, the program's %s" % (eager_launch, graph_launch, want))
+        launches["lstm_fwd"] += graph_launch[0]
+        launches["lstm_bwd"] += graph_launch[1]
+        if census.count("bucket") != 2 * len(plan.buckets) or \
+                len(census) != len(eager_census):
+            raise AssertionError(
+                "the captured step's collectives: %d bucket exchanges for "
+                "%d buckets, %d in all against the eager step's %d" % (
+                    census.count("bucket"), len(plan.buckets), len(census),
+                    len(eager_census)))
+        t1 = time.perf_counter()
+        pe.run_chunk(prog, feed_chunk=chunk, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t1) * 1000.0 / PE_LSTM_K
+        busy_g = device_busy_ms(lambda: pe.run_chunk(
+            prog, feed_chunk=chunk, fetch_list=[loss], scope=scope))
+        overlap = comm_audit.bucket_overlap(census)
+        print("PE stacked LSTM (dict %d, emb/hid %d, %d layers, batch %d "
+              "of %d..%d ids, Adam, CommConfig(bucket_mb=%g), NCCL world "
+              "1): %d eager steps bitwise %d graph replays (losses %s); "
+              "%d B3 + %d B4 a step; %d collectives a replay = the census "
+              "(%d buckets x 2 + the loss mean's), %d grad bytes, %d wire "
+              "bytes modeled, buckets launched before the last backward "
+              "op %s; host %.3f ms a step eager, %.3f graphs; busy %s ms "
+              "a step eager (NCCL calls %d, %.1f us), %s graphs (card: %s)"
+              % (DICT, EMB, STACKED, LSTM_B, lens.min(), lens.max(),
+                 PE_BUCKET_MB, PE_LSTM_K, PE_LSTM_K, graph, fwd, bwd,
+                 len(census), len(plan.buckets), plan.grad_bytes,
+                 plan.wire_bytes(), json.dumps(
+                     {str(k): v for k, v in sorted(overlap.items())}),
+                 eager_ms, graph_ms, "%.3f" % busy_e if busy_e else
+                 "not measured", ncalls_e, nus_e, "%.3f" % (
+                     busy_g / PE_LSTM_K) if busy_g else "not measured",
+                 card_line()))
+        del scope, pe, init
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    print("phase 6l: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -9863,6 +10225,14 @@ def main():
           "InferenceTranspiler on ResNet-50, cost_analysis (seed %d)"
           % args.seed)
     tooling_phase(fluid, args.seed, dev)
+
+    # ---- 9f. data parallelism (phase 6l) ----
+    phase("data parallelism at NCCL world 1: ResNet-50 config D through "
+          "ParallelExecutor in every mode (global view at ZeRO 0 and 1, "
+          "bucketed, int8, ZeRO-1), the stacked LSTM's collectives "
+          "captured in a CUDA graph (seed %d)" % args.seed)
+    for n, c in parallel_phase(fluid, args.seed, dev).items():
+        launches[n] += c
 
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "

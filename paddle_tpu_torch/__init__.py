@@ -61,6 +61,10 @@ from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch import reader  # noqa: F401
 from paddle_tpu_torch import dataset  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from paddle_tpu_torch.parallel.parallel_executor import (  # noqa: F401
+    ParallelExecutor)
+from paddle_tpu_torch.parallel.distribute import (  # noqa: F401
+    DistributeTranspiler)
 from paddle_tpu_torch import serving  # noqa: F401
 
 from paddle_tpu_torch.memory_optimize import (  # noqa: F401

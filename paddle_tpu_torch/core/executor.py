@@ -84,13 +84,14 @@ from paddle_tpu_torch.core import debug, ir
 from paddle_tpu_torch.core.infer import torch_dtype
 from paddle_tpu_torch.core.lod_tensor import LoDTensor
 from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
-                                         TraceContext, run_block, step_key)
+                                         TraceContext, _fold_in, run_block,
+                                         step_key)
 from paddle_tpu_torch.core.place import default_place
 from paddle_tpu_torch.core.scope import global_scope
 
-__all__ = ["Executor", "external_reads_and_writes", "persistable_writes",
-           "run_program", "run_step", "slice_feed", "stack_steps",
-           "stage_feed"]
+__all__ = ["Executor", "external_reads_and_writes", "fold_step_key",
+           "persistable_writes", "run_program", "run_step", "slice_feed",
+           "stack_steps", "stage_feed"]
 
 # plans an executor keeps; the oldest goes first (a dropped plan is made
 # again when its program next runs)
@@ -157,7 +158,7 @@ class _Plan:
     the user program keeps its id() from being reused."""
 
     __slots__ = ("user", "program", "reads", "written", "protected",
-                 "graphs", "guard", "nan_guard", "verified")
+                 "graphs", "guard", "nan_guard", "verified", "comm")
 
     def __init__(self, user, program, protected, guard=None,
                  nan_guard=False):
@@ -173,6 +174,20 @@ class _Plan:
         self.nan_guard = nan_guard
         # the (feed signature, fetch names, scope) calls verified
         self.verified = set()
+        # ParallelExecutor's data-parallel step (parallel/
+        # parallel_executor._CommStep, set by its _attach): makes each
+        # step's comm layer and folds the rank into the step key; None
+        # on one device
+        self.comm = None
+
+    def step_key(self, step):
+        """The root random key of step ``step`` (``TraceContext.key``)."""
+        return fold_step_key(self.program.random_seed, step,
+                             self.rank_fold())
+
+    def rank_fold(self):
+        """The data-parallel rank a step key folds in, or None."""
+        return None if self.comm is None else self.comm.rank_fold
 
     def verify(self, feed, fetch_names, scope, chunk=None):
         """``FLAGS_verify_ir``'s check of one call: verify the plan's
@@ -207,6 +222,9 @@ class _Plan:
                      and (v := b0.vars.get(n)) is not None and v.persistable]
             guard_lib.prepare_carry(scope, self.guard, names, sorted(extra),
                                     device)
+        if self.comm is not None:
+            names.extend(n for n in self.comm.state_names
+                         if scope.find_var(n) is not None)
         return names
 
     def close(self):
@@ -248,7 +266,7 @@ class Executor:
         gplan = guard_lib.plan_for(program)
         nan_guard = debug.check_nan_inf_enabled()
         key = (program.fingerprint, cfg.key if cfg else None,
-               gplan.key if gplan else None, nan_guard)
+               gplan.key if gplan else None, nan_guard) + self._plan_key()
         plan = self._plans.get(key) if use_cache else None
         if plan is not None and (cfg is None
                                  or plan.protected.issuperset(fetch_names)):
@@ -262,6 +280,7 @@ class Executor:
                 plan.protected if plan else ())
             run, _ = passes_lib.apply(program, protected=protected)
         new = _Plan(program, run, protected, gplan, nan_guard)
+        self._attach(new)
         if telemetry.enabled():
             telemetry.record_jit_miss(program, _miss_signature(
                 fetch_names, nan_guard=nan_guard,
@@ -276,6 +295,18 @@ class Executor:
         while len(self._plans) > MAX_PLANS:
             self._plans.pop(next(iter(self._plans))).close()
         return new
+
+    def _plan_key(self):
+        """What else a plan is built for (``ParallelExecutor``: the mesh,
+        the comm config, ZeRO)."""
+        return ()
+
+    def _attach(self, plan):
+        """Finish a new plan (``ParallelExecutor``: its comm step)."""
+
+    def _store(self, scope, name, value):
+        """Write one step's persistable back into the scope."""
+        scope.set_var(name, value)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True):
@@ -384,12 +415,12 @@ class Executor:
                                 device=self.device)
         nan = debug.NanCheck() if plan.nan_guard else None
         fetches, writes = run_step(plan, self.device, env, old,
-                                   step_key(plan.program.random_seed, step),
-                                   fetch_names, step_t, rngs, nan)
+                                   plan.step_key(step), fetch_names, step_t,
+                                   rngs, nan)
         # write back state: persistables this block wrote (startup
         # initializers, updates)
         for n, v in writes.items():
-            scope.set_var(n, v)
+            self._store(scope, n, v)
         if nan is not None:
             self._nan_records.append(nan.records)
         return fetches
@@ -524,13 +555,16 @@ class Executor:
 
     def hlo_text(self, program=None, feed=None, fetch_list=None,
                  scope=None, optimized=True):
-        """Not ported: the port has no HLO. Its structural audit (a
-        census of the NCCL calls) arrives with the parallel executor
-        (ROADMAP Queue 1 item 4)."""
+        """No counterpart: the port compiles no HLO. Its structural
+        audit is the census of the collectives a data-parallel step
+        issues (``parallel/comm_audit.py``, ``ParallelExecutor.
+        last_census``)."""
         raise NotImplementedError(
-            "Executor.hlo_text has no counterpart yet: the structural "
-            "audit comes with the parallel executor (ROADMAP Queue 1 "
-            "item 4)")
+            "Executor.hlo_text has no counterpart in the port: its "
+            "structural audit is the census of the collectives a step "
+            "issues (paddle_tpu_torch.parallel.comm_audit, "
+            "ParallelExecutor.last_census), which ROADMAP.md Queue 1 "
+            "item 4 brought with the data-parallel executor")
 
 
 def stage_feed(program, name, v, device):
@@ -564,14 +598,16 @@ def stage_feed(program, name, v, device):
 
 
 def run_program(program, device, env, key, rngs=None, training=True,
-                guard=None, nan=None):
+                guard=None, nan=None, comm=None):
     """Run ``program``'s global block over ``env`` (name -> tensor) on
     ``device``, without autograd, drawing the random streams of the step
     whose key is ``key`` (``rngs``: see ``TraceContext.rngs``) under the
     ``guard.TraceGuard`` ``guard``, if any, checking every op's float
-    outputs into the ``debug.NanCheck`` ``nan``, if any."""
+    outputs into the ``debug.NanCheck`` ``nan``, if any, with the
+    data-parallel comm layer ``comm`` (``parallel/collectives.
+    TraceComm``), if any."""
     ctx = TraceContext(key=key, training=training, program=program,
-                       device=device, guard=guard)
+                       device=device, guard=guard, comm=comm)
     ctx.rngs = rngs
     ctx.nan = nan
     with torch.no_grad():
@@ -591,15 +627,22 @@ def run_step(plan, device, env, old, key, fetch_names, step_t, rngs,
     persistables the step wrote (for a guarded plan, the guard's choice
     between candidate and old value, and the guard's state). ``step_t``:
     the step index as a 0-d int64 tensor on the device, which a poison
-    window compares with."""
+    window compares with. A data-parallel plan (``plan.comm``) runs the
+    step under its comm layer: the gradient exchange completes before
+    the writes are taken (the error-feedback carry among them), the loss
+    must be global, and a fetch of this rank's rows comes back global."""
     program = plan.program
     tg = None
     if plan.guard is not None:
         tg = guard_lib.TraceGuard(
             plan.guard, {n: env[n] for n in guard_lib.STATE_NAMES}, step_t,
             program)
-    run_program(program, device, env, key, rngs=rngs, guard=tg, nan=nan)
+    tc = plan.comm.trace(env) if plan.comm is not None else None
+    run_program(program, device, env, key, rngs=rngs, guard=tg, nan=nan,
+                comm=tc)
     writes = persistable_writes(program, plan.written, env)
+    if tc is not None:
+        writes.update(plan.comm.finish(tc, env, writes))
     extra = []
     if tg is not None:
         writes, health = guard_lib.finalize(tg, env, old, writes)
@@ -609,7 +652,19 @@ def run_step(plan, device, env, old, key, fetch_names, step_t, rngs,
     missing = [n for n in fetch_names if n not in env]
     if missing:
         raise KeyError("fetch %s: not computed by the program" % missing)
-    return [env[n] for n in fetch_names] + extra, writes
+    fetches = [env[n] for n in fetch_names]
+    if tc is not None:
+        fetches = [tc.gather_fetch(n, v, _find_var(program, n))
+                   for n, v in zip(fetch_names, fetches)]
+    return fetches + extra, writes
+
+
+def fold_step_key(random_seed, step, rank=None):
+    """``step_key(random_seed, step)``, with a data-parallel rank folded
+    in where one is given (each rank draws its own streams, as the JAX
+    package's local view folds ``axis_index``)."""
+    key = step_key(random_seed, step)
+    return key if rank is None else _fold_in(key, rank)
 
 
 def _miss_signature(fetch_names, **extra):

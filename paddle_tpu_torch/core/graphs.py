@@ -86,9 +86,10 @@ import torch
 
 from paddle_tpu_torch import telemetry
 from paddle_tpu_torch.core import debug
-from paddle_tpu_torch.core.executor import run_step, slice_feed
+from paddle_tpu_torch.core.executor import (fold_step_key, run_step,
+                                           slice_feed)
 from paddle_tpu_torch.core.lower import (PackedSeq, RowSparse, TensorArray,
-                                         op_seed, step_key)
+                                         op_seed)
 from paddle_tpu_torch.kernels import capturing_launches, credit_launches
 
 __all__ = ["run_chunk", "StepGraph", "CapturedRun", "RecordDraws",
@@ -254,6 +255,10 @@ class StepGraph:
     def __init__(self, executor, plan, feed, fetch_names, scope, draws,
                  stream):
         self.program = plan.program
+        # what the step key needs, not the plan: the plan holds this
+        # graph, and a reference back would keep both (and the graph's
+        # memory pool) alive until a cyclic collection
+        self.rank_fold = plan.rank_fold()
         self.state = {}
         seen = set()
         for n in plan.state_names(scope, feed, executor.device):
@@ -330,7 +335,8 @@ class StepGraph:
             _copy_into(buf, feed[n])
         if self.step_t is not None:
             self.step_t.fill_(step)
-        self.run.replay(step_key(self.program.random_seed, step))
+        self.run.replay(fold_step_key(self.program.random_seed, step,
+                                      self.rank_fold))
         for n, v in self.outputs.items():
             scope.set_var(n, v)
 

@@ -35,6 +35,15 @@ The NaN/Inf debug guard (``core/debug.py``) rides ``TraceContext.nan``:
 which records a device-side finiteness flag for each float tensor, as
 the JAX package's ``_bind_outputs`` calls ``debug.guard_outputs``.
 
+The data-parallel comm layer (``parallel/collectives.py``) rides
+``TraceContext.comm``: ``run_block`` calls its ``before_op`` (a
+bucketed gradient is reduced before anything reads it), lets its
+``maybe_zero_update`` run a ZeRO-1 optimizer op on this rank's shard in
+place of the normal lowering, and after each op its ``propagate``
+(which values are this rank's rows) and ``after_op`` (a bucket whose
+last gradient just materialized is launched there, mid-backward), as
+the JAX package's ``run_block`` does.
+
 A control-flow op (``scan_block``, ``recompute``) runs its sub-block
 with the same ``run_block``, over a fresh environment that holds only
 the op's ``Params``/``X``/``Init`` bindings; an error inside it is annotated with
@@ -255,7 +264,7 @@ class TraceContext:
     streams and the mode flag to op lowerings."""
 
     def __init__(self, key=0, training=True, program=None, device=None,
-                 guard=None):
+                 guard=None, comm=None):
         self.key = int(key)
         self.training = training
         self.program = program
@@ -267,6 +276,10 @@ class TraceContext:
         # optimizer-input grads, poisons and unscales them, scales the
         # backward's seed; None = unguarded
         self.guard = guard
+        # the data-parallel comm layer (parallel/collectives.TraceComm):
+        # batch locality, bucket triggers, the ZeRO-1 interception and
+        # the local-view lowerings' cross-rank sums; None = one device
+        self.comm = comm
         # None, or what hands out the generators (``core/graphs.py``:
         # the ones a CUDA graph registered, or a recorder of the draws)
         self.rngs = None
@@ -282,6 +295,7 @@ class TraceContext:
         c.device = self.device
         c.amp_dtype = self.amp_dtype
         c.guard = self.guard
+        c.comm = self.comm
         c.rngs = self.rngs
         c.nan = self.nan
         c._op = op
@@ -322,7 +336,16 @@ def run_block(ctx, block, env):
                 seg = remat.by_trigger.get(op.uid)
                 if seg is not None:
                     _replay_segment(ctx, block, seg, env)
+            comm = ctx.comm if block.idx == 0 else None
+            if comm is not None:
+                comm.before_op(op, env)
+                if comm.maybe_zero_update(ctx, op, env):
+                    comm.propagate(op)
+                    continue
             run_op(ctx, block, op, env)
+            if comm is not None:
+                comm.propagate(op)
+                comm.after_op(op, env)
             if remat is not None:
                 for n in remat.release.get(op.uid, ()):
                     env.pop(n, None)

@@ -362,7 +362,7 @@ class TraceGuard:
 
     __slots__ = ("plan", "state", "step_idx", "scale", "_grads",
                  "_clip_sq", "_clip_covered", "_poisoned",
-                 "_seed_name", "_grad_final_uid")
+                 "_seed_name", "_grad_final_uid", "sq_across")
 
     def __init__(self, plan, state, step_idx, program):
         self.plan = plan
@@ -374,6 +374,10 @@ class TraceGuard:
         self._clip_covered = frozenset()
         self._seed_name = plan.config.loss_name + "@GRAD"
         self._grad_final_uid = _grad_final_uids(program)
+        # None, or the sum over data-parallel ranks of the recorded
+        # gradients' sum of squares: set by the comm layer when each
+        # rank records only its rows of the gradients (global-view ZeRO)
+        self.sq_across = None
         if plan.poison is not None:
             first, last = plan.poison
             one_based = step_idx + 1
@@ -490,6 +494,8 @@ def finalize(tg, env, old_mut, cand_mut):
         extra_sq = torch.dot(flat, flat)
     else:
         extra_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+    if tg.sq_across is not None:
+        extra_sq = tg.sq_across(extra_sq.reshape(1)).reshape(())
     gnorm_sq = extra_sq if tg._clip_sq is None else extra_sq + tg._clip_sq
     gnorm = torch.sqrt(gnorm_sq)
     grads_ok = torch.isfinite(gnorm_sq)

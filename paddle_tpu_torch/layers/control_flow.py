@@ -22,10 +22,51 @@ from paddle_tpu_torch.core import ir
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.layers import tensor as tensor_layers
 
-__all__ = ["StaticRNN", "DynamicRNN", "While", "Switch", "increment",
+__all__ = ["StaticRNN", "DynamicRNN", "While", "Switch", "ParallelDo",
+           "get_places", "increment",
            "array_write", "array_read", "array_length", "less_than",
            "equal", "greater_than", "logical_and", "logical_or",
            "logical_not", "max_sequence_len", "is_empty"]
+
+
+def get_places(device_count=0, device_type=None):
+    """The places in-graph data parallelism splits over (reference
+    layers/device.py get_places). As in the JAX package the program sees
+    ONE logical place: the same program runs over a mesh of ranks under
+    ``ParallelExecutor``, so ``device_count > 1`` is a mesh property,
+    not a program property."""
+    from paddle_tpu_torch.core.place import CUDAPlace
+
+    return [CUDAPlace(0)]
+
+
+class ParallelDo:
+    """In-graph data parallelism DSL (reference layers/control_flow.py
+    ParallelDo: split the batch over places, replicate the sub-net,
+    concat outputs). With one logical place the body IS the program:
+    ``read_input`` is the identity, ``write_output`` collects the
+    outputs and ``pd()`` returns them. Data parallelism over ranks runs
+    the SAME program under ``ParallelExecutor``, so a config written
+    against this DSL scales without rewriting."""
+
+    def __init__(self, places, use_nccl=False, name=None):
+        self.places = places
+        self._outs = []
+
+    @contextlib.contextmanager
+    def do(self):
+        yield
+
+    def read_input(self, var):
+        return var
+
+    def write_output(self, var):
+        self._outs.append(var)
+
+    def __call__(self):
+        if len(self._outs) == 1:
+            return self._outs[0]
+        return list(self._outs)
 
 
 def increment(x, value=1.0, in_place=True):

@@ -342,15 +342,45 @@ for _name, _fn in _REDUCERS.items():
 @op("mean")
 def _mean(ctx, ins, attrs, o):
     """Reference mean_op. Over a PackedSeq the reference's LoD buffer
-    holds only real tokens, so the packed mean masks padding out."""
+    holds only real tokens, so the packed mean masks padding out.
+
+    Under the data-parallel comm layer's local view (``ctx.comm`` set,
+    input holding this rank's rows) this is the GLOBAL batch's mean:
+    the ranks' equal shares make it the mean of the ranks' means, summed
+    over the ranks in rank order and divided by the world (at one rank
+    exactly ``torch.mean``); a PackedSeq divides the ranks' summed
+    numerators by their summed token counts (``tests/test_comm.py``'s
+    global token count). The value is that, and its gradient is the
+    local term's (``mean / world``, ``num / global count``), so every
+    per-row cotangent carries the global divisor. The generic grad
+    recomputes the forward for its gradient only: there the cross-rank
+    sums are not issued again, and a PackedSeq's global count comes from
+    the forward's (``comm.memo``)."""
     x = _x(ins)
+    comm = ctx.comm if ctx.comm is not None and ctx.comm.reads_local(o) \
+        else None
+    if comm is not None:
+        comm.mark_global(o)
+    grad_only = comm is not None and torch.is_grad_enabled()
     if isinstance(x, PackedSeq):
         mask = x.mask(x.data.dtype)
         mask = mask.reshape(tuple(mask.shape) + (1,) * (x.data.dim() - 2))
         num = torch.sum(x.data * mask)
         denom = torch.sum(mask) * _prod(x.data.shape[2:])
-        return num / denom
-    return torch.mean(x)
+        if comm is None:
+            return num / denom
+        if grad_only:
+            return num / comm.memo[(o.uid, "denom")]
+        both = comm.sum_ranks(torch.stack([num, denom.to(num.dtype)]),
+                              "mean")
+        comm.memo[(o.uid, "denom")] = both[1]
+        return both[0] / both[1]
+    if comm is None:
+        return torch.mean(x)
+    m = torch.mean(x)
+    if grad_only:
+        return m / comm.world
+    return comm.sum_ranks(m.reshape(1), "mean").reshape(()) / comm.world
 
 
 @op("sum", seq_map=True)

@@ -27,10 +27,20 @@ def _accuracy(ctx, ins, attrs, o):
     if label.dim() == 2 and label.shape[1] == 1:
         label = label[:, 0]
     hit = torch.any(idx == label[:, None], dim=1)
-    return {"Accuracy": torch.mean(hit.to(torch.float32)),
-            "Correct": torch.sum(hit.to(torch.int32)).to(torch.int32),
-            "Total": torch.full((), idx.shape[0], dtype=torch.int32,
-                                device=idx.device)}
+    acc = torch.mean(hit.to(torch.float32))
+    correct = torch.sum(hit.to(torch.int32)).to(torch.int32)
+    total = torch.full((), idx.shape[0], dtype=torch.int32,
+                       device=idx.device)
+    comm = getattr(ctx, "comm", None)
+    if comm is not None and comm.global_view and comm.reads_local(o):
+        # the global view counts the global batch: the ranks' equal
+        # shares make the accuracy the mean of their accuracies
+        acc = comm.sum_ranks(acc.reshape(1), "sum").reshape(()) \
+            / comm.world
+        both = comm.sum_ranks(torch.stack([correct, total]), "sum")
+        correct, total = both[0], both[1]
+        comm.mark_global(o)
+    return {"Accuracy": acc, "Correct": correct, "Total": total}
 
 
 def _counts(n, ids, vals):

@@ -159,6 +159,32 @@ def _bn_stats(xf, axes):
     return mean, torch.clamp_min(msq - mean * mean, 0.0)
 
 
+def _global_bn(ctx, o):
+    """The comm layer when a training batch norm must take GLOBAL
+    statistics (``ParallelExecutor(comm_config=None)``, the JAX
+    package's global view, over this rank's rows), else None."""
+    comm = getattr(ctx, "comm", None)
+    if comm is None or not comm.global_view or not comm.reads_local(o):
+        return None
+    return comm
+
+
+def _global_bn_stats(comm, xf, axes, o):
+    """Global batch statistics from the ranks' equal shares: each rank's
+    per-channel means of x and x*x, summed over the ranks in rank order
+    (one collective) and divided by the world; at one rank exactly
+    ``_bn_stats``. The backward (and a remat replay) reads the
+    forward's, from ``comm.memo``: the same rows give the same bits."""
+    key = (o.uid, "bn_stats")
+    if key not in comm.memo:
+        both = comm.sum_ranks(torch.stack([torch.mean(xf, dim=axes),
+                                           torch.mean(xf * xf, dim=axes)]),
+                              "bn_stats") / comm.world
+        comm.memo[key] = both
+    mean, msq = comm.memo[key]
+    return mean, torch.clamp_min(msq - mean * mean, 0.0)
+
+
 @op("batch_norm", stateful_outputs=("MeanOut", "VarianceOut"),
     nondiff_inputs=("Mean", "Variance"))
 def _batch_norm(ctx, ins, attrs, o):
@@ -176,7 +202,13 @@ def _batch_norm(ctx, ins, attrs, o):
         mean, var = rmean.to(torch.float32), rvar.to(torch.float32)
         new_rmean, new_rvar = rmean, rvar
     else:
-        mean, var = _bn_stats(xf, axes)
+        comm = _global_bn(ctx, o)
+        if comm is None:
+            mean, var = _bn_stats(xf, axes)
+        else:
+            mean, var = _global_bn_stats(comm, xf, axes, o)
+            comm.mark_global(o, ("MeanOut", "VarianceOut", "SavedMean",
+                                 "SavedVariance"))
         # running stats are state, not part of the loss graph
         new_rmean = (momentum * rmean + (1 - momentum) * mean).detach()
         new_rvar = (momentum * rvar + (1 - momentum) * var).detach()
@@ -207,10 +239,17 @@ def _batch_norm_grad(ctx, ins, out_grads, attrs, o):
         return {}
     eps = attrs.get("epsilon", 1e-5)
     is_test = attrs.get("is_test", False) or not ctx.training
+    comm = None if is_test else _global_bn(ctx, o)
     if not is_test and attrs.get("use_pallas_reduction", False):
         from paddle_tpu_torch.kernels import bn_grad as _kbn
 
         if _kbn.supported(x, attrs):
+            if comm is not None:
+                raise NotImplementedError(
+                    "batch_norm_grad (uid %d) through the B7 kernel needs "
+                    "a cross-rank sum between its channel sums and dx "
+                    "under ParallelExecutor(comm_config=None): not ported "
+                    "yet (ROADMAP.md Queue 1 item 4)" % o.uid)
             dx, dscale, dbias = _kbn.bn_grad(
                 x, dy, scale, eps, tile=attrs.get("pallas_tile"))
             return {"X": [dx], "Scale": [dscale], "Bias": [dbias]}
@@ -221,6 +260,8 @@ def _batch_norm_grad(ctx, ins, out_grads, attrs, o):
     if is_test:
         mean = ins["Mean"][0].to(torch.float32)
         var = ins["Variance"][0].to(torch.float32)
+    elif comm is not None:
+        mean, var = _global_bn_stats(comm, xf, axes, o)
     else:
         mean, var = _bn_stats(xf, axes)
     inv = torch.rsqrt(var + eps)
@@ -233,8 +274,17 @@ def _batch_norm_grad(ctx, ins, out_grads, attrs, o):
         n = 1
         for i in axes:
             n *= x.shape[i]
+        gbias, gscale = dbias, dscale
+        if comm is not None:
+            # global statistics: dx takes the channel sums over every
+            # rank's rows (one collective between the sums and dx, on
+            # the stream); Scale and Bias keep this rank's partial sums,
+            # which the gradient exchange adds like any parameter's
+            gbias, gscale = comm.sum_ranks(torch.stack([dbias, dscale]),
+                                           "bn_grad")
+            n *= comm.world
         dx = (sf * inv).reshape(bshape) / n * (
-            n * dyf - dbias.reshape(bshape) - xhat * dscale.reshape(bshape))
+            n * dyf - gbias.reshape(bshape) - xhat * gscale.reshape(bshape))
     return {"X": [dx.to(x.dtype)], "Scale": [dscale], "Bias": [dbias]}
 
 

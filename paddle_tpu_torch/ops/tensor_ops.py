@@ -52,6 +52,10 @@ def _reshape(ctx, ins, attrs, o):
     for i, s in enumerate(shape):
         if s == 0:
             shape[i] = x.shape[i]
+    if ctx is not None and getattr(ctx, "comm", None) is not None:
+        # the comm layer's reshape hook (a tensor-axis shard resizes the
+        # target; the data-parallel axis keeps it)
+        shape = ctx.comm.adjust_reshape(o, shape, x)
     return {"Out": x.reshape(shape), "XShape": None}
 
 

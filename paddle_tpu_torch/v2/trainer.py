@@ -5,8 +5,12 @@ loop (feed batches, forward/backward, update, events) with testing and
 checkpoint hooks. Forward, backward and update are one ``Executor.run`` a
 batch on the v2 place (``init``), which reads the cost back to the host
 for the batch's ``EndIteration`` event. ``trainer_count > 1`` (data
-parallelism, the reference's MultiGradientMachine) needs
-``ParallelExecutor``, which this package does not have yet: it raises.
+parallelism, the reference's MultiGradientMachine) trains through a
+``ParallelExecutor`` on a ``dp`` mesh of ``trainer_count`` ranks: every
+rank runs the same script in a ``torch.distributed`` world of that many
+processes (``parallel.distribute.init_multihost``), reads the same
+batches and keeps its rows of each. Without such a world it raises; it
+never trains on one rank quietly.
 """
 
 import numpy as np
@@ -28,11 +32,19 @@ class SGD:
         from paddle_tpu_torch.v2 import _place, _settings
         tc = _settings.get("trainer_count", 1)
         if tc and tc > 1:
-            raise NotImplementedError(
-                "v2 trainer_count=%d asks for data parallelism over %d "
-                "devices: ParallelExecutor is not ported yet (ROADMAP.md "
-                "Queue 1 item 4); call paddle.init(trainer_count=1)"
-                % (tc, tc))
+            import torch.distributed as dist
+
+            world = dist.get_world_size() if dist.is_available() \
+                and dist.is_initialized() else 1
+            if world < tc:
+                raise RuntimeError(
+                    "v2 trainer_count=%d trains data-parallel over %d "
+                    "ranks, one process each, but this process is in a "
+                    "world of %d: start %d processes running this script "
+                    "and call paddle_tpu_torch.parallel.distribute."
+                    "init_multihost(address, %d, rank) in each before "
+                    "paddle.init (or paddle.init(trainer_count=1))"
+                    % (tc, tc, world, tc, tc))
         self.__metric_vars__ = list(extra_layers or [])
         # evaluators declared on this topology (v2.evaluator.*) are
         # auto-fetched each batch, like the reference trainer's
@@ -71,7 +83,14 @@ class SGD:
                 if clip_t:
                     fluid_clip.set_gradient_clip(None)
         self._place = _place()
-        self._exe = fluid.Executor(self._place)
+        if tc and tc > 1:
+            from paddle_tpu_torch.parallel.parallel_executor import \
+                ParallelExecutor
+            self._exe = ParallelExecutor(
+                mesh_shape=(tc,), axis_names=("dp",), loss_name=cost.name,
+                place=self._place)
+        else:
+            self._exe = fluid.Executor(self._place)
         # parameters.create() already ran the startup program; minimize()
         # appended init ops for optimizer accumulators (moments, lr). Run
         # just those so existing parameter values are preserved.

@@ -79,6 +79,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.inference_transpiler\n"
         "import paddle_tpu_torch.layout_transpiler\n"
         "import paddle_tpu_torch.memory_optimize\n"
+        "import paddle_tpu_torch.parallel.comm_audit\n"
+        "from paddle_tpu_torch.parallel import (collectives, distribute, "
+        "mesh, parallel_executor)\n"
         "assert paddle_tpu_torch.op_registry is "
         "paddle_tpu_torch.core.registry\n"
         "assert paddle.reader is paddle_tpu_torch.reader\n"

@@ -69,6 +69,13 @@ DELIBERATE = {
     "kernels.conv1x1_bwd:supported": {"interpret": _PALLAS},
     "kernels.gru_cell:gru_sequence": {"interpret": _PALLAS},
     "kernels.lstm_cell:lstm_sequence": {"interpret": _PALLAS},
+    "parallel.collectives:CommPlan.wire_bytes": {
+        "mode": "the 'unset' default is each package's own sentinel "
+                "object (None asks for the float32 volume in both)"},
+    "parallel.mesh:P": {
+        "*": "the port's partition spec is a plain tuple of axis names "
+             "(jax.sharding.PartitionSpec's signature is (*args, "
+             "**kwargs))"},
     "v2:init": {
         "use_gpu": "v2's executors run on the card unless asked for the "
                    "CPU: init() means CUDAPlace(0) as Executor() does; "
@@ -82,8 +89,10 @@ PUBLIC = {
          "InferenceTranspiler", "LayoutTranspiler", "memory_optimize",
          "release_memory", "is_compiled_with_cuda",
          "is_compiled_with_tpu", "append_backward", "set_flags",
-         "get_flags"),
+         "get_flags", "ParallelExecutor", "DistributeTranspiler"),
     "v2": ("init", "infer", "batch"),
+    "parallel": ("make_mesh", "get_mesh", "mesh_guard", "ParallelExecutor",
+                 "CommConfig", "DistributeTranspiler"),
     "reader": ("map_readers", "buffered", "compose", "chain", "shuffle",
                "firstn", "xmap_readers", "cache", "double_buffer",
                "super_batch", "device_chunks", "ElasticShardPlan",
@@ -98,8 +107,6 @@ TOP_LEVEL_ABSENT = {
                 "(CUDAPlace, CPUPlace); it has no TPU place",
     "XLAPlace": "deliberate: the port has no XLA device; CUDAPlace names "
                 "the card",
-    "ParallelExecutor": "item 4 (parallel)",
-    "DistributeTranspiler": "item 4 (parallel)",
     "profiler": "item 6 (observability)",
     "telemetry_export": "item 6 (observability)",
     "trace_export": "item 6 (observability)",
@@ -259,9 +266,34 @@ def test_compared_modules_cover_the_public_surface():
                 "guard", "fault", "telemetry", "serving.decode",
                 "serving.kv_cache", "io", "tracing", "distributed.rpc",
                 "serving", "serving.engine", "serving.batcher",
-                "serving.server", "serving.compile_cache"):
+                "serving.server", "serving.compile_cache", "parallel",
+                "parallel.mesh", "parallel.collectives",
+                "parallel.distribute", "parallel.parallel_executor"):
         assert rel in MODULES, rel
     assert os.path.basename(paddle_tpu_torch.__file__) == "__init__.py"
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("", "ParallelExecutor.__init__"), ("", "DistributeTranspiler"),
+    ("parallel", "ParallelExecutor"), ("parallel", "CommConfig"),
+    ("parallel", "make_mesh"), ("parallel", "DistributeTranspiler"),
+    ("parallel.parallel_executor", "ParallelExecutor.run"),
+    ("parallel.parallel_executor", "ParallelExecutor.set_mesh"),
+    ("parallel.distribute", "DistributeTranspiler.transpile"),
+    ("parallel.distribute", "init_multihost"),
+    ("layers.control_flow", "ParallelDo"),
+    ("layers.control_flow", "get_places"),
+])
+def test_the_parallel_names_are_compared(rel, qual):
+    """The data-parallel names (ROADMAP.md Queue 1 item 4's core) are
+    shared public names, compared like every other, with no deliberate
+    difference: the port's added keywords all have defaults."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
 
 
 @pytest.mark.parametrize("rel,qual", [

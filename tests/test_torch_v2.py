@@ -16,8 +16,8 @@ drive it:
   tolerance (rtol 1e-4, atol 1e-6);
 * the evaluators' metrics reach ``EndIteration.metrics`` as in
   paddle_tpu, ``detection_map_evaluator`` raises ``AttributeError`` in
-  both (ROADMAP.md Queue 3), ``trainer_count=4`` raises
-  ``NotImplementedError``, and with no card v2's default place makes the
+  both (ROADMAP.md Queue 3), ``trainer_count=4`` outside a world of 4
+  processes raises ``RuntimeError``, and with no card v2's default place makes the
   entry points raise.
 
 Rows are of equal length: paddle_tpu's reverse LSTM loses position 0 of
@@ -260,13 +260,16 @@ def test_v2_from_tar_is_detached():
 
 
 def test_v2_trainer_count_above_one_is_not_ported():
+    """trainer_count > 1 trains through ParallelExecutor in a world of
+    that many processes; this process is in none, so the trainer raises
+    and says how to start one (tests/test_torch_parallel.py trains a
+    world of 2)."""
     with chip_smoke.v2_session(tfluid, tv2, False, SEED):
         tv2.init(use_gpu=False, trainer_count=4)
         try:
             cost, _ = mlp(tv2)
             params = tv2.parameters.create(cost)
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 4"):
+            with pytest.raises(RuntimeError, match="init_multihost"):
                 tv2.trainer.SGD(cost=cost, parameters=params,
                                 update_equation=tv2.optimizer.Adam(0.05))
         finally:
