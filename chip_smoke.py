@@ -103,6 +103,15 @@ calls, on random weights and data made from ``--seed``:
   ``calc_gradient`` through the stacked LSTM; seq2seq fed through
   ``LoDTensor``; ``InferenceTranspiler`` on ResNet-50's is_test clone;
   ``Executor.cost_analysis`` of the transformer and ResNet-50 steps.
+* parallelism through ``ParallelExecutor`` over NCCL at world 1 (the
+  card holds one rank; the sums across ranks are held on the CPU by the
+  gloo tests): ResNet-50 config D in every data-parallel mode and the
+  stacked LSTM's collectives in a CUDA graph (phase 6l); the
+  transformer as bench.py trains it under a (dp, 'mp') mesh with
+  ``build_transformer_lm(mp=True)`` and ``CommConfig()``, eagerly and as
+  graph replays, and under a (dp, 'sp') mesh with ``seq_axis="sp"`` in
+  the global view, whose attention is ring attention over B1, with the
+  ring's blocks at 4 chunks checked in one process (phase 6m).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -217,7 +226,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the six random ops at their JAX tests' properties, the same bits from
    the same stream and through run_chunk's graphs bitwise; fit_a_line
    and the recommender trained eagerly (a finite falling loss over 10
-   steps) and through run_chunk (K=4, 2 chunks, bitwise), the card
+   steps) and through run_chunk (K=4, GRAPH_CHUNKS chunks, bitwise), the card
    against the CPU from the same weights (3 steps' losses at rtol 1e-4,
    first-step gradients within 1e-4 of their largest magnitude); the
    nets attention against float32 B1 on the same q, k, v (outputs and
@@ -369,6 +378,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    each; (e) ``cost_analysis`` of the transformer step and a config-C
    ResNet-50 step beside their busy ms (achieved TFLOP/s), with B1's
    and B3-B6's ops' flops apart;
+9f. (6l) data parallelism at NCCL world 1 (``parallel_phase``);
+9g. (6m) tensor and sequence parallelism at NCCL world 1
+   (``tp_phase``): the mp and sp transformer steps bitwise the plain
+   step, their bf16 B1 launches the program's, the NCCL calls a step
+   the census (mp: 2 ``fwd_row`` and 4 ``bwd_col`` all-reduces a block,
+   each labelled 'mp'), mp's graph replays bitwise its eager steps; the
+   ring's blocks (``context_parallel.ring_in_process``) at 4 chunks of
+   [16,8,512,64], causal, segments split off a chunk edge, bfloat16 and
+   float32: out, lse, dq, dk, dv against B1 over the whole sequence, the
+   plain ring and float64, 10 B1 launches a ring; the placement search
+   for the full-width program printed;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -594,7 +614,10 @@ GRU_BF16_REFUSED = ((16, 6, 1024),)
 # Executor.run_chunk as replayed CUDA graphs: steps a chunk (bench.py runs
 # the transformer row with K=8, bench.py:311-318) and chunks a path
 GRAPH_K = dict(transformer=8, resnet=4, rnn=4, dropout=4)
-GRAPH_CHUNKS = 2
+# one chunk a graph path; the transformer's in the graphs phase takes
+# GRAPH_CHUNKS_LONG, the path that replays a whole later chunk (the
+# other paths' second chunk made room for phase 6m's time)
+GRAPH_CHUNKS, GRAPH_CHUNKS_LONG = 1, 2
 # the guard phase's growth interval: the scale grows after 4 clean steps
 GUARD_GROWTH = 4
 
@@ -829,7 +852,9 @@ COND_FACTOR, NOISE_PROBES = 4, 4
 NOISE_CAP = 1e-2
 # the update ops' share of an eager step: the median of UPDATE_PROFILES
 # profiles, the update ops' kernels read from a record_function range
-UPDATE_PROFILES, UPDATE_RANGE = 3, "update_ops"
+# (one: three profiles of each of the 9 runs agreed within 1.2 % on an
+# H100, so the two others made room for phase 6m's time)
+UPDATE_PROFILES, UPDATE_RANGE = 1, "update_ops"
 # word2vec (BOOK_W2V) with its softmax head replaced by layers.hsigmoid
 # and by layers.nce over the 2073 words
 W2V_HEADS = ("hsigmoid", "nce")
@@ -2451,7 +2476,7 @@ def sparse_phase(fluid, seed, dev):
     and no kernel of the port's is launched (the path has none); (c) the
     card against the port on the CPU at ``W2V_XCHECK``, sparse Adam, 3
     steps: losses and every state tensor at rtol 1e-4; (d) ``run_chunk``
-    (K=4, two chunks of graph replays) against eager steps, sparse and
+    (K=4, GRAPH_CHUNKS chunks of graph replays) against eager steps, sparse and
     dense, SGD and Adam (graph_path: bitwise, and the sparse updates
     bitwise from one eager run to the next), with host and device ms/step
     eager and with graphs; (e) the step guard over the table alone:
@@ -7780,7 +7805,7 @@ def graphs_phase(fluid, seed, dev):
         LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
     res["transformer"] = graph_path(
         fluid, "transformer (bf16 AMP)", (prog, startup, loss), feed,
-        GRAPH_K["transformer"], GRAPH_CHUNKS, seed,
+        GRAPH_K["transformer"], GRAPH_CHUNKS_LONG, seed,
         {"flash_attention_bf16": fwd + grad}, amp_bounds)
 
     # ResNet-50 configs C and D under AMP
@@ -9833,6 +9858,311 @@ def parallel_phase(fluid, seed, dev):
     return launches
 
 
+# ---- phase 6m: tensor and sequence parallelism ----
+# The card holds one rank, so both axes run at NCCL world 1, where every
+# Megatron all-reduce, parameter gather and gradient exchange is real and
+# each sum over the ranks has one addend (the cross-rank sums and the
+# ring's exchanges are held on the CPU at gloo worlds of 2 and 4 by
+# tests/test_torch_{tensor,context}_parallel.py). (a) the transformer as
+# bench.py trains it (LM, bf16 AMP, batch LM_B) built with mp=True under
+# make_mesh((1, 1), ("dp", "mp")) and CommConfig(): TP_K eager steps
+# against the plain Executor's from the same state, then one run_chunk of
+# TP_K graph replays with the mp collectives captured; (b) the same
+# transformer built with seq_axis="sp" under make_mesh((1, 1), ("dp",
+# "sp")) in the global view (ZeRO-1, the default): TP_K eager steps
+# against the plain Executor's; (c) the ring's blocks at RING_N chunks of
+# RING_SHAPE in one process (a ring of one runs no off-diagonal block),
+# causal, with segment ids whose boundary (RING_SEG_AT) is off a chunk
+# edge; (d) the placement search for the full-width program.
+TP_K = 3
+RING_N, RING_SHAPE, RING_SEG_AT = 4, (16, 8, 512, 64), 200
+# the ring against B1 over the whole sequence and the float64 witness in
+# bfloat16: each block's output is rounded to bfloat16 by B1 and the
+# merged output once more, two roundings where the whole-sequence call
+# has one, so twice B1's bfloat16 bound (BF16_RTOL, BF16_AMAX); float32:
+# RING_RTOL + RING_AMAX x max|want| (B1's 3xTF32 products, the merge's
+# and the backward's float32 sums over 512 keys)
+RING_RTOL, RING_AMAX = 1e-4, 1e-5
+
+
+def ring_check(cp, fa, dev, seed):
+    """Phase 6m (c): the port's ring blocks (``context_parallel.
+    ring_in_process``/``ring_in_process_bwd``: the same block, merge and
+    block backward functions each rank runs) at RING_N chunks of
+    RING_SHAPE, causal, with segment ids off a chunk edge, in bfloat16
+    and float32: out, lse, dq, dk and dv against B1 over the whole
+    sequence (and ``flash_attention_bwd`` on its output), against the
+    plain ring (flash_attention_reference blocks) and against float64;
+    exactly RING_N (RING_N + 1) / 2 B1 launches a ring. Returns the
+    largest error against the plain ring."""
+    b, h, s, d = RING_SHAPE
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ids = (torch.arange(s)[None, :] >= RING_SEG_AT).to(torch.int32) \
+        .expand(b, s).contiguous().to(dev)
+    seg = (ids, ids)
+    base = [torch.randn(b, h, s, d, generator=g).to(dev) for _ in range(4)]
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (t.to(dt) for t in base)
+        key = "flash_attention_bf16" if dt == torch.bfloat16 \
+            else "flash_attention"
+        rtol, amax = (2 * BF16_RTOL, 2 * BF16_AMAX) \
+            if dt == torch.bfloat16 else (RING_RTOL, RING_AMAX)
+        n0 = fa.launches[key]
+        out, lse = cp.ring_in_process(q, k, v, RING_N, True, segment_ids=seg)
+        torch.cuda.synchronize()
+        blocks = fa.launches[key] - n0
+        if blocks != RING_N * (RING_N + 1) // 2:
+            raise AssertionError("ring of %d: %d B1 launches, causal wants "
+                                 "%d" % (RING_N, blocks,
+                                         RING_N * (RING_N + 1) // 2))
+        grads = cp.ring_in_process_bwd(q, k, v, out, lse, do, RING_N, True,
+                                       segment_ids=seg)
+        po, pl_ = cp.ring_in_process(q, k, v, RING_N, True, segment_ids=seg,
+                                     plain=True)
+        pgrads = cp.ring_in_process_bwd(q, k, v, po, pl_, do, RING_N, True,
+                                        segment_ids=seg)
+        wo, wl = fa.flash_attention(q, k, v, causal=True, segment_ids=seg,
+                                    return_lse=True)
+        wgrads = fa.flash_attention_bwd(q, k, v, wo, wl, do, True, None, seg)
+        # float64: softmax attention and its autograd on the same values
+        q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+        sc = torch.einsum("bhqd,bhkd->bhqk", q64, k64) * d ** -0.5
+        ok = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))
+        ok = ok[None, None] & (ids[:, None, :, None] == ids[:, None, None, :])
+        sc = torch.where(ok, sc, fa.DEFAULT_MASK_VALUE)
+        l64 = torch.logsumexp(sc, -1)
+        o64 = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1), v64)
+        g64 = torch.autograd.grad(o64, (q64, k64, v64), do.double())
+        errs = {}
+        for name, got, plain, whole, truth in zip(
+                ("out", "lse", "dq", "dk", "dv"), (out, lse) + grads,
+                (po, pl_) + pgrads, (wo, wl) + wgrads,
+                (o64.detach(), l64.detach()) + g64):
+            what = "ring of %d %s %s" % (RING_N, str(dt)[6:], name)
+            if name == "lse":
+                # float32 in both dtypes: the merge's log-sum-exp
+                e = (assert_close(what + " vs the plain ring", got, plain),
+                     assert_close(what + " vs whole B1", got, whole),
+                     assert_close(what + " vs float64", got.double(), truth))
+            else:
+                e = tuple(rel_close(what + w, got, want, rtol, amax)
+                          for w, want in ((" vs the plain ring", plain),
+                                          (" vs whole B1", whole),
+                                          (" vs float64", truth)))
+            errs[name] = e
+            worst = max(worst, e[0])
+        print("ring of %d at %s %s, causal, segments split at %d (chunk "
+              "%d): %d B1 launches; max abs err vs the plain ring / B1 "
+              "over the whole sequence / float64: %s (bounds: %s)" % (
+                  RING_N, list(RING_SHAPE), str(dt)[6:], RING_SEG_AT,
+                  s // RING_N, blocks, json.dumps(
+                      {k_: ["%.3g" % x for x in e_]
+                       for k_, e_ in errs.items()}),
+                  "rtol %g + %g max|want|, lse atol/rtol %g" % (
+                      rtol, amax, ATOL)))
+        del q64, k64, v64, sc, ok, l64, o64, g64
+        torch.cuda.empty_cache()
+    return worst
+
+
+def tp_phase(fluid, seed, dev):
+    """Phase 6m: tensor ('mp') and sequence ('sp') parallelism through
+    ``ParallelExecutor`` at NCCL world 1 (see the comment above). (a)
+    and (b): the parallel steps are the plain step's bits (at one rank
+    each mp sum and each all-gather has one addend, the ring is one
+    causal B1 block merged with nothing, the global mean divides by one,
+    position ids start at 0); exactly the program's bf16 B1 launches a
+    step (``attention_launches``: head-split at LM heads / mp, the
+    ring's one block); the NCCL calls a step equal the step's census,
+    whose mp all-reduces are 2 ``fwd_row`` and 4 ``bwd_col`` a block,
+    each labelled 'mp'; (a)'s graph replays bitwise its eager steps.
+    Prints busy ms a step for each mode beside the plain step's and the
+    mp NCCL calls' device us, with the card's name and power limit.
+    Returns the counted steps' B1 launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+    from paddle_tpu_torch.parallel import (CommConfig, ParallelExecutor,
+                                           comm_audit, make_mesh)
+    from paddle_tpu_torch.parallel import context_parallel as cp
+    from paddle_tpu_torch.parallel import placement as pl
+    from paddle_tpu_torch.parallel.distribute import init_multihost
+
+    t0 = time.perf_counter()
+    init_multihost("localhost:%d" % free_port(), 1, 0, device=dev)
+    launches = {"flash_attention_bf16": 0}
+    feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+        LM["vocab_size"], LM["seq_len"], LM_B, seed).items()}
+    card = card_line()
+    try:
+        for mode in ("mp", "sp"):
+            kw = dict(mp=True) if mode == "mp" else dict(seq_axis="sp")
+            with unique_name.guard():
+                prog, startup, _, (loss,) = build_transformer_lm(**LM, **kw)
+            fluid.amp.enable(prog)
+            fwd, grad, _ = attention_launches(prog)
+            want = (fwd + grad) * TP_K
+            startup.random_seed = seed
+            scope0 = fluid.Scope()
+            fluid.Executor().run(startup, scope=scope0)
+            init = scope_state(scope0)
+            del scope0
+
+            def fresh():
+                s_ = fluid.Scope()
+                for n, t in init.items():
+                    s_.set_var(n, t.clone())
+                return s_
+
+            def parallel():
+                if mode == "mp":
+                    return ParallelExecutor(
+                        loss_name=loss.name, main_program=prog,
+                        mesh=make_mesh((1, 1), ("dp", "mp")), zero_stage=0,
+                        comm_config=CommConfig())
+                return ParallelExecutor(
+                    loss_name=loss.name, main_program=prog,
+                    mesh=make_mesh((1, 1), ("dp", "sp")), seq_axis="sp")
+
+            runs = {}
+            for name in ("plain", mode):
+                scope = fresh()
+                exe = fluid.Executor() if name == "plain" else parallel()
+                exe._step = 1          # the step after startup's
+
+                def step():
+                    return float(exe.run(program=prog, feed=feed,
+                                         fetch_list=[loss], scope=scope)[0])
+
+                fa.reset_launches()
+                losses = [step() for _ in range(TP_K)]
+                torch.cuda.synchronize()
+                b1 = dict(fa.launches)
+                state = pe_state(scope)
+                busy, nccl = comm_profile(step, reps=1)
+                runs[name] = dict(losses=losses, state=state, b1=b1,
+                                  busy=busy, nccl=nccl,
+                                  census=getattr(exe, "last_census", None))
+                del scope, exe
+                torch.cuda.empty_cache()
+            a, p = runs[mode], runs["plain"]
+            if a["b1"]["flash_attention_bf16"] != want or \
+                    a["b1"]["flash_attention"] != 0:
+                raise AssertionError(
+                    "%s: B1 launches %s in %d steps, the program has %d "
+                    "bf16 (%d forward + %d inside fused_attention_grad a "
+                    "step)" % (mode, a["b1"], TP_K, want, fwd, grad))
+            launches["flash_attention_bf16"] += want
+            bad = same_state(a["state"], p["state"])
+            if a["losses"] != p["losses"] or bad:
+                raise AssertionError(
+                    "%s is not bitwise the plain step: losses %s %s, state "
+                    "differs at %s" % (mode, a["losses"], p["losses"],
+                                       bad[:5]))
+            census = a["census"]
+            calls, ranges, nus = a["nccl"]
+            if calls != len(census):
+                raise AssertionError(
+                    "%s: the profiler saw %d NCCL calls in a step, the "
+                    "census has %d" % (mode, calls, len(census)))
+            axes = comm_audit.axis_stats(census)
+            flat = comm_audit.collective_stats(census)
+            if sum(k_["count"] for kinds in axes.values()
+                   for k_ in kinds.values()) != len(census):
+                raise AssertionError("%s: per-axis counts %s do not sum "
+                                     "to the census" % (mode, axes))
+            nl = LM["num_layers"]
+            if mode == "mp":
+                tags = [r["tag"] for r in census.records
+                        if r["axis"] == "mp"]
+                if tags.count("mp.fwd_row") != 2 * nl or \
+                        tags.count("mp.bwd_col") != 4 * nl:
+                    raise AssertionError(
+                        "mp census: %d fwd_row and %d bwd_col all-reduces, "
+                        "the program's %d and %d" % (
+                            tags.count("mp.fwd_row"),
+                            tags.count("mp.bwd_col"), 2 * nl, 4 * nl))
+            print("%s (transformer %s, bf16 AMP, batch %d, NCCL world 1): "
+                  "%d steps bitwise the plain Executor's (losses %s); %d "
+                  "bf16 B1 a step = the program's; %d NCCL calls a step = "
+                  "the census %s, by axis %s, their device time %.1f us "
+                  "(%d ranges); busy %s ms a step against the plain step's "
+                  "%s ms (card: %s)" % (
+                      mode, json.dumps(LM), LM_B, TP_K, a["losses"],
+                      fwd + grad, calls, json.dumps(
+                          {k_: v["count"] for k_, v in flat.items()}),
+                      json.dumps({ax: {k_: v["count"]
+                                       for k_, v in kinds.items()}
+                                  for ax, kinds in axes.items()}),
+                      nus, ranges,
+                      "%.3f" % a["busy"] if a["busy"] else "not measured",
+                      "%.3f" % p["busy"] if p["busy"] else "not measured",
+                      card))
+            if mode == "mp":
+                # K graph replays, the mp collectives captured
+                scope = fresh()
+                pe = parallel()
+                pe._step = 1
+                fa.reset_launches()
+                out = pe.run_chunk(prog, feed_chunk=chunk_of(feed, TP_K),
+                                   fetch_list=[loss], scope=scope)
+                torch.cuda.synchronize()
+                graph = [float(v) for v in np.asarray(out[0]).ravel()]
+                gb1 = fa.launches["flash_attention_bf16"]
+                bad = same_state(pe_state(scope), a["state"])
+                if graph != a["losses"] or bad or gb1 != want:
+                    raise AssertionError(
+                        "mp graph replays: losses %s against eager %s, "
+                        "state differs at %s, %d bf16 B1 against %d" % (
+                            graph, a["losses"], bad[:5], gb1, want))
+                launches["flash_attention_bf16"] += gb1
+                busy_g = device_busy_ms(lambda: pe.run_chunk(
+                    prog, feed_chunk=chunk_of(feed, TP_K), fetch_list=[loss],
+                    scope=scope))
+                print("mp: %d graph replays bitwise the eager steps, %d "
+                      "collectives a replay = the eager census, %d bf16 B1 "
+                      "credited; busy %s ms a step in graphs (card: %s)" % (
+                          TP_K, len(pe.last_census), gb1,
+                          "%.3f" % (busy_g / TP_K) if busy_g
+                          else "not measured", card))
+                del scope, pe
+            if mode == "mp":
+                mp_prog = prog
+            del runs, init
+            torch.cuda.empty_cache()
+
+        # ---- (c) the ring's blocks ----
+        ring_err = ring_check(cp, fa, dev, seed)
+
+        # ---- (d) the placement search for the full-width program ----
+        def rebuild(p_):
+            with unique_name.guard():
+                return build_transformer_lm(**LM, mp=p_.mp > 1)[0]
+
+        cands = pl.legal_placements(8, num_heads=LM["num_heads"],
+                                    num_layers=LM["num_layers"],
+                                    batch_size=LM_B)
+        rows = pl.rank([c for c in cands if c.pp == 1], rebuild,
+                       batch=LM_B)
+        print("placement: hbm_report (1, 1, 1) %s; (1, 8, 1) %s; "
+              "legal_placements(8, heads %d, layers %d, batch %d): %s; "
+              "estimate_wire_bytes at batch %d, cheapest first (pp = 1; "
+              "the pipeline waits for ROADMAP.md Queue 1 item 4b): %s" % (
+                  json.dumps(pl.hbm_report(mp_prog, pl.Placement())),
+                  json.dumps(pl.hbm_report(mp_prog, pl.Placement(1, 8, 1))),
+                  LM["num_heads"], LM["num_layers"], LM_B,
+                  [c.label for c in cands], LM_B, json.dumps(
+                      [(r["placement"].label, r["wire"]) for r in rows])))
+    finally:
+        dist.destroy_process_group()
+    print("phase 6m: %.1f s (ring max abs err vs the plain ring %.3g)"
+          % (time.perf_counter() - t0, ring_err))
+    return launches
+
+
 def main():
     started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -10232,6 +10562,15 @@ def main():
           "bucketed, int8, ZeRO-1), the stacked LSTM's collectives "
           "captured in a CUDA graph (seed %d)" % args.seed)
     for n, c in parallel_phase(fluid, args.seed, dev).items():
+        launches[n] += c
+
+    # ---- 9g. tensor and sequence parallelism (phase 6m) ----
+    phase("tensor and sequence parallelism at NCCL world 1: the "
+          "transformer as bench.py trains it with mp=True under CommConfig "
+          "(eager and graph replays) and with seq_axis='sp' in the global "
+          "view, the ring's blocks at %d chunks of %s, the placement search "
+          "(seed %d)" % (RING_N, list(RING_SHAPE), args.seed))
+    for n, c in tp_phase(fluid, args.seed, dev).items():
         launches[n] += c
 
     # ---- 10. times ----

@@ -735,33 +735,40 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
     With ``cache=``/``cache_mode=`` (and ``pos=`` or ``slot=``, see
     ``flash_attention``), runs in KV-cached mode and returns
     ``(out, k_cache_out, v_cache_out)``. ``dropout_rate`` drops the
-    attention context before the output projection. The Megatron
-    tensor-parallel layout (``mp=True``) arrives with a later slice."""
-    if mp:
-        raise NotImplementedError("multi_head_attention(mp=True): tensor "
-                                  "parallelism arrives with a later slice")
+    attention context before the output projection.
+
+    ``mp=True`` declares the Megatron tensor-parallel layout over the
+    'mp' mesh axis: column-split q/k/v projections (head-split — each
+    rank computes num_heads/mp whole heads) and a row-split output
+    projection whose closing all-reduce the comm layer places
+    (``parallel/collectives.py``'s weight-locality analysis)."""
     d_model = int(queries.shape[-1])
     if d_model % num_heads:
         raise ValueError("d_model %d not divisible by num_heads %d"
                          % (d_model, num_heads))
 
-    def proj_attr(suffix):
+    def proj_attr(suffix, sharding=None):
         # a shared named ParamAttr would alias all four projection weights
         # to one parameter; derive a distinct name per projection
         from paddle_tpu_torch.param_attr import ParamAttr
         if param_attr is None:
-            return None
+            return ParamAttr(sharding=sharding) if sharding else None
         pa = ParamAttr.to_attr(param_attr)
         if suffix is not None and pa.name is not None:
             pa = pa.clone_with_name(pa.name + "_" + suffix)
+        elif sharding is not None:
+            pa = pa.clone_with_name(pa.name)
+        if sharding is not None:
+            pa.sharding = sharding
         return pa
 
-    q = fc(queries, d_model, num_flatten_dims=2, param_attr=proj_attr("q"),
-           bias_attr=False)
-    k = fc(keys, d_model, num_flatten_dims=2, param_attr=proj_attr("k"),
-           bias_attr=False)
-    v = fc(values, d_model, num_flatten_dims=2, param_attr=proj_attr("v"),
-           bias_attr=False)
+    col = (None, "mp") if mp else None
+    q = fc(queries, d_model, num_flatten_dims=2,
+           param_attr=proj_attr("q", col), bias_attr=False)
+    k = fc(keys, d_model, num_flatten_dims=2,
+           param_attr=proj_attr("k", col), bias_attr=False)
+    v = fc(values, d_model, num_flatten_dims=2,
+           param_attr=proj_attr("v", col), bias_attr=False)
 
     def split_heads(x):
         r = reshape(x, [0, 0, num_heads, d_model // num_heads])
@@ -781,7 +788,9 @@ def multi_head_attention(queries, keys, values, num_heads, causal=False,
     ctx = reshape(ctx, [0, 0, d_model])
     if dropout_rate:
         ctx = dropout(ctx, dropout_prob=dropout_rate)
-    out = fc(ctx, d_model, num_flatten_dims=2, param_attr=param_attr,
+    out = fc(ctx, d_model, num_flatten_dims=2,
+             param_attr=proj_attr(None, ("mp", None)) if mp
+             else param_attr,
              bias_attr=False)
     return (out, kc_out, vc_out) if cache is not None else out
 

@@ -6,9 +6,11 @@ layers DSL: pre-norm decoder blocks over the fused flash-attention op.
 The programs it builds serialize to the same JSON as the JAX package's
 (same layer sequence, same names, same op uids): the training build
 (``build_transformer_lm``, next-token cross-entropy and Adam, as
-``bench.py`` trains it) and the KV-cached serving pair. Pipeline stages
-(``pp_stages``) and tensor parallelism (``mp``) arrive with later
-slices.
+``bench.py`` trains it) and the KV-cached serving pair. ``mp=True``
+declares the Megatron tensor-parallel layout of every block, and
+``seq_axis`` the sequence-parallel ring attention of every block, both
+run by ``parallel.ParallelExecutor``. Pipeline stages (``pp_stages``)
+arrive with the 1F1B pipeline (ROADMAP.md Queue 1 item 4b).
 """
 
 import paddle_tpu_torch as fluid
@@ -18,10 +20,19 @@ __all__ = ["transformer_lm", "decoder_block", "build_transformer_lm",
            "build_transformer_decode", "DecodeModelMeta"]
 
 
-def _ffn(x, d_model, d_ff, param_attr=None):
-    h = layers.fc(x, d_ff, num_flatten_dims=2, act="gelu",
-                  param_attr=param_attr)
-    return layers.fc(h, d_model, num_flatten_dims=2, param_attr=param_attr)
+def _ffn(x, d_model, d_ff, param_attr=None, mp=False):
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    # Megatron layout: column-split the up-projection (its bias is a
+    # per-column shard too), row-split the down-projection — the comm
+    # layer places the single closing all-reduce after the row matmul
+    col = dict(param_attr=ParamAttr(sharding=(None, "mp")),
+               bias_attr=ParamAttr(sharding=("mp",))) if mp \
+        else dict(param_attr=param_attr)
+    row = dict(param_attr=ParamAttr(sharding=("mp", None))) if mp \
+        else dict(param_attr=param_attr)
+    h = layers.fc(x, d_ff, num_flatten_dims=2, act="gelu", **col)
+    return layers.fc(h, d_model, num_flatten_dims=2, **row)
 
 
 def decoder_block(x, num_heads, d_ff, seq_axis=None, dropout_rate=0.0,
@@ -30,10 +41,12 @@ def decoder_block(x, num_heads, d_ff, seq_axis=None, dropout_rate=0.0,
     """One pre-norm decoder block. With ``cache=`` (the KV-cached
     serving forward) returns ``(x, k_cache_out, v_cache_out)``; the
     layer sequence is IDENTICAL to the one-shot block, so parameter
-    names line up across the one-shot / prefill / decode builds."""
-    if mp:
-        raise NotImplementedError("decoder_block(mp=True): tensor "
-                                  "parallelism arrives with a later slice")
+    names line up across the one-shot / prefill / decode builds.
+
+    ``mp=True`` declares the Megatron tensor-parallel layout: head-split
+    attention + column/row-split FFN, two 'mp' all-reduces per block
+    forward (one after each row-split projection), placed by the comm
+    layer."""
     d_model = int(x.shape[-1])
     a = layers.layer_norm(x, begin_norm_axis=2)
     if cache is not None:
@@ -43,10 +56,10 @@ def decoder_block(x, num_heads, d_ff, seq_axis=None, dropout_rate=0.0,
     else:
         a = layers.multi_head_attention(a, a, a, num_heads, causal=True,
                                         dropout_rate=dropout_rate,
-                                        seq_axis=seq_axis)
+                                        seq_axis=seq_axis, mp=mp)
     x = layers.elementwise_add(x, a)
     f = layers.layer_norm(x, begin_norm_axis=2)
-    f = _ffn(f, d_model, d_ff)
+    f = _ffn(f, d_model, d_ff, mp=mp)
     x = layers.elementwise_add(x, f)
     return (x, kc_out, vc_out) if cache is not None else x
 
@@ -55,10 +68,15 @@ def transformer_lm(tokens, vocab_size, d_model=256, num_layers=4,
                    num_heads=8, d_ff=None, max_len=2048, seq_axis=None,
                    dropout_rate=0.0, pp_stages=None, pp_micro=None,
                    pp_schedule=None, mp=False):
-    """tokens: int64 [batch, seq]. Returns logits [batch, seq, vocab]."""
+    """tokens: int64 [batch, seq]. Returns logits [batch, seq, vocab].
+
+    ``mp=True`` declares the Megatron tensor-parallel layout on every
+    block (embeddings and the vocab head stay replicated — by the time
+    activations reach the head, every split has been closed)."""
     if pp_stages:
         raise NotImplementedError("transformer_lm(pp_stages=%r): pipeline "
-                                  "stages arrive with a later slice"
+                                  "stages arrive with the 1F1B pipeline "
+                                  "(ROADMAP.md Queue 1 item 4b)"
                                   % (pp_stages,))
     d_ff = d_ff or 4 * d_model
     x = layers.embedding(tokens, (vocab_size, d_model))

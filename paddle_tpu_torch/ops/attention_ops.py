@@ -23,9 +23,13 @@ The one-shot branch is differentiable (``FlashAttention``, whose
 backward walks the JAX op's ``block_k`` keys a block, 128 unless a pass
 pinned it); the JAX op's ``block_q`` was tuned for the TPU kernel and is
 not read here. Under mixed precision ``amp.cast_ins`` hands the op
-bfloat16 Q/K/V, which launch the bfloat16 forward kernel. Ring
-(sequence-parallel) attention, selected by ``seq_axis``, arrives with a
-later slice.
+bfloat16 Q/K/V, which launch the bfloat16 forward kernel.
+
+With ``seq_axis`` naming an axis of the executor's mesh (the global view
+of ``ParallelExecutor`` over a ``(dp, 'sp')`` mesh, whose comm layer
+carries the mesh) the one-shot branch runs ring attention
+(``parallel/context_parallel.py``) over the rank's line along that axis:
+its blocks are the same forward kernel, merged by their log-sum-exp.
 """
 
 import torch
@@ -85,14 +89,19 @@ def _fused_attention(ctx, ins, attrs, o):
         else:
             raise ValueError("unknown cache_mode %r" % (cache_mode,))
         return {"Out": out, "KCacheOut": k_cache, "VCacheOut": v_cache}
-    if attrs.get("seq_axis", None):
-        raise NotImplementedError(
-            "fused_attention seq_axis=%r: ring (sequence-parallel) "
-            "attention arrives with a later slice" % attrs["seq_axis"])
     seg = None
     if "QSeg" in ins and ins["QSeg"]:
         seg = (ins["QSeg"][0].to(torch.int32).contiguous(),
                ins["KSeg"][0].to(torch.int32).contiguous())
+    seq_axis = attrs.get("seq_axis", None)
+    mesh = getattr(ctx.comm, "mesh", None) if ctx is not None else None
+    if mesh is not None and seq_axis and seq_axis in mesh.axis_names:
+        from paddle_tpu_torch.parallel.context_parallel import (
+            context_parallel_attention)
+        return {"Out": context_parallel_attention(
+            q, k, v, mesh, axis=seq_axis, causal=causal, sm_scale=sm_scale,
+            batch_axis=attrs.get("batch_axis", None), segment_ids=seg,
+            block_k=attrs.get("block_k", BWD_BLOCK_K), comm=ctx.comm)}
     return {"Out": flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
                                    sm_scale=sm_scale, segment_ids=seg,

@@ -601,10 +601,18 @@ def _random_crop(ctx, ins, attrs, o):
 
 @op("position_ids", no_grad=True)
 def _position_ids(ctx, ins, attrs, o):
+    """Positions 0..s-1 of each row. In the global view over a sequence
+    axis a rank holds a time chunk of its rows: its positions count from
+    the chunk's start (the global form, as ``mean``'s)."""
     x = _x(ins)
     b, s = x.shape[0], x.shape[1]
+    start = 0
+    comm = ctx.comm if ctx is not None else None
+    if comm is not None and getattr(comm, "seq_axis", None) is not None \
+            and comm.reads_local(o):
+        start = comm.mesh.axis_rank(comm.seq_axis) * s
     # int32 as the JAX package records it (torch.arange defaults to int64)
-    return {"Out": torch.arange(s, dtype=torch.int32,
+    return {"Out": torch.arange(start, start + s, dtype=torch.int32,
                                 device=x.device).expand(b, s)}
 
 

@@ -1,9 +1,9 @@
-"""Data-parallel gradient communication: bucketed, backward-overlapped,
-quantized and ZeRO-1 gradient exchange over ``torch.distributed``.
+"""Gradient communication over ``torch.distributed``: the bucketed,
+backward-overlapped, quantized and ZeRO-1 gradient exchange, and the
+tensor-parallel ('mp') collectives of the Megatron layout.
 
-Capability parity: the JAX package's ``parallel/collectives.py`` (its
-data-parallel part; the tensor-axis planner arrives with the tensor
-axis). The reference hand-places one NCCL all-reduce a gradient
+Capability parity: the JAX package's ``parallel/collectives.py``. The
+reference hand-places one NCCL all-reduce a gradient
 (`details/multi_devices_graph_builder.cc:100-112`); the port runs one
 process a rank, as DDP does, and this layer owns the exchange:
 
@@ -27,6 +27,11 @@ process a rank, as DDP does, and this layer owns the exchange:
   bitwise the per-gradient one at every world size; ZeRO-1 stops after
   the rank-order sum (its shard is bitwise the all-reduced chunk). Wire
   cost is an all-reduce's: one scatter and one gather phase.
+  A gradient narrower than its parameter (the embeddings' bfloat16
+  ``@GRAD`` under AMP) travels widened, exactly, in its bucket's dtype,
+  is summed there and comes back in its own dtype (the JAX package's
+  comm path refuses such a gradient; its global view sums it in
+  bfloat16): at one rank it is its own bits.
 * **Quantized** (``quantize="int8"`` / ``"fp8"``): the two-phase
   exchange of the JAX package: a per-rank per-bucket scale, the
   quantized chunks all-to-all, each rank dequantizes and adds its chunk
@@ -45,11 +50,30 @@ process a rank, as DDP does, and this layer owns the exchange:
   ``np.asarray`` gathers the whole array (a collective: every rank of
   the mesh must ask).
 
+* **Tensor parallelism** (a ``(dp, 'mp')`` mesh): every 'mp'-sharded
+  parameter is classified by where the axis cuts it (``col``: its last
+  dimension, ``row``: its first, ``shard``: a 1-D value such as a
+  column-split fc's bias), and :class:`TraceComm`'s weight-locality
+  analysis places the two all-reduces of each Megatron pair over the
+  rank's mp group: after a row-split matmul's forward output
+  (``fwd_row``) and after a column-split matmul's input gradient
+  (``bwd_col``). The scope keeps every weight at its full logical
+  shape, as the JAX package's does ("checkpoints are layout-free"): a
+  step slices each sharded parameter and its accumulators to this
+  rank's shard (:func:`mp_specs`), and the updated shards are
+  all-gathered over the mp group back into the full values it writes.
+  An mp-sharded parameter's gradient is its shard, so its bucket slot
+  is shard-sized; the buckets exchange over the rank's dp line.
+
 The global-view ``comm_config=None`` path of ``ParallelExecutor`` uses
 this module too, with one gradient a bucket and the lowerings' global
 forms (``mean``, batch-norm statistics, ``accuracy``) that need
-:meth:`TraceComm.sum_ranks`. Every collective a step issues is recorded
-in the step's :class:`parallel.comm_audit.Census`.
+:meth:`TraceComm.sum_ranks`; over a ``(dp, 'sp')`` mesh its ranks are
+all the mesh's (a rank holds a time chunk of its rows), and
+``fused_attention`` runs the ring of ``context_parallel`` over the
+rank's sp line. Every collective a step issues is recorded in the
+step's :class:`parallel.comm_audit.Census` with the mesh axis it runs
+over.
 
 Rejections keep the JAX package's wording; they are raised where the
 JAX package raises them.
@@ -67,7 +91,7 @@ from paddle_tpu_torch.core.lower import PackedSeq, RowSparse
 __all__ = ["CommConfig", "CommPlan", "TraceComm", "plan_for",
            "ensure_state", "fold_ef_state", "EF_PREFIX", "state_names",
            "ensure_zero_state", "restore_full_opt_state",
-           "fold_zero_state", "zero_specs", "ShardedState"]
+           "fold_zero_state", "zero_specs", "mp_specs", "ShardedState"]
 
 # reserved scope-name prefix for the error-feedback residual carry
 EF_PREFIX = "comm@ef"
@@ -191,12 +215,26 @@ class CommPlan:
     communication: the bucket layout (deterministic: materialization
     order, dtype-segregated, greedy fill to ``bucket_mb``) and the
     static byte accounting the telemetry and the smoke report — the JAX
-    package's plan, whose ``describe()`` it equals."""
+    package's plan, whose ``describe()`` it equals.
+
+    ``seq_axis``: the global view over a ``(dp, seq_axis)`` mesh (never
+    a CommConfig's plan, which keeps the JAX package's refusal of such a
+    mesh): the gradients are exchanged over every rank of the mesh, each
+    holding a time chunk of its rows."""
 
     def __init__(self, config, program, scope, mesh, batch_axis,
-                 require_grads=True):
+                 require_grads=True, seq_axis=None):
         axes = tuple(mesh.axis_names)
-        if axes != (batch_axis,):
+        self.seq_axis = None
+        if axes == (batch_axis,):
+            self.mp_axis = None
+        elif axes == (batch_axis, "mp"):
+            self.mp_axis = "mp"
+        elif seq_axis is not None and seq_axis in axes \
+                and set(axes) <= {batch_axis, seq_axis}:
+            self.mp_axis = None
+            self.seq_axis = seq_axis
+        else:
             raise ValueError(
                 "comm_config requires a pure data-parallel mesh with the "
                 "single axis %r, or a (%r, 'mp') tensor-parallel mesh; got "
@@ -205,10 +243,16 @@ class CommPlan:
                 % (batch_axis, batch_axis, axes))
         self.config = config
         self.axis = batch_axis
-        self.world = int(mesh.shape[batch_axis])
-        self.mp_axis = None
-        self.mp = 1
-        self.mp_params = {}
+        # the ranks of the gradient exchange: the dp line (every rank of
+        # the mesh in the global view over a sequence axis)
+        self.world = mesh.size if self.seq_axis is not None \
+            else int(mesh.shape[batch_axis])
+        self.mp = int(mesh.shape["mp"]) if self.mp_axis else 1
+        self.mp_params = {}  # param name -> "col" | "row" | "shard"
+        self.mp_state = {}   # optimizer accumulator name -> owning param
+        self.mp_dims = {}    # sharded name -> the dimension 'mp' cuts
+        if self.mp_axis is not None:
+            self._plan_mp(config, program)
         pg = list(getattr(program, "_op_role_vars", ()))
         if not pg and require_grads:
             raise ValueError(
@@ -250,6 +294,10 @@ class CommPlan:
                     "comm_config: parameter %r has no value in scope at "
                     "compile time (run the startup program first)" % p)
             n = int(np.prod(tuple(var.shape))) if var.dim() else 1
+            if p in self.mp_params:
+                # an mp-sharded parameter's gradient materializes as this
+                # rank's shard, so its bucket slot is shard-sized
+                n //= self.mp
             dt = _dtype_name(var)
             b = by_dtype.get(dt)
             if b is None or (b.grads
@@ -277,6 +325,72 @@ class CommPlan:
         self.zero_clips = {}     # global_norm_clip uid -> norm plan
         if config.zero_stage:
             self._plan_zero(program, scope)
+
+    def _plan_mp(self, config, program):
+        """Tensor-parallel planning, the JAX package's: classify every
+        'mp'-sharded parameter by WHERE the axis cuts it — ``col`` (last
+        dim: the Megatron column split, no forward collective) vs ``row``
+        (first dim: the row split whose output is a partial sum to
+        all-reduce) vs ``shard`` (1-D values such as the column-split
+        fc's bias, which ride their producer's locality) — and map each
+        parameter's optimizer accumulators onto the same shard layout."""
+        mp = self.mp
+        shapes = {}
+        for v in program.list_vars():
+            if not v.persistable:
+                continue
+            sh = tuple(getattr(v, "sharding", None) or ())
+            if "mp" not in sh:
+                continue
+            if sh.count("mp") > 1:
+                raise ValueError(
+                    "comm_config: parameter %r is sharded over 'mp' on "
+                    "more than one dim (%r) — the mp axis cuts each "
+                    "weight exactly once" % (v.name, sh))
+            dim = sh.index("mp")
+            shape = tuple(int(d) for d in (v.shape or ()))
+            if not shape or dim >= len(shape) or shape[dim] % mp:
+                raise ValueError(
+                    "comm_config: parameter %r (shape %s) dim %d is not "
+                    "divisible by the mp axis size %d"
+                    % (v.name, shape, dim, mp))
+            if len(shape) >= 2 and dim == len(shape) - 1:
+                kind = "col"
+            elif len(shape) >= 2 and dim == 0:
+                kind = "row"
+            else:
+                kind = "shard"
+            self.mp_params[v.name] = kind
+            self.mp_dims[v.name] = dim
+            shapes[v.name] = shape
+        if not self.mp_params:
+            raise ValueError(
+                "comm_config got a (%r, 'mp') mesh but the program has "
+                "no mp-sharded parameters (declare them with "
+                "ParamAttr(sharding=(None, 'mp')) / (('mp', None))); "
+                "use a pure data-parallel mesh instead"
+                % (self.axis,))
+        if config.zero_stage:
+            raise ValueError(
+                "comm_config: CommConfig(zero_stage=1) does not compose "
+                "with a tensor-parallel 'mp' axis yet — the [world, "
+                "rows] accumulator chunking assumes replicated "
+                "parameters; use zero_stage=0 on the (%r, 'mp') mesh"
+                % (self.axis,))
+        if config.error_feedback:
+            raise ValueError(
+                "comm_config: error_feedback does not compose with an "
+                "'mp' axis: the residual carry is dp-sharded [world, "
+                "padded] and REPLICATES over mp, but each mp device "
+                "would write a distinct residual into it. Pass "
+                "CommConfig(error_feedback=False) — stateless "
+                "quantization composes fine.")
+        for v in program.list_vars():
+            owner = getattr(v, "optimizer_state_for", None)
+            if owner in self.mp_params and v.shape and \
+                    tuple(int(d) for d in v.shape) == shapes[owner]:
+                self.mp_state[v.name] = owner
+                self.mp_dims[v.name] = self.mp_dims[owner]
 
     def _plan_zero(self, program, scope):
         """ZeRO-1 planning: map every bucketed gradient to exactly ONE
@@ -383,7 +497,8 @@ class CommPlan:
     @property
     def key(self):
         return (self.config.key, self.axis, self.world,
-                self.mp_axis, self.mp, (),
+                self.mp_axis, self.mp,
+                tuple(sorted(self.mp_params.items())),
                 tuple((b.dtype, tuple(b.sizes)) for b in self.buckets))
 
     @property
@@ -439,8 +554,21 @@ class CommPlan:
 
 
 def plan_for(config, program, scope, mesh, batch_axis="dp"):
-    """Build the :class:`CommPlan` for one executor plan."""
-    return CommPlan(config, program, scope, mesh, batch_axis)
+    """Build the :class:`CommPlan` for one executor plan. Behind
+    ``FLAGS_verify_ir`` the finished plan is checked against the program
+    it was built from (``analysis.effects``): every parameter gradient
+    in exactly one bucket, ZeRO shard updates touching only owned state,
+    and, over an 'mp' axis, every sharded weight closed by its Megatron
+    pair and no unsafe op reading an 'mp'-local value — a malformed plan
+    is a typed VerifyError, never a silently dropped reduction."""
+    plan = CommPlan(config, program, scope, mesh, batch_axis)
+    from paddle_tpu_torch import analysis
+
+    if analysis.enabled():
+        analysis.effects.check_comm_plan(plan, program)
+        if plan.mp_params:
+            analysis.effects.check_mp_placement(plan, program)
+    return plan
 
 
 # ---- scope state: the error-feedback carry and the ZeRO shards ----
@@ -539,6 +667,25 @@ def fold_ef_state(old, phase, nelem, new_shape):
         out.reshape(out.shape[0], -1)[0, :nelem] = mass
     else:
         out[:nelem] = old[:nelem]
+    return out
+
+
+def mp_specs(plan, program):
+    """{mp-sharded parameter (and its shadowing optimizer accumulator):
+    spec} — which slice of each a rank holds for a step: the 'mp' axis
+    on the dimension it cuts. The scope keeps the full logical shape
+    (each step slices its shard and all-gathers the update back, so
+    checkpoints are layout-free)."""
+    out = {}
+    if not plan.mp_axis:
+        return out
+    for v in program.list_vars():
+        if v.name in plan.mp_params and getattr(v, "sharding", None):
+            out[v.name] = tuple(a if a == "mp" else None
+                                for a in v.sharding)
+    for acc, owner in plan.mp_state.items():
+        if owner in out:
+            out[acc] = out[owner]
     return out
 
 
@@ -654,10 +801,14 @@ class TraceComm:
     global view): batch norm takes global statistics and ``accuracy``
     counts the global batch; under a CommConfig they stay per-rank
     (DDP semantics). ``census``: the step's
-    :class:`parallel.comm_audit.Census`."""
+    :class:`parallel.comm_audit.Census`. ``mesh``: the executor's mesh,
+    whose line groups the tensor axis's collectives and the ring over a
+    sequence axis run in (``rank`` and ``group`` are the gradient
+    exchange's: the rank's dp line, or the whole mesh in the global
+    view over a sequence axis)."""
 
     def __init__(self, plan, ef_state, local_seed=(), rank=0, group=None,
-                 global_view=False, census=None):
+                 global_view=False, census=None, mesh=None):
         self.plan = plan
         self.axis = plan.axis
         self.world = plan.world
@@ -665,6 +816,22 @@ class TraceComm:
         self.group = group
         self.global_view = global_view
         self.census = census
+        self.mesh = mesh
+        # the mesh axes the gradient exchange spans (the census's label)
+        self.exchange_axis = "x".join(mesh.axis_names) \
+            if mesh is not None and plan.seq_axis is not None else plan.axis
+        self.seq_axis = plan.seq_axis
+        # weight-locality taint (tensor parallelism): names whose env
+        # value is this rank's 'mp' shard — seeded with the sharded
+        # weights, biases and their optimizer accumulators, grown by
+        # propagation, shrunk where the analysis places an all-reduce
+        self.mp_axis = plan.mp_axis
+        self.mp = plan.mp
+        self.mp_local = set(plan.mp_params) | set(plan.mp_state)
+        self.mp_group = self.mp_rank = None
+        if self.mp_axis is not None:
+            self.mp_group = mesh.axis_group("mp")
+            self.mp_rank = mesh.axis_rank("mp")
         self.local = set(local_seed)   # env names holding this rank's rows
         self._globalized = set()       # op uids whose outputs are replicated
         self._global_names = set()     # single outputs made replicated
@@ -676,15 +843,21 @@ class TraceComm:
         self._warned = set()
         self._zero_shards = {}         # bucket idx -> this rank's shard
         self._clip_factor = {}         # clip op uid -> replicated factor
+        self._grad_dtypes = {}         # grad name -> its materialized dtype
         self.memo = {}                 # (op uid, tag) -> forward values
         self._last_uid = -1
 
     # -- the collectives, each recorded in the census --
 
-    def _note(self, kind, t, wire, tag):
+    def _note(self, kind, t, wire, tag, axis=None):
         if self.census is not None:
             self.census.add(kind, _dtype_name(t), int(t.numel()), wire,
-                            self._last_uid, tag)
+                            self._last_uid, tag,
+                            axis or self.exchange_axis)
+
+    def note_p2p(self, t, tag, axis):
+        """Record one point-to-point exchange of ``t`` (the ring's)."""
+        self._note("send_recv", t, t.element_size() * t.numel(), tag, axis)
 
     def _all_to_all(self, flat, tag, async_op=False):
         """``flat`` ([world * m]) -> ([world, m] rows received: row r is
@@ -703,19 +876,23 @@ class TraceComm:
             recv = recv.view(torch.float8_e4m3fn)
         return work, recv.view(self.world, n // self.world), send
 
-    def _all_gather(self, x, tag):
-        """[world, *x.shape]: every rank's ``x`` in rank order."""
+    def _all_gather(self, x, tag, group=None, world=None, axis=None):
+        """[world, *x.shape]: every rank's ``x`` in rank order (over the
+        exchange's group, or ``group`` of ``world`` ranks along mesh
+        ``axis``)."""
+        if group is None and world is None:
+            group, world = self.group, self.world
         src = x.reshape(-1).contiguous()
         wire_t = src.view(torch.uint8) \
             if src.dtype == torch.float8_e4m3fn else src
-        out = wire_t.new_empty(self.world * wire_t.numel())
-        _all_gather_flat(out, wire_t, group=self.group)
+        out = wire_t.new_empty(world * wire_t.numel())
+        _all_gather_flat(out, wire_t, group=group)
         self._note("all_gather", out,
-                   out.element_size() * out.numel() * (self.world - 1)
-                   // self.world, tag)
+                   out.element_size() * out.numel() * (world - 1)
+                   // world, tag, axis)
         if src.dtype == torch.float8_e4m3fn:
             out = out.view(torch.float8_e4m3fn)
-        return out.view((self.world,) + tuple(x.shape))
+        return out.view((world,) + tuple(x.shape))
 
     def sum_ranks(self, t, tag="sum"):
         """The sum over the mesh's ranks of ``t``, the same bits on every
@@ -776,19 +953,191 @@ class TraceComm:
         """Bucket trigger: ``op`` closing a bucket (its last gradient
         just materialized) launches the bucket's exchange here,
         mid-backward; with ``overlap=False`` it waits for the first
-        consumer instead."""
+        consumer instead. Over an 'mp' axis the weight-locality analysis
+        runs first: the Megatron pair's all-reduce goes at the op that
+        makes the value partial, before any bucket of the op's
+        gradients is launched."""
         self._last_uid = op.uid
+        if self.mp_axis is not None:
+            self._mp_after_op(op, env)
         if not self.plan.config.overlap:
             return
         for b in self.plan.buckets:
             if b.close_uid == op.uid and b.idx not in self._reduced:
                 self._launch(b, env)
 
+    # -- weight-locality analysis (tensor parallelism) --
+
+    # ops that act elementwise / per-position / per-head over an
+    # 'mp'-local activation, so the shard view is exact and the taint
+    # just propagates (their _grad twins resolve to the same base type;
+    # analysis.effects._MP_SAFE is its static twin)
+    _MP_SAFE = frozenset((
+        "elementwise_add", "elementwise_mul", "elementwise_sub",
+        "relu", "gelu", "tanh", "sigmoid", "square", "dropout", "scale",
+        "cast", "sum", "reshape", "reshape2", "transpose", "transpose2",
+        "concat", "split", "fused_attention"))
+
+    def enter_mp(self, env):
+        """Start of a step over an 'mp' axis: each sharded parameter and
+        accumulator in ``env`` (full logical shape, as the scope keeps
+        it) becomes this rank's shard along the dimension 'mp' cuts."""
+        for n, dim in self.plan.mp_dims.items():
+            v = env.get(n)
+            if v is None:
+                continue
+            size = v.shape[dim] // self.mp
+            env[n] = v.narrow(dim, self.mp_rank * size, size).contiguous()
+
+    def gather_mp(self, writes):
+        """End of a step over an 'mp' axis: {name: full value} of every
+        sharded parameter and accumulator the step writes, its ranks'
+        shards all-gathered over the mp group, concatenated along the
+        dimension 'mp' cuts (in the order of the plan)."""
+        out = {}
+        for n, dim in self.plan.mp_dims.items():
+            v = writes.get(n)
+            if v is None:
+                continue
+            parts = self._all_gather(v, "mp.param", self.mp_group, self.mp,
+                                     "mp")
+            full = list(v.shape)
+            full[dim] *= self.mp
+            out[n] = parts.movedim(0, dim).reshape(full)
+        return out
+
+    def _mp_after_op(self, op, env):
+        t = op.type
+        grad = t.endswith("_grad")
+        base = t[: -len("_grad")] if grad else t
+        if base in ("mul", "matmul"):
+            y = (op.inputs.get("Y") or (None,))[0]
+            kind = self.plan.mp_params.get(y)
+            if kind == "row":
+                if not grad:
+                    # row-split forward: each rank contracted only its
+                    # shard of the K dim — the output is a partial sum;
+                    # THE all-reduce of the Megatron pair goes here
+                    self._mp_psum(op, "Out", env, site="fwd_row")
+                else:
+                    # dX = dOut @ W_shard^T is the exact hidden shard;
+                    # dW = X_shard^T @ dOut is the exact row shard
+                    self._mp_mark(op, ("GRAD@X", "GRAD@Y"))
+                return
+            if kind == "col":
+                if not grad:
+                    # column-split forward: output columns are this
+                    # rank's — exact shard, identity collective
+                    self._mp_mark(op, ("Out",))
+                else:
+                    # dX = dOut_shard @ W_shard^T sums over the sharded
+                    # column dim — partial; the backward all-reduce.
+                    # dW = X^T @ dOut_shard is the exact column shard
+                    self._mp_psum(op, "GRAD@X", env, site="bwd_col")
+                    self._mp_mark(op, ("GRAD@Y",))
+                return
+        reads = [n for names in op.inputs.values() for n in names
+                 if n and n in self.mp_local]
+        if not reads:
+            return
+        pnames = op.inputs.get("Param")
+        if pnames and pnames[0] in self.plan.mp_params:
+            # optimizer op updating a sharded parameter: the update is
+            # elementwise over aligned shards; scalar carries like Adam's
+            # beta-pow read no shard values and stay replicated
+            return
+        if base in self._MP_SAFE:
+            self._mp_mark_all(op)
+            return
+        raise ValueError(
+            "comm_config: op %r (uid %d) consumes tensor-parallel local "
+            "value(s) %s — only elementwise/reshape/attention ops and "
+            "the mul/matmul Megatron pair may read an 'mp'-sharded "
+            "activation. Close the split with a row-split projection "
+            "(ParamAttr(sharding=('mp', None))) before this consumer, "
+            "or drop the 'mp' axis."
+            % (op.type, op.uid, sorted(set(reads))[:4]))
+
+    def _mp_psum(self, op, slot, env, site):
+        """The sum over the rank's mp group of ``op``'s ``slot`` outputs
+        (``dist.all_reduce``, in place on the fresh output), recorded in
+        the census as ``mp.<site>`` on the 'mp' axis."""
+        placed = 0
+        for n in op.outputs.get(slot, ()):
+            if not n or n not in env:
+                continue
+            v = env[n]
+            data = (v.data if isinstance(v, PackedSeq) else v).contiguous()
+            dist.all_reduce(data, group=self.mp_group)
+            self._note("all_reduce", data, 2 * data.element_size()
+                       * data.numel() * (self.mp - 1) // self.mp,
+                       "mp." + site, "mp")
+            env[n] = PackedSeq(data, v.lengths) \
+                if isinstance(v, PackedSeq) else data
+            self.mp_local.discard(n)
+            placed += 1
+        if placed and telemetry.enabled():
+            telemetry.counter(
+                "paddle_tpu_comm_mp_collectives_total",
+                "tensor-parallel all-reduces placed by the step's "
+                "weight-locality analysis, by site (fwd_row: row-split "
+                "forward output; bwd_col: column-split backward input "
+                "grad); incremented as each is issued, every step",
+                labelnames=("site",)).inc(placed, site=site)
+
+    def _mp_mark(self, op, slots):
+        for slot in slots:
+            for n in op.outputs.get(slot, ()):
+                if n:
+                    self.mp_local.add(n)
+
+    def _mp_mark_all(self, op):
+        for names in op.outputs.values():
+            for n in names:
+                if n:
+                    self.mp_local.add(n)
+
     def adjust_reshape(self, op, shape, x):
-        """The reshape lowering's hook: tensor-axis shards resize a
-        reshape's target; the data-parallel axis never does (a reshape
-        keeps its batch rows)."""
-        return shape
+        """Head-split/merge reshapes carry GLOBAL dims in their static
+        attrs; under an 'mp'-local input the first divisible non-copied
+        target dim is divided by mp so the local reshape matches the
+        local buffer (the JAX package's rule). The data-parallel and
+        sequence axes never resize a reshape's target (it copies their
+        dims with 0)."""
+        if self.mp_axis is None or op is None:
+            return shape
+        names = op.inputs.get("X", ())
+        if not names or names[0] not in self.mp_local:
+            return shape
+        xshape = tuple(getattr(x, "shape", ()))
+        have = 1
+        for d in xshape:
+            have *= int(d)
+        want = 1
+        for d in shape:
+            want *= int(d)
+        if want == have:
+            return shape
+        if want != have * self.mp:
+            raise ValueError(
+                "comm_config: reshape (op uid %d) target %r does not "
+                "match the 'mp'-local input %r — the global target must "
+                "be exactly mp=%d times the local buffer"
+                % (op.uid, tuple(shape), xshape, self.mp))
+        out = list(shape)
+        for skip_copied in (True, False):
+            for i, s in enumerate(out):
+                if s <= 0 or s % self.mp:
+                    continue
+                if skip_copied and i < len(xshape) \
+                        and int(xshape[i]) == s:
+                    continue   # dim copied from the already-local input
+                out[i] = s // self.mp
+                return out
+        raise ValueError(
+            "comm_config: reshape (op uid %d) target %r has no dim "
+            "divisible by the mp axis size %d to localize"
+            % (op.uid, tuple(shape), self.mp))
 
     def finish(self, env):
         """Close the step: complete every bucket not yet consumed and
@@ -806,22 +1155,61 @@ class TraceComm:
                 "the global reduction under local view); this program's "
                 "loss is still a per-device value. Restructure the loss "
                 "head or disable comm_config." % loss_name)
+        if loss_name and loss_name in self.mp_local:
+            raise ValueError(
+                "comm_config: the loss %r is still an 'mp'-local shard "
+                "— an open tensor-parallel split reached the loss head. "
+                "Close every column split with a row-split projection "
+                "(ParamAttr(sharding=('mp', None)))." % loss_name)
+
+    def _gather_global(self, t):
+        """A local batch-leading value back to the global one: over a
+        sequence axis its time chunks (dimension 1) are gathered over
+        the rank's sp line first, then the rows over the dp line; else
+        its rows over the exchange's group."""
+        if self.seq_axis is None:
+            return self.gather_rows(t, "fetch")
+        m = self.mesh
+        if t.dim() >= 2:
+            sp = m.axis_size(self.seq_axis)
+            g = self._all_gather(t, "fetch", m.axis_group(self.seq_axis),
+                                 sp, self.seq_axis)
+            t = g.movedim(0, 1).reshape(
+                (t.shape[0], sp * t.shape[1]) + tuple(t.shape[2:]))
+        if self.axis in m.shape:
+            dp = m.axis_size(self.axis)
+            g = self._all_gather(t, "fetch", m.axis_group(self.axis), dp,
+                                 self.axis)
+            t = g.reshape((-1,) + tuple(t.shape[1:]))
+        return t
 
     def gather_fetch(self, name, value, var):
         """Fetch repair for local values: a batch-leading fetch (var
-        shape ``[-1, ...]``) is all-gathered back to the global batch;
-        any other local fetch returns this rank's value (warned once a
-        step)."""
+        shape ``[-1, ...]``) is all-gathered back to the global batch
+        (and, over a sequence axis, its time chunks to the whole
+        sequence); any other local fetch returns this rank's value
+        (warned once a step), and so does an 'mp'-local one."""
+        if value is not None and name in self.mp_local:
+            # hidden-dim shards carry no leading axis to gather over; the
+            # caller gets this rank's slice (the parameters themselves
+            # are written back whole: gather_mp)
+            if name not in self._warned:
+                self._warned.add(name)
+                warnings.warn(
+                    "comm_config: fetch %r is an 'mp'-local shard; the "
+                    "fetched value is one device's slice" % name,
+                    RuntimeWarning)
+            return value
         if value is None or name not in self.local:
             return value
         lead = var is not None and getattr(var, "shape", None) \
             and var.shape[0] == -1
         if isinstance(value, PackedSeq):
             if lead:
-                return PackedSeq(self.gather_rows(value.data, "fetch"),
-                                 self.gather_rows(value.lengths, "fetch"))
+                return PackedSeq(self._gather_global(value.data),
+                                 self._gather_global(value.lengths))
         elif lead and isinstance(value, torch.Tensor) and value.dim() >= 1:
-            return self.gather_rows(value, "fetch")
+            return self._gather_global(value)
         if name not in self._warned:
             self._warned.add(name)
             warnings.warn(
@@ -852,6 +1240,13 @@ class TraceComm:
             v = env[g]
             if isinstance(v, RowSparse):
                 v = self._densify(g, v)
+            self._grad_dtypes[g] = v.dtype
+            if _dtype_name(v) != b.dtype and v.is_floating_point() \
+                    and v.element_size() < _itemsize(b.dtype):
+                # a gradient narrower than its parameter (the embeddings'
+                # bfloat16 @GRAD under AMP) travels widened, exactly, in
+                # its bucket's dtype and comes back in its own
+                v = v.to(getattr(torch, b.dtype))
             if _dtype_name(v) != b.dtype:
                 raise TypeError(
                     "comm_config: gradient %r materialized as %s but its "
@@ -924,7 +1319,7 @@ class TraceComm:
                 .reshape(-1).to(getattr(torch, b.dtype))
         off = 0
         for ((p, g), n), shape in zip(zip(b.grads, b.sizes), pend.shapes):
-            env[g] = red[off:off + n].reshape(shape)
+            env[g] = red[off:off + n].reshape(shape).to(self._grad_dtypes[g])
             off += n
             self.local.discard(g)   # reduced: replicated from here on
 
@@ -957,7 +1352,7 @@ class TraceComm:
 
         b = self.plan.buckets[zu.bucket]
         shard = self._zero_shards[b.idx]
-        gs = shard[zu.off:zu.off + zu.rows]
+        gs = shard[zu.off:zu.off + zu.rows].to(self._grad_dtypes[zu.grad])
         if zu.clip_uid is not None:
             gs = gs * self._clip_factor[zu.clip_uid].to(gs.dtype)
         pfull = env[zu.param]

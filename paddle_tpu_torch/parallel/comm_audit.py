@@ -1,5 +1,5 @@
-"""A census of the collectives a data-parallel step issues: the port's
-structural audit of the gradient exchange.
+"""A census of the collectives a parallel step issues: the port's
+structural audit of the gradient exchange and the tensor axis.
 
 Capability parity: the collective checks of the JAX package's
 ``parallel/hlo_audit.py``, which parses the compiled HLO for its
@@ -8,26 +8,33 @@ their payloads, wire bytes and their place among the backward's dots.
 The port compiles no HLO: its comm layer records each collective as it
 issues it (:class:`Census`, one a step, kept on the executor as
 ``last_census``), with its kind, dtype, elements, modeled wire bytes,
-the op after which it was launched and what it carried (a bucket, the
-loss mean, batch-norm statistics, a fetch, a parameter gather).
+the op after which it was launched, what it carried (a bucket, the
+loss mean, batch-norm statistics, a fetch, a parameter gather, a
+Megatron all-reduce, a ring step) and the mesh axis it ran over.
+:func:`axis_stats` attributes the census per axis, the counterpart of
+``hlo_audit.axis_stats``.
 
 On the card, :func:`device_collectives` reads a ``torch.profiler``
 trace of one eager step for the NCCL work it ran, which
 ``chip_smoke.py`` holds against the census.
 """
 
-__all__ = ["Census", "collective_stats", "bucket_overlap",
+__all__ = ["Census", "collective_stats", "axis_stats", "bucket_overlap",
            "device_collectives"]
 
 
 class Census:
     """The collectives of one step, in issue order: dicts with
-    ``kind`` ("all_to_all" / "all_gather"), ``dtype``, ``elements``,
-    ``wire_bytes`` (per rank, ring model: ``bytes * (world - 1) /
-    world`` of the moved buffer), ``after_uid`` (the uid of the op
-    after which it was launched, or of the op whose lowering issued it)
-    and ``tag`` ("bucket<i>", "bucket<i>.scale", "sum", "bn_stats",
-    "bn_grad", "fetch", "param", ...)."""
+    ``kind`` ("all_to_all" / "all_gather" / "all_reduce" /
+    "send_recv"), ``dtype``, ``elements``, ``wire_bytes`` (per rank,
+    ring model: ``bytes * (world - 1) / world`` of the moved buffer,
+    twice that for an all-reduce, the whole buffer for a ring step),
+    ``after_uid`` (the uid of the op after which it was launched, or of
+    the op whose lowering issued it), ``tag`` ("bucket<i>",
+    "bucket<i>.scale", "sum", "bn_stats", "bn_grad", "fetch", "param",
+    "mp.fwd_row", "mp.bwd_col", "mp.param", "ring", ...) and ``axis``,
+    the mesh axis its group spans ("dp", "mp", "sp"; "dpxsp" where the
+    group is a two-axis mesh's every rank)."""
 
     def __init__(self, program=None):
         self.records = []
@@ -35,11 +42,13 @@ class Census:
         # pipeline's clone where the program has a pass config)
         self.program = program
 
-    def add(self, kind, dtype, elements, wire_bytes, after_uid, tag):
+    def add(self, kind, dtype, elements, wire_bytes, after_uid, tag,
+            axis="dp"):
         self.records.append({"kind": kind, "dtype": dtype,
                              "elements": int(elements),
                              "wire_bytes": int(wire_bytes),
-                             "after_uid": int(after_uid), "tag": tag})
+                             "after_uid": int(after_uid), "tag": tag,
+                             "axis": axis})
 
     def __len__(self):
         return len(self.records)
@@ -56,6 +65,21 @@ def collective_stats(census):
     for r in census.records:
         s = out.setdefault(r["kind"], {"count": 0, "elements": 0,
                                        "wire_bytes": 0})
+        s["count"] += 1
+        s["elements"] += r["elements"]
+        s["wire_bytes"] += r["wire_bytes"]
+    return out
+
+
+def axis_stats(census):
+    """{axis: {kind: {"count", "elements", "wire_bytes"}}}: the census
+    attributed per mesh axis (the shape of ``hlo_audit.axis_stats``).
+    Every record names its axis, so the per-axis counts sum to the flat
+    census (:func:`collective_stats`)."""
+    out = {}
+    for r in census.records:
+        s = out.setdefault(r["axis"], {}).setdefault(
+            r["kind"], {"count": 0, "elements": 0, "wire_bytes": 0})
         s["count"] += 1
         s["elements"] += r["elements"]
         s["wire_bytes"] += r["wire_bytes"]

@@ -1,18 +1,32 @@
-"""The data-parallel mesh over a ``torch.distributed`` process group.
+"""The device mesh over a ``torch.distributed`` process group.
 
 Capability parity: the JAX package's ``parallel/mesh.py`` (a
 ``jax.sharding.Mesh`` over the devices) and the reference's NCCL context
 map (`platform/nccl_helper.h:72`). The port runs one process a rank, as
 PyTorch's DDP does: a :class:`Mesh` names its axes and their sizes and
-holds the ranks of the process group it spans. Only the ``dp`` axis is
-ported: a mesh with another axis (``mp``, ``pp``, ``sp``, ``ep``) raises
-``NotImplementedError`` until the tensor-axis slice brings it.
+holds the ranks of the process group it spans, in the JAX package's
+row-major device order (axis k's stride is the product of the later
+axes' sizes). Named axes:
+
+  dp — data parallel          (batch rows; the gradient exchange)
+  mp — model/tensor parallel  (weight shards; ``collectives``' Megatron
+                               all-reduces)
+  sp — sequence/context parallel (time chunks; ring attention,
+                               ``context_parallel``)
+
+``make_mesh`` makes one process group for each line of each axis (the
+ranks that differ only in that axis' coordinate): a rank's collectives
+over an axis run in its line's group (:meth:`Mesh.axis_group`). The
+pipeline ('pp') and expert ('ep') axes raise ``NotImplementedError``
+until their slices bring them (ROADMAP.md Queue 1 items 4b and 4d).
 
 The sharding helpers return :class:`Sharding` descriptors (a mesh and a
 per-dimension spec, the shape of a ``NamedSharding``), which
 ``ParallelExecutor.state_shardings`` reports. They place nothing: the
-executor cuts every batch-leading feed by rows and keeps 1/N of each
-ZeRO accumulator's flat elements on a rank (``collectives``).
+executor cuts every batch-leading feed by rows (and by time over a
+sequence axis), slices each 'mp'-sharded parameter to this rank's shard
+for a step, and keeps 1/N of each ZeRO accumulator's flat elements on a
+rank (``collectives``).
 """
 
 import contextlib
@@ -25,10 +39,16 @@ __all__ = ["make_mesh", "get_mesh", "mesh_guard", "data_sharding",
 
 _current_mesh = None
 
-# the tensor-axis work that brings the other mesh axes (ROADMAP.md)
-_LATER = ("mesh axes other than 'dp' arrive with the tensor axis, the "
-          "pipeline, context and expert parallelism (ROADMAP.md Queue 1 "
-          "item 4, its tensor-axis bullet)")
+#: the axes a mesh may have, and the ROADMAP items that bring the others
+_AXES = ("dp", "mp", "sp")
+_LATER = {"pp": "the pipeline axis 'pp' arrives with the 1F1B pipeline "
+                "(ROADMAP.md Queue 1 item 4b)",
+          "ep": "the expert axis 'ep' arrives with expert parallelism "
+                "and moe (ROADMAP.md Queue 1 item 4d)"}
+
+# the group of a line that spans the whole world: torch.distributed's
+# default group
+_WORLD = None
 
 
 def P(*spec):
@@ -38,15 +58,19 @@ def P(*spec):
 
 class Mesh:
     """Axis names, their sizes (``shape``, in axis order) and the global
-    ranks the mesh spans, in mesh order. ``group`` is the process group
-    of those ranks (None: the default group, when the mesh spans the
-    whole world)."""
+    ranks the mesh spans, in mesh order (row-major over the axes).
+    ``group`` is the process group of those ranks (None: the default
+    group, when the mesh spans the whole world); ``axis_groups``
+    {axis: the group of this rank's line along it}, which ``make_mesh``
+    fills (a mesh made by hand has none, and its lines must then be the
+    whole mesh)."""
 
     def __init__(self, axis_names, shape, ranks, group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.ranks = tuple(int(r) for r in ranks)
         self.group = group
+        self.axis_groups = {}
 
     @property
     def size(self):
@@ -58,6 +82,47 @@ class Mesh:
     def rank(self):
         """This process's index on the mesh (its rank in ``group``)."""
         return self.ranks.index(dist.get_rank())
+
+    def coords(self, index=None):
+        """{axis: coordinate} of mesh index ``index`` (default: this
+        process's), row-major as the JAX package lays devices out."""
+        index = self.rank() if index is None else int(index)
+        out = {}
+        for a in reversed(self.axis_names):
+            out[a] = index % self.shape[a]
+            index //= self.shape[a]
+        return out
+
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
+    def axis_rank(self, axis):
+        """This process's coordinate along ``axis`` (0 where the mesh
+        lacks it)."""
+        return self.coords()[axis] if axis in self.shape else 0
+
+    def line(self, axis, index=None):
+        """The global ranks of the line along ``axis`` through mesh index
+        ``index`` (default: this process's), in axis order."""
+        index = self.rank() if index is None else int(index)
+        c = self.coords(index)
+        stride = 1
+        for a in reversed(self.axis_names):
+            if a == axis:
+                break
+            stride *= self.shape[a]
+        base = index - c[axis] * stride
+        return [self.ranks[base + i * stride]
+                for i in range(self.shape[axis])]
+
+    def axis_group(self, axis):
+        """The process group of this rank's line along ``axis``."""
+        if axis in self.axis_groups:
+            return self.axis_groups[axis]
+        if self.shape.get(axis) == self.size:
+            return self.group
+        raise ValueError("mesh %r has no process group for its %r lines "
+                         "(make it with make_mesh)" % (self, axis))
 
     def __eq__(self, other):
         return (isinstance(other, Mesh)
@@ -104,22 +169,43 @@ def _world():
     return dist.get_world_size()
 
 
+def _group_of(ranks, world, mesh_ranks, mesh_group):
+    """The process group of ``ranks``: the default group for the whole
+    world, the mesh's own for the whole mesh, else a new one (which
+    every rank of the world takes part in making)."""
+    if list(ranks) == list(range(world)):
+        return _WORLD
+    if list(ranks) == list(mesh_ranks):
+        return mesh_group
+    return dist.new_group(list(ranks))
+
+
 def make_mesh(mesh_shape=None, axis_names=None, devices=None):
     """Build a Mesh. Default: every rank of the world on one 'dp' axis.
     ``devices``: the global ranks to span (default: the world's, in
     order); a mesh smaller than them takes the first ``n``, as the JAX
-    package takes ``devices[:n]``, in a process group of its own."""
+    package takes ``devices[:n]``, in a process group of its own. Every
+    rank of the world must call it (each group is made by all of them),
+    also one that the mesh leaves out."""
+    if mesh_shape is not None:
+        axis_names = tuple(axis_names or tuple("dp mp pp sp ep".split()[
+            : len(mesh_shape)]))
+    for a in axis_names or ():
+        if a in _LATER:
+            raise NotImplementedError("make_mesh%s over axes %r: %s" % (
+                (tuple(mesh_shape or ()),), axis_names, _LATER[a]))
+        if a not in _AXES or axis_names.count(a) > 1:
+            raise ValueError("make_mesh: axes must be distinct names of "
+                             "%r, got %r" % (_AXES, axis_names))
     world = _world()
     ranks = list(devices) if devices is not None else list(range(world))
     if mesh_shape is None:
         mesh_shape = (len(ranks),)
-        axis_names = axis_names or ("dp",)
-    axis_names = axis_names or tuple("dp mp pp sp ep".split()[
-        : len(mesh_shape)])
-    if tuple(axis_names) != ("dp",):
-        raise NotImplementedError(
-            "make_mesh%s over axes %r: %s" % (
-                (tuple(mesh_shape),), tuple(axis_names), _LATER))
+        axis_names = tuple(axis_names or ("dp",))
+    if len(axis_names) != len(mesh_shape):
+        raise ValueError("make_mesh: %d axis names for a %d-d shape %r"
+                         % (len(axis_names), len(mesh_shape),
+                            tuple(mesh_shape)))
     n = 1
     for s in mesh_shape:
         n *= int(s)
@@ -127,11 +213,22 @@ def make_mesh(mesh_shape=None, axis_names=None, devices=None):
         raise ValueError("mesh %s needs %d devices, have %d"
                          % (tuple(mesh_shape), n, len(ranks)))
     ranks = ranks[:n]
-    group = None
-    if ranks != list(range(world)):
-        # every rank of the world takes part in making a group
-        group = dist.new_group(ranks)
-    return Mesh(axis_names, mesh_shape, ranks, group)
+    group = _WORLD if ranks == list(range(world)) \
+        else dist.new_group(ranks)
+    mesh = Mesh(axis_names, mesh_shape, ranks, group)
+    me = dist.get_rank()
+    # one group a line of each axis, made in the same order everywhere
+    for a in axis_names:
+        seen = set()
+        for i in range(n):
+            line = tuple(mesh.line(a, i))
+            if line in seen:
+                continue
+            seen.add(line)
+            g = _group_of(line, world, ranks, group)
+            if me in line:
+                mesh.axis_groups[a] = g
+    return mesh
 
 
 def get_mesh():
@@ -150,13 +247,14 @@ def mesh_guard(mesh):
 
 
 def data_sharding(mesh, var=None, batch_axis="dp", seq_axis=None):
-    """Batch-dim sharding spec for a feed; a sequence axis is refused
-    until context parallelism is ported."""
+    """Batch-dim sharding spec for a feed; optionally shard the time axis
+    too (sequence parallelism): ``ParallelExecutor`` then cuts each
+    batch-leading feed by rows over ``batch_axis`` and by time (its
+    dimension 1) over ``seq_axis``."""
     if batch_axis not in mesh.axis_names:
         return Sharding(mesh, P())
     if seq_axis and seq_axis in mesh.axis_names:
-        raise NotImplementedError("data_sharding over %r: %s"
-                                  % (seq_axis, _LATER))
+        return Sharding(mesh, P(batch_axis, seq_axis))
     return Sharding(mesh, P(batch_axis))
 
 

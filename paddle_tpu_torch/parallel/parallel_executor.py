@@ -1,7 +1,9 @@
-"""ParallelExecutor: data parallelism over a ``torch.distributed`` mesh.
+"""ParallelExecutor: data, tensor and sequence parallelism over a
+``torch.distributed`` mesh.
 
 Capability parity: `paddle/fluid/framework/parallel_executor.cc:54` and
-the JAX package's ``parallel/parallel_executor.py``, on its ``dp`` mesh.
+the JAX package's ``parallel/parallel_executor.py``, on its ``dp``,
+``(dp, 'mp')`` and ``(dp, 'sp')`` meshes.
 The JAX package compiles one program over every device; the port runs
 one process a rank, as PyTorch's DDP does (NCCL between cards, gloo on
 the CPU), and keeps the JAX package's API: ``pe.run(feed=<global
@@ -31,9 +33,23 @@ Two preparation paths, as in the JAX package:
   ``None`` path wherever the two views agree (no batch norm), and
   ZeRO-1 bitwise zero_stage 0, at every world size.
 
+Over a ``(dp, 'mp')`` mesh (``CommConfig``, or the global view at
+zero_stage 0) the ranks of one dp row get the same rows and split each
+'mp'-sharded weight (``collectives``: each step slices the scope's full
+weights to this rank's shard, places the Megatron all-reduces over the
+rank's mp line, exchanges the gradients over its dp line and writes the
+updated weights back whole). Over a ``(dp, 'sp')`` mesh in the global
+view with ``seq_axis='sp'`` each rank also cuts the time axis
+(dimension 1) of every batch-leading feed to its chunk; ``position_ids``
+count from the chunk's start, ``mean`` divides by the whole mesh's
+count, ``fused_attention`` runs the ring of ``context_parallel`` over
+the rank's sp line, and the parameter gradients are summed over every
+rank of the mesh in rank order.
+
 Random ops draw per-rank streams in both paths at a world above one (the
-rank folded into the step key, as the JAX package's local view folds
-``axis_index``); at one rank they draw what ``Executor`` draws.
+rank of the gradient exchange folded into the step key, as the JAX
+package's local view folds ``axis_index``); at one rank they draw what
+``Executor`` draws.
 
 ``run_chunk`` on the card captures one step, its collectives included,
 into a CUDA graph (``core/graphs.py``); the process group has run a
@@ -75,11 +91,18 @@ class _CommStep:
 
     def __init__(self, pe, plan, global_view, program):
         self._pe = weakref.ref(pe)
-        self.rank = pe._rank
-        self.group = pe.mesh.group
+        mesh = pe.mesh
+        self.mesh = mesh
+        if plan.mp_axis is not None:
+            # the gradient exchange runs over the rank's dp line
+            self.rank = mesh.axis_rank(plan.axis)
+            self.group = mesh.axis_group(plan.axis)
+        else:
+            self.rank = pe._rank
+            self.group = mesh.group
         # the rank a step key folds in: none at one rank, where the
         # streams are the plain Executor's
-        self.rank_fold = None if plan.world == 1 else pe._rank
+        self.rank_fold = None if plan.world == 1 else self.rank
         self.plan = plan
         self.program = program
         self.global_view = global_view
@@ -105,17 +128,24 @@ class _CommStep:
         census = Census(self.program)
         pe = self._pe()
         pe.last_census = census
-        return collectives.TraceComm(
+        tc = collectives.TraceComm(
             self.plan, {n: env[n] for n in self.plan.state_names},
             local_seed=pe._batch_feeds, rank=self.rank, group=self.group,
-            global_view=self.global_view, census=census)
+            global_view=self.global_view, census=census, mesh=self.mesh)
+        if self.plan.mp_axis is not None:
+            tc.enter_mp(env)
+        return tc
 
     def finish(self, tc, env, writes):
-        """Close a step's comm layer: the exchange completed, the loss
-        checked global, a persistable written from this rank's rows
-        warned once (its ranks keep their own copies: the local view's
-        batch-norm statistics). Returns the error-feedback writes."""
+        """Close a step's comm layer: the exchange completed, the
+        'mp'-sharded weights gathered back whole, the loss checked
+        global, a persistable written from this rank's rows warned once
+        (its ranks keep their own copies: the local view's batch-norm
+        statistics). Returns the writes it adds or replaces (the
+        error-feedback carry, the whole 'mp'-sharded weights)."""
         ef = tc.finish(env)
+        if self.plan.mp_axis is not None:
+            ef.update(tc.gather_mp(writes))
         if self.global_view:
             if self.loss_name and self.loss_name in tc.local:
                 raise ValueError(
@@ -148,7 +178,9 @@ class ParallelExecutor(Executor):
     init_multihost``). ``mesh=`` or ``mesh_shape=``/``axis_names=``
     name the dp mesh (default: every rank of the world). ``use_cuda``:
     this rank's card over NCCL (the default), else the CPU over gloo;
-    ``place`` names the device outright."""
+    ``place`` names the device outright. The mesh's axes are
+    ``batch_axis`` and 'mp' (tensor parallelism) or ``seq_axis``
+    (sequence parallelism, in the global view)."""
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
                  share_vars_from=None, num_threads=None, allow_op_delay=False,
@@ -162,13 +194,13 @@ class ParallelExecutor(Executor):
         super().__init__(place)
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(
             mesh_shape, axis_names)
-        if self.mesh.axis_names != (batch_axis,):
-            raise NotImplementedError(
-                "ParallelExecutor over axes %r: %s" % (
-                    self.mesh.axis_names, mesh_lib._LATER))
-        if seq_axis is not None:
-            raise NotImplementedError("ParallelExecutor(seq_axis=%r): %s"
-                                      % (seq_axis, mesh_lib._LATER))
+        extra = [a for a in self.mesh.axis_names
+                 if a not in (batch_axis, "mp", seq_axis)]
+        if extra:
+            raise ValueError(
+                "ParallelExecutor over axes %r: axis %r is neither the "
+                "batch axis %r, 'mp', nor the seq_axis (%r)" % (
+                    self.mesh.axis_names, extra[0], batch_axis, seq_axis))
         backend = dist.get_backend(self.mesh.group)
         want = "nccl" if self.device.type == "cuda" else "gloo"
         if backend != want:
@@ -187,6 +219,7 @@ class ParallelExecutor(Executor):
         self._comm_plans = {}  # program fingerprint -> ACTIVE CommPlan
         self._warned_local_state = set()
         self._batch_feeds = frozenset()
+        self._time_cut = {}     # feed name -> sp ranks its time is cut over
         self._scope = None
         #: the collectives of the last step (``comm_audit.Census``)
         self.last_census = None
@@ -243,10 +276,18 @@ class ParallelExecutor(Executor):
 
     def _cut_feeds(self, program, feed, axis):
         """Each batch-leading feed staged on the device and cut to this
-        rank's rows along ``axis`` (1 for a ``[K, ...]`` chunk), a view;
+        rank's rows along ``axis`` (1 for a ``[K, ...]`` chunk), a view,
+        over the mesh's batch axis (the ranks of one dp row of a
+        ``(dp, 'mp')`` mesh get the same rows), and over a sequence axis
+        also to its time chunk along the next dimension;
         ``HostLocalBatch`` values fed as they are. Notes the batch feeds'
         names: the comm layer's seed of rank-local values."""
-        out, local = {}, set()
+        m = self.mesh
+        dp, dpr = m.axis_size(self.batch_axis), m.axis_rank(self.batch_axis)
+        sp = spr = None
+        if self.seq_axis is not None and self.seq_axis in m.shape:
+            sp, spr = m.axis_size(self.seq_axis), m.axis_rank(self.seq_axis)
+        out, local, cut = {}, set(), {}
         for n, v in feed.items():
             var = _find_var(program, n)
             lead = var is not None and var.shape and var.shape[0] == -1
@@ -258,9 +299,28 @@ class ParallelExecutor(Executor):
             if not lead:
                 out[n] = v
                 continue
-            out[n] = _rows(n, stage_feed(program, n, v, self.device), axis,
-                           self._rank, self.mesh.size)
+            v = _rows(n, stage_feed(program, n, v, self.device), axis, dpr,
+                      dp)
+            if sp is not None and _dim(v) > axis + 1:
+                v = _rows(n, v, axis + 1, spr, sp, "time")
+                cut[n] = sp
+            out[n] = v
         self._batch_feeds = frozenset(local)
+        self._time_cut = cut
+        return out
+
+    def _verified_feed(self, feed, axis):
+        """A feed cut to this rank's time chunk is verified at its global
+        time length (the data var declares the whole sequence)."""
+        if not self._time_cut:
+            return feed
+        out = dict(feed)
+        for n, sp in self._time_cut.items():
+            v = feed.get(n)
+            if isinstance(v, torch.Tensor) and v.dim() > axis + 1:
+                shape = list(v.shape)
+                shape[axis + 1] *= sp
+                out[n] = torch.empty(shape, dtype=v.dtype, device="meta")
         return out
 
     def _store(self, scope, name, value):
@@ -308,7 +368,7 @@ class ParallelExecutor(Executor):
                 collectives.CommConfig(bucket_mb=0.0,
                                        zero_stage=self.zero_stage),
                 program, scope, self.mesh, self.batch_axis,
-                require_grads=False)
+                require_grads=False, seq_axis=self.seq_axis)
             self._comm_plans[plan.user.fingerprint] = cplan
             plan.comm = _CommStep(self, cplan, True, program)
             return
@@ -330,6 +390,14 @@ class ParallelExecutor(Executor):
                 "reduction materializes replicated gradients). For "
                 "sharded optimizer state under the comm path use "
                 "CommConfig(zero_stage=1) instead.")
+        if plan.guard is not None and "mp" in self.mesh.axis_names:
+            raise ValueError(
+                "comm_config over a (dp, 'mp') tensor-parallel mesh "
+                "does not compose with the training-health guard yet: "
+                "the guard's health summary records whole gradients at "
+                "the optimizer op, but mp-sharded parameters hold only "
+                "this device's hidden-dim shard there. Disable "
+                "guard.enable() or drop the 'mp' axis.")
         if cfg.zero_stage and plan.guard is not None:
             raise ValueError(
                 "CommConfig(zero_stage=1) does not compose with the "
@@ -347,18 +415,18 @@ class ParallelExecutor(Executor):
         this rank's rows (or back to whole arrays for a plan without
         ZeRO), the error-feedback carry seeded. O(1) when nothing
         changed."""
-        step, group = plan.comm, self.mesh.group
+        step = plan.comm
+        group, rank = step.group, step.rank
         cplan = step.plan
         if cplan.config.zero_stage:
             if not collectives.zero_layout_current(scope, cplan,
                                                    step.zero_shapes):
-                collectives.ensure_zero_state(scope, cplan, self._rank,
+                collectives.ensure_zero_state(scope, cplan, rank,
                                               group, step.zero_shapes)
         elif step.probe is not None and isinstance(
                 scope.find_var(step.probe), collectives.ShardedState):
             collectives.restore_full_opt_state(scope, plan.program)
-        collectives.ensure_state(scope, cplan, self._rank, group,
-                                 self.device)
+        collectives.ensure_state(scope, cplan, rank, group, self.device)
 
     # ---- telemetry and the audit ----
 
@@ -424,20 +492,35 @@ class ParallelExecutor(Executor):
                     else (self.batch_axis,))
             for n, spec in collectives.zero_specs(plan).items():
                 out[n] = mesh_lib.Sharding(self.mesh, spec)
+            # mp-sharded parameters and their accumulators: the slice a
+            # rank holds for a step (the scope keeps them whole)
+            for n, spec in collectives.mp_specs(plan, program).items():
+                out[n] = mesh_lib.Sharding(self.mesh, spec)
         return out
 
 
-def _rows(name, v, axis, rank, world):
-    """Rank ``rank``'s rows of a staged feed value along ``axis``."""
+def _dim(v):
+    return (v.data if isinstance(v, (PackedSeq, TensorArray)) else v).dim()
+
+
+def _rows(name, v, axis, rank, world, what="batch"):
+    """Rank ``rank``'s rows of a staged feed value along ``axis`` (of
+    ``world`` equal shares)."""
     if isinstance(v, PackedSeq):
+        if what == "time":
+            raise ValueError(
+                "ParallelExecutor feed %r: a sequence (PackedSeq) feed "
+                "does not split over a sequence axis; feed padded "
+                "[batch, time] tensors" % name)
         return PackedSeq(_rows(name, v.data, axis, rank, world),
                          _rows(name, v.lengths, axis, rank, world))
     if isinstance(v, TensorArray):
-        return TensorArray(_rows(name, v.data, axis, rank, world), v.size)
+        return TensorArray(_rows(name, v.data, axis, rank, world, what),
+                           v.size)
     n = v.shape[axis]
     if n % world:
         raise ValueError(
-            "ParallelExecutor feed %r: batch %d does not split over the "
-            "mesh's %d ranks" % (name, n, world))
+            "ParallelExecutor feed %r: %s %d does not split over the "
+            "mesh's %d ranks" % (name, what, n, world))
     m = n // world
     return v.narrow(axis, rank * m, m)

@@ -249,11 +249,26 @@ def test_fused_attention_cache_updates_in_place():
     torch.testing.assert_close(kc[1, :, 5], k[1, :, 0])
 
 
+def test_fused_attention_seq_axis_without_a_mesh_is_plain_attention():
+    """``seq_axis`` names a mesh axis: with no parallel executor's mesh
+    (no comm layer) the op is plain attention, bit for bit, as the JAX
+    op is without ``ctx.mesh``."""
+    q, k, v = (torch.randn(1, 2, 16, 8) for _ in range(3))
+    outs = []
+    for attrs in ({"causal": True}, {"causal": True, "seq_axis": "sp"}):
+        op = _Op("fused_attention", attrs)
+        outs.append(treg.get("fused_attention").lower(
+            TCtx().for_op(op), {"Q": [q], "K": [k], "V": [v]}, attrs,
+            op)["Out"])
+    assert torch.equal(outs[0], outs[1])
+
+
 @pytest.mark.parametrize("attrs,err", [
     ({"causal": True, "cache_mode": "decode", "seq_axis": "sp"},
      ValueError),
     ({"causal": False, "cache_mode": "prefill"}, ValueError),
-    ({"causal": True, "seq_axis": "sp"}, NotImplementedError),
+    ({"causal": True, "cache_mode": "prefill", "seq_axis": "sp"},
+     ValueError),
 ])
 def test_fused_attention_loud_errors(attrs, err):
     x = torch.randn(1, 2, 4, 8)

@@ -12,6 +12,17 @@ replays, its collectives captured, is bitwise the eager steps, with the
 census of the captured step holding one exchange a bucket; the int8 and
 fp8 exchanges train.
 
+The tensor and sequence axes at world 1 (tests/test_torch_tensor_
+parallel.py and tests/test_torch_context_parallel.py hold the sums
+across ranks on the CPU): the dyadic Megatron MLP under a ``(1, 1)``
+('dp', 'mp') mesh is the plain ``Executor`` bit for bit, and so is its
+run_chunk of graph replays with the mp collectives captured; the small
+transformer under bf16 AMP with ``mp=True`` and with ``seq_axis='sp'``
+(the global view over a ``(1, 1)`` ('dp', 'sp') mesh) is the plain step
+bit for bit with the program's bf16 B1 launches; the ring's blocks at 4
+chunks (``ring_in_process``) launch B1 10 times causal and hold against
+B1 over the whole sequence and the plain ring.
+
 Marked ``cuda``: each test skips inside itself where torch finds no
 card. This file imports torch and the port only (the machine with the
 card has no jax), so run it there without the suite's conftest:
@@ -135,3 +146,134 @@ def test_quantized_exchange_trains(nccl, mode):
     assert np.isfinite(np.asarray(losses, np.float64)).all()
     assert any(n.startswith("comm@ef") for n in state)
     assert pe.last_census.count("bucket") > 0
+
+
+# ---- the tensor and sequence axes at world 1 ----
+
+def _mp_mlp(plain=False, chunk=False):
+    """3 SGD steps of the dyadic Megatron MLP on the card: (losses,
+    state, executor)."""
+    import test_torch_tensor_parallel as ttp
+    from paddle_tpu_torch.parallel import (CommConfig, ParallelExecutor,
+                                           make_mesh)
+
+    prog, startup, loss = ttp.build_mlp(fluid, True)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    init = ttp.dyadic({n: tuple(scope.find_var(n).shape)
+                       for n in ttp.WEIGHTS})
+    for n, v in init.items():
+        scope.set_var(n, torch.from_numpy(v).cuda())
+    fs = [ttp.mlp_feed(i) for i in range(ttp.MLP_STEPS)]
+    if plain:
+        exe = fluid.Executor()
+        losses = [exe.run(prog, feed=f, fetch_list=[loss], scope=scope)[0]
+                  for f in fs]
+    else:
+        exe = ParallelExecutor(loss_name=loss.name, main_program=prog,
+                               mesh=make_mesh((1, 1), ("dp", "mp")),
+                               zero_stage=0, comm_config=CommConfig())
+        if chunk:
+            losses = list(exe.run_chunk(prog, feed_chunk=stack_feeds(fs),
+                                        fetch_list=[loss], scope=scope)[0])
+        else:
+            losses = [exe.run(feed=f, fetch_list=[loss], scope=scope)[0]
+                      for f in fs]
+    state = {n: t.detach().reshape(-1).cpu().numpy()
+             for n, t in scope.vars.items()}
+    return losses, state, exe
+
+
+@pytest.mark.cuda
+def test_mp_at_one_rank_is_the_plain_step(nccl):
+    plain = _mp_mlp(plain=True)
+    mp = _mp_mlp()
+    _bitwise(mp, plain, "mp vs Executor")
+    tags = [r["tag"] for r in mp[2].last_census.records
+            if r["axis"] == "mp"]
+    assert tags.count("mp.fwd_row") == 1
+    assert tags.count("mp.param") == 3
+    _bitwise(_mp_mlp(chunk=True), mp, "mp graph replays vs eager")
+
+
+def _small_lm(fl_kw, parallel):
+    """2 steps of the small transformer under bf16 AMP on the card:
+    (losses, state, bf16 B1 launches)."""
+    import test_torch_tensor_parallel as ttp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import (CommConfig, ParallelExecutor,
+                                           make_mesh)
+
+    prog, startup, loss = ttp.build_tfm(fluid, **fl_kw)
+    fluid.amp.enable(prog)
+    startup.random_seed = 1
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    if not parallel:
+        exe = fluid.Executor()
+    elif "mp" in fl_kw:
+        exe = ParallelExecutor(loss_name=loss.name, main_program=prog,
+                               mesh=make_mesh((1, 1), ("dp", "mp")),
+                               zero_stage=0, comm_config=CommConfig())
+    else:
+        exe = ParallelExecutor(loss_name=loss.name, main_program=prog,
+                               mesh=make_mesh((1, 1), ("dp", "sp")),
+                               seq_axis="sp")
+    fa.reset_launches()
+    losses = [exe.run(program=prog, feed=ttp.tfm_feed(i),
+                      fetch_list=[loss], scope=scope)[0] for i in range(2)]
+    torch.cuda.synchronize()
+    state = {n: t.detach().as_subclass(torch.Tensor).reshape(-1).cpu()
+             .float().numpy() for n, t in scope.vars.items()}
+    return losses, state, dict(fa.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(mp=True), dict(seq_axis="sp")],
+                         ids=["mp", "sp"])
+def test_transformer_axes_at_one_rank_are_the_plain_step(nccl, kw):
+    import test_torch_tensor_parallel as ttp
+
+    got, want = _small_lm(kw, True), _small_lm(kw, False)
+    _bitwise(got, want, "parallel vs Executor")
+    # each fused_attention and its grad launch the bf16 B1 once a step
+    assert got[2]["flash_attention_bf16"] == 2 * 2 * ttp.NL
+    assert got[2] == want[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ring_blocks_on_the_card(nccl, dtype):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import context_parallel as cp
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 256, 64, generator=g).to(dtype)
+                   .cuda() for _ in range(4))
+    ids = (torch.arange(256)[None, :] >= 100).to(torch.int32) \
+        .expand(2, 256).contiguous().cuda()
+    key = "flash_attention_bf16" if dtype == torch.bfloat16 \
+        else "flash_attention"
+    n0 = fa.launches[key]
+    out, lse = cp.ring_in_process(q, k, v, 4, True, segment_ids=(ids, ids))
+    assert fa.launches[key] - n0 == 10
+    po, pl_ = cp.ring_in_process(q, k, v, 4, True, segment_ids=(ids, ids),
+                                 plain=True)
+    wo, wl = fa.flash_attention(q, k, v, causal=True,
+                                segment_ids=(ids, ids), return_lse=True)
+    tol = dict(rtol=2e-2, atol=8e-3) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-5)
+    for want in (po, wo):
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, wl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, pl_, rtol=1e-5, atol=1e-5)
+    dq, dk, dv = cp.ring_in_process_bwd(q, k, v, out, lse, do, 4, True,
+                                        segment_ids=(ids, ids))
+    wq, wk, wv = fa.flash_attention_bwd(q, k, v, wo, wl, do, True, None,
+                                        (ids, ids))
+    scale = max(float(t.abs().max()) for t in (wq, wk, wv))
+    for a, b in ((dq, wq), (dk, wk), (dv, wv)):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   rtol=tol["rtol"],
+                                   atol=tol["atol"] * max(1.0, scale))

@@ -268,7 +268,8 @@ def test_compared_modules_cover_the_public_surface():
                 "serving", "serving.engine", "serving.batcher",
                 "serving.server", "serving.compile_cache", "parallel",
                 "parallel.mesh", "parallel.collectives",
-                "parallel.distribute", "parallel.parallel_executor"):
+                "parallel.distribute", "parallel.parallel_executor",
+                "parallel.placement", "parallel.context_parallel"):
         assert rel in MODULES, rel
     assert os.path.basename(paddle_tpu_torch.__file__) == "__init__.py"
 
@@ -288,6 +289,33 @@ def test_the_parallel_names_are_compared(rel, qual):
     """The data-parallel names (ROADMAP.md Queue 1 item 4's core) are
     shared public names, compared like every other, with no deliberate
     difference: the port's added keywords all have defaults."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+@pytest.mark.parametrize("rel,qual", [
+    ("layers.nn", "multi_head_attention"), ("layers.nn", "flash_attention"),
+    ("models.transformer", "transformer_lm"),
+    ("models.transformer", "build_transformer_lm"),
+    ("parallel.parallel_executor", "ParallelExecutor.__init__"),
+    ("parallel.collectives", "mp_specs"),
+    ("parallel.context_parallel", "ring_attention"),
+    ("parallel.context_parallel", "context_parallel_attention"),
+    ("parallel.placement", "Placement.mesh_for"),
+    ("parallel.placement", "legal_placements"),
+    ("parallel.placement", "plan_stages"),
+    ("parallel.placement", "hbm_report"),
+    ("parallel.placement", "estimate_wire_bytes"),
+    ("parallel.placement", "rank"),
+])
+def test_the_tensor_and_sequence_axis_names_are_compared(rel, qual):
+    """``mp=`` and ``seq_axis=`` are taken (and run) wherever the JAX
+    package takes them, and the tensor and sequence axes' modules are
+    compared like every other, with no deliberate difference."""
     assert rel in MODULES
     jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
     found = {q: (a, b) for q, a, b in _callables(jm, tm)}
