@@ -276,8 +276,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    AUC, ``evaluator.Accuracy`` and ``average.WeightedAverage`` against
    the pass accuracy; run_chunk K=4 bitwise against eager steps; the
    update ops' device time beside the bytes a one-pass update moves;
-   the card against the CPU at dict 1000, hid 128: 3 losses, first-step
-   gradients, every parameter and accumulator after step 3); and
+   on the Adamax run the card against the CPU at dict 1000, hid 128: 3
+   losses, first-step gradients, every parameter and accumulator after
+   step 3); and
    word2vec with the ``hsigmoid`` and the ``nce`` head over its 2073
    words (10 steps with a falling loss, graph replays bitwise, the card
    against the CPU with nce's draws the card's on both);
@@ -389,6 +390,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32: out, lse, dq, dk, dv against B1 over the whole sequence, the
    plain ring and float64, 10 B1 launches a ring; the placement search
    for the full-width program printed;
+9h. (6n) pipeline and expert parallelism (``pp_phase``): the GPipe and
+   1F1B schedules of 4 stages in one process on the transformer as
+   bench.py trains it (pp_micro 8, bf16 AMP, the stage body the
+   program's own sub-block): both forwards bitwise the serial loop run
+   microbatch by microbatch, the two schedules' gradients bitwise equal,
+   both within 2e-2 (relative L2) of one whole-batch backward, 1F1B's
+   stash within 2(S-1-st)+1 a stage, their bf16 B1 launches the
+   schedule's; pp_stages 1, pp_micro 8 under a ('pp',) mesh of 1 at NCCL
+   world 1: 3 eager steps against the plain Executor's and 3 graph
+   replays bitwise them, the NCCL calls a step the census, the bf16 B1
+   launches ``pipeline_launches`` derives; the 4-stage program 3 steps
+   under Executor; ``layers.moe`` top-1 and top-2 over [16, 512, 512]
+   tokens (8 experts, d_ff 2048) 3 Executor steps bitwise under an
+   ('ep',) mesh of 1, card against the CPU on margin tokens; the busy ms
+   of a pipelined and a plain step;
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -414,6 +430,7 @@ It imports nothing of JAX and nothing of the JAX package.
 import argparse
 import collections
 import contextlib
+import inspect
 import io
 import json
 import math
@@ -828,6 +845,10 @@ OPTIMIZERS = (
 # OPTIM_EVAL_BATCHES batches; run_chunk K=GRAPH_K["optim"], one chunk
 OPTIM_WARMUP, OPTIM_STEPS = 1, 3
 OPTIM_AVERAGE = "adamax"
+# the runs held card against the CPU on the whole stacked LSTM (the
+# other optimizers' update ops are held card against the CPU by the
+# sweep; phase 6n's time took the rest)
+OPTIM_XCHECK = (OPTIM_AVERAGE,)
 OPTIM_EVAL_BATCHES = 4
 GRAPH_K.update(optim=4)
 # the card against the CPU at XCHECK's size (dict 1000, hid 128): 3
@@ -5725,8 +5746,9 @@ def optim_path(fluid, seed, dev, tag, kind, kw):
     the program): the streamed AUC against metrics.Auc and a numpy AUC on
     the same predictions, evaluator.Accuracy and WeightedAverage against
     the pass accuracy; run_chunk's graph replays bitwise against eager
-    steps; the update ops' share of the step; the card against the CPU at
-    XCHECK's size. Returns (B3/B4 launches, numbers)."""
+    steps; the update ops' share of the step; on the OPTIM_XCHECK runs the
+    card against the CPU at XCHECK's size. Returns (B3/B4 launches,
+    numbers)."""
     from paddle_tpu_torch import average, metrics, unique_name
 
     started = time.perf_counter()
@@ -5851,10 +5873,11 @@ def optim_path(fluid, seed, dev, tag, kind, kw):
                         average=tag == OPTIM_AVERAGE)
         return x["prog"], x["startup"], None, (x["loss"],)
 
-    cross_check(fluid, fluid.Executor(), build, seed,
-                {"words": xwords, "label": xlabel}, XCHECK_STEPS,
-                "%s, %s, B %d" % (label, XCHECK, XCHECK_B),
-                state_tol=OPTIM_STATE_TOL)
+    if tag in OPTIM_XCHECK:
+        cross_check(fluid, fluid.Executor(), build, seed,
+                    {"words": xwords, "label": xlabel}, XCHECK_STEPS,
+                    "%s, %s, B %d" % (label, XCHECK, XCHECK_B),
+                    state_tol=OPTIM_STATE_TOL)
     return launched, nums
 
 
@@ -9666,8 +9689,9 @@ def parallel_phase(fluid, seed, dev):
                         torch.cuda.synchronize()
                         states.append(pe_state(scope))
                     b8_step = k1.launches["conv1x1_bwd"]
-                    # further steps, profiled: busy, the NCCL calls
-                    busy, nccl = comm_profile(step)
+                    # one further step, profiled: busy, the NCCL calls
+                    # (one a mode: phase 6n's time took the other two)
+                    busy, nccl = comm_profile(step, reps=1)
                 if b8_step != want_b8:
                     raise AssertionError(
                         "%s: %d bf16 B8 launches in a step, the program "
@@ -10163,6 +10187,574 @@ def tp_phase(fluid, seed, dev):
     return launches
 
 
+# ---- phase 6n: pipeline and expert parallelism ----
+# The card holds one NCCL rank, so (a) runs the S-stage schedules in one
+# process (``pipeline.pipeline_in_process``: every stage on the card, a
+# send a hand-over) on the transformer as bench.py trains it (LM, bf16
+# AMP, batch LM_B) built with pp_stages=PP_S, pp_micro=PP_M: its stage
+# body is the program's own sub-block, B1 in bf16 in every stage; (b)
+# runs the executor path at NCCL world 1: pp_stages=1, pp_micro=PP_M
+# under a ('pp',) mesh of 1, PP_K eager steps and a run_chunk of PP_K
+# graph replays, then the PP_S-stage program PP_K steps under Executor;
+# (c) layers.moe at the transformer's width (MOE_T tokens of LM d_model,
+# MOE_E experts, MOE_F d_ff, top-1 and top-2) under Executor and an
+# ('ep',) mesh of 1, and card against the CPU at MOE_XT tokens whose
+# routing keeps a margin. The sums across ranks (the pp sends, the
+# experts' all-reduces) are held on the CPU at gloo worlds of 2, 4 and 8
+# by tests/test_torch_{pipeline,moe}.py.
+PP_S, PP_M, PP_K = 4, 8, 3
+MOE_B, MOE_E, MOE_F = 16, 8, 2048
+MOE_XB, MOE_XT = 2, 64
+# a token keeps a routing margin when its k-th and (k+1)-th gate
+# probabilities differ by this much (relative to the k-th) on the CPU
+MOE_MARGIN = 1e-3
+# card against the CPU after one step on those tokens (float32, TF32
+# off): each parameter within this share of its largest magnitude, the
+# loss within this share of itself (the products sum in other orders)
+MOE_XRTOL = 1e-4
+# the microbatched schedules against one whole-batch serial backward:
+# the products' shapes differ, so bf16 roundings differ; relative L2 of
+# each gradient against its own norm
+PP_WHOLE_RTOL = 2e-2
+# the ('pp',) executor's Adam moments after its first step against the
+# plain Executor's, relative L2 (H100 reading 2.1e-2 on a moment2, the
+# square of a gradient, at bench.py's width: the whole model's
+# gradients under bf16, not only the trunk's against a small cotangent)
+PP_STATE_RTOL = 5e-2
+# Adam's first step moves an element by lr g / (|g| + eps), +-lr wherever
+# |g| >> eps, so a parameter after it holds only its gradient's signs: an
+# element whose gradient nearly cancels may step the other way under
+# other product shapes. At most this share of a parameter's elements
+# may lie half a step (lr / 2) apart (H100 reading 1.17e-2 at bench.py's
+# width)
+PP_STEP_SHARE = 5e-2
+# the ('pp',) executor's losses against the plain Executor's, relative
+# to each loss (H100 readings 1.37e-5 at bench.py's width, 3.31e-5 at the
+# card test's reduced width)
+PP_LOSS_RTOL = 1e-3
+
+
+def pipeline_op(prog):
+    """The program's ``pipeline`` op."""
+    return next(o for o in prog.global_block().ops if o.type == "pipeline")
+
+
+def stage_attention(prog):
+    """B1 launches of one stage's forward (the ``fused_attention`` ops of
+    the pipeline op's sub-block)."""
+    return sum(o.type == "fused_attention" for o in prog.block(
+        pipeline_op(prog).attrs["sub_block_id"]).ops)
+
+
+def pipeline_launches(prog):
+    """B1 launches of one training step of a program whose trunk is a
+    ``pipeline`` op: the op's forward runs every stage on every
+    microbatch once, and its grad (the generic grad: the lowering again,
+    under autograd) once more in GPipe (each microbatch's graph kept;
+    its backward is FlashAttention's, no B1) or, in 1F1B, the forward,
+    the backward's forward replay on stages 0..S-2 and the recompute of
+    every stage."""
+    op = pipeline_op(prog)
+    s, m = op.attrs["num_stages"], op.attrs["num_micro"]
+    per = stage_attention(prog)
+    fwd = s * m * per
+    grad = fwd if op.attrs["schedule"] == "gpipe" \
+        else fwd + (s - 1) * m * per + fwd
+    return fwd + grad
+
+
+def first_step_gaps(init, got, want, params, lr):
+    """({accumulator: rel L2}, {parameter: share of elements more than
+    lr / 2 apart}) of two scope states ``got`` and ``want`` after one
+    Adam step from ``init`` (a tensor of ``got`` reshaped to ``want``'s:
+    a trunk tensor is the [1, ...] stack of the plain one). The moments
+    hold the gradient itself (m1 = (1 - b1) g, m2 = (1 - b2) g^2 from
+    zero); a parameter only its signs (PP_STEP_SHARE)."""
+    serr, share = {}, {}
+    for n, v in init.items():
+        if not v.is_floating_point():
+            continue
+        w = want[n]
+        g = got[n].reshape(w.shape)
+        if n in params:
+            share[n] = float(((g.double() - w.double()).abs() > lr / 2)
+                             .double().mean())
+        else:
+            serr[n] = rel_l2(g, w)
+    return serr, share
+
+
+def rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def pp_schedules(fluid, seed, dev, cfg, batch, s, m, card):
+    """Phase 6n (a): the GPipe and 1F1B schedules of ``s`` stages in one
+    process on the transformer ``cfg`` (pp_stages=s, pp_micro=m) under
+    bf16 AMP: (1) both forwards bitwise the serial stage loop run
+    microbatch by microbatch; (2) the two schedules' parameter gradients
+    (for one cotangent) bitwise equal; (3) both within PP_WHOLE_RTOL of
+    one whole-batch serial backward; (4) the 1F1B backward's most
+    stashed inputs a stage within 2(S-1-st)+1; B1 launches exactly the
+    schedule's (pipeline_launches' terms). Returns its B1 launches."""
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.core.lower import TraceContext
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+    from paddle_tpu_torch.ops.pipeline_ops import stage_fn
+    from paddle_tpu_torch.parallel import pipeline as pl
+
+    with unique_name.guard():
+        prog, startup, _, _ = build_transformer_lm(
+            **dict(cfg, pp_stages=s, pp_micro=m))
+    fluid.amp.enable(prog)
+    startup.random_seed = seed
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0) if dev.type == "cuda"
+                   else fluid.CPUPlace()).run(startup, scope=scope)
+    # the op's own stage body (its sub-block, the program's AMP casts)
+    op = pipeline_op(prog)
+    stage = stage_fn(TraceContext(key=seed, training=True, program=prog,
+                                  device=dev), op)
+    params = [scope.find_var(n) for n in op.attrs["param_names"]]
+    per = stage_attention(prog)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (batch, cfg["seq_len"], cfg["d_model"])
+    x = torch.randn(shape, generator=g).to(dev)
+    dy = (torch.randn(shape, generator=g) * 1e-2).to(dev)
+    key = "flash_attention_bf16" if dev.type == "cuda" else None
+
+    def count():
+        return fa.launches[key] if key else 0
+
+    def serial(ps, a):
+        for i in range(s):
+            a = stage([p[i] for p in ps], [], a)
+        return a
+
+    total = 0
+    n0 = count()
+    with torch.no_grad():
+        ys = torch.cat([serial(params, xm) for xm in x.split(batch // m)])
+    total += count() - n0
+    runs, t0 = {}, time.perf_counter()
+    for sch in ("gpipe", "1f1b"):
+        leaves = [p.detach().clone().requires_grad_() for p in params]
+        stats = {}
+        n0 = count()
+        y = pl.pipeline_in_process(stage, leaves, [], x, m, sch, stats)
+        grads = torch.autograd.grad(y, leaves, dy)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        b1 = count() - n0
+        want = s * m * per * (1 if sch == "gpipe" else 3) \
+            - (0 if sch == "gpipe" else m * per)
+        if key and b1 != want:
+            raise AssertionError("%s: %d bf16 B1 launches, the schedule "
+                                 "has %d" % (sch, b1, want))
+        total += b1
+        runs[sch] = (y.detach(), [gr.detach() for gr in grads], stats, b1)
+        del y, grads, leaves
+    for sch, (y, _, stats, _) in runs.items():
+        if not torch.equal(y, ys):
+            raise AssertionError("%s forward is not bitwise the serial "
+                                 "loop run microbatch by microbatch (max "
+                                 "abs diff %.3g)" % (
+                                     sch, float((y - ys).abs().max())))
+    gp, fp = runs["gpipe"][1], runs["1f1b"][1]
+    bad = [n for n, a, b in zip(op.attrs["param_names"], gp, fp)
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError("GPipe and 1F1B gradients differ at %s"
+                             % bad[:5])
+    peak, bound = runs["1f1b"][2]["peak"], runs["1f1b"][2]["bound"]
+    if any(peak[st] > bound[st] for st in bound):
+        raise AssertionError("1F1B stashed %s inputs a stage, bound %s"
+                             % (peak, bound))
+    leaves = [p.detach().clone().requires_grad_() for p in params]
+    n0 = count()
+    yw = serial(leaves, x)
+    gw = torch.autograd.grad(yw, leaves, dy)
+    total += count() - n0
+    errs = {n: rel_l2(a, b) for n, a, b in zip(op.attrs["param_names"],
+                                               gp, gw)}
+    fwd_err = rel_l2(ys, yw.detach())
+    worst = max(errs.values())
+    if worst > PP_WHOLE_RTOL or fwd_err > PP_WHOLE_RTOL:
+        raise AssertionError(
+            "microbatched schedules against the whole-batch backward: "
+            "forward %.3g, worst gradient %s %.3g (bound %g)" % (
+                fwd_err, max(errs, key=errs.get), worst, PP_WHOLE_RTOL))
+    print("pipeline schedules in one process (transformer %s, pp_stages "
+          "%d, pp_micro %d, bf16 AMP, batch %d): both forwards bitwise "
+          "the serial loop microbatch by microbatch; GPipe and 1F1B "
+          "gradients bitwise equal over %d stacked parameters; against "
+          "one whole-batch serial backward: forward rel L2 %.3g, worst "
+          "gradient rel L2 %.3g (%s; bound %g); 1F1B stashed inputs a "
+          "stage %s (bound %s); bf16 B1 launches GPipe %d, 1F1B %d (%d "
+          "a stage forward); %.1f s (card: %s)" % (
+              json.dumps(cfg), s, m, batch, len(gp), fwd_err, worst,
+              max(errs, key=errs.get), PP_WHOLE_RTOL,
+              json.dumps(peak), json.dumps(bound), runs["gpipe"][3],
+              runs["1f1b"][3], per, time.perf_counter() - t0, card))
+    return total
+
+
+def moe_build(fluid, tokens, d, e, f, top_k, lr=1.0):
+    """``layers.moe`` over [B, tokens, d]: ``e`` experts of ``f``, top-k,
+    the moe golden's loss (mean square + 0.01 aux) and SGD."""
+    from paddle_tpu_torch import unique_name
+
+    layers = fluid.layers
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            x = layers.data("x", [tokens, d])
+            out, aux = layers.moe(x, num_experts=e, d_ff=f, top_k=top_k)
+            loss = layers.elementwise_add(
+                layers.mean(layers.square(out)),
+                layers.scale(aux, scale=0.01))
+            fluid.optimizer.SGD(lr).minimize(loss)
+    return prog, startup, loss
+
+
+def moe_margin_tokens(gate, pool, k, n):
+    """The first ``n`` tokens of ``pool`` (float64 on the CPU) whose k-th
+    and (k+1)-th gate probabilities (and, for k > 1, every pair of the
+    top k+1) differ by MOE_MARGIN of the k-th: their routing cannot flip
+    between the card's and the CPU's roundings."""
+    probs = torch.softmax(pool.double() @ gate.double(), dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1).values
+    gap = (top[:, :-1] - top[:, 1:]) / top[:, :-1]
+    keep = torch.nonzero(gap.min(dim=-1).values > MOE_MARGIN)[:, 0]
+    if keep.numel() < n:
+        raise AssertionError("only %d of %d tokens keep a routing margin"
+                             % (keep.numel(), pool.shape[0]))
+    return pool[keep[:n]]
+
+
+def moe_path(fluid, seed, dev, cfg, top_k, card, comm_profile_fn):
+    """Phase 6n (c) for one top-k: PP_K steps under Executor, the same
+    under ParallelExecutor on an ('ep',) mesh of 1 bitwise; card against
+    the CPU at MOE_XB x MOE_XT margin tokens, one step."""
+    from paddle_tpu_torch.parallel import ParallelExecutor, make_mesh
+
+    d, t = cfg["d_model"], cfg["seq_len"]
+    prog, startup, loss = moe_build(fluid, t, d, MOE_E, MOE_F, top_k)
+    startup.random_seed = seed
+    scope0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope0)
+    init = scope_state(scope0)
+    g = torch.Generator(device="cpu").manual_seed(seed + top_k)
+    feed = {"x": (torch.randn(MOE_B, t, d, generator=g) * 0.5).to(dev)}
+    runs = {}
+    for name in ("plain", "ep"):
+        scope = fluid.Scope()
+        for n, v in init.items():
+            scope.set_var(n, v.clone())
+        exe = fluid.Executor() if name == "plain" else ParallelExecutor(
+            loss_name=loss.name, main_program=prog,
+            mesh=make_mesh((1,), ("ep",)))
+        exe._step = 1
+        losses = [float(exe.run(program=prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(PP_K)]
+        runs[name] = dict(losses=losses, state=pe_state(scope),
+                          census=getattr(exe, "last_census", None))
+        if name == "ep":
+            busy, nccl = comm_profile_fn(lambda: exe.run(
+                program=prog, feed=feed, fetch_list=[loss], scope=scope),
+                reps=1)
+            runs[name]["busy"], runs[name]["nccl"] = busy, nccl
+        del scope, exe
+    a, p = runs["ep"], runs["plain"]
+    bad = same_state(a["state"], p["state"])
+    if a["losses"] != p["losses"] or bad:
+        raise AssertionError("moe top-%d on ('ep',) of 1 is not bitwise "
+                             "the Executor: losses %s %s, state at %s"
+                             % (top_k, a["losses"], p["losses"], bad[:5]))
+    if not (np.isfinite(p["losses"]).all()
+            and p["losses"][-1] < p["losses"][0]):
+        raise AssertionError("moe top-%d losses %s" % (top_k, p["losses"]))
+    calls = a["nccl"][0]
+    if calls != len(a["census"]):
+        raise AssertionError("moe ep: %d NCCL calls a step, the census %d"
+                             % (calls, len(a["census"])))
+    # card against the CPU: margin tokens, one step from the same state
+    xprog, xstart, xloss = moe_build(fluid, MOE_XT, d, MOE_E, MOE_F,
+                                     top_k)
+    xstart.random_seed = seed
+    s_cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(xstart, scope=s_cpu)
+    mop = next(o for o in xprog.global_block().ops if o.type == "moe")
+    gate = s_cpu.find_var(mop.inputs["Gate"][0])
+    pool = torch.randn(64 * MOE_XB * MOE_XT, d, generator=g) * 0.5
+    toks = moe_margin_tokens(gate, pool, top_k, MOE_XB * MOE_XT) \
+        .float().reshape(MOE_XB, MOE_XT, d)
+    s_card = fluid.Scope()
+    for n, v in scope_state(s_cpu).items():
+        s_card.set_var(n, v.to(dev))
+    lc = float(fluid.Executor(fluid.CPUPlace()).run(
+        xprog, feed={"x": toks}, fetch_list=[xloss], scope=s_cpu)[0])
+    lg = float(fluid.Executor().run(xprog, feed={"x": toks.to(dev)},
+                                    fetch_list=[xloss], scope=s_card)[0])
+    worst = 0.0
+    for n, v in scope_state(s_cpu).items():
+        w = s_card.find_var(n).cpu()
+        if v.is_floating_point():
+            e = float((w.double() - v.double()).abs().max())
+            tol = MOE_XRTOL * float(v.double().abs().max())
+            if e > tol:
+                raise AssertionError("moe top-%d card vs CPU: %s differs "
+                                     "by %.3g (bound %.3g)" % (top_k, n, e,
+                                                                tol))
+            worst = max(worst, e / max(float(v.double().abs().max()),
+                                       1e-30))
+    if abs(lg - lc) > MOE_XRTOL * abs(lc):
+        raise AssertionError("moe top-%d card vs CPU loss %r %r"
+                             % (top_k, lg, lc))
+    print("moe top-%d ([%d, %d, %d] tokens, %d experts, d_ff %d, SGD): %d "
+          "Executor steps (losses %s) bitwise under an ('ep',) mesh of 1; "
+          "%d NCCL calls a step = the census %s; busy %s ms a step; card "
+          "vs CPU at [%d, %d] margin tokens (k-th/(k+1)-th gate gap > %g "
+          "of the k-th on the CPU in float64): loss %r vs %r, worst "
+          "parameter %.3g of its max after one step (bound %g of the "
+          "max) (card: %s)" % (
+              top_k, MOE_B, t, d, MOE_E, MOE_F, PP_K, p["losses"], calls,
+              json.dumps(comm_audit_kinds(a["census"])),
+              "%.3f" % a["busy"] if a["busy"] else "not measured",
+              MOE_XB, MOE_XT, MOE_MARGIN, lg, lc, worst, MOE_XRTOL, card))
+    return a["busy"]
+
+
+def comm_audit_kinds(census):
+    from paddle_tpu_torch.parallel import comm_audit
+
+    return {k: v["count"] for k, v in
+            comm_audit.collective_stats(census).items()}
+
+
+def pp_phase(fluid, seed, dev, cfg=None, batch=None):
+    """Phase 6n: pipeline ('pp') and expert ('ep') parallelism (see the
+    comment above). (a) ``pp_schedules``; (b) the ('pp',) mesh of 1
+    under ParallelExecutor: PP_K eager steps, the same from a fresh
+    state as one run_chunk of graph replays (bitwise the eager ones),
+    the plain Executor's losses within PP_LOSS_RTOL, its Adam moments
+    after the first step within PP_STATE_RTOL (rel L2; microbatching
+    changes the products' shapes) and its parameters then within
+    PP_STEP_SHARE (``first_step_gaps``), the B1 launches
+    ``pipeline_launches`` derives, the NCCL calls a step the census, and
+    the PP_S-stage program PP_K steps under Executor (finite, falling
+    losses); (c) ``moe_path`` top-1 and top-2. Prints the busy ms of a
+    pipelined and a plain step beside the card's name and power limit.
+    Returns the path's B1 launches."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import unique_name
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import build_transformer_lm
+    from paddle_tpu_torch.parallel import ParallelExecutor, make_mesh
+    from paddle_tpu_torch.parallel.distribute import init_multihost
+
+    cfg = cfg or LM
+    batch = batch or LM_B
+    t0 = time.perf_counter()
+    init_multihost("localhost:%d" % free_port(), 1, 0, device=dev)
+    launches = {"flash_attention_bf16": 0}
+    card = card_line()
+    try:
+        # ---- (a) the schedules of PP_S stages in one process ----
+        launches["flash_attention_bf16"] += pp_schedules(
+            fluid, seed, dev, cfg, batch, PP_S, PP_M, card)
+        torch.cuda.empty_cache()
+
+        t_a = time.perf_counter()
+
+        # ---- (b) the executor path at world 1 ----
+        feed = {n: torch.from_numpy(a).to(dev) for n, a in lm_feed(
+            cfg["vocab_size"], cfg["seq_len"], batch, seed).items()}
+        with unique_name.guard():
+            prog, startup, _, (loss,) = build_transformer_lm(
+                **dict(cfg, pp_stages=1, pp_micro=PP_M))
+        with unique_name.guard():
+            plain, _, _, (ploss,) = build_transformer_lm(**cfg)
+        for p_ in (prog, plain):
+            fluid.amp.enable(p_)
+        startup.random_seed = seed
+        scope0 = fluid.Scope()
+        fluid.Executor().run(startup, scope=scope0)
+        init = scope_state(scope0)
+        del scope0
+        want = pipeline_launches(prog)
+        pf, pg, _ = attention_launches(plain)
+
+        pvars = plain.global_block().vars
+
+        def fresh(plain_layout=False):
+            s_ = fluid.Scope()
+            for n, v in init.items():
+                # the plain program's trunk parameters (and their Adam
+                # moments) are the one stage's [1, ...] stacks without
+                # the stage dim
+                if plain_layout and n in pvars and tuple(v.shape) == \
+                        (1,) + tuple(pvars[n].shape):
+                    v = v[0]
+                s_.set_var(n, v.clone())
+            return s_
+
+        runs = {}
+        for name in ("plain", "pp"):
+            if name == "plain":
+                scope = fresh(True)
+                exe = fluid.Executor()
+                pr, lo = plain, ploss
+            else:
+                scope = fresh()
+                exe = ParallelExecutor(loss_name=loss.name,
+                                       main_program=prog,
+                                       mesh=make_mesh((1,), ("pp",)))
+                pr, lo = prog, loss
+            exe._step = 1
+
+            def step():
+                return float(exe.run(program=pr, feed=feed, fetch_list=[lo],
+                                     scope=scope)[0])
+
+            fa.reset_launches()
+            losses = [step()]
+            first = pe_state(scope)
+            losses += [step() for _ in range(PP_K - 1)]
+            torch.cuda.synchronize()
+            b1 = dict(fa.launches)
+            runs[name] = dict(losses=losses, state=pe_state(scope), b1=b1,
+                              first=first)
+            busy, nccl = comm_profile(step, reps=3)
+            runs[name].update(busy=busy, nccl=nccl,
+                              census=getattr(exe, "last_census", None))
+            del scope, exe
+            torch.cuda.empty_cache()
+        a, p = runs["pp"], runs["plain"]
+        if a["b1"]["flash_attention_bf16"] != want * PP_K or \
+                a["b1"]["flash_attention"] != 0:
+            raise AssertionError("pp: B1 launches %s in %d steps, the "
+                                 "program's %d a step" % (a["b1"], PP_K,
+                                                          want))
+        if p["b1"]["flash_attention_bf16"] != (pf + pg) * PP_K:
+            raise AssertionError("plain: B1 launches %s, the program's %d "
+                                 "a step" % (p["b1"], pf + pg))
+        launches["flash_attention_bf16"] += (want + pf + pg) * PP_K
+        lerr = max(abs(x_ - y_) / abs(y_) for x_, y_ in zip(a["losses"],
+                                                          p["losses"]))
+        if lerr > PP_LOSS_RTOL:
+            raise AssertionError("pp_micro %d losses %s against the plain "
+                                 "Executor's %s (worst rel %.3g, bound %g)"
+                                 % (PP_M, a["losses"], p["losses"], lerr,
+                                    PP_LOSS_RTOL))
+        serr, share = first_step_gaps(
+            init, a["first"], p["first"],
+            {v.name for v in plain.global_block().all_parameters()},
+            cfg.get("lr", inspect.signature(
+                build_transformer_lm).parameters["lr"].default))
+        sworst = max(serr, key=serr.get)
+        pworst = max(share, key=share.get)
+        first = ("after the first step %d accumulators within rel L2 %.3g "
+                 "(%s; bound %g), %d parameters with at most %.3g of "
+                 "their elements half a step apart (%s; bound %g)" % (
+                     len(serr), serr[sworst], sworst, PP_STATE_RTOL,
+                     len(share), share[pworst], pworst, PP_STEP_SHARE))
+        print("pp_micro %d against the plain Executor: %s" % (PP_M, first))
+        if serr[sworst] > PP_STATE_RTOL or share[pworst] > PP_STEP_SHARE:
+            raise AssertionError("pp_micro %d state %s" % (PP_M, first))
+        census, (calls, ranges, nus) = a["census"], a["nccl"]
+        if calls != len(census):
+            raise AssertionError("pp: %d NCCL calls a step, the census %d"
+                                 % (calls, len(census)))
+        # K graph replays from a fresh state: bitwise the eager steps
+        scope = fresh()
+        pe = ParallelExecutor(loss_name=loss.name, main_program=prog,
+                              mesh=make_mesh((1,), ("pp",)))
+        pe._step = 1
+        fa.reset_launches()
+        out = pe.run_chunk(prog, feed_chunk=chunk_of(feed, PP_K),
+                           fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        graph = [float(v) for v in np.asarray(out[0]).ravel()]
+        gb1 = fa.launches["flash_attention_bf16"]
+        bad = same_state(pe_state(scope), a["state"])
+        if graph != a["losses"] or bad or gb1 != want * PP_K:
+            raise AssertionError(
+                "pp graph replays: losses %s against eager %s, state "
+                "differs at %s, %d bf16 B1 against %d" % (
+                    graph, a["losses"], bad[:5], gb1, want * PP_K))
+        launches["flash_attention_bf16"] += gb1
+        busy_g = device_busy_ms(lambda: pe.run_chunk(
+            prog, feed_chunk=chunk_of(feed, PP_K), fetch_list=[loss],
+            scope=scope))
+        del scope, pe
+        torch.cuda.empty_cache()
+        print("pp executor path (transformer %s, pp_stages 1, pp_micro %d, "
+              "bf16 AMP, batch %d, ('pp',) mesh of 1, NCCL world 1): %d "
+              "eager steps (losses %s) against the plain Executor's %s "
+              "(worst rel %.3g, bound %g); %s; %d graph replays bitwise the "
+              "eager steps; %d bf16 B1 a step = the program's (%d stage "
+              "forwards x 2: the op and its generic grad's GPipe "
+              "forward) against the plain step's %d; %d NCCL calls a step "
+              "= the census %s (%d ranges, %.1f us); busy ms a step: "
+              "pipelined %s, plain %s, pipelined in graphs %s (card: %s)"
+              % (json.dumps(cfg), PP_M, batch, PP_K, a["losses"],
+                 p["losses"], lerr, PP_LOSS_RTOL, first, PP_K, want,
+                 want // 2,
+                 pf + pg, calls, json.dumps(comm_audit_kinds(census)),
+                 ranges, nus,
+                 "%.3f" % a["busy"] if a["busy"] else "not measured",
+                 "%.3f" % p["busy"] if p["busy"] else "not measured",
+                 "%.3f" % (busy_g / PP_K) if busy_g else "not measured",
+                 card))
+        del runs, init
+
+        # the PP_S-stage program trains under Executor as bench.py trains
+        with unique_name.guard():
+            prog4, start4, _, (loss4,) = build_transformer_lm(
+                **dict(cfg, pp_stages=PP_S, pp_micro=PP_M))
+        fluid.amp.enable(prog4)
+        start4.random_seed = seed
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(start4, scope=scope)
+        fa.reset_launches()
+        losses = [float(exe.run(prog4, feed=feed, fetch_list=[loss4],
+                                scope=scope)[0]) for _ in range(PP_K)]
+        torch.cuda.synchronize()
+        n4 = fa.launches["flash_attention_bf16"]
+        # the serial loop: every stage once in the op, once more in its
+        # generic grad's forward under autograd
+        w4 = 2 * PP_S * stage_attention(prog4)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]) \
+                or n4 != w4 * PP_K:
+            raise AssertionError("pp_stages %d under Executor: losses %s, "
+                                 "%d bf16 B1 (want %d)" % (
+                                     PP_S, losses, n4, w4 * PP_K))
+        launches["flash_attention_bf16"] += n4
+        print("pp_stages %d, pp_micro %d under Executor (the serial stage "
+              "loop, bf16 AMP): %d steps, losses %s; %d bf16 B1 a step"
+              % (PP_S, PP_M, PP_K, losses, w4))
+        del scope, exe
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+
+        # ---- (c) MoE at the transformer's width ----
+        for k in (1, 2):
+            moe_path(fluid, seed, dev, cfg, k, card, comm_profile)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    print("phase 6n: %.1f s ((a) %.1f s, (b) %.1f s, (c) %.1f s)"
+          % (t1 - t0, t_a - t0, t_b - t_a, t1 - t_b))
+    return launches
+
+
 def main():
     started = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -10571,6 +11163,16 @@ def main():
           "view, the ring's blocks at %d chunks of %s, the placement search "
           "(seed %d)" % (RING_N, list(RING_SHAPE), args.seed))
     for n, c in tp_phase(fluid, args.seed, dev).items():
+        launches[n] += c
+
+    # ---- 9h. pipeline and expert parallelism (phase 6n) ----
+    phase("pipeline and expert parallelism: the GPipe and 1F1B schedules "
+          "of %d stages in one process on the transformer as bench.py "
+          "trains it, the ('pp',) executor path at NCCL world 1 (eager and "
+          "graph replays), the %d-stage program under Executor, layers.moe "
+          "top-1 and top-2 at the transformer's width under an ('ep',) "
+          "mesh of 1 and card vs CPU (seed %d)" % (PP_S, PP_S, args.seed))
+    for n, c in pp_phase(fluid, args.seed, dev).items():
         launches[n] += c
 
     # ---- 10. times ----

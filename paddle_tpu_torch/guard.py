@@ -362,7 +362,7 @@ class TraceGuard:
 
     __slots__ = ("plan", "state", "step_idx", "scale", "_grads",
                  "_clip_sq", "_clip_covered", "_poisoned",
-                 "_seed_name", "_grad_final_uid", "sq_across")
+                 "_seed_name", "_grad_final_uid", "sq_across", "line_sq")
 
     def __init__(self, plan, state, step_idx, program):
         self.plan = plan
@@ -378,6 +378,10 @@ class TraceGuard:
         # gradients' sum of squares: set by the comm layer when each
         # rank records only its rows of the gradients (global-view ZeRO)
         self.sq_across = None
+        # None, or the comm layer's sum of squares over whole parameters
+        # when the mesh holds some 1/n a rank (the stage and expert axes:
+        # ``collectives.TraceComm.line_sq``)
+        self.line_sq = None
         if plan.poison is not None:
             first, last = plan.poison
             one_based = step_idx + 1
@@ -486,13 +490,16 @@ def finalize(tg, env, old_mut, cand_mut):
     # shared sum of squares) and the finiteness test: a NaN/Inf in any
     # gradient reaches the float32 sum, and a sum that overflows reads
     # as unhealthy too
-    leaves = [leaf.to(torch.float32).reshape(-1)
-              for name, g in tg._grads if name not in tg._clip_covered
-              for leaf in _float_leaves(g)]
-    if leaves:
+    pairs = [(name, leaf) for name, g in tg._grads
+             if name not in tg._clip_covered for leaf in _float_leaves(g)]
+    extra_sq = None
+    if tg.line_sq is not None:
+        extra_sq = tg.line_sq(pairs)
+    elif pairs:
+        leaves = [leaf.to(torch.float32).reshape(-1) for _, leaf in pairs]
         flat = leaves[0] if len(leaves) == 1 else torch.cat(leaves)
         extra_sq = torch.dot(flat, flat)
-    else:
+    if extra_sq is None:
         extra_sq = torch.zeros((), dtype=torch.float32, device=loss.device)
     if tg.sq_across is not None:
         extra_sq = tg.sq_across(extra_sq.reshape(1)).reshape(())

@@ -25,6 +25,10 @@ class Initializer:
     @staticmethod
     def _fan(var):
         shape = var.shape
+        # pipeline-stacked params carry a leading [num_stages] dim that is
+        # not part of any one stage's fan
+        if getattr(var, "pp_stages", None) and len(shape) > 1:
+            shape = shape[1:]
         if len(shape) < 1:
             return 1, 1
         if len(shape) == 1:

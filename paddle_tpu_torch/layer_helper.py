@@ -4,7 +4,9 @@ Capability parity: `python/paddle/fluid/layer_helper.py` — parameter creation
 with initializers, dtype inference, bias/activation appending. Every
 appended op gets its output shapes inferred on meta tensors
 (core.infer), so layers can size downstream parameters immediately.
-Pipeline-stage parameters (``layers.Pipeline``) arrive with a later slice.
+Inside a pipeline stage region (``layers.Pipeline``) a parameter is
+declared ``[S] + shape``, sharded ``('pp',) + spec``, with a per-stage
+shadow var in the stage's sub-block.
 """
 
 from paddle_tpu_torch import unique_name
@@ -14,6 +16,11 @@ from paddle_tpu_torch.initializer import Constant, Xavier
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = ["LayerHelper"]
+
+# active pipeline-stage regions (see layers.pipeline.Pipeline): while a
+# region is open, created parameters become [num_stages]-stacked arrays
+# sharded over 'pp' with a per-stage shadow var in the stage sub-block
+PIPELINE_PARAM_CTX = []
 
 
 class LayerHelper:
@@ -78,17 +85,43 @@ class LayerHelper:
         init = attr.initializer or default_initializer or (
             Constant(0.0) if is_bias else Xavier())
         shape = [int(s) for s in shape]
+        # inside a pipeline stage region, the real parameter is the
+        # [num_stages]-stacked array sharded over 'pp'; the stage sub-block
+        # sees a per-stage shadow var so shape inference stays per-stage
+        pp = PIPELINE_PARAM_CTX[-1] if PIPELINE_PARAM_CTX else None
+        decl_shape = ([pp["stages"]] + shape) if pp else shape
+        decl_sharding = attr.sharding
+        if pp:
+            if "mp" in tuple(attr.sharding or ()):
+                # a stage runs with no comm layer: its 'mp' partial sums
+                # would never be reduced
+                raise ValueError(
+                    "parameter %r (sharding %r) inside a Pipeline stage: "
+                    "tensor-parallel ('mp') weights inside a pipeline "
+                    "stage are not supported (the stage body runs with no "
+                    "'mp' collectives); declare 'mp'-sharded weights "
+                    "outside the Pipeline region" % (name, attr.sharding))
+            decl_sharding = ("pp",) + tuple(attr.sharding
+                                            or (None,) * len(shape))
         # declare in main program (compute graph) ...
         p = self.block().create_parameter(
-            name, shape, dtype, trainable=attr.trainable,
+            name, decl_shape, dtype, trainable=attr.trainable,
             regularizer=attr.regularizer,
             gradient_clip_attr=attr.gradient_clip,
-            sharding=attr.sharding,
+            sharding=decl_sharding,
             optimize_attr={"learning_rate": attr.learning_rate})
-        # ... and emit its init op into the startup program
+        if pp:
+            p.pp_stages = pp["stages"]
+            pp["sub_block"].create_var(name=name, shape=shape, dtype=dtype)
+            pp["params"].append(name)
+        # ... and emit its init op into the startup program (on the
+        # stacked shape, as the JAX package runs it)
         sb = self.startup_program.global_block()
         if not sb.has_var_local(name):
-            sb.create_parameter(name, shape, dtype, trainable=attr.trainable)
+            sp = sb.create_parameter(name, decl_shape, dtype,
+                                     trainable=attr.trainable)
+            if pp:
+                sp.pp_stages = pp["stages"]
             init(sb.vars[name], sb)
         return p
 

@@ -9,6 +9,8 @@ from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
 from paddle_tpu_torch.layers.learning_rate_scheduler import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import recompute  # noqa: F401
 from paddle_tpu_torch.layers.recompute import *  # noqa: F401,F403
+from paddle_tpu_torch.layers import pipeline  # noqa: F401
+from paddle_tpu_torch.layers.pipeline import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.math_op_patch import monkey_patch_variable
 

@@ -22,8 +22,9 @@ slice and unpad over sequences, and re-segmenting them) and the CTC
 layers (the loss, the greedy decoder, the edit distance), the loss
 family's layers (the pointwise and ranking losses, the ``nce`` and
 ``hsigmoid`` heads, the NTM's ``conv_shift``) and the streaming
-metrics (``auc``, ``mean_iou``); the JAX package's other layers
-(concurrency, pipeline, mixture of experts) arrive with later slices.
+metrics (``auc``, ``mean_iou``), and ``moe`` (mixture of experts over
+the 'ep' axis); the JAX package's concurrency layers arrive with a
+later slice (``layers.Pipeline`` is ``layers/pipeline.py``).
 """
 
 from paddle_tpu_torch.core import ir
@@ -58,7 +59,7 @@ __all__ = [
     "conv3d_transpose", "unpool", "spp", "im2sequence", "grid_sampler",
     "image_resize", "resize_bilinear", "resize_nearest", "group_norm",
     "batch_norm_1d", "sequence_last_step", "dice_loss",
-    "lod_reset", "sequence_softmax", "sequence_expand", "sequence_reshape",
+    "lod_reset", "moe", "sequence_softmax", "sequence_expand", "sequence_reshape",
     "sequence_reverse", "sequence_concat", "sequence_slice",
     "sequence_unpad", "warpctc", "ctc_greedy_decoder", "edit_distance",
     "conv_shift", "smooth_l1", "sigmoid_cross_entropy_with_logits",
@@ -465,6 +466,49 @@ def lod_reset(x, y=None, target_lod=None, name=None):
                      {"target_lod": list(target_lod) if target_lod else []})
     return out
 
+
+
+def moe(input, num_experts, d_ff, top_k=1, capacity_factor=None,
+        param_attr=None, name=None):
+    """Mixture-of-experts FFN (Switch top-1 / GShard top-k). Expert
+    parameters are created sharded over the 'ep' mesh axis, so under a
+    ParallelExecutor mesh with that axis each rank holds only its own
+    experts. Returns (out, aux_loss); add ``aux_loss`` (scaled ~1e-2)
+    to the training loss for load balancing."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+    import copy
+
+    if not 1 <= top_k <= num_experts:
+        raise ValueError("moe: top_k=%d must be in [1, num_experts=%d]"
+                         % (top_k, num_experts))
+    if capacity_factor is not None and capacity_factor <= 0:
+        raise ValueError("moe: capacity_factor must be > 0")
+    helper = LayerHelper("moe", param_attr=param_attr, name=name)
+    d = int(input.shape[-1])
+    gate = helper.create_parameter(ParamAttr.to_attr(param_attr),
+                                   [d, num_experts], input.dtype)
+
+    def ep_attr():
+        a = ParamAttr.to_attr(param_attr)
+        a = copy.copy(a) if isinstance(a, ParamAttr) else ParamAttr()
+        a.name = None  # each expert weight gets its own name
+        a.sharding = ("ep", None, None)
+        return a
+
+    w_in = helper.create_parameter(ep_attr(), [num_experts, d, d_ff],
+                                   input.dtype)
+    w_out = helper.create_parameter(ep_attr(), [num_experts, d_ff, d],
+                                    input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "moe", {"X": [input], "Gate": [gate], "WIn": [w_in],
+                "WOut": [w_out]},
+        {"Out": [out], "AuxLoss": [aux]},
+        dict({"top_k": top_k},
+             **({} if capacity_factor is None
+                else {"capacity_factor": capacity_factor})))
+    return out, aux
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     helper = LayerHelper("sequence_mask", name=name)

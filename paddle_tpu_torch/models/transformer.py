@@ -8,9 +8,9 @@ The programs it builds serialize to the same JSON as the JAX package's
 (``build_transformer_lm``, next-token cross-entropy and Adam, as
 ``bench.py`` trains it) and the KV-cached serving pair. ``mp=True``
 declares the Megatron tensor-parallel layout of every block, and
-``seq_axis`` the sequence-parallel ring attention of every block, both
-run by ``parallel.ParallelExecutor``. Pipeline stages (``pp_stages``)
-arrive with the 1F1B pipeline (ROADMAP.md Queue 1 item 4b).
+``seq_axis`` the sequence-parallel ring attention of every block, and
+``pp_stages`` pipelines the decoder trunk (``layers.Pipeline``, GPipe or
+1F1B), all run by ``parallel.ParallelExecutor``.
 """
 
 import paddle_tpu_torch as fluid
@@ -70,22 +70,52 @@ def transformer_lm(tokens, vocab_size, d_model=256, num_layers=4,
                    pp_schedule=None, mp=False):
     """tokens: int64 [batch, seq]. Returns logits [batch, seq, vocab].
 
+    ``pp_stages=S`` pipelines the decoder stack: the repeated stage (of
+    num_layers/S blocks) is declared once inside a layers.Pipeline
+    region, its parameters are [S]-stacked and sharded over the 'pp'
+    mesh axis, and embeddings/head stay outside the pipeline (only the
+    homogeneous trunk is pipelined). ``pp_micro`` microbatches (default
+    S); ``pp_schedule='1f1b'`` swaps the GPipe schedule for the
+    memory-steady 1F1B one (parallel/pipeline.py). Ring attention
+    (``seq_axis``) inside a stage is refused, and so is ``mp`` with
+    ``pp_stages``.
+
     ``mp=True`` declares the Megatron tensor-parallel layout on every
     block (embeddings and the vocab head stay replicated — by the time
     activations reach the head, every split has been closed)."""
-    if pp_stages:
-        raise NotImplementedError("transformer_lm(pp_stages=%r): pipeline "
-                                  "stages arrive with the 1F1B pipeline "
-                                  "(ROADMAP.md Queue 1 item 4b)"
-                                  % (pp_stages,))
+    if pp_stages and seq_axis:
+        raise ValueError(
+            "transformer_lm(pp_stages=%r, seq_axis=%r): ring attention "
+            "inside a pipeline stage is not supported (the stage body "
+            "runs on one rank's microbatch); use one of the two axes"
+            % (pp_stages, seq_axis))
+    if pp_stages and mp:
+        raise ValueError(
+            "transformer_lm(pp_stages=%r, mp=True): tensor-parallel "
+            "blocks inside a pipeline stage are not supported (the stage "
+            "body runs with no 'mp' collectives); use one of the two axes"
+            % (pp_stages,))
     d_ff = d_ff or 4 * d_model
     x = layers.embedding(tokens, (vocab_size, d_model))
     pos = layers.position_ids(tokens)
     pos_emb = layers.embedding(pos, (max_len, d_model))
     x = layers.elementwise_add(x, pos_emb)
-    for _ in range(num_layers):
-        x = decoder_block(x, num_heads, d_ff, seq_axis=seq_axis,
-                          dropout_rate=dropout_rate, mp=mp)
+    if pp_stages:
+        assert num_layers % pp_stages == 0, (num_layers, pp_stages)
+        pipe = layers.Pipeline(num_stages=pp_stages,
+                               num_micro=pp_micro or pp_stages,
+                               schedule=pp_schedule)
+        with pipe.stage():
+            h = pipe.input(x)
+            for _ in range(num_layers // pp_stages):
+                h = decoder_block(h, num_heads, d_ff, seq_axis=seq_axis,
+                                  dropout_rate=dropout_rate, mp=mp)
+            pipe.output(h)
+        x = pipe()
+    else:
+        for _ in range(num_layers):
+            x = decoder_block(x, num_heads, d_ff, seq_axis=seq_axis,
+                              dropout_rate=dropout_rate, mp=mp)
     x = layers.layer_norm(x, begin_norm_axis=2)
     return layers.fc(x, vocab_size, num_flatten_dims=2)
 

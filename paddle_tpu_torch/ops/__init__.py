@@ -14,4 +14,5 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     crf_ops,
     detection_ops,
     ctc_ops,
+    pipeline_ops,
 )

@@ -245,7 +245,14 @@ def _global_norm_clip(ctx, ins, attrs, o):
         v = g.values if isinstance(g, RowSparse) else g
         return torch.sum(torch.square(v.to(torch.float32)))
 
-    gnorm_sq = sum(sq(g) for g in gs)
+    comm = ctx.comm
+    if comm is not None and comm.plan.axis_params:
+        # parameters held 1/n a rank (the stage and expert axes): each
+        # one's part of the norm is summed over its line
+        gnorm_sq = comm.line_sq(list(zip(attrs.get("param_names", ()),
+                                         gs)))
+    else:
+        gnorm_sq = sum(sq(g) for g in gs)
     clip_norm = float(attrs["clip_norm"])
     factor = clip_norm / torch.clamp(torch.sqrt(gnorm_sq), min=clip_norm)
 

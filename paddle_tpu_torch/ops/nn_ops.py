@@ -21,7 +21,8 @@ tree-structured softmax heads (`nce_op`, `hierarchical_sigmoid_op`) and
 the NTM shift (`conv_shift_op`), each with the JAX package's formula,
 overflows included. The heads gather rows of W per example
 (:class:`_RowGather`), whose backward adds a row's duplicates in index
-order. ``moe`` arrives with a later slice.
+order. ``moe`` is the mixture-of-experts op over
+``parallel.expert_parallel``.
 """
 
 import math
@@ -712,6 +713,46 @@ def _spp(ctx, ins, attrs, o):
             pooled = s / torch.clamp_min(cnt, 1.0)
         outs.append(pooled.reshape(n, -1))
     return {"Out": torch.cat(outs, dim=1)}
+
+
+@op("moe")
+def _moe(ctx, ins, attrs, o):
+    """Mixture-of-experts layer op over the expert-parallel functions
+    (parallel/expert_parallel.py): top-1 Switch or top-k GShard routing,
+    dense dispatch. Inputs: X [B, T, D] or [T, D]; Gate [D, E]; WIn
+    [E, D, F]; WOut [E, F, D]. Outputs: Out (X-shaped), AuxLoss [] (add
+    it to the loss scaled by aux_weight). Under ``ParallelExecutor``'s
+    global view over a mesh with an 'ep' axis, WIn and WOut hold this
+    rank's ``E/ep`` experts and only they run; over a 'dp' axis X holds
+    this rank's rows and the capacity stays the global batch's
+    (``expert_parallel``'s module docstring). AuxLoss is then the same on
+    every rank."""
+    from paddle_tpu_torch.parallel import expert_parallel as ep
+
+    x = ins["X"][0]
+    params = {"gate": ins["Gate"][0], "w_in": ins["WIn"][0],
+              "w_out": ins["WOut"][0]}
+    k = attrs.get("top_k", 1)
+    cf = attrs.get("capacity_factor", 1.25 if k == 1 else 2.0)
+    lines = None
+    comm = ctx.comm
+    if comm is not None:
+        comm.mark_global(o, ["AuxLoss"])
+        mesh = comm.mesh
+        ep_line = (mesh.axis_group("ep"), mesh.shape["ep"],
+                   mesh.axis_rank("ep")) if "ep" in mesh.shape else None
+        dp_line = (comm.group, comm.world, comm.rank) \
+            if comm.reads_local(o) else None
+        lines = ep.Lines(ep_line, dp_line, comm.note_collective)
+    shape = x.shape
+    tokens = x.reshape(-1, shape[-1])
+    if k == 1:
+        y, aux = ep.switch_moe(params, tokens, capacity_factor=cf,
+                               lines=lines)
+    else:
+        y, aux = ep.topk_moe(params, tokens, k=k, capacity_factor=cf,
+                             lines=lines)
+    return {"Out": y.reshape(shape), "AuxLoss": aux}
 
 
 @op("im2sequence")

@@ -1,10 +1,10 @@
-"""Parallelism over ``torch.distributed``: the mesh (the ``dp``, ``mp``
-and ``sp`` axes), the gradient-communication layer with the tensor
+"""Parallelism over ``torch.distributed``: the mesh (the ``dp``, ``mp``,
+``sp``, ``pp`` and ``ep`` axes), the gradient-communication layer with the tensor
 axis's collectives, ``ParallelExecutor``, the distribute transpiler
 (``distribute.init_multihost`` joins a process to its world), and, as
-modules, ``context_parallel`` (ring attention) and ``placement`` (the
-placement search). The pipeline and expert parallelism arrive with
-later slices (ROADMAP.md Queue 1 items 4b and 4d)."""
+modules, ``context_parallel`` (ring attention), ``pipeline`` (the GPipe
+and 1F1B schedules over 'pp'), ``expert_parallel`` (mixture of experts
+over 'ep') and ``placement`` (the placement search)."""
 
 from paddle_tpu_torch.parallel.mesh import get_mesh, make_mesh, mesh_guard  # noqa
 from paddle_tpu_torch.parallel.parallel_executor import ParallelExecutor  # noqa

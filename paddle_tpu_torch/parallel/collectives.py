@@ -91,7 +91,8 @@ from paddle_tpu_torch.core.lower import PackedSeq, RowSparse
 __all__ = ["CommConfig", "CommPlan", "TraceComm", "plan_for",
            "ensure_state", "fold_ef_state", "EF_PREFIX", "state_names",
            "ensure_zero_state", "restore_full_opt_state",
-           "fold_zero_state", "zero_specs", "mp_specs", "ShardedState"]
+           "fold_zero_state", "zero_specs", "mp_specs", "ShardedState",
+           "axis_sharded", "ensure_axis_state", "SOLO"]
 
 # reserved scope-name prefix for the error-feedback residual carry
 EF_PREFIX = "comm@ef"
@@ -226,10 +227,17 @@ class CommPlan:
                  require_grads=True, seq_axis=None):
         axes = tuple(mesh.axis_names)
         self.seq_axis = None
+        # the stage ('pp') and expert ('ep') axes of the global view: their
+        # parameters are held 1/n a rank (``ensure_axis_state``), and the
+        # gradient exchange runs over the rank's dp line
+        held = tuple(a for a in ("pp", "ep") if a in axes) \
+            if not require_grads else ()
         if axes == (batch_axis,):
             self.mp_axis = None
         elif axes == (batch_axis, "mp"):
             self.mp_axis = "mp"
+        elif held and set(axes) <= {batch_axis, "mp", "pp", "ep"}:
+            self.mp_axis = "mp" if "mp" in axes else None
         elif seq_axis is not None and seq_axis in axes \
                 and set(axes) <= {batch_axis, seq_axis}:
             self.mp_axis = None
@@ -246,12 +254,27 @@ class CommPlan:
         # the ranks of the gradient exchange: the dp line (every rank of
         # the mesh in the global view over a sequence axis)
         self.world = mesh.size if self.seq_axis is not None \
-            else int(mesh.shape[batch_axis])
+            else int(mesh.axis_size(batch_axis))
         self.mp = int(mesh.shape["mp"]) if self.mp_axis else 1
+        # {name: (axis, size)} of every parameter (and same-shaped
+        # optimizer accumulator) whose leading dim a 'pp' or 'ep' axis cuts
+        self.axis_params = {}
+        if held:
+            if config.zero_stage and self.world > 1:
+                raise ValueError(
+                    "ParallelExecutor(comm_config=None) over a mesh with "
+                    "axes %r: ZeRO-1 over %r does not compose with the "
+                    "stage and expert axes yet (a stacked parameter and "
+                    "its accumulators are held 1/n a rank over %r "
+                    "already); pass zero_stage=0"
+                    % (axes, batch_axis, held))
+            self.axis_params = axis_sharded(program, mesh)
         self.mp_params = {}  # param name -> "col" | "row" | "shard"
         self.mp_state = {}   # optimizer accumulator name -> owning param
         self.mp_dims = {}    # sharded name -> the dimension 'mp' cuts
         if self.mp_axis is not None:
+            if "pp" in held:
+                _refuse_mp_in_stages(program, axes)
             self._plan_mp(config, program)
         pg = list(getattr(program, "_op_role_vars", ()))
         if not pg and require_grads:
@@ -294,6 +317,11 @@ class CommPlan:
                     "comm_config: parameter %r has no value in scope at "
                     "compile time (run the startup program first)" % p)
             n = int(np.prod(tuple(var.shape))) if var.dim() else 1
+            if p in self.axis_params:
+                # held 1/n a rank: the gradient is this rank's slice (the
+                # scope may hold the whole value or the rank's slice)
+                decl = _decl_shape(program, p)
+                n = int(np.prod(decl)) // self.axis_params[p][1]
             if p in self.mp_params:
                 # an mp-sharded parameter's gradient materializes as this
                 # rank's shard, so its bucket slot is shard-sized
@@ -496,10 +524,13 @@ class CommPlan:
 
     @property
     def key(self):
+        held = (tuple(sorted(self.axis_params)),) if self.axis_params \
+            else ()
         return (self.config.key, self.axis, self.world,
                 self.mp_axis, self.mp,
                 tuple(sorted(self.mp_params.items())),
-                tuple((b.dtype, tuple(b.sizes)) for b in self.buckets))
+                tuple((b.dtype, tuple(b.sizes)) for b in self.buckets)) \
+            + held
 
     @property
     def state_names(self):
@@ -551,6 +582,96 @@ class CommPlan:
             "mp": self.mp,
             "mp_params": len(self.mp_params),
         }
+
+
+def _decl_shape(program, name):
+    for b in program.blocks:
+        if name in b.vars:
+            return tuple(int(d) for d in b.vars[name].shape)
+    raise KeyError(name)
+
+
+def _refuse_mp_in_stages(program, axes):
+    """Raise if a ``pipeline`` op's stage reads an 'mp'-sharded value: a
+    stage body runs with no comm layer, so the partial sums of its 'mp'
+    products would never be reduced."""
+    shardings = {v.name: tuple(getattr(v, "sharding", None) or ())
+                 for v in program.list_vars()}
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type != "pipeline":
+                continue
+            for n in op.inputs.get("Params", []) + \
+                    op.inputs.get("Consts", []):
+                if "mp" in shardings.get(n, ()):
+                    raise ValueError(
+                        "ParallelExecutor(comm_config=None) over a mesh "
+                        "with axes %r: the pipeline stage reads %r, "
+                        "sharded %r over 'mp' — tensor-parallel weights "
+                        "inside a pipeline stage are not supported (the "
+                        "stage body runs with no 'mp' collectives); keep "
+                        "'mp'-sharded weights outside the Pipeline region"
+                        % (axes, n, shardings[n]))
+
+
+def axis_sharded(program, mesh):
+    """{name: (axis, size)} of the persistables whose leading dim the
+    mesh's 'pp' or 'ep' axis cuts (``sharding[0]``): the stage-stacked
+    parameters, the experts' weights, and each one's optimizer
+    accumulators of the same shape, which the global view holds 1/n a
+    rank as well."""
+    out = {}
+    for v in program.list_vars():
+        sh = tuple(getattr(v, "sharding", None) or ())
+        if v.persistable and sh and sh[0] in ("pp", "ep") \
+                and sh[0] in mesh.shape:
+            n = int(mesh.shape[sh[0]])
+            if int(v.shape[0]) % n:
+                raise ValueError(
+                    "parameter %r (shape %s): its leading dim does not "
+                    "split over the mesh's %r axis of %d"
+                    % (v.name, tuple(v.shape), sh[0], n))
+            out[v.name] = (sh[0], n)
+    shapes = {n: _decl_shape(program, n) for n in out}
+    for v in program.list_vars():
+        owner = getattr(v, "optimizer_state_for", None)
+        if owner in shapes and v.shape and \
+                tuple(int(d) for d in v.shape) == shapes[owner]:
+            out[v.name] = out[owner]
+    return out
+
+
+def ensure_axis_state(scope, held, mesh):
+    """Hold every 'pp'/'ep'-cut persistable of ``held`` (``axis_sharded``)
+    in ``scope`` as this rank's leading-dim slice (a :class:`ShardedState`
+    over the rank's line of that axis, whose ``np.asarray`` gathers the
+    whole value): a whole value (a fresh startup run) keeps this rank's
+    rows; one already held is left as it is."""
+    for name, (axis, n) in held.items():
+        cur = scope.find_var(name)
+        if cur is None or isinstance(cur, ShardedState):
+            continue
+        rows = cur.shape[0] // n
+        local = cur.narrow(0, mesh.axis_rank(axis) * rows, rows).clone()
+        scope.set_var(name, ShardedState.wrap(local, tuple(cur.shape),
+                                              mesh.axis_group(axis)))
+
+
+class _Solo:
+    """The group of a line of one rank that the mesh has no axis for
+    (the dp line of a mesh without 'dp'): its collectives are the
+    identity and issue nothing."""
+
+    def __repr__(self):
+        return "SOLO"
+
+
+SOLO = _Solo()
+
+
+class _Done:
+    def wait(self):
+        return None
 
 
 def plan_for(config, program, scope, mesh, batch_axis="dp"):
@@ -777,6 +898,27 @@ def _sum_rows(t):
     return acc
 
 
+def gather_line(t, group, world, note=None, tag=None, axis=None):
+    """[world, *t.shape]: every rank's ``t`` over ``group`` of ``world``
+    ranks, in rank order; ``note(kind, t, wire, tag, axis)`` records the
+    collective (a step's census)."""
+    src = t.reshape(-1).contiguous()
+    out = src.new_empty(world * src.numel())
+    _all_gather_flat(out, src, group=group)
+    if note is not None:
+        note("all_gather", out,
+             out.element_size() * out.numel() * (world - 1) // world,
+             tag, axis)
+    return out.view((world,) + tuple(t.shape))
+
+
+def sum_line(t, group, world, note=None, tag=None, axis=None):
+    """The sum of ``t`` over the ``world`` ranks of ``group``, the same
+    bits on every rank: every rank's value gathered, added in rank
+    order."""
+    return _sum_rows(gather_line(t, group, world, note, tag, axis))
+
+
 class _Pending:
     """A bucket's exchange in flight: the phase-1 work, the rows it
     receives, the ranks' scales (quantized), the gradients' shapes, and
@@ -855,6 +997,33 @@ class TraceComm:
                             self._last_uid, tag,
                             axis or self.exchange_axis)
 
+    def note_collective(self, kind, t, wire, tag, axis):
+        """Record one collective of ``kind`` a lowering issued itself
+        (the pipeline's sends and broadcasts, the experts' sums)."""
+        self._note(kind, t, wire, tag, axis)
+
+    def line_sq(self, pairs):
+        """The sum of squares of the gradients ``pairs`` ([(parameter,
+        gradient)]) over the whole parameters: each 'pp'/'ep'-held
+        parameter's part summed over its line (rank order), the rest
+        counted once (the global norm of a clip or of the guard)."""
+        plain, held = None, {}
+        for name, g in pairs:
+            v = g.values if isinstance(g, RowSparse) else g
+            sq = torch.sum(torch.square(v.to(torch.float32)))
+            ax = self.plan.axis_params.get(name)
+            if ax is None:
+                plain = sq if plain is None else plain + sq
+            else:
+                held[ax[0]] = sq if ax[0] not in held else held[ax[0]] + sq
+        total = plain
+        for axis in sorted(held):
+            part = _sum_rows(self._all_gather(
+                held[axis].reshape(1), "norm", self.mesh.axis_group(axis),
+                self.mesh.shape[axis], axis)).reshape(())
+            total = part if total is None else total + part
+        return total
+
     def note_p2p(self, t, tag, axis):
         """Record one point-to-point exchange of ``t`` (the ring's)."""
         self._note("send_recv", t, t.element_size() * t.numel(), tag, axis)
@@ -863,6 +1032,8 @@ class TraceComm:
         """``flat`` ([world * m]) -> ([world, m] rows received: row r is
         rank r's chunk of this rank's index), and the work."""
         n = flat.numel()
+        if self.group is SOLO:
+            return _Done(), flat.view(1, n), flat
         send = flat.contiguous()
         wire_t = send.view(torch.uint8) \
             if send.dtype == torch.float8_e4m3fn else send
@@ -882,17 +1053,12 @@ class TraceComm:
         ``axis``)."""
         if group is None and world is None:
             group, world = self.group, self.world
-        src = x.reshape(-1).contiguous()
-        wire_t = src.view(torch.uint8) \
-            if src.dtype == torch.float8_e4m3fn else src
-        out = wire_t.new_empty(world * wire_t.numel())
-        _all_gather_flat(out, wire_t, group=group)
-        self._note("all_gather", out,
-                   out.element_size() * out.numel() * (world - 1)
-                   // world, tag, axis)
-        if src.dtype == torch.float8_e4m3fn:
-            out = out.view(torch.float8_e4m3fn)
-        return out.view((world,) + tuple(x.shape))
+        if group is SOLO:
+            return x.reshape((1,) + tuple(x.shape))
+        fp8 = x.dtype == torch.float8_e4m3fn
+        out = gather_line(x.view(torch.uint8) if fp8 else x, group, world,
+                          self._note, tag, axis)
+        return out.view(torch.float8_e4m3fn) if fp8 else out
 
     def sum_ranks(self, t, tag="sum"):
         """The sum over the mesh's ranks of ``t``, the same bits on every
@@ -1339,6 +1505,8 @@ class TraceComm:
         reduce-scattered bucket, the parameter's rows, the accumulators'
         local rows — and the updated parameter rows are all-gathered
         back. Returns True when it handled the op."""
+        if ctx.guard is not None and self.plan.axis_params:
+            ctx.guard.line_sq = self.line_sq
         if not self.plan.config.zero_stage:
             return False
         zc = self.plan.zero_clips.get(op.uid)

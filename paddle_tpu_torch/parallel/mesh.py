@@ -13,20 +13,23 @@ axes' sizes). Named axes:
                                all-reduces)
   sp — sequence/context parallel (time chunks; ring attention,
                                ``context_parallel``)
+  pp — pipeline parallel      (one stage a rank; point-to-point sends
+                               between neighbours, ``pipeline``)
+  ep — expert parallel        (E/ep experts a rank, ``expert_parallel``)
 
 ``make_mesh`` makes one process group for each line of each axis (the
 ranks that differ only in that axis' coordinate): a rank's collectives
-over an axis run in its line's group (:meth:`Mesh.axis_group`). The
-pipeline ('pp') and expert ('ep') axes raise ``NotImplementedError``
-until their slices bring them (ROADMAP.md Queue 1 items 4b and 4d).
+over an axis run in its line's group (:meth:`Mesh.axis_group`), and a
+stage's sends go to its neighbours on its pp line.
 
 The sharding helpers return :class:`Sharding` descriptors (a mesh and a
 per-dimension spec, the shape of a ``NamedSharding``), which
 ``ParallelExecutor.state_shardings`` reports. They place nothing: the
 executor cuts every batch-leading feed by rows (and by time over a
 sequence axis), slices each 'mp'-sharded parameter to this rank's shard
-for a step, and keeps 1/N of each ZeRO accumulator's flat elements on a
-rank (``collectives``).
+for a step, keeps 1/N of each ZeRO accumulator's flat elements on a
+rank, and holds each 'pp'- or 'ep'-cut parameter (and its accumulators)
+as this rank's leading-dim slice (``collectives``).
 """
 
 import contextlib
@@ -39,12 +42,8 @@ __all__ = ["make_mesh", "get_mesh", "mesh_guard", "data_sharding",
 
 _current_mesh = None
 
-#: the axes a mesh may have, and the ROADMAP items that bring the others
-_AXES = ("dp", "mp", "sp")
-_LATER = {"pp": "the pipeline axis 'pp' arrives with the 1F1B pipeline "
-                "(ROADMAP.md Queue 1 item 4b)",
-          "ep": "the expert axis 'ep' arrives with expert parallelism "
-                "and moe (ROADMAP.md Queue 1 item 4d)"}
+#: the axes a mesh may have
+_AXES = ("dp", "mp", "sp", "pp", "ep")
 
 # the group of a line that spans the whole world: torch.distributed's
 # default group
@@ -191,9 +190,6 @@ def make_mesh(mesh_shape=None, axis_names=None, devices=None):
         axis_names = tuple(axis_names or tuple("dp mp pp sp ep".split()[
             : len(mesh_shape)]))
     for a in axis_names or ():
-        if a in _LATER:
-            raise NotImplementedError("make_mesh%s over axes %r: %s" % (
-                (tuple(mesh_shape or ()),), axis_names, _LATER[a]))
         if a not in _AXES or axis_names.count(a) > 1:
             raise ValueError("make_mesh: axes must be distinct names of "
                              "%r, got %r" % (_AXES, axis_names))

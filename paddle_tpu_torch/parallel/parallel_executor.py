@@ -1,9 +1,10 @@
-"""ParallelExecutor: data, tensor and sequence parallelism over a
-``torch.distributed`` mesh.
+"""ParallelExecutor: data, tensor, sequence, pipeline and expert
+parallelism over a ``torch.distributed`` mesh.
 
 Capability parity: `paddle/fluid/framework/parallel_executor.cc:54` and
 the JAX package's ``parallel/parallel_executor.py``, on its ``dp``,
-``(dp, 'mp')`` and ``(dp, 'sp')`` meshes.
+``(dp, 'mp')``, ``(dp, 'sp')`` meshes and their products with 'pp' and
+'ep'.
 The JAX package compiles one program over every device; the port runs
 one process a rank, as PyTorch's DDP does (NCCL between cards, gloo on
 the CPU), and keeps the JAX package's API: ``pe.run(feed=<global
@@ -45,6 +46,24 @@ count from the chunk's start, ``mean`` divides by the whole mesh's
 count, ``fused_attention`` runs the ring of ``context_parallel`` over
 the rank's sp line, and the parameter gradients are summed over every
 rank of the mesh in rank order.
+
+Over a mesh with a 'pp' axis (the global view, zero_stage 0 wherever
+the mesh's dp axis has more than one rank) the ranks of one dp row get
+the same rows; the ``pipeline`` op runs its schedule (GPipe or 1F1B)
+over the rank's pp line, the rank running its own stage, and every
+other op (the embeddings, the head) runs on every rank of the line
+alike. Each rank persistently holds only its stage's slice of every
+stacked parameter, and of each one's optimizer accumulators of the same
+shape: the scope holds a ``collectives.ShardedState`` over the pp line,
+whose ``np.asarray`` reads the whole ``[S, ...]`` value (the JAX package
+lays the accumulators out by ZeRO-1 over 'dp' instead). Over an 'ep'
+axis each rank holds its ``E/ep`` experts of every ``moe`` op's ``WIn``
+and ``WOut`` (and their accumulators) the same way; the router runs in
+full on every rank and only the rank's own experts run (``parallel.
+expert_parallel``). On both axes the parameter gradients are exchanged
+over the rank's dp line only, the loss ``mean`` divides by the dp
+line's rows, and a global norm (``global_norm_clip``, the guard's)
+sums each held parameter's part over its line.
 
 Random ops draw per-rank streams in both paths at a world above one (the
 rank of the gradient exchange folded into the step key, as the JAX
@@ -93,10 +112,12 @@ class _CommStep:
         self._pe = weakref.ref(pe)
         mesh = pe.mesh
         self.mesh = mesh
-        if plan.mp_axis is not None:
-            # the gradient exchange runs over the rank's dp line
+        if plan.mp_axis is not None or set(mesh.axis_names) & {"pp", "ep"}:
+            # the gradient exchange runs over the rank's dp line (none,
+            # on a mesh without the batch axis: the rank alone)
             self.rank = mesh.axis_rank(plan.axis)
-            self.group = mesh.axis_group(plan.axis)
+            self.group = mesh.axis_group(plan.axis) \
+                if plan.axis in mesh.shape else collectives.SOLO
         else:
             self.rank = pe._rank
             self.group = mesh.group
@@ -120,6 +141,7 @@ class _CommStep:
         # ZeRO for a scope a ZeRO plan left sharded
         self.probe = next((v.name for v in program.list_vars()
                            if v.persistable
+                           and v.name not in plan.axis_params
                            and getattr(v, "optimizer_state_for", None)
                            and v.shape and int(np.prod(
                                [int(d) for d in v.shape])) > 1), None)
@@ -180,7 +202,9 @@ class ParallelExecutor(Executor):
     this rank's card over NCCL (the default), else the CPU over gloo;
     ``place`` names the device outright. The mesh's axes are
     ``batch_axis`` and 'mp' (tensor parallelism) or ``seq_axis``
-    (sequence parallelism, in the global view)."""
+    (sequence parallelism, in the global view), and in the global view
+    'pp' (the ``pipeline`` op's stages) and 'ep' (the ``moe`` op's
+    experts)."""
 
     def __init__(self, use_cuda=True, loss_name=None, main_program=None,
                  share_vars_from=None, num_threads=None, allow_op_delay=False,
@@ -195,12 +219,25 @@ class ParallelExecutor(Executor):
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(
             mesh_shape, axis_names)
         extra = [a for a in self.mesh.axis_names
-                 if a not in (batch_axis, "mp", seq_axis)]
+                 if a not in (batch_axis, "mp", seq_axis, "pp", "ep")]
         if extra:
             raise ValueError(
                 "ParallelExecutor over axes %r: axis %r is neither the "
-                "batch axis %r, 'mp', nor the seq_axis (%r)" % (
-                    self.mesh.axis_names, extra[0], batch_axis, seq_axis))
+                "batch axis %r, 'mp', 'pp', 'ep', nor the seq_axis (%r)"
+                % (self.mesh.axis_names, extra[0], batch_axis, seq_axis))
+        held = [a for a in ("pp", "ep") if a in self.mesh.axis_names]
+        if held and comm_config is not None:
+            raise ValueError(
+                "ParallelExecutor over axes %r: the %r axis runs in the "
+                "global view (comm_config=None)"
+                % (self.mesh.axis_names, held[0]))
+        if held and seq_axis is not None:
+            raise ValueError(
+                "ParallelExecutor over axes %r: ring attention inside a "
+                "pipeline stage or beside the experts' axis is not "
+                "supported (the JAX package's note, context_parallel.py); "
+                "drop seq_axis or the %r axis"
+                % (self.mesh.axis_names, held[0]))
         backend = dist.get_backend(self.mesh.group)
         want = "nccl" if self.device.type == "cuda" else "gloo"
         if backend != want:
@@ -364,9 +401,13 @@ class ParallelExecutor(Executor):
                     "statistics there, and the B7 kernel cannot take a "
                     "cross-rank sum between its channel sums and dx yet "
                     "(ROADMAP.md Queue 1 item 4)")
+            zero = self.zero_stage
+            if set(self.mesh.axis_names) & {"pp", "ep"} \
+                    and self.mesh.axis_size(self.batch_axis) == 1:
+                # ZeRO-1 over a dp line of one rank shards nothing
+                zero = 0
             cplan = collectives.CommPlan(
-                collectives.CommConfig(bucket_mb=0.0,
-                                       zero_stage=self.zero_stage),
+                collectives.CommConfig(bucket_mb=0.0, zero_stage=zero),
                 program, scope, self.mesh, self.batch_axis,
                 require_grads=False, seq_axis=self.seq_axis)
             self._comm_plans[plan.user.fingerprint] = cplan
@@ -427,6 +468,9 @@ class ParallelExecutor(Executor):
                 scope.find_var(step.probe), collectives.ShardedState):
             collectives.restore_full_opt_state(scope, plan.program)
         collectives.ensure_state(scope, cplan, rank, group, self.device)
+        if cplan.axis_params:
+            collectives.ensure_axis_state(scope, cplan.axis_params,
+                                          self.mesh)
 
     # ---- telemetry and the audit ----
 
@@ -472,12 +516,16 @@ class ParallelExecutor(Executor):
         under ZeRO, the comm plan's error-feedback and ZeRO state)."""
         program = program or self.main_program or ir.default_main_program()
         out = {}
+        held = collectives.axis_sharded(program, self.mesh)
         for b in program.blocks:
             for n, v in b.vars.items():
                 if not v.persistable or n in out:
                     continue
                 owner = getattr(v, "optimizer_state_for", None)
-                if self.zero_stage >= 1 and owner is not None \
+                if n in held:
+                    ov = _find_var(program, owner) if owner else v
+                    out[n] = mesh_lib.param_sharding(self.mesh, ov)
+                elif self.zero_stage >= 1 and owner is not None \
                         and getattr(v, "sharding", None) is None:
                     out[n] = mesh_lib.zero_sharding(
                         self.mesh, v, _find_var(program, owner),

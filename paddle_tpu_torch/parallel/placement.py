@@ -9,8 +9,7 @@ analysis places), pipeline parallelism over a 'pp' axis, or a product.
 This module makes the decision searchable, statically:
 
 * :class:`Placement` — one (dp, mp, pp) point; ``mesh_for`` builds its
-  mesh over the ``torch.distributed`` world (unit axes dropped; a 'pp'
-  axis raises until the 1F1B pipeline, ROADMAP.md Queue 1 item 4b);
+  mesh over the ``torch.distributed`` world (unit axes dropped);
 * :func:`legal_placements` — the candidates for a rank count that the
   model's divisibility contracts admit (heads % mp, layers % pp, batch %
   dp x micro), each counted in ``paddle_tpu_placement_candidates_total``;
@@ -87,9 +86,8 @@ class Placement:
     def mesh_for(self, devices=None):
         """The placement's mesh over the world's ranks (``devices``: the
         global ranks to span), unit axes dropped; every rank of the world
-        calls it (``make_mesh``). ``pp > 1`` raises
-        ``NotImplementedError`` until the pipeline axis is ported
-        (ROADMAP.md Queue 1 item 4b)."""
+        calls it (``make_mesh``); a 'pp' axis runs the ``pipeline`` op's
+        schedule over its lines."""
         names, shape = zip(*self.axes())
         return make_mesh(tuple(shape), tuple(names), devices=devices)
 

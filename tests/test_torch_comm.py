@@ -441,16 +441,14 @@ def test_make_mesh(world1):
     with pytest.raises(ValueError, match=r"mesh \(2,\) needs 2 devices, "
                                          r"have 1"):
         make_mesh((2,), ("dp",))
-    # the tensor and sequence axes are ported; the pipeline and expert
-    # axes name the ROADMAP items that bring them
-    for axes in (("dp", "mp"), ("dp", "sp")):
+    # the tensor, sequence, pipeline and expert axes are all ported; an
+    # axis outside them is refused
+    for axes in (("dp", "mp"), ("dp", "sp"), ("dp", "pp"), ("dp", "ep")):
         m = make_mesh((1, 1), axes)
         assert m.axis_names == axes and m.coords() == {a: 0 for a in axes}
         assert m.line(axes[1]) == [0]
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        make_mesh((1, 1), ("dp", "pp"))
-    with pytest.raises(NotImplementedError, match="item 4d"):
-        make_mesh((1, 1), ("dp", "ep"))
+    with pytest.raises(ValueError, match="axes must be distinct names"):
+        make_mesh((1, 1), ("dp", "xp"))
 
 
 def test_sharded_state_reads_the_whole_array(world1):

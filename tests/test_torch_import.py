@@ -82,6 +82,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "import paddle_tpu_torch.parallel.comm_audit\n"
         "from paddle_tpu_torch.parallel import (collectives, distribute, "
         "mesh, parallel_executor)\n"
+        "from paddle_tpu_torch.parallel import pipeline, expert_parallel\n"
+        "import paddle_tpu_torch.layers.pipeline\n"
+        "import paddle_tpu_torch.ops.pipeline_ops\n"
         "assert paddle_tpu_torch.op_registry is "
         "paddle_tpu_torch.core.registry\n"
         "assert paddle.reader is paddle_tpu_torch.reader\n"

@@ -252,6 +252,62 @@ def test_scan_block_shapes_infer_on_meta_tensors():
     assert [b0.var(n).type for n in op.output("Out")] == ["packed_seq"] * 2
 
 
+def _moe():
+    """tools/goldens.py's moe: top-2 experts, the mean square plus 0.01
+    aux, SGD."""
+    layers = tfluid.layers
+    prog, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(prog, startup):
+        xm = layers.data("xm", [8, 16])
+        out_m, aux_m = layers.moe(xm, num_experts=8, d_ff=32, top_k=2)
+        cost = layers.elementwise_add(
+            layers.mean(layers.square(out_m)),
+            layers.scale(aux_m, scale=0.01))
+        tfluid.optimizer.SGD(0.1).minimize(cost)
+    return prog, startup
+
+
+def _pipeline_programs(fluid, layers, names, schedule):
+    with names.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            x = layers.data("x", [32])
+            pipe = layers.Pipeline(num_stages=2, num_micro=4,
+                                   schedule=schedule)
+            with pipe.stage():
+                h = pipe.input(x)
+                h = layers.fc(h, 32, act="tanh")
+                h = layers.layer_norm(h)
+                pipe.output(h)
+            loss = layers.mean(layers.square(pipe()))
+            fluid.optimizer.Adam(1e-3).minimize(loss)
+    return prog, startup
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+@pytest.mark.parametrize("which", ["main", "startup"])
+def test_pipeline_program_json_identical_to_jax(schedule, which):
+    """A ``layers.Pipeline`` program (stacked stage parameters, the
+    ``pipeline`` op's attrs, its sub-block, Adam over the stacked
+    parameters) in both schedules, and its startup (the stacked
+    initializers' fans)."""
+    i = 0 if which == "main" else 1
+    j = _pipeline_programs(jfluid, jlayers, jnames, schedule)[i]
+    t = _pipeline_programs(tfluid, tlayers, tnames, schedule)[i]
+    assert _dump(t) == _dump(j)
+
+
+@pytest.mark.parametrize("schedule", [None, "1f1b"])
+def test_pp_transformer_json_identical_to_jax(schedule):
+    kw = dict(vocab_size=53, seq_len=16, d_model=32, num_layers=4,
+              num_heads=4, pp_stages=2, pp_micro=4, pp_schedule=schedule)
+    with jnames.guard():
+        j = jtransformer.build_transformer_lm(**kw)
+    with tnames.guard():
+        t = ttransformer.build_transformer_lm(**kw)
+    assert _dump(t[0]) == _dump(j[0]) and _dump(t[1]) == _dump(j[1])
+
+
 def _word_embedding():
     """tools/goldens.py's word_embedding: four lookups of one table,
     fc(act="sigmoid"), fc(act="softmax"), cross-entropy, SGD."""
@@ -295,7 +351,8 @@ def _amp(built):
     ("googlenet", lambda: tgooglenet.build_googlenet_train(
         image_shape=(3, 64, 64), class_dim=10)),
     ("smallnet", lambda: tsmallnet.build_smallnet_train()),
-    ("word_embedding", _word_embedding)])
+    ("word_embedding", _word_embedding),
+    ("moe", _moe)])
 def test_training_program_equals_golden(name, build):
     """The goldens' builders (tools/goldens.py), run in the port."""
     with tnames.guard():

@@ -14,9 +14,10 @@ meshes: ``Placement.mesh_for`` drops the unit axes as the JAX package's
 does, and the transformer that a declared budget one byte below its
 replicated footprint refuses at (1, 1, 1) fits under (2, 2, 1) and
 trains there through ``ParallelExecutor(comm_config=CommConfig())``.
-The pipeline half of tests/test_placement.py's acceptance (a 'pp' mesh)
-waits for the 1F1B pipeline (ROADMAP.md Queue 1 item 4b): ``mesh_for``
-with pp > 1 raises ``NotImplementedError`` naming it.
+The pipeline half of tests/test_placement.py's acceptance: ``mesh_for``
+builds the (1, 2, 2) placement's ('mp', 'pp') mesh as the JAX package's
+does, and the transformer pp-staged under (2, 1, 2) (``pp_stages=2``)
+trains there through ``ParallelExecutor``'s global view.
 """
 
 import json
@@ -34,7 +35,7 @@ import torch_gloo_harness as gh
 TIMEOUT = 150
 #: the placements whose meshes the world of 4 builds
 MESH_FOR = ((2, 2, 1), (4, 1, 1), (1, 4, 1), (1, 1, 1))
-#: the placements rebuilt and ranked (pp = 1: no pipeline op yet)
+#: the placements rebuilt and ranked
 RANKED = ((8, 1, 1), (2, 4, 1), (4, 2, 1), (1, 8, 1))
 
 
@@ -56,7 +57,7 @@ def build(fl, p, num_layers=4):
         prog, startup, _, (loss,) = mod.build_transformer_lm(
             vocab_size=tt.V, seq_len=tt.L, d_model=tt.DM,
             num_layers=num_layers, num_heads=tt.NH, lr=1e-2,
-            mp=p.mp > 1)
+            mp=p.mp > 1, pp_stages=p.pp if p.pp > 1 else None)
     return prog, startup, loss
 
 
@@ -74,11 +75,19 @@ def _worker(rank, world, d):
         meshes["%d,%d,%d" % key] = [list(m.axis_names),
                                     [m.shape[a] for a in m.axis_names],
                                     list(m.ranks)]
-    try:
-        pl.Placement(1, 2, 2).mesh_for()
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
+    pm = pl.Placement(1, 2, 2).mesh_for()
+    pp_mesh = [list(pm.axis_names), [pm.shape[a] for a in pm.axis_names]]
+    # the pipeline half: the transformer pp-staged under (2, 1, 2)
+    p = pl.Placement(2, 1, 2)
+    prog, startup, loss = build(fl, p, num_layers=tt.NL)
+    startup.random_seed = 5
+    scope = fl.Scope()
+    fl.Executor(fl.CPUPlace()).run(startup, scope=scope)
+    pe = ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                          main_program=prog, mesh=p.mesh_for(),
+                          zero_stage=0)
+    pp_losses = [float(pe.run(feed=tt.tfm_feed(0), fetch_list=[loss.name],
+                              scope=scope)[0]) for _ in range(2)]
     p = pl.Placement(2, 2, 1)
     prog, startup, loss = build(fl, p, num_layers=tt.NL)
     startup.random_seed = 5
@@ -91,8 +100,8 @@ def _worker(rank, world, d):
                            scope=scope)[0]) for s in range(2)]
     if rank == 0:
         with open(os.path.join(d, "out.json"), "w") as f:
-            json.dump({"meshes": meshes, "refused": refused,
-                       "losses": losses}, f)
+            json.dump({"meshes": meshes, "pp_mesh": pp_mesh,
+                       "pp_losses": pp_losses, "losses": losses}, f)
     gh.leave()
 
 
@@ -118,15 +127,23 @@ def test_mesh_for_drops_unit_axes_as_the_jax_package(world4):
 
 
 def test_a_pipeline_mesh_waits_for_the_pipeline(world4):
-    assert "item 4b" in world4["refused"], world4["refused"]
+    """The pipeline axis is ported: the (1, 2, 2) placement builds the
+    JAX package's ('mp', 'pp') mesh, and the pp-staged transformer
+    trains under (2, 1, 2)."""
+    (_, jpl), _ = packages()
+    jm = jpl.Placement(1, 2, 2).mesh_for()
+    assert world4["pp_mesh"] == [list(jm.axis_names),
+                                 [jm.shape[a] for a in jm.axis_names]]
+    losses = world4["pp_losses"]
+    assert np.isfinite(losses).all() and losses[1] < losses[0], losses
 
 
 def test_the_overbudget_transformer_trains_under_dp2_mp2(world4):
     """tests/test_placement.py's TestHbmBudgetAcceptance, its dp x mp
     half: a budget one byte below the replicated footprint refuses
     (1, 1, 1) and admits (2, 2, 1), in both packages alike, and the
-    port trains there. Its pp half waits for ROADMAP.md Queue 1 item
-    4b."""
+    port trains there. Its pp half:
+    ``test_a_pipeline_mesh_waits_for_the_pipeline``."""
     (jfl, jpl), (tfl, tpl) = packages()
     reps = {}
     for fl, pl in ((jfl, jpl), (tfl, tpl)):

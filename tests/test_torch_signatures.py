@@ -325,6 +325,37 @@ def test_the_tensor_and_sequence_axis_names_are_compared(rel, qual):
 
 
 @pytest.mark.parametrize("rel,qual", [
+    ("layers.pipeline", "Pipeline"),
+    ("layers.pipeline", "Pipeline.__init__"),
+    ("layers.pipeline", "Pipeline.stage"),
+    ("layers.pipeline", "Pipeline.input"),
+    ("layers.pipeline", "Pipeline.output"),
+    ("layers.nn", "moe"),
+    ("parallel.pipeline", "pipeline_parallel_stacked"),
+    ("parallel.pipeline", "pipeline_1f1b"),
+    ("parallel.pipeline", "pipeline_parallel"),
+    ("parallel.pipeline", "split_microbatches"),
+    ("parallel.pipeline", "join_microbatches"),
+    ("parallel.expert_parallel", "switch_moe"),
+    ("parallel.expert_parallel", "topk_moe"),
+    ("parallel.expert_parallel", "init_moe_params"),
+    ("parallel.expert_parallel", "moe_param_shardings"),
+    ("models.transformer", "transformer_lm"),
+])
+def test_the_pipeline_and_expert_axis_names_are_compared(rel, qual):
+    """``layers.Pipeline``, ``layers.moe``, the pipeline schedules and the
+    expert functions take every keyword of the JAX package's, with no
+    deliberate difference (``pp_stages``/``pp_micro``/``pp_schedule`` of
+    the transformer among them)."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+@pytest.mark.parametrize("rel,qual", [
     ("layers.decoder", "BeamSearchDecoder"),
     ("layers.decoder", "BeamSearchDecoder.__init__"),
     ("layers.control_flow", "StaticRNN.memory"),
