@@ -405,6 +405,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens (8 experts, d_ff 2048) 3 Executor steps bitwise under an
    ('ep',) mesh of 1, card against the CPU on margin tokens; the busy ms
    of a pipelined and a plain step;
+9i. (6o) checkpoints and recovery (``ckpt_phase``), at NCCL world 1, on
+   the transformer as bench.py trains it under the step guard with
+   dynamic loss scaling (the guard phase's program and weights): (a) 2
+   steps, an async save through ``CheckpointManager`` and through
+   ``ShardedCheckpointManager``, 2 more; each generation restored into a
+   fresh scope runs the same 2 steps bitwise (losses and every state
+   tensor, the guard's included); (b) ``guard.nonfinite`` on a whole
+   chunk trips the divergence detector and ``RecoveryLoop`` rolls back
+   to the clean generation: counters equal to the injected counts, the
+   end state bitwise the unfaulted run's; (c) ``ParallelExecutor``
+   ('dp',) of 1 with ``CommConfig(zero_stage=1)``: a sharded generation
+   onto the plain ``Executor`` and back, and ``ElasticRecoveryLoop`` with
+   the epoch moving twice, bitwise the fixed run; (d) ``RemoteTrainer``
+   on the MNIST MLP against an in-process ``ParameterServer``, fed by the
+   task master (``serve --membership`` is checked in S4);
 10. time each kernel, its plain version and one PyTorch library call at
    the main paths' shapes with CUDA events (the decode kernel at lengths
    512 and 160, the L2 flushed by a write and by a read, beside SDPA
@@ -8177,6 +8192,9 @@ def guard_phase(fluid, seed, dev):
               k, res["off"]["host"], res["guard"]["host"],
               res["scaling"]["host"], fmt(res["off"]["busy"]),
               fmt(res["guard"]["busy"]), fmt(res["scaling"]["busy"])))
+    # phase 6o trains this program from these weights
+    res["lm"] = dict(prog=prog, loss=loss, init=init, feed=feed,
+                     build=build, b1=fwd + grad)
     return res
 
 
@@ -8912,15 +8930,25 @@ def serving_cli(model_dir, engine):
     """S4: ``python -m paddle_tpu_torch serve`` over S1's model as a
     subprocess: it answers one row bitwise as S1's float32 engine does
     (the serve process turns TF32 off, as this script does), and SIGTERM
-    drains it to exit 0."""
+    drains it to exit 0. It runs with ``--membership`` (phase 6o (d)):
+    after warmup the replica is in the membership service's
+    ``discover("replica")`` under its endpoint, and SIGTERM deregisters
+    it (the epoch moves once each way)."""
+    from paddle_tpu_torch.distributed.membership import (MembershipClient,
+                                                         MembershipServer)
     from paddle_tpu_torch.serving import ServingClient
 
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    members = MembershipServer(default_ttl=10.0).start()
+    mc = MembershipClient(members.address)
+    e0 = mc.epoch()
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch", "serve", "--model-dir",
-         model_dir, "--port", "0", "--max-batch", "8", "--die-with-parent"],
+         model_dir, "--port", "0", "--max-batch", "8", "--die-with-parent",
+         "--membership", "%s:%d" % members.address, "--name", "s4",
+         "--ttl", "10", "--heartbeat-interval", "1"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=here)
     lines = queue.Queue()
@@ -8939,6 +8967,11 @@ def serving_cli(model_dir, engine):
                                          % proc.poll())
         ready_s = time.perf_counter() - t0
         host, port = line.split("listening on ")[1].split(" ")[0].split(":")
+        found = mc.discover("replica")
+        if found != [["s4", "%s:%s" % (host, port)]] or \
+                mc.epoch() != e0 + 1:
+            raise AssertionError("serve --membership: discover %s, epoch "
+                                 "%d (from %d)" % (found, mc.epoch(), e0))
         x = np.random.RandomState(7).rand(1, 1, 28, 28).astype(np.float32)
         with ServingClient((host, int(port))) as c:
             if not c.ready()["ready"]:
@@ -8952,17 +8985,26 @@ def serving_cli(model_dir, engine):
         rc = proc.wait(timeout=120)
         if rc != 0:
             raise AssertionError("serve exited %d after SIGTERM" % rc)
-        print("S4 python -m paddle_tpu_torch serve: listening after %.2f s "
-              "(%s), its answer bitwise equal to S1's float32 engine on "
-              "the same row, SIGTERM drained it to exit 0"
+        if mc.discover("replica") != [] or mc.epoch() != e0 + 2:
+            raise AssertionError("serve --membership: still registered "
+                                 "after SIGTERM (%s)"
+                                 % mc.discover("replica"))
+        print("S4 python -m paddle_tpu_torch serve --membership: listening "
+              "after %.2f s (%s), registered as s4 under its endpoint, its "
+              "answer bitwise equal to S1's float32 engine on the same row, "
+              "SIGTERM deregistered it and drained it to exit 0"
               % (ready_s, line.strip()))
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        mc.close()
+        members.shutdown()
 
 
 # ---- phase 6k: the executor and program tooling ----
+# (b)'s card-against-CPU comparison: the stacked LSTM's first rows
+CALC_CPU_ROWS = 16
 # (a) the NaN/Inf guard on the transformer as bench.py trains it: eager
 # steps, then one run_chunk of TOOL_K graph replays; the chunk step whose
 # targets hold an id past the vocabulary (read as NaN by the jnp rule)
@@ -9211,7 +9253,7 @@ def max_pool_winners(seq, lens):
 
 
 def calc_gradient_path(fluid, dev, dims, batch, T, min_len, seed,
-                       max_flipped=4):
+                       max_flipped=4, cpu_rows=CALC_CPU_ROWS):
     """(b) of phase 6k: ``calc_gradient`` of the stacked LSTM's loss with
     respect to its embedding's output (an activation, not a parameter),
     on the card: the B3 and B4 launches of the call are the program's
@@ -9223,8 +9265,11 @@ def calc_gradient_path(fluid, dev, dims, batch, T, min_len, seed,
     feature's two largest values that the card's and the CPU's roundings
     order differently (or tie) sends that feature's gradient to another
     step, which the recurrences carry over the whole row. Such rows (at
-    most ``max_flipped``) are named, with their error, and left out.
-    Returns the numbers and the program, feed and scope."""
+    most ``max_flipped``) are named, with their error, and left out. The
+    comparison runs on the batch's first ``cpu_rows`` rows (the card
+    again, and the CPU: the CPU's full-width call took most of the
+    phase's host time). Returns the numbers and the program, feed and
+    scope."""
     from paddle_tpu_torch import layers, unique_name
     from paddle_tpu_torch.kernels import lstm_cell as lc
     from paddle_tpu_torch.models.stacked_lstm import stacked_lstm_net
@@ -9268,9 +9313,13 @@ def calc_gradient_path(fluid, dev, dims, batch, T, min_len, seed,
     cpu_scope = fluid.Scope()
     for n, t in scope.vars.items():
         cpu_scope.set_var(n, t.cpu())
+    full_loss = float(card[0])
+    lens = lens[:cpu_rows]
+    part = {"words": words_[:cpu_rows], "label": label_[:cpu_rows]}
+    card = exe.run(prog, feed=part, fetch_list=fetch, scope=scope)
     t0 = time.perf_counter()
     cpu = fluid.Executor(fluid.CPUPlace()).run(
-        prog, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        prog, feed=part, fetch_list=fetch, scope=cpu_scope)
     cpu_s = time.perf_counter() - t0
     flipped = sorted({int(r) for a, b in zip(card[2:], cpu[2:])
                       for r in np.nonzero((max_pool_winners(a.data, lens)
@@ -9281,13 +9330,15 @@ def calc_gradient_path(fluid, dev, dims, batch, T, min_len, seed,
     d = np.abs(gc_ - gp).reshape(gc_.shape[0], -1).max(axis=1) / top
     kept = [r for r in range(gc_.shape[0]) if r not in flipped]
     err = float(d[kept].max())
-    print("calc_gradient: d loss / d %s [%s], lengths %d..%d, %d + %d "
-          "B3 + %d B4 (from the program); loss card %.7f, CPU %.7f; the "
+    print("calc_gradient: d loss / d %s at batch %d (%.7f; %d + %d B3 + "
+          "%d B4, from the program), the card against the CPU on its first "
+          "%d rows [%s], lengths %d..%d: loss card %.7f, CPU %.7f; the "
           "gradient's largest difference %.3g x max|g| (bound 1e-4) over "
           "the %d rows whose max pools pick the same steps; %s; card call "
           "%.3f ms, CPU %.1f s" % (
-              emb, "x".join(map(str, gc_.shape)), lens.min(), lens.max(),
-              fwd - bwd, bwd, bwd, float(card[0]), float(cpu[0]), err,
+              emb, batch, full_loss, fwd - bwd, bwd, bwd, cpu_rows,
+              "x".join(map(str, gc_.shape)), lens.min(), lens.max(),
+              float(card[0]), float(cpu[0]), err,
               len(kept), "rows whose max pools pick other steps on the "
               "card and the CPU (a near-tie): %s" % ", ".join(
                   "%d (length %d, %.3g x max|g|)" % (r, lens[r], d[r])
@@ -10629,7 +10680,7 @@ def pp_phase(fluid, seed, dev, cfg=None, batch=None):
             b1 = dict(fa.launches)
             runs[name] = dict(losses=losses, state=pe_state(scope), b1=b1,
                               first=first)
-            busy, nccl = comm_profile(step, reps=3)
+            busy, nccl = comm_profile(step, reps=1)
             runs[name].update(busy=busy, nccl=nccl,
                               census=getattr(exe, "last_census", None))
             del scope, exe
@@ -10753,6 +10804,508 @@ def pp_phase(fluid, seed, dev, cfg=None, batch=None):
     print("phase 6n: %.1f s ((a) %.1f s, (b) %.1f s, (c) %.1f s)"
           % (t1 - t0, t_a - t0, t_b - t_a, t1 - t_b))
     return launches
+
+
+# ---- phase 6o: checkpoints and recovery (paddle_tpu_torch.distributed) ----
+# The transformer as bench.py trains it under the step guard with dynamic
+# loss scaling: guard_phase's program and weights. (b) and (c) run chunks
+# of CKPT_K steps, three a run. A generation is ~700 MB: (a) writes its two
+# with zlib, the default and the JAX package's bytes (~18 MB/s a thread on
+# the card's host, ~40 s a generation); (b) and (c) write their six
+# uncompressed, as a run that saves this often would.
+CKPT_K, CKPT_CHUNKS, CKPT_COMPRESSOR = 4, 3, "none"
+# the MNIST MLP of (d): batch, SGD rate, tasks (one batch a task)
+PS_B, PS_LR, PS_TASKS = 64, 0.1, 3
+
+
+def b1_counts(want_bf16):
+    """B1's launches by name since the last ``reset_all_launches``,
+    against ``want_bf16`` bf16 ones and no float32 one."""
+    got = {n: v for n, v in all_launches().items() if v}
+    if got != {"flash_attention_bf16": want_bf16}:
+        raise AssertionError("launches %s, want %d bf16 B1 and nothing "
+                             "else" % (got, want_bf16))
+    return want_bf16
+
+
+def same_scope(what, got, want):
+    """Every tensor of two ``scope_state`` dicts bitwise equal."""
+    if set(got) != set(want):
+        raise AssertionError("%s: names differ: %s" % (
+            what, sorted(set(got) ^ set(want))[:8]))
+    bad = [n for n in want if got[n].dtype != want[n].dtype
+           or not torch.equal(got[n].reshape(-1), want[n].reshape(-1))]
+    if bad:
+        raise AssertionError("%s: %d of %d tensors differ: %s"
+                             % (what, len(bad), len(want), bad[:8]))
+    return len(want)
+
+
+def dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def last_write(d):
+    """Seconds since the epoch of the newest file under ``d``: when a
+    writer thread committed its generation."""
+    return max(os.path.getmtime(os.path.join(r, f))
+               for r, _, fs in os.walk(d) for f in fs)
+
+
+def ckpt_round_trip(fluid, lm, dev, d, meanwhile):
+    """(a) 2 eager steps, one async save through ``CheckpointManager``
+    (the whole scope, the guard's state included) and one through
+    ``ShardedCheckpointManager``, 2 more steps and ``meanwhile()`` while
+    they write (zlib, the default: ~40 s a generation); each generation
+    restored into a fresh scope on the card runs the same 2 steps:
+    losses and every state tensor bitwise the uninterrupted run's, 16
+    bf16 B1 a step. Returns (a)'s B1 launches and what ``meanwhile``
+    returned."""
+    from paddle_tpu_torch.distributed.checkpoint import (CheckpointManager,
+                                                         load_checkpoint)
+    from paddle_tpu_torch.distributed.sharded_checkpoint import (
+        ShardedCheckpointManager, load_sharded_checkpoint)
+
+    prog, loss, feed, per_step = lm["prog"], lm["loss"], lm["feed"], \
+        lm["b1"]
+    place = fluid.CUDAPlace(dev.index or 0)
+
+    def step(exe, scope, s):
+        return float(exe.run(prog, feed=feed, fetch_list=[loss],
+                             scope=scope, step0=s)[0])
+
+    scope, exe = fresh_scope(fluid, lm["init"]), fluid.Executor()
+    losses = [step(exe, scope, s) for s in range(2)]
+    plain = CheckpointManager(os.path.join(d, "plain"), async_save=True,
+                              scope=scope)
+    sharded = ShardedCheckpointManager(os.path.join(d, "sharded"))
+    torch.cuda.synchronize()
+    t0, wall0 = time.perf_counter(), time.time()
+    plain.save(1)
+    t_plain = time.perf_counter() - t0
+    sharded.save(1, scope, prog)
+    t_snap = time.perf_counter() - t0
+    losses += [step(exe, scope, s) for s in range(2, 4)]
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0 - t_snap
+    exe.poll_health()
+    want = scope_state(scope)
+    del scope, exe
+    t1 = time.perf_counter()
+    beside = meanwhile()
+    t_beside = time.perf_counter() - t1
+    plain.wait()
+    sharded.wait()
+    t_write = [last_write(os.path.join(d, n)) - wall0
+               for n in ("plain", "sharded")]
+    out = {}
+    for name, restore in (
+            ("CheckpointManager", lambda s: load_checkpoint(
+                os.path.join(d, "plain"), scope=s, place=place)),
+            ("ShardedCheckpointManager", lambda s: load_sharded_checkpoint(
+                os.path.join(d, "sharded"), s, {}, place=place))):
+        scope = fluid.Scope()
+        t1 = time.perf_counter()
+        meta = restore(scope)
+        t_restore = time.perf_counter() - t1
+        if meta["step"] != 1:
+            raise AssertionError("(a) %s restored step %s" % (name,
+                                                              meta["step"]))
+        exe = fluid.Executor()
+        reset_all_launches()
+        # the restored generation's step: the resumed run goes on after it
+        got = [step(exe, scope, meta["step"] + 1 + i) for i in range(2)]
+        exe.poll_health()
+        torch.cuda.synchronize()
+        b1_counts(2 * per_step)
+        if got != losses[2:]:
+            raise AssertionError("(a) %s: losses %s after the restore, %s "
+                                 "uninterrupted" % (name, got, losses[2:]))
+        n = same_scope("(a) %s" % name, scope_state(scope), want)
+        out[name] = (t_restore, n)
+        del scope, exe
+    print("6o (a) checkpoint round trip, the guarded transformer (bf16 AMP, "
+          "dynamic loss scale): losses %s; async save after step 1: %.3f s "
+          "on the training thread for CheckpointManager's host copy (%.1f "
+          "MB of zlib chunks), %.3f s for both managers', then 2 steps "
+          "(%.3f s) and (b) and (c) (%.1f s) beside the writers, which "
+          "committed %.1f s and %.1f s after the save; restored into a "
+          "fresh scope on the card and 2 steps run: %s, losses and every "
+          "state tensor (the guard's 3 included) bitwise the uninterrupted "
+          "run's, %d bf16 B1 a step" % (
+              losses, t_plain, dir_bytes(os.path.join(d, "plain")) / 1e6,
+              t_snap, t_steps, t_beside, t_write[0], t_write[1],
+              ", ".join("%s %.3f s (%d tensors)" % (n, t, c)
+                        for n, (t, c) in out.items()), per_step))
+    return 2 * 2 * per_step, beside
+
+
+def ckpt_rollback(fluid, lm, dev, d):
+    """(b) ``guard.nonfinite`` on every step of the second chunk: the
+    guard skips them, the detector trips (``max_consecutive_skips`` =
+    CKPT_K) on the rows it processes at the third chunk's dispatch, and
+    ``RecoveryLoop`` quarantines the diverged generation, restores the
+    clean one and replays: every counter equals the injected counts
+    (tests/test_guard.py:591-678), the final state and the replayed
+    losses bitwise the unfaulted run's."""
+    from paddle_tpu_torch import fault, guard, telemetry
+    from paddle_tpu_torch.distributed.recovery import RecoveryLoop
+    from paddle_tpu_torch.distributed.sharded_checkpoint import (
+        ShardedCheckpointManager, latest_sharded_checkpoint)
+
+    prog, loss, per_step = lm["prog"], lm["loss"], lm["b1"]
+    k, steps = CKPT_K, CKPT_K * CKPT_CHUNKS
+    chunk = chunk_of(lm["feed"], k)
+    cfg0 = prog.guard
+    guard.enable(prog, loss, dynamic_loss_scale=True,
+                 growth_interval=GUARD_GROWTH, max_consecutive_skips=k)
+    try:
+        scope, exe = fresh_scope(fluid, lm["init"]), fluid.Executor()
+        ref_losses = {s: exe.run_chunk(prog, feed_chunk=chunk, k=k,
+                                       fetch_list=[loss], scope=scope,
+                                       step0=s)[0]
+                      for s in range(0, steps, k)}
+        exe.poll_health()
+        ref = scope_state(scope)
+        del scope, exe
+        telemetry.reset()
+        telemetry.enable()
+        scope, exe = fresh_scope(fluid, lm["init"]), fluid.Executor()
+        rule = fault.inject("guard.nonfinite", crash_on_nth=k + 1, times=k)
+        calls, losses = [], {}
+
+        def step_fn(s):
+            calls.append(s)
+            losses[s] = exe.run_chunk(prog, feed_chunk=chunk, k=k,
+                                      fetch_list=[loss], scope=scope,
+                                      step0=s)[0]
+
+        ckpt = os.path.join(d, "rollback")
+        loop = RecoveryLoop(ckpt, scope, prog, target_shardings={},
+                            max_rollbacks=1,
+                            manager=ShardedCheckpointManager(
+                                ckpt, keep_max=2,
+                                compressor=CKPT_COMPRESSOR))
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loop.run(step_fn, steps, steps_per_call=k)
+        exe.poll_health()
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        fault.clear()
+        s = telemetry.summary()
+        telemetry.disable()
+        counters = {n: s.get("paddle_tpu_%s" % n) for n in (
+            "guard_skipped_steps_total", "fault_injected_total",
+            "guard_rollbacks_total", "guard_divergence_total")}
+        want_counters = {"guard_skipped_steps_total": k,
+                         "fault_injected_total": k,
+                         "guard_rollbacks_total": 1,
+                         "guard_divergence_total": 1}
+        if counters != want_counters or rule.fires != k \
+                or loop.rollbacks != 1 or loop.restarts != 0 \
+                or calls != [0, k, 2 * k, k, 2 * k] \
+                or not s.get("paddle_tpu_checkpoint_quarantined_total") \
+                or not any("diverged" in str(c.message) for c in caught):
+            raise AssertionError(
+                "(b) counters %s (want %s), fires %d, rollbacks %d, "
+                "restarts %d, chunks %s" % (counters, want_counters,
+                                            rule.fires, loop.rollbacks,
+                                            loop.restarts, calls))
+        best = latest_sharded_checkpoint(ckpt, quarantine=False)
+        if best["step"] != steps - 1 or not best["health"]["clean"]:
+            raise AssertionError("(b) newest generation %s" % best)
+        for st in (k, 2 * k):
+            if not np.array_equal(losses[st], ref_losses[st]):
+                raise AssertionError("(b) replayed losses at %d: %s, "
+                                     "unfaulted %s" % (st, losses[st],
+                                                       ref_losses[st]))
+        n = same_scope("(b) final state", scope_state(scope), ref)
+        b1 = b1_counts(len(calls) * k * per_step)
+        scale = float(scope.find_var("guard@loss_scale"))
+        del scope, exe
+    finally:
+        prog.guard = cfg0
+        fault.clear()
+    print("6o (b) rollback: guard.nonfinite at steps %d..%d (1-based), the "
+          "detector tripped on the rows of chunk %d processed at the next "
+          "dispatch; RecoveryLoop quarantined the diverged generation, "
+          "restored generation %d and replayed: chunks run %s, counters %s, "
+          "rule fires %d; the replayed losses and all %d state tensors (the "
+          "guard's: loss scale %g) bitwise the unfaulted run's; %d bf16 B1; "
+          "%.3f s" % (k + 1, 2 * k, k, k - 1, calls, counters, rule.fires,
+                      n, scale, b1, t_loop))
+    return b1
+
+
+class _EpochStub:
+    """A watcher whose epoch the step function moves (one rank, one
+    card: the membership's (epoch, members) pair without a server)."""
+
+    def __init__(self):
+        self.epoch, self.members = 0, ("w0",)
+
+    def snapshot(self):
+        return self.epoch, self.members
+
+
+def ckpt_elastic(fluid, lm, dev, d):
+    """(c) ``ParallelExecutor`` on ('dp',) of 1 with
+    ``CommConfig(zero_stage=1)`` (the guard does not compose with it:
+    the AMP program without the guard, the same weights): a sharded
+    generation restored onto the plain ``Executor`` (``{}``, the ZeRO
+    accumulators folded back by ``restore_full_opt_state``) and back
+    onto the executor's layout continues bitwise; ``ElasticRecoveryLoop``
+    with the epoch moving twice (``set_mesh`` onto a new one-rank mesh
+    each time, the state resharded in memory) runs bitwise the fixed
+    run, ``cluster_epoch`` follows and the plan and its graphs are built
+    once an epoch."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.distributed.recovery import ElasticRecoveryLoop
+    from paddle_tpu_torch.distributed.sharded_checkpoint import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+    from paddle_tpu_torch.parallel import (CommConfig, ParallelExecutor,
+                                           collectives, make_mesh)
+
+    prog, _startup, loss = lm["build"]("off")
+    per_step = lm["b1"]
+    k, steps = CKPT_K, CKPT_K * CKPT_CHUNKS
+    chunk = chunk_of(lm["feed"], k)
+    place = fluid.CUDAPlace(dev.index or 0)
+
+    def new_pe():
+        return ParallelExecutor(loss_name=loss.name, main_program=prog,
+                                mesh=make_mesh((1,), ("dp",)),
+                                zero_stage=0,
+                                comm_config=CommConfig(zero_stage=1))
+
+    def run(pe, scope, s):
+        return pe.run_chunk(prog, feed_chunk=chunk, k=k, fetch_list=[loss],
+                            scope=scope, step0=s)[0]
+
+    reset_all_launches()
+    scope, pe = fresh_scope(fluid, lm["init"]), new_pe()
+    fixed = [run(pe, scope, s) for s in range(0, steps, k)]
+    ref = scope_state(scope)
+    del scope, pe
+    # a sharded generation onto the plain Executor and back
+    scope, pe = fresh_scope(fluid, lm["init"]), new_pe()
+    run(pe, scope, 0)
+    save_sharded_checkpoint(os.path.join(d, "c_pe"), k - 1, scope, prog,
+                            compressor=CKPT_COMPRESSOR)
+    del scope, pe
+    plain = fluid.Scope()
+    meta = load_sharded_checkpoint(os.path.join(d, "c_pe"), plain, {},
+                                   place=place)
+    folded = collectives.restore_full_opt_state(plain, prog)
+    save_sharded_checkpoint(os.path.join(d, "c_plain"), k - 1, plain, prog,
+                            compressor=CKPT_COMPRESSOR)
+    first = float(fluid.Executor().run(prog, feed=lm["feed"],
+                                       fetch_list=[loss], scope=plain,
+                                       step0=meta["step"] + 1)[0])
+    if first != float(fixed[1][0]):
+        raise AssertionError("(c) the plain Executor's first loss %r != the "
+                             "fixed run's %r" % (first, fixed[1][0]))
+    del plain
+    scope, pe = fluid.Scope(), new_pe()
+    load_sharded_checkpoint(os.path.join(d, "c_plain"), scope,
+                            pe.state_shardings(prog), place=place)
+    back = [run(pe, scope, s) for s in range(k, steps, k)]
+    if not all(np.array_equal(a, b) for a, b in zip(back, fixed[1:])):
+        raise AssertionError("(c) losses after the round trip %s, fixed %s"
+                             % (back, fixed[1:]))
+    same_scope("(c) after the round trip", scope_state(scope), ref)
+    del scope, pe
+    # the elastic loop, the epoch moving before steps k and 2k
+    telemetry.reset()
+    telemetry.enable()
+    w = _EpochStub()
+    scope, pe = fresh_scope(fluid, lm["init"]), new_pe()
+
+    def rebuild(members, epoch):
+        pe.set_mesh(make_mesh((1,), ("dp",)), epoch=epoch)
+        return pe.state_shardings(prog)
+
+    got = {}
+
+    def step_fn(s):
+        got[s] = run(pe, scope, s)
+        if s in (0, k):   # the loop reshards at the next boundary
+            w.epoch += 1
+
+    loop = ElasticRecoveryLoop(os.path.join(d, "elastic"), scope, prog,
+                               watcher=w, rebuild=rebuild,
+                               target_shardings=pe.state_shardings(prog),
+                               save_interval_steps=10 ** 9, place=place)
+    t0 = time.perf_counter()
+    loop.run(step_fn, steps, steps_per_call=k)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    # a plan miss an epoch, and on the card its graph's capture, which
+    # the recompile detector counts too
+    builds = telemetry.recompile_detector.compile_count(prog.fingerprint)
+    want = 3 * (2 if dev.type == "cuda" else 1)
+    s = telemetry.summary()
+    telemetry.disable()
+    if loop.reshards != 2 or loop.last_reshard["path"] != "memory" \
+            or loop.cluster_epoch != 2 or pe.cluster_epoch != 2 \
+            or builds != want:
+        raise AssertionError("(c) reshards %d (%s), epochs loop %s "
+                             "executor %s, plan builds and captures %d "
+                             "(want 2, memory, 2, 2, %d)"
+                             % (loop.reshards, loop.last_reshard["path"],
+                                loop.cluster_epoch, pe.cluster_epoch,
+                                builds, want))
+    if not all(np.array_equal(got[st], fixed[i])
+               for i, st in enumerate(range(0, steps, k))):
+        raise AssertionError("(c) elastic losses %s, fixed %s" % (got,
+                                                                   fixed))
+    n = same_scope("(c) elastic against fixed", scope_state(scope), ref)
+    del scope, pe
+    b1 = b1_counts((3 * steps + 1) * per_step)
+    print("6o (c) ParallelExecutor ('dp',) of 1, CommConfig(zero_stage=1): "
+          "a sharded generation restored onto the plain Executor ({}, %d "
+          "ZeRO accumulators folded back), its first loss bitwise the fixed "
+          "run's, and back onto the executor's layout: %d steps bitwise; "
+          "ElasticRecoveryLoop, the epoch moved before steps %d and %d: 2 "
+          "in-memory reshards (downtime %s s, %.1f MB moved), "
+          "cluster_epoch %d, %d plan builds and graph captures (one of "
+          "each an epoch on the card), losses and all %d state tensors "
+          "bitwise the fixed run's; %d bf16 B1; loop %.3f s" % (
+              folded, steps - k, k, 2 * k,
+              s.get("paddle_tpu_elastic_downtime_seconds:sum"),
+              s.get("paddle_tpu_elastic_state_moved_bytes_total", 0) / 1e6,
+              loop.cluster_epoch, builds, n, b1, t_loop))
+    return b1
+
+
+def ckpt_services(fluid, seed, dev):
+    """(d) ``RemoteTrainer`` on the MNIST MLP (``models.lenet.mlp``)
+    against an in-process ``ParameterServer`` (SGD), fed by
+    ``MasterClient.tasks()`` (one batch a task), against the plain
+    ``Executor`` with SGD from the same weights: every task finishes
+    once; the first loss bitwise (the same weights), then the update:
+    the server's numpy ``p - lr * g`` against the card's SGD op, held at
+    4 ulps of each parameter's largest magnitude."""
+    from paddle_tpu_torch import layers, unique_name
+    from paddle_tpu_torch.distributed.master import (MasterClient,
+                                                     MasterServer)
+    from paddle_tpu_torch.distributed.pserver import (ParameterServer,
+                                                      RemoteTrainer,
+                                                      sgd_update)
+    from paddle_tpu_torch.models.lenet import mlp
+
+    with unique_name.guard():
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            img = layers.data("img", [784])
+            label = layers.data("label", [1], dtype="int64")
+            loss = layers.mean(layers.cross_entropy(mlp(img), label))
+            fluid.optimizer.SGD(PS_LR).minimize(loss)
+    startup.random_seed = seed
+    s0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    init = scope_state(s0)
+    del s0
+    rng = np.random.RandomState(seed)
+    feeds = [{"img": rng.rand(PS_B, 784).astype(np.float32),
+              "label": rng.randint(0, 10, (PS_B, 1)).astype(np.int64)}
+             for _ in range(PS_TASKS)]
+    scope, exe = fresh_scope(fluid, init), fluid.Executor()
+    plain = [float(exe.run(prog, feed=f, fetch_list=[loss],
+                           scope=scope)[0]) for f in feeds]
+    want = scope_state(scope)
+    del scope, exe
+    srv = ParameterServer(trainers=1, optimizer=sgd_update(PS_LR)).start()
+    master = MasterServer(lease_timeout=60.0).start()
+    finished = []
+    try:
+        mc = MasterClient(master.address)
+        mc.set_dataset(task_payloads=[json.dumps({"batch": i})
+                                      for i in range(PS_TASKS)])
+        scope = fresh_scope(fluid, init)
+        rt = RemoteTrainer(prog, ["%s:%d" % srv.address],
+                           exe=fluid.Executor(), scope=scope,
+                           init_params=True)
+        remote = []
+        for tid, payload in mc.tasks(lease_timeout=60.0):
+            i = json.loads(payload)["batch"]
+            remote.append(float(rt.step(feeds[i], fetch_list=[loss])[0]))
+            mc.task_finished(tid)
+            finished.append(i)
+        counts = mc.counts()
+        rt.close()
+        mc.close()
+    finally:
+        master.shutdown()
+        srv.shutdown()
+    if sorted(finished) != list(range(PS_TASKS)) or counts != {
+            "todo": 0, "pending": 0, "done": PS_TASKS, "discarded": 0}:
+        raise AssertionError("(d) tasks finished %s, counts %s"
+                             % (finished, counts))
+    if remote[0] != plain[0] or not np.allclose(remote, plain, rtol=1e-6,
+                                                atol=0):
+        raise AssertionError("(d) RemoteTrainer losses %s, plain %s"
+                             % (remote, plain))
+    worst = 0.0
+    for p, _g in rt.params_grads:
+        a, b = scope.find_var(p), want[p]
+        ulp = float(torch.finfo(torch.float32).eps) * float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / ulp)
+        if err > 4 * ulp:
+            raise AssertionError("(d) %s differs by %.3g (%.2f ulps of its "
+                                 "max)" % (p, err, err / ulp))
+    print("6o (d) RemoteTrainer (MNIST MLP, batch %d, SGD %g) fed by "
+          "MasterClient.tasks(): tasks %s each finished once, counts %s; "
+          "losses %s, the plain Executor's %s (the first bitwise); "
+          "parameters within %.2f ulps of each one's largest magnitude "
+          "(bound 4)" % (PS_B, PS_LR, finished, counts, remote, plain,
+                         worst))
+
+
+def ckpt_phase(fluid, seed, dev, lm):
+    """Phase 6o: checkpoints and recovery on the card (NCCL world 1),
+    (a)-(c) through guard_phase's transformer, (d) the host services.
+    Returns the bf16 B1 launches of (a)-(c)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel.distribute import init_multihost
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="ckpt_phase_")
+    init_multihost("localhost:%d" % free_port(), 1, 0, device=dev)
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t
+        return out
+
+    def meanwhile():
+        return (timed("b", lambda: ckpt_rollback(fluid, lm, dev, d))
+                + timed("c", lambda: ckpt_elastic(fluid, lm, dev, d)))
+
+    try:
+        # (b) and (c) run while (a)'s writers compress its generations
+        b1, b1_bc = ckpt_round_trip(fluid, lm, dev, d, meanwhile)
+        b1 += b1_bc
+        times["a"] = time.perf_counter() - t0 - times["b"] - times["c"]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    timed("d", lambda: ckpt_services(fluid, seed, dev))
+    print("phase 6o: %.1f s ((a) %.1f s beside (b) %.1f s and (c) %.1f s, "
+          "(d) %.1f s)" % (time.perf_counter() - t0, times["a"],
+                           times["b"], times["c"], times["d"]))
+    return b1
 
 
 def main():
@@ -11138,7 +11691,7 @@ def main():
     phase("the transformer as bench.py trains it under the step guard with "
           "dynamic loss scaling (bf16 AMP, K=%d, guard.nonfinite at steps "
           "11 and 12; seed %d)" % (GRAPH_K["transformer"], args.seed))
-    guard_phase(fluid, args.seed, dev)
+    lm = guard_phase(fluid, args.seed, dev)["lm"]
 
     # ---- 9e. the executor and program tooling (phase 6k) ----
     phase("executor and program tooling at full width: the NaN/Inf guard "
@@ -11174,6 +11727,17 @@ def main():
           "mesh of 1 and card vs CPU (seed %d)" % (PP_S, PP_S, args.seed))
     for n, c in pp_phase(fluid, args.seed, dev).items():
         launches[n] += c
+
+    # ---- 9i. checkpoints and recovery (phase 6o) ----
+    phase("checkpoints and recovery: the guarded transformer (bf16 AMP, "
+          "dynamic loss scale) through CheckpointManager and "
+          "ShardedCheckpointManager, the guard's rollback under "
+          "RecoveryLoop, ParallelExecutor ('dp',) of 1 with "
+          "CommConfig(zero_stage=1) under ElasticRecoveryLoop (NCCL world "
+          "1), RemoteTrainer fed by the task master (seed %d)" % args.seed)
+    launches["flash_attention_bf16"] += ckpt_phase(fluid, args.seed, dev,
+                                                   lm)
+    del lm
 
     # ---- 10. times ----
     phase("times (CUDA events, median of 25 runs after warmup; 10 runs for "

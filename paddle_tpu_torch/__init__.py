@@ -66,6 +66,8 @@ from paddle_tpu_torch.parallel.parallel_executor import (  # noqa: F401
 from paddle_tpu_torch.parallel.distribute import (  # noqa: F401
     DistributeTranspiler)
 from paddle_tpu_torch import serving  # noqa: F401
+from paddle_tpu_torch import native  # noqa: F401
+from paddle_tpu_torch import recordio_writer  # noqa: F401
 
 from paddle_tpu_torch.memory_optimize import (  # noqa: F401
     memory_optimize, release_memory)

@@ -9,10 +9,14 @@ Capability parity: the JAX package's ``cli.py``, for these commands:
   version      print version info
 
 ``serve`` runs on the card; ``--place cpu`` asks for the CPU (the tests
-do). One replica only: ``--replicas`` above 1, ``--deploy-dir``,
-``--aot-cache`` and ``--membership`` exit with code 2 and name the
-ROADMAP.md item (Queue 1) that brings them. ``train``, ``bench``,
-``master``, ``pserver`` and ``merge_model`` are not ported yet.
+do). ``--membership host:port`` registers the replica in the membership
+service after warmup (``--name``, ``--ttl``, ``--heartbeat-interval``)
+and deregisters it when SIGTERM drains it. One replica only:
+``--replicas`` above 1, ``--deploy-dir`` and ``--aot-cache`` exit with
+code 2 and name the ROADMAP.md item (Queue 1 item 7: the router, the
+AOT cache and deploy) that brings them. ``train``, ``bench``,
+``master``, ``pserver`` and ``merge_model`` are not ported yet
+(``master`` and ``pserver``: item 8).
 """
 
 import argparse
@@ -26,12 +30,10 @@ __version__ = "0.2.0"
 # ROADMAP.md Queue 1 items that bring what ``serve`` refuses
 _NOT_PORTED = {
     "replicas": "--replicas > 1 needs the router tier (serving/router.py, "
-                "ROADMAP.md Queue 1 item 10)",
-    "deploy_dir": "--deploy-dir needs deploy/ (ROADMAP.md Queue 1 item 10)",
+                "ROADMAP.md Queue 1 item 7)",
+    "deploy_dir": "--deploy-dir needs deploy/ (ROADMAP.md Queue 1 item 7)",
     "aot_cache": "--aot-cache needs serving/aot_cache.py (ROADMAP.md "
-                 "Queue 1 item 10)",
-    "membership": "--membership needs distributed/membership.py "
-                  "(ROADMAP.md Queue 1 item 8)",
+                 "Queue 1 item 7)",
 }
 
 
@@ -133,6 +135,13 @@ def cmd_serve(args):
                            max_delay_ms=args.max_delay_ms,
                            max_queue=args.max_queue)
     server.start(warmup=True)  # ready only after every bucket is built
+    if args.membership:
+        # register only AFTER warmup: the lease appearing IS the ready
+        # signal a fleet supervisor keys restarts on
+        name = args.name or "serving-%d" % server.address[1]
+        host, _, port = args.membership.rpartition(":")
+        server.register((host, int(port)), name, ttl=args.ttl or None,
+                        heartbeat_interval=args.heartbeat_interval)
     print("serving listening on %s:%d (buckets=%s, max_queue=%d, "
           "device=%s)" % (server.address[0], server.address[1],
                           list(engine.buckets), args.max_queue,
@@ -161,7 +170,7 @@ def main(argv=None):
     p.add_argument("--model-dir", default="",
                    help="save_inference_model output directory")
     p.add_argument("--deploy-dir", default="",
-                   help="not ported (ROADMAP.md Queue 1 item 10)")
+                   help="not ported (ROADMAP.md Queue 1 item 7)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--place", default="cuda", choices=["cuda", "cpu"],
@@ -175,16 +184,25 @@ def main(argv=None):
                         "rejected with Overloaded (load shedding)")
     p.add_argument("--replicas", type=int, default=1,
                    help="1 only: more need the router tier (ROADMAP.md "
-                        "Queue 1 item 10)")
+                        "Queue 1 item 7)")
     p.add_argument("--aot-cache", default="",
-                   help="not ported (ROADMAP.md Queue 1 item 10)")
+                   help="not ported (ROADMAP.md Queue 1 item 7)")
     p.add_argument("--telemetry", action="store_true",
                    help="enable the runtime telemetry registry")
     p.add_argument("--quantize", default="", choices=["", "int8"],
                    help="per-tensor int8 weight quantization (symmetric "
                         "absmax), dequantized inside each bucket's graph")
     p.add_argument("--membership", default="",
-                   help="not ported (ROADMAP.md Queue 1 item 8)")
+                   help="host:port of the membership service; register "
+                        "this replica there AFTER warmup (the lease is "
+                        "the readiness signal supervisors watch)")
+    p.add_argument("--name", default="",
+                   help="membership member name (default serving-<port>)")
+    p.add_argument("--ttl", type=float, default=0.0,
+                   help="membership lease TTL seconds (0 = server "
+                        "default)")
+    p.add_argument("--heartbeat-interval", type=float, default=2.0,
+                   help="membership lease heartbeat period")
     p.add_argument("--die-with-parent", action="store_true",
                    help="arm PDEATHSIG so this process dies with its "
                         "spawner (Linux)")

@@ -260,6 +260,11 @@ class Executor:
         self._last_plan_hit = True
         # each step's debug.NanCheck records in the current dispatch
         self._nan_records = []
+        # the membership cluster epoch this executor trains under (set
+        # by the elastic loop through note_epoch): a named field of the
+        # plan-miss signature, so the plan rebuilt after a reshard is
+        # attributed to the epoch that moved; not part of the plan key
+        self.cluster_epoch = None
 
     def _plan(self, program, fetch_names, use_cache=True):
         cfg = passes_lib.plan_for(program)
@@ -283,7 +288,7 @@ class Executor:
         self._attach(new)
         if telemetry.enabled():
             telemetry.record_jit_miss(program, _miss_signature(
-                fetch_names, nan_guard=nan_guard,
+                fetch_names, nan_guard=nan_guard, epoch=self.cluster_epoch,
                 guard=str(gplan.key) if gplan else None,
                 passes=str(cfg.key) if cfg else None))
         if not use_cache:
@@ -295,6 +300,11 @@ class Executor:
         while len(self._plans) > MAX_PLANS:
             self._plans.pop(next(iter(self._plans))).close()
         return new
+
+    def note_epoch(self, epoch):
+        """Record the membership cluster epoch this executor now serves
+        (elastic training): later plan-miss signatures carry it."""
+        self.cluster_epoch = None if epoch is None else int(epoch)
 
     def _plan_key(self):
         """What else a plan is built for (``ParallelExecutor``: the mesh,
@@ -316,7 +326,11 @@ class Executor:
         scope.set_var(name, value)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True, use_program_cache=True):
+            return_numpy=True, use_program_cache=True, step0=None):
+        """One training step. ``step0`` pins its index, as ``run_chunk``'s
+        does: the step draws from ``step_key(seed, step0)`` and the
+        counter goes on from ``step0 + 1`` (a run resumed from a
+        checkpoint of step ``s`` passes ``s + 1`` to its first step)."""
         t0 = time.perf_counter() if telemetry.enabled() else 0.0
         program = program if program is not None \
             else ir.default_main_program()
@@ -327,6 +341,8 @@ class Executor:
         feed = {n: self._to_device(plan.program, n, v)
                 for n, v in (feed or {}).items()}
         plan.verify(self._verified_feed(feed, 0), fetch_names, scope)
+        if step0 is not None:
+            self._step = int(step0)
         step = self._step
         self._nan_records = []
         fetches = self._run_step(plan, feed, scope, step, fetch_names)

@@ -96,8 +96,28 @@ def cluster_files_reader(files_pattern, trainer_count, trainer_id,
 
 def convert(output_path, reader, line_count, name_prefix):
     """Convert a reader to sharded recordio files (reference
-    common.py:199). Not ported yet: it needs ``recordio_writer`` and its
-    native chunked writer, which come with ROADMAP.md Queue 1 item 8."""
-    raise NotImplementedError(
-        "dataset.common.convert needs recordio_writer and its native "
-        "library, not ported yet (ROADMAP.md Queue 1 item 8)")
+    common.py:199 — there via the recordio python bindings; here via
+    the native chunked writer): ``line_count`` samples a file, named
+    ``<name_prefix>-00000``, ... under ``output_path``, the same bytes
+    as the JAX package's. Returns the written paths."""
+    from paddle_tpu_torch import recordio_writer
+
+    def batched():
+        buf = []
+        for sample in reader():
+            buf.append(sample)
+            if len(buf) == line_count:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
+    prefix = os.path.join(output_path, name_prefix)
+    os.makedirs(output_path, exist_ok=True)
+    paths = []
+    for i, batch in enumerate(batched()):
+        path = "%s-%05d" % (prefix, i)
+        recordio_writer.convert_reader_to_recordio_file(
+            path, lambda b=batch: iter(b))
+        paths.append(path)
+    return paths

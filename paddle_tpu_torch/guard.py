@@ -21,8 +21,10 @@ The JAX package's ``guard.py`` on PyTorch, in the same three layers:
 * **The divergence detector**: an EMA spike test over the per-step loss
   and gradient norm plus a consecutive-skip counter, run on the host
   over the health rows after a dispatch; sustained divergence raises
-  :class:`Divergence`. (The recovery loop that rolls back on it arrives
-  with the distributed tier.)
+  :class:`Divergence`, which ``distributed.recovery.RecoveryLoop``
+  catches: it quarantines the diverged checkpoint generations, restores
+  the newest clean one (the guard's state rides the checkpoints) and
+  resets the detector.
 
 Chaos-testability: ``fault.inject("guard.nonfinite", crash_on_nth=n,
 times=t)`` poisons the optimizer-input gradients of logical steps

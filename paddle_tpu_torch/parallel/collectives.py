@@ -646,10 +646,16 @@ def ensure_axis_state(scope, held, mesh):
     in ``scope`` as this rank's leading-dim slice (a :class:`ShardedState`
     over the rank's line of that axis, whose ``np.asarray`` gathers the
     whole value): a whole value (a fresh startup run) keeps this rank's
-    rows; one already held is left as it is."""
+    rows; one already held keeps its rows (re-wrapped onto the mesh's
+    group, :func:`regroup`)."""
     for name, (axis, n) in held.items():
         cur = scope.find_var(name)
-        if cur is None or isinstance(cur, ShardedState):
+        if isinstance(cur, ShardedState):
+            group = mesh.axis_group(axis)
+            if cur.group is not group:
+                scope.set_var(name, regroup(cur, group))
+            continue
+        if cur is None:
             continue
         rows = cur.shape[0] // n
         local = cur.narrow(0, mesh.axis_rank(axis) * rows, rows).clone()
@@ -707,10 +713,13 @@ class ShardedState(torch.Tensor):
     __torch_function__ = torch._C._disabled_torch_function_impl
 
     @staticmethod
-    def wrap(local, full_shape, group=None):
+    def wrap(local, full_shape, group=None, ranks=None):
         t = local.as_subclass(ShardedState)
         t.full_shape = tuple(int(d) for d in full_shape)
         t.group = group
+        #: the global ranks of ``group`` in order, kept for
+        #: :func:`regroup` after the group itself is destroyed
+        t.ranks = _group_ranks(group) if ranks is None else ranks
         return t
 
     def full(self):
@@ -728,6 +737,38 @@ class ShardedState(torch.Tensor):
             v = v.float()
         a = v.cpu().numpy()
         return a if dtype is None else a.astype(dtype)
+
+
+def _group_ranks(group):
+    """The global ranks of ``group`` in group order."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return (0,)
+    if group is SOLO:
+        return (dist.get_rank(),)
+    if group is None or group is dist.GroupMember.WORLD:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def regroup(cur, group):
+    """``cur`` (a :class:`ShardedState` of the right layout) over
+    ``group``: itself where it already is; else the same local rows
+    re-wrapped, when ``group`` spans the same ranks in the same order
+    (``set_mesh`` onto a mesh of the same ranks destroys the old groups,
+    and this rank's rows stay what they were). Across other ranks the
+    rows belong to other positions: that takes a reshard of a
+    ``snapshot_state`` cut made before ``set_mesh``."""
+    if cur.group is group:
+        return cur
+    ranks = _group_ranks(group)
+    if cur.ranks != ranks:
+        raise ValueError(
+            "a ShardedState held over ranks %s meets a plan over ranks "
+            "%s: reshard it (sharded_checkpoint.reshard_state of a "
+            "snapshot_state cut taken before set_mesh, as "
+            "ElasticRecoveryLoop does)" % (list(cur.ranks), list(ranks)))
+    return ShardedState.wrap(cur.as_subclass(torch.Tensor), cur.full_shape,
+                             group)
 
 
 def _local_rows(full, rows, rank, world):
@@ -749,13 +790,26 @@ def ensure_state(scope, plan, rank=0, group=None, device=None):
     """Seed the error-feedback residual carry in ``scope``: phase-1 is
     ``[world, padded]`` (row d: rank d's own residual over the bucket;
     this rank keeps its row), phase-2 ``[padded]`` (rank d keeps chunk
-    d). A value of another layout (a changed ``bucket_mb``) resets to
-    zero, warned, as in the JAX package; a world change is refused by
-    ``ParallelExecutor.set_mesh`` until the elastic rebuild is ported."""
+    d). A checkpoint restore or an elastic reshard puts whole values in
+    the scope: one of this layout keeps this rank's row or chunk as it
+    is (the JAX package keeps a value of the same shape), one of an old
+    world's layout is folded through :func:`fold_ef_state`'s rule, so
+    un-transmitted gradient mass carries over; a value of another bucket
+    layout (a changed ``bucket_mb``: the phase-1 width is not the
+    bucket's elements padded to its world) resets to zero, warned, as in
+    the JAX package. A held value of this layout keeps its rows
+    (:func:`regroup`)."""
     if not plan.config.error_feedback:
         return
     w = plan.world
     for b in plan.buckets:
+        p1 = scope.find_var("%s%d@p1" % (EF_PREFIX, b.idx))
+        # same bucket contents iff the old padded width is exactly
+        # nelem padded to the old world (fold_ef_state's precondition)
+        foldable = (p1 is not None and not isinstance(p1, ShardedState)
+                    and p1.dim() == 2 and p1.shape[0] >= 1
+                    and p1.shape[1] == -(-b.nelem // p1.shape[0])
+                    * p1.shape[0])
         phases = [("p1", (w, b.padded), b.padded)]
         if not plan.config.zero_stage:
             phases.append(("p2", (b.padded,), b.padded // w))
@@ -763,6 +817,17 @@ def ensure_state(scope, plan, rank=0, group=None, device=None):
             name = "%s%d@%s" % (EF_PREFIX, b.idx, ph)
             cur = scope.find_var(name)
             if isinstance(cur, ShardedState) and cur.full_shape == full:
+                if cur.group is not group:
+                    scope.set_var(name, regroup(cur, group))
+                continue
+            if cur is not None and not isinstance(cur, ShardedState) \
+                    and (tuple(cur.shape) == full or foldable):
+                whole = cur if tuple(cur.shape) == full \
+                    else _fold_ef(cur, ph, b.nelem, full)
+                mine = whole[rank] if ph == "p1" \
+                    else whole[rank * local:(rank + 1) * local]
+                scope.set_var(name, ShardedState.wrap(
+                    mine.clone().to(device or cur.device), full, group))
                 continue
             if cur is not None:
                 warnings.warn(
@@ -773,6 +838,17 @@ def ensure_state(scope, plan, rank=0, group=None, device=None):
             scope.set_var(name, ShardedState.wrap(
                 torch.zeros(local, dtype=getattr(torch, b.dtype),
                             device=device), full, group))
+
+
+def _fold_ef(old, phase, nelem, new_shape):
+    """:func:`fold_ef_state` on a tensor, in its dtype: phase-1 rows
+    summed in rank order into row 0."""
+    out = old.new_zeros(new_shape)
+    if phase == "p1":
+        out[0, :nelem] = _sum_rows(old.reshape(old.shape[0], -1)[:, :nelem])
+    else:
+        out[:nelem] = old.reshape(-1)[:nelem]
+    return out
 
 
 def fold_ef_state(old, phase, nelem, new_shape):
@@ -832,6 +908,8 @@ def ensure_zero_state(scope, plan, rank=0, group=None, full_shapes=None):
         full = (full_shapes or {}).get(name, (plan.world, r))
         if isinstance(cur, ShardedState):
             if cur.full_shape == full and tuple(cur.shape) == (r,):
+                if cur.group is not group:
+                    scope.set_var(name, regroup(cur, group))
                 continue
             cur = cur.full()
         # fold_zero_state's re-chunking, this rank's row of it
@@ -840,16 +918,17 @@ def ensure_zero_state(scope, plan, rank=0, group=None, full_shapes=None):
             group))
 
 
-def zero_layout_current(scope, plan, full_shapes=None):
+def zero_layout_current(scope, plan, full_shapes=None, group=None):
     """O(1) probe: True when the scope already carries this plan's ZeRO
-    layout (layout changes are all-or-nothing, so one accumulator
-    tells)."""
+    layout over ``group`` (layout changes are all-or-nothing, so one
+    accumulator tells)."""
     for name, (p, n, r, dt) in plan.zero_state.items():
         cur = scope.find_var(name)
         full = (full_shapes or {}).get(name, (plan.world, r))
         return cur is None or (isinstance(cur, ShardedState)
                                and cur.full_shape == full
-                               and tuple(cur.shape) == (r,))
+                               and tuple(cur.shape) == (r,)
+                               and cur.group is group)
     return True
 
 
@@ -865,9 +944,12 @@ def fold_zero_state(old, nelem, new_shape):
 
 
 def restore_full_opt_state(scope, program):
-    """Undo the ZeRO scope layout (a zero_stage 1 -> 0 flip): every
+    """Undo the ZeRO scope layout (a zero_stage 1 -> 0 flip, or a restore
+    of a sharded checkpoint onto a plain ``Executor``): every
     ``optimizer_state_for``-tagged persistable the scope holds as a
-    :class:`ShardedState` is gathered (a collective) and set back in its
+    :class:`ShardedState` is gathered (a collective), and one held whole
+    in a chunked layout (a CommConfig ZeRO ``[world, rows]`` value a
+    checkpoint restored) is cut to its elements; both are set back in the
     declared shape. Returns the number of values converted."""
     fixed = 0
     for v in program.list_vars():
@@ -876,12 +958,14 @@ def restore_full_opt_state(scope, program):
                 or not v.shape:
             continue
         cur = scope.find_var(v.name)
-        if not isinstance(cur, ShardedState):
-            continue
         full = tuple(int(d) for d in v.shape)
         n = int(np.prod(full))
-        scope.set_var(v.name, cur.full().reshape(-1)[:n].reshape(full)
-                      .clone())
+        if isinstance(cur, ShardedState):
+            cur = cur.full()
+        elif not isinstance(cur, torch.Tensor) \
+                or tuple(cur.shape) == full or cur.numel() < n:
+            continue
+        scope.set_var(v.name, cur.reshape(-1)[:n].reshape(full).clone())
         fixed += 1
     return fixed
 

@@ -96,10 +96,6 @@ from paddle_tpu_torch.parallel.distribute import HostLocalBatch
 
 __all__ = ["ParallelExecutor"]
 
-_ITEM5 = ("a world change needs the elastic rebuild that recovery and "
-          "membership bring (ROADMAP.md Queue 1 item 5)")
-
-
 class _CommStep:
     """What a data-parallel plan adds to every step (``_Plan.comm``):
     the comm plan, the step's ``TraceComm`` with its census, and the
@@ -266,14 +262,34 @@ class ParallelExecutor(Executor):
         return self.mesh.size
 
     def set_mesh(self, mesh, epoch=None):
-        """Re-point this executor at another mesh of the same ranks. A
-        world change is refused until the elastic rebuild that recovery
-        and membership bring (ROADMAP.md Queue 1 item 5)."""
-        if mesh.size != self.mesh.size or mesh.ranks != self.mesh.ranks:
-            raise NotImplementedError(
-                "ParallelExecutor.set_mesh from %r to %r: %s"
-                % (self.mesh, mesh, _ITEM5))
-        self.mesh = mesh
+        """Re-point this executor at a NEW mesh mid-run — the elastic
+        rebuild (``ElasticRecoveryLoop.rebuild`` calls it with a mesh
+        that ``make_mesh`` built over the live ranks, then reshards the
+        state onto ``state_shardings()``).
+
+        Every rank of the default group calls it (``make_mesh`` did too),
+        also a rank the new mesh leaves out: that rank runs no step until
+        a later mesh takes it back. The plans, their CUDA graphs (which
+        captured the old groups' collectives) and the comm plans go, and
+        the old mesh's process groups are destroyed, so the next step
+        builds its plan anew on the new mesh's groups: once an epoch.
+        ``epoch`` stamps the membership epoch into the plan-miss
+        signature (``note_epoch``), so that rebuild is attributed to the
+        epoch that moved. A ``ShardedState`` in the scope names its old
+        group: onto a mesh of the same ranks the next step re-wraps its
+        rows onto the new groups (``collectives.regroup``); onto other
+        ranks take the ``snapshot_state`` cut before this call and
+        reshard from it after (``ElasticRecoveryLoop`` does)."""
+        old, self.mesh = self.mesh, mesh
+        self._rank = mesh.rank() if dist.get_rank() in mesh.ranks \
+            else None
+        for plan in self._plans.values():
+            plan.close()
+        self._plans.clear()
+        self._comm_plans.clear()
+        self.last_census = None
+        _release_groups(old, mesh)
+        self.note_epoch(epoch if epoch is not None else self.cluster_epoch)
         if telemetry.enabled():
             telemetry.set_world_size(mesh.size)
         return self
@@ -285,14 +301,14 @@ class ParallelExecutor(Executor):
             or ir.default_main_program()
 
     def run(self, fetch_list=None, feed=None, feed_dict=None, program=None,
-            scope=None, return_numpy=True):
+            scope=None, return_numpy=True, step0=None):
         feed = feed if feed is not None else (feed_dict or {})
         program = self._resolve_program(program)
         self._scope = scope if scope is not None else global_scope()
         out = super().run(program=program,
                           feed=self._cut_feeds(program, feed, 0),
                           fetch_list=fetch_list, scope=self._scope,
-                          return_numpy=return_numpy)
+                          return_numpy=return_numpy, step0=step0)
         self._post_dispatch_telemetry(program, 1)
         return out
 
@@ -365,7 +381,7 @@ class ParallelExecutor(Executor):
         if isinstance(cur, collectives.ShardedState) \
                 and not isinstance(value, collectives.ShardedState):
             value = collectives.ShardedState.wrap(value, cur.full_shape,
-                                                  cur.group)
+                                                  cur.group, cur.ranks)
         scope.set_var(name, value)
 
     # ---- plans ----
@@ -461,7 +477,7 @@ class ParallelExecutor(Executor):
         cplan = step.plan
         if cplan.config.zero_stage:
             if not collectives.zero_layout_current(scope, cplan,
-                                                   step.zero_shapes):
+                                                   step.zero_shapes, group):
                 collectives.ensure_zero_state(scope, cplan, rank,
                                               group, step.zero_shapes)
         elif step.probe is not None and isinstance(
@@ -545,6 +561,20 @@ class ParallelExecutor(Executor):
             for n, spec in collectives.mp_specs(plan, program).items():
                 out[n] = mesh_lib.Sharding(self.mesh, spec)
         return out
+
+
+def _release_groups(old, new):
+    """Destroy the process groups ``old`` made that ``new`` does not use
+    (the default group stays)."""
+    keep = {id(g) for g in [new.group, *new.axis_groups.values()]}
+    seen = set()
+    for g in [old.group, *old.axis_groups.values()]:
+        if g is None or id(g) in keep or id(g) in seen \
+                or g is dist.GroupMember.NON_GROUP_MEMBER \
+                or g is dist.GroupMember.WORLD:
+            continue
+        seen.add(id(g))
+        dist.destroy_process_group(g)
 
 
 def _dim(v):

@@ -127,6 +127,9 @@ class ServingServer(rpc.FederationRpcMixin):
         # process exit mid-serialization
         self._inflight = 0
         self._inflight_cv = threading.Condition()
+        # membership registration (register()); None = not a member
+        self._member_client = None
+        self._member = None
 
         outer = self
 
@@ -179,16 +182,55 @@ class ServingServer(rpc.FederationRpcMixin):
             self.engine.warmup()
         return self
 
+    def register(self, membership_address, name, kind="replica",
+                 ttl=None, heartbeat_interval=2.0):
+        """Self-register this replica in the membership service (TTL
+        lease kept alive by the client's heartbeat thread), so routers
+        watching the cluster epoch discover it — and discover its death
+        within one lease TTL. ``drain()`` deregisters before flushing;
+        a hard kill simply stops the beats and the sweep ejects it."""
+        from paddle_tpu_torch.distributed.membership import \
+            MembershipClient
+
+        self._member_client = MembershipClient(
+            membership_address, heartbeat_interval=heartbeat_interval)
+        self._member = (kind, name)
+        self._member_client.register(
+            kind, name, "%s:%d" % (self.address[0], self.address[1]),
+            ttl=ttl)
+        return self
+
+    def _deregister(self):
+        """Leave the membership (idempotent; a dead control plane must
+        not block the drain — the lease expires on its own)."""
+        if self._member_client is None:
+            return
+        kind, name = self._member
+        client, self._member_client = self._member_client, None
+        try:
+            client.deregister(kind, name)
+        except rpc.RpcError as e:
+            warnings.warn(
+                "membership deregister of %s/%s failed (%s); the lease "
+                "will expire on its own" % (kind, name, e),
+                RuntimeWarning)
+        finally:
+            client.close()
+
     def drain(self, timeout=30.0):
-        """Graceful SIGTERM path: stop admitting (readiness false, new
-        submits refused), flush every in-flight batch, then stop the
-        listener. Idempotent — and re-runnable: a
+        """Graceful SIGTERM path: leave the membership, stop admitting
+        (readiness false, new submits refused), flush every in-flight
+        batch, then stop the listener. Idempotent — and re-runnable: a
         drain interrupted by a (real or injected) preemption marks
         nothing complete, so the retry still flushes and closes."""
         with self._drain_lock:
             if self._drained:
                 return
             self._draining = True  # readiness flips false immediately
+            # deregister FIRST: the epoch bump tells routers to stop
+            # routing here while the flush below still answers every
+            # already-admitted request
+            self._deregister()
             if fault._active:
                 # the preemption-during-drain chaos seam: an injected
                 # Preemption here must not lose an admitted request

@@ -399,19 +399,20 @@ def test_executor_rejections(world1, case):
 
 def test_global_view_gaps_raise(world1):
     """The global view over the NHWC pass needs B7 to take a cross-rank
-    sum (ROADMAP); a world change needs the elastic rebuild; the audit
-    stand-ins name the census."""
+    sum (ROADMAP); ``set_mesh`` takes a new mesh (the elastic rebuild),
+    drops the plans and stamps the epoch; the audit stand-ins name the
+    census."""
     from paddle_tpu_torch import passes
-    from paddle_tpu_torch.parallel.mesh import Mesh as M
+    from paddle_tpu_torch.parallel.mesh import make_mesh
 
     pe, prog, loss, scope = _mlp_run(zero_stage=0)
     passes.enable(prog, layout="NHWC", feed_layout="NCHW")
     with pytest.raises(NotImplementedError, match="B7"):
         pe.run(fetch_list=[loss.name], feed=tp.feeds("dense")[0],
                scope=scope)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pe.set_mesh(M(("dp",), (2,), (0, 1)))
-    assert pe.set_mesh(pe.mesh) is pe
+    assert pe.set_mesh(make_mesh((1,), ("dp",)), epoch=3) is pe
+    assert pe.cluster_epoch == 3 and not pe._plans
+    assert pe.set_mesh(pe.mesh) is pe and pe.cluster_epoch == 3
     with pytest.raises(NotImplementedError, match="census"):
         pe.compiled_hlo()
     with pytest.raises(NotImplementedError, match="census"):

@@ -85,6 +85,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
         "from paddle_tpu_torch.parallel import pipeline, expert_parallel\n"
         "import paddle_tpu_torch.layers.pipeline\n"
         "import paddle_tpu_torch.ops.pipeline_ops\n"
+        "import paddle_tpu_torch.native, paddle_tpu_torch.recordio_writer\n"
+        "from paddle_tpu_torch.distributed import (checkpoint, "
+        "sharded_checkpoint, recovery, membership, master, pserver)\n"
         "assert paddle_tpu_torch.op_registry is "
         "paddle_tpu_torch.core.registry\n"
         "assert paddle.reader is paddle_tpu_torch.reader\n"
@@ -129,6 +132,41 @@ def test_decode_engine_without_place_needs_a_card():
         vocab_size=11, d_model=8, num_layers=1, num_heads=2, max_len=16)
     with pytest.raises(RuntimeError, match="CPUPlace"):
         DecodeEngine(pre, dec, meta, num_slots=1, prompt_buckets=(8,))
+
+
+def test_restore_without_place_needs_a_card(tmp_path):
+    """A restore puts a value the scope does not hold on ``place``,
+    ``CUDAPlace(0)`` by default: with no card it raises."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed.sharded_checkpoint import (
+        load_sharded_checkpoint, save_sharded_checkpoint)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the restore lands on it")
+    scope = fluid.Scope()
+    scope.set_var("w", torch.ones(3))
+    save_sharded_checkpoint(str(tmp_path), 1, scope, names=["w"])
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        load_sharded_checkpoint(str(tmp_path), fluid.Scope(), {})
+    s = fluid.Scope()
+    load_sharded_checkpoint(str(tmp_path), s, {}, place=fluid.CPUPlace())
+    assert s.find_var("w").device.type == "cpu"
+
+
+def test_native_builds_its_own_library_or_raises(monkeypatch, tmp_path):
+    """The host runtime builds into build/torch_native/ (never the JAX
+    package's native/build/); a failing build raises with the
+    compiler's output."""
+    from paddle_tpu_torch import native
+
+    assert native.BUILD_DIR == os.path.join(REPO, "build", "torch_native")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "SO", str(tmp_path / "libptnative.so"))
+    monkeypatch.setattr(native, "CXX_FLAGS", ("-O2", "-fno-such-flag"))
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        native.num_records(str(tmp_path / "x.rio"))
+    assert not os.listdir(str(tmp_path))
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -16,6 +16,7 @@ The staging readers ``device_chunks`` and ``double_buffer`` copy to the
 card: here only that they raise with no card;
 ``tests/test_torch_v2_cuda.py`` holds them on the card."""
 
+import os
 import pickle
 import random
 
@@ -298,6 +299,19 @@ def test_split_and_cluster_files_reader(tmp_path):
 
 
 def test_convert_waits_for_recordio_writer(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        common.convert(str(tmp_path), rows(), 3, "ds")
-    assert list(tmp_path.iterdir()) == []
+    """``convert`` (ported with ``recordio_writer``) writes the same files
+    as the JAX package's: 10 samples at 3 a file are 4 shards, each the
+    same bytes, read back by the port's native loader."""
+    from paddle_tpu_torch import recordio_writer
+
+    got = common.convert(str(tmp_path / "t"), rows(), 3, "ds")
+    want = jdata.common.convert(str(tmp_path / "j"), rows(), 3, "ds")
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want] == \
+        ["ds-%05d" % i for i in range(4)]
+    for a, b in zip(got, want):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+    back = list(recordio_writer.recordio_sample_reader(got,
+                                                       num_threads=1)())
+    assert sorted(int(s[1]) for s in back) == list(range(10))

@@ -1029,7 +1029,7 @@ def test_serve_subcommand_answers_and_drains(tmp_path):
            "--max-delay-ms", "2", "--place", "cpu", "--die-with-parent"]
     r = subprocess.run(cmd + ["--replicas", "2"], env=env, cwd=REPO,
                        capture_output=True, text=True, timeout=120)
-    assert r.returncode == 2 and "item 10" in r.stdout, r.stdout
+    assert r.returncode == 2 and "item 7" in r.stdout, r.stdout
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             cwd=REPO)

@@ -24,9 +24,9 @@ import paddle_tpu_torch
 # kernels' tiles are fixed, and a CPU tensor runs the plain version
 _PALLAS = "the Pallas interpreter switch and TPU tiling (VMEM)"
 # the persistent AOT cache (serving/aot_cache.py) is not ported yet:
-# ROADMAP.md Queue 1 item 10
+# ROADMAP.md Queue 1 item 7 (the router, the AOT cache and deploy)
 _AOT = "the persistent AOT cache arrives with serving/aot_cache.py " \
-       "(ROADMAP.md Queue 1 item 10)"
+       "(ROADMAP.md Queue 1 item 7)"
 
 #: "module:qualname" -> {parameter: reason}, or {"*": reason} for a
 #: signature that differs as a whole
@@ -91,6 +91,13 @@ PUBLIC = {
          "is_compiled_with_tpu", "append_backward", "set_flags",
          "get_flags", "ParallelExecutor", "DistributeTranspiler"),
     "v2": ("init", "infer", "batch"),
+    "distributed": ("MasterServer", "MasterClient", "CheckpointManager",
+                    "save_checkpoint", "load_checkpoint",
+                    "latest_checkpoint", "RpcError", "RpcConnectionError",
+                    "RpcTimeout", "RpcRemoteError", "CircuitOpenError",
+                    "CircuitBreaker", "RpcChannel", "Preemption",
+                    "RecoveryLoop", "train_with_recovery",
+                    "init_multihost"),
     "parallel": ("make_mesh", "get_mesh", "mesh_guard", "ParallelExecutor",
                  "CommConfig", "DistributeTranspiler"),
     "reader": ("map_readers", "buffered", "compose", "chain", "shuffle",
@@ -110,8 +117,6 @@ TOP_LEVEL_ABSENT = {
     "profiler": "item 6 (observability)",
     "telemetry_export": "item 6 (observability)",
     "trace_export": "item 6 (observability)",
-    "native": "item 8 (native/ against libtorch)",
-    "recordio_writer": "item 8",
     "concurrency": "item 8 (concurrency.py, layers/csp.py)",
     "Go": "item 8", "Select": "item 8", "make_channel": "item 8",
     "channel_send": "item 8", "channel_recv": "item 8",
@@ -316,6 +321,75 @@ def test_the_tensor_and_sequence_axis_names_are_compared(rel, qual):
     """``mp=`` and ``seq_axis=`` are taken (and run) wherever the JAX
     package takes them, and the tensor and sequence axes' modules are
     compared like every other, with no deliberate difference."""
+    assert rel in MODULES
+    jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
+    found = {q: (a, b) for q, a, b in _callables(jm, tm)}
+    assert qual in found
+    assert not _differences(*found[qual])
+    assert not [k for k in DELIBERATE if k == "%s:%s" % (rel, qual)]
+
+
+_DISTRIBUTED = [
+    ("distributed", n) for n in (
+        "MasterServer", "MasterClient", "CheckpointManager",
+        "save_checkpoint", "load_checkpoint", "latest_checkpoint",
+        "RpcChannel", "CircuitBreaker", "Preemption", "RecoveryLoop",
+        "train_with_recovery", "init_multihost")] + [
+    ("distributed.checkpoint", "CheckpointManager.save"),
+    ("distributed.checkpoint", "CheckpointManager.restore"),
+    ("distributed.sharded_checkpoint", "snapshot_state"),
+    ("distributed.sharded_checkpoint", "reshard_state"),
+    ("distributed.sharded_checkpoint", "save_sharded_checkpoint"),
+    ("distributed.sharded_checkpoint", "load_sharded_checkpoint"),
+    ("distributed.sharded_checkpoint", "latest_sharded_checkpoint"),
+    ("distributed.sharded_checkpoint", "quarantine_step"),
+    ("distributed.sharded_checkpoint", "ShardedCheckpointManager"),
+    ("distributed.sharded_checkpoint",
+     "ShardedCheckpointManager.restore_last_healthy"),
+    ("distributed.recovery", "ElasticRecoveryLoop"),
+    ("distributed.recovery", "RecoveryLoop.run"),
+    ("distributed.recovery", "Reshard"),
+    ("distributed.recovery", "raise_on_sigterm"),
+    ("distributed.membership", "MembershipServer"),
+    ("distributed.membership", "MembershipClient"),
+    ("distributed.membership", "MembershipClient.register"),
+    ("distributed.membership", "MembershipClient.watch_world"),
+    ("distributed.membership", "EpochWatcher"),
+    ("distributed.membership", "EpochWatcher.shared"),
+    ("distributed.membership", "shared_watchers"),
+    ("distributed.master", "MasterServer.rpc_set_dataset"),
+    ("distributed.master", "MasterClient.tasks"),
+    ("distributed.pserver", "ParameterServer"),
+    ("distributed.pserver", "PServerClient"),
+    ("native", "RecordIOWriter"), ("native", "RecordLoader"),
+    ("native", "TaskQueue"), ("native", "BufferPool"),
+    ("recordio_writer", "convert_reader_to_recordio_files"),
+    ("recordio_writer", "recordio_sample_reader"),
+    ("dataset.common", "convert"),
+    ("parallel.parallel_executor", "ParallelExecutor.set_mesh"),
+    ("serving.server", "ServingServer.register"),
+]
+
+
+def test_the_distributed_exports_are_the_jax_packages():
+    """``paddle_tpu_torch.distributed`` exports exactly what the JAX
+    package's ``distributed`` exports."""
+    import paddle_tpu.distributed as jd
+    import paddle_tpu_torch.distributed as td
+
+    def public(m):
+        return {n for n in vars(m) if not n.startswith("_")
+                and not isinstance(vars(m)[n], type(os))}
+
+    assert public(td) == public(jd)
+
+
+@pytest.mark.parametrize("rel,qual", _DISTRIBUTED)
+def test_the_distributed_names_are_compared(rel, qual):
+    """The checkpoint, recovery, membership, master and parameter-server
+    names, the host runtime's and ``set_mesh`` take every keyword of the
+    JAX package's, with no deliberate difference (the port's added
+    keywords — ``place``, ``num_processes`` — all have defaults)."""
     assert rel in MODULES
     jm, tm = _module("paddle_tpu", rel), _module("paddle_tpu_torch", rel)
     found = {q: (a, b) for q, a, b in _callables(jm, tm)}
